@@ -1,0 +1,337 @@
+"""Smoke test of the PyTorch port (clonealign_torch) on one NVIDIA GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from the sources in the checkout, holds each
+kernel against its plain PyTorch version on the card (at a small ragged shape
+and at the full width of the main path), then drives the fit at full width —
+100,000 cells x 5,000 genes x 10 clones, clone-structured counts made on the
+card from a seed — through ``clonealign_torch.clonealign``, and a small
+``run_clonealign`` sweep. Any failed phase raises and the script exits
+nonzero. The last line of standard output is a JSON object naming the card;
+the line before it lists each kernel with its launches during the fit, its
+error against the plain version and both times.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# A kernel output element passes when |kernel - plain| <= KERNEL_RTOL * scale,
+# where scale is the same sum taken over absolute values of its terms. A1,
+# A2, dpsi and dW are signed sums over thousands of genes or cells, so an
+# error relative to the result itself means nothing where terms cancel; both
+# sides accumulate in float32 in different orders, and 1e-4 of the absolute
+# sum is about 800 float32 ulps of it.
+KERNEL_RTOL = 1e-4
+
+FULL = dict(N=100_000, G=5_000, C=10)     # bench.py's headline configuration
+SMALL = dict(N=37, G=41, C=2)             # ragged: no dimension a multiple of a tile
+SWEEP = dict(N=2_000, G=500, C=4)
+FIT_MAX_ITER = 100
+MIN_ACCURACY = 0.99
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Kernel vs plain
+# ---------------------------------------------------------------------------
+
+def kernel_inputs(gen, N, G, C, S, Kf, device):
+    import torch
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    mu = torch.exp(0.5 * randn(S, G))
+    L = torch.randint(1, 5, (G, C), generator=gen, device=device).float()
+    rates = 0.4 * torch.exp(0.5 * randn(1, G)).expand(N, G)
+    return dict(
+        Y=torch.poisson(rates.contiguous(), generator=gen),
+        psi=randn(N, Kf),
+        W=0.3 * randn(G, Kf),
+        log_mu=torch.log(mu),
+        muL=(mu[:, None, :] * L.T[None]).permute(2, 0, 1).reshape(G, S * C).contiguous(),
+        dA1=randn(N),
+        dA2=randn(N, S),
+        dZ=randn(N, S * C),
+    )
+
+
+def abs_scales(x, with_a2):
+    """Per-element sums over absolute terms, for the tolerance."""
+    import torch
+
+    Y, psi, W, muL = x["Y"], x["psi"], x["W"], x["muL"]
+    log_rfe = psi @ W.T
+    rfe = torch.exp(log_rfe)
+    fwd = {
+        "A1": (Y * log_rfe.abs()).sum(1),
+        "Z": rfe @ muL,
+    }
+    if with_a2:
+        fwd["A2"] = Y @ x["log_mu"].abs().T
+    dlog = Y * x["dA1"].abs()[:, None] + rfe * (x["dZ"].abs() @ muL.T)
+    bwd = {
+        "dpsi": dlog @ W.abs(),
+        "dW": dlog.T @ psi.abs(),
+        "dmuL": rfe.T @ x["dZ"].abs(),
+    }
+    if with_a2:
+        bwd["dlog_mu"] = x["dA2"].abs().T @ Y
+    return fwd, bwd
+
+
+def compare(got: dict, want: dict, scale: dict, label: str):
+    """Raise unless every element is within KERNEL_RTOL of its scale; return
+    the largest absolute error."""
+    worst = 0.0
+    for name in want:
+        if want[name].numel() == 0:
+            continue
+        err = (got[name] - want[name]).abs()
+        rel = float((err / scale[name].clamp_min(1e-30)).max())
+        max_abs = float(err.max())
+        ok = bool((err <= KERNEL_RTOL * scale[name]).all())
+        log(f"  {label} {name:8s} max|err| {max_abs:.3e}  max err/scale {rel:.3e}  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} {name}: kernel disagrees with the plain version")
+        worst = max(worst, max_abs)
+    return worst
+
+
+def cuda_ms(fn, reps):
+    """Median milliseconds per call, timed with CUDA events after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def check_kernels(shape, S, Kf, seed, reps):
+    """Compare forward (A2 on and off) and backward with the plain versions
+    at one shape; return the errors and the times of the A2-off calls (the
+    training step's form)."""
+    import torch
+
+    from clonealign_torch.ops import fused_likelihood as fl
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = kernel_inputs(gen, shape["N"], shape["G"], shape["C"], S, Kf, "cuda")
+    label = f"{shape['N']}x{shape['G']} S*C={S * shape['C']} Kf={Kf}"
+    result = {}
+    for with_a2 in (True, False):
+        log_mu = x["log_mu"] if with_a2 else None
+        dA2 = x["dA2"] if with_a2 else None
+        args_f = (x["Y"], x["psi"], x["W"], log_mu, x["muL"])
+        args_b = (x["Y"], x["psi"], x["W"], x["muL"], x["dA1"], dA2, x["dZ"])
+        fwd_scale, bwd_scale = abs_scales(x, with_a2)
+        names_f = ("A1", "A2", "Z")
+        names_b = ("dpsi", "dW", "dlog_mu", "dmuL")
+
+        def as_dict(names, out):
+            return {n: t for n, t in zip(names, out) if t is not None}
+
+        got = as_dict(names_f, fl.kernel_forward(*args_f))
+        want = as_dict(names_f, fl.reference_likelihood_terms(*args_f))
+        torch.cuda.synchronize()
+        tag = f"{label} A2={'on' if with_a2 else 'off'}"
+        err_f = compare(got, want, fwd_scale, f"fwd {tag}")
+        got = as_dict(names_b, fl.kernel_backward(*args_b))
+        want = as_dict(names_b, fl.reference_likelihood_vjp(*args_b))
+        torch.cuda.synchronize()
+        err_b = compare(got, want, bwd_scale, f"bwd {tag}")
+
+        t = {
+            "fwd_ms": cuda_ms(lambda: fl.kernel_forward(*args_f), reps),
+            "fwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_terms(*args_f), reps),
+            "bwd_ms": cuda_ms(lambda: fl.kernel_backward(*args_b), reps),
+            "bwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_vjp(*args_b), reps),
+        }
+        log(f"  {tag}: fwd {t['fwd_ms']:.3f} ms (plain {t['fwd_plain_ms']:.3f} ms), "
+            f"bwd {t['bwd_ms']:.3f} ms (plain {t['bwd_plain_ms']:.3f} ms)")
+        if not with_a2:
+            result = dict(t, fwd_err=err_f, bwd_err=err_b)
+    del x
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Fit
+# ---------------------------------------------------------------------------
+
+def synth_counts(seed, N, G, C):
+    """Clone-structured Poisson counts made on the card (bench.py's recipe):
+    L in {1..4}, mu = exp(0.5 N(0,1)), row totals about 2000, and a count
+    added to gene 0 of any all-zero row. Returns host int16 counts, L and
+    the true clone of each cell."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    L = torch.randint(1, 5, (G, C), generator=gen, device="cuda").float()
+    mu = torch.exp(0.5 * torch.randn(G, generator=gen, device="cuda"))
+    z = torch.randint(0, C, (N,), generator=gen, device="cuda")
+    Y = torch.empty(N, G, dtype=torch.int16, device="cuda")
+    for i in range(0, N, 10_000):
+        rates = mu[None, :] * L[:, z[i:i + 10_000]].T
+        rates = rates * (2000.0 / rates.sum(1, keepdim=True))
+        y = torch.poisson(rates, generator=gen)
+        y[:, 0] += (y.sum(1) == 0).float()
+        if float(y.max()) > 32767:
+            raise AssertionError("synthetic counts exceed int16")
+        Y[i:i + 10_000] = y.to(torch.int16)
+    return Y.cpu().numpy(), L.cpu().numpy().astype(np.float64), z.cpu().numpy()
+
+
+def accuracy(fit, z_true) -> float:
+    index = {name: i for i, name in enumerate(fit.clone_names)}
+    called = np.asarray([index.get(c, -1) for c in fit.clone])  # unassigned counts wrong
+    return float(np.mean(called == z_true))
+
+
+def check_trace(trace):
+    trace = np.asarray(trace, np.float64)
+    if not np.isfinite(trace).all():
+        raise AssertionError("ELBO trace has non-finite values")
+    rising = float(np.mean(np.diff(trace) > 0))
+    if not (trace[-1] > trace[0] and rising >= 0.5):
+        raise AssertionError(
+            f"ELBO trace is not mostly increasing: first {trace[0]}, last "
+            f"{trace[-1]}, share of rising steps {rising:.2f}"
+        )
+    return rising
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this test needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 1
+
+    import clonealign_torch
+    from clonealign_torch.ops import _build
+    from clonealign_torch.ops import fused_likelihood as fl
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    if _build.build_log:
+        log(_build.build_log.strip())
+
+    # 3. kernels vs plain, small ragged shape, then full width
+    log("kernels vs plain (tolerance: KERNEL_RTOL="
+        f"{KERNEL_RTOL:g} of the per-element absolute-term sum)")
+    check_kernels(SMALL, S=1, Kf=1, seed=1, reps=5)
+    full = check_kernels(FULL, S=1, Kf=1, seed=2, reps=10)
+
+    # 4. the fit at full width, through the public entry point
+    t0 = time.perf_counter()
+    Y, L, z = synth_counts(3, FULL["N"], FULL["G"], FULL["C"])
+    log(f"synthetic counts {Y.shape} int16 on the card -> host: "
+        f"{time.perf_counter() - t0:.1f} s")
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit = clonealign_torch.clonealign(
+        Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False
+    )
+    wall = time.perf_counter() - t0
+    launches = {"fwd": fl.fwd_launches, "bwd": fl.bwd_launches}
+    n_iters = fit.convergence_info.n_iters
+    tm = fit.timings
+    log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']}: {wall:.2f} s wall, "
+        f"setup {tm['setup']:.2f} s, init {tm['init']:.2f} s, "
+        f"inference {tm['inference']:.2f} s ({n_iters} iterations, "
+        f"{1000 * tm['loop'] / max(n_iters, 1):.2f} ms per iteration), "
+        f"package {tm['package']:.2f} s")
+    rising = check_trace(fit.convergence_info.elbo)
+    acc = accuracy(fit, z)
+    log(f"  ELBO {fit.convergence_info.elbo[0]:.6g} -> {fit.convergence_info.elbo[-1]:.6g} "
+        f"(rising steps {rising:.2f}), final {fit.convergence_info.final_elbo:.6g} "
+        f"+- {fit.convergence_info.sd_final_elbo:.3g}; accuracy {acc:.4f}; "
+        f"launches fwd {launches['fwd']} bwd {launches['bwd']}")
+    if acc < MIN_ACCURACY:
+        raise AssertionError(f"accuracy {acc:.4f} < {MIN_ACCURACY}")
+    # warm start + initial ELBO + (train + fresh eval) per iteration + 20 final
+    want_fwd = 2 + 2 * n_iters + 20
+    if launches != {"fwd": want_fwd, "bwd": n_iters}:
+        raise AssertionError(
+            f"kernel launches {launches} do not match {n_iters} iterations "
+            f"(expected fwd {want_fwd}, bwd {n_iters})"
+        )
+    del Y
+
+    # 5. a small restart sweep through run_clonealign
+    Ys, Ls, zs = synth_counts(4, SWEEP["N"], SWEEP["G"], SWEEP["C"])
+    t0 = time.perf_counter()
+    sweep = clonealign_torch.run_clonealign(
+        Ys, Ls, initial_shrinks=(0, 5, 10), n_repeats=1, device="cuda",
+        max_iter=FIT_MAX_ITER, seed=0, verbose=False,
+    )
+    info = sweep.multirun_info
+    best = int(np.nanargmax(info["elbos"]))
+    acc_s = accuracy(sweep, zs)
+    log(f"run_clonealign {SWEEP['N']}x{SWEEP['G']}x{SWEEP['C']}, 3 restarts: "
+        f"{time.perf_counter() - t0:.2f} s, ELBOs {info['elbos'].tolist()}, "
+        f"best {info['best_run']}, accuracy {acc_s:.4f}")
+    if info["best_run"] != best or acc_s < MIN_ACCURACY:
+        raise AssertionError("run_clonealign picked a wrong lane or assigned badly")
+
+    kernels = [
+        {"name": "fused_likelihood_fwd", "route": "cuda",
+         "source": "clonealign_torch/ops/csrc/fused_likelihood.cu",
+         "replaces": "clonealign_tpu/ops/fused_likelihood.py:125",
+         "launches": launches["fwd"], "max_abs_err": full["fwd_err"],
+         "ms": full["fwd_ms"], "plain_ms": full["fwd_plain_ms"]},
+        {"name": "fused_likelihood_bwd", "route": "cuda",
+         "source": "clonealign_torch/ops/csrc/fused_likelihood.cu",
+         "replaces": "clonealign_tpu/ops/fused_likelihood.py:234",
+         "launches": launches["bwd"], "max_abs_err": full["bwd_err"],
+         "ms": full["bwd_ms"], "plain_ms": full["bwd_plain_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

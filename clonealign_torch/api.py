@@ -1,0 +1,475 @@
+"""Public fit API: ``clonealign(...)`` (reference R/clonealign.R:184-305),
+counterpart of ``clonealign_tpu/api.py``.
+
+Parameter names and defaults match the JAX package, plus an explicit
+``device`` ("cpu" or "cuda") and an injectable ``noise`` source. This port
+covers the default corner: a dense count matrix, no covariates, no allele
+data, the exact likelihood (on CUDA through the hand-written kernels), Y
+stored in the compute dtype. Every other option raises NotImplementedError
+naming its ROADMAP item; none falls back silently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import assign as _assign
+from .fit import ClonealignFit, ConvergenceInfo
+from .infer import run_inference
+from .models import multinomial as mm
+from .utils.chunking import host_row_chunk as _host_row_chunk
+from .utils.device import resolve_device, resolve_dtype, synchronize
+from .utils.noise import Noise
+from .utils.sparsity import is_scipy_sparse as _is_scipy_sparse
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to clonealign_torch yet (ROADMAP.md, "
+        f"still to port: {item})"
+    )
+
+
+def saturate(x, threshold=4):
+    """Clip copy numbers above threshold (reference R/clonealign.R:394-397)."""
+    return np.minimum(np.asarray(x, np.float64), float(threshold))
+
+
+def _parse_expression(gene_expression_data):
+    """Accept a cell-by-gene array, an ExampleSCE-style object with
+    ``.counts``/names, or an AnnData-style object with ``.X``
+    (reference R/clonealign.R:212-224 accepts SCE or matrix).
+
+    scipy sparse matrices (direct or as AnnData ``.X``) are kept sparse —
+    statistics and the device upload are computed from the sparse structure
+    without a host-side N x G float64 densification."""
+    gene_names = cell_names = None
+    obj = gene_expression_data
+    if hasattr(obj, "counts"):
+        Y = np.asarray(obj.counts)
+        gene_names = list(getattr(obj, "gene_names", None) or [])
+        cell_names = list(getattr(obj, "cell_names", None) or [])
+    elif hasattr(obj, "X"):  # AnnData duck-type
+        X = obj.X
+        Y = X.tocsr() if _is_scipy_sparse(X) else np.asarray(X)
+        if hasattr(obj, "var_names"):
+            gene_names = [str(g) for g in obj.var_names]
+        if hasattr(obj, "obs_names"):
+            cell_names = [str(c) for c in obj.obs_names]
+    elif _is_scipy_sparse(obj):
+        Y = obj.tocsr()
+    elif hasattr(obj, "todense"):  # other COOMatrix-style duck-types
+        Y = np.asarray(obj.todense())
+    else:
+        Y = np.asarray(obj)
+    if Y.ndim != 2:
+        raise ValueError("gene_expression_data must be a 2-D cell-by-gene matrix")
+    # Keep the INPUT dtype: a float64 N x G copy here would peak 16 GB of
+    # host RAM for a 1M x 2k int16 matrix (VERDICT r2 weak item 4). All
+    # validation and statistics downstream run chunk-wise at input dtype;
+    # only non-numeric (object/bool/...) arrays are converted.
+    if not _is_scipy_sparse(Y) and not (
+        np.issubdtype(Y.dtype, np.integer) or np.issubdtype(Y.dtype, np.floating)
+    ):
+        Y = Y.astype(np.float64)
+    return Y, gene_names or None, cell_names or None
+
+
+def _colsum_f64(Y) -> np.ndarray:
+    """Per-gene count totals, accumulated in float64 over row chunks at the
+    input dtype (no full-matrix temporary)."""
+    N, G = Y.shape
+    acc = np.zeros(G, np.float64)
+    for i in range(0, N, _host_row_chunk(G)):
+        acc += Y[i : i + _host_row_chunk(G)].sum(axis=0, dtype=np.float64)
+    return acc
+
+
+_FRACTIONAL_MSG = (
+    "gene_expression_data must contain raw integer counts — clonealign's "
+    "model is a count likelihood, and the reference API takes the counts "
+    "assay specifically (reference R/clonealign.R:212-224). Found fractional "
+    "values, which usually means normalized/log-transformed data (e.g. "
+    "scanpy's adata.X after normalization). Pass the raw counts instead "
+    "(AnnData users: adata.layers['counts'] or adata.raw.X), or set "
+    "allow_fractional=True to fit the fractional values anyway."
+)
+
+
+def _validate_counts(Y, allow_fractional: bool = False) -> None:
+    """NaN/inf, negativity, integrality, and zero-count-cell checks
+    (reference R/inference-tflow.R:212-214; the integrality check enforces
+    the reference's counts-assay contract, R/clonealign.R:212-224) —
+    chunk-wise so no full-size boolean/temporary is ever allocated."""
+    N, G = Y.shape
+    check_finite = np.issubdtype(Y.dtype, np.floating)
+    zero_cell = False
+    for i in range(0, N, _host_row_chunk(G)):
+        c = Y[i : i + _host_row_chunk(G)]
+        if check_finite and not np.isfinite(c).all():
+            raise ValueError("gene_expression_data contains NaN/inf values")
+        if (c < 0).any():
+            raise ValueError("gene_expression_data must be non-negative raw counts")
+        if check_finite and not allow_fractional and np.any(c != np.trunc(c)):
+            raise ValueError(_FRACTIONAL_MSG)
+        if (c.sum(axis=1, dtype=np.float64) == 0).any():
+            zero_cell = True
+    if zero_cell:
+        raise ValueError("Some cells have no counts mapping")  # R/inference-tflow.R:212-214
+
+
+def _parse_copy_number(copy_number_data, G):
+    """Accept (G, C) array or pandas-like with named clone columns
+    (reference R/clonealign.R:237-254)."""
+    clone_names = None
+    obj = copy_number_data
+    if hasattr(obj, "columns") and hasattr(obj, "values"):  # pandas-like
+        clone_names = [str(c) for c in obj.columns]
+        L = np.asarray(obj.values, np.float64)
+    elif isinstance(obj, dict):
+        clone_names = [str(c) for c in obj.keys()]
+        L = np.stack([np.asarray(v, np.float64) for v in obj.values()], axis=1)
+    else:
+        L = np.asarray(obj, np.float64)
+    if L.ndim == 1:
+        L = L[:, None]
+    if L.shape[0] != G:
+        raise ValueError(
+            "copy_number_data must have same number of genes (rows) as "
+            f"gene_expression_data: got {L.shape[0]} vs {G}"
+        )
+    if clone_names is None:
+        clone_names = _default_clone_names(L.shape[1])
+    return L, clone_names
+
+
+def _default_clone_names(C: int):
+    """Reference default: clone_a, clone_b, ... (R/clonealign.R:252-254)."""
+    import string
+
+    letters = string.ascii_lowercase
+    return ["clone_" + (letters[i] if i < 26 else str(i)) for i in range(C)]
+
+
+@dataclasses.dataclass
+class FitContext:
+    """Parsed, filtered inputs on the device, shared by single- and
+    multi-restart fits."""
+
+    Y: np.ndarray            # (N, G) filtered host counts, input dtype
+    L: np.ndarray            # (G, C) saturated copy numbers
+    clone_names: list
+    retained_genes: list
+    config: mm.ModelConfig
+    data: mm.ModelData
+    dtype: torch.dtype
+    device: torch.device
+    data_init_mu: object
+
+
+def _check_options(x, clone_allele, cov, ref, y_storage, likelihood_impl):
+    if x is not None:
+        raise _not_ported("covariates x", "covariates")
+    if clone_allele is not None or cov is not None or ref is not None:
+        raise _not_ported("allele-specific inputs (clone_allele/cov/ref)", "allele")
+    if likelihood_impl == "z_cheb":
+        raise _not_ported("likelihood_impl='z_cheb'", "z_cheb")
+    if likelihood_impl not in ("auto", "xla"):
+        raise ValueError(
+            "likelihood_impl must be 'auto' or 'xla' (both run the exact "
+            f"likelihood); got {likelihood_impl!r}"
+        )
+    if y_storage in ("int8", "int16", "bfloat16"):
+        raise _not_ported(f"y_storage={y_storage!r}", "int8/int16 Y read by the kernel")
+    if y_storage not in (None, "auto", "float32"):
+        raise ValueError(
+            "y_storage must be one of 'auto', 'float32', 'int16', 'int8', "
+            f"'bfloat16'; got {y_storage!r}"
+        )
+
+
+def setup_fit(
+    gene_expression_data,
+    copy_number_data,
+    gene_filter_threshold: float = 0,
+    x=None,
+    clone_allele=None,
+    cov=None,
+    ref=None,
+    fix_alpha: bool = False,
+    dtype: str = "float32",
+    saturate: bool = True,
+    saturation_threshold: float = 6,
+    K: Optional[int] = None,
+    mc_samples: int = 1,
+    verbose: bool = True,
+    data_init_mu=True,
+    y_storage: Optional[str] = "auto",
+    likelihood_impl: str = "auto",
+    allow_fractional: bool = False,
+    *,
+    device,
+) -> FitContext:
+    """Input parsing, gene filtering and validation on the host, then the
+    device data (reference R/clonealign.R:206-260, R/inference-tflow.R:111-235).
+
+    The gene filter always runs on the host before the data go to the
+    device, so the per-cell feasibility check sees the filtered genes.
+    ``y_storage`` "auto" and "float32" both store Y in the compute dtype
+    (integer counts convert exactly).
+    """
+    dev = resolve_device(device)
+    dt = resolve_dtype(dtype, dev)
+    _check_options(x, clone_allele, cov, ref, y_storage, likelihood_impl)
+    if verbose:
+        print("Constructing model")  # reference R/inference-tflow.R:102-104
+    Y, gene_names, _cell_names = _parse_expression(gene_expression_data)
+    if _is_scipy_sparse(Y):
+        raise _not_ported("a sparse count matrix", "chunked and sparse prepare")
+    N, G = Y.shape
+    K = 1 if K is None else int(K)  # reference R/clonealign.R:226-232
+    L, clone_names = _parse_copy_number(copy_number_data, G)
+
+    # --- gene filtering (reference R/inference-tflow.R:117-131) ---
+    low = _colsum_f64(Y) <= gene_filter_threshold
+    if low.any():
+        if verbose:
+            print(f"Removing {int(low.sum())} genes with low counts")
+        Y = Y[:, ~low]
+        L = L[~low]
+    if gene_names is not None:
+        retained_genes = [g for g, drop in zip(gene_names, low) if not drop]
+    else:
+        retained_genes = list(np.flatnonzero(~low))
+
+    _validate_counts(Y, allow_fractional=allow_fractional)
+    if K > 0 and N < 2:
+        raise ValueError(
+            "At least 2 cells are required when K > 0 (the PCA initialization "
+            "of the latent space needs multiple cells); pass K=0 for a "
+            "single-cell fit"
+        )
+
+    # --- saturation (reference R/inference-tflow.R:142-144) ---
+    if saturate:
+        L = np.minimum(L, float(saturation_threshold))
+
+    data = mm.prepare_data(Y, L, device=dev, dtype=dt)
+    config = mm.ModelConfig(K=K, mc_samples=int(mc_samples), fix_alpha=fix_alpha)
+
+    # numpy booleans (np.True_, 0-d bool arrays) are the boolean switch,
+    # not a mu init array
+    if isinstance(data_init_mu, np.bool_) or (
+        isinstance(data_init_mu, np.ndarray)
+        and data_init_mu.ndim == 0
+        and data_init_mu.dtype == np.bool_
+    ):
+        data_init_mu = bool(data_init_mu)
+    return FitContext(
+        Y=Y,
+        L=L,
+        clone_names=clone_names,
+        retained_genes=retained_genes,
+        config=config,
+        data=data,
+        dtype=dt,
+        device=dev,
+        data_init_mu=data_init_mu,
+    )
+
+
+def clonealign(
+    gene_expression_data,
+    copy_number_data,
+    max_iter: int = 200,
+    rel_tol: float = 1e-6,
+    gene_filter_threshold: float = 0,
+    learning_rate: float = 0.1,
+    x=None,
+    clone_allele=None,
+    cov=None,
+    ref=None,
+    fix_alpha: bool = False,
+    dtype: str = "float32",
+    saturate: bool = True,
+    saturation_threshold: float = 6,
+    K: Optional[int] = None,
+    mc_samples: int = 1,
+    verbose: bool = True,
+    initial_shrink: float = 5,
+    clone_call_probability: float = 0.95,
+    data_init_mu=True,
+    seed: Optional[int] = None,
+    elbo_eval: str = "fresh",
+    progress: bool = False,
+    y_storage: Optional[str] = "auto",
+    likelihood_impl: str = "auto",
+    allow_fractional: bool = False,
+    *,
+    device,
+    noise=None,
+) -> ClonealignFit:
+    """Assign scRNA-seq cells to clones of origin by variational inference.
+
+    Mirrors ``clonealign_tpu.clonealign`` (and the reference's signature,
+    R/clonealign.R:184-203). ``device`` is "cpu" or "cuda" and is required;
+    every random draw comes from ``noise`` (default: a
+    :class:`~clonealign_torch.utils.noise.Noise` seeded with ``seed``, or 0).
+    """
+    t0 = time.perf_counter()
+    ctx = setup_fit(
+        gene_expression_data,
+        copy_number_data,
+        gene_filter_threshold=gene_filter_threshold,
+        x=x,
+        clone_allele=clone_allele,
+        cov=cov,
+        ref=ref,
+        fix_alpha=fix_alpha,
+        dtype=dtype,
+        saturate=saturate,
+        saturation_threshold=saturation_threshold,
+        K=K,
+        mc_samples=mc_samples,
+        verbose=verbose,
+        data_init_mu=data_init_mu,
+        y_storage=y_storage,
+        likelihood_impl=likelihood_impl,
+        allow_fractional=allow_fractional,
+        device=device,
+    )
+    if noise is None:
+        noise = Noise(0 if seed is None else int(seed), ctx.device)
+    synchronize(ctx.device)
+    t1 = time.perf_counter()
+
+    params0 = mm.init_params(
+        ctx.data.Y,
+        ctx.data.L,
+        noise,
+        K=ctx.config.K,
+        data_init_mu=ctx.data_init_mu,
+        dtype=ctx.dtype,
+    )
+    synchronize(ctx.device)
+    t2 = time.perf_counter()
+
+    if verbose:
+        print("Optimizing ELBO")  # reference R/inference-tflow.R:383
+    result = run_inference(
+        params0,
+        ctx.data,
+        noise,
+        ctx.config,
+        max_iter=int(max_iter),
+        rel_tol=float(rel_tol),
+        learning_rate=float(learning_rate),
+        initial_shrink=float(initial_shrink),
+        elbo_eval=elbo_eval,
+        progress=progress,
+    )
+    if verbose:
+        print("ELBO converged or reached max iterations")  # R/inference-tflow.R:420
+    t3 = time.perf_counter()
+
+    fit = _package_fit(
+        result,
+        ctx.Y,
+        ctx.L,
+        ctx.clone_names,
+        ctx.retained_genes,
+        ctx.config,
+        clone_call_probability,
+        device_Y=ctx.data.Y,
+        device_s=ctx.data.s,
+    )
+    fit.timings = {
+        "setup": t1 - t0,
+        "init": t2 - t1,
+        "inference": t3 - t2,
+        "loop": result.loop_seconds,
+        "package": time.perf_counter() - t3,
+    }
+    return fit
+
+
+def _package_fit(
+    result,
+    Y,
+    L,
+    clone_names,
+    retained_genes,
+    config,
+    clone_call_probability,
+    device_Y=None,
+    device_s=None,
+) -> ClonealignFit:
+    """Fetch ML params and build the fit object
+    (reference R/inference-tflow.R:424-480, R/clonealign.R:283-303)."""
+    p = result.params
+    # Size factors must be float64-exact. For integer host counts whose row
+    # totals stay below 2^24 the device totals are exact in float32 (sums of
+    # non-negative integers never round there); otherwise sum on the host in
+    # float64.
+    s = None
+    if (
+        device_s is not None
+        and np.issubdtype(np.asarray(Y).dtype, np.integer)
+        and float(torch.max(device_s)) < 2.0**24
+    ):
+        s = device_s.cpu().numpy().astype(np.float64)
+    if s is None:
+        s = np.asarray(Y.sum(axis=1, dtype=np.float64)).ravel()
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    ml_params = {
+        "mu": host(mm.softplus(p.qmu_loc)),
+        "clone_probs": host(torch.softmax(p.gamma_logits, dim=1)),
+        "s": s,
+        "alpha": host(torch.softmax(p.alpha_unconstr, dim=0)),
+    }
+    if config.K > 0:
+        ml_params["psi"] = host(p.psi)
+        ml_params["W"] = host(p.W)
+        ml_params["chi"] = host(torch.exp(p.chi_unconstr))
+
+    n_iters = int(result.n_iters)
+    trace = np.asarray(result.elbo_trace)[: n_iters + 1]
+    conv = ConvergenceInfo(
+        final_elbo=float(result.final_elbo),
+        sd_final_elbo=float(result.sd_final_elbo),
+        elbo=trace,
+        n_iters=n_iters,
+    )
+    if not np.isfinite(trace[0]):
+        raise ValueError("Initial elbo is NA")  # reference R/inference-tflow.R:374-376
+
+    clones = _assign.clone_assignment(
+        ml_params["clone_probs"], clone_names, clone_call_probability
+    )
+    correlations = _assign.compute_correlations(
+        Y, L, clones, clone_names, device_Y=device_Y
+    )
+    finite = correlations[np.isfinite(correlations)]
+    if finite.size and np.quantile(finite, 0.25) < 0:
+        warnings.warn(
+            "Less than 75% of genes positively correlated with expression - "
+            "assignment may have failed"
+        )  # reference R/clonealign.R:296-300
+
+    return ClonealignFit(
+        clone=clones,
+        ml_params=ml_params,
+        convergence_info=conv,
+        retained_genes=retained_genes,
+        correlations=correlations,
+        clone_names=list(clone_names),
+    )

@@ -1,0 +1,168 @@
+"""Clone calling and post-hoc QC (reference R/inference-tflow.R:22-46,
+R/clonealign.R:318-334), counterpart of ``clonealign_tpu/assign.py``."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .utils.chunking import host_row_chunk as _host_row_chunk
+from .utils.device import full_fp32_matmul
+from .utils.sparsity import is_scipy_sparse as _is_scipy_sparse
+
+UNASSIGNED = "unassigned"
+
+
+def clone_assignment(clone_probs, clone_names, clone_assignment_probability: float = 0.95):
+    """Threshold-argmax clone calls (reference R/inference-tflow.R:22-29):
+    a cell gets its argmax clone if that probability reaches the threshold,
+    otherwise ``"unassigned"``."""
+    probs = np.asarray(clone_probs)
+    names = np.asarray(list(clone_names) + [UNASSIGNED], dtype=object)
+    best = probs.argmax(axis=1)
+    maxp = probs.max(axis=1)
+    # NaN rows (a diverged fit) must read as unassigned, not clone 0:
+    # `nan < t` is False, so the plain threshold test would pass them through
+    low = ~(maxp >= clone_assignment_probability)
+    called = np.where(low, len(clone_names), best)
+    return [str(x) for x in names[called]]
+
+
+def recompute_clone_assignment(fit, clone_assignment_probability: float = 0.95):
+    """Re-threshold an existing fit (reference R/inference-tflow.R:36-46)."""
+    from dataclasses import replace
+
+    clones = clone_assignment(
+        fit.ml_params["clone_probs"], fit.clone_names, clone_assignment_probability
+    )
+    return replace(fit, clone=clones)
+
+
+def _clone_sums_device(Y_dev, idx_full, C):
+    """Sufficient statistics for :func:`compute_correlations` on the device
+    that holds the counts: per-(clone, gene) sums S as one (C, N) x (N, G)
+    product, per-gene sum(y) from S, and sum(y^2) as one masked column sum.
+    float64 data keeps float64 sums; otherwise they accumulate in float32
+    without TF32."""
+    acc = torch.float64 if Y_dev.dtype == torch.float64 else torch.float32
+    idx = torch.as_tensor(np.asarray(idx_full), dtype=torch.int64, device=Y_dev.device)
+    keep = (idx >= 0).to(acc)
+    onehot = torch.nn.functional.one_hot(idx.clamp_min(0), C).to(acc) * keep[:, None]
+    Yf = Y_dev.to(acc)
+    with full_fp32_matmul():
+        S = onehot.T @ Yf          # (C, G)
+        sum_y2 = keep @ (Yf * Yf)  # (G,)
+    S = S.cpu().numpy().astype(np.float64)
+    return S, S.sum(axis=0), sum_y2.cpu().numpy().astype(np.float64)
+
+
+def multirun_calls_device(gamma_logits, threshold):
+    """Threshold-argmax clone calls for every restart lane at once, on the
+    device that holds the logits: softmax -> (argmax, max) -> threshold (NaN
+    rows read unassigned, as in :func:`clone_assignment`), plus per-lane
+    per-label counts.
+
+    Returns ``(called, counts)`` as numpy arrays: ``called[r, n]`` in
+    ``0..C`` with ``C`` meaning unassigned; ``counts[r, label]`` over the
+    ``C + 1`` labels.
+    """
+    gl = torch.as_tensor(gamma_logits)
+    probs = torch.softmax(gl, dim=-1)
+    maxp, best = torch.max(probs, dim=-1)
+    n_clones = gl.shape[-1]
+    # compare in the logits dtype, as the host path does
+    t = torch.tensor(threshold, dtype=gl.dtype, device=gl.device)
+    called = torch.where(maxp >= t, best, n_clones)
+    counts = torch.nn.functional.one_hot(called, n_clones + 1).sum(dim=-2)
+    return called.to(torch.int32).cpu().numpy(), counts.to(torch.int32).cpu().numpy()
+
+
+def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=None):
+    """Per-gene Pearson correlation between expression and the copy number of
+    each cell's assigned clone (reference R/clonealign.R:318-334; Pearson is
+    affine-invariant, so correlating raw counts matches the reference's
+    z-scored version, including the NaN for zero-variance genes). Unassigned
+    cells are dropped.
+
+    All sums aggregate by clone, so the computation is O(C x G) plus one
+    pass over Y. Pass the device copy of the counts as ``device_Y`` (the fit
+    entry points do) and that pass runs on its device; otherwise it runs over
+    the dense host matrix in row chunks.
+
+    ``clones_idx`` is the integer form of ``clones`` (values in ``0..C-1``;
+    anything else reads unassigned). When given, ``clones`` is ignored.
+    """
+    if _is_scipy_sparse(Y):
+        raise NotImplementedError(
+            "sparse count matrices are not ported yet (ROADMAP.md, still to port: "
+            "chunked and sparse prepare)"
+        )
+    L = np.asarray(L, np.float64)
+    C = len(clone_names)
+    if clones_idx is not None:
+        idx_all = np.asarray(clones_idx)
+        keep = (idx_all >= 0) & (idx_all < C)
+        idx_full = np.where(keep, idx_all, -1)
+    else:
+        clones = np.asarray([str(c) for c in clones], dtype=object)
+        keep = clones != UNASSIGNED
+        col_idx = {str(c): i for i, c in enumerate(clone_names)}
+        idx_full = np.asarray(
+            [col_idx[c] if k else -1 for c, k in zip(clones, keep)]
+        )
+    M = int(keep.sum())
+    G = Y.shape[1] if device_Y is None else device_Y.shape[1]
+    if M < 2:
+        return np.full(G, np.nan)
+
+    m = np.bincount(idx_full[keep], minlength=C).astype(np.float64)  # cells per clone
+    if device_Y is not None:
+        S, sum_y, sum_y2 = _clone_sums_device(device_Y, idx_full, C)
+        # Cancellation guard: var_y = sum_y2 - sum_y^2/M subtracts two
+        # near-equal numbers for a near-constant high-mean gene, amplifying
+        # the float32 error of the device sums. Genes whose variance is a
+        # tiny fraction of sum_y2 are recomputed exactly on the host from
+        # their columns.
+        with np.errstate(invalid="ignore"):
+            var_pre = sum_y2 - sum_y * sum_y / M
+        suspect = np.flatnonzero((sum_y2 > 0) & ~(var_pre > 1e-3 * sum_y2))
+        if suspect.size:
+            cols = np.asarray(Y[:, suspect]).astype(np.float64)[keep]
+            ib = idx_full[keep]
+            sum_y[suspect] = cols.sum(axis=0)
+            sum_y2[suspect] = (cols * cols).sum(axis=0)
+            for c in range(C):
+                sel = ib == c
+                S[c, suspect] = cols[sel].sum(axis=0) if sel.any() else 0.0
+    else:
+        sum_y = np.zeros(G)
+        sum_y2 = np.zeros(G)
+        S = np.zeros((C, G))
+        rows = _host_row_chunk(G)
+        N = Y.shape[0]
+        for i in range(0, N, rows):
+            blk = np.asarray(Y[i : i + rows], np.float64)
+            kb = keep[i : i + rows]
+            if not kb.all():
+                blk = blk[kb]
+            sum_y += blk.sum(axis=0)
+            sum_y2 += (blk * blk).sum(axis=0)
+            ib = idx_full[i : i + rows][kb]
+            for c in range(C):
+                sel = ib == c
+                if sel.any():
+                    S[c] += blk[sel].sum(axis=0)
+
+    # x_ng = L[g, clone(n)]: sums aggregate over clones
+    sum_x = L @ m
+    sum_x2 = (L * L) @ m
+    cross = np.einsum("cg,gc->g", S, L)
+
+    num = cross - sum_x * sum_y / M
+    var_x = sum_x2 - sum_x * sum_x / M
+    var_y = sum_y2 - sum_y * sum_y / M
+    den = np.sqrt(np.maximum(var_x, 0) * np.maximum(var_y, 0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out = num / den
+    out[den == 0] = np.nan
+    return out

@@ -1,0 +1,226 @@
+"""Fused multinomial-likelihood contractions: the CUDA kernels, their plain
+PyTorch versions and the autograd function that joins them.
+
+Per ELBO evaluation the likelihood needs (counterpart of
+``clonealign_tpu/ops/fused_likelihood.py``)::
+
+    A1[n]     = sum_g Y[n,g] * log_rfe[n,g]        log_rfe = psi_ext @ W_ext^T
+    A2[n,s]   = sum_g Y[n,g] * log_mu[s,g]
+    Z[n,s*C+c] = sum_g exp(log_rfe[n,g]) * muL[g,s*C+c]
+
+On CUDA tensors :func:`fused_likelihood_terms` launches the kernels of
+``csrc/fused_likelihood.cu``, which read Y once per pass and never store the
+N x G ``exp(log_rfe)``. On CPU tensors it runs :func:`reference_likelihood_terms`
+and :func:`reference_likelihood_vjp`, the plain versions of the same
+formulas. There is no fallback between the two: a CUDA tensor the kernels do
+not take raises.
+
+``log_mu=None`` skips A2 (the ELBO step replaces it with a precomputed
+column-sum dot, see ``models/multinomial.elbo``); A2 is then returned as None.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+MAX_KF = 4   # psi_ext columns the kernels take
+MAX_A2 = 4   # A2 columns (Monte Carlo samples) the kernels take
+MAX_SC = 32  # Z columns (samples x clones) the kernels take
+_ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
+
+# Kernel launches, counted where the wrapper launches them.
+fwd_launches = 0
+bwd_launches = 0
+
+
+def reset_launch_counts() -> None:
+    global fwd_launches, bwd_launches
+    fwd_launches = 0
+    bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def reference_likelihood_terms(Y, psi_ext, W_ext, log_mu, muL):
+    """Plain PyTorch version of the forward contract (materializes the
+    N x G ``exp(log_rfe)``). ``log_mu=None`` returns None for A2."""
+    log_rfe = psi_ext @ W_ext.T
+    A1 = torch.sum(Y * log_rfe, dim=1)
+    A2 = None if log_mu is None else Y @ log_mu.T
+    Z = torch.exp(log_rfe) @ muL
+    return A1, A2, Z
+
+
+def reference_likelihood_vjp(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
+    """Plain PyTorch version of the backward contract, the same formulas the
+    CUDA backward computes: with ``rfe = exp(psi_ext W_ext^T)``,
+    ``drfe = dZ muL^T`` and ``dlog_rfe = Y dA1 + rfe drfe``, returns
+    ``dpsi = dlog_rfe W_ext``, ``dW = dlog_rfe^T psi_ext``,
+    ``dlog_mu = dA2^T Y`` (None when ``dA2`` is None) and ``dmuL = rfe^T dZ``."""
+    rfe = torch.exp(psi_ext @ W_ext.T)
+    dlog_rfe = Y * dA1[:, None] + rfe * (dZ @ muL.T)
+    dpsi = dlog_rfe @ W_ext
+    dW = dlog_rfe.T @ psi_ext
+    dlog_mu = None if dA2 is None else dA2.T @ Y
+    dmuL = rfe.T @ dZ
+    return dpsi, dW, dlog_mu, dmuL
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _check(name, t, shape):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 for the CUDA kernels, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _check_sizes(Y, psi_ext, muL, n_a2):
+    N, G = Y.shape
+    Kf, SC = psi_ext.shape[1], muL.shape[1]
+    if N < 1 or G < 1:
+        raise ValueError(f"the CUDA kernels need a non-empty Y, got {tuple(Y.shape)}")
+    if Kf > MAX_KF or n_a2 > MAX_A2 or not 1 <= SC <= MAX_SC:
+        raise ValueError(
+            f"the CUDA kernels take at most {MAX_KF} latent columns, {MAX_A2} "
+            f"samples and {MAX_SC} sample x clone columns; got Kf={Kf}, "
+            f"S={n_a2}, S*C={SC}"
+        )
+    return N, G, Kf, SC
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+
+def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
+    """Launch the forward kernel. Returns (A1, A2 or None, Z)."""
+    global fwd_launches
+    from . import _build
+
+    n_a2 = 0 if log_mu is None else log_mu.shape[0]
+    _check("Y", Y, Y.shape)
+    N, G, Kf, SC = _check_sizes(Y, psi_ext, muL, n_a2)
+    _check("psi_ext", psi_ext, (N, Kf))
+    _check("W_ext", W_ext, (G, Kf))
+    _check("muL", muL, (G, SC))
+    if log_mu is not None:
+        _check("log_mu", log_mu, (n_a2, G))
+    lib = _build.load()
+    Wt = W_ext.T.contiguous()  # gene-contiguous tables: coalesced lane loads
+    muLt = muL.T.contiguous()
+    A1 = torch.empty(N, device=Y.device, dtype=torch.float32)
+    A2 = None if log_mu is None else torch.empty(N, n_a2, device=Y.device, dtype=torch.float32)
+    Z = torch.empty(N, SC, device=Y.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(Y.device).cuda_stream
+    err = lib.fl_forward(
+        _ptr(Y), _ptr(psi_ext), _ptr(Wt), _ptr(log_mu), _ptr(muLt),
+        _ptr(A1), _ptr(A2), _ptr(Z), N, G, Kf, n_a2, SC, ctypes.c_void_p(stream),
+    )
+    _raise_on(err, "fused likelihood forward")
+    fwd_launches += 1
+    return A1, A2, Z
+
+
+def kernel_backward(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
+    """Launch the backward kernels. Returns (dpsi, dW, dlog_mu or None, dmuL)."""
+    global bwd_launches
+    from . import _build
+
+    n_a2 = 0 if dA2 is None else dA2.shape[1]
+    _check("Y", Y, Y.shape)
+    N, G, Kf, SC = _check_sizes(Y, psi_ext, muL, n_a2)
+    _check("psi_ext", psi_ext, (N, Kf))
+    _check("W_ext", W_ext, (G, Kf))
+    _check("muL", muL, (G, SC))
+    _check("dA1", dA1, (N,))
+    _check("dZ", dZ, (N, SC))
+    if dA2 is not None:
+        _check("dA2", dA2, (N, n_a2))
+    lib = _build.load()
+    Wt = W_ext.T.contiguous()
+    muLt = muL.T.contiguous()
+    rows = max(_ROWS_PER_CHUNK, -(-N // 65535))  # grid.y is at most 65535 chunks
+    n_chunks = -(-N // rows)
+    F = Kf + SC + n_a2
+    dpsi = torch.empty(N, Kf, device=Y.device, dtype=torch.float32)
+    part = torch.empty(n_chunks, F, G, device=Y.device, dtype=torch.float32)
+    dgene = torch.empty(F, G, device=Y.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(Y.device).cuda_stream
+    err = lib.fl_backward(
+        _ptr(Y), _ptr(psi_ext), _ptr(Wt), _ptr(muLt), _ptr(dA1), _ptr(dA2),
+        _ptr(dZ), _ptr(dpsi), _ptr(part), _ptr(dgene),
+        N, G, Kf, n_a2, SC, rows, ctypes.c_void_p(stream),
+    )
+    _raise_on(err, "fused likelihood backward")
+    bwd_launches += 1
+    dW = dgene[:Kf].T
+    dmuL = dgene[Kf:Kf + SC].T
+    dlog_mu = None if dA2 is None else dgene[Kf + SC:]
+    return dpsi, dW, dlog_mu, dmuL
+
+
+# ---------------------------------------------------------------------------
+# Autograd function
+# ---------------------------------------------------------------------------
+
+def _on(device: torch.device, cpu_fn, cuda_fn, *args):
+    if device.type == "cuda":
+        return cuda_fn(*args)
+    if device.type == "cpu":
+        return cpu_fn(*args)
+    raise ValueError(f"no fused-likelihood implementation for device {device}")
+
+
+class _FusedLikelihood(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, Y, psi_ext, W_ext, log_mu, muL):
+        ctx.save_for_backward(Y, psi_ext, W_ext, muL)
+        ctx.with_a2 = log_mu is not None
+        return _on(Y.device, reference_likelihood_terms, kernel_forward,
+                   Y, psi_ext, W_ext, log_mu, muL)
+
+    @staticmethod
+    def backward(ctx, dA1, dA2, dZ):
+        # Unused tensor outputs arrive as zeros (autograd materializes them);
+        # only the skipped A2 arrives as None.
+        Y, psi_ext, W_ext, muL = ctx.saved_tensors
+        dA2 = dA2.contiguous() if ctx.with_a2 else None
+        dpsi, dW, dlog_mu, dmuL = _on(
+            Y.device, reference_likelihood_vjp, kernel_backward,
+            Y, psi_ext, W_ext, muL, dA1.contiguous(), dA2, dZ.contiguous(),
+        )
+        return None, dpsi, dW, dlog_mu, dmuL
+
+
+def fused_likelihood_terms(Y, psi_ext, W_ext, log_mu, muL):
+    """Compute (A1, A2, Z) — see the module docstring — differentiably in
+    psi_ext, W_ext, log_mu and muL (Y is data and gets no gradient).
+
+    Args:
+      Y:       (N, G) counts.
+      psi_ext: (N, Kf) cell factors.
+      W_ext:   (G, Kf) gene loadings.
+      log_mu:  (S, G) log of the sampled mu, or None to skip A2.
+      muL:     (G, S*C) mu[s,g] * L[g,c], column s*C+c.
+
+    Returns:
+      A1 (N,), A2 (N, S) or None, Z (N, S*C).
+    """
+    return _FusedLikelihood.apply(Y, psi_ext, W_ext, log_mu, muL)

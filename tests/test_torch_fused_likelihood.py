@@ -1,0 +1,159 @@
+"""clonealign_torch's fused-likelihood op against the JAX package's.
+
+The same float32 numpy inputs go through the JAX Pallas kernel (interpret
+mode on the CPU, as tests/test_fused_likelihood.py runs it), JAX's plain
+``reference_likelihood_terms`` and the port's plain versions, which are what
+the port's autograd function runs on CPU tensors. The CUDA kernels
+themselves are checked against the plain versions on the card
+(``cuda`` marker; skipped without a GPU).
+
+Tolerance: rtol 2e-5 / atol 1e-4 for values and rtol 3e-5 / atol 1e-4 for
+the VJP, the bars tests/test_fused_likelihood.py holds the Pallas kernel to:
+float32 sums over up to 1,000 genes taken in different orders.
+
+jax is imported by the ``jax_ops`` fixture, not at the top: the GPU machine
+has no jax, and the ``cuda`` tests run there with
+``python -m pytest --noconftest -m cuda tests/test_torch_fused_likelihood.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from clonealign_torch.ops import fused_likelihood as tfl
+
+torch.set_num_threads(2)
+
+SHAPES = [(70, 90, 4, 2, 2), (130, 257, 3, 1, 1), (37, 41, 2, 1, 1)]
+# (N, G, C, K, S) covering every S*C bound the kernels are built for
+CUDA_SHAPES = SHAPES + [(333, 1000, 10, 1, 1), (257, 700, 16, 4, 1), (100, 129, 10, 1, 2),
+                        (5, 3000, 1, 0, 1)]
+VALUE_TOL = dict(rtol=2e-5, atol=1e-4)
+VJP_TOL = dict(rtol=3e-5, atol=1e-4)
+
+
+def _inputs(N, G, C, K, S, seed):
+    """Y, psi, W, log_mu, muL as float32 numpy arrays (the recipe of
+    tests/test_fused_likelihood.py)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    Y = rng.poisson(3.0, (N, G)).astype(f32)
+    psi = rng.normal(0, 1, (N, K)).astype(f32)
+    W = rng.normal(0, 0.3, (G, K)).astype(f32)
+    mu = rng.lognormal(0, 0.5, (S, G)).astype(f32)
+    L = rng.integers(1, 5, (G, C)).astype(f32)
+    muL = (mu[:, None, :] * L.T[None]).transpose(2, 0, 1).reshape(G, S * C)
+    return Y, psi, W, np.log(mu), np.ascontiguousarray(muL)
+
+
+def _cotangents(N, S, SC, seed):
+    rng = np.random.default_rng(seed + 1000)
+    return (rng.normal(0, 1, N).astype(np.float32),
+            rng.normal(0, 1, (N, S)).astype(np.float32),
+            rng.normal(0, 1, (N, SC)).astype(np.float32))
+
+
+def _torch(arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.fixture(scope="module")
+def jax_ops():
+    """(jax, jax.numpy, the JAX package's fused-likelihood module)."""
+    jax = pytest.importorskip("jax")
+    jfl = pytest.importorskip("clonealign_tpu.ops.fused_likelihood")
+    return jax, jax.numpy, jfl
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_forward_matches_pallas_and_jax_reference(shape, jax_ops):
+    jax, jnp, jfl = jax_ops
+    N, G, C, K, S = shape
+    x = _inputs(N, G, C, K, S, seed=N)
+    pallas = [np.asarray(t) for t in jfl.fused_likelihood_terms(*map(jnp.asarray, x))]
+    jref = [np.asarray(t) for t in jfl.reference_likelihood_terms(*map(jnp.asarray, x))]
+    ours = [t.numpy() for t in tfl.reference_likelihood_terms(*_torch(x))]
+    for name, o, p, r in zip(("A1", "A2", "Z"), ours, pallas, jref):
+        assert o.dtype == np.float32
+        np.testing.assert_allclose(o, p, err_msg=name, **VALUE_TOL)
+        np.testing.assert_allclose(o, r, err_msg=name, **VALUE_TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_vjp_matches_pallas(shape, jax_ops):
+    """The explicit backward formulas and the autograd function's CPU
+    gradients against jax.vjp of the Pallas op."""
+    jax, jnp, jfl = jax_ops
+    N, G, C, K, S = shape
+    x = _inputs(N, G, C, K, S, seed=N + 1)
+    cot = _cotangents(N, S, S * C, seed=N)
+    _, vjp = jax.vjp(jfl.fused_likelihood_terms, *map(jnp.asarray, x))
+    want = [np.asarray(g) for g in vjp(tuple(map(jnp.asarray, cot)))[1:]]
+
+    Y, psi, W, log_mu, muL = _torch(x)
+    dA1, dA2, dZ = _torch(cot)
+    explicit = tfl.reference_likelihood_vjp(Y, psi, W, muL, dA1, dA2, dZ)
+
+    leaves = [t.clone().requires_grad_(True) for t in (psi, W, log_mu, muL)]
+    outs = tfl.fused_likelihood_terms(Y, *leaves)
+    auto = torch.autograd.grad(outs, leaves, grad_outputs=(dA1, dA2, dZ))
+
+    for name, w, e, a in zip(("psi", "W", "log_mu", "muL"), want, explicit, auto):
+        np.testing.assert_allclose(e.numpy(), w, err_msg=name, **VJP_TOL)
+        np.testing.assert_allclose(a.numpy(), w, err_msg=name, **VJP_TOL)
+
+
+def test_skipping_a2_matches_zero_a2_cotangent(jax_ops):
+    """log_mu=None (the ELBO step's form) returns no A2, and the gradients
+    equal the full op's with a zero A2 cotangent."""
+    jax, jnp, jfl = jax_ops
+    N, G, C, K, S = SHAPES[2]
+    x = _inputs(N, G, C, K, S, seed=5)
+    cot = _cotangents(N, S, S * C, seed=5)
+    _, vjp = jax.vjp(jfl.fused_likelihood_terms, *map(jnp.asarray, x))
+    want = vjp((jnp.asarray(cot[0]), jnp.zeros((N, S), jnp.float32), jnp.asarray(cot[2])))
+
+    Y, psi, W, _log_mu, muL = _torch(x)
+    leaves = [t.clone().requires_grad_(True) for t in (psi, W, muL)]
+    A1, A2, Z = tfl.fused_likelihood_terms(Y, leaves[0], leaves[1], None, leaves[2])
+    assert A2 is None
+    got = torch.autograd.grad((A1, Z), leaves, grad_outputs=_torch((cot[0], cot[2])))
+    for name, g, w in zip(("psi", "W", "muL"), got, (want[1], want[2], want[4])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **VJP_TOL)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers launch on CUDA tensors or raise: there is no
+    fallback to the plain version inside them."""
+    Y, psi, W, log_mu, muL = _torch(_inputs(8, 16, 2, 1, 1, seed=0))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfl.kernel_forward(Y, psi, W, log_mu, muL)
+    dA1, dA2, dZ = _torch(_cotangents(8, 1, 2, seed=0))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfl.kernel_backward(Y, psi, W, muL, dA1, dA2, dZ)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
+def test_cuda_kernels_match_plain(shape):
+    """Forward (A2 on and off) and backward kernels against the plain
+    versions on the card, float32 on both sides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    N, G, C, K, S = shape
+    x = [t.cuda() for t in _torch(_inputs(N, G, C, K, S, seed=N))]
+    dA1, dA2, dZ = [t.cuda() for t in _torch(_cotangents(N, S, S * C, seed=N))]
+    Y, psi, W, log_mu, muL = x
+    before = (tfl.fwd_launches, tfl.bwd_launches)
+    for lm, da2 in ((log_mu, dA2), (None, None)):
+        got = tfl.kernel_forward(Y, psi, W, lm, muL)
+        want = tfl.reference_likelihood_terms(Y, psi, W, lm, muL)
+        for g, w in zip(got, want):
+            if w is not None:
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **VALUE_TOL)
+        got = tfl.kernel_backward(Y, psi, W, muL, dA1, da2, dZ)
+        want = tfl.reference_likelihood_vjp(Y, psi, W, muL, dA1, da2, dZ)
+        for g, w in zip(got, want):
+            if w is not None:
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **VJP_TOL)
+    assert (tfl.fwd_launches, tfl.bwd_launches) == (before[0] + 2, before[1] + 2)
