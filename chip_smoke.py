@@ -5,19 +5,21 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from the sources in the checkout, holds each
-kernel against its plain PyTorch version on the card (at a small ragged shape
+kernel against its plain PyTorch version on the card (at small ragged shapes
 and at the full width of the main path), then drives the fit at full width —
 100,000 cells x 5,000 genes x 10 clones, clone-structured counts made on the
 card from a seed — through ``clonealign_torch.clonealign``, and a small
 ``run_clonealign`` sweep. Any failed phase raises and the script exits
 nonzero. The last line of standard output is a JSON object naming the card;
 the line before it lists each kernel with its launches during the fit, its
-error against the plain version and both times.
+error against the plain version, its time, the plain version's time and its
+bound (the least time the card could take for the same work).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -34,9 +36,14 @@ KERNEL_RTOL = 1e-4
 
 FULL = dict(N=100_000, G=5_000, C=10)     # bench.py's headline configuration
 SMALL = dict(N=37, G=41, C=2)             # ragged: no dimension a multiple of a tile
+WIDE = dict(N=100, G=129, C=10)           # with S=2, Kf=3: S*C = 20, four n-tiles
 SWEEP = dict(N=2_000, G=500, C=4)
 FIT_MAX_ITER = 100
 MIN_ACCURACY = 0.99
+# Published peaks of one H100 SXM at 700 W: HBM bytes/s, float32 FLOP/s on
+# CUDA cores (the kernels' contract is float32).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -129,6 +136,27 @@ def cuda_ms(fn, reps):
     return float(np.median(times))
 
 
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over the float32 rate."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / FP32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bounds(N, G, Kf, SC):
+    """Bounds of the A2-off forward and backward: each float32 input read
+    once, each output written once, and the operations of the formulas."""
+    fwd_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC  # Y, psi, W, muL
+                     + N + N * SC)                      # A1, Z
+    fwd_ops = N * G * (2 * Kf + 1 + 2 + 2 * SC)         # log_rfe, exp, Y log_rfe, Z
+    bwd_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC + N + N * SC  # Y, psi, W, muL, dA1, dZ
+                     + N * Kf + G * Kf + G * SC)                    # dpsi, dW, dmuL
+    bwd_ops = N * G * (2 * Kf + 1 + 2 * SC + 3           # log_rfe, exp, drfe, dlog_rfe
+                       + 4 * Kf + 2 * SC)                # dpsi and dW, dmuL
+    return bound(fwd_bytes, fwd_ops), bound(bwd_bytes, bwd_ops)
+
+
 def check_kernels(shape, S, Kf, seed, reps):
     """Compare forward (A2 on and off) and backward with the plain versions
     at one shape; return the errors and the times of the A2-off calls (the
@@ -174,9 +202,46 @@ def check_kernels(shape, S, Kf, seed, reps):
             f"bwd {t['bwd_ms']:.3f} ms (plain {t['bwd_plain_ms']:.3f} ms)")
         if not with_a2:
             result = dict(t, fwd_err=err_f, bwd_err=err_b)
+    result["fwd_bound"], result["bwd_bound"] = kernel_bounds(
+        shape["N"], shape["G"], Kf, S * shape["C"])
     del x
     torch.cuda.empty_cache()
     return result
+
+
+def fwd_resources(build_log):
+    """ptxas's report (-v) for each forward kernel instantiation, keyed by
+    its template arguments (KF, NT, A2):
+    {"<1,2,0>": (registers, spill store bytes, spill load bytes)}."""
+    found, name, spills = {}, None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        f = re.search(r"fwd_kernelI((?:L[ib]\d+E)+)E", name or "")
+        if m and f:
+            label = "<" + ",".join(re.findall(r"L[ib](\d+)E", f.group(1))) + ">"
+            found[label] = (int(m.group(1)), *spills)
+    return found
+
+
+def log_fwd_resources(build_log):
+    """Print the forward kernels' registers and spills; raise if one spills
+    or the report has none of them."""
+    res = fwd_resources(build_log)
+    if not res:
+        raise AssertionError("fwd_kernel is not in the ptxas report of the build")
+    log("fwd_kernel ptxas: " + "; ".join(
+        f"{k} {r} registers, {st}/{ld} B spill stores/loads" for k, (r, st, ld) in sorted(res.items())))
+    spilled = [k for k, (_, st, ld) in res.items() if st or ld]
+    if spilled:
+        raise AssertionError(f"fwd_kernel spills registers in {spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -247,17 +312,20 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
 
-    # 2. build
+    # 2. build, always from the sources, so that ptxas reports on this run's kernels
+    _build.library_path().unlink(missing_ok=True)
     t0 = time.perf_counter()
     _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
     if _build.build_log:
         log(_build.build_log.strip())
+    log_fwd_resources(_build.build_log)
 
-    # 3. kernels vs plain, small ragged shape, then full width
+    # 3. kernels vs plain: small ragged shapes, then full width
     log("kernels vs plain (tolerance: KERNEL_RTOL="
         f"{KERNEL_RTOL:g} of the per-element absolute-term sum)")
     check_kernels(SMALL, S=1, Kf=1, seed=1, reps=5)
+    check_kernels(WIDE, S=2, Kf=3, seed=5, reps=5)
     full = check_kernels(FULL, S=1, Kf=1, seed=2, reps=10)
 
     # 4. the fit at full width, through the public entry point
@@ -312,17 +380,22 @@ def main() -> int:
     if info["best_run"] != best or acc_s < MIN_ACCURACY:
         raise AssertionError("run_clonealign picked a wrong lane or assigned badly")
 
+    # No single PyTorch call computes either function: library_ms is null.
     kernels = [
         {"name": "fused_likelihood_fwd", "route": "cuda",
          "source": "clonealign_torch/ops/csrc/fused_likelihood.cu",
          "replaces": "clonealign_tpu/ops/fused_likelihood.py:125",
          "launches": launches["fwd"], "max_abs_err": full["fwd_err"],
-         "ms": full["fwd_ms"], "plain_ms": full["fwd_plain_ms"]},
+         "ms": full["fwd_ms"], "plain_ms": full["fwd_plain_ms"],
+         "bound_ms": full["fwd_bound"][0], "bound_by": full["fwd_bound"][1],
+         "library_ms": None},
         {"name": "fused_likelihood_bwd", "route": "cuda",
          "source": "clonealign_torch/ops/csrc/fused_likelihood.cu",
          "replaces": "clonealign_tpu/ops/fused_likelihood.py:234",
          "launches": launches["bwd"], "max_abs_err": full["bwd_err"],
-         "ms": full["bwd_ms"], "plain_ms": full["bwd_plain_ms"]},
+         "ms": full["bwd_ms"], "plain_ms": full["bwd_plain_ms"],
+         "bound_ms": full["bwd_bound"][0], "bound_by": full["bwd_bound"][1],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,21 +12,50 @@
 //
 // and the vector-Jacobian product of those three outputs. The N x G matrix
 // exp(log_rfe) is never stored: every kernel recomputes it from psi and W.
+// The gene tables (W, mu*L, log mu: G x (Kf+SC+S) floats, 220 KB at full
+// width) are small; Y is what costs.
 //
-// What bounds it on the card. At the 100,000 x 5,000 x 10 clones fit the
-// forward and the cell-major backward each read Y once (N*G*4 B = 2 GB,
-// about 0.6 ms at 3.35 TB/s) and spend one exp plus SC FMAs per element
-// (5e8 exps and 5e9 FMAs, well under the float32 and SFU peaks). The gene
-// tables (W, mu*L, log mu: G x (Kf+SC+S) floats, 220 KB) are small. Measured
-// on the card, the first design (one warp per 4 cells, table entries read
+// Forward (replaces _fwd_kernel). What bounds it on the card is one read of
+// Y: at the 100,000 x 5,000 x 10 clones fit, N*G*4 B = 2 GB, 0.60 ms at
+// 3.35 TB/s. Its arithmetic (one exp and 2*SC flops of Z per element) is
+// under that. The first design on this card (one warp per cell row, Z's SC
+// accumulators per lane on CUDA cores) paid ~16 shared-memory loads and
+// FMAs per element for the tables and was bound by instruction issue at 4x
+// the floor. Two facts of the math remove that work:
+//
+//  * Z does not read Y. It is the (N x G)(G x SC) product exp(psi W^T) muL,
+//    so it runs on tensor cores: each warp owns 16 cell rows (the M of
+//    mma.sync m16n8k8 TF32), its lanes form their A fragments exp(psi.W_g)
+//    in registers, and the block stages muL once per gene tile in
+//    B-fragment order (one conflict-free 16-byte load per lane and n-tile).
+//    Three TF32 products (hi*hi + hi*lo + lo*hi, split with cvt.rna) keep Z
+//    at float32 accuracy. Each 32-gene sub-tile is summed in fresh MMA
+//    accumulators and added to the running sum on CUDA cores, so the tensor
+//    cores' own accumulation never spans more than 12 products. The exp is
+//    __expf (ex2.approx): its few-ulp error is far inside the tolerances.
+//  * A1 needs only Y W: A1[n] = sum_k psi[n,k] (Y W)[n,k]. So Y is a plain
+//    stream: each warp reads its 16 rows 32 genes at a time as 16-byte loads
+//    (each load instruction covers four whole 128-byte lines), one sub-tile
+//    ahead of use, and spends Kf (+ nA2) FMAs per element on it. The Z work
+//    of a sub-tile covers the latency of the next sub-tile's loads.
+//
+// Measured at full width on an H100 80GB HBM3 (700 W) by chip_smoke.py:
+// 0.90 ms. The Y stream, in this pattern of 128-byte pieces of 16 rows, sets
+// that time, not the tensor cores: a build without the Z work was nearly as
+// slow, and a cp.async ring holding two sub-tiles in flight did not read Y
+// faster.
+//
+// Backward (replaces _bwd_kernel). The cell-major dpsi and the gene-major
+// dW, d(muL), dlog mu each read Y once (two reads, 1.19 ms at full width).
+// The first design on this card (one warp per 4 cells, table entries read
 // from L2 into registers) was bound by latency at low occupancy, not by
 // bytes: 128-165 registers a thread left 8-16 warps per SM to cover the
 // loads. The design below keeps registers low and loads in flight:
 //
-//  * forward and cell-major backward: one warp owns one cell row; lanes
-//    stride over genes, so each load of a Y row is 128 contiguous bytes.
-//    The block's warps share each tile of the gene tables in shared memory,
-//    and a tile's genes are an unrolled loop, so its Y loads overlap. Per-row
+//  * cell-major backward: one warp owns one cell row; lanes stride over
+//    genes, so each load of a Y row is 128 contiguous bytes. The block's
+//    warps share each tile of the gene tables in shared memory, and a
+//    tile's genes are an unrolled loop, so its Y loads overlap. Per-row
 //    partial sums live in registers and are reduced with warp shuffles.
 //  * gene-major backward (dW, d(muL), dlog mu): a thread owns one gene and
 //    walks a chunk of cells, reading Y rows coalesced across genes; the
@@ -36,23 +65,26 @@
 //    kernel adds the chunks in a fixed order: no atomics, so every result
 //    is deterministic.
 //
-// Everything is float32 with float32 accumulation on CUDA cores. Tensor
-// cores, TMA, narrow Y storage and a lane axis for batched restarts are not
-// used here.
+// The backward is float32 with float32 accumulation on CUDA cores. TMA,
+// narrow Y storage and a lane axis for batched restarts are not used here.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxKf = 4;
 constexpr int kMaxA2 = 4;
-constexpr int kRowThreads = 256;   // forward and cell-major backward blocks
+constexpr int kRowThreads = 256;   // cell-major backward blocks
 constexpr int kGeneThreads = 128;  // gene-major backward blocks
 constexpr int kTileN = 64;         // cells staged in shared memory at once
 constexpr int kTileG = 128;        // genes per shared-memory table tile
 constexpr int kGeneUnroll = 8;     // cells in flight per gene-major thread
+constexpr int kFwdWarps = 8;       // forward block: 8 warps x 16 cell rows
+constexpr int kFwdRows = 16;       // cell rows a forward warp owns (the MMA's M)
+constexpr int kFwdSub = 32;        // genes of Y a forward warp loads at once
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -74,79 +106,231 @@ __device__ __forceinline__ void load_tile(float (*dst)[kTileG],
 }
 
 // ---------------------------------------------------------------------------
-// Forward: A1, optional A2, Z. One warp per cell row; the block's warps share
-// each tile of the gene tables in shared memory.
+// Forward: A1, optional A2, Z. One warp per 16 cell rows; the block's warps
+// share each tile of the gene tables in shared memory. KF = max(Kf, 1)
+// columns of psi and W, NT n-tiles of 8 Z columns.
 // ---------------------------------------------------------------------------
-template <int MAX_SC, bool WITH_A2>
-__global__ void __launch_bounds__(kRowThreads)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32: hi carries x's top 11 significand bits, lo the next 11.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b for a 16x8 (row) A, an 8x8 (col) B and a 16x8 float32 D.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Genes g .. g+3 of one Y row, zero past G. vec: rows are 16-byte aligned
+// (G % 4 == 0 and Y aligned), so g .. g+3 are all in or all out.
+__device__ __forceinline__ float4 load_y4(const float* __restrict__ row, int g,
+                                          int G, bool vec) {
+  if (vec) return g < G ? __ldcs(reinterpret_cast<const float4*>(row + g))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  return make_float4(g < G ? __ldcs(row + g) : 0.f, g + 1 < G ? __ldcs(row + g + 1) : 0.f,
+                     g + 2 < G ? __ldcs(row + g + 2) : 0.f,
+                     g + 3 < G ? __ldcs(row + g + 3) : 0.f);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+template <int KF, int NT, bool WITH_A2>
+__global__ void __launch_bounds__(kFwdWarps * kWarp)
 fwd_kernel(const float* __restrict__ Y, const float* __restrict__ psi,
-           const float* __restrict__ Wt, const float* __restrict__ logmu,
-           const float* __restrict__ muLt, float* __restrict__ A1,
+           const float* __restrict__ W, const float* __restrict__ logmu,
+           const float* __restrict__ muL, float* __restrict__ A1,
            float* __restrict__ A2, float* __restrict__ Z,
-           int N, int G, int Kf, int nA2, int SC) {
-  __shared__ float s_w[kMaxKf][kTileG];
-  __shared__ float s_m[MAX_SC][kTileG];
-  __shared__ float s_lm[WITH_A2 ? kMaxA2 : 1][kTileG];
+           int N, int G, int Kf, int nA2, int SC, bool vec) {
+  constexpr int kSteps = kTileG / 8;  // MMA k-steps of 8 genes per table tile
+  constexpr int kA2 = WITH_A2 ? kMaxA2 : 1;
+  __shared__ __align__(16) float s_w[KF][kTileG];         // W^T of the tile
+  __shared__ __align__(16) float4 s_b[kSteps][NT][kWarp];  // muL, B fragments
+  __shared__ __align__(16) float s_lm[kA2][kTileG];        // log mu of the tile
+
   const int lane = threadIdx.x % kWarp;
-  const int n = blockIdx.x * (kRowThreads / kWarp) + threadIdx.x / kWarp;
-  // No early exit: every warp takes part in the block's barriers; a warp
-  // past the last row computes on zeros and writes nothing.
-  const bool live = n < N;
-  const float* y_row = Y + (size_t)(live ? n : 0) * G;
+  const int row0 = (blockIdx.x * kFwdWarps + threadIdx.x / kWarp) * kFwdRows;
+  // MMA fragments: this lane's A rows are r and r + 8, its A columns (genes)
+  // c and c + 4, its B column (of an n-tile) r.
+  const int fr = lane >> 2, fc = lane & 3;
+  // Y stream: this lane reads genes 4q .. 4q+3 of a sub-tile for rows
+  // yr, yr + 4, yr + 8, yr + 12 of the warp's 16.
+  const int q = lane & 7, yr = lane >> 3;
 
-  float p[kMaxKf], a1 = 0.f, a2[kMaxA2], z[MAX_SC];
+  float p0[KF], p1[KF];  // psi of the lane's two A rows
 #pragma unroll
-  for (int k = 0; k < kMaxKf; ++k) p[k] = (live && k < Kf) ? psi[(size_t)n * Kf + k] : 0.f;
+  for (int k = 0; k < KF; ++k) {
+    const int n0 = row0 + fr, n1 = n0 + 8;
+    p0[k] = (k < Kf && n0 < N) ? psi[(size_t)n0 * Kf + k] : 0.f;
+    p1[k] = (k < Kf && n1 < N) ? psi[(size_t)n1 * Kf + k] : 0.f;
+  }
+  const float* y_rows = Y + (size_t)(row0 + yr) * G;
+  bool live[4];
 #pragma unroll
-  for (int s = 0; s < kMaxA2; ++s) a2[s] = 0.f;
+  for (int i = 0; i < 4; ++i) live[i] = row0 + yr + 4 * i < N;
+  auto load_sub = [&](float4 (&y)[4], int g) {
 #pragma unroll
-  for (int j = 0; j < MAX_SC; ++j) z[j] = 0.f;
+    for (int i = 0; i < 4; ++i)
+      y[i] = live[i] ? load_y4(y_rows + (size_t)(4 * i) * G, g + 4 * q, G, vec)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
 
-  for (int g0 = 0; g0 < G; g0 += kTileG) {
-    __syncthreads();  // the previous tile is fully consumed
-    load_tile<kMaxKf>(s_w, Wt, Kf, G, g0);
-    load_tile<MAX_SC>(s_m, muLt, SC, G, g0);
-    if constexpr (WITH_A2) load_tile<kMaxA2>(s_lm, logmu, nA2, G, g0);
-    __syncthreads();
+  float yw[4][KF], ylm[4][kA2], z[NT][4];
 #pragma unroll
-    for (int it = 0; it < kTileG / kWarp; ++it) {
-      const int t = it * kWarp + lane;
-      const int g = g0 + t;
-      const float y = (live && g < G) ? y_row[g] : 0.f;
-      float lr = 0.f;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int k = 0; k < kMaxKf; ++k) lr = fmaf(p[k], s_w[k][t], lr);
-      a1 = fmaf(y, lr, a1);
-      if constexpr (WITH_A2) {
+    for (int k = 0; k < KF; ++k) yw[i][k] = 0.f;
 #pragma unroll
-        for (int s = 0; s < kMaxA2; ++s) a2[s] = fmaf(y, s_lm[s][t], a2[s]);
+    for (int s = 0; s < kA2; ++s) ylm[i][s] = 0.f;
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[t][e] = 0.f;
+
+  float4 y_next[4];
+  load_sub(y_next, 0);
+  const int n_sub = (G + kFwdSub - 1) / kFwdSub;
+  // No early exit: every warp takes part in the block's barriers; rows past
+  // N compute on zeros and write nothing.
+#pragma unroll 1
+  for (int sub = 0; sub < n_sub; ++sub) {
+    const int gs = sub * kFwdSub;
+    const int c0 = gs % kTileG;  // the sub-tile's first column in the table tile
+    if (c0 == 0) {
+      __syncthreads();  // the previous tile is fully consumed
+      for (int i = threadIdx.x; i < KF * kTileG; i += blockDim.x) {
+        const int t = i / KF, k = i % KF, g = gs + t;  // W read row-major, coalesced
+        s_w[k][t] = (k < Kf && g < G) ? W[(size_t)g * Kf + k] : 0.f;
       }
-      const float e = expf(lr);
+      for (int i = threadIdx.x; i < kSteps * NT * kWarp; i += blockDim.x) {
+        const int l = i % kWarp, t = (i / kWarp) % NT, ks = i / (kWarp * NT);
+        const int j = t * 8 + (l >> 2), g = gs + ks * 8 + (l & 3);
+        const float b0 = (j < SC && g < G) ? muL[(size_t)g * SC + j] : 0.f;
+        const float b1 = (j < SC && g + 4 < G) ? muL[(size_t)(g + 4) * SC + j] : 0.f;
+        uint32_t h0, l0, h1, l1;
+        split_tf32(b0, h0, l0);
+        split_tf32(b1, h1, l1);
+        s_b[ks][t][l] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                                    __uint_as_float(l0), __uint_as_float(l1));
+      }
+      if constexpr (WITH_A2) {
+        for (int i = threadIdx.x; i < kMaxA2 * kTileG; i += blockDim.x) {
+          const int s = i / kTileG, t = i % kTileG, g = gs + t;
+          s_lm[s][t] = (s < nA2 && g < G) ? logmu[(size_t)s * G + g] : 0.f;
+        }
+      }
+      __syncthreads();
+    }
+
+    float4 y[4];
 #pragma unroll
-      for (int j = 0; j < MAX_SC; ++j) z[j] = fmaf(e, s_m[j][t], z[j]);
+    for (int i = 0; i < 4; ++i) y[i] = y_next[i];
+    if (sub + 1 < n_sub) load_sub(y_next, gs + kFwdSub);
+
+    // Z on tensor cores, this sub-tile summed in fresh accumulators.
+    float zs[NT][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) zs[t][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kFwdSub / 8; ++ks) {
+      const int c = c0 + ks * 8;
+      // A fragment order: (r, c), (r + 8, c), (r, c + 4), (r + 8, c + 4).
+      float lr[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < KF; ++k) {
+        const float w0 = s_w[k][c + fc], w1 = s_w[k][c + fc + 4];
+        lr[0] = fmaf(p0[k], w0, lr[0]);
+        lr[1] = fmaf(p1[k], w0, lr[1]);
+        lr[2] = fmaf(p0[k], w1, lr[2]);
+        lr[3] = fmaf(p1[k], w1, lr[3]);
+      }
+      uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(__expf(lr[e]), a_hi[e], a_lo[e]);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const float4 b = s_b[c / 8][t][lane];
+        const uint32_t b_hi0 = __float_as_uint(b.x), b_hi1 = __float_as_uint(b.y);
+        mma_tf32(zs[t], a_lo, b_hi0, b_hi1);
+        mma_tf32(zs[t], a_hi, __float_as_uint(b.z), __float_as_uint(b.w));
+        mma_tf32(zs[t], a_hi, b_hi0, b_hi1);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[t][e] += zs[t][e];
+
+    // Y W (and Y log mu) on CUDA cores.
+#pragma unroll
+    for (int k = 0; k < KF; ++k) {
+      const float4 w = *reinterpret_cast<const float4*>(&s_w[k][c0 + 4 * q]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) yw[i][k] = dot4(y[i], w, yw[i][k]);
+    }
+    if constexpr (WITH_A2) {
+#pragma unroll
+      for (int s = 0; s < kMaxA2; ++s) {
+        const float4 m = *reinterpret_cast<const float4*>(&s_lm[s][c0 + 4 * q]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ylm[i][s] = dot4(y[i], m, ylm[i][s]);
+      }
     }
   }
 
-  a1 = warp_sum(a1);
-  if (lane == 0 && live) A1[n] = a1;
-  if constexpr (WITH_A2) {
+  // A1 and A2: the 8 lanes of a row group hold sums over disjoint genes.
 #pragma unroll
-    for (int s = 0; s < kMaxA2; ++s) {
-      const float t = warp_sum(a2[s]);
-      if (lane == 0 && live && s < nA2) A2[(size_t)n * nA2 + s] = t;
+  for (int i = 0; i < 4; ++i) {
+    const int n = row0 + yr + 4 * i;
+    float a1 = 0.f;
+#pragma unroll
+    for (int k = 0; k < KF; ++k) {
+      float v = yw[i][k];
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (k < Kf && n < N) a1 = fmaf(psi[(size_t)n * Kf + k], v, a1);
+    }
+    if (q == 0 && n < N) A1[n] = a1;
+    if constexpr (WITH_A2) {
+#pragma unroll
+      for (int s = 0; s < kMaxA2; ++s) {
+        float v = ylm[i][s];
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (q == 0 && n < N && s < nA2) A2[(size_t)n * nA2 + s] = v;
+      }
     }
   }
+  // Z: D fragment order (r, 2c), (r, 2c + 1), (r + 8, 2c), (r + 8, 2c + 1).
 #pragma unroll
-  for (int j = 0; j < MAX_SC; ++j) {
-    const float t = warp_sum(z[j]);
-    if (lane == 0 && live && j < SC) Z[(size_t)n * SC + j] = t;
+  for (int t = 0; t < NT; ++t) {
+    const int j = t * 8 + 2 * fc;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = row0 + fr + (e >> 1) * 8, jj = j + (e & 1);
+      if (n < N && jj < SC) Z[(size_t)n * SC + jj] = z[t][e];
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // Backward, cell-major: dpsi[n,k] = sum_g dlog_rfe[n,g] W[g,k] with
-// dlog_rfe = Y dA1[n] + rfe * (sum_j dZ[n,j] muL[g,j]). Same layout as the
-// forward.
+// dlog_rfe = Y dA1[n] + rfe * (sum_j dZ[n,j] muL[g,j]). One warp per cell
+// row; the block's warps share each tile of the gene tables in shared memory.
 // ---------------------------------------------------------------------------
 template <int MAX_SC>
 __global__ void __launch_bounds__(kRowThreads)
@@ -310,18 +494,34 @@ int blocks_for(long long threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
 }
 
-template <int MAX_SC>
-void launch_fwd(const float* Y, const float* psi, const float* Wt,
-                const float* logmu, const float* muLt, float* A1, float* A2,
+template <int KF, int NT>
+void launch_fwd(const float* Y, const float* psi, const float* W,
+                const float* logmu, const float* muL, float* A1, float* A2,
                 float* Z, int N, int G, int Kf, int nA2, int SC,
                 cudaStream_t stream) {
-  const int grid = blocks_for((long long)N * kWarp, kRowThreads);
+  const int grid = blocks_for(N, kFwdWarps * kFwdRows);
+  const bool vec = G % 4 == 0 && reinterpret_cast<uintptr_t>(Y) % 16 == 0;
   if (nA2 > 0)
-    fwd_kernel<MAX_SC, true><<<grid, kRowThreads, 0, stream>>>(
-        Y, psi, Wt, logmu, muLt, A1, A2, Z, N, G, Kf, nA2, SC);
+    fwd_kernel<KF, NT, true><<<grid, kFwdWarps * kWarp, 0, stream>>>(
+        Y, psi, W, logmu, muL, A1, A2, Z, N, G, Kf, nA2, SC, vec);
   else
-    fwd_kernel<MAX_SC, false><<<grid, kRowThreads, 0, stream>>>(
-        Y, psi, Wt, logmu, muLt, A1, A2, Z, N, G, Kf, nA2, SC);
+    fwd_kernel<KF, NT, false><<<grid, kFwdWarps * kWarp, 0, stream>>>(
+        Y, psi, W, logmu, muL, A1, A2, Z, N, G, Kf, nA2, SC, vec);
+}
+
+// One instantiation per n-tile count (8 Z columns each): every padding
+// column costs the tensor cores a third of an n-tile's work.
+template <int KF>
+void launch_fwd_nt(const float* Y, const float* psi, const float* W,
+                   const float* logmu, const float* muL, float* A1, float* A2,
+                   float* Z, int N, int G, int Kf, int nA2, int SC,
+                   cudaStream_t stream) {
+  if (SC <= 8)
+    launch_fwd<KF, 1>(Y, psi, W, logmu, muL, A1, A2, Z, N, G, Kf, nA2, SC, stream);
+  else if (SC <= 16)
+    launch_fwd<KF, 2>(Y, psi, W, logmu, muL, A1, A2, Z, N, G, Kf, nA2, SC, stream);
+  else
+    launch_fwd<KF, 4>(Y, psi, W, logmu, muL, A1, A2, Z, N, G, Kf, nA2, SC, stream);
 }
 
 template <int MAX_SC>
@@ -366,21 +566,26 @@ bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk) {
 extern "C" {
 
 // All pointers are device pointers to contiguous float32 arrays:
-// Y (N,G), psi (N,Kf), Wt (Kf,G), logmu (nA2,G), muLt (SC,G);
+// Y (N,G), psi (N,Kf), W (G,Kf), logmu (nA2,G), muL (G,SC);
 // outputs A1 (N), A2 (N,nA2), Z (N,SC). nA2 == 0 skips A2 (logmu and A2
 // are then not read or written). Returns cudaGetLastError() after launch.
-int fl_forward(const float* Y, const float* psi, const float* Wt,
-               const float* logmu, const float* muLt, float* A1, float* A2,
+int fl_forward(const float* Y, const float* psi, const float* W,
+               const float* logmu, const float* muL, float* A1, float* A2,
                float* Z, int N, int G, int Kf, int nA2, int SC,
                cudaStream_t stream) {
   if (bad_sizes(N, G, Kf, nA2, SC, 1)) return (int)cudaErrorInvalidValue;
-#define CA_FWD(M) launch_fwd<M>(Y, psi, Wt, logmu, muLt, A1, A2, Z, N, G, Kf, nA2, SC, stream)
-  CA_DISPATCH_SC(SC, CA_FWD);
-#undef CA_FWD
+  switch (Kf) {
+    case 0:  // rfe = exp(0) = 1 and A1 = 0: one zero column
+    case 1: launch_fwd_nt<1>(Y, psi, W, logmu, muL, A1, A2, Z, N, G, Kf, nA2, SC, stream); break;
+    case 2: launch_fwd_nt<2>(Y, psi, W, logmu, muL, A1, A2, Z, N, G, Kf, nA2, SC, stream); break;
+    case 3: launch_fwd_nt<3>(Y, psi, W, logmu, muL, A1, A2, Z, N, G, Kf, nA2, SC, stream); break;
+    default: launch_fwd_nt<4>(Y, psi, W, logmu, muL, A1, A2, Z, N, G, Kf, nA2, SC, stream);
+  }
   return (int)cudaGetLastError();
 }
 
-// Backward. Inputs as fl_forward plus dA1 (N), dA2 (N,nA2), dZ (N,SC).
+// Backward. Inputs Y and psi as fl_forward, Wt (Kf,G), muLt (SC,G), plus
+// dA1 (N), dA2 (N,nA2), dZ (N,SC).
 // Outputs dpsi (N,Kf) and dgene (Kf+SC+nA2, G) = [dW^T; d(muL)^T; dlog_mu].
 // part is scratch of ceil(N/rows_per_chunk) * (Kf+SC+nA2) * G floats.
 int fl_backward(const float* Y, const float* psi, const float* Wt,

@@ -123,14 +123,12 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     if log_mu is not None:
         _check("log_mu", log_mu, (n_a2, G))
     lib = _build.load()
-    Wt = W_ext.T.contiguous()  # gene-contiguous tables: coalesced lane loads
-    muLt = muL.T.contiguous()
     A1 = torch.empty(N, device=Y.device, dtype=torch.float32)
     A2 = None if log_mu is None else torch.empty(N, n_a2, device=Y.device, dtype=torch.float32)
     Z = torch.empty(N, SC, device=Y.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(Y.device).cuda_stream
     err = lib.fl_forward(
-        _ptr(Y), _ptr(psi_ext), _ptr(Wt), _ptr(log_mu), _ptr(muLt),
+        _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(log_mu), _ptr(muL),
         _ptr(A1), _ptr(A2), _ptr(Z), N, G, Kf, n_a2, SC, ctypes.c_void_p(stream),
     )
     _raise_on(err, "fused likelihood forward")

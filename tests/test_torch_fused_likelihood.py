@@ -25,9 +25,14 @@ from clonealign_torch.ops import fused_likelihood as tfl
 torch.set_num_threads(2)
 
 SHAPES = [(70, 90, 4, 2, 2), (130, 257, 3, 1, 1), (37, 41, 2, 1, 1)]
-# (N, G, C, K, S) covering every S*C bound the kernels are built for
+# (N, G, C, K, S) covering every S*C bound the kernels are built for (the
+# backward's 8/12/16/32, the forward's 1, 2 and 4 n-tiles of 8 columns, with
+# S*C = 1, 8, 9, 16, 17, 20, 32), one row and a ragged 16-row tile (N = 1, 17),
+# one gene, gene counts ragged against the forward's 32- and 128-gene tiles
+# with and without 16-byte rows (G = 1000, 700 / 41, 129, 515), and Kf = 0..4
 CUDA_SHAPES = SHAPES + [(333, 1000, 10, 1, 1), (257, 700, 16, 4, 1), (100, 129, 10, 1, 2),
-                        (5, 3000, 1, 0, 1)]
+                        (5, 3000, 1, 0, 1), (1, 200, 9, 1, 1), (17, 333, 17, 3, 1),
+                        (40, 1, 8, 2, 4), (50, 515, 16, 4, 2)]
 VALUE_TOL = dict(rtol=2e-5, atol=1e-4)
 VJP_TOL = dict(rtol=3e-5, atol=1e-4)
 
