@@ -10,10 +10,15 @@ and at the full width of the main path), then drives the fit at full width —
 100,000 cells x 5,000 genes x 10 clones, clone-structured counts made on the
 card from a seed — through ``clonealign_torch.clonealign``, and a small
 ``run_clonealign`` sweep. Any failed phase raises and the script exits
-nonzero. The last line of standard output is a JSON object naming the card;
-the line before it lists each kernel with its launches during the fit, its
-error against the plain version, its time, the plain version's time and its
-bound (the least time the card could take for the same work).
+nonzero, as it does when ptxas's report lacks a tensor-core kernel
+instantiation or shows one spilling registers. The last line of standard
+output is a JSON object naming the card; the line before it lists each
+kernel with its launches during the fit, its error against the plain
+version, its time, the plain version's time and its bound (the least time
+the card could take for the same work), the backward's entry also listing
+its two parts (the Y-free dpsi kernel, and the gene-major kernel with its
+reduction), each with its own launches, time and bound; the line before
+that prints those parts' times.
 """
 
 from __future__ import annotations
@@ -41,9 +46,14 @@ SWEEP = dict(N=2_000, G=500, C=4)
 FIT_MAX_ITER = 100
 MIN_ACCURACY = 0.99
 # Published peaks of one H100 SXM at 700 W: HBM bytes/s, float32 FLOP/s on
-# CUDA cores (the kernels' contract is float32).
+# CUDA cores (the kernels' contract is float32), TF32 FLOP/s on tensor
+# cores, and exps/s on the special-function units: 16 a clock on each of 132
+# SMs (the CUDA C++ Programming Guide's throughput table, compute capability
+# 9.0) at the 1.98 GHz clock behind the 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+EXP_PER_S = 132 * 16 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -118,8 +128,11 @@ def compare(got: dict, want: dict, scale: dict, label: str):
     return worst
 
 
-def cuda_ms(fn, reps):
-    """Median milliseconds per call, timed with CUDA events after a warm-up."""
+def cuda_ms(fn, reps, batch=10):
+    """Median milliseconds per call over ``reps`` rounds, each timing
+    ``batch`` calls queued between two CUDA events after a warm-up: the host
+    queues calls faster than the card runs them at full width, so the time
+    is the card's, not the wrapper's."""
     import torch
 
     fn()
@@ -129,10 +142,11 @@ def cuda_ms(fn, reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return float(np.median(times))
 
 
@@ -145,22 +159,42 @@ def bound(n_bytes, n_ops):
 
 
 def kernel_bounds(N, G, Kf, SC):
-    """Bounds of the A2-off forward and backward: each float32 input read
-    once, each output written once, and the operations of the formulas."""
+    """Bounds of the A2-off forward and backward and of the backward's two
+    parts: each float32 input read once, each output written once, and the
+    operations of the formulas (dpsi's on the unit that runs each)."""
     fwd_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC  # Y, psi, W, muL
                      + N + N * SC)                      # A1, Z
     fwd_ops = N * G * (2 * Kf + 1 + 2 + 2 * SC)         # log_rfe, exp, Y log_rfe, Z
-    bwd_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC + N + N * SC  # Y, psi, W, muL, dA1, dZ
-                     + N * Kf + G * Kf + G * SC)                    # dpsi, dW, dmuL
+    # dpsi part: psi, W, muL, dA1, dZ, YW in; dpsi out. Its work runs on
+    # three units, so its bound is the slowest of them: the exps on the
+    # special-function units, T's product (rfe W_k) muL as three TF32 MMA
+    # passes (float32 accuracy) on tensor cores, log_rfe and rfe W_k on CUDA
+    # cores.
+    dpsi_bytes = 4 * (N * Kf + G * Kf + G * SC + N + N * SC + N * Kf + N * Kf)
+    dpsi_units = {"bytes": 1e3 * dpsi_bytes / HBM_BYTES_PER_S,
+                  "exps": 1e3 * N * G / EXP_PER_S,
+                  "3xTF32 MMA": 1e3 * 3 * 2 * N * G * SC * Kf / TF32_OPS_PER_S,
+                  "float32 operations": 1e3 * N * G * 3 * Kf / FP32_OPS_PER_S}
+    dpsi_unit = max(dpsi_units, key=dpsi_units.get)
+    dpsi_by = "bytes" if dpsi_unit == "bytes" else "operations"
+    # gene part: Y, psi, W, muL, dA1, dZ in; dW, dmuL out. Its operations:
+    # log_rfe, exp, drfe, dlog_rfe, then dW and dmuL.
+    gene_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC + N + N * SC + G * Kf + G * SC)
+    gene_ops = N * G * (2 * Kf + 1 + 2 * SC + 3 + 2 * Kf + 2 * SC)
+    bwd_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC + N + N * SC + N * Kf  # Y, psi, W, muL, dA1, dZ, YW
+                     + N * Kf + G * Kf + G * SC)                             # dpsi, dW, dmuL
     bwd_ops = N * G * (2 * Kf + 1 + 2 * SC + 3           # log_rfe, exp, drfe, dlog_rfe
                        + 4 * Kf + 2 * SC)                # dpsi and dW, dmuL
-    return bound(fwd_bytes, fwd_ops), bound(bwd_bytes, bwd_ops)
+    return {"fwd": bound(fwd_bytes, fwd_ops), "bwd": bound(bwd_bytes, bwd_ops),
+            "dpsi": (dpsi_units[dpsi_unit], dpsi_by, dpsi_unit),
+            "gene": bound(gene_bytes, gene_ops)}
 
 
 def check_kernels(shape, S, Kf, seed, reps):
     """Compare forward (A2 on and off) and backward with the plain versions
-    at one shape; return the errors and the times of the A2-off calls (the
-    training step's form)."""
+    at one shape, the backward taking Y W from the forward kernel as the fit
+    does; return the errors and the times of the A2-off calls (the training
+    step's form), with the backward's dpsi and gene parts also timed alone."""
     import torch
 
     from clonealign_torch.ops import fused_likelihood as fl
@@ -176,7 +210,8 @@ def check_kernels(shape, S, Kf, seed, reps):
         args_f = (x["Y"], x["psi"], x["W"], log_mu, x["muL"])
         args_b = (x["Y"], x["psi"], x["W"], x["muL"], x["dA1"], dA2, x["dZ"])
         fwd_scale, bwd_scale = abs_scales(x, with_a2)
-        names_f = ("A1", "A2", "Z")
+        fwd_scale["YW"] = x["Y"] @ x["W"].abs()
+        names_f = ("A1", "A2", "Z", "YW")
         names_b = ("dpsi", "dW", "dlog_mu", "dmuL")
 
         def as_dict(names, out):
@@ -184,10 +219,12 @@ def check_kernels(shape, S, Kf, seed, reps):
 
         got = as_dict(names_f, fl.kernel_forward(*args_f))
         want = as_dict(names_f, fl.reference_likelihood_terms(*args_f))
+        want["YW"] = x["Y"] @ x["W"]
         torch.cuda.synchronize()
         tag = f"{label} A2={'on' if with_a2 else 'off'}"
         err_f = compare(got, want, fwd_scale, f"fwd {tag}")
-        got = as_dict(names_b, fl.kernel_backward(*args_b))
+        YW = got["YW"]
+        got = as_dict(names_b, fl.kernel_backward(*args_b, YW))
         want = as_dict(names_b, fl.reference_likelihood_vjp(*args_b))
         torch.cuda.synchronize()
         err_b = compare(got, want, bwd_scale, f"bwd {tag}")
@@ -195,24 +232,30 @@ def check_kernels(shape, S, Kf, seed, reps):
         t = {
             "fwd_ms": cuda_ms(lambda: fl.kernel_forward(*args_f), reps),
             "fwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_terms(*args_f), reps),
-            "bwd_ms": cuda_ms(lambda: fl.kernel_backward(*args_b), reps),
+            "bwd_ms": cuda_ms(lambda: fl.kernel_backward(*args_b, YW), reps),
             "bwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_vjp(*args_b), reps),
+            "dpsi_ms": cuda_ms(lambda: fl.kernel_dpsi(
+                x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"], YW), reps),
+            "gene_ms": cuda_ms(lambda: fl.kernel_gene(*args_b), reps),
         }
         log(f"  {tag}: fwd {t['fwd_ms']:.3f} ms (plain {t['fwd_plain_ms']:.3f} ms), "
-            f"bwd {t['bwd_ms']:.3f} ms (plain {t['bwd_plain_ms']:.3f} ms)")
+            f"bwd {t['bwd_ms']:.3f} ms "
+            f"(dpsi {t['dpsi_ms']:.3f} ms + gene {t['gene_ms']:.3f} ms; "
+            f"plain {t['bwd_plain_ms']:.3f} ms)")
         if not with_a2:
             result = dict(t, fwd_err=err_f, bwd_err=err_b)
-    result["fwd_bound"], result["bwd_bound"] = kernel_bounds(
-        shape["N"], shape["G"], Kf, S * shape["C"])
-    del x
+    result["bounds"] = kernel_bounds(shape["N"], shape["G"], Kf, S * shape["C"])
+    result["dpsi_plain_ms"] = cuda_ms(lambda: fl.reference_dpsi(
+        YW, x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"]), reps)
+    del x, YW
     torch.cuda.empty_cache()
     return result
 
 
-def fwd_resources(build_log):
-    """ptxas's report (-v) for each forward kernel instantiation, keyed by
-    its template arguments (KF, NT, A2):
-    {"<1,2,0>": (registers, spill store bytes, spill load bytes)}."""
+def kernel_resources(build_log, kernel):
+    """ptxas's report (-v) for each instantiation of one kernel template,
+    keyed by its template arguments: {"<1,2,0>": (registers, spill store
+    bytes, spill load bytes)}."""
     found, name, spills = {}, None, (0, 0)
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -224,24 +267,34 @@ def fwd_resources(build_log):
             spills = (int(m.group(1)), int(m.group(2)))
             continue
         m = re.search(r"Used (\d+) registers", line)
-        f = re.search(r"fwd_kernelI((?:L[ib]\d+E)+)E", name or "")
+        f = re.search(kernel + r"I((?:L[ib]\d+E)+)E", name or "")
         if m and f:
             label = "<" + ",".join(re.findall(r"L[ib](\d+)E", f.group(1))) + ">"
             found[label] = (int(m.group(1)), *spills)
     return found
 
 
-def log_fwd_resources(build_log):
-    """Print the forward kernels' registers and spills; raise if one spills
-    or the report has none of them."""
-    res = fwd_resources(build_log)
-    if not res:
-        raise AssertionError("fwd_kernel is not in the ptxas report of the build")
-    log("fwd_kernel ptxas: " + "; ".join(
-        f"{k} {r} registers, {st}/{ld} B spill stores/loads" for k, (r, st, ld) in sorted(res.items())))
-    spilled = [k for k, (_, st, ld) in res.items() if st or ld]
-    if spilled:
-        raise AssertionError(f"fwd_kernel spills registers in {spilled}")
+# The instantiations each tensor-core kernel must have in the report:
+# fwd_kernel<KF, NT, A2> and dpsi_kernel<KF, NT>.
+TC_KERNELS = {
+    "fwd_kernel": {f"<{k},{t},{a}>" for k in (1, 2, 3, 4) for t in (1, 2, 4) for a in (0, 1)},
+    "dpsi_kernel": {f"<{k},{t}>" for k in (1, 2, 3, 4) for t in (1, 2, 4)},
+}
+
+
+def log_tc_resources(build_log):
+    """Print the tensor-core kernels' registers and spills, one line per
+    kernel; raise if an instantiation spills or is missing from the report."""
+    for kernel, want in TC_KERNELS.items():
+        res = kernel_resources(build_log, kernel)
+        log(f"{kernel} ptxas: " + "; ".join(
+            f"{k} {r} registers, {st}/{ld} B spill stores/loads"
+            for k, (r, st, ld) in sorted(res.items())))
+        if set(res) != want:
+            raise AssertionError(f"{kernel}: the ptxas report lacks {sorted(want - set(res))}")
+        spilled = [k for k, (_, st, ld) in res.items() if st or ld]
+        if spilled:
+            raise AssertionError(f"{kernel} spills registers in {spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +372,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
     if _build.build_log:
         log(_build.build_log.strip())
-    log_fwd_resources(_build.build_log)
+    log_tc_resources(_build.build_log)
 
     # 3. kernels vs plain: small ragged shapes, then full width
     log("kernels vs plain (tolerance: KERNEL_RTOL="
@@ -339,7 +392,7 @@ def main() -> int:
         Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False
     )
     wall = time.perf_counter() - t0
-    launches = {"fwd": fl.fwd_launches, "bwd": fl.bwd_launches}
+    launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
     n_iters = fit.convergence_info.n_iters
     tm = fit.timings
     log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']}: {wall:.2f} s wall, "
@@ -352,15 +405,16 @@ def main() -> int:
     log(f"  ELBO {fit.convergence_info.elbo[0]:.6g} -> {fit.convergence_info.elbo[-1]:.6g} "
         f"(rising steps {rising:.2f}), final {fit.convergence_info.final_elbo:.6g} "
         f"+- {fit.convergence_info.sd_final_elbo:.3g}; accuracy {acc:.4f}; "
-        f"launches fwd {launches['fwd']} bwd {launches['bwd']}")
+        f"launches fwd {launches['fwd']} dpsi {launches['dpsi']} gene {launches['gene']}")
     if acc < MIN_ACCURACY:
         raise AssertionError(f"accuracy {acc:.4f} < {MIN_ACCURACY}")
     # warm start + initial ELBO + (train + fresh eval) per iteration + 20 final
     want_fwd = 2 + 2 * n_iters + 20
-    if launches != {"fwd": want_fwd, "bwd": n_iters}:
+    # and one backward (a dpsi and a gene-major launch) per iteration
+    if launches != {"fwd": want_fwd, "dpsi": n_iters, "gene": n_iters}:
         raise AssertionError(
             f"kernel launches {launches} do not match {n_iters} iterations "
-            f"(expected fwd {want_fwd}, bwd {n_iters})"
+            f"(expected fwd {want_fwd}, dpsi and gene {n_iters} each)"
         )
     del Y
 
@@ -380,22 +434,38 @@ def main() -> int:
     if info["best_run"] != best or acc_s < MIN_ACCURACY:
         raise AssertionError("run_clonealign picked a wrong lane or assigned badly")
 
+    # The backward's parts alone at full width, A2 off.
+    b = full["bounds"]
+    log(f"backward parts {FULL['N']}x{FULL['G']} S*C={FULL['C']} Kf=1 A2=off: "
+        f"dpsi_kernel {full['dpsi_ms']:.3f} ms (plain {full['dpsi_plain_ms']:.3f} ms, "
+        f"bound {b['dpsi'][0]:.3f} ms by {b['dpsi'][2]}), gene_kernel + "
+        f"reduce_chunks_kernel {full['gene_ms']:.3f} ms (bound {b['gene'][0]:.3f} ms "
+        f"by {b['gene'][1]})")
     # No single PyTorch call computes either function: library_ms is null.
+    # A backward launch is one dpsi and one gene-major launch.
     kernels = [
         {"name": "fused_likelihood_fwd", "route": "cuda",
          "source": "clonealign_torch/ops/csrc/fused_likelihood.cu",
          "replaces": "clonealign_tpu/ops/fused_likelihood.py:125",
          "launches": launches["fwd"], "max_abs_err": full["fwd_err"],
          "ms": full["fwd_ms"], "plain_ms": full["fwd_plain_ms"],
-         "bound_ms": full["fwd_bound"][0], "bound_by": full["fwd_bound"][1],
+         "bound_ms": b["fwd"][0], "bound_by": b["fwd"][1],
          "library_ms": None},
         {"name": "fused_likelihood_bwd", "route": "cuda",
          "source": "clonealign_torch/ops/csrc/fused_likelihood.cu",
          "replaces": "clonealign_tpu/ops/fused_likelihood.py:234",
-         "launches": launches["bwd"], "max_abs_err": full["bwd_err"],
+         "launches": min(launches["dpsi"], launches["gene"]),
+         "max_abs_err": full["bwd_err"],
          "ms": full["bwd_ms"], "plain_ms": full["bwd_plain_ms"],
-         "bound_ms": full["bwd_bound"][0], "bound_by": full["bwd_bound"][1],
-         "library_ms": None},
+         "bound_ms": b["bwd"][0], "bound_by": b["bwd"][1],
+         "library_ms": None,
+         "parts": [
+             {"name": "dpsi_kernel", "launches": launches["dpsi"],
+              "ms": full["dpsi_ms"], "plain_ms": full["dpsi_plain_ms"],
+              "bound_ms": b["dpsi"][0], "bound_by": b["dpsi"][1], "bound_unit": b["dpsi"][2]},
+             {"name": "gene_kernel+reduce_chunks_kernel", "launches": launches["gene"],
+              "ms": full["gene_ms"], "bound_ms": b["gene"][0], "bound_by": b["gene"][1]},
+         ]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -78,9 +78,11 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fl_forward.argtypes = [p] * 8 + [i] * 5 + [p]
+    lib.fl_forward.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.fl_forward.restype = i
-    lib.fl_backward.argtypes = [p] * 10 + [i] * 6 + [p]
-    lib.fl_backward.restype = i
+    lib.fl_backward_dpsi.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.fl_backward_dpsi.restype = i
+    lib.fl_backward_gene.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.fl_backward_gene.restype = i
     _lib = lib
     return lib

@@ -9,11 +9,14 @@ Per ELBO evaluation the likelihood needs (counterpart of
     Z[n,s*C+c] = sum_g exp(log_rfe[n,g]) * muL[g,s*C+c]
 
 On CUDA tensors :func:`fused_likelihood_terms` launches the kernels of
-``csrc/fused_likelihood.cu``, which read Y once per pass and never store the
-N x G ``exp(log_rfe)``. On CPU tensors it runs :func:`reference_likelihood_terms`
-and :func:`reference_likelihood_vjp`, the plain versions of the same
-formulas. There is no fallback between the two: a CUDA tensor the kernels do
-not take raises.
+``csrc/fused_likelihood.cu``, which never store the N x G ``exp(log_rfe)``.
+The forward kernel also writes ``YW = Y @ W_ext`` (N x Kf), which the
+autograd function keeps, so that the backward's dpsi kernel
+(:func:`reference_dpsi` is its plain version) reads no Y: the backward reads
+Y once, for dW, d(muL) and dlog mu. On CPU tensors it runs
+:func:`reference_likelihood_terms` and :func:`reference_likelihood_vjp`, the
+plain versions of the whole contract, which need no YW. There is no fallback
+between the two: a CUDA tensor the kernels do not take raises.
 
 ``log_mu=None`` skips A2 (the ELBO step replaces it with a precomputed
 column-sum dot, see ``models/multinomial.elbo``); A2 is then returned as None.
@@ -31,15 +34,17 @@ MAX_A2 = 4   # A2 columns (Monte Carlo samples) the kernels take
 MAX_SC = 32  # Z columns (samples x clones) the kernels take
 _ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
 
-# Kernel launches, counted where the wrapper launches them.
+# Kernel launches, each counted by the wrapper that launches the kernel.
 fwd_launches = 0
-bwd_launches = 0
+dpsi_launches = 0
+gene_launches = 0  # the gene-major backward kernel with its chunk reduction
 
 
 def reset_launch_counts() -> None:
-    global fwd_launches, bwd_launches
+    global fwd_launches, dpsi_launches, gene_launches
     fwd_launches = 0
-    bwd_launches = 0
+    dpsi_launches = 0
+    gene_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -57,11 +62,12 @@ def reference_likelihood_terms(Y, psi_ext, W_ext, log_mu, muL):
 
 
 def reference_likelihood_vjp(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
-    """Plain PyTorch version of the backward contract, the same formulas the
-    CUDA backward computes: with ``rfe = exp(psi_ext W_ext^T)``,
-    ``drfe = dZ muL^T`` and ``dlog_rfe = Y dA1 + rfe drfe``, returns
-    ``dpsi = dlog_rfe W_ext``, ``dW = dlog_rfe^T psi_ext``,
-    ``dlog_mu = dA2^T Y`` (None when ``dA2`` is None) and ``dmuL = rfe^T dZ``."""
+    """Plain PyTorch version of the backward contract: with
+    ``rfe = exp(psi_ext W_ext^T)``, ``drfe = dZ muL^T`` and
+    ``dlog_rfe = Y dA1 + rfe drfe``, returns ``dpsi = dlog_rfe W_ext``,
+    ``dW = dlog_rfe^T psi_ext``, ``dlog_mu = dA2^T Y`` (None when ``dA2`` is
+    None) and ``dmuL = rfe^T dZ``. dW, dlog_mu and dmuL are the formulas of
+    the gene-major CUDA kernel."""
     rfe = torch.exp(psi_ext @ W_ext.T)
     dlog_rfe = Y * dA1[:, None] + rfe * (dZ @ muL.T)
     dpsi = dlog_rfe @ W_ext
@@ -69,6 +75,25 @@ def reference_likelihood_vjp(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     dlog_mu = None if dA2 is None else dA2.T @ Y
     dmuL = rfe.T @ dZ
     return dpsi, dW, dlog_mu, dmuL
+
+
+def reference_dpsi(YW, psi_ext, W_ext, muL, dA1, dZ):
+    """Plain PyTorch version of the dpsi kernel, which reads no Y: with
+    ``YW = Y @ W_ext`` from the forward and
+    ``T[n,k,j] = sum_g rfe[n,g] W_ext[g,k] muL[g,j]``,
+    ``dpsi = dA1 * YW + sum_j dZ[:, j] T[:, :, j]``, which equals
+    ``dlog_rfe @ W_ext`` exactly. Materializes ``rfe * W_ext[:, k]``."""
+    rfe_w = torch.exp(psi_ext @ W_ext.T)[:, None, :] * W_ext.T[None]  # (N, Kf, G)
+    T = rfe_w @ muL                                                    # (N, Kf, SC)
+    return dA1[:, None] * YW + (T @ dZ[:, :, None])[:, :, 0]
+
+
+def _plain_forward(Y, psi_ext, W_ext, log_mu, muL):
+    return (*reference_likelihood_terms(Y, psi_ext, W_ext, log_mu, muL), None)
+
+
+def _plain_backward(Y, psi_ext, W_ext, muL, dA1, dA2, dZ, _YW):
+    return reference_likelihood_vjp(Y, psi_ext, W_ext, muL, dA1, dA2, dZ)
 
 
 # ---------------------------------------------------------------------------
@@ -86,18 +111,15 @@ def _check(name, t, shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _check_sizes(Y, psi_ext, muL, n_a2):
-    N, G = Y.shape
-    Kf, SC = psi_ext.shape[1], muL.shape[1]
+def _check_sizes(N, G, Kf, SC, n_a2):
     if N < 1 or G < 1:
-        raise ValueError(f"the CUDA kernels need a non-empty Y, got {tuple(Y.shape)}")
+        raise ValueError(f"the CUDA kernels need N, G >= 1, got N={N}, G={G}")
     if Kf > MAX_KF or n_a2 > MAX_A2 or not 1 <= SC <= MAX_SC:
         raise ValueError(
             f"the CUDA kernels take at most {MAX_KF} latent columns, {MAX_A2} "
             f"samples and {MAX_SC} sample x clone columns; got Kf={Kf}, "
             f"S={n_a2}, S*C={SC}"
         )
-    return N, G, Kf, SC
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -110,13 +132,15 @@ def _raise_on(err: int, what: str):
 
 
 def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
-    """Launch the forward kernel. Returns (A1, A2 or None, Z)."""
+    """Launch the forward kernel. Returns (A1, A2 or None, Z, YW), with
+    ``YW = Y @ W_ext`` (N, Kf) for the backward's dpsi kernel."""
     global fwd_launches
     from . import _build
 
     n_a2 = 0 if log_mu is None else log_mu.shape[0]
     _check("Y", Y, Y.shape)
-    N, G, Kf, SC = _check_sizes(Y, psi_ext, muL, n_a2)
+    (N, G), Kf, SC = Y.shape, psi_ext.shape[1], muL.shape[1]
+    _check_sizes(N, G, Kf, SC, n_a2)
     _check("psi_ext", psi_ext, (N, Kf))
     _check("W_ext", W_ext, (G, Kf))
     _check("muL", muL, (G, SC))
@@ -126,24 +150,58 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     A1 = torch.empty(N, device=Y.device, dtype=torch.float32)
     A2 = None if log_mu is None else torch.empty(N, n_a2, device=Y.device, dtype=torch.float32)
     Z = torch.empty(N, SC, device=Y.device, dtype=torch.float32)
+    YW = torch.empty(N, Kf, device=Y.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(Y.device).cuda_stream
     err = lib.fl_forward(
         _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(log_mu), _ptr(muL),
-        _ptr(A1), _ptr(A2), _ptr(Z), N, G, Kf, n_a2, SC, ctypes.c_void_p(stream),
+        _ptr(A1), _ptr(A2), _ptr(Z), _ptr(YW), N, G, Kf, n_a2, SC,
+        ctypes.c_void_p(stream),
     )
     _raise_on(err, "fused likelihood forward")
     fwd_launches += 1
-    return A1, A2, Z
+    return A1, A2, Z, YW
 
 
-def kernel_backward(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
-    """Launch the backward kernels. Returns (dpsi, dW, dlog_mu or None, dmuL)."""
-    global bwd_launches
+def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
+    """Launch the Y-free dpsi kernel (the first part of
+    :func:`kernel_backward`); ``YW`` is :func:`kernel_forward`'s. Returns
+    dpsi (N, Kf). With Kf = 0 there is nothing to compute or launch."""
+    global dpsi_launches
+    from . import _build
+
+    (N, Kf), G, SC = psi_ext.shape, W_ext.shape[0], muL.shape[1]
+    _check_sizes(N, G, Kf, SC, 0)
+    _check("psi_ext", psi_ext, (N, Kf))
+    _check("W_ext", W_ext, (G, Kf))
+    _check("muL", muL, (G, SC))
+    _check("dA1", dA1, (N,))
+    _check("dZ", dZ, (N, SC))
+    _check("YW", YW, (N, Kf))
+    dpsi = torch.empty(N, Kf, device=psi_ext.device, dtype=torch.float32)
+    if Kf == 0:
+        return dpsi
+    lib = _build.load()
+    stream = torch.cuda.current_stream(psi_ext.device).cuda_stream
+    err = lib.fl_backward_dpsi(
+        _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dZ), _ptr(YW),
+        _ptr(dpsi), N, G, Kf, SC, ctypes.c_void_p(stream),
+    )
+    _raise_on(err, "fused likelihood backward (dpsi)")
+    dpsi_launches += 1
+    return dpsi
+
+
+def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
+    """Launch the gene-major backward kernel and its chunk reduction (the
+    second part of :func:`kernel_backward`). Returns (dW, dlog_mu or None,
+    dmuL)."""
+    global gene_launches
     from . import _build
 
     n_a2 = 0 if dA2 is None else dA2.shape[1]
     _check("Y", Y, Y.shape)
-    N, G, Kf, SC = _check_sizes(Y, psi_ext, muL, n_a2)
+    (N, G), Kf, SC = Y.shape, psi_ext.shape[1], muL.shape[1]
+    _check_sizes(N, G, Kf, SC, n_a2)
     _check("psi_ext", psi_ext, (N, Kf))
     _check("W_ext", W_ext, (G, Kf))
     _check("muL", muL, (G, SC))
@@ -157,21 +215,27 @@ def kernel_backward(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     rows = max(_ROWS_PER_CHUNK, -(-N // 65535))  # grid.y is at most 65535 chunks
     n_chunks = -(-N // rows)
     F = Kf + SC + n_a2
-    dpsi = torch.empty(N, Kf, device=Y.device, dtype=torch.float32)
     part = torch.empty(n_chunks, F, G, device=Y.device, dtype=torch.float32)
     dgene = torch.empty(F, G, device=Y.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(Y.device).cuda_stream
-    err = lib.fl_backward(
+    err = lib.fl_backward_gene(
         _ptr(Y), _ptr(psi_ext), _ptr(Wt), _ptr(muLt), _ptr(dA1), _ptr(dA2),
-        _ptr(dZ), _ptr(dpsi), _ptr(part), _ptr(dgene),
-        N, G, Kf, n_a2, SC, rows, ctypes.c_void_p(stream),
+        _ptr(dZ), _ptr(part), _ptr(dgene), N, G, Kf, n_a2, SC, rows,
+        ctypes.c_void_p(stream),
     )
-    _raise_on(err, "fused likelihood backward")
-    bwd_launches += 1
+    _raise_on(err, "fused likelihood backward (gene)")
+    gene_launches += 1
     dW = dgene[:Kf].T
     dmuL = dgene[Kf:Kf + SC].T
     dlog_mu = None if dA2 is None else dgene[Kf + SC:]
-    return dpsi, dW, dlog_mu, dmuL
+    return dW, dlog_mu, dmuL
+
+
+def kernel_backward(Y, psi_ext, W_ext, muL, dA1, dA2, dZ, YW):
+    """Launch the backward kernels, dpsi from the forward's ``YW = Y @ W_ext``
+    and then the gene-major part. Returns (dpsi, dW, dlog_mu or None, dmuL)."""
+    dpsi = kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW)
+    return (dpsi, *kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ))
 
 
 # ---------------------------------------------------------------------------
@@ -189,20 +253,21 @@ def _on(device: torch.device, cpu_fn, cuda_fn, *args):
 class _FusedLikelihood(torch.autograd.Function):
     @staticmethod
     def forward(ctx, Y, psi_ext, W_ext, log_mu, muL):
-        ctx.save_for_backward(Y, psi_ext, W_ext, muL)
+        A1, A2, Z, YW = _on(Y.device, _plain_forward, kernel_forward,
+                            Y, psi_ext, W_ext, log_mu, muL)
+        ctx.save_for_backward(Y, psi_ext, W_ext, muL, YW)
         ctx.with_a2 = log_mu is not None
-        return _on(Y.device, reference_likelihood_terms, kernel_forward,
-                   Y, psi_ext, W_ext, log_mu, muL)
+        return A1, A2, Z
 
     @staticmethod
     def backward(ctx, dA1, dA2, dZ):
         # Unused tensor outputs arrive as zeros (autograd materializes them);
         # only the skipped A2 arrives as None.
-        Y, psi_ext, W_ext, muL = ctx.saved_tensors
+        Y, psi_ext, W_ext, muL, YW = ctx.saved_tensors
         dA2 = dA2.contiguous() if ctx.with_a2 else None
         dpsi, dW, dlog_mu, dmuL = _on(
-            Y.device, reference_likelihood_vjp, kernel_backward,
-            Y, psi_ext, W_ext, muL, dA1.contiguous(), dA2, dZ.contiguous(),
+            Y.device, _plain_backward, kernel_backward,
+            Y, psi_ext, W_ext, muL, dA1.contiguous(), dA2, dZ.contiguous(), YW,
         )
         return None, dpsi, dW, dlog_mu, dmuL
 

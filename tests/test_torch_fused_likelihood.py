@@ -26,10 +26,11 @@ torch.set_num_threads(2)
 
 SHAPES = [(70, 90, 4, 2, 2), (130, 257, 3, 1, 1), (37, 41, 2, 1, 1)]
 # (N, G, C, K, S) covering every S*C bound the kernels are built for (the
-# backward's 8/12/16/32, the forward's 1, 2 and 4 n-tiles of 8 columns, with
-# S*C = 1, 8, 9, 16, 17, 20, 32), one row and a ragged 16-row tile (N = 1, 17),
-# one gene, gene counts ragged against the forward's 32- and 128-gene tiles
-# with and without 16-byte rows (G = 1000, 700 / 41, 129, 515), and Kf = 0..4
+# gene-major kernel's 8/12/16/32, the forward's and the dpsi kernel's 1, 2
+# and 4 n-tiles of 8 columns, with S*C = 1, 8, 9, 16, 17, 20, 32), one row
+# and a ragged 16-row tile (N = 1, 17), one gene, gene counts ragged against
+# the 32- and 128-gene tiles with and without 16-byte rows (G = 1000, 700 /
+# 41, 129, 515), and Kf = 0..4 (Kf = 4 with two and four n-tiles)
 CUDA_SHAPES = SHAPES + [(333, 1000, 10, 1, 1), (257, 700, 16, 4, 1), (100, 129, 10, 1, 2),
                         (5, 3000, 1, 0, 1), (1, 200, 9, 1, 1), (17, 333, 17, 3, 1),
                         (40, 1, 8, 2, 4), (50, 515, 16, 4, 2)]
@@ -127,6 +128,67 @@ def test_skipping_a2_matches_zero_a2_cotangent(jax_ops):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **VJP_TOL)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_reference_dpsi_matches_pallas(shape, jax_ops):
+    """The Y-free dpsi (from Y W and the forward's tables) against the psi
+    cotangent of jax.vjp of the Pallas op."""
+    jax, jnp, jfl = jax_ops
+    N, G, C, K, S = shape
+    x = _inputs(N, G, C, K, S, seed=N + 2)
+    cot = _cotangents(N, S, S * C, seed=N + 2)
+    _, vjp = jax.vjp(jfl.fused_likelihood_terms, *map(jnp.asarray, x))
+    want = np.asarray(vjp(tuple(map(jnp.asarray, cot)))[1])
+
+    Y, psi, W, _log_mu, muL = _torch(x)
+    dA1, _dA2, dZ = _torch(cot)
+    got = tfl.reference_dpsi(Y @ W, psi, W, muL, dA1, dZ)
+    np.testing.assert_allclose(got.numpy(), want, **VJP_TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(17, 33, 8, 4, 2), (5, 9, 3, 0, 1)])
+def test_reference_dpsi_identity_float64(shape):
+    """dA1 (Y W) + sum_j dZ_j (rfe W_k) muL_j equals dlog_rfe W exactly: in
+    float64 the two orders of summation agree to rounding."""
+    N, G, C, K, S = shape
+    x = [a.astype(np.float64) for a in _inputs(N, G, C, K, S, seed=N + 3)]
+    cot = [a.astype(np.float64) for a in _cotangents(N, S, S * C, seed=N + 3)]
+    Y, psi, W, _log_mu, muL = _torch(x)
+    dA1, dA2, dZ = _torch(cot)
+    got = tfl.reference_dpsi(Y @ W, psi, W, muL, dA1, dZ)
+    want = tfl.reference_likelihood_vjp(Y, psi, W, muL, dA1, dA2, dZ)[0]
+    assert got.dtype == torch.float64 and got.shape == (N, K)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", ["psi_grad", "no_grad", "psi_frozen"])
+def test_autograd_cpu_path_needs_no_yw(mode):
+    """On CPU tensors the autograd function runs the whole plain VJP, which
+    needs no Y W: it keeps none, and its gradients are the plain VJP's for
+    whichever leaves need one."""
+    N, G, C, K, S = SHAPES[0]
+    Y, psi, W, log_mu, muL = _torch(_inputs(N, G, C, K, S, seed=7))
+    dA1, dA2, dZ = _torch(_cotangents(N, S, S * C, seed=7))
+    leaves = [t.clone().requires_grad_(mode != "psi_frozen" or i > 0)
+              for i, t in enumerate((psi, W, log_mu, muL))]
+    if mode == "no_grad":
+        with torch.no_grad():
+            outs = tfl.fused_likelihood_terms(Y, *leaves)
+        assert all(o.grad_fn is None for o in outs)
+    else:
+        outs = tfl.fused_likelihood_terms(Y, *leaves)
+        assert outs[0].grad_fn.saved_tensors[-1] is None
+    for name, o, w in zip(("A1", "A2", "Z"), outs,
+                          tfl.reference_likelihood_terms(Y, psi, W, log_mu, muL)):
+        np.testing.assert_array_equal(o.detach().numpy(), w.numpy(), err_msg=name)
+    if mode == "no_grad":
+        return
+    need = [i for i, t in enumerate(leaves) if t.requires_grad]
+    got = torch.autograd.grad(outs, [leaves[i] for i in need], grad_outputs=(dA1, dA2, dZ))
+    want = tfl.reference_likelihood_vjp(Y, psi, W, muL, dA1, dA2, dZ)
+    for i, g in zip(need, got):
+        np.testing.assert_allclose(g.numpy(), want[i].numpy(), err_msg=str(i), **VJP_TOL)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The kernel wrappers launch on CUDA tensors or raise: there is no
     fallback to the plain version inside them."""
@@ -134,31 +196,41 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfl.kernel_forward(Y, psi, W, log_mu, muL)
     dA1, dA2, dZ = _torch(_cotangents(8, 1, 2, seed=0))
+    YW = Y @ W
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tfl.kernel_backward(Y, psi, W, muL, dA1, dA2, dZ)
+        tfl.kernel_backward(Y, psi, W, muL, dA1, dA2, dZ, YW)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfl.kernel_dpsi(psi, W, muL, dA1, dZ, YW)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfl.kernel_gene(Y, psi, W, muL, dA1, dA2, dZ)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", CUDA_SHAPES)
 def test_cuda_kernels_match_plain(shape):
     """Forward (A2 on and off) and backward kernels against the plain
-    versions on the card, float32 on both sides."""
+    versions on the card, float32 on both sides. The backward takes Y W from
+    the forward kernel, as the fit does; each wrapper counts its launches
+    (the dpsi kernel has nothing to launch when Kf = 0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     N, G, C, K, S = shape
     x = [t.cuda() for t in _torch(_inputs(N, G, C, K, S, seed=N))]
     dA1, dA2, dZ = [t.cuda() for t in _torch(_cotangents(N, S, S * C, seed=N))]
     Y, psi, W, log_mu, muL = x
-    before = (tfl.fwd_launches, tfl.bwd_launches)
+    before = (tfl.fwd_launches, tfl.dpsi_launches, tfl.gene_launches)
     for lm, da2 in ((log_mu, dA2), (None, None)):
-        got = tfl.kernel_forward(Y, psi, W, lm, muL)
+        *got, YW = tfl.kernel_forward(Y, psi, W, lm, muL)
         want = tfl.reference_likelihood_terms(Y, psi, W, lm, muL)
         for g, w in zip(got, want):
             if w is not None:
                 np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **VALUE_TOL)
-        got = tfl.kernel_backward(Y, psi, W, muL, dA1, da2, dZ)
+        np.testing.assert_allclose(YW.cpu().numpy(), (Y @ W).cpu().numpy(), **VALUE_TOL)
+        got = tfl.kernel_backward(Y, psi, W, muL, dA1, da2, dZ, YW)
         want = tfl.reference_likelihood_vjp(Y, psi, W, muL, dA1, da2, dZ)
         for g, w in zip(got, want):
             if w is not None:
                 np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **VJP_TOL)
-    assert (tfl.fwd_launches, tfl.bwd_launches) == (before[0] + 2, before[1] + 2)
+    launched = (2, 2 if K else 0, 2)
+    assert (tfl.fwd_launches, tfl.dpsi_launches, tfl.gene_launches) == tuple(
+        b + n for b, n in zip(before, launched))
