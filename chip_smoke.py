@@ -17,8 +17,8 @@ kernel with its launches during the fit, its error against the plain
 version, its time, the plain version's time and its bound (the least time
 the card could take for the same work), the backward's entry also listing
 its two parts (the Y-free dpsi kernel, and the gene-major kernel with its
-reduction), each with its own launches, time and bound; the line before
-that prints those parts' times.
+packing and reduction kernels), each with its own launches, time, plain
+version's time and bound; the line before that prints those parts' times.
 """
 
 from __future__ import annotations
@@ -161,7 +161,8 @@ def bound(n_bytes, n_ops):
 def kernel_bounds(N, G, Kf, SC):
     """Bounds of the A2-off forward and backward and of the backward's two
     parts: each float32 input read once, each output written once, and the
-    operations of the formulas (dpsi's on the unit that runs each)."""
+    operations of the formulas (dpsi's and the gene part's on the unit that
+    runs each)."""
     fwd_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC  # Y, psi, W, muL
                      + N + N * SC)                      # A1, Z
     fwd_ops = N * G * (2 * Kf + 1 + 2 + 2 * SC)         # log_rfe, exp, Y log_rfe, Z
@@ -177,17 +178,24 @@ def kernel_bounds(N, G, Kf, SC):
                   "float32 operations": 1e3 * N * G * 3 * Kf / FP32_OPS_PER_S}
     dpsi_unit = max(dpsi_units, key=dpsi_units.get)
     dpsi_by = "bytes" if dpsi_unit == "bytes" else "operations"
-    # gene part: Y, psi, W, muL, dA1, dZ in; dW, dmuL out. Its operations:
-    # log_rfe, exp, drfe, dlog_rfe, then dW and dmuL.
+    # gene part: Y, psi, W, muL, dA1, dZ in; dW, dmuL out. Its work runs on
+    # three units too: the exps, rfe^T [dZ | dZ psi_k] ((1 + Kf) S*C columns)
+    # as three TF32 MMA passes, and log_rfe and the Y term Y^T (dA1 psi_k)
+    # on CUDA cores; its bound is the slowest of them and the bytes.
     gene_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC + N + N * SC + G * Kf + G * SC)
-    gene_ops = N * G * (2 * Kf + 1 + 2 * SC + 3 + 2 * Kf + 2 * SC)
+    gene_units = {"bytes": 1e3 * gene_bytes / HBM_BYTES_PER_S,
+                  "exps": 1e3 * N * G / EXP_PER_S,
+                  "3xTF32 MMA": 1e3 * 3 * 2 * N * G * (1 + Kf) * SC / TF32_OPS_PER_S,
+                  "float32 operations": 1e3 * N * G * 4 * Kf / FP32_OPS_PER_S}
+    gene_unit = max(gene_units, key=gene_units.get)
+    gene_by = "bytes" if gene_unit == "bytes" else "operations"
     bwd_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC + N + N * SC + N * Kf  # Y, psi, W, muL, dA1, dZ, YW
                      + N * Kf + G * Kf + G * SC)                             # dpsi, dW, dmuL
     bwd_ops = N * G * (2 * Kf + 1 + 2 * SC + 3           # log_rfe, exp, drfe, dlog_rfe
                        + 4 * Kf + 2 * SC)                # dpsi and dW, dmuL
     return {"fwd": bound(fwd_bytes, fwd_ops), "bwd": bound(bwd_bytes, bwd_ops),
             "dpsi": (dpsi_units[dpsi_unit], dpsi_by, dpsi_unit),
-            "gene": bound(gene_bytes, gene_ops)}
+            "gene": (gene_units[gene_unit], gene_by, gene_unit)}
 
 
 def check_kernels(shape, S, Kf, seed, reps):
@@ -247,6 +255,8 @@ def check_kernels(shape, S, Kf, seed, reps):
     result["bounds"] = kernel_bounds(shape["N"], shape["G"], Kf, S * shape["C"])
     result["dpsi_plain_ms"] = cuda_ms(lambda: fl.reference_dpsi(
         YW, x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"]), reps)
+    result["gene_plain_ms"] = cuda_ms(lambda: fl.reference_gene(
+        x["Y"], x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"]), reps)
     del x, YW
     torch.cuda.empty_cache()
     return result
@@ -275,10 +285,12 @@ def kernel_resources(build_log, kernel):
 
 
 # The instantiations each tensor-core kernel must have in the report:
-# fwd_kernel<KF, NT, A2> and dpsi_kernel<KF, NT>.
+# fwd_kernel<KF, NT, A2>, dpsi_kernel<KF, NT> and gene_kernel<KF, NT, A2>.
 TC_KERNELS = {
     "fwd_kernel": {f"<{k},{t},{a}>" for k in (1, 2, 3, 4) for t in (1, 2, 4) for a in (0, 1)},
     "dpsi_kernel": {f"<{k},{t}>" for k in (1, 2, 3, 4) for t in (1, 2, 4)},
+    "gene_kernel": {f"<{k},{t},{a}>" for k in (1, 2, 3, 4) for t in range(1, (4, 3, 2, 2)[k - 1] + 1)
+                    for a in (0, 1)},
 }
 
 
@@ -438,9 +450,9 @@ def main() -> int:
     b = full["bounds"]
     log(f"backward parts {FULL['N']}x{FULL['G']} S*C={FULL['C']} Kf=1 A2=off: "
         f"dpsi_kernel {full['dpsi_ms']:.3f} ms (plain {full['dpsi_plain_ms']:.3f} ms, "
-        f"bound {b['dpsi'][0]:.3f} ms by {b['dpsi'][2]}), gene_kernel + "
-        f"reduce_chunks_kernel {full['gene_ms']:.3f} ms (bound {b['gene'][0]:.3f} ms "
-        f"by {b['gene'][1]})")
+        f"bound {b['dpsi'][0]:.3f} ms by {b['dpsi'][2]}), gene_pack_kernel + gene_kernel + "
+        f"reduce_chunks_kernel {full['gene_ms']:.3f} ms (plain {full['gene_plain_ms']:.3f} ms, "
+        f"bound {b['gene'][0]:.3f} ms by {b['gene'][2]})")
     # No single PyTorch call computes either function: library_ms is null.
     # A backward launch is one dpsi and one gene-major launch.
     kernels = [
@@ -463,8 +475,9 @@ def main() -> int:
              {"name": "dpsi_kernel", "launches": launches["dpsi"],
               "ms": full["dpsi_ms"], "plain_ms": full["dpsi_plain_ms"],
               "bound_ms": b["dpsi"][0], "bound_by": b["dpsi"][1], "bound_unit": b["dpsi"][2]},
-             {"name": "gene_kernel+reduce_chunks_kernel", "launches": launches["gene"],
-              "ms": full["gene_ms"], "bound_ms": b["gene"][0], "bound_by": b["gene"][1]},
+             {"name": "gene_pack_kernel+gene_kernel+reduce_chunks_kernel", "launches": launches["gene"],
+              "ms": full["gene_ms"], "plain_ms": full["gene_plain_ms"],
+              "bound_ms": b["gene"][0], "bound_by": b["gene"][1], "bound_unit": b["gene"][2]},
          ]},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -84,5 +84,7 @@ def load() -> ctypes.CDLL:
     lib.fl_backward_dpsi.restype = i
     lib.fl_backward_gene.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.fl_backward_gene.restype = i
+    lib.fl_backward_gene_scratch.argtypes = [i] * 6
+    lib.fl_backward_gene_scratch.restype = ctypes.c_size_t
     _lib = lib
     return lib

@@ -68,16 +68,40 @@
 //    reads only the O(N (Kf + SC)) cell vectors. Measured at full width
 //    (S*C = 10, Kf = 1) on an H100 80GB HBM3 (700 W) by chip_smoke.py:
 //    0.58 ms, against 0.12 ms for its exps on the special-function units
-//    (the slowest of its units at their peaks); the gene-major part below
-//    takes 1.26 ms.
-//  * gene-major kernel (dW, d(muL), dlog mu): a thread owns one gene and
-//    walks a chunk of cells, reading Y rows coalesced across genes; the
-//    per-cell vectors (psi, dA1, dZ, dA2) of a tile of cells are staged in
-//    shared memory, and the cell loop is unrolled so several Y loads are in
-//    flight. Each (chunk, gene) writes its own partial sum and a second
-//    kernel adds the chunks in a fixed order: no atomics, so every result
-//    is deterministic. It is float32 on CUDA cores, and is now the
-//    backward's only read of Y (0.60 ms at full width).
+//    (the slowest of its units at their peaks).
+//  * gene-major kernel (dW, d(muL), dlog mu), the backward's only read of Y
+//    (0.60 ms at full width). drfe = dZ muL^T is never formed: with
+//    B = [dZ | dZ psi_1 | ... | dZ psi_Kf] (N x (1 + Kf) SC),
+//      d(muL) = rfe^T dZ,   dlog_mu = dA2^T Y,
+//      dW[g,k] = (Y^T (dA1 psi_k))[g] + sum_j muL[g,j] (rfe^T B)[g, (k+1) SC + j],
+//    exactly. rfe^T B runs on tensor cores with genes as M: each warp owns
+//    16 genes and walks a chunk of 1,024 cells in k-steps of 8, forming its
+//    A fragments exp(psi.W_g) in registers (W of its genes held for the
+//    whole kernel). B is the same for every gene block, so a small kernel
+//    packs it once per call in B-fragment order, split into TF32 hi and lo,
+//    with a table of the per-cell factors (psi, dA1 psi, dA2); the blocks
+//    copy it per 64-cell tile with cp.async into a ring of two tiles in
+//    shared memory, one barrier a tile. Y goes through the same ring: for
+//    each cell of a tile one warp copies the block's 128-gene piece of the
+//    row as 16-byte cp.async (each thread later reads only what it copied)
+//    and spends Kf (+ nA2) FMAs per element on it; the 8 warps' sums are
+//    added in shared memory in a fixed order. On the main path B has 20
+//    columns, 3 n-tiles; a pass holds at most 4 (fewer at larger Kf, where
+//    128 registers would spill), and wider B takes several passes over the
+//    chunk, recomputing rfe. Each pass's d(muL) columns are stored and its
+//    dW columns folded with muL. Each (chunk, gene block) writes its own
+//    partial sums and a third kernel adds the chunks in a fixed order: no
+//    atomics, so every result is deterministic.
+//    Accuracy: the fold cancels (dW is a small sum of large muL E terms), so
+//    3xTF32 with fresh accumulators per k-step was not enough with a float32
+//    running sum; pairs of k-steps are added into float hi + lo pairs
+//    instead (float64 cost a conversion per term). What bounds it: the
+//    conversions and exps share a pipe that issues 16 a clock per SM, so
+//    the A operand is split with integer adds and masks (the same values as
+//    cvt.rna), leaving one exp per element there. Measured at full width
+//    (S*C = 10, Kf = 1) on an H100 80GB HBM3 (700 W) by chip_smoke.py:
+//    0.91 ms with the packing and the reduction, against 0.60 ms for one
+//    read of Y.
 //
 // TMA, narrow Y storage and a lane axis for batched restarts are not used
 // here.
@@ -91,14 +115,20 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kMaxKf = 4;
 constexpr int kMaxA2 = 4;
-constexpr int kGeneThreads = 128;  // gene-major backward blocks
-constexpr int kTileN = 64;         // cells staged in shared memory at once
 constexpr int kTileG = 128;        // genes per shared-memory table tile
-constexpr int kGeneUnroll = 8;     // cells in flight per gene-major thread
 constexpr int kFwdWarps = 8;       // forward and dpsi blocks: 8 warps x 16 cell rows
 constexpr int kFwdRows = 16;       // cell rows a warp owns (the MMA's M)
 constexpr int kFwdSub = 32;        // genes a warp takes per sub-tile
 constexpr int kSteps = kTileG / 8;  // MMA k-steps of 8 genes per table tile
+constexpr int kGeneWarps = 8;                          // gene-major blocks: 8 warps x 16 genes
+constexpr int kGeneBlock = kGeneWarps * kFwdRows;      // genes a gene-major block owns
+constexpr int kCellTile = 64;                          // cells staged in shared memory at once
+constexpr int kCellSteps = kCellTile / 8;              // MMA k-steps of 8 cells per tile
+constexpr int kCellsPerWarp = kCellTile / kGeneWarps;  // Y rows a warp streams per tile
+// n-tiles of B a gene-major pass holds: 4 (32 columns) at Kf <= 1; fewer
+// where ptxas spilled at 128 registers, the bound that keeps two blocks on
+// an SM (KF = 2 at NT = 4, KF = 3 and 4 at NT = 3).
+constexpr int max_live_nt(int KF) { return KF == 1 ? 4 : KF == 2 ? 3 : 2; }
 
 // ---------------------------------------------------------------------------
 // Tensor-core pieces shared by the forward and dpsi kernels. One warp per 16
@@ -484,95 +514,321 @@ dpsi_kernel(const float* __restrict__ psi, const float* __restrict__ W,
 // ---------------------------------------------------------------------------
 // Backward, gene-major partial sums over one chunk of cells:
 //   part[chunk, f, g] for f in [dW^T (Kf rows) | d(muL)^T (SC rows) | dlog_mu (nA2 rows)]
+// With rfe = exp(psi W^T) and B = [dZ | dZ psi_1 | ... | dZ psi_Kf] (N x NC,
+// NC = (1 + Kf) SC, column c SC + j is dZ[:, j] psi[:, c - 1]):
+//   d(muL)[g,j]  = (rfe^T B)[g, j],
+//   dW[g,k]      = sum_n Y[n,g] dA1[n] psi[n,k] + sum_j muL[g,j] (rfe^T B)[g, (k+1) SC + j],
+//   dlog_mu[s,g] = sum_n Y[n,g] dA2[n,s].
+// KF = max(Kf, 1); NT n-tiles of B (8 columns each) are live in a pass, and
+// wider B takes several passes over the chunk. The cell-side operands are
+// packed once per call by gene_pack_kernel: B in MMA fragment order, split
+// into TF32 hi and lo, and a table of kCT floats a cell (psi, dA1 psi, dA2).
 // ---------------------------------------------------------------------------
-template <int MAX_SC, bool WITH_A2>
-__global__ void __launch_bounds__(kGeneThreads)
-gene_kernel(const float* __restrict__ Y, const float* __restrict__ psi,
-            const float* __restrict__ Wt, const float* __restrict__ muLt,
-            const float* __restrict__ dA1, const float* __restrict__ dA2,
-            const float* __restrict__ dZ, float* __restrict__ part,
-            int N, int G, int Kf, int nA2, int SC, int rows_per_chunk) {
-  __shared__ float s_psi[kTileN][kMaxKf];
-  __shared__ float s_da1[kTileN];
-  __shared__ float s_dz[kTileN][MAX_SC];
-  __shared__ float s_da2[kTileN][kMaxA2];
 
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool gene_live = g < G;
+// x = hi + lo, both TF32, exactly as split_tf32 gives them (each rounded to
+// nearest, ties away from zero, as cvt.rna does), but with integer adds and
+// masks: a conversion issues at 16 a clock on an SM, on the pipe that also
+// runs the exps, and the gene kernel splits every element it multiplies.
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32_int(float x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(x - __uint_as_float(hi));
+}
+
+// Cells are packed and walked in tiles of kCellTile; N is padded to a whole
+// tile with zeros.
+struct GenePlan {
+  int KF, NT, n_pass, kCT, n_pad, n_chunks;
+  size_t part, bp, ct;  // floats of the scratch: partial sums, packed B, cell table
+};
+
+// cp.async of 16 (4) bytes that reads the first `bytes` of them from gmem
+// and zero-fills the rest.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// bp[pass][ks][t][lane] = (hi(b0), hi(b1), lo(b0), lo(b1)) with b0 = B[8 ks +
+// (lane & 3), q], b1 = B[8 ks + (lane & 3) + 4, q], q = 8 (pass NT + t) +
+// (lane >> 2): a lane's operands for n-tile t of k-step ks, zero past N and NC.
+// ct[n] = [psi[n, 0..KF) | dA1[n] psi[n, 0..KF) | dA2[n, 0..kMaxA2)] (the last
+// part only WITH_A2), zero past N, Kf and nA2.
+template <int KF, int NT, bool WITH_A2>
+__global__ void gene_pack_kernel(const float* __restrict__ psi, const float* __restrict__ dA1,
+                                 const float* __restrict__ dA2, const float* __restrict__ dZ,
+                                 float4* __restrict__ bp, float* __restrict__ ct, int N,
+                                 int Kf, int nA2, int SC, int n_pass, int n_pad) {
+  constexpr int kCT = 2 * KF + (WITH_A2 ? kMaxA2 : 0);
+  const int NC = (Kf + 1) * SC, n_steps = n_pad / 8;
+  const long long n_bp = (long long)n_pass * n_steps * NT * kWarp;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i < n_bp) {
+    const int l = (int)(i % kWarp), t = (int)((i / kWarp) % NT);
+    const long long r = i / (kWarp * NT);
+    const int ks = (int)(r % n_steps), pass = (int)(r / n_steps);
+    const int q = 8 * (pass * NT + t) + (l >> 2), n = 8 * ks + (l & 3);
+    float b0 = 0.f, b1 = 0.f;
+    if (q < NC) {
+      const int c = q / SC, j = q - c * SC;
+      if (n < N)
+        b0 = c ? dZ[(size_t)n * SC + j] * psi[(size_t)n * Kf + c - 1] : dZ[(size_t)n * SC + j];
+      if (n + 4 < N)
+        b1 = c ? dZ[(size_t)(n + 4) * SC + j] * psi[(size_t)(n + 4) * Kf + c - 1]
+               : dZ[(size_t)(n + 4) * SC + j];
+    }
+    uint32_t h0, l0, h1, l1;
+    split_tf32(b0, h0, l0);
+    split_tf32(b1, h1, l1);
+    bp[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0),
+                        __uint_as_float(l1));
+  } else if (i < n_bp + (long long)n_pad * kCT) {
+    const long long e = i - n_bp;
+    const int n = (int)(e / kCT), r = (int)(e % kCT);
+    float v = 0.f;
+    if (n < N) {
+      if (r < 2 * KF) {
+        const int k = r % KF;
+        if (k < Kf) v = r < KF ? psi[(size_t)n * Kf + k] : dA1[n] * psi[(size_t)n * Kf + k];
+      } else if (r - 2 * KF < nA2) {
+        v = dA2[(size_t)n * nA2 + (r - 2 * KF)];
+      }
+    }
+    ct[e] = v;
+  }
+}
+
+template <int KF, int NT, bool WITH_A2>
+__global__ void __launch_bounds__(kGeneWarps * kWarp, 2)
+gene_kernel(const float* __restrict__ Y, const float* __restrict__ W,
+            const float* __restrict__ muL, const float4* __restrict__ bp,
+            const float* __restrict__ ct, float* __restrict__ part, int N, int G,
+            int Kf, int nA2, int SC, int rows_per_chunk, int n_pad, bool vec) {
+  constexpr int kYF = KF + (WITH_A2 ? kMaxA2 : 0);  // Y-stream factors: dA1 psi_k, dA2_s
+  constexpr int kCT = KF + kYF;                     // cell-table floats a cell
+  constexpr int kBTile = kCellSteps * NT * kWarp;   // float4s of B a tile
+  constexpr int kCTTile = kCellTile * kCT / 4;      // float4s of the cell table a tile
+  // The pair loop unrolled where it fits in 128 registers without spilling.
+  constexpr int kPairUnroll = NT <= 2 || (NT == 3 && KF == 1 && !WITH_A2) ? kCellSteps / 2 : 1;
+  // Dynamic shared memory (sized by launch_gene): a ring of two tiles of B
+  // fragments and of Y rows during the walk; the warps' Y sums after it.
+  extern __shared__ float4 s_dyn[];
+  __shared__ __align__(16) float s_ct[2][kCellTile][kCT];
+  __shared__ float s_dw[KF][kGeneBlock];
+  auto s_b = reinterpret_cast<float4 (*)[kCellSteps][NT][kWarp]>(s_dyn);
+  auto s_yt = reinterpret_cast<float4 (*)[kCellTile][kGeneBlock / 4]>(s_dyn + 2 * kBTile);
+  auto s_y = reinterpret_cast<float (*)[kYF][kGeneBlock]>(s_dyn);
+
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int gbase = blockIdx.x * kGeneBlock;
+  // MMA fragments: this lane's A rows (genes) g0 and g1, its A columns
+  // (cells) c and c + 4 of a k-step, its D columns 2c and 2c + 1.
+  const int fr = lane >> 2, fc = lane & 3;
+  const int g0 = gbase + warp * kFwdRows + fr, g1 = g0 + 8;
+  // Y stream: this lane copies and reads genes gy .. gy + 3 of the tile's
+  // rows warp, warp + 8, ..., so a thread reads only what it copied.
+  const int gy = gbase + 4 * lane;
   const int chunk = blockIdx.y;
   const int n_begin = chunk * rows_per_chunk;
   const int n_end = min(N, n_begin + rows_per_chunk);
+  const int n_tiles = (n_end - n_begin + kCellTile - 1) / kCellTile;
+  const int F = Kf + SC + nA2;
+  const int NC = (Kf + 1) * SC;
+  const int n_pass = (NC + 8 * NT - 1) / (8 * NT);
 
-  float w[kMaxKf], m[MAX_SC];
+  float w0[KF], w1[KF];  // W of the lane's two genes
 #pragma unroll
-  for (int k = 0; k < kMaxKf; ++k) w[k] = (gene_live && k < Kf) ? Wt[(size_t)k * G + g] : 0.f;
+  for (int k = 0; k < KF; ++k) {
+    w0[k] = (k < Kf && g0 < G) ? W[(size_t)g0 * Kf + k] : 0.f;
+    w1[k] = (k < Kf && g1 < G) ? W[(size_t)g1 * Kf + k] : 0.f;
+  }
+  float ys[4][kYF];  // Y-stream sums of the lane's 4 genes
 #pragma unroll
-  for (int j = 0; j < MAX_SC; ++j) m[j] = (gene_live && j < SC) ? muLt[(size_t)j * G + g] : 0.f;
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int r = 0; r < kYF; ++r) ys[i][r] = 0.f;
+  float dw[KF][2];  // dW's rfe term for g0 and g1 over this lane's columns
+#pragma unroll
+  for (int k = 0; k < KF; ++k) dw[k][0] = dw[k][1] = 0.f;
 
-  float acc_w[kMaxKf], acc_m[MAX_SC], acc_a2[kMaxA2];
+  // No early exit: every warp takes part in the block's barriers; genes past
+  // G and cells past N compute on zeros and write nothing.
+#pragma unroll 1
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const bool stream_y = pass == 0;
+    const float4* bp_pass = bp + (size_t)pass * (n_pad / 8) * NT * kWarp;
+    auto stage = [&](int tile, int buf) {  // cp.async of one tile into the ring
+      const int n0 = n_begin + tile * kCellTile;
+      const float4* src = bp_pass + (size_t)(n0 / 8) * NT * kWarp;
 #pragma unroll
-  for (int k = 0; k < kMaxKf; ++k) acc_w[k] = 0.f;
-#pragma unroll
-  for (int j = 0; j < MAX_SC; ++j) acc_m[j] = 0.f;
-#pragma unroll
-  for (int s = 0; s < kMaxA2; ++s) acc_a2[s] = 0.f;
-
-  for (int t0 = n_begin; t0 < n_end; t0 += kTileN) {
-    const int tn = min(kTileN, n_end - t0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int i = threadIdx.x; i < tn * kMaxKf; i += blockDim.x) {
-      const int c = i / kMaxKf, k = i % kMaxKf;
-      s_psi[c][k] = k < Kf ? psi[(size_t)(t0 + c) * Kf + k] : 0.f;
-    }
-    for (int i = threadIdx.x; i < tn; i += blockDim.x) s_da1[i] = dA1[t0 + i];
-    for (int i = threadIdx.x; i < tn * MAX_SC; i += blockDim.x) {
-      const int c = i / MAX_SC, j = i % MAX_SC;
-      s_dz[c][j] = j < SC ? dZ[(size_t)(t0 + c) * SC + j] : 0.f;
-    }
-    if constexpr (WITH_A2) {
-      for (int i = threadIdx.x; i < tn * kMaxA2; i += blockDim.x) {
-        const int c = i / kMaxA2, s = i % kMaxA2;
-        s_da2[c][s] = s < nA2 ? dA2[(size_t)(t0 + c) * nA2 + s] : 0.f;
+      for (int i = 0; i < NT; ++i) {
+        const int e = threadIdx.x + i * kGeneWarps * kWarp;
+        cp_async16_zfill(&s_b[buf][0][0][0] + e, src + e, 16);
       }
-    }
-    __syncthreads();
-    if (gene_live) {
-#pragma unroll kGeneUnroll
-      for (int c = 0; c < tn; ++c) {
-        const float y = Y[(size_t)(t0 + c) * G + g];
-        float lr = 0.f;
+      if (threadIdx.x < kCTTile)
+        cp_async16_zfill(&s_ct[buf][0][0] + 4 * threadIdx.x, ct + (size_t)n0 * kCT + 4 * threadIdx.x, 16);
+      if (stream_y) {
+        // Not unrolled: the row addresses are then formed as they are needed
+        // rather than kept in registers across the walk.
+#pragma unroll 1
+        for (int i = 0; i < kCellsPerWarp; ++i) {
+          const int cl = warp + kGeneWarps * i, n = n0 + cl;
+          float4* dst = &s_yt[buf][cl][lane];
+          const float* row = Y + (size_t)(n < n_end ? n : 0) * G;
+          if (vec) {
+            cp_async16_zfill(dst, row + (gy < G ? gy : 0), n < n_end && gy < G ? 16 : 0);
+          } else {
 #pragma unroll
-        for (int k = 0; k < kMaxKf; ++k) lr = fmaf(s_psi[c][k], w[k], lr);
-        const float e = expf(lr);
-        float drfe = 0.f;
+            for (int u = 0; u < 4; ++u)
+              cp_async4_zfill(reinterpret_cast<float*>(dst) + u, row + (gy + u < G ? gy + u : 0),
+                              n < n_end && gy + u < G ? 4 : 0);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    // Sums of this pass's columns as unevaluated pairs hi + lo of floats:
+    // a float32 running sum, even over the 8 k-steps of a tile, lost more to
+    // rounding than the 3xTF32 products do, and float64 would cost a
+    // conversion per term on the same narrow pipe as the exps.
+    float acc_hi[NT][4], acc_lo[NT][4];
 #pragma unroll
-        for (int j = 0; j < MAX_SC; ++j) drfe = fmaf(s_dz[c][j], m[j], drfe);
-        const float d = fmaf(e, drfe, y * s_da1[c]);
+    for (int t = 0; t < NT; ++t)
 #pragma unroll
-        for (int k = 0; k < kMaxKf; ++k) acc_w[k] = fmaf(d, s_psi[c][k], acc_w[k]);
+      for (int e = 0; e < 4; ++e) acc_hi[t][e] = acc_lo[t][e] = 0.f;
+
+    __syncthreads();  // the previous pass is done with the ring
+    stage(0, 0);
+#pragma unroll 1
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int buf = tile & 1;
+      cp_async_wait_all();
+      __syncthreads();  // the tile has landed, and the other buffer is free
+      if (tile + 1 < n_tiles) stage(tile + 1, buf ^ 1);
+
+      // rfe^T B on tensor cores, each k-step's three products in fresh
+      // accumulators added on CUDA cores (the tensor cores' own sum does not
+      // round to nearest, and dZ is signed): two k-steps in float32, then
+      // into the pair sums (Fast2Sum: s = hi + x, lo += x - (s - hi)).
+#pragma unroll kPairUnroll
+      for (int kp = 0; kp < kCellSteps / 2; ++kp) {
+        float x[NT][4];
 #pragma unroll
-        for (int j = 0; j < MAX_SC; ++j) acc_m[j] = fmaf(e, s_dz[c][j], acc_m[j]);
-        if constexpr (WITH_A2) {
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int ks = 2 * kp + h2, c = ks * 8 + fc;
+          // A fragment order: (g0, c), (g1, c), (g0, c + 4), (g1, c + 4).
+          float lr[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int s = 0; s < kMaxA2; ++s) acc_a2[s] = fmaf(y, s_da2[c][s], acc_a2[s]);
+          for (int k = 0; k < KF; ++k) {
+            const float p0 = s_ct[buf][c][k], p1 = s_ct[buf][c + 4][k];
+            lr[0] = fmaf(p0, w0[k], lr[0]);
+            lr[1] = fmaf(p0, w1[k], lr[1]);
+            lr[2] = fmaf(p1, w0[k], lr[2]);
+            lr[3] = fmaf(p1, w1[k], lr[3]);
+          }
+          uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32_int(__expf(lr[e]), a_hi[e], a_lo[e]);
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_3xtf32(d, a_hi, a_lo, s_b[buf][ks][t][lane]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[t][e] = h2 ? x[t][e] + d[e] : d[e];
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float s = acc_hi[t][e] + x[t][e];
+            acc_lo[t][e] += x[t][e] - (s - acc_hi[t][e]);
+            acc_hi[t][e] = s;
+          }
+      }
+
+      // The Y terms on CUDA cores: the warp's rows of the tile.
+      if (stream_y) {
+#pragma unroll
+        for (int i = 0; i < kCellsPerWarp; ++i) {
+          const int cl = warp + kGeneWarps * i;
+          const float4 y = s_yt[buf][cl][lane];
+#pragma unroll
+          for (int r = 0; r < kYF; ++r) {
+            const float f = s_ct[buf][cl][KF + r];
+            ys[0][r] = fmaf(y.x, f, ys[0][r]);
+            ys[1][r] = fmaf(y.y, f, ys[1][r]);
+            ys[2][r] = fmaf(y.z, f, ys[2][r]);
+            ys[3][r] = fmaf(y.w, f, ys[3][r]);
+          }
         }
       }
     }
+
+    // The pass's columns: d(muL) is stored, dW's rfe term folded with muL.
+    // D fragment order: (g0, 2c), (g0, 2c + 1), (g1, 2c), (g1, 2c + 1).
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = 8 * (pass * NT + t) + 2 * fc + e, g = h ? g1 : g0;
+          const bool live = q < NC && g < G;
+          const int c = live ? q / SC : -1, j = q - c * SC;
+          const float v = acc_hi[t][2 * h + e] + acc_lo[t][2 * h + e];
+          if (c == 0) part[((size_t)chunk * F + Kf + j) * G + g] = v;
+          const float m = c > 0 ? muL[(size_t)g * SC + j] : 0.f;
+#pragma unroll
+          for (int k = 0; k < KF; ++k)
+            if (c == k + 1) dw[k][h] = fmaf(m, v, dw[k][h]);
+        }
   }
 
-  if (!gene_live) return;
-  const int F = Kf + SC + nA2;
-  float* out = part + (size_t)chunk * F * G + g;
+  // dW's rfe term: the 4 lanes of a row group hold disjoint columns.
 #pragma unroll
-  for (int k = 0; k < kMaxKf; ++k)
-    if (k < Kf) out[(size_t)k * G] = acc_w[k];
+  for (int k = 0; k < KF; ++k)
 #pragma unroll
-  for (int j = 0; j < MAX_SC; ++j)
-    if (j < SC) out[(size_t)(Kf + j) * G] = acc_m[j];
-  if (WITH_A2) {
+    for (int h = 0; h < 2; ++h) {
+      float v = dw[k][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      dw[k][h] = v;
+    }
+  __syncthreads();  // the ring is consumed
+  if (fc == 0) {
 #pragma unroll
-    for (int s = 0; s < kMaxA2; ++s)
-      if (s < nA2) out[(size_t)(Kf + SC + s) * G] = acc_a2[s];
+    for (int k = 0; k < KF; ++k) {
+      s_dw[k][warp * kFwdRows + fr] = dw[k][0];
+      s_dw[k][warp * kFwdRows + fr + 8] = dw[k][1];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kYF; ++r)
+    *reinterpret_cast<float4*>(&s_y[warp][r][4 * lane]) =
+        make_float4(ys[0][r], ys[1][r], ys[2][r], ys[3][r]);
+  __syncthreads();
+  // The warps' Y sums added in a fixed order; dW gains its rfe term.
+  for (int i = threadIdx.x; i < kYF * kGeneBlock; i += blockDim.x) {
+    const int r = i / kGeneBlock, gl = i % kGeneBlock, g = gbase + gl;
+    if (g >= G) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGeneWarps; ++w) v += s_y[w][r][gl];
+    if (r < Kf)
+      part[((size_t)chunk * F + r) * G + g] = v + s_dw[r][gl];
+    else if (r >= KF && r - KF < nA2)
+      part[((size_t)chunk * F + Kf + SC + r - KF) * G + g] = v;
   }
 }
 
@@ -637,36 +893,80 @@ void launch_dpsi(const float* psi, const float* W, const float* muL,
         psi, W, muL, dA1, dZ, YW, dpsi, N, G, SC);
 }
 
-template <int MAX_SC>
-void launch_gene(const float* Y, const float* psi, const float* Wt,
-                 const float* muLt, const float* dA1, const float* dA2,
-                 const float* dZ, float* part, float* dgene, int N, int G,
-                 int Kf, int nA2, int SC, int rows_per_chunk,
-                 cudaStream_t stream) {
-  const int n_chunks = (N + rows_per_chunk - 1) / rows_per_chunk;
-  const dim3 grid(blocks_for(G, kGeneThreads), n_chunks);
-  if (nA2 > 0)
-    gene_kernel<MAX_SC, true><<<grid, kGeneThreads, 0, stream>>>(
-        Y, psi, Wt, muLt, dA1, dA2, dZ, part, N, G, Kf, nA2, SC, rows_per_chunk);
-  else
-    gene_kernel<MAX_SC, false><<<grid, kGeneThreads, 0, stream>>>(
-        Y, psi, Wt, muLt, dA1, dA2, dZ, part, N, G, Kf, nA2, SC, rows_per_chunk);
-  const int FG = (Kf + SC + nA2) * G;
-  reduce_chunks_kernel<<<blocks_for(FG, 256), 256, 0, stream>>>(part, dgene, n_chunks, FG);
+// B has (1 + Kf) SC columns, ceil((1 + Kf) SC / 8) n-tiles. A pass holds at
+// most max_live_nt(KF) of them, and the passes split them evenly, so the
+// padding is under one n-tile a pass (the main path, 20 columns, is one pass
+// of 3).
+GenePlan gene_plan(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk) {
+  GenePlan p;
+  p.KF = Kf > 1 ? Kf : 1;
+  const int tiles = ((Kf + 1) * SC + 7) / 8;
+  p.n_pass = (tiles + max_live_nt(p.KF) - 1) / max_live_nt(p.KF);
+  p.NT = (tiles + p.n_pass - 1) / p.n_pass;
+  p.n_pass = (tiles + p.NT - 1) / p.NT;
+  p.kCT = 2 * p.KF + (nA2 > 0 ? kMaxA2 : 0);
+  p.n_pad = (N + kCellTile - 1) / kCellTile * kCellTile;
+  p.n_chunks = (N + rows_per_chunk - 1) / rows_per_chunk;
+  p.part = ((size_t)p.n_chunks * (Kf + SC + nA2) * G + 3) / 4 * 4;  // keeps bp 16-byte aligned
+  p.bp = (size_t)p.n_pass * (p.n_pad / 8) * p.NT * kWarp * 4;
+  p.ct = (size_t)p.n_pad * p.kCT;
+  return p;
 }
 
-// One gene-major instantiation per bound on S*C: the accumulators are
-// compile-time arrays, and every padding column costs a shared-memory load
-// and an FMA per element (for C = 10 a CUDA-core forward of the same build
-// ran 25% faster with the bound 12 than with 16 on an H100 80GB HBM3 at a
-// 700 W power limit).
-#define CA_DISPATCH_SC(SC, CALL)          \
-  do {                                    \
-    if ((SC) <= 8) { CALL(8); }           \
-    else if ((SC) <= 12) { CALL(12); }    \
-    else if ((SC) <= 16) { CALL(16); }    \
-    else { CALL(32); }                    \
-  } while (0)
+template <int KF, int NT, bool WITH_A2>
+void launch_gene(const float* Y, const float* psi, const float* W,
+                 const float* muL, const float* dA1, const float* dA2,
+                 const float* dZ, float* scratch, float* dgene, int N, int G,
+                 int Kf, int nA2, int SC, int rows_per_chunk, const GenePlan& p,
+                 cudaStream_t stream) {
+  float* part = scratch;
+  float4* bp = reinterpret_cast<float4*>(scratch + p.part);
+  float* ct = scratch + p.part + p.bp;
+  gene_pack_kernel<KF, NT, WITH_A2><<<blocks_for((long long)(p.bp / 4 + p.ct), 256), 256, 0, stream>>>(
+      psi, dA1, dA2, dZ, bp, ct, N, Kf, nA2, SC, p.n_pass, p.n_pad);
+  const dim3 grid(blocks_for(G, kGeneBlock), p.n_chunks);
+  const bool vec = G % 4 == 0 && reinterpret_cast<uintptr_t>(Y) % 16 == 0;
+  constexpr int kYF = KF + (WITH_A2 ? kMaxA2 : 0);
+  constexpr int kRing = 2 * (kCellSteps * NT * kWarp + kCellTile * kGeneBlock / 4) * 16;
+  constexpr int kYSums = kGeneWarps * kYF * kGeneBlock * 4;
+  constexpr int kSmem = kRing > kYSums ? kRing : kYSums;
+  cudaFuncSetAttribute(gene_kernel<KF, NT, WITH_A2>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  gene_kernel<KF, NT, WITH_A2><<<grid, kGeneWarps * kWarp, kSmem, stream>>>(
+      Y, W, muL, bp, ct, part, N, G, Kf, nA2, SC, rows_per_chunk, p.n_pad, vec);
+  const int FG = (Kf + SC + nA2) * G;
+  reduce_chunks_kernel<<<blocks_for(FG, 256), 256, 0, stream>>>(part, dgene, p.n_chunks, FG);
+}
+
+template <int KF, int NT>
+void launch_gene_a2(const float* Y, const float* psi, const float* W,
+                    const float* muL, const float* dA1, const float* dA2,
+                    const float* dZ, float* scratch, float* dgene, int N, int G,
+                    int Kf, int nA2, int SC, int rows_per_chunk, const GenePlan& p,
+                    cudaStream_t stream) {
+  if (nA2 > 0)
+    launch_gene<KF, NT, true>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
+  else
+    launch_gene<KF, NT, false>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
+}
+
+template <int KF>
+void launch_gene_nt(const float* Y, const float* psi, const float* W,
+                    const float* muL, const float* dA1, const float* dA2,
+                    const float* dZ, float* scratch, float* dgene, int N, int G,
+                    int Kf, int nA2, int SC, int rows_per_chunk, const GenePlan& p,
+                    cudaStream_t stream) {
+  // Only the n-tile counts gene_plan can pick for this KF are instantiated.
+  if (p.NT == 1)
+    launch_gene_a2<KF, 1>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
+  else if (p.NT == 2)
+    launch_gene_a2<KF, 2>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
+  else if constexpr (max_live_nt(KF) >= 3) {
+    if (p.NT == 3)
+      launch_gene_a2<KF, 3>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
+    else if constexpr (max_live_nt(KF) >= 4)
+      launch_gene_a2<KF, 4>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
+  }
+}
 
 bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk) {
   return N < 1 || G < 1 || Kf < 0 || Kf > kMaxKf || nA2 < 0 || nA2 > kMaxA2 ||
@@ -715,21 +1015,32 @@ int fl_backward_dpsi(const float* psi, const float* W, const float* muL,
   return (int)cudaGetLastError();
 }
 
-// Backward, gene part. Y and psi as fl_forward, Wt (Kf,G), muLt (SC,G),
-// dA1 (N), dA2 (N,nA2), dZ (N,SC). Output dgene (Kf+SC+nA2, G) =
-// [dW^T; d(muL)^T; dlog_mu]; part is scratch of
-// ceil(N/rows_per_chunk) * (Kf+SC+nA2) * G floats.
-int fl_backward_gene(const float* Y, const float* psi, const float* Wt,
-                     const float* muLt, const float* dA1, const float* dA2,
-                     const float* dZ, float* part, float* dgene, int N, int G,
+// Floats of scratch that fl_backward_gene needs for these sizes (0 if they
+// are out of range). rows_per_chunk must be a multiple of 64.
+size_t fl_backward_gene_scratch(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk) {
+  if (bad_sizes(N, G, Kf, nA2, SC, rows_per_chunk) || rows_per_chunk % kCellTile) return 0;
+  const GenePlan p = gene_plan(N, G, Kf, nA2, SC, rows_per_chunk);
+  return p.part + p.bp + p.ct;
+}
+
+// Backward, gene part. Y, psi, W and muL as fl_forward, dA1 (N), dA2
+// (N,nA2), dZ (N,SC). Output dgene (Kf+SC+nA2, G) = [dW^T; d(muL)^T;
+// dlog_mu]; scratch (16-byte aligned) holds fl_backward_gene_scratch(...)
+// floats. Kf == 0 runs as one zero column (rfe = 1).
+int fl_backward_gene(const float* Y, const float* psi, const float* W,
+                     const float* muL, const float* dA1, const float* dA2,
+                     const float* dZ, float* scratch, float* dgene, int N, int G,
                      int Kf, int nA2, int SC, int rows_per_chunk,
                      cudaStream_t stream) {
-  if (bad_sizes(N, G, Kf, nA2, SC, rows_per_chunk)) return (int)cudaErrorInvalidValue;
-#define CA_GENE(M)                                                           \
-  launch_gene<M>(Y, psi, Wt, muLt, dA1, dA2, dZ, part, dgene, N, G, Kf, nA2, \
-                 SC, rows_per_chunk, stream)
-  CA_DISPATCH_SC(SC, CA_GENE);
-#undef CA_GENE
+  if (bad_sizes(N, G, Kf, nA2, SC, rows_per_chunk) || rows_per_chunk % kCellTile)
+    return (int)cudaErrorInvalidValue;
+  const GenePlan p = gene_plan(N, G, Kf, nA2, SC, rows_per_chunk);
+  switch (p.KF) {
+    case 1: launch_gene_nt<1>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream); break;
+    case 2: launch_gene_nt<2>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream); break;
+    case 3: launch_gene_nt<3>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream); break;
+    default: launch_gene_nt<4>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,8 @@ On CUDA tensors :func:`fused_likelihood_terms` launches the kernels of
 The forward kernel also writes ``YW = Y @ W_ext`` (N x Kf), which the
 autograd function keeps, so that the backward's dpsi kernel
 (:func:`reference_dpsi` is its plain version) reads no Y: the backward reads
-Y once, for dW, d(muL) and dlog mu. On CPU tensors it runs
+Y once, in the gene-major kernel for dW, d(muL) and dlog mu
+(:func:`reference_gene` is its plain version). On CPU tensors it runs
 :func:`reference_likelihood_terms` and :func:`reference_likelihood_vjp`, the
 plain versions of the whole contract, which need no YW. There is no fallback
 between the two: a CUDA tensor the kernels do not take raises.
@@ -37,7 +38,7 @@ _ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
 # Kernel launches, each counted by the wrapper that launches the kernel.
 fwd_launches = 0
 dpsi_launches = 0
-gene_launches = 0  # the gene-major backward kernel with its chunk reduction
+gene_launches = 0  # the gene-major backward kernel with its packing and chunk reduction
 
 
 def reset_launch_counts() -> None:
@@ -66,8 +67,8 @@ def reference_likelihood_vjp(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     ``rfe = exp(psi_ext W_ext^T)``, ``drfe = dZ muL^T`` and
     ``dlog_rfe = Y dA1 + rfe drfe``, returns ``dpsi = dlog_rfe W_ext``,
     ``dW = dlog_rfe^T psi_ext``, ``dlog_mu = dA2^T Y`` (None when ``dA2`` is
-    None) and ``dmuL = rfe^T dZ``. dW, dlog_mu and dmuL are the formulas of
-    the gene-major CUDA kernel."""
+    None) and ``dmuL = rfe^T dZ``. The gene-major CUDA kernel computes dW
+    in another association (:func:`reference_gene`)."""
     rfe = torch.exp(psi_ext @ W_ext.T)
     dlog_rfe = Y * dA1[:, None] + rfe * (dZ @ muL.T)
     dpsi = dlog_rfe @ W_ext
@@ -86,6 +87,23 @@ def reference_dpsi(YW, psi_ext, W_ext, muL, dA1, dZ):
     rfe_w = torch.exp(psi_ext @ W_ext.T)[:, None, :] * W_ext.T[None]  # (N, Kf, G)
     T = rfe_w @ muL                                                    # (N, Kf, SC)
     return dA1[:, None] * YW + (T @ dZ[:, :, None])[:, :, 0]
+
+
+def reference_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
+    """Plain PyTorch version of the gene-major kernel, in its re-associated
+    form: with ``rfe = exp(psi_ext W_ext^T)`` and
+    ``E[g,j,k] = sum_n rfe[n,g] dZ[n,j] psi_ext[n,k]``, returns
+    ``dW = Y^T (dA1 psi_ext) + sum_j muL[:, j] E[:, j, :]``, ``dlog_mu =
+    dA2^T Y`` (None when ``dA2`` is None) and ``dmuL = rfe^T dZ``, which equal
+    :func:`reference_likelihood_vjp`'s exactly; ``dZ muL^T`` is never
+    formed."""
+    (N, SC), G, Kf = dZ.shape, W_ext.shape[0], psi_ext.shape[1]
+    rfe = torch.exp(psi_ext @ W_ext.T)
+    dmuL = rfe.T @ dZ
+    E = (rfe.T @ (dZ[:, :, None] * psi_ext[:, None, :]).reshape(N, SC * Kf)).reshape(G, SC, Kf)
+    dW = Y.T @ (dA1[:, None] * psi_ext) + (muL[:, :, None] * E).sum(1)
+    dlog_mu = None if dA2 is None else dA2.T @ Y
+    return dW, dlog_mu, dmuL
 
 
 def _plain_forward(Y, psi_ext, W_ext, log_mu, muL):
@@ -192,9 +210,10 @@ def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
 
 
 def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
-    """Launch the gene-major backward kernel and its chunk reduction (the
-    second part of :func:`kernel_backward`). Returns (dW, dlog_mu or None,
-    dmuL)."""
+    """Launch the gene-major backward kernel with its packing of the cell
+    operands and its chunk reduction (the second part of
+    :func:`kernel_backward`; :func:`reference_gene` is its plain version).
+    Returns (dW, dlog_mu or None, dmuL)."""
     global gene_launches
     from . import _build
 
@@ -210,17 +229,16 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     if dA2 is not None:
         _check("dA2", dA2, (N, n_a2))
     lib = _build.load()
-    Wt = W_ext.T.contiguous()
-    muLt = muL.T.contiguous()
-    rows = max(_ROWS_PER_CHUNK, -(-N // 65535))  # grid.y is at most 65535 chunks
-    n_chunks = -(-N // rows)
+    # grid.y is at most 65535 chunks; a chunk is a whole number of 64-cell tiles
+    rows = -(-max(_ROWS_PER_CHUNK, -(-N // 65535)) // 64) * 64
     F = Kf + SC + n_a2
-    part = torch.empty(n_chunks, F, G, device=Y.device, dtype=torch.float32)
+    scratch = torch.empty(lib.fl_backward_gene_scratch(N, G, Kf, n_a2, SC, rows),
+                          device=Y.device, dtype=torch.float32)
     dgene = torch.empty(F, G, device=Y.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(Y.device).cuda_stream
     err = lib.fl_backward_gene(
-        _ptr(Y), _ptr(psi_ext), _ptr(Wt), _ptr(muLt), _ptr(dA1), _ptr(dA2),
-        _ptr(dZ), _ptr(part), _ptr(dgene), N, G, Kf, n_a2, SC, rows,
+        _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2),
+        _ptr(dZ), _ptr(scratch), _ptr(dgene), N, G, Kf, n_a2, SC, rows,
         ctypes.c_void_p(stream),
     )
     _raise_on(err, "fused likelihood backward (gene)")

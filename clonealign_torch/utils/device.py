@@ -11,7 +11,10 @@ The port's float32 products outside the kernels — the PCA initialization
 and the per-clone count sums of ``compute_correlations`` — run inside
 :func:`full_fp32_matmul`, which turns TF32 off for matmuls and cuDNN and
 restores the previous setting afterwards. The likelihood kernels themselves
-accumulate in float32 on CUDA cores and never use TF32.
+run their products with the exp on tensor cores as three TF32 products of
+split operands (3xTF32, hi*hi + hi*lo + lo*hi), summed outside the tensor
+cores, which keeps float32 accuracy; their sums over Y are float32 on CUDA
+cores.
 """
 
 from __future__ import annotations

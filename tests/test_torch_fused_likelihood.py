@@ -26,14 +26,18 @@ torch.set_num_threads(2)
 
 SHAPES = [(70, 90, 4, 2, 2), (130, 257, 3, 1, 1), (37, 41, 2, 1, 1)]
 # (N, G, C, K, S) covering every S*C bound the kernels are built for (the
-# gene-major kernel's 8/12/16/32, the forward's and the dpsi kernel's 1, 2
-# and 4 n-tiles of 8 columns, with S*C = 1, 8, 9, 16, 17, 20, 32), one row
-# and a ragged 16-row tile (N = 1, 17), one gene, gene counts ragged against
-# the 32- and 128-gene tiles with and without 16-byte rows (G = 1000, 700 /
-# 41, 129, 515), and Kf = 0..4 (Kf = 4 with two and four n-tiles)
+# forward's and the dpsi kernel's 1, 2 and 4 n-tiles of 8 columns, with
+# S*C = 1, 8, 9, 16, 17, 20, 32; the gene-major kernel's B of (1 + Kf) S*C
+# columns in 1, 2, 3 and 4 n-tiles a pass, in one pass or, for 40 to 160
+# columns, in 2 to 10 passes), one row and a ragged 16-row
+# tile (N = 1, 17), cells in several 1,024-cell chunks (N = 2100), one gene,
+# gene counts ragged against the 32- and 128-gene tiles with and without
+# 16-byte rows (G = 1000, 700, 260 / 41, 129, 130, 515), and Kf = 0..4
 CUDA_SHAPES = SHAPES + [(333, 1000, 10, 1, 1), (257, 700, 16, 4, 1), (100, 129, 10, 1, 2),
                         (5, 3000, 1, 0, 1), (1, 200, 9, 1, 1), (17, 333, 17, 3, 1),
-                        (40, 1, 8, 2, 4), (50, 515, 16, 4, 2)]
+                        (40, 1, 8, 2, 4), (50, 515, 16, 4, 2), (64, 515, 8, 4, 4),
+                        (33, 130, 32, 4, 1), (45, 260, 8, 1, 1), (2100, 130, 5, 1, 2),
+                        (60, 300, 16, 1, 1)]
 VALUE_TOL = dict(rtol=2e-5, atol=1e-4)
 VJP_TOL = dict(rtol=3e-5, atol=1e-4)
 
@@ -160,6 +164,44 @@ def test_reference_dpsi_identity_float64(shape):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10, atol=1e-12)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_reference_gene_matches_pallas(shape, jax_ops):
+    """The re-associated gene-major formulas (dW, dlog mu, d(muL) without
+    dZ muL^T) against the W, log mu and muL cotangents of jax.vjp of the
+    Pallas op."""
+    jax, jnp, jfl = jax_ops
+    N, G, C, K, S = shape
+    x = _inputs(N, G, C, K, S, seed=N + 4)
+    cot = _cotangents(N, S, S * C, seed=N + 4)
+    _, vjp = jax.vjp(jfl.fused_likelihood_terms, *map(jnp.asarray, x))
+    want = [np.asarray(g) for g in vjp(tuple(map(jnp.asarray, cot)))[2:]]
+
+    Y, psi, W, _log_mu, muL = _torch(x)
+    dA1, dA2, dZ = _torch(cot)
+    got = tfl.reference_gene(Y, psi, W, muL, dA1, dA2, dZ)
+    for name, g, w in zip(("W", "log_mu", "muL"), got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **VJP_TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(17, 33, 8, 4, 2), (5, 9, 3, 0, 1)])
+def test_reference_gene_identity_float64(shape):
+    """Y^T (dA1 psi) + sum_j muL_j (rfe^T (dZ_j psi)) equals dlog_rfe^T psi
+    exactly: in float64 the two orders of summation agree to rounding, and
+    dlog mu and d(muL) are the same formulas."""
+    N, G, C, K, S = shape
+    x = [a.astype(np.float64) for a in _inputs(N, G, C, K, S, seed=N + 5)]
+    cot = [a.astype(np.float64) for a in _cotangents(N, S, S * C, seed=N + 5)]
+    Y, psi, W, _log_mu, muL = _torch(x)
+    dA1, dA2, dZ = _torch(cot)
+    got = tfl.reference_gene(Y, psi, W, muL, dA1, dA2, dZ)
+    want = tfl.reference_likelihood_vjp(Y, psi, W, muL, dA1, dA2, dZ)[1:]
+    assert got[0].dtype == torch.float64 and got[0].shape == (G, K)
+    for name, g, w in zip(("W", "log_mu", "muL"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-10, atol=1e-12, err_msg=name)
+    assert tfl.reference_gene(Y, psi, W, muL, dA1, None, dZ)[1] is None
+
+
 @pytest.mark.parametrize("mode", ["psi_grad", "no_grad", "psi_frozen"])
 def test_autograd_cpu_path_needs_no_yw(mode):
     """On CPU tensors the autograd function runs the whole plain VJP, which
@@ -209,9 +251,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("shape", CUDA_SHAPES)
 def test_cuda_kernels_match_plain(shape):
     """Forward (A2 on and off) and backward kernels against the plain
-    versions on the card, float32 on both sides. The backward takes Y W from
-    the forward kernel, as the fit does; each wrapper counts its launches
-    (the dpsi kernel has nothing to launch when Kf = 0)."""
+    versions on the card. The backward takes Y W from the forward kernel, as
+    the fit does; each wrapper counts its launches (the dpsi kernel has
+    nothing to launch when Kf = 0). The forward and dpsi are held against the
+    float32 plain versions; dW, dlog mu and d(muL) against the float64 plain
+    version of the same float32 inputs, because the gene-major kernel sums
+    dW's rfe term in another association (:func:`reference_gene`) and at
+    (257, 700, 16, 4, 1) the float32 plain dW is itself farther than the
+    tolerance from the float64 one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     N, G, C, K, S = shape
@@ -228,9 +275,27 @@ def test_cuda_kernels_match_plain(shape):
         np.testing.assert_allclose(YW.cpu().numpy(), (Y @ W).cpu().numpy(), **VALUE_TOL)
         got = tfl.kernel_backward(Y, psi, W, muL, dA1, da2, dZ, YW)
         want = tfl.reference_likelihood_vjp(Y, psi, W, muL, dA1, da2, dZ)
-        for g, w in zip(got, want):
+        exact = tfl.reference_likelihood_vjp(
+            *[None if t is None else t.double() for t in (Y, psi, W, muL, dA1, da2, dZ)])
+        for g, w in zip(got, (want[0], *exact[1:])):
             if w is not None:
                 np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **VJP_TOL)
     launched = (2, 2 if K else 0, 2)
     assert (tfl.fwd_launches, tfl.dpsi_launches, tfl.gene_launches) == tuple(
         b + n for b, n in zip(before, launched))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(333, 1000, 10, 1, 1), (64, 515, 8, 4, 4)])
+def test_cuda_gene_kernel_is_deterministic(shape):
+    """The gene-major kernel adds its partial sums in a fixed order, with no
+    atomics: two calls on the same inputs give bitwise-equal results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    N, G, C, K, S = shape
+    Y, psi, W, _log_mu, muL = [t.cuda() for t in _torch(_inputs(N, G, C, K, S, seed=N))]
+    dA1, dA2, dZ = [t.cuda() for t in _torch(_cotangents(N, S, S * C, seed=N))]
+    first = tfl.kernel_gene(Y, psi, W, muL, dA1, dA2, dZ)
+    second = tfl.kernel_gene(Y, psi, W, muL, dA1, dA2, dZ)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
