@@ -8,8 +8,15 @@ It builds the CUDA kernels from the sources in the checkout, holds each
 kernel against its plain PyTorch version on the card (at small ragged shapes
 and at the full width of the main path), then drives the fit at full width —
 100,000 cells x 5,000 genes x 10 clones, clone-structured counts made on the
-card from a seed — through ``clonealign_torch.clonealign``, and a small
-``run_clonealign`` sweep. Any failed phase raises and the script exits
+card from a seed — through ``clonealign_torch.clonealign`` under the exact
+likelihood and then, in turns, under the Chebyshev normalizer (z_cheb) and
+the exact one again, printing each fit's ms per iteration; then the
+full-width sweep of ten restarts through ``run_clonealign`` three ways
+(exact in sequence, exact as lanes of one batched loop, z_cheb as lanes),
+each with its kernel launches counted from zero and checked against its
+lanes' iterations; a small sweep; and the two converged fits of the golden
+oracle (tests/golden/tpu_parity_oracle.npz), each held to that oracle's
+bar. Any failed phase raises and the script exits
 nonzero, as it does when ptxas's report lacks a tensor-core kernel
 instantiation or shows one spilling registers. The last line of standard
 output is a JSON object naming the card; the line before it lists each
@@ -23,11 +30,13 @@ version's time and bound; the line before that prints those parts' times.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -39,12 +48,18 @@ import numpy as np
 # sum is about 800 float32 ulps of it.
 KERNEL_RTOL = 1e-4
 
+REPO = Path(__file__).resolve().parent
+
 FULL = dict(N=100_000, G=5_000, C=10)     # bench.py's headline configuration
 SMALL = dict(N=37, G=41, C=2)             # ragged: no dimension a multiple of a tile
 WIDE = dict(N=100, G=129, C=10)           # with S=2, Kf=3: S*C = 20, four n-tiles
 SWEEP = dict(N=2_000, G=500, C=4)
 FIT_MAX_ITER = 100
 MIN_ACCURACY = 0.99
+# bench.py's sweep: ten restarts at one shrink, 100 iterations, the ELBO
+# monitored from the training evaluation
+LANES = dict(initial_shrinks=(5,), n_repeats=10, max_iter=100, elbo_eval="reuse")
+GOLDEN_MAX_ITER = 500  # the oracle's converged-fit configuration
 # Published peaks of one H100 SXM at 700 W: HBM bytes/s, float32 FLOP/s on
 # CUDA cores (the kernels' contract is float32), TF32 FLOP/s on tensor
 # cores, and exps/s on the special-function units: 16 a clock on each of 132
@@ -356,6 +371,108 @@ def check_trace(trace):
     return rising
 
 
+@contextlib.contextmanager
+def inference_peaks():
+    """Collect the card's peak allocated bytes over each call of the
+    sweep's inference (the lane-batched loop, or each restart of the
+    sequential one), to hold against restarts._sweep_bytes; setup's
+    transients, which precede the loop, are not in it."""
+    import torch
+
+    from clonealign_torch import restarts
+
+    peaks, originals = [], {n: getattr(restarts, n) for n in ("run_inference", "run_inference_lanes")}
+
+    def measured(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kwargs)
+            peaks.append(torch.cuda.max_memory_allocated())
+            return out
+        return call
+
+    for n, fn in originals.items():
+        setattr(restarts, n, measured(fn))
+    try:
+        yield peaks
+    finally:
+        for n, fn in originals.items():
+            setattr(restarts, n, fn)
+
+
+def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching):
+    """One full-width sweep through run_clonealign; returns its lanes'
+    iterations and the kernel launches it made."""
+    from clonealign_torch.restarts import _sweep_bytes
+
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    with inference_peaks() as loop_peaks:
+        fit = clonealign_torch.run_clonealign(
+            Y, L, device="cuda", seed=0, verbose=False, likelihood_impl=impl,
+            restart_batching=batching, **LANES,
+        )
+    wall = time.perf_counter() - t0
+    launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+    tm, iters = fit.timings, fit.timings["iterations"]
+    R = len(iters)
+    acc = accuracy(fit, z)
+    plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, 1, R if batching == "vmap" else 1,
+                        4, "cuda") / 1e9
+    log(f"sweep ({name}) {impl} {batching}, {R} lanes: {wall:.2f} s wall, setup "
+        f"{tm['setup']:.2f} s, init {tm['init']:.2f} s, loop {tm['loop']:.2f} s "
+        f"({sum(iters)} lane iterations: {1000 * tm['loop'] / sum(iters):.2f} ms per lane "
+        f"iteration, {1000 * tm['loop'] / max(iters):.2f} ms per sweep iteration), "
+        f"inference {tm['inference']:.2f} s, package {tm['package']:.2f} s; iterations {iters}; "
+        f"best lane {fit.multirun_info['best_run']} accuracy {acc:.4f}; launches {launches}; "
+        f"peak allocated in the inference {max(loop_peaks) / 1e9:.2f} GB "
+        f"(restarts._sweep_bytes reckons {plan:.2f} GB)")
+    if acc < MIN_ACCURACY:
+        raise AssertionError(f"sweep ({name}): best lane accuracy {acc:.4f} < {MIN_ACCURACY}")
+    want = {"fwd": sum(2 + n + 20 for n in iters) if impl == "xla" else 20 * R,
+            "dpsi": sum(iters) if impl == "xla" else 0}
+    want["gene"] = want["dpsi"]
+    if launches != want:
+        raise AssertionError(f"sweep ({name}): launches {launches}, expected {want}")
+    return {"iterations": iters, "launches": launches}
+
+
+def golden(clonealign_torch):
+    """Fit the oracle's two configurations (tests/test_tpu_hardware.py:101-116)
+    on the card in float32 and hold each to its bar (there :70-98): the
+    final ELBO within max(1e-4 |e64|, 3 sd_final) of the float64 oracle, and
+    labels that differ from the float64 oracle's only where the max
+    probability is within 0.01 of 0.95. The synthetic config runs under
+    "auto" (the exact likelihood) and under z_cheb, as the JAX package's
+    hardware test pins it."""
+    from clonealign_torch.synth import simulate_multinomial
+
+    oracle = np.load(REPO / "tests" / "golden" / "tpu_parity_oracle.npz")
+    ex = np.load(REPO / "data" / "example_sce.npz")
+    sim = simulate_multinomial(N=5000, G=1000, C=4, seed=3, mean_total=2000)
+    for name, Y, L, seed, impl in (("example", ex["counts"], ex["copy_number"], 7, "auto"),
+                                   ("synth", sim.Y, sim.L, 11, "auto"),
+                                   ("synth", sim.Y, sim.L, 11, "z_cheb")):
+        t0 = time.perf_counter()
+        fit = clonealign_torch.clonealign(Y, L, max_iter=GOLDEN_MAX_ITER, seed=seed,
+                                          dtype="float32", device="cuda", verbose=False,
+                                          likelihood_impl=impl)
+        ci = fit.convergence_info
+        e64 = float(oracle[f"{name}_elbo64"])
+        tol = max(1e-4 * abs(e64), 3.0 * ci.sd_final_elbo)
+        probs = fit.ml_params["clone_probs"]
+        flips = np.flatnonzero(np.asarray(fit.clone) != oracle[f"{name}_clone64"])
+        off = [int(i) for i in flips if abs(probs[i].max() - 0.95) >= 0.01]
+        log(f"golden {name} ({impl}): {time.perf_counter() - t0:.1f} s, {ci.n_iters} iterations, "
+            f"final ELBO {ci.final_elbo:.8g} +- {ci.sd_final_elbo:.3g} against the float64 "
+            f"oracle {e64:.8g}: |diff| {abs(ci.final_elbo - e64):.4g}, bar {tol:.4g} "
+            f"({abs(ci.final_elbo - e64) / abs(e64):.2e} relative); {len(flips)} labels differ "
+            f"from the float64 oracle, {len(off)} away from the 0.95 threshold")
+        if not abs(ci.final_elbo - e64) < tol or off:
+            raise AssertionError(f"golden {name} ({impl}) misses the oracle's bar")
+
+
 def main() -> int:
     import torch
 
@@ -401,7 +518,8 @@ def main() -> int:
     fl.reset_launch_counts()
     t0 = time.perf_counter()
     fit = clonealign_torch.clonealign(
-        Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False
+        Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
+        likelihood_impl="xla",
     )
     wall = time.perf_counter() - t0
     launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
@@ -428,9 +546,46 @@ def main() -> int:
             f"kernel launches {launches} do not match {n_iters} iterations "
             f"(expected fwd {want_fwd}, dpsi and gene {n_iters} each)"
         )
+    iter_ms = {"xla": [1000 * tm["loop"] / max(n_iters, 1)]}
+
+    # 5. ms per iteration of the full-width single fit under each likelihood,
+    # in turns (the numbers api._resolve_auto_impl rests on); the z_cheb fit
+    # runs the forward kernel only for its 20 final evaluations
+    for impl in ("z_cheb", "xla", "z_cheb"):
+        fl.reset_launch_counts()
+        f = clonealign_torch.clonealign(
+            Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
+            likelihood_impl=impl,
+        )
+        got = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+        n = f.convergence_info.n_iters
+        iter_ms.setdefault(impl, []).append(1000 * f.timings["loop"] / max(n, 1))
+        acc_i = accuracy(f, z)
+        log(f"fit {impl}: {n} iterations, {iter_ms[impl][-1]:.2f} ms per iteration, "
+            f"final ELBO {f.convergence_info.final_elbo:.6g}, accuracy {acc_i:.4f}, "
+            f"launches {got}")
+        want = ({"fwd": 20, "dpsi": 0, "gene": 0} if impl == "z_cheb" else
+                {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n})
+        if acc_i < MIN_ACCURACY or got != want:
+            raise AssertionError(f"fit {impl}: accuracy {acc_i:.4f}, launches {got} (expected {want})")
+    log("ms per iteration, full-width single fit: " + ", ".join(
+        f"{impl} {' / '.join(f'{t:.2f}' for t in ts)}" for impl, ts in iter_ms.items()))
+
+    # 6. the full-width sweep of ten restarts: exact in sequence, exact as
+    # lanes, z_cheb as lanes
+    sweeps = {}
+    for name, impl, batching in (("a", "xla", "map"), ("b", "xla", "vmap"), ("c", "z_cheb", "vmap")):
+        sweeps[name] = run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching)
+    seq, lanes = sweeps["a"], sweeps["b"]
+    if lanes != seq:
+        raise AssertionError(f"lanes differ from the sequential sweep: {lanes} vs {seq}")
+    R = LANES["n_repeats"] * len(LANES["initial_shrinks"])
+    if sweeps["c"]["launches"] != {"fwd": 20 * R, "dpsi": 0, "gene": 0}:
+        raise AssertionError(f"z_cheb sweep launches {sweeps['c']['launches']}, expected "
+                             f"{20 * R} forwards and no backward")
     del Y
 
-    # 5. a small restart sweep through run_clonealign
+    # 7. a small restart sweep through run_clonealign
     Ys, Ls, zs = synth_counts(4, SWEEP["N"], SWEEP["G"], SWEEP["C"])
     t0 = time.perf_counter()
     sweep = clonealign_torch.run_clonealign(
@@ -445,6 +600,9 @@ def main() -> int:
         f"best {info['best_run']}, accuracy {acc_s:.4f}")
     if info["best_run"] != best or acc_s < MIN_ACCURACY:
         raise AssertionError("run_clonealign picked a wrong lane or assigned badly")
+
+    # 8. golden parity: the oracle's two converged fits on the card
+    golden(clonealign_torch)
 
     # The backward's parts alone at full width, A2 off.
     b = full["bounds"]

@@ -3,9 +3,9 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package ``clonealign_tpu`` that sits beside it: module
 paths and public names mirror it, and its tests hold this package against
-it on identical inputs. Every public entry point takes an explicit
-``device`` ("cpu" or "cuda"). On CPU tensors the likelihood runs its plain
-PyTorch version; on CUDA tensors only the kernels in ``ops/csrc``.
+it on identical inputs. Every public entry point takes ``device``: "cuda"
+by default, or "cpu". On CPU tensors the likelihood runs its plain PyTorch
+version; on CUDA tensors only the kernels in ``ops/csrc``.
 
 Public API:
 

@@ -1,12 +1,14 @@
 """Public fit API: ``clonealign(...)`` (reference R/clonealign.R:184-305),
 counterpart of ``clonealign_tpu/api.py``.
 
-Parameter names and defaults match the JAX package, plus an explicit
-``device`` ("cpu" or "cuda") and an injectable ``noise`` source. This port
-covers the default corner: a dense count matrix, no covariates, no allele
-data, the exact likelihood (on CUDA through the hand-written kernels), Y
-stored in the compute dtype. Every other option raises NotImplementedError
-naming its ROADMAP item; none falls back silently.
+Parameter names and defaults match the JAX package, plus ``device``
+("cuda" by default, or "cpu"; there is no fallback from one to the other)
+and an injectable ``noise`` source. This port covers the default corner: a
+dense count matrix, no covariates, no allele data, the exact likelihood (on
+CUDA through the hand-written kernels) or the Chebyshev normalizer
+(``likelihood_impl="z_cheb"``), Y stored in the compute dtype. Every other
+option raises NotImplementedError naming its ROADMAP item; none falls back
+silently.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from . import assign as _assign
 from .fit import ClonealignFit, ConvergenceInfo
 from .infer import run_inference
 from .models import multinomial as mm
+from .ops.fused_likelihood import MAX_A2, MAX_KF, MAX_SC
 from .utils.chunking import host_row_chunk as _host_row_chunk
 from .utils.device import resolve_device, resolve_dtype, synchronize
 from .utils.noise import Noise
@@ -173,18 +176,69 @@ class FitContext:
     data_init_mu: object
 
 
-def _check_options(x, clone_allele, cov, ref, y_storage, likelihood_impl):
+def _check_reference_keywords(key, loop_impl) -> None:
+    """The JAX package's keywords: ``key`` has no counterpart here (every
+    draw comes from ``seed`` or a ``noise`` source); ``loop_impl`` "while"
+    and "scan" give the same results, so both run the one loop."""
+    if key is not None:
+        raise ValueError(
+            "key (a JAX PRNG key) is not taken by clonealign_torch: pass "
+            "seed=<int>, or to clonealign a noise source "
+            "(clonealign_torch.utils.noise.Noise)"
+        )
+    if loop_impl not in ("while", "scan"):
+        raise ValueError(f"loop_impl must be 'while' or 'scan', got {loop_impl!r}")
+
+
+def _check_kernel_contract(device: torch.device, K: int, mc_samples: int, C: int) -> None:
+    """On CUDA the likelihood kernels take at most MAX_KF latent columns,
+    MAX_A2 Monte Carlo samples and MAX_SC sample x clone columns; refuse
+    wider fits before any data reaches the card. z_cheb fits are held to the
+    same limits: their final ELBO runs the exact kernels."""
+    if device.type != "cuda":
+        return
+    if K > MAX_KF or mc_samples > MAX_A2 or mc_samples * C > MAX_SC:
+        raise _not_ported(
+            f"a fit on CUDA with K={K}, mc_samples={mc_samples} and {C} clones "
+            f"(the kernels take K <= {MAX_KF}, mc_samples <= {MAX_A2} and "
+            f"mc_samples x clones <= {MAX_SC})",
+            "wide kernel contract",
+        )
+
+
+def _resolve_auto_impl(K, mc_samples, dtype, n_elements) -> str:
+    """``likelihood_impl="auto"``: the exact likelihood at every size.
+
+    The JAX package (api.py:213-239) resolves "auto" to z_cheb in the K=1 /
+    no-covariate / one-sample / float32 corner from 1M retained N x G
+    elements, because on its TPU the Chebyshev normalizer was the faster
+    step. On the card it is not: a full-width (100,000 x 5,000 x 10) single
+    fit took 11.10-17.02 ms per iteration under z_cheb against 7.41-12.03
+    ms under the exact kernels, in turns in each of three runs
+    (``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at 700 W). The loop is
+    bound by the host, and the Clenshaw recurrence and its backward issue
+    about 300 small kernels an iteration where the fused kernels issue
+    three. So no size opens the corner; z_cheb is there when asked for
+    (lane-batched sweeps amortize its launches: PERF.md). The arguments are
+    the reference's, so that a later gate can use them."""
+    del K, mc_samples, dtype, n_elements
+    return "xla"
+
+
+def _check_options(x, clone_allele, cov, ref, y_storage, likelihood_impl, K, mc_samples,
+                   fix_alpha):
     if x is not None:
         raise _not_ported("covariates x", "covariates")
     if clone_allele is not None or cov is not None or ref is not None:
         raise _not_ported("allele-specific inputs (clone_allele/cov/ref)", "allele")
-    if likelihood_impl == "z_cheb":
-        raise _not_ported("likelihood_impl='z_cheb'", "z_cheb")
-    if likelihood_impl not in ("auto", "xla"):
+    if likelihood_impl not in ("auto", "xla", "z_cheb"):
         raise ValueError(
-            "likelihood_impl must be 'auto' or 'xla' (both run the exact "
-            f"likelihood); got {likelihood_impl!r}"
+            "likelihood_impl must be one of 'auto', 'xla', 'z_cheb'; "
+            f"got {likelihood_impl!r}"
         )
+    # a configuration error surfaces before the host validation and upload
+    mm._use_z_cheb(mm.ModelConfig(K=K, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
+                                  likelihood_impl=likelihood_impl))
     if y_storage in ("int8", "int16", "bfloat16"):
         raise _not_ported(f"y_storage={y_storage!r}", "int8/int16 Y read by the kernel")
     if y_storage not in (None, "auto", "float32"):
@@ -214,7 +268,7 @@ def setup_fit(
     likelihood_impl: str = "auto",
     allow_fractional: bool = False,
     *,
-    device,
+    device="cuda",
 ) -> FitContext:
     """Input parsing, gene filtering and validation on the host, then the
     device data (reference R/clonealign.R:206-260, R/inference-tflow.R:111-235).
@@ -222,19 +276,22 @@ def setup_fit(
     The gene filter always runs on the host before the data go to the
     device, so the per-cell feasibility check sees the filtered genes.
     ``y_storage`` "auto" and "float32" both store Y in the compute dtype
-    (integer counts convert exactly).
+    (integer counts convert exactly). ``likelihood_impl="auto"`` resolves by
+    :func:`_resolve_auto_impl` over the retained genes.
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
-    _check_options(x, clone_allele, cov, ref, y_storage, likelihood_impl)
+    K = 1 if K is None else int(K)  # reference R/clonealign.R:226-232
+    _check_options(x, clone_allele, cov, ref, y_storage, likelihood_impl, K, mc_samples,
+                   fix_alpha)
     if verbose:
         print("Constructing model")  # reference R/inference-tflow.R:102-104
     Y, gene_names, _cell_names = _parse_expression(gene_expression_data)
     if _is_scipy_sparse(Y):
         raise _not_ported("a sparse count matrix", "chunked and sparse prepare")
     N, G = Y.shape
-    K = 1 if K is None else int(K)  # reference R/clonealign.R:226-232
     L, clone_names = _parse_copy_number(copy_number_data, G)
+    _check_kernel_contract(dev, K, int(mc_samples), L.shape[1])
 
     # --- gene filtering (reference R/inference-tflow.R:117-131) ---
     low = _colsum_f64(Y) <= gene_filter_threshold
@@ -261,7 +318,10 @@ def setup_fit(
         L = np.minimum(L, float(saturation_threshold))
 
     data = mm.prepare_data(Y, L, device=dev, dtype=dt)
-    config = mm.ModelConfig(K=K, mc_samples=int(mc_samples), fix_alpha=fix_alpha)
+    if likelihood_impl == "auto":
+        likelihood_impl = _resolve_auto_impl(K, mc_samples, dt, Y.shape[0] * Y.shape[1])
+    config = mm.ModelConfig(K=K, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
+                            likelihood_impl=likelihood_impl)
 
     # numpy booleans (np.True_, 0-d bool arrays) are the boolean switch,
     # not a mu init array
@@ -306,22 +366,32 @@ def clonealign(
     clone_call_probability: float = 0.95,
     data_init_mu=True,
     seed: Optional[int] = None,
+    key=None,
     elbo_eval: str = "fresh",
     progress: bool = False,
     y_storage: Optional[str] = "auto",
     likelihood_impl: str = "auto",
     allow_fractional: bool = False,
+    loop_impl: str = "while",
+    unroll: int = 1,
+    remat="auto",
     *,
-    device,
+    device="cuda",
     noise=None,
 ) -> ClonealignFit:
     """Assign scRNA-seq cells to clones of origin by variational inference.
 
     Mirrors ``clonealign_tpu.clonealign`` (and the reference's signature,
-    R/clonealign.R:184-203). ``device`` is "cpu" or "cuda" and is required;
-    every random draw comes from ``noise`` (default: a
+    R/clonealign.R:184-203). ``device`` is "cuda" (default) or "cpu"; every
+    random draw comes from ``noise`` (default: a
     :class:`~clonealign_torch.utils.noise.Noise` seeded with ``seed``, or 0).
+    ``likelihood_impl`` is "auto", "xla" (the exact normalizer) or "z_cheb"
+    (the Chebyshev normalizer, K=1 only; the reported ELBO stays exact).
+    ``loop_impl`` ("while" or "scan"), ``unroll`` and ``remat`` are the JAX
+    package's compilation controls: accepted, with no effect here. ``key``
+    (a JAX PRNG key) is refused: pass ``seed`` or ``noise``.
     """
+    _check_reference_keywords(key, loop_impl)
     t0 = time.perf_counter()
     ctx = setup_fit(
         gene_expression_data,

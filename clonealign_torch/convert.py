@@ -31,7 +31,9 @@ def _tensor(value, device, dtype):
 
 def params_from_numpy(params, device, dtype=torch.float32) -> CloneAlignParams:
     """The port's parameters from a JAX ``CloneAlignParams`` (or a dict of
-    arrays). Covariate coefficients ``beta`` must have no columns."""
+    arrays). Covariate coefficients ``beta`` must have no columns. Parameters
+    with a leading lane axis, as ``jax.vmap`` returns them, keep it: they are
+    the R lanes ``infer.run_inference_lanes`` takes."""
     get = _field_reader(params)
     beta = get("beta")
     if beta is not None and np.asarray(beta).shape[-1] != 0:

@@ -31,7 +31,8 @@ class ClonealignFit:
     ``correlations``, ``clone_probs_from_snv``; multi-restart fits add
     ``multirun_info``. ``timings`` holds the wall seconds of the fit's
     phases (``setup``, ``init``, ``inference``, ``loop``, ``package``,
-    measured after synchronizing the device); it is not saved.
+    measured after synchronizing the device), and for a restart sweep also
+    ``iterations``, each restart's Adam iterations; it is not saved.
     """
 
     clone: List[str]

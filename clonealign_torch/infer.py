@@ -2,8 +2,9 @@
 (reference R/inference-tflow.R:344-421), counterpart of
 ``clonealign_tpu/infer.py``.
 
-The loop runs in Python with one host sync per iteration: the stop test
-needs the new ELBO on the host.
+The loop runs in Python over R lanes (restarts) at once, with one host sync
+per iteration for all of them: the stop test needs the new ELBOs on the
+host. A single fit is the one-lane case.
 """
 
 from __future__ import annotations
@@ -17,6 +18,15 @@ import torch
 from .models import multinomial as mm
 from .utils.device import synchronize
 
+
+def _upload(x, device):
+    """A host array as a tensor on ``device``. To a CUDA device it is copied
+    from pinned memory without blocking: a copy from pageable memory would
+    make the host wait for every kernel queued before it."""
+    t = torch.as_tensor(x)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+
 class TF1Adam:
     """Adam with TF1's update form (the reference uses
     ``tf$train$AdamOptimizer`` defaults, R/inference-tflow.R:345); the
@@ -25,35 +35,74 @@ class TF1Adam:
     TF1 applies ``lr * sqrt(1-b2^t)/(1-b1^t) * m / (sqrt(v) + eps)`` — the
     epsilon sits outside the bias correction — and computes the
     bias-correction scalars in the variable's dtype.
+
+    With ``n_lanes`` every parameter carries a leading lane axis and each
+    lane keeps its own step count: :meth:`step` moves only the lanes it is
+    told are active, as the reference's ``jnp.where(keep, new, old)`` does.
+    The counts and the bias-correction scalars live on the host and reach
+    the device in one copy a step that does not wait for the card.
     """
 
     def __init__(self, params, learning_rate: float, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8, n_lanes=None):
         self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
-        self.count = 0
+        self.count = np.zeros(() if n_lanes is None else (n_lanes,), np.int64)
         self.m = [torch.zeros_like(p) for p in params]
         self.v = [torch.zeros_like(p) for p in params]
 
     @torch.no_grad()
-    def step(self, params, grads) -> None:
-        """Update ``params`` in place from ``grads``."""
-        self.count += 1
+    def step(self, params, grads, active=None) -> None:
+        """Update ``params`` in place from ``grads``; with lanes, ``active``
+        (a bool array, one entry per lane, or None for all) selects the lanes
+        that move: the others keep their parameters, moments and count."""
         b1, b2 = self.b1, self.b2
+        self.count += 1 if active is None else active
+        t = torch.as_tensor(self.count, dtype=torch.promote_types(params[0].dtype, torch.float32))
+        device = params[0].device
+        neg_lr = _upload(-(self.lr * torch.sqrt(1 - b2**t) / (1 - b1**t)), device)
+        keep_lanes = None if active is None else _upload(active, device)
         for p, g, m, v in zip(params, grads, self.m, self.v):
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * g * g)
-            t = torch.tensor(self.count, dtype=torch.promote_types(p.dtype, torch.float32))
-            lr_t = self.lr * torch.sqrt(1 - b2**t) / (1 - b1**t)
-            p.add_(-lr_t * m / (torch.sqrt(v) + self.eps))
+            lane = (-1,) + (1,) * (p.dim() - 1)
+            lr_p = neg_lr if neg_lr.dim() == 0 else neg_lr.view(lane)
+            m_new = b1 * m + (1 - b1) * g
+            v_new = b2 * v + (1 - b2) * g * g
+            p_new = p + lr_p * m_new / (torch.sqrt(v_new) + self.eps)
+            if keep_lanes is not None:
+                keep = keep_lanes.view(lane)
+                m_new = torch.where(keep, m_new, m)
+                v_new = torch.where(keep, v_new, v)
+                p_new = torch.where(keep, p_new, p)
+            m.copy_(m_new)
+            v.copy_(v_new)
+            p.copy_(p_new)
 
 
 class InferenceResult(NamedTuple):
+    """One fit, or with lanes one entry per lane along a leading axis."""
+
     params: mm.CloneAlignParams
-    elbo_trace: np.ndarray     # (max_iter + 1,), NaN-padded after convergence
-    n_iters: int
-    final_elbo: float          # mean of the final stochastic evaluations
-    sd_final_elbo: float       # ddof=1 sd of those evaluations
-    loop_seconds: float        # wall time of the Adam loop alone
+    elbo_trace: np.ndarray     # ([R,] max_iter + 1), NaN-padded after convergence
+    n_iters: object            # int, or (R,) int array
+    final_elbo: object         # mean of the final stochastic evaluations
+    sd_final_elbo: object      # ddof=1 sd of those evaluations
+    loop_seconds: float        # wall time of the Adam loop alone (shared by lanes)
+
+
+def stack_lanes(params_list) -> mm.CloneAlignParams:
+    """Parameters of R fits as one set with a leading lane axis."""
+    return mm.CloneAlignParams(*[mm.stack_lanes(ts) for ts in zip(*[p.tensors() for p in params_list])])
+
+
+def lane_result(result: InferenceResult, r: int) -> InferenceResult:
+    """Lane ``r`` of a lane-batched result, as a single fit's result."""
+    return InferenceResult(
+        params=mm.CloneAlignParams(*[t[r] for t in result.params.tensors()]),
+        elbo_trace=result.elbo_trace[r],
+        n_iters=int(result.n_iters[r]),
+        final_elbo=float(result.final_elbo[r]),
+        sd_final_elbo=float(result.sd_final_elbo[r]),
+        loop_seconds=result.loop_seconds,
+    )
 
 
 def run_inference(
@@ -62,83 +111,127 @@ def run_inference(
     noise,
     config: mm.ModelConfig,
     *,
+    initial_shrink: float = 5.0,
+    **kwargs,
+) -> InferenceResult:
+    """One fit: the one-lane case of :func:`run_inference_lanes`, which
+    documents the loop and the keywords."""
+    result = run_inference_lanes(
+        stack_lanes([params]), data, [noise], config,
+        initial_shrinks=[initial_shrink], **kwargs,
+    )
+    return lane_result(result, 0)
+
+
+def run_inference_lanes(
+    params: mm.CloneAlignParams,
+    data: mm.ModelData,
+    noises,
+    config: mm.ModelConfig,
+    *,
+    initial_shrinks,
     max_iter: int = 100,
     rel_tol: float = 1e-5,
     learning_rate: float = 0.1,
-    initial_shrink: float = 5.0,
     window_size: int = 10,
     n_final_elbo_samples: int = 20,
     elbo_eval: str = "fresh",
     progress: bool = False,
 ) -> InferenceResult:
-    """Fit by reparametrization-gradient VI, drawing every sample from
-    ``noise`` (see ``utils/noise.py``).
+    """Fit R lanes by reparametrization-gradient VI: ``params`` carry a
+    leading lane axis, lane r starts from ``initial_shrinks[r]`` and draws
+    every sample from ``noises[r]`` (see ``utils/noise.py``).
 
     Loop semantics mirror the reference: likelihood-based gamma warm start
     (scaled by ``initial_shrink``/5); each iteration takes one Adam step on
     -ELBO with a fresh sample, then re-evaluates the ELBO with another fresh
-    sample; it stops when the mean |relative ELBO change| over the last
-    ``window_size`` iterations drops below ``rel_tol``.
+    sample; a lane stops when the mean |relative ELBO change| over its last
+    ``window_size`` iterations drops below ``rel_tol``, or at ``max_iter``.
+
+    A stopped lane freezes (reference infer.py:154-194): it keeps its
+    parameters, Adam moments and step count, window, trace and last ELBO,
+    draws no noise and launches no kernel, so each lane equals the same lane
+    run alone and its final draws are that run's. Adam, the window, the
+    trace and the ELBO's O(N·C) terms run batched over the live lanes; every
+    sum stays within a lane, so a diverged lane's NaN reaches no other lane.
 
     ``elbo_eval="reuse"`` monitors the value already computed for the
     gradient (pre-update, training sample) instead of a second forward pass.
+    When training used z_cheb, the final ELBO is evaluated through the
+    exact normalizer (reference infer.py:219-223).
     """
     if elbo_eval not in ("fresh", "reuse"):
         raise ValueError(f"elbo_eval must be 'fresh' or 'reuse', got {elbo_eval!r}")
+    R = len(noises)
     dtype, device = params.qmu_loc.dtype, params.qmu_loc.device
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    shape = (config.mc_samples, params.qmu_loc.shape[0])
+    shape = (config.mc_samples, params.qmu_loc.shape[-1])
+    every = np.arange(R)
 
-    def draw(what):
-        return noise.normal(what, shape, dtype, device)
+    def draw(what, lanes):
+        return mm.stack_lanes([noises[r].normal(what, shape, dtype, device) for r in lanes])
 
     with torch.no_grad():
-        warm = mm.gamma_warm_start_logits(params, data, draw("warm"), initial_shrink)
+        shrinks = torch.as_tensor(np.asarray(initial_shrinks, np.float64), dtype=dtype, device=device)
+        warm = mm.gamma_warm_start_logits(params, data, draw("warm", every), shrinks, config)
         params = params.replace(gamma_logits=warm)
-        elbo_val = np_dtype(mm.elbo(params, data, draw("init_eval"), config).item())
+        elbo_val = mm.elbo(params, data, draw("init_eval", every), config).cpu().numpy()
 
     leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
-    params = mm.CloneAlignParams(*leaves)
-    opt = TF1Adam(leaves, learning_rate)
+    opt = TF1Adam(leaves, learning_rate, n_lanes=R)
 
-    trace = np.full(max_iter + 1, np.nan, np_dtype)
-    trace[0] = elbo_val
-    window = np.full(window_size, 1e3, np_dtype)
-    i = 0
+    trace = np.full((R, max_iter + 1), np.nan, np_dtype)
+    trace[:, 0] = elbo_val
+    window = np.full((R, window_size), 1e3, np_dtype)
+    i = np.zeros(R, np.int64)
+
+    def live():
+        return (i < max_iter) & (np.mean(np.abs(window), axis=1) >= rel_tol)
+
+    def lanes_of(tensors, idx):
+        return mm.CloneAlignParams(*(tensors if idx is None else [t[idx] for t in tensors]))
+
+    active = live()
     synchronize(device)
     t0 = time.perf_counter()
-    while i < max_iter and np.mean(np.abs(window)) >= rel_tol:
-        neg_elbo = -mm.elbo(params, data, draw("train"), config)
-        grads = torch.autograd.grad(neg_elbo, leaves, allow_unused=True)
+    while active.any():
+        lanes = np.flatnonzero(active)
+        # all lanes live: no gather, and the step needs no mask
+        idx = None if active.all() else _upload(lanes, device)
+        neg_elbo = -mm.elbo(lanes_of(leaves, idx), data, draw("train", lanes), config)
+        grads = torch.autograd.grad(neg_elbo.sum(), leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        opt.step(leaves, grads)
+        opt.step(leaves, grads, None if idx is None else active)
         if elbo_eval == "fresh":
             with torch.no_grad():
-                elbo_new = mm.elbo(params, data, draw("eval"), config)
+                elbo_new = mm.elbo(lanes_of(leaves, idx), data, draw("eval", lanes), config)
         else:
             elbo_new = -neg_elbo.detach()
-        elbo_new = np_dtype(elbo_new.item())
-        window = np.roll(window, -1)
-        window[-1] = (elbo_new - elbo_val) / np.abs(elbo_val)
-        trace[i + 1] = elbo_new
-        elbo_val = elbo_new
-        i += 1
+        elbo_new = elbo_new.cpu().numpy()  # the iteration's one host sync
+        old = elbo_val[lanes]
+        window[lanes] = np.roll(window[lanes], -1, axis=1)
+        window[lanes, -1] = (elbo_new - old) / np.abs(old)
+        trace[lanes, i[lanes] + 1] = elbo_new
+        elbo_val[lanes] = elbo_new
+        i[lanes] += 1
         if progress:
-            print(
-                f"  VB iter {i:4d}  elbo {float(elbo_new):.4f}  "
-                f"mean|Δ| {float(np.mean(np.abs(window))):.3e}"
-            )
+            change = np.mean(np.abs(window[lanes]), axis=1)
+            for r, e, c in zip(lanes, elbo_new, change):
+                lane = f"lane {r}  " if R > 1 else ""
+                print(f"  {lane}VB iter {i[r]:4d}  elbo {float(e):.4f}  mean|Δ| {float(c):.3e}")
+        active = live()
     synchronize(device)
     loop_seconds = time.perf_counter() - t0
 
+    final_config = config._replace(likelihood_impl="xla") if mm._use_z_cheb(config) else config
     with torch.no_grad():
         params = mm.CloneAlignParams(*[t.detach() for t in leaves])
         finals = torch.stack([
-            mm.elbo(params, data, draw("final"), config)
+            mm.elbo(params, data, draw("final", every), final_config)
             for _ in range(n_final_elbo_samples)
-        ])
-        final_elbo = float(torch.mean(finals))
-        sd_final = float(torch.std(finals, correction=1))
+        ], dim=-1)  # (R, n_final_elbo_samples)
+        final_elbo = torch.mean(finals, dim=-1).cpu().numpy().astype(np.float64)
+        sd_final = torch.std(finals, dim=-1, correction=1).cpu().numpy().astype(np.float64)
 
     return InferenceResult(
         params=params,

@@ -10,9 +10,16 @@ with ``A1[n] = sum_g y_ng (psi W^T)[n,g]``, ``A2[n,s] = sum_g y_ng log mu[s,g]``
 and ``Z[s,c,n] = sum_g mu[s,g] L[g,c] exp(psi W^T)[n,g]``. A1, A2 and Z are
 the contract of the fused-likelihood op (``ops/fused_likelihood.py``): on
 CUDA tensors its hand-written kernels, on CPU tensors its plain versions.
+With ``likelihood_impl="z_cheb"`` (K = 1) log Z comes from a Chebyshev
+expansion in psi instead (:func:`_compute_logZ_cheb`) and A1, A2 from thin
+products with Y; the fused op is not called.
+
+Parameters may carry a leading lane axis R (one lane per restart): every
+function here then returns one value per lane, and the fused op runs once
+per lane (:func:`_likelihood_terms`).
 
 This slice covers the default corner of the reference: no covariates
-(P = 0), a dense count matrix and the exact normalizer.
+(P = 0) and a dense count matrix.
 """
 
 from __future__ import annotations
@@ -93,6 +100,12 @@ class ModelConfig(NamedTuple):
     K: int = 1
     mc_samples: int = 1
     fix_alpha: bool = False
+    # "xla" (and "auto", at this layer) -> the exact normalizer through the
+    # fused-likelihood op; "z_cheb" -> the Chebyshev log-normalizer (K = 1).
+    # The public API resolves "auto" before the config reaches the model
+    # (api._resolve_auto_impl).
+    likelihood_impl: str = "auto"
+    z_degree: int = 16  # Chebyshev degree for likelihood_impl="z_cheb"
 
 
 # ---------------------------------------------------------------------------
@@ -256,39 +269,86 @@ def init_params(
 # ---------------------------------------------------------------------------
 
 def sample_mu_base(params: CloneAlignParams, eps):
-    """Reparametrized base-normal draws from the (S, G) standard normals
+    """Reparametrized base-normal draws from the (..., S, G) standard normals
     ``eps``; mu = softplus(base) (reference R/inference-tflow.R:258-269)."""
-    return params.qmu_loc[None, :] + torch.exp(params.qmu_log_scale)[None, :] * eps
+    return params.qmu_loc[..., None, :] + torch.exp(params.qmu_log_scale)[..., None, :] * eps
 
 
-def _likelihood_terms(params, data, mu_samples, log_mu):
-    """A1 (N,), A2 (N, S) or None, and log Z as (S, C, N), through the
-    fused-likelihood op."""
-    S, G = mu_samples.shape
+def stack_lanes(tensors):
+    """One tensor with a leading lane axis from the lanes' tensors (a view
+    for a single lane, which saves the copy)."""
+    return tensors[0].unsqueeze(0) if len(tensors) == 1 else torch.stack(tensors)
+
+
+def _y_times(Y, B):
+    """``Y @ B`` for B of shape (..., G, J), as (..., N, J): one product with
+    Y serves every lane."""
+    G, J = B.shape[-2:]
+    lead = B.shape[:-2]
+    out = Y @ B.movedim(-2, 0).reshape(G, -1)  # (N, prod(lead) * J)
+    return out.reshape(Y.shape[0], *lead, J).movedim(0, -2)
+
+
+def _a_terms(params, data, log_mu):
+    """A1 (..., N) and A2 (..., N, S) or None as products with Y in full
+    float32 (reference models/multinomial.py:1271-1279): the z_cheb path's,
+    where the fused op is not called."""
+    with full_fp32_matmul():
+        A1 = torch.sum(params.psi * _y_times(data.Y, params.W), dim=-1)
+        A2 = None if log_mu is None else _y_times(data.Y, log_mu.mT)
+    return A1, A2
+
+
+def _likelihood_terms(params, data, mu_samples, log_mu, config=None):
+    """A1 (..., N), A2 (..., N, S) or None, and log Z as (..., S, C, N)
+    (the reference's ``_compute_logZ`` with the A terms beside it).
+
+    Exact: through the fused-likelihood op, once per lane when the
+    parameters carry a lane axis (the op's kernels take one lane). z_cheb:
+    :func:`_compute_logZ_cheb` and :func:`_a_terms`.
+    """
+    if _use_z_cheb(config):
+        A1, A2 = _a_terms(params, data, log_mu)
+        return A1, A2, _compute_logZ_cheb(params, data, mu_samples, config.z_degree)
+    S, G = mu_samples.shape[-2:]
     N, C = data.Y.shape[0], data.L.shape[1]
-    muL = (mu_samples[:, :, None] * data.L[None, :, :]).permute(1, 0, 2).reshape(G, S * C)
-    A1, A2, Z = fused_likelihood_terms(data.Y, params.psi, params.W, log_mu, muL)
-    logZ = torch.log(Z).reshape(N, S, C).permute(1, 2, 0)
+    lead = mu_samples.shape[:-2]
+    muL = (mu_samples[..., :, :, None] * data.L).transpose(-3, -2).reshape(*lead, G, S * C)
+    if not lead:
+        A1, A2, Z = fused_likelihood_terms(data.Y, params.psi, params.W, log_mu, muL)
+    else:
+        log_mus = [None] * lead[0] if log_mu is None else log_mu.unbind(0)
+        lanes = [
+            fused_likelihood_terms(data.Y, psi, W, lm, m)
+            for psi, W, lm, m in zip(params.psi.unbind(0), params.W.unbind(0), log_mus,
+                                     muL.unbind(0))
+        ]
+        A1 = stack_lanes([a1 for a1, _, _ in lanes])
+        A2 = None if log_mu is None else stack_lanes([a2 for _, a2, _ in lanes])
+        Z = stack_lanes([z for _, _, z in lanes])
+    logZ = torch.log(Z).reshape(*lead, N, S, C).movedim(-3, -1)
     return A1, A2, logZ
 
 
-def log_p_y_on_c(params: CloneAlignParams, data: ModelData, mu_base):
-    """(S, C, N) expression log-likelihood, decomposed form (module docstring)."""
+def log_p_y_on_c(params: CloneAlignParams, data: ModelData, mu_base, config=None):
+    """(..., S, C, N) expression log-likelihood, decomposed form (module
+    docstring)."""
     mu_samples = softplus(mu_base)
     log_mu = torch.log(mu_samples)
-    A1, A2, logZ = _likelihood_terms(params, data, mu_samples, log_mu)
+    A1, A2, logZ = _likelihood_terms(params, data, mu_samples, log_mu, config)
     return (
-        data.log_binom[None, None, :]
-        + A1[None, None, :]
-        + A2.T[:, None, :]
-        + data.YlogL.T[None, :, :]
-        - data.s[None, None, :] * logZ
+        data.log_binom
+        + A1[..., None, None, :]
+        + A2.mT[..., :, None, :]
+        + data.YlogL.T
+        - data.s * logZ
     )
 
 
 def elbo(params: CloneAlignParams, data: ModelData, eps, config: ModelConfig):
     """The evidence lower bound (reference R/inference-tflow.R:298-336) at the
-    mu sample made from the (S, G) standard normals ``eps``.
+    mu sample made from the (..., S, G) standard normals ``eps``; one value
+    per lane.
 
     Reproduces the reference's objective with its quirks: the mu prior is
     Normal(0,1) on log(mu) without a Jacobian, and the Dirichlet prior is
@@ -305,53 +365,54 @@ def elbo(params: CloneAlignParams, data: ModelData, eps, config: ModelConfig):
     mu_base = sample_mu_base(params, eps)
     mu_samples = softplus(mu_base)
     log_mu = torch.log(mu_samples)
+    cells = (-2, -1)  # the (N, C) / (G, K) axes a lane's sums run over
 
-    A1, _, logZ = _likelihood_terms(params, data, mu_samples, None)
-    A2_sum = torch.dot(data.colsum_Y, torch.sum(log_mu, dim=0)) / S
-    const_sum = torch.sum(data.log_binom) + torch.sum(A1) + A2_sum
+    A1, _, logZ = _likelihood_terms(params, data, mu_samples, None, config)
+    A2_sum = torch.sum(data.colsum_Y * torch.sum(log_mu, dim=-2), dim=-1) / S
+    const_sum = torch.sum(data.log_binom) + torch.sum(A1, dim=-1) + A2_sum
 
-    clone_ll = data.YlogL.T[None, :, :] - data.s[None, None, :] * logZ  # (S, C, N)
-    gamma = torch.softmax(params.gamma_logits, dim=1)
-    log_gamma = torch.log_softmax(params.gamma_logits, dim=1)
+    clone_ll = data.YlogL.T - data.s * logZ  # (..., S, C, N)
+    gamma = torch.softmax(params.gamma_logits, dim=-1)
+    log_gamma = torch.log_softmax(params.gamma_logits, dim=-1)
 
-    E_clone_ll = torch.mean(clone_ll, dim=0)  # (C, N)
+    E_clone_ll = torch.mean(clone_ll, dim=-3)  # (..., C, N)
     # xlogy-style guard: a clone with zero copy number at an expressed gene
     # has log-lik -inf and responsibility exactly 0; 0 * -inf must give 0.
     # The -inf is masked before the multiply so the backward pass never
     # sees 0 * inf either.
-    safe_ll = torch.where(gamma == 0, 0.0, E_clone_ll.T)
-    EE_p_y = torch.sum(gamma * safe_ll) + const_sum
+    safe_ll = torch.where(gamma == 0, 0.0, E_clone_ll.mT)
+    EE_p_y = torch.sum(gamma * safe_ll, dim=cells) + const_sum
 
     if config.fix_alpha:
-        log_alpha = torch.log_softmax(torch.zeros_like(params.alpha_unconstr), dim=0)
+        log_alpha = torch.log_softmax(torch.zeros_like(params.alpha_unconstr), dim=-1)
     else:
-        log_alpha = torch.log_softmax(params.alpha_unconstr, dim=0)
+        log_alpha = torch.log_softmax(params.alpha_unconstr, dim=-1)
 
-    C = log_alpha.shape[0]
+    C = log_alpha.shape[-1]
     dir_conc = 1.0 / C
     dir_x = torch.exp(log_alpha) + 1e-3
-    dirichlet_lp = torch.sum((dir_conc - 1.0) * torch.log(dir_x)) - C * math.lgamma(dir_conc)
+    dirichlet_lp = torch.sum((dir_conc - 1.0) * torch.log(dir_x), dim=-1) - C * math.lgamma(dir_conc)
     E_log_p_p = (
-        torch.sum(log_alpha[None, :] * gamma)
-        + torch.sum(_normal_log_prob(log_mu)) / S
+        torch.sum(log_alpha[..., None, :] * gamma, dim=cells)
+        + torch.sum(_normal_log_prob(log_mu), dim=cells) / S
         + dirichlet_lp
     )
 
     if config.K > 0:
         chi = torch.exp(params.chi_unconstr)
         w_scale = torch.sqrt(1.0 / chi)
-        W_lp = torch.sum(_normal_log_prob(params.W, 0.0, w_scale[None, :]))
-        chi_lp = torch.sum(torch.log(chi) - chi)  # Gamma(2, 1)
-        psi_lp = torch.sum(_normal_log_prob(params.psi))
+        W_lp = torch.sum(_normal_log_prob(params.W, 0.0, w_scale[..., None, :]), dim=cells)
+        chi_lp = torch.sum(torch.log(chi) - chi, dim=-1)  # Gamma(2, 1)
+        psi_lp = torch.sum(_normal_log_prob(params.psi), dim=cells)
         E_log_p_p = E_log_p_p + W_lp + chi_lp + psi_lp
 
     # E_q[log q]: the qmu log-prob changes variables through the softplus
     # bijector, log q(mu) = N(y; loc, scale) - log sigmoid(y).
     scale = torch.exp(params.qmu_log_scale)
-    qmu_lp = _normal_log_prob(mu_base, params.qmu_loc[None, :], scale[None, :])
+    qmu_lp = _normal_log_prob(mu_base, params.qmu_loc[..., None, :], scale[..., None, :])
     qmu_lp = qmu_lp - torch.nn.functional.logsigmoid(mu_base)
-    gamma_entropy_term = torch.sum(torch.where(gamma == 0, 0.0, gamma * log_gamma))
-    E_log_q = torch.sum(torch.mean(qmu_lp, dim=0)) + gamma_entropy_term
+    gamma_entropy_term = torch.sum(torch.where(gamma == 0, 0.0, gamma * log_gamma), dim=cells)
+    E_log_q = torch.sum(torch.mean(qmu_lp, dim=-2), dim=-1) + gamma_entropy_term
 
     return EE_p_y + E_log_p_p - E_log_q
 
@@ -360,20 +421,150 @@ def gamma_warm_start_logits(
     params: CloneAlignParams,
     data: ModelData,
     eps,
-    initial_shrink: float = 5.0,
+    initial_shrink=5.0,
+    config=None,
 ):
     """Likelihood-based responsibility warm start
     (reference R/inference-tflow.R:338-342,367-369), at the mu sample made
-    from the (S, G) standard normals ``eps``. Logits are scaled by
+    from the (..., S, G) standard normals ``eps``. Logits are scaled by
     ``initial_shrink``/5: 0 = uniform, 5 = the reference's behaviour,
-    10 = sharper."""
-    p_y = log_p_y_on_c(params, data, sample_mu_base(params, eps))  # (S, C, N)
+    10 = sharper; with a lane axis ``initial_shrink`` may be an (R,) tensor,
+    one shrink per lane."""
+    p_y = log_p_y_on_c(params, data, sample_mu_base(params, eps), config)  # (..., S, C, N)
     # SUM over MC samples, as the reference's tf$reduce_sum(p_y_on_c, axis=0)
-    g = torch.sum(p_y, dim=0)  # (C, N)
+    g = torch.sum(p_y, dim=-3)  # (..., C, N)
     impossible = torch.isneginf(g)  # zero-CN clone at an expressed gene
-    g = g - torch.logsumexp(g, dim=0, keepdim=True)
+    g = g - torch.logsumexp(g, dim=-2, keepdim=True)
+    if torch.is_tensor(initial_shrink):
+        initial_shrink = initial_shrink[..., None, None]
     logits = (initial_shrink / 5.0) * torch.clamp_min(g, -1e30)
     # impossible clones stay impossible at any shrink: their logit is pinned
     # at a finite value whose softmax underflows to exactly 0
     logits = torch.where(impossible, -1e30, logits)
-    return logits.T  # (N, C)
+    return logits.mT  # (..., N, C)
+
+
+# ---------------------------------------------------------------------------
+# Chebyshev log-normalizer (likelihood_impl="z_cheb")
+# ---------------------------------------------------------------------------
+
+def _clenshaw(coef, x):
+    """sum_j coef[..., j] T_j(x_n) by the Clenshaw recurrence.
+
+    coef: (..., S, C, D+1), x: (..., N) in [-1, 1] -> (..., S, C, N).
+    """
+    D = coef.shape[-1] - 1
+    xb = x[..., None, None, :]
+    two_x = 2.0 * xb
+    b1 = torch.zeros(coef.shape[:-1] + x.shape[-1:], dtype=x.dtype, device=x.device)
+    b2 = b1
+    for j in range(D, 0, -1):
+        b1, b2 = two_x * b1 - b2 + coef[..., j : j + 1], b1
+    return xb * b1 - b2 + coef[..., 0:1]
+
+
+class _ChebEval(torch.autograd.Function):
+    """Chebyshev-series evaluation with an analytic, residual-free backward
+    (reference models/multinomial.py:1110-1164): it saves only ``coef`` and
+    ``x``, not the D Clenshaw carries autograd would keep.
+
+    * d/dx differentiates the Clenshaw recurrence itself, carrying (b, b')
+      pairs;
+    * d/dcoef[..., j] = sum_n cot[..., n] T_j(x_n), one thin product with the
+      Chebyshev-Vandermonde columns, rebuilt by the T_j recurrence.
+    """
+
+    @staticmethod
+    def forward(ctx, coef, x):
+        ctx.save_for_backward(coef, x)
+        return _clenshaw(coef, x)
+
+    @staticmethod
+    def backward(ctx, cot):
+        coef, x = ctx.saved_tensors
+        D = coef.shape[-1] - 1
+        xb = x[..., None, None, :]
+        two_x = 2.0 * xb
+        zero = torch.zeros_like(cot)
+        b1, b2, db1, db2 = zero, zero, zero, zero
+        for j in range(D, 0, -1):
+            b1, b2, db1, db2 = (
+                two_x * b1 - b2 + coef[..., j : j + 1],
+                b1,
+                2.0 * b1 + two_x * db1 - db2,
+                db1,
+            )
+        # p = x b1 - b2 + c0  =>  dp/dx = b1 + x b1' - b2'
+        dpdx = b1 + xb * db1 - db2  # (..., S, C, N)
+        dx = torch.sum(cot * dpdx, dim=(-3, -2))  # (..., N)
+
+        cols = [torch.ones_like(x), x]
+        for _ in range(2, D + 1):
+            cols.append(2.0 * x * cols[-1] - cols[-2])
+        V = torch.stack(cols[: D + 1], dim=-1)  # (..., N, D+1)
+        # full precision: the contraction feeds the optimizer's coefficient
+        # gradients directly
+        with full_fp32_matmul():
+            dcoef = cot @ V[..., None, :, :]  # (..., S, C, D+1)
+        return dcoef, dx
+
+
+def cheb_eval(coef, x):
+    """Evaluate the Chebyshev series ``coef`` (..., S, C, D+1) at ``x``
+    (..., N) in [-1, 1], differentiably in both (see :class:`_ChebEval`)."""
+    return _ChebEval.apply(coef, x)
+
+
+def _compute_logZ_cheb(params: CloneAlignParams, data: ModelData, mu_samples, degree: int):
+    """log Z[..., s, c, n] for K=1 by a Chebyshev expansion over psi
+    (reference models/multinomial.py:1167-1222).
+
+    With one latent dimension the normalizer is a smooth function of each
+    cell's scalar psi, ``Z_c(t) = sum_g mu_sg L_gc exp(w_g t)``, so a
+    degree-D Chebyshev polynomial is fitted to log Z_c over [min psi, max psi]
+    (O(G x D) exps and two small products) and evaluated per cell by the
+    Clenshaw recurrence, instead of the O(N x G) exps of the exact path.
+    Gradients flow through the node table (mu, W, L) and the recurrence
+    (psi); the expansion range is detached, like a constant grid.
+    """
+    dt = params.psi.dtype
+    w = params.W[..., 0]      # (..., G)
+    psi = params.psi[..., 0]  # (..., N)
+    mL = mu_samples[..., :, None, :] * data.L.T  # (..., S, C, G)
+
+    t_min = torch.amin(psi, dim=-1).detach()
+    t_max = torch.amax(psi, dim=-1).detach()
+    mid = 0.5 * (t_min + t_max)
+    half = torch.clamp_min(0.5 * (t_max - t_min), 1e-6)
+
+    k = torch.arange(degree + 1, dtype=dt, device=psi.device)
+    theta = math.pi * (k + 0.5) / (degree + 1)
+    tk = mid[..., None] + half[..., None] * torch.cos(theta)  # (..., D+1) Chebyshev nodes
+    expw = torch.exp(w[..., :, None] * tk[..., None, :])       # (..., G, D+1)
+    # The table build is tiny (G x D + D^2 products) and runs in full
+    # float32: rounded node values (|log Z| ~ 10) would annihilate the small
+    # high-order coefficients the transform's cancellation produces.
+    with full_fp32_matmul():
+        Zk = mL @ expw[..., None, :, :]  # (..., S, C, D+1)
+        fk = torch.log(Zk)
+        # center: the transform then cancels O(spread)~1 values, not O(10)
+        f0 = torch.mean(fk, dim=-1, keepdim=True)
+        M = torch.cos(k[:, None] * theta[None, :])  # (D+1, D+1)
+        coef = (2.0 / (degree + 1)) * ((fk - f0) @ M.T)
+    coef = torch.cat([0.5 * coef[..., :1] + f0, coef[..., 1:]], dim=-1)
+
+    x = (psi - mid[..., None]) / half[..., None]  # (..., N)
+    return cheb_eval(coef, x)  # (..., S, C, N)
+
+
+def _use_z_cheb(config) -> bool:
+    """Whether ``config`` selects the Chebyshev normalizer; raises where it
+    cannot apply (reference models/multinomial.py:1225-1233)."""
+    if config is None or config.likelihood_impl != "z_cheb":
+        return False
+    if config.K != 1:
+        raise ValueError(
+            "likelihood_impl='z_cheb' requires K=1 and no covariates "
+            f"(got K={config.K}, P=0); use the default backend"
+        )
+    return True

@@ -1,25 +1,70 @@
 """Multi-restart sweep (reference R/clonealign.R:35-75), counterpart of
 ``clonealign_tpu/restarts.py``.
 
-The restarts run one after another on the device ("map" batching in the JAX
-package), each exactly the single-fit path. The deterministic init passes —
-the PCA scores and the mu guess — run once and are shared by every lane;
-only the psi jitter and the Monte Carlo draws differ between restarts, as
-in the reference.
+The restarts run either as lanes of one batched loop ("vmap",
+:func:`clonealign_torch.infer.run_inference_lanes`: one host sync per
+iteration for every lane, a converged lane freezes while the rest go on) or
+one after another ("map", each exactly the single-fit path). The
+deterministic init passes — the PCA scores and the mu guess — run once and
+are shared by every lane; only the psi jitter and the Monte Carlo draws
+differ between restarts, as in the reference.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import assign as _assign
-from .api import _not_ported, _package_fit, setup_fit
-from .infer import run_inference
+from .api import _check_reference_keywords, _not_ported, _package_fit, setup_fit
+from .infer import lane_result, run_inference, run_inference_lanes, stack_lanes
 from .models import multinomial as mm
+from .utils.device import synchronize
 from .utils.noise import Noise
+
+# Bytes the lane-batched sweep may plan to hold on the device: half the
+# 80 GB of one NVIDIA H100 80GB HBM3 (700 W), the card the port is built for,
+# leaving the rest to the caching allocator's slack, the CUDA context and
+# the kernels' per-call scratch. The CPU path is held to the same budget.
+SWEEP_BUDGET_BYTES = 40 * 10**9
+
+
+def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type) -> int:
+    """The lane-batched sweep's working set, reckoned from the code.
+
+    Shared by every lane: Y (N x G). On the CPU the fused op's plain version
+    also holds about three N x G temporaries (log_rfe, rfe and dlog_rfe in
+    its backward); the lane loop in ``models/multinomial._likelihood_terms``
+    runs it one lane at a time, so they are held once, not per lane. On
+    CUDA the kernels store no N x G tensor.
+
+    Per live lane: the parameters P = N (K + C) + G (K + 2) + K + C; their
+    gradients, the two Adam moments and the step's three candidates
+    (``TF1Adam.step``), 7 P in all; and the (S, C, N)-sized tensors the
+    ELBO keeps for its backward (Z, log Z, the clone log-likelihoods, their
+    mean, gamma, log gamma and the masked products), counted as 16 N S C,
+    with the fused op's YW and A1 (N K + N). A z_cheb lane holds the same
+    order: its Clenshaw backward recomputes the carries ((S, C, N) each)
+    instead of saving them.
+    """
+    shared = N * G * (1 if device_type == "cuda" else 4)
+    P = N * (K + C) + G * (K + 2) + K + C
+    per_lane = 7 * P + 16 * N * S * C + N * (K + 1)
+    return itemsize * (shared + n_lanes * per_lane)
+
+
+def _auto_restart_batching(N, G, C, K, S, n_lanes, itemsize, device_type) -> str:
+    """"vmap" when the lane-batched sweep's working set (:func:`_sweep_bytes`)
+    fits :data:`SWEEP_BUDGET_BYTES`, else "map", which holds one lane at a
+    time. At 100,000 x 5,000 x 10 (K = 1, S = 1, float32) a lane adds about
+    96 MB to Y's 2 GB, so "vmap" takes up to 395 lanes there. (The JAX
+    package's 6e9 lane-elements cutover was measured on a 16 GB TPU v5e and
+    does not carry over.)"""
+    need = _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type)
+    return "vmap" if need <= SWEEP_BUDGET_BYTES else "map"
 
 
 def run_clonealign(
@@ -33,12 +78,16 @@ def run_clonealign(
     learning_rate: float = 0.1,
     clone_call_probability: float = 0.95,
     seed: Optional[int] = None,
+    key=None,
     elbo_eval: str = "fresh",
     mesh=None,
     restart_batching: str = "auto",
+    loop_impl: str = "while",
+    unroll: int = 1,
+    remat="auto",
     multirun_correlations: bool = True,
     *,
-    device,
+    device="cuda",
     **kwargs,
 ):
     """Sweep restarts, return the max-ELBO fit with ``multirun_info`` attached
@@ -46,25 +95,39 @@ def run_clonealign(
     (same names as :func:`clonealign_torch.clonealign`).
 
     Restart r draws from ``Noise(seed + r)``, so a one-restart sweep is the
-    single fit with the same seed. ``restart_batching`` "auto" and "map" run
-    the restarts in sequence.
+    single fit with the same seed. ``restart_batching``: "vmap" runs the
+    restarts as lanes of one batched loop, "map" one after another (memory of
+    one fit), "auto" picks "vmap" when the sweep's working set fits the
+    card (:func:`_auto_restart_batching`). Both give each lane the same
+    iterations, launches and results; in float32 on CUDA the batched
+    reductions may round differently. ``loop_impl``, ``unroll`` and
+    ``remat`` are the JAX package's compilation controls: accepted, with no
+    effect here. ``key`` is refused: pass ``seed``.
     """
+    _check_reference_keywords(key, loop_impl)
     if mesh is not None:
         raise _not_ported("mesh sharding", "distributed")
-    if restart_batching == "vmap":
-        raise _not_ported("restart_batching='vmap'", "R-batched restarts")
-    if restart_batching not in ("auto", "map"):
+    if restart_batching not in ("auto", "map", "vmap"):
         raise ValueError(
             f"restart_batching must be 'auto', 'map' or 'vmap', got {restart_batching!r}"
         )
     verbose = kwargs.get("verbose", True)
+    t0 = time.perf_counter()
     ctx = setup_fit(gene_expression_data, copy_number_data, device=device, **kwargs)
     config, data = ctx.config, ctx.data
+    synchronize(ctx.device)
+    t1 = time.perf_counter()
 
     shrinks = np.asarray(
         [s for s in initial_shrinks for _ in range(n_repeats)], np.float64
     )
     R = len(shrinks)
+    if restart_batching == "auto":
+        (N, G), C = data.Y.shape, data.L.shape[1]
+        restart_batching = _auto_restart_batching(
+            N, G, C, config.K, config.mc_samples, R,
+            torch.finfo(ctx.dtype).bits // 8, ctx.device.type,
+        )
     base = 0 if seed is None else int(seed)
     noises = [Noise(base + r, ctx.device) for r in range(R)]
 
@@ -75,18 +138,30 @@ def run_clonealign(
     if ctx.data_init_mu is True:
         shared_mu = mm.data_mu_guess(data.Y, ctx.dtype)
 
-    results = []
-    for noise, shrink in zip(noises, shrinks):
-        params0 = mm.init_params(
+    params0 = [
+        mm.init_params(
             data.Y, data.L, noise, K=config.K, data_init_mu=ctx.data_init_mu,
             dtype=ctx.dtype, pca_scores=shared_pca, mu_guess=shared_mu,
         )
-        results.append(run_inference(
-            params0, data, noise, config,
-            max_iter=int(max_iter), rel_tol=float(rel_tol),
-            learning_rate=float(learning_rate), initial_shrink=float(shrink),
-            elbo_eval=elbo_eval,
-        ))
+        for noise in noises
+    ]
+    synchronize(ctx.device)
+    t2 = time.perf_counter()
+
+    loop = dict(max_iter=int(max_iter), rel_tol=float(rel_tol),
+                learning_rate=float(learning_rate), elbo_eval=elbo_eval)
+    if restart_batching == "vmap":
+        lanes = run_inference_lanes(stack_lanes(params0), data, noises, config,
+                                    initial_shrinks=shrinks, **loop)
+        results = [lane_result(lanes, r) for r in range(R)]
+        loop_seconds = lanes.loop_seconds
+    else:
+        results = [
+            run_inference(p, data, noise, config, initial_shrink=float(shrink), **loop)
+            for p, noise, shrink in zip(params0, noises, shrinks)
+        ]
+        loop_seconds = sum(r.loop_seconds for r in results)
+    t3 = time.perf_counter()
 
     final_elbos = np.asarray([r.final_elbo for r in results], np.float64)
     if print_elbos and verbose:
@@ -141,5 +216,13 @@ def run_clonealign(
         "median_correlations": np.asarray(median_correlations),
         "initial_shrinks": shrinks,
         "best_run": best,
+    }
+    fit.timings = {
+        "setup": t1 - t0,
+        "init": t2 - t1,
+        "inference": t3 - t2,
+        "loop": loop_seconds,
+        "package": time.perf_counter() - t3,
+        "iterations": [r.n_iters for r in results],
     }
     return fit

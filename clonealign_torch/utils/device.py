@@ -1,8 +1,8 @@
 """Device selection and the float32 matmul precision policy.
 
-Every public entry point of the port takes an explicit ``device``. There is
-no automatic choice: ``"cuda"`` on a machine without a usable GPU raises
-instead of running on the CPU.
+The public entry points of the port take ``device="cuda"`` by default and
+``"cpu"`` when asked. There is no automatic choice: ``"cuda"`` on a machine
+without a usable GPU raises instead of running on the CPU.
 
 Precision policy (the counterpart of the per-contraction policy in
 ``clonealign_tpu/models/multinomial.py``): on an NVIDIA card a float32

@@ -163,11 +163,21 @@ def test_run_clonealign_picks_best_lane():
     np.testing.assert_array_equal(info["initial_shrinks"], [0.0, 5.0, 10.0])
     assert fit.convergence_info.final_elbo == info["elbos"][info["best_run"]]
     assert all(sum(p.values()) == Y.shape[0] for p in info["clone_prevalences_at_different_shrinks"])
-    # lane 0 of a sweep is the single fit with the same seed
+    # lane 0 of a sweep is the single fit with the same seed: exactly so in
+    # sequence, and to float64 rounding as a lane of the batched loop
     one = ct.run_clonealign(Y, L, initial_shrinks=(5,), n_repeats=1, max_iter=20, seed=3,
-                            device="cpu", print_elbos=False, verbose=False)
+                            device="cpu", print_elbos=False, verbose=False,
+                            restart_batching="map")
     single = ct.clonealign(Y, L, max_iter=20, seed=3, device="cpu", verbose=False)
     assert one.convergence_info.final_elbo == single.convergence_info.final_elbo
+    lanes = ct.run_clonealign(Y, L, initial_shrinks=(5, 0), n_repeats=1, max_iter=20, seed=3,
+                              device="cpu", print_elbos=False, verbose=False,
+                              restart_batching="vmap", dtype="float64")
+    single = ct.clonealign(Y, L, max_iter=20, seed=3, device="cpu", verbose=False,
+                           dtype="float64")
+    np.testing.assert_allclose(lanes.multirun_info["elbos"][0],
+                               single.convergence_info.final_elbo, rtol=1e-12)
+    assert lanes.timings["iterations"][0] == single.convergence_info.n_iters
 
 
 def test_multirun_calls_match_host_assignment():
@@ -226,15 +236,20 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
         ct.clonealign(Y, L, device="cuda", verbose=False)
     with pytest.raises(ValueError, match="explicitly"):
         resolve_device(None)
+    # the entry points default to the card, and do not fall back to the CPU
+    with pytest.raises(RuntimeError, match="cuda"):
+        ct.clonealign(Y, L, verbose=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ct.run_clonealign(Y, L, verbose=False)
 
 
 @pytest.mark.parametrize("option", [
     dict(x=np.zeros((60, 1))),
     dict(clone_allele=np.zeros((2, 3)), cov=np.zeros((2, 60)), ref=np.zeros((2, 60))),
-    dict(likelihood_impl="z_cheb"),
+    dict(y_storage="int16"),
     dict(y_storage="int8"),
     dict(sparse=True),
-    dict(restart_batching="vmap"),
+    dict(y_storage="bfloat16"),
     dict(mesh=object()),
 ])
 def test_options_outside_the_slice_raise(option):
@@ -243,7 +258,7 @@ def test_options_outside_the_slice_raise(option):
     if option.pop("sparse", False):
         sp = pytest.importorskip("scipy.sparse")
         Y = sp.csr_matrix(Y)
-    if "restart_batching" in option or "mesh" in option:
+    if "mesh" in option:
         call = ct.run_clonealign
     else:
         call = ct.clonealign
@@ -254,3 +269,57 @@ def test_options_outside_the_slice_raise(option):
 def test_float64_on_cuda_is_refused():
     with pytest.raises(NotImplementedError, match="float32"):
         resolve_dtype("float64", torch.device("cuda"))
+
+
+def test_reference_keywords():
+    Y, L = _toy()
+    kw = dict(max_iter=3, seed=1, device="cpu", verbose=False)
+    ref = ct.clonealign(Y, L, **kw)
+    for extra in (dict(loop_impl="scan"), dict(unroll=4), dict(remat=False)):
+        got = ct.clonealign(Y, L, **kw, **extra)
+        assert got.convergence_info.final_elbo == ref.convergence_info.final_elbo
+    sweep = dict(kw, initial_shrinks=(5,), n_repeats=1, print_elbos=False)
+    got = ct.run_clonealign(Y, L, loop_impl="scan", unroll=2, remat=True, **sweep)
+    assert got.convergence_info.final_elbo == ref.convergence_info.final_elbo
+    for call, extra in ((ct.clonealign, kw), (ct.run_clonealign, sweep)):
+        with pytest.raises(ValueError, match="seed"):
+            call(Y, L, key=object(), **extra)
+        with pytest.raises(ValueError, match="loop_impl"):
+            call(Y, L, loop_impl="for", **extra)
+
+
+@pytest.mark.parametrize("K,S,C,refused", [
+    (5, 1, 3, True), (1, 5, 3, True), (1, 2, 17, True), (1, 1, 33, True),
+    (4, 4, 8, False), (0, 1, 32, False),
+])
+def test_wide_kernel_contract_is_refused_at_setup_on_cuda(monkeypatch, K, S, C, refused):
+    tapi._check_kernel_contract(torch.device("cpu"), K, S, C)  # the CPU takes any width
+    if not refused:
+        tapi._check_kernel_contract(torch.device("cuda"), K, S, C)
+        return
+    with pytest.raises(NotImplementedError, match="wide kernel contract"):
+        tapi._check_kernel_contract(torch.device("cuda"), K, S, C)
+    # setup_fit refuses before any data reaches the card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    Y, L = _toy(C=C)
+    with pytest.raises(NotImplementedError, match="wide kernel contract"):
+        tapi.setup_fit(Y, L, K=K, mc_samples=S, device="cuda", verbose=False)
+
+
+def test_golden_example_meets_the_oracle_bar():
+    """The bar tests/test_tpu_hardware.py holds the TPU to on the reference
+    data (example_sce, seed 7, 500 iterations, float32): the final ELBO
+    within max(1e-4 |e64|, 3 sd_final) of the float64 oracle, and labels
+    that differ from the float64 oracle's only where the max probability is
+    within 0.01 of the 0.95 threshold. (The float32 oracle's exact labels
+    need the JAX package's noise stream.)"""
+    oracle = np.load(REPO / "tests" / "golden" / "tpu_parity_oracle.npz")
+    Y, L = _example()
+    fit = ct.clonealign(Y, L, max_iter=500, seed=7, dtype="float32", device="cpu",
+                        verbose=False)
+    e64 = float(oracle["example_elbo64"])
+    ci = fit.convergence_info
+    assert abs(ci.final_elbo - e64) < max(1e-4 * abs(e64), 3.0 * ci.sd_final_elbo)
+    probs = fit.ml_params["clone_probs"]
+    flips = np.flatnonzero(np.asarray(fit.clone) != oracle["example_clone64"])
+    assert all(abs(probs[i].max() - 0.95) < 0.01 for i in flips), flips
