@@ -4,28 +4,36 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the sources in the checkout, holds each
-kernel against its plain PyTorch version on the card (at small ragged shapes
-and at the full width of the main path), then drives the fit at full width —
+It builds the CUDA kernels from the sources in the checkout and holds each
+kernel against its plain PyTorch version on the card: for every Y storage
+type the kernels load (float32, bfloat16, int16, int8) at a ragged shape
+(scalar Y loads) and at one with G % 4 == 0 (vectorized loads), at a wide
+shape, and at the full width of the main path for float32, int16 and int8,
+each timed beside its bound. Then it drives the fit at full width —
 100,000 cells x 5,000 genes x 10 clones, clone-structured counts made on the
 card from a seed — through ``clonealign_torch.clonealign`` under the exact
-likelihood and then, in turns, under the Chebyshev normalizer (z_cheb) and
-the exact one again, printing each fit's ms per iteration; then the
+likelihood with Y stored as float32 and as ``y_storage="auto"`` resolves, in
+turns, each with its launches counted from zero and its peak memory in the
+inference; then, under "auto" storage, the Chebyshev normalizer (z_cheb)
+and the exact one in turns, printing each fit's ms per iteration; the
 full-width sweep of ten restarts through ``run_clonealign`` three ways
 (exact in sequence, exact as lanes of one batched loop, z_cheb as lanes),
-each with its kernel launches counted from zero and checked against its
-lanes' iterations; a small sweep; and the two converged fits of the golden
-oracle (tests/golden/tpu_parity_oracle.npz), each held to that oracle's
-bar. Any failed phase raises and the script exits
-nonzero, as it does when ptxas's report lacks a tensor-core kernel
-instantiation or shows one spilling registers. The last line of standard
-output is a JSON object naming the card; the line before it lists each
-kernel with its launches during the fit, its error against the plain
-version, its time, the plain version's time and its bound (the least time
-the card could take for the same work), the backward's entry also listing
-its two parts (the Y-free dpsi kernel, and the gene-major kernel with its
-packing and reduction kernels), each with its own launches, time, plain
-version's time and bound; the line before that prints those parts' times.
+the lanes also with float32 Y in turns, each with its kernel launches
+counted from zero and checked against its lanes' iterations; a small sweep;
+and the two converged fits of the golden oracle
+(tests/golden/tpu_parity_oracle.npz), each held to that oracle's bar. Any
+failed phase raises and the script exits nonzero, as it does when ptxas's
+report lacks a tensor-core kernel instantiation or shows one spilling
+registers. The last line of standard output is a JSON object naming the
+card; the line before it lists each kernel with its launches during the
+main path's fit, its error against the plain version, its time, the plain
+version's time and its bound (the least time the card could take for the
+same work) at the Y storage "auto" resolves to (``y_storage``), the same
+for each full-width storage (``by_storage``), the backward's entry also
+listing its two parts (the Y-free dpsi kernel, and the gene-major kernel
+with its packing and reduction kernels), each with its own launches, time,
+plain version's time and bound; the line before that prints those parts'
+times.
 """
 
 from __future__ import annotations
@@ -51,8 +59,13 @@ KERNEL_RTOL = 1e-4
 REPO = Path(__file__).resolve().parent
 
 FULL = dict(N=100_000, G=5_000, C=10)     # bench.py's headline configuration
-SMALL = dict(N=37, G=41, C=2)             # ragged: no dimension a multiple of a tile
+SMALL = dict(N=37, G=41, C=2)             # ragged: no dimension a multiple of a tile (scalar Y loads)
+VEC = dict(N=45, G=260, C=4)              # G % 4 == 0: the vectorized Y loads
 WIDE = dict(N=100, G=129, C=10)           # with S=2, Kf=3: S*C = 20, four n-tiles
+# Y storage types the kernels load (ops/fused_likelihood.py's Y_DTYPES), and
+# those timed at full width
+STORAGES = ("float32", "bfloat16", "int16", "int8")
+FULL_STORAGES = ("float32", "int16", "int8")
 SWEEP = dict(N=2_000, G=500, C=4)
 FIT_MAX_ITER = 100
 MIN_ACCURACY = 0.99
@@ -165,59 +178,52 @@ def cuda_ms(fn, reps, batch=10):
     return float(np.median(times))
 
 
-def bound(n_bytes, n_ops):
-    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
-    rate and the operations over the float32 rate."""
-    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * n_ops / FP32_OPS_PER_S
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(y_bytes, vec_floats, exps, mma_flops, fp32_ops):
+    """(ms, "bytes" or "operations", unit): the slowest of the bytes over the
+    HBM rate (Y's y_bytes and vec_floats float32 values, each input read
+    once and each output written once), the exps on the special-function
+    units, the products on tensor cores as three TF32 MMA passes (float32
+    accuracy), and the other float32 operations on CUDA cores."""
+    units = {"bytes": 1e3 * (y_bytes + 4 * vec_floats) / HBM_BYTES_PER_S,
+             "exps": 1e3 * exps / EXP_PER_S,
+             "3xTF32 MMA": 1e3 * 3 * mma_flops / TF32_OPS_PER_S,
+             "float32 operations": 1e3 * fp32_ops / FP32_OPS_PER_S}
+    unit = max(units, key=units.get)
+    return units[unit], "bytes" if unit == "bytes" else "operations", unit
 
 
-def kernel_bounds(N, G, Kf, SC):
+def kernel_bounds(N, G, Kf, SC, y_itemsize):
     """Bounds of the A2-off forward and backward and of the backward's two
-    parts: each float32 input read once, each output written once, and the
-    operations of the formulas (dpsi's and the gene part's on the unit that
-    runs each)."""
-    fwd_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC  # Y, psi, W, muL
-                     + N + N * SC)                      # A1, Z
-    fwd_ops = N * G * (2 * Kf + 1 + 2 + 2 * SC)         # log_rfe, exp, Y log_rfe, Z
-    # dpsi part: psi, W, muL, dA1, dZ, YW in; dpsi out. Its work runs on
-    # three units, so its bound is the slowest of them: the exps on the
-    # special-function units, T's product (rfe W_k) muL as three TF32 MMA
-    # passes (float32 accuracy) on tensor cores, log_rfe and rfe W_k on CUDA
-    # cores.
-    dpsi_bytes = 4 * (N * Kf + G * Kf + G * SC + N + N * SC + N * Kf + N * Kf)
-    dpsi_units = {"bytes": 1e3 * dpsi_bytes / HBM_BYTES_PER_S,
-                  "exps": 1e3 * N * G / EXP_PER_S,
-                  "3xTF32 MMA": 1e3 * 3 * 2 * N * G * SC * Kf / TF32_OPS_PER_S,
-                  "float32 operations": 1e3 * N * G * 3 * Kf / FP32_OPS_PER_S}
-    dpsi_unit = max(dpsi_units, key=dpsi_units.get)
-    dpsi_by = "bytes" if dpsi_unit == "bytes" else "operations"
-    # gene part: Y, psi, W, muL, dA1, dZ in; dW, dmuL out. Its work runs on
-    # three units too: the exps, rfe^T [dZ | dZ psi_k] ((1 + Kf) S*C columns)
-    # as three TF32 MMA passes, and log_rfe and the Y term Y^T (dA1 psi_k)
-    # on CUDA cores; its bound is the slowest of them and the bytes.
-    gene_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC + N + N * SC + G * Kf + G * SC)
-    gene_units = {"bytes": 1e3 * gene_bytes / HBM_BYTES_PER_S,
-                  "exps": 1e3 * N * G / EXP_PER_S,
-                  "3xTF32 MMA": 1e3 * 3 * 2 * N * G * (1 + Kf) * SC / TF32_OPS_PER_S,
-                  "float32 operations": 1e3 * N * G * 4 * Kf / FP32_OPS_PER_S}
-    gene_unit = max(gene_units, key=gene_units.get)
-    gene_by = "bytes" if gene_unit == "bytes" else "operations"
-    bwd_bytes = 4 * (N * G + N * Kf + G * Kf + G * SC + N + N * SC + N * Kf  # Y, psi, W, muL, dA1, dZ, YW
-                     + N * Kf + G * Kf + G * SC)                             # dpsi, dW, dmuL
-    bwd_ops = N * G * (2 * Kf + 1 + 2 * SC + 3           # log_rfe, exp, drfe, dlog_rfe
-                       + 4 * Kf + 2 * SC)                # dpsi and dW, dmuL
-    return {"fwd": bound(fwd_bytes, fwd_ops), "bwd": bound(bwd_bytes, bwd_ops),
-            "dpsi": (dpsi_units[dpsi_unit], dpsi_by, dpsi_unit),
-            "gene": (gene_units[gene_unit], gene_by, gene_unit)}
+    parts, each by the unit that runs each part of its formulas, with Y read
+    once at y_itemsize bytes an element."""
+    NG = N * G
+    # forward: Y, psi, W, muL in; A1, Z, YW out. Z = rfe muL on tensor
+    # cores; log_rfe and Y W (A1 = sum_k psi_k (Y W)_k) on CUDA cores.
+    fwd = bound(y_itemsize * NG, N * Kf + G * Kf + G * SC + N + N * SC + N * Kf,
+                NG, 2 * NG * SC, NG * 4 * Kf)
+    # dpsi part: psi, W, muL, dA1, dZ, YW in; dpsi out. T's product
+    # (rfe W_k) muL on tensor cores, log_rfe and rfe W_k on CUDA cores.
+    dpsi = bound(0, N * Kf + G * Kf + G * SC + N + N * SC + N * Kf + N * Kf,
+                 NG, 2 * NG * SC * Kf, NG * 3 * Kf)
+    # gene part: Y, psi, W, muL, dA1, dZ in; dW, dmuL out. rfe^T [dZ | dZ
+    # psi_k] ((1 + Kf) S*C columns) on tensor cores, log_rfe and the Y term
+    # Y^T (dA1 psi_k) on CUDA cores.
+    gene = bound(y_itemsize * NG, N * Kf + G * Kf + G * SC + N + N * SC + G * Kf + G * SC,
+                 NG, 2 * NG * (1 + Kf) * SC, NG * 4 * Kf)
+    # the whole backward: Y, psi, W, muL, dA1, dZ, YW in; dpsi, dW, dmuL
+    # out. drfe = dZ muL^T and dmuL = rfe^T dZ on tensor cores; log_rfe,
+    # dlog_rfe, dpsi and dW on CUDA cores.
+    bwd = bound(y_itemsize * NG, N * Kf + G * Kf + G * SC + N + N * SC + N * Kf
+                + N * Kf + G * Kf + G * SC, NG, 4 * NG * SC, NG * (2 * Kf + 3 + 4 * Kf))
+    return {"fwd": fwd, "bwd": bwd, "dpsi": dpsi, "gene": gene}
 
 
-def check_kernels(shape, S, Kf, seed, reps):
+def check_kernels(shape, S, Kf, seed, reps, storage="float32"):
     """Compare forward (A2 on and off) and backward with the plain versions
-    at one shape, the backward taking Y W from the forward kernel as the fit
-    does; return the errors and the times of the A2-off calls (the training
-    step's form), with the backward's dpsi and gene parts also timed alone."""
+    at one shape, with Y stored as ``storage``, the backward taking Y W from
+    the forward kernel as the fit does; return the errors and the times of
+    the A2-off calls (the training step's form), with the backward's dpsi and
+    gene parts also timed alone."""
     import torch
 
     from clonealign_torch.ops import fused_likelihood as fl
@@ -225,15 +231,19 @@ def check_kernels(shape, S, Kf, seed, reps):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     x = kernel_inputs(gen, shape["N"], shape["G"], shape["C"], S, Kf, "cuda")
-    label = f"{shape['N']}x{shape['G']} S*C={S * shape['C']} Kf={Kf}"
+    Yf = x["Y"]
+    x["Y"] = Yf.to(getattr(torch, storage))
+    if not torch.equal(x["Y"].float(), Yf):
+        raise AssertionError(f"the test counts do not fit {storage} exactly")
+    label = f"{shape['N']}x{shape['G']} S*C={S * shape['C']} Kf={Kf} Y {storage}"
     result = {}
     for with_a2 in (True, False):
         log_mu = x["log_mu"] if with_a2 else None
         dA2 = x["dA2"] if with_a2 else None
         args_f = (x["Y"], x["psi"], x["W"], log_mu, x["muL"])
         args_b = (x["Y"], x["psi"], x["W"], x["muL"], x["dA1"], dA2, x["dZ"])
-        fwd_scale, bwd_scale = abs_scales(x, with_a2)
-        fwd_scale["YW"] = x["Y"] @ x["W"].abs()
+        fwd_scale, bwd_scale = abs_scales(dict(x, Y=Yf), with_a2)
+        fwd_scale["YW"] = Yf @ x["W"].abs()
         names_f = ("A1", "A2", "Z", "YW")
         names_b = ("dpsi", "dW", "dlog_mu", "dmuL")
 
@@ -242,7 +252,7 @@ def check_kernels(shape, S, Kf, seed, reps):
 
         got = as_dict(names_f, fl.kernel_forward(*args_f))
         want = as_dict(names_f, fl.reference_likelihood_terms(*args_f))
-        want["YW"] = x["Y"] @ x["W"]
+        want["YW"] = Yf @ x["W"]
         torch.cuda.synchronize()
         tag = f"{label} A2={'on' if with_a2 else 'off'}"
         err_f = compare(got, want, fwd_scale, f"fwd {tag}")
@@ -267,12 +277,13 @@ def check_kernels(shape, S, Kf, seed, reps):
             f"plain {t['bwd_plain_ms']:.3f} ms)")
         if not with_a2:
             result = dict(t, fwd_err=err_f, bwd_err=err_b)
-    result["bounds"] = kernel_bounds(shape["N"], shape["G"], Kf, S * shape["C"])
+    result["bounds"] = kernel_bounds(shape["N"], shape["G"], Kf, S * shape["C"],
+                                     x["Y"].element_size())
     result["dpsi_plain_ms"] = cuda_ms(lambda: fl.reference_dpsi(
         YW, x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"]), reps)
     result["gene_plain_ms"] = cuda_ms(lambda: fl.reference_gene(
         x["Y"], x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"]), reps)
-    del x, YW
+    del x, Yf, YW
     torch.cuda.empty_cache()
     return result
 
@@ -300,12 +311,14 @@ def kernel_resources(build_log, kernel):
 
 
 # The instantiations each tensor-core kernel must have in the report:
-# fwd_kernel<KF, NT, A2>, dpsi_kernel<KF, NT> and gene_kernel<KF, NT, A2>.
+# fwd_kernel<YT, KF, NT, A2> (96), dpsi_kernel<KF, NT> (12) and
+# gene_kernel<YT, KF, NT, A2> (88), YT the Y storage code (0-3).
 TC_KERNELS = {
-    "fwd_kernel": {f"<{k},{t},{a}>" for k in (1, 2, 3, 4) for t in (1, 2, 4) for a in (0, 1)},
+    "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
+                   for t in (1, 2, 4) for a in (0, 1)},
     "dpsi_kernel": {f"<{k},{t}>" for k in (1, 2, 3, 4) for t in (1, 2, 4)},
-    "gene_kernel": {f"<{k},{t},{a}>" for k in (1, 2, 3, 4) for t in range(1, (4, 3, 2, 2)[k - 1] + 1)
-                    for a in (0, 1)},
+    "gene_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
+                    for t in range(1, (4, 3, 2, 2)[k - 1] + 1) for a in (0, 1)},
 }
 
 
@@ -374,14 +387,16 @@ def check_trace(trace):
 @contextlib.contextmanager
 def inference_peaks():
     """Collect the card's peak allocated bytes over each call of the
-    sweep's inference (the lane-batched loop, or each restart of the
-    sequential one), to hold against restarts._sweep_bytes; setup's
-    transients, which precede the loop, are not in it."""
+    inference (a single fit's loop, the sweep's lane-batched loop, or each
+    restart of the sequential one), to hold against restarts._sweep_bytes;
+    setup's transients, which precede the loop, are not in it."""
     import torch
 
-    from clonealign_torch import restarts
+    from clonealign_torch import api, restarts
 
-    peaks, originals = [], {n: getattr(restarts, n) for n in ("run_inference", "run_inference_lanes")}
+    targets = ((api, "run_inference"), (restarts, "run_inference"),
+               (restarts, "run_inference_lanes"))
+    peaks, originals = [], {(m, n): getattr(m, n) for m, n in targets}
 
     def measured(fn):
         def call(*args, **kwargs):
@@ -392,18 +407,58 @@ def inference_peaks():
             return out
         return call
 
-    for n, fn in originals.items():
-        setattr(restarts, n, measured(fn))
+    for (m, n), fn in originals.items():
+        setattr(m, n, measured(fn))
     try:
         yield peaks
     finally:
-        for n, fn in originals.items():
-            setattr(restarts, n, fn)
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
 
 
-def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching):
-    """One full-width sweep through run_clonealign; returns its lanes'
-    iterations and the kernel launches it made."""
+def full_fit(clonealign_torch, fl, Y, L, z, y_storage):
+    """One full-width exact fit through clonealign with Y stored as
+    ``y_storage``, its kernel launches counted from zero; checks its ELBO
+    trace, accuracy and launches and returns its numbers."""
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    with inference_peaks() as peaks:
+        fit = clonealign_torch.clonealign(
+            Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
+            likelihood_impl="xla", y_storage=y_storage,
+        )
+    wall = time.perf_counter() - t0
+    launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+    ci, tm = fit.convergence_info, fit.timings
+    n_iters = ci.n_iters
+    out = {"iter_ms": 1000 * tm["loop"] / max(n_iters, 1), "setup_s": tm["setup"],
+           "peak_gb": max(peaks) / 1e9, "final_elbo": ci.final_elbo,
+           "accuracy": accuracy(fit, z), "launches": launches}
+    log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']} y_storage={y_storage}: {wall:.2f} s wall, "
+        f"setup {tm['setup']:.2f} s, init {tm['init']:.2f} s, "
+        f"inference {tm['inference']:.2f} s ({n_iters} iterations, "
+        f"{out['iter_ms']:.2f} ms per iteration), package {tm['package']:.2f} s; "
+        f"peak allocated in the inference {out['peak_gb']:.3f} GB")
+    rising = check_trace(ci.elbo)
+    log(f"  ELBO {ci.elbo[0]:.6g} -> {ci.elbo[-1]:.6g} (rising steps {rising:.2f}), final "
+        f"{ci.final_elbo:.9g} +- {ci.sd_final_elbo:.3g}; accuracy {out['accuracy']:.4f}; "
+        f"launches fwd {launches['fwd']} dpsi {launches['dpsi']} gene {launches['gene']}")
+    if out["accuracy"] < MIN_ACCURACY:
+        raise AssertionError(f"y_storage={y_storage}: accuracy {out['accuracy']:.4f} < {MIN_ACCURACY}")
+    # warm start + initial ELBO + (train + fresh eval) per iteration + 20
+    # final, and one backward (a dpsi and a gene-major launch) per iteration
+    want = {"fwd": 2 + 2 * n_iters + 20, "dpsi": n_iters, "gene": n_iters}
+    if launches != want:
+        raise AssertionError(f"y_storage={y_storage}: kernel launches {launches} do not match "
+                             f"{n_iters} iterations (expected {want})")
+    return out
+
+
+def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_itemsize):
+    """One full-width sweep through run_clonealign with Y stored as
+    ``y_storage`` (y_itemsize bytes an element); returns its lanes'
+    iterations, the kernel launches it made, its ms per lane iteration and
+    its peak allocated bytes in the inference."""
     from clonealign_torch.restarts import _sweep_bytes
 
     fl.reset_launch_counts()
@@ -411,7 +466,7 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching):
     with inference_peaks() as loop_peaks:
         fit = clonealign_torch.run_clonealign(
             Y, L, device="cuda", seed=0, verbose=False, likelihood_impl=impl,
-            restart_batching=batching, **LANES,
+            restart_batching=batching, y_storage=y_storage, **LANES,
         )
     wall = time.perf_counter() - t0
     launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
@@ -419,8 +474,8 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching):
     R = len(iters)
     acc = accuracy(fit, z)
     plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, 1, R if batching == "vmap" else 1,
-                        4, "cuda") / 1e9
-    log(f"sweep ({name}) {impl} {batching}, {R} lanes: {wall:.2f} s wall, setup "
+                        4, "cuda", y_itemsize) / 1e9
+    log(f"sweep ({name}) {impl} {batching} y_storage={y_storage}, {R} lanes: {wall:.2f} s wall, setup "
         f"{tm['setup']:.2f} s, init {tm['init']:.2f} s, loop {tm['loop']:.2f} s "
         f"({sum(iters)} lane iterations: {1000 * tm['loop'] / sum(iters):.2f} ms per lane "
         f"iteration, {1000 * tm['loop'] / max(iters):.2f} ms per sweep iteration), "
@@ -435,7 +490,8 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching):
     want["gene"] = want["dpsi"]
     if launches != want:
         raise AssertionError(f"sweep ({name}): launches {launches}, expected {want}")
-    return {"iterations": iters, "launches": launches}
+    return {"iterations": iters, "launches": launches,
+            "lane_iter_ms": 1000 * tm["loop"] / sum(iters), "peak_gb": max(loop_peaks) / 1e9}
 
 
 def golden(clonealign_torch):
@@ -482,6 +538,7 @@ def main() -> int:
         return 1
 
     import clonealign_torch
+    from clonealign_torch import api
     from clonealign_torch.ops import _build
     from clonealign_torch.ops import fused_likelihood as fl
 
@@ -503,50 +560,45 @@ def main() -> int:
         log(_build.build_log.strip())
     log_tc_resources(_build.build_log)
 
-    # 3. kernels vs plain: small ragged shapes, then full width
+    # 3. kernels vs plain: for every Y storage a ragged shape (scalar Y
+    # loads) and one with G % 4 == 0 (vectorized loads), a wide shape, then
+    # full width for the storages a fit uses
     log("kernels vs plain (tolerance: KERNEL_RTOL="
         f"{KERNEL_RTOL:g} of the per-element absolute-term sum)")
-    check_kernels(SMALL, S=1, Kf=1, seed=1, reps=5)
+    for storage in STORAGES:
+        check_kernels(SMALL, S=1, Kf=1, seed=1, reps=5, storage=storage)
+        check_kernels(VEC, S=1, Kf=2, seed=3, reps=5, storage=storage)
     check_kernels(WIDE, S=2, Kf=3, seed=5, reps=5)
-    full = check_kernels(FULL, S=1, Kf=1, seed=2, reps=10)
+    full = {st: check_kernels(FULL, S=1, Kf=1, seed=2, reps=10, storage=st) for st in FULL_STORAGES}
+    for st, r in full.items():
+        b = r["bounds"]
+        log(f"full width, Y {st}: fwd {r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}, bound "
+            f"{b['fwd'][0]:.3f} by {b['fwd'][2]}), bwd {r['bwd_ms']:.3f} ms (plain "
+            f"{r['bwd_plain_ms']:.3f}, bound {b['bwd'][0]:.3f} by {b['bwd'][2]}): dpsi "
+            f"{r['dpsi_ms']:.3f}, gene part {r['gene_ms']:.3f} (bound {b['gene'][0]:.3f} by "
+            f"{b['gene'][2]})")
 
-    # 4. the fit at full width, through the public entry point
+    # 4. the fit at full width, through the public entry point, with Y
+    # stored as float32 and as "auto" resolves, in turns
     t0 = time.perf_counter()
     Y, L, z = synth_counts(3, FULL["N"], FULL["G"], FULL["C"])
     log(f"synthetic counts {Y.shape} int16 on the card -> host: "
         f"{time.perf_counter() - t0:.1f} s")
-    fl.reset_launch_counts()
-    t0 = time.perf_counter()
-    fit = clonealign_torch.clonealign(
-        Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
-        likelihood_impl="xla",
-    )
-    wall = time.perf_counter() - t0
-    launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
-    n_iters = fit.convergence_info.n_iters
-    tm = fit.timings
-    log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']}: {wall:.2f} s wall, "
-        f"setup {tm['setup']:.2f} s, init {tm['init']:.2f} s, "
-        f"inference {tm['inference']:.2f} s ({n_iters} iterations, "
-        f"{1000 * tm['loop'] / max(n_iters, 1):.2f} ms per iteration), "
-        f"package {tm['package']:.2f} s")
-    rising = check_trace(fit.convergence_info.elbo)
-    acc = accuracy(fit, z)
-    log(f"  ELBO {fit.convergence_info.elbo[0]:.6g} -> {fit.convergence_info.elbo[-1]:.6g} "
-        f"(rising steps {rising:.2f}), final {fit.convergence_info.final_elbo:.6g} "
-        f"+- {fit.convergence_info.sd_final_elbo:.3g}; accuracy {acc:.4f}; "
-        f"launches fwd {launches['fwd']} dpsi {launches['dpsi']} gene {launches['gene']}")
-    if acc < MIN_ACCURACY:
-        raise AssertionError(f"accuracy {acc:.4f} < {MIN_ACCURACY}")
-    # warm start + initial ELBO + (train + fresh eval) per iteration + 20 final
-    want_fwd = 2 + 2 * n_iters + 20
-    # and one backward (a dpsi and a gene-major launch) per iteration
-    if launches != {"fwd": want_fwd, "dpsi": n_iters, "gene": n_iters}:
-        raise AssertionError(
-            f"kernel launches {launches} do not match {n_iters} iterations "
-            f"(expected fwd {want_fwd}, dpsi and gene {n_iters} each)"
-        )
-    iter_ms = {"xla": [1000 * tm["loop"] / max(n_iters, 1)]}
+    auto = api._auto_y_storage(Y)
+    auto_name = "float32" if auto is None else str(auto).removeprefix("torch.")
+    y_itemsize = 4 if auto is None else auto.itemsize
+    log(f'y_storage="auto" resolves to {auto_name} on the card for these counts (largest '
+        f"{int(Y.max())}): Y takes {Y.size * y_itemsize / 1e9:.2f} GB there "
+        f"({Y.size * 4 / 1e9:.2f} GB as float32)")
+    fits = {}
+    for storage in ("float32", "auto", "float32", "auto"):
+        fits.setdefault(storage, []).append(full_fit(clonealign_torch, fl, Y, L, z, storage))
+    launches = fits["auto"][0]["launches"]  # the main path's
+    log("full-width exact fit, float32 / auto (" + auto_name + ") in turns: " + "; ".join(
+        f"{key} " + " / ".join(f"{f[key]:.4g}" for f in fits["float32"]) + " vs "
+        + " / ".join(f"{f[key]:.4g}" for f in fits["auto"])
+        for key in ("iter_ms", "setup_s", "peak_gb", "final_elbo")))
+    iter_ms = {"xla": [f["iter_ms"] for f in fits["auto"]]}
 
     # 5. ms per iteration of the full-width single fit under each likelihood,
     # in turns (the numbers api._resolve_auto_impl rests on); the z_cheb fit
@@ -572,13 +624,26 @@ def main() -> int:
         f"{impl} {' / '.join(f'{t:.2f}' for t in ts)}" for impl, ts in iter_ms.items()))
 
     # 6. the full-width sweep of ten restarts: exact in sequence, exact as
-    # lanes, z_cheb as lanes
+    # lanes, z_cheb as lanes, all with Y stored as "auto" resolves; and (b)
+    # with Y stored as float32, in turns with (b) under "auto"
     sweeps = {}
-    for name, impl, batching in (("a", "xla", "map"), ("b", "xla", "vmap"), ("c", "z_cheb", "vmap")):
-        sweeps[name] = run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching)
-    seq, lanes = sweeps["a"], sweeps["b"]
-    if lanes != seq:
-        raise AssertionError(f"lanes differ from the sequential sweep: {lanes} vs {seq}")
+    for name, impl, batching, storage in (
+            ("a", "xla", "map", "auto"), ("b", "xla", "vmap", "auto"),
+            ("b32", "xla", "vmap", "float32"), ("b2", "xla", "vmap", "auto"),
+            ("b32_2", "xla", "vmap", "float32"), ("c", "z_cheb", "vmap", "auto")):
+        sweeps[name] = run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, storage,
+                                 y_itemsize if storage == "auto" else 4)
+    log("sweep (b), ms per lane iteration, float32 / auto (" + auto_name + ") in turns: "
+        + " / ".join(f"{sweeps[n]['lane_iter_ms']:.3f}" for n in ("b32", "b32_2")) + " vs "
+        + " / ".join(f"{sweeps[n]['lane_iter_ms']:.3f}" for n in ("b", "b2"))
+        + "; peak allocated in the inference, GB: "
+        + " / ".join(f"{sweeps[n]['peak_gb']:.3f}" for n in ("b32", "b32_2")) + " vs "
+        + " / ".join(f"{sweeps[n]['peak_gb']:.3f}" for n in ("b", "b2")))
+    seq = {k: sweeps["a"][k] for k in ("iterations", "launches")}
+    for name in ("b", "b32", "b2", "b32_2"):
+        lanes = {k: sweeps[name][k] for k in ("iterations", "launches")}
+        if lanes != seq:
+            raise AssertionError(f"lanes ({name}) differ from the sequential sweep: {lanes} vs {seq}")
     R = LANES["n_repeats"] * len(LANES["initial_shrinks"])
     if sweeps["c"]["launches"] != {"fwd": 20 * R, "dpsi": 0, "gene": 0}:
         raise AssertionError(f"z_cheb sweep launches {sweeps['c']['launches']}, expected "
@@ -604,38 +669,51 @@ def main() -> int:
     # 8. golden parity: the oracle's two converged fits on the card
     golden(clonealign_torch)
 
-    # The backward's parts alone at full width, A2 off.
-    b = full["bounds"]
-    log(f"backward parts {FULL['N']}x{FULL['G']} S*C={FULL['C']} Kf=1 A2=off: "
-        f"dpsi_kernel {full['dpsi_ms']:.3f} ms (plain {full['dpsi_plain_ms']:.3f} ms, "
+    # The backward's parts alone at full width, A2 off, Y stored as "auto"
+    # resolves on the main path.
+    main_full = full[auto_name]
+    b = main_full["bounds"]
+    log(f"backward parts {FULL['N']}x{FULL['G']} S*C={FULL['C']} Kf=1 A2=off Y {auto_name}: "
+        f"dpsi_kernel {main_full['dpsi_ms']:.3f} ms (plain {main_full['dpsi_plain_ms']:.3f} ms, "
         f"bound {b['dpsi'][0]:.3f} ms by {b['dpsi'][2]}), gene_pack_kernel + gene_kernel + "
-        f"reduce_chunks_kernel {full['gene_ms']:.3f} ms (plain {full['gene_plain_ms']:.3f} ms, "
-        f"bound {b['gene'][0]:.3f} ms by {b['gene'][2]})")
+        f"reduce_chunks_kernel {main_full['gene_ms']:.3f} ms (plain "
+        f"{main_full['gene_plain_ms']:.3f} ms, bound {b['gene'][0]:.3f} ms by {b['gene'][2]})")
+
+    def by_storage(part):
+        """Each full-width Y storage's numbers for one kernel or part."""
+        return [dict({"y_storage": st, "ms": r[f"{part}_ms"], "plain_ms": r[f"{part}_plain_ms"],
+                      "bound_ms": r["bounds"][part][0], "bound_by": r["bounds"][part][1],
+                      "bound_unit": r["bounds"][part][2]},
+                     **({"max_abs_err": r[f"{part}_err"]} if f"{part}_err" in r else {}))
+                for st, r in full.items()]
+
     # No single PyTorch call computes either function: library_ms is null.
     # A backward launch is one dpsi and one gene-major launch.
     kernels = [
         {"name": "fused_likelihood_fwd", "route": "cuda",
          "source": "clonealign_torch/ops/csrc/fused_likelihood.cu",
          "replaces": "clonealign_tpu/ops/fused_likelihood.py:125",
-         "launches": launches["fwd"], "max_abs_err": full["fwd_err"],
-         "ms": full["fwd_ms"], "plain_ms": full["fwd_plain_ms"],
+         "launches": launches["fwd"], "max_abs_err": main_full["fwd_err"],
+         "ms": main_full["fwd_ms"], "plain_ms": main_full["fwd_plain_ms"],
          "bound_ms": b["fwd"][0], "bound_by": b["fwd"][1],
-         "library_ms": None},
+         "library_ms": None, "y_storage": auto_name, "by_storage": by_storage("fwd")},
         {"name": "fused_likelihood_bwd", "route": "cuda",
          "source": "clonealign_torch/ops/csrc/fused_likelihood.cu",
          "replaces": "clonealign_tpu/ops/fused_likelihood.py:234",
          "launches": min(launches["dpsi"], launches["gene"]),
-         "max_abs_err": full["bwd_err"],
-         "ms": full["bwd_ms"], "plain_ms": full["bwd_plain_ms"],
+         "max_abs_err": main_full["bwd_err"],
+         "ms": main_full["bwd_ms"], "plain_ms": main_full["bwd_plain_ms"],
          "bound_ms": b["bwd"][0], "bound_by": b["bwd"][1],
-         "library_ms": None,
+         "library_ms": None, "y_storage": auto_name, "by_storage": by_storage("bwd"),
          "parts": [
              {"name": "dpsi_kernel", "launches": launches["dpsi"],
-              "ms": full["dpsi_ms"], "plain_ms": full["dpsi_plain_ms"],
+              "ms": main_full["dpsi_ms"], "plain_ms": main_full["dpsi_plain_ms"],
               "bound_ms": b["dpsi"][0], "bound_by": b["dpsi"][1], "bound_unit": b["dpsi"][2]},
-             {"name": "gene_pack_kernel+gene_kernel+reduce_chunks_kernel", "launches": launches["gene"],
-              "ms": full["gene_ms"], "plain_ms": full["gene_plain_ms"],
-              "bound_ms": b["gene"][0], "bound_by": b["gene"][1], "bound_unit": b["gene"][2]},
+             {"name": "gene_pack_kernel+gene_kernel+reduce_chunks_kernel",
+              "launches": launches["gene"],
+              "ms": main_full["gene_ms"], "plain_ms": main_full["gene_plain_ms"],
+              "bound_ms": b["gene"][0], "bound_by": b["gene"][1], "bound_unit": b["gene"][2],
+              "by_storage": by_storage("gene")},
          ]},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,10 @@ Parameter names and defaults match the JAX package, plus ``device``
 and an injectable ``noise`` source. This port covers the default corner: a
 dense count matrix, no covariates, no allele data, the exact likelihood (on
 CUDA through the hand-written kernels) or the Chebyshev normalizer
-(``likelihood_impl="z_cheb"``), Y stored in the compute dtype. Every other
-option raises NotImplementedError naming its ROADMAP item; none falls back
-silently.
+(``likelihood_impl="z_cheb"``), Y stored as ``y_storage`` says (the compute
+dtype, int16, int8 or bfloat16; "auto" picks the narrowest exact integer
+type). Every other option raises NotImplementedError naming its ROADMAP
+item; none falls back silently.
 """
 
 from __future__ import annotations
@@ -176,6 +177,53 @@ class FitContext:
     data_init_mu: object
 
 
+# y_storage -> the storage dtype of the device Y (None: the compute dtype).
+# int16 and int8 hold counts exactly (prepare_data raises on a count out of
+# range); bfloat16 rounds counts above 256.
+_Y_STORAGE = {
+    None: None,
+    "auto": "auto",
+    "float32": None,
+    "bfloat16": torch.bfloat16,
+    "int16": torch.int16,
+    "int8": torch.int8,
+}
+
+
+def _auto_y_storage(y_values):
+    """``y_storage="auto"``: the narrowest exact storage for the counts, int8
+    when every count fits, int16 up to 32767, else None (the compute dtype),
+    and None for fractional counts (reference api.py:185-210). Integer
+    storage is lossless, so "auto" never changes a result.
+
+    The rule holds on the card too: there the kernels read narrow Y faster
+    than float32 Y, and the inference holds less. ``chip_smoke.py`` on an
+    H100 80GB HBM3 at 700 W, 100,000 x 5,000 x 10 clones: the forward 0.716
+    ms at int8 and 0.769 at int16 against 0.887, the backward's gene part
+    0.940 and 0.955 against 0.954; the ten-lane exact sweep 2.71-2.78 ms a
+    lane-iteration at int8 against 2.93-2.95, its inference peak 1.28 GB
+    against 2.79."""
+    if y_values.size == 0:
+        return None
+    if np.issubdtype(y_values.dtype, np.integer):
+        ymax = float(y_values.max())
+    else:
+        # chunked integrality scan: no full-size temporaries
+        flat = y_values.reshape(-1)
+        ymax = 0.0
+        step = 16_777_216
+        for i in range(0, flat.size, step):
+            c = flat[i : i + step]
+            if np.any(c != np.trunc(c)):
+                return None
+            ymax = max(ymax, float(c.max()))
+    if ymax <= np.iinfo(np.int8).max:
+        return torch.int8
+    if ymax <= np.iinfo(np.int16).max:
+        return torch.int16
+    return None
+
+
 def _check_reference_keywords(key, loop_impl) -> None:
     """The JAX package's keywords: ``key`` has no counterpart here (every
     draw comes from ``seed`` or a ``noise`` source); ``loop_impl`` "while"
@@ -239,9 +287,7 @@ def _check_options(x, clone_allele, cov, ref, y_storage, likelihood_impl, K, mc_
     # a configuration error surfaces before the host validation and upload
     mm._use_z_cheb(mm.ModelConfig(K=K, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
                                   likelihood_impl=likelihood_impl))
-    if y_storage in ("int8", "int16", "bfloat16"):
-        raise _not_ported(f"y_storage={y_storage!r}", "int8/int16 Y read by the kernel")
-    if y_storage not in (None, "auto", "float32"):
+    if y_storage not in _Y_STORAGE:
         raise ValueError(
             "y_storage must be one of 'auto', 'float32', 'int16', 'int8', "
             f"'bfloat16'; got {y_storage!r}"
@@ -270,14 +316,22 @@ def setup_fit(
     *,
     device="cuda",
 ) -> FitContext:
-    """Input parsing, gene filtering and validation on the host, then the
-    device data (reference R/clonealign.R:206-260, R/inference-tflow.R:111-235).
+    """Input parsing, gene filtering and validation, then the device data
+    (reference R/clonealign.R:206-260, R/inference-tflow.R:111-235).
 
-    The gene filter always runs on the host before the data go to the
-    device, so the per-cell feasibility check sees the filtered genes.
-    ``y_storage`` "auto" and "float32" both store Y in the compute dtype
-    (integer counts convert exactly). ``likelihood_impl="auto"`` resolves by
-    :func:`_resolve_auto_impl` over the retained genes.
+    Dense integer counts of at most 16 bits are checked on the device
+    (reference api.py:287-308, 394-446): integers cannot be NaN or
+    fractional, ``prepare_data`` raises on a negative count, the gene
+    filter reads the device column sums (the kept columns are gathered on
+    the device and their statistics taken again) and a cell without counts
+    shows in the device row sums, so no O(N x G) host pass runs. Other
+    input is validated and filtered on the host first. Either way the
+    per-cell feasibility check sees only the retained genes (unlike the
+    reference, whose check precedes its deferred filter).
+
+    ``y_storage`` picks Y's storage type on the device (``_Y_STORAGE``;
+    "auto": :func:`_auto_y_storage`). ``likelihood_impl="auto"``
+    resolves by :func:`_resolve_auto_impl` over the retained genes.
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
@@ -293,19 +347,26 @@ def setup_fit(
     L, clone_names = _parse_copy_number(copy_number_data, G)
     _check_kernel_contract(dev, K, int(mc_samples), L.shape[1])
 
-    # --- gene filtering (reference R/inference-tflow.R:117-131) ---
-    low = _colsum_f64(Y) <= gene_filter_threshold
-    if low.any():
-        if verbose:
-            print(f"Removing {int(low.sum())} genes with low counts")
-        Y = Y[:, ~low]
-        L = L[~low]
-    if gene_names is not None:
-        retained_genes = [g for g, drop in zip(gene_names, low) if not drop]
-    else:
-        retained_genes = list(np.flatnonzero(~low))
+    device_validated = np.issubdtype(Y.dtype, np.integer) and Y.dtype.itemsize <= 2
+    # float32 column sums of integers are exact below 2^24, and a total that
+    # rounds is far above any threshold this admits
+    defer_filter = device_validated and float(gene_filter_threshold) < 2.0**24
 
-    _validate_counts(Y, allow_fractional=allow_fractional)
+    def drop_genes(low):  # reference R/inference-tflow.R:117-131
+        nonlocal Y, L
+        if low.any():
+            if verbose:
+                print(f"Removing {int(low.sum())} genes with low counts")
+            Y = Y[:, ~low]
+            L = L[~low]
+        if gene_names is not None:
+            return [g for g, drop in zip(gene_names, low) if not drop]
+        return list(np.flatnonzero(~low))
+
+    if not defer_filter:
+        retained_genes = drop_genes(_colsum_f64(Y) <= gene_filter_threshold)
+    if not device_validated:
+        _validate_counts(Y, allow_fractional=allow_fractional)
     if K > 0 and N < 2:
         raise ValueError(
             "At least 2 cells are required when K > 0 (the PCA initialization "
@@ -317,7 +378,26 @@ def setup_fit(
     if saturate:
         L = np.minimum(L, float(saturation_threshold))
 
-    data = mm.prepare_data(Y, L, device=dev, dtype=dt)
+    storage = _Y_STORAGE[y_storage]
+    if storage == "auto":
+        storage = _auto_y_storage(Y)
+    data = mm.prepare_data(Y, L, device=dev, dtype=dt, y_storage=storage,
+                           check_feasible=not defer_filter)
+    if defer_filter:
+        low = data.colsum_Y.cpu().numpy() <= gene_filter_threshold
+        retained_genes = drop_genes(low)
+        if low.any():
+            # bfloat16 rounds counts above 256, and the statistics must see
+            # the exact ones: those come from the host again
+            stored = Y if storage == torch.bfloat16 else data.Y[
+                :, torch.as_tensor(np.flatnonzero(~low), device=dev)]
+            del data
+            data = mm.prepare_data(stored, L, device=dev, dtype=dt, y_storage=storage,
+                                   check_feasible=False)
+    if device_validated and float(torch.min(data.s)) == 0:
+        raise ValueError("Some cells have no counts mapping")  # R/inference-tflow.R:212-214
+    if defer_filter:
+        mm._check_cells_feasible(data.YlogL)
     if likelihood_impl == "auto":
         likelihood_impl = _resolve_auto_impl(K, mc_samples, dt, Y.shape[0] * Y.shape[1])
     config = mm.ModelConfig(K=K, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
@@ -526,7 +606,7 @@ def _package_fit(
         ml_params["clone_probs"], clone_names, clone_call_probability
     )
     correlations = _assign.compute_correlations(
-        Y, L, clones, clone_names, device_Y=device_Y
+        Y, L, clones, clone_names, device_Y=device_Y, dtype=p.qmu_loc.dtype
     )
     finite = correlations[np.isfinite(correlations)]
     if finite.size and np.quantile(finite, 0.25) < 0:

@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.multinomial import _row_blocks
 from .utils.chunking import host_row_chunk as _host_row_chunk
 from .utils.device import full_fp32_matmul
 from .utils.sparsity import is_scipy_sparse as _is_scipy_sparse
@@ -38,20 +39,25 @@ def recompute_clone_assignment(fit, clone_assignment_probability: float = 0.95):
     return replace(fit, clone=clones)
 
 
-def _clone_sums_device(Y_dev, idx_full, C):
+def _clone_sums_device(Y_dev, idx_full, C, dtype=None):
     """Sufficient statistics for :func:`compute_correlations` on the device
-    that holds the counts: per-(clone, gene) sums S as one (C, N) x (N, G)
-    product, per-gene sum(y) from S, and sum(y^2) as one masked column sum.
-    float64 data keeps float64 sums; otherwise they accumulate in float32
-    without TF32."""
-    acc = torch.float64 if Y_dev.dtype == torch.float64 else torch.float32
-    idx = torch.as_tensor(np.asarray(idx_full), dtype=torch.int64, device=Y_dev.device)
+    that holds the counts: per-(clone, gene) sums S as (C, N) x (N, G)
+    products, per-gene sum(y) from S, and sum(y^2) as masked column sums,
+    over row blocks of Y converted one at a time (Y may be stored narrow).
+    A float64 fit (``dtype``, by default Y's) keeps float64 sums; otherwise
+    they accumulate in float32 without TF32."""
+    acc = torch.float64 if (dtype or Y_dev.dtype) == torch.float64 else torch.float32
+    (N, G), dev = Y_dev.shape, Y_dev.device
+    idx = torch.as_tensor(np.asarray(idx_full), dtype=torch.int64, device=dev)
     keep = (idx >= 0).to(acc)
     onehot = torch.nn.functional.one_hot(idx.clamp_min(0), C).to(acc) * keep[:, None]
-    Yf = Y_dev.to(acc)
+    S = torch.zeros(C, G, dtype=acc, device=dev)
+    sum_y2 = torch.zeros(G, dtype=acc, device=dev)
     with full_fp32_matmul():
-        S = onehot.T @ Yf          # (C, G)
-        sum_y2 = keep @ (Yf * Yf)  # (G,)
+        for i, j in _row_blocks(N, G):
+            Yf = Y_dev[i:j].to(acc)
+            S += onehot[i:j].T @ Yf          # (C, G)
+            sum_y2 += keep[i:j] @ (Yf * Yf)  # (G,)
     S = S.cpu().numpy().astype(np.float64)
     return S, S.sum(axis=0), sum_y2.cpu().numpy().astype(np.float64)
 
@@ -77,7 +83,7 @@ def multirun_calls_device(gamma_logits, threshold):
     return called.to(torch.int32).cpu().numpy(), counts.to(torch.int32).cpu().numpy()
 
 
-def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=None):
+def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=None, dtype=None):
     """Per-gene Pearson correlation between expression and the copy number of
     each cell's assigned clone (reference R/clonealign.R:318-334; Pearson is
     affine-invariant, so correlating raw counts matches the reference's
@@ -91,6 +97,8 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
 
     ``clones_idx`` is the integer form of ``clones`` (values in ``0..C-1``;
     anything else reads unassigned). When given, ``clones`` is ignored.
+    ``dtype`` is the fit's compute dtype: float64 keeps the device sums in
+    float64 whatever type ``device_Y`` is stored in.
     """
     if _is_scipy_sparse(Y):
         raise NotImplementedError(
@@ -117,7 +125,7 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
 
     m = np.bincount(idx_full[keep], minlength=C).astype(np.float64)  # cells per clone
     if device_Y is not None:
-        S, sum_y, sum_y2 = _clone_sums_device(device_Y, idx_full, C)
+        S, sum_y, sum_y2 = _clone_sums_device(device_Y, idx_full, C, dtype)
         # Cancellation guard: var_y = sum_y2 - sum_y^2/M subtracts two
         # near-equal numbers for a near-constant high-mean gene, amplifying
         # the float32 error of the device sums. Genes whose variance is a

@@ -18,6 +18,13 @@ Parameters may carry a leading lane axis R (one lane per restart): every
 function here then returns one value per lane, and the fused op runs once
 per lane (:func:`_likelihood_terms`).
 
+Y is kept on the device in its storage type (``ModelData.Y``: the compute
+dtype, or int8, int16 or bfloat16, ``api.py``'s ``y_storage``). The fused
+op's kernels load it as it is; every other pass over Y here (the data
+statistics, the PCA and mu initialization, z_cheb's A terms) converts it in
+row blocks of ``_CHUNK_ELEMENTS``, so no second full-precision N x G tensor
+is made above that size.
+
 This slice covers the default corner of the reference: no covariates
 (P = 0) and a dense count matrix.
 """
@@ -88,7 +95,7 @@ class CloneAlignParams:
 class ModelData:
     """Per-fit tensors, computed once and kept on the device."""
 
-    Y: torch.Tensor          # (N, G) counts in the compute dtype
+    Y: torch.Tensor          # (N, G) counts in the storage dtype (compute dtype, int8, int16, bfloat16)
     L: torch.Tensor          # (G, C) copy numbers (saturated)
     s: torch.Tensor          # (N,) per-cell totals (multinomial total_count)
     log_binom: torch.Tensor  # (N,) lgamma(s+1) - sum_g lgamma(y+1)
@@ -112,40 +119,186 @@ class ModelConfig(NamedTuple):
 # Data preparation
 # ---------------------------------------------------------------------------
 
-def _prepare_data_core(Y, L):
-    """Data statistics in the compute dtype, float32 products without TF32
-    (the YlogL constant feeds every ELBO evaluation)."""
-    s = torch.sum(Y, dim=1)
-    log_binom = torch.lgamma(s + 1.0) - torch.sum(torch.lgamma(Y + 1.0), dim=1)
-    log_L_safe = torch.where(L > 0, torch.log(torch.where(L > 0, L, 1.0)), 0.0)
+# Above this many elements the passes over Y outside the likelihood kernels
+# (the data statistics, the PCA and the mu guess, z_cheb's A terms) go in
+# row blocks, so that the device holds Y in its storage type and O(block x
+# G) in the compute dtype, never a second full-precision N x G tensor
+# (reference models/multinomial.py:287-299). 2^28 elements = 1 GB at
+# float32; the 100,000 x 5,000 fit takes two blocks.
+_CHUNK_ELEMENTS = 1 << 28
+
+# numpy counterparts of the storage and compute dtypes, and back
+_NUMPY = {torch.int8: np.int8, torch.int16: np.int16, torch.float32: np.float32,
+          torch.float64: np.float64}
+_TORCH = {np.dtype(v): k for k, v in _NUMPY.items()}
+
+
+def _row_chunk_size(N: int, G: int) -> int:
+    rows = max(1, _CHUNK_ELEMENTS // max(G, 1))
+    rows = min(rows, N)
+    if rows >= 8:
+        rows -= rows % 8
+    return rows
+
+
+def _row_blocks(N: int, G: int):
+    """(start, stop) of each row block; one empty block when N = 0."""
+    chunk = max(1, _row_chunk_size(N, G))
+    return [(i, min(i + chunk, N)) for i in range(0, max(N, 1), chunk)]
+
+
+def _storage_name(store) -> str:
+    return str(store).removeprefix("torch.")
+
+
+def _wire_np(y_np, dtype, store):
+    """The dtype a host count array is shipped to the device in: the fewest
+    bytes an element that keep the values the statistics would see, or None
+    (ship it as it is) (reference models/multinomial.py:373-397).
+
+    Integer storage is lossless by contract, so counts ship as the narrower
+    of the host integer type and the storage type, checked against the
+    storage's range on the host before any narrowing
+    (:func:`_host_check_lossless`). Other storage ships at the compute dtype
+    when the host dtype is wider; bfloat16 is rounded on the device from the
+    compute dtype, after the statistics, so its wire is never bfloat16."""
+    y_np = np.dtype(y_np)
+    if not store.is_floating_point:
+        if np.issubdtype(y_np, np.integer) and y_np.itemsize <= store.itemsize:
+            return None
+        return np.dtype(_NUMPY[store])
+    if y_np.itemsize > dtype.itemsize and store != torch.bfloat16:
+        return np.dtype(_NUMPY[dtype])
+    if y_np.itemsize > 4 and store == torch.bfloat16:
+        return np.dtype(_NUMPY[dtype])
+    return None
+
+
+def _host_check_lossless(c, store):
+    """Before a host count chunk (a CPU tensor) is narrowed to the integer
+    storage type: raise on a count above the storage's range, a negative
+    count (it would wrap positive) or a fractional one, with the device
+    check's messages (reference models/multinomial.py:400-424)."""
+    if not c.numel():
+        return
+    if c.dtype in (torch.uint16, torch.uint32, torch.uint64):  # PyTorch reduces none of them
+        cmin, cmax = float(c.numpy().min()), float(c.numpy().max())
+    else:
+        cmin, cmax = (float(v) for v in torch.aminmax(c))
+    info = torch.iinfo(store)
+    if cmax > info.max:
+        raise ValueError(
+            f"y_storage={_storage_name(store)} cannot hold the largest count "
+            f"({cmax:.0f} > {info.max}); use int16/bfloat16/float32"
+        )
+    if cmin < 0:
+        raise ValueError("gene_expression_data must be non-negative raw counts")
+    if c.is_floating_point() and bool(torch.any(c != torch.trunc(c))):
+        raise ValueError("integer y_storage requires integer counts; found fractional values")
+
+
+def _check_integer_storage(ymax, ymin, nonint, store):
+    """The device check behind integer storage, on the largest count, the
+    smallest and the largest distance to an integer the statistics saw
+    (reference models/multinomial.py:749-770)."""
+    if ymin < 0:
+        raise ValueError("gene_expression_data must be non-negative raw counts")
+    if store.is_floating_point:
+        return
+    info = torch.iinfo(store)
+    if ymax > info.max:
+        raise ValueError(
+            f"y_storage={_storage_name(store)} cannot hold the largest count "
+            f"({ymax:.0f} > {info.max}); use int16/bfloat16/float32"
+        )
+    if nonint != 0.0:
+        raise ValueError("integer y_storage requires integer counts; found fractional values")
+
+
+def _chunk_stats(yf, log_L_safe, zero_cols):
+    """A row chunk's statistics in the compute dtype, products in full
+    float32 (the YlogL constant feeds every ELBO evaluation): totals, log
+    binomials, YlogL with xlogy semantics, and the column sums."""
+    s = torch.sum(yf, dim=1)
     with full_fp32_matmul():
-        B = Y @ log_L_safe
-        hits_zero = (Y @ (L <= 0).to(Y.dtype)) > 0
+        B = yf @ log_L_safe
+        hits_zero = (yf @ zero_cols) > 0
     B = torch.where(hits_zero, -math.inf, B)
-    return s, log_binom, B, torch.sum(Y, dim=0)
+    lgam = yf + 1.0
+    lgam.lgamma_()
+    log_binom = torch.lgamma(s + 1.0) - torch.sum(lgam, dim=1)
+    return s, log_binom, B, torch.sum(yf, dim=0)
 
 
-def prepare_data(Y, L, *, device, dtype=torch.float32) -> ModelData:
-    """Move a dense count matrix to ``device`` in ``dtype`` and compute its
-    statistics there.
+def prepare_data(Y, L, *, device, dtype=torch.float32, y_storage=None,
+                 check_feasible=True) -> ModelData:
+    """The device data of a fit from a dense count matrix (a numpy array or a
+    tensor): Y stored as ``y_storage`` (None: the compute ``dtype``; or
+    torch.int8, torch.int16, torch.bfloat16) and its statistics in
+    ``dtype`` (reference models/multinomial.py:219-284, 564-746).
+
+    The rows go to the device in chunks of ``_CHUNK_ELEMENTS``, each in its
+    narrowest exact wire type (:func:`_wire_np`; checked and narrowed on the
+    host by PyTorch's CPU kernels, which use every core); each chunk's statistics
+    are taken in the compute dtype before it is written into one buffer
+    preallocated in the storage type, so bfloat16 is rounded after them and
+    no second full copy of Y is made. A tensor already on ``device`` in the
+    storage type is kept as it is. Integer storage is exact: a count it
+    cannot hold, a negative or a fractional count raises, and so does a
+    negative count under any storage.
 
     ``YlogL`` uses xlogy semantics: a gene with zero copy number in clone c
     contributes -inf to that clone's log-likelihood only for cells
-    expressing it. Y is uploaded in its host dtype (an int16 matrix moves
-    half the bytes of float32) and converted on the device.
+    expressing it. ``check_feasible=False`` leaves out
+    :func:`_check_cells_feasible`, for a caller that filters genes first.
     """
     if is_scipy_sparse(Y):
         raise NotImplementedError(
             "sparse count matrices are not ported yet (ROADMAP.md, still to port: "
             "chunked and sparse prepare); pass a dense array"
         )
-    Yt = torch.from_numpy(np.ascontiguousarray(Y)) if isinstance(Y, np.ndarray) else torch.as_tensor(Y)
-    Yd = Yt.to(device=device).to(dtype)
-    if Yd.numel() and float(Yd.min()) < 0:
-        raise ValueError("gene_expression_data must be non-negative raw counts")
+    device = torch.device(device)
+    store = dtype if y_storage is None else y_storage
+    if not torch.is_tensor(Y):
+        Y = np.asarray(Y)
+    N, G = Y.shape
     Ld = torch.as_tensor(np.asarray(L), dtype=dtype, device=device)
-    s, log_binom, B, colsum = _prepare_data_core(Yd, Ld)
-    _check_cells_feasible(B)
+    log_L_safe = torch.where(Ld > 0, torch.log(torch.where(Ld > 0, Ld, 1.0)), 0.0)
+    zero_cols = (Ld <= 0).to(dtype)
+    wire = None if torch.is_tensor(Y) else _wire_np(Y.dtype, dtype, store)
+    wire = None if wire is None else _TORCH[wire]
+
+    keep = torch.is_tensor(Y) and Y.device == device and Y.dtype == store
+    Yd = Y if keep else torch.empty((N, G), dtype=store, device=device)
+    parts = []
+    colsum = torch.zeros(G, dtype=dtype, device=device)
+    ymax = torch.full((), -math.inf, dtype=dtype, device=device)
+    ymin = torch.full((), math.inf, dtype=dtype, device=device)
+    nonint = torch.zeros((), dtype=dtype, device=device)
+    for i, j in _row_blocks(N, G):
+        c = Y[i:j] if torch.is_tensor(Y) else torch.from_numpy(np.ascontiguousarray(Y[i:j]))
+        if wire is not None and c.dtype != wire:
+            if not store.is_floating_point:
+                _host_check_lossless(c, store)
+            c = c.to(wire)
+        yc = c.to(device)
+        yf = yc.to(dtype)
+        if yf.numel():
+            ymax = torch.maximum(ymax, yf.max())
+            ymin = torch.minimum(ymin, yf.min())
+            if yc.is_floating_point() and not store.is_floating_point:
+                nonint = torch.maximum(nonint, (yf - torch.round(yf)).abs().max())
+        if not keep:
+            Yd[i:j].copy_(yc if yc.dtype == store else yf)
+        s, log_binom, B, cs = _chunk_stats(yf, log_L_safe, zero_cols)
+        parts.append((s, log_binom, B))
+        colsum += cs
+        del yc, yf
+    if N * G:
+        _check_integer_storage(float(ymax), float(ymin), float(nonint), store)
+    s, log_binom, B = (torch.cat(p) for p in zip(*parts))
+    if check_feasible:
+        _check_cells_feasible(B)
     return ModelData(Y=Yd, L=Ld, s=s, log_binom=log_binom, YlogL=B, colsum_Y=colsum)
 
 
@@ -194,20 +347,77 @@ def randomized_pca(X, k: int, noise, oversample: int = 8, power_iters: int = 4):
         return Xc @ Vt[:k].T  # (n, k)
 
 
+def _pca_scores_blocked(Y, k: int, noise, dtype, oversample: int = 8, power_iters: int = 4):
+    """:func:`randomized_pca` of log2(Y+1) without the standardized N x G
+    matrix (reference models/multinomial.py:891-937): every product
+    recomputes each row block's ``(log2(y+1) - mean) / sd`` from the stored
+    Y. Same algorithm and draws; the column sd comes from sums of squares."""
+    N, G = Y.shape
+    blocks = _row_blocks(N, G)
+    k_eff = min(k + oversample, min(N, G))
+
+    def xb(i, j):
+        return torch.log2(Y[i:j].to(dtype) + 1.0)
+
+    total = torch.zeros(G, dtype=dtype, device=Y.device)
+    sumsq = torch.zeros(G, dtype=dtype, device=Y.device)
+    for i, j in blocks:
+        b = xb(i, j)
+        total += torch.sum(b, dim=0)
+        sumsq += torch.sum(b * b, dim=0)
+    mean = total / N
+    sd = torch.sqrt(torch.clamp_min(sumsq - N * mean * mean, 0.0) / max(N - 1, 1))
+    sd = torch.where(sd == 0, 1.0, sd)
+
+    def xcb(i, j):
+        return (xb(i, j) - mean) / sd
+
+    def xc_matmul(M):  # Xc @ M
+        return torch.cat([xcb(i, j) @ M for i, j in blocks], dim=0)
+
+    def xcT_matmul(Q):  # Xc.T @ Q
+        acc = torch.zeros(G, Q.shape[1], dtype=dtype, device=Y.device)
+        for i, j in blocks:
+            acc += xcb(i, j).T @ Q[i:j]
+        return acc
+
+    omega = noise.normal("pca_omega", (G, k_eff), dtype, Y.device)
+    with full_fp32_matmul():
+        Q = xc_matmul(omega)
+        for _ in range(power_iters):
+            Q, _ = torch.linalg.qr(Q)
+            Q, _ = torch.linalg.qr(xc_matmul(xcT_matmul(Q)))
+        B = xcT_matmul(Q).T  # (k_eff, G)
+        _, _, Vt = torch.linalg.svd(B, full_matrices=False)
+        return xc_matmul(Vt[:k].T)  # (N, k)
+
+
 def pca_init_scores(Y, K: int, noise, dtype=torch.float32):
     """Standardized top-K PCA scores of log2(Y+1)
-    (reference R/inference-tflow.R:204-207), before the jitter. A restart
-    sweep computes them once and shares them across lanes."""
-    N = Y.shape[0]
+    (reference R/inference-tflow.R:204-207), before the jitter, row-blocked
+    above ``_CHUNK_ELEMENTS``. A restart sweep computes them once and shares
+    them across lanes."""
+    N, G = Y.shape
     if K <= 0:
         return torch.zeros(N, 0, dtype=dtype, device=Y.device)
-    pcs = randomized_pca(torch.log2(Y.to(dtype) + 1.0), K, noise)
+    if N * G > _CHUNK_ELEMENTS:
+        pcs = _pca_scores_blocked(Y, K, noise, dtype)
+    else:
+        pcs = randomized_pca(torch.log2(Y.to(dtype) + 1.0), K, noise)
     return _standardize(pcs, dim=0)
 
 
 def data_mu_guess(Y, dtype=torch.float32):
     """colMeans(Y / rowMeans(Y)) — the data-driven mu initialization
-    (reference R/inference-tflow.R:220-231)."""
+    (reference R/inference-tflow.R:220-231), row-blocked above
+    ``_CHUNK_ELEMENTS``."""
+    N, G = Y.shape
+    if N * G > _CHUNK_ELEMENTS:
+        acc = torch.zeros(G, dtype=dtype, device=Y.device)
+        for i, j in _row_blocks(N, G):
+            yb = Y[i:j].to(dtype)
+            acc += torch.sum(yb / torch.mean(yb, dim=1, keepdim=True), dim=0)
+        return acc / N
     Y = Y.to(dtype)
     return torch.mean(Y / torch.mean(Y, dim=1, keepdim=True), dim=0)
 
@@ -280,13 +490,37 @@ def stack_lanes(tensors):
     return tensors[0].unsqueeze(0) if len(tensors) == 1 else torch.stack(tensors)
 
 
+class _RowBlockedProduct(torch.autograd.Function):
+    """``Y @ B2`` over row blocks of Y, each converted to B2's dtype (a no-op
+    for Y in it), in full float32. The backward converts each block again
+    for ``dB2 = sum_blocks Y_block^T dOut_block`` instead of keeping the
+    converted blocks, so a narrow Y never has a full-precision copy, not
+    even between the forward and the backward. Y gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, Y, B2):
+        ctx.save_for_backward(Y)
+        with full_fp32_matmul():
+            return torch.cat([Y[i:j].to(B2.dtype) @ B2 for i, j in _row_blocks(*Y.shape)], dim=0)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (Y,) = ctx.saved_tensors
+        dB2 = torch.zeros(Y.shape[1], dout.shape[1], dtype=dout.dtype, device=dout.device)
+        with full_fp32_matmul():
+            for i, j in _row_blocks(*Y.shape):
+                dB2 += Y[i:j].to(dout.dtype).T @ dout[i:j]
+        return None, dB2
+
+
 def _y_times(Y, B):
     """``Y @ B`` for B of shape (..., G, J), as (..., N, J): one product with
-    Y serves every lane."""
-    G, J = B.shape[-2:]
+    Y serves every lane, row-blocked (:class:`_RowBlockedProduct`) so that
+    every storage type of Y takes the same path."""
+    (N, G), J = Y.shape, B.shape[-1]
     lead = B.shape[:-2]
-    out = Y @ B.movedim(-2, 0).reshape(G, -1)  # (N, prod(lead) * J)
-    return out.reshape(Y.shape[0], *lead, J).movedim(0, -2)
+    out = _RowBlockedProduct.apply(Y, B.movedim(-2, 0).reshape(G, -1))  # (N, prod(lead) J)
+    return out.reshape(N, *lead, J).movedim(0, -2)
 
 
 def _a_terms(params, data, log_mu):

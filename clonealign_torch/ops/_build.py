@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ctypes. The build runs
-at first use, into ``_build_cache/`` beside this file, under a name keyed by
-a hash of the sources and flags, so a changed source is rebuilt and an
-unchanged one is reused. Nothing here runs when the module is imported.
+shared library with a plain C interface, loaded with ctypes. The source is
+compiled as several translation units at once (``PARTS``, one ``nvcc`` each,
+all started together; see the source's "Build" note), which are then linked.
+The build runs at first use, into ``_build_cache/`` beside this file, under a
+name keyed by a hash of the sources and flags, so a changed source is rebuilt
+and an unchanged one is reused. Nothing here runs when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -20,10 +23,11 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "csrc" / "fused_likelihood.cu",)
 BUILD_DIR = _HERE / "_build_cache"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# FL_PART of each translation unit: -1 the Y-free kernels and the C entry
+# points, 0-3 the Y-reading kernels of one Y storage type each.
+PARTS = (-1, 0, 1, 2, 3)
 
 _lib = None
 build_log = ""  # nvcc's output (ptxas register and spill report) of the last build
@@ -47,27 +51,40 @@ def library_path() -> Path:
     digest = hashlib.sha256()
     for src in SOURCES:
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + tuple(map(str, PARTS))).encode())
     return BUILD_DIR / f"libclonealign_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists.
-    Raises RuntimeError with nvcc's output when the build fails."""
+    """Compile the kernels unless a library for these sources exists: one
+    object per source and part, compiled in parallel, then linked. Raises
+    RuntimeError with nvcc's output when the build fails."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs, objs = [], []
+        for src in SOURCES:
+            for part in PARTS:
+                obj = os.path.join(tmp, f"{src.stem}_{part + 1}.o")
+                objs.append(obj)
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, f"-DFL_PART={part}", "-c", "-o", obj, str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(logs)
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        so = os.path.join(tmp, out.name)
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{build_log}")
+        os.replace(so, out)  # atomic: a concurrent loader never sees a partial file
     return out
 
 
@@ -78,11 +95,11 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fl_forward.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.fl_forward.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.fl_forward.restype = i
     lib.fl_backward_dpsi.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.fl_backward_dpsi.restype = i
-    lib.fl_backward_gene.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.fl_backward_gene.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.fl_backward_gene.restype = i
     lib.fl_backward_gene_scratch.argtypes = [i] * 6
     lib.fl_backward_gene_scratch.restype = ctypes.c_size_t

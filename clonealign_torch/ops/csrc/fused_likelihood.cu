@@ -103,14 +103,90 @@
 //    0.91 ms with the packing and the reduction, against 0.60 ms for one
 //    read of Y.
 //
-// TMA, narrow Y storage and a lane axis for batched restarts are not used
-// here.
+// Y storage. Y reaches both Y-reading kernels (fwd_kernel, gene_kernel) in
+// its storage type: float32, bfloat16, int16 or int8 (YT, the codes of
+// ops/fused_likelihood.py's Y_DTYPES), so one read of Y moves 4, 2 or 1
+// bytes an element (2 GB, 1 GB or 0.5 GB at full width: 0.60, 0.30 or
+// 0.15 ms). A lane loads four consecutive counts as one piece (16, 8 or 4
+// bytes) and converts them in registers where it uses them, exactly: a
+// bfloat16 is the top half of a float, and an integer is permuted into the
+// significand of 1.5 * 2^23 and taken off it with one subtraction, on the
+// integer and FMA pipes rather than the conversion pipe the exps use
+// (piece_to_float4). The warp geometry is the float32 one; rows whose
+// pieces are not aligned (G % 4 != 0) take a scalar path. Measured at full
+// width on an H100 80GB HBM3 (700 W): the forward 0.887, 0.769 and 0.716 ms
+// for float32, int16 and int8 Y (chip_smoke.py), the gene part 0.90-0.92
+// and 0.87-0.88 ms for float32 and int8 (gene_variants.py). A warp's load
+// covers 128, 64 or 32 bytes of a row, so the narrow stream moves fewer
+// bytes in as many loads, and Y's bytes no longer set either kernel's time.
+//
+// TMA and a lane axis for batched restarts are not used here.
+//
+// Build: one translation unit holds everything, or ops/_build.py compiles
+// this file as five in parallel and links them: FL_PART = -1 holds the
+// Y-free kernels and the C entry points, FL_PART = YT the Y-reading kernels
+// of one storage type (fl::forward_typed<YT>, fl::gene_typed<YT>).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#ifndef FL_PART
+#define FL_COMMON 1
+#define FL_TYPED(code) 1
+#elif FL_PART < 0
+#define FL_COMMON 1
+#define FL_TYPED(code) 0
+#else
+#define FL_COMMON 0
+#define FL_TYPED(code) ((code) == FL_PART)
+#endif
+#define FL_ANY_TYPED (FL_TYPED(0) || FL_TYPED(1) || FL_TYPED(2) || FL_TYPED(3))
+
+namespace fl {
+
+// Y storage types: the codes of ops/fused_likelihood.py's Y_DTYPES.
+constexpr int kYF32 = 0, kYBF16 = 1, kYI16 = 2, kYI8 = 3;
+
+// Cells are packed and walked in tiles of kCellTile; N is padded to a whole
+// tile with zeros.
+struct GenePlan {
+  int KF, NT, n_pass, kCT, n_pad, n_chunks;
+  size_t part, bp, ct;  // floats of the scratch: partial sums, packed B, cell table
+};
+
+struct FwdArgs {
+  const void* Y;  // (N, G) in the storage type
+  const float *psi, *W, *logmu, *muL;
+  float *A1, *A2, *Z, *YW;
+  int N, G, Kf, nA2, SC;
+  cudaStream_t stream;
+};
+
+struct GeneArgs {
+  const void* Y;  // (N, G) in the storage type
+  const float *W, *muL;
+  const float4* bp;  // packed by gene_pack_kernel
+  const float* ct;
+  float* part;
+  int N, G, Kf, nA2, SC, rows_per_chunk;
+  GenePlan plan;
+  cudaStream_t stream;
+};
+
+// The Y-reading kernels of one storage type: fwd_kernel, and gene_kernel
+// (between gene_pack_kernel and reduce_chunks_kernel, which fl_backward_gene
+// launches).
+template <int YT> void forward_typed(const FwdArgs& a);
+template <int YT> void gene_typed(const GeneArgs& a);
+
+}  // namespace fl
+
 namespace {
+
+using namespace fl;
 
 constexpr int kWarp = 32;
 constexpr int kMaxKf = 4;
@@ -194,27 +270,78 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)
   mma_tf32(d, a_hi, b_hi0, b_hi1);
 }
 
-// Genes g .. g+3 of one Y row, zero past G. vec: rows are 16-byte aligned
-// (G % 4 == 0 and Y aligned), so g .. g+3 are all in or all out.
-__device__ __forceinline__ float4 load_y4(const float* __restrict__ row, int g,
-                                          int G, bool vec) {
-  if (vec) return g < G ? __ldcs(reinterpret_cast<const float4*>(row + g))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-  return make_float4(g < G ? __ldcs(row + g) : 0.f, g + 1 < G ? __ldcs(row + g + 1) : 0.f,
-                     g + 2 < G ? __ldcs(row + g + 2) : 0.f,
-                     g + 3 < G ? __ldcs(row + g + 3) : 0.f);
+// Y in its storage type: Elem is one count, Piece four consecutive ones.
+template <int YT> struct YStore;
+template <> struct YStore<kYF32> { using Elem = float; using Piece = float4; };
+template <> struct YStore<kYBF16> { using Elem = uint16_t; using Piece = uint2; };  // bfloat16 bits
+template <> struct YStore<kYI16> { using Elem = int16_t; using Piece = uint2; };
+template <> struct YStore<kYI8> { using Elem = int8_t; using Piece = uint32_t; };
+
+// The four counts of a piece as floats, exactly. An integer v of b bits
+// with its sign bit flipped is v + 2^(b-1) >= 0; permuted into the low
+// bytes of 0x4b400000 (1.5 * 2^23, whose significand's low 22 bits are 0)
+// it makes the float 1.5 * 2^23 + v + 2^(b-1), and one subtraction leaves
+// v: a byte permute and an add, not a conversion on the pipe the exps use.
+template <int YT>
+__device__ __forceinline__ float4 piece_to_float4(typename YStore<YT>::Piece p) {
+  if constexpr (YT == kYF32) {
+    return p;
+  } else if constexpr (YT == kYBF16) {
+    return make_float4(__uint_as_float(p.x << 16), __uint_as_float(p.x & 0xffff0000u),
+                       __uint_as_float(p.y << 16), __uint_as_float(p.y & 0xffff0000u));
+  } else if constexpr (YT == kYI16) {
+    constexpr float kOff = 12582912.f + 32768.f;
+    const uint32_t a = p.x ^ 0x80008000u, b = p.y ^ 0x80008000u;
+    return make_float4(__uint_as_float(__byte_perm(a, 0x4b400000u, 0x7610)) - kOff,
+                       __uint_as_float(__byte_perm(a, 0x4b400000u, 0x7632)) - kOff,
+                       __uint_as_float(__byte_perm(b, 0x4b400000u, 0x7610)) - kOff,
+                       __uint_as_float(__byte_perm(b, 0x4b400000u, 0x7632)) - kOff);
+  } else {
+    constexpr float kOff = 12582912.f + 128.f;
+    const uint32_t a = p ^ 0x80808080u;
+    return make_float4(__uint_as_float(__byte_perm(a, 0x4b400000u, 0x7650)) - kOff,
+                       __uint_as_float(__byte_perm(a, 0x4b400000u, 0x7651)) - kOff,
+                       __uint_as_float(__byte_perm(a, 0x4b400000u, 0x7652)) - kOff,
+                       __uint_as_float(__byte_perm(a, 0x4b400000u, 0x7653)) - kOff);
+  }
+}
+
+// Genes g .. g+3 of one Y row as a piece, zero past G. vec: every piece is
+// aligned (G % 4 == 0 and Y aligned to a piece), so g .. g+3 are all in or
+// all out; otherwise each count is loaded alone.
+template <int YT>
+__device__ __forceinline__ typename YStore<YT>::Piece load_y4(
+    const typename YStore<YT>::Elem* __restrict__ row, int g, int G, bool vec) {
+  using Elem = typename YStore<YT>::Elem;
+  using Piece = typename YStore<YT>::Piece;
+  if (vec) return g < G ? __ldcs(reinterpret_cast<const Piece*>(row + g)) : Piece{};
+  Elem e[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) e[u] = g + u < G ? __ldcs(row + g + u) : Elem(0);
+  if constexpr (YT == kYF32) {
+    return make_float4(e[0], e[1], e[2], e[3]);
+  } else if constexpr (YT == kYI8) {
+    return (uint32_t)(uint8_t)e[0] | (uint32_t)(uint8_t)e[1] << 8 |
+           (uint32_t)(uint8_t)e[2] << 16 | (uint32_t)(uint8_t)e[3] << 24;
+  } else {
+    return make_uint2((uint32_t)(uint16_t)e[0] | (uint32_t)(uint16_t)e[1] << 16,
+                      (uint32_t)(uint16_t)e[2] | (uint32_t)(uint16_t)e[3] << 16);
+  }
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
 
+#if FL_ANY_TYPED
 // ---------------------------------------------------------------------------
-// Forward: A1, optional A2, Z and Y W. KF = max(Kf, 1).
+// Forward: A1, optional A2, Z and Y W. YT: Y's storage type; KF = max(Kf, 1).
 // ---------------------------------------------------------------------------
-template <int KF, int NT, bool WITH_A2>
-__global__ void __launch_bounds__(kFwdWarps * kWarp)
-fwd_kernel(const float* __restrict__ Y, const float* __restrict__ psi,
+// Two blocks an SM, so at most 128 registers: with only the block size
+// given, ptxas cut some narrow-Y instantiations to 64 registers and spilled.
+template <int YT, int KF, int NT, bool WITH_A2>
+__global__ void __launch_bounds__(kFwdWarps * kWarp, 2)
+fwd_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ psi,
            const float* __restrict__ W, const float* __restrict__ logmu,
            const float* __restrict__ muL, float* __restrict__ A1,
            float* __restrict__ A2, float* __restrict__ Z,
@@ -241,15 +368,16 @@ fwd_kernel(const float* __restrict__ Y, const float* __restrict__ psi,
     p0[k] = (k < Kf && n0 < N) ? psi[(size_t)n0 * Kf + k] : 0.f;
     p1[k] = (k < Kf && n1 < N) ? psi[(size_t)n1 * Kf + k] : 0.f;
   }
-  const float* y_rows = Y + (size_t)(row0 + yr) * G;
+  using Piece = typename YStore<YT>::Piece;
+  const typename YStore<YT>::Elem* y_rows = Y + (size_t)(row0 + yr) * G;
   bool live[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) live[i] = row0 + yr + 4 * i < N;
-  auto load_sub = [&](float4 (&y)[4], int g) {
+  // The next sub-tile's pieces stay in the storage type until they are used.
+  auto load_sub = [&](Piece (&y)[4], int g) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      y[i] = live[i] ? load_y4(y_rows + (size_t)(4 * i) * G, g + 4 * q, G, vec)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      y[i] = live[i] ? load_y4<YT>(y_rows + (size_t)(4 * i) * G, g + 4 * q, G, vec) : Piece{};
   };
 
   float yw[4][KF], ylm[4][kA2], z[NT][4];
@@ -265,8 +393,11 @@ fwd_kernel(const float* __restrict__ Y, const float* __restrict__ psi,
 #pragma unroll
     for (int e = 0; e < 4; ++e) z[t][e] = 0.f;
 
-  float4 y_next[4];
-  load_sub(y_next, 0);
+  // A2's 16 sums take the registers of the next sub-tile's Y: with A2 each
+  // sub-tile's Y is loaded at its start (still ahead of its Z work).
+  constexpr bool kPrefetch = !WITH_A2;
+  Piece y_next[4];
+  if constexpr (kPrefetch) load_sub(y_next, 0);
   const int n_sub = (G + kFwdSub - 1) / kFwdSub;
   // No early exit: every warp takes part in the block's barriers; rows past
   // N compute on zeros and write nothing.
@@ -286,10 +417,14 @@ fwd_kernel(const float* __restrict__ Y, const float* __restrict__ psi,
       __syncthreads();
     }
 
-    float4 y[4];
+    Piece y_raw[4];
+    if constexpr (kPrefetch) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) y[i] = y_next[i];
-    if (sub + 1 < n_sub) load_sub(y_next, gs + kFwdSub);
+      for (int i = 0; i < 4; ++i) y_raw[i] = y_next[i];
+      if (sub + 1 < n_sub) load_sub(y_next, gs + kFwdSub);
+    } else {
+      load_sub(y_raw, gs);
+    }
 
     // Z on tensor cores, this sub-tile summed in fresh accumulators.
     float zs[NT][4];
@@ -321,7 +456,11 @@ fwd_kernel(const float* __restrict__ Y, const float* __restrict__ psi,
 #pragma unroll
       for (int e = 0; e < 4; ++e) z[t][e] += zs[t][e];
 
-    // Y W (and Y log mu) on CUDA cores.
+    // Y W (and Y log mu) on CUDA cores, Y converted only now: its pieces
+    // stay narrow in registers while the Z work hides their loads.
+    float4 y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y[i] = piece_to_float4<YT>(y_raw[i]);
 #pragma unroll
     for (int k = 0; k < KF; ++k) {
       const float4 w = *reinterpret_cast<const float4*>(&s_w[k][c0 + 4 * q]);
@@ -375,7 +514,9 @@ fwd_kernel(const float* __restrict__ Y, const float* __restrict__ psi,
     }
   }
 }
+#endif  // FL_ANY_TYPED
 
+#if FL_COMMON
 // ---------------------------------------------------------------------------
 // Backward, cell-major, Y-free: dpsi[n,k] = dA1[n] YW[n,k]
 //   + sum_j dZ[n,j] sum_g (exp(psi[n].W[g]) W[g,k]) muL[g,j].
@@ -510,6 +651,7 @@ dpsi_kernel(const float* __restrict__ psi, const float* __restrict__ W,
       dpsi[(size_t)n1 * KF + k] = (float)fma((double)dA1[n1], (double)YW[(size_t)n1 * KF + k], v1);
   }
 }
+#endif  // FL_COMMON
 
 // ---------------------------------------------------------------------------
 // Backward, gene-major partial sums over one chunk of cells:
@@ -537,22 +679,17 @@ __device__ __forceinline__ void split_tf32_int(float x, uint32_t& hi, uint32_t& 
   lo = round_tf32(x - __uint_as_float(hi));
 }
 
-// Cells are packed and walked in tiles of kCellTile; N is padded to a whole
-// tile with zeros.
-struct GenePlan {
-  int KF, NT, n_pass, kCT, n_pad, n_chunks;
-  size_t part, bp, ct;  // floats of the scratch: partial sums, packed B, cell table
-};
-
-// cp.async of 16 (4) bytes that reads the first `bytes` of them from gmem
-// and zero-fills the rest.
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
+// cp.async of kBytes (16, 8 or 4) that reads the first `bytes` of them from
+// gmem and zero-fills the rest.
+template <int kBytes>
+__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+  else if constexpr (kBytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -564,6 +701,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // (lane >> 2): a lane's operands for n-tile t of k-step ks, zero past N and NC.
 // ct[n] = [psi[n, 0..KF) | dA1[n] psi[n, 0..KF) | dA2[n, 0..kMaxA2)] (the last
 // part only WITH_A2), zero past N, Kf and nA2.
+#if FL_COMMON
 template <int KF, int NT, bool WITH_A2>
 __global__ void gene_pack_kernel(const float* __restrict__ psi, const float* __restrict__ dA1,
                                  const float* __restrict__ dA2, const float* __restrict__ dZ,
@@ -607,10 +745,12 @@ __global__ void gene_pack_kernel(const float* __restrict__ psi, const float* __r
     ct[e] = v;
   }
 }
+#endif  // FL_COMMON
 
-template <int KF, int NT, bool WITH_A2>
+#if FL_ANY_TYPED
+template <int YT, int KF, int NT, bool WITH_A2>
 __global__ void __launch_bounds__(kGeneWarps * kWarp, 2)
-gene_kernel(const float* __restrict__ Y, const float* __restrict__ W,
+gene_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ W,
             const float* __restrict__ muL, const float4* __restrict__ bp,
             const float* __restrict__ ct, float* __restrict__ part, int N, int G,
             int Kf, int nA2, int SC, int rows_per_chunk, int n_pad, bool vec) {
@@ -618,15 +758,22 @@ gene_kernel(const float* __restrict__ Y, const float* __restrict__ W,
   constexpr int kCT = KF + kYF;                     // cell-table floats a cell
   constexpr int kBTile = kCellSteps * NT * kWarp;   // float4s of B a tile
   constexpr int kCTTile = kCellTile * kCT / 4;      // float4s of the cell table a tile
-  // The pair loop unrolled where it fits in 128 registers without spilling.
-  constexpr int kPairUnroll = NT <= 2 || (NT == 3 && KF == 1 && !WITH_A2) ? kCellSteps / 2 : 1;
-  // Dynamic shared memory (sized by launch_gene): a ring of two tiles of B
-  // fragments and of Y rows during the walk; the warps' Y sums after it.
+  // The pair loop and the Y terms' loop unrolled as far as fits in 128
+  // registers without spilling, for every Y storage type (the Y loop fully
+  // unrolled was 6% faster than by two: gene_variants.py).
+  constexpr int kPairUnroll =
+      NT == 1 || (NT <= 3 && KF == 1 && !WITH_A2) ? kCellSteps / 2 : NT == 2 ? 2 : 1;
+  constexpr int kYUnroll = NT == 4 && KF == 1 && !WITH_A2 ? 2 : kCellsPerWarp;
+  using Elem = typename YStore<YT>::Elem;
+  using Piece = typename YStore<YT>::Piece;
+  // Dynamic shared memory (sized by gene_typed): a ring of two tiles of B
+  // fragments and of Y rows (in Y's storage type) during the walk; the
+  // warps' Y sums after it.
   extern __shared__ float4 s_dyn[];
   __shared__ __align__(16) float s_ct[2][kCellTile][kCT];
   __shared__ float s_dw[KF][kGeneBlock];
   auto s_b = reinterpret_cast<float4 (*)[kCellSteps][NT][kWarp]>(s_dyn);
-  auto s_yt = reinterpret_cast<float4 (*)[kCellTile][kGeneBlock / 4]>(s_dyn + 2 * kBTile);
+  auto s_yt = reinterpret_cast<Piece (*)[kCellTile][kGeneBlock / 4]>(s_dyn + 2 * kBTile);
   auto s_y = reinterpret_cast<float (*)[kYF][kGeneBlock]>(s_dyn);
 
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
@@ -673,25 +820,34 @@ gene_kernel(const float* __restrict__ Y, const float* __restrict__ W,
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
         const int e = threadIdx.x + i * kGeneWarps * kWarp;
-        cp_async16_zfill(&s_b[buf][0][0][0] + e, src + e, 16);
+        cp_async_zfill<16>(&s_b[buf][0][0][0] + e, src + e, 16);
       }
       if (threadIdx.x < kCTTile)
-        cp_async16_zfill(&s_ct[buf][0][0] + 4 * threadIdx.x, ct + (size_t)n0 * kCT + 4 * threadIdx.x, 16);
+        cp_async_zfill<16>(&s_ct[buf][0][0] + 4 * threadIdx.x, ct + (size_t)n0 * kCT + 4 * threadIdx.x, 16);
       if (stream_y) {
         // Not unrolled: the row addresses are then formed as they are needed
         // rather than kept in registers across the walk.
 #pragma unroll 1
         for (int i = 0; i < kCellsPerWarp; ++i) {
           const int cl = warp + kGeneWarps * i, n = n0 + cl;
-          float4* dst = &s_yt[buf][cl][lane];
-          const float* row = Y + (size_t)(n < n_end ? n : 0) * G;
+          Piece* dst = &s_yt[buf][cl][lane];
+          const Elem* row = Y + (size_t)(n < n_end ? n : 0) * G;
           if (vec) {
-            cp_async16_zfill(dst, row + (gy < G ? gy : 0), n < n_end && gy < G ? 16 : 0);
+            cp_async_zfill<sizeof(Piece)>(dst, row + (gy < G ? gy : 0),
+                                          n < n_end && gy < G ? (int)sizeof(Piece) : 0);
           } else {
+            // Unaligned pieces go count by count: a float32 one by a 4-byte
+            // cp.async, one of 1 or 2 bytes (under cp.async's least size)
+            // by the thread's own load and store.
+            Elem* d = reinterpret_cast<Elem*>(dst);
 #pragma unroll
-            for (int u = 0; u < 4; ++u)
-              cp_async4_zfill(reinterpret_cast<float*>(dst) + u, row + (gy + u < G ? gy + u : 0),
-                              n < n_end && gy + u < G ? 4 : 0);
+            for (int u = 0; u < 4; ++u) {
+              const bool in = n < n_end && gy + u < G;
+              if constexpr (YT == kYF32)
+                cp_async_zfill<4>(d + u, row + (in ? gy + u : 0), in ? 4 : 0);
+              else
+                d[u] = in ? row[gy + u] : Elem(0);
+            }
           }
         }
       }
@@ -759,10 +915,10 @@ gene_kernel(const float* __restrict__ Y, const float* __restrict__ W,
 
       // The Y terms on CUDA cores: the warp's rows of the tile.
       if (stream_y) {
-#pragma unroll
+#pragma unroll kYUnroll
         for (int i = 0; i < kCellsPerWarp; ++i) {
           const int cl = warp + kGeneWarps * i;
-          const float4 y = s_yt[buf][cl][lane];
+          const float4 y = piece_to_float4<YT>(s_yt[buf][cl][lane]);
 #pragma unroll
           for (int r = 0; r < kYF; ++r) {
             const float f = s_ct[buf][cl][KF + r];
@@ -831,7 +987,9 @@ gene_kernel(const float* __restrict__ Y, const float* __restrict__ W,
       part[((size_t)chunk * F + Kf + SC + r - KF) * G + g] = v;
   }
 }
+#endif  // FL_ANY_TYPED
 
+#if FL_COMMON
 // out[i] = sum over chunks of part[chunk, i], chunks added in order.
 __global__ void reduce_chunks_kernel(const float* __restrict__ part,
                                      float* __restrict__ out, int n_chunks,
@@ -843,40 +1001,45 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ part,
   out[i] = acc;
 }
 
-int blocks_for(long long threads, int per_block) {
+#endif  // FL_COMMON
+
+inline int blocks_for(long long threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
 }
 
-template <int KF, int NT>
-void launch_fwd(const float* Y, const float* psi, const float* W,
-                const float* logmu, const float* muL, float* A1, float* A2,
-                float* Z, float* YW, int N, int G, int Kf, int nA2, int SC,
-                cudaStream_t stream) {
-  const int grid = blocks_for(N, kFwdWarps * kFwdRows);
-  const bool vec = G % 4 == 0 && reinterpret_cast<uintptr_t>(Y) % 16 == 0;
-  if (nA2 > 0)
-    fwd_kernel<KF, NT, true><<<grid, kFwdWarps * kWarp, 0, stream>>>(
-        Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, vec);
-  else
-    fwd_kernel<KF, NT, false><<<grid, kFwdWarps * kWarp, 0, stream>>>(
-        Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, vec);
+// Calls f(KF, NT, A2), each a std::integral_constant, for the gene-major
+// instantiation that plan p and nA2 > 0 (with_a2) select. Only the n-tile
+// counts gene_plan can pick for a KF are instantiated.
+template <class F>
+inline void gene_dispatch(const GenePlan& p, bool with_a2, F&& f) {
+  auto at_kf = [&](auto kf) {
+    constexpr int KF = decltype(kf)::value;
+    auto at_nt = [&](auto nt) {
+      if (with_a2)
+        f(kf, nt, std::true_type{});
+      else
+        f(kf, nt, std::false_type{});
+    };
+    if (p.NT == 1) {
+      at_nt(std::integral_constant<int, 1>{});
+    } else if (p.NT == 2) {
+      at_nt(std::integral_constant<int, 2>{});
+    } else if constexpr (max_live_nt(KF) >= 3) {
+      if (p.NT == 3)
+        at_nt(std::integral_constant<int, 3>{});
+      else if constexpr (max_live_nt(KF) >= 4)
+        at_nt(std::integral_constant<int, 4>{});
+    }
+  };
+  switch (p.KF) {
+    case 1: at_kf(std::integral_constant<int, 1>{}); break;
+    case 2: at_kf(std::integral_constant<int, 2>{}); break;
+    case 3: at_kf(std::integral_constant<int, 3>{}); break;
+    default: at_kf(std::integral_constant<int, 4>{});
+  }
 }
 
-// One instantiation per n-tile count (8 Z columns each): every padding
-// column costs the tensor cores a third of an n-tile's work.
-template <int KF>
-void launch_fwd_nt(const float* Y, const float* psi, const float* W,
-                   const float* logmu, const float* muL, float* A1, float* A2,
-                   float* Z, float* YW, int N, int G, int Kf, int nA2, int SC,
-                   cudaStream_t stream) {
-  if (SC <= 8)
-    launch_fwd<KF, 1>(Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, stream);
-  else if (SC <= 16)
-    launch_fwd<KF, 2>(Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, stream);
-  else
-    launch_fwd<KF, 4>(Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, stream);
-}
-
+#if FL_COMMON
 template <int KF>
 void launch_dpsi(const float* psi, const float* W, const float* muL,
                  const float* dA1, const float* dZ, const float* YW, float* dpsi,
@@ -913,86 +1076,122 @@ GenePlan gene_plan(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk) {
   return p;
 }
 
-template <int KF, int NT, bool WITH_A2>
-void launch_gene(const float* Y, const float* psi, const float* W,
-                 const float* muL, const float* dA1, const float* dA2,
-                 const float* dZ, float* scratch, float* dgene, int N, int G,
-                 int Kf, int nA2, int SC, int rows_per_chunk, const GenePlan& p,
-                 cudaStream_t stream) {
-  float* part = scratch;
-  float4* bp = reinterpret_cast<float4*>(scratch + p.part);
-  float* ct = scratch + p.part + p.bp;
-  gene_pack_kernel<KF, NT, WITH_A2><<<blocks_for((long long)(p.bp / 4 + p.ct), 256), 256, 0, stream>>>(
-      psi, dA1, dA2, dZ, bp, ct, N, Kf, nA2, SC, p.n_pass, p.n_pad);
-  const dim3 grid(blocks_for(G, kGeneBlock), p.n_chunks);
-  const bool vec = G % 4 == 0 && reinterpret_cast<uintptr_t>(Y) % 16 == 0;
-  constexpr int kYF = KF + (WITH_A2 ? kMaxA2 : 0);
-  constexpr int kRing = 2 * (kCellSteps * NT * kWarp + kCellTile * kGeneBlock / 4) * 16;
-  constexpr int kYSums = kGeneWarps * kYF * kGeneBlock * 4;
-  constexpr int kSmem = kRing > kYSums ? kRing : kYSums;
-  cudaFuncSetAttribute(gene_kernel<KF, NT, WITH_A2>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  gene_kernel<KF, NT, WITH_A2><<<grid, kGeneWarps * kWarp, kSmem, stream>>>(
-      Y, W, muL, bp, ct, part, N, G, Kf, nA2, SC, rows_per_chunk, p.n_pad, vec);
-  const int FG = (Kf + SC + nA2) * G;
-  reduce_chunks_kernel<<<blocks_for(FG, 256), 256, 0, stream>>>(part, dgene, p.n_chunks, FG);
-}
-
-template <int KF, int NT>
-void launch_gene_a2(const float* Y, const float* psi, const float* W,
-                    const float* muL, const float* dA1, const float* dA2,
-                    const float* dZ, float* scratch, float* dgene, int N, int G,
-                    int Kf, int nA2, int SC, int rows_per_chunk, const GenePlan& p,
-                    cudaStream_t stream) {
-  if (nA2 > 0)
-    launch_gene<KF, NT, true>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
-  else
-    launch_gene<KF, NT, false>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
-}
-
-template <int KF>
-void launch_gene_nt(const float* Y, const float* psi, const float* W,
-                    const float* muL, const float* dA1, const float* dA2,
-                    const float* dZ, float* scratch, float* dgene, int N, int G,
-                    int Kf, int nA2, int SC, int rows_per_chunk, const GenePlan& p,
-                    cudaStream_t stream) {
-  // Only the n-tile counts gene_plan can pick for this KF are instantiated.
-  if (p.NT == 1)
-    launch_gene_a2<KF, 1>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
-  else if (p.NT == 2)
-    launch_gene_a2<KF, 2>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
-  else if constexpr (max_live_nt(KF) >= 3) {
-    if (p.NT == 3)
-      launch_gene_a2<KF, 3>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
-    else if constexpr (max_live_nt(KF) >= 4)
-      launch_gene_a2<KF, 4>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
-  }
-}
-
-bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk) {
+bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk, int y_type) {
   return N < 1 || G < 1 || Kf < 0 || Kf > kMaxKf || nA2 < 0 || nA2 > kMaxA2 ||
-         SC < 1 || SC > 32 || rows_per_chunk < 1;
+         SC < 1 || SC > 32 || rows_per_chunk < 1 || y_type < kYF32 || y_type > kYI8;
 }
+#endif  // FL_COMMON
+
+#if FL_ANY_TYPED
+template <int YT, int KF, int NT>
+void launch_fwd(const FwdArgs& a) {
+  using Elem = typename YStore<YT>::Elem;
+  const Elem* Y = static_cast<const Elem*>(a.Y);
+  const int grid = blocks_for(a.N, kFwdWarps * kFwdRows);
+  const bool vec = a.G % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(Y) % sizeof(typename YStore<YT>::Piece) == 0;
+  if (a.nA2 > 0)
+    fwd_kernel<YT, KF, NT, true><<<grid, kFwdWarps * kWarp, 0, a.stream>>>(
+        Y, a.psi, a.W, a.logmu, a.muL, a.A1, a.A2, a.Z, a.YW, a.N, a.G, a.Kf, a.nA2, a.SC, vec);
+  else
+    fwd_kernel<YT, KF, NT, false><<<grid, kFwdWarps * kWarp, 0, a.stream>>>(
+        Y, a.psi, a.W, a.logmu, a.muL, a.A1, a.A2, a.Z, a.YW, a.N, a.G, a.Kf, a.nA2, a.SC, vec);
+}
+
+// One instantiation per n-tile count (8 Z columns each): every padding
+// column costs the tensor cores a third of an n-tile's work.
+template <int YT, int KF>
+void launch_fwd_nt(const FwdArgs& a) {
+  if (a.SC <= 8)
+    launch_fwd<YT, KF, 1>(a);
+  else if (a.SC <= 16)
+    launch_fwd<YT, KF, 2>(a);
+  else
+    launch_fwd<YT, KF, 4>(a);
+}
+#endif  // FL_ANY_TYPED
 
 }  // namespace
 
+namespace fl {
+
+#if FL_ANY_TYPED
+template <int YT>
+void forward_typed(const FwdArgs& a) {
+  switch (a.Kf) {
+    case 0:  // rfe = exp(0) = 1 and A1 = 0: one zero column
+    case 1: launch_fwd_nt<YT, 1>(a); break;
+    case 2: launch_fwd_nt<YT, 2>(a); break;
+    case 3: launch_fwd_nt<YT, 3>(a); break;
+    default: launch_fwd_nt<YT, 4>(a);
+  }
+}
+
+template <int YT>
+void gene_typed(const GeneArgs& a) {
+  using Elem = typename YStore<YT>::Elem;
+  using Piece = typename YStore<YT>::Piece;
+  const Elem* Y = static_cast<const Elem*>(a.Y);
+  const dim3 grid(blocks_for(a.G, kGeneBlock), a.plan.n_chunks);
+  const bool vec = a.G % 4 == 0 && reinterpret_cast<uintptr_t>(Y) % sizeof(Piece) == 0;
+  gene_dispatch(a.plan, a.nA2 > 0, [&](auto kf, auto nt, auto a2) {
+    constexpr int KF = decltype(kf)::value, NT = decltype(nt)::value;
+    constexpr bool A2 = decltype(a2)::value;
+    // Dynamic shared memory: the ring's two tiles of B fragments and of Y
+    // pieces, or the warps' Y sums after the walk, whichever is larger.
+    constexpr int kYF = KF + (A2 ? kMaxA2 : 0);
+    constexpr int kRing = 2 * (kCellSteps * NT * kWarp * 16 +
+                               kCellTile * (kGeneBlock / 4) * (int)sizeof(Piece));
+    constexpr int kYSums = kGeneWarps * kYF * kGeneBlock * 4;
+    constexpr int kSmem = kRing > kYSums ? kRing : kYSums;
+    cudaFuncSetAttribute(gene_kernel<YT, KF, NT, A2>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    gene_kernel<YT, KF, NT, A2><<<grid, kGeneWarps * kWarp, kSmem, a.stream>>>(
+        Y, a.W, a.muL, a.bp, a.ct, a.part, a.N, a.G, a.Kf, a.nA2, a.SC, a.rows_per_chunk,
+        a.plan.n_pad, vec);
+  });
+}
+#endif  // FL_ANY_TYPED
+
+#if FL_TYPED(0)
+template void forward_typed<kYF32>(const FwdArgs&);
+template void gene_typed<kYF32>(const GeneArgs&);
+#endif
+#if FL_TYPED(1)
+template void forward_typed<kYBF16>(const FwdArgs&);
+template void gene_typed<kYBF16>(const GeneArgs&);
+#endif
+#if FL_TYPED(2)
+template void forward_typed<kYI16>(const FwdArgs&);
+template void gene_typed<kYI16>(const GeneArgs&);
+#endif
+#if FL_TYPED(3)
+template void forward_typed<kYI8>(const FwdArgs&);
+template void gene_typed<kYI8>(const GeneArgs&);
+#endif
+
+}  // namespace fl
+
+#if FL_COMMON
 extern "C" {
 
-// All pointers are device pointers to contiguous float32 arrays:
-// Y (N,G), psi (N,Kf), W (G,Kf), logmu (nA2,G), muL (G,SC);
-// outputs A1 (N), A2 (N,nA2), Z (N,SC) and YW (N,Kf) = Y W. nA2 == 0 skips
-// A2 (logmu and A2 are then not read or written).
+// Y (N,G) is a device pointer to a contiguous array of the storage type
+// y_type (0 float32, 1 bfloat16, 2 int16, 3 int8); every other pointer is a
+// device pointer to a contiguous float32 array: psi (N,Kf), W (G,Kf), logmu
+// (nA2,G), muL (G,SC); outputs A1 (N), A2 (N,nA2), Z (N,SC) and YW (N,Kf) =
+// Y W. nA2 == 0 skips A2 (logmu and A2 are then not read or written).
 // Returns cudaGetLastError() after launch.
-int fl_forward(const float* Y, const float* psi, const float* W,
+int fl_forward(const void* Y, const float* psi, const float* W,
                const float* logmu, const float* muL, float* A1, float* A2,
                float* Z, float* YW, int N, int G, int Kf, int nA2, int SC,
-               cudaStream_t stream) {
-  if (bad_sizes(N, G, Kf, nA2, SC, 1)) return (int)cudaErrorInvalidValue;
-  switch (Kf) {
-    case 0:  // rfe = exp(0) = 1 and A1 = 0: one zero column
-    case 1: launch_fwd_nt<1>(Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, stream); break;
-    case 2: launch_fwd_nt<2>(Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, stream); break;
-    case 3: launch_fwd_nt<3>(Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, stream); break;
-    default: launch_fwd_nt<4>(Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, stream);
+               int y_type, cudaStream_t stream) {
+  if (bad_sizes(N, G, Kf, nA2, SC, 1, y_type)) return (int)cudaErrorInvalidValue;
+  const FwdArgs a{Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, stream};
+  switch (y_type) {
+    case kYF32: forward_typed<kYF32>(a); break;
+    case kYBF16: forward_typed<kYBF16>(a); break;
+    case kYI16: forward_typed<kYI16>(a); break;
+    default: forward_typed<kYI8>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -1004,7 +1203,7 @@ int fl_backward_dpsi(const float* psi, const float* W, const float* muL,
                      const float* dA1, const float* dZ, const float* YW,
                      float* dpsi, int N, int G, int Kf, int SC,
                      cudaStream_t stream) {
-  if (bad_sizes(N, G, Kf, 0, SC, 1)) return (int)cudaErrorInvalidValue;
+  if (bad_sizes(N, G, Kf, 0, SC, 1, kYF32)) return (int)cudaErrorInvalidValue;
   switch (Kf) {
     case 0: return (int)cudaSuccess;
     case 1: launch_dpsi<1>(psi, W, muL, dA1, dZ, YW, dpsi, N, G, SC, stream); break;
@@ -1018,30 +1217,43 @@ int fl_backward_dpsi(const float* psi, const float* W, const float* muL,
 // Floats of scratch that fl_backward_gene needs for these sizes (0 if they
 // are out of range). rows_per_chunk must be a multiple of 64.
 size_t fl_backward_gene_scratch(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk) {
-  if (bad_sizes(N, G, Kf, nA2, SC, rows_per_chunk) || rows_per_chunk % kCellTile) return 0;
+  if (bad_sizes(N, G, Kf, nA2, SC, rows_per_chunk, kYF32) || rows_per_chunk % kCellTile) return 0;
   const GenePlan p = gene_plan(N, G, Kf, nA2, SC, rows_per_chunk);
   return p.part + p.bp + p.ct;
 }
 
-// Backward, gene part. Y, psi, W and muL as fl_forward, dA1 (N), dA2
-// (N,nA2), dZ (N,SC). Output dgene (Kf+SC+nA2, G) = [dW^T; d(muL)^T;
-// dlog_mu]; scratch (16-byte aligned) holds fl_backward_gene_scratch(...)
-// floats. Kf == 0 runs as one zero column (rfe = 1).
-int fl_backward_gene(const float* Y, const float* psi, const float* W,
+// Backward, gene part. Y (in y_type), psi, W and muL as fl_forward, dA1
+// (N), dA2 (N,nA2), dZ (N,SC). Output dgene (Kf+SC+nA2, G) = [dW^T;
+// d(muL)^T; dlog_mu]; scratch (16-byte aligned) holds
+// fl_backward_gene_scratch(...) floats. Kf == 0 runs as one zero column
+// (rfe = 1).
+int fl_backward_gene(const void* Y, const float* psi, const float* W,
                      const float* muL, const float* dA1, const float* dA2,
                      const float* dZ, float* scratch, float* dgene, int N, int G,
-                     int Kf, int nA2, int SC, int rows_per_chunk,
+                     int Kf, int nA2, int SC, int rows_per_chunk, int y_type,
                      cudaStream_t stream) {
-  if (bad_sizes(N, G, Kf, nA2, SC, rows_per_chunk) || rows_per_chunk % kCellTile)
+  if (bad_sizes(N, G, Kf, nA2, SC, rows_per_chunk, y_type) || rows_per_chunk % kCellTile)
     return (int)cudaErrorInvalidValue;
   const GenePlan p = gene_plan(N, G, Kf, nA2, SC, rows_per_chunk);
-  switch (p.KF) {
-    case 1: launch_gene_nt<1>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream); break;
-    case 2: launch_gene_nt<2>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream); break;
-    case 3: launch_gene_nt<3>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream); break;
-    default: launch_gene_nt<4>(Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene, N, G, Kf, nA2, SC, rows_per_chunk, p, stream);
+  float* part = scratch;
+  float4* bp = reinterpret_cast<float4*>(scratch + p.part);
+  float* ct = scratch + p.part + p.bp;
+  gene_dispatch(p, nA2 > 0, [&](auto kf, auto nt, auto a2) {
+    gene_pack_kernel<decltype(kf)::value, decltype(nt)::value, decltype(a2)::value>
+        <<<blocks_for((long long)(p.bp / 4 + p.ct), 256), 256, 0, stream>>>(
+            psi, dA1, dA2, dZ, bp, ct, N, Kf, nA2, SC, p.n_pass, p.n_pad);
+  });
+  const GeneArgs a{Y, W, muL, bp, ct, part, N, G, Kf, nA2, SC, rows_per_chunk, p, stream};
+  switch (y_type) {
+    case kYF32: gene_typed<kYF32>(a); break;
+    case kYBF16: gene_typed<kYBF16>(a); break;
+    case kYI16: gene_typed<kYI16>(a); break;
+    default: gene_typed<kYI8>(a);
   }
+  const int FG = (Kf + SC + nA2) * G;
+  reduce_chunks_kernel<<<blocks_for(FG, 256), 256, 0, stream>>>(part, dgene, p.n_chunks, FG);
   return (int)cudaGetLastError();
 }
 
 }  // extern "C"
+#endif  // FL_COMMON

@@ -19,6 +19,11 @@ Y once, in the gene-major kernel for dW, d(muL) and dlog mu
 plain versions of the whole contract, which need no YW. There is no fallback
 between the two: a CUDA tensor the kernels do not take raises.
 
+Y may be stored narrow (``Y_DTYPES``: float32, bfloat16, int16 or int8;
+``api.py``'s ``y_storage``). The kernels load it in that type and convert it
+in registers; the plain versions convert it to the compute dtype (the other
+operands' dtype) first. Every other operand is in the compute dtype.
+
 ``log_mu=None`` skips A2 (the ELBO step replaces it with a precomputed
 column-sum dot, see ``models/multinomial.elbo``); A2 is then returned as None.
 """
@@ -34,6 +39,8 @@ MAX_KF = 4   # psi_ext columns the kernels take
 MAX_A2 = 4   # A2 columns (Monte Carlo samples) the kernels take
 MAX_SC = 32  # Z columns (samples x clones) the kernels take
 _ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
+# Y storage types the kernels load, with the code the C entry points take
+Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
 
 # Kernel launches, each counted by the wrapper that launches the kernel.
 fwd_launches = 0
@@ -55,6 +62,7 @@ def reset_launch_counts() -> None:
 def reference_likelihood_terms(Y, psi_ext, W_ext, log_mu, muL):
     """Plain PyTorch version of the forward contract (materializes the
     N x G ``exp(log_rfe)``). ``log_mu=None`` returns None for A2."""
+    Y = Y.to(psi_ext.dtype)
     log_rfe = psi_ext @ W_ext.T
     A1 = torch.sum(Y * log_rfe, dim=1)
     A2 = None if log_mu is None else Y @ log_mu.T
@@ -69,6 +77,7 @@ def reference_likelihood_vjp(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     ``dW = dlog_rfe^T psi_ext``, ``dlog_mu = dA2^T Y`` (None when ``dA2`` is
     None) and ``dmuL = rfe^T dZ``. The gene-major CUDA kernel computes dW
     in another association (:func:`reference_gene`)."""
+    Y = Y.to(psi_ext.dtype)
     rfe = torch.exp(psi_ext @ W_ext.T)
     dlog_rfe = Y * dA1[:, None] + rfe * (dZ @ muL.T)
     dpsi = dlog_rfe @ W_ext
@@ -98,6 +107,7 @@ def reference_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     :func:`reference_likelihood_vjp`'s exactly; ``dZ muL^T`` is never
     formed."""
     (N, SC), G, Kf = dZ.shape, W_ext.shape[0], psi_ext.shape[1]
+    Y = Y.to(psi_ext.dtype)
     rfe = torch.exp(psi_ext @ W_ext.T)
     dmuL = rfe.T @ dZ
     E = (rfe.T @ (dZ[:, :, None] * psi_ext[:, None, :]).reshape(N, SC * Kf)).reshape(G, SC, Kf)
@@ -118,11 +128,12 @@ def _plain_backward(Y, psi_ext, W_ext, muL, dA1, dA2, dZ, _YW):
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _check(name, t, shape):
+def _check(name, t, shape, dtypes=(torch.float32,)):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32 for the CUDA kernels, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be one of {', '.join(map(str, dtypes))} for the "
+                         f"CUDA kernels, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if tuple(t.shape) != tuple(shape):
@@ -156,7 +167,7 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     from . import _build
 
     n_a2 = 0 if log_mu is None else log_mu.shape[0]
-    _check("Y", Y, Y.shape)
+    _check("Y", Y, Y.shape, tuple(Y_DTYPES))
     (N, G), Kf, SC = Y.shape, psi_ext.shape[1], muL.shape[1]
     _check_sizes(N, G, Kf, SC, n_a2)
     _check("psi_ext", psi_ext, (N, Kf))
@@ -172,7 +183,7 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     stream = torch.cuda.current_stream(Y.device).cuda_stream
     err = lib.fl_forward(
         _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(log_mu), _ptr(muL),
-        _ptr(A1), _ptr(A2), _ptr(Z), _ptr(YW), N, G, Kf, n_a2, SC,
+        _ptr(A1), _ptr(A2), _ptr(Z), _ptr(YW), N, G, Kf, n_a2, SC, Y_DTYPES[Y.dtype],
         ctypes.c_void_p(stream),
     )
     _raise_on(err, "fused likelihood forward")
@@ -218,7 +229,7 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     from . import _build
 
     n_a2 = 0 if dA2 is None else dA2.shape[1]
-    _check("Y", Y, Y.shape)
+    _check("Y", Y, Y.shape, tuple(Y_DTYPES))
     (N, G), Kf, SC = Y.shape, psi_ext.shape[1], muL.shape[1]
     _check_sizes(N, G, Kf, SC, n_a2)
     _check("psi_ext", psi_ext, (N, Kf))
@@ -238,7 +249,7 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     stream = torch.cuda.current_stream(Y.device).cuda_stream
     err = lib.fl_backward_gene(
         _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2),
-        _ptr(dZ), _ptr(scratch), _ptr(dgene), N, G, Kf, n_a2, SC, rows,
+        _ptr(dZ), _ptr(scratch), _ptr(dgene), N, G, Kf, n_a2, SC, rows, Y_DTYPES[Y.dtype],
         ctypes.c_void_p(stream),
     )
     _raise_on(err, "fused likelihood backward (gene)")
@@ -295,7 +306,8 @@ def fused_likelihood_terms(Y, psi_ext, W_ext, log_mu, muL):
     psi_ext, W_ext, log_mu and muL (Y is data and gets no gradient).
 
     Args:
-      Y:       (N, G) counts.
+      Y:       (N, G) counts, in the compute dtype or a narrow storage type
+               (``Y_DTYPES`` on CUDA).
       psi_ext: (N, Kf) cell factors.
       W_ext:   (G, Kf) gene loadings.
       log_mu:  (S, G) log of the sampled mu, or None to skip A2.

@@ -32,14 +32,20 @@ from .utils.noise import Noise
 SWEEP_BUDGET_BYTES = 40 * 10**9
 
 
-def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type) -> int:
-    """The lane-batched sweep's working set, reckoned from the code.
+def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None) -> int:
+    """The lane-batched sweep's working set, reckoned from the code, in
+    bytes; ``itemsize`` is the compute dtype's, ``y_itemsize`` Y's storage
+    type's (by default the compute dtype's).
 
-    Shared by every lane: Y (N x G). On the CPU the fused op's plain version
-    also holds about three N x G temporaries (log_rfe, rfe and dlog_rfe in
-    its backward); the lane loop in ``models/multinomial._likelihood_terms``
-    runs it one lane at a time, so they are held once, not per lane. On
-    CUDA the kernels store no N x G tensor.
+    Shared by every lane: Y (N x G, at its storage itemsize). Y stored
+    narrow adds one row block in the compute dtype (``_CHUNK_ELEMENTS``
+    elements at most): z_cheb's products with Y convert it a block at a
+    time. On the CPU the fused op's plain version also holds about three
+    N x G temporaries (log_rfe, rfe and dlog_rfe in its backward), and a
+    fourth for Y converted from narrow storage; the lane loop in
+    ``models/multinomial._likelihood_terms`` runs it one lane at a time, so
+    they are held once, not per lane. On CUDA the kernels store no N x G
+    tensor and read Y as it is stored.
 
     Per live lane: the parameters P = N (K + C) + G (K + 2) + K + C; their
     gradients, the two Adam moments and the step's three candidates
@@ -50,20 +56,25 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type) -> int:
     order: its Clenshaw backward recomputes the carries ((S, C, N) each)
     instead of saving them.
     """
-    shared = N * G * (1 if device_type == "cuda" else 4)
+    y_itemsize = itemsize if y_itemsize is None else y_itemsize
+    narrow = y_itemsize != itemsize
+    if device_type == "cuda":
+        temporaries = min(N * G, mm._CHUNK_ELEMENTS) if narrow else 0
+    else:
+        temporaries = N * G * (4 if narrow else 3)
     P = N * (K + C) + G * (K + 2) + K + C
     per_lane = 7 * P + 16 * N * S * C + N * (K + 1)
-    return itemsize * (shared + n_lanes * per_lane)
+    return y_itemsize * N * G + itemsize * (temporaries + n_lanes * per_lane)
 
 
-def _auto_restart_batching(N, G, C, K, S, n_lanes, itemsize, device_type) -> str:
+def _auto_restart_batching(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None) -> str:
     """"vmap" when the lane-batched sweep's working set (:func:`_sweep_bytes`)
     fits :data:`SWEEP_BUDGET_BYTES`, else "map", which holds one lane at a
     time. At 100,000 x 5,000 x 10 (K = 1, S = 1, float32) a lane adds about
     96 MB to Y's 2 GB, so "vmap" takes up to 395 lanes there. (The JAX
     package's 6e9 lane-elements cutover was measured on a 16 GB TPU v5e and
     does not carry over.)"""
-    need = _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type)
+    need = _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize)
     return "vmap" if need <= SWEEP_BUDGET_BYTES else "map"
 
 
@@ -126,7 +137,7 @@ def run_clonealign(
         (N, G), C = data.Y.shape, data.L.shape[1]
         restart_batching = _auto_restart_batching(
             N, G, C, config.K, config.mc_samples, R,
-            torch.finfo(ctx.dtype).bits // 8, ctx.device.type,
+            torch.finfo(ctx.dtype).bits // 8, ctx.device.type, data.Y.element_size(),
         )
     base = 0 if seed is None else int(seed)
     noises = [Noise(base + r, ctx.device) for r in range(R)]
@@ -203,7 +214,7 @@ def run_clonealign(
         if multirun_correlations:
             corr_r = _assign.compute_correlations(
                 ctx.Y, ctx.L, None, ctx.clone_names,
-                device_Y=data.Y, clones_idx=called[r],
+                device_Y=data.Y, clones_idx=called[r], dtype=ctx.dtype,
             )
             finite = corr_r[np.isfinite(corr_r)]
             median_correlations.append(float(np.median(finite)) if finite.size else np.nan)

@@ -11,9 +11,9 @@ dlog mu and d(muL) in units of the tests' tolerance (|err| / (1e-4 + 3e-5
 |want|)), against the float64 plain version, first for the float32 plain
 versions (``reference_likelihood_vjp``, then ``reference_gene``) and then
 for each variant; a value above 1 fails. Then, at the full width of the fit
-(100,000 x 5,000, S*C = 10, Kf = 1, A2 off), each variant's time in turns,
-twice, as ``chip_smoke.cuda_ms`` measures it (packing, kernel and
-reduction). Needs an NVIDIA GPU and nvcc.
+(100,000 x 5,000, S*C = 10, Kf = 1, A2 off), with Y stored as float32 and
+as int8, each variant's time in turns, twice, as ``chip_smoke.cuda_ms``
+measures it (packing, kernel and reduction). Needs an NVIDIA GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ VARIANTS = {
                            "a_lo[e] = to_tf32(v - __uint_as_float(a_hi[e])); }")],
     # a plain float32 running sum in place of the hi + lo pairs
     "f32_sum": [(SUM, "            acc_hi[t][e] += x[t][e];\n")],
+    # the Y terms' loop over the tile's rows unrolled by two everywhere
+    "y_unroll_2": [("#pragma unroll kYUnroll", "#pragma unroll 2")],
 }
 OUT = os.path.join("build", "gene_variants")
 
@@ -64,7 +66,7 @@ def build(names):
         with open(cu, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", os.path.join(OUT, f"{name}.so"), cu],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", os.path.join(OUT, f"{name}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -76,7 +78,7 @@ def build(names):
         print(f"{name}: gene_kernel registers " + " ".join(
             f"{k}{r}" for k, (r, _, _) in sorted(res.items())) + f"; spilling {spilled}", flush=True)
         lib = ctypes.CDLL(os.path.abspath(os.path.join(OUT, f"{name}.so")))
-        lib.fl_backward_gene.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.fl_backward_gene.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.fl_backward_gene_scratch.argtypes = [ctypes.c_int] * 6
         lib.fl_backward_gene_scratch.restype = ctypes.c_size_t
         libs[name] = lib
@@ -92,7 +94,7 @@ def gene(lib, Y, psi, W, muL, dA1, dA2, dZ):
     dgene = torch.empty(Kf + SC + n_a2, G, device="cuda")
     ptr = [None if t is None else ctypes.c_void_p(t.data_ptr())
            for t in (Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene)]
-    err = lib.fl_backward_gene(*ptr, N, G, Kf, n_a2, SC, rows,
+    err = lib.fl_backward_gene(*ptr, N, G, Kf, n_a2, SC, rows, fl.Y_DTYPES[Y.dtype],
                                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"fl_backward_gene failed with CUDA error {err}")
@@ -131,11 +133,12 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     x = kernel_inputs(gen, FULL["N"], FULL["G"], FULL["C"], S=1, Kf=1, device="cuda")
-    args = (x["Y"], x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"])
-    for _ in range(2):
-        print("full width, ms: " + " ".join(
-            f"{name} {cuda_ms(lambda lib=lib: gene(lib, *args), reps=10):.4f}"
-            for name, lib in libs.items()), flush=True)
+    for storage in (torch.float32, torch.int8):
+        args = (x["Y"].to(storage), x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"])
+        for _ in range(2):
+            print(f"full width, Y {storage}, ms: " + " ".join(
+                f"{name} {cuda_ms(lambda lib=lib: gene(lib, *args), reps=10):.4f}"
+                for name, lib in libs.items()), flush=True)
     return 0
 
 

@@ -246,10 +246,7 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
 @pytest.mark.parametrize("option", [
     dict(x=np.zeros((60, 1))),
     dict(clone_allele=np.zeros((2, 3)), cov=np.zeros((2, 60)), ref=np.zeros((2, 60))),
-    dict(y_storage="int16"),
-    dict(y_storage="int8"),
     dict(sparse=True),
-    dict(y_storage="bfloat16"),
     dict(mesh=object()),
 ])
 def test_options_outside_the_slice_raise(option):

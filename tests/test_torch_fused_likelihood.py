@@ -5,7 +5,10 @@ mode on the CPU, as tests/test_fused_likelihood.py runs it), JAX's plain
 ``reference_likelihood_terms`` and the port's plain versions, which are what
 the port's autograd function runs on CPU tensors. The CUDA kernels
 themselves are checked against the plain versions on the card
-(``cuda`` marker; skipped without a GPU).
+(``cuda`` marker; skipped without a GPU). Y also goes in each narrow storage
+type the kernels load (bfloat16, int16, int8): on the CPU against the same
+counts in float32 and against the Pallas op given Y in that type, and on
+the card against the float32-Y kernels, bit for bit.
 
 Tolerance: rtol 2e-5 / atol 1e-4 for values and rtol 3e-5 / atol 1e-4 for
 the VJP, the bars tests/test_fused_likelihood.py holds the Pallas kernel to:
@@ -37,7 +40,10 @@ CUDA_SHAPES = SHAPES + [(333, 1000, 10, 1, 1), (257, 700, 16, 4, 1), (100, 129, 
                         (5, 3000, 1, 0, 1), (1, 200, 9, 1, 1), (17, 333, 17, 3, 1),
                         (40, 1, 8, 2, 4), (50, 515, 16, 4, 2), (64, 515, 8, 4, 4),
                         (33, 130, 32, 4, 1), (45, 260, 8, 1, 1), (2100, 130, 5, 1, 2),
-                        (60, 300, 16, 1, 1)]
+                        (60, 300, 16, 1, 1), (200, 512, 10, 1, 1)]
+# Y storage types the kernels load; the test counts (Poisson, mean 3) are
+# exact in each
+STORAGES = [torch.float32, torch.bfloat16, torch.int16, torch.int8]
 VALUE_TOL = dict(rtol=2e-5, atol=1e-4)
 VJP_TOL = dict(rtol=3e-5, atol=1e-4)
 
@@ -202,6 +208,37 @@ def test_reference_gene_identity_float64(shape):
     assert tfl.reference_gene(Y, psi, W, muL, dA1, None, dZ)[1] is None
 
 
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.int16, torch.int8])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_narrow_y_on_cpu_matches_float32_y_and_pallas(shape, storage, jax_ops):
+    """The op with Y stored narrow, on CPU tensors: its values and gradients
+    equal those with the same counts in float32 exactly (the plain versions
+    convert Y first), and hold against the Pallas op (interpret mode) given
+    Y in the same storage type."""
+    jax, jnp, jfl = jax_ops
+    N, G, C, K, S = shape
+    x = _inputs(N, G, C, K, S, seed=N + 6)
+    cot = _cotangents(N, S, S * C, seed=N + 6)
+    Yf, psi, W, log_mu, muL = _torch(x)
+    Y = Yf.to(storage)
+    assert torch.equal(Y.float(), Yf)  # Poisson(3) counts are exact in every storage type
+    got, want = [], []
+    for y, out in ((Y, got), (Yf, want)):
+        leaves = [t.clone().requires_grad_(True) for t in (psi, W, log_mu, muL)]
+        terms = tfl.fused_likelihood_terms(y, *leaves)
+        out += [*terms, *torch.autograd.grad(terms, leaves, grad_outputs=_torch(cot))]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), i
+    jY = jnp.asarray(Y.float().numpy()).astype(jnp.dtype(str(storage).removeprefix("torch.")))
+    jx = (jY, *map(jnp.asarray, x[1:]))
+    pallas, vjp = jax.vjp(jfl.fused_likelihood_terms, *jx)
+    pallas_grads = vjp(tuple(map(jnp.asarray, cot)))[1:]
+    for name, g, p in zip(("A1", "A2", "Z"), got[:3], pallas):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(p), err_msg=name, **VALUE_TOL)
+    for name, g, p in zip(("psi", "W", "log_mu", "muL"), got[3:], pallas_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(p), err_msg=name, **VJP_TOL)
+
+
 @pytest.mark.parametrize("mode", ["psi_grad", "no_grad", "psi_frozen"])
 def test_autograd_cpu_path_needs_no_yw(mode):
     """On CPU tensors the autograd function runs the whole plain VJP, which
@@ -231,6 +268,20 @@ def test_autograd_cpu_path_needs_no_yw(mode):
         np.testing.assert_allclose(g.numpy(), want[i].numpy(), err_msg=str(i), **VJP_TOL)
 
 
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_other_y_dtypes():
+    """A Y dtype the kernels do not load raises; it is not converted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    Y, psi, W, log_mu, muL = [t.cuda() for t in _torch(_inputs(8, 16, 2, 1, 1, seed=0))]
+    dA1, dA2, dZ = [t.cuda() for t in _torch(_cotangents(8, 1, 2, seed=0))]
+    for dtype in (torch.float64, torch.float16, torch.int32, torch.uint8):
+        with pytest.raises(ValueError, match="Y must be one of"):
+            tfl.kernel_forward(Y.to(dtype), psi, W, log_mu, muL)
+        with pytest.raises(ValueError, match="Y must be one of"):
+            tfl.kernel_gene(Y.to(dtype), psi, W, muL, dA1, dA2, dZ)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The kernel wrappers launch on CUDA tensors or raise: there is no
     fallback to the plain version inside them."""
@@ -248,31 +299,39 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("storage", STORAGES)
 @pytest.mark.parametrize("shape", CUDA_SHAPES)
-def test_cuda_kernels_match_plain(shape):
+def test_cuda_kernels_match_plain(shape, storage):
     """Forward (A2 on and off) and backward kernels against the plain
-    versions on the card. The backward takes Y W from the forward kernel, as
-    the fit does; each wrapper counts its launches (the dpsi kernel has
-    nothing to launch when Kf = 0). The forward and dpsi are held against the
-    float32 plain versions; dW, dlog mu and d(muL) against the float64 plain
-    version of the same float32 inputs, because the gene-major kernel sums
-    dW's rfe term in another association (:func:`reference_gene`) and at
+    versions on the card, with Y in each storage type the kernels load. The
+    backward takes Y W from the forward kernel, as the fit does; each
+    wrapper counts its launches (the dpsi kernel has nothing to launch when
+    Kf = 0). The forward and dpsi are held against the float32 plain
+    versions; dW, dlog mu and d(muL) against the float64 plain version of
+    the same float32 inputs, because the gene-major kernel sums dW's rfe
+    term in another association (:func:`reference_gene`) and at
     (257, 700, 16, 4, 1) the float32 plain dW is itself farther than the
-    tolerance from the float64 one."""
+    tolerance from the float64 one. The counts are exact in every storage
+    type, so a narrow Y gives the float32 Y's results bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     N, G, C, K, S = shape
     x = [t.cuda() for t in _torch(_inputs(N, G, C, K, S, seed=N))]
     dA1, dA2, dZ = [t.cuda() for t in _torch(_cotangents(N, S, S * C, seed=N))]
-    Y, psi, W, log_mu, muL = x
+    Yf, psi, W, log_mu, muL = x
+    Y = Yf.to(storage)
     before = (tfl.fwd_launches, tfl.dpsi_launches, tfl.gene_launches)
     for lm, da2 in ((log_mu, dA2), (None, None)):
         *got, YW = tfl.kernel_forward(Y, psi, W, lm, muL)
+        for g, f in zip((*got, YW), tfl.kernel_forward(Yf, psi, W, lm, muL)):
+            assert (g is None and f is None) or torch.equal(g, f)
+        assert torch.equal(tfl.kernel_gene(Y, psi, W, muL, dA1, da2, dZ)[0],
+                           tfl.kernel_gene(Yf, psi, W, muL, dA1, da2, dZ)[0])
         want = tfl.reference_likelihood_terms(Y, psi, W, lm, muL)
         for g, w in zip(got, want):
             if w is not None:
                 np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **VALUE_TOL)
-        np.testing.assert_allclose(YW.cpu().numpy(), (Y @ W).cpu().numpy(), **VALUE_TOL)
+        np.testing.assert_allclose(YW.cpu().numpy(), (Yf @ W).cpu().numpy(), **VALUE_TOL)
         got = tfl.kernel_backward(Y, psi, W, muL, dA1, da2, dZ, YW)
         want = tfl.reference_likelihood_vjp(Y, psi, W, muL, dA1, da2, dZ)
         exact = tfl.reference_likelihood_vjp(
@@ -280,7 +339,7 @@ def test_cuda_kernels_match_plain(shape):
         for g, w in zip(got, (want[0], *exact[1:])):
             if w is not None:
                 np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **VJP_TOL)
-    launched = (2, 2 if K else 0, 2)
+    launched = (4, 2 if K else 0, 6)
     assert (tfl.fwd_launches, tfl.dpsi_launches, tfl.gene_launches) == tuple(
         b + n for b, n in zip(before, launched))
 
