@@ -7,21 +7,26 @@ Run from the repository root on a machine with a CUDA card:
 It builds the CUDA kernels from the sources in the checkout and holds each
 kernel against its plain PyTorch version on the card: for every Y storage
 type the kernels load (float32, bfloat16, int16, int8) at a ragged shape
-(scalar Y loads) and at one with G % 4 == 0 (vectorized loads), at a wide
-shape, and at the full width of the main path for float32, int16 and int8,
-each timed beside its bound. Then it drives the fit at full width —
+(scalar Y loads) and at one with G % 4 == 0 (vectorized loads), each at
+Kf = 3 and 4 besides (the columns of [psi, X]: K latent factors and P
+covariates), and at the golden oracle's rich shape (Kf = 4, S = 3, C = 3);
+at a wide shape; and at the full width of the main path for float32, int16
+and int8 (Kf = 1), and for int8 and float32 at Kf = 3 and 4, each timed
+beside its bound. Then it drives the fit at full width —
 100,000 cells x 5,000 genes x 10 clones, clone-structured counts made on the
 card from a seed — through ``clonealign_torch.clonealign`` under the exact
-likelihood with Y stored as float32 and as ``y_storage="auto"`` resolves, in
-turns, each with its launches counted from zero and its peak memory in the
-inference; then, under "auto" storage, the Chebyshev normalizer (z_cheb)
-and the exact one in turns, printing each fit's ms per iteration; the
-full-width sweep of ten restarts through ``run_clonealign`` three ways
-(exact in sequence, exact as lanes of one batched loop, z_cheb as lanes),
-the lanes also with float32 Y in turns, each with its kernel launches
-counted from zero and checked against its lanes' iterations; a small sweep;
-and the two converged fits of the golden oracle
-(tests/golden/tpu_parity_oracle.npz), each held to that oracle's bar. Any
+likelihood with Y stored as float32 and as ``y_storage="auto"`` resolves,
+and under "auto" with two covariate columns (K = 1, P = 2), in turns, each
+with its launches counted from zero and its peak memory in the inference;
+then, under "auto" storage, the Chebyshev normalizer (z_cheb) and the exact
+one in turns, printing each fit's ms per iteration; the full-width sweep of
+ten restarts through ``run_clonealign`` three ways (exact in sequence,
+exact as lanes of one batched loop, z_cheb as lanes), the lanes also with
+float32 Y in turns, and once with the covariates and ``restart_batching=
+"auto"``, each with its kernel launches counted from zero and checked
+against its lanes' iterations; a small sweep; and the three converged fits
+of the golden oracle (tests/golden/tpu_parity_oracle.npz: example, synth,
+rich), each held to that oracle's bar. Any
 failed phase raises and the script exits nonzero, as it does when ptxas's
 report lacks a tensor-core kernel instantiation or shows one spilling
 registers. The last line of standard output is a JSON object naming the
@@ -29,7 +34,9 @@ card; the line before it lists each kernel with its launches during the
 main path's fit, its error against the plain version, its time, the plain
 version's time and its bound (the least time the card could take for the
 same work) at the Y storage "auto" resolves to (``y_storage``), the same
-for each full-width storage (``by_storage``), the backward's entry also
+for each full-width storage (``by_storage``) and at Kf = 3 and 4
+(``by_kf``), the launches of the covariate fit's path (``paths``), the
+backward's entry also
 listing its two parts (the Y-free dpsi kernel, and the gene-major kernel
 with its packing and reduction kernels), each with its own launches, time,
 plain version's time and bound; the line before that prints those parts'
@@ -62,10 +69,14 @@ FULL = dict(N=100_000, G=5_000, C=10)     # bench.py's headline configuration
 SMALL = dict(N=37, G=41, C=2)             # ragged: no dimension a multiple of a tile (scalar Y loads)
 VEC = dict(N=45, G=260, C=4)              # G % 4 == 0: the vectorized Y loads
 WIDE = dict(N=100, G=129, C=10)           # with S=2, Kf=3: S*C = 20, four n-tiles
+RICH = dict(N=2_000, G=500, C=3)          # the golden rich fit's: with S=3, Kf=4
 # Y storage types the kernels load (ops/fused_likelihood.py's Y_DTYPES), and
 # those timed at full width
 STORAGES = ("float32", "bfloat16", "int16", "int8")
 FULL_STORAGES = ("float32", "int16", "int8")
+# columns of [psi, X] timed at full width besides Kf = 1, and their storages
+FULL_KF = (3, 4)
+FULL_KF_STORAGES = ("int8", "float32")
 SWEEP = dict(N=2_000, G=500, C=4)
 FIT_MAX_ITER = 100
 MIN_ACCURACY = 0.99
@@ -195,21 +206,26 @@ def bound(y_bytes, vec_floats, exps, mma_flops, fp32_ops):
 def kernel_bounds(N, G, Kf, SC, y_itemsize):
     """Bounds of the A2-off forward and backward and of the backward's two
     parts, each by the unit that runs each part of its formulas, with Y read
-    once at y_itemsize bytes an element."""
+    once at y_itemsize bytes an element. The bound counts the least work of
+    each function, not the kernels' own schemes: the products with muL do
+    not grow with Kf, the columns of [psi, X] (drfe = dZ muL^T is formed
+    once, and each dpsi_k and dW_k is then an elementwise sum), so Kf scales
+    only the CUDA-core operations: the Kf FMAs an element of log_rfe, of
+    Y W and of each dpsi_k or dW_k."""
     NG = N * G
     # forward: Y, psi, W, muL in; A1, Z, YW out. Z = rfe muL on tensor
     # cores; log_rfe and Y W (A1 = sum_k psi_k (Y W)_k) on CUDA cores.
     fwd = bound(y_itemsize * NG, N * Kf + G * Kf + G * SC + N + N * SC + N * Kf,
                 NG, 2 * NG * SC, NG * 4 * Kf)
-    # dpsi part: psi, W, muL, dA1, dZ, YW in; dpsi out. T's product
-    # (rfe W_k) muL on tensor cores, log_rfe and rfe W_k on CUDA cores.
+    # dpsi part: psi, W, muL, dA1, dZ, YW in; dpsi out. drfe = dZ muL^T on
+    # tensor cores; log_rfe and dpsi_k = sum_g (rfe drfe) W_k on CUDA cores.
     dpsi = bound(0, N * Kf + G * Kf + G * SC + N + N * SC + N * Kf + N * Kf,
-                 NG, 2 * NG * SC * Kf, NG * 3 * Kf)
-    # gene part: Y, psi, W, muL, dA1, dZ in; dW, dmuL out. rfe^T [dZ | dZ
-    # psi_k] ((1 + Kf) S*C columns) on tensor cores, log_rfe and the Y term
-    # Y^T (dA1 psi_k) on CUDA cores.
+                 NG, 2 * NG * SC, NG * 3 * Kf)
+    # gene part: Y, psi, W, muL, dA1, dZ in; dW, dmuL out. drfe = dZ muL^T
+    # and dmuL = rfe^T dZ on tensor cores; log_rfe and dW_k = sum_n
+    # (rfe drfe + dA1 Y) psi_k on CUDA cores.
     gene = bound(y_itemsize * NG, N * Kf + G * Kf + G * SC + N + N * SC + G * Kf + G * SC,
-                 NG, 2 * NG * (1 + Kf) * SC, NG * 4 * Kf)
+                 NG, 4 * NG * SC, NG * 4 * Kf)
     # the whole backward: Y, psi, W, muL, dA1, dZ, YW in; dpsi, dW, dmuL
     # out. drfe = dZ muL^T and dmuL = rfe^T dZ on tensor cores; log_rfe,
     # dlog_rfe, dpsi and dW on CUDA cores.
@@ -389,7 +405,9 @@ def inference_peaks():
     """Collect the card's peak allocated bytes over each call of the
     inference (a single fit's loop, the sweep's lane-batched loop, or each
     restart of the sequential one), to hold against restarts._sweep_bytes;
-    setup's transients, which precede the loop, are not in it."""
+    setup's transients, which precede the loop, are not in it. Each entry
+    is (the loop's name, peak bytes), so the name shows whether a sweep ran
+    as lanes ("run_inference_lanes") or in sequence ("run_inference")."""
     import torch
 
     from clonealign_torch import api, restarts
@@ -398,17 +416,17 @@ def inference_peaks():
                (restarts, "run_inference_lanes"))
     peaks, originals = [], {(m, n): getattr(m, n) for m, n in targets}
 
-    def measured(fn):
+    def measured(name, fn):
         def call(*args, **kwargs):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             out = fn(*args, **kwargs)
-            peaks.append(torch.cuda.max_memory_allocated())
+            peaks.append((name, torch.cuda.max_memory_allocated()))
             return out
         return call
 
     for (m, n), fn in originals.items():
-        setattr(m, n, measured(fn))
+        setattr(m, n, measured(n, fn))
     try:
         yield peaks
     finally:
@@ -416,25 +434,33 @@ def inference_peaks():
             setattr(m, n, fn)
 
 
-def full_fit(clonealign_torch, fl, Y, L, z, y_storage):
+def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None):
     """One full-width exact fit through clonealign with Y stored as
-    ``y_storage``, its kernel launches counted from zero; checks its ELBO
-    trace, accuracy and launches and returns its numbers."""
+    ``y_storage`` and the covariates ``x`` (or none), its kernel launches
+    counted from zero; checks its ELBO trace, accuracy and launches (and
+    beta's shape) and returns its numbers."""
     fl.reset_launch_counts()
     t0 = time.perf_counter()
     with inference_peaks() as peaks:
         fit = clonealign_torch.clonealign(
             Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
-            likelihood_impl="xla", y_storage=y_storage,
+            likelihood_impl="xla", y_storage=y_storage, x=x,
         )
     wall = time.perf_counter() - t0
     launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
     ci, tm = fit.convergence_info, fit.timings
     n_iters = ci.n_iters
     out = {"iter_ms": 1000 * tm["loop"] / max(n_iters, 1), "setup_s": tm["setup"],
-           "peak_gb": max(peaks) / 1e9, "final_elbo": ci.final_elbo,
+           "peak_gb": max(b for _, b in peaks) / 1e9, "final_elbo": ci.final_elbo,
            "accuracy": accuracy(fit, z), "launches": launches}
-    log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']} y_storage={y_storage}: {wall:.2f} s wall, "
+    P = 0 if x is None else x.shape[1]
+    if P:
+        beta = fit.ml_params["beta"]
+        if beta.shape != (FULL["G"], P) or not np.isfinite(beta).all():
+            raise AssertionError(f"beta has shape {beta.shape} or is not finite")
+        log(f"  beta: |beta| max {np.abs(beta).max():.4g}, mean {np.abs(beta).mean():.4g}")
+    log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']} y_storage={y_storage} K=1 P={P}: "
+        f"{wall:.2f} s wall, "
         f"setup {tm['setup']:.2f} s, init {tm['init']:.2f} s, "
         f"inference {tm['inference']:.2f} s ({n_iters} iterations, "
         f"{out['iter_ms']:.2f} ms per iteration), package {tm['package']:.2f} s; "
@@ -454,11 +480,13 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage):
     return out
 
 
-def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_itemsize):
+def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_itemsize,
+              x=None):
     """One full-width sweep through run_clonealign with Y stored as
-    ``y_storage`` (y_itemsize bytes an element); returns its lanes'
-    iterations, the kernel launches it made, its ms per lane iteration and
-    its peak allocated bytes in the inference."""
+    ``y_storage`` (y_itemsize bytes an element) and the covariates ``x`` (or
+    none); returns its lanes' iterations, the kernel launches it made, its
+    ms per lane iteration, its peak allocated bytes in the inference, and
+    how its lanes ran ("vmap" or "map", as the loop it called shows)."""
     from clonealign_torch.restarts import _sweep_bytes
 
     fl.reset_launch_counts()
@@ -466,23 +494,27 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_
     with inference_peaks() as loop_peaks:
         fit = clonealign_torch.run_clonealign(
             Y, L, device="cuda", seed=0, verbose=False, likelihood_impl=impl,
-            restart_batching=batching, y_storage=y_storage, **LANES,
+            restart_batching=batching, y_storage=y_storage, x=x, **LANES,
         )
     wall = time.perf_counter() - t0
     launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
     tm, iters = fit.timings, fit.timings["iterations"]
     R = len(iters)
     acc = accuracy(fit, z)
-    plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, 1, R if batching == "vmap" else 1,
-                        4, "cuda", y_itemsize) / 1e9
-    log(f"sweep ({name}) {impl} {batching} y_storage={y_storage}, {R} lanes: {wall:.2f} s wall, setup "
+    ran = "vmap" if [n for n, _ in loop_peaks] == ["run_inference_lanes"] else "map"
+    P = 0 if x is None else x.shape[1]
+    plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, 1, R if ran == "vmap" else 1,
+                        4, "cuda", y_itemsize, P, impl == "z_cheb") / 1e9
+    peak = max(b for _, b in loop_peaks) / 1e9
+    log(f"sweep ({name}) {impl} {batching} (ran as {ran}) y_storage={y_storage} P={P}, {R} lanes: "
+        f"{wall:.2f} s wall, setup "
         f"{tm['setup']:.2f} s, init {tm['init']:.2f} s, loop {tm['loop']:.2f} s "
         f"({sum(iters)} lane iterations: {1000 * tm['loop'] / sum(iters):.2f} ms per lane "
         f"iteration, {1000 * tm['loop'] / max(iters):.2f} ms per sweep iteration), "
         f"inference {tm['inference']:.2f} s, package {tm['package']:.2f} s; iterations {iters}; "
         f"best lane {fit.multirun_info['best_run']} accuracy {acc:.4f}; launches {launches}; "
-        f"peak allocated in the inference {max(loop_peaks) / 1e9:.2f} GB "
-        f"(restarts._sweep_bytes reckons {plan:.2f} GB)")
+        f"peak allocated in the inference {peak:.3f} GB, restarts._sweep_bytes reckons "
+        f"{plan:.3f} GB")
     if acc < MIN_ACCURACY:
         raise AssertionError(f"sweep ({name}): best lane accuracy {acc:.4f} < {MIN_ACCURACY}")
     want = {"fwd": sum(2 + n + 20 for n in iters) if impl == "xla" else 20 * R,
@@ -490,31 +522,42 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_
     want["gene"] = want["dpsi"]
     if launches != want:
         raise AssertionError(f"sweep ({name}): launches {launches}, expected {want}")
-    return {"iterations": iters, "launches": launches,
-            "lane_iter_ms": 1000 * tm["loop"] / sum(iters), "peak_gb": max(loop_peaks) / 1e9}
+    return {"iterations": iters, "launches": launches, "ran": ran, "plan_gb": plan,
+            "lane_iter_ms": 1000 * tm["loop"] / sum(iters), "peak_gb": peak}
 
 
-def golden(clonealign_torch):
-    """Fit the oracle's two configurations (tests/test_tpu_hardware.py:101-116)
-    on the card in float32 and hold each to its bar (there :70-98): the
-    final ELBO within max(1e-4 |e64|, 3 sd_final) of the float64 oracle, and
-    labels that differ from the float64 oracle's only where the max
-    probability is within 0.01 of 0.95. The synthetic config runs under
+def golden(clonealign_torch, fl):
+    """Fit the oracle's three configurations (tests/test_tpu_hardware.py:101-116,
+    266-287) on the card in float32 and hold each to its bar (there :70-98):
+    the final ELBO within max(1e-4 |e64|, 3 sd_final) of the float64
+    oracle, and labels that differ from the float64 oracle's only where the
+    max probability is within 0.01 of 0.95. The synthetic config runs under
     "auto" (the exact likelihood) and under z_cheb, as the JAX package's
-    hardware test pins it."""
+    hardware test pins it; the rich one (K = 2, two covariate columns,
+    three Monte Carlo samples, fixed alpha: Kf = 4, S x C = 9) with the
+    oracle's own x. Each exact fit's launches are counted from zero and
+    checked against its iterations; returns the rich fit's."""
     from clonealign_torch.synth import simulate_multinomial
 
     oracle = np.load(REPO / "tests" / "golden" / "tpu_parity_oracle.npz")
     ex = np.load(REPO / "data" / "example_sce.npz")
     sim = simulate_multinomial(N=5000, G=1000, C=4, seed=3, mean_total=2000)
-    for name, Y, L, seed, impl in (("example", ex["counts"], ex["copy_number"], 7, "auto"),
-                                   ("synth", sim.Y, sim.L, 11, "auto"),
-                                   ("synth", sim.Y, sim.L, 11, "z_cheb")):
+    rich = dict(x=oracle["rich_x"], K=2, mc_samples=3, fix_alpha=True)
+    for name, Y, L, seed, impl, opts in (
+            ("example", ex["counts"], ex["copy_number"], 7, "auto", {}),
+            ("synth", sim.Y, sim.L, 11, "auto", {}),
+            ("synth", sim.Y, sim.L, 11, "z_cheb", {}),
+            ("rich", oracle["rich_Y"], oracle["rich_L"], 17, "auto", rich)):
+        fl.reset_launch_counts()
         t0 = time.perf_counter()
         fit = clonealign_torch.clonealign(Y, L, max_iter=GOLDEN_MAX_ITER, seed=seed,
                                           dtype="float32", device="cuda", verbose=False,
-                                          likelihood_impl=impl)
+                                          likelihood_impl=impl, **opts)
         ci = fit.convergence_info
+        launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+        n = ci.n_iters
+        if impl == "auto" and launches != {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n}:
+            raise AssertionError(f"golden {name}: launches {launches} for {n} iterations")
         e64 = float(oracle[f"{name}_elbo64"])
         tol = max(1e-4 * abs(e64), 3.0 * ci.sd_final_elbo)
         probs = fit.ml_params["clone_probs"]
@@ -524,14 +567,16 @@ def golden(clonealign_torch):
             f"final ELBO {ci.final_elbo:.8g} +- {ci.sd_final_elbo:.3g} against the float64 "
             f"oracle {e64:.8g}: |diff| {abs(ci.final_elbo - e64):.4g}, bar {tol:.4g} "
             f"({abs(ci.final_elbo - e64) / abs(e64):.2e} relative); {len(flips)} labels differ "
-            f"from the float64 oracle, {len(off)} away from the 0.95 threshold")
+            f"from the float64 oracle, {len(off)} away from the 0.95 threshold; launches {launches}")
         if not abs(ci.final_elbo - e64) < tol or off:
             raise AssertionError(f"golden {name} ({impl}) misses the oracle's bar")
+    return launches
 
 
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -566,13 +611,18 @@ def main() -> int:
     log("kernels vs plain (tolerance: KERNEL_RTOL="
         f"{KERNEL_RTOL:g} of the per-element absolute-term sum)")
     for storage in STORAGES:
-        check_kernels(SMALL, S=1, Kf=1, seed=1, reps=5, storage=storage)
-        check_kernels(VEC, S=1, Kf=2, seed=3, reps=5, storage=storage)
+        for Kf in (1, 3, 4):
+            check_kernels(SMALL, S=1, Kf=Kf, seed=1, reps=5, storage=storage)
+        for Kf in (2, 3, 4):
+            check_kernels(VEC, S=1, Kf=Kf, seed=3, reps=5, storage=storage)
+        check_kernels(RICH, S=3, Kf=4, seed=7, reps=5, storage=storage)
     check_kernels(WIDE, S=2, Kf=3, seed=5, reps=5)
     full = {st: check_kernels(FULL, S=1, Kf=1, seed=2, reps=10, storage=st) for st in FULL_STORAGES}
-    for st, r in full.items():
+    full_kf = {(st, Kf): check_kernels(FULL, S=1, Kf=Kf, seed=6, reps=10, storage=st)
+               for st in FULL_KF_STORAGES for Kf in FULL_KF}
+    for (st, Kf), r in [((st, 1), r) for st, r in full.items()] + list(full_kf.items()):
         b = r["bounds"]
-        log(f"full width, Y {st}: fwd {r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}, bound "
+        log(f"full width, Y {st}, Kf={Kf}: fwd {r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}, bound "
             f"{b['fwd'][0]:.3f} by {b['fwd'][2]}), bwd {r['bwd_ms']:.3f} ms (plain "
             f"{r['bwd_plain_ms']:.3f}, bound {b['bwd'][0]:.3f} by {b['bwd'][2]}): dpsi "
             f"{r['dpsi_ms']:.3f}, gene part {r['gene_ms']:.3f} (bound {b['gene'][0]:.3f} by "
@@ -590,14 +640,21 @@ def main() -> int:
     log(f'y_storage="auto" resolves to {auto_name} on the card for these counts (largest '
         f"{int(Y.max())}): Y takes {Y.size * y_itemsize / 1e9:.2f} GB there "
         f"({Y.size * 4 / 1e9:.2f} GB as float32)")
+    # the covariates: a 0/1 batch over halves of the cells and a standard normal
+    rng = np.random.default_rng(5)
+    X = np.stack([(np.arange(FULL["N"]) >= FULL["N"] // 2).astype(np.float64),
+                  rng.standard_normal(FULL["N"])], axis=1)
     fits = {}
-    for storage in ("float32", "auto", "float32", "auto"):
-        fits.setdefault(storage, []).append(full_fit(clonealign_torch, fl, Y, L, z, storage))
+    for storage, x in (("float32", None), ("auto", None), ("auto+x", X)) * 2:
+        fits.setdefault(storage, []).append(
+            full_fit(clonealign_torch, fl, Y, L, z, storage.removesuffix("+x"), x))
     launches = fits["auto"][0]["launches"]  # the main path's
-    log("full-width exact fit, float32 / auto (" + auto_name + ") in turns: " + "; ".join(
-        f"{key} " + " / ".join(f"{f[key]:.4g}" for f in fits["float32"]) + " vs "
-        + " / ".join(f"{f[key]:.4g}" for f in fits["auto"])
-        for key in ("iter_ms", "setup_s", "peak_gb", "final_elbo")))
+    cov_launches = fits["auto+x"][0]["launches"]  # the covariate fit's path
+    log(f"full-width exact fit, float32 / auto ({auto_name}) / auto with x (K=1, P={X.shape[1]}) in "
+        "turns: " + "; ".join(
+            f"{key} " + " vs ".join(" / ".join(f"{f[key]:.4g}" for f in fits[k])
+                                    for k in ("float32", "auto", "auto+x"))
+            for key in ("iter_ms", "setup_s", "peak_gb", "final_elbo")))
     iter_ms = {"xla": [f["iter_ms"] for f in fits["auto"]]}
 
     # 5. ms per iteration of the full-width single fit under each likelihood,
@@ -648,6 +705,13 @@ def main() -> int:
     if sweeps["c"]["launches"] != {"fwd": 20 * R, "dpsi": 0, "gene": 0}:
         raise AssertionError(f"z_cheb sweep launches {sweeps['c']['launches']}, expected "
                              f"{20 * R} forwards and no backward")
+    # (d) the exact sweep with the covariates, batching as "auto" picks: lanes
+    sweeps["d"] = run_sweep(clonealign_torch, fl, Y, L, z, "d", "xla", "auto", "auto",
+                            y_itemsize, x=X)
+    if sweeps["d"]["ran"] != "vmap":
+        raise AssertionError("the covariate sweep did not run as lanes")
+    log("sweep peak allocated in the inference against restarts._sweep_bytes, GB: " + ", ".join(
+        f"({n}) {sw['peak_gb']:.3f} / {sw['plan_gb']:.3f}" for n, sw in sweeps.items()))
     del Y
 
     # 7. a small restart sweep through run_clonealign
@@ -667,7 +731,7 @@ def main() -> int:
         raise AssertionError("run_clonealign picked a wrong lane or assigned badly")
 
     # 8. golden parity: the oracle's two converged fits on the card
-    golden(clonealign_torch)
+    rich_launches = golden(clonealign_torch, fl)
 
     # The backward's parts alone at full width, A2 off, Y stored as "auto"
     # resolves on the main path.
@@ -716,6 +780,21 @@ def main() -> int:
               "by_storage": by_storage("gene")},
          ]},
     ]
+    for k, part in zip(kernels, ("fwd", "bwd")):
+        k["by_kf"] = [dict({"kf": Kf, "y_storage": st, "ms": r[f"{part}_ms"],
+                            "plain_ms": r[f"{part}_plain_ms"], "max_abs_err": r[f"{part}_err"],
+                            "bound_ms": r["bounds"][part][0], "bound_by": r["bounds"][part][1],
+                            "bound_unit": r["bounds"][part][2]},
+                           **({} if part == "fwd" else {
+                               "dpsi_ms": r["dpsi_ms"], "gene_ms": r["gene_ms"],
+                               "dpsi_bound_ms": r["bounds"]["dpsi"][0],
+                               "gene_bound_ms": r["bounds"]["gene"][0]}))
+                      for (st, Kf), r in full_kf.items()]
+    paths = ((f"fit K=1 P={X.shape[1]} y_storage=auto (Kf={1 + X.shape[1]})", cov_launches),
+             ("golden rich K=2 P=2 S=3 (Kf=4)", rich_launches))
+    kernels[0]["paths"] = [{"path": p, "launches": n["fwd"]} for p, n in paths]
+    kernels[1]["paths"] = [{"path": p, "launches": min(n["dpsi"], n["gene"])} for p, n in paths]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

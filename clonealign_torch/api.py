@@ -3,13 +3,14 @@ counterpart of ``clonealign_tpu/api.py``.
 
 Parameter names and defaults match the JAX package, plus ``device``
 ("cuda" by default, or "cpu"; there is no fallback from one to the other)
-and an injectable ``noise`` source. This port covers the default corner: a
-dense count matrix, no covariates, no allele data, the exact likelihood (on
-CUDA through the hand-written kernels) or the Chebyshev normalizer
-(``likelihood_impl="z_cheb"``), Y stored as ``y_storage`` says (the compute
-dtype, int16, int8 or bfloat16; "auto" picks the narrowest exact integer
-type). Every other option raises NotImplementedError naming its ROADMAP
-item; none falls back silently.
+and an injectable ``noise`` source. This port covers a dense count matrix
+with or without covariates ``x`` (on CUDA K + P <= 4), no allele data, the
+exact likelihood (on CUDA through the hand-written kernels) or the
+Chebyshev normalizer (``likelihood_impl="z_cheb"``, K = 1 without
+covariates), Y stored as ``y_storage`` says (the compute dtype, int16, int8
+or bfloat16; "auto" picks the narrowest exact integer type). Every other
+option raises NotImplementedError naming its ROADMAP item; none falls back
+silently.
 """
 
 from __future__ import annotations
@@ -238,23 +239,39 @@ def _check_reference_keywords(key, loop_impl) -> None:
         raise ValueError(f"loop_impl must be 'while' or 'scan', got {loop_impl!r}")
 
 
-def _check_kernel_contract(device: torch.device, K: int, mc_samples: int, C: int) -> None:
-    """On CUDA the likelihood kernels take at most MAX_KF latent columns,
-    MAX_A2 Monte Carlo samples and MAX_SC sample x clone columns; refuse
-    wider fits before any data reaches the card. z_cheb fits are held to the
-    same limits: their final ELBO runs the exact kernels."""
+def _check_kernel_contract(device: torch.device, K: int, mc_samples: int, C: int,
+                           P: int = 0) -> None:
+    """On CUDA the likelihood kernels take at most MAX_KF columns of
+    ``[psi, X]`` (K latent factors and P covariates), MAX_A2 Monte Carlo
+    samples and MAX_SC sample x clone columns; refuse wider fits before any
+    data reaches the card. z_cheb fits are held to the same limits: their
+    final ELBO runs the exact kernels."""
     if device.type != "cuda":
         return
-    if K > MAX_KF or mc_samples > MAX_A2 or mc_samples * C > MAX_SC:
+    if K + P > MAX_KF or mc_samples > MAX_A2 or mc_samples * C > MAX_SC:
         raise _not_ported(
-            f"a fit on CUDA with K={K}, mc_samples={mc_samples} and {C} clones "
-            f"(the kernels take K <= {MAX_KF}, mc_samples <= {MAX_A2} and "
-            f"mc_samples x clones <= {MAX_SC})",
+            f"a fit on CUDA with K={K}, P={P} covariates, mc_samples={mc_samples} and "
+            f"{C} clones (the kernels take K + P <= {MAX_KF}, mc_samples <= {MAX_A2} "
+            f"and mc_samples x clones <= {MAX_SC})",
             "wide kernel contract",
         )
 
 
-def _resolve_auto_impl(K, mc_samples, dtype, n_elements) -> str:
+def _parse_covariates(x, N: int):
+    """``x`` as the reference reads it (reference api.py:334-342): float64 on
+    the host, a 1-D array as one column, N rows or a ValueError; None stays
+    None."""
+    if x is None:
+        return None
+    x = np.asarray(x, np.float64)
+    if x.ndim == 1:
+        x = x[:, None]
+    if x.shape[0] != N:
+        raise ValueError(f"x must have {N} rows (cells)")
+    return x
+
+
+def _resolve_auto_impl(K, mc_samples, dtype, n_elements, P=0) -> str:
     """``likelihood_impl="auto"``: the exact likelihood at every size.
 
     The JAX package (api.py:213-239) resolves "auto" to z_cheb in the K=1 /
@@ -268,15 +285,13 @@ def _resolve_auto_impl(K, mc_samples, dtype, n_elements) -> str:
     about 300 small kernels an iteration where the fused kernels issue
     three. So no size opens the corner; z_cheb is there when asked for
     (lane-batched sweeps amortize its launches: PERF.md). The arguments are
-    the reference's, so that a later gate can use them."""
-    del K, mc_samples, dtype, n_elements
+    the reference's (P last), so that a later gate can use them."""
+    del K, mc_samples, dtype, n_elements, P
     return "xla"
 
 
-def _check_options(x, clone_allele, cov, ref, y_storage, likelihood_impl, K, mc_samples,
+def _check_options(P, clone_allele, cov, ref, y_storage, likelihood_impl, K, mc_samples,
                    fix_alpha):
-    if x is not None:
-        raise _not_ported("covariates x", "covariates")
     if clone_allele is not None or cov is not None or ref is not None:
         raise _not_ported("allele-specific inputs (clone_allele/cov/ref)", "allele")
     if likelihood_impl not in ("auto", "xla", "z_cheb"):
@@ -285,7 +300,7 @@ def _check_options(x, clone_allele, cov, ref, y_storage, likelihood_impl, K, mc_
             f"got {likelihood_impl!r}"
         )
     # a configuration error surfaces before the host validation and upload
-    mm._use_z_cheb(mm.ModelConfig(K=K, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
+    mm._use_z_cheb(mm.ModelConfig(K=K, P=P, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
                                   likelihood_impl=likelihood_impl))
     if y_storage not in _Y_STORAGE:
         raise ValueError(
@@ -331,21 +346,25 @@ def setup_fit(
 
     ``y_storage`` picks Y's storage type on the device (``_Y_STORAGE``;
     "auto": :func:`_auto_y_storage`). ``likelihood_impl="auto"``
-    resolves by :func:`_resolve_auto_impl` over the retained genes.
+    resolves by :func:`_resolve_auto_impl` over the retained genes. The
+    covariates ``x`` (:func:`_parse_covariates`) go to the device beside Y,
+    in the compute dtype.
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
     K = 1 if K is None else int(K)  # reference R/clonealign.R:226-232
-    _check_options(x, clone_allele, cov, ref, y_storage, likelihood_impl, K, mc_samples,
+    Y, gene_names, _cell_names = _parse_expression(gene_expression_data)
+    x = _parse_covariates(x, Y.shape[0])
+    P = 0 if x is None else x.shape[1]
+    _check_options(P, clone_allele, cov, ref, y_storage, likelihood_impl, K, mc_samples,
                    fix_alpha)
     if verbose:
         print("Constructing model")  # reference R/inference-tflow.R:102-104
-    Y, gene_names, _cell_names = _parse_expression(gene_expression_data)
     if _is_scipy_sparse(Y):
         raise _not_ported("a sparse count matrix", "chunked and sparse prepare")
     N, G = Y.shape
     L, clone_names = _parse_copy_number(copy_number_data, G)
-    _check_kernel_contract(dev, K, int(mc_samples), L.shape[1])
+    _check_kernel_contract(dev, K, int(mc_samples), L.shape[1], P)
 
     device_validated = np.issubdtype(Y.dtype, np.integer) and Y.dtype.itemsize <= 2
     # float32 column sums of integers are exact below 2^24, and a total that
@@ -381,7 +400,7 @@ def setup_fit(
     storage = _Y_STORAGE[y_storage]
     if storage == "auto":
         storage = _auto_y_storage(Y)
-    data = mm.prepare_data(Y, L, device=dev, dtype=dt, y_storage=storage,
+    data = mm.prepare_data(Y, L, x, device=dev, dtype=dt, y_storage=storage,
                            check_feasible=not defer_filter)
     if defer_filter:
         low = data.colsum_Y.cpu().numpy() <= gene_filter_threshold
@@ -392,15 +411,15 @@ def setup_fit(
             stored = Y if storage == torch.bfloat16 else data.Y[
                 :, torch.as_tensor(np.flatnonzero(~low), device=dev)]
             del data
-            data = mm.prepare_data(stored, L, device=dev, dtype=dt, y_storage=storage,
+            data = mm.prepare_data(stored, L, x, device=dev, dtype=dt, y_storage=storage,
                                    check_feasible=False)
     if device_validated and float(torch.min(data.s)) == 0:
         raise ValueError("Some cells have no counts mapping")  # R/inference-tflow.R:212-214
     if defer_filter:
         mm._check_cells_feasible(data.YlogL)
     if likelihood_impl == "auto":
-        likelihood_impl = _resolve_auto_impl(K, mc_samples, dt, Y.shape[0] * Y.shape[1])
-    config = mm.ModelConfig(K=K, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
+        likelihood_impl = _resolve_auto_impl(K, mc_samples, dt, Y.shape[0] * Y.shape[1], P)
+    config = mm.ModelConfig(K=K, P=P, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
                             likelihood_impl=likelihood_impl)
 
     # numpy booleans (np.True_, 0-d bool arrays) are the boolean switch,
@@ -465,8 +484,11 @@ def clonealign(
     R/clonealign.R:184-203). ``device`` is "cuda" (default) or "cpu"; every
     random draw comes from ``noise`` (default: a
     :class:`~clonealign_torch.utils.noise.Noise` seeded with ``seed``, or 0).
-    ``likelihood_impl`` is "auto", "xla" (the exact normalizer) or "z_cheb"
-    (the Chebyshev normalizer, K=1 only; the reported ELBO stays exact).
+    ``x`` (N x P covariates, or one column as a 1-D array) adds the
+    coefficients beta, reported as ``ml_params["beta"]`` (G' x P for the
+    retained genes); on CUDA K + P <= 4. ``likelihood_impl`` is "auto",
+    "xla" (the exact normalizer) or "z_cheb" (the Chebyshev normalizer, K=1
+    without covariates; the reported ELBO stays exact).
     ``loop_impl`` ("while" or "scan"), ``unroll`` and ``remat`` are the JAX
     package's compilation controls: accepted, with no effect here. ``key``
     (a JAX PRNG key) is refused: pass ``seed`` or ``noise``.
@@ -506,6 +528,7 @@ def clonealign(
         K=ctx.config.K,
         data_init_mu=ctx.data_init_mu,
         dtype=ctx.dtype,
+        P=ctx.config.P,
     )
     synchronize(ctx.device)
     t2 = time.perf_counter()
@@ -590,6 +613,8 @@ def _package_fit(
         ml_params["psi"] = host(p.psi)
         ml_params["W"] = host(p.W)
         ml_params["chi"] = host(torch.exp(p.chi_unconstr))
+    if config.P > 0:
+        ml_params["beta"] = host(p.beta)
 
     n_iters = int(result.n_iters)
     trace = np.asarray(result.elbo_trace)[: n_iters + 1]

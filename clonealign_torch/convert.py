@@ -15,7 +15,6 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from .api import _not_ported
 from .models.multinomial import CloneAlignParams, ModelData
 
 
@@ -31,26 +30,24 @@ def _tensor(value, device, dtype):
 
 def params_from_numpy(params, device, dtype=torch.float32) -> CloneAlignParams:
     """The port's parameters from a JAX ``CloneAlignParams`` (or a dict of
-    arrays). Covariate coefficients ``beta`` must have no columns. Parameters
-    with a leading lane axis, as ``jax.vmap`` returns them, keep it: they are
-    the R lanes ``infer.run_inference_lanes`` takes."""
+    arrays); a missing ``beta`` is the (G, 0) of a fit without covariates.
+    Parameters with a leading lane axis, as ``jax.vmap`` returns them, keep
+    it: they are the R lanes ``infer.run_inference_lanes`` takes."""
     get = _field_reader(params)
     beta = get("beta")
-    if beta is not None and np.asarray(beta).shape[-1] != 0:
-        raise _not_ported("covariate coefficients beta", "covariates")
+    if beta is None:
+        beta = np.zeros(np.shape(get("W"))[:-1] + (0,))
     return CloneAlignParams(**{
-        f.name: _tensor(get(f.name), device, dtype)
+        f.name: _tensor(beta if f.name == "beta" else get(f.name), device, dtype)
         for f in dataclasses.fields(CloneAlignParams)
     })
 
 
 def data_from_numpy(data, device, dtype=torch.float32) -> ModelData:
-    """The port's data from a JAX ``ModelData`` (or a dict of arrays). Y is
-    stored in ``dtype``; covariates ``X`` must be absent."""
+    """The port's data from a JAX ``ModelData`` (or a dict of arrays). Y and
+    the covariates ``X`` (None without them) are stored in ``dtype``."""
     get = _field_reader(data)
-    if get("X") is not None:
-        raise _not_ported("covariates X", "covariates")
     return ModelData(**{
-        f.name: _tensor(get(f.name), device, dtype)
+        f.name: None if get(f.name) is None else _tensor(get(f.name), device, dtype)
         for f in dataclasses.fields(ModelData)
     })

@@ -62,6 +62,8 @@ class TF1Adam:
         neg_lr = _upload(-(self.lr * torch.sqrt(1 - b2**t) / (1 - b1**t)), device)
         keep_lanes = None if active is None else _upload(active, device)
         for p, g, m, v in zip(params, grads, self.m, self.v):
+            if not p.numel():  # e.g. beta without covariates: nothing to move
+                continue
             lane = (-1,) + (1,) * (p.dim() - 1)
             lr_p = neg_lr if neg_lr.dim() == 0 else neg_lr.view(lane)
             m_new = b1 * m + (1 - b1) * g

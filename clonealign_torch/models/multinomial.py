@@ -25,15 +25,17 @@ statistics, the PCA and mu initialization, z_cheb's A terms) converts it in
 row blocks of ``_CHUNK_ELEMENTS``, so no second full-precision N x G tensor
 is made above that size.
 
-This slice covers the default corner of the reference: no covariates
-(P = 0) and a dense count matrix.
+Covariates fold in by concatenation, as in the reference: with X (N, P)
+and beta (G, P), ``log_rfe = [psi, X] [W, beta]^T``, so the fused op takes
+``psi_ext = [psi, X]`` and ``W_ext = [W, beta]`` (Kf = K + P columns) and
+its A1 carries ``sum_g y_ng (X beta^T)[n,g]``. The count matrix is dense.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -83,6 +85,7 @@ class CloneAlignParams:
     qmu_loc: torch.Tensor        # (G,) variational loc of inv-softplus(mu)
     qmu_log_scale: torch.Tensor  # (G,) log scale, init log(1)=0
     gamma_logits: torch.Tensor   # (N, C) variational clone responsibilities
+    beta: torch.Tensor           # (G, P) covariate coefficients, init 0 (P may be 0)
 
     def tensors(self):
         return [getattr(self, f.name) for f in dataclasses.fields(self)]
@@ -101,10 +104,12 @@ class ModelData:
     log_binom: torch.Tensor  # (N,) lgamma(s+1) - sum_g lgamma(y+1)
     YlogL: torch.Tensor      # (N, C) sum_g xlogy(y_ng, L_gc)
     colsum_Y: torch.Tensor   # (G,) per-gene count totals (see elbo())
+    X: Optional[torch.Tensor] = None  # (N, P) covariates in the compute dtype, or None
 
 
 class ModelConfig(NamedTuple):
     K: int = 1
+    P: int = 0  # covariate columns
     mc_samples: int = 1
     fix_alpha: bool = False
     # "xla" (and "auto", at this layer) -> the exact normalizer through the
@@ -230,12 +235,13 @@ def _chunk_stats(yf, log_L_safe, zero_cols):
     return s, log_binom, B, torch.sum(yf, dim=0)
 
 
-def prepare_data(Y, L, *, device, dtype=torch.float32, y_storage=None,
+def prepare_data(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
                  check_feasible=True) -> ModelData:
     """The device data of a fit from a dense count matrix (a numpy array or a
     tensor): Y stored as ``y_storage`` (None: the compute ``dtype``; or
-    torch.int8, torch.int16, torch.bfloat16) and its statistics in
-    ``dtype`` (reference models/multinomial.py:219-284, 564-746).
+    torch.int8, torch.int16, torch.bfloat16), its statistics and the
+    covariates ``x`` (N, P) or None in ``dtype`` (reference
+    models/multinomial.py:219-284, 564-746).
 
     The rows go to the device in chunks of ``_CHUNK_ELEMENTS``, each in its
     narrowest exact wire type (:func:`_wire_np`; checked and narrowed on the
@@ -299,7 +305,8 @@ def prepare_data(Y, L, *, device, dtype=torch.float32, y_storage=None,
     s, log_binom, B = (torch.cat(p) for p in zip(*parts))
     if check_feasible:
         _check_cells_feasible(B)
-    return ModelData(Y=Yd, L=Ld, s=s, log_binom=log_binom, YlogL=B, colsum_Y=colsum)
+    X = None if x is None else torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return ModelData(Y=Yd, L=Ld, s=s, log_binom=log_binom, YlogL=B, colsum_Y=colsum, X=X)
 
 
 def _check_cells_feasible(B):
@@ -431,13 +438,14 @@ def init_params(
     dtype=torch.float32,
     pca_scores=None,
     mu_guess=None,
+    P: int = 0,
 ) -> CloneAlignParams:
     """Initial parameter values (reference R/inference-tflow.R:204-273).
 
     - psi: PCA of log2(Y+1), re-standardized, + N(0, 0.05) jitter
     - qmu_loc: inv-softplus of colMeans(Y / rowMeans(Y)) (or ones, or the
       given array divided by its mean)
-    - everything else zeros
+    - everything else zeros, beta (G, P) included
 
     ``pca_scores`` / ``mu_guess`` take precomputed outputs of
     :func:`pca_init_scores` / :func:`data_mu_guess` (shared across restarts).
@@ -471,6 +479,7 @@ def init_params(
         qmu_loc=safe_inverse_softplus(mu_guess),
         qmu_log_scale=zeros(G),
         gamma_logits=zeros(N, C),
+        beta=zeros(G, P),
     )
 
 
@@ -533,12 +542,24 @@ def _a_terms(params, data, log_mu):
     return A1, A2
 
 
+def _extended(psi, W, beta, X):
+    """``psi_ext = [psi, X]`` (N, K + P) and ``W_ext = [W, beta]`` (G, K + P)
+    of one lane (reference ops/fused_likelihood.py:22-23); psi and W as they
+    are without covariates. X is data: the fused op's backward computes
+    d psi_ext for its columns too, and autograd drops them at the
+    concatenation, which passes only psi's columns on."""
+    if beta.shape[-1] == 0:
+        return psi, W
+    return torch.cat([psi, X], dim=-1), torch.cat([W, beta], dim=-1)
+
+
 def _likelihood_terms(params, data, mu_samples, log_mu, config=None):
     """A1 (..., N), A2 (..., N, S) or None, and log Z as (..., S, C, N)
     (the reference's ``_compute_logZ`` with the A terms beside it).
 
-    Exact: through the fused-likelihood op, once per lane when the
-    parameters carry a lane axis (the op's kernels take one lane). z_cheb:
+    Exact: through the fused-likelihood op on ``[psi, X]`` and ``[W, beta]``
+    (:func:`_extended`), once per lane when the parameters carry a lane axis
+    (the op's kernels take one lane; X is shared). z_cheb:
     :func:`_compute_logZ_cheb` and :func:`_a_terms`.
     """
     if _use_z_cheb(config):
@@ -549,13 +570,14 @@ def _likelihood_terms(params, data, mu_samples, log_mu, config=None):
     lead = mu_samples.shape[:-2]
     muL = (mu_samples[..., :, :, None] * data.L).transpose(-3, -2).reshape(*lead, G, S * C)
     if not lead:
-        A1, A2, Z = fused_likelihood_terms(data.Y, params.psi, params.W, log_mu, muL)
+        psi_ext, W_ext = _extended(params.psi, params.W, params.beta, data.X)
+        A1, A2, Z = fused_likelihood_terms(data.Y, psi_ext, W_ext, log_mu, muL)
     else:
         log_mus = [None] * lead[0] if log_mu is None else log_mu.unbind(0)
         lanes = [
-            fused_likelihood_terms(data.Y, psi, W, lm, m)
-            for psi, W, lm, m in zip(params.psi.unbind(0), params.W.unbind(0), log_mus,
-                                     muL.unbind(0))
+            fused_likelihood_terms(data.Y, *_extended(psi, W, beta, data.X), lm, m)
+            for psi, W, beta, lm, m in zip(params.psi.unbind(0), params.W.unbind(0),
+                                           params.beta.unbind(0), log_mus, muL.unbind(0))
         ]
         A1 = stack_lanes([a1 for a1, _, _ in lanes])
         A2 = None if log_mu is None else stack_lanes([a2 for _, a2, _ in lanes])
@@ -796,9 +818,9 @@ def _use_z_cheb(config) -> bool:
     cannot apply (reference models/multinomial.py:1225-1233)."""
     if config is None or config.likelihood_impl != "z_cheb":
         return False
-    if config.K != 1:
+    if config.K != 1 or config.P != 0:
         raise ValueError(
             "likelihood_impl='z_cheb' requires K=1 and no covariates "
-            f"(got K={config.K}, P=0); use the default backend"
+            f"(got K={config.K}, P={config.P}); use the default backend"
         )
     return True

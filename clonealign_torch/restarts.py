@@ -32,49 +32,55 @@ from .utils.noise import Noise
 SWEEP_BUDGET_BYTES = 40 * 10**9
 
 
-def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None) -> int:
+def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None, P=0,
+                 z_cheb=False) -> int:
     """The lane-batched sweep's working set, reckoned from the code, in
     bytes; ``itemsize`` is the compute dtype's, ``y_itemsize`` Y's storage
-    type's (by default the compute dtype's).
+    type's (by default the compute dtype's), P the covariate columns and
+    ``z_cheb`` whether the likelihood resolved to the Chebyshev normalizer.
 
-    Shared by every lane: Y (N x G, at its storage itemsize). Y stored
-    narrow adds one row block in the compute dtype (``_CHUNK_ELEMENTS``
-    elements at most): z_cheb's products with Y convert it a block at a
-    time. On the CPU the fused op's plain version also holds about three
+    Shared by every lane: Y (N x G, at its storage itemsize) and the
+    covariates X (N x P). On CUDA the kernels store no N x G tensor and read
+    Y as it is stored; only z_cheb's products with Y convert a narrow Y, a
+    row block (``_CHUNK_ELEMENTS`` elements at most) at a time in the
+    compute dtype. On the CPU the fused op's plain version holds about three
     N x G temporaries (log_rfe, rfe and dlog_rfe in its backward), and a
     fourth for Y converted from narrow storage; the lane loop in
     ``models/multinomial._likelihood_terms`` runs it one lane at a time, so
-    they are held once, not per lane. On CUDA the kernels store no N x G
-    tensor and read Y as it is stored.
+    they are held once, not per lane.
 
-    Per live lane: the parameters P = N (K + C) + G (K + 2) + K + C; their
-    gradients, the two Adam moments and the step's three candidates
-    (``TF1Adam.step``), 7 P in all; and the (S, C, N)-sized tensors the
+    Per live lane: the parameters n_par = N (K + C) + G (K + P + 2) + K + C;
+    their gradients, the two Adam moments and the step's three candidates
+    (``TF1Adam.step``), 7 n_par in all; the (S, C, N)-sized tensors the
     ELBO keeps for its backward (Z, log Z, the clone log-likelihoods, their
-    mean, gamma, log gamma and the masked products), counted as 16 N S C,
-    with the fused op's YW and A1 (N K + N). A z_cheb lane holds the same
-    order: its Clenshaw backward recomputes the carries ((S, C, N) each)
-    instead of saving them.
+    mean, gamma, log gamma and the masked products), counted as 16 N S C;
+    the fused op's YW and A1 (N (K + P) + N); and with covariates the
+    concatenations [psi, X] and [W, beta] it saves ((N + G)(K + P)). A
+    z_cheb lane holds the same order: its Clenshaw backward recomputes the
+    carries ((S, C, N) each) instead of saving them.
     """
     y_itemsize = itemsize if y_itemsize is None else y_itemsize
     narrow = y_itemsize != itemsize
     if device_type == "cuda":
-        temporaries = min(N * G, mm._CHUNK_ELEMENTS) if narrow else 0
+        temporaries = min(N * G, mm._CHUNK_ELEMENTS) if narrow and z_cheb else 0
     else:
         temporaries = N * G * (4 if narrow else 3)
-    P = N * (K + C) + G * (K + 2) + K + C
-    per_lane = 7 * P + 16 * N * S * C + N * (K + 1)
-    return y_itemsize * N * G + itemsize * (temporaries + n_lanes * per_lane)
+    Kf = K + P
+    n_par = N * (K + C) + G * (Kf + 2) + K + C
+    saved_ext = (N + G) * Kf if P else 0
+    per_lane = 7 * n_par + 16 * N * S * C + N * (Kf + 1) + saved_ext
+    return y_itemsize * N * G + itemsize * (N * P + temporaries + n_lanes * per_lane)
 
 
-def _auto_restart_batching(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None) -> str:
+def _auto_restart_batching(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
+                           P=0, z_cheb=False) -> str:
     """"vmap" when the lane-batched sweep's working set (:func:`_sweep_bytes`)
     fits :data:`SWEEP_BUDGET_BYTES`, else "map", which holds one lane at a
     time. At 100,000 x 5,000 x 10 (K = 1, S = 1, float32) a lane adds about
     96 MB to Y's 2 GB, so "vmap" takes up to 395 lanes there. (The JAX
     package's 6e9 lane-elements cutover was measured on a 16 GB TPU v5e and
     does not carry over.)"""
-    need = _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize)
+    need = _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize, P, z_cheb)
     return "vmap" if need <= SWEEP_BUDGET_BYTES else "map"
 
 
@@ -103,7 +109,8 @@ def run_clonealign(
 ):
     """Sweep restarts, return the max-ELBO fit with ``multirun_info`` attached
     (reference R/clonealign.R:35-75). Extra kwargs go to the model setup
-    (same names as :func:`clonealign_torch.clonealign`).
+    (same names as :func:`clonealign_torch.clonealign`, the covariates ``x``
+    among them; every lane has its own beta).
 
     Restart r draws from ``Noise(seed + r)``, so a one-restart sweep is the
     single fit with the same seed. ``restart_batching``: "vmap" runs the
@@ -138,6 +145,7 @@ def run_clonealign(
         restart_batching = _auto_restart_batching(
             N, G, C, config.K, config.mc_samples, R,
             torch.finfo(ctx.dtype).bits // 8, ctx.device.type, data.Y.element_size(),
+            config.P, mm._use_z_cheb(config),
         )
     base = 0 if seed is None else int(seed)
     noises = [Noise(base + r, ctx.device) for r in range(R)]
@@ -152,7 +160,7 @@ def run_clonealign(
     params0 = [
         mm.init_params(
             data.Y, data.L, noise, K=config.K, data_init_mu=ctx.data_init_mu,
-            dtype=ctx.dtype, pca_scores=shared_pca, mu_guess=shared_mu,
+            dtype=ctx.dtype, pca_scores=shared_pca, mu_guess=shared_mu, P=config.P,
         )
         for noise in noises
     ]

@@ -244,7 +244,6 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(x=np.zeros((60, 1))),
     dict(clone_allele=np.zeros((2, 3)), cov=np.zeros((2, 60)), ref=np.zeros((2, 60))),
     dict(sparse=True),
     dict(mesh=object()),

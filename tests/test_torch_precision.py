@@ -331,14 +331,17 @@ def test_row_blocked_products_with_narrow_y(stored, monkeypatch):
 @pytest.mark.parametrize("device_type", ["cuda", "cpu"])
 def test_sweep_bytes_count_y_at_its_storage_itemsize(device_type):
     """Y counts at its storage itemsize; narrow storage adds the z_cheb
-    products' row block in the compute dtype on the card, and Y converted
-    whole by the plain fused op on the CPU."""
+    products' row block in the compute dtype on the card (the exact kernels
+    read Y as it is stored), and Y converted whole by the plain fused op on
+    the CPU."""
     N, G, C = 100_000, 5_000, 10
     f32 = trestarts._sweep_bytes(N, G, C, 1, 1, 10, 4, device_type)
     assert f32 == trestarts._sweep_bytes(N, G, C, 1, 1, 10, 4, device_type, 4)
     i8 = trestarts._sweep_bytes(N, G, C, 1, 1, 10, 4, device_type, 1)
+    assert i8 == f32 - 3 * N * G + (0 if device_type == "cuda" else 4 * N * G)
+    i8_cheb = trestarts._sweep_bytes(N, G, C, 1, 1, 10, 4, device_type, 1, z_cheb=True)
     extra = 4 * tmm._CHUNK_ELEMENTS if device_type == "cuda" else 4 * N * G
-    assert i8 == f32 - 3 * N * G + extra
+    assert i8_cheb == f32 - 3 * N * G + extra
 
 
 # ---------------------------------------------------------------------------
