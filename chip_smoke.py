@@ -17,16 +17,22 @@ beside its bound. Then it drives the fit at full width —
 card from a seed — through ``clonealign_torch.clonealign`` under the exact
 likelihood with Y stored as float32 and as ``y_storage="auto"`` resolves,
 and under "auto" with two covariate columns (K = 1, P = 2), in turns, each
-with its launches counted from zero and its peak memory in the inference;
+with its launches counted from zero and its peak memory in the inference,
+and, also in turns, under "auto" with allele data (1,000 variants around
+the true clones, made with numpy by the golden oracle's recipe) and from the
+same counts as a scipy CSR matrix (which must give the dense fit's labels
+and final ELBO), each printing its setup seconds and setup peak besides;
 then, under "auto" storage, the Chebyshev normalizer (z_cheb) and the exact
 one in turns, printing each fit's ms per iteration; the full-width sweep of
 ten restarts through ``run_clonealign`` three ways (exact in sequence,
 exact as lanes of one batched loop, z_cheb as lanes), the lanes also with
 float32 Y in turns, and once with the covariates and ``restart_batching=
 "auto"``, each with its kernel launches counted from zero and checked
-against its lanes' iterations; a small sweep; and the three converged fits
-of the golden oracle (tests/golden/tpu_parity_oracle.npz: example, synth,
-rich), each held to that oracle's bar. Any
+against its lanes' iterations; a small sweep; the golden oracle's allele
+data as a sweep of three restarts, "map" and "vmap" in turns, which must run
+the same iterations and give the same labels; and the four converged fits of
+the golden oracle (tests/golden/tpu_parity_oracle.npz: example, synth, rich,
+allele), each held to that oracle's bar. Any
 failed phase raises and the script exits nonzero, as it does when ptxas's
 report lacks a tensor-core kernel instantiation or shows one spilling
 registers. The last line of standard output is a JSON object naming the
@@ -35,7 +41,8 @@ main path's fit, its error against the plain version, its time, the plain
 version's time and its bound (the least time the card could take for the
 same work) at the Y storage "auto" resolves to (``y_storage``), the same
 for each full-width storage (``by_storage``) and at Kf = 3 and 4
-(``by_kf``), the launches of the covariate fit's path (``paths``), the
+(``by_kf``), the launches of each other path (``paths``: the covariate,
+allele and sparse fits, golden rich and allele, the allele sweep), the
 backward's entry also
 listing its two parts (the Y-free dpsi kernel, and the gene-major kernel
 with its packing and reduction kernels), each with its own launches, time,
@@ -54,6 +61,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.sparse
 
 # A kernel output element passes when |kernel - plain| <= KERNEL_RTOL * scale,
 # where scale is the same sum taken over absolute values of its terms. A1,
@@ -78,6 +86,10 @@ FULL_STORAGES = ("float32", "int16", "int8")
 FULL_KF = (3, 4)
 FULL_KF_STORAGES = ("int8", "float32")
 SWEEP = dict(N=2_000, G=500, C=4)
+SNV_V = 1_000  # variants of the full-width allele fit
+# the full-width fits run in turns: Y as float32, as "auto" resolves, with
+# covariates, with allele data, and as a CSR matrix
+FIT_KINDS = ("float32", "auto", "auto+x", "auto+allele", "auto+sparse")
 FIT_MAX_ITER = 100
 MIN_ACCURACY = 0.99
 # bench.py's sweep: ten restarts at one shrink, 100 iterations, the ELBO
@@ -381,6 +393,21 @@ def synth_counts(seed, N, G, C):
     return Y.cpu().numpy(), L.cpu().numpy().astype(np.float64), z.cpu().numpy()
 
 
+def snv_data(z, C, V, seed):
+    """V variants around the true clones z, made with numpy by the golden
+    oracle's recipe (tests/golden/make_tpu_parity_oracle.py:49-60): clone
+    copy numbers 1-3, Poisson(8) coverage, alternative counts binomial at
+    0.5 where the true clone's copy number is 2, else at 0.05 or 0.95;
+    ``ref = cov - alt``."""
+    rng = np.random.default_rng(seed)
+    clone_allele = rng.integers(1, 4, (V, C)).astype(np.float64)
+    cov = rng.poisson(8.0, (len(z), V)).astype(np.float64)
+    cn = clone_allele[:, z]  # (V, N)
+    p = np.where(cn == 2, 0.5, np.where(rng.random(cn.shape) < 0.5, 0.05, 0.95))
+    alt = rng.binomial(cov.T.astype(np.int64), p).astype(np.float64)
+    return dict(clone_allele=clone_allele, cov=cov, ref=cov - alt.T)
+
+
 def accuracy(fit, z_true) -> float:
     index = {name: i for i, name in enumerate(fit.clone_names)}
     called = np.asarray([index.get(c, -1) for c in fit.clone])  # unassigned counts wrong
@@ -434,24 +461,69 @@ def inference_peaks():
             setattr(m, n, fn)
 
 
-def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None):
+@contextlib.contextmanager
+def setup_measures():
+    """Collect each call of setup_fit's wall seconds and the card's peak
+    allocated bytes over it, and the wall seconds of the allele term's own
+    setup within it (``api._setup_allele``: the beta-binomial passes and
+    their products, in blocks of cells), after synchronizing the card."""
+    import torch
+
+    from clonealign_torch import api, restarts
+
+    found = {"setup": [], "allele_s": []}
+    originals = {(m, n): getattr(m, n) for m, n in ((api, "setup_fit"), (restarts, "setup_fit"),
+                                                    (api, "_setup_allele"))}
+
+    def measured(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            if name == "setup":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            found[name].append((seconds, torch.cuda.max_memory_allocated())
+                               if name == "setup" else seconds)
+            return out
+        return call
+
+    for (m, n), fn in originals.items():
+        setattr(m, n, measured("allele_s" if n == "_setup_allele" else "setup", fn))
+    try:
+        yield found
+    finally:
+        for (m, n), fn in originals.items():
+            setattr(m, n, fn)
+
+
+def snv_accuracy(fit, z_true) -> float:
+    """The clone calls of the SNV term alone: argmax of clone_probs_from_snv."""
+    return float(np.mean(np.argmax(fit.clone_probs_from_snv, axis=1) == z_true))
+
+
+def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, label=None):
     """One full-width exact fit through clonealign with Y stored as
-    ``y_storage`` and the covariates ``x`` (or none), its kernel launches
-    counted from zero; checks its ELBO trace, accuracy and launches (and
-    beta's shape) and returns its numbers."""
+    ``y_storage``, the covariates ``x`` (or none) and the allele data
+    ``allele`` (a dict of clone_allele, cov and ref, or none), its kernel
+    launches counted from zero; checks its ELBO trace, accuracy and launches
+    (and beta's shape, or the SNV probabilities) and returns its numbers."""
     fl.reset_launch_counts()
     t0 = time.perf_counter()
-    with inference_peaks() as peaks:
+    with inference_peaks() as peaks, setup_measures() as setups:
         fit = clonealign_torch.clonealign(
             Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
-            likelihood_impl="xla", y_storage=y_storage, x=x,
+            likelihood_impl="xla", y_storage=y_storage, x=x, **(allele or {}),
         )
     wall = time.perf_counter() - t0
     launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
     ci, tm = fit.convergence_info, fit.timings
     n_iters = ci.n_iters
+    (_, setup_peak), = setups["setup"]
     out = {"iter_ms": 1000 * tm["loop"] / max(n_iters, 1), "setup_s": tm["setup"],
-           "peak_gb": max(b for _, b in peaks) / 1e9, "final_elbo": ci.final_elbo,
+           "peak_gb": max(b for _, b in peaks) / 1e9, "setup_peak_gb": setup_peak / 1e9,
+           "final_elbo": ci.final_elbo, "sd_final": ci.sd_final_elbo, "labels": fit.clone,
            "accuracy": accuracy(fit, z), "launches": launches}
     P = 0 if x is None else x.shape[1]
     if P:
@@ -459,9 +531,20 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None):
         if beta.shape != (FULL["G"], P) or not np.isfinite(beta).all():
             raise AssertionError(f"beta has shape {beta.shape} or is not finite")
         log(f"  beta: |beta| max {np.abs(beta).max():.4g}, mean {np.abs(beta).mean():.4g}")
-    log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']} y_storage={y_storage} K=1 P={P}: "
-        f"{wall:.2f} s wall, "
-        f"setup {tm['setup']:.2f} s, init {tm['init']:.2f} s, "
+    if allele is not None:
+        probs = fit.clone_probs_from_snv
+        if probs is None or probs.shape != (FULL["N"], FULL["C"]) or not np.isfinite(probs).all():
+            raise AssertionError("the allele fit's clone_probs_from_snv is missing or not finite")
+        (out["allele_s"],) = setups["allele_s"]
+        out["snv_accuracy"] = snv_accuracy(fit, z)
+        log(f"  allele term: V={allele['clone_allele'].shape[0]} variants, "
+            f"{out['allele_s']:.3f} s of setup; SNV-alone accuracy {out['snv_accuracy']:.4f}")
+    elif fit.clone_probs_from_snv is not None:
+        raise AssertionError("a fit without allele data carries clone_probs_from_snv")
+    log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']} {label or y_storage} y_storage={y_storage} "
+        f"K=1 P={P}: {wall:.2f} s wall, "
+        f"setup {tm['setup']:.2f} s (peak allocated {out['setup_peak_gb']:.3f} GB), "
+        f"init {tm['init']:.2f} s, "
         f"inference {tm['inference']:.2f} s ({n_iters} iterations, "
         f"{out['iter_ms']:.2f} ms per iteration), package {tm['package']:.2f} s; "
         f"peak allocated in the inference {out['peak_gb']:.3f} GB")
@@ -470,12 +553,12 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None):
         f"{ci.final_elbo:.9g} +- {ci.sd_final_elbo:.3g}; accuracy {out['accuracy']:.4f}; "
         f"launches fwd {launches['fwd']} dpsi {launches['dpsi']} gene {launches['gene']}")
     if out["accuracy"] < MIN_ACCURACY:
-        raise AssertionError(f"y_storage={y_storage}: accuracy {out['accuracy']:.4f} < {MIN_ACCURACY}")
+        raise AssertionError(f"{label or y_storage}: accuracy {out['accuracy']:.4f} < {MIN_ACCURACY}")
     # warm start + initial ELBO + (train + fresh eval) per iteration + 20
     # final, and one backward (a dpsi and a gene-major launch) per iteration
     want = {"fwd": 2 + 2 * n_iters + 20, "dpsi": n_iters, "gene": n_iters}
     if launches != want:
-        raise AssertionError(f"y_storage={y_storage}: kernel launches {launches} do not match "
+        raise AssertionError(f"{label or y_storage}: kernel launches {launches} do not match "
                              f"{n_iters} iterations (expected {want})")
     return out
 
@@ -526,28 +609,67 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_
             "lane_iter_ms": 1000 * tm["loop"] / sum(iters), "peak_gb": peak}
 
 
+def allele_sweep(clonealign_torch, fl):
+    """The golden allele data's sweep of three restarts (100 iterations)
+    through run_clonealign as "map" and "vmap", in turns, each with its
+    launches counted from zero: every lane must run the same iterations
+    under both, the labels must agree, and the fit must carry
+    clone_probs_from_snv. Returns each batching's launches."""
+    oracle = np.load(REPO / "tests" / "golden" / "tpu_parity_oracle.npz")
+    allele = {k: oracle[f"allele_{k}"] for k in ("clone_allele", "cov", "ref")}
+    runs = []
+    for batching in ("map", "vmap", "map", "vmap"):
+        fl.reset_launch_counts()
+        t0 = time.perf_counter()
+        fit = clonealign_torch.run_clonealign(
+            oracle["allele_Y"], oracle["allele_L"], initial_shrinks=(0, 5, 10), n_repeats=1,
+            device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
+            restart_batching=batching, **allele)
+        launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+        iters = fit.timings["iterations"]
+        want = {"fwd": sum(2 + 2 * n + 20 for n in iters), "dpsi": sum(iters),
+                "gene": sum(iters)}
+        log(f"allele sweep {batching}: {time.perf_counter() - t0:.2f} s, iterations {iters}, "
+            f"ELBOs {fit.multirun_info['elbos'].tolist()}, best {fit.multirun_info['best_run']}, "
+            f"launches {launches}")
+        if launches != want or fit.clone_probs_from_snv is None:
+            raise AssertionError(f"allele sweep {batching}: launches {launches} (expected {want}) "
+                                 "or no clone_probs_from_snv")
+        runs.append((batching, iters, fit.clone, launches))
+    for (_, iters, clone, _), (b, iters_b, clone_b, _) in zip(runs[::2], runs[1::2]):
+        if iters_b != iters or clone_b != clone:
+            raise AssertionError(f"allele sweep: {b} differs from map in iterations or labels")
+    return {b: launches for b, _, _, launches in runs[:2]}
+
+
 def golden(clonealign_torch, fl):
-    """Fit the oracle's three configurations (tests/test_tpu_hardware.py:101-116,
-    266-287) on the card in float32 and hold each to its bar (there :70-98):
-    the final ELBO within max(1e-4 |e64|, 3 sd_final) of the float64
-    oracle, and labels that differ from the float64 oracle's only where the
-    max probability is within 0.01 of 0.95. The synthetic config runs under
-    "auto" (the exact likelihood) and under z_cheb, as the JAX package's
-    hardware test pins it; the rich one (K = 2, two covariate columns,
-    three Monte Carlo samples, fixed alpha: Kf = 4, S x C = 9) with the
-    oracle's own x. Each exact fit's launches are counted from zero and
-    checked against its iterations; returns the rich fit's."""
+    """Fit the oracle's four configurations (tests/test_tpu_hardware.py:101-116,
+    172-200, 266-287) on the card in float32 and hold each to its bar (there
+    :70-98): the final ELBO within max(1e-4 |e64|, 3 sd_final) of the
+    float64 oracle, and labels that differ from the float64 oracle's only
+    where the max probability is within 0.01 of 0.95. The synthetic config
+    runs under "auto" (the exact likelihood) and under z_cheb, as the JAX
+    package's hardware test pins it; the rich one (K = 2, two covariate
+    columns, three Monte Carlo samples, fixed alpha: Kf = 4, S x C = 9) with
+    the oracle's own x; the allele one with the oracle's own SNV data, its
+    clone_probs_from_snv also held to the float32 oracle's at rtol 1e-3 /
+    atol 1e-4 (there :195-198). Each exact fit's launches are counted from
+    zero and checked against its iterations; returns the rich and allele
+    fits' launches, by name."""
     from clonealign_torch.synth import simulate_multinomial
 
     oracle = np.load(REPO / "tests" / "golden" / "tpu_parity_oracle.npz")
     ex = np.load(REPO / "data" / "example_sce.npz")
     sim = simulate_multinomial(N=5000, G=1000, C=4, seed=3, mean_total=2000)
     rich = dict(x=oracle["rich_x"], K=2, mc_samples=3, fix_alpha=True)
+    allele = {k: oracle[f"allele_{k}"] for k in ("clone_allele", "cov", "ref")}
+    found = {}
     for name, Y, L, seed, impl, opts in (
             ("example", ex["counts"], ex["copy_number"], 7, "auto", {}),
             ("synth", sim.Y, sim.L, 11, "auto", {}),
             ("synth", sim.Y, sim.L, 11, "z_cheb", {}),
-            ("rich", oracle["rich_Y"], oracle["rich_L"], 17, "auto", rich)):
+            ("rich", oracle["rich_Y"], oracle["rich_L"], 17, "auto", rich),
+            ("allele", oracle["allele_Y"], oracle["allele_L"], 13, "auto", allele)):
         fl.reset_launch_counts()
         t0 = time.perf_counter()
         fit = clonealign_torch.clonealign(Y, L, max_iter=GOLDEN_MAX_ITER, seed=seed,
@@ -570,7 +692,16 @@ def golden(clonealign_torch, fl):
             f"from the float64 oracle, {len(off)} away from the 0.95 threshold; launches {launches}")
         if not abs(ci.final_elbo - e64) < tol or off:
             raise AssertionError(f"golden {name} ({impl}) misses the oracle's bar")
-    return launches
+        if name == "allele":
+            got, want = fit.clone_probs_from_snv, oracle["allele_snv32"]
+            err = np.abs(got - want)
+            log(f"  clone_probs_from_snv against the float32 oracle: max |diff| {err.max():.3e}, "
+                f"{int((err > 1e-4 + 1e-3 * np.abs(want)).sum())} of {err.size} outside rtol 1e-3 "
+                f"/ atol 1e-4")
+            if not np.allclose(got, want, rtol=1e-3, atol=1e-4):
+                raise AssertionError("golden allele: clone_probs_from_snv misses the oracle")
+        found[name] = launches
+    return found
 
 
 def main() -> int:
@@ -644,17 +775,45 @@ def main() -> int:
     rng = np.random.default_rng(5)
     X = np.stack([(np.arange(FULL["N"]) >= FULL["N"] // 2).astype(np.float64),
                   rng.standard_normal(FULL["N"])], axis=1)
+    # the allele data: SNV_V variants around the true clones; and the same
+    # counts as a scipy CSR matrix
+    t0 = time.perf_counter()
+    allele = snv_data(z, FULL["C"], SNV_V, seed=5)
+    t1 = time.perf_counter()
+    Y_csr = scipy.sparse.csr_matrix(Y)
+    log(f"allele data (V={SNV_V}, numpy seed 5) {t1 - t0:.1f} s; CSR of the counts "
+        f"{time.perf_counter() - t1:.1f} s, nnz {Y_csr.nnz} ({Y_csr.nnz / Y.size:.3f} of the "
+        "entries)")
     fits = {}
-    for storage, x in (("float32", None), ("auto", None), ("auto+x", X)) * 2:
-        fits.setdefault(storage, []).append(
-            full_fit(clonealign_torch, fl, Y, L, z, storage.removesuffix("+x"), x))
+    for name, counts, x, snv in (("float32", Y, None, None), ("auto", Y, None, None),
+                                 ("auto+x", Y, X, None), ("auto+allele", Y, None, allele),
+                                 ("auto+sparse", Y_csr, None, None)) * 2:
+        fits.setdefault(name, []).append(full_fit(
+            clonealign_torch, fl, counts, L, z, name.split("+")[0], x, snv, label=name))
     launches = fits["auto"][0]["launches"]  # the main path's
     cov_launches = fits["auto+x"][0]["launches"]  # the covariate fit's path
-    log(f"full-width exact fit, float32 / auto ({auto_name}) / auto with x (K=1, P={X.shape[1]}) in "
-        "turns: " + "; ".join(
+    allele_launches = fits["auto+allele"][0]["launches"]
+    sparse_launches = fits["auto+sparse"][0]["launches"]
+    log(f"full-width exact fit, float32 / auto ({auto_name}) / auto with x (K=1, P={X.shape[1]}) / "
+        f"auto with allele data (V={SNV_V}) / auto from the CSR, in turns: " + "; ".join(
             f"{key} " + " vs ".join(" / ".join(f"{f[key]:.4g}" for f in fits[k])
-                                    for k in ("float32", "auto", "auto+x"))
-            for key in ("iter_ms", "setup_s", "peak_gb", "final_elbo")))
+                                    for k in FIT_KINDS)
+            for key in ("iter_ms", "setup_s", "setup_peak_gb", "peak_gb", "final_elbo")))
+    log("allele fit: allele term " + " / ".join(f"{f['allele_s']:.3f}" for f in fits["auto+allele"])
+        + " s of setup; SNV-alone accuracy "
+        + " / ".join(f"{f['snv_accuracy']:.4f}" for f in fits["auto+allele"]))
+    for dense, sparse in zip(fits["auto"], fits["auto+sparse"]):
+        diff = abs(sparse["final_elbo"] - dense["final_elbo"])
+        bar = max(1e-6 * abs(dense["final_elbo"]), 3.0 * sparse["sd_final"])
+        same = sparse["labels"] == dense["labels"]
+        log(f"sparse fit against the dense auto fit of the same turn: setup {sparse['setup_s']:.3f} "
+            f"s against {dense['setup_s']:.3f} s; final ELBO |diff| {diff:.6g} (bar {bar:.6g}); "
+            f"labels {'identical' if same else 'DIFFER'}")
+        if not (diff <= bar and same):
+            raise AssertionError("the sparse fit differs from the dense fit of the same counts")
+    for f in fits.values():
+        for one in f:
+            del one["labels"]
     iter_ms = {"xla": [f["iter_ms"] for f in fits["auto"]]}
 
     # 5. ms per iteration of the full-width single fit under each likelihood,
@@ -712,7 +871,7 @@ def main() -> int:
         raise AssertionError("the covariate sweep did not run as lanes")
     log("sweep peak allocated in the inference against restarts._sweep_bytes, GB: " + ", ".join(
         f"({n}) {sw['peak_gb']:.3f} / {sw['plan_gb']:.3f}" for n, sw in sweeps.items()))
-    del Y
+    del Y, Y_csr, allele
 
     # 7. a small restart sweep through run_clonealign
     Ys, Ls, zs = synth_counts(4, SWEEP["N"], SWEEP["G"], SWEEP["C"])
@@ -730,8 +889,11 @@ def main() -> int:
     if info["best_run"] != best or acc_s < MIN_ACCURACY:
         raise AssertionError("run_clonealign picked a wrong lane or assigned badly")
 
-    # 8. golden parity: the oracle's two converged fits on the card
-    rich_launches = golden(clonealign_torch, fl)
+    # 7b. a small sweep with the golden allele data, "map" and "vmap" in turns
+    allele_sweeps = allele_sweep(clonealign_torch, fl)
+
+    # 8. golden parity: the oracle's four converged fits on the card
+    golden_launches = golden(clonealign_torch, fl)
 
     # The backward's parts alone at full width, A2 off, Y stored as "auto"
     # resolves on the main path.
@@ -791,7 +953,12 @@ def main() -> int:
                                "gene_bound_ms": r["bounds"]["gene"][0]}))
                       for (st, Kf), r in full_kf.items()]
     paths = ((f"fit K=1 P={X.shape[1]} y_storage=auto (Kf={1 + X.shape[1]})", cov_launches),
-             ("golden rich K=2 P=2 S=3 (Kf=4)", rich_launches))
+             (f"fit K=1 y_storage=auto with allele data (V={SNV_V})", allele_launches),
+             ("fit K=1 y_storage=auto from a CSR matrix", sparse_launches),
+             ("golden rich K=2 P=2 S=3 (Kf=4)", golden_launches["rich"]),
+             ("golden allele", golden_launches["allele"]),
+             ("allele sweep, 3 restarts, map", allele_sweeps["map"]),
+             ("allele sweep, 3 restarts, vmap", allele_sweeps["vmap"]))
     kernels[0]["paths"] = [{"path": p, "launches": n["fwd"]} for p, n in paths]
     kernels[1]["paths"] = [{"path": p, "launches": min(n["dpsi"], n["gene"])} for p, n in paths]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -3,14 +3,15 @@ counterpart of ``clonealign_tpu/api.py``.
 
 Parameter names and defaults match the JAX package, plus ``device``
 ("cuda" by default, or "cpu"; there is no fallback from one to the other)
-and an injectable ``noise`` source. This port covers a dense count matrix
-with or without covariates ``x`` (on CUDA K + P <= 4), no allele data, the
-exact likelihood (on CUDA through the hand-written kernels) or the
-Chebyshev normalizer (``likelihood_impl="z_cheb"``, K = 1 without
-covariates), Y stored as ``y_storage`` says (the compute dtype, int16, int8
-or bfloat16; "auto" picks the narrowest exact integer type). Every other
-option raises NotImplementedError naming its ROADMAP item; none falls back
-silently.
+and an injectable ``noise`` source. This port covers a dense or scipy
+sparse count matrix, with or without covariates ``x`` (on CUDA K + P <= 4)
+and allele data (``clone_allele``, ``cov``, ``ref``: the beta-binomial SNV
+term, with the intended ``alt = cov - ref``), the exact likelihood (on CUDA
+through the hand-written kernels) or the Chebyshev normalizer
+(``likelihood_impl="z_cheb"``, K = 1 without covariates), Y stored as
+``y_storage`` says (the compute dtype, int16, int8 or bfloat16; "auto"
+picks the narrowest exact integer type). Every other option raises
+NotImplementedError naming its ROADMAP item; none falls back silently.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from . import assign as _assign
 from .fit import ClonealignFit, ConvergenceInfo
 from .infer import run_inference
 from .models import multinomial as mm
+from .models.allele import construct_ai_likelihood, sanitize_allele_info, snv_clone_probs
 from .ops.fused_likelihood import MAX_A2, MAX_KF, MAX_SC
 from .utils.chunking import host_row_chunk as _host_row_chunk
 from .utils.device import resolve_device, resolve_dtype, synchronize
@@ -88,7 +90,10 @@ def _parse_expression(gene_expression_data):
 
 def _colsum_f64(Y) -> np.ndarray:
     """Per-gene count totals, accumulated in float64 over row chunks at the
-    input dtype (no full-matrix temporary)."""
+    input dtype (no full-matrix temporary); a sparse matrix's from its
+    stored entries (reference api.py:82-93)."""
+    if _is_scipy_sparse(Y):
+        return np.asarray(Y.sum(axis=0, dtype=np.float64)).ravel()
     N, G = Y.shape
     acc = np.zeros(G, np.float64)
     for i in range(0, N, _host_row_chunk(G)):
@@ -111,7 +116,21 @@ def _validate_counts(Y, allow_fractional: bool = False) -> None:
     """NaN/inf, negativity, integrality, and zero-count-cell checks
     (reference R/inference-tflow.R:212-214; the integrality check enforces
     the reference's counts-assay contract, R/clonealign.R:212-224) —
-    chunk-wise so no full-size boolean/temporary is ever allocated."""
+    chunk-wise so no full-size boolean/temporary is ever allocated; a sparse
+    matrix's over its stored entries and row sums, O(nnz) (reference
+    api.py:105-130)."""
+    if _is_scipy_sparse(Y):
+        v = Y.data
+        floating = np.issubdtype(v.dtype, np.floating)
+        if floating and not np.isfinite(v).all():
+            raise ValueError("gene_expression_data contains NaN/inf values")
+        if v.size and (v < 0).any():
+            raise ValueError("gene_expression_data must be non-negative raw counts")
+        if floating and not allow_fractional and np.any(v != np.trunc(v)):
+            raise ValueError(_FRACTIONAL_MSG)
+        if (np.asarray(Y.sum(axis=1, dtype=np.float64)).ravel() == 0).any():
+            raise ValueError("Some cells have no counts mapping")  # R/inference-tflow.R:212-214
+        return
     N, G = Y.shape
     check_finite = np.issubdtype(Y.dtype, np.floating)
     zero_cell = False
@@ -167,7 +186,7 @@ class FitContext:
     """Parsed, filtered inputs on the device, shared by single- and
     multi-restart fits."""
 
-    Y: np.ndarray            # (N, G) filtered host counts, input dtype
+    Y: object                # (N, G) filtered host counts, input dtype: numpy or scipy CSR
     L: np.ndarray            # (G, C) saturated copy numbers
     clone_names: list
     retained_genes: list
@@ -176,6 +195,8 @@ class FitContext:
     dtype: torch.dtype
     device: torch.device
     data_init_mu: object
+    extra_log_lik: Optional[torch.Tensor] = None  # (N, C) allele term on the device, or None
+    clone_probs_from_snv: Optional[np.ndarray] = None  # (N, C) softmax of it, on the host
 
 
 # y_storage -> the storage dtype of the device Y (None: the compute dtype).
@@ -290,10 +311,7 @@ def _resolve_auto_impl(K, mc_samples, dtype, n_elements, P=0) -> str:
     return "xla"
 
 
-def _check_options(P, clone_allele, cov, ref, y_storage, likelihood_impl, K, mc_samples,
-                   fix_alpha):
-    if clone_allele is not None or cov is not None or ref is not None:
-        raise _not_ported("allele-specific inputs (clone_allele/cov/ref)", "allele")
+def _check_options(P, y_storage, likelihood_impl, K, mc_samples, fix_alpha):
     if likelihood_impl not in ("auto", "xla", "z_cheb"):
         raise ValueError(
             "likelihood_impl must be one of 'auto', 'xla', 'z_cheb'; "
@@ -340,15 +358,17 @@ def setup_fit(
     filter reads the device column sums (the kept columns are gathered on
     the device and their statistics taken again) and a cell without counts
     shows in the device row sums, so no O(N x G) host pass runs. Other
-    input is validated and filtered on the host first. Either way the
-    per-cell feasibility check sees only the retained genes (unlike the
-    reference, whose check precedes its deferred filter).
+    input, a scipy sparse matrix among it (O(nnz) checks; the filter slices
+    its CSR columns), is validated and filtered on the host first. Either
+    way the per-cell feasibility check sees only the retained genes (unlike
+    the reference, whose check precedes its deferred filter).
 
     ``y_storage`` picks Y's storage type on the device (``_Y_STORAGE``;
     "auto": :func:`_auto_y_storage`). ``likelihood_impl="auto"``
     resolves by :func:`_resolve_auto_impl` over the retained genes. The
     covariates ``x`` (:func:`_parse_covariates`) go to the device beside Y,
-    in the compute dtype.
+    in the compute dtype, and so does the allele term
+    (:func:`_setup_allele`).
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
@@ -356,17 +376,16 @@ def setup_fit(
     Y, gene_names, _cell_names = _parse_expression(gene_expression_data)
     x = _parse_covariates(x, Y.shape[0])
     P = 0 if x is None else x.shape[1]
-    _check_options(P, clone_allele, cov, ref, y_storage, likelihood_impl, K, mc_samples,
-                   fix_alpha)
+    _check_options(P, y_storage, likelihood_impl, K, mc_samples, fix_alpha)
     if verbose:
         print("Constructing model")  # reference R/inference-tflow.R:102-104
-    if _is_scipy_sparse(Y):
-        raise _not_ported("a sparse count matrix", "chunked and sparse prepare")
+    sparse = _is_scipy_sparse(Y)
     N, G = Y.shape
     L, clone_names = _parse_copy_number(copy_number_data, G)
     _check_kernel_contract(dev, K, int(mc_samples), L.shape[1], P)
 
-    device_validated = np.issubdtype(Y.dtype, np.integer) and Y.dtype.itemsize <= 2
+    device_validated = (not sparse and np.issubdtype(Y.dtype, np.integer)
+                        and Y.dtype.itemsize <= 2)
     # float32 column sums of integers are exact below 2^24, and a total that
     # rounds is far above any threshold this admits
     defer_filter = device_validated and float(gene_filter_threshold) < 2.0**24
@@ -397,9 +416,13 @@ def setup_fit(
     if saturate:
         L = np.minimum(L, float(saturation_threshold))
 
+    # --- allele-specific setup (reference R/inference-tflow.R:166-187) ---
+    extra_log_lik, clone_probs_from_snv = _setup_allele(clone_allele, cov, ref, N, L.shape[1],
+                                                        dt, dev, verbose)
+
     storage = _Y_STORAGE[y_storage]
     if storage == "auto":
-        storage = _auto_y_storage(Y)
+        storage = _auto_y_storage(Y.data if sparse else Y)
     data = mm.prepare_data(Y, L, x, device=dev, dtype=dt, y_storage=storage,
                            check_feasible=not defer_filter)
     if defer_filter:
@@ -440,7 +463,32 @@ def setup_fit(
         dtype=dt,
         device=dev,
         data_init_mu=data_init_mu,
+        extra_log_lik=extra_log_lik,
+        clone_probs_from_snv=clone_probs_from_snv,
     )
+
+
+def _setup_allele(clone_allele, cov, ref, N, C, dtype, device, verbose):
+    """The allele-specific term (reference api.py:475-495,
+    R/inference-tflow.R:166-187): ``(extra_log_lik, clone_probs_from_snv)``,
+    the (N, C) term on ``device`` in ``dtype`` and its softmax on the host,
+    or ``(None, None)`` when any of the three inputs is missing. ``cov`` and
+    ``ref`` are cell-by-variant; ``alt = cov - ref`` is the intended
+    semantics (the reference's public API passes ``ref = cov``, zeroing
+    the alternative counts, R/clonealign.R:271)."""
+    if clone_allele is None or ref is None or cov is None:
+        return None, None
+    if verbose:
+        print("Using allelic imbalance info")  # R/inference-tflow.R:169-171
+    clone_allele = np.asarray(clone_allele, np.float64)
+    cov = np.asarray(cov, np.float64)
+    ref = np.asarray(ref, np.float64)
+    sanitize_allele_info(clone_allele, cov, ref, N, C)
+    cov_vn = cov.T
+    alt_vn = cov_vn - ref.T
+    v_log_prob = construct_ai_likelihood(
+        torch.as_tensor(clone_allele, dtype=dtype, device=device), alt_vn, cov_vn)
+    return v_log_prob, snv_clone_probs(v_log_prob).cpu().numpy()
 
 
 def clonealign(
@@ -486,9 +534,14 @@ def clonealign(
     :class:`~clonealign_torch.utils.noise.Noise` seeded with ``seed``, or 0).
     ``x`` (N x P covariates, or one column as a 1-D array) adds the
     coefficients beta, reported as ``ml_params["beta"]`` (G' x P for the
-    retained genes); on CUDA K + P <= 4. ``likelihood_impl`` is "auto",
-    "xla" (the exact normalizer) or "z_cheb" (the Chebyshev normalizer, K=1
-    without covariates; the reported ELBO stays exact).
+    retained genes); on CUDA K + P <= 4. ``clone_allele`` (V x C copy
+    numbers at V variants), ``cov`` and ``ref`` (N x V total and reference
+    allele counts) add the beta-binomial SNV term to every clone
+    log-likelihood; the fit then carries ``clone_probs_from_snv``. The
+    counts may be a scipy sparse matrix (or an AnnData-style ``.X``).
+    ``likelihood_impl`` is "auto", "xla" (the exact normalizer) or "z_cheb"
+    (the Chebyshev normalizer, K=1 without covariates, with or without the
+    allele term; the reported ELBO stays exact).
     ``loop_impl`` ("while" or "scan"), ``unroll`` and ``remat`` are the JAX
     package's compilation controls: accepted, with no effect here. ``key``
     (a JAX PRNG key) is refused: pass ``seed`` or ``noise``.
@@ -546,6 +599,7 @@ def clonealign(
         initial_shrink=float(initial_shrink),
         elbo_eval=elbo_eval,
         progress=progress,
+        extra_log_lik=ctx.extra_log_lik,
     )
     if verbose:
         print("ELBO converged or reached max iterations")  # R/inference-tflow.R:420
@@ -559,6 +613,7 @@ def clonealign(
         ctx.retained_genes,
         ctx.config,
         clone_call_probability,
+        ctx.clone_probs_from_snv,
         device_Y=ctx.data.Y,
         device_s=ctx.data.s,
     )
@@ -580,20 +635,21 @@ def _package_fit(
     retained_genes,
     config,
     clone_call_probability,
+    clone_probs_from_snv=None,
     device_Y=None,
     device_s=None,
 ) -> ClonealignFit:
     """Fetch ML params and build the fit object
     (reference R/inference-tflow.R:424-480, R/clonealign.R:283-303)."""
     p = result.params
-    # Size factors must be float64-exact. For integer host counts whose row
-    # totals stay below 2^24 the device totals are exact in float32 (sums of
-    # non-negative integers never round there); otherwise sum on the host in
-    # float64.
+    # Size factors must be float64-exact. For integer host counts (dense or
+    # sparse) whose row totals stay below 2^24 the device totals are exact in
+    # float32 (sums of non-negative integers never round there); otherwise
+    # sum on the host in float64.
     s = None
     if (
         device_s is not None
-        and np.issubdtype(np.asarray(Y).dtype, np.integer)
+        and np.issubdtype(Y.dtype, np.integer)
         and float(torch.max(device_s)) < 2.0**24
     ):
         s = device_s.cpu().numpy().astype(np.float64)
@@ -647,4 +703,5 @@ def _package_fit(
         retained_genes=retained_genes,
         correlations=correlations,
         clone_names=list(clone_names),
+        clone_probs_from_snv=clone_probs_from_snv,
     )

@@ -92,19 +92,16 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
 
     All sums aggregate by clone, so the computation is O(C x G) plus one
     pass over Y. Pass the device copy of the counts as ``device_Y`` (the fit
-    entry points do) and that pass runs on its device; otherwise it runs over
-    the dense host matrix in row chunks.
+    entry points do) and that pass runs on its device; otherwise it runs on
+    the host, over a dense matrix in row chunks or over a scipy sparse
+    matrix's CSR without densifying it (reference assign.py:212-262).
 
     ``clones_idx`` is the integer form of ``clones`` (values in ``0..C-1``;
     anything else reads unassigned). When given, ``clones`` is ignored.
     ``dtype`` is the fit's compute dtype: float64 keeps the device sums in
     float64 whatever type ``device_Y`` is stored in.
     """
-    if _is_scipy_sparse(Y):
-        raise NotImplementedError(
-            "sparse count matrices are not ported yet (ROADMAP.md, still to port: "
-            "chunked and sparse prepare)"
-        )
+    sparse = _is_scipy_sparse(Y)
     L = np.asarray(L, np.float64)
     C = len(clone_names)
     if clones_idx is not None:
@@ -135,13 +132,22 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
             var_pre = sum_y2 - sum_y * sum_y / M
         suspect = np.flatnonzero((sum_y2 > 0) & ~(var_pre > 1e-3 * sum_y2))
         if suspect.size:
-            cols = np.asarray(Y[:, suspect]).astype(np.float64)[keep]
+            cols = Y.tocsr()[:, suspect].toarray() if sparse else np.asarray(Y[:, suspect])
+            cols = cols.astype(np.float64)[keep]
             ib = idx_full[keep]
             sum_y[suspect] = cols.sum(axis=0)
             sum_y2[suspect] = (cols * cols).sum(axis=0)
             for c in range(C):
                 sel = ib == c
                 S[c, suspect] = cols[sel].sum(axis=0) if sel.any() else 0.0
+    elif sparse:
+        import scipy.sparse as sp
+
+        Yk = Y.tocsr()[keep].astype(np.float64)
+        sum_y = np.asarray(Yk.sum(axis=0)).ravel()
+        sum_y2 = np.asarray(Yk.multiply(Yk).sum(axis=0)).ravel()
+        ind = sp.csr_matrix((np.ones(M), (idx_full[keep], np.arange(M))), shape=(C, M))
+        S = (ind @ Yk).toarray()
     else:
         sum_y = np.zeros(G)
         sum_y2 = np.zeros(G)

@@ -139,6 +139,7 @@ def run_inference_lanes(
     n_final_elbo_samples: int = 20,
     elbo_eval: str = "fresh",
     progress: bool = False,
+    extra_log_lik=None,
 ) -> InferenceResult:
     """Fit R lanes by reparametrization-gradient VI: ``params`` carry a
     leading lane axis, lane r starts from ``initial_shrinks[r]`` and draws
@@ -161,6 +162,9 @@ def run_inference_lanes(
     gradient (pre-update, training sample) instead of a second forward pass.
     When training used z_cheb, the final ELBO is evaluated through the
     exact normalizer (reference infer.py:219-223).
+
+    ``extra_log_lik`` (N, C), the allele term or None, enters every ELBO and
+    the warm start of every lane (reference infer.py:88-226).
     """
     if elbo_eval not in ("fresh", "reuse"):
         raise ValueError(f"elbo_eval must be 'fresh' or 'reuse', got {elbo_eval!r}")
@@ -175,9 +179,11 @@ def run_inference_lanes(
 
     with torch.no_grad():
         shrinks = torch.as_tensor(np.asarray(initial_shrinks, np.float64), dtype=dtype, device=device)
-        warm = mm.gamma_warm_start_logits(params, data, draw("warm", every), shrinks, config)
+        warm = mm.gamma_warm_start_logits(params, data, draw("warm", every), shrinks, config,
+                                          extra_log_lik)
         params = params.replace(gamma_logits=warm)
-        elbo_val = mm.elbo(params, data, draw("init_eval", every), config).cpu().numpy()
+        elbo_val = mm.elbo(params, data, draw("init_eval", every), config,
+                           extra_log_lik).cpu().numpy()
 
     leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
     opt = TF1Adam(leaves, learning_rate, n_lanes=R)
@@ -200,13 +206,15 @@ def run_inference_lanes(
         lanes = np.flatnonzero(active)
         # all lanes live: no gather, and the step needs no mask
         idx = None if active.all() else _upload(lanes, device)
-        neg_elbo = -mm.elbo(lanes_of(leaves, idx), data, draw("train", lanes), config)
+        neg_elbo = -mm.elbo(lanes_of(leaves, idx), data, draw("train", lanes), config,
+                            extra_log_lik)
         grads = torch.autograd.grad(neg_elbo.sum(), leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         opt.step(leaves, grads, None if idx is None else active)
         if elbo_eval == "fresh":
             with torch.no_grad():
-                elbo_new = mm.elbo(lanes_of(leaves, idx), data, draw("eval", lanes), config)
+                elbo_new = mm.elbo(lanes_of(leaves, idx), data, draw("eval", lanes), config,
+                                   extra_log_lik)
         else:
             elbo_new = -neg_elbo.detach()
         elbo_new = elbo_new.cpu().numpy()  # the iteration's one host sync
@@ -229,7 +237,7 @@ def run_inference_lanes(
     with torch.no_grad():
         params = mm.CloneAlignParams(*[t.detach() for t in leaves])
         finals = torch.stack([
-            mm.elbo(params, data, draw("final", every), final_config)
+            mm.elbo(params, data, draw("final", every), final_config, extra_log_lik)
             for _ in range(n_final_elbo_samples)
         ], dim=-1)  # (R, n_final_elbo_samples)
         final_elbo = torch.mean(finals, dim=-1).cpu().numpy().astype(np.float64)

@@ -28,7 +28,10 @@ is made above that size.
 Covariates fold in by concatenation, as in the reference: with X (N, P)
 and beta (G, P), ``log_rfe = [psi, X] [W, beta]^T``, so the fused op takes
 ``psi_ext = [psi, X]`` and ``W_ext = [W, beta]`` (Kf = K + P columns) and
-its A1 carries ``sum_g y_ng (X beta^T)[n,g]``. The count matrix is dense.
+its A1 carries ``sum_g y_ng (X beta^T)[n,g]``.
+
+A scipy sparse count matrix is densified on the device, one block of rows
+at a time (:func:`prepare_data_sparse`): the kernels read Y dense.
 """
 
 from __future__ import annotations
@@ -237,11 +240,12 @@ def _chunk_stats(yf, log_L_safe, zero_cols):
 
 def prepare_data(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
                  check_feasible=True) -> ModelData:
-    """The device data of a fit from a dense count matrix (a numpy array or a
-    tensor): Y stored as ``y_storage`` (None: the compute ``dtype``; or
-    torch.int8, torch.int16, torch.bfloat16), its statistics and the
-    covariates ``x`` (N, P) or None in ``dtype`` (reference
-    models/multinomial.py:219-284, 564-746).
+    """The device data of a fit from a count matrix (a numpy array, a tensor,
+    or a scipy sparse matrix, which goes to :func:`prepare_data_sparse`): Y
+    stored as ``y_storage`` (None: the compute ``dtype``; or torch.int8,
+    torch.int16, torch.bfloat16), its statistics and the covariates ``x``
+    (N, P) or None in ``dtype`` (reference models/multinomial.py:219-284,
+    564-746).
 
     The rows go to the device in chunks of ``_CHUNK_ELEMENTS``, each in its
     narrowest exact wire type (:func:`_wire_np`; checked and narrowed on the
@@ -258,15 +262,40 @@ def prepare_data(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
     expressing it. ``check_feasible=False`` leaves out
     :func:`_check_cells_feasible`, for a caller that filters genes first.
     """
+    kw = dict(device=device, dtype=dtype, y_storage=y_storage, check_feasible=check_feasible)
     if is_scipy_sparse(Y):
-        raise NotImplementedError(
-            "sparse count matrices are not ported yet (ROADMAP.md, still to port: "
-            "chunked and sparse prepare); pass a dense array"
-        )
+        return prepare_data_sparse(Y, L, x, **kw)
+    if torch.is_tensor(Y):
+        return _prepare_rows(Y, L, x, lambda i, j: Y[i:j], **kw)
+    Y = np.asarray(Y)
+    return _prepare_rows(Y, L, x, lambda i, j: torch.from_numpy(np.ascontiguousarray(Y[i:j])),
+                         **kw)
+
+
+def prepare_data_sparse(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
+                        check_feasible=True) -> ModelData:
+    """:func:`prepare_data` of a scipy sparse count matrix without a dense
+    N x G host copy (reference models/multinomial.py:800-855). CSC and COO
+    are converted to CSR once; the row-chunked loop then densifies one block
+    of CSR rows at a time (``Y[i:j].toarray()``, in the input's dtype, then
+    its narrowest exact wire type), so the host holds O(nnz + block x G).
+    Each block's statistics are taken on the device as for dense input and
+    it lands in the same preallocated storage buffer: a sparse fit equals
+    the dense fit of the same counts. (The JAX package takes the statistics
+    on the host in float64 from the sparse structure; in float64 the two
+    agree to rounding.)"""
+    Y = Y.tocsr()
+    return _prepare_rows(Y, L, x, lambda i, j: torch.from_numpy(Y[i:j].toarray()),
+                         device=device, dtype=dtype, y_storage=y_storage,
+                         check_feasible=check_feasible)
+
+
+def _prepare_rows(Y, L, x, rows, *, device, dtype, y_storage, check_feasible) -> ModelData:
+    """The loop of :func:`prepare_data` over the row blocks of Y (N x G, a
+    tensor or a host matrix with a numpy ``dtype``), ``rows(i, j)`` giving
+    rows i:j as a tensor."""
     device = torch.device(device)
     store = dtype if y_storage is None else y_storage
-    if not torch.is_tensor(Y):
-        Y = np.asarray(Y)
     N, G = Y.shape
     Ld = torch.as_tensor(np.asarray(L), dtype=dtype, device=device)
     log_L_safe = torch.where(Ld > 0, torch.log(torch.where(Ld > 0, Ld, 1.0)), 0.0)
@@ -282,7 +311,7 @@ def prepare_data(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
     ymin = torch.full((), math.inf, dtype=dtype, device=device)
     nonint = torch.zeros((), dtype=dtype, device=device)
     for i, j in _row_blocks(N, G):
-        c = Y[i:j] if torch.is_tensor(Y) else torch.from_numpy(np.ascontiguousarray(Y[i:j]))
+        c = rows(i, j)
         if wire is not None and c.dtype != wire:
             if not store.is_floating_point:
                 _host_check_lossless(c, store)
@@ -586,25 +615,30 @@ def _likelihood_terms(params, data, mu_samples, log_mu, config=None):
     return A1, A2, logZ
 
 
-def log_p_y_on_c(params: CloneAlignParams, data: ModelData, mu_base, config=None):
+def log_p_y_on_c(params: CloneAlignParams, data: ModelData, mu_base, config=None,
+                 extra_log_lik=None):
     """(..., S, C, N) expression log-likelihood, decomposed form (module
-    docstring)."""
+    docstring). ``extra_log_lik`` is an optional (N, C) addition, the
+    allele-specific beta-binomial term (reference R/inference-tflow.R:302-304;
+    ``models/allele.py``), shared by every lane."""
     mu_samples = softplus(mu_base)
     log_mu = torch.log(mu_samples)
     A1, A2, logZ = _likelihood_terms(params, data, mu_samples, log_mu, config)
-    return (
+    ll = (
         data.log_binom
         + A1[..., None, None, :]
         + A2.mT[..., :, None, :]
         + data.YlogL.T
         - data.s * logZ
     )
+    return ll if extra_log_lik is None else ll + extra_log_lik.T
 
 
-def elbo(params: CloneAlignParams, data: ModelData, eps, config: ModelConfig):
+def elbo(params: CloneAlignParams, data: ModelData, eps, config: ModelConfig,
+         extra_log_lik=None):
     """The evidence lower bound (reference R/inference-tflow.R:298-336) at the
     mu sample made from the (..., S, G) standard normals ``eps``; one value
-    per lane.
+    per lane. ``extra_log_lik`` is the optional (N, C) allele term.
 
     Reproduces the reference's objective with its quirks: the mu prior is
     Normal(0,1) on log(mu) without a Jacobian, and the Dirichlet prior is
@@ -615,7 +649,8 @@ def elbo(params: CloneAlignParams, data: ModelData, eps, config: ModelConfig):
     contraction, because softmax rows sum to 1 and a per-cell constant
     shift is annihilated by the softmax Jacobian. So A2 enters as
     ``dot(colsum_Y, sum_s log_mu) / S`` (Y is not read for it) and A1 as
-    its sum; only YlogL and the normalizer Z stay inside the contraction.
+    its sum; only YlogL, the normalizer Z and the allele term, which differ
+    by clone, stay inside the contraction.
     """
     S = config.mc_samples
     mu_base = sample_mu_base(params, eps)
@@ -628,6 +663,8 @@ def elbo(params: CloneAlignParams, data: ModelData, eps, config: ModelConfig):
     const_sum = torch.sum(data.log_binom) + torch.sum(A1, dim=-1) + A2_sum
 
     clone_ll = data.YlogL.T - data.s * logZ  # (..., S, C, N)
+    if extra_log_lik is not None:
+        clone_ll = clone_ll + extra_log_lik.T
     gamma = torch.softmax(params.gamma_logits, dim=-1)
     log_gamma = torch.log_softmax(params.gamma_logits, dim=-1)
 
@@ -679,14 +716,17 @@ def gamma_warm_start_logits(
     eps,
     initial_shrink=5.0,
     config=None,
+    extra_log_lik=None,
 ):
     """Likelihood-based responsibility warm start
     (reference R/inference-tflow.R:338-342,367-369), at the mu sample made
     from the (..., S, G) standard normals ``eps``. Logits are scaled by
     ``initial_shrink``/5: 0 = uniform, 5 = the reference's behaviour,
     10 = sharper; with a lane axis ``initial_shrink`` may be an (R,) tensor,
-    one shrink per lane."""
-    p_y = log_p_y_on_c(params, data, sample_mu_base(params, eps), config)  # (..., S, C, N)
+    one shrink per lane. ``extra_log_lik`` is the optional (N, C) allele
+    term."""
+    p_y = log_p_y_on_c(params, data, sample_mu_base(params, eps), config,
+                       extra_log_lik)  # (..., S, C, N)
     # SUM over MC samples, as the reference's tf$reduce_sum(p_y_on_c, axis=0)
     g = torch.sum(p_y, dim=-3)  # (..., C, N)
     impossible = torch.isneginf(g)  # zero-CN clone at an expressed gene

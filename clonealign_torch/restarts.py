@@ -33,14 +33,15 @@ SWEEP_BUDGET_BYTES = 40 * 10**9
 
 
 def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None, P=0,
-                 z_cheb=False) -> int:
+                 z_cheb=False, allele=False) -> int:
     """The lane-batched sweep's working set, reckoned from the code, in
     bytes; ``itemsize`` is the compute dtype's, ``y_itemsize`` Y's storage
-    type's (by default the compute dtype's), P the covariate columns and
-    ``z_cheb`` whether the likelihood resolved to the Chebyshev normalizer.
+    type's (by default the compute dtype's), P the covariate columns,
+    ``z_cheb`` whether the likelihood resolved to the Chebyshev normalizer
+    and ``allele`` whether the fit carries the allele term.
 
-    Shared by every lane: Y (N x G, at its storage itemsize) and the
-    covariates X (N x P). On CUDA the kernels store no N x G tensor and read
+    Shared by every lane: Y (N x G, at its storage itemsize), the
+    covariates X (N x P) and the allele term (N x C). On CUDA the kernels store no N x G tensor and read
     Y as it is stored; only z_cheb's products with Y convert a narrow Y, a
     row block (``_CHUNK_ELEMENTS`` elements at most) at a time in the
     compute dtype. On the CPU the fused op's plain version holds about three
@@ -69,18 +70,20 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     n_par = N * (K + C) + G * (Kf + 2) + K + C
     saved_ext = (N + G) * Kf if P else 0
     per_lane = 7 * n_par + 16 * N * S * C + N * (Kf + 1) + saved_ext
-    return y_itemsize * N * G + itemsize * (N * P + temporaries + n_lanes * per_lane)
+    shared = N * P + (N * C if allele else 0)
+    return y_itemsize * N * G + itemsize * (shared + temporaries + n_lanes * per_lane)
 
 
 def _auto_restart_batching(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
-                           P=0, z_cheb=False) -> str:
+                           P=0, z_cheb=False, allele=False) -> str:
     """"vmap" when the lane-batched sweep's working set (:func:`_sweep_bytes`)
     fits :data:`SWEEP_BUDGET_BYTES`, else "map", which holds one lane at a
     time. At 100,000 x 5,000 x 10 (K = 1, S = 1, float32) a lane adds about
     96 MB to Y's 2 GB, so "vmap" takes up to 395 lanes there. (The JAX
     package's 6e9 lane-elements cutover was measured on a 16 GB TPU v5e and
     does not carry over.)"""
-    need = _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize, P, z_cheb)
+    need = _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize, P, z_cheb,
+                        allele)
     return "vmap" if need <= SWEEP_BUDGET_BYTES else "map"
 
 
@@ -109,8 +112,9 @@ def run_clonealign(
 ):
     """Sweep restarts, return the max-ELBO fit with ``multirun_info`` attached
     (reference R/clonealign.R:35-75). Extra kwargs go to the model setup
-    (same names as :func:`clonealign_torch.clonealign`, the covariates ``x``
-    among them; every lane has its own beta).
+    (same names as :func:`clonealign_torch.clonealign`, the covariates ``x``,
+    the allele data and a sparse count matrix among them; every lane has its
+    own beta and shares the allele term).
 
     Restart r draws from ``Noise(seed + r)``, so a one-restart sweep is the
     single fit with the same seed. ``restart_batching``: "vmap" runs the
@@ -145,7 +149,7 @@ def run_clonealign(
         restart_batching = _auto_restart_batching(
             N, G, C, config.K, config.mc_samples, R,
             torch.finfo(ctx.dtype).bits // 8, ctx.device.type, data.Y.element_size(),
-            config.P, mm._use_z_cheb(config),
+            config.P, mm._use_z_cheb(config), ctx.extra_log_lik is not None,
         )
     base = 0 if seed is None else int(seed)
     noises = [Noise(base + r, ctx.device) for r in range(R)]
@@ -168,7 +172,8 @@ def run_clonealign(
     t2 = time.perf_counter()
 
     loop = dict(max_iter=int(max_iter), rel_tol=float(rel_tol),
-                learning_rate=float(learning_rate), elbo_eval=elbo_eval)
+                learning_rate=float(learning_rate), elbo_eval=elbo_eval,
+                extra_log_lik=ctx.extra_log_lik)
     if restart_batching == "vmap":
         lanes = run_inference_lanes(stack_lanes(params0), data, noises, config,
                                     initial_shrinks=shrinks, **loop)
@@ -204,6 +209,7 @@ def run_clonealign(
         ctx.retained_genes,
         config,
         clone_call_probability,
+        ctx.clone_probs_from_snv,
         device_Y=data.Y,
         device_s=data.s,
     )

@@ -244,22 +244,12 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(clone_allele=np.zeros((2, 3)), cov=np.zeros((2, 60)), ref=np.zeros((2, 60))),
-    dict(sparse=True),
     dict(mesh=object()),
 ])
 def test_options_outside_the_slice_raise(option):
     Y, L = _toy()
-    option = dict(option)
-    if option.pop("sparse", False):
-        sp = pytest.importorskip("scipy.sparse")
-        Y = sp.csr_matrix(Y)
-    if "mesh" in option:
-        call = ct.run_clonealign
-    else:
-        call = ct.clonealign
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(Y, L, device="cpu", verbose=False, **option)
+        ct.run_clonealign(Y, L, device="cpu", verbose=False, **option)
 
 
 def test_float64_on_cuda_is_refused():
