@@ -28,11 +28,24 @@ ten restarts through ``run_clonealign`` three ways (exact in sequence,
 exact as lanes of one batched loop, z_cheb as lanes), the lanes also with
 float32 Y in turns, and once with the covariates and ``restart_batching=
 "auto"``, each with its kernel launches counted from zero and checked
-against its lanes' iterations; a small sweep; the golden oracle's allele
-data as a sweep of three restarts, "map" and "vmap" in turns, which must run
-the same iterations and give the same labels; and the four converged fits of
-the golden oracle (tests/golden/tpu_parity_oracle.npz: example, synth, rich,
-allele), each held to that oracle's bar. Any
+against its lanes' iterations; the kernels at the streaming fit's chunk
+shapes (the full chunk and the ragged tail, Y the leading rows of the chunk
+feeder's device buffer), then the streaming fit (``fit_streaming``, "auto"
+storage and chunks, "reuse") in turns with the in-core fit on the same
+data, seed and monitoring, which it must match (iterations, labels, final
+ELBO bar) with the launches its chunks give and a peak below Y's bytes at
+int8, beside what a chunk's upload costs and how much of each training
+step's copy time runs beside the chunks' work (CUDA events); serving
+(``assign_cells``) of the training cells against the in-core fit under
+"ignore" and "refine", held to accuracy, agreement and, on cells spread
+over every row block, to the CPU port's float64 log-posteriors; a small
+sweep; the golden
+oracle's allele data as a sweep of three restarts, "map" and "vmap" in
+turns, which must run the same iterations and give the same labels; and the
+four converged fits of the golden oracle (tests/golden/tpu_parity_oracle.npz:
+example, synth, rich, allele), each held to that oracle's bar, and its synth
+fit streamed in chunks of 1,024 cells, held to the same bar after the
+kernels are checked at its chunk shapes. Any
 failed phase raises and the script exits nonzero, as it does when ptxas's
 report lacks a tensor-core kernel instantiation or shows one spilling
 registers. The last line of standard output is a JSON object naming the
@@ -42,8 +55,9 @@ version's time and its bound (the least time the card could take for the
 same work) at the Y storage "auto" resolves to (``y_storage``), the same
 for each full-width storage (``by_storage``) and at Kf = 3 and 4
 (``by_kf``), the launches of each other path (``paths``: the covariate,
-allele and sparse fits, golden rich and allele, the allele sweep), the
-backward's entry also
+allele and sparse fits, golden rich and allele, the allele sweep, the
+streaming fit and the streamed golden synth fit), the errors and times at
+the streaming paths' chunk shapes (``stream_shapes``), the backward's entry also
 listing its two parts (the Y-free dpsi kernel, and the gene-major kernel
 with its packing and reduction kernels), each with its own launches, time,
 plain version's time and bound; the line before that prints those parts'
@@ -96,6 +110,16 @@ MIN_ACCURACY = 0.99
 # monitored from the training evaluation
 LANES = dict(initial_shrinks=(5,), n_repeats=10, max_iter=100, elbo_eval="reuse")
 GOLDEN_MAX_ITER = 500  # the oracle's converged-fit configuration
+GOLDEN_STREAM_CHUNK = 1_024  # cells a chunk of the streamed golden synth fit
+# serving: cells of the card-against-CPU check; its tolerance on each
+# log-posterior, relative to the sum of its terms' absolute values: about
+# 170 float32 ulps, room for sums of 5,000 terms in another order (the
+# random-walk size is sqrt(5000) ulps, 4e-6) while one gene left out of the
+# product (~1.5e-5 of that sum for a gene of average count) fails; and on the
+# probabilities
+SERVE_SLICE = 2_000
+SERVE_RTOL = 1e-5
+SERVE_ATOL = 1e-4
 # Published peaks of one H100 SXM at 700 W: HBM bytes/s, float32 FLOP/s on
 # CUDA cores (the kernels' contract is float32), TF32 FLOP/s on tensor
 # cores, and exps/s on the special-function units: 16 a clock on each of 132
@@ -246,12 +270,15 @@ def kernel_bounds(N, G, Kf, SC, y_itemsize):
     return {"fwd": fwd, "bwd": bwd, "dpsi": dpsi, "gene": gene}
 
 
-def check_kernels(shape, S, Kf, seed, reps, storage="float32"):
+def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None):
     """Compare forward (A2 on and off) and backward with the plain versions
     at one shape, with Y stored as ``storage``, the backward taking Y W from
     the forward kernel as the fit does; return the errors and the times of
     the A2-off calls (the training step's form), with the backward's dpsi and
-    gene parts also timed alone."""
+    gene parts also timed alone. With ``buffer_rows``, Y is handed to the
+    kernels as the streaming fit's chunk feeder hands a chunk out: the
+    leading rows of a device buffer of ``buffer_rows`` rows, whose other
+    rows hold other counts."""
     import torch
 
     from clonealign_torch.ops import fused_likelihood as fl
@@ -264,6 +291,11 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32"):
     if not torch.equal(x["Y"].float(), Yf):
         raise AssertionError(f"the test counts do not fit {storage} exactly")
     label = f"{shape['N']}x{shape['G']} S*C={S * shape['C']} Kf={Kf} Y {storage}"
+    if buffer_rows is not None:
+        buf = torch.full((buffer_rows, shape["G"]), 7, dtype=x["Y"].dtype, device="cuda")
+        buf[: shape["N"]] = x["Y"]
+        x["Y"] = buf[: shape["N"]]
+        label += f" (rows 0:{shape['N']} of a {buffer_rows}-row buffer)"
     result = {}
     for with_a2 in (True, False):
         log_mu = x["log_mu"] if with_a2 else None
@@ -314,6 +346,25 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32"):
     del x, Yf, YW
     torch.cuda.empty_cache()
     return result
+
+
+def check_stream_shapes(bounds, G, C, storage, seed):
+    """Hold the kernels against their plain versions at the shapes a
+    streaming fit gives them (K = 1, one sample: Kf = 1, S = 1): each chunk
+    size in ``bounds`` (the full chunks and the ragged tail) at G genes and
+    C clones, Y in ``storage`` as the leading rows of the feeder's buffer.
+    Returns one entry per shape for the kernels line."""
+    sizes = sorted({j - i for i, j in bounds}, reverse=True)
+    out = []
+    for k, n in enumerate(sizes):
+        r = check_kernels(dict(N=n, G=G, C=C), S=1, Kf=1, seed=seed + k, reps=3,
+                          storage=storage, buffer_rows=sizes[0])
+        out.append({"shape": f"{n}x{G} C={C}", "buffer_rows": sizes[0],
+                    "y_storage": storage, "fwd_max_abs_err": r["fwd_err"],
+                    "bwd_max_abs_err": r["bwd_err"], "fwd_ms": r["fwd_ms"],
+                    "fwd_plain_ms": r["fwd_plain_ms"], "bwd_ms": r["bwd_ms"],
+                    "bwd_plain_ms": r["bwd_plain_ms"]})
+    return out
 
 
 def kernel_resources(build_log, kernel):
@@ -642,6 +693,305 @@ def allele_sweep(clonealign_torch, fl):
     return {b: launches for b, _, _, launches in runs[:2]}
 
 
+@contextlib.contextmanager
+def feeder_marks():
+    """Have every chunk feeder the streaming fit makes collect its timing
+    events (``stream._ChunkFeeder.marks``); yields the list of feeders."""
+    from clonealign_torch import stream
+
+    feeders, original = [], stream._ChunkFeeder
+
+    class Marked(original):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.marks = []
+            feeders.append(self)
+
+    stream._ChunkFeeder = Marked
+    try:
+        yield feeders
+    finally:
+        stream._ChunkFeeder = original
+
+
+def copy_overlap(feeder, sweeps):
+    """For each of the feeder's sweeps in ``sweeps`` (a slice of its
+    marks), on the card's clock (CUDA events): the share of the sweep's
+    copy time that falls inside the compute stream's chunk spans (the union
+    over the whole fit of each chunk's span, from its copy landing to the
+    end of the work queued for it; a span includes any gap in which the
+    card waits for the host to queue that work), the sweep's copy
+    milliseconds, the mean compute span of a chunk and each chunk's copy's
+    own share. Unclipped: a share is a ratio of two measured times."""
+    marks = feeder.marks
+    ref = marks[0]["copy"][0][0]
+
+    def span(pair):
+        return ref.elapsed_time(pair[0]), ref.elapsed_time(pair[1])
+
+    union = []
+    for a, b in sorted(span(p) for sw in marks for p in sw["compute"]):
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    out = []
+    for sw in marks[sweeps]:
+        copies = [span(p) for p in sw["copy"]]
+        inside = [sum(max(0.0, min(b, e) - max(a, s)) for s, e in union) for a, b in copies]
+        total = sum(b - a for a, b in copies)
+        spans = [e - s for s, e in map(span, sw["compute"])]
+        out.append({"share": sum(inside) / total, "copy_ms": total,
+                    "span_ms": float(np.mean(spans)),
+                    "by_chunk": [h / (b - a) for h, (a, b) in zip(inside, copies)]})
+    return out
+
+
+def stream_turns(clonealign_torch, fl, Y, L, z):
+    """The full-width streaming fit (``fit_streaming``, "auto" storage and
+    chunks, "reuse") and the in-core fit on the same data, seed and
+    monitoring, in turns: each with its launches counted from zero and the
+    card's peak allocated bytes over the call, from a reset with the data
+    on the host (the bytes allocated before it subtracted). The streamed
+    fit must match the in-core fit of its turn (iterations, labels, final
+    ELBO within max(1e-4 |ELBO|, 3 sd_final)), reach the accuracy bar,
+    launch what its chunks and evaluations give, and peak below Y's bytes at
+    int8. Each streamed turn also measures, from its feeder's CUDA events,
+    how much of each training step's copy time runs beside the chunks' work
+    (:func:`copy_overlap`). Returns each turn's numbers, the last in-core
+    fit (to serve against) and the number of chunks."""
+    import torch
+
+    from clonealign_torch import stream
+
+    n_chunks = len(stream._chunk_bounds(FULL["N"], stream._resolve_chunk_cells(
+        "auto", FULL["N"], FULL["G"])))
+    kw = dict(device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False, elbo_eval="reuse")
+    turns, core_fit = [], None
+    for kind in ("stream", "core", "core", "stream"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fl.reset_launch_counts()
+        t0 = time.perf_counter()
+        if kind == "stream":
+            with feeder_marks() as feeders:
+                fit = clonealign_torch.fit_streaming(Y, L, chunk_cells="auto", **kw)
+        else:
+            fit = core_fit = clonealign_torch.clonealign(Y, L, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+        ci, tm, n = fit.convergence_info, fit.timings, fit.convergence_info.n_iters
+        acc = accuracy(fit, z)
+        per = n_chunks if kind == "stream" else 1
+        # warm start + initial ELBO + the training evaluation of each step +
+        # 20 final draws, each over every chunk; one backward a chunk a step
+        want = {"fwd": per * (2 + n + 20), "dpsi": per * n, "gene": per * n}
+        out = dict(kind=kind, wall=wall, iter_ms=1000 * tm["loop"] / max(n, 1), n_iters=n,
+                   final_elbo=ci.final_elbo, sd_final=ci.sd_final_elbo, labels=fit.clone,
+                   accuracy=acc, launches=launches, peak_gb=peak / 1e9, timings=tm)
+        if kind == "stream":
+            (feeder,) = feeders
+            if len(feeder.marks) != n + 3:  # warm, initial ELBO, n steps, final
+                raise AssertionError(f"the feeder made {len(feeder.marks)} sweeps for {n} steps")
+            out["overlap"] = copy_overlap(feeder, slice(2, 2 + n))
+            shares = [o["share"] for o in out["overlap"]]
+            log(f"  copies beside the chunks' work, {n} training steps (CUDA events): share of "
+                f"the copy time inside the compute spans median {np.median(shares):.4f}, min "
+                f"{min(shares):.4f}, max {max(shares):.4f}; copies "
+                f"{np.median([o['copy_ms'] for o in out['overlap']]):.3f} ms a step (median), "
+                f"a chunk's compute span {np.median([o['span_ms'] for o in out['overlap']]):.3f} "
+                "ms (median); each chunk's copy's share (median) " + ", ".join(
+                    f"{v:.3f}" for v in np.median([o["by_chunk"] for o in out["overlap"]], axis=0)))
+        log(f"{'streaming' if kind == 'stream' else 'in-core'} fit {FULL['N']}x{FULL['G']}x"
+            f"{FULL['C']} auto reuse{f' ({n_chunks} chunks)' if per > 1 else ''}: {wall:.2f} s "
+            f"wall (setup {tm['setup']:.2f}, init {tm['init']:.2f}, inference "
+            f"{tm['inference']:.2f}, package {tm['package']:.2f} s), {n} iterations, "
+            f"{out['iter_ms']:.2f} ms per iteration; final ELBO {ci.final_elbo:.9g} +- "
+            f"{ci.sd_final_elbo:.3g}; accuracy {acc:.4f}; launches {launches}; peak allocated "
+            f"over the call {out['peak_gb']:.3f} GB")
+        check_trace(ci.elbo)
+        if acc < MIN_ACCURACY or launches != want:
+            raise AssertionError(f"{kind} fit: accuracy {acc:.4f}, launches {launches} "
+                                 f"(expected {want})")
+        turns.append(out)
+    y_int8_gb = FULL["N"] * FULL["G"] / 1e9
+    for s_fit, c_fit in ((turns[0], turns[1]), (turns[3], turns[2])):
+        diff = abs(s_fit["final_elbo"] - c_fit["final_elbo"])
+        bar = max(1e-4 * abs(c_fit["final_elbo"]), 3.0 * s_fit["sd_final"])
+        same = s_fit["labels"] == c_fit["labels"]
+        log(f"streamed against in-core: iterations {s_fit['n_iters']} / {c_fit['n_iters']}, "
+            f"final ELBO |diff| {diff:.6g} (bar {bar:.6g}), labels "
+            f"{'identical' if same else 'DIFFER'}; streaming peak {s_fit['peak_gb']:.3f} GB "
+            f"against Y's {y_int8_gb:.3f} GB at int8")
+        if not (same and diff <= bar and s_fit["n_iters"] == c_fit["n_iters"]):
+            raise AssertionError("the streamed fit differs from the in-core fit")
+        if not s_fit["peak_gb"] < y_int8_gb:
+            raise AssertionError("the streaming fit held Y's bytes on the card")
+    return turns, core_fit, n_chunks
+
+
+def upload_rates(Y):
+    """What streaming the chunks costs, for one sweep over the "auto"
+    chunks: the card time of copying one chunk from a pinned host buffer
+    into a device buffer (3 rounds of 10 copies between CUDA events), and
+    the wall time of the host conversion alone (each chunk's int16 rows
+    into a pinned buffer, 3 sweeps). Returns a dict of those numbers, each
+    round's and sweep's kept."""
+    import torch
+
+    from clonealign_torch import api, stream
+
+    store = api._auto_y_storage(Y)
+    rows = stream._resolve_chunk_cells("auto", FULL["N"], FULL["G"])
+    host = torch.empty((rows, FULL["G"]), dtype=store, pin_memory=True)
+    dev = torch.empty_like(host, device="cuda")
+    nbytes = host.numel() * host.element_size()
+    copy_ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), 3, batch=10)
+    gbps = nbytes / (copy_ms / 1e3) / 1e9
+    src = stream._RowSource(Y, None)
+    bounds = stream._chunk_bounds(FULL["N"], rows)
+    convs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for i, j in bounds:
+            host[: j - i].copy_(src.tensor(i, j))
+        convs.append(1e3 * (time.perf_counter() - t0))
+    del host, dev
+    torch.cuda.empty_cache()
+    return dict(gbps=gbps, chunk_bytes=nbytes, n_chunks=len(bounds),
+                copy_ms=Y.size * store.itemsize / (gbps * 1e9) * 1e3, conv_ms=convs)
+
+
+def serve_reference(fit, Y, L, latent):
+    """The CPU port's unnormalized log-posteriors of the cells ``Y`` in
+    float64 (``serve._posterior_log_probs``, or its refinement for
+    "refine"), and per (cell, clone) the sum of the absolute values of the
+    plain log-posterior's terms, |log alpha_c| + sum_g y_g |log(mu_g L_gc)|
+    + t |log Z_c|: the scale of the serving tolerance."""
+    import torch
+
+    from clonealign_torch import serve
+
+    mu = np.asarray(fit.ml_params["mu"], np.float64)
+    L = np.minimum(L, 6.0)
+    alpha = np.asarray(fit.ml_params["alpha"], np.float64)
+    log_alpha = np.log(alpha / alpha.sum())
+    Yf = np.asarray(Y, np.float64)
+    args = [torch.as_tensor(a) for a in (Yf, L, mu, log_alpha)]
+    if latent == "refine":
+        W = torch.as_tensor(np.asarray(fit.ml_params["W"], np.float64))
+        want = serve._posterior_log_probs_refined(*args, W, 8)
+    else:
+        want = serve._posterior_log_probs(*args)
+    rates = mu[:, None] * L
+    log_r = np.log(np.where(rates > 0, rates, 1.0))
+    scale = (np.abs(log_alpha)[None, :] + Yf @ np.abs(log_r)
+             + Yf.sum(1)[:, None] * np.abs(np.log(rates.sum(0)))[None, :])
+    return want.numpy(), scale
+
+
+def serve_full(clonealign_torch, fit, Y, L, z):
+    """Score the fit's own training cells through ``assign_cells`` on the
+    card under "ignore" and "refine", each timed (host clock, after a
+    synchronize) with its peak allocated bytes from a reset (the bytes
+    allocated before it subtracted): accuracy against the true clones and
+    agreement with the fit's calls. Then the card's unnormalized
+    log-posteriors of all the cells (``serve._log_posteriors``, float32)
+    against the CPU port's in float64 on SERVE_SLICE cells spread over
+    every row block: each within SERVE_RTOL of its absolute-term sum
+    (:func:`serve_reference`), the probabilities within SERVE_ATOL, and the
+    same labels away from the threshold."""
+    import torch
+
+    from clonealign_torch import serve
+
+    out = {}
+    fit_calls = np.asarray(fit.clone)
+    idx = np.linspace(0, len(Y) - 1, SERVE_SLICE).round().astype(np.int64)
+    for latent in ("ignore", "refine"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        clones, probs = clonealign_torch.assign_cells(fit, Y, L, latent=latent, device="cuda")
+        seconds = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+        index = {c: i for i, c in enumerate(fit.clone_names)}
+        acc = float(np.mean(np.asarray([index.get(c, -1) for c in clones]) == z))
+        served = np.asarray(clones)
+        both = (fit_calls != "unassigned") & (served != "unassigned")
+        agree = float(np.mean(fit_calls[both] == served[both]))
+        card = serve._log_posteriors(fit, Y, L, True, 6, latent, 8, device="cuda")
+        card = card[idx].double().cpu().numpy()
+        want, scale = serve_reference(fit, Y[idx], L, latent)
+        if not (np.isfinite(card) == np.isfinite(want)).all():
+            raise AssertionError(f"serve ({latent}): the card's -inf entries differ")
+        fin = np.isfinite(want)
+        rel = float((np.abs(card - want)[fin] / scale[fin]).max())
+        p_want = np.exp(want - want.max(1, keepdims=True))
+        p_want /= p_want.sum(1, keepdims=True)
+        err = float(np.abs(probs[idx] - p_want).max())
+        near = np.abs(p_want.max(axis=1) - 0.95) < 0.01
+        off = int(((np.argmax(p_want, 1) != np.argmax(probs[idx], 1)) & ~near).sum())
+        out[latent] = dict(ms=1000 * seconds, cells_per_s=len(clones) / seconds, peak_gb=peak,
+                           accuracy=acc, agreement=agree, log_rel_err=rel, prob_err=err)
+        log(f"serve {FULL['N']} cells x {FULL['G']} genes x {FULL['C']} clones, latent={latent}: "
+            f"{1000 * seconds:.1f} ms ({len(clones) / seconds:.4g} cells per second), peak "
+            f"allocated {peak:.3f} GB; accuracy {acc:.4f}, agreement with the fit's calls "
+            f"{agree:.4f}; against the CPU port in float64 on {SERVE_SLICE} cells: log-posteriors "
+            f"max |diff| / absolute-term sum {rel:.3e} (tolerance {SERVE_RTOL:g}), max |dp| "
+            f"{err:.3e}, {off} labels differ away from the threshold")
+        if (acc < MIN_ACCURACY or agree < 0.95 or rel > SERVE_RTOL or err > SERVE_ATOL
+                or off):
+            raise AssertionError(f"serve ({latent}) misses its bars")
+    return out
+
+
+def golden_stream(clonealign_torch, fl):
+    """The golden oracle's synthetic config through ``fit_streaming`` in
+    chunks of GOLDEN_STREAM_CHUNK cells, monitored as the in-core golden
+    fit ("fresh"), held to the same float64 oracle bar as ``golden``, after
+    the kernels are held to their plain versions at its chunks' shapes;
+    returns its launches, which must be its chunks' share of each pass, and
+    those kernel checks."""
+    from clonealign_torch import api, stream
+    from clonealign_torch.synth import simulate_multinomial
+
+    oracle = np.load(REPO / "tests" / "golden" / "tpu_parity_oracle.npz")
+    sim = simulate_multinomial(N=5000, G=1000, C=4, seed=3, mean_total=2000)
+    bounds = stream._chunk_bounds(5000, GOLDEN_STREAM_CHUNK)
+    n_chunks = len(bounds)
+    store = api._auto_y_storage(sim.Y)
+    shapes = check_stream_shapes(bounds, 1000, 4, "float32" if store is None else
+                                 str(store).removeprefix("torch."), seed=31)
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit = clonealign_torch.fit_streaming(sim.Y, sim.L, chunk_cells=GOLDEN_STREAM_CHUNK,
+                                         max_iter=GOLDEN_MAX_ITER, seed=11, device="cuda",
+                                         verbose=False, elbo_eval="fresh")
+    ci, n = fit.convergence_info, fit.convergence_info.n_iters
+    launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+    want = {"fwd": n_chunks * (2 + 2 * n + 20), "dpsi": n_chunks * n, "gene": n_chunks * n}
+    e64 = float(oracle["synth_elbo64"])
+    tol = max(1e-4 * abs(e64), 3.0 * ci.sd_final_elbo)
+    probs = fit.ml_params["clone_probs"]
+    flips = np.flatnonzero(np.asarray(fit.clone) != oracle["synth_clone64"])
+    off = [int(i) for i in flips if abs(probs[i].max() - 0.95) >= 0.01]
+    log(f"golden synth streamed ({n_chunks} chunks of {GOLDEN_STREAM_CHUNK}, fresh): "
+        f"{time.perf_counter() - t0:.1f} s, {n} iterations "
+        f"({1000 * fit.timings['loop'] / max(n, 1):.2f} ms per iteration), final ELBO "
+        f"{ci.final_elbo:.8g} +- {ci.sd_final_elbo:.3g} against the float64 oracle {e64:.8g}: "
+        f"|diff| {abs(ci.final_elbo - e64):.4g}, bar {tol:.4g}; {len(flips)} labels differ from "
+        f"the float64 oracle, {len(off)} away from the 0.95 threshold; launches {launches}")
+    if not abs(ci.final_elbo - e64) < tol or off or launches != want:
+        raise AssertionError(f"golden synth streamed misses the oracle's bar or its launches "
+                             f"(expected {want})")
+    return launches, shapes
+
+
 def golden(clonealign_torch, fl):
     """Fit the oracle's four configurations (tests/test_tpu_hardware.py:101-116,
     172-200, 266-287) on the card in float32 and hold each to its bar (there
@@ -714,7 +1064,7 @@ def main() -> int:
         return 1
 
     import clonealign_torch
-    from clonealign_torch import api
+    from clonealign_torch import api, stream
     from clonealign_torch.ops import _build
     from clonealign_torch.ops import fused_likelihood as fl
 
@@ -871,7 +1221,27 @@ def main() -> int:
         raise AssertionError("the covariate sweep did not run as lanes")
     log("sweep peak allocated in the inference against restarts._sweep_bytes, GB: " + ", ".join(
         f"({n}) {sw['peak_gb']:.3f} / {sw['plan_gb']:.3f}" for n, sw in sweeps.items()))
-    del Y, Y_csr, allele
+    del Y_csr, allele
+
+    # 6b. the streaming fit in turns with the in-core fit, what its chunk
+    # uploads cost, and serving against the in-core fit
+    stream_bounds = stream._chunk_bounds(FULL["N"], stream._resolve_chunk_cells(
+        "auto", FULL["N"], FULL["G"]))
+    log(f"kernels vs plain at the streaming fit's chunk shapes (Y {auto_name})")
+    stream_shapes = check_stream_shapes(stream_bounds, FULL["G"], FULL["C"], auto_name, seed=21)
+    up = upload_rates(Y)
+    turns, core_fit, n_chunks = stream_turns(clonealign_torch, fl, Y, L, z)
+    stream_launches = turns[0]["launches"]
+    ms = {k: [t["iter_ms"] for t in turns if t["kind"] == k] for k in ("stream", "core")}
+    extra = float(np.mean(ms["stream"]) - np.mean(ms["core"]))
+    log(f"chunk upload: {up['chunk_bytes'] / 1e6:.1f} MB a chunk from pinned memory at "
+        f"{up['gbps']:.2f} GB/s, {up['copy_ms']:.2f} ms of copies a sweep of {up['n_chunks']}; "
+        "a sweep's host conversion alone " + " / ".join(f"{t:.2f}" for t in up["conv_ms"])
+        + " ms; ms per iteration streamed "
+        + " / ".join(f"{t:.2f}" for t in ms["stream"]) + " against in-core "
+        + " / ".join(f"{t:.2f}" for t in ms["core"]) + f": {extra:.2f} ms a step more")
+    serve_full(clonealign_torch, core_fit, Y, L, z)
+    del Y, core_fit
 
     # 7. a small restart sweep through run_clonealign
     Ys, Ls, zs = synth_counts(4, SWEEP["N"], SWEEP["G"], SWEEP["C"])
@@ -892,8 +1262,10 @@ def main() -> int:
     # 7b. a small sweep with the golden allele data, "map" and "vmap" in turns
     allele_sweeps = allele_sweep(clonealign_torch, fl)
 
-    # 8. golden parity: the oracle's four converged fits on the card
+    # 8. golden parity: the oracle's four converged fits on the card, and
+    # the synthetic one streamed
     golden_launches = golden(clonealign_torch, fl)
+    golden_stream_launches, golden_stream_shapes = golden_stream(clonealign_torch, fl)
 
     # The backward's parts alone at full width, A2 off, Y stored as "auto"
     # resolves on the main path.
@@ -958,7 +1330,20 @@ def main() -> int:
              ("golden rich K=2 P=2 S=3 (Kf=4)", golden_launches["rich"]),
              ("golden allele", golden_launches["allele"]),
              ("allele sweep, 3 restarts, map", allele_sweeps["map"]),
-             ("allele sweep, 3 restarts, vmap", allele_sweeps["vmap"]))
+             ("allele sweep, 3 restarts, vmap", allele_sweeps["vmap"]),
+             (f"streaming fit y_storage=auto, {n_chunks} chunks, reuse", stream_launches),
+             (f"golden synth streamed, {-(-5000 // GOLDEN_STREAM_CHUNK)} chunks, fresh",
+              golden_stream_launches))
+    # the kernels at each streaming path's chunk shapes (Y the leading rows
+    # of the feeder's buffer): errors against the plain versions, times
+    for k, part in zip(kernels, ("fwd", "bwd")):
+        k["stream_shapes"] = [
+            {"path": path, "shape": r["shape"], "buffer_rows": r["buffer_rows"],
+             "y_storage": r["y_storage"], "max_abs_err": r[f"{part}_max_abs_err"],
+             "ms": r[f"{part}_ms"], "plain_ms": r[f"{part}_plain_ms"]}
+            for path, shapes in (("streaming fit", stream_shapes),
+                                 ("golden synth streamed", golden_stream_shapes))
+            for r in shapes]
     kernels[0]["paths"] = [{"path": p, "launches": n["fwd"]} for p, n in paths]
     kernels[1]["paths"] = [{"path": p, "launches": min(n["dpsi"], n["gene"])} for p, n in paths]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

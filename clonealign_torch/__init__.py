@@ -11,6 +11,8 @@ Public API:
 
 - :func:`clonealign` — fit a single model
 - :func:`run_clonealign` — multi-restart sweep, best-ELBO fit
+- :func:`fit_streaming` — the fit with Y streamed through the card in chunks
+- :func:`assign_cells` — assign new cells against a fitted model
 - :func:`preprocess_for_clonealign` — gene/cell filtering
 - :func:`recompute_clone_assignment` — re-threshold clone calls
 """
@@ -20,10 +22,14 @@ from .assign import clone_assignment, compute_correlations, recompute_clone_assi
 from .fit import ClonealignFit, ConvergenceInfo
 from .preprocess import preprocess_for_clonealign
 from .restarts import run_clonealign
+from .serve import assign_cells
+from .stream import fit_streaming
 
 __all__ = [
     "clonealign",
     "run_clonealign",
+    "fit_streaming",
+    "assign_cells",
     "preprocess_for_clonealign",
     "recompute_clone_assignment",
     "clone_assignment",

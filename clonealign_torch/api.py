@@ -64,13 +64,13 @@ def _parse_expression(gene_expression_data):
         cell_names = list(getattr(obj, "cell_names", None) or [])
     elif hasattr(obj, "X"):  # AnnData duck-type
         X = obj.X
-        Y = X.tocsr() if _is_scipy_sparse(X) else np.asarray(X)
+        Y = _canonical_csr(X) if _is_scipy_sparse(X) else np.asarray(X)
         if hasattr(obj, "var_names"):
             gene_names = [str(g) for g in obj.var_names]
         if hasattr(obj, "obs_names"):
             cell_names = [str(c) for c in obj.obs_names]
     elif _is_scipy_sparse(obj):
-        Y = obj.tocsr()
+        Y = _canonical_csr(obj)
     elif hasattr(obj, "todense"):  # other COOMatrix-style duck-types
         Y = np.asarray(obj.todense())
     else:
@@ -86,6 +86,22 @@ def _parse_expression(gene_expression_data):
     ):
         Y = Y.astype(np.float64)
     return Y, gene_names or None, cell_names or None
+
+
+def _canonical_csr(Y):
+    """A scipy sparse matrix as a canonical CSR: sorted indices, each
+    (cell, gene) stored once, so that its stored values are its counts. A
+    canonical CSR is returned as it is; anything else (COO, CSC, a CSR with
+    duplicate entries) becomes a copy with its duplicates summed. The copy's
+    values are widened first, to int64 or float64, because scipy sums
+    duplicates in the values' own dtype: two stored int8 100s would wrap.
+    The caller's ``indptr``, ``indices`` and ``data`` are never written."""
+    if Y.format == "csr" and Y.has_canonical_format:
+        return Y
+    wide = np.float64 if np.issubdtype(Y.dtype, np.floating) else np.int64
+    out = Y.astype(wide, copy=True).tocsr()
+    out.sum_duplicates()
+    return out
 
 
 def _colsum_f64(Y) -> np.ndarray:
@@ -327,6 +343,83 @@ def _check_options(P, y_storage, likelihood_impl, K, mc_samples, fix_alpha):
         )
 
 
+def _parse_inputs(gene_expression_data, copy_number_data, x, K, mc_samples, fix_alpha,
+                  y_storage, likelihood_impl, device, verbose):
+    """The host side of setup that every fit shares (``setup_fit`` and
+    ``stream.fit_streaming``): the counts (:func:`_parse_expression`), the
+    covariates, the option checks, the copy numbers and, on CUDA, the
+    kernels' contract. Returns ``(Y, gene_names, L, clone_names, x, P)``."""
+    Y, gene_names, _cell_names = _parse_expression(gene_expression_data)
+    x = _parse_covariates(x, Y.shape[0])
+    P = 0 if x is None else x.shape[1]
+    _check_options(P, y_storage, likelihood_impl, K, mc_samples, fix_alpha)
+    if verbose:
+        print("Constructing model")  # reference R/inference-tflow.R:102-104
+    L, clone_names = _parse_copy_number(copy_number_data, Y.shape[1])
+    _check_kernel_contract(device, K, int(mc_samples), L.shape[1], P)
+    return Y, gene_names, L, clone_names, x, P
+
+
+def _retained_genes(gene_names, low, verbose):
+    """The names (or the indices) of the genes the filter keeps, ``low``
+    marking those it removes (reference R/inference-tflow.R:117-131)."""
+    if verbose and low.any():
+        print(f"Removing {int(low.sum())} genes with low counts")
+    if gene_names is not None:
+        return [g for g, drop in zip(gene_names, low) if not drop]
+    return list(np.flatnonzero(~low))
+
+
+def _device_validated(Y) -> bool:
+    """Dense integer counts of at most 16 bits cannot be NaN or fractional:
+    their sign and empty cells are checked on the device, from the
+    statistics (:func:`_check_statistics`), with no O(N x G) host pass."""
+    return (not _is_scipy_sparse(Y) and np.issubdtype(Y.dtype, np.integer)
+            and Y.dtype.itemsize <= 2)
+
+
+def _check_host_counts(Y, device_validated, allow_fractional, K) -> None:
+    """The host checks of the counts (:func:`_validate_counts`, unless the
+    device checks them) and of the cell count the PCA init needs."""
+    if not device_validated:
+        _validate_counts(Y, allow_fractional=allow_fractional)
+    if K > 0 and Y.shape[0] < 2:
+        raise ValueError(
+            "At least 2 cells are required when K > 0 (the PCA initialization "
+            "of the latent space needs multiple cells); pass K=0 for a "
+            "single-cell fit"
+        )
+
+
+def _resolve_storage(y_storage, Y):
+    """Y's storage type on the device (``_Y_STORAGE``; "auto":
+    :func:`_auto_y_storage` of the counts, a sparse matrix's stored ones);
+    None is the compute dtype."""
+    storage = _Y_STORAGE[y_storage]
+    if storage == "auto":
+        storage = _auto_y_storage(Y.data if _is_scipy_sparse(Y) else Y)
+    return storage
+
+
+def _check_statistics(data, device_validated, feasible=True) -> None:
+    """The checks made on the device statistics ``data`` (``s``,
+    ``YlogL``): a cell without counts, where the host did not check, and
+    with ``feasible`` a cell no clone can explain."""
+    if device_validated and float(torch.min(data.s)) == 0:
+        raise ValueError("Some cells have no counts mapping")  # R/inference-tflow.R:212-214
+    if feasible:
+        mm._check_cells_feasible(data.YlogL)
+
+
+def _model_config(K, P, mc_samples, fix_alpha, likelihood_impl, dtype, n_elements):
+    """The model configuration, "auto" resolved by :func:`_resolve_auto_impl`
+    over the retained N x G elements."""
+    if likelihood_impl == "auto":
+        likelihood_impl = _resolve_auto_impl(K, mc_samples, dtype, n_elements, P)
+    return mm.ModelConfig(K=K, P=P, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
+                          likelihood_impl=likelihood_impl)
+
+
 def setup_fit(
     gene_expression_data,
     copy_number_data,
@@ -373,19 +466,10 @@ def setup_fit(
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
     K = 1 if K is None else int(K)  # reference R/clonealign.R:226-232
-    Y, gene_names, _cell_names = _parse_expression(gene_expression_data)
-    x = _parse_covariates(x, Y.shape[0])
-    P = 0 if x is None else x.shape[1]
-    _check_options(P, y_storage, likelihood_impl, K, mc_samples, fix_alpha)
-    if verbose:
-        print("Constructing model")  # reference R/inference-tflow.R:102-104
-    sparse = _is_scipy_sparse(Y)
-    N, G = Y.shape
-    L, clone_names = _parse_copy_number(copy_number_data, G)
-    _check_kernel_contract(dev, K, int(mc_samples), L.shape[1], P)
-
-    device_validated = (not sparse and np.issubdtype(Y.dtype, np.integer)
-                        and Y.dtype.itemsize <= 2)
+    Y, gene_names, L, clone_names, x, P = _parse_inputs(
+        gene_expression_data, copy_number_data, x, K, mc_samples, fix_alpha, y_storage,
+        likelihood_impl, dev, verbose)
+    device_validated = _device_validated(Y)
     # float32 column sums of integers are exact below 2^24, and a total that
     # rounds is far above any threshold this admits
     defer_filter = device_validated and float(gene_filter_threshold) < 2.0**24
@@ -393,36 +477,23 @@ def setup_fit(
     def drop_genes(low):  # reference R/inference-tflow.R:117-131
         nonlocal Y, L
         if low.any():
-            if verbose:
-                print(f"Removing {int(low.sum())} genes with low counts")
             Y = Y[:, ~low]
             L = L[~low]
-        if gene_names is not None:
-            return [g for g, drop in zip(gene_names, low) if not drop]
-        return list(np.flatnonzero(~low))
+        return _retained_genes(gene_names, low, verbose)
 
     if not defer_filter:
         retained_genes = drop_genes(_colsum_f64(Y) <= gene_filter_threshold)
-    if not device_validated:
-        _validate_counts(Y, allow_fractional=allow_fractional)
-    if K > 0 and N < 2:
-        raise ValueError(
-            "At least 2 cells are required when K > 0 (the PCA initialization "
-            "of the latent space needs multiple cells); pass K=0 for a "
-            "single-cell fit"
-        )
+    _check_host_counts(Y, device_validated, allow_fractional, K)
 
     # --- saturation (reference R/inference-tflow.R:142-144) ---
     if saturate:
         L = np.minimum(L, float(saturation_threshold))
 
     # --- allele-specific setup (reference R/inference-tflow.R:166-187) ---
-    extra_log_lik, clone_probs_from_snv = _setup_allele(clone_allele, cov, ref, N, L.shape[1],
-                                                        dt, dev, verbose)
+    extra_log_lik, clone_probs_from_snv = _setup_allele(clone_allele, cov, ref, Y.shape[0],
+                                                        L.shape[1], dt, dev, verbose)
 
-    storage = _Y_STORAGE[y_storage]
-    if storage == "auto":
-        storage = _auto_y_storage(Y.data if sparse else Y)
+    storage = _resolve_storage(y_storage, Y)
     data = mm.prepare_data(Y, L, x, device=dev, dtype=dt, y_storage=storage,
                            check_feasible=not defer_filter)
     if defer_filter:
@@ -436,23 +507,10 @@ def setup_fit(
             del data
             data = mm.prepare_data(stored, L, x, device=dev, dtype=dt, y_storage=storage,
                                    check_feasible=False)
-    if device_validated and float(torch.min(data.s)) == 0:
-        raise ValueError("Some cells have no counts mapping")  # R/inference-tflow.R:212-214
-    if defer_filter:
-        mm._check_cells_feasible(data.YlogL)
-    if likelihood_impl == "auto":
-        likelihood_impl = _resolve_auto_impl(K, mc_samples, dt, Y.shape[0] * Y.shape[1], P)
-    config = mm.ModelConfig(K=K, P=P, mc_samples=int(mc_samples), fix_alpha=fix_alpha,
-                            likelihood_impl=likelihood_impl)
+    _check_statistics(data, device_validated, feasible=defer_filter)
+    config = _model_config(K, P, mc_samples, fix_alpha, likelihood_impl, dt,
+                           Y.shape[0] * Y.shape[1])
 
-    # numpy booleans (np.True_, 0-d bool arrays) are the boolean switch,
-    # not a mu init array
-    if isinstance(data_init_mu, np.bool_) or (
-        isinstance(data_init_mu, np.ndarray)
-        and data_init_mu.ndim == 0
-        and data_init_mu.dtype == np.bool_
-    ):
-        data_init_mu = bool(data_init_mu)
     return FitContext(
         Y=Y,
         L=L,
@@ -462,10 +520,22 @@ def setup_fit(
         data=data,
         dtype=dt,
         device=dev,
-        data_init_mu=data_init_mu,
+        data_init_mu=_mu_init_switch(data_init_mu),
         extra_log_lik=extra_log_lik,
         clone_probs_from_snv=clone_probs_from_snv,
     )
+
+
+def _mu_init_switch(data_init_mu):
+    """``data_init_mu`` with numpy booleans (np.True_, 0-d bool arrays) as the
+    boolean switch they are, not a mu init array."""
+    if isinstance(data_init_mu, np.bool_) or (
+        isinstance(data_init_mu, np.ndarray)
+        and data_init_mu.ndim == 0
+        and data_init_mu.dtype == np.bool_
+    ):
+        return bool(data_init_mu)
+    return data_init_mu
 
 
 def _setup_allele(clone_allele, cov, ref, N, C, dtype, device, verbose):
@@ -638,9 +708,14 @@ def _package_fit(
     clone_probs_from_snv=None,
     device_Y=None,
     device_s=None,
+    blocks=None,
 ) -> ClonealignFit:
     """Fetch ML params and build the fit object
-    (reference R/inference-tflow.R:424-480, R/clonealign.R:283-303)."""
+    (reference R/inference-tflow.R:424-480, R/clonealign.R:283-303).
+
+    ``Y`` is the host counts, or a streaming fit's row source
+    (``stream._RowSource``), read in the row ``blocks`` given, with
+    ``device_Y`` its uploading counterpart (``stream._DeviceRows``)."""
     p = result.params
     # Size factors must be float64-exact. For integer host counts (dense or
     # sparse) whose row totals stay below 2^24 the device totals are exact in
@@ -653,8 +728,10 @@ def _package_fit(
         and float(torch.max(device_s)) < 2.0**24
     ):
         s = device_s.cpu().numpy().astype(np.float64)
-    if s is None:
+    if s is None and blocks is None:
         s = np.asarray(Y.sum(axis=1, dtype=np.float64)).ravel()
+    elif s is None:
+        s = np.concatenate([Y[i:j].sum(axis=1, dtype=np.float64) for i, j in blocks])
 
     def host(t):
         return t.detach().cpu().numpy()
@@ -687,7 +764,7 @@ def _package_fit(
         ml_params["clone_probs"], clone_names, clone_call_probability
     )
     correlations = _assign.compute_correlations(
-        Y, L, clones, clone_names, device_Y=device_Y, dtype=p.qmu_loc.dtype
+        Y, L, clones, clone_names, device_Y=device_Y, dtype=p.qmu_loc.dtype, blocks=blocks
     )
     finite = correlations[np.isfinite(correlations)]
     if finite.size and np.quantile(finite, 0.25) < 0:

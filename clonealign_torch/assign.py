@@ -39,13 +39,14 @@ def recompute_clone_assignment(fit, clone_assignment_probability: float = 0.95):
     return replace(fit, clone=clones)
 
 
-def _clone_sums_device(Y_dev, idx_full, C, dtype=None):
+def _clone_sums_device(Y_dev, idx_full, C, dtype=None, blocks=None):
     """Sufficient statistics for :func:`compute_correlations` on the device
     that holds the counts: per-(clone, gene) sums S as (C, N) x (N, G)
     products, per-gene sum(y) from S, and sum(y^2) as masked column sums,
-    over row blocks of Y converted one at a time (Y may be stored narrow).
-    A float64 fit (``dtype``, by default Y's) keeps float64 sums; otherwise
-    they accumulate in float32 without TF32."""
+    over row blocks of Y converted one at a time (Y may be stored narrow;
+    ``blocks``, by default ``_row_blocks``). A float64 fit (``dtype``, by
+    default Y's) keeps float64 sums; otherwise they accumulate in float32
+    without TF32."""
     acc = torch.float64 if (dtype or Y_dev.dtype) == torch.float64 else torch.float32
     (N, G), dev = Y_dev.shape, Y_dev.device
     idx = torch.as_tensor(np.asarray(idx_full), dtype=torch.int64, device=dev)
@@ -54,7 +55,7 @@ def _clone_sums_device(Y_dev, idx_full, C, dtype=None):
     S = torch.zeros(C, G, dtype=acc, device=dev)
     sum_y2 = torch.zeros(G, dtype=acc, device=dev)
     with full_fp32_matmul():
-        for i, j in _row_blocks(N, G):
+        for i, j in _row_blocks(N, G) if blocks is None else blocks:
             Yf = Y_dev[i:j].to(acc)
             S += onehot[i:j].T @ Yf          # (C, G)
             sum_y2 += keep[i:j] @ (Yf * Yf)  # (G,)
@@ -83,7 +84,8 @@ def multirun_calls_device(gamma_logits, threshold):
     return called.to(torch.int32).cpu().numpy(), counts.to(torch.int32).cpu().numpy()
 
 
-def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=None, dtype=None):
+def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=None, dtype=None,
+                         blocks=None):
     """Per-gene Pearson correlation between expression and the copy number of
     each cell's assigned clone (reference R/clonealign.R:318-334; Pearson is
     affine-invariant, so correlating raw counts matches the reference's
@@ -99,7 +101,10 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
     ``clones_idx`` is the integer form of ``clones`` (values in ``0..C-1``;
     anything else reads unassigned). When given, ``clones`` is ignored.
     ``dtype`` is the fit's compute dtype: float64 keeps the device sums in
-    float64 whatever type ``device_Y`` is stored in.
+    float64 whatever type ``device_Y`` is stored in. ``device_Y`` may also
+    be a row source that uploads ``device_Y[i:j]`` (a streaming fit's), read
+    in the row ``blocks`` given, and ``Y`` then anything that gives the
+    columns ``Y[:, genes]``.
     """
     sparse = _is_scipy_sparse(Y)
     L = np.asarray(L, np.float64)
@@ -122,7 +127,7 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
 
     m = np.bincount(idx_full[keep], minlength=C).astype(np.float64)  # cells per clone
     if device_Y is not None:
-        S, sum_y, sum_y2 = _clone_sums_device(device_Y, idx_full, C, dtype)
+        S, sum_y, sum_y2 = _clone_sums_device(device_Y, idx_full, C, dtype, blocks)
         # Cancellation guard: var_y = sum_y2 - sum_y^2/M subtracts two
         # near-equal numbers for a near-constant high-mean gene, amplifying
         # the float32 error of the device sums. Genes whose variance is a

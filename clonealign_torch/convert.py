@@ -4,7 +4,8 @@ The JAX package's ``CloneAlignParams`` and ``ModelData`` are NamedTuples of
 arrays; ``np.asarray`` turns each field into a numpy array without this
 module importing jax. The converters accept those tuples, dicts of arrays,
 or anything with the same attribute names, so the two packages can compute
-on identical state.
+on identical state; a JAX package's fitted model (numpy fields) becomes the
+port's by :func:`fit_from_numpy`.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .fit import ClonealignFit, ConvergenceInfo
 from .models.multinomial import CloneAlignParams, ModelData
 
 
@@ -51,3 +53,23 @@ def data_from_numpy(data, device, dtype=torch.float32) -> ModelData:
         f.name: None if get(f.name) is None else _tensor(get(f.name), device, dtype)
         for f in dataclasses.fields(ModelData)
     })
+
+
+def fit_from_numpy(fit) -> ClonealignFit:
+    """The port's :class:`~clonealign_torch.fit.ClonealignFit` from a JAX
+    package's fit (its fields are numpy arrays, lists and numbers), so that
+    both packages can serve against one fitted model. Arrays are copied."""
+    ci = fit.convergence_info
+    snv = fit.clone_probs_from_snv
+    return ClonealignFit(
+        clone=list(fit.clone),
+        ml_params={k: np.array(v) for k, v in fit.ml_params.items()},
+        convergence_info=ConvergenceInfo(final_elbo=float(ci.final_elbo),
+                                         sd_final_elbo=float(ci.sd_final_elbo),
+                                         elbo=np.array(ci.elbo), n_iters=int(ci.n_iters)),
+        retained_genes=list(fit.retained_genes),
+        correlations=np.array(fit.correlations),
+        clone_names=list(fit.clone_names),
+        clone_probs_from_snv=None if snv is None else np.array(snv),
+        multirun_info=getattr(fit, "multirun_info", None),
+    )

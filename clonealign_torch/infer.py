@@ -107,6 +107,39 @@ def lane_result(result: InferenceResult, r: int) -> InferenceResult:
     )
 
 
+def final_config(config: mm.ModelConfig) -> mm.ModelConfig:
+    """The configuration of the final ELBO: the exact normalizer also when
+    training used z_cheb (reference infer.py:219-223)."""
+    return config._replace(likelihood_impl="xla") if mm._use_z_cheb(config) else config
+
+
+class Monitor:
+    """The ELBO traces of R lanes and the reference's stopping rule: a lane
+    stops when the mean |relative ELBO change| over its last ``window_size``
+    iterations drops below ``rel_tol``, or at ``max_iter``."""
+
+    def __init__(self, elbo0, max_iter, rel_tol, window_size, np_dtype):
+        R = len(elbo0)
+        self.max_iter, self.rel_tol = max_iter, rel_tol
+        self.trace = np.full((R, max_iter + 1), np.nan, np_dtype)
+        self.trace[:, 0] = elbo0
+        self.window = np.full((R, window_size), 1e3, np_dtype)
+        self.elbo = np.array(elbo0, np_dtype)  # each lane's last ELBO
+        self.i = np.zeros(R, np.int64)         # each lane's iterations
+
+    def live(self) -> np.ndarray:
+        return (self.i < self.max_iter) & (np.mean(np.abs(self.window), axis=1) >= self.rel_tol)
+
+    def record(self, lanes, elbo_new) -> None:
+        """Take one new ELBO for each lane in ``lanes``."""
+        old = self.elbo[lanes]
+        self.window[lanes] = np.roll(self.window[lanes], -1, axis=1)
+        self.window[lanes, -1] = (elbo_new - old) / np.abs(old)
+        self.trace[lanes, self.i[lanes] + 1] = elbo_new
+        self.elbo[lanes] = elbo_new
+        self.i[lanes] += 1
+
+
 def run_inference(
     params: mm.CloneAlignParams,
     data: mm.ModelData,
@@ -187,19 +220,12 @@ def run_inference_lanes(
 
     leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
     opt = TF1Adam(leaves, learning_rate, n_lanes=R)
-
-    trace = np.full((R, max_iter + 1), np.nan, np_dtype)
-    trace[:, 0] = elbo_val
-    window = np.full((R, window_size), 1e3, np_dtype)
-    i = np.zeros(R, np.int64)
-
-    def live():
-        return (i < max_iter) & (np.mean(np.abs(window), axis=1) >= rel_tol)
+    mon = Monitor(elbo_val, max_iter, rel_tol, window_size, np_dtype)
 
     def lanes_of(tensors, idx):
         return mm.CloneAlignParams(*(tensors if idx is None else [t[idx] for t in tensors]))
 
-    active = live()
+    active = mon.live()
     synchronize(device)
     t0 = time.perf_counter()
     while active.any():
@@ -218,26 +244,20 @@ def run_inference_lanes(
         else:
             elbo_new = -neg_elbo.detach()
         elbo_new = elbo_new.cpu().numpy()  # the iteration's one host sync
-        old = elbo_val[lanes]
-        window[lanes] = np.roll(window[lanes], -1, axis=1)
-        window[lanes, -1] = (elbo_new - old) / np.abs(old)
-        trace[lanes, i[lanes] + 1] = elbo_new
-        elbo_val[lanes] = elbo_new
-        i[lanes] += 1
+        mon.record(lanes, elbo_new)
         if progress:
-            change = np.mean(np.abs(window[lanes]), axis=1)
+            change = np.mean(np.abs(mon.window[lanes]), axis=1)
             for r, e, c in zip(lanes, elbo_new, change):
                 lane = f"lane {r}  " if R > 1 else ""
-                print(f"  {lane}VB iter {i[r]:4d}  elbo {float(e):.4f}  mean|Δ| {float(c):.3e}")
-        active = live()
+                print(f"  {lane}VB iter {mon.i[r]:4d}  elbo {float(e):.4f}  mean|Δ| {float(c):.3e}")
+        active = mon.live()
     synchronize(device)
     loop_seconds = time.perf_counter() - t0
 
-    final_config = config._replace(likelihood_impl="xla") if mm._use_z_cheb(config) else config
     with torch.no_grad():
         params = mm.CloneAlignParams(*[t.detach() for t in leaves])
         finals = torch.stack([
-            mm.elbo(params, data, draw("final", every), final_config, extra_log_lik)
+            mm.elbo(params, data, draw("final", every), final_config(config), extra_log_lik)
             for _ in range(n_final_elbo_samples)
         ], dim=-1)  # (R, n_final_elbo_samples)
         final_elbo = torch.mean(finals, dim=-1).cpu().numpy().astype(np.float64)
@@ -245,8 +265,8 @@ def run_inference_lanes(
 
     return InferenceResult(
         params=params,
-        elbo_trace=trace,
-        n_iters=i,
+        elbo_trace=mon.trace,
+        n_iters=mon.i,
         final_elbo=final_elbo,
         sd_final_elbo=sd_final,
         loop_seconds=loop_seconds,

@@ -290,10 +290,13 @@ def prepare_data_sparse(Y, L, x=None, *, device, dtype=torch.float32, y_storage=
                          check_feasible=check_feasible)
 
 
-def _prepare_rows(Y, L, x, rows, *, device, dtype, y_storage, check_feasible) -> ModelData:
+def _prepare_rows(Y, L, x, rows, *, device, dtype, y_storage, check_feasible, blocks=None,
+                  with_y=True) -> ModelData:
     """The loop of :func:`prepare_data` over the row blocks of Y (N x G, a
     tensor or a host matrix with a numpy ``dtype``), ``rows(i, j)`` giving
-    rows i:j as a tensor."""
+    rows i:j as a tensor. ``blocks`` are the (start, stop) rows of each
+    block, by default :func:`_row_blocks`; with ``with_y=False`` only the
+    statistics stay on the device (a streaming fit's: ``Y`` is None)."""
     device = torch.device(device)
     store = dtype if y_storage is None else y_storage
     N, G = Y.shape
@@ -303,14 +306,14 @@ def _prepare_rows(Y, L, x, rows, *, device, dtype, y_storage, check_feasible) ->
     wire = None if torch.is_tensor(Y) else _wire_np(Y.dtype, dtype, store)
     wire = None if wire is None else _TORCH[wire]
 
-    keep = torch.is_tensor(Y) and Y.device == device and Y.dtype == store
-    Yd = Y if keep else torch.empty((N, G), dtype=store, device=device)
+    keep = not with_y or (torch.is_tensor(Y) and Y.device == device and Y.dtype == store)
+    Yd = (Y if with_y else None) if keep else torch.empty((N, G), dtype=store, device=device)
     parts = []
     colsum = torch.zeros(G, dtype=dtype, device=device)
     ymax = torch.full((), -math.inf, dtype=dtype, device=device)
     ymin = torch.full((), math.inf, dtype=dtype, device=device)
     nonint = torch.zeros((), dtype=dtype, device=device)
-    for i, j in _row_blocks(N, G):
+    for i, j in _row_blocks(N, G) if blocks is None else blocks:
         c = rows(i, j)
         if wire is not None and c.dtype != wire:
             if not store.is_floating_point:
@@ -383,13 +386,19 @@ def randomized_pca(X, k: int, noise, oversample: int = 8, power_iters: int = 4):
         return Xc @ Vt[:k].T  # (n, k)
 
 
-def _pca_scores_blocked(Y, k: int, noise, dtype, oversample: int = 8, power_iters: int = 4):
+def _pca_scores_blocked(Y, k: int, noise, dtype, oversample: int = 8, power_iters: int = 4,
+                        blocks=None):
     """:func:`randomized_pca` of log2(Y+1) without the standardized N x G
     matrix (reference models/multinomial.py:891-937): every product
     recomputes each row block's ``(log2(y+1) - mean) / sd`` from the stored
-    Y. Same algorithm and draws; the column sd comes from sums of squares."""
+    Y. Same algorithm and draws; the column sd comes from sums of squares.
+
+    ``Y`` is the device tensor, or a row source that holds Y on the host
+    (``stream._DeviceRows``: ``shape``, ``device``, and ``Y[i:j]`` uploading
+    rows i:j), as the reference reads its ``_RowSource``. ``blocks`` are the
+    (start, stop) rows of each block, by default :func:`_row_blocks`."""
     N, G = Y.shape
-    blocks = _row_blocks(N, G)
+    blocks = _row_blocks(N, G) if blocks is None else blocks
     k_eff = min(k + oversample, min(N, G))
 
     def xb(i, j):
@@ -443,14 +452,15 @@ def pca_init_scores(Y, K: int, noise, dtype=torch.float32):
     return _standardize(pcs, dim=0)
 
 
-def data_mu_guess(Y, dtype=torch.float32):
+def data_mu_guess(Y, dtype=torch.float32, blocks=None):
     """colMeans(Y / rowMeans(Y)) — the data-driven mu initialization
     (reference R/inference-tflow.R:220-231), row-blocked above
-    ``_CHUNK_ELEMENTS``."""
+    ``_CHUNK_ELEMENTS`` or over the given ``blocks``; ``Y`` and ``blocks``
+    as :func:`_pca_scores_blocked` takes them."""
     N, G = Y.shape
-    if N * G > _CHUNK_ELEMENTS:
+    if blocks is not None or N * G > _CHUNK_ELEMENTS:
         acc = torch.zeros(G, dtype=dtype, device=Y.device)
-        for i, j in _row_blocks(N, G):
+        for i, j in _row_blocks(N, G) if blocks is None else blocks:
             yb = Y[i:j].to(dtype)
             acc += torch.sum(yb / torch.mean(yb, dim=1, keepdim=True), dim=0)
         return acc / N
@@ -738,6 +748,88 @@ def gamma_warm_start_logits(
     # at a finite value whose softmax underflows to exactly 0
     logits = torch.where(impossible, -1e30, logits)
     return logits.mT  # (..., N, C)
+
+
+# ---------------------------------------------------------------------------
+# Cell / global ELBO split (streaming fits)
+# ---------------------------------------------------------------------------
+#
+# elbo() is a sum of per-cell terms and terms that do not depend on the
+# cells (reference models/multinomial.py:1441-1560). A streaming fit
+# evaluates the per-cell part one chunk of cells at a time, every chunk at
+# the same (S, G) mu draw, and adds the global part once:
+#
+#   elbo(params, data, eps) == sum over chunks of elbo_cell_terms(chunk)
+#                              + elbo_global_terms(params, mu_base, colsum_Y)
+#
+# up to the order of the floating-point sums. elbo() itself is untouched.
+
+def _log_alpha(params, config):
+    zeros_or_alpha = (torch.zeros_like(params.alpha_unconstr) if config.fix_alpha
+                      else params.alpha_unconstr)
+    return torch.log_softmax(zeros_or_alpha, dim=-1)
+
+
+def elbo_cell_terms(params: CloneAlignParams, data: ModelData, mu_base, config: ModelConfig,
+                    extra_log_lik=None):
+    """The per-cell part of :func:`elbo` for the cells in ``data``: log
+    binomials and A1, the responsibility-weighted clone log-likelihood, the
+    clone prior's and the psi prior's terms, minus the responsibilities'
+    entropy term.
+
+    ``params.psi`` and ``params.gamma_logits`` (and ``data``'s per-cell
+    fields, ``extra_log_lik`` among them) carry only this chunk's rows; the
+    other fields are the whole fit's. ``mu_base`` is the step's one (S, G)
+    draw (:func:`sample_mu_base`), shared by every chunk and by
+    :func:`elbo_global_terms`. The likelihood goes through
+    :func:`_likelihood_terms`, so on CUDA tensors through the fused kernels,
+    and under z_cheb the Chebyshev table is fitted to this chunk's psi.
+    ``data.colsum_Y`` is not read."""
+    mu_samples = softplus(mu_base)
+    A1, _, logZ = _likelihood_terms(params, data, mu_samples, None, config)
+    const_sum = torch.sum(data.log_binom) + torch.sum(A1)
+
+    clone_ll = data.YlogL.T - data.s * logZ  # (S, C, N)
+    if extra_log_lik is not None:
+        clone_ll = clone_ll + extra_log_lik.T
+    gamma = torch.softmax(params.gamma_logits, dim=-1)
+    log_gamma = torch.log_softmax(params.gamma_logits, dim=-1)
+    E_clone_ll = torch.mean(clone_ll, dim=-3)  # (C, N)
+    safe_ll = torch.where(gamma == 0, 0.0, E_clone_ll.T)  # see elbo()
+    EE_p_y = torch.sum(gamma * safe_ll) + const_sum
+
+    E_log_p_cells = torch.sum(_log_alpha(params, config)[None, :] * gamma)
+    if config.K > 0:
+        E_log_p_cells = E_log_p_cells + torch.sum(_normal_log_prob(params.psi))
+    gamma_entropy_term = torch.sum(torch.where(gamma == 0, 0.0, gamma * log_gamma))
+    return EE_p_y + E_log_p_cells - gamma_entropy_term
+
+
+def elbo_global_terms(params: CloneAlignParams, mu_base, config: ModelConfig, colsum_Y):
+    """The part of :func:`elbo` that does not depend on the cells, added once
+    an evaluation: the A2 = Y log mu constant from the per-gene totals
+    ``colsum_Y``, the mu, Dirichlet, W and chi priors, minus the qmu
+    entropy term. ``params.psi`` and ``params.gamma_logits`` are not read."""
+    S = config.mc_samples
+    log_mu = torch.log(softplus(mu_base))
+    A2_sum = torch.sum(colsum_Y * torch.sum(log_mu, dim=-2)) / S
+
+    log_alpha = _log_alpha(params, config)
+    C = log_alpha.shape[-1]
+    dir_conc = 1.0 / C
+    dir_x = torch.exp(log_alpha) + 1e-3
+    dirichlet_lp = torch.sum((dir_conc - 1.0) * torch.log(dir_x)) - C * math.lgamma(dir_conc)
+    E_log_p_glob = torch.sum(_normal_log_prob(log_mu)) / S + dirichlet_lp
+    if config.K > 0:
+        chi = torch.exp(params.chi_unconstr)
+        w_scale = torch.sqrt(1.0 / chi)
+        E_log_p_glob = E_log_p_glob + torch.sum(_normal_log_prob(params.W, 0.0, w_scale[None, :]))
+        E_log_p_glob = E_log_p_glob + torch.sum(torch.log(chi) - chi)
+
+    scale = torch.exp(params.qmu_log_scale)
+    qmu_lp = _normal_log_prob(mu_base, params.qmu_loc[None, :], scale[None, :])
+    qmu_lp = qmu_lp - torch.nn.functional.logsigmoid(mu_base)
+    return A2_sum + E_log_p_glob - torch.sum(torch.mean(qmu_lp, dim=-2))
 
 
 # ---------------------------------------------------------------------------

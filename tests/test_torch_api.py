@@ -218,7 +218,8 @@ def test_preprocess_matches_jax():
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, clonealign_torch, clonealign_torch.convert, clonealign_torch.ops._build; "
+        "import sys, clonealign_torch, clonealign_torch.convert, clonealign_torch.ops._build, "
+        "clonealign_torch.serve, clonealign_torch.stream; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('clonealign_tpu')))"
     )

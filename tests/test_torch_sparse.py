@@ -263,3 +263,41 @@ def test_run_clonealign_on_a_csr(batching):
     np.testing.assert_array_equal(got.multirun_info["median_correlations"],
                                   dense.multirun_info["median_correlations"])
     assert got.clone == dense.clone
+
+
+def _with_duplicates(Y, extra):
+    """A non-canonical int64 CSR of Y whose cell 0, gene 0 also stores each
+    value of ``extra`` as an entry of its own: its dense counts are Y plus
+    their sum there."""
+    m = sp.csr_matrix(Y.astype(np.int64))
+    data = np.concatenate([np.asarray(extra, np.int64), m.data])
+    indices = np.concatenate([np.zeros(len(extra), m.indices.dtype), m.indices])
+    indptr = m.indptr + np.r_[0, np.full(Y.shape[0], len(extra))]
+    out = sp.csr_matrix((data, indices, indptr), shape=Y.shape)
+    assert not out.has_canonical_format
+    return out
+
+
+@pytest.mark.parametrize("extra,count", [
+    ((100, 100), 202),  # summed past int8: "auto" must pick int16
+    ((-3, 5), 4),       # a negative entry in a valid count
+])
+def test_non_canonical_csr_fits_as_its_dense_counts(extra, count):
+    """A CSR is checked and typed by its summed counts, from a copy: the
+    caller's indptr, indices and data are left as they were."""
+    sim = simulate_multinomial(N=40, G=30, C=3, seed=2, mean_total=300)
+    Y = sim.Y.astype(np.int64)
+    Y[0, 0] = 2
+    m = _with_duplicates(Y, extra)
+    dense = m.toarray()
+    assert dense[0, 0] == count
+    before = [a.copy() for a in (m.indptr, m.indices, m.data)]
+    kw = dict(max_iter=20, seed=4, device="cpu", verbose=False)
+    got = ct.clonealign(m, sim.L, **kw)
+    want = ct.clonealign(dense, sim.L, **kw)
+    assert got.clone == want.clone
+    assert got.convergence_info.final_elbo == want.convergence_info.final_elbo
+    for a, b in zip(before, (m.indptr, m.indices, m.data)):
+        np.testing.assert_array_equal(a, b)
+    ctx = tapi.setup_fit(m, sim.L, verbose=False, device="cpu")
+    assert ctx.data.Y.dtype == (torch.int16 if count > 127 else torch.int8)
