@@ -45,7 +45,13 @@ turns, which must run the same iterations and give the same labels; and the
 four converged fits of the golden oracle (tests/golden/tpu_parity_oracle.npz:
 example, synth, rich, allele), each held to that oracle's bar, and its synth
 fit streamed in chunks of 1,024 cells, held to the same bar after the
-kernels are checked at its chunk shapes. Any
+kernels are checked at its chunk shapes; then the legacy v1
+negative-binomial family (``inference_em``, exact and Chebyshev in turns,
+``gibbs_pi_rho`` and ``models.negbin.classify_cells``) at
+``benchmarks/negbin_scale.py``'s width, 100,000 cells x 2,000 genes x 4
+clones of model3 counts made on the card, each held to its accuracy bar,
+serving's log-posteriors to the CPU port's in float64, and the JAX
+package's golden pin in float32, with no fused-likelihood launch. Any
 failed phase raises and the script exits nonzero, as it does when ptxas's
 report lacks a tensor-core kernel instantiation or shows one spilling
 registers. The last line of standard output is a JSON object naming the
@@ -111,6 +117,13 @@ MIN_ACCURACY = 0.99
 LANES = dict(initial_shrinks=(5,), n_repeats=10, max_iter=100, elbo_eval="reuse")
 GOLDEN_MAX_ITER = 500  # the oracle's converged-fit configuration
 GOLDEN_STREAM_CHUNK = 1_024  # cells a chunk of the streamed golden synth fit
+# the v1 negative-binomial family at benchmarks/negbin_scale.py's defaults
+NEGBIN = dict(N=100_000, G=2_000, C=4)
+NEGBIN_MAX_ITER = 100
+NEGBIN_GIBBS_SWEEPS = 20
+# the JAX package's golden pin of the v1 fit (tests/test_negbin.py:325-344):
+# the ELBO at iteration 0 and after 30 iterations
+NEGBIN_PIN = (-56595.67761509307, -56266.79825854022)
 # serving: cells of the card-against-CPU check; its tolerance on each
 # log-posterior, relative to the sum of its terms' absolute values: about
 # 170 float32 ulps, room for sums of 5,000 terms in another order (the
@@ -1054,6 +1067,289 @@ def golden(clonealign_torch, fl):
     return found
 
 
+# ---------------------------------------------------------------------------
+# The legacy v1 negative-binomial family
+# ---------------------------------------------------------------------------
+
+def model3_genes(seed, G, C):
+    """The gene-level draws of the model3 spec on the card
+    (benchmarks/negbin_scale.py:29-61, reference
+    inst/create_model3_synthetic.R:3-29): rho ~ Bernoulli(0.9/1.1),
+    mu ~ U(1, 2), beta = mu, phi ~ Gamma(4, 1), L uniform on {1..C}."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rho = (torch.rand(G, generator=gen, device="cuda") < 0.9 / 1.1).float()
+    mu = 1.0 + torch.rand(G, generator=gen, device="cuda")
+    phi = torch._standard_gamma(torch.full((G,), 4.0, device="cuda"), generator=gen)
+    L = torch.randint(1, C + 1, (G, C), generator=gen, device="cuda").float()
+    return dict(rho=rho, mu=mu, phi=phi, L=L)
+
+
+def model3_cells(genes, seed, N, chunk=10_000):
+    """N cells of the model3 spec on the card: clones uniform, size factors
+    U(500, 10000), counts NB(mean s ((1 - rho) mu + rho beta Lp[:, pi]),
+    size phi) drawn as the gamma-Poisson mixture, in chunks of cells.
+    Returns Y (N, G) float32 on the card and the true clones (numpy)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rho, mu, phi, L = genes["rho"], genes["mu"], genes["phi"], genes["L"]
+    G, C = L.shape
+    Lp = L / L.mean(0, keepdim=True)
+    pi = torch.randint(0, C, (N,), generator=gen, device="cuda")
+    s = 500.0 + 9500.0 * torch.rand(N, generator=gen, device="cuda")
+    Y = torch.empty(N, G, device="cuda")
+    for i in range(0, N, chunk):
+        j = min(i + chunk, N)
+        m = s[i:j, None] * ((1 - rho) * mu + (rho * mu) * Lp[:, pi[i:j]].T)
+        shape = phi.expand(j - i, G).contiguous()
+        Y[i:j] = torch.poisson(torch._standard_gamma(shape, generator=gen) * (m / phi),
+                               generator=gen)
+    return Y, pi.cpu().numpy()
+
+
+def negbin_iteration_bound(N, G, C, m_steps):
+    """The least time of one exact EM iteration at N x G x C (ms), from the
+    code's passes over Y: the E-step's two clone scans, ``m_steps`` M-step
+    value-and-gradient passes and the monitored ELBO read Y (float32) once
+    each; per element a scan takes C + 1 logs, an M-step pass C + 1 logs,
+    one lgamma and one digamma, the ELBO one log and two lgammas, each
+    counted as one special-function operation (a lower bound on an
+    lgamma's cost). Returns (ms, "bytes" or "operations")."""
+    passes = 2 + m_steps + 1
+    bytes_ms = passes * N * G * 4 / HBM_BYTES_PER_S * 1e3
+    sfu = N * G * (2 * (C + 1) + m_steps * (C + 3) + 3)
+    ops_ms = sfu / EXP_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def negbin_pass_times(fit, Y, L, reps=3):
+    """Card ms of each pass of one EM iteration at full width, under the
+    exact fit's rates and posterior (CUDA events around ``reps`` calls,
+    after one warm-up): the E-step's A scan (float32) and B scan (float64
+    elements), one M-step value-and-gradient pass, the monitored ELBO's
+    netted llk0 pass; and of the Chebyshev loop's E-step products (A, and
+    the gamma statistics) and one of its Adam steps' gradient."""
+    import torch
+
+    from clonealign_torch.models import negbin
+    from clonealign_torch.utils.device import full_fp32_matmul
+
+    data = negbin.prepare_negbin_data(Y, L, device="cuda", dtype=torch.float32)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    params = negbin.NegbinParams(*(torch.log(torch.as_tensor(v, **f32))
+                                   for v in (fit.mu, fit.beta, fit.phi, fit.alpha)))
+    post = negbin.NegbinPosterior(torch.as_tensor(fit.clone_probs, **f32),
+                                  torch.as_tensor(fit.rho_probs, **f32))
+    consts = negbin._nb_constants(data)
+    stats = negbin.negbin_cheb_stats(data)
+    coeffs = negbin._netted_cheb_coeffs(params, data, stats)
+    ps = negbin._gamma_stats(data, stats, post.gamma)
+    rates = (params.log_mu, params.log_beta, params.log_phi)
+
+    def cheb_grad():
+        r = [t.detach().requires_grad_(True) for t in rates]
+        with torch.enable_grad():
+            p = params._replace(log_mu=r[0], log_beta=r[1], log_phi=r[2])
+            obj = negbin._mstep_objective_cheb(p, data, stats, ps, post.r, 1.0, consts)
+            return torch.autograd.grad(obj, r)
+
+    passes = {
+        "exact E-step A scan": lambda: negbin._scan(params, data, gene_w=post.r),
+        "exact E-step B scan (float64)": lambda: negbin._scan(params, data, cell_w=post.gamma,
+                                                              dtype=torch.float64),
+        "exact M-step value and gradient": lambda: negbin._mstep_value_and_grad(
+            rates, data, post, 1.0, consts),
+        "exact ELBO netted llk0 (float64)": lambda: negbin._llk0_netted_sum(params, data),
+        "cheb E-step A product": lambda: negbin._estep_A_cheb(data, stats, coeffs, post.r),
+        "cheb E-step gamma statistics": lambda: negbin._gamma_stats(data, stats, post.gamma),
+        "cheb M-step gradient (one Adam step's)": cheb_grad,
+    }
+    out = {}
+    with full_fp32_matmul():
+        for name, fn in passes.items():
+            fn()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            out[name] = dict(event_ms=start.elapsed_time(end) / reps,
+                             host_ms=1000 * (time.perf_counter() - t0) / reps,
+                             busy_ms=device_busy_ms(fn))
+    log("negbin passes at full width, a call: stream ms between CUDA events / host ms / "
+        "kernel ms (torch.profiler; the rest of the stream time is the card idle): " + "; ".join(
+            f"{k} {v['event_ms']:.2f} / {v['host_ms']:.2f} / "
+            + ("not measured" if v["busy_ms"] is None else f"{v['busy_ms']:.2f}")
+            for k, v in out.items()))
+    return out
+
+
+def device_busy_ms(fn):
+    """The summed device time of the kernels (and copies) one call of
+    ``fn`` runs, from ``torch.profiler``'s device events alone (an
+    operator's own entry repeats its kernels' time), or None where the
+    profiler records none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1000 if total > 0 else None
+
+
+def negbin_serve_reference(fit, Y, L):
+    """The CPU port's float64 log-posteriors log alpha_c + A[n, c] of the
+    cells ``Y`` (``models/negbin._log_posteriors``) and per (cell, clone)
+    the sum of the absolute values of their terms: |log alpha_c| + sum_g
+    r_g (|(y + phi) log(phi + m0)| + |(y + phi) log(phi + m1_c)| + |y q_c|),
+    the scale of the tolerance."""
+    import torch
+
+    from clonealign_torch.models import negbin
+
+    Yf = np.asarray(Y, np.float64)
+    want = negbin._log_posteriors(fit, Yf, L, device="cpu", dtype=torch.float64)
+    s = Yf.sum(1) / fit.s_mean
+    Lp = L / L.mean(0, keepdims=True)
+    phi, mu, beta, r = fit.phi, fit.mu, fit.beta, fit.rho_probs
+    Yp = Yf + phi
+    base = np.abs(Yp * np.log(phi + s[:, None] * mu)) @ r
+    scale = np.empty_like(want.numpy())
+    for c in range(L.shape[1]):
+        q = np.log(beta * Lp[:, c]) - np.log(mu)
+        pm1 = np.abs(Yp * np.log(phi + s[:, None] * (beta * Lp[:, c])))
+        scale[:, c] = np.abs(np.log(fit.alpha[c])) + base + (pm1 + np.abs(Yf * q)) @ r
+    return want.numpy(), scale
+
+
+def negbin_phase(clonealign_torch, fl):
+    """The v1 family on the card at benchmarks/negbin_scale.py's width
+    (100,000 cells x 2,000 genes x 4 clones, Y float32, made on the card):
+    ``inference_em`` exact (m_steps 5) and Chebyshev (m_steps 30) in turns,
+    NEGBIN_MAX_ITER iterations at rel_tol 1e-6; ``gibbs_pi_rho`` under the
+    exact fit's rates; ``classify_cells`` of 100,000 fresh cells of the same
+    genes, its log-posteriors on NEGBIN_SERVE_SLICE of them held to the CPU
+    port's in float64; and the JAX package's golden pin in float32. No
+    fused-likelihood kernel may launch. Returns the numbers it prints."""
+    import torch
+
+    from clonealign_torch.models import negbin
+
+    N, G, C = NEGBIN["N"], NEGBIN["G"], NEGBIN["C"]
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    genes = model3_genes(41, G, C)
+    Y, z = model3_cells(genes, 42, N)
+    L = genes["L"].cpu().numpy().astype(np.float64)
+    rho_true = genes["rho"].cpu().numpy() > 0.5
+    torch.cuda.synchronize()
+    log(f"negbin: model3 counts {N}x{G}x{C} float32 on the card ({Y.numel() * 4 / 1e9:.2f} GB, "
+        f"largest {float(Y.max()):.0f}): {time.perf_counter() - t0:.1f} s")
+    bound_ms, bound_by = negbin_iteration_bound(N, G, C, 5)
+    fits, out = {}, {"exact": [], "cheb": []}
+    for impl in ("exact", "cheb", "exact", "cheb"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fit = clonealign_torch.inference_em(Y, L, max_iter=NEGBIN_MAX_ITER, rel_tol=1e-6,
+                                            likelihood_impl=impl, verbose=False, device="cuda")
+        peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+        n = fit.n_iter
+        acc = float(np.mean(np.argmax(fit.clone_probs, 1) == z))
+        rho_acc = float(np.mean((fit.rho_probs > 0.5) == rho_true))
+        finite = bool(np.isfinite(fit.elbo_trace).all() and np.isfinite(fit.final_elbo))
+        row = dict(iterations=n, s_per_iter=fit.timings["loop"] / max(n, 1),
+                   setup_s=fit.timings["setup"], accuracy=acc, rho_accuracy=rho_acc,
+                   peak_gb=peak, final_elbo=fit.final_elbo)
+        out[impl].append(row)
+        fits[impl] = fit
+        log(f"negbin inference_em {impl}: {n} iterations, {row['s_per_iter']:.4f} s per iteration "
+            f"({fit.timings['loop']:.2f} s loop), setup {row['setup_s']:.2f} s, clone accuracy "
+            f"{acc:.4f}, rho accuracy {rho_acc:.4f}, final ELBO {fit.final_elbo:.9g}, peak "
+            f"allocated {peak:.3f} GB above the resident Y ({Y.numel() * 4 / 1e9:.2f} GB)"
+            + (f"; bound {bound_ms:.3f} ms an iteration by {bound_by}" if impl == "exact" else ""))
+        if acc < MIN_ACCURACY or not finite:
+            raise AssertionError(f"negbin {impl}: accuracy {acc:.4f}, finite trace {finite}")
+    fe, fc = fits["exact"], fits["cheb"]
+    pass_ms = negbin_pass_times(fe, Y, L)
+    agree = float(np.mean(np.argmax(fe.clone_probs, 1) == np.argmax(fc.clone_probs, 1)))
+    rel = abs(fc.final_elbo - fe.final_elbo) / abs(fe.final_elbo)
+    log(f"negbin cheb against exact: labels agree {agree:.4f}, final (exact-evaluated) ELBOs "
+        f"{rel:.3e} relative")
+    if agree < 0.99 or rel > 1e-3:
+        raise AssertionError("negbin: the Chebyshev fit departs from the exact fit")
+
+    # Gibbs under the exact fit's rates
+    params = negbin.NegbinParams(log_mu=np.log(fe.mu), log_beta=np.log(fe.beta),
+                                 log_phi=np.log(fe.phi), alpha_logits=np.log(fe.alpha))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traces = clonealign_torch.gibbs_pi_rho(Y, L, params=params, n_iter=NEGBIN_GIBBS_SWEEPS,
+                                           seed=0, device="cuda")
+    gibbs_s = time.perf_counter() - t0
+    probs = clonealign_torch.clone_probs_from_gibbs(traces["pi_trace"], C)
+    gibbs_acc = float(np.mean(np.argmax(probs, 1) == z))
+    rho_gibbs = clonealign_torch.rho_probs_from_gibbs(traces["rho_trace"])
+    log(f"negbin gibbs_pi_rho: {NEGBIN_GIBBS_SWEEPS} sweeps in {gibbs_s:.2f} s, clone accuracy "
+        f"{gibbs_acc:.4f}, rho accuracy "
+        f"{float(np.mean((rho_gibbs[:, 1] > 0.5) == rho_true)):.4f}")
+    if gibbs_acc < MIN_ACCURACY:
+        raise AssertionError("negbin gibbs: accuracy below the bar")
+
+    # serving: fresh cells of the same genes
+    del Y
+    Y2, z2 = model3_cells(genes, 43, N)
+    negbin.classify_cells(fe, Y2[:1000], L, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clones, probs = negbin.classify_cells(fe, Y2, L, device="cuda")
+    serve_s = time.perf_counter() - t0
+    serve_acc = float(np.mean(np.argmax(probs, 1) == z2))
+    idx = np.linspace(0, N - 1, SERVE_SLICE).round().astype(np.int64)
+    card = negbin._log_posteriors(fe, Y2, L, device=torch.device("cuda"), dtype=torch.float32)
+    rows = torch.as_tensor(idx, device="cuda")
+    card = card[rows].double().cpu().numpy()
+    want, scale = negbin_serve_reference(fe, Y2[rows].cpu().numpy(), L)
+    serve_rel = float((np.abs(card - want) / scale).max())
+    log(f"negbin classify_cells {N} fresh cells: {1000 * serve_s:.1f} ms ({N / serve_s:.4g} cells "
+        f"per second), accuracy {serve_acc:.4f}; log-posteriors against the CPU port in float64 "
+        f"on {SERVE_SLICE} cells: max |diff| / absolute-term sum {serve_rel:.3e} (tolerance "
+        f"{SERVE_RTOL:g})")
+    if serve_acc < MIN_ACCURACY or serve_rel > SERVE_RTOL:
+        raise AssertionError("negbin classify_cells misses its bars")
+    del Y2
+
+    # the JAX package's golden pin, in float32
+    from clonealign_torch.synth import simulate_model3
+
+    sim = simulate_model3(N=100, G=60, C=3, seed=99)
+    data = negbin.prepare_negbin_data(sim.Y, sim.L, device="cuda", dtype=torch.float32)
+    pin = negbin.run_negbin_em(data, max_iter=30, rel_tol=0.0)
+    rel0 = abs(pin.elbo_trace[0] - NEGBIN_PIN[0]) / abs(NEGBIN_PIN[0])
+    relf = abs(pin.final_elbo - NEGBIN_PIN[1]) / abs(NEGBIN_PIN[1])
+    log(f"negbin golden pin (float32): iteration 0 {pin.elbo_trace[0]:.9g} ({rel0:.2e} relative, "
+        f"bar 1e-5), final {pin.final_elbo:.9g} ({relf:.2e} relative, bar 1e-3)")
+    if not (rel0 <= 1e-5 and relf <= 1e-3):
+        raise AssertionError("negbin golden pin missed")
+    launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+    if any(launches.values()):
+        raise AssertionError(f"negbin: the fused-likelihood kernels launched {launches}")
+    return dict(fits=out, pass_ms=pass_ms, bound_ms=bound_ms, bound_by=bound_by, gibbs_s=gibbs_s,
+                gibbs_accuracy=gibbs_acc, serve_ms=1000 * serve_s, serve_accuracy=serve_acc,
+                serve_log_rel_err=serve_rel, pin=(float(pin.elbo_trace[0]), pin.final_elbo))
+
+
 def main() -> int:
     import torch
 
@@ -1266,6 +1562,10 @@ def main() -> int:
     # the synthetic one streamed
     golden_launches = golden(clonealign_torch, fl)
     golden_stream_launches, golden_stream_shapes = golden_stream(clonealign_torch, fl)
+
+    # 9. the legacy v1 negative-binomial family: plain PyTorch on the card,
+    # no fused-likelihood launch
+    negbin_phase(clonealign_torch, fl)
 
     # The backward's parts alone at full width, A2 off, Y stored as "auto"
     # resolves on the main path.

@@ -15,11 +15,21 @@ Public API:
 - :func:`assign_cells` — assign new cells against a fitted model
 - :func:`preprocess_for_clonealign` — gene/cell filtering
 - :func:`recompute_clone_assignment` — re-threshold clone calls
+- :func:`inference_em`, :func:`gibbs_pi_rho` — the legacy v1
+  negative-binomial family (``models/negbin.py``), its fit
+  :class:`ClonealignV1Fit` and ``models.negbin.classify_cells``
 """
 
 from .api import clonealign, saturate
 from .assign import clone_assignment, compute_correlations, recompute_clone_assignment
 from .fit import ClonealignFit, ConvergenceInfo
+from .models.negbin import (
+    ClonealignV1Fit,
+    clone_probs_from_gibbs,
+    gibbs_pi_rho,
+    inference_em,
+    rho_probs_from_gibbs,
+)
 from .preprocess import preprocess_for_clonealign
 from .restarts import run_clonealign
 from .serve import assign_cells
@@ -37,4 +47,9 @@ __all__ = [
     "saturate",
     "ClonealignFit",
     "ConvergenceInfo",
+    "inference_em",
+    "gibbs_pi_rho",
+    "clone_probs_from_gibbs",
+    "rho_probs_from_gibbs",
+    "ClonealignV1Fit",
 ]

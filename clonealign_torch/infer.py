@@ -10,7 +10,7 @@ host. A single fit is the one-lane case.
 from __future__ import annotations
 
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -77,6 +77,83 @@ class TF1Adam:
             m.copy_(m_new)
             v.copy_(v_new)
             p.copy_(p_new)
+
+
+class OptaxAdamState(NamedTuple):
+    """The state of :class:`OptaxAdam`, in the layout of optax's
+    ``(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))``:
+    Adam's step count and moments (one tensor per parameter) and the
+    learning-rate schedule's own count, None for a constant rate."""
+
+    count: int
+    mu: tuple
+    nu: tuple
+    schedule_count: Optional[int] = None
+
+
+class OptaxAdam:
+    """Adam in optax's form, ``optax.adam(optax.exponential_decay(lr,
+    transition_steps, decay_rate))``, or ``optax.adam(lr)`` when
+    ``decay_rate`` is 1.0: the counterpart of the optimizer of
+    ``clonealign_tpu.models.negbin`` (there :718-731). Unlike
+    :class:`TF1Adam`, epsilon sits outside the square root of the
+    bias-corrected second moment, ``m_hat / (sqrt(v_hat) + eps)``, the bias
+    correction uses the incremented count, and the step size is the
+    schedule's value at its count before the increment (non-staircase), so
+    the first step uses ``lr(0)``. The state is explicit
+    (:class:`OptaxAdamState`), so a fit can be resumed from it."""
+
+    def __init__(self, learning_rate: float, transition_steps: int = 0,
+                 decay_rate: float = 1.0, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.decay_rate = learning_rate, decay_rate
+        self.transition_steps = transition_steps
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.constant = decay_rate == 1.0
+
+    def learning_rate(self, count: int) -> float:
+        """optax.exponential_decay at ``count`` (constant where optax's is:
+        no transition steps, or a zero rate). optax's schedule takes an
+        int32 count and returns float32, its power taken as XLA takes a
+        float32 power (in float64, rounded), so this does too."""
+        if self.constant or self.transition_steps <= 0 or self.decay_rate == 0:
+            return self.lr
+        f32 = np.float32
+        if count <= 0:
+            return float(f32(self.lr))
+        p = f32(count) / f32(self.transition_steps)
+        return float(f32(self.lr) * f32(np.power(np.float64(f32(self.decay_rate)), np.float64(p))))
+
+    def init(self, params) -> OptaxAdamState:
+        return OptaxAdamState(count=0, mu=tuple(torch.zeros_like(p) for p in params),
+                              nu=tuple(torch.zeros_like(p) for p in params),
+                              schedule_count=None if self.constant else 0)
+
+    @torch.no_grad()
+    def step(self, state: OptaxAdamState, params, grads):
+        """The parameters after one step from ``grads``, and the new state."""
+        if (state.schedule_count is None) != self.constant:
+            raise ValueError(
+                "the optimizer state was made with a "
+                f"{'constant' if state.schedule_count is None else 'decaying'} learning rate "
+                f"but this optimizer's is {'constant' if self.constant else 'decaying'} "
+                "(lr_decay_rate must match the run it resumes)"
+            )
+        b1, b2 = self.b1, self.b2
+        count = state.count + 1
+        c1, c2 = 1 - b1**count, 1 - b2**count
+        step = -self.learning_rate(0 if self.constant else state.schedule_count)
+        mus, nus, new = [], [], []
+        for p, g, m, v in zip(params, grads, state.mu, state.nu):
+            m = (1 - b1) * g + b1 * m
+            v = (1 - b2) * (g * g) + b2 * v
+            u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+            new.append(p + step * u)
+            mus.append(m)
+            nus.append(v)
+        return new, OptaxAdamState(
+            count=count, mu=tuple(mus), nu=tuple(nus),
+            schedule_count=None if self.constant else state.schedule_count + 1)
 
 
 class InferenceResult(NamedTuple):
