@@ -51,7 +51,15 @@ negative-binomial family (``inference_em``, exact and Chebyshev in turns,
 ``benchmarks/negbin_scale.py``'s width, 100,000 cells x 2,000 genes x 4
 clones of model3 counts made on the card, each held to its accuracy bar,
 serving's log-posteriors to the CPU port's in float64, and the JAX
-package's golden pin in float32, with no fused-likelihood launch. Any
+package's golden pin in float32, with no fused-likelihood launch; and last
+the command line (``clonealign_torch.__main__``) with its file formats: the
+full-width ten-restart sweep from an uncompressed ``.npz`` of the same
+counts and a CSV to an ``.rds`` in turns with the library sweep (labels,
+best run, final ELBO bar, launches), the ``.rds`` read back against the
+in-memory fit, ``assign`` from it against ``assign_cells``, a CellRanger
+``.mtx.gz`` of 2,000 cells through ``fit`` and through the v1 family's
+``fit`` and ``assign``, and ``info``, ``show`` and the imports in fresh
+interpreters (no JAX module may load). Any
 failed phase raises and the script exits nonzero, as it does when ptxas's
 report lacks a tensor-core kernel instantiation or shows one spilling
 registers. The last line of standard output is a JSON object naming the
@@ -62,7 +70,8 @@ same work) at the Y storage "auto" resolves to (``y_storage``), the same
 for each full-width storage (``by_storage``) and at Kf = 3 and 4
 (``by_kf``), the launches of each other path (``paths``: the covariate,
 allele and sparse fits, golden rich and allele, the allele sweep, the
-streaming fit and the streamed golden synth fit), the errors and times at
+streaming fit, the streamed golden synth fit and the command line's two
+fits), the errors and times at
 the streaming paths' chunk shapes (``stream_shapes``), the backward's entry also
 listing its two parts (the Y-free dpsi kernel, and the gene-major kernel
 with its packing and reduction kernels), each with its own launches, time,
@@ -73,10 +82,12 @@ times.
 from __future__ import annotations
 
 import contextlib
+import gzip
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1350,6 +1361,281 @@ def negbin_phase(clonealign_torch, fl):
                 serve_log_rel_err=serve_rel, pin=(float(pin.elbo_trace[0]), pin.final_elbo))
 
 
+# ---------------------------------------------------------------------------
+# The command line and its file formats
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def phase_clock(*targets):
+    """Wrap each (owner, attribute, label) function for the block: each call
+    adds its wall seconds, read after a synchronize, to ``clock[label]``
+    and leaves its result in ``results[label]``. Yields (clock, results)."""
+    import torch
+
+    clock, results, saved = {}, {}, []
+    for owner, name, label in targets:
+        fn = getattr(owner, name)
+
+        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            clock[_label] = clock.get(_label, 0.0) + time.perf_counter() - t0
+            results[_label] = out
+            return out
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+    try:
+        yield clock, results
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def cli_run(argv):
+    """``clonealign_torch.__main__.main(argv)`` in this process; raises on a
+    nonzero exit."""
+    from clonealign_torch.__main__ import main as cli_main
+
+    rc = cli_main([str(a) for a in argv])
+    if rc != 0:
+        raise AssertionError(f"python -m clonealign_torch {' '.join(map(str, argv))}: rc {rc}")
+
+
+def write_cellranger_mtx(path, Y):
+    """Y (cells x genes) as CellRanger writes its matrix: gene-major,
+    integer coordinate format, gzip level 1."""
+    genes, cells = np.nonzero(Y.T)
+    vals = Y.T[genes, cells]
+    with gzip.open(path, "wt", compresslevel=1) as fh:
+        fh.write("%%MatrixMarket matrix coordinate integer general\n%\n")
+        fh.write(f"{Y.shape[1]} {Y.shape[0]} {len(vals)}\n")
+        fh.write("\n".join(f"{g} {c} {v}" for g, c, v in
+                           zip((genes + 1).tolist(), (cells + 1).tolist(), vals.tolist())))
+        fh.write("\n")
+
+
+def same_fit_payload(back, fit):
+    """Whether the fit read back from ``.rds`` equals the in-memory fit:
+    labels, names, retained genes and the sweep's record exactly, the clone
+    probabilities, correlations and the ELBO trace in float64."""
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    mr, mb = fit.multirun_info, back.multirun_info
+    ci, cb = fit.convergence_info, back.convergence_info
+    return {
+        "clone": back.clone == list(fit.clone),
+        "clone_names": back.clone_names == list(fit.clone_names),
+        "retained_genes": back.retained_genes == [str(g) for g in fit.retained_genes],
+        "multirun_info": (sorted(mb) == sorted(mr) and mb["best_run"] == mr["best_run"]
+                          and mb["clone_prevalences_at_different_shrinks"]
+                          == mr["clone_prevalences_at_different_shrinks"]
+                          and all(np.array_equal(f64(mb[k]), f64(mr[k]), equal_nan=True)
+                                  for k in ("elbos", "median_correlations", "initial_shrinks"))),
+        "clone_probs": np.array_equal(back.ml_params["clone_probs"],
+                                      f64(fit.ml_params["clone_probs"])),
+        "correlations": np.array_equal(back.correlations, f64(fit.correlations), equal_nan=True),
+        "elbo_trace": (np.array_equal(cb.elbo, f64(ci.elbo))
+                       and (cb.final_elbo, cb.sd_final_elbo, cb.n_iters)
+                       == (ci.final_elbo, ci.sd_final_elbo, ci.n_iters)),
+    }
+
+
+def cli_phase(clonealign_torch, fl):
+    """The command line at full width, its inputs and outputs in a temporary
+    directory: (a) ``fit --restarts 10`` from an uncompressed ``.npz`` of
+    bench.py's counts and a CSV to an ``.rds``, in turns with the library
+    sweep it stands for (labels, best run, final ELBO bar, accuracy, equal
+    launches), each phase's wall time beside the library call's; (b) the
+    ``.rds`` read back against the in-memory sweep; (c) ``assign`` of the
+    100,000 cells from the ``.rds`` against ``assign_cells``; (d) a
+    CellRanger ``.mtx.gz`` of 2,000 cells through ``fit`` (against
+    ``clonealign``) and through ``fit --model negbin-v1`` and ``assign``
+    (against ``classify_cells``); (e) ``info``, ``show`` and the imports in
+    fresh interpreters. Returns the launches of the CLI's fits."""
+    import torch
+
+    import clonealign_torch.__main__ as cli
+    from clonealign_torch import serve
+    from clonealign_torch.io import mtx
+    from clonealign_torch.models import negbin
+
+    N, G, C = FULL["N"], FULL["G"], FULL["C"]
+    names = [chr(ord("A") + k) for k in range(C)]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        Y, L, z = synth_counts(3, N, G, C)
+        t0 = time.perf_counter()
+        np.savez(d / "counts.npz", counts=Y, gene_names=np.asarray([f"g{j}" for j in range(G)]))
+        with open(d / "cnv.csv", "w") as fh:
+            fh.write("gene," + ",".join(names) + "\n")
+            fh.writelines(f"g{j}," + ",".join(str(int(v)) for v in row) + "\n"
+                          for j, row in enumerate(L))
+        log(f"cli: wrote counts.npz ({(d / 'counts.npz').stat().st_size / 1e9:.3f} GB, int16, "
+            f"uncompressed) and cnv.csv in {time.perf_counter() - t0:.2f} s")
+
+        # (a) the ten-restart sweep through the command line, in turns with
+        # the library call it stands for
+        fit_argv = ["fit", "--counts", d / "counts.npz", "--cnv", d / "cnv.csv", "--restarts",
+                    10, "--max-iter", 100, "--seed", 0, "--out", d / "fit.rds", "--quiet"]
+        cnv = dict(zip(names, L.T))
+        turns = []
+        for kind in ("cli", "library", "library", "cli"):
+            fl.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "cli":
+                with phase_clock((cli, "_load_counts", "read counts"),
+                                 (cli, "_load_cnv", "read cnv"),
+                                 (clonealign_torch, "run_clonealign", "sweep"),
+                                 (cli, "_save_fit", "write rds")) as (clock, results):
+                    cli_run(fit_argv)
+                fit = results["sweep"]
+            else:
+                fit = clonealign_torch.run_clonealign(
+                    Y, cnv, initial_shrinks=(5,), n_repeats=10, max_iter=100, seed=0,
+                    rel_tol=1e-6, learning_rate=0.1, clone_call_probability=0.95,
+                    verbose=False, print_elbos=False, device="cuda")
+                clock = {}
+            wall = time.perf_counter() - t0
+            launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches,
+                        "gene": fl.gene_launches}
+            ci = fit.convergence_info
+            turns.append(dict(kind=kind, fit=fit, wall=wall, clock=clock, launches=launches))
+            log(f"cli ({kind}) fit --restarts 10 {N}x{G}x{C}: {wall:.2f} s"
+                + (" (" + ", ".join(f"{k} {v:.3f} s" for k, v in clock.items()) + ")"
+                   if clock else "")
+                + f"; best run {fit.multirun_info['best_run']}, final ELBO {ci.final_elbo:.9g} "
+                f"(sd {ci.sd_final_elbo:.4g}), accuracy {accuracy(fit, z):.4f}, "
+                f"iterations {fit.timings['iterations']}, launches {launches}")
+        ref = turns[1]
+        for t in turns:
+            f, r = t["fit"], ref["fit"]
+            diff = abs(f.convergence_info.final_elbo - r.convergence_info.final_elbo)
+            bar = max(1e-6 * abs(r.convergence_info.final_elbo),
+                      3.0 * f.convergence_info.sd_final_elbo)
+            if (f.clone != r.clone or f.multirun_info["best_run"] != r.multirun_info["best_run"]
+                    or diff > bar or accuracy(f, z) < MIN_ACCURACY
+                    or t["launches"] != ref["launches"]):
+                raise AssertionError(f"cli ({t['kind']}): the sweep departs from the library's "
+                                     f"(final ELBO |diff| {diff:.6g}, bar {bar:.6g})")
+        log("cli sweep against the library sweep: labels identical, best run, final ELBO within "
+            "max(1e-6 |ELBO|, 3 sd), launches equal; wall " + " / ".join(
+                f"{t['kind']} {t['wall']:.2f}" for t in turns) + " s")
+
+        # (b) the .rds read back
+        t0 = time.perf_counter()
+        back = clonealign_torch.ClonealignFit.load_rds(str(d / "fit.rds"))
+        read_s = time.perf_counter() - t0
+        same = same_fit_payload(back, turns[3]["fit"])
+        log(f"cli: fit.rds {(d / 'fit.rds').stat().st_size / 1e6:.2f} MB, written in "
+            f"{turns[3]['clock']['write rds']:.3f} s, read back in {read_s:.3f} s; equal to the "
+            f"in-memory sweep: {same}")
+        if not all(same.values()):
+            raise AssertionError("cli: the .rds round trip lost part of the fit")
+
+        # (c) serving from the saved fit, through the command line
+        with phase_clock((cli, "_load_counts", "read counts"),
+                         (serve, "assign_cells", "assign_cells")) as (clock, _):
+            t0 = time.perf_counter()
+            cli_run(["assign", "--fit", d / "fit.rds", "--counts", d / "counts.npz", "--cnv",
+                     d / "cnv.csv", "--out", d / "assigned.npz", "--quiet"])
+            wall = time.perf_counter() - t0
+        served = np.load(d / "assigned.npz")
+        clones, probs = clonealign_torch.assign_cells(back, Y, L, device="cuda")
+        err = float(np.abs(served["clone_probs"] - probs).max())
+        calls, fit_calls = np.asarray(served["clone"]).astype(str), np.asarray(back.clone)
+        both = (calls != "unassigned") & (fit_calls != "unassigned")
+        agree = float(np.mean(calls[both] == fit_calls[both]))
+        ms = 1000 * clock["assign_cells"]
+        log(f"cli assign --latent auto (refine at K=1) {N} cells: {wall:.2f} s in all "
+            f"(reading counts {clock['read counts']:.3f} s), assign_cells {ms:.1f} ms "
+            f"({N / clock['assign_cells']:.4g} cells per second); clone_probs max |diff| "
+            f"against assign_cells {err:.3e} (bar 1e-6), agreement with the fit {agree:.4f}")
+        if err > 1e-6 or agree < 0.95 or list(calls) != list(clones):
+            raise AssertionError("cli assign departs from assign_cells or from the fit")
+        del served
+
+        # (d) the mtx path: the first 2,000 cells as CellRanger writes them
+        n_mtx = 2_000
+        t0 = time.perf_counter()
+        write_cellranger_mtx(d / "matrix.mtx.gz", Y[:n_mtx])
+        write_s = time.perf_counter() - t0
+        reader = "native" if mtx._load_native() is not None else "fallback (pure python)"
+        fl.reset_launch_counts()
+        with phase_clock((cli, "_load_counts", "read counts")) as (clock, results):
+            cli_run(["fit", "--counts", d / "matrix.mtx.gz", "--cnv", d / "cnv.csv",
+                     "--transpose", "--max-iter", 100, "--seed", 0, "--out", d / "mtx.npz",
+                     "--quiet"])
+        mtx_launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches,
+                        "gene": fl.gene_launches}
+        Y_rows = scipy.sparse.csr_matrix(Y[:n_mtx].astype(np.float64))
+        got = clonealign_torch.ClonealignFit.load(str(d / "mtx.npz"))
+        want = clonealign_torch.clonealign(Y_rows, cnv, max_iter=100, seed=0, verbose=False,
+                                           device="cuda")
+        log(f"cli mtx: matrix.mtx.gz {n_mtx}x{G} written in {write_s:.2f} s "
+            f"({(d / 'matrix.mtx.gz').stat().st_size / 1e6:.1f} MB), read by the {reader} reader "
+            f"in {clock['read counts']:.3f} s; fit --transpose labels "
+            f"{'equal' if got.clone == want.clone else 'DIFFER'} to clonealign's, accuracy "
+            f"{accuracy(got, z[:n_mtx]):.4f}, launches {mtx_launches}")
+        if got.clone != want.clone or accuracy(got, z[:n_mtx]) < MIN_ACCURACY:
+            raise AssertionError("cli mtx fit departs from clonealign")
+        t0 = time.perf_counter()
+        cli_run(["fit", "--counts", d / "matrix.mtx.gz", "--cnv", d / "cnv.csv", "--transpose",
+                 "--model", "negbin-v1", "--likelihood-impl", "cheb", "--max-iter", 20,
+                 "--out", d / "v1.npz", "--quiet"])
+        cli_run(["assign", "--fit", d / "v1.npz", "--counts", d / "matrix.mtx.gz", "--cnv",
+                 d / "cnv.csv", "--transpose", "--out", d / "v1_assigned.npz", "--quiet"])
+        v1_s = time.perf_counter() - t0
+        v1 = clonealign_torch.ClonealignV1Fit.load(str(d / "v1.npz"))
+        v1_clones, _ = negbin.classify_cells(v1, Y_rows, L, device="cuda")
+        v1_served = [str(c) for c in np.load(d / "v1_assigned.npz")["clone"]]
+        log(f"cli negbin-v1 cheb fit ({v1.n_iter} iterations) and assign: {v1_s:.2f} s; assign's "
+            f"labels {'equal' if v1_served == list(v1_clones) else 'DIFFER'} to classify_cells'")
+        if v1_served != list(v1_clones):
+            raise AssertionError("cli assign of a v1 fit departs from classify_cells")
+        del Y, Y_rows
+
+        # (e) the module entry in fresh interpreters, all three at once
+        code = ("import sys\n"
+                "import clonealign_torch.__main__, clonealign_torch.cnv, clonealign_torch.plot\n"
+                "import clonealign_torch.io.rds, clonealign_torch.io.mtx, clonealign_torch.io.h5\n"
+                "import clonealign_torch.io.datasets, clonealign_torch.utils.profiling\n"
+                "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
+                "'jaxlib', 'clonealign_tpu'))))\n")
+        commands = {"info": ["-m", "clonealign_torch", "info"],
+                    "show": ["-m", "clonealign_torch", "show", str(d / "fit.rds")],
+                    "imports": ["-c", code]}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen([sys.executable, *argv], cwd=REPO, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                 for k, argv in commands.items()}
+        outs = {}
+        try:
+            for k, proc in procs.items():
+                out, err = proc.communicate(timeout=120)
+                if proc.returncode != 0:
+                    raise AssertionError(f"cli {k} in a fresh interpreter: rc {proc.returncode}"
+                                         f"\n{err}")
+                outs[k] = out
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        shown = json.loads(outs["show"][outs["show"].index("{"):])
+        log(f"cli in fresh interpreters ({time.perf_counter() - t0:.1f} s): info says "
+            + "; ".join(outs["info"].strip().splitlines())
+            + f"; show's keys {sorted(shown)}; jax modules after the imports "
+            + outs["imports"].strip())
+        if not {"clone_counts", "final_elbo"} <= set(shown) or outs["imports"].strip() != "[]":
+            raise AssertionError("cli show lacks its keys, or an import loaded jax")
+    log(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
+    return turns[3]["launches"], mtx_launches
+
+
 def main() -> int:
     import torch
 
@@ -1567,6 +1853,10 @@ def main() -> int:
     # no fused-likelihood launch
     negbin_phase(clonealign_torch, fl)
 
+    # 10. the command line and its file formats: the full-width sweep from
+    # an .npz to an .rds, serving from the .rds, a CellRanger .mtx.gz
+    cli_launches, cli_mtx_launches = cli_phase(clonealign_torch, fl)
+
     # The backward's parts alone at full width, A2 off, Y stored as "auto"
     # resolves on the main path.
     main_full = full[auto_name]
@@ -1633,7 +1923,9 @@ def main() -> int:
              ("allele sweep, 3 restarts, vmap", allele_sweeps["vmap"]),
              (f"streaming fit y_storage=auto, {n_chunks} chunks, reuse", stream_launches),
              (f"golden synth streamed, {-(-5000 // GOLDEN_STREAM_CHUNK)} chunks, fresh",
-              golden_stream_launches))
+              golden_stream_launches),
+             ("command line: fit --restarts 10, .npz to .rds (sweep, fresh)", cli_launches),
+             ("command line: fit --transpose from .mtx.gz, 2,000 cells", cli_mtx_launches))
     # the kernels at each streaming path's chunk shapes (Y the leading rows
     # of the feeder's buffer): errors against the plain versions, times
     for k, part in zip(kernels, ("fwd", "bwd")):

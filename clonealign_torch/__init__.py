@@ -21,7 +21,13 @@ Public API:
 """
 
 from .api import clonealign, saturate
-from .assign import clone_assignment, compute_correlations, recompute_clone_assignment
+from .assign import (
+    clone_assignment,
+    compute_ca_fit_mse,
+    compute_correlations,
+    recompute_clone_assignment,
+)
+from .cnv import align_expression_to_cnv, cnv_regions_to_genes
 from .fit import ClonealignFit, ConvergenceInfo
 from .models.negbin import (
     ClonealignV1Fit,
@@ -35,6 +41,8 @@ from .restarts import run_clonealign
 from .serve import assign_cells
 from .stream import fit_streaming
 
+__version__ = "0.5.0"
+
 __all__ = [
     "clonealign",
     "run_clonealign",
@@ -44,6 +52,9 @@ __all__ = [
     "recompute_clone_assignment",
     "clone_assignment",
     "compute_correlations",
+    "compute_ca_fit_mse",
+    "align_expression_to_cnv",
+    "cnv_regions_to_genes",
     "saturate",
     "ClonealignFit",
     "ConvergenceInfo",
@@ -52,4 +63,12 @@ __all__ = [
     "clone_probs_from_gibbs",
     "rho_probs_from_gibbs",
     "ClonealignV1Fit",
+    "__version__",
 ]
+
+try:  # matplotlib is optional
+    from .plot import plot_clonealign, plot_clonealign_adata  # noqa: F401
+
+    __all__ += ["plot_clonealign", "plot_clonealign_adata"]
+except ImportError:  # pragma: no cover
+    pass

@@ -39,6 +39,33 @@ def recompute_clone_assignment(fit, clone_assignment_probability: float = 0.95):
     return replace(fit, clone=clones)
 
 
+def compute_ca_fit_mse(fit, Y, L, model_mu: bool = False, random_clones: bool = False, rng=None):
+    """Mean squared error of the fit's predicted expression
+    (reference R/clonealign.R:415-434; unexported and uncalled there, kept
+    for parity). ``random_clones`` replaces assignments with uniform draws
+    from the distinct assigned clones as a baseline."""
+    if _is_scipy_sparse(Y):
+        Y = Y.toarray()
+    Y = np.asarray(Y, np.float64)
+    L = np.asarray(L, np.float64)
+    clones = list(fit.clone)
+    if random_clones:
+        rng = np.random.default_rng() if rng is None else rng
+        distinct = sorted(set(clones))
+        clones = list(rng.choice(distinct, Y.shape[0], replace=True))
+
+    col_idx = {str(c): i for i, c in enumerate(fit.clone_names)}
+    # reference indexes L[, clones] directly; unassigned cells would error
+    # there too — require callers to re-threshold first
+    idx = np.asarray([col_idx[str(c)] for c in clones])
+    predicted = L[:, idx]  # (G, N)
+    if model_mu:
+        predicted = np.asarray(fit.ml_params["mu"])[:, None] * predicted
+    normalizer = Y.sum(axis=1) / predicted.sum(axis=0)
+    predicted = predicted.T * normalizer[:, None]
+    return float(np.mean((predicted - Y) ** 2))
+
+
 def _clone_sums_device(Y_dev, idx_full, C, dtype=None, blocks=None):
     """Sufficient statistics for :func:`compute_correlations` on the device
     that holds the counts: per-(clone, gene) sums S as (C, N) x (N, G)
