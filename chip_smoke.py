@@ -59,7 +59,16 @@ best run, final ELBO bar, launches), the ``.rds`` read back against the
 in-memory fit, ``assign`` from it against ``assign_cells``, a CellRanger
 ``.mtx.gz`` of 2,000 cells through ``fit`` and through the v1 family's
 ``fit`` and ``assign``, and ``info``, ``show`` and the imports in fresh
-interpreters (no JAX module may load). Any
+interpreters (no JAX module may load); and last the wide kernel family
+(the kernels past the narrow ones' 4 columns of [psi, X], 4 samples and 32
+sample x clone columns): each wide kernel against its plain version at
+every Y storage at shapes crossing each limit alone and together and at a
+streaming chunk shape, timed at full width beside its bound; the
+full-width fit with K = 1, P = 4 covariates and mc_samples = 8 (Kf = 5,
+S*C = 80), its sweep of three restarts as lanes, and a 2,000 x 500 x 12
+fit (K = 2, P = 4, mc_samples = 6) on the card against the CPU port in
+float64 from the same numpy draws, every launch of those paths a wide
+one and every launch of every other path a narrow one. Any
 failed phase raises and the script exits nonzero, as it does when ptxas's
 report lacks a tensor-core kernel instantiation or shows one spilling
 registers. The last line of standard output is a JSON object naming the
@@ -75,8 +84,10 @@ fits), the errors and times at
 the streaming paths' chunk shapes (``stream_shapes``), the backward's entry also
 listing its two parts (the Y-free dpsi kernel, and the gene-major kernel
 with its packing and reduction kernels), each with its own launches, time,
-plain version's time and bound; the line before that prints those parts'
-times.
+plain version's time and bound; then one entry for each wide kernel, at
+the wide fit's widths with each full-width configuration under
+``by_config`` and the wide paths' launches under ``paths``; the line before
+that prints the narrow backward's parts' times.
 """
 
 from __future__ import annotations
@@ -144,6 +155,23 @@ NEGBIN_PIN = (-56595.67761509307, -56266.79825854022)
 SERVE_SLICE = 2_000
 SERVE_RTOL = 1e-5
 SERVE_ATOL = 1e-4
+# The wide phase (the wide kernel family: Kf > 4, S > 4 or S*C > 32).
+# Kernels vs plain at a ragged shape for (Kf, S, C) crossing each limit
+# alone and together (S*C = 10, 33, 20, 96), then timed at full width
+# (C = 10) for (Kf, S) below, at each of WIDE_FULL_STORAGES
+WIDE_CHECK = dict(N=1_000, G=515)
+WIDE_CHECKS = ((5, 1, 10), (1, 1, 33), (1, 5, 4), (6, 8, 12))
+WIDE_FULL = ((5, 1), (1, 8), (5, 8))
+WIDE_FULL_STORAGES = ("int8", "float32")
+# the full-width wide fit (and its sweep): K = 1, P = 4 covariates (Kf = 5),
+# mc_samples = 8 (S*C = 80); the sweep three restarts as lanes
+WIDE_P = 4
+WIDE_S = 8
+WIDE_LANES = dict(initial_shrinks=(5,), n_repeats=3, max_iter=100, elbo_eval="reuse")
+# the parity fit on the card against the CPU port in float64, the same
+# numpy draws: Kf = 6, S*C = 72; its own counts (synth_counts seed 41)
+PARITY = dict(N=2_000, G=500, C=12, K=2, P=4, mc_samples=6)
+PARITY_MAX_ITER = 100
 # Published peaks of one H100 SXM at 700 W: HBM bytes/s, float32 FLOP/s on
 # CUDA cores (the kernels' contract is float32), TF32 FLOP/s on tensor
 # cores, and exps/s on the special-function units: 16 a clock on each of 132
@@ -157,6 +185,22 @@ EXP_PER_S = 132 * 16 * 1.98e9
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def launches_of(fl, wide=False):
+    """One family's kernel launches since the last reset, keyed fwd, dpsi
+    and gene: the narrow kernels', or with ``wide`` the wide family's.
+    Raises if the other family launched: every path is one family's (the
+    wide phase's paths the wide family's, every other path the narrow
+    kernels')."""
+    narrow = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+    wide_n = {"fwd": fl.fwd_wide_launches, "dpsi": fl.dpsi_wide_launches,
+              "gene": fl.gene_wide_launches}
+    got, other = (wide_n, narrow) if wide else (narrow, wide_n)
+    if any(other.values()):
+        raise AssertionError(f"the {'narrow' if wide else 'wide'} kernels launched on a "
+                             f"{'wide' if wide else 'narrow'} path: {other}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -208,9 +252,9 @@ def abs_scales(x, with_a2):
     return fwd, bwd
 
 
-def compare(got: dict, want: dict, scale: dict, label: str):
+def compare(got: dict, want: dict, scale: dict, label: str, errs=None):
     """Raise unless every element is within KERNEL_RTOL of its scale; return
-    the largest absolute error."""
+    the largest absolute error (and record each output's in ``errs``)."""
     worst = 0.0
     for name in want:
         if want[name].numel() == 0:
@@ -224,6 +268,8 @@ def compare(got: dict, want: dict, scale: dict, label: str):
         if not ok:
             raise AssertionError(f"{label} {name}: kernel disagrees with the plain version")
         worst = max(worst, max_abs)
+        if errs is not None:
+            errs[name] = max_abs
     return worst
 
 
@@ -266,12 +312,13 @@ def bound(y_bytes, vec_floats, exps, mma_flops, fp32_ops):
 def kernel_bounds(N, G, Kf, SC, y_itemsize):
     """Bounds of the A2-off forward and backward and of the backward's two
     parts, each by the unit that runs each part of its formulas, with Y read
-    once at y_itemsize bytes an element. The bound counts the least work of
-    each function, not the kernels' own schemes: the products with muL do
-    not grow with Kf, the columns of [psi, X] (drfe = dZ muL^T is formed
-    once, and each dpsi_k and dW_k is then an elementwise sum), so Kf scales
-    only the CUDA-core operations: the Kf FMAs an element of log_rfe, of
-    Y W and of each dpsi_k or dW_k."""
+    once at y_itemsize bytes an element, at any widths (the wide family's
+    too: the same functions, whichever kernels compute them). The bound
+    counts the least work of each function, not the kernels' own schemes:
+    the products with muL do not grow with Kf, the columns of [psi, X]
+    (drfe = dZ muL^T is formed once, and each dpsi_k and dW_k is then an
+    elementwise sum), so Kf scales only the CUDA-core operations: the Kf
+    FMAs an element of log_rfe, of Y W and of each dpsi_k or dW_k."""
     NG = N * G
     # forward: Y, psi, W, muL in; A1, Z, YW out. Z = rfe muL on tensor
     # cores; log_rfe and Y W (A1 = sum_k psi_k (Y W)_k) on CUDA cores.
@@ -294,15 +341,17 @@ def kernel_bounds(N, G, Kf, SC, y_itemsize):
     return {"fwd": fwd, "bwd": bwd, "dpsi": dpsi, "gene": gene}
 
 
-def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None):
+def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
+                  a2_timed=True):
     """Compare forward (A2 on and off) and backward with the plain versions
     at one shape, with Y stored as ``storage``, the backward taking Y W from
-    the forward kernel as the fit does; return the errors and the times of
-    the A2-off calls (the training step's form), with the backward's dpsi and
-    gene parts also timed alone. With ``buffer_rows``, Y is handed to the
-    kernels as the streaming fit's chunk feeder hands a chunk out: the
-    leading rows of a device buffer of ``buffer_rows`` rows, whose other
-    rows hold other counts."""
+    the forward kernel as the fit does; return the errors (the largest, and
+    each output's under ``errs``) and the times of the A2-off calls (the
+    training step's form), with the backward's dpsi and gene parts also
+    timed alone; the A2-on calls are timed too unless ``a2_timed`` is
+    false. With ``buffer_rows``, Y is handed to the kernels as the streaming
+    fit's chunk feeder hands a chunk out: the leading rows of a device
+    buffer of ``buffer_rows`` rows, whose other rows hold other counts."""
     import torch
 
     from clonealign_torch.ops import fused_likelihood as fl
@@ -339,13 +388,15 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None)
         want["YW"] = Yf @ x["W"]
         torch.cuda.synchronize()
         tag = f"{label} A2={'on' if with_a2 else 'off'}"
-        err_f = compare(got, want, fwd_scale, f"fwd {tag}")
+        errs = {}
+        err_f = compare(got, want, fwd_scale, f"fwd {tag}", errs)
         YW = got["YW"]
         got = as_dict(names_b, fl.kernel_backward(*args_b, YW))
         want = as_dict(names_b, fl.reference_likelihood_vjp(*args_b))
         torch.cuda.synchronize()
-        err_b = compare(got, want, bwd_scale, f"bwd {tag}")
-
+        err_b = compare(got, want, bwd_scale, f"bwd {tag}", errs)
+        if with_a2 and not a2_timed:
+            continue
         t = {
             "fwd_ms": cuda_ms(lambda: fl.kernel_forward(*args_f), reps),
             "fwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_terms(*args_f), reps),
@@ -360,7 +411,7 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None)
             f"(dpsi {t['dpsi_ms']:.3f} ms + gene {t['gene_ms']:.3f} ms; "
             f"plain {t['bwd_plain_ms']:.3f} ms)")
         if not with_a2:
-            result = dict(t, fwd_err=err_f, bwd_err=err_b)
+            result = dict(t, fwd_err=err_f, bwd_err=err_b, errs=errs)
     result["bounds"] = kernel_bounds(shape["N"], shape["G"], Kf, S * shape["C"],
                                      x["Y"].element_size())
     result["dpsi_plain_ms"] = cuda_ms(lambda: fl.reference_dpsi(
@@ -394,7 +445,7 @@ def check_stream_shapes(bounds, G, C, storage, seed):
 def kernel_resources(build_log, kernel):
     """ptxas's report (-v) for each instantiation of one kernel template,
     keyed by its template arguments: {"<1,2,0>": (registers, spill store
-    bytes, spill load bytes)}."""
+    bytes, spill load bytes)}; a kernel that is no template is keyed "<>"."""
     found, name, spills = {}, None, (0, 0)
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -406,28 +457,35 @@ def kernel_resources(build_log, kernel):
             spills = (int(m.group(1)), int(m.group(2)))
             continue
         m = re.search(r"Used (\d+) registers", line)
-        f = re.search(kernel + r"I((?:L[ib]\d+E)+)E", name or "")
+        f = re.search(r"\d" + kernel + r"(?:I((?:L[ib]\d+E)+)E|E)", name or "")
         if m and f:
-            label = "<" + ",".join(re.findall(r"L[ib](\d+)E", f.group(1))) + ">"
+            label = "<" + ",".join(re.findall(r"L[ib](\d+)E", f.group(1) or "")) + ">"
             found[label] = (int(m.group(1)), *spills)
     return found
 
 
-# The instantiations each tensor-core kernel must have in the report:
-# fwd_kernel<YT, KF, NT, A2> (96), dpsi_kernel<KF, NT> (12) and
-# gene_kernel<YT, KF, NT, A2> (88), YT the Y storage code (0-3).
+# The instantiations each kernel must have in the report: the tensor-core
+# kernels fwd_kernel<YT, KF, NT, A2> (96), dpsi_kernel<KF, NT> (12) and
+# gene_kernel<YT, KF, NT, A2> (88), YT the Y storage code (0-3), and the
+# wide family's.
 TC_KERNELS = {
     "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
                    for t in (1, 2, 4) for a in (0, 1)},
     "dpsi_kernel": {f"<{k},{t}>" for k in (1, 2, 3, 4) for t in (1, 2, 4)},
     "gene_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
                     for t in range(1, (4, 3, 2, 2)[k - 1] + 1) for a in (0, 1)},
+    # the wide family: fwd_wide_kernel<YT, JW> (8), dpsi_wide_kernel (no
+    # template) and gene_wide_kernel<YT> (4)
+    "fwd_wide_kernel": {f"<{y},{w}>" for y in range(4) for w in (16, 32)},
+    "dpsi_wide_kernel": {"<>"},
+    "gene_wide_kernel": {f"<{y}>" for y in range(4)},
 }
 
 
 def log_tc_resources(build_log):
-    """Print the tensor-core kernels' registers and spills, one line per
-    kernel; raise if an instantiation spills or is missing from the report."""
+    """Print the tensor-core kernels' and the wide family's registers and
+    spills, one line per kernel; raise if an instantiation spills or is
+    missing from the report."""
     for kernel, want in TC_KERNELS.items():
         res = kernel_resources(build_log, kernel)
         log(f"{kernel} ptxas: " + "; ".join(
@@ -578,21 +636,25 @@ def snv_accuracy(fit, z_true) -> float:
     return float(np.mean(np.argmax(fit.clone_probs_from_snv, axis=1) == z_true))
 
 
-def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, label=None):
+def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, label=None,
+             mc_samples=1, wide=False):
     """One full-width exact fit through clonealign with Y stored as
-    ``y_storage``, the covariates ``x`` (or none) and the allele data
-    ``allele`` (a dict of clone_allele, cov and ref, or none), its kernel
-    launches counted from zero; checks its ELBO trace, accuracy and launches
-    (and beta's shape, or the SNV probabilities) and returns its numbers."""
+    ``y_storage``, the covariates ``x`` (or none), the allele data
+    ``allele`` (a dict of clone_allele, cov and ref, or none) and
+    ``mc_samples``, its kernel launches counted from zero (the wide
+    family's with ``wide``, and none of the other family); checks its ELBO
+    trace, accuracy and launches (and beta's shape, or the SNV
+    probabilities) and returns its numbers."""
     fl.reset_launch_counts()
     t0 = time.perf_counter()
     with inference_peaks() as peaks, setup_measures() as setups:
         fit = clonealign_torch.clonealign(
             Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
-            likelihood_impl="xla", y_storage=y_storage, x=x, **(allele or {}),
+            likelihood_impl="xla", y_storage=y_storage, x=x, mc_samples=mc_samples,
+            **(allele or {}),
         )
     wall = time.perf_counter() - t0
-    launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+    launches = launches_of(fl, wide)
     ci, tm = fit.convergence_info, fit.timings
     n_iters = ci.n_iters
     (_, setup_peak), = setups["setup"]
@@ -617,7 +679,7 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
     elif fit.clone_probs_from_snv is not None:
         raise AssertionError("a fit without allele data carries clone_probs_from_snv")
     log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']} {label or y_storage} y_storage={y_storage} "
-        f"K=1 P={P}: {wall:.2f} s wall, "
+        f"K=1 P={P} mc_samples={mc_samples}: {wall:.2f} s wall, "
         f"setup {tm['setup']:.2f} s (peak allocated {out['setup_peak_gb']:.3f} GB), "
         f"init {tm['init']:.2f} s, "
         f"inference {tm['inference']:.2f} s ({n_iters} iterations, "
@@ -626,7 +688,8 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
     rising = check_trace(ci.elbo)
     log(f"  ELBO {ci.elbo[0]:.6g} -> {ci.elbo[-1]:.6g} (rising steps {rising:.2f}), final "
         f"{ci.final_elbo:.9g} +- {ci.sd_final_elbo:.3g}; accuracy {out['accuracy']:.4f}; "
-        f"launches fwd {launches['fwd']} dpsi {launches['dpsi']} gene {launches['gene']}")
+        f"launches{' (wide)' if wide else ''} fwd {launches['fwd']} dpsi {launches['dpsi']} "
+        f"gene {launches['gene']}")
     if out["accuracy"] < MIN_ACCURACY:
         raise AssertionError(f"{label or y_storage}: accuracy {out['accuracy']:.4f} < {MIN_ACCURACY}")
     # warm start + initial ELBO + (train + fresh eval) per iteration + 20
@@ -639,12 +702,14 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
 
 
 def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_itemsize,
-              x=None):
+              x=None, lanes=LANES, mc_samples=1, wide=False):
     """One full-width sweep through run_clonealign with Y stored as
-    ``y_storage`` (y_itemsize bytes an element) and the covariates ``x`` (or
-    none); returns its lanes' iterations, the kernel launches it made, its
-    ms per lane iteration, its peak allocated bytes in the inference, and
-    how its lanes ran ("vmap" or "map", as the loop it called shows)."""
+    ``y_storage`` (y_itemsize bytes an element), the covariates ``x`` (or
+    none), the restarts ``lanes`` and ``mc_samples``; returns its lanes'
+    iterations, the kernel launches it made (the wide family's with
+    ``wide``, and none of the other family), its ms per lane iteration, its
+    peak allocated bytes in the inference, and how its lanes ran ("vmap" or
+    "map", as the loop it called shows)."""
     from clonealign_torch.restarts import _sweep_bytes
 
     fl.reset_launch_counts()
@@ -652,19 +717,22 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_
     with inference_peaks() as loop_peaks:
         fit = clonealign_torch.run_clonealign(
             Y, L, device="cuda", seed=0, verbose=False, likelihood_impl=impl,
-            restart_batching=batching, y_storage=y_storage, x=x, **LANES,
+            restart_batching=batching, y_storage=y_storage, x=x, mc_samples=mc_samples,
+            **lanes,
         )
     wall = time.perf_counter() - t0
-    launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+    launches = launches_of(fl, wide)
     tm, iters = fit.timings, fit.timings["iterations"]
     R = len(iters)
     acc = accuracy(fit, z)
     ran = "vmap" if [n for n, _ in loop_peaks] == ["run_inference_lanes"] else "map"
     P = 0 if x is None else x.shape[1]
-    plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, 1, R if ran == "vmap" else 1,
-                        4, "cuda", y_itemsize, P, impl == "z_cheb") / 1e9
+    plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, mc_samples,
+                        R if ran == "vmap" else 1, 4, "cuda", y_itemsize, P,
+                        impl == "z_cheb") / 1e9
     peak = max(b for _, b in loop_peaks) / 1e9
-    log(f"sweep ({name}) {impl} {batching} (ran as {ran}) y_storage={y_storage} P={P}, {R} lanes: "
+    log(f"sweep ({name}) {impl} {batching} (ran as {ran}) y_storage={y_storage} P={P} "
+        f"mc_samples={mc_samples}, {R} lanes: "
         f"{wall:.2f} s wall, setup "
         f"{tm['setup']:.2f} s, init {tm['init']:.2f} s, loop {tm['loop']:.2f} s "
         f"({sum(iters)} lane iterations: {1000 * tm['loop'] / sum(iters):.2f} ms per lane "
@@ -700,7 +768,7 @@ def allele_sweep(clonealign_torch, fl):
             oracle["allele_Y"], oracle["allele_L"], initial_shrinks=(0, 5, 10), n_repeats=1,
             device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
             restart_batching=batching, **allele)
-        launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+        launches = launches_of(fl)
         iters = fit.timings["iterations"]
         want = {"fwd": sum(2 + 2 * n + 20 for n in iters), "dpsi": sum(iters),
                 "gene": sum(iters)}
@@ -806,7 +874,7 @@ def stream_turns(clonealign_torch, fl, Y, L, z):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - before
-        launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+        launches = launches_of(fl)
         ci, tm, n = fit.convergence_info, fit.timings, fit.convergence_info.n_iters
         acc = accuracy(fit, z)
         per = n_chunks if kind == "stream" else 1
@@ -997,7 +1065,7 @@ def golden_stream(clonealign_torch, fl):
                                          max_iter=GOLDEN_MAX_ITER, seed=11, device="cuda",
                                          verbose=False, elbo_eval="fresh")
     ci, n = fit.convergence_info, fit.convergence_info.n_iters
-    launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+    launches = launches_of(fl)
     want = {"fwd": n_chunks * (2 + 2 * n + 20), "dpsi": n_chunks * n, "gene": n_chunks * n}
     e64 = float(oracle["synth_elbo64"])
     tol = max(1e-4 * abs(e64), 3.0 * ci.sd_final_elbo)
@@ -1050,7 +1118,7 @@ def golden(clonealign_torch, fl):
                                           dtype="float32", device="cuda", verbose=False,
                                           likelihood_impl=impl, **opts)
         ci = fit.convergence_info
-        launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+        launches = launches_of(fl)
         n = ci.n_iters
         if impl == "auto" and launches != {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n}:
             raise AssertionError(f"golden {name}: launches {launches} for {n} iterations")
@@ -1353,7 +1421,7 @@ def negbin_phase(clonealign_torch, fl):
         f"bar 1e-5), final {pin.final_elbo:.9g} ({relf:.2e} relative, bar 1e-3)")
     if not (rel0 <= 1e-5 and relf <= 1e-3):
         raise AssertionError("negbin golden pin missed")
-    launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+    launches = launches_of(fl)
     if any(launches.values()):
         raise AssertionError(f"negbin: the fused-likelihood kernels launched {launches}")
     return dict(fits=out, pass_ms=pass_ms, bound_ms=bound_ms, bound_by=bound_by, gibbs_s=gibbs_s,
@@ -1500,8 +1568,7 @@ def cli_phase(clonealign_torch, fl):
                     verbose=False, print_elbos=False, device="cuda")
                 clock = {}
             wall = time.perf_counter() - t0
-            launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches,
-                        "gene": fl.gene_launches}
+            launches = launches_of(fl)
             ci = fit.convergence_info
             turns.append(dict(kind=kind, fit=fit, wall=wall, clock=clock, launches=launches))
             log(f"cli ({kind}) fit --restarts 10 {N}x{G}x{C}: {wall:.2f} s"
@@ -1569,8 +1636,7 @@ def cli_phase(clonealign_torch, fl):
             cli_run(["fit", "--counts", d / "matrix.mtx.gz", "--cnv", d / "cnv.csv",
                      "--transpose", "--max-iter", 100, "--seed", 0, "--out", d / "mtx.npz",
                      "--quiet"])
-        mtx_launches = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches,
-                        "gene": fl.gene_launches}
+        mtx_launches = launches_of(fl)
         Y_rows = scipy.sparse.csr_matrix(Y[:n_mtx].astype(np.float64))
         got = clonealign_torch.ClonealignFit.load(str(d / "mtx.npz"))
         want = clonealign_torch.clonealign(Y_rows, cnv, max_iter=100, seed=0, verbose=False,
@@ -1634,6 +1700,166 @@ def cli_phase(clonealign_torch, fl):
             raise AssertionError("cli show lacks its keys, or an import loaded jax")
     log(f"cli phase: {time.perf_counter() - t_phase:.1f} s")
     return turns[3]["launches"], mtx_launches
+
+
+# ---------------------------------------------------------------------------
+# The wide kernel family
+# ---------------------------------------------------------------------------
+
+def wide_covariates(N, seed):
+    """WIDE_P covariate columns made with numpy: a 0/1 batch over halves of
+    the cells, then standard normals."""
+    rng = np.random.default_rng(seed)
+    return np.stack([(np.arange(N) >= N // 2).astype(np.float64)]
+                    + [rng.standard_normal(N) for _ in range(WIDE_P - 1)], axis=1)
+
+
+class NumpyNoise:
+    """A fit's standard normals from one numpy generator, in call order, in
+    the caller's dtype on its device: a fit on the card and one on the CPU
+    that make the same calls draw the same numbers."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def normal(self, what, shape, dtype, device):
+        import torch
+
+        del what
+        return torch.from_numpy(self.rng.standard_normal(tuple(shape))).to(device, dtype)
+
+
+def parity_fit(clonealign_torch, fl):
+    """PARITY's fit on the card (float32, the wide family: Kf = 6, S*C = 72)
+    against the CPU port's in float64 from the same numpy draws, both run
+    for PARITY_MAX_ITER iterations (rel_tol 0, so that they make the same
+    draws): the golden fits' bar, the final ELBO within max(1e-4 |e64|,
+    3 sd_final), and the labels equal wherever the float64 fit's largest
+    probability exceeds 0.99. Returns the card fit's launches."""
+    N, G, C = PARITY["N"], PARITY["G"], PARITY["C"]
+    Y, L, z = synth_counts(41, N, G, C)
+    X = wide_covariates(N, seed=42)
+    kw = dict(x=X, K=PARITY["K"], mc_samples=PARITY["mc_samples"], max_iter=PARITY_MAX_ITER,
+              rel_tol=0.0, verbose=False)
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit = clonealign_torch.clonealign(Y, L, device="cuda", dtype="float32",
+                                      noise=NumpyNoise(43), **kw)
+    t1 = time.perf_counter()
+    launches = launches_of(fl, wide=True)
+    ref = clonealign_torch.clonealign(Y, L, device="cpu", dtype="float64",
+                                      noise=NumpyNoise(43), **kw)
+    t2 = time.perf_counter()
+    n = fit.convergence_info.n_iters
+    e32, e64 = fit.convergence_info.final_elbo, ref.convergence_info.final_elbo
+    tol = max(1e-4 * abs(e64), 3.0 * fit.convergence_info.sd_final_elbo)
+    sure = ref.ml_params["clone_probs"].max(1) > 0.99
+    differ = int(np.sum((np.asarray(fit.clone) != np.asarray(ref.clone)) & sure))
+    log(f"parity fit {N}x{G}x{C} K={PARITY['K']} P={PARITY['P']} "
+        f"mc_samples={PARITY['mc_samples']} (Kf={PARITY['K'] + PARITY['P']}, "
+        f"S*C={PARITY['mc_samples'] * C}): card float32 {t1 - t0:.1f} s, CPU float64 "
+        f"{t2 - t1:.1f} s, {n} iterations; final ELBO {e32:.8g} against {e64:.8g}: |diff| "
+        f"{abs(e32 - e64):.4g}, bar {tol:.4g}; {differ} labels differ where the float64 fit's "
+        f"largest probability exceeds 0.99 ({int(sure.sum())} cells); accuracy "
+        f"{accuracy(fit, z):.4f} (float64 {accuracy(ref, z):.4f}); launches (wide) {launches}")
+    want = {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n}
+    if not abs(e32 - e64) < tol or differ or launches != want:
+        raise AssertionError(f"parity fit: |diff| {abs(e32 - e64)} (bar {tol}), {differ} "
+                             f"labels differ, launches {launches} (expected {want})")
+    return launches
+
+
+def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
+    """The wide kernel family on the card: each kernel against its plain
+    version at every Y storage at WIDE_CHECKS's shapes and at a streaming
+    chunk shape (Y the leading rows of the feeder's buffer), timed at full
+    width for WIDE_FULL beside its bound; the full-width fit with K = 1,
+    P = 4 and mc_samples = 8 through clonealign (y_storage "auto"), the
+    sweep of three restarts as lanes at the same configuration and the
+    parity fit, each of whose launches must all be wide. ``auto_name`` and
+    ``y_itemsize`` name the Y storage "auto" resolves to for the full-width
+    counts. Returns the numbers for the kernels line."""
+    from clonealign_torch import stream
+
+    t_phase = time.perf_counter()
+    log("wide phase: kernels vs plain past the narrow limits (tolerance: KERNEL_RTOL="
+        f"{KERNEL_RTOL:g} of the per-element absolute-term sum)")
+    for storage in STORAGES:
+        for Kf, S, C in WIDE_CHECKS:
+            check_kernels(dict(WIDE_CHECK, C=C), S=S, Kf=Kf, seed=31, reps=1, storage=storage,
+                          a2_timed=False)
+    sizes = sorted({j - i for i, j in stream._chunk_bounds(FULL["N"], stream._resolve_chunk_cells(
+        "auto", FULL["N"], FULL["G"]))})
+    chunk = check_kernels(dict(FULL, N=sizes[0]), S=WIDE_S, Kf=1 + WIDE_P, seed=32, reps=1,
+                          storage=auto_name, buffer_rows=sizes[-1], a2_timed=False)
+    full = {(st, Kf, S): check_kernels(FULL, S=S, Kf=Kf, seed=33, reps=3, storage=st,
+                                       a2_timed=False)
+            for st in WIDE_FULL_STORAGES for Kf, S in WIDE_FULL}
+    for (st, Kf, S), r in full.items():
+        b = r["bounds"]
+        log(f"wide, full width, Y {st}, Kf={Kf} S*C={S * FULL['C']}: fwd_wide_kernel "
+            f"{r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}, bound {b['fwd'][0]:.3f} by "
+            f"{b['fwd'][2]}), dpsi_wide_kernel {r['dpsi_ms']:.3f} ms (plain "
+            f"{r['dpsi_plain_ms']:.3f}, bound {b['dpsi'][0]:.3f} by {b['dpsi'][2]}), "
+            f"gene_wide_kernel + reduce_chunks_kernel {r['gene_ms']:.3f} ms (plain "
+            f"{r['gene_plain_ms']:.3f}, bound {b['gene'][0]:.3f} by {b['gene'][2]}); "
+            f"backward {r['bwd_ms']:.3f} ms (plain {r['bwd_plain_ms']:.3f})")
+
+    Y, L, z = synth_counts(3, FULL["N"], FULL["G"], FULL["C"])
+    X = wide_covariates(FULL["N"], seed=5)
+    fit = full_fit(clonealign_torch, fl, Y, L, z, "auto", x=X, mc_samples=WIDE_S, wide=True,
+                   label=f"wide: auto K=1 P={WIDE_P} mc_samples={WIDE_S}")
+    sweep = run_sweep(clonealign_torch, fl, Y, L, z, "wide", "xla", "vmap", "auto", y_itemsize,
+                      x=X, lanes=WIDE_LANES, mc_samples=WIDE_S, wide=True)
+    if sweep["ran"] != "vmap":
+        raise AssertionError("the wide sweep did not run as lanes")
+    del Y
+    parity = parity_fit(clonealign_torch, fl)
+    log(f"wide phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"full": full, "chunk": chunk, "chunk_rows": (sizes[0], sizes[-1]),
+            "fit": fit, "sweep": sweep, "parity": parity}
+
+
+def wide_kernels(wide, auto_name):
+    """The wide family's entries of the kernels line: the numbers at the
+    wide fit's widths (Kf = 5, S*C = 80) and the storage "auto" resolves to,
+    each full-width configuration's under ``by_config``, the streaming
+    chunk shape's errors, and each wide path's launches. No single PyTorch
+    call computes any of the three functions: library_ms is null."""
+    st = auto_name if auto_name in WIDE_FULL_STORAGES else WIDE_FULL_STORAGES[0]
+    main = wide["full"][(st, 1 + WIDE_P, WIDE_S)]
+    src = "clonealign_torch/ops/csrc/fused_likelihood.cu"
+    fwd_at = "clonealign_tpu/ops/fused_likelihood.py:125 (jnp.dot branches :91, :102, :105)"
+    bwd_at = ("clonealign_tpu/ops/fused_likelihood.py:234 (jnp.dot branches :182, :187, "
+              ":201-202, :211, :213)")
+    paths = ((f"wide fit K=1 P={WIDE_P} mc_samples={WIDE_S} y_storage=auto", wide["fit"]["launches"]),
+             (f"wide sweep, {WIDE_LANES['n_repeats']} restarts, vmap", wide["sweep"]["launches"]),
+             (f"parity fit {PARITY['N']}x{PARITY['G']}x{PARITY['C']} K={PARITY['K']} "
+              f"P={PARITY['P']} mc_samples={PARITY['mc_samples']}", wide["parity"]))
+    out = []
+    for name, part, at, err in (
+            ("fwd_wide_kernel", "fwd", fwd_at, ("A1", "Z", "YW")),
+            ("dpsi_wide_kernel", "dpsi", bwd_at, ("dpsi",)),
+            ("gene_wide_kernel+reduce_chunks_kernel", "gene", bwd_at, ("dW", "dmuL"))):
+        b = main["bounds"][part]
+        out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": at,
+            "launches": wide["fit"]["launches"][part],
+            "max_abs_err": max(main["errs"][e] for e in err),
+            "ms": main[f"{part}_ms"], "plain_ms": main[f"{part}_plain_ms"],
+            "bound_ms": b[0], "bound_by": b[1], "bound_unit": b[2], "library_ms": None,
+            "y_storage": st, "kf": 1 + WIDE_P, "sc": WIDE_S * FULL["C"],
+            "by_config": [{"y_storage": s, "kf": Kf, "sc": S * FULL["C"],
+                           "ms": r[f"{part}_ms"], "plain_ms": r[f"{part}_plain_ms"],
+                           "bound_ms": r["bounds"][part][0], "bound_by": r["bounds"][part][1],
+                           "max_abs_err": max(r["errs"][e] for e in err)}
+                          for (s, Kf, S), r in wide["full"].items()],
+            "stream_shape": {"shape": f"{wide['chunk_rows'][0]}x{FULL['G']} C={FULL['C']}",
+                             "buffer_rows": wide["chunk_rows"][1],
+                             "max_abs_err": max(wide["chunk"]["errs"][e] for e in err)},
+            "paths": [{"path": p, "launches": n[part]} for p, n in paths],
+        })
+    return out
 
 
 def main() -> int:
@@ -1757,7 +1983,7 @@ def main() -> int:
             Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
             likelihood_impl=impl,
         )
-        got = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
+        got = launches_of(fl)
         n = f.convergence_info.n_iters
         iter_ms.setdefault(impl, []).append(1000 * f.timings["loop"] / max(n, 1))
         acc_i = accuracy(f, z)
@@ -1857,6 +2083,10 @@ def main() -> int:
     # an .npz to an .rds, serving from the .rds, a CellRanger .mtx.gz
     cli_launches, cli_mtx_launches = cli_phase(clonealign_torch, fl)
 
+    # 11. the wide kernel family: kernels vs plain, full-width timing, the
+    # wide fit, its sweep as lanes and the parity fit
+    wide = wide_phase(clonealign_torch, fl, auto_name, y_itemsize)
+
     # The backward's parts alone at full width, A2 off, Y stored as "auto"
     # resolves on the main path.
     main_full = full[auto_name]
@@ -1938,6 +2168,7 @@ def main() -> int:
             for r in shapes]
     kernels[0]["paths"] = [{"path": p, "launches": n["fwd"]} for p, n in paths]
     kernels[1]["paths"] = [{"path": p, "launches": min(n["dpsi"], n["gene"])} for p, n in paths]
+    kernels += wide_kernels(wide, auto_name)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ from .fit import ClonealignFit, ConvergenceInfo
 from .infer import run_inference
 from .models import multinomial as mm
 from .models.allele import construct_ai_likelihood, sanitize_allele_info, snv_clone_probs
-from .ops.fused_likelihood import MAX_A2, MAX_KF, MAX_SC
+from .ops.fused_likelihood import WIDE_MAX_A2, WIDE_MAX_KF, WIDE_MAX_SC
 from .utils.chunking import host_row_chunk as _host_row_chunk
 from .utils.device import resolve_device, resolve_dtype, synchronize
 from .utils.noise import Noise
@@ -278,18 +278,19 @@ def _check_reference_keywords(key, loop_impl) -> None:
 
 def _check_kernel_contract(device: torch.device, K: int, mc_samples: int, C: int,
                            P: int = 0) -> None:
-    """On CUDA the likelihood kernels take at most MAX_KF columns of
-    ``[psi, X]`` (K latent factors and P covariates), MAX_A2 Monte Carlo
-    samples and MAX_SC sample x clone columns; refuse wider fits before any
-    data reaches the card. z_cheb fits are held to the same limits: their
-    final ELBO runs the exact kernels."""
+    """On CUDA the likelihood kernels (past the narrow ones' limits, the wide
+    family) take at most WIDE_MAX_KF columns of ``[psi, X]`` (K latent
+    factors and P covariates), WIDE_MAX_A2 Monte Carlo samples and
+    WIDE_MAX_SC sample x clone columns; refuse wider fits before any data
+    reaches the card. z_cheb fits are held to the same limits: their final
+    ELBO runs the exact kernels."""
     if device.type != "cuda":
         return
-    if K + P > MAX_KF or mc_samples > MAX_A2 or mc_samples * C > MAX_SC:
+    if K + P > WIDE_MAX_KF or mc_samples > WIDE_MAX_A2 or mc_samples * C > WIDE_MAX_SC:
         raise _not_ported(
             f"a fit on CUDA with K={K}, P={P} covariates, mc_samples={mc_samples} and "
-            f"{C} clones (the kernels take K + P <= {MAX_KF}, mc_samples <= {MAX_A2} "
-            f"and mc_samples x clones <= {MAX_SC})",
+            f"{C} clones (the kernels take K + P <= {WIDE_MAX_KF}, mc_samples <= "
+            f"{WIDE_MAX_A2} and mc_samples x clones <= {WIDE_MAX_SC})",
             "wide kernel contract",
         )
 

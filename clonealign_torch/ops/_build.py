@@ -103,5 +103,11 @@ def load() -> ctypes.CDLL:
     lib.fl_backward_gene.restype = i
     lib.fl_backward_gene_scratch.argtypes = [i] * 6
     lib.fl_backward_gene_scratch.restype = ctypes.c_size_t
+    lib.fl_forward_wide.argtypes = lib.fl_forward.argtypes
+    lib.fl_forward_wide.restype = i
+    lib.fl_backward_dpsi_wide.argtypes = lib.fl_backward_dpsi.argtypes
+    lib.fl_backward_dpsi_wide.restype = i
+    lib.fl_backward_gene_wide.argtypes = lib.fl_backward_gene.argtypes
+    lib.fl_backward_gene_wide.restype = i
     _lib = lib
     return lib

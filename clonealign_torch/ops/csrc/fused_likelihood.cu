@@ -122,6 +122,37 @@
 //
 // TMA and a lane axis for batched restarts are not used here.
 //
+// The wide family (replaces the jnp.dot branches of _fwd_kernel and
+// _bwd_kernel, clonealign_tpu/ops/fused_likelihood.py:91, :102, :105, :182,
+// :187, :201-202, :211, :213): the kernels above are built for Kf <= 4,
+// nA2 <= 4 and SC <= 32; fwd_wide_kernel, dpsi_wide_kernel and
+// gene_wide_kernel take any Kf <= 64, nA2 <= 64 and SC <= 2048 with the
+// same contract, and the wrapper launches them only past a narrow limit.
+// They are plain tiled products on the CUDA cores in float32 FMAs (no TF32,
+// so no splitting): a block stages a tile of each operand in shared memory
+// and each thread keeps 8 outputs of one row in registers. What bounds them
+// is that arithmetic, 2 N G SC FMAs a product with muL at the FMA rate, and
+// the shared-memory loads beside it (3 loads for 8 FMAs), not Y's bytes.
+//
+//  * fwd_wide_kernel: grid (cell tiles, column groups of JW = 16 or 32).
+//    A Z group forms exp(psi . W_g) for its tile (Kf FMAs an element,
+//    psi^T and W^T of the tile in shared memory) and multiplies it with
+//    muL's JW columns; so the exps are recomputed once a Z group. A Y group
+//    multiplies Y (converted as it is staged) with JW columns of
+//    [W | log mu^T] (Y W and A2), and the first one also sums A1 =
+//    sum_g Y log_rfe. Y is read once a Y group: once, for Kf + nA2 <= 32.
+//  * dpsi_wide_kernel (Y-free): per 64-cell block, for each pass of 32
+//    columns of dZ (kept in shared memory for the pass), drfe = dZ muL^T over
+//    32-gene tiles, then rfe drfe, then its product with W^T for the Kf
+//    columns of dpsi; drfe is linear in dZ's columns, so the passes add, each
+//    recomputing rfe. dA1 YW is added at the end.
+//  * gene_wide_kernel: per (64-gene block, chunk of cells), the same passes
+//    over dZ's columns with 32-cell tiles: drfe and rfe of the tile, then
+//    d(muL) of the pass's columns (rfe^T dZ), dW (dlog_rfe^T psi, dlog_rfe =
+//    rfe drfe plus Y dA1 in the first pass) and in the first pass dlog mu
+//    (dA2^T Y). Each (chunk, block) writes its own partial sums, which
+//    reduce_chunks_kernel adds in a fixed order: deterministic, no atomics.
+//
 // Build: one translation unit holds everything, or ops/_build.py compiles
 // this file as five in parallel and links them: FL_PART = -1 holds the
 // Y-free kernels and the C entry points, FL_PART = YT the Y-reading kernels
@@ -176,11 +207,23 @@ struct GeneArgs {
   cudaStream_t stream;
 };
 
+// The wide gene part's arguments: part holds the partial sums of n_chunks
+// chunks of rows_per_chunk cells.
+struct GeneWideArgs {
+  const void* Y;  // (N, G) in the storage type
+  const float *psi, *W, *muL, *dA1, *dA2, *dZ;
+  float* part;
+  int N, G, Kf, nA2, SC, rows_per_chunk, n_chunks;
+  cudaStream_t stream;
+};
+
 // The Y-reading kernels of one storage type: fwd_kernel, and gene_kernel
 // (between gene_pack_kernel and reduce_chunks_kernel, which fl_backward_gene
-// launches).
+// launches); and the wide family's fwd_wide_kernel and gene_wide_kernel.
 template <int YT> void forward_typed(const FwdArgs& a);
 template <int YT> void gene_typed(const GeneArgs& a);
+template <int YT> void forward_wide_typed(const FwdArgs& a);
+template <int YT> void gene_wide_typed(const GeneWideArgs& a);
 
 }  // namespace fl
 
@@ -205,6 +248,19 @@ constexpr int kCellsPerWarp = kCellTile / kGeneWarps;  // Y rows a warp streams 
 // where ptxas spilled at 128 registers, the bound that keeps two blocks on
 // an SM (KF = 2 at NT = 4, KF = 3 and 4 at NT = 3).
 constexpr int max_live_nt(int KF) { return KF == 1 ? 4 : KF == 2 ? 3 : 2; }
+// The wide family: its bounds (ops/fused_likelihood.py's WIDE_MAX_*) and tiles.
+constexpr int kWideMaxKf = 64, kWideMaxA2 = 64, kWideMaxSC = 2048;
+constexpr int kWideThreads = 256;
+constexpr int kWideOut = 8;     // outputs a thread keeps, along one row of a tile
+constexpr int kWideG = 32;      // genes a forward / dpsi tile
+constexpr int kWideJ = 32;      // dZ and muL columns a backward pass
+constexpr int kDpsiCells = 64;  // cells a dpsi block
+constexpr int kGeneCells = 32;  // cells a gene-part tile
+constexpr int kGeneGenes = 64;  // genes a gene-part block
+// Pairs (output row, column) a thread keeps in the backward's products with
+// psi and W: dpsi's kDpsiCells x Kf, the gene part's kGeneGenes x (Kf + nA2).
+constexpr int kDpsiPairs = kDpsiCells * kWideMaxKf / kWideThreads;
+constexpr int kGenePairs = kGeneGenes * (kWideMaxKf + kWideMaxA2) / kWideThreads;
 
 // ---------------------------------------------------------------------------
 // Tensor-core pieces shared by the forward and dpsi kernels. One warp per 16
@@ -1003,6 +1059,394 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ part,
 
 #endif  // FL_COMMON
 
+// ---------------------------------------------------------------------------
+// The wide family (see the note at the top): float32 FMAs on CUDA cores,
+// runtime Kf, nA2 and SC. Every loop over a register array is unrolled, so
+// the arrays stay in registers; a thread's outputs past the live rows and
+// columns compute on zeros and are not written. Each tile's products are
+// summed in float32 and the tiles' sums in float64: the backward's sums are
+// signed and cancel, and a float32 running sum over 1,024 cells lost more
+// than the tolerance at cancelling elements of dW (one add and one
+// conversion a tile per output, against 32 FMAs).
+// ---------------------------------------------------------------------------
+
+// One count of Y as a float, exactly.
+template <int YT>
+__device__ __forceinline__ float y_to_float(typename YStore<YT>::Elem e) {
+  if constexpr (YT == kYBF16)
+    return __uint_as_float((uint32_t)e << 16);
+  else
+    return (float)e;
+}
+
+// acc[0..8) += a * b[0..8), b a 16-byte-aligned row of 8 floats in shared memory.
+__device__ __forceinline__ void fma8(float (&acc)[kWideOut], float a, const float* b) {
+  const float4 b0 = *reinterpret_cast<const float4*>(b);
+  const float4 b1 = *reinterpret_cast<const float4*>(b + 4);
+  acc[0] = fmaf(a, b0.x, acc[0]);
+  acc[1] = fmaf(a, b0.y, acc[1]);
+  acc[2] = fmaf(a, b0.z, acc[2]);
+  acc[3] = fmaf(a, b0.w, acc[3]);
+  acc[4] = fmaf(a, b1.x, acc[4]);
+  acc[5] = fmaf(a, b1.y, acc[5]);
+  acc[6] = fmaf(a, b1.z, acc[6]);
+  acc[7] = fmaf(a, b1.w, acc[7]);
+}
+
+#if FL_ANY_TYPED
+// Forward, wide. Grid (cell tiles of TN, nZ + nY column groups of JW):
+// blockIdx.y < nZ computes Z's columns [JW y, JW y + JW) from exp(psi W^T);
+// else group y - nZ of the Y products [Y W | Y log mu^T] (Kf + nA2 columns),
+// the first of which also writes A1 = sum_g Y log_rfe. Thread t keeps row
+// t % TN and the 8 columns from 8 (t / TN) of its block's outputs, and stages
+// gene t % 32 of rows t / 32 + 8 i of each tile. Dynamic shared memory: psi^T
+// of the block's cells (Kf x TN), then W^T of the tile (Kf x kWideG).
+template <int YT, int JW>
+__global__ void __launch_bounds__(kWideThreads)
+fwd_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ psi,
+                const float* __restrict__ W, const float* __restrict__ logmu,
+                const float* __restrict__ muL, float* __restrict__ A1,
+                float* __restrict__ A2, float* __restrict__ Z, float* __restrict__ YW,
+                int N, int G, int Kf, int nA2, int SC, int nZ) {
+  constexpr int TN = kWideThreads * kWideOut / JW;    // cells a block
+  constexpr int kRowStep = kWideThreads / kWideG;     // rows between a thread's staged elements
+  constexpr int kStage = TN / kRowStep;               // tile elements a thread stages
+  __shared__ float s_a[TN][kWideG + 1];               // the tile's rfe or Y, cell-major
+  __shared__ __align__(16) float s_b[kWideG][JW];     // the tile's muL or [W | log mu^T] columns
+  extern __shared__ __align__(16) float s_wide[];
+  float* s_psi = s_wide;           // [k][row]
+  float* s_wt = s_wide + Kf * TN;  // [k][gene of the tile]
+
+  const int t = threadIdx.x, lane = t % kWarp, warp = t / kWarp;
+  const int n0 = blockIdx.x * TN;
+  const bool z_part = (int)blockIdx.y < nZ;
+  const int c0 = (z_part ? (int)blockIdx.y : (int)blockIdx.y - nZ) * JW;
+  const bool with_a1 = !z_part && c0 == 0;
+  const bool with_rfe = z_part || with_a1;
+  const int n_cols = z_part ? SC : Kf + nA2;
+  const int r_out = t % TN, j_out = (t / TN) * kWideOut;
+
+  for (int i = t; i < Kf * TN; i += kWideThreads) {
+    const int k = i / TN, n = n0 + i % TN;
+    s_psi[i] = n < N ? psi[(size_t)n * Kf + k] : 0.f;
+  }
+  double acc[kWideOut];
+  float a1[kStage];
+#pragma unroll
+  for (int j = 0; j < kWideOut; ++j) acc[j] = 0.0;
+#pragma unroll
+  for (int i = 0; i < kStage; ++i) a1[i] = 0.f;
+
+#pragma unroll 1
+  for (int gs = 0; gs < G; gs += kWideG) {
+    __syncthreads();  // the previous tile is consumed (and psi^T staged)
+    for (int i = t; i < kWideG * JW; i += kWideThreads) {
+      const int gl = i / JW, c = c0 + i % JW, g = gs + gl;
+      float v = 0.f;
+      if (g < G && c < n_cols)
+        v = z_part ? muL[(size_t)g * SC + c]
+            : c < Kf ? W[(size_t)g * Kf + c] : logmu[(size_t)(c - Kf) * G + g];
+      s_b[gl][i % JW] = v;
+    }
+    if (with_rfe) {
+      for (int i = t; i < Kf * kWideG; i += kWideThreads) {
+        const int g = gs + i % kWideG;
+        s_wt[i] = g < G ? W[(size_t)g * Kf + i / kWideG] : 0.f;
+      }
+    }
+    __syncthreads();
+    // Stage A: rfe (Z groups) or Y (Y groups), with log_rfe where needed.
+    const int g = gs + lane;
+    float lr[kStage];
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) lr[i] = 0.f;
+    if (with_rfe) {
+#pragma unroll 1
+      for (int k = 0; k < Kf; ++k) {
+        const float w = s_wt[k * kWideG + lane];
+#pragma unroll
+        for (int i = 0; i < kStage; ++i)
+          lr[i] = fmaf(s_psi[k * TN + warp + kRowStep * i], w, lr[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      const int r = warp + kRowStep * i, n = n0 + r;
+      float a;
+      if (z_part) {
+        a = g < G ? __expf(lr[i]) : 0.f;
+      } else {
+        a = (n < N && g < G) ? y_to_float<YT>(Y[(size_t)n * G + g]) : 0.f;
+        a1[i] = fmaf(a, lr[i], a1[i]);
+      }
+      s_a[r][lane] = a;
+    }
+    __syncthreads();
+    float tile[kWideOut] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int gl = 0; gl < kWideG; ++gl) fma8(tile, s_a[r_out][gl], &s_b[gl][j_out]);
+#pragma unroll
+    for (int j = 0; j < kWideOut; ++j) acc[j] += tile[j];
+  }
+
+  const int n = n0 + r_out;
+  if (n < N) {
+#pragma unroll
+    for (int j = 0; j < kWideOut; ++j) {
+      const int c = c0 + j_out + j;
+      if (z_part) {
+        if (c < SC) Z[(size_t)n * SC + c] = (float)acc[j];
+      } else if (c < Kf) {
+        YW[(size_t)n * Kf + c] = (float)acc[j];
+      } else if (c < Kf + nA2) {
+        A2[(size_t)n * nA2 + c - Kf] = (float)acc[j];
+      }
+    }
+  }
+  if (with_a1) {  // the 32 lanes of a warp hold one row's sums over disjoint genes
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      float v = a1[i];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      const int nr = n0 + warp + kRowStep * i;
+      if (lane == 0 && nr < N) A1[nr] = v;
+    }
+  }
+}
+#endif  // FL_ANY_TYPED
+
+#if FL_COMMON
+// Backward, wide, Y-free: dpsi[n,k] = dA1[n] YW[n,k] + sum_g rfe[n,g]
+// drfe[n,g] W[g,k], drfe = dZ muL^T, in passes over kWideJ columns of dZ.
+// Thread t computes drfe and rfe at row t % 64, genes 8 (t / 64) .. + 8 of a
+// tile, and keeps the dpsi pairs p = t + 256 i (row p % 64, column p / 64).
+// Dynamic shared memory: psi^T of the block's cells (Kf x kDpsiCells), then
+// W^T of the tile (Kf x kWideG).
+__global__ void __launch_bounds__(kWideThreads)
+dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ W,
+                 const float* __restrict__ muL, const float* __restrict__ dA1,
+                 const float* __restrict__ dZ, const float* __restrict__ YW,
+                 float* __restrict__ dpsi, int N, int G, int Kf, int SC) {
+  __shared__ float s_dz[kDpsiCells][kWideJ + 1];              // the pass's dZ, cell-major
+  __shared__ __align__(16) float s_mt[kWideJ][kWideG + 4];    // the tile's muL^T
+  __shared__ float s_t[kDpsiCells][kWideG + 1];               // rfe drfe of the tile
+  extern __shared__ __align__(16) float s_wide[];
+  float* s_psi = s_wide;                   // [k][row]
+  float* s_wt = s_wide + Kf * kDpsiCells;  // [k][gene of the tile]
+
+  const int t = threadIdx.x;
+  const int n0 = blockIdx.x * kDpsiCells;
+  const int r = t % kDpsiCells, g_out = (t / kDpsiCells) * kWideOut;
+  const int n_pairs = kDpsiCells * Kf;
+
+  for (int i = t; i < Kf * kDpsiCells; i += kWideThreads) {
+    const int n = n0 + i % kDpsiCells;
+    s_psi[i] = n < N ? psi[(size_t)n * Kf + i / kDpsiCells] : 0.f;
+  }
+  double acc[kDpsiPairs];
+#pragma unroll
+  for (int i = 0; i < kDpsiPairs; ++i) acc[i] = 0.0;
+
+#pragma unroll 1
+  for (int c0 = 0; c0 < SC; c0 += kWideJ) {
+    __syncthreads();  // the previous pass is done with s_dz
+    for (int i = t; i < kDpsiCells * kWideJ; i += kWideThreads) {
+      const int rr = i / kWideJ, j = i % kWideJ, n = n0 + rr, c = c0 + j;
+      s_dz[rr][j] = (n < N && c < SC) ? dZ[(size_t)n * SC + c] : 0.f;
+    }
+#pragma unroll 1
+    for (int gs = 0; gs < G; gs += kWideG) {
+      __syncthreads();  // the previous tile is consumed
+      for (int i = t; i < kWideJ * kWideG; i += kWideThreads) {
+        // 8 columns of 4 genes a warp: 32-byte pieces of muL's rows, and
+        // no two lanes on one shared-memory bank
+        const int j = (i >> 8) * 8 + (i & 7), gl = (i >> 3) & 31, g = gs + gl, c = c0 + j;
+        s_mt[j][gl] = (g < G && c < SC) ? muL[(size_t)g * SC + c] : 0.f;
+      }
+      for (int i = t; i < Kf * kWideG; i += kWideThreads) {
+        const int g = gs + i % kWideG;
+        s_wt[i] = g < G ? W[(size_t)g * Kf + i / kWideG] : 0.f;
+      }
+      __syncthreads();
+      float d[kWideOut], lr[kWideOut];
+#pragma unroll
+      for (int e = 0; e < kWideOut; ++e) d[e] = lr[e] = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < kWideJ; ++j) fma8(d, s_dz[r][j], &s_mt[j][g_out]);
+#pragma unroll 1
+      for (int k = 0; k < Kf; ++k) fma8(lr, s_psi[k * kDpsiCells + r], &s_wt[k * kWideG + g_out]);
+      // past G, muL and W are zero: drfe = 0
+#pragma unroll
+      for (int e = 0; e < kWideOut; ++e) s_t[r][g_out + e] = __expf(lr[e]) * d[e];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kDpsiPairs; ++i) {
+        const int p = t + kWideThreads * i;
+        if (p >= n_pairs) break;
+        const int rr = p % kDpsiCells, k = p / kDpsiCells;
+        float v = 0.f;
+#pragma unroll 8
+        for (int gl = 0; gl < kWideG; ++gl) v = fmaf(s_t[rr][gl], s_wt[k * kWideG + gl], v);
+        acc[i] += v;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kDpsiPairs; ++i) {
+    const int p = t + kWideThreads * i;
+    if (p >= n_pairs) break;
+    const int n = n0 + p % kDpsiCells, k = p / kDpsiCells;
+    if (n < N) dpsi[(size_t)n * Kf + k] = (float)fma((double)dA1[n], (double)YW[(size_t)n * Kf + k], acc[i]);
+  }
+}
+#endif  // FL_COMMON
+
+#if FL_ANY_TYPED
+// Backward, wide, gene part: part[chunk, f, g] for f in [dW^T (Kf rows) |
+// d(muL)^T (SC rows) | dlog_mu (nA2 rows)] over one chunk of cells, in
+// passes over kWideJ columns of dZ and muL, with 32-cell tiles:
+//   drfe = dZ muL^T and rfe = exp(psi W^T) at cell t % 32, genes 8 (t / 32) .. + 8;
+//   d(muL)[g, pass's columns] += rfe^T dZ, at gene t % 64, columns 8 (t / 64) .. + 8;
+//   dW[g,k] += sum_n dlog_rfe[n,g] psi[n,k], dlog_rfe = rfe drfe (+ Y dA1 in
+//   the first pass), and dlog_mu[s,g] += sum_n dA2[n,s] Y[n,g] in the first
+//   pass: pairs p = t + 256 i, gene p % 64, column p / 64 (dW's Kf, then
+//   dlog mu's nA2).
+// Dynamic shared memory: W^T of the block's genes (Kf x kGeneGenes), then
+// the tile's psi^T (Kf x 33), dA2^T (nA2 x 33) and dA1 (kGeneCells).
+template <int YT>
+__global__ void __launch_bounds__(kWideThreads)
+gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ psi,
+                 const float* __restrict__ W, const float* __restrict__ muL,
+                 const float* __restrict__ dA1, const float* __restrict__ dA2,
+                 const float* __restrict__ dZ, float* __restrict__ part, int N, int G,
+                 int Kf, int nA2, int SC, int rows_per_chunk) {
+  constexpr int kCS = kGeneCells + 1;  // row stride of the tile's cell vectors
+  __shared__ __align__(16) float s_mt[kWideJ][kGeneGenes + 4];  // the pass's muL^T
+  __shared__ float s_dz[kGeneCells][kWideJ + 1];                // the tile's dZ, for drfe
+  __shared__ __align__(16) float s_dz4[kGeneCells][kWideJ];     // the same, for d(muL)
+  __shared__ float s_r[kGeneCells][kGeneGenes + 1];             // rfe
+  __shared__ float s_t[kGeneCells][kGeneGenes + 1];             // dlog_rfe (this pass's part)
+  __shared__ float s_y[kGeneCells][kGeneGenes + 1];             // Y
+  extern __shared__ __align__(16) float s_wide[];
+  float* s_w = s_wide;                      // [k][gene of the block]
+  float* s_psi = s_w + Kf * kGeneGenes;     // [k][cell of the tile]
+  float* s_da2 = s_psi + Kf * kCS;          // [s][cell of the tile]
+  float* s_da1 = s_da2 + nA2 * kCS;         // [cell of the tile]
+
+  const int t = threadIdx.x, lane = t % kWarp, warp = t / kWarp;
+  const int gb = blockIdx.x * kGeneGenes;
+  const int chunk = blockIdx.y;
+  const int n_begin = chunk * rows_per_chunk;
+  const int n_end = min(N, n_begin + rows_per_chunk);
+  const int F = Kf + SC + nA2;
+  const int g_out = warp * kWideOut;                                    // drfe, rfe
+  const int gm = t % kGeneGenes, j_out = (t / kGeneGenes) * kWideOut;  // d(muL)
+
+  for (int i = t; i < Kf * kGeneGenes; i += kWideThreads) {
+    const int g = gb + i % kGeneGenes;
+    s_w[i] = g < G ? W[(size_t)g * Kf + i / kGeneGenes] : 0.f;
+  }
+  double acc[kGenePairs];
+#pragma unroll
+  for (int i = 0; i < kGenePairs; ++i) acc[i] = 0.0;
+
+#pragma unroll 1
+  for (int c0 = 0; c0 < SC; c0 += kWideJ) {
+    const bool first = c0 == 0;
+    __syncthreads();  // the previous pass is done with s_mt
+    for (int i = t; i < kWideJ * kGeneGenes; i += kWideThreads) {
+      // 8 columns of 4 genes a warp, as in dpsi_wide_kernel
+      const int j = (i >> 9) * 8 + (i & 7), gl = (i >> 3) & 63, g = gb + gl, c = c0 + j;
+      s_mt[j][gl] = (g < G && c < SC) ? muL[(size_t)g * SC + c] : 0.f;
+    }
+    double dm[kWideOut];
+#pragma unroll
+    for (int e = 0; e < kWideOut; ++e) dm[e] = 0.0;
+    const int n_pairs = kGeneGenes * (Kf + (first ? nA2 : 0));
+
+#pragma unroll 1
+    for (int ns = n_begin; ns < n_end; ns += kGeneCells) {
+      __syncthreads();  // the previous tile is consumed
+      for (int i = t; i < kGeneCells * kWideJ; i += kWideThreads) {
+        const int r = i / kWideJ, j = i % kWideJ, n = ns + r, c = c0 + j;
+        const float v = (n < n_end && c < SC) ? dZ[(size_t)n * SC + c] : 0.f;
+        s_dz[r][j] = v;
+        s_dz4[r][j] = v;
+      }
+      for (int i = t; i < Kf * kGeneCells; i += kWideThreads) {
+        const int k = i / kGeneCells, r = i % kGeneCells, n = ns + r;
+        s_psi[k * kCS + r] = n < n_end ? psi[(size_t)n * Kf + k] : 0.f;
+      }
+      if (first) {
+        for (int i = t; i < kGeneCells * kGeneGenes; i += kWideThreads) {
+          const int r = i / kGeneGenes, gl = i % kGeneGenes, n = ns + r, g = gb + gl;
+          s_y[r][gl] = (n < n_end && g < G) ? y_to_float<YT>(Y[(size_t)n * G + g]) : 0.f;
+        }
+        for (int i = t; i < nA2 * kGeneCells; i += kWideThreads) {
+          const int s = i / kGeneCells, r = i % kGeneCells, n = ns + r;
+          s_da2[s * kCS + r] = n < n_end ? dA2[(size_t)n * nA2 + s] : 0.f;
+        }
+        if (t < kGeneCells) s_da1[t] = ns + t < n_end ? dA1[ns + t] : 0.f;
+      }
+      __syncthreads();
+      // drfe and rfe; cells past the chunk have dZ = psi = dA1 = Y = 0, so
+      // they add nothing below
+      float d[kWideOut], lr[kWideOut];
+#pragma unroll
+      for (int e = 0; e < kWideOut; ++e) d[e] = lr[e] = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < kWideJ; ++j) fma8(d, s_dz[lane][j], &s_mt[j][g_out]);
+#pragma unroll 1
+      for (int k = 0; k < Kf; ++k) fma8(lr, s_psi[k * kCS + lane], &s_w[k * kGeneGenes + g_out]);
+#pragma unroll
+      for (int e = 0; e < kWideOut; ++e) {
+        const float rfe = __expf(lr[e]);
+        float v = rfe * d[e];
+        if (first) v = fmaf(s_y[lane][g_out + e], s_da1[lane], v);
+        s_r[lane][g_out + e] = rfe;
+        s_t[lane][g_out + e] = v;
+      }
+      __syncthreads();
+      float tile[kWideOut] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int r = 0; r < kGeneCells; ++r) fma8(tile, s_r[r][gm], &s_dz4[r][j_out]);
+#pragma unroll
+      for (int e = 0; e < kWideOut; ++e) dm[e] += tile[e];
+#pragma unroll
+      for (int i = 0; i < kGenePairs; ++i) {
+        const int p = t + kWideThreads * i;
+        if (p >= n_pairs) break;
+        const int gl = p % kGeneGenes, c = p / kGeneGenes;
+        float v = 0.f;
+        if (c < Kf) {
+#pragma unroll 8
+          for (int r = 0; r < kGeneCells; ++r) v = fmaf(s_t[r][gl], s_psi[c * kCS + r], v);
+        } else {
+#pragma unroll 8
+          for (int r = 0; r < kGeneCells; ++r) v = fmaf(s_y[r][gl], s_da2[(c - Kf) * kCS + r], v);
+        }
+        acc[i] += v;
+      }
+    }
+    const int g = gb + gm;
+#pragma unroll
+    for (int e = 0; e < kWideOut; ++e) {
+      const int c = c0 + j_out + e;
+      if (g < G && c < SC) part[((size_t)chunk * F + Kf + c) * G + g] = (float)dm[e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kGenePairs; ++i) {
+    const int p = t + kWideThreads * i;
+    if (p >= kGeneGenes * (Kf + nA2)) break;
+    const int g = gb + p % kGeneGenes, c = p / kGeneGenes;
+    // dW^T rows, then dlog mu's after d(muL)'s
+    if (g < G) part[((size_t)chunk * F + (c < Kf ? c : SC + c)) * G + g] = (float)acc[i];
+  }
+}
+#endif  // FL_ANY_TYPED
+
 inline int blocks_for(long long threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
 }
@@ -1080,7 +1524,22 @@ bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk, int y_
   return N < 1 || G < 1 || Kf < 0 || Kf > kMaxKf || nA2 < 0 || nA2 > kMaxA2 ||
          SC < 1 || SC > 32 || rows_per_chunk < 1 || y_type < kYF32 || y_type > kYI8;
 }
+
+// The wide family's sizes; rows_per_chunk (the gene part's) a whole number
+// of 32-cell tiles.
+bool bad_wide_sizes(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk, int y_type) {
+  return N < 1 || G < 1 || Kf < 0 || Kf > kWideMaxKf || nA2 < 0 || nA2 > kWideMaxA2 ||
+         SC < 1 || SC > kWideMaxSC || rows_per_chunk < 1 || rows_per_chunk % kGeneCells ||
+         y_type < kYF32 || y_type > kYI8;
+}
 #endif  // FL_COMMON
+
+// Shared memory the wide kernels take beyond their static arrays.
+inline int fwd_wide_smem(int Kf, int TN) { return Kf * (TN + kWideG) * (int)sizeof(float); }
+inline int dpsi_wide_smem(int Kf) { return Kf * (kDpsiCells + kWideG) * (int)sizeof(float); }
+inline int gene_wide_smem(int Kf, int nA2) {
+  return (Kf * kGeneGenes + (Kf + nA2) * (kGeneCells + 1) + kGeneCells) * (int)sizeof(float);
+}
 
 #if FL_ANY_TYPED
 template <int YT, int KF, int NT>
@@ -1151,23 +1610,66 @@ void gene_typed(const GeneArgs& a) {
         a.plan.n_pad, vec);
   });
 }
+
+// The wide forward's column groups are JW = 16 or 32 wide: 16 when Z's SC
+// columns and the Y products' Kf + nA2 fit in 16, else 32 (a narrower group
+// has more cells a block, the same 8 outputs a thread).
+template <int YT>
+void forward_wide_typed(const FwdArgs& a) {
+  using Elem = typename YStore<YT>::Elem;
+  const Elem* Y = static_cast<const Elem*>(a.Y);
+  auto launch = [&](auto jw) {
+    constexpr int JW = decltype(jw)::value, TN = kWideThreads * kWideOut / JW;
+    const int nZ = (a.SC + JW - 1) / JW;
+    const int nY = a.Kf + a.nA2 > JW ? (a.Kf + a.nA2 + JW - 1) / JW : 1;  // A1 takes one
+    const dim3 grid(blocks_for(a.N, TN), nZ + nY);
+    const int smem = fwd_wide_smem(a.Kf, TN);
+    cudaFuncSetAttribute(fwd_wide_kernel<YT, JW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    fwd_wide_kernel<YT, JW><<<grid, kWideThreads, smem, a.stream>>>(
+        Y, a.psi, a.W, a.logmu, a.muL, a.A1, a.A2, a.Z, a.YW, a.N, a.G, a.Kf, a.nA2, a.SC, nZ);
+  };
+  if (a.SC <= 16 && a.Kf + a.nA2 <= 16)
+    launch(std::integral_constant<int, 16>{});
+  else
+    launch(std::integral_constant<int, 32>{});
+}
+
+template <int YT>
+void gene_wide_typed(const GeneWideArgs& a) {
+  using Elem = typename YStore<YT>::Elem;
+  const dim3 grid(blocks_for(a.G, kGeneGenes), a.n_chunks);
+  const int smem = gene_wide_smem(a.Kf, a.nA2);
+  cudaFuncSetAttribute(gene_wide_kernel<YT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  gene_wide_kernel<YT><<<grid, kWideThreads, smem, a.stream>>>(
+      static_cast<const Elem*>(a.Y), a.psi, a.W, a.muL, a.dA1, a.dA2, a.dZ, a.part, a.N, a.G,
+      a.Kf, a.nA2, a.SC, a.rows_per_chunk);
+}
 #endif  // FL_ANY_TYPED
 
 #if FL_TYPED(0)
 template void forward_typed<kYF32>(const FwdArgs&);
 template void gene_typed<kYF32>(const GeneArgs&);
+template void forward_wide_typed<kYF32>(const FwdArgs&);
+template void gene_wide_typed<kYF32>(const GeneWideArgs&);
 #endif
 #if FL_TYPED(1)
 template void forward_typed<kYBF16>(const FwdArgs&);
 template void gene_typed<kYBF16>(const GeneArgs&);
+template void forward_wide_typed<kYBF16>(const FwdArgs&);
+template void gene_wide_typed<kYBF16>(const GeneWideArgs&);
 #endif
 #if FL_TYPED(2)
 template void forward_typed<kYI16>(const FwdArgs&);
 template void gene_typed<kYI16>(const GeneArgs&);
+template void forward_wide_typed<kYI16>(const FwdArgs&);
+template void gene_wide_typed<kYI16>(const GeneWideArgs&);
 #endif
 #if FL_TYPED(3)
 template void forward_typed<kYI8>(const FwdArgs&);
 template void gene_typed<kYI8>(const GeneArgs&);
+template void forward_wide_typed<kYI8>(const FwdArgs&);
+template void gene_wide_typed<kYI8>(const GeneWideArgs&);
 #endif
 
 }  // namespace fl
@@ -1252,6 +1754,59 @@ int fl_backward_gene(const void* Y, const float* psi, const float* W,
   }
   const int FG = (Kf + SC + nA2) * G;
   reduce_chunks_kernel<<<blocks_for(FG, 256), 256, 0, stream>>>(part, dgene, p.n_chunks, FG);
+  return (int)cudaGetLastError();
+}
+
+// The wide family: the same arguments and outputs as fl_forward,
+// fl_backward_dpsi and fl_backward_gene, for Kf <= 64, nA2 <= 64 and SC <=
+// 2048; fl_backward_gene_wide's scratch holds the (Kf+SC+nA2, G) partial sums
+// of each chunk of rows_per_chunk cells (a multiple of 32).
+int fl_forward_wide(const void* Y, const float* psi, const float* W,
+                    const float* logmu, const float* muL, float* A1, float* A2,
+                    float* Z, float* YW, int N, int G, int Kf, int nA2, int SC,
+                    int y_type, cudaStream_t stream) {
+  if (bad_wide_sizes(N, G, Kf, nA2, SC, kGeneCells, y_type)) return (int)cudaErrorInvalidValue;
+  const FwdArgs a{Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, stream};
+  switch (y_type) {
+    case kYF32: forward_wide_typed<kYF32>(a); break;
+    case kYBF16: forward_wide_typed<kYBF16>(a); break;
+    case kYI16: forward_wide_typed<kYI16>(a); break;
+    default: forward_wide_typed<kYI8>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+int fl_backward_dpsi_wide(const float* psi, const float* W, const float* muL,
+                          const float* dA1, const float* dZ, const float* YW,
+                          float* dpsi, int N, int G, int Kf, int SC,
+                          cudaStream_t stream) {
+  if (bad_wide_sizes(N, G, Kf, 0, SC, kGeneCells, kYF32)) return (int)cudaErrorInvalidValue;
+  if (Kf == 0) return (int)cudaSuccess;
+  const int smem = dpsi_wide_smem(Kf);
+  cudaFuncSetAttribute(dpsi_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  dpsi_wide_kernel<<<blocks_for(N, kDpsiCells), kWideThreads, smem, stream>>>(
+      psi, W, muL, dA1, dZ, YW, dpsi, N, G, Kf, SC);
+  return (int)cudaGetLastError();
+}
+
+int fl_backward_gene_wide(const void* Y, const float* psi, const float* W,
+                          const float* muL, const float* dA1, const float* dA2,
+                          const float* dZ, float* scratch, float* dgene, int N, int G,
+                          int Kf, int nA2, int SC, int rows_per_chunk, int y_type,
+                          cudaStream_t stream) {
+  if (bad_wide_sizes(N, G, Kf, nA2, SC, rows_per_chunk, y_type))
+    return (int)cudaErrorInvalidValue;
+  const int n_chunks = (N + rows_per_chunk - 1) / rows_per_chunk;
+  const GeneWideArgs a{Y, psi, W, muL, dA1, dA2, dZ, scratch,
+                       N, G, Kf, nA2, SC, rows_per_chunk, n_chunks, stream};
+  switch (y_type) {
+    case kYF32: gene_wide_typed<kYF32>(a); break;
+    case kYBF16: gene_wide_typed<kYBF16>(a); break;
+    case kYI16: gene_wide_typed<kYI16>(a); break;
+    default: gene_wide_typed<kYI8>(a);
+  }
+  const int FG = (Kf + SC + nA2) * G;
+  reduce_chunks_kernel<<<blocks_for(FG, 256), 256, 0, stream>>>(scratch, dgene, n_chunks, FG);
   return (int)cudaGetLastError();
 }
 

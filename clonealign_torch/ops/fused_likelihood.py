@@ -19,6 +19,14 @@ Y once, in the gene-major kernel for dW, d(muL) and dlog mu
 plain versions of the whole contract, which need no YW. There is no fallback
 between the two: a CUDA tensor the kernels do not take raises.
 
+The kernels above are built for at most ``MAX_KF`` columns of ``[psi, X]``,
+``MAX_A2`` A2 columns and ``MAX_SC`` Z columns. Past any of those limits
+(:func:`wide_route`) each wrapper launches the wide family instead, plain
+tiled float32 products on the CUDA cores with runtime widths up to
+``WIDE_MAX_KF``, ``WIDE_MAX_A2`` and ``WIDE_MAX_SC`` (the counterparts of the
+Pallas kernels' ``jnp.dot`` branches), counted apart in ``*_wide_launches``.
+The plain versions take any width and are the wide family's too.
+
 Y may be stored narrow (``Y_DTYPES``: float32, bfloat16, int16 or int8;
 ``api.py``'s ``y_storage``). The kernels load it in that type and convert it
 in registers; the plain versions convert it to the compute dtype (the other
@@ -35,24 +43,44 @@ from typing import Optional
 
 import torch
 
-MAX_KF = 4   # psi_ext columns the kernels take
-MAX_A2 = 4   # A2 columns (Monte Carlo samples) the kernels take
-MAX_SC = 32  # Z columns (samples x clones) the kernels take
+MAX_KF = 4   # psi_ext columns the narrow kernels take
+MAX_A2 = 4   # A2 columns (Monte Carlo samples) the narrow kernels take
+MAX_SC = 32  # Z columns (samples x clones) the narrow kernels take
+# ... and the wide family (fwd_wide_kernel, dpsi_wide_kernel,
+# gene_wide_kernel), which takes the widths past any narrow limit
+WIDE_MAX_KF = 64
+WIDE_MAX_A2 = 64
+WIDE_MAX_SC = 2048
 _ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
 # Y storage types the kernels load, with the code the C entry points take
 Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
 
-# Kernel launches, each counted by the wrapper that launches the kernel.
+# Kernel launches, each counted by the wrapper that launches the kernel:
+# the narrow kernels' and the wide family's apart.
 fwd_launches = 0
 dpsi_launches = 0
 gene_launches = 0  # the gene-major backward kernel with its packing and chunk reduction
+fwd_wide_launches = 0
+dpsi_wide_launches = 0
+gene_wide_launches = 0  # the wide gene-part kernel with its chunk reduction
 
 
 def reset_launch_counts() -> None:
     global fwd_launches, dpsi_launches, gene_launches
+    global fwd_wide_launches, dpsi_wide_launches, gene_wide_launches
     fwd_launches = 0
     dpsi_launches = 0
     gene_launches = 0
+    fwd_wide_launches = 0
+    dpsi_wide_launches = 0
+    gene_wide_launches = 0
+
+
+def wide_route(Kf: int, n_a2: int, SC: int) -> bool:
+    """Whether a call with Kf columns of ``[psi, X]``, n_a2 A2 columns (0
+    without A2; the dpsi kernel has none) and SC sample x clone columns goes
+    to the wide family: exactly when a width is past a narrow limit."""
+    return Kf > MAX_KF or n_a2 > MAX_A2 or SC > MAX_SC
 
 
 # ---------------------------------------------------------------------------
@@ -75,8 +103,9 @@ def reference_likelihood_vjp(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     ``rfe = exp(psi_ext W_ext^T)``, ``drfe = dZ muL^T`` and
     ``dlog_rfe = Y dA1 + rfe drfe``, returns ``dpsi = dlog_rfe W_ext``,
     ``dW = dlog_rfe^T psi_ext``, ``dlog_mu = dA2^T Y`` (None when ``dA2`` is
-    None) and ``dmuL = rfe^T dZ``. The gene-major CUDA kernel computes dW
-    in another association (:func:`reference_gene`)."""
+    None) and ``dmuL = rfe^T dZ``. The narrow gene-major CUDA kernel
+    computes dW in another association (:func:`reference_gene`); the wide
+    gene kernel in this one."""
     Y = Y.to(psi_ext.dtype)
     rfe = torch.exp(psi_ext @ W_ext.T)
     dlog_rfe = Y * dA1[:, None] + rfe * (dZ @ muL.T)
@@ -143,12 +172,24 @@ def _check(name, t, shape, dtypes=(torch.float32,)):
 def _check_sizes(N, G, Kf, SC, n_a2):
     if N < 1 or G < 1:
         raise ValueError(f"the CUDA kernels need N, G >= 1, got N={N}, G={G}")
-    if Kf > MAX_KF or n_a2 > MAX_A2 or not 1 <= SC <= MAX_SC:
+    if Kf > WIDE_MAX_KF or n_a2 > WIDE_MAX_A2 or not 1 <= SC <= WIDE_MAX_SC:
         raise ValueError(
-            f"the CUDA kernels take at most {MAX_KF} latent columns, {MAX_A2} "
-            f"samples and {MAX_SC} sample x clone columns; got Kf={Kf}, "
-            f"S={n_a2}, S*C={SC}"
+            f"the CUDA kernels (the wide family past {MAX_KF}, {MAX_A2} and {MAX_SC}) "
+            f"take at most {WIDE_MAX_KF} latent columns, {WIDE_MAX_A2} samples and "
+            f"{WIDE_MAX_SC} sample x clone columns; got Kf={Kf}, S={n_a2}, S*C={SC}"
         )
+
+
+def _chunk_rows(N: int) -> int:
+    """Cells a partial sum of the gene-major backward takes: grid.y is at
+    most 65535 chunks, and a chunk is a whole number of 64-cell tiles."""
+    return -(-max(_ROWS_PER_CHUNK, -(-N // 65535)) // 64) * 64
+
+
+def gene_wide_workspace(N: int, G: int, Kf: int, n_a2: int, SC: int) -> int:
+    """Floats the wide gene part allocates in a call: a (Kf + SC + n_a2, G)
+    partial sum for each chunk of :func:`_chunk_rows` cells, and their sum."""
+    return (-(-N // _chunk_rows(N)) + 1) * (Kf + SC + n_a2) * G
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -161,9 +202,10 @@ def _raise_on(err: int, what: str):
 
 
 def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
-    """Launch the forward kernel. Returns (A1, A2 or None, Z, YW), with
+    """Launch the forward kernel, or the wide one past a narrow limit
+    (:func:`wide_route`). Returns (A1, A2 or None, Z, YW), with
     ``YW = Y @ W_ext`` (N, Kf) for the backward's dpsi kernel."""
-    global fwd_launches
+    global fwd_launches, fwd_wide_launches
     from . import _build
 
     n_a2 = 0 if log_mu is None else log_mu.shape[0]
@@ -181,21 +223,26 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     Z = torch.empty(N, SC, device=Y.device, dtype=torch.float32)
     YW = torch.empty(N, Kf, device=Y.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(Y.device).cuda_stream
-    err = lib.fl_forward(
+    wide = wide_route(Kf, n_a2, SC)
+    err = (lib.fl_forward_wide if wide else lib.fl_forward)(
         _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(log_mu), _ptr(muL),
         _ptr(A1), _ptr(A2), _ptr(Z), _ptr(YW), N, G, Kf, n_a2, SC, Y_DTYPES[Y.dtype],
         ctypes.c_void_p(stream),
     )
-    _raise_on(err, "fused likelihood forward")
-    fwd_launches += 1
+    _raise_on(err, f"fused likelihood forward{' (wide)' if wide else ''}")
+    if wide:
+        fwd_wide_launches += 1
+    else:
+        fwd_launches += 1
     return A1, A2, Z, YW
 
 
 def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
     """Launch the Y-free dpsi kernel (the first part of
-    :func:`kernel_backward`); ``YW`` is :func:`kernel_forward`'s. Returns
-    dpsi (N, Kf). With Kf = 0 there is nothing to compute or launch."""
-    global dpsi_launches
+    :func:`kernel_backward`), or the wide one past a narrow limit; ``YW`` is
+    :func:`kernel_forward`'s. Returns dpsi (N, Kf). With Kf = 0 there is
+    nothing to compute or launch."""
+    global dpsi_launches, dpsi_wide_launches
     from . import _build
 
     (N, Kf), G, SC = psi_ext.shape, W_ext.shape[0], muL.shape[1]
@@ -211,21 +258,27 @@ def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
         return dpsi
     lib = _build.load()
     stream = torch.cuda.current_stream(psi_ext.device).cuda_stream
-    err = lib.fl_backward_dpsi(
+    wide = wide_route(Kf, 0, SC)
+    err = (lib.fl_backward_dpsi_wide if wide else lib.fl_backward_dpsi)(
         _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dZ), _ptr(YW),
         _ptr(dpsi), N, G, Kf, SC, ctypes.c_void_p(stream),
     )
-    _raise_on(err, "fused likelihood backward (dpsi)")
-    dpsi_launches += 1
+    _raise_on(err, f"fused likelihood backward (dpsi{', wide' if wide else ''})")
+    if wide:
+        dpsi_wide_launches += 1
+    else:
+        dpsi_launches += 1
     return dpsi
 
 
 def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     """Launch the gene-major backward kernel with its packing of the cell
     operands and its chunk reduction (the second part of
-    :func:`kernel_backward`; :func:`reference_gene` is its plain version).
+    :func:`kernel_backward`; :func:`reference_gene` is its plain version),
+    or past a narrow limit the wide gene kernel with its chunk reduction
+    (whose plain version is :func:`reference_likelihood_vjp`'s).
     Returns (dW, dlog_mu or None, dmuL)."""
-    global gene_launches
+    global gene_launches, gene_wide_launches
     from . import _build
 
     n_a2 = 0 if dA2 is None else dA2.shape[1]
@@ -240,20 +293,24 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     if dA2 is not None:
         _check("dA2", dA2, (N, n_a2))
     lib = _build.load()
-    # grid.y is at most 65535 chunks; a chunk is a whole number of 64-cell tiles
-    rows = -(-max(_ROWS_PER_CHUNK, -(-N // 65535)) // 64) * 64
+    rows = _chunk_rows(N)
     F = Kf + SC + n_a2
-    scratch = torch.empty(lib.fl_backward_gene_scratch(N, G, Kf, n_a2, SC, rows),
-                          device=Y.device, dtype=torch.float32)
+    wide = wide_route(Kf, n_a2, SC)
+    size = (gene_wide_workspace(N, G, Kf, n_a2, SC) - F * G if wide
+            else lib.fl_backward_gene_scratch(N, G, Kf, n_a2, SC, rows))
+    scratch = torch.empty(size, device=Y.device, dtype=torch.float32)
     dgene = torch.empty(F, G, device=Y.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(Y.device).cuda_stream
-    err = lib.fl_backward_gene(
+    err = (lib.fl_backward_gene_wide if wide else lib.fl_backward_gene)(
         _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2),
         _ptr(dZ), _ptr(scratch), _ptr(dgene), N, G, Kf, n_a2, SC, rows, Y_DTYPES[Y.dtype],
         ctypes.c_void_p(stream),
     )
-    _raise_on(err, "fused likelihood backward (gene)")
-    gene_launches += 1
+    _raise_on(err, f"fused likelihood backward (gene{', wide' if wide else ''})")
+    if wide:
+        gene_wide_launches += 1
+    else:
+        gene_launches += 1
     dW = dgene[:Kf].T
     dmuL = dgene[Kf:Kf + SC].T
     dlog_mu = None if dA2 is None else dgene[Kf + SC:]

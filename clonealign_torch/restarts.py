@@ -22,6 +22,7 @@ from . import assign as _assign
 from .api import _check_reference_keywords, _not_ported, _package_fit, setup_fit
 from .infer import lane_result, run_inference, run_inference_lanes, stack_lanes
 from .models import multinomial as mm
+from .ops import fused_likelihood as fl
 from .utils.device import synchronize
 from .utils.noise import Noise
 
@@ -59,6 +60,12 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     concatenations [psi, X] and [W, beta] it saves ((N + G)(K + P)). A
     z_cheb lane holds the same order: its Clenshaw backward recomputes the
     carries ((S, C, N) each) instead of saving them.
+
+    Held once on CUDA when the exact backward runs the wide family (K + P,
+    S or S C past the narrow kernels' limits): the wide gene part's float32
+    partial sums, (K + P + S C, G) for each chunk of cells, and their sum
+    (``fused_likelihood.gene_wide_workspace``); lanes run the op one at a
+    time, so one call's workspace is live at once.
     """
     y_itemsize = itemsize if y_itemsize is None else y_itemsize
     narrow = y_itemsize != itemsize
@@ -71,7 +78,10 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     saved_ext = (N + G) * Kf if P else 0
     per_lane = 7 * n_par + 16 * N * S * C + N * (Kf + 1) + saved_ext
     shared = N * P + (N * C if allele else 0)
-    return y_itemsize * N * G + itemsize * (shared + temporaries + n_lanes * per_lane)
+    wide = device_type == "cuda" and not z_cheb and fl.wide_route(Kf, 0, S * C)
+    workspace = 4 * fl.gene_wide_workspace(N, G, Kf, 0, S * C) if wide else 0
+    return (y_itemsize * N * G + itemsize * (shared + temporaries + n_lanes * per_lane)
+            + workspace)
 
 
 def _auto_restart_batching(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,

@@ -18,6 +18,7 @@ import clonealign_torch as ct
 from clonealign_torch import api as tapi
 from clonealign_torch.assign import compute_correlations, multirun_calls_device
 from clonealign_torch.models import multinomial as tmm
+from clonealign_torch.ops import fused_likelihood as tfl
 from clonealign_torch.utils.device import resolve_device, resolve_dtype
 
 torch.set_num_threads(2)
@@ -275,22 +276,39 @@ def test_reference_keywords():
             call(Y, L, loop_impl="for", **extra)
 
 
-@pytest.mark.parametrize("K,S,C,refused", [
+def _setup_passes_the_contract_on_cuda(monkeypatch, Y, L, **kwargs):
+    """setup_fit on a CUDA device (torch.cuda.is_available patched true)
+    gets past the host checks, the kernels' contract among them: it
+    returns where there is a card, and without one fails only at its first
+    allocation on the card, not with a refusal."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    parsed = []
+    parse = tapi._parse_inputs
+    monkeypatch.setattr(tapi, "_parse_inputs", lambda *a, **k: parsed.append(parse(*a, **k))
+                        or parsed[-1])
+    try:
+        tapi.setup_fit(Y, L, device="cuda", verbose=False, **kwargs)
+    except NotImplementedError:
+        raise
+    except (AssertionError, RuntimeError) as err:  # no card behind the patched check
+        assert "CUDA" in str(err)
+    assert len(parsed) == 1
+
+
+@pytest.mark.parametrize("K,S,C,wide", [
     (5, 1, 3, True), (1, 5, 3, True), (1, 2, 17, True), (1, 1, 33, True),
     (4, 4, 8, False), (0, 1, 32, False),
 ])
-def test_wide_kernel_contract_is_refused_at_setup_on_cuda(monkeypatch, K, S, C, refused):
+def test_wide_kernel_contract_is_refused_at_setup_on_cuda(monkeypatch, K, S, C, wide):
+    """Widths past the narrow kernels' limits (K > 4, mc_samples > 4,
+    mc_samples x clones > 32) go to the wide family: on CUDA the contract
+    takes them (it refuses only past the wide family's bound,
+    tests/test_torch_wide.py), and setup_fit with them."""
     tapi._check_kernel_contract(torch.device("cpu"), K, S, C)  # the CPU takes any width
-    if not refused:
-        tapi._check_kernel_contract(torch.device("cuda"), K, S, C)
-        return
-    with pytest.raises(NotImplementedError, match="wide kernel contract"):
-        tapi._check_kernel_contract(torch.device("cuda"), K, S, C)
-    # setup_fit refuses before any data reaches the card
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    tapi._check_kernel_contract(torch.device("cuda"), K, S, C)
+    assert tfl.wide_route(K, S, S * C) is wide
     Y, L = _toy(C=C)
-    with pytest.raises(NotImplementedError, match="wide kernel contract"):
-        tapi.setup_fit(Y, L, K=K, mc_samples=S, device="cuda", verbose=False)
+    _setup_passes_the_contract_on_cuda(monkeypatch, Y, L, K=K, mc_samples=S)
 
 
 def test_golden_example_meets_the_oracle_bar():

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_api import _setup_passes_the_contract_on_cuda
 from test_torch_infer import JaxKeySchedule
 
 import clonealign_tpu as ca
@@ -38,6 +39,7 @@ from clonealign_torch import restarts as trestarts
 from clonealign_torch.assign import clone_assignment
 from clonealign_torch.fit import ClonealignFit
 from clonealign_torch.models import multinomial as tmm
+from clonealign_torch.ops import fused_likelihood as tfl
 from clonealign_torch.synth import simulate_multinomial
 from clonealign_torch.utils.noise import Noise
 
@@ -298,20 +300,17 @@ def test_x_with_the_wrong_rows_raises():
         ct.clonealign(Y, L, x=X[:-1], device="cpu", verbose=False)
 
 
-@pytest.mark.parametrize("K,P,refused", [(1, 3, False), (2, 2, False), (0, 4, False),
-                                         (1, 4, True), (3, 2, True)])
-def test_k_plus_p_over_the_kernels_is_refused_at_setup_on_cuda(monkeypatch, K, P, refused):
+@pytest.mark.parametrize("K,P,wide", [(1, 3, False), (2, 2, False), (0, 4, False),
+                                      (1, 4, True), (3, 2, True)])
+def test_k_plus_p_over_the_kernels_is_refused_at_setup_on_cuda(monkeypatch, K, P, wide):
+    """K + P > 4 goes to the wide family: on CUDA the contract takes it
+    (it refuses only K + P past the wide family's 64,
+    tests/test_torch_wide.py), and setup_fit with it."""
     tapi._check_kernel_contract(torch.device("cpu"), K, 1, 3, P)  # the CPU takes any width
-    if not refused:
-        tapi._check_kernel_contract(torch.device("cuda"), K, 1, 3, P)
-        return
-    with pytest.raises(NotImplementedError, match="wide kernel contract"):
-        tapi._check_kernel_contract(torch.device("cuda"), K, 1, 3, P)
-    # setup_fit refuses before any data reaches the card
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    tapi._check_kernel_contract(torch.device("cuda"), K, 1, 3, P)
+    assert tfl.wide_route(K + P, 1, 3) is wide
     Y, L, X = _sim(N=30, G=20, P=P)
-    with pytest.raises(NotImplementedError, match="wide kernel contract"):
-        tapi.setup_fit(Y, L, x=X, K=K, device="cuda", verbose=False)
+    _setup_passes_the_contract_on_cuda(monkeypatch, Y, L, x=X, K=K)
 
 
 def test_sweep_bytes_count_covariates_and_no_narrow_block_for_the_exact_sweep():
