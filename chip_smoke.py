@@ -464,29 +464,35 @@ def kernel_resources(build_log, kernel):
     return found
 
 
-# The instantiations each kernel must have in the report: the tensor-core
-# kernels fwd_kernel<YT, KF, NT, A2> (96), dpsi_kernel<KF, NT> (12) and
-# gene_kernel<YT, KF, NT, A2> (88), YT the Y storage code (0-3), and the
-# wide family's.
-TC_KERNELS = {
-    "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
-                   for t in (1, 2, 4) for a in (0, 1)},
-    "dpsi_kernel": {f"<{k},{t}>" for k in (1, 2, 3, 4) for t in (1, 2, 4)},
-    "gene_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
-                    for t in range(1, (4, 3, 2, 2)[k - 1] + 1) for a in (0, 1)},
-    # the wide family: fwd_wide_kernel<YT, JW> (8), dpsi_wide_kernel (no
-    # template) and gene_wide_kernel<YT> (4)
-    "fwd_wide_kernel": {f"<{y},{w}>" for y in range(4) for w in (16, 32)},
-    "dpsi_wide_kernel": {"<>"},
-    "gene_wide_kernel": {f"<{y}>" for y in range(4)},
-}
+def tc_kernels(fl):
+    """The instantiations each kernel must have in the report: the
+    tensor-core kernels fwd_kernel<YT, KF, NT, A2> (96), dpsi_kernel<KF, NT>
+    (12) and gene_kernel<YT, KF, NT, A2> (88), YT the Y storage code (0-3),
+    and the wide family's: fwd_wide_kernel<NZ, STEPS> (16, STEPS the
+    k-steps a stage, 2 or 4), fwd_wide_y_kernel<YT, NY> (20) and
+    gene_wide_kernel<YT, NJ> (32) at the built tile counts
+    (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``), their packing
+    kernels and dpsi_wide_kernel (no templates)."""
+    return {
+        "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
+                       for t in (1, 2, 4) for a in (0, 1)},
+        "dpsi_kernel": {f"<{k},{t}>" for k in (1, 2, 3, 4) for t in (1, 2, 4)},
+        "gene_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
+                        for t in range(1, (4, 3, 2, 2)[k - 1] + 1) for a in (0, 1)},
+        "fwd_wide_kernel": {f"<{t},{s}>" for t in fl.WIDE_TILE_COUNTS for s in (2, 4)},
+        "fwd_wide_y_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_Y_TILE_COUNTS},
+        "fwd_wide_pack_kernel": {"<>"},
+        "dpsi_wide_kernel": {"<>"},
+        "gene_wide_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_TILE_COUNTS},
+        "gene_wide_pack_kernel": {"<>"},
+    }
 
 
-def log_tc_resources(build_log):
+def log_tc_resources(build_log, fl):
     """Print the tensor-core kernels' and the wide family's registers and
     spills, one line per kernel; raise if an instantiation spills or is
     missing from the report."""
-    for kernel, want in TC_KERNELS.items():
+    for kernel, want in tc_kernels(fl).items():
         res = kernel_resources(build_log, kernel)
         log(f"{kernel} ptxas: " + "; ".join(
             f"{k} {r} registers, {st}/{ld} B spill stores/loads"
@@ -1769,6 +1775,49 @@ def parity_fit(clonealign_torch, fl):
     return launches
 
 
+# (Kf, n_a2, S*C) past WIDE_FULL whose plans wide_resources also holds to
+# two blocks an SM at full width: the widest [psi, X] at the fit's S*C
+# (not checked against plain there: the plain dpsi forms an (N, Kf, G)
+# product, 119 GiB at full width), and every bound at once
+WIDE_RESOURCE_WIDTHS = ((64, 0, 80), (64, 64, 2048))
+
+
+def wide_resources(fl, storage, Kf, SC, n_a2=0):
+    """The wide forward's and gene part's instantiations at full width for
+    these widths (Y in ``storage``) under ``fl.wide_plan``'s plan, as the
+    library lays them out (``fl_wide_resources``): each kernel's registers
+    and spill bytes (ptxas), dynamic shared memory and blocks an SM (the
+    occupancy query); raises unless each runs at least two blocks an SM,
+    spill-free."""
+    import ctypes
+
+    import torch
+
+    from clonealign_torch.ops import _build
+
+    lib = _build.load()
+    code = fl.Y_DTYPES[getattr(torch, storage)]
+    plan = fl.wide_plan(FULL["N"], FULL["G"], Kf, n_a2, SC)
+    out = (ctypes.c_int * 7)()
+    err = lib.fl_wide_resources(fl._plan_arg(plan), FULL["N"], FULL["G"], Kf, n_a2, SC, code,
+                                out)
+    if err:
+        raise AssertionError(f"the library refuses wide_plan's plan {plan} (CUDA error {err})")
+    res = {}
+    for i, (part, kernel, args) in enumerate((
+            ("fwd", "fwd_wide_kernel", f"<{plan['zt_group']},{out[6]}>"),
+            ("fwd_y", "fwd_wide_y_kernel", f"<{code},{plan['ny_pad']}>"),
+            ("gene", "gene_wide_kernel", f"<{code},{plan['nj']}>"))):
+        regs, spill_st, spill_ld = kernel_resources(_build.build_log, kernel)[args]
+        res[part] = {"instantiation": kernel + args, "registers": regs,
+                     "spill_bytes": spill_st + spill_ld, "smem_bytes": out[2 * i],
+                     "blocks_per_sm": out[2 * i + 1]}
+        if out[2 * i + 1] < 2 or spill_st or spill_ld:
+            raise AssertionError(f"{kernel} at Y {storage}, Kf={Kf}, S={n_a2}, S*C={SC}: "
+                                 f"{res[part]}")
+    return res
+
+
 def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
     """The wide kernel family on the card: each kernel against its plain
     version at every Y storage at WIDE_CHECKS's shapes and at a streaming
@@ -1797,13 +1846,27 @@ def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
             for st in WIDE_FULL_STORAGES for Kf, S in WIDE_FULL}
     for (st, Kf, S), r in full.items():
         b = r["bounds"]
-        log(f"wide, full width, Y {st}, Kf={Kf} S*C={S * FULL['C']}: fwd_wide_kernel "
+        r["resources"] = wide_resources(fl, st, Kf, S * FULL["C"])
+        log(f"wide, full width, Y {st}, Kf={Kf} S*C={S * FULL['C']}: fwd_wide_pack_kernel + "
+            f"fwd_wide_kernel + fwd_wide_y_kernel "
             f"{r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}, bound {b['fwd'][0]:.3f} by "
-            f"{b['fwd'][2]}), dpsi_wide_kernel {r['dpsi_ms']:.3f} ms (plain "
-            f"{r['dpsi_plain_ms']:.3f}, bound {b['dpsi'][0]:.3f} by {b['dpsi'][2]}), "
+            f"{b['fwd'][2]}, {b['fwd'][0] / r['fwd_ms']:.3f} of it), dpsi_wide_kernel "
+            f"{r['dpsi_ms']:.3f} ms (plain {r['dpsi_plain_ms']:.3f}, bound {b['dpsi'][0]:.3f} by "
+            f"{b['dpsi'][2]}, {b['dpsi'][0] / r['dpsi_ms']:.3f} of it), gene_wide_pack_kernel + "
             f"gene_wide_kernel + reduce_chunks_kernel {r['gene_ms']:.3f} ms (plain "
-            f"{r['gene_plain_ms']:.3f}, bound {b['gene'][0]:.3f} by {b['gene'][2]}); "
-            f"backward {r['bwd_ms']:.3f} ms (plain {r['bwd_plain_ms']:.3f})")
+            f"{r['gene_plain_ms']:.3f}, bound {b['gene'][0]:.3f} by {b['gene'][2]}, "
+            f"{b['gene'][0] / r['gene_ms']:.3f} of it); backward {r['bwd_ms']:.3f} ms (plain "
+            f"{r['bwd_plain_ms']:.3f})")
+        for part, q in r["resources"].items():
+            log(f"  {q['instantiation']}: {q['registers']} registers, {q['spill_bytes']} B "
+                f"spilled, {q['smem_bytes']} B shared memory, {q['blocks_per_sm']} blocks an SM")
+    for st in WIDE_FULL_STORAGES:
+        for Kf, n_a2, SC in WIDE_RESOURCE_WIDTHS:
+            for part, q in wide_resources(fl, st, Kf, SC, n_a2).items():
+                log(f"wide, full width, Y {st}, Kf={Kf} S={n_a2} S*C={SC}: "
+                    f"{q['instantiation']}: {q['registers']} registers, {q['spill_bytes']} B "
+                    f"spilled, {q['smem_bytes']} B shared memory, {q['blocks_per_sm']} blocks "
+                    f"an SM")
 
     Y, L, z = synth_counts(3, FULL["N"], FULL["G"], FULL["C"])
     X = wide_covariates(FULL["N"], seed=5)
@@ -1848,10 +1911,15 @@ def wide_kernels(wide, auto_name):
             "max_abs_err": max(main["errs"][e] for e in err),
             "ms": main[f"{part}_ms"], "plain_ms": main[f"{part}_plain_ms"],
             "bound_ms": b[0], "bound_by": b[1], "bound_unit": b[2], "library_ms": None,
+            "bound_fraction": b[0] / main[f"{part}_ms"], **main["resources"].get(part, {}),
+            **({"y_products": main["resources"]["fwd_y"]} if part == "fwd" else {}),
             "y_storage": st, "kf": 1 + WIDE_P, "sc": WIDE_S * FULL["C"],
             "by_config": [{"y_storage": s, "kf": Kf, "sc": S * FULL["C"],
                            "ms": r[f"{part}_ms"], "plain_ms": r[f"{part}_plain_ms"],
                            "bound_ms": r["bounds"][part][0], "bound_by": r["bounds"][part][1],
+                           "bound_fraction": r["bounds"][part][0] / r[f"{part}_ms"],
+                           **r["resources"].get(part, {}),
+                           **({"y_products": r["resources"]["fwd_y"]} if part == "fwd" else {}),
                            "max_abs_err": max(r["errs"][e] for e in err)}
                           for (s, Kf, S), r in wide["full"].items()],
             "stream_shape": {"shape": f"{wide['chunk_rows'][0]}x{FULL['G']} C={FULL['C']}",
@@ -1892,7 +1960,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
     if _build.build_log:
         log(_build.build_log.strip())
-    log_tc_resources(_build.build_log)
+    log_tc_resources(_build.build_log, fl)
 
     # 3. kernels vs plain: for every Y storage a ragged shape (scalar Y
     # loads) and one with G % 4 == 0 (vectorized loads), a wide shape, then

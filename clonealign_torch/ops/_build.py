@@ -55,35 +55,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"libclonealign_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def compile_library(sources, so: str) -> str:
+    """Compile ``sources`` into the shared library ``so``: one object per
+    source and part (beside ``so``), compiled in parallel, then linked.
+    Returns nvcc's output (ptxas's report); raises RuntimeError with it when
+    the build fails."""
+    nvcc = _nvcc()
+    procs, objs = [], []
+    for src in sources:
+        for part in PARTS:
+            obj = f"{so}.{Path(src).stem}_{part + 1}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, f"-DFL_PART={part}", "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    log = "".join(proc.communicate()[0] for proc in procs)
+    if any(proc.returncode for proc in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", so, *objs], capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{log}")
+    return log
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists: one
-    object per source and part, compiled in parallel, then linked. Raises
-    RuntimeError with nvcc's output when the build fails."""
+    """Compile the kernels unless a library for these sources exists
+    (:func:`compile_library`). Raises RuntimeError with nvcc's output when
+    the build fails."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        procs, objs = [], []
-        for src in SOURCES:
-            for part in PARTS:
-                obj = os.path.join(tmp, f"{src.stem}_{part + 1}.o")
-                objs.append(obj)
-                procs.append(subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, f"-DFL_PART={part}", "-c", "-o", obj, str(src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = [proc.communicate()[0] for proc in procs]
-        build_log = "".join(logs)
-        if any(proc.returncode for proc in procs):
-            raise RuntimeError(f"nvcc failed:\n{build_log}")
         so = os.path.join(tmp, out.name)
-        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", so, *objs],
-                              capture_output=True, text=True)
-        build_log += link.stdout + link.stderr
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{build_log}")
+        try:
+            build_log = compile_library(SOURCES, so)
+        except RuntimeError as e:
+            build_log = str(e)
+            raise
         os.replace(so, out)  # atomic: a concurrent loader never sees a partial file
     return out
 
@@ -93,7 +104,12 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build()))
+    _lib = declare(ctypes.CDLL(str(build())))
+    return _lib
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument and result types on ``lib``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fl_forward.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.fl_forward.restype = i
@@ -103,11 +119,12 @@ def load() -> ctypes.CDLL:
     lib.fl_backward_gene.restype = i
     lib.fl_backward_gene_scratch.argtypes = [i] * 6
     lib.fl_backward_gene_scratch.restype = ctypes.c_size_t
-    lib.fl_forward_wide.argtypes = lib.fl_forward.argtypes
+    lib.fl_forward_wide.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.fl_forward_wide.restype = i
+    lib.fl_wide_resources.argtypes = [p] + [i] * 6 + [p]
+    lib.fl_wide_resources.restype = i
     lib.fl_backward_dpsi_wide.argtypes = lib.fl_backward_dpsi.argtypes
     lib.fl_backward_dpsi_wide.restype = i
-    lib.fl_backward_gene_wide.argtypes = lib.fl_backward_gene.argtypes
+    lib.fl_backward_gene_wide.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.fl_backward_gene_wide.restype = i
-    _lib = lib
     return lib

@@ -128,30 +128,81 @@
 // nA2 <= 4 and SC <= 32; fwd_wide_kernel, dpsi_wide_kernel and
 // gene_wide_kernel take any Kf <= 64, nA2 <= 64 and SC <= 2048 with the
 // same contract, and the wrapper launches them only past a narrow limit.
-// They are plain tiled products on the CUDA cores in float32 FMAs (no TF32,
-// so no splitting): a block stages a tile of each operand in shared memory
-// and each thread keeps 8 outputs of one row in registers. What bounds them
-// is that arithmetic, 2 N G SC FMAs a product with muL at the FMA rate, and
-// the shared-memory loads beside it (3 loads for 8 FMAs), not Y's bytes.
+// The contract is unnormalized attention: Q = psi (head width Kf), K = W,
+// V = muL (value width SC), P = exp(Q K^T) with no running max. Each
+// launch follows one plan (WidePlan), which ops/fused_likelihood.py's
+// wide_plan makes and the entry points take and check (wide_plan_of):
+// 8-column tiles of [psi, X], Z, [W | log mu^T] and dA2, the forward's
+// column groups, the gene part's chunks and passes, and the workspace. The
+// shared-memory layout of each kernel follows from the plan here. A warp holds at most kWideTiles accumulator tiles of 8
+// columns, and each loop over a group's or pass's tiles runs a count the
+// kernel is built for (kWideTileCounts, kWideYTileCounts; the tiles padded
+// with zeros up to it), so that the tiles' chains of dependent MMAs
+// interleave: with a test of a runtime count around each tile they ran one
+// after another, and the same kernels took 2.9 ms (forward) and 7.4 ms
+// (gene part) at int8, Kf 5, S*C 80 on an H100 80GB HBM3 (700 W), against
+// 2.4 and 5.7 with built counts (time_likelihood.py --wide).
 //
-//  * fwd_wide_kernel: grid (cell tiles, column groups of JW = 16 or 32).
-//    A Z group forms exp(psi . W_g) for its tile (Kf FMAs an element,
-//    psi^T and W^T of the tile in shared memory) and multiplies it with
-//    muL's JW columns; so the exps are recomputed once a Z group. A Y group
-//    multiplies Y (converted as it is staged) with JW columns of
-//    [W | log mu^T] (Y W and A2), and the first one also sums A1 =
-//    sum_g Y log_rfe. Y is read once a Y group: once, for Kf + nA2 <= 32.
+//  * fwd_wide_kernel (Z = P V): each warp owns 16 cell rows, the M of
+//    mma.sync m16n8k8 TF32, as in fwd_kernel. log_rfe = psi W^T is itself
+//    a 3xTF32 MMA (psi's A fragments split once into shared memory, W^T's
+//    B fragments staged), and its C fragment (rows r, r + 8, genes 2c,
+//    2c + 1) is the A fragment of Z = rfe muL once the 8 genes of each
+//    k-step are taken in the order 0, 2, 4, 6, 1, 3, 5, 7:
+//    fwd_wide_pack_kernel writes muL's and [W | log mu^T]'s B fragments in
+//    that order, split into TF32 hi and lo, once a call. Blocks stage 32
+//    genes of that table with cp.async into a ring of two stages (16
+//    genes where 32 would leave room for one block an SM, at the widest
+//    [psi, X]; the warps of a row group share its psi fragments). Z's
+//    columns run as n-tiles through mma_3xtf32, each k-step's three
+//    products in fresh accumulators added on CUDA cores; exps are formed
+//    once a column group of up to kWideTiles n-tiles (S*C <= 128 is one
+//    group; wider Z takes groups in grid.y, each recomputing the exps).
+//    Past 10 tiles two warps share 16 rows, each forming half the
+//    k-steps' exps for both through shared memory and taking half the
+//    tiles: 128 registers then hold a warp's accumulators without a spill.
+//    What bounds it is the MMAs, 3 a tile and k-step, and log_rfe's 3 a
+//    k-step per 8 columns of [psi, X] (gene_variants.py, int8, S*C 80):
+//    log_rfe takes 0.34 of 2.4 ms at Kf 5 and 2.5 of 6.3 ms at Kf 64.
+//    Forming it with Kf FMAs an element on the CUDA cores could save at
+//    most 0.34 ms at Kf 5, and at Kf 64 would itself take at least 1 ms
+//    (3.2e10 FMAs at the float32 rate): one path, by MMA, at every Kf.
+//  * fwd_wide_y_kernel, launched beside it: Y W, A2 (one MMA with B =
+//    [W | log mu^T]) and A1 = sum_k psi_k (Y W)_k from the one read of Y,
+//    each warp staging its 16 rows in the storage type through the same
+//    kind of ring. Y is an exact float split into hi and lo, so a narrow Y
+//    gives the float32 Y's results bit for bit.
 //  * dpsi_wide_kernel (Y-free): per 64-cell block, for each pass of 32
 //    columns of dZ (kept in shared memory for the pass), drfe = dZ muL^T over
 //    32-gene tiles, then rfe drfe, then its product with W^T for the Kf
 //    columns of dpsi; drfe is linear in dZ's columns, so the passes add, each
-//    recomputing rfe. dA1 YW is added at the end.
-//  * gene_wide_kernel: per (64-gene block, chunk of cells), the same passes
-//    over dZ's columns with 32-cell tiles: drfe and rfe of the tile, then
-//    d(muL) of the pass's columns (rfe^T dZ), dW (dlog_rfe^T psi, dlog_rfe =
-//    rfe drfe plus Y dA1 in the first pass) and in the first pass dlog mu
-//    (dA2^T Y). Each (chunk, block) writes its own partial sums, which
-//    reduce_chunks_kernel adds in a fixed order: deterministic, no atomics.
+//    recomputing rfe. dA1 YW is added at the end. Plain float32 FMAs on
+//    the CUDA cores.
+//  * gene_wide_kernel (FlashAttention-2's dK/dV pass, genes as M): each
+//    warp owns 16 genes and walks its chunk of cells in k-steps of 8, with
+//    per k-step, all on tensor cores in 3xTF32: log_rfe^T = W psi^T,
+//    drfe^T = muL dZ^T (muL of the pass's columns split once into shared
+//    memory; K = S*C), dlog_rfe = rfe drfe + Y dA1 in registers at the same
+//    C positions, d(muL) += rfe^T dZ and dW += dlog_rfe^T psi (rfe and
+//    dlog_rfe turned into A fragments by the cell order above), and dlog
+//    mu += Y^T dA2. gene_wide_pack_kernel writes the cell side once a call
+//    as (hi, lo) pairs: dZ, psi, dA2 and dA1; blocks of 4 warps stage 16
+//    cells of them and of Y with cp.async into a ring of two, the stage's
+//    two k-steps unrolled so that one's chain of products runs beside the
+//    other's. Each k-step's products go to fresh accumulators added on CUDA
+//    cores. d(muL) of a pass's columns stays in registers: S*C <= 128 (less
+//    the dW and dlog mu tiles, and padded to a built count) is one pass;
+//    wider takes several, each recomputing rfe and its part of drfe. dW is
+//    linear in drfe, so each pass adds rfe drfe_pass psi to dW's
+//    accumulators, which live through every pass and are stored once: drfe
+//    is neither held nor recomputed whole. Three blocks an SM (168
+//    registers; two past 10 tiles, where more would spill). Each (chunk,
+//    gene block) writes its own partial sums, which reduce_chunks_kernel
+//    adds in a fixed order: deterministic, no atomics. Its products weigh
+//    as they should: without drfe's MMAs it took 1.9 of its 5.7 ms at
+//    Kf 5, S*C 80, without d(muL)'s 1.5, without dW's 2.4, the last more
+//    than their share because dW waits on drfe and the exps
+//    (gene_variants.py).
 //
 // Build: one translation unit holds everything, or ops/_build.py compiles
 // this file as five in parallel and links them: FL_PART = -1 holds the
@@ -207,23 +258,54 @@ struct GeneArgs {
   cudaStream_t stream;
 };
 
-// The wide gene part's arguments: part holds the partial sums of n_chunks
-// chunks of rows_per_chunk cells.
+// The wide family's launch plan (made by ops/fused_likelihood.py's
+// wide_plan, checked by wide_plan_of): 8-column tiles of [psi, X] (n_kc), Z (n_zt), [W | log
+// mu^T] (n_yt) and dA2 (n_st); the forward's column groups (n_zgroups of
+// zt_group Z tiles, zero-padded) and Y tiles (ny_pad, zero-padded); the gene
+// part's chunks of rows cells and its passes over dZ's tiles (mu_passes of
+// nj tiles, zero-padded, after a first pass of its own for Y's products
+// where y_pass); the workspace in floats: the forward's gene table, and the
+// gene part's partial sums and packed cell side.
+struct WidePlan {
+  int n_kc, n_zt, n_yt, n_st;
+  int g_pad, zt_group, n_zgroups, ny_pad;
+  int rows, n_chunks, n_pad, nj, mu_passes, y_pass, n_passes;
+  size_t table, part, dz, ps, a2, a1;
+};
+
+struct FwdWideArgs {
+  const void* Y;  // (N, G) in the storage type
+  const float* psi;
+  const float4* table;  // written by fwd_wide_pack_kernel
+  float *A1, *A2, *Z, *YW;
+  int N, G, Kf, nA2, SC;
+  WidePlan plan;
+  cudaStream_t stream;
+};
+
+// The wide gene part's arguments: the cell side as gene_wide_pack_kernel
+// wrote it, and part, the partial sums of plan.n_chunks chunks.
 struct GeneWideArgs {
   const void* Y;  // (N, G) in the storage type
-  const float *psi, *W, *muL, *dA1, *dA2, *dZ;
+  const float *W, *muL;
+  const float2 *dz, *ps, *a2;
+  const float* a1;
   float* part;
-  int N, G, Kf, nA2, SC, rows_per_chunk, n_chunks;
+  int N, G, Kf, nA2, SC;
+  WidePlan plan;
   cudaStream_t stream;
 };
 
 // The Y-reading kernels of one storage type: fwd_kernel, and gene_kernel
 // (between gene_pack_kernel and reduce_chunks_kernel, which fl_backward_gene
-// launches); and the wide family's fwd_wide_kernel and gene_wide_kernel.
+// launches); and the wide family's fwd_wide_y_kernel and gene_wide_kernel,
+// with their blocks an SM at a tile count and shared memory (which: 1 the
+// Y products, 2 the gene part).
 template <int YT> void forward_typed(const FwdArgs& a);
 template <int YT> void gene_typed(const GeneArgs& a);
-template <int YT> void forward_wide_typed(const FwdArgs& a);
+template <int YT> void forward_wide_typed(const FwdWideArgs& a);
 template <int YT> void gene_wide_typed(const GeneWideArgs& a);
+template <int YT> int wide_blocks_per_sm(int which, int nt, int smem);
 
 }  // namespace fl
 
@@ -250,17 +332,26 @@ constexpr int kCellsPerWarp = kCellTile / kGeneWarps;  // Y rows a warp streams 
 constexpr int max_live_nt(int KF) { return KF == 1 ? 4 : KF == 2 ? 3 : 2; }
 // The wide family: its bounds (ops/fused_likelihood.py's WIDE_MAX_*) and tiles.
 constexpr int kWideMaxKf = 64, kWideMaxA2 = 64, kWideMaxSC = 2048;
+constexpr int kWideTiles = 16;  // accumulator tiles of 8 columns a warp holds at most
+// Tile counts the wide kernels are built for (a group's or pass's tiles
+// are padded up to one): Z tiles a forward group and d(muL) tiles a gene
+// pass; Y tiles.
+constexpr int kWideTileCounts[] = {1, 2, 4, 6, 8, 10, 12, 16};
+constexpr int kWideYTileCounts[] = {1, 2, 4, 8, 16};
+constexpr int kFwdWideGenes = 32;                   // genes a forward stage
+constexpr int kFwdWideSteps = kFwdWideGenes / 8;    // its MMA k-steps
+constexpr int kGeneWideWarps = 4;                   // gene-part blocks: 4 warps x 16 genes
+constexpr int kGeneWideGenes = kGeneWideWarps * kFwdRows;
+constexpr int kGeneWideCells = 16;                  // cells a gene-part stage (2 k-steps)
+// dpsi_wide_kernel's tiles
 constexpr int kWideThreads = 256;
 constexpr int kWideOut = 8;     // outputs a thread keeps, along one row of a tile
-constexpr int kWideG = 32;      // genes a forward / dpsi tile
-constexpr int kWideJ = 32;      // dZ and muL columns a backward pass
+constexpr int kWideG = 32;      // genes a dpsi tile
+constexpr int kWideJ = 32;      // dZ and muL columns a dpsi pass
 constexpr int kDpsiCells = 64;  // cells a dpsi block
-constexpr int kGeneCells = 32;  // cells a gene-part tile
-constexpr int kGeneGenes = 64;  // genes a gene-part block
-// Pairs (output row, column) a thread keeps in the backward's products with
-// psi and W: dpsi's kDpsiCells x Kf, the gene part's kGeneGenes x (Kf + nA2).
+// Pairs (output row, column) a dpsi thread keeps in its product with W:
+// kDpsiCells x Kf.
 constexpr int kDpsiPairs = kDpsiCells * kWideMaxKf / kWideThreads;
-constexpr int kGenePairs = kGeneGenes * (kWideMaxKf + kWideMaxA2) / kWideThreads;
 
 // ---------------------------------------------------------------------------
 // Tensor-core pieces shared by the forward and dpsi kernels. One warp per 16
@@ -1060,24 +1151,12 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ part,
 #endif  // FL_COMMON
 
 // ---------------------------------------------------------------------------
-// The wide family (see the note at the top): float32 FMAs on CUDA cores,
-// runtime Kf, nA2 and SC. Every loop over a register array is unrolled, so
-// the arrays stay in registers; a thread's outputs past the live rows and
-// columns compute on zeros and are not written. Each tile's products are
-// summed in float32 and the tiles' sums in float64: the backward's sums are
-// signed and cancel, and a float32 running sum over 1,024 cells lost more
-// than the tolerance at cancelling elements of dW (one add and one
-// conversion a tile per output, against 32 FMAs).
+// The wide family (see the note at the top). dpsi_wide_kernel: float32 FMAs
+// on CUDA cores, runtime Kf and SC. Every loop over a register array is
+// unrolled, so the arrays stay in registers; a thread's outputs past the
+// live rows and columns compute on zeros and are not written. Each tile's
+// products are summed in float32 and the tiles' sums in float64.
 // ---------------------------------------------------------------------------
-
-// One count of Y as a float, exactly.
-template <int YT>
-__device__ __forceinline__ float y_to_float(typename YStore<YT>::Elem e) {
-  if constexpr (YT == kYBF16)
-    return __uint_as_float((uint32_t)e << 16);
-  else
-    return (float)e;
-}
 
 // acc[0..8) += a * b[0..8), b a 16-byte-aligned row of 8 floats in shared memory.
 __device__ __forceinline__ void fma8(float (&acc)[kWideOut], float a, const float* b) {
@@ -1093,126 +1172,402 @@ __device__ __forceinline__ void fma8(float (&acc)[kWideOut], float a, const floa
   acc[7] = fmaf(a, b1.w, acc[7]);
 }
 
-#if FL_ANY_TYPED
-// Forward, wide. Grid (cell tiles of TN, nZ + nY column groups of JW):
-// blockIdx.y < nZ computes Z's columns [JW y, JW y + JW) from exp(psi W^T);
-// else group y - nZ of the Y products [Y W | Y log mu^T] (Kf + nA2 columns),
-// the first of which also writes A1 = sum_g Y log_rfe. Thread t keeps row
-// t % TN and the 8 columns from 8 (t / TN) of its block's outputs, and stages
-// gene t % 32 of rows t / 32 + 8 i of each tile. Dynamic shared memory: psi^T
-// of the block's cells (Kf x TN), then W^T of the tile (Kf x kWideG).
-template <int YT, int JW>
-__global__ void __launch_bounds__(kWideThreads)
-fwd_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ psi,
-                const float* __restrict__ W, const float* __restrict__ logmu,
-                const float* __restrict__ muL, float* __restrict__ A1,
-                float* __restrict__ A2, float* __restrict__ Z, float* __restrict__ YW,
-                int N, int G, int Kf, int nA2, int SC, int nZ) {
-  constexpr int TN = kWideThreads * kWideOut / JW;    // cells a block
-  constexpr int kRowStep = kWideThreads / kWideG;     // rows between a thread's staged elements
-  constexpr int kStage = TN / kRowStep;               // tile elements a thread stages
-  __shared__ float s_a[TN][kWideG + 1];               // the tile's rfe or Y, cell-major
-  __shared__ __align__(16) float s_b[kWideG][JW];     // the tile's muL or [W | log mu^T] columns
-  extern __shared__ __align__(16) float s_wide[];
-  float* s_psi = s_wide;           // [k][row]
-  float* s_wt = s_wide + Kf * TN;  // [k][gene of the tile]
+// The tensor-core pieces of fwd_wide_kernel and gene_wide_kernel.
+//
+// A C fragment (rows r and r + 8, columns 2c and 2c + 1, in the order (r,
+// 2c), (r, 2c + 1), (r + 8, 2c), (r + 8, 2c + 1)) becomes the A fragment of
+// the next product, split into TF32 hi and lo, when that product's k-step
+// takes column 2c as its column c and 2c + 1 as its column c + 4: C order
+// 0, 2, 1, 3. The other operand's B fragments follow the same order.
+__device__ __forceinline__ void c_to_a(const float (&c)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32_int(c[0], hi[0], lo[0]);
+  split_tf32_int(c[2], hi[1], lo[1]);
+  split_tf32_int(c[1], hi[2], lo[2]);
+  split_tf32_int(c[3], hi[3], lo[3]);
+}
 
-  const int t = threadIdx.x, lane = t % kWarp, warp = t / kWarp;
-  const int n0 = blockIdx.x * TN;
-  const bool z_part = (int)blockIdx.y < nZ;
-  const int c0 = (z_part ? (int)blockIdx.y : (int)blockIdx.y - nZ) * JW;
-  const bool with_a1 = !z_part && c0 == 0;
-  const bool with_rfe = z_part || with_a1;
-  const int n_cols = z_part ? SC : Kf + nA2;
-  const int r_out = t % TN, j_out = (t / TN) * kWideOut;
+// An A fragment stored as two float4s (hi, then lo) in shared memory.
+__device__ __forceinline__ void load_a(const float4* f, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float4 h = f[0], l = f[kWarp];
+  hi[0] = __float_as_uint(h.x), hi[1] = __float_as_uint(h.y);
+  hi[2] = __float_as_uint(h.z), hi[3] = __float_as_uint(h.w);
+  lo[0] = __float_as_uint(l.x), lo[1] = __float_as_uint(l.y);
+  lo[2] = __float_as_uint(l.z), lo[3] = __float_as_uint(l.w);
+}
 
-  for (int i = t; i < Kf * TN; i += kWideThreads) {
-    const int k = i / TN, n = n0 + i % TN;
-    s_psi[i] = n < N ? psi[(size_t)n * Kf + k] : 0.f;
+// Split four values into an A fragment stored as two float4s at f and f + kWarp.
+__device__ __forceinline__ void store_a(float4* f, const float (&v)[4]) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32_int(v[e], h[e], l[e]);
+  f[0] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                     __uint_as_float(h[3]));
+  f[kWarp] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                         __uint_as_float(l[3]));
+}
+
+// The B fragment (hi0, hi1, lo0, lo1) of two (hi, lo) pairs.
+__device__ __forceinline__ float4 pair_b(float2 b0, float2 b1) {
+  return make_float4(b0.x, b1.x, b0.y, b1.y);
+}
+
+__device__ __forceinline__ float2 tf32_pair(float v) {
+  uint32_t h, l;
+  split_tf32_int(v, h, l);
+  return make_float2(__uint_as_float(h), __uint_as_float(l));
+}
+
+// Accumulate a fresh MMA sum: acc += d.
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += d[e];
+}
+
+// Two counts of Y at consecutive genes (16-bit, 32-bit or 64-bit aligned),
+// and one count, as floats, exactly: piece_to_float4's conversions.
+template <int YT>
+__device__ __forceinline__ float2 y_pair(const typename YStore<YT>::Elem* p) {
+  if constexpr (YT == kYF32) {
+    return *reinterpret_cast<const float2*>(p);
+  } else if constexpr (YT == kYBF16) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+    return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+  } else if constexpr (YT == kYI16) {
+    constexpr float kOff = 12582912.f + 32768.f;
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p) ^ 0x80008000u;
+    return make_float2(__uint_as_float(__byte_perm(v, 0x4b400000u, 0x7610)) - kOff,
+                       __uint_as_float(__byte_perm(v, 0x4b400000u, 0x7632)) - kOff);
+  } else {
+    constexpr float kOff = 12582912.f + 128.f;
+    const uint32_t v = (uint32_t)*reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
+    return make_float2(__uint_as_float(__byte_perm(v, 0x4b400000u, 0x7650)) - kOff,
+                       __uint_as_float(__byte_perm(v, 0x4b400000u, 0x7651)) - kOff);
   }
-  double acc[kWideOut];
-  float a1[kStage];
-#pragma unroll
-  for (int j = 0; j < kWideOut; ++j) acc[j] = 0.0;
-#pragma unroll
-  for (int i = 0; i < kStage; ++i) a1[i] = 0.f;
+}
 
+template <int YT>
+__device__ __forceinline__ float y_one(typename YStore<YT>::Elem e) {
+  if constexpr (YT == kYF32)
+    return e;
+  else if constexpr (YT == kYBF16)
+    return __uint_as_float((uint32_t)e << 16);
+  else if constexpr (YT == kYI16)
+    return __uint_as_float(0x4b400000u + (uint32_t)((int)e + 32768)) - (12582912.f + 32768.f);
+  else
+    return __uint_as_float(0x4b400000u + (uint32_t)((int)e + 128)) - (12582912.f + 128.f);
+}
+
+// One piece of a Y row (4 counts from gene g, zero past G and for a row
+// that is not live) into shared memory with cp.async where pieces are
+// aligned; an unaligned piece goes count by count, a float32 one by 4-byte
+// cp.async, a narrow one (under cp.async's least size) by the thread's own
+// load and store.
+template <int YT>
+__device__ __forceinline__ void stage_y_piece(typename YStore<YT>::Elem* dst,
+                                              const typename YStore<YT>::Elem* __restrict__ row,
+                                              bool live, int g, int G, bool vec) {
+  using Elem = typename YStore<YT>::Elem;
+  using Piece = typename YStore<YT>::Piece;
+  if (vec) {
+    cp_async_zfill<sizeof(Piece)>(dst, row + (live && g < G ? g : 0),
+                                  live && g < G ? (int)sizeof(Piece) : 0);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bool in = live && g + u < G;
+      if constexpr (YT == kYF32)
+        cp_async_zfill<4>(dst + u, row + (in ? g + u : 0), in ? 4 : 0);
+      else
+        dst[u] = in ? row[g + u] : Elem(0);
+    }
+  }
+}
+
+#if FL_COMMON
+// The forward's gene-side table, once a call: for each k-step of 8 genes
+// (g_pad / 8 of them), n_kc + n_zgroups zt_group + ny_pad B fragments (hi0,
+// hi1, lo0, lo1) of 32 lanes: W^T for log_rfe (k = columns of [psi, X],
+// genes in order as B's columns), then muL's Z tiles and [W | log mu^T]'s
+// tiles with the genes of the k-step in C-to-A order (B's row c is gene
+// 2c, row c + 4 gene 2c + 1). Zero past G and every width.
+__global__ void fwd_wide_pack_kernel(const float* __restrict__ W, const float* __restrict__ logmu,
+                                     const float* __restrict__ muL, float4* __restrict__ table,
+                                     int G, int Kf, int nA2, int SC, WidePlan p) {
+  const int n_z = p.n_zgroups * p.zt_group, n_tab = p.n_kc + n_z + p.ny_pad;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= (long long)(p.g_pad / 8) * n_tab * kWarp) return;
+  const int l = (int)(i % kWarp), r = (int)((i / kWarp) % n_tab), ks = (int)(i / kWarp / n_tab);
+  float b0 = 0.f, b1 = 0.f;
+  if (r < p.n_kc) {
+    const int g = 8 * ks + (l >> 2), k = 8 * r + (l & 3);
+    if (g < G && k < Kf) b0 = W[(size_t)g * Kf + k];
+    if (g < G && k + 4 < Kf) b1 = W[(size_t)g * Kf + k + 4];
+  } else if (r < p.n_kc + n_z) {
+    const int g = 8 * ks + 2 * (l & 3), j = 8 * (r - p.n_kc) + (l >> 2);
+    if (j < SC && g < G) b0 = muL[(size_t)g * SC + j];
+    if (j < SC && g + 1 < G) b1 = muL[(size_t)(g + 1) * SC + j];
+  } else {
+    const int g = 8 * ks + 2 * (l & 3), c = 8 * (r - p.n_kc - n_z) + (l >> 2);
+    auto x = [&](int gg) {
+      return gg >= G ? 0.f
+             : c < Kf ? W[(size_t)gg * Kf + c]
+             : c < Kf + nA2 ? logmu[(size_t)(c - Kf) * G + gg] : 0.f;
+    };
+    b0 = x(g);
+    b1 = x(g + 1);
+  }
+  const float2 h0 = tf32_pair(b0), h1 = tf32_pair(b1);
+  table[i] = make_float4(h0.x, h1.x, h0.y, h1.y);
+}
+
+// Forward, wide, Z = exp(psi W^T) muL: grid (blocks of cells, p.n_zgroups
+// column groups of NZ = p.zt_group Z tiles). Every tile loop runs a built
+// count of tiles, so the tiles' MMA chains interleave. Up to 10 tiles each
+// warp owns 16 cell rows (kFwdWarps x 16 cells a block). Past 10, two warps
+// share 16 rows and each takes half the tiles, so that a warp's
+// accumulators and B fragments fit 128 registers without spilling: each
+// forms the exps of half the stage's k-steps, and both read the stage's
+// A fragments from shared memory (kFwdWarps / 2 x 16 cells a
+// block). A stage holds STEPS k-steps (fwd_wide_steps: 4, or 2 where 4
+// would leave room for one block an SM). Dynamic shared memory: each row
+// group's psi A fragments ([row group][kc][hi, lo][lane]), two stage buffers
+// of stage_f4 float4s, each STEPS k-steps of [W^T tiles | the group's Z
+// tiles][lane], and for shared rows the A fragments ([row group][k-step][hi,
+// lo][lane]).
+template <int NZ, int STEPS>
+__global__ void __launch_bounds__(kFwdWarps * kWarp, 2)
+fwd_wide_kernel(const float* __restrict__ psi, const float4* __restrict__ table,
+                float* __restrict__ Z, int N, int Kf, int SC, WidePlan p, int stage_f4) {
+  constexpr bool kPair = NZ > 10;
+  constexpr int NT = kPair ? NZ / 2 : NZ;                      // tiles a warp
+  constexpr int kGroups = kPair ? kFwdWarps / 2 : kFwdWarps;  // row groups a block
+  extern __shared__ float4 s_dyn[];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int rg = warp % kGroups, half = warp / kGroups;
+  // MMA fragments: A rows (cells) r and r + 8, A columns c and c + 4.
+  const int fr = lane >> 2, fc = lane & 3;
+  const int row0 = (blockIdx.x * kGroups + rg) * kFwdRows;
+  const int n0 = row0 + fr, n1 = n0 + 8;
+  const int z0 = blockIdx.y * NZ;
+  const int RW = p.n_kc + NZ;  // table tiles a k-step of a stage
+  const int n_tab = p.n_kc + p.n_zgroups * NZ + p.ny_pad;
+  float4* s_psi = s_dyn + rg * p.n_kc * 2 * kWarp;
+  float4* s_stage = s_dyn + kGroups * p.n_kc * 2 * kWarp;
+  float4* s_a = s_stage + 2 * stage_f4 + rg * STEPS * 2 * kWarp;
+
+  // psi's A fragments (rows n0, n1; columns 8 kc + c, + 4), split once by
+  // the row group's first warp, read after the first stage's barrier.
+  if (half == 0) {
 #pragma unroll 1
-  for (int gs = 0; gs < G; gs += kWideG) {
-    __syncthreads();  // the previous tile is consumed (and psi^T staged)
-    for (int i = t; i < kWideG * JW; i += kWideThreads) {
-      const int gl = i / JW, c = c0 + i % JW, g = gs + gl;
-      float v = 0.f;
-      if (g < G && c < n_cols)
-        v = z_part ? muL[(size_t)g * SC + c]
-            : c < Kf ? W[(size_t)g * Kf + c] : logmu[(size_t)(c - Kf) * G + g];
-      s_b[gl][i % JW] = v;
+    for (int kc = 0; kc < p.n_kc; ++kc) {
+      const int k0 = 8 * kc + fc, k1 = k0 + 4;
+      const float v[4] = {n0 < N && k0 < Kf ? psi[(size_t)n0 * Kf + k0] : 0.f,
+                          n1 < N && k0 < Kf ? psi[(size_t)n1 * Kf + k0] : 0.f,
+                          n0 < N && k1 < Kf ? psi[(size_t)n0 * Kf + k1] : 0.f,
+                          n1 < N && k1 < Kf ? psi[(size_t)n1 * Kf + k1] : 0.f};
+      store_a(s_psi + 2 * kc * kWarp + lane, v);
     }
-    if (with_rfe) {
-      for (int i = t; i < Kf * kWideG; i += kWideThreads) {
-        const int g = gs + i % kWideG;
-        s_wt[i] = g < G ? W[(size_t)g * Kf + i / kWideG] : 0.f;
-      }
+  }
+
+  // cp.async of stage s (genes [8 STEPS s, 8 STEPS (s + 1))) into buffer buf.
+  auto stage = [&](int s, int buf) {
+    float4* dst = s_stage + (size_t)buf * stage_f4;
+    const int ks0 = s * STEPS;
+    for (int i = threadIdx.x; i < STEPS * RW * kWarp; i += blockDim.x) {
+      const int l = i % kWarp, r = (i / kWarp) % RW, ks = i / (kWarp * RW);
+      const int src = r < p.n_kc ? r : z0 + r;
+      cp_async_zfill<16>(dst + i, table + ((size_t)(ks0 + ks) * n_tab + src) * kWarp + l, 16);
     }
-    __syncthreads();
-    // Stage A: rfe (Z groups) or Y (Y groups), with log_rfe where needed.
-    const int g = gs + lane;
-    float lr[kStage];
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) lr[i] = 0.f;
-    if (with_rfe) {
+    cp_async_commit();
+  };
+  // exp(log_rfe) of k-step ks at the A positions (C-to-A order).
+  auto rfe_a = [&](const float4* tab, int ks, float (&a)[4]) {
+    float lr[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 1
-      for (int k = 0; k < Kf; ++k) {
-        const float w = s_wt[k * kWideG + lane];
-#pragma unroll
-        for (int i = 0; i < kStage; ++i)
-          lr[i] = fmaf(s_psi[k * TN + warp + kRowStep * i], w, lr[i]);
-      }
+    for (int kc = 0; kc < p.n_kc; ++kc) {
+      uint32_t ph[4], pl[4];
+      load_a(s_psi + 2 * kc * kWarp + lane, ph, pl);
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_3xtf32(d, ph, pl, tab[(ks * RW + kc) * kWarp + lane]);
+      add4(lr, d);
     }
+    a[0] = __expf(lr[0]);
+    a[1] = __expf(lr[2]);
+    a[2] = __expf(lr[1]);
+    a[3] = __expf(lr[3]);
+  };
+
+  float acc[NT][4];
 #pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int r = warp + kRowStep * i, n = n0 + r;
-      float a;
-      if (z_part) {
-        a = g < G ? __expf(lr[i]) : 0.f;
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  const int n_stages = p.g_pad / (8 * STEPS);
+  stage(0, 0);
+  // No early exit: every warp takes part in the block's barriers; rows past
+  // N compute on zeros and write nothing.
+#pragma unroll 1
+  for (int s = 0; s < n_stages; ++s) {
+    const int buf = s & 1;
+    cp_async_wait_all();
+    __syncthreads();  // the stage has landed, and the other buffer is free
+    if (s + 1 < n_stages) stage(s + 1, buf ^ 1);
+    const float4* tab = s_stage + (size_t)buf * stage_f4;
+    if constexpr (kPair) {
+#pragma unroll 1
+      for (int j = 0; j < STEPS / 2; ++j) {
+        const int ks = 2 * j + half;
+        float a[4];
+        rfe_a(tab, ks, a);
+        store_a(s_a + 2 * ks * kWarp + lane, a);
+      }
+      __syncthreads();  // both warps' A fragments are in shared memory
+    }
+#pragma unroll 1
+    for (int ks = 0; ks < STEPS; ++ks) {
+      // the k-step's A fragment, then each n-tile's three products in
+      // fresh accumulators
+      uint32_t ah[4], al[4];
+      if constexpr (kPair) {
+        load_a(s_a + 2 * ks * kWarp + lane, ah, al);
       } else {
-        a = (n < N && g < G) ? y_to_float<YT>(Y[(size_t)n * G + g]) : 0.f;
-        a1[i] = fmaf(a, lr[i], a1[i]);
-      }
-      s_a[r][lane] = a;
-    }
-    __syncthreads();
-    float tile[kWideOut] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-    for (int gl = 0; gl < kWideG; ++gl) fma8(tile, s_a[r_out][gl], &s_b[gl][j_out]);
+        float a[4];
+        rfe_a(tab, ks, a);
 #pragma unroll
-    for (int j = 0; j < kWideOut; ++j) acc[j] += tile[j];
+        for (int e = 0; e < 4; ++e) split_tf32_int(a[e], ah[e], al[e]);
+      }
+      const float4* b = tab + (ks * RW + p.n_kc + half * NT) * kWarp + lane;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(d, ah, al, b[t * kWarp]);
+        add4(acc[t], d);
+      }
+    }
   }
 
-  const int n = n0 + r_out;
-  if (n < N) {
+  // D fragment order: (n0, 2c), (n0, 2c + 1), (n1, 2c), (n1, 2c + 1).
 #pragma unroll
-    for (int j = 0; j < kWideOut; ++j) {
-      const int c = c0 + j_out + j;
-      if (z_part) {
-        if (c < SC) Z[(size_t)n * SC + c] = (float)acc[j];
-      } else if (c < Kf) {
-        YW[(size_t)n * Kf + c] = (float)acc[j];
-      } else if (c < Kf + nA2) {
-        A2[(size_t)n * nA2 + c - Kf] = (float)acc[j];
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = e < 2 ? n0 : n1, j = 8 * (z0 + half * NT + t) + 2 * fc + (e & 1);
+      if (n < N && j < SC) Z[(size_t)n * SC + j] = acc[t][e];
+    }
+}
+#endif  // FL_COMMON
+
+#if FL_ANY_TYPED
+// Forward, wide, the Y products [Y W | Y log mu^T] (NY = p.ny_pad tiles)
+// and A1 = sum_k psi_k (Y W)_k: grid (blocks of cells), the one read of Y.
+// As in fwd_wide_kernel, past 10 tiles two warps share 16 rows and each
+// takes half the tiles (both form the A fragments from the staged Y; the
+// first takes Y W's columns, Kf <= 64, and A1). Dynamic shared memory: two
+// stage buffers of stage_f4 float4s, each 4 k-steps of the Y tiles
+// ([k-step][tile][lane]), then each row group's 16 Y rows of 32 genes in
+// the storage type.
+template <int YT, int NY>
+__global__ void __launch_bounds__(kFwdWarps * kWarp, 2)
+fwd_wide_y_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ psi,
+                  const float4* __restrict__ table, float* __restrict__ A1,
+                  float* __restrict__ A2, float* __restrict__ YW, int N, int G, int Kf,
+                  int nA2, WidePlan p, int stage_f4, bool vec) {
+  using Elem = typename YStore<YT>::Elem;
+  constexpr int kRow = kFwdWideGenes + 16 / (int)sizeof(Elem);  // a staged Y row, padded 16 bytes
+  constexpr bool kPair = NY > 10;
+  constexpr int NT = kPair ? NY / 2 : NY;                      // tiles a warp
+  constexpr int kGroups = kPair ? kFwdWarps / 2 : kFwdWarps;  // row groups a block
+  extern __shared__ float4 s_dyn[];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int rg = warp % kGroups, half = warp / kGroups;
+  const int fr = lane >> 2, fc = lane & 3;
+  const int row0 = (blockIdx.x * kGroups + rg) * kFwdRows;
+  const int n0 = row0 + fr, n1 = n0 + 8;
+  const int y0 = p.n_kc + p.n_zgroups * p.zt_group, n_tab = y0 + NY;
+
+  // cp.async of stage s (genes [32 s, 32 s + 32)) into buffer buf: the
+  // table's Y tiles, and the row group's 16 rows (by the first warp of the
+  // group, whose lane copies the pieces pc = lane + 32 i: row pc / 8,
+  // genes 4 (pc % 8) .. + 3).
+  auto stage = [&](int s, int buf) {
+    float4* dst = s_dyn + (size_t)buf * stage_f4;
+    const int ks0 = s * kFwdWideSteps;
+    for (int i = threadIdx.x; i < kFwdWideSteps * NY * kWarp; i += blockDim.x) {
+      const int l = i % kWarp, r = (i / kWarp) % NY, ks = i / (kWarp * NY);
+      cp_async_zfill<16>(dst + i, table + ((size_t)(ks0 + ks) * n_tab + y0 + r) * kWarp + l, 16);
+    }
+    if (half == 0) {
+      Elem* sy = reinterpret_cast<Elem*>(dst + kFwdWideSteps * NY * kWarp) + rg * kFwdRows * kRow;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int pc = lane + kWarp * i, r = pc >> 3, q = pc & 7, n = row0 + r;
+        stage_y_piece<YT>(sy + r * kRow + 4 * q, Y + (size_t)(n < N ? n : 0) * G, n < N,
+                          s * kFwdWideGenes + 4 * q, G, vec);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+
+  const int n_stages = p.g_pad / kFwdWideGenes;
+  stage(0, 0);
+#pragma unroll 1
+  for (int s = 0; s < n_stages; ++s) {
+    const int buf = s & 1;
+    cp_async_wait_all();
+    __syncthreads();  // the stage has landed, and the other buffer is free
+    if (s + 1 < n_stages) stage(s + 1, buf ^ 1);
+    const float4* tab = s_dyn + (size_t)buf * stage_f4;
+    const Elem* sy =
+        reinterpret_cast<const Elem*>(tab + kFwdWideSteps * NY * kWarp) + rg * kFwdRows * kRow;
+#pragma unroll 1
+    for (int ks = 0; ks < kFwdWideSteps; ++ks) {
+      // Y at the A positions (rows n0, n1; genes 2c, 2c + 1 of the k-step,
+      // C-to-A order), exact, split into hi and lo; each n-tile's three
+      // products in fresh accumulators.
+      const float2 u = y_pair<YT>(sy + fr * kRow + 8 * ks + 2 * fc);
+      const float2 v = y_pair<YT>(sy + (fr + 8) * kRow + 8 * ks + 2 * fc);
+      const float c[4] = {u.x, u.y, v.x, v.y};
+      uint32_t ah[4], al[4];
+      c_to_a(c, ah, al);
+      const float4* b = tab + (ks * NY + half * NT) * kWarp + lane;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(d, ah, al, b[t * kWarp]);
+        add4(acc[t], d);
       }
     }
   }
-  if (with_a1) {  // the 32 lanes of a warp hold one row's sums over disjoint genes
+
+  // D fragment order: (n0, 2c), (n0, 2c + 1), (n1, 2c), (n1, 2c + 1).
+  float a1[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      float v = a1[i];
+  for (int t = 0; t < NT; ++t)
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      const int nr = n0 + warp + kRowStep * i;
-      if (lane == 0 && nr < N) A1[nr] = v;
+    for (int e = 0; e < 4; ++e) {
+      const int n = e < 2 ? n0 : n1, c = 8 * (half * NT + t) + 2 * fc + (e & 1);
+      if (n < N && c < Kf) {
+        YW[(size_t)n * Kf + c] = acc[t][e];
+        a1[e >> 1] = fmaf(psi[(size_t)n * Kf + c], acc[t][e], a1[e >> 1]);
+      } else if (n < N && c < Kf + nA2) {
+        A2[(size_t)n * nA2 + c - Kf] = acc[t][e];
+      }
     }
+  // A1: the 4 lanes of a row group hold disjoint columns.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a1[h] += __shfl_xor_sync(0xffffffffu, a1[h], 1);
+    a1[h] += __shfl_xor_sync(0xffffffffu, a1[h], 2);
   }
+  if (half == 0 && fc == 0 && n0 < N) A1[n0] = a1[0];
+  if (half == 0 && fc == 0 && n1 < N) A1[n1] = a1[1];
 }
 #endif  // FL_ANY_TYPED
 
@@ -1302,147 +1657,305 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ W,
 }
 #endif  // FL_COMMON
 
+#if FL_COMMON
+// The gene part's cell side, once a call, as (hi, lo) TF32 pairs: dZ
+// (n_pad x 8 mu_passes nj), psi (n_pad x 8 n_kc) and dA2 (n_pad x 8 n_st);
+// and dA1 (n_pad floats). Zero past N and every width.
+__global__ void gene_wide_pack_kernel(const float* __restrict__ psi, const float* __restrict__ dA1,
+                                      const float* __restrict__ dA2, const float* __restrict__ dZ,
+                                      float2* __restrict__ dz, float2* __restrict__ ps,
+                                      float2* __restrict__ a2, float* __restrict__ a1, int N,
+                                      int Kf, int nA2, int SC, WidePlan p) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const int dz_cols = 8 * p.mu_passes * p.nj;
+  const long long nd = (long long)p.n_pad * dz_cols, np = (long long)p.n_pad * 8 * p.n_kc,
+                  na = (long long)p.n_pad * 8 * p.n_st;
+  if (i < nd) {
+    const int n = (int)(i / dz_cols), j = (int)(i % dz_cols);
+    dz[i] = tf32_pair(n < N && j < SC ? dZ[(size_t)n * SC + j] : 0.f);
+  } else if (i < nd + np) {
+    const long long e = i - nd;
+    const int n = (int)(e / (8 * p.n_kc)), k = (int)(e % (8 * p.n_kc));
+    ps[e] = tf32_pair(n < N && k < Kf ? psi[(size_t)n * Kf + k] : 0.f);
+  } else if (i < nd + np + na) {
+    const long long e = i - nd - np;
+    const int n = (int)(e / (8 * p.n_st)), s = (int)(e % (8 * p.n_st));
+    a2[e] = tf32_pair(n < N && s < nA2 ? dA2[(size_t)n * nA2 + s] : 0.f);
+  } else if (i < nd + np + na + p.n_pad) {
+    const int n = (int)(i - nd - np - na);
+    a1[n] = n < N ? dA1[n] : 0.f;
+  }
+}
+#endif  // FL_COMMON
+
+// Row strides (in (hi, lo) pairs) of a gene-part stage's dZ, psi and dA2
+// rows: 4 past a whole number of 8-column tiles, so that the 8 x 4 reads of
+// a B fragment (cell l / 4, column l % 4) hit distinct banks.
+__host__ __device__ inline int gene_dz_stride(const WidePlan& p) { return 8 * p.nj + 4; }
+__host__ __device__ inline int gene_ps_stride(const WidePlan& p) { return 8 * p.n_kc + 4; }
+__host__ __device__ inline int gene_a2_stride(const WidePlan& p) { return p.n_st ? 8 * p.n_st + 4 : 0; }
+
+
 #if FL_ANY_TYPED
 // Backward, wide, gene part: part[chunk, f, g] for f in [dW^T (Kf rows) |
-// d(muL)^T (SC rows) | dlog_mu (nA2 rows)] over one chunk of cells, in
-// passes over kWideJ columns of dZ and muL, with 32-cell tiles:
-//   drfe = dZ muL^T and rfe = exp(psi W^T) at cell t % 32, genes 8 (t / 32) .. + 8;
-//   d(muL)[g, pass's columns] += rfe^T dZ, at gene t % 64, columns 8 (t / 64) .. + 8;
-//   dW[g,k] += sum_n dlog_rfe[n,g] psi[n,k], dlog_rfe = rfe drfe (+ Y dA1 in
-//   the first pass), and dlog_mu[s,g] += sum_n dA2[n,s] Y[n,g] in the first
-//   pass: pairs p = t + 256 i, gene p % 64, column p / 64 (dW's Kf, then
-//   dlog mu's nA2).
-// Dynamic shared memory: W^T of the block's genes (Kf x kGeneGenes), then
-// the tile's psi^T (Kf x 33), dA2^T (nA2 x 33) and dA1 (kGeneCells).
-template <int YT>
-__global__ void __launch_bounds__(kWideThreads)
-gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ psi,
-                 const float* __restrict__ W, const float* __restrict__ muL,
-                 const float* __restrict__ dA1, const float* __restrict__ dA2,
-                 const float* __restrict__ dZ, float* __restrict__ part, int N, int G,
-                 int Kf, int nA2, int SC, int rows_per_chunk) {
-  constexpr int kCS = kGeneCells + 1;  // row stride of the tile's cell vectors
-  __shared__ __align__(16) float s_mt[kWideJ][kGeneGenes + 4];  // the pass's muL^T
-  __shared__ float s_dz[kGeneCells][kWideJ + 1];                // the tile's dZ, for drfe
-  __shared__ __align__(16) float s_dz4[kGeneCells][kWideJ];     // the same, for d(muL)
-  __shared__ float s_r[kGeneCells][kGeneGenes + 1];             // rfe
-  __shared__ float s_t[kGeneCells][kGeneGenes + 1];             // dlog_rfe (this pass's part)
-  __shared__ float s_y[kGeneCells][kGeneGenes + 1];             // Y
-  extern __shared__ __align__(16) float s_wide[];
-  float* s_w = s_wide;                      // [k][gene of the block]
-  float* s_psi = s_w + Kf * kGeneGenes;     // [k][cell of the tile]
-  float* s_da2 = s_psi + Kf * kCS;          // [s][cell of the tile]
-  float* s_da1 = s_da2 + nA2 * kCS;         // [cell of the tile]
-
-  const int t = threadIdx.x, lane = t % kWarp, warp = t / kWarp;
-  const int gb = blockIdx.x * kGeneGenes;
+// d(muL)^T (SC rows) | dlog_mu (nA2 rows)] over one chunk of cells. Grid
+// (blocks of kGeneWideGenes genes, p.n_chunks chunks). Accumulator tiles:
+// [0, NJ) d(muL) of a pass's NJ = p.nj columns tiles (every loop over them
+// runs NJ times, so their MMA chains interleave), then dW's n_kc tiles
+// (summed over every pass) and, in the first pass, dlog mu's n_st.
+// (In a first pass of its own, dlog mu takes d(muL)'s first n_st tiles:
+// the plan holds nj >= n_st there, so they stay apart from dW's.) Dynamic
+// shared memory: W's A fragments of each warp as floats ([warp][kc][lane])
+// and the pass's muL A fragments split ([warp][tile][hi, lo][lane]), then
+// two stage buffers of stage_f4
+// float4s: 16 cells' dZ pairs of the pass's columns, psi pairs, dA2 pairs
+// (the first pass), dA1, and Y's rows of the block's 64 genes in the
+// storage type.
+template <int YT, int NJ>
+__global__ void __launch_bounds__(kGeneWideWarps * kWarp, NJ > 10 ? 2 : 3)
+gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ W,
+                 const float* __restrict__ muL, const float2* __restrict__ dzp,
+                 const float2* __restrict__ psp, const float2* __restrict__ a2p,
+                 const float* __restrict__ a1p, float* __restrict__ part, int N, int G, int Kf,
+                 int nA2, int SC, WidePlan p, int stage_f4, bool vec) {
+  using Elem = typename YStore<YT>::Elem;
+  constexpr int kRow = kGeneWideGenes + 16 / (int)sizeof(Elem);  // a staged Y row, padded 16 bytes
+  constexpr int kSteps2 = kGeneWideCells / 8;
+  constexpr int NT = kWideTiles;
+  extern __shared__ float4 s_dyn[];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  // MMA fragments: A rows (genes) g0 and g1, A columns c and c + 4 of a
+  // k-step; C columns (cells of the k-step) 2c and 2c + 1.
+  const int fr = lane >> 2, fc = lane & 3;
+  const int gb = blockIdx.x * kGeneWideGenes, gl0 = warp * kFwdRows + fr;
+  const int g0 = gb + gl0, g1 = g0 + 8;
   const int chunk = blockIdx.y;
-  const int n_begin = chunk * rows_per_chunk;
-  const int n_end = min(N, n_begin + rows_per_chunk);
+  const int n_begin = chunk * p.rows;
+  const int n_stages = (min(N, n_begin + p.rows) - n_begin + kGeneWideCells - 1) / kGeneWideCells;
   const int F = Kf + SC + nA2;
-  const int g_out = warp * kWideOut;                                    // drfe, rfe
-  const int gm = t % kGeneGenes, j_out = (t / kGeneGenes) * kWideOut;  // d(muL)
+  const int dz_cols = 8 * p.mu_passes * NJ;  // packed dZ columns (pairs) a cell
+  const int sdz = gene_dz_stride(p), sps = gene_ps_stride(p), sa2 = gene_a2_stride(p);
+  float4* s_w = s_dyn + warp * p.n_kc * kWarp;
+  float4* s_mu = s_dyn + kGeneWideWarps * p.n_kc * kWarp + warp * NJ * 2 * kWarp;
+  float4* s_stage = s_dyn + kGeneWideWarps * (p.n_kc * kWarp + NJ * 2 * kWarp);
 
-  for (int i = t; i < Kf * kGeneGenes; i += kWideThreads) {
-    const int g = gb + i % kGeneGenes;
-    s_w[i] = g < G ? W[(size_t)g * Kf + i / kGeneGenes] : 0.f;
+  // W's A fragments (genes g0, g1; columns 8 kc + c, + 4), as floats, split
+  // where they are used (the fragment is a small share of the MMAs, and
+  // unsplit it takes half the room); each lane reads back only its own.
+#pragma unroll 1
+  for (int kc = 0; kc < p.n_kc; ++kc) {
+    const int k0 = 8 * kc + fc, k1 = k0 + 4;
+    s_w[kc * kWarp + lane] = make_float4(g0 < G && k0 < Kf ? W[(size_t)g0 * Kf + k0] : 0.f,
+                                         g1 < G && k0 < Kf ? W[(size_t)g1 * Kf + k0] : 0.f,
+                                         g0 < G && k1 < Kf ? W[(size_t)g0 * Kf + k1] : 0.f,
+                                         g1 < G && k1 < Kf ? W[(size_t)g1 * Kf + k1] : 0.f);
   }
-  double acc[kGenePairs];
+
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < kGenePairs; ++i) acc[i] = 0.0;
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
 #pragma unroll 1
-  for (int c0 = 0; c0 < SC; c0 += kWideJ) {
-    const bool first = c0 == 0;
-    __syncthreads();  // the previous pass is done with s_mt
-    for (int i = t; i < kWideJ * kGeneGenes; i += kWideThreads) {
-      // 8 columns of 4 genes a warp, as in dpsi_wide_kernel
-      const int j = (i >> 9) * 8 + (i & 7), gl = (i >> 3) & 63, g = gb + gl, c = c0 + j;
-      s_mt[j][gl] = (g < G && c < SC) ? muL[(size_t)g * SC + c] : 0.f;
+  for (int pass = 0; pass < p.n_passes; ++pass) {
+    const bool first = pass == 0;
+    const bool with_mu = !(first && p.y_pass);
+    const int jt_begin = (pass - p.y_pass) * NJ;
+    const int ny = first ? p.n_st : 0;
+    // dlog mu's first tile: after dW's, or in a pass of its own in place of
+    // d(muL)'s
+    const int t_mu = p.y_pass ? 0 : NJ + p.n_kc;
+    // muL's A fragments of the pass's columns (genes g0, g1; columns 8 jt +
+    // c, + 4; zero past SC), split once a pass; each lane reads back only
+    // its own. A pass without d(muL) has zero fragments: drfe = 0.
+#pragma unroll 1
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int j0 = 8 * (jt_begin + jj) + fc, j1 = j0 + 4;
+      const bool in = with_mu;
+      const float v[4] = {in && g0 < G && j0 < SC ? muL[(size_t)g0 * SC + j0] : 0.f,
+                          in && g1 < G && j0 < SC ? muL[(size_t)g1 * SC + j0] : 0.f,
+                          in && g0 < G && j1 < SC ? muL[(size_t)g0 * SC + j1] : 0.f,
+                          in && g1 < G && j1 < SC ? muL[(size_t)g1 * SC + j1] : 0.f};
+      store_a(s_mu + 2 * jj * kWarp + lane, v);
     }
-    double dm[kWideOut];
 #pragma unroll
-    for (int e = 0; e < kWideOut; ++e) dm[e] = 0.0;
-    const int n_pairs = kGeneGenes * (Kf + (first ? nA2 : 0));
+    for (int t = 0; t < NJ; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 
-#pragma unroll 1
-    for (int ns = n_begin; ns < n_end; ns += kGeneCells) {
-      __syncthreads();  // the previous tile is consumed
-      for (int i = t; i < kGeneCells * kWideJ; i += kWideThreads) {
-        const int r = i / kWideJ, j = i % kWideJ, n = ns + r, c = c0 + j;
-        const float v = (n < n_end && c < SC) ? dZ[(size_t)n * SC + c] : 0.f;
-        s_dz[r][j] = v;
-        s_dz4[r][j] = v;
+    // cp.async of stage s (cells [n_begin + 16 s, + 16)) into buffer buf.
+    // The chunks' cells are whole stages, and the packed cell side runs to
+    // n_pad, so no row is masked; Y's rows past N are zero-filled.
+    auto stage = [&](int s, int buf) {
+      float* base = reinterpret_cast<float*>(s_stage + (size_t)buf * stage_f4);
+      const int c0 = n_begin + s * kGeneWideCells;
+      if (with_mu) {
+        constexpr int wdz = 4 * NJ;  // float4s a cell row
+        for (int i = threadIdx.x; i < kGeneWideCells * wdz; i += blockDim.x) {
+          const int c = i / wdz, w = i % wdz;
+          cp_async_zfill<16>(base + 2 * c * sdz + 4 * w,
+                             dzp + (size_t)(c0 + c) * dz_cols + 8 * jt_begin + 2 * w, 16);
+        }
       }
-      for (int i = t; i < Kf * kGeneCells; i += kWideThreads) {
-        const int k = i / kGeneCells, r = i % kGeneCells, n = ns + r;
-        s_psi[k * kCS + r] = n < n_end ? psi[(size_t)n * Kf + k] : 0.f;
+      float* b_ps = base + 2 * kGeneWideCells * sdz;
+      const int wps = 4 * p.n_kc;
+      for (int i = threadIdx.x; i < kGeneWideCells * wps; i += blockDim.x) {
+        const int c = i / wps, w = i % wps;
+        cp_async_zfill<16>(b_ps + 2 * c * sps + 4 * w, psp + (size_t)(c0 + c) * 8 * p.n_kc + 2 * w, 16);
       }
       if (first) {
-        for (int i = t; i < kGeneCells * kGeneGenes; i += kWideThreads) {
-          const int r = i / kGeneGenes, gl = i % kGeneGenes, n = ns + r, g = gb + gl;
-          s_y[r][gl] = (n < n_end && g < G) ? y_to_float<YT>(Y[(size_t)n * G + g]) : 0.f;
+        float* b_a2 = b_ps + 2 * kGeneWideCells * sps;
+        const int wa2 = 4 * p.n_st;
+        for (int i = threadIdx.x; i < kGeneWideCells * wa2; i += blockDim.x) {
+          const int c = i / wa2, w = i % wa2;
+          cp_async_zfill<16>(b_a2 + 2 * c * sa2 + 4 * w, a2p + (size_t)(c0 + c) * 8 * p.n_st + 2 * w, 16);
         }
-        for (int i = t; i < nA2 * kGeneCells; i += kWideThreads) {
-          const int s = i / kGeneCells, r = i % kGeneCells, n = ns + r;
-          s_da2[s * kCS + r] = n < n_end ? dA2[(size_t)n * nA2 + s] : 0.f;
+        float* b_a1 = b_a2 + 2 * kGeneWideCells * sa2;
+        if (threadIdx.x < kGeneWideCells / 4)
+          cp_async_zfill<16>(b_a1 + 4 * threadIdx.x, a1p + c0 + 4 * threadIdx.x, 16);
+        // Y: 16 rows of 16 pieces (the block's 64 genes); thread t copies
+        // pieces t and t + 128
+        Elem* sy = reinterpret_cast<Elem*>(b_a1 + kGeneWideCells);
+        for (int i = threadIdx.x; i < kGeneWideCells * kGeneWideGenes / 4; i += blockDim.x) {
+          const int r = i / (kGeneWideGenes / 4), q = i % (kGeneWideGenes / 4), n = c0 + r;
+          stage_y_piece<YT>(sy + r * kRow + 4 * q, Y + (size_t)(n < N ? n : 0) * G, n < N,
+                            gb + 4 * q, G, vec);
         }
-        if (t < kGeneCells) s_da1[t] = ns + t < n_end ? dA1[ns + t] : 0.f;
       }
-      __syncthreads();
-      // drfe and rfe; cells past the chunk have dZ = psi = dA1 = Y = 0, so
-      // they add nothing below
-      float d[kWideOut], lr[kWideOut];
-#pragma unroll
-      for (int e = 0; e < kWideOut; ++e) d[e] = lr[e] = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < kWideJ; ++j) fma8(d, s_dz[lane][j], &s_mt[j][g_out]);
+      cp_async_commit();
+    };
+
+    __syncthreads();  // the previous pass is done with the ring
+    stage(0, 0);
 #pragma unroll 1
-      for (int k = 0; k < Kf; ++k) fma8(lr, s_psi[k * kCS + lane], &s_w[k * kGeneGenes + g_out]);
+    for (int s = 0; s < n_stages; ++s) {
+      const int buf = s & 1;
+      cp_async_wait_all();
+      __syncthreads();  // the stage has landed, and the other buffer is free
+      if (s + 1 < n_stages) stage(s + 1, buf ^ 1);
+      const float* base = reinterpret_cast<const float*>(s_stage + (size_t)buf * stage_f4);
+      const float2* s_dz = reinterpret_cast<const float2*>(base);
+      const float2* s_ps = reinterpret_cast<const float2*>(base + 2 * kGeneWideCells * sdz);
+      const float2* s_a2 = s_ps + kGeneWideCells * sps;
+      const float* s_a1 = reinterpret_cast<const float*>(s_a2 + kGeneWideCells * sa2);
+      const Elem* sy = reinterpret_cast<const Elem*>(s_a1 + kGeneWideCells);
+      // The stage's k-steps unrolled, so that one k-step's chain (log_rfe,
+      // exp, drfe, dlog_rfe, dW) runs beside the other's.
 #pragma unroll
-      for (int e = 0; e < kWideOut; ++e) {
-        const float rfe = __expf(lr[e]);
-        float v = rfe * d[e];
-        if (first) v = fmaf(s_y[lane][g_out + e], s_da1[lane], v);
-        s_r[lane][g_out + e] = rfe;
-        s_t[lane][g_out + e] = v;
-      }
-      __syncthreads();
-      float tile[kWideOut] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int r = 0; r < kGeneCells; ++r) fma8(tile, s_r[r][gm], &s_dz4[r][j_out]);
+      for (int h2 = 0; h2 < kSteps2; ++h2) {
+        const int cb = 8 * h2;  // the k-step's first cell in the stage
+        // log_rfe^T (genes g0, g1; cells cb + 2c, + 1) = W psi^T: B = psi^T
+        // at (k = 8 kc + c (+ 4), cell cb + l / 4).
+        float lr[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+        for (int kc = 0; kc < p.n_kc; ++kc) {
+          const float4 w = s_w[kc * kWarp + lane];
+          const float wv[4] = {w.x, w.y, w.z, w.w};
+          uint32_t wh[4], wl[4];
 #pragma unroll
-      for (int e = 0; e < kWideOut; ++e) dm[e] += tile[e];
-#pragma unroll
-      for (int i = 0; i < kGenePairs; ++i) {
-        const int p = t + kWideThreads * i;
-        if (p >= n_pairs) break;
-        const int gl = p % kGeneGenes, c = p / kGeneGenes;
-        float v = 0.f;
-        if (c < Kf) {
-#pragma unroll 8
-          for (int r = 0; r < kGeneCells; ++r) v = fmaf(s_t[r][gl], s_psi[c * kCS + r], v);
-        } else {
-#pragma unroll 8
-          for (int r = 0; r < kGeneCells; ++r) v = fmaf(s_y[r][gl], s_da2[(c - Kf) * kCS + r], v);
+          for (int e = 0; e < 4; ++e) split_tf32_int(wv[e], wh[e], wl[e]);
+          const float2* q = s_ps + (cb + fr) * sps + 8 * kc + fc;
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(d, wh, wl, pair_b(q[0], q[4]));
+          add4(lr, d);
         }
-        acc[i] += v;
+        float rfe[4], dl[4] = {0.f, 0.f, 0.f, 0.f}, y[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rfe[e] = __expf(lr[e]);
+        if (with_mu) {
+          // drfe^T = muL dZ^T over the pass's columns: B = dZ^T at (j = 8 jj +
+          // c (+ 4), cell cb + l / 4); each tile's products in fresh
+          // accumulators. Then d(muL) += rfe^T dZ: B rows c and c + 4 are
+          // cells cb + 2c and cb + 2c + 1 (C-to-A order), B column l / 4.
+          const float2* q = s_dz + (cb + fr) * sdz + fc;
+#pragma unroll 2
+          for (int jj = 0; jj < NJ; ++jj) {
+            uint32_t mh[4], ml[4];
+            load_a(s_mu + 2 * jj * kWarp + lane, mh, ml);
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_3xtf32(d, mh, ml, pair_b(q[8 * jj], q[8 * jj + 4]));
+            add4(dl, d);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dl[e] *= rfe[e];
+          uint32_t ah[4], al[4];
+          c_to_a(rfe, ah, al);
+          const float2* q_dz = s_dz + (cb + 2 * fc) * sdz + fr;
+#pragma unroll
+          for (int t = 0; t < NJ; ++t) {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_3xtf32(d, ah, al, pair_b(q_dz[8 * t], q_dz[sdz + 8 * t]));
+            add4(acc[t], d);
+          }
+        }
+        // dlog_rfe = rfe drfe (+ Y dA1 in the first pass), at C positions
+        // (g0, cb + 2c), (g0, cb + 2c + 1), (g1, ...), (g1, ...).
+        if (first) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = cb + 2 * fc + (e & 1);
+            y[e] = y_one<YT>(sy[c * kRow + gl0 + 8 * (e >> 1)]);
+            dl[e] = fmaf(y[e], s_a1[c], dl[e]);
+          }
+        }
+        {  // dW += dlog_rfe^T psi
+          uint32_t ah[4], al[4];
+          c_to_a(dl, ah, al);
+          const float2* q_ps = s_ps + (cb + 2 * fc) * sps + fr;
+#pragma unroll
+          for (int t = NJ; t < NT; ++t) {
+            if (t - NJ < p.n_kc) {
+              const int k8 = 8 * (t - NJ);
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_3xtf32(d, ah, al, pair_b(q_ps[k8], q_ps[sps + k8]));
+              add4(acc[t], d);
+            }
+          }
+        }
+        if (ny > 0) {  // dlog mu += Y^T dA2
+          uint32_t ah[4], al[4];
+          c_to_a(y, ah, al);
+          const float2* q_a2 = s_a2 + (cb + 2 * fc) * sa2 + fr;
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            const int u = t - t_mu;
+            if (u >= 0 && u < ny) {
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_3xtf32(d, ah, al, pair_b(q_a2[8 * u], q_a2[sa2 + 8 * u]));
+              add4(acc[t], d);
+            }
+          }
+        }
       }
     }
-    const int g = gb + gm;
+
+    // The pass's d(muL) columns and, in the first pass, dlog mu. D fragment
+    // order: (g0, 2c), (g0, 2c + 1), (g1, 2c), (g1, 2c + 1).
 #pragma unroll
-    for (int e = 0; e < kWideOut; ++e) {
-      const int c = c0 + j_out + e;
-      if (g < G && c < SC) part[((size_t)chunk * F + Kf + c) * G + g] = (float)dm[e];
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int g = e < 2 ? g0 : g1, c = 2 * fc + (e & 1);
+        if (g >= G) continue;
+        const int s8 = 8 * (t - t_mu) + c;
+        if (first && s8 >= 0 && s8 < 8 * p.n_st) {
+          if (s8 < nA2) part[((size_t)chunk * F + Kf + SC + s8) * G + g] = acc[t][e];
+        } else if (t < NJ && with_mu) {
+          const int j = 8 * (jt_begin + t) + c;
+          if (j < SC) part[((size_t)chunk * F + Kf + j) * G + g] = acc[t][e];
+        }
+      }
     }
   }
+  // dW, summed over every pass.
 #pragma unroll
-  for (int i = 0; i < kGenePairs; ++i) {
-    const int p = t + kWideThreads * i;
-    if (p >= kGeneGenes * (Kf + nA2)) break;
-    const int g = gb + p % kGeneGenes, c = p / kGeneGenes;
-    // dW^T rows, then dlog mu's after d(muL)'s
-    if (g < G) part[((size_t)chunk * F + (c < Kf ? c : SC + c)) * G + g] = (float)acc[i];
+  for (int t = NJ; t < NT; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int g = e < 2 ? g0 : g1, k = 8 * (t - NJ) + 2 * fc + (e & 1);
+      if (g < G && k < Kf && t - NJ < p.n_kc) part[((size_t)chunk * F + k) * G + g] = acc[t][e];
+    }
   }
 }
 #endif  // FL_ANY_TYPED
@@ -1526,20 +2039,146 @@ bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk, int y_
 }
 
 // The wide family's sizes; rows_per_chunk (the gene part's) a whole number
-// of 32-cell tiles.
+// of 16-cell stages.
 bool bad_wide_sizes(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk, int y_type) {
   return N < 1 || G < 1 || Kf < 0 || Kf > kWideMaxKf || nA2 < 0 || nA2 > kWideMaxA2 ||
-         SC < 1 || SC > kWideMaxSC || rows_per_chunk < 1 || rows_per_chunk % kGeneCells ||
+         SC < 1 || SC > kWideMaxSC || rows_per_chunk < 1 || rows_per_chunk % kGeneWideCells ||
          y_type < kYF32 || y_type > kYI8;
+}
+
+inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+inline bool is_tile_count(long long t) {
+  for (int c : kWideTileCounts)
+    if (c == t) return true;
+  return false;
+}
+inline bool is_y_tile_count(long long t) {
+  for (int c : kWideYTileCounts)
+    if (c == t) return true;
+  return false;
+}
+
+// The plan ops/fused_likelihood.py's wide_plan made (its WIDE_PLAN_KEYS, in
+// order), or false where a number does not fit these sizes: every width's
+// tiles, each group or pass a built count and within kWideTiles beside the
+// tiles it shares a warp with, dlog mu's tiles in a Y pass within d(muL)'s
+// (it takes them), every cell in a chunk of whole stages and within the
+// packed rows, grid.y within 65535, and every workspace region at least what
+// the kernels address in it.
+bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, WidePlan& p) {
+  p.n_kc = (int)v[0], p.n_zt = (int)v[1], p.n_yt = (int)v[2], p.n_st = (int)v[3];
+  p.g_pad = (int)v[4], p.zt_group = (int)v[5], p.n_zgroups = (int)v[6], p.ny_pad = (int)v[7];
+  p.rows = (int)v[8], p.n_chunks = (int)v[9], p.n_pad = (int)v[10], p.nj = (int)v[11];
+  p.mu_passes = (int)v[12], p.y_pass = (int)v[13], p.n_passes = (int)v[14];
+  p.table = (size_t)v[15], p.part = (size_t)v[16], p.dz = (size_t)v[17];
+  p.ps = (size_t)v[18], p.a2 = (size_t)v[19], p.a1 = (size_t)v[20];
+  for (int i = 0; i < 21; ++i)
+    if (v[i] < 0 || (i < 15 && v[i] > 0x7fffffff)) return false;
+  const long long F = (long long)Kf + SC + nA2;
+  return p.n_kc == cdiv(Kf, 8) && p.n_zt == cdiv(SC, 8) && p.n_yt == cdiv(Kf + nA2, 8) &&
+         p.n_st == cdiv(nA2, 8) && p.g_pad % kFwdWideGenes == 0 && p.g_pad >= G &&
+         is_tile_count(p.zt_group) && p.n_zgroups >= 1 && p.n_zgroups <= 65535 &&
+         (long long)p.n_zgroups * p.zt_group >= p.n_zt && is_y_tile_count(p.ny_pad) &&
+         p.ny_pad >= p.n_yt && p.rows >= kGeneWideCells && p.rows % kGeneWideCells == 0 &&
+         p.n_chunks >= 1 && p.n_chunks <= 65535 && (long long)p.n_chunks * p.rows >= N &&
+         p.n_pad % kGeneWideCells == 0 && p.n_pad >= N && is_tile_count(p.nj) &&
+         (long long)p.mu_passes * p.nj >= p.n_zt && (p.y_pass == 0 || p.y_pass == 1) &&
+         p.n_passes == p.mu_passes + p.y_pass &&
+         p.nj + p.n_kc + (p.y_pass ? 0 : p.n_st) <= kWideTiles &&
+         (!p.y_pass || p.nj >= p.n_st) &&
+         p.table >= (size_t)(p.g_pad / 8) * (p.n_kc + p.n_zgroups * p.zt_group + p.ny_pad) * kWarp * 4 &&
+         p.part >= (size_t)p.n_chunks * F * G && p.part % 4 == 0 &&
+         p.dz >= (size_t)p.n_pad * 16 * p.mu_passes * p.nj &&
+         p.ps >= (size_t)p.n_pad * 16 * p.n_kc && p.ps % 4 == 0 &&
+         p.a2 >= (size_t)p.n_pad * 16 * p.n_st && p.a2 % 4 == 0 && p.dz % 4 == 0 &&
+         p.a1 >= (size_t)p.n_pad;
 }
 #endif  // FL_COMMON
 
 // Shared memory the wide kernels take beyond their static arrays.
-inline int fwd_wide_smem(int Kf, int TN) { return Kf * (TN + kWideG) * (int)sizeof(float); }
 inline int dpsi_wide_smem(int Kf) { return Kf * (kDpsiCells + kWideG) * (int)sizeof(float); }
-inline int gene_wide_smem(int Kf, int nA2) {
-  return (Kf * kGeneGenes + (Kf + nA2) * (kGeneCells + 1) + kGeneCells) * (int)sizeof(float);
+
+// Float4s of a stage buffer and bytes of dynamic shared memory, at y_bytes
+// a count of Y: fwd_wide_kernel's `steps` k-steps of W^T and Z tiles (after
+// the row groups' psi fragments); fwd_wide_y_kernel's 4 k-steps of Y tiles
+// and its warps' Y rows; gene_wide_kernel's 16 cells of dZ, psi and dA2
+// pairs at their strides, dA1 and 16 Y rows of the block's genes (after the
+// warps' W and muL fragments).
+// Past 10 tiles two warps share a row group (fwd_wide_kernel's note).
+inline int fwd_wide_groups(int tiles) { return tiles > 10 ? kFwdWarps / 2 : kFwdWarps; }
+inline int fwd_wide_stage_f4(const WidePlan& p, int steps) {
+  return steps * (p.n_kc + p.zt_group) * kWarp;
 }
+inline int fwd_wide_smem(const WidePlan& p, int steps) {
+  const int groups = fwd_wide_groups(p.zt_group);
+  const int a = p.zt_group > 10 ? groups * steps * 2 * kWarp : 0;
+  return 16 * (groups * p.n_kc * 2 * kWarp + 2 * fwd_wide_stage_f4(p, steps) + a);
+}
+// fwd_wide_kernel's k-steps a stage: 4, unless their shared memory would
+// leave room for one block an SM (the H100's 228 KB an SM less 1 KB a
+// block, kTwoBlockSmem a block for two); then 2, which at every width
+// fits two.
+constexpr int kTwoBlockSmem = (228 - 2) / 2 * 1024;
+inline int fwd_wide_steps(const WidePlan& p) {
+  return fwd_wide_smem(p, kFwdWideSteps) <= kTwoBlockSmem ? kFwdWideSteps : kFwdWideSteps / 2;
+}
+inline int fwd_wide_y_stage_f4(const WidePlan& p, int y_bytes) {
+  return kFwdWideSteps * p.ny_pad * kWarp +
+         fwd_wide_groups(p.ny_pad) * kFwdRows * (kFwdWideGenes * y_bytes + 16) / 16;
+}
+inline int fwd_wide_y_smem(const WidePlan& p, int y_bytes) {
+  return 16 * 2 * fwd_wide_y_stage_f4(p, y_bytes);
+}
+inline int gene_wide_stage_f4(const WidePlan& p, int y_bytes) {
+  return (2 * kGeneWideCells * (gene_dz_stride(p) + gene_ps_stride(p) + gene_a2_stride(p)) +
+          kGeneWideCells) / 4 +
+         kGeneWideCells * (kGeneWideGenes * y_bytes + 16) / 16;
+}
+inline int gene_wide_smem(const WidePlan& p, int y_bytes) {
+  return 16 * (kGeneWideWarps * (p.n_kc + 2 * p.nj) * kWarp + 2 * gene_wide_stage_f4(p, y_bytes));
+}
+
+// f(std::integral_constant<int, T>) for T the built tile count t
+// (kWideTileCounts), or the built Y tile count (kWideYTileCounts).
+template <class F>
+inline void tile_dispatch(int t, F&& f) {
+  switch (t) {
+    case 1: f(std::integral_constant<int, 1>{}); break;
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 6: f(std::integral_constant<int, 6>{}); break;
+    case 8: f(std::integral_constant<int, 8>{}); break;
+    case 10: f(std::integral_constant<int, 10>{}); break;
+    case 12: f(std::integral_constant<int, 12>{}); break;
+    default: f(std::integral_constant<int, 16>{});
+  }
+}
+template <class F>
+inline void y_tile_dispatch(int t, F&& f) {
+  switch (t) {
+    case 1: f(std::integral_constant<int, 1>{}); break;
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 8: f(std::integral_constant<int, 8>{}); break;
+    default: f(std::integral_constant<int, 16>{});
+  }
+}
+
+#if FL_COMMON
+// f(fwd_wide_kernel<NZ, STEPS>) for NZ the built tile count t and STEPS
+// the k-steps a stage, 4 or 2.
+template <class F>
+inline void fwd_wide_dispatch(int t, int steps, F&& f) {
+  tile_dispatch(t, [&](auto nz) {
+    constexpr int NZ = decltype(nz)::value;
+    if (steps == kFwdWideSteps)
+      f(fwd_wide_kernel<NZ, kFwdWideSteps>);
+    else
+      f(fwd_wide_kernel<NZ, kFwdWideSteps / 2>);
+  });
+}
+#endif  // FL_COMMON
 
 #if FL_ANY_TYPED
 template <int YT, int KF, int NT>
@@ -1611,65 +2250,98 @@ void gene_typed(const GeneArgs& a) {
   });
 }
 
-// The wide forward's column groups are JW = 16 or 32 wide: 16 when Z's SC
-// columns and the Y products' Kf + nA2 fit in 16, else 32 (a narrower group
-// has more cells a block, the same 8 outputs a thread).
+// The wide kernels that read Y, at plan a.plan: shared memory set for each
+// launch (the launch fails, and the entry point reports it, past the
+// card's 227 KB).
 template <int YT>
-void forward_wide_typed(const FwdArgs& a) {
+void forward_wide_typed(const FwdWideArgs& a) {
   using Elem = typename YStore<YT>::Elem;
+  using Piece = typename YStore<YT>::Piece;
+  const WidePlan& p = a.plan;
   const Elem* Y = static_cast<const Elem*>(a.Y);
-  auto launch = [&](auto jw) {
-    constexpr int JW = decltype(jw)::value, TN = kWideThreads * kWideOut / JW;
-    const int nZ = (a.SC + JW - 1) / JW;
-    const int nY = a.Kf + a.nA2 > JW ? (a.Kf + a.nA2 + JW - 1) / JW : 1;  // A1 takes one
-    const dim3 grid(blocks_for(a.N, TN), nZ + nY);
-    const int smem = fwd_wide_smem(a.Kf, TN);
-    cudaFuncSetAttribute(fwd_wide_kernel<YT, JW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const bool vec = a.G % 4 == 0 && reinterpret_cast<uintptr_t>(Y) % sizeof(Piece) == 0;
+  const int smem = fwd_wide_y_smem(p, sizeof(Elem)), stage_f4 = fwd_wide_y_stage_f4(p, sizeof(Elem));
+  y_tile_dispatch(p.ny_pad, [&](auto ny) {
+    constexpr int NY = decltype(ny)::value;
+    cudaFuncSetAttribute(fwd_wide_y_kernel<YT, NY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem);
-    fwd_wide_kernel<YT, JW><<<grid, kWideThreads, smem, a.stream>>>(
-        Y, a.psi, a.W, a.logmu, a.muL, a.A1, a.A2, a.Z, a.YW, a.N, a.G, a.Kf, a.nA2, a.SC, nZ);
-  };
-  if (a.SC <= 16 && a.Kf + a.nA2 <= 16)
-    launch(std::integral_constant<int, 16>{});
-  else
-    launch(std::integral_constant<int, 32>{});
+    fwd_wide_y_kernel<YT, NY><<<blocks_for(a.N, fwd_wide_groups(NY) * kFwdRows), kFwdWarps * kWarp,
+                                smem, a.stream>>>(Y, a.psi, a.table, a.A1, a.A2, a.YW, a.N, a.G, a.Kf,
+                                            a.nA2, p, stage_f4, vec);
+  });
 }
 
 template <int YT>
 void gene_wide_typed(const GeneWideArgs& a) {
   using Elem = typename YStore<YT>::Elem;
-  const dim3 grid(blocks_for(a.G, kGeneGenes), a.n_chunks);
-  const int smem = gene_wide_smem(a.Kf, a.nA2);
-  cudaFuncSetAttribute(gene_wide_kernel<YT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  gene_wide_kernel<YT><<<grid, kWideThreads, smem, a.stream>>>(
-      static_cast<const Elem*>(a.Y), a.psi, a.W, a.muL, a.dA1, a.dA2, a.dZ, a.part, a.N, a.G,
-      a.Kf, a.nA2, a.SC, a.rows_per_chunk);
+  using Piece = typename YStore<YT>::Piece;
+  const WidePlan& p = a.plan;
+  const Elem* Y = static_cast<const Elem*>(a.Y);
+  const bool vec = a.G % 4 == 0 && reinterpret_cast<uintptr_t>(Y) % sizeof(Piece) == 0;
+  const dim3 grid(blocks_for(a.G, kGeneWideGenes), p.n_chunks);
+  const int smem = gene_wide_smem(p, sizeof(Elem)), stage_f4 = gene_wide_stage_f4(p, sizeof(Elem));
+  tile_dispatch(p.nj, [&](auto nj) {
+    constexpr int NJ = decltype(nj)::value;
+    cudaFuncSetAttribute(gene_wide_kernel<YT, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    gene_wide_kernel<YT, NJ><<<grid, kGeneWideWarps * kWarp, smem, a.stream>>>(
+        Y, a.W, a.muL, a.dz, a.ps, a.a2, a.a1, a.part, a.N, a.G, a.Kf, a.nA2, a.SC, p, stage_f4, vec);
+  });
+}
+
+// Blocks an SM holds of fwd_wide_y_kernel (which 1) or gene_wide_kernel
+// (which 2) at the built tile count t and smem bytes of dynamic shared
+// memory (0 if it cannot run).
+template <int YT>
+int wide_blocks_per_sm(int which, int t, int smem) {
+  int blocks = 0;
+  if (which == 1) {
+    y_tile_dispatch(t, [&](auto ny) {
+      constexpr int NY = decltype(ny)::value;
+      cudaFuncSetAttribute(fwd_wide_y_kernel<YT, NY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fwd_wide_y_kernel<YT, NY>,
+                                                    kFwdWarps * kWarp, smem);
+    });
+  } else {
+    tile_dispatch(t, [&](auto nj) {
+      constexpr int NJ = decltype(nj)::value;
+      cudaFuncSetAttribute(gene_wide_kernel<YT, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gene_wide_kernel<YT, NJ>,
+                                                    kGeneWideWarps * kWarp, smem);
+    });
+  }
+  return blocks;
 }
 #endif  // FL_ANY_TYPED
 
 #if FL_TYPED(0)
 template void forward_typed<kYF32>(const FwdArgs&);
 template void gene_typed<kYF32>(const GeneArgs&);
-template void forward_wide_typed<kYF32>(const FwdArgs&);
+template void forward_wide_typed<kYF32>(const FwdWideArgs&);
 template void gene_wide_typed<kYF32>(const GeneWideArgs&);
+template int wide_blocks_per_sm<kYF32>(int, int, int);
 #endif
 #if FL_TYPED(1)
 template void forward_typed<kYBF16>(const FwdArgs&);
 template void gene_typed<kYBF16>(const GeneArgs&);
-template void forward_wide_typed<kYBF16>(const FwdArgs&);
+template void forward_wide_typed<kYBF16>(const FwdWideArgs&);
 template void gene_wide_typed<kYBF16>(const GeneWideArgs&);
+template int wide_blocks_per_sm<kYBF16>(int, int, int);
 #endif
 #if FL_TYPED(2)
 template void forward_typed<kYI16>(const FwdArgs&);
 template void gene_typed<kYI16>(const GeneArgs&);
-template void forward_wide_typed<kYI16>(const FwdArgs&);
+template void forward_wide_typed<kYI16>(const FwdWideArgs&);
 template void gene_wide_typed<kYI16>(const GeneWideArgs&);
+template int wide_blocks_per_sm<kYI16>(int, int, int);
 #endif
 #if FL_TYPED(3)
 template void forward_typed<kYI8>(const FwdArgs&);
 template void gene_typed<kYI8>(const GeneArgs&);
-template void forward_wide_typed<kYI8>(const FwdArgs&);
+template void forward_wide_typed<kYI8>(const FwdWideArgs&);
 template void gene_wide_typed<kYI8>(const GeneWideArgs&);
+template int wide_blocks_per_sm<kYI8>(int, int, int);
 #endif
 
 }  // namespace fl
@@ -1759,14 +2431,31 @@ int fl_backward_gene(const void* Y, const float* psi, const float* W,
 
 // The wide family: the same arguments and outputs as fl_forward,
 // fl_backward_dpsi and fl_backward_gene, for Kf <= 64, nA2 <= 64 and SC <=
-// 2048; fl_backward_gene_wide's scratch holds the (Kf+SC+nA2, G) partial sums
-// of each chunk of rows_per_chunk cells (a multiple of 32).
+// 2048, with the plan that ops/fused_likelihood.py's wide_plan made for
+// these sizes (its WIDE_PLAN_KEYS, in order; cudaErrorInvalidValue where it
+// does not fit them, wide_plan_of). fl_forward_wide's scratch (16-byte
+// aligned) holds the plan's table floats; fl_backward_gene_wide's its part
+// + dz + ps + a2 + a1 floats: the (Kf+SC+nA2, G) partial sums of each
+// chunk, then the packed cell side.
 int fl_forward_wide(const void* Y, const float* psi, const float* W,
                     const float* logmu, const float* muL, float* A1, float* A2,
-                    float* Z, float* YW, int N, int G, int Kf, int nA2, int SC,
-                    int y_type, cudaStream_t stream) {
-  if (bad_wide_sizes(N, G, Kf, nA2, SC, kGeneCells, y_type)) return (int)cudaErrorInvalidValue;
-  const FwdArgs a{Y, psi, W, logmu, muL, A1, A2, Z, YW, N, G, Kf, nA2, SC, stream};
+                    float* Z, float* YW, float* scratch, const long long* plan, int N, int G,
+                    int Kf, int nA2, int SC, int y_type, cudaStream_t stream) {
+  WidePlan p;
+  if (bad_wide_sizes(N, G, Kf, nA2, SC, kGeneWideCells, y_type) ||
+      !wide_plan_of(plan, N, G, Kf, nA2, SC, p))
+    return (int)cudaErrorInvalidValue;
+  float4* table = reinterpret_cast<float4*>(scratch);
+  fwd_wide_pack_kernel<<<blocks_for((long long)(p.table / 4), 256), 256, 0, stream>>>(
+      W, logmu, muL, table, G, Kf, nA2, SC, p);
+  const int steps = fwd_wide_steps(p);
+  const int smem = fwd_wide_smem(p, steps), stage_f4 = fwd_wide_stage_f4(p, steps);
+  const dim3 grid(blocks_for(N, fwd_wide_groups(p.zt_group) * kFwdRows), p.n_zgroups);
+  fwd_wide_dispatch(p.zt_group, steps, [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    kernel<<<grid, kFwdWarps * kWarp, smem, stream>>>(psi, table, Z, N, Kf, SC, p, stage_f4);
+  });
+  const FwdWideArgs a{Y, psi, table, A1, A2, Z, YW, N, G, Kf, nA2, SC, p, stream};
   switch (y_type) {
     case kYF32: forward_wide_typed<kYF32>(a); break;
     case kYBF16: forward_wide_typed<kYBF16>(a); break;
@@ -1780,7 +2469,7 @@ int fl_backward_dpsi_wide(const float* psi, const float* W, const float* muL,
                           const float* dA1, const float* dZ, const float* YW,
                           float* dpsi, int N, int G, int Kf, int SC,
                           cudaStream_t stream) {
-  if (bad_wide_sizes(N, G, Kf, 0, SC, kGeneCells, kYF32)) return (int)cudaErrorInvalidValue;
+  if (bad_wide_sizes(N, G, Kf, 0, SC, kGeneWideCells, kYF32)) return (int)cudaErrorInvalidValue;
   if (Kf == 0) return (int)cudaSuccess;
   const int smem = dpsi_wide_smem(Kf);
   cudaFuncSetAttribute(dpsi_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1791,14 +2480,20 @@ int fl_backward_dpsi_wide(const float* psi, const float* W, const float* muL,
 
 int fl_backward_gene_wide(const void* Y, const float* psi, const float* W,
                           const float* muL, const float* dA1, const float* dA2,
-                          const float* dZ, float* scratch, float* dgene, int N, int G,
-                          int Kf, int nA2, int SC, int rows_per_chunk, int y_type,
+                          const float* dZ, float* scratch, float* dgene, const long long* plan,
+                          int N, int G, int Kf, int nA2, int SC, int y_type,
                           cudaStream_t stream) {
-  if (bad_wide_sizes(N, G, Kf, nA2, SC, rows_per_chunk, y_type))
+  WidePlan p;
+  if (bad_wide_sizes(N, G, Kf, nA2, SC, kGeneWideCells, y_type) ||
+      !wide_plan_of(plan, N, G, Kf, nA2, SC, p))
     return (int)cudaErrorInvalidValue;
-  const int n_chunks = (N + rows_per_chunk - 1) / rows_per_chunk;
-  const GeneWideArgs a{Y, psi, W, muL, dA1, dA2, dZ, scratch,
-                       N, G, Kf, nA2, SC, rows_per_chunk, n_chunks, stream};
+  float2* dz = reinterpret_cast<float2*>(scratch + p.part);
+  float2* ps = reinterpret_cast<float2*>(scratch + p.part + p.dz);
+  float2* a2 = reinterpret_cast<float2*>(scratch + p.part + p.dz + p.ps);
+  float* a1 = scratch + p.part + p.dz + p.ps + p.a2;
+  gene_wide_pack_kernel<<<blocks_for((long long)((p.dz + p.ps + p.a2) / 2 + p.a1), 256), 256, 0,
+                          stream>>>(psi, dA1, dA2, dZ, dz, ps, a2, a1, N, Kf, nA2, SC, p);
+  const GeneWideArgs a{Y, W, muL, dz, ps, a2, a1, scratch, N, G, Kf, nA2, SC, p, stream};
   switch (y_type) {
     case kYF32: gene_wide_typed<kYF32>(a); break;
     case kYBF16: gene_wide_typed<kYBF16>(a); break;
@@ -1806,7 +2501,43 @@ int fl_backward_gene_wide(const void* Y, const float* psi, const float* W,
     default: gene_wide_typed<kYI8>(a);
   }
   const int FG = (Kf + SC + nA2) * G;
-  reduce_chunks_kernel<<<blocks_for(FG, 256), 256, 0, stream>>>(scratch, dgene, n_chunks, FG);
+  reduce_chunks_kernel<<<blocks_for(FG, 256), 256, 0, stream>>>(scratch, dgene, p.n_chunks, FG);
+  return (int)cudaGetLastError();
+}
+
+// What the wide kernels that the plan launches take on the card, for
+// holding them to two blocks an SM: out[0..7) = fwd_wide_kernel's dynamic
+// shared memory bytes and blocks an SM (the occupancy query), the same for
+// fwd_wide_y_kernel and gene_wide_kernel at Y storage y_type, and
+// fwd_wide_kernel's k-steps a stage. Returns cudaErrorInvalidValue where
+// the plan does not fit the sizes.
+int fl_wide_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC, int y_type,
+                      int* out) {
+  WidePlan p;
+  if (bad_wide_sizes(N, G, Kf, nA2, SC, kGeneWideCells, y_type) ||
+      !wide_plan_of(plan, N, G, Kf, nA2, SC, p))
+    return (int)cudaErrorInvalidValue;
+  const int steps = fwd_wide_steps(p), yb = y_type == kYF32 ? 4 : y_type == kYI8 ? 1 : 2;
+  const int smem[3] = {fwd_wide_smem(p, steps), fwd_wide_y_smem(p, yb), gene_wide_smem(p, yb)};
+  int blocks = 0;
+  fwd_wide_dispatch(p.zt_group, steps, [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem[0]);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFwdWarps * kWarp, smem[0]);
+  });
+  out[0] = smem[0];
+  out[1] = blocks;
+  for (int which = 1; which <= 2; ++which) {
+    const int t = which == 1 ? p.ny_pad : p.nj;
+    switch (y_type) {
+      case kYF32: blocks = wide_blocks_per_sm<kYF32>(which, t, smem[which]); break;
+      case kYBF16: blocks = wide_blocks_per_sm<kYBF16>(which, t, smem[which]); break;
+      case kYI16: blocks = wide_blocks_per_sm<kYI16>(which, t, smem[which]); break;
+      default: blocks = wide_blocks_per_sm<kYI8>(which, t, smem[which]);
+    }
+    out[2 * which] = smem[which];
+    out[2 * which + 1] = blocks;
+  }
+  out[6] = steps;
   return (int)cudaGetLastError();
 }
 

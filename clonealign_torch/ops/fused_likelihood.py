@@ -21,11 +21,15 @@ between the two: a CUDA tensor the kernels do not take raises.
 
 The kernels above are built for at most ``MAX_KF`` columns of ``[psi, X]``,
 ``MAX_A2`` A2 columns and ``MAX_SC`` Z columns. Past any of those limits
-(:func:`wide_route`) each wrapper launches the wide family instead, plain
-tiled float32 products on the CUDA cores with runtime widths up to
-``WIDE_MAX_KF``, ``WIDE_MAX_A2`` and ``WIDE_MAX_SC`` (the counterparts of the
-Pallas kernels' ``jnp.dot`` branches), counted apart in ``*_wide_launches``.
-The plain versions take any width and are the wide family's too.
+(:func:`wide_route`) each wrapper launches the wide family instead, with
+runtime widths up to ``WIDE_MAX_KF``, ``WIDE_MAX_A2`` and ``WIDE_MAX_SC`` (the
+counterparts of the Pallas kernels' ``jnp.dot`` branches), counted apart in
+``*_wide_launches``: the forward (Z, and Y's products) and the gene part on
+tensor cores (the contract as unnormalized attention), the Y-free dpsi
+kernel in float32 FMAs.
+:func:`wide_plan` gives their launch geometry and workspace, which the C
+launchers take and check. The plain versions take any width and
+are the wide family's too.
 
 Y may be stored narrow (``Y_DTYPES``: float32, bfloat16, int16 or int8;
 ``api.py``'s ``y_storage``). The kernels load it in that type and convert it
@@ -51,6 +55,17 @@ MAX_SC = 32  # Z columns (samples x clones) the narrow kernels take
 WIDE_MAX_KF = 64
 WIDE_MAX_A2 = 64
 WIDE_MAX_SC = 2048
+# The wide forward's and gene part's tiles (the .cu's kWideTiles,
+# kWideTileCounts, kWideYTileCounts, kFwdWideGenes and kGeneWideCells):
+# accumulator tiles of 8 columns a warp holds at most, the tile counts the
+# kernels are built for (Z tiles a forward group, d(muL) tiles a gene pass;
+# Y tiles), the genes the forward's table is padded to, cells a gene-part
+# stage.
+WIDE_TILES = 16
+WIDE_TILE_COUNTS = (1, 2, 4, 6, 8, 10, 12, 16)
+WIDE_Y_TILE_COUNTS = (1, 2, 4, 8, 16)
+_FWD_WIDE_GENES = 32
+_GENE_WIDE_CELLS = 16
 _ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
 # Y storage types the kernels load, with the code the C entry points take
 Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
@@ -181,15 +196,92 @@ def _check_sizes(N, G, Kf, SC, n_a2):
 
 
 def _chunk_rows(N: int) -> int:
-    """Cells a partial sum of the gene-major backward takes: grid.y is at
-    most 65535 chunks, and a chunk is a whole number of 64-cell tiles."""
+    """Cells a partial sum of the gene-major backward (narrow or wide) takes:
+    grid.y is at most 65535 chunks, and a chunk is a whole number of 64-cell
+    tiles (and so of the wide gene part's 16-cell stages)."""
     return -(-max(_ROWS_PER_CHUNK, -(-N // 65535)) // 64) * 64
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _at_least(counts, t: int) -> int:
+    """The least of the built tile counts that is >= t (else the largest)."""
+    return next((c for c in counts if c >= t), counts[-1])
+
+
+# The plan's numbers, in the order the C entry points take them.
+WIDE_PLAN_KEYS = ("n_kc", "n_zt", "n_yt", "n_st", "g_pad", "zt_group", "n_zgroups", "ny_pad",
+                  "rows", "n_chunks", "n_pad", "nj", "mu_passes", "y_pass", "n_passes",
+                  "table", "part", "dz", "ps", "a2", "a1")
+
+
+def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] = None) -> dict:
+    """The wide forward's and gene part's launch plan for N cells, G genes,
+    Kf columns of ``[psi, X]``, n_a2 A2 columns and SC Z columns: the one
+    place it is decided. The C entry points take its ``WIDE_PLAN_KEYS``
+    (:func:`_plan_arg`), check that they fit the sizes, and lay out each
+    kernel's shared memory from them.
+
+    Widths count in tiles of 8 columns: ``n_kc`` of ``[psi, X]``, ``n_zt`` of
+    Z, ``n_yt`` of the Y products ``[Y W | Y log mu^T]``, ``n_st`` of dA2.
+    A kernel's loop over tiles runs a built count of them
+    (``WIDE_TILE_COUNTS``, ``WIDE_Y_TILE_COUNTS``), the tiles zero-padded.
+
+    Forward: Z's tiles split evenly into ``n_zgroups`` column groups of at
+    most ``WIDE_TILES`` (grid.y of ``fwd_wide_kernel``; each recomputes the
+    exps), each padded to ``zt_group``; the Y products' tiles, padded to
+    ``ny_pad``, in ``fwd_wide_y_kernel``'s one read of Y. Gene part: chunks
+    of ``rows`` cells (:func:`_chunk_rows`), each a block row of partial
+    sums; ``mu_passes`` passes over dZ's tiles, ``nj`` tiles each beside
+    dW's ``n_kc`` (and dlog mu's ``n_st`` in the first pass, unless they
+    leave no room: then Y's products take a first pass of their own,
+    ``y_pass``, where dlog mu takes d(muL)'s first ``n_st`` tiles, so ``nj``
+    is at least ``n_st``), ``n_passes`` in all.
+
+    Workspace, in float32 values: ``table``, the forward's packed gene-side
+    B fragments; ``part`` (the partial sums), ``dz``, ``ps``, ``a2`` and
+    ``a1`` (the packed cell side), the gene part's scratch. ``fwd_workspace``
+    and ``gene_workspace`` are what :func:`kernel_forward` and
+    :func:`kernel_gene` allocate for the kernels, the latter with its (Kf +
+    SC + n_a2, G) output."""
+    n_kc, n_zt, n_yt, n_st = _cdiv(Kf, 8), _cdiv(SC, 8), _cdiv(Kf + n_a2, 8), _cdiv(n_a2, 8)
+    g_pad = _cdiv(G, _FWD_WIDE_GENES) * _FWD_WIDE_GENES
+    n_zgroups = _cdiv(n_zt, WIDE_TILES)
+    zt_group = _at_least(WIDE_TILE_COUNTS, _cdiv(n_zt, n_zgroups))
+    ny_pad = _at_least(WIDE_Y_TILE_COUNTS, max(n_yt, 1))
+    rows = _chunk_rows(N) if rows is None else rows
+    n_chunks = _cdiv(N, rows)
+    n_pad = _cdiv(N, _GENE_WIDE_CELLS) * _GENE_WIDE_CELLS
+    y_pass = int(n_kc + n_st >= WIDE_TILES)
+    room = WIDE_TILES - n_kc - (0 if y_pass else n_st)
+    nj = _at_least(WIDE_TILE_COUNTS, max(_cdiv(n_zt, _cdiv(n_zt, room)), n_st if y_pass else 1))
+    if nj > room:
+        nj = max(c for c in WIDE_TILE_COUNTS if c <= room)
+    mu_passes = _cdiv(n_zt, nj)
+    table = g_pad // 8 * (n_kc + n_zgroups * zt_group + ny_pad) * 32 * 4
+    F = Kf + SC + n_a2
+    part = _cdiv(n_chunks * F * G, 4) * 4
+    dz, ps, a2, a1 = n_pad * 16 * mu_passes * nj, n_pad * 16 * n_kc, n_pad * 16 * n_st, n_pad
+    plan = dict(zip(WIDE_PLAN_KEYS, (
+        n_kc, n_zt, n_yt, n_st, g_pad, zt_group, n_zgroups, ny_pad, rows, n_chunks, n_pad, nj,
+        mu_passes, y_pass, mu_passes + y_pass, table, part, dz, ps, a2, a1)))
+    plan["fwd_workspace"] = table
+    plan["gene_workspace"] = part + dz + ps + a2 + a1 + F * G
+    return plan
+
+
+def _plan_arg(plan: dict):
+    """:func:`wide_plan`'s numbers as the C entry points take them."""
+    return (ctypes.c_longlong * len(WIDE_PLAN_KEYS))(*(plan[k] for k in WIDE_PLAN_KEYS))
+
+
 def gene_wide_workspace(N: int, G: int, Kf: int, n_a2: int, SC: int) -> int:
-    """Floats the wide gene part allocates in a call: a (Kf + SC + n_a2, G)
-    partial sum for each chunk of :func:`_chunk_rows` cells, and their sum."""
-    return (-(-N // _chunk_rows(N)) + 1) * (Kf + SC + n_a2) * G
+    """Floats the wide gene part allocates in a call (:func:`wide_plan`'s
+    ``gene_workspace``): the (Kf + SC + n_a2, G) partial sums of each chunk
+    of :func:`_chunk_rows` cells, the packed cell side, and their sum."""
+    return wide_plan(N, G, Kf, n_a2, SC)["gene_workspace"]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -222,13 +314,17 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     A2 = None if log_mu is None else torch.empty(N, n_a2, device=Y.device, dtype=torch.float32)
     Z = torch.empty(N, SC, device=Y.device, dtype=torch.float32)
     YW = torch.empty(N, Kf, device=Y.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(Y.device).cuda_stream
+    stream = ctypes.c_void_p(torch.cuda.current_stream(Y.device).cuda_stream)
     wide = wide_route(Kf, n_a2, SC)
-    err = (lib.fl_forward_wide if wide else lib.fl_forward)(
-        _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(log_mu), _ptr(muL),
-        _ptr(A1), _ptr(A2), _ptr(Z), _ptr(YW), N, G, Kf, n_a2, SC, Y_DTYPES[Y.dtype],
-        ctypes.c_void_p(stream),
-    )
+    args = (_ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(log_mu), _ptr(muL),
+            _ptr(A1), _ptr(A2), _ptr(Z), _ptr(YW))
+    sizes = (N, G, Kf, n_a2, SC, Y_DTYPES[Y.dtype], stream)
+    if wide:
+        plan = wide_plan(N, G, Kf, n_a2, SC)
+        table = torch.empty(plan["fwd_workspace"], device=Y.device, dtype=torch.float32)
+        err = lib.fl_forward_wide(*args, _ptr(table), _plan_arg(plan), *sizes)
+    else:
+        err = lib.fl_forward(*args, *sizes)
     _raise_on(err, f"fused likelihood forward{' (wide)' if wide else ''}")
     if wide:
         fwd_wide_launches += 1
@@ -296,16 +392,19 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     rows = _chunk_rows(N)
     F = Kf + SC + n_a2
     wide = wide_route(Kf, n_a2, SC)
-    size = (gene_wide_workspace(N, G, Kf, n_a2, SC) - F * G if wide
+    plan = wide_plan(N, G, Kf, n_a2, SC, rows=rows) if wide else None
+    size = (plan["gene_workspace"] - F * G if wide
             else lib.fl_backward_gene_scratch(N, G, Kf, n_a2, SC, rows))
     scratch = torch.empty(size, device=Y.device, dtype=torch.float32)
     dgene = torch.empty(F, G, device=Y.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(Y.device).cuda_stream
-    err = (lib.fl_backward_gene_wide if wide else lib.fl_backward_gene)(
-        _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2),
-        _ptr(dZ), _ptr(scratch), _ptr(dgene), N, G, Kf, n_a2, SC, rows, Y_DTYPES[Y.dtype],
-        ctypes.c_void_p(stream),
-    )
+    stream = ctypes.c_void_p(torch.cuda.current_stream(Y.device).cuda_stream)
+    args = (_ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2),
+            _ptr(dZ), _ptr(scratch), _ptr(dgene))
+    if wide:
+        err = lib.fl_backward_gene_wide(*args, _plan_arg(plan), N, G, Kf, n_a2, SC,
+                                        Y_DTYPES[Y.dtype], stream)
+    else:
+        err = lib.fl_backward_gene(*args, N, G, Kf, n_a2, SC, rows, Y_DTYPES[Y.dtype], stream)
     _raise_on(err, f"fused likelihood backward (gene{', wide' if wide else ''})")
     if wide:
         gene_wide_launches += 1

@@ -61,11 +61,13 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     z_cheb lane holds the same order: its Clenshaw backward recomputes the
     carries ((S, C, N) each) instead of saving them.
 
-    Held once on CUDA when the exact backward runs the wide family (K + P,
-    S or S C past the narrow kernels' limits): the wide gene part's float32
-    partial sums, (K + P + S C, G) for each chunk of cells, and their sum
-    (``fused_likelihood.gene_wide_workspace``); lanes run the op one at a
-    time, so one call's workspace is live at once.
+    Held once on CUDA where the wide family runs (K + P, S or S C past the
+    narrow kernels' limits; ``fused_likelihood.wide_plan``): the wide
+    forward's packed gene table (every forward, z_cheb's too), and with the
+    exact backward the wide gene part's workspace: its float32 partial sums,
+    (K + P + S C, G) for each chunk of cells, the packed cell side and their
+    sum. Lanes run the op one at a time, so one call's workspace is live at
+    once.
     """
     y_itemsize = itemsize if y_itemsize is None else y_itemsize
     narrow = y_itemsize != itemsize
@@ -78,8 +80,11 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     saved_ext = (N + G) * Kf if P else 0
     per_lane = 7 * n_par + 16 * N * S * C + N * (Kf + 1) + saved_ext
     shared = N * P + (N * C if allele else 0)
-    wide = device_type == "cuda" and not z_cheb and fl.wide_route(Kf, 0, S * C)
-    workspace = 4 * fl.gene_wide_workspace(N, G, Kf, 0, S * C) if wide else 0
+    workspace = 0
+    if device_type == "cuda" and fl.wide_route(Kf, S, S * C):
+        workspace += 4 * fl.wide_plan(N, G, Kf, S, S * C)["fwd_workspace"]
+    if device_type == "cuda" and not z_cheb and fl.wide_route(Kf, 0, S * C):
+        workspace += 4 * fl.gene_wide_workspace(N, G, Kf, 0, S * C)
     return (y_itemsize * N * G + itemsize * (shared + temporaries + n_lanes * per_lane)
             + workspace)
 

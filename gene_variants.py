@@ -1,19 +1,35 @@
-"""Accuracy and card time of variants of the gene-major backward kernel.
+"""Card time of variants of the CUDA kernels, for reading what sets their
+time, and the accuracy of the gene-major backward's variants.
 
     python3 gene_variants.py [VARIANT ...]
 
 Each variant is ``clonealign_torch/ops/csrc/fused_likelihood.cu`` with one
-or two lines replaced (see ``VARIANTS``), built with the package's nvcc
-flags into ``build/gene_variants/`` (all builds run at once) and called
-through ``fl_backward_gene``. ``adopted`` is the source as it stands. For
-each shape of the ``cuda`` tests it prints the largest error of dW,
-dlog mu and d(muL) in units of the tests' tolerance (|err| / (1e-4 + 3e-5
-|want|)), against the float64 plain version, first for the float32 plain
-versions (``reference_likelihood_vjp``, then ``reference_gene``) and then
-for each variant; a value above 1 fails. Then, at the full width of the fit
-(100,000 x 5,000, S*C = 10, Kf = 1, A2 off), with Y stored as float32 and
-as int8, each variant's time in turns, twice, as ``chip_smoke.cuda_ms``
-measures it (packing, kernel and reduction). Needs an NVIDIA GPU and nvcc.
+or two lines replaced (``VARIANTS``: the kernel it is about and its
+replacements), built with the package's nvcc flags into
+``build/gene_variants/`` (every variant at once) and called through the
+package's wrappers with the variant's library in place of the package's.
+``adopted`` is the source as it stands, and is in every comparison.
+
+* ``gene``, the narrow gene-major backward (``kernel_gene`` at Kf <= 4,
+  S*C <= 32): for each shape of the ``cuda`` tests the largest error of
+  dW, dlog mu and d(muL) in units of the tests' tolerance (|err| / (1e-4 +
+  3e-5 |want|)) against the float64 plain version, first for the float32
+  plain versions (``reference_likelihood_vjp``, then ``reference_gene``) and
+  then for each variant (a value above 1 fails); then, at the full width of
+  the fit (100,000 x 5,000, S*C = 10, Kf = 1, A2 off), with Y stored as
+  float32 and as int8, each variant's time in turns, twice.
+* ``fwd_wide`` and ``gene_wide``, the wide forward (``kernel_forward``) and
+  gene part (``kernel_gene``) past a narrow limit: each variant but
+  ``gene_rolled`` takes one piece of work out, so its results are wrong by
+  design, and ``adopted``'s time less the variant's is what that work
+  costs, an upper bound on what any other way of doing it could save (so
+  ``fwd_no_logrfe`` bounds what forming log_rfe on the CUDA cores instead
+  of by MMA could gain, ``gene_no_dw`` what dW by CUDA-core FMAs could
+  gain). Timed at the full width of the fit with Y int8, A2 off, C = 10 and
+  (Kf, S) each of ``WIDE_CONFIGS``, in turns, twice.
+
+Times are ``chip_smoke.cuda_ms``'s (packing, kernels and reduction). Needs
+an NVIDIA GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -22,6 +38,7 @@ import ctypes
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -37,68 +54,79 @@ SPLIT = "split_tf32_int(__expf(lr[e]), a_hi[e], a_lo[e]);"
 SUM = ("            const float s = acc_hi[t][e] + x[t][e];\n"
        "            acc_lo[t][e] += x[t][e] - (s - acc_hi[t][e]);\n"
        "            acc_hi[t][e] = s;\n")
+FWD_LOGRFE = "      mma_3xtf32(d, ph, pl, tab[(ks * RW + kc) * kWarp + lane]);\n"
+GENE_LOGRFE = "          mma_3xtf32(d, wh, wl, pair_b(q[0], q[4]));\n"
+GENE_DRFE = "            mma_3xtf32(d, mh, ml, pair_b(q[8 * jj], q[8 * jj + 4]));\n"
+GENE_DMUL = "            mma_3xtf32(d, ah, al, pair_b(q_dz[8 * t], q_dz[sdz + 8 * t]));\n"
+GENE_H2 = "#pragma unroll\n      for (int h2 = 0; h2 < kSteps2; ++h2) {\n"
+GENE_DW = "              mma_3xtf32(d, ah, al, pair_b(q_ps[k8], q_ps[sps + k8]));\n"
+# name: (the kernel it is about, its replacements)
 VARIANTS = {
-    "adopted": [],
+    "adopted": (None, []),
     # the A operand split with two cvt.rna (split_tf32), as the forward and dpsi do
-    "cvt_split": [(SPLIT, "split_tf32(__expf(lr[e]), a_hi[e], a_lo[e]);")],
+    "cvt_split": ("gene", [(SPLIT, "split_tf32(__expf(lr[e]), a_hi[e], a_lo[e]);")]),
     # hi by truncation (a mask), lo = x - hi rounded by one cvt.rna
-    "mask_split": [(SPLIT, "{ const float v = __expf(lr[e]); a_hi[e] = __float_as_uint(v) & 0xffffe000u; "
-                           "a_lo[e] = to_tf32(v - __uint_as_float(a_hi[e])); }")],
+    "mask_split": ("gene", [(SPLIT, "{ const float v = __expf(lr[e]); a_hi[e] = __float_as_uint(v) & 0xffffe000u; "
+                                    "a_lo[e] = to_tf32(v - __uint_as_float(a_hi[e])); }")]),
     # a plain float32 running sum in place of the hi + lo pairs
-    "f32_sum": [(SUM, "            acc_hi[t][e] += x[t][e];\n")],
+    "f32_sum": ("gene", [(SUM, "            acc_hi[t][e] += x[t][e];\n")]),
     # the Y terms' loop over the tile's rows unrolled by two everywhere
-    "y_unroll_2": [("#pragma unroll kYUnroll", "#pragma unroll 2")],
+    "y_unroll_2": ("gene", [("#pragma unroll kYUnroll", "#pragma unroll 2")]),
+    # the wide forward without log_rfe = psi W^T (rfe = 1)
+    "fwd_no_logrfe": ("fwd_wide", [(FWD_LOGRFE, "")]),
+    # the wide gene part without log_rfe^T = W psi^T, drfe = muL dZ^T,
+    # d(muL) = rfe^T dZ or dW = dlog_rfe^T psi
+    "gene_no_logrfe": ("gene_wide", [(GENE_LOGRFE, "")]),
+    "gene_no_drfe": ("gene_wide", [(GENE_DRFE, "")]),
+    "gene_no_dmul": ("gene_wide", [(GENE_DMUL, "")]),
+    "gene_no_dw": ("gene_wide", [(GENE_DW, "")]),
+    # the wide gene part with its two k-steps a stage one after the other
+    # (a correct variant: fewer registers, less overlap)
+    "gene_rolled": ("gene_wide", [(GENE_H2, "#pragma unroll 1\n      for (int h2 = 0; h2 < kSteps2; ++h2) {\n")]),
 }
+KERNELS = {"gene": ("gene_kernel",), "fwd_wide": ("fwd_wide_kernel",),
+           "gene_wide": ("gene_wide_kernel",)}
+# (Kf, S) of the wide variants' timing, C = 10
+WIDE_CONFIGS = ((5, 8), (64, 8), (5, 1))
 OUT = os.path.join("build", "gene_variants")
 
 
 def build(names):
+    """Each variant's library (all built at once), its entry points declared
+    as the package's; prints the registers and spills of the kernels each
+    variant is about (``adopted``: all of them)."""
     src = open(_build.SOURCES[0]).read()
     os.makedirs(OUT, exist_ok=True)
-    procs = {}
+    paths = {}
     for name in names:
         text = src
-        for old, new in VARIANTS[name]:
+        for old, new in VARIANTS[name][1]:
             if old not in text:
                 raise SystemExit(f"{name}: the source no longer has {old!r}")
             text = text.replace(old, new)
         cu = os.path.join(OUT, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", os.path.join(OUT, f"{name}.so"), cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        paths[name] = (cu, os.path.abspath(os.path.join(OUT, f"{name}.so")))
+    with ThreadPoolExecutor(len(names)) as pool:
+        logs = dict(zip(names, pool.map(lambda n: _build.compile_library([paths[n][0]], paths[n][1]),
+                                        names)))
     libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"{name}: nvcc failed\n{log}")
-        res = kernel_resources(log, "gene_kernel")
-        spilled = sorted(k for k, (_, st, ld) in res.items() if st or ld)
-        print(f"{name}: gene_kernel registers " + " ".join(
-            f"{k}{r}" for k, (r, _, _) in sorted(res.items())) + f"; spilling {spilled}", flush=True)
-        lib = ctypes.CDLL(os.path.abspath(os.path.join(OUT, f"{name}.so")))
-        lib.fl_backward_gene.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        lib.fl_backward_gene_scratch.argtypes = [ctypes.c_int] * 6
-        lib.fl_backward_gene_scratch.restype = ctypes.c_size_t
-        libs[name] = lib
+    for name in names:
+        target = VARIANTS[name][0]
+        for kernel in KERNELS[target] if target else sum(KERNELS.values(), ()):
+            res = kernel_resources(logs[name], kernel)
+            spilled = sorted(k for k, (_, st, ld) in res.items() if st or ld)
+            print(f"{name}: {kernel} registers up to {max(r for r, _, _ in res.values())}, "
+                  f"spilling {spilled}", flush=True)
+        libs[name] = _build.declare(ctypes.CDLL(paths[name][1]))
     return libs
 
 
-def gene(lib, Y, psi, W, muL, dA1, dA2, dZ):
-    """kernel_gene's launch, through ``lib``."""
-    (N, G), Kf, SC = Y.shape, psi.shape[1], muL.shape[1]
-    n_a2 = 0 if dA2 is None else dA2.shape[1]
-    rows = -(-max(fl._ROWS_PER_CHUNK, -(-N // 65535)) // 64) * 64
-    scratch = torch.empty(lib.fl_backward_gene_scratch(N, G, Kf, n_a2, SC, rows), device="cuda")
-    dgene = torch.empty(Kf + SC + n_a2, G, device="cuda")
-    ptr = [None if t is None else ctypes.c_void_p(t.data_ptr())
-           for t in (Y, psi, W, muL, dA1, dA2, dZ, scratch, dgene)]
-    err = lib.fl_backward_gene(*ptr, N, G, Kf, n_a2, SC, rows, fl.Y_DTYPES[Y.dtype],
-                               ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err:
-        raise RuntimeError(f"fl_backward_gene failed with CUDA error {err}")
-    return dgene[:Kf].T, None if dA2 is None else dgene[Kf + SC:], dgene[Kf:Kf + SC].T
+def through(lib, fn, *args):
+    """``fn(*args)`` with the package's wrappers launching ``lib``'s kernels."""
+    _build._lib = lib
+    return fn(*args)
 
 
 def tol_units(got, want):
@@ -111,13 +139,14 @@ def tol_units(got, want):
     return worst
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("gene_variants: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
-    libs = build(sys.argv[1:] or list(VARIANTS))
+def in_turns(label, libs, fn, args, reps):
+    for _ in range(2):
+        print(f"{label} ms: " + " ".join(
+            f"{name} {cuda_ms(lambda lib=lib: through(lib, fn, *args), reps=reps):.4f}"
+            for name, lib in libs.items()), flush=True)
+
+
+def gene_phase(libs):
     print("error in tolerance units against float64: shape | plain32 reference_gene32 | "
           + " ".join(libs), flush=True)
     for shape in CUDA_SHAPES:
@@ -128,17 +157,47 @@ def main() -> int:
         exact = fl.reference_likelihood_vjp(*[t.double() for t in args])[1:]
         row = [tol_units(fl.reference_likelihood_vjp(*args)[1:], exact),
                tol_units(fl.reference_gene(*args), exact)]
-        row += [tol_units(gene(lib, *args), exact) for lib in libs.values()]
+        row += [tol_units(through(lib, fl.kernel_gene, *args), exact) for lib in libs.values()]
         print(f"{str(shape):22s} | " + " ".join(f"{v:.2f}" for v in row), flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     x = kernel_inputs(gen, FULL["N"], FULL["G"], FULL["C"], S=1, Kf=1, device="cuda")
     for storage in (torch.float32, torch.int8):
         args = (x["Y"].to(storage), x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"])
-        for _ in range(2):
-            print(f"full width, Y {storage}, ms: " + " ".join(
-                f"{name} {cuda_ms(lambda lib=lib: gene(lib, *args), reps=10):.4f}"
-                for name, lib in libs.items()), flush=True)
+        in_turns(f"full width, Y {storage}", libs, fl.kernel_gene, args, reps=10)
+
+
+def wide_phase(fwd_libs, gene_libs):
+    for Kf, S in WIDE_CONFIGS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(4)
+        x = kernel_inputs(gen, FULL["N"], FULL["G"], FULL["C"], S=S, Kf=Kf, device="cuda")
+        Y = x["Y"].to(torch.int8)
+        label = f"int8 Kf={Kf} S*C={S * FULL['C']}"
+        if fwd_libs:
+            in_turns(f"{label} fwd", fwd_libs, fl.kernel_forward,
+                     (Y, x["psi"], x["W"], None, x["muL"]), reps=5)
+        if gene_libs:
+            in_turns(f"{label} gene", gene_libs, fl.kernel_gene,
+                     (Y, x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"]), reps=5)
+        del x, Y
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("gene_variants: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    names = list(dict.fromkeys(["adopted", *(sys.argv[1:] or VARIANTS)]))
+    libs = build(names)
+    about = {t: {n: lib for n, lib in libs.items() if VARIANTS[n][0] in (None, t)}
+             for t in KERNELS}
+    if len(about["gene"]) > 1 or not sys.argv[1:]:
+        gene_phase(about["gene"])
+    wide_phase(*(about[t] if len(about[t]) > 1 or not sys.argv[1:] else {}
+                 for t in ("fwd_wide", "gene_wide")))
     return 0
 
 

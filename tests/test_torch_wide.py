@@ -10,11 +10,16 @@ Pallas op in interpret mode, values and VJP, with Y in float32 and in each
 narrow storage type; the route function; ``clonealign`` at K = 1, P = 4,
 mc_samples = 8 against the JAX package's from the same draws; the
 streaming fit against the in-core fit and "vmap" against "map" at a wide
-shape; the sweep's reckoning of the wide gene part's workspace; and the
-refusal past the wide family's bound. On the card (``cuda`` marker, skipped
-without a GPU): the wide kernels against their plain versions at every Y
-storage, their launches counted apart from the narrow kernels', and the
-wide gene part deterministic:
+shape; the wide kernels' launch plan (``wide_plan``: every column in one
+group or pass, each pass's accumulator tiles apart, the plan and workspace
+the wrappers hand the library, every bound); an
+emulation of the kernels' 3xTF32 number scheme against float64; the sweep's
+reckoning of the wide workspace; and the refusal past the wide family's
+bound. On the card (``cuda`` marker, skipped without a GPU): the wide
+kernels against their plain versions at every Y storage (also at widths
+Kf, S and S*C set apart, as no fit sets them), their launches counted
+apart from the narrow kernels', the forward and the gene part
+deterministic, and every plan's kernels at two blocks an SM:
 ``python -m pytest --noconftest -m cuda tests/test_torch_wide.py``.
 
 Tolerances: the fused op's values rtol 2e-5 / atol 1e-4 and VJP rtol 3e-5
@@ -46,10 +51,11 @@ torch.set_num_threads(2)
 # S = 5; S*C = 36 alone (S = 4, Kf = 2)
 SHAPES = [(70, 300, 10, 6, 8), (37, 41, 33, 1, 1), (50, 129, 5, 5, 5), (17, 260, 9, 2, 4)]
 # on the card besides: several 1,024-cell chunks, one gene and K = 0, a
-# forward that is wide only with A2 (S = 5, S*C = 10, Kf = 1), and every
-# bound at once (Kf = 64, S = 64, S*C = 192; and S*C = 2048)
+# forward that is wide only with A2 (S = 5, S*C = 10, Kf = 1), every bound
+# at once (Kf = 64, S = 64, S*C = 192; and S*C = 2048), and two column
+# groups and two gene-part passes (S*C = 160) at Kf = 18 over three chunks
 CUDA_SHAPES = SHAPES + [(2100, 130, 9, 1, 4), (33, 1, 40, 0, 1), (60, 100, 2, 1, 5),
-                        (40, 70, 3, 64, 64), (20, 50, 64, 3, 32)]
+                        (40, 70, 3, 64, 64), (20, 50, 64, 3, 32), (2100, 200, 20, 18, 8)]
 STORAGES = [torch.float32, torch.bfloat16, torch.int16, torch.int8]
 VALUE_TOL = dict(rtol=2e-5, atol=1e-4)
 VJP_TOL = dict(rtol=3e-5, atol=1e-4)
@@ -262,11 +268,14 @@ def test_run_clonealign_vmap_equals_map_at_a_wide_shape():
 def test_sweep_bytes_hold_the_wide_gene_workspace_once():
     """On the card an exact sweep whose backward runs the wide family holds
     one call's gene-part workspace beside the lanes, whatever their number:
-    the (Kf + S C, G) float32 partial sums of each 1,024-cell chunk and
-    their sum. A z_cheb sweep (no backward kernel), a narrow sweep and the
-    CPU hold none; a z_cheb sweep converts a block of narrow Y instead."""
+    the (Kf + S C, G) float32 partial sums of each 1,024-cell chunk, the
+    packed cell side (dZ's and psi's (hi, lo) pairs at 8-column tiles, and
+    dA1) and their sum. A z_cheb sweep (no backward kernel), a narrow sweep
+    and the CPU hold none; a z_cheb sweep converts a block of narrow Y
+    instead."""
     N, G, C, K, P, S = 100_000, 5_000, 10, 1, 4, 8
-    want = 4 * (-(-N // 1024) + 1) * (K + P + S * C) * G
+    F = K + P + S * C
+    want = 4 * (-(-N // 1024) * F * G + N * 2 * (8 * 10 + 8 * 1) + N + F * G)
     assert 4 * tfl.gene_wide_workspace(N, G, K + P, 0, S * C) == want
     block = 4 * tmm._CHUNK_ELEMENTS
 
@@ -279,6 +288,214 @@ def test_sweep_bytes_hold_the_wide_gene_workspace_once():
         assert sweep(n_lanes, P=2, S=1) - sweep(n_lanes, P=2, S=1, z_cheb=True) == -block
         assert sweep(n_lanes, "cpu") == sweep(n_lanes, "cpu", z_cheb=True)
     assert trestarts._auto_restart_batching(N, G, C, K, S, 3, 4, "cuda", 1, P) == "vmap"
+
+
+# --- the wide kernels' launch plan ------------------------------------------
+
+# (N, Kf, n_a2, SC) at widths no fit gives (S*C below S): dW and dlog mu
+# filling the first pass beside one, two or 25 dZ tiles, and A2 alone wide
+INDEPENDENT_WIDTHS = [(300, 64, 64, 8), (300, 57, 60, 16), (300, 64, 64, 200), (300, 5, 64, 8)]
+# (N, G, Kf, n_a2, SC): the shapes above, the wide fit's, Y tiles that do not
+# fit beside Z's, the independent widths, every bound
+PLAN_SHAPES = ([(N, G, K, S, S * C) for N, G, C, K, S in CUDA_SHAPES]
+               + [(N, G, K, 0, S * C) for N, G, C, K, S in CUDA_SHAPES]
+               + [(N, 100, Kf, n_a2, SC) for N, Kf, n_a2, SC in INDEPENDENT_WIDTHS]
+               + [(100_000, 5_000, 5, 8, 80), (100_000, 5_000, 5, 0, 10), (500, 300, 5, 1, 128),
+                  (500, 300, 64, 64, 8), (500, 300, 64, 64, 2048), (1000, 100, 0, 0, 33),
+                  (100_000, 5_000, 64, 0, 80), (100_000, 5_000, 64, 64, 2048)])
+
+
+def _pass_tiles(p, q):
+    """gene_wide_kernel's accumulator tiles in pass q of plan p, by product:
+    d(muL) the first nj (none in a Y pass), dW the n_kc after them, dlog mu
+    (the first pass) n_st after dW's or, in a Y pass, d(muL)'s first."""
+    with_mu = not (p["y_pass"] and q == 0)
+    tiles = {"dmuL": range(p["nj"]) if with_mu else range(0),
+             "dW": range(p["nj"], p["nj"] + p["n_kc"])}
+    if q == 0:
+        t_mu = 0 if p["y_pass"] else p["nj"] + p["n_kc"]
+        tiles["dlog_mu"] = range(t_mu, t_mu + p["n_st"])
+    return tiles
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_wide_plan_covers_every_column_once(shape):
+    """The forward's column groups hold each of Z's tiles once, and the Y
+    products' launch every Y tile; the gene part's passes hold each of dZ's
+    tiles once; each group or pass is padded to a built tile count, and
+    holds no more accumulator tiles than WIDE_TILES, where no two products
+    share a tile; S*C <= 128 is one column group."""
+    N, G, Kf, n_a2, SC = shape
+    p = tfl.wide_plan(N, G, Kf, n_a2, SC)
+    n_zt, n_yt, n_kc, n_st = -(-SC // 8), -(-(Kf + n_a2) // 8), -(-Kf // 8), -(-n_a2 // 8)
+    assert (p["n_zt"], p["n_yt"], p["n_kc"], p["n_st"]) == (n_zt, n_yt, n_kc, n_st)
+    assert p["zt_group"] in tfl.WIDE_TILE_COUNTS and p["nj"] in tfl.WIDE_TILE_COUNTS
+    assert p["ny_pad"] in tfl.WIDE_Y_TILE_COUNTS and p["ny_pad"] >= n_yt
+    z_tiles = []
+    for g in range(p["n_zgroups"]):
+        z = list(range(g * p["zt_group"], min(n_zt, (g + 1) * p["zt_group"])))
+        assert z and p["zt_group"] <= tfl.WIDE_TILES
+        z_tiles += z
+    assert z_tiles == list(range(n_zt))
+    assert (p["n_zgroups"] == 1) == (SC <= 8 * tfl.WIDE_TILES)
+    j_tiles = []
+    assert p["n_passes"] == p["mu_passes"] + p["y_pass"]
+    for q in range(p["n_passes"]):
+        with_mu = not (p["y_pass"] and q == 0)
+        begin = (q - p["y_pass"]) * p["nj"]
+        j_tiles += list(range(begin, min(n_zt, begin + p["nj"]))) if with_mu else []
+        held = [t for r in _pass_tiles(p, q).values() for t in r]
+        assert len(set(held)) == len(held) and all(0 <= t < tfl.WIDE_TILES for t in held)
+    assert j_tiles == list(range(n_zt))
+    assert not p["y_pass"] or p["nj"] >= n_st
+
+
+class _FakeLib:
+    """The CUDA library's wide entry points, recording their arguments."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8), (40, 70, 3, 64, 64)])
+def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
+    """kernel_gene's allocations (the scratch and the (Kf + SC + n_a2, G)
+    output) add up to wide_plan's gene_workspace, kernel_forward's scratch is
+    its fwd_workspace (the packed table), and both entry points get the
+    plan's numbers in WIDE_PLAN_KEYS' order. The wrappers run on CPU tensors
+    with the CUDA library's entry points recorded, not called."""
+    N, G, C, K, S = shape
+    Y, psi, W, log_mu, muL = _torch(_inputs(N, G, C, K, S, seed=1))
+    dA1, dA2, dZ = _torch(_cotangents(N, S, S * C, seed=1))
+    lib = _FakeLib()
+    from clonealign_torch.ops import _build
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(tfl, "_check", lambda *args, **kwargs: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0}))
+    sizes = []
+    empty = torch.empty
+
+    def recording_empty(*shape_, **kwargs):
+        out = empty(*shape_, **kwargs)
+        sizes.append(out.numel())
+        return out
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    for with_a2 in (True, False):
+        n_a2 = S if with_a2 else 0
+        p = tfl.wide_plan(N, G, K, n_a2, S * C)
+        sizes.clear()
+        tfl.kernel_gene(Y, psi, W, muL, dA1, dA2 if with_a2 else None, dZ)
+        assert sum(sizes) == p["gene_workspace"] == tfl.gene_wide_workspace(N, G, K, n_a2, S * C)
+        want = [p[k] for k in tfl.WIDE_PLAN_KEYS]
+        assert list(lib.calls["fl_backward_gene_wide"][9]) == want
+        sizes.clear()
+        tfl.kernel_forward(Y, psi, W, log_mu if with_a2 else None, muL)
+        assert sizes[-1] == p["fwd_workspace"] == p["table"]
+        assert list(lib.calls["fl_forward_wide"][10]) == want
+
+
+def test_wide_plan_holds_at_every_bound():
+    """At Kf = 64, S = 64 and S*C = 2,048, and N past 65,535 chunks of 1,024
+    cells: grid.y within 65,535 (chunks and column groups), chunks whole
+    16-cell stages, accumulator tiles within WIDE_TILES, and every workspace
+    region 16-byte aligned. (The kernels' shared memory, laid out on the
+    card from the plan, is held to two blocks an SM there:
+    test_cuda_wide_plans_run_two_blocks_an_sm.)"""
+    for N in (1, 1024, 65_535 * 1024 + 1, 2**31 - 1):
+        for Kf, n_a2, SC in ((64, 64, 2048), (64, 0, 2048), (0, 0, 2048), (64, 64, 1), (1, 0, 33)):
+            p = tfl.wide_plan(N, 5_000, Kf, n_a2, SC)
+            assert p["n_chunks"] <= 65_535 and p["n_zgroups"] <= 65_535
+            assert p["rows"] % 16 == 0 and p["n_chunks"] * p["rows"] >= N
+            assert p["n_pad"] % 16 == 0 and p["n_pad"] >= N
+            assert max(p["zt_group"], p["ny_pad"], p["nj"] + p["n_kc"]) <= tfl.WIDE_TILES
+            assert all(p[k] % 4 == 0 for k in ("table", "part", "dz", "ps", "a2"))
+
+
+# --- the number scheme, emulated -----------------------------------------------
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on float32 values: round to nearest, ties away from
+    zero, on the 13 low significand bits (the kernels' round_tf32)."""
+    b = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32((x - hi).astype(np.float32))
+
+
+def _mma3(a, b, kb):
+    """The 3xTF32 products of a (M, K) and b (K, N), in fresh accumulators
+    for each block of kb along K: (K / kb, M, N) float32 block sums, each
+    block's lo.hi + hi.lo + hi.hi products (exact in float32) summed exactly
+    and rounded once."""
+    (M, K), N = a.shape, b.shape[1]
+    pad = -K % kb
+    a = np.pad(a, ((0, 0), (0, pad))).astype(np.float32)
+    b = np.pad(b, ((0, pad), (0, 0))).astype(np.float32)
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    nb = (K + pad) // kb
+    f64 = [t.astype(np.float64) for t in (ah, al, bh, bl)]
+    ah, al, bh, bl = f64
+    A = lambda t: t.reshape(M, nb, kb)
+    B = lambda t: t.reshape(nb, kb, N)
+    d = (np.einsum("mbk,bkn->bmn", A(al), B(bh)) + np.einsum("mbk,bkn->bmn", A(ah), B(bl))
+         + np.einsum("mbk,bkn->bmn", A(ah), B(bh)))
+    return d.astype(np.float32)
+
+
+def _running(blocks):
+    """A float32 running sum over the leading axis, in order."""
+    acc = np.zeros(blocks.shape[1:], np.float32)
+    for d in blocks:
+        acc = (acc + d).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(2100, 130, 9, 1, 4)])
+def test_3xtf32_scheme_meets_the_tolerances(shape):
+    """The wide kernels' arithmetic, emulated on the CPU: log_rfe = psi W^T
+    and Z = rfe muL (fresh accumulators every 16 genes, float32 running sum)
+    within VALUE_TOL of float64; drfe = dZ muL^T (fresh every 8 columns),
+    dlog_rfe = rfe drfe + Y dA1 in float32, then d(muL) = rfe^T dZ and dW =
+    dlog_rfe^T psi (fresh every 8 cells, a float32 running sum over each
+    1,024-cell chunk, the chunks added in float32 in order) within
+    BWD_ABS_RTOL of each element's absolute-term sum. Every product is
+    3xTF32 with cvt.rna's rounding."""
+    N, G, C, K, S = shape
+    Y, psi, W, _log_mu, muL = _inputs(N, G, C, K, S, seed=N)
+    dA1, _dA2, dZ = _cotangents(N, S, S * C, seed=N)
+    f32 = np.float32
+    log_rfe = _running(_mma3(psi, W.T, 8))
+    rfe = np.exp(log_rfe).astype(f32)
+    Z = _running(_mma3(rfe, muL, 16))
+    f64 = [torch.from_numpy(a.astype(np.float64)) for a in (Y, psi, W, muL, dA1, dZ)]
+    Y64, psi64, W64, muL64, dA164, dZ64 = f64
+    want_Z = (torch.exp(psi64 @ W64.T) @ muL64).numpy()
+    np.testing.assert_allclose(Z, want_Z, **VALUE_TOL)
+
+    drfe = _running(_mma3(dZ, muL.T, 8))
+    dlog = (rfe * drfe + Y * dA1[:, None]).astype(f32)
+    rows = tfl._chunk_rows(N)
+    chunks = range(0, N, rows)
+    dmuL = _running(np.stack([_running(_mma3(rfe[i:i + rows].T, dZ[i:i + rows], 8))
+                              for i in chunks]))
+    dW = _running(np.stack([_running(_mma3(dlog[i:i + rows].T, psi[i:i + rows], 8))
+                            for i in chunks]))
+    _dpsi, want_dW, _dlog_mu, want_dmuL = tfl.reference_likelihood_vjp(
+        Y64, psi64, W64, muL64, dA164, None, dZ64)
+    _s, scale_dW, _s2, scale_dmuL = _abs_term_sums(Y64, psi64, W64, muL64, dA164, None, dZ64)
+    for name, got, want, scale in (("dW", dW, want_dW, scale_dW), ("dmuL", dmuL, want_dmuL, scale_dmuL)):
+        err = np.abs(got.astype(np.float64) - want.numpy())
+        assert (err <= BWD_ABS_RTOL * scale.numpy()).all(), (name, float(err.max()))
 
 
 # --- on the card ------------------------------------------------------------
@@ -368,6 +585,81 @@ def test_cuda_wide_gene_part_is_deterministic(shape):
     assert tfl.gene_wide_launches == before + 2
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8),
+                                   (2100, 200, 20, 18, 8)])
+def test_cuda_wide_forward_is_deterministic(shape):
+    """The wide forward sums in a fixed order, with no atomics: two calls on
+    the same inputs, A2 on and off, give bitwise-equal results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    N, G, C, K, S = shape
+    Y, psi, W, log_mu, muL = [t.cuda() for t in _torch(_inputs(N, G, C, K, S, seed=N))]
+    before = tfl.fwd_wide_launches
+    for lm in (log_mu, None):
+        first = tfl.kernel_forward(Y, psi, W, lm, muL)
+        second = tfl.kernel_forward(Y, psi, W, lm, muL)
+        for a, b in zip(first, second):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert tfl.fwd_wide_launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", STORAGES)
+@pytest.mark.parametrize("widths", INDEPENDENT_WIDTHS)
+def test_cuda_wide_kernels_at_independent_widths(widths, storage):
+    """The wide forward and gene part at widths no fit gives (S*C below S,
+    where the gene part's dlog mu takes a pass of its own beside dW) against
+    the plain versions, with the tolerances of
+    test_cuda_wide_kernels_match_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    N, Kf, n_a2, SC = widths
+    G = 100
+    rng = np.random.default_rng(N + Kf + n_a2 + SC)
+    f32 = np.float32
+    Yf, psi, W, log_mu, muL, dA1, dA2, dZ = [torch.from_numpy(a).cuda() for a in (
+        rng.poisson(3.0, (N, G)).astype(f32), rng.normal(0, 1, (N, Kf)).astype(f32),
+        rng.normal(0, 0.3 / np.sqrt(Kf), (G, Kf)).astype(f32),
+        rng.normal(0, 0.5, (n_a2, G)).astype(f32), rng.lognormal(0, 0.5, (G, SC)).astype(f32),
+        rng.normal(0, 1, N).astype(f32), rng.normal(0, 1, (N, n_a2)).astype(f32),
+        rng.normal(0, 1, (N, SC)).astype(f32))]
+    Y = Yf.to(storage)
+    *got, YW = tfl.kernel_forward(Y, psi, W, log_mu, muL)
+    for name, g, w in zip(("A1", "A2", "Z"), got,
+                          tfl.reference_likelihood_terms(Y, psi, W, log_mu, muL)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), err_msg=name, **VALUE_TOL)
+    got = tfl.kernel_gene(Y, psi, W, muL, dA1, dA2, dZ)
+    f64 = [t.double() for t in (Y, psi, W, muL, dA1, dA2, dZ)]
+    exact = tfl.reference_likelihood_vjp(*f64)[1:]
+    scale = _abs_term_sums(*f64)[1:]
+    for name, g, w, sc in zip(("W", "log_mu", "muL"), got, exact, scale):
+        err = (g.double() - w).abs()
+        assert bool((err <= BWD_ABS_RTOL * sc).all()), (
+            name, float(err.max()), float((err / sc.clamp_min(1e-300)).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_cuda_wide_plans_run_two_blocks_an_sm(shape):
+    """The library takes each plan wide_plan makes, and lays out the wide
+    forward's, the Y products' and the gene part's shared memory from it so
+    that each holds at least two blocks an SM (the occupancy query), at
+    every Y storage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    import ctypes
+
+    from clonealign_torch.ops import _build
+    lib = _build.load()
+    N, G, Kf, n_a2, SC = shape
+    plan = tfl._plan_arg(tfl.wide_plan(N, G, Kf, n_a2, SC))
+    for code in range(4):
+        out = (ctypes.c_int * 7)()
+        assert lib.fl_wide_resources(plan, N, G, Kf, n_a2, SC, code, out) == 0
+        assert min(out[1], out[3], out[5]) >= 2, list(out)
 
 
 def test_assign_cells_against_a_wide_fit():

@@ -1,7 +1,7 @@
 """Card time of the fused likelihood's training step through its public
 autograd function, for the ``clonealign_torch`` package of any checkout.
 
-    python3 time_likelihood.py [ROOT ...]
+    python3 time_likelihood.py [--wide] [ROOT ...]
 
 For each ROOT in turn (default: this file's directory) it runs, in a process
 of its own, the package found there: it builds that package's kernels and,
@@ -13,6 +13,15 @@ Kf = 1, A2 off, inputs made on the card from a seed), times
 * ``fwd_grad_ms``: the forward with gradients on (the training step's),
 * ``step_ms``: that forward and its backward through ``torch.autograd.grad``,
   and ``bwd_ms = step_ms - fwd_grad_ms``.
+
+With ``--wide`` it times instead the wide family's wrappers at each of
+``chip_smoke``'s full-width wide configurations (``WIDE_FULL``: (Kf, S) with
+C = 10, A2 off) and at the widest [psi, X] (Kf = 64, S = 8), at each of its
+Y storages (``WIDE_FULL_STORAGES``): ``fwd_ms``
+(``kernel_forward``: the packing and ``fwd_wide_kernel``), ``dpsi_ms``
+(``kernel_dpsi``) and ``gene_ms`` (``kernel_gene``: the packing,
+``gene_wide_kernel`` and ``reduce_chunks_kernel``), the numbers
+``chip_smoke.py`` reports under the same names.
 
 Each time is ``chip_smoke.cuda_ms``'s: the median over rounds of a batch of
 calls queued between two CUDA events, divided by the batch, which times the
@@ -30,10 +39,33 @@ import subprocess
 import sys
 
 # This file's chip_smoke, imported before ROOT goes on the path.
-from chip_smoke import FULL, cuda_ms, kernel_inputs
+from chip_smoke import FULL, WIDE_FULL, WIDE_FULL_STORAGES, cuda_ms, kernel_inputs
 
 
-def time_root(root: str) -> dict:
+def time_wide(fl) -> dict:
+    import torch
+
+    out = {}
+    for storage in WIDE_FULL_STORAGES:
+        for Kf, S in (*WIDE_FULL, (64, 8)):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(3)
+            x = kernel_inputs(gen, FULL["N"], FULL["G"], FULL["C"], S=S, Kf=Kf, device="cuda")
+            Y = x["Y"].to(getattr(torch, storage))
+            _, _, _, YW = fl.kernel_forward(Y, x["psi"], x["W"], None, x["muL"])
+            out[f"{storage} Kf={Kf} S*C={S * FULL['C']}"] = {
+                "fwd_ms": cuda_ms(lambda: fl.kernel_forward(Y, x["psi"], x["W"], None, x["muL"]),
+                                  reps=5),
+                "dpsi_ms": cuda_ms(lambda: fl.kernel_dpsi(x["psi"], x["W"], x["muL"], x["dA1"],
+                                                          x["dZ"], YW), reps=5),
+                "gene_ms": cuda_ms(lambda: fl.kernel_gene(Y, x["psi"], x["W"], x["muL"],
+                                                          x["dA1"], None, x["dZ"]), reps=5)}
+            del x, Y, YW
+            torch.cuda.empty_cache()
+    return out
+
+
+def time_root(root: str, wide: bool = False) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -41,6 +73,8 @@ def time_root(root: str) -> dict:
     from clonealign_torch.ops import fused_likelihood as fl
 
     _build.load()
+    if wide:
+        return {"root": root, **time_wide(fl)}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     x = kernel_inputs(gen, FULL["N"], FULL["G"], FULL["C"], S=1, Kf=1, device="cuda")
@@ -67,8 +101,11 @@ def time_root(root: str) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps(time_root(sys.argv[2])), flush=True)
+    args = sys.argv[1:]
+    wide = bool(args) and args[0] == "--wide"
+    args = args[wide:]
+    if len(args) == 2 and args[0] == "--one":
+        print(json.dumps(time_root(args[1], wide)), flush=True)
         return 0
     import torch
 
@@ -80,8 +117,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
-    for root in sys.argv[1:] or [os.path.dirname(os.path.abspath(__file__))]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], check=True)
+    for root in args or [os.path.dirname(os.path.abspath(__file__))]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), *["--wide"] * wide, "--one",
+                        root], check=True)
     return 0
 
 
