@@ -65,7 +65,8 @@ sample x clone columns): each wide kernel against its plain version at
 every Y storage at shapes crossing each limit alone and together and at a
 streaming chunk shape, timed at full width beside its bound; the
 full-width fit with K = 1, P = 4 covariates and mc_samples = 8 (Kf = 5,
-S*C = 80), its sweep of three restarts as lanes, and a 2,000 x 500 x 12
+S*C = 80), the same fit streamed in chunks (which must match it), its
+sweep of three restarts as lanes, and a 2,000 x 500 x 12
 fit (K = 2, P = 4, mc_samples = 6) on the card against the CPU port in
 float64 from the same numpy draws, every launch of those paths a wide
 one and every launch of every other path a narrow one. Any
@@ -469,10 +470,11 @@ def tc_kernels(fl):
     tensor-core kernels fwd_kernel<YT, KF, NT, A2> (96), dpsi_kernel<KF, NT>
     (12) and gene_kernel<YT, KF, NT, A2> (88), YT the Y storage code (0-3),
     and the wide family's: fwd_wide_kernel<NZ, STEPS> (16, STEPS the
-    k-steps a stage, 2 or 4), fwd_wide_y_kernel<YT, NY> (20) and
-    gene_wide_kernel<YT, NJ> (32) at the built tile counts
-    (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``), their packing
-    kernels and dpsi_wide_kernel (no templates)."""
+    k-steps a stage, 2 or 4), fwd_wide_y_kernel<YT, NY> (20),
+    gene_wide_kernel<YT, NJ> (32) and dpsi_wide_kernel<NK, NZ> (24) at the
+    built tile counts (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``,
+    ``fl.WIDE_DPSI_K_COUNTS`` x ``fl.WIDE_DPSI_Z_COUNTS``), and their
+    packing kernels (no templates)."""
     return {
         "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
                        for t in (1, 2, 4) for a in (0, 1)},
@@ -482,7 +484,9 @@ def tc_kernels(fl):
         "fwd_wide_kernel": {f"<{t},{s}>" for t in fl.WIDE_TILE_COUNTS for s in (2, 4)},
         "fwd_wide_y_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_Y_TILE_COUNTS},
         "fwd_wide_pack_kernel": {"<>"},
-        "dpsi_wide_kernel": {"<>"},
+        "dpsi_wide_kernel": {f"<{k},{z}>" for k in fl.WIDE_DPSI_K_COUNTS
+                             for z in fl.WIDE_DPSI_Z_COUNTS},
+        "dpsi_wide_pack_kernel": {"<>"},
         "gene_wide_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_TILE_COUNTS},
         "gene_wide_pack_kernel": {"<>"},
     }
@@ -667,7 +671,7 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
     out = {"iter_ms": 1000 * tm["loop"] / max(n_iters, 1), "setup_s": tm["setup"],
            "peak_gb": max(b for _, b in peaks) / 1e9, "setup_peak_gb": setup_peak / 1e9,
            "final_elbo": ci.final_elbo, "sd_final": ci.sd_final_elbo, "labels": fit.clone,
-           "accuracy": accuracy(fit, z), "launches": launches}
+           "accuracy": accuracy(fit, z), "launches": launches, "n_iters": n_iters}
     P = 0 if x is None else x.shape[1]
     if P:
         beta = fit.ml_params["beta"]
@@ -733,9 +737,8 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_
     acc = accuracy(fit, z)
     ran = "vmap" if [n for n, _ in loop_peaks] == ["run_inference_lanes"] else "map"
     P = 0 if x is None else x.shape[1]
-    plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, mc_samples,
-                        R if ran == "vmap" else 1, 4, "cuda", y_itemsize, P,
-                        impl == "z_cheb") / 1e9
+    plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, mc_samples, R, 4, "cuda", y_itemsize,
+                        P, impl == "z_cheb", batching=ran) / 1e9
     peak = max(b for _, b in loop_peaks) / 1e9
     log(f"sweep ({name}) {impl} {batching} (ran as {ran}) y_storage={y_storage} P={P} "
         f"mc_samples={mc_samples}, {R} lanes: "
@@ -745,8 +748,8 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_
         f"iteration, {1000 * tm['loop'] / max(iters):.2f} ms per sweep iteration), "
         f"inference {tm['inference']:.2f} s, package {tm['package']:.2f} s; iterations {iters}; "
         f"best lane {fit.multirun_info['best_run']} accuracy {acc:.4f}; launches {launches}; "
-        f"peak allocated in the inference {peak:.3f} GB, restarts._sweep_bytes reckons "
-        f"{plan:.3f} GB")
+        f"peak allocated in the inference {peak:.4f} GB, restarts._sweep_bytes reckons "
+        f"{plan:.4f} GB ({plan / peak:.3f} of it{', UNDER the peak' if plan < peak else ''})")
     if acc < MIN_ACCURACY:
         raise AssertionError(f"sweep ({name}): best lane accuracy {acc:.4f} < {MIN_ACCURACY}")
     want = {"fwd": sum(2 + n + 20 for n in iters) if impl == "xla" else 20 * R,
@@ -1783,8 +1786,8 @@ WIDE_RESOURCE_WIDTHS = ((64, 0, 80), (64, 64, 2048))
 
 
 def wide_resources(fl, storage, Kf, SC, n_a2=0):
-    """The wide forward's and gene part's instantiations at full width for
-    these widths (Y in ``storage``) under ``fl.wide_plan``'s plan, as the
+    """The wide forward's, dpsi's and gene part's instantiations at full
+    width for these widths (Y in ``storage``) under ``fl.wide_plan``'s plan, as the
     library lays them out (``fl_wide_resources``): each kernel's registers
     and spill bytes (ptxas), dynamic shared memory and blocks an SM (the
     occupancy query); raises unless each runs at least two blocks an SM,
@@ -1798,24 +1801,81 @@ def wide_resources(fl, storage, Kf, SC, n_a2=0):
     lib = _build.load()
     code = fl.Y_DTYPES[getattr(torch, storage)]
     plan = fl.wide_plan(FULL["N"], FULL["G"], Kf, n_a2, SC)
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 10)()
     err = lib.fl_wide_resources(fl._plan_arg(plan), FULL["N"], FULL["G"], Kf, n_a2, SC, code,
                                 out)
     if err:
         raise AssertionError(f"the library refuses wide_plan's plan {plan} (CUDA error {err})")
     res = {}
     for i, (part, kernel, args) in enumerate((
-            ("fwd", "fwd_wide_kernel", f"<{plan['zt_group']},{out[6]}>"),
+            ("fwd", "fwd_wide_kernel", f"<{plan['zt_group']},{out[8]}>"),
             ("fwd_y", "fwd_wide_y_kernel", f"<{code},{plan['ny_pad']}>"),
-            ("gene", "gene_wide_kernel", f"<{code},{plan['nj']}>"))):
+            ("gene", "gene_wide_kernel", f"<{code},{plan['nj']}>"),
+            ("dpsi", "dpsi_wide_kernel", f"<{plan['dk_pad']},{plan['dz_group']}>"))):
         regs, spill_st, spill_ld = kernel_resources(_build.build_log, kernel)[args]
         res[part] = {"instantiation": kernel + args, "registers": regs,
                      "spill_bytes": spill_st + spill_ld, "smem_bytes": out[2 * i],
                      "blocks_per_sm": out[2 * i + 1]}
+        if part == "dpsi":
+            res[part]["k_steps_a_stage"] = out[9]
         if out[2 * i + 1] < 2 or spill_st or spill_ld:
             raise AssertionError(f"{kernel} at Y {storage}, Kf={Kf}, S={n_a2}, S*C={SC}: "
                                  f"{res[part]}")
     return res
+
+
+def wide_stream(clonealign_torch, fl, Y, L, z, X, core):
+    """The full-width wide fit (K = 1, P = 4, mc_samples = 8, "auto"
+    storage, "fresh" as the in-core fit) streamed through ``fit_streaming``
+    in the feeder's "auto" chunks, held to ``core``, full_fit's numbers of
+    the in-core fit on the same data and seed: the same iterations and
+    labels, the final ELBO within max(1e-4 |ELBO|, 3 sd_final) (the narrow
+    streamed = in-core bar), every launch wide, forwards chunks x (2 + 2 n
+    + 20) and dpsi = gene = chunks x n, and the card's peak over the call
+    (from a reset with the data on the host) below Y's bytes at int8."""
+    import torch
+
+    from clonealign_torch import stream
+
+    n_chunks = len(stream._chunk_bounds(FULL["N"], stream._resolve_chunk_cells(
+        "auto", FULL["N"], FULL["G"])))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit = clonealign_torch.fit_streaming(
+        Y, L, x=X, mc_samples=WIDE_S, chunk_cells="auto", device="cuda", max_iter=FIT_MAX_ITER,
+        seed=0, verbose=False, elbo_eval="fresh", likelihood_impl="xla", y_storage="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    launches = launches_of(fl, wide=True)
+    ci, tm, n = fit.convergence_info, fit.timings, fit.convergence_info.n_iters
+    acc = accuracy(fit, z)
+    want = {"fwd": n_chunks * (2 + 2 * n + 20), "dpsi": n_chunks * n, "gene": n_chunks * n}
+    diff = abs(ci.final_elbo - core["final_elbo"])
+    bar = max(1e-4 * abs(core["final_elbo"]), 3.0 * ci.sd_final_elbo)
+    same = fit.clone == core["labels"]
+    y_int8_gb = FULL["N"] * FULL["G"] / 1e9
+    out = {"iter_ms": 1000 * tm["loop"] / max(n, 1), "n_iters": n, "launches": launches,
+           "peak_gb": peak, "n_chunks": n_chunks}
+    log(f"wide streaming fit {FULL['N']}x{FULL['G']}x{FULL['C']} auto K=1 P={WIDE_P} "
+        f"mc_samples={WIDE_S} ({n_chunks} chunks, fresh): {wall:.2f} s wall (setup "
+        f"{tm['setup']:.2f}, init {tm['init']:.2f}, inference {tm['inference']:.2f} s), {n} "
+        f"iterations, {out['iter_ms']:.2f} ms per iteration against in-core "
+        f"{core['iter_ms']:.2f}; final ELBO {ci.final_elbo:.9g} against {core['final_elbo']:.9g}: "
+        f"|diff| {diff:.6g} (bar {bar:.6g}), labels {'identical' if same else 'DIFFER'}, "
+        f"iterations {n} / {core['n_iters']}; accuracy {acc:.4f}; launches (wide) {launches}; "
+        f"peak allocated over the call {peak:.3f} GB against Y's {y_int8_gb:.3f} GB at int8")
+    check_trace(ci.elbo)
+    if not (same and diff <= bar and n == core["n_iters"]) or acc < MIN_ACCURACY:
+        raise AssertionError("the streamed wide fit differs from the in-core wide fit")
+    if launches != want:
+        raise AssertionError(f"streamed wide fit: launches {launches}, expected {want}")
+    if not peak < y_int8_gb:
+        raise AssertionError("the streamed wide fit held Y's bytes on the card")
+    return out
 
 
 def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
@@ -1824,10 +1884,11 @@ def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
     chunk shape (Y the leading rows of the feeder's buffer), timed at full
     width for WIDE_FULL beside its bound; the full-width fit with K = 1,
     P = 4 and mc_samples = 8 through clonealign (y_storage "auto"), the
-    sweep of three restarts as lanes at the same configuration and the
-    parity fit, each of whose launches must all be wide. ``auto_name`` and
-    ``y_itemsize`` name the Y storage "auto" resolves to for the full-width
-    counts. Returns the numbers for the kernels line."""
+    same fit streamed (:func:`wide_stream`), the sweep of three restarts as
+    lanes at the same configuration and the parity fit, each of whose
+    launches must all be wide. ``auto_name`` and ``y_itemsize`` name the Y
+    storage "auto" resolves to for the full-width counts. Returns the
+    numbers for the kernels line."""
     from clonealign_torch import stream
 
     t_phase = time.perf_counter()
@@ -1850,7 +1911,8 @@ def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
         log(f"wide, full width, Y {st}, Kf={Kf} S*C={S * FULL['C']}: fwd_wide_pack_kernel + "
             f"fwd_wide_kernel + fwd_wide_y_kernel "
             f"{r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}, bound {b['fwd'][0]:.3f} by "
-            f"{b['fwd'][2]}, {b['fwd'][0] / r['fwd_ms']:.3f} of it), dpsi_wide_kernel "
+            f"{b['fwd'][2]}, {b['fwd'][0] / r['fwd_ms']:.3f} of it), dpsi_wide_pack_kernel + "
+            f"dpsi_wide_kernel "
             f"{r['dpsi_ms']:.3f} ms (plain {r['dpsi_plain_ms']:.3f}, bound {b['dpsi'][0]:.3f} by "
             f"{b['dpsi'][2]}, {b['dpsi'][0] / r['dpsi_ms']:.3f} of it), gene_wide_pack_kernel + "
             f"gene_wide_kernel + reduce_chunks_kernel {r['gene_ms']:.3f} ms (plain "
@@ -1872,6 +1934,7 @@ def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
     X = wide_covariates(FULL["N"], seed=5)
     fit = full_fit(clonealign_torch, fl, Y, L, z, "auto", x=X, mc_samples=WIDE_S, wide=True,
                    label=f"wide: auto K=1 P={WIDE_P} mc_samples={WIDE_S}")
+    streamed = wide_stream(clonealign_torch, fl, Y, L, z, X, fit)
     sweep = run_sweep(clonealign_torch, fl, Y, L, z, "wide", "xla", "vmap", "auto", y_itemsize,
                       x=X, lanes=WIDE_LANES, mc_samples=WIDE_S, wide=True)
     if sweep["ran"] != "vmap":
@@ -1880,7 +1943,7 @@ def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
     parity = parity_fit(clonealign_torch, fl)
     log(f"wide phase: {time.perf_counter() - t_phase:.1f} s")
     return {"full": full, "chunk": chunk, "chunk_rows": (sizes[0], sizes[-1]),
-            "fit": fit, "sweep": sweep, "parity": parity}
+            "fit": fit, "stream": streamed, "sweep": sweep, "parity": parity}
 
 
 def wide_kernels(wide, auto_name):
@@ -1896,13 +1959,15 @@ def wide_kernels(wide, auto_name):
     bwd_at = ("clonealign_tpu/ops/fused_likelihood.py:234 (jnp.dot branches :182, :187, "
               ":201-202, :211, :213)")
     paths = ((f"wide fit K=1 P={WIDE_P} mc_samples={WIDE_S} y_storage=auto", wide["fit"]["launches"]),
+             (f"wide streaming fit, {wide['stream']['n_chunks']} chunks, fresh",
+              wide["stream"]["launches"]),
              (f"wide sweep, {WIDE_LANES['n_repeats']} restarts, vmap", wide["sweep"]["launches"]),
              (f"parity fit {PARITY['N']}x{PARITY['G']}x{PARITY['C']} K={PARITY['K']} "
               f"P={PARITY['P']} mc_samples={PARITY['mc_samples']}", wide["parity"]))
     out = []
     for name, part, at, err in (
             ("fwd_wide_kernel", "fwd", fwd_at, ("A1", "Z", "YW")),
-            ("dpsi_wide_kernel", "dpsi", bwd_at, ("dpsi",)),
+            ("dpsi_wide_pack_kernel+dpsi_wide_kernel", "dpsi", bwd_at, ("dpsi",)),
             ("gene_wide_kernel+reduce_chunks_kernel", "gene", bwd_at, ("dW", "dmuL"))):
         b = main["bounds"][part]
         out.append({

@@ -123,7 +123,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fl_forward_wide.restype = i
     lib.fl_wide_resources.argtypes = [p] + [i] * 6 + [p]
     lib.fl_wide_resources.restype = i
-    lib.fl_backward_dpsi_wide.argtypes = lib.fl_backward_dpsi.argtypes
+    lib.fl_backward_dpsi_wide.argtypes = [p] * 9 + [i] * 4 + [p]
     lib.fl_backward_dpsi_wide.restype = i
     lib.fl_backward_gene_wide.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.fl_backward_gene_wide.restype = i

@@ -172,12 +172,30 @@
 //    each warp staging its 16 rows in the storage type through the same
 //    kind of ring. Y is an exact float split into hi and lo, so a narrow Y
 //    gives the float32 Y's results bit for bit.
-//  * dpsi_wide_kernel (Y-free): per 64-cell block, for each pass of 32
-//    columns of dZ (kept in shared memory for the pass), drfe = dZ muL^T over
-//    32-gene tiles, then rfe drfe, then its product with W^T for the Kf
-//    columns of dpsi; drfe is linear in dZ's columns, so the passes add, each
-//    recomputing rfe. dA1 YW is added at the end. Plain float32 FMAs on
-//    the CUDA cores.
+//  * dpsi_wide_kernel (Y-free; FlashAttention-2's dQ pass, cells as M):
+//    dpsi = dA1 YW + (rfe drfe) W with drfe = dZ muL^T. Each warp owns 16
+//    cell rows and walks the genes in k-steps of 8, with per k-step, all
+//    on tensor cores in 3xTF32: log_rfe = psi W^T (psi's A fragments in
+//    shared memory, split where they are used), drfe = dZ muL^T (dZ's A
+//    fragments of up to 10 tiles split once into registers; K = S*C), then
+//    t = exp(log_rfe) drfe in the C fragment, which is the A fragment of
+//    dpsi += t W once the k-step's genes are taken in C-to-A order.
+//    dpsi_wide_pack_kernel
+//    writes the gene side once a call (W^T, muL^T, and W in C-to-A order,
+//    split into TF32 hi and lo); blocks of 4 warps stage it with cp.async
+//    into a ring of two stages of 4 k-steps (2 where 4 would leave room
+//    for one block an SM). One exp per (cell, gene) up to S*C = 80; wider
+//    dZ takes column groups one after another, each recomputing log_rfe
+//    and the exps (dpsi is linear in drfe). Each product's k-step goes to
+//    fresh accumulators added on CUDA cores; dpsi's k-steps are summed in
+//    float32 over a stage and in float64 over the stages, and dA1 YW is
+//    added last in float64. Every lane holds its own outputs: no shuffle,
+//    no atomics, deterministic. Measured at full width on an H100 80GB
+//    HBM3 (700 W), int8 or float32 alike (time_likelihood.py --wide):
+//    2.35-2.39 ms at Kf 5, S*C 80, 0.84-0.87 at S*C 10 and 6.91-6.93 at Kf
+//    64, against 8.33-8.35, 2.67-2.73 and 37.5 for the float32 FMA kernel
+//    on CUDA cores it replaced; drfe's MMAs take 1.0 ms of the 2.35,
+//    log_rfe's 0.24 and dpsi's 0.20 (gene_variants.py).
 //  * gene_wide_kernel (FlashAttention-2's dK/dV pass, genes as M): each
 //    warp owns 16 genes and walks its chunk of cells in k-steps of 8, with
 //    per k-step, all on tensor cores in 3xTF32: log_rfe^T = W psi^T,
@@ -265,12 +283,16 @@ struct GeneArgs {
 // part's chunks of rows cells and its passes over dZ's tiles (mu_passes of
 // nj tiles, zero-padded, after a first pass of its own for Y's products
 // where y_pass); the workspace in floats: the forward's gene table, and the
-// gene part's partial sums and packed cell side.
+// gene part's partial sums and packed cell side; dpsi_wide_kernel's tiles
+// of [psi, X] (dk_pad) and of a dZ column group (n_dgroups of dz_group),
+// its k-steps a stage (dsteps) and its gene table (dtable floats).
 struct WidePlan {
   int n_kc, n_zt, n_yt, n_st;
   int g_pad, zt_group, n_zgroups, ny_pad;
   int rows, n_chunks, n_pad, nj, mu_passes, y_pass, n_passes;
   size_t table, part, dz, ps, a2, a1;
+  int dk_pad, dz_group, n_dgroups, dsteps;
+  size_t dtable;
 };
 
 struct FwdWideArgs {
@@ -343,15 +365,13 @@ constexpr int kFwdWideSteps = kFwdWideGenes / 8;    // its MMA k-steps
 constexpr int kGeneWideWarps = 4;                   // gene-part blocks: 4 warps x 16 genes
 constexpr int kGeneWideGenes = kGeneWideWarps * kFwdRows;
 constexpr int kGeneWideCells = 16;                  // cells a gene-part stage (2 k-steps)
-// dpsi_wide_kernel's tiles
-constexpr int kWideThreads = 256;
-constexpr int kWideOut = 8;     // outputs a thread keeps, along one row of a tile
-constexpr int kWideG = 32;      // genes a dpsi tile
-constexpr int kWideJ = 32;      // dZ and muL columns a dpsi pass
-constexpr int kDpsiCells = 64;  // cells a dpsi block
-// Pairs (output row, column) a dpsi thread keeps in its product with W:
-// kDpsiCells x Kf.
-constexpr int kDpsiPairs = kDpsiCells * kWideMaxKf / kWideThreads;
+// dpsi_wide_kernel's built widths: tiles of [psi, X] (log_rfe's K and
+// dpsi's columns, zero-padded) and dZ tiles of a column group, whose A
+// fragments a warp holds in registers (ops/fused_likelihood.py's
+// WIDE_DPSI_K_COUNTS, WIDE_DPSI_Z_COUNTS).
+constexpr int kDpsiKCounts[] = {1, 2, 4, 8};
+constexpr int kDpsiZCounts[] = {1, 2, 4, 6, 8, 10};
+constexpr int kDpsiWarps = 4;  // dpsi_wide_kernel blocks: 4 warps x 16 cells
 
 // ---------------------------------------------------------------------------
 // Tensor-core pieces shared by the forward and dpsi kernels. One warp per 16
@@ -1151,28 +1171,10 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ part,
 #endif  // FL_COMMON
 
 // ---------------------------------------------------------------------------
-// The wide family (see the note at the top). dpsi_wide_kernel: float32 FMAs
-// on CUDA cores, runtime Kf and SC. Every loop over a register array is
-// unrolled, so the arrays stay in registers; a thread's outputs past the
-// live rows and columns compute on zeros and are not written. Each tile's
-// products are summed in float32 and the tiles' sums in float64.
+// The wide family (see the note at the top).
 // ---------------------------------------------------------------------------
 
-// acc[0..8) += a * b[0..8), b a 16-byte-aligned row of 8 floats in shared memory.
-__device__ __forceinline__ void fma8(float (&acc)[kWideOut], float a, const float* b) {
-  const float4 b0 = *reinterpret_cast<const float4*>(b);
-  const float4 b1 = *reinterpret_cast<const float4*>(b + 4);
-  acc[0] = fmaf(a, b0.x, acc[0]);
-  acc[1] = fmaf(a, b0.y, acc[1]);
-  acc[2] = fmaf(a, b0.z, acc[2]);
-  acc[3] = fmaf(a, b0.w, acc[3]);
-  acc[4] = fmaf(a, b1.x, acc[4]);
-  acc[5] = fmaf(a, b1.y, acc[5]);
-  acc[6] = fmaf(a, b1.z, acc[6]);
-  acc[7] = fmaf(a, b1.w, acc[7]);
-}
-
-// The tensor-core pieces of fwd_wide_kernel and gene_wide_kernel.
+// The tensor-core pieces of the wide kernels.
 //
 // A C fragment (rows r and r + 8, columns 2c and 2c + 1, in the order (r,
 // 2c), (r, 2c + 1), (r + 8, 2c), (r + 8, 2c + 1)) becomes the A fragment of
@@ -1572,88 +1574,188 @@ fwd_wide_y_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* 
 #endif  // FL_ANY_TYPED
 
 #if FL_COMMON
-// Backward, wide, Y-free: dpsi[n,k] = dA1[n] YW[n,k] + sum_g rfe[n,g]
-// drfe[n,g] W[g,k], drfe = dZ muL^T, in passes over kWideJ columns of dZ.
-// Thread t computes drfe and rfe at row t % 64, genes 8 (t / 64) .. + 8 of a
-// tile, and keeps the dpsi pairs p = t + 256 i (row p % 64, column p / 64).
-// Dynamic shared memory: psi^T of the block's cells (Kf x kDpsiCells), then
-// W^T of the tile (Kf x kWideG).
-__global__ void __launch_bounds__(kWideThreads)
-dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ W,
-                 const float* __restrict__ muL, const float* __restrict__ dA1,
-                 const float* __restrict__ dZ, const float* __restrict__ YW,
-                 float* __restrict__ dpsi, int N, int G, int Kf, int SC) {
-  __shared__ float s_dz[kDpsiCells][kWideJ + 1];              // the pass's dZ, cell-major
-  __shared__ __align__(16) float s_mt[kWideJ][kWideG + 4];    // the tile's muL^T
-  __shared__ float s_t[kDpsiCells][kWideG + 1];               // rfe drfe of the tile
-  extern __shared__ __align__(16) float s_wide[];
-  float* s_psi = s_wide;                   // [k][row]
-  float* s_wt = s_wide + Kf * kDpsiCells;  // [k][gene of the tile]
-
-  const int t = threadIdx.x;
-  const int n0 = blockIdx.x * kDpsiCells;
-  const int r = t % kDpsiCells, g_out = (t / kDpsiCells) * kWideOut;
-  const int n_pairs = kDpsiCells * Kf;
-
-  for (int i = t; i < Kf * kDpsiCells; i += kWideThreads) {
-    const int n = n0 + i % kDpsiCells;
-    s_psi[i] = n < N ? psi[(size_t)n * Kf + i / kDpsiCells] : 0.f;
+// dpsi_wide_kernel's gene-side table, once a call: for each k-step of 8
+// genes (g_pad / 8 of them), 2 dk_pad + n_dgroups dz_group B fragments
+// (hi0, hi1, lo0, lo1) of 32 lanes: W^T for log_rfe (K = columns of [psi,
+// X], N = the k-step's genes in order), muL^T for drfe = dZ muL^T (K = dZ's
+// columns, every group's tiles in turn; N = the genes in order), then W for
+// dpsi += t W (K = the k-step's genes in C-to-A order: B's row c is gene
+// 2c, row c + 4 gene 2c + 1; N = columns of [psi, X]). Zero past G and
+// every width.
+__global__ void dpsi_wide_pack_kernel(const float* __restrict__ W, const float* __restrict__ muL,
+                                      float4* __restrict__ table, int G, int Kf, int SC,
+                                      WidePlan p) {
+  const int n_z = p.n_dgroups * p.dz_group, n_tab = 2 * p.dk_pad + n_z;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= (long long)(p.g_pad / 8) * n_tab * kWarp) return;
+  const int l = (int)(i % kWarp), r = (int)((i / kWarp) % n_tab), ks = (int)(i / kWarp / n_tab);
+  float b0 = 0.f, b1 = 0.f;
+  if (r < p.dk_pad) {
+    const int g = 8 * ks + (l >> 2), k = 8 * r + (l & 3);
+    if (g < G && k < Kf) b0 = W[(size_t)g * Kf + k];
+    if (g < G && k + 4 < Kf) b1 = W[(size_t)g * Kf + k + 4];
+  } else if (r < p.dk_pad + n_z) {
+    const int g = 8 * ks + (l >> 2), j = 8 * (r - p.dk_pad) + (l & 3);
+    if (g < G && j < SC) b0 = muL[(size_t)g * SC + j];
+    if (g < G && j + 4 < SC) b1 = muL[(size_t)g * SC + j + 4];
+  } else {
+    const int g = 8 * ks + 2 * (l & 3), k = 8 * (r - p.dk_pad - n_z) + (l >> 2);
+    if (g < G && k < Kf) b0 = W[(size_t)g * Kf + k];
+    if (g + 1 < G && k < Kf) b1 = W[(size_t)(g + 1) * Kf + k];
   }
-  double acc[kDpsiPairs];
-#pragma unroll
-  for (int i = 0; i < kDpsiPairs; ++i) acc[i] = 0.0;
+  const float2 h0 = tf32_pair(b0), h1 = tf32_pair(b1);
+  table[i] = make_float4(h0.x, h1.x, h0.y, h1.y);
+}
 
+// Backward, wide, Y-free: dpsi[n,k] = dA1[n] YW[n,k] + sum_g t[n,g] W[g,k],
+// t = rfe drfe, rfe = exp(psi W^T), drfe = dZ muL^T. Grid: blocks of
+// kDpsiWarps x 16 cells; each warp owns 16 cell rows (the M of mma.sync
+// m16n8k8) and walks the genes in k-steps of 8, p.dsteps k-steps a stage
+// of the ring. NK tiles of [psi, X] (p.dk_pad) and NZ dZ tiles a column
+// group (p.dz_group) are built counts, so that the tiles' chains of
+// dependent MMAs interleave; the p.n_dgroups groups run one after another.
+// Per k-step: log_rfe by MMA, drfe by NZ MMAs (each tile's products in
+// fresh accumulators added on CUDA cores), one exp an element, t split into
+// the A fragment of dpsi's MMA against W. Registers hold dZ's fragments,
+// the stage's float32 sums and one k-step's work: with two k-steps
+// unrolled, or the float64 sums or psi's split fragments in registers,
+// ptxas spilled at 168 registers (the bound of three blocks an SM) from NZ
+// = 8; three blocks an SM at NK = 1, two past it, where log_rfe's tiles
+// are unrolled by two from NK = 4 (fully unrolled, NK = 8 spilled at 255).
+// Dynamic shared memory: each warp's psi A fragments as floats
+// ([warp][kc][lane]), each warp's float64 sums of dpsi ([warp][kc][element]
+// [lane]), then two stage buffers of stage_f4 float4s ([k-step][W^T tiles
+// | the group's muL^T tiles | W tiles][lane]).
+template <int NK, int NZ>
+__global__ void __launch_bounds__(kDpsiWarps * kWarp, NK == 1 ? 3 : 2)
+dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
+                 const float* __restrict__ dA1, const float* __restrict__ YW,
+                 const float4* __restrict__ table, float* __restrict__ dpsi, int N, int Kf,
+                 int SC, WidePlan p, int stage_f4) {
+  constexpr int RW = 2 * NK + NZ;  // table tiles a k-step of a stage
+  constexpr int kLrUnroll = NK >= 4 ? 2 : NK;  // log_rfe's tiles unrolled
+  extern __shared__ float4 s_dyn[];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  // MMA fragments: A rows (cells) n0 and n1, A columns c and c + 4; C
+  // columns 2c and 2c + 1.
+  const int fr = lane >> 2, fc = lane & 3;
+  const int n0 = (blockIdx.x * kDpsiWarps + warp) * kFwdRows + fr, n1 = n0 + 8;
+  const int n_tab = 2 * NK + p.n_dgroups * NZ;
+  float4* s_psi = s_dyn + warp * NK * kWarp;
+  double* s_acc = reinterpret_cast<double*>(s_dyn + kDpsiWarps * NK * kWarp) + warp * NK * 4 * kWarp;
+  float4* s_stage = s_dyn + kDpsiWarps * NK * 3 * kWarp;
+
+  // psi's A fragments (rows n0, n1; columns 8 kc + c, + 4), as floats,
+  // split where they are used; and dpsi's float64 sums ([kc][element][lane]).
+  // Each lane reads back only its own.
+#pragma unroll
+  for (int kc = 0; kc < NK; ++kc) {
+    const int k0 = 8 * kc + fc, k1 = k0 + 4;
+    s_psi[kc * kWarp + lane] = make_float4(n0 < N && k0 < Kf ? psi[(size_t)n0 * Kf + k0] : 0.f,
+                                           n1 < N && k0 < Kf ? psi[(size_t)n1 * Kf + k0] : 0.f,
+                                           n0 < N && k1 < Kf ? psi[(size_t)n0 * Kf + k1] : 0.f,
+                                           n1 < N && k1 < Kf ? psi[(size_t)n1 * Kf + k1] : 0.f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_acc[(4 * kc + e) * kWarp + lane] = 0.0;
+  }
+
+  const int n_stages = p.g_pad / (8 * p.dsteps);
+  // No early exit: every warp takes part in the block's barriers; rows past
+  // N compute on zeros and write nothing.
 #pragma unroll 1
-  for (int c0 = 0; c0 < SC; c0 += kWideJ) {
-    __syncthreads();  // the previous pass is done with s_dz
-    for (int i = t; i < kDpsiCells * kWideJ; i += kWideThreads) {
-      const int rr = i / kWideJ, j = i % kWideJ, n = n0 + rr, c = c0 + j;
-      s_dz[rr][j] = (n < N && c < SC) ? dZ[(size_t)n * SC + c] : 0.f;
+  for (int grp = 0; grp < p.n_dgroups; ++grp) {
+    // dZ's A fragments of the group's tiles (rows n0, n1; columns 8 jt + c,
+    // + 4; zero past N and S*C), split once a group.
+    uint32_t zh[NZ][4], zl[NZ][4];
+#pragma unroll
+    for (int t = 0; t < NZ; ++t) {
+      const int j0 = 8 * (grp * NZ + t) + fc, j1 = j0 + 4;
+      const float v[4] = {n0 < N && j0 < SC ? dZ[(size_t)n0 * SC + j0] : 0.f,
+                          n1 < N && j0 < SC ? dZ[(size_t)n1 * SC + j0] : 0.f,
+                          n0 < N && j1 < SC ? dZ[(size_t)n0 * SC + j1] : 0.f,
+                          n1 < N && j1 < SC ? dZ[(size_t)n1 * SC + j1] : 0.f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32_int(v[e], zh[t][e], zl[t][e]);
     }
+    // cp.async of stage s (genes [8 dsteps s, 8 dsteps (s + 1))) into
+    // buffer buf: the k-steps' W^T tiles, the group's muL^T tiles, W tiles.
+    auto stage = [&](int s, int buf) {
+      float4* dst = s_stage + (size_t)buf * stage_f4;
+      const int ks0 = s * p.dsteps;
+      for (int i = threadIdx.x; i < p.dsteps * RW * kWarp; i += blockDim.x) {
+        const int l = i % kWarp, r = (i / kWarp) % RW, ks = i / (kWarp * RW);
+        const int src = r < NK ? r : r < NK + NZ ? r + grp * NZ : r + (p.n_dgroups - 1) * NZ;
+        cp_async_zfill<16>(dst + i, table + ((size_t)(ks0 + ks) * n_tab + src) * kWarp + l, 16);
+      }
+      cp_async_commit();
+    };
+    __syncthreads();  // the previous group is done with the ring
+    stage(0, 0);
 #pragma unroll 1
-    for (int gs = 0; gs < G; gs += kWideG) {
-      __syncthreads();  // the previous tile is consumed
-      for (int i = t; i < kWideJ * kWideG; i += kWideThreads) {
-        // 8 columns of 4 genes a warp: 32-byte pieces of muL's rows, and
-        // no two lanes on one shared-memory bank
-        const int j = (i >> 8) * 8 + (i & 7), gl = (i >> 3) & 31, g = gs + gl, c = c0 + j;
-        s_mt[j][gl] = (g < G && c < SC) ? muL[(size_t)g * SC + c] : 0.f;
-      }
-      for (int i = t; i < Kf * kWideG; i += kWideThreads) {
-        const int g = gs + i % kWideG;
-        s_wt[i] = g < G ? W[(size_t)g * Kf + i / kWideG] : 0.f;
-      }
-      __syncthreads();
-      float d[kWideOut], lr[kWideOut];
+    for (int s = 0; s < n_stages; ++s) {
+      const int buf = s & 1;
+      cp_async_wait_all();
+      __syncthreads();  // the stage has landed, and the other buffer is free
+      if (s + 1 < n_stages) stage(s + 1, buf ^ 1);
+      const float4* tab = s_stage + (size_t)buf * stage_f4;
+      float sacc[NK][4];  // the stage's dpsi, in float32
 #pragma unroll
-      for (int e = 0; e < kWideOut; ++e) d[e] = lr[e] = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < kWideJ; ++j) fma8(d, s_dz[r][j], &s_mt[j][g_out]);
+      for (int kc = 0; kc < NK; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[kc][e] = 0.f;
 #pragma unroll 1
-      for (int k = 0; k < Kf; ++k) fma8(lr, s_psi[k * kDpsiCells + r], &s_wt[k * kWideG + g_out]);
-      // past G, muL and W are zero: drfe = 0
+      for (int ks = 0; ks < p.dsteps; ++ks) {
+        const float4* b = tab + ks * RW * kWarp + lane;
+        // log_rfe and drfe at C positions (n0, 2c), (n0, 2c + 1), (n1, 2c),
+        // (n1, 2c + 1) of the k-step's genes
+        float lr[4] = {0.f, 0.f, 0.f, 0.f}, dr[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll kLrUnroll
+        for (int kc = 0; kc < NK; ++kc) {
+          const float4 q = s_psi[kc * kWarp + lane];
+          const float pv[4] = {q.x, q.y, q.z, q.w};
+          uint32_t ph[4], pl[4];
 #pragma unroll
-      for (int e = 0; e < kWideOut; ++e) s_t[r][g_out + e] = __expf(lr[e]) * d[e];
-      __syncthreads();
+          for (int e = 0; e < 4; ++e) split_tf32_int(pv[e], ph[e], pl[e]);
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(d, ph, pl, b[kc * kWarp]);
+          add4(lr, d);
+        }
 #pragma unroll
-      for (int i = 0; i < kDpsiPairs; ++i) {
-        const int p = t + kWideThreads * i;
-        if (p >= n_pairs) break;
-        const int rr = p % kDpsiCells, k = p / kDpsiCells;
-        float v = 0.f;
-#pragma unroll 8
-        for (int gl = 0; gl < kWideG; ++gl) v = fmaf(s_t[rr][gl], s_wt[k * kWideG + gl], v);
-        acc[i] += v;
+        for (int t = 0; t < NZ; ++t) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(d, zh[t], zl[t], b[(NK + t) * kWarp]);
+          add4(dr, d);
+        }
+        float tv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tv[e] = __expf(lr[e]) * dr[e];
+        uint32_t th[4], tl[4];
+        c_to_a(tv, th, tl);
+#pragma unroll
+        for (int kc = 0; kc < NK; ++kc) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(d, th, tl, b[(NK + NZ + kc) * kWarp]);
+          add4(sacc[kc], d);
+        }
       }
+#pragma unroll
+      for (int kc = 0; kc < NK; ++kc)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s_acc[(4 * kc + e) * kWarp + lane] += sacc[kc][e];
     }
   }
+
+  // D fragment order: (n0, 2c), (n0, 2c + 1), (n1, 2c), (n1, 2c + 1) of
+  // each tile of [psi, X]'s columns; dA1 YW added last, in float64.
 #pragma unroll
-  for (int i = 0; i < kDpsiPairs; ++i) {
-    const int p = t + kWideThreads * i;
-    if (p >= n_pairs) break;
-    const int n = n0 + p % kDpsiCells, k = p / kDpsiCells;
-    if (n < N) dpsi[(size_t)n * Kf + k] = (float)fma((double)dA1[n], (double)YW[(size_t)n * Kf + k], acc[i]);
-  }
+  for (int kc = 0; kc < NK; ++kc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = e < 2 ? n0 : n1, k = 8 * kc + 2 * fc + (e & 1);
+      if (n < N && k < Kf)
+        dpsi[(size_t)n * Kf + k] = (float)fma((double)dA1[n], (double)YW[(size_t)n * Kf + k],
+                                              s_acc[(4 * kc + e) * kWarp + lane]);
+    }
 }
 #endif  // FL_COMMON
 
@@ -2058,14 +2160,26 @@ inline bool is_y_tile_count(long long t) {
     if (c == t) return true;
   return false;
 }
+inline bool is_dpsi_k_count(long long t) {
+  for (int c : kDpsiKCounts)
+    if (c == t) return true;
+  return false;
+}
+inline bool is_dpsi_z_count(long long t) {
+  for (int c : kDpsiZCounts)
+    if (c == t) return true;
+  return false;
+}
 
 // The plan ops/fused_likelihood.py's wide_plan made (its WIDE_PLAN_KEYS, in
 // order), or false where a number does not fit these sizes: every width's
 // tiles, each group or pass a built count and within kWideTiles beside the
 // tiles it shares a warp with, dlog mu's tiles in a Y pass within d(muL)'s
 // (it takes them), every cell in a chunk of whole stages and within the
-// packed rows, grid.y within 65535, and every workspace region at least what
-// the kernels address in it.
+// packed rows, grid.y within 65535, dpsi's tiles of [psi, X] and dZ
+// groups built counts that hold every tile, its stages whole k-steps of the
+// padded genes, and every workspace region at least what the kernels
+// address in it.
 bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, WidePlan& p) {
   p.n_kc = (int)v[0], p.n_zt = (int)v[1], p.n_yt = (int)v[2], p.n_st = (int)v[3];
   p.g_pad = (int)v[4], p.zt_group = (int)v[5], p.n_zgroups = (int)v[6], p.ny_pad = (int)v[7];
@@ -2073,8 +2187,10 @@ bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Wid
   p.mu_passes = (int)v[12], p.y_pass = (int)v[13], p.n_passes = (int)v[14];
   p.table = (size_t)v[15], p.part = (size_t)v[16], p.dz = (size_t)v[17];
   p.ps = (size_t)v[18], p.a2 = (size_t)v[19], p.a1 = (size_t)v[20];
-  for (int i = 0; i < 21; ++i)
-    if (v[i] < 0 || (i < 15 && v[i] > 0x7fffffff)) return false;
+  p.dk_pad = (int)v[21], p.dz_group = (int)v[22], p.n_dgroups = (int)v[23], p.dsteps = (int)v[24];
+  p.dtable = (size_t)v[25];
+  for (int i = 0; i < 26; ++i)
+    if (v[i] < 0 || ((i < 15 || (i > 20 && i < 25)) && v[i] > 0x7fffffff)) return false;
   const long long F = (long long)Kf + SC + nA2;
   return p.n_kc == cdiv(Kf, 8) && p.n_zt == cdiv(SC, 8) && p.n_yt == cdiv(Kf + nA2, 8) &&
          p.n_st == cdiv(nA2, 8) && p.g_pad % kFwdWideGenes == 0 && p.g_pad >= G &&
@@ -2092,12 +2208,13 @@ bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Wid
          p.dz >= (size_t)p.n_pad * 16 * p.mu_passes * p.nj &&
          p.ps >= (size_t)p.n_pad * 16 * p.n_kc && p.ps % 4 == 0 &&
          p.a2 >= (size_t)p.n_pad * 16 * p.n_st && p.a2 % 4 == 0 && p.dz % 4 == 0 &&
-         p.a1 >= (size_t)p.n_pad;
+         p.a1 >= (size_t)p.n_pad && is_dpsi_k_count(p.dk_pad) && p.dk_pad >= p.n_kc &&
+         is_dpsi_z_count(p.dz_group) && p.n_dgroups >= 1 &&
+         (long long)p.n_dgroups * p.dz_group >= p.n_zt && (p.dsteps == 2 || p.dsteps == 4) &&
+         p.g_pad % (8 * p.dsteps) == 0 &&
+         p.dtable >= (size_t)(p.g_pad / 8) * (2 * p.dk_pad + p.n_dgroups * p.dz_group) * kWarp * 4;
 }
 #endif  // FL_COMMON
-
-// Shared memory the wide kernels take beyond their static arrays.
-inline int dpsi_wide_smem(int Kf) { return Kf * (kDpsiCells + kWideG) * (int)sizeof(float); }
 
 // Float4s of a stage buffer and bytes of dynamic shared memory, at y_bytes
 // a count of Y: fwd_wide_kernel's `steps` k-steps of W^T and Z tiles (after
@@ -2138,6 +2255,16 @@ inline int gene_wide_stage_f4(const WidePlan& p, int y_bytes) {
 inline int gene_wide_smem(const WidePlan& p, int y_bytes) {
   return 16 * (kGeneWideWarps * (p.n_kc + 2 * p.nj) * kWarp + 2 * gene_wide_stage_f4(p, y_bytes));
 }
+// dpsi_wide_kernel's: p.dsteps k-steps of W^T, muL^T and W tiles a stage
+// buffer, after the warps' psi fragments and float64 sums (3 float4s a
+// lane and tile of [psi, X]; wide_plan takes 4 k-steps unless that would
+// leave room for one block an SM).
+inline int dpsi_wide_stage_f4(const WidePlan& p) {
+  return p.dsteps * (2 * p.dk_pad + p.dz_group) * kWarp;
+}
+inline int dpsi_wide_smem(const WidePlan& p) {
+  return 16 * (kDpsiWarps * p.dk_pad * 3 * kWarp + 2 * dpsi_wide_stage_f4(p));
+}
 
 // f(std::integral_constant<int, T>) for T the built tile count t
 // (kWideTileCounts), or the built Y tile count (kWideYTileCounts).
@@ -2177,6 +2304,29 @@ inline void fwd_wide_dispatch(int t, int steps, F&& f) {
     else
       f(fwd_wide_kernel<NZ, kFwdWideSteps / 2>);
   });
+}
+
+// f(dpsi_wide_kernel<NK, NZ>) for the built counts nk (kDpsiKCounts) and
+// nz (kDpsiZCounts).
+template <class F>
+inline void dpsi_wide_dispatch(int nk, int nz, F&& f) {
+  auto at_nk = [&](auto k) {
+    constexpr int NK = decltype(k)::value;
+    switch (nz) {
+      case 1: f(dpsi_wide_kernel<NK, 1>); break;
+      case 2: f(dpsi_wide_kernel<NK, 2>); break;
+      case 4: f(dpsi_wide_kernel<NK, 4>); break;
+      case 6: f(dpsi_wide_kernel<NK, 6>); break;
+      case 8: f(dpsi_wide_kernel<NK, 8>); break;
+      default: f(dpsi_wide_kernel<NK, 10>);
+    }
+  };
+  switch (nk) {
+    case 1: at_nk(std::integral_constant<int, 1>{}); break;
+    case 2: at_nk(std::integral_constant<int, 2>{}); break;
+    case 4: at_nk(std::integral_constant<int, 4>{}); break;
+    default: at_nk(std::integral_constant<int, 8>{});
+  }
 }
 #endif  // FL_COMMON
 
@@ -2433,10 +2583,11 @@ int fl_backward_gene(const void* Y, const float* psi, const float* W,
 // fl_backward_dpsi and fl_backward_gene, for Kf <= 64, nA2 <= 64 and SC <=
 // 2048, with the plan that ops/fused_likelihood.py's wide_plan made for
 // these sizes (its WIDE_PLAN_KEYS, in order; cudaErrorInvalidValue where it
-// does not fit them, wide_plan_of). fl_forward_wide's scratch (16-byte
-// aligned) holds the plan's table floats; fl_backward_gene_wide's its part
-// + dz + ps + a2 + a1 floats: the (Kf+SC+nA2, G) partial sums of each
-// chunk, then the packed cell side.
+// does not fit them, wide_plan_of; fl_backward_dpsi_wide takes the plan of
+// nA2 = 0). fl_forward_wide's scratch (16-byte aligned) holds the plan's
+// table floats, fl_backward_dpsi_wide's its dtable floats (the packed gene
+// side); fl_backward_gene_wide's its part + dz + ps + a2 + a1 floats: the
+// (Kf+SC+nA2, G) partial sums of each chunk, then the packed cell side.
 int fl_forward_wide(const void* Y, const float* psi, const float* W,
                     const float* logmu, const float* muL, float* A1, float* A2,
                     float* Z, float* YW, float* scratch, const long long* plan, int N, int G,
@@ -2467,14 +2618,22 @@ int fl_forward_wide(const void* Y, const float* psi, const float* W,
 
 int fl_backward_dpsi_wide(const float* psi, const float* W, const float* muL,
                           const float* dA1, const float* dZ, const float* YW,
-                          float* dpsi, int N, int G, int Kf, int SC,
-                          cudaStream_t stream) {
-  if (bad_wide_sizes(N, G, Kf, 0, SC, kGeneWideCells, kYF32)) return (int)cudaErrorInvalidValue;
+                          float* dpsi, float* scratch, const long long* plan, int N, int G,
+                          int Kf, int SC, cudaStream_t stream) {
+  WidePlan p;
+  if (bad_wide_sizes(N, G, Kf, 0, SC, kGeneWideCells, kYF32) ||
+      !wide_plan_of(plan, N, G, Kf, 0, SC, p))
+    return (int)cudaErrorInvalidValue;
   if (Kf == 0) return (int)cudaSuccess;
-  const int smem = dpsi_wide_smem(Kf);
-  cudaFuncSetAttribute(dpsi_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dpsi_wide_kernel<<<blocks_for(N, kDpsiCells), kWideThreads, smem, stream>>>(
-      psi, W, muL, dA1, dZ, YW, dpsi, N, G, Kf, SC);
+  float4* table = reinterpret_cast<float4*>(scratch);
+  dpsi_wide_pack_kernel<<<blocks_for((long long)(p.dtable / 4), 256), 256, 0, stream>>>(
+      W, muL, table, G, Kf, SC, p);
+  const int smem = dpsi_wide_smem(p), stage_f4 = dpsi_wide_stage_f4(p);
+  dpsi_wide_dispatch(p.dk_pad, p.dz_group, [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    kernel<<<blocks_for(N, kDpsiWarps * kFwdRows), kDpsiWarps * kWarp, smem, stream>>>(
+        psi, dZ, dA1, YW, table, dpsi, N, Kf, SC, p, stage_f4);
+  });
   return (int)cudaGetLastError();
 }
 
@@ -2506,11 +2665,12 @@ int fl_backward_gene_wide(const void* Y, const float* psi, const float* W,
 }
 
 // What the wide kernels that the plan launches take on the card, for
-// holding them to two blocks an SM: out[0..7) = fwd_wide_kernel's dynamic
+// holding them to two blocks an SM: out[0..10) = fwd_wide_kernel's dynamic
 // shared memory bytes and blocks an SM (the occupancy query), the same for
-// fwd_wide_y_kernel and gene_wide_kernel at Y storage y_type, and
-// fwd_wide_kernel's k-steps a stage. Returns cudaErrorInvalidValue where
-// the plan does not fit the sizes.
+// fwd_wide_y_kernel and gene_wide_kernel at Y storage y_type and for
+// dpsi_wide_kernel, then fwd_wide_kernel's and dpsi_wide_kernel's k-steps
+// a stage. Returns cudaErrorInvalidValue where the plan does not fit the
+// sizes.
 int fl_wide_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC, int y_type,
                       int* out) {
   WidePlan p;
@@ -2537,7 +2697,15 @@ int fl_wide_resources(const long long* plan, int N, int G, int Kf, int nA2, int 
     out[2 * which] = smem[which];
     out[2 * which + 1] = blocks;
   }
-  out[6] = steps;
+  const int dsmem = dpsi_wide_smem(p);
+  dpsi_wide_dispatch(p.dk_pad, p.dz_group, [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dsmem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kDpsiWarps * kWarp, dsmem);
+  });
+  out[6] = dsmem;
+  out[7] = blocks;
+  out[8] = steps;
+  out[9] = p.dsteps;
   return (int)cudaGetLastError();
 }
 

@@ -24,9 +24,9 @@ The kernels above are built for at most ``MAX_KF`` columns of ``[psi, X]``,
 (:func:`wide_route`) each wrapper launches the wide family instead, with
 runtime widths up to ``WIDE_MAX_KF``, ``WIDE_MAX_A2`` and ``WIDE_MAX_SC`` (the
 counterparts of the Pallas kernels' ``jnp.dot`` branches), counted apart in
-``*_wide_launches``: the forward (Z, and Y's products) and the gene part on
-tensor cores (the contract as unnormalized attention), the Y-free dpsi
-kernel in float32 FMAs.
+``*_wide_launches``: the forward (Z, and Y's products), the Y-free dpsi
+kernel and the gene part, all on tensor cores (the contract as unnormalized
+attention).
 :func:`wide_plan` gives their launch geometry and workspace, which the C
 launchers take and check. The plain versions take any width and
 are the wide family's too.
@@ -66,6 +66,14 @@ WIDE_TILE_COUNTS = (1, 2, 4, 6, 8, 10, 12, 16)
 WIDE_Y_TILE_COUNTS = (1, 2, 4, 8, 16)
 _FWD_WIDE_GENES = 32
 _GENE_WIDE_CELLS = 16
+# dpsi_wide_kernel's built counts (the .cu's kDpsiKCounts, kDpsiZCounts):
+# tiles of [psi, X], and dZ tiles a column group (held in registers); its
+# blocks' warps (kDpsiWarps), and the shared memory a block may take for two
+# blocks an SM (the .cu's kTwoBlockSmem: 228 KB an SM, 1 KB a block kept).
+WIDE_DPSI_K_COUNTS = (1, 2, 4, 8)
+WIDE_DPSI_Z_COUNTS = (1, 2, 4, 6, 8, 10)
+_DPSI_WIDE_WARPS = 4
+_TWO_BLOCK_SMEM = (228 - 2) // 2 * 1024
 _ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
 # Y storage types the kernels load, with the code the C entry points take
 Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
@@ -214,11 +222,12 @@ def _at_least(counts, t: int) -> int:
 # The plan's numbers, in the order the C entry points take them.
 WIDE_PLAN_KEYS = ("n_kc", "n_zt", "n_yt", "n_st", "g_pad", "zt_group", "n_zgroups", "ny_pad",
                   "rows", "n_chunks", "n_pad", "nj", "mu_passes", "y_pass", "n_passes",
-                  "table", "part", "dz", "ps", "a2", "a1")
+                  "table", "part", "dz", "ps", "a2", "a1",
+                  "dk_pad", "dz_group", "n_dgroups", "dsteps", "dtable")
 
 
 def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] = None) -> dict:
-    """The wide forward's and gene part's launch plan for N cells, G genes,
+    """The wide family's launch plan for N cells, G genes,
     Kf columns of ``[psi, X]``, n_a2 A2 columns and SC Z columns: the one
     place it is decided. The C entry points take its ``WIDE_PLAN_KEYS``
     (:func:`_plan_arg`), check that they fit the sizes, and lay out each
@@ -238,14 +247,21 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] =
     dW's ``n_kc`` (and dlog mu's ``n_st`` in the first pass, unless they
     leave no room: then Y's products take a first pass of their own,
     ``y_pass``, where dlog mu takes d(muL)'s first ``n_st`` tiles, so ``nj``
-    is at least ``n_st``), ``n_passes`` in all.
+    is at least ``n_st``), ``n_passes`` in all. dpsi: ``[psi, X]``'s tiles
+    padded to ``dk_pad`` (``WIDE_DPSI_K_COUNTS``), dZ's tiles split evenly
+    into ``n_dgroups`` column groups of at most 10 (one after another in a
+    block, each recomputing the exps), each padded to ``dz_group``
+    (``WIDE_DPSI_Z_COUNTS``); ``dsteps`` k-steps of 8 genes a stage, 4
+    unless that leaves room for one block an SM (``dpsi_smem`` bytes of
+    shared memory a block).
 
     Workspace, in float32 values: ``table``, the forward's packed gene-side
     B fragments; ``part`` (the partial sums), ``dz``, ``ps``, ``a2`` and
-    ``a1`` (the packed cell side), the gene part's scratch. ``fwd_workspace``
-    and ``gene_workspace`` are what :func:`kernel_forward` and
-    :func:`kernel_gene` allocate for the kernels, the latter with its (Kf +
-    SC + n_a2, G) output."""
+    ``a1`` (the packed cell side), the gene part's scratch; ``dtable``,
+    dpsi's packed gene side. ``fwd_workspace``, ``dpsi_workspace`` and
+    ``gene_workspace`` are what :func:`kernel_forward`, :func:`kernel_dpsi`
+    and :func:`kernel_gene` allocate for the kernels, the last with its (Kf
+    + SC + n_a2, G) output."""
     n_kc, n_zt, n_yt, n_st = _cdiv(Kf, 8), _cdiv(SC, 8), _cdiv(Kf + n_a2, 8), _cdiv(n_a2, 8)
     g_pad = _cdiv(G, _FWD_WIDE_GENES) * _FWD_WIDE_GENES
     n_zgroups = _cdiv(n_zt, WIDE_TILES)
@@ -264,10 +280,22 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] =
     F = Kf + SC + n_a2
     part = _cdiv(n_chunks * F * G, 4) * 4
     dz, ps, a2, a1 = n_pad * 16 * mu_passes * nj, n_pad * 16 * n_kc, n_pad * 16 * n_st, n_pad
+    dk_pad = _at_least(WIDE_DPSI_K_COUNTS, max(n_kc, 1))
+    n_dgroups = _cdiv(n_zt, WIDE_DPSI_Z_COUNTS[-1])
+    dz_group = _at_least(WIDE_DPSI_Z_COUNTS, _cdiv(n_zt, n_dgroups))
+
+    def dpsi_smem(steps):  # the warps' psi fragments and float64 sums, two stage buffers
+        return 16 * 32 * (_DPSI_WIDE_WARPS * dk_pad * 3 + 2 * steps * (2 * dk_pad + dz_group))
+
+    dsteps = 4 if dpsi_smem(4) <= _TWO_BLOCK_SMEM else 2
+    dtable = g_pad // 8 * (2 * dk_pad + n_dgroups * dz_group) * 32 * 4
     plan = dict(zip(WIDE_PLAN_KEYS, (
         n_kc, n_zt, n_yt, n_st, g_pad, zt_group, n_zgroups, ny_pad, rows, n_chunks, n_pad, nj,
-        mu_passes, y_pass, mu_passes + y_pass, table, part, dz, ps, a2, a1)))
+        mu_passes, y_pass, mu_passes + y_pass, table, part, dz, ps, a2, a1,
+        dk_pad, dz_group, n_dgroups, dsteps, dtable)))
+    plan["dpsi_smem"] = dpsi_smem(dsteps)
     plan["fwd_workspace"] = table
+    plan["dpsi_workspace"] = dtable
     plan["gene_workspace"] = part + dz + ps + a2 + a1 + F * G
     return plan
 
@@ -282,6 +310,23 @@ def gene_wide_workspace(N: int, G: int, Kf: int, n_a2: int, SC: int) -> int:
     ``gene_workspace``): the (Kf + SC + n_a2, G) partial sums of each chunk
     of :func:`_chunk_rows` cells, the packed cell side, and their sum."""
     return wide_plan(N, G, Kf, n_a2, SC)["gene_workspace"]
+
+
+def gene_scratch(N: int, G: int, Kf: int, n_a2: int, SC: int) -> int:
+    """Floats of scratch the narrow gene-major backward takes in a call (the
+    .cu's gene_plan, which ``fl_backward_gene_scratch`` reports): the (Kf +
+    SC + n_a2, G) partial sums of each chunk of :func:`_chunk_rows` cells,
+    B = [dZ | dZ psi_1 | ...]'s n-tiles packed as (hi, lo) fragments for
+    every 64-cell tile, in passes of at most 4, 3 or 2 n-tiles (Kf 1, 2,
+    more), and the per-cell table (psi, dA1 psi, dA2)."""
+    KF = max(Kf, 1)
+    tiles = _cdiv((Kf + 1) * SC, 8)
+    n_pass = _cdiv(tiles, 4 if KF == 1 else 3 if KF == 2 else 2)
+    NT = _cdiv(tiles, n_pass)
+    n_pass = _cdiv(tiles, NT)
+    n_pad = _cdiv(N, 64) * 64
+    part = _cdiv(_cdiv(N, _chunk_rows(N)) * (Kf + SC + n_a2) * G, 4) * 4
+    return part + n_pass * (n_pad // 8) * NT * 32 * 4 + n_pad * (2 * KF + (MAX_A2 if n_a2 else 0))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -335,8 +380,9 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
 
 def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
     """Launch the Y-free dpsi kernel (the first part of
-    :func:`kernel_backward`), or the wide one past a narrow limit; ``YW`` is
-    :func:`kernel_forward`'s. Returns dpsi (N, Kf). With Kf = 0 there is
+    :func:`kernel_backward`), or past a narrow limit the wide one with its
+    packing of the gene side (:func:`wide_plan`'s ``dpsi_workspace``); ``YW``
+    is :func:`kernel_forward`'s. Returns dpsi (N, Kf). With Kf = 0 there is
     nothing to compute or launch."""
     global dpsi_launches, dpsi_wide_launches
     from . import _build
@@ -353,12 +399,15 @@ def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
     if Kf == 0:
         return dpsi
     lib = _build.load()
-    stream = torch.cuda.current_stream(psi_ext.device).cuda_stream
+    stream = ctypes.c_void_p(torch.cuda.current_stream(psi_ext.device).cuda_stream)
     wide = wide_route(Kf, 0, SC)
-    err = (lib.fl_backward_dpsi_wide if wide else lib.fl_backward_dpsi)(
-        _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dZ), _ptr(YW),
-        _ptr(dpsi), N, G, Kf, SC, ctypes.c_void_p(stream),
-    )
+    args = (_ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dZ), _ptr(YW), _ptr(dpsi))
+    if wide:
+        plan = wide_plan(N, G, Kf, 0, SC)
+        table = torch.empty(plan["dpsi_workspace"], device=psi_ext.device, dtype=torch.float32)
+        err = lib.fl_backward_dpsi_wide(*args, _ptr(table), _plan_arg(plan), N, G, Kf, SC, stream)
+    else:
+        err = lib.fl_backward_dpsi(*args, N, G, Kf, SC, stream)
     _raise_on(err, f"fused likelihood backward (dpsi{', wide' if wide else ''})")
     if wide:
         dpsi_wide_launches += 1

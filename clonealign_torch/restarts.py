@@ -33,41 +33,63 @@ from .utils.noise import Noise
 SWEEP_BUDGET_BYTES = 40 * 10**9
 
 
+# _sweep_bytes' counts: (S, C, N) and (C, N) tensors a lane's ELBO holds,
+# (S, C, N) transients of the one lane the op runs at a time, and the
+# parameter sets "map" holds for each restart (the card measured 2.8).
+_ELBO_SCN = 1
+_ELBO_CN = 9
+_OP_SCN = 2
+_MAP_HELD = 3
+
+
 def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None, P=0,
-                 z_cheb=False, allele=False) -> int:
-    """The lane-batched sweep's working set, reckoned from the code, in
-    bytes; ``itemsize`` is the compute dtype's, ``y_itemsize`` Y's storage
-    type's (by default the compute dtype's), P the covariate columns,
-    ``z_cheb`` whether the likelihood resolved to the Chebyshev normalizer
-    and ``allele`` whether the fit carries the allele term.
+                 z_cheb=False, allele=False, batching="vmap") -> int:
+    """The sweep's working set, reckoned from the code, in bytes: of
+    ``n_lanes`` restarts run as lanes of one loop (``batching="vmap"``), or
+    one after another (``"map"``); ``itemsize`` is the compute dtype's,
+    ``y_itemsize`` Y's storage type's (by default the compute dtype's), P
+    the covariate columns, ``z_cheb`` whether the likelihood resolved to
+    the Chebyshev normalizer and ``allele`` whether the fit carries the
+    allele term.
 
     Shared by every lane: Y (N x G, at its storage itemsize), the
-    covariates X (N x P) and the allele term (N x C). On CUDA the kernels store no N x G tensor and read
-    Y as it is stored; only z_cheb's products with Y convert a narrow Y, a
-    row block (``_CHUNK_ELEMENTS`` elements at most) at a time in the
-    compute dtype. On the CPU the fused op's plain version holds about three
-    N x G temporaries (log_rfe, rfe and dlog_rfe in its backward), and a
-    fourth for Y converted from narrow storage; the lane loop in
-    ``models/multinomial._likelihood_terms`` runs it one lane at a time, so
-    they are held once, not per lane.
+    covariates X (N x P) and the allele term (N x C). On CUDA the kernels
+    store no N x G tensor and read Y as it is stored; only z_cheb's products
+    with Y convert a narrow Y, a row block (``_CHUNK_ELEMENTS`` elements at
+    most) at a time in the compute dtype. On the CPU the fused op's plain
+    version holds about three N x G temporaries (log_rfe, rfe and dlog_rfe
+    in its backward), and a fourth for Y converted from narrow storage; the
+    lane loop in ``models/multinomial._likelihood_terms`` runs it one lane
+    at a time, so they are held once, not per lane.
 
-    Per live lane: the parameters n_par = N (K + C) + G (K + P + 2) + K + C;
-    their gradients, the two Adam moments and the step's three candidates
-    (``TF1Adam.step``), 7 n_par in all; the (S, C, N)-sized tensors the
-    ELBO keeps for its backward (Z, log Z, the clone log-likelihoods, their
-    mean, gamma, log gamma and the masked products), counted as 16 N S C;
-    the fused op's YW and A1 (N (K + P) + N); and with covariates the
-    concatenations [psi, X] and [W, beta] it saves ((N + G)(K + P)). A
-    z_cheb lane holds the same order: its Clenshaw backward recomputes the
-    carries ((S, C, N) each) instead of saving them.
+    Per live lane: the parameters n_par = N (K + C) + G (K + P + 2) + K + C,
+    9 n_par in all (the caller's initial values and their stacked,
+    warm-started copy, the leaves, their gradients, the two Adam moments and
+    the step's three candidates, ``infer.TF1Adam.step``); the ELBO's
+    tensors that stay per lane until the backward, counted apart by shape
+    (``models/multinomial.elbo``): _ELBO_SCN of (S, C, N) (the stacked Z
+    that its log saves) and _ELBO_CN of (C, N) (the samples' mean of the
+    clone log-likelihoods, gamma and log gamma, the masked products and the
+    gradients of gamma's logits); the fused op's YW and A1 (N (K + P) + N);
+    and with covariates the concatenations [psi, X] and [W, beta] it saves
+    ((N + G)(K + P)). Held once, since the op runs one lane at a time: that
+    lane's _OP_SCN (S, C, N) transients (log Z, the clone log-likelihoods,
+    the gradient of Z). "map" runs one live lane beside every restart's
+    initial parameters and, once run, its result, _MAP_HELD n_par each.
 
-    Held once on CUDA where the wide family runs (K + P, S or S C past the
-    narrow kernels' limits; ``fused_likelihood.wide_plan``): the wide
-    forward's packed gene table (every forward, z_cheb's too), and with the
-    exact backward the wide gene part's workspace: its float32 partial sums,
-    (K + P + S C, G) for each chunk of cells, the packed cell side and their
-    sum. Lanes run the op one at a time, so one call's workspace is live at
-    once.
+    Held once on CUDA: with the exact backward, the gene part's scratch
+    (``fused_likelihood.gene_scratch``: partial sums of each chunk of
+    cells, the packed cell side) and its (K + P + S C, G) sums; where the
+    wide family runs (K + P, S or S C past the narrow kernels' limits;
+    ``fused_likelihood.wide_plan``) the wide forward's packed gene table
+    (every forward, z_cheb's too), and with the exact backward the wide
+    dpsi's packed gene table and the wide gene part's workspace in place of
+    the narrow one's.
+
+    The counts of the ELBO's tensors and of "map"'s held parameters are the
+    code's order fitted to the card's peaks (``chip_smoke.inference_peaks``;
+    tests/test_torch_restarts.py holds the reckoning between them and 1.3
+    times them).
     """
     y_itemsize = itemsize if y_itemsize is None else y_itemsize
     narrow = y_itemsize != itemsize
@@ -78,14 +100,21 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     Kf = K + P
     n_par = N * (K + C) + G * (Kf + 2) + K + C
     saved_ext = (N + G) * Kf if P else 0
-    per_lane = 7 * n_par + 16 * N * S * C + N * (Kf + 1) + saved_ext
-    shared = N * P + (N * C if allele else 0)
+    per_lane = (9 * n_par + _ELBO_SCN * N * S * C + _ELBO_CN * N * C + N * (Kf + 1)
+                + saved_ext)
+    live, held = (n_lanes, 0) if batching == "vmap" else (min(n_lanes, 1),
+                                                          _MAP_HELD * n_lanes * n_par)
+    shared = N * P + (N * C if allele else 0) + (_OP_SCN * N * S * C if live else 0)
     workspace = 0
-    if device_type == "cuda" and fl.wide_route(Kf, S, S * C):
-        workspace += 4 * fl.wide_plan(N, G, Kf, S, S * C)["fwd_workspace"]
-    if device_type == "cuda" and not z_cheb and fl.wide_route(Kf, 0, S * C):
-        workspace += 4 * fl.gene_wide_workspace(N, G, Kf, 0, S * C)
-    return (y_itemsize * N * G + itemsize * (shared + temporaries + n_lanes * per_lane)
+    if device_type == "cuda":
+        if fl.wide_route(Kf, S, S * C):
+            workspace += 4 * fl.wide_plan(N, G, Kf, S, S * C)["fwd_workspace"]
+        if not z_cheb and fl.wide_route(Kf, 0, S * C):
+            workspace += 4 * (fl.gene_wide_workspace(N, G, Kf, 0, S * C)
+                              + (fl.wide_plan(N, G, Kf, 0, S * C)["dpsi_workspace"] if Kf else 0))
+        elif not z_cheb:
+            workspace += 4 * (fl.gene_scratch(N, G, Kf, 0, S * C) + (Kf + S * C) * G)
+    return (y_itemsize * N * G + itemsize * (shared + temporaries + held + live * per_lane)
             + workspace)
 
 
@@ -94,7 +123,7 @@ def _auto_restart_batching(N, G, C, K, S, n_lanes, itemsize, device_type, y_item
     """"vmap" when the lane-batched sweep's working set (:func:`_sweep_bytes`)
     fits :data:`SWEEP_BUDGET_BYTES`, else "map", which holds one lane at a
     time. At 100,000 x 5,000 x 10 (K = 1, S = 1, float32) a lane adds about
-    96 MB to Y's 2 GB, so "vmap" takes up to 395 lanes there. (The JAX
+    81 MB to Y's 2 GB, so "vmap" takes up to 469 lanes there. (The JAX
     package's 6e9 lane-elements cutover was measured on a 16 GB TPU v5e and
     does not carry over.)"""
     need = _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize, P, z_cheb,

@@ -18,15 +18,16 @@ package's wrappers with the variant's library in place of the package's.
   then for each variant (a value above 1 fails); then, at the full width of
   the fit (100,000 x 5,000, S*C = 10, Kf = 1, A2 off), with Y stored as
   float32 and as int8, each variant's time in turns, twice.
-* ``fwd_wide`` and ``gene_wide``, the wide forward (``kernel_forward``) and
-  gene part (``kernel_gene``) past a narrow limit: each variant but
-  ``gene_rolled`` takes one piece of work out, so its results are wrong by
-  design, and ``adopted``'s time less the variant's is what that work
-  costs, an upper bound on what any other way of doing it could save (so
-  ``fwd_no_logrfe`` bounds what forming log_rfe on the CUDA cores instead
-  of by MMA could gain, ``gene_no_dw`` what dW by CUDA-core FMAs could
-  gain). Timed at the full width of the fit with Y int8, A2 off, C = 10 and
-  (Kf, S) each of ``WIDE_CONFIGS``, in turns, twice.
+* ``fwd_wide``, ``dpsi_wide`` and ``gene_wide``, the wide forward
+  (``kernel_forward``), dpsi (``kernel_dpsi``) and gene part
+  (``kernel_gene``) past a narrow limit: each variant but ``gene_rolled``
+  and ``dpsi_pairs`` takes one piece of work out, so its results are
+  wrong by design, and ``adopted``'s time less the variant's is what that
+  work costs, an upper bound on what any other way of doing it could save
+  (so ``fwd_no_logrfe`` bounds what forming log_rfe on the CUDA cores
+  instead of by MMA could gain, ``gene_no_dw`` what dW by CUDA-core FMAs
+  could gain). Timed at the full width of the fit with Y int8, A2 off,
+  C = 10 and (Kf, S) each of ``WIDE_CONFIGS``, in turns, twice.
 
 Times are ``chip_smoke.cuda_ms``'s (packing, kernels and reduction). Needs
 an NVIDIA GPU and nvcc.
@@ -60,6 +61,13 @@ GENE_DRFE = "            mma_3xtf32(d, mh, ml, pair_b(q[8 * jj], q[8 * jj + 4]))
 GENE_DMUL = "            mma_3xtf32(d, ah, al, pair_b(q_dz[8 * t], q_dz[sdz + 8 * t]));\n"
 GENE_H2 = "#pragma unroll\n      for (int h2 = 0; h2 < kSteps2; ++h2) {\n"
 GENE_DW = "              mma_3xtf32(d, ah, al, pair_b(q_ps[k8], q_ps[sps + k8]));\n"
+DPSI_LOGRFE = "          mma_3xtf32(d, ph, pl, b[kc * kWarp]);\n"
+DPSI_DRFE = "          mma_3xtf32(d, zh[t], zl[t], b[(NK + t) * kWarp]);\n"
+DPSI_MMA = ("          mma_3xtf32(d, th, tl, b[(NK + NZ + kc) * kWarp]);\n"
+            "          add4(sacc[kc], d);\n")
+DPSI_EXP = "tv[e] = __expf(lr[e]) * dr[e];"
+DPSI_KS = "#pragma unroll 1\n      for (int ks = 0; ks < p.dsteps; ++ks) {\n"
+DPSI_BOUNDS = "__launch_bounds__(kDpsiWarps * kWarp, NK == 1 ? 3 : 2)"
 # name: (the kernel it is about, its replacements)
 VARIANTS = {
     "adopted": (None, []),
@@ -83,9 +91,21 @@ VARIANTS = {
     # the wide gene part with its two k-steps a stage one after the other
     # (a correct variant: fewer registers, less overlap)
     "gene_rolled": ("gene_wide", [(GENE_H2, "#pragma unroll 1\n      for (int h2 = 0; h2 < kSteps2; ++h2) {\n")]),
+    # the wide dpsi without log_rfe = psi W^T (rfe = 1: no exps either),
+    # without the exps (t = log_rfe drfe), without drfe = dZ muL^T (t = 0),
+    # or without dpsi's product with W (its split and MMAs: t summed as it is)
+    "dpsi_no_logrfe": ("dpsi_wide", [(DPSI_LOGRFE, "")]),
+    "dpsi_no_exp": ("dpsi_wide", [(DPSI_EXP, "tv[e] = lr[e] * dr[e];")]),
+    "dpsi_no_drfe": ("dpsi_wide", [(DPSI_DRFE, "")]),
+    "dpsi_no_dmma": ("dpsi_wide", [(DPSI_MMA, "          add4(sacc[kc], tv);\n")]),
+    # the wide dpsi with two k-steps unrolled, so that one's chain of
+    # products runs beside the other's, at two blocks an SM (a correct
+    # variant: more registers, more overlap)
+    "dpsi_pairs": ("dpsi_wide", [(DPSI_KS, "#pragma unroll 2\n      for (int ks = 0; ks < p.dsteps; ++ks) {\n"),
+                                 (DPSI_BOUNDS, "__launch_bounds__(kDpsiWarps * kWarp, 2)")]),
 }
 KERNELS = {"gene": ("gene_kernel",), "fwd_wide": ("fwd_wide_kernel",),
-           "gene_wide": ("gene_wide_kernel",)}
+           "dpsi_wide": ("dpsi_wide_kernel",), "gene_wide": ("gene_wide_kernel",)}
 # (Kf, S) of the wide variants' timing, C = 10
 WIDE_CONFIGS = ((5, 8), (64, 8), (5, 1))
 OUT = os.path.join("build", "gene_variants")
@@ -167,7 +187,7 @@ def gene_phase(libs):
         in_turns(f"full width, Y {storage}", libs, fl.kernel_gene, args, reps=10)
 
 
-def wide_phase(fwd_libs, gene_libs):
+def wide_phase(fwd_libs, dpsi_libs, gene_libs):
     for Kf, S in WIDE_CONFIGS:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(4)
@@ -177,6 +197,11 @@ def wide_phase(fwd_libs, gene_libs):
         if fwd_libs:
             in_turns(f"{label} fwd", fwd_libs, fl.kernel_forward,
                      (Y, x["psi"], x["W"], None, x["muL"]), reps=5)
+        if dpsi_libs:
+            YW = x["Y"] @ x["W"]
+            in_turns(f"{label} dpsi", dpsi_libs, fl.kernel_dpsi,
+                     (x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"], YW), reps=5)
+            del YW
         if gene_libs:
             in_turns(f"{label} gene", gene_libs, fl.kernel_gene,
                      (Y, x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"]), reps=5)
@@ -197,7 +222,7 @@ def main() -> int:
     if len(about["gene"]) > 1 or not sys.argv[1:]:
         gene_phase(about["gene"])
     wide_phase(*(about[t] if len(about[t]) > 1 or not sys.argv[1:] else {}
-                 for t in ("fwd_wide", "gene_wide")))
+                 for t in ("fwd_wide", "dpsi_wide", "gene_wide")))
     return 0
 
 

@@ -315,18 +315,22 @@ def test_k_plus_p_over_the_kernels_is_refused_at_setup_on_cuda(monkeypatch, K, P
 
 def test_sweep_bytes_count_covariates_and_no_narrow_block_for_the_exact_sweep():
     """On the card the exact kernels read int8 Y as it is stored: no
-    converted row block; beta and its optimizer state (7 G P a lane), the
-    fused op's wider YW and saved [psi, X], [W, beta] ((2 N + G) P a lane)
-    and the shared X (N P)."""
+    converted row block; beta and its optimizer state (9 G P a lane), the
+    fused op's wider YW and saved [psi, X], [W, beta] ((2 N + G) P a lane),
+    the shared X (N P), and the gene part's scratch and sums at Kf = 1 + P
+    in place of Kf = 1 (held once; a z_cheb sweep holds none)."""
     N, G, C, R = 100_000, 5_000, 10, 10
     base = dict(N=N, G=G, C=C, K=1, S=1, itemsize=4, device_type="cuda")
     exact_i8 = trestarts._sweep_bytes(n_lanes=R, y_itemsize=1, **base)
     assert exact_i8 == trestarts._sweep_bytes(n_lanes=R, **base) - 3 * N * G
     cheb_i8 = trestarts._sweep_bytes(n_lanes=R, y_itemsize=1, z_cheb=True, **base)
-    assert cheb_i8 - exact_i8 == 4 * tmm._CHUNK_ELEMENTS
+    exact_scratch = 4 * (tfl.gene_scratch(N, G, 1, 0, C) + (1 + C) * G)
+    assert cheb_i8 - exact_i8 == 4 * tmm._CHUNK_ELEMENTS - exact_scratch
     P = 2
     with_x = trestarts._sweep_bytes(n_lanes=R, y_itemsize=1, P=P, **base)
     Kf = 1 + P
-    per_lane = 7 * G * P + N * P + (N + G) * Kf
-    assert with_x - exact_i8 == 4 * (N * P + R * per_lane)
+    per_lane = 9 * G * P + N * P + (N + G) * Kf
+    scratch = (tfl.gene_scratch(N, G, Kf, 0, C) + (Kf + C) * G
+               - tfl.gene_scratch(N, G, 1, 0, C) - (1 + C) * G)
+    assert with_x - exact_i8 == 4 * (N * P + R * per_lane + scratch)
     assert trestarts._auto_restart_batching(n_lanes=R, y_itemsize=1, P=P, **base) == "vmap"

@@ -24,6 +24,7 @@ from clonealign_torch import api as tapi
 from clonealign_torch import restarts as trestarts
 from clonealign_torch.assign import _clone_sums_device
 from clonealign_torch.models import multinomial as tmm
+from clonealign_torch.ops import fused_likelihood as tfl
 from clonealign_torch.synth import simulate_multinomial
 
 torch.set_num_threads(2)
@@ -333,7 +334,8 @@ def test_sweep_bytes_count_y_at_its_storage_itemsize(device_type):
     """Y counts at its storage itemsize; narrow storage adds the z_cheb
     products' row block in the compute dtype on the card (the exact kernels
     read Y as it is stored), and Y converted whole by the plain fused op on
-    the CPU."""
+    the CPU; a z_cheb sweep runs no backward kernel, so on the card it holds
+    no gene-part scratch."""
     N, G, C = 100_000, 5_000, 10
     f32 = trestarts._sweep_bytes(N, G, C, 1, 1, 10, 4, device_type)
     assert f32 == trestarts._sweep_bytes(N, G, C, 1, 1, 10, 4, device_type, 4)
@@ -341,7 +343,8 @@ def test_sweep_bytes_count_y_at_its_storage_itemsize(device_type):
     assert i8 == f32 - 3 * N * G + (0 if device_type == "cuda" else 4 * N * G)
     i8_cheb = trestarts._sweep_bytes(N, G, C, 1, 1, 10, 4, device_type, 1, z_cheb=True)
     extra = 4 * tmm._CHUNK_ELEMENTS if device_type == "cuda" else 4 * N * G
-    assert i8_cheb == f32 - 3 * N * G + extra
+    scratch = 4 * (tfl.gene_scratch(N, G, 1, 0, C) + (1 + C) * G) if device_type == "cuda" else 0
+    assert i8_cheb == f32 - 3 * N * G + extra - scratch
 
 
 # ---------------------------------------------------------------------------

@@ -175,6 +175,33 @@ def test_run_clonealign_vmap_equals_map(batching):
         seq.multirun_info["clone_prevalences_at_different_shrinks"]
 
 
+# The card's peak allocated bytes in the inference of chip_smoke.py's sweeps
+# (run_sweep, from inference_peaks) at 100,000 x 5,000 x 10, K = 1, 100
+# iterations, "reuse", Y int8 ("auto") unless named: ten restarts (a) one
+# after another, (b) as lanes, also with float32 Y, (c) z_cheb as lanes, (d)
+# with two covariates as lanes; and the wide sweep, three lanes of K = 1,
+# P = 4, mc_samples = 8. One NVIDIA H100 80GB HBM3 at 700.00 W, chip_smoke.py
+# (PERF.md §5). Each entry: _sweep_bytes' keywords, the peak in bytes.
+SWEEP_PEAKS = {
+    "(a) map": (dict(S=1, n_lanes=10, y_itemsize=1, batching="map"), 0.7310e9),
+    "(b) vmap": (dict(S=1, n_lanes=10, y_itemsize=1), 1.2814e9),
+    "(b) vmap float32": (dict(S=1, n_lanes=10, y_itemsize=4), 2.7829e9),
+    "(c) z_cheb vmap": (dict(S=1, n_lanes=10, y_itemsize=1, z_cheb=True), 2.0043e9),
+    "(d) covariates vmap": (dict(S=1, n_lanes=10, y_itemsize=1, P=2), 1.3068e9),
+    "wide vmap": (dict(S=8, n_lanes=3, y_itemsize=1, P=4), 1.0752e9),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SWEEP_PEAKS))
+def test_sweep_bytes_hold_the_measured_peaks(name):
+    """_sweep_bytes never reckons a sweep the card measured under its peak,
+    and at most 1.3 times it, so that "auto" takes "vmap" wherever the
+    lanes fit with that margin."""
+    kw, peak = SWEEP_PEAKS[name]
+    got = trestarts._sweep_bytes(100_000, 5_000, 10, 1, itemsize=4, device_type="cuda", **kw)
+    assert peak <= got <= 1.3 * peak, (got, peak)
+
+
 def test_auto_batching_follows_the_working_set():
     # 100,000 x 5,000 x 10, float32 on the card: ten lanes fit, thousands do not
     full = dict(N=100_000, G=5_000, C=10, K=1, S=1, itemsize=4, device_type="cuda")

@@ -18,7 +18,7 @@ reckoning of the wide workspace; and the refusal past the wide family's
 bound. On the card (``cuda`` marker, skipped without a GPU): the wide
 kernels against their plain versions at every Y storage (also at widths
 Kf, S and S*C set apart, as no fit sets them), their launches counted
-apart from the narrow kernels', the forward and the gene part
+apart from the narrow kernels', the forward, dpsi and the gene part
 deterministic, and every plan's kernels at two blocks an SM:
 ``python -m pytest --noconftest -m cuda tests/test_torch_wide.py``.
 
@@ -270,13 +270,17 @@ def test_sweep_bytes_hold_the_wide_gene_workspace_once():
     one call's gene-part workspace beside the lanes, whatever their number:
     the (Kf + S C, G) float32 partial sums of each 1,024-cell chunk, the
     packed cell side (dZ's and psi's (hi, lo) pairs at 8-column tiles, and
-    dA1) and their sum. A z_cheb sweep (no backward kernel), a narrow sweep
-    and the CPU hold none; a z_cheb sweep converts a block of narrow Y
-    instead."""
+    dA1) and their sum; and dpsi's packed gene table. A narrow exact sweep
+    holds the narrow gene part's scratch and sums instead; a z_cheb sweep
+    (no backward kernel) and the CPU hold none; a z_cheb sweep converts a
+    block of narrow Y instead."""
     N, G, C, K, P, S = 100_000, 5_000, 10, 1, 4, 8
     F = K + P + S * C
     want = 4 * (-(-N // 1024) * F * G + N * 2 * (8 * 10 + 8 * 1) + N + F * G)
     assert 4 * tfl.gene_wide_workspace(N, G, K + P, 0, S * C) == want
+    table = 4 * -(-G // 32) * 32 // 8 * (2 * 1 + 10) * 32 * 4  # W^T, muL^T, W a k-step
+    assert 4 * tfl.wide_plan(N, G, K + P, 0, S * C)["dpsi_workspace"] == table
+    narrow = 4 * (tfl.gene_scratch(N, G, K + 2, 0, C) + (K + 2 + C) * G)
     block = 4 * tmm._CHUNK_ELEMENTS
 
     def sweep(n_lanes, device_type="cuda", P=P, S=S, z_cheb=False):
@@ -284,8 +288,8 @@ def test_sweep_bytes_hold_the_wide_gene_workspace_once():
                                       z_cheb=z_cheb)
 
     for n_lanes in (1, 3, 10):
-        assert sweep(n_lanes) - sweep(n_lanes, z_cheb=True) == want - block
-        assert sweep(n_lanes, P=2, S=1) - sweep(n_lanes, P=2, S=1, z_cheb=True) == -block
+        assert sweep(n_lanes) - sweep(n_lanes, z_cheb=True) == want + table - block
+        assert sweep(n_lanes, P=2, S=1) - sweep(n_lanes, P=2, S=1, z_cheb=True) == narrow - block
         assert sweep(n_lanes, "cpu") == sweep(n_lanes, "cpu", z_cheb=True)
     assert trestarts._auto_restart_batching(N, G, C, K, S, 3, 4, "cuda", 1, P) == "vmap"
 
@@ -348,6 +352,19 @@ def test_wide_plan_covers_every_column_once(shape):
         assert len(set(held)) == len(held) and all(0 <= t < tfl.WIDE_TILES for t in held)
     assert j_tiles == list(range(n_zt))
     assert not p["y_pass"] or p["nj"] >= n_st
+    # dpsi: [psi, X]'s tiles padded to a built count; dZ's column groups, run
+    # one after another, hold each tile once; S*C <= 80 is one group, and
+    # so one exp per (cell, gene)
+    assert p["dk_pad"] in tfl.WIDE_DPSI_K_COUNTS and p["dk_pad"] >= n_kc
+    assert p["dz_group"] in tfl.WIDE_DPSI_Z_COUNTS
+    d_tiles = []
+    for g in range(p["n_dgroups"]):
+        z = list(range(g * p["dz_group"], min(n_zt, (g + 1) * p["dz_group"])))
+        assert z
+        d_tiles += z
+    assert d_tiles == list(range(n_zt))
+    assert (p["n_dgroups"] == 1) == (SC <= 8 * tfl.WIDE_DPSI_Z_COUNTS[-1])
+    assert p["dsteps"] in (2, 4) and p["g_pad"] % (8 * p["dsteps"]) == 0
 
 
 class _FakeLib:
@@ -367,9 +384,10 @@ class _FakeLib:
 def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
     """kernel_gene's allocations (the scratch and the (Kf + SC + n_a2, G)
     output) add up to wide_plan's gene_workspace, kernel_forward's scratch is
-    its fwd_workspace (the packed table), and both entry points get the
-    plan's numbers in WIDE_PLAN_KEYS' order. The wrappers run on CPU tensors
-    with the CUDA library's entry points recorded, not called."""
+    its fwd_workspace (the packed table), kernel_dpsi's its dpsi_workspace
+    (the plan of n_a2 = 0), and each entry point gets the plan's numbers in
+    WIDE_PLAN_KEYS' order. The wrappers run on CPU tensors with the CUDA
+    library's entry points recorded, not called."""
     N, G, C, K, S = shape
     Y, psi, W, log_mu, muL = _torch(_inputs(N, G, C, K, S, seed=1))
     dA1, dA2, dZ = _torch(_cotangents(N, S, S * C, seed=1))
@@ -399,15 +417,21 @@ def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
         tfl.kernel_forward(Y, psi, W, log_mu if with_a2 else None, muL)
         assert sizes[-1] == p["fwd_workspace"] == p["table"]
         assert list(lib.calls["fl_forward_wide"][10]) == want
+    p = tfl.wide_plan(N, G, K, 0, S * C)
+    sizes.clear()
+    tfl.kernel_dpsi(psi, W, muL, dA1, dZ, Y @ W)
+    assert sizes == [N * K, p["dpsi_workspace"]] and p["dpsi_workspace"] == p["dtable"]
+    assert list(lib.calls["fl_backward_dpsi_wide"][8]) == [p[k] for k in tfl.WIDE_PLAN_KEYS]
 
 
 def test_wide_plan_holds_at_every_bound():
     """At Kf = 64, S = 64 and S*C = 2,048, and N past 65,535 chunks of 1,024
     cells: grid.y within 65,535 (chunks and column groups), chunks whole
-    16-cell stages, accumulator tiles within WIDE_TILES, and every workspace
-    region 16-byte aligned. (The kernels' shared memory, laid out on the
-    card from the plan, is held to two blocks an SM there:
-    test_cuda_wide_plans_run_two_blocks_an_sm.)"""
+    16-cell stages, accumulator tiles within WIDE_TILES, dpsi's tiles built
+    counts that cover every column with its shared memory within two blocks
+    an SM, and every workspace region 16-byte aligned. (The kernels' shared
+    memory, laid out on the card from the plan, is held to two blocks an SM
+    there: test_cuda_wide_plans_run_two_blocks_an_sm.)"""
     for N in (1, 1024, 65_535 * 1024 + 1, 2**31 - 1):
         for Kf, n_a2, SC in ((64, 64, 2048), (64, 0, 2048), (0, 0, 2048), (64, 64, 1), (1, 0, 33)):
             p = tfl.wide_plan(N, 5_000, Kf, n_a2, SC)
@@ -415,7 +439,9 @@ def test_wide_plan_holds_at_every_bound():
             assert p["rows"] % 16 == 0 and p["n_chunks"] * p["rows"] >= N
             assert p["n_pad"] % 16 == 0 and p["n_pad"] >= N
             assert max(p["zt_group"], p["ny_pad"], p["nj"] + p["n_kc"]) <= tfl.WIDE_TILES
-            assert all(p[k] % 4 == 0 for k in ("table", "part", "dz", "ps", "a2"))
+            assert all(p[k] % 4 == 0 for k in ("table", "part", "dz", "ps", "a2", "dtable"))
+            assert p["dk_pad"] >= p["n_kc"] and p["n_dgroups"] * p["dz_group"] >= p["n_zt"]
+            assert p["dpsi_smem"] <= tfl._TWO_BLOCK_SMEM
 
 
 # --- the number scheme, emulated -----------------------------------------------
@@ -460,16 +486,43 @@ def _running(blocks):
     return acc
 
 
-@pytest.mark.parametrize("shape", SHAPES + [(2100, 130, 9, 1, 4)])
+def _dpsi_scheme(psi, W, muL, dA1, dZ, YW, plan):
+    """dpsi_wide_kernel's arithmetic: log_rfe = psi W^T (fresh every 8
+    columns of [psi, X], float32 sum), one exp an element; for each of the
+    plan's dZ column groups, drfe = dZ muL^T over the group's columns (fresh
+    every 8 columns, float32 running sum) and t = rfe drfe in float32, then
+    dpsi's products t W in fresh accumulators every 8 genes (a k-step),
+    summed in float32 over each stage of ``dsteps`` k-steps and in float64
+    over the stages and groups; dA1 YW added last in float64."""
+    f32 = np.float32
+    rfe = np.exp(_running(_mma3(psi, W.T, 8))).astype(f32)
+    cols = 8 * plan["dz_group"]
+    acc = np.zeros(psi.shape, np.float64)
+    for g in range(plan["n_dgroups"]):
+        part = slice(g * cols, (g + 1) * cols)
+        drfe = _running(_mma3(dZ[:, part], muL[:, part].T, 8))
+        steps = _mma3((rfe * drfe).astype(f32), W, 8)  # (k-steps, N, Kf)
+        steps = np.concatenate([steps, np.zeros((-len(steps) % plan["dsteps"], *steps.shape[1:]),
+                                                f32)])
+        for stage in steps.reshape(-1, plan["dsteps"], *steps.shape[1:]):
+            acc += _running(stage)
+    return (dA1[:, None].astype(np.float64) * YW.astype(np.float64) + acc).astype(f32)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(2100, 130, 9, 1, 4), (60, 90, 12, 6, 8),
+                                            (50, 80, 10, 64, 2)])
 def test_3xtf32_scheme_meets_the_tolerances(shape):
     """The wide kernels' arithmetic, emulated on the CPU: log_rfe = psi W^T
     and Z = rfe muL (fresh accumulators every 16 genes, float32 running sum)
     within VALUE_TOL of float64; drfe = dZ muL^T (fresh every 8 columns),
     dlog_rfe = rfe drfe + Y dA1 in float32, then d(muL) = rfe^T dZ and dW =
     dlog_rfe^T psi (fresh every 8 cells, a float32 running sum over each
-    1,024-cell chunk, the chunks added in float32 in order) within
-    BWD_ABS_RTOL of each element's absolute-term sum. Every product is
-    3xTF32 with cvt.rna's rounding."""
+    1,024-cell chunk, the chunks added in float32 in order), and dpsi as
+    dpsi_wide_kernel forms it (:func:`_dpsi_scheme`, from the forward's YW:
+    fresh every 8 genes, float32 running sum), each within BWD_ABS_RTOL of
+    each element's absolute-term sum. Every product is 3xTF32 with
+    cvt.rna's rounding. The shapes past SHAPES take several 1,024-cell
+    chunks, two dZ column groups (S*C = 96) and Kf = 64."""
     N, G, C, K, S = shape
     Y, psi, W, _log_mu, muL = _inputs(N, G, C, K, S, seed=N)
     dA1, _dA2, dZ = _cotangents(N, S, S * C, seed=N)
@@ -490,10 +543,15 @@ def test_3xtf32_scheme_meets_the_tolerances(shape):
                               for i in chunks]))
     dW = _running(np.stack([_running(_mma3(dlog[i:i + rows].T, psi[i:i + rows], 8))
                             for i in chunks]))
-    _dpsi, want_dW, _dlog_mu, want_dmuL = tfl.reference_likelihood_vjp(
+    YW = _running(_mma3(Y, W, 8))
+    dpsi = _dpsi_scheme(psi, W, muL, dA1, dZ, YW, tfl.wide_plan(N, G, K, 0, S * C))
+    want_dpsi, want_dW, _dlog_mu, want_dmuL = tfl.reference_likelihood_vjp(
         Y64, psi64, W64, muL64, dA164, None, dZ64)
-    _s, scale_dW, _s2, scale_dmuL = _abs_term_sums(Y64, psi64, W64, muL64, dA164, None, dZ64)
-    for name, got, want, scale in (("dW", dW, want_dW, scale_dW), ("dmuL", dmuL, want_dmuL, scale_dmuL)):
+    scale_dpsi, scale_dW, _s, scale_dmuL = _abs_term_sums(Y64, psi64, W64, muL64, dA164, None,
+                                                          dZ64)
+    for name, got, want, scale in (("dpsi", dpsi, want_dpsi, scale_dpsi),
+                                   ("dW", dW, want_dW, scale_dW),
+                                   ("dmuL", dmuL, want_dmuL, scale_dmuL)):
         err = np.abs(got.astype(np.float64) - want.numpy())
         assert (err <= BWD_ABS_RTOL * scale.numpy()).all(), (name, float(err.max()))
 
@@ -589,6 +647,26 @@ def test_cuda_wide_gene_part_is_deterministic(shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8),
+                                   (2100, 200, 20, 18, 8), (40, 70, 3, 64, 64)])
+def test_cuda_wide_dpsi_is_deterministic(shape):
+    """The wide dpsi keeps each output in one lane and sums in a fixed order,
+    with no atomics: two calls on the same inputs give bitwise-equal
+    results, one column group or several (S*C = 160, 192)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    N, G, C, K, S = shape
+    Y, psi, W, _log_mu, muL = [t.cuda() for t in _torch(_inputs(N, G, C, K, S, seed=N))]
+    dA1, _dA2, dZ = [t.cuda() for t in _torch(_cotangents(N, S, S * C, seed=N))]
+    YW = tfl.kernel_forward(Y, psi, W, None, muL)[3]
+    before = tfl.dpsi_wide_launches
+    first = tfl.kernel_dpsi(psi, W, muL, dA1, dZ, YW)
+    second = tfl.kernel_dpsi(psi, W, muL, dA1, dZ, YW)
+    assert tfl.dpsi_wide_launches == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8),
                                    (2100, 200, 20, 18, 8)])
 def test_cuda_wide_forward_is_deterministic(shape):
     """The wide forward sums in a fixed order, with no atomics: two calls on
@@ -610,9 +688,9 @@ def test_cuda_wide_forward_is_deterministic(shape):
 @pytest.mark.parametrize("storage", STORAGES)
 @pytest.mark.parametrize("widths", INDEPENDENT_WIDTHS)
 def test_cuda_wide_kernels_at_independent_widths(widths, storage):
-    """The wide forward and gene part at widths no fit gives (S*C below S,
-    where the gene part's dlog mu takes a pass of its own beside dW) against
-    the plain versions, with the tolerances of
+    """The wide forward, dpsi and gene part at widths no fit gives (S*C
+    below S, where the gene part's dlog mu takes a pass of its own beside
+    dW) against the plain versions, with the tolerances of
     test_cuda_wide_kernels_match_plain."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
@@ -631,11 +709,11 @@ def test_cuda_wide_kernels_at_independent_widths(widths, storage):
     for name, g, w in zip(("A1", "A2", "Z"), got,
                           tfl.reference_likelihood_terms(Y, psi, W, log_mu, muL)):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), err_msg=name, **VALUE_TOL)
-    got = tfl.kernel_gene(Y, psi, W, muL, dA1, dA2, dZ)
+    got = (tfl.kernel_dpsi(psi, W, muL, dA1, dZ, YW), *tfl.kernel_gene(Y, psi, W, muL, dA1, dA2, dZ))
     f64 = [t.double() for t in (Y, psi, W, muL, dA1, dA2, dZ)]
-    exact = tfl.reference_likelihood_vjp(*f64)[1:]
-    scale = _abs_term_sums(*f64)[1:]
-    for name, g, w, sc in zip(("W", "log_mu", "muL"), got, exact, scale):
+    exact = tfl.reference_likelihood_vjp(*f64)
+    scale = _abs_term_sums(*f64)
+    for name, g, w, sc in zip(("psi", "W", "log_mu", "muL"), got, exact, scale):
         err = (g.double() - w).abs()
         assert bool((err <= BWD_ABS_RTOL * sc).all()), (
             name, float(err.max()), float((err / sc.clamp_min(1e-300)).max()))
@@ -645,9 +723,9 @@ def test_cuda_wide_kernels_at_independent_widths(widths, storage):
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_cuda_wide_plans_run_two_blocks_an_sm(shape):
     """The library takes each plan wide_plan makes, and lays out the wide
-    forward's, the Y products' and the gene part's shared memory from it so
-    that each holds at least two blocks an SM (the occupancy query), at
-    every Y storage."""
+    forward's, the Y products', the gene part's and dpsi's shared memory
+    from it so that each holds at least two blocks an SM (the occupancy
+    query), at every Y storage; dpsi takes the plan's k-steps a stage."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     import ctypes
@@ -657,9 +735,27 @@ def test_cuda_wide_plans_run_two_blocks_an_sm(shape):
     N, G, Kf, n_a2, SC = shape
     plan = tfl._plan_arg(tfl.wide_plan(N, G, Kf, n_a2, SC))
     for code in range(4):
-        out = (ctypes.c_int * 7)()
+        out = (ctypes.c_int * 10)()
         assert lib.fl_wide_resources(plan, N, G, Kf, n_a2, SC, code, out) == 0
-        assert min(out[1], out[3], out[5]) >= 2, list(out)
+        assert min(out[1], out[3], out[5], out[7]) >= 2, list(out)
+        p = tfl.wide_plan(N, G, Kf, n_a2, SC)
+        assert (out[6], out[9]) == (p["dpsi_smem"], p["dsteps"]), list(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(100_000, 5_000, 1, 0, 10), (100_000, 5_000, 3, 2, 10),
+                                   (2100, 130, 4, 4, 32), (1, 1, 0, 0, 1)])
+def test_cuda_gene_scratch_is_the_librarys(shape):
+    """fused_likelihood.gene_scratch, which restarts._sweep_bytes reckons
+    with on any device, is the scratch the library's narrow gene part asks
+    for (fl_backward_gene_scratch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    from clonealign_torch.ops import _build
+    N, G, Kf, n_a2, SC = shape
+    lib = _build.load()
+    assert tfl.gene_scratch(N, G, Kf, n_a2, SC) == lib.fl_backward_gene_scratch(
+        N, G, Kf, n_a2, SC, tfl._chunk_rows(N))
 
 
 def test_assign_cells_against_a_wide_fit():
