@@ -69,11 +69,24 @@ S*C = 80), the same fit streamed in chunks (which must match it), its
 sweep of three restarts as lanes, and a 2,000 x 500 x 12
 fit (K = 2, P = 4, mc_samples = 6) on the card against the CPU port in
 float64 from the same numpy draws, every launch of those paths a wide
-one and every launch of every other path a narrow one. Any
+one and every launch of every other path a narrow one; and last
+``dtype="float64"`` through the float64 kernel family
+(``ops/csrc/fused_likelihood_f64.cu``): each float64 kernel against its
+plain float64 version at every Y storage it loads, at the shapes above
+and at each contract bound, within 1e-12 of each element's absolute-term
+sum and bit-identical across two launches, timed at full width beside its
+float64 bound (an exp counted as the FP64 instructions of the built
+``exp()``, read from ``cuobjdump -sass``); the full-width float64 fit
+under "auto" and with float64 Y, its z_cheb fit, a three-restart float64
+sweep as "vmap" and as "map" (equal), the float64 fit streamed in 8
+chunks (equal to the in-core one), and the golden example and synth fits
+and the v1 family's exact and Chebyshev fits in float64 on the card
+against the CPU port's (run in a child process after the timed fits),
+every launch of those paths a float64 one. Any
 failed phase raises and the script exits nonzero, as it does when ptxas's
-report lacks a tensor-core kernel instantiation or shows one spilling
-registers. The last line of standard output is a JSON object naming the
-card; the line before it lists each kernel with its launches during the
+report lacks a kernel instantiation of the tensor-core, wide or float64
+kernels or shows one spilling registers. The last line of standard output
+is a JSON object naming the card; the line before it lists each kernel with its launches during the
 main path's fit, its error against the plain version, its time, the plain
 version's time and its bound (the least time the card could take for the
 same work) at the Y storage "auto" resolves to (``y_storage``), the same
@@ -87,8 +100,11 @@ listing its two parts (the Y-free dpsi kernel, and the gene-major kernel
 with its packing and reduction kernels), each with its own launches, time,
 plain version's time and bound; then one entry for each wide kernel, at
 the wide fit's widths with each full-width configuration under
-``by_config`` and the wide paths' launches under ``paths``; the line before
-that prints the narrow backward's parts' times.
+``by_config`` and the wide paths' launches under ``paths``; then one entry
+for each float64 kernel, at the main path's widths (Kf 1, S*C 10) and the
+storage "auto" resolves to, with each full-width configuration under
+``by_config`` and the float64 paths' launches under ``paths``; the line
+before that prints the narrow backward's parts' times.
 """
 
 from __future__ import annotations
@@ -188,20 +204,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def launches_of(fl, wide=False):
+def launches_of(fl, family="narrow"):
     """One family's kernel launches since the last reset, keyed fwd, dpsi
-    and gene: the narrow kernels', or with ``wide`` the wide family's.
-    Raises if the other family launched: every path is one family's (the
-    wide phase's paths the wide family's, every other path the narrow
-    kernels')."""
-    narrow = {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches}
-    wide_n = {"fwd": fl.fwd_wide_launches, "dpsi": fl.dpsi_wide_launches,
-              "gene": fl.gene_wide_launches}
-    got, other = (wide_n, narrow) if wide else (narrow, wide_n)
-    if any(other.values()):
-        raise AssertionError(f"the {'narrow' if wide else 'wide'} kernels launched on a "
-                             f"{'wide' if wide else 'narrow'} path: {other}")
-    return got
+    and gene: the narrow kernels', the "wide" family's or the "float64"
+    family's. Raises if another family launched: every path is one
+    family's (the wide phase's paths the wide family's, the float64
+    phase's the float64 family's, every other path the narrow kernels')."""
+    counts = {
+        "narrow": {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches},
+        "wide": {"fwd": fl.fwd_wide_launches, "dpsi": fl.dpsi_wide_launches,
+                 "gene": fl.gene_wide_launches},
+        "float64": {"fwd": fl.fwd_f64_launches, "dpsi": fl.dpsi_f64_launches,
+                    "gene": fl.gene_f64_launches}}
+    other = {name: n for name, n in counts.items() if name != family and any(n.values())}
+    if other:
+        raise AssertionError(f"the {', '.join(other)} kernels launched on a {family} path: "
+                             f"{other}")
+    return counts[family]
 
 
 # ---------------------------------------------------------------------------
@@ -253,9 +272,10 @@ def abs_scales(x, with_a2):
     return fwd, bwd
 
 
-def compare(got: dict, want: dict, scale: dict, label: str, errs=None):
-    """Raise unless every element is within KERNEL_RTOL of its scale; return
-    the largest absolute error (and record each output's in ``errs``)."""
+def compare(got: dict, want: dict, scale: dict, label: str, errs=None, rtol=KERNEL_RTOL):
+    """Raise unless every element is within ``rtol`` (KERNEL_RTOL) of its
+    scale; return the largest absolute error (and record each output's in
+    ``errs``)."""
     worst = 0.0
     for name in want:
         if want[name].numel() == 0:
@@ -263,7 +283,7 @@ def compare(got: dict, want: dict, scale: dict, label: str, errs=None):
         err = (got[name] - want[name]).abs()
         rel = float((err / scale[name].clamp_min(1e-30)).max())
         max_abs = float(err.max())
-        ok = bool((err <= KERNEL_RTOL * scale[name]).all())
+        ok = bool((err <= rtol * scale[name]).all())
         log(f"  {label} {name:8s} max|err| {max_abs:.3e}  max err/scale {rel:.3e}  "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -474,7 +494,9 @@ def tc_kernels(fl):
     gene_wide_kernel<YT, NJ> (32) and dpsi_wide_kernel<NK, NZ> (24) at the
     built tile counts (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``,
     ``fl.WIDE_DPSI_K_COUNTS`` x ``fl.WIDE_DPSI_Z_COUNTS``), and their
-    packing kernels (no templates)."""
+    packing kernels (no templates); and the float64 family's
+    fwd_f64_kernel<YT> and gene_f64_kernel<YT> (4 each), dpsi_f64_kernel
+    and reduce_chunks_f64_kernel."""
     return {
         "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
                        for t in (1, 2, 4) for a in (0, 1)},
@@ -489,6 +511,10 @@ def tc_kernels(fl):
         "dpsi_wide_pack_kernel": {"<>"},
         "gene_wide_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_TILE_COUNTS},
         "gene_wide_pack_kernel": {"<>"},
+        "fwd_f64_kernel": {f"<{y}>" for y in range(4)},
+        "dpsi_f64_kernel": {"<>"},
+        "gene_f64_kernel": {f"<{y}>" for y in range(4)},
+        "reduce_chunks_f64_kernel": {"<>"},
     }
 
 
@@ -647,24 +673,24 @@ def snv_accuracy(fit, z_true) -> float:
 
 
 def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, label=None,
-             mc_samples=1, wide=False):
-    """One full-width exact fit through clonealign with Y stored as
-    ``y_storage``, the covariates ``x`` (or none), the allele data
-    ``allele`` (a dict of clone_allele, cov and ref, or none) and
+             mc_samples=1, wide=False, dtype="float32"):
+    """One full-width exact fit through clonealign in ``dtype`` with Y
+    stored as ``y_storage``, the covariates ``x`` (or none), the allele
+    data ``allele`` (a dict of clone_allele, cov and ref, or none) and
     ``mc_samples``, its kernel launches counted from zero (the wide
-    family's with ``wide``, and none of the other family); checks its ELBO
-    trace, accuracy and launches (and beta's shape, or the SNV
-    probabilities) and returns its numbers."""
+    family's with ``wide``, the float64 family's in float64, and none of
+    another family); checks its ELBO trace, accuracy and launches (and
+    beta's shape, or the SNV probabilities) and returns its numbers."""
     fl.reset_launch_counts()
     t0 = time.perf_counter()
     with inference_peaks() as peaks, setup_measures() as setups:
         fit = clonealign_torch.clonealign(
             Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
             likelihood_impl="xla", y_storage=y_storage, x=x, mc_samples=mc_samples,
-            **(allele or {}),
+            dtype=dtype, **(allele or {}),
         )
     wall = time.perf_counter() - t0
-    launches = launches_of(fl, wide)
+    launches = launches_of(fl, "float64" if dtype == "float64" else "wide" if wide else "narrow")
     ci, tm = fit.convergence_info, fit.timings
     n_iters = ci.n_iters
     (_, setup_peak), = setups["setup"]
@@ -689,7 +715,7 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
     elif fit.clone_probs_from_snv is not None:
         raise AssertionError("a fit without allele data carries clone_probs_from_snv")
     log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']} {label or y_storage} y_storage={y_storage} "
-        f"K=1 P={P} mc_samples={mc_samples}: {wall:.2f} s wall, "
+        f"dtype={dtype} K=1 P={P} mc_samples={mc_samples}: {wall:.2f} s wall, "
         f"setup {tm['setup']:.2f} s (peak allocated {out['setup_peak_gb']:.3f} GB), "
         f"init {tm['init']:.2f} s, "
         f"inference {tm['inference']:.2f} s ({n_iters} iterations, "
@@ -712,14 +738,15 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
 
 
 def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_itemsize,
-              x=None, lanes=LANES, mc_samples=1, wide=False):
-    """One full-width sweep through run_clonealign with Y stored as
-    ``y_storage`` (y_itemsize bytes an element), the covariates ``x`` (or
-    none), the restarts ``lanes`` and ``mc_samples``; returns its lanes'
-    iterations, the kernel launches it made (the wide family's with
-    ``wide``, and none of the other family), its ms per lane iteration, its
-    peak allocated bytes in the inference, and how its lanes ran ("vmap" or
-    "map", as the loop it called shows)."""
+              x=None, lanes=LANES, mc_samples=1, wide=False, dtype="float32"):
+    """One full-width sweep through run_clonealign in ``dtype`` with Y
+    stored as ``y_storage`` (y_itemsize bytes an element), the covariates
+    ``x`` (or none), the restarts ``lanes`` and ``mc_samples``; returns its
+    lanes' iterations, the kernel launches it made (the wide family's with
+    ``wide``, the float64 family's in float64, and none of another family),
+    its ms per lane iteration, its peak allocated bytes in the inference,
+    how its lanes ran ("vmap" or "map", as the loop it called shows) and
+    the best fit's labels."""
     from clonealign_torch.restarts import _sweep_bytes
 
     fl.reset_launch_counts()
@@ -728,19 +755,21 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_
         fit = clonealign_torch.run_clonealign(
             Y, L, device="cuda", seed=0, verbose=False, likelihood_impl=impl,
             restart_batching=batching, y_storage=y_storage, x=x, mc_samples=mc_samples,
-            **lanes,
+            dtype=dtype, **lanes,
         )
     wall = time.perf_counter() - t0
-    launches = launches_of(fl, wide)
+    launches = launches_of(fl, "float64" if dtype == "float64" else "wide" if wide else "narrow")
     tm, iters = fit.timings, fit.timings["iterations"]
     R = len(iters)
     acc = accuracy(fit, z)
     ran = "vmap" if [n for n, _ in loop_peaks] == ["run_inference_lanes"] else "map"
     P = 0 if x is None else x.shape[1]
-    plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, mc_samples, R, 4, "cuda", y_itemsize,
-                        P, impl == "z_cheb", batching=ran) / 1e9
+    plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, mc_samples, R,
+                        8 if dtype == "float64" else 4, "cuda", y_itemsize, P, impl == "z_cheb",
+                        batching=ran) / 1e9
     peak = max(b for _, b in loop_peaks) / 1e9
-    log(f"sweep ({name}) {impl} {batching} (ran as {ran}) y_storage={y_storage} P={P} "
+    log(f"sweep ({name}) {impl} {batching} (ran as {ran}) y_storage={y_storage} dtype={dtype} "
+        f"P={P} "
         f"mc_samples={mc_samples}, {R} lanes: "
         f"{wall:.2f} s wall, setup "
         f"{tm['setup']:.2f} s, init {tm['init']:.2f} s, loop {tm['loop']:.2f} s "
@@ -758,7 +787,7 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_
     if launches != want:
         raise AssertionError(f"sweep ({name}): launches {launches}, expected {want}")
     return {"iterations": iters, "launches": launches, "ran": ran, "plan_gb": plan,
-            "lane_iter_ms": 1000 * tm["loop"] / sum(iters), "peak_gb": peak}
+            "lane_iter_ms": 1000 * tm["loop"] / sum(iters), "peak_gb": peak, "labels": fit.clone}
 
 
 def allele_sweep(clonealign_torch, fl):
@@ -1755,7 +1784,7 @@ def parity_fit(clonealign_torch, fl):
     fit = clonealign_torch.clonealign(Y, L, device="cuda", dtype="float32",
                                       noise=NumpyNoise(43), **kw)
     t1 = time.perf_counter()
-    launches = launches_of(fl, wide=True)
+    launches = launches_of(fl, "wide")
     ref = clonealign_torch.clonealign(Y, L, device="cpu", dtype="float64",
                                       noise=NumpyNoise(43), **kw)
     t2 = time.perf_counter()
@@ -1850,7 +1879,7 @@ def wide_stream(clonealign_torch, fl, Y, L, z, X, core):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_allocated() - before) / 1e9
-    launches = launches_of(fl, wide=True)
+    launches = launches_of(fl, "wide")
     ci, tm, n = fit.convergence_info, fit.timings, fit.convergence_info.n_iters
     acc = accuracy(fit, z)
     want = {"fwd": n_chunks * (2 + 2 * n + 20), "dpsi": n_chunks * n, "gene": n_chunks * n}
@@ -1990,6 +2019,567 @@ def wide_kernels(wide, auto_name):
             "stream_shape": {"shape": f"{wide['chunk_rows'][0]}x{FULL['G']} C={FULL['C']}",
                              "buffer_rows": wide["chunk_rows"][1],
                              "max_abs_err": max(wide["chunk"]["errs"][e] for e in err)},
+            "paths": [{"path": p, "launches": n[part]} for p, n in paths],
+        })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The float64 family: dtype="float64" on the card
+# ---------------------------------------------------------------------------
+
+# Kernels vs plain float64 at every Y storage the float64 family loads
+# (float64 being what y_storage "float32" gives a float64 fit), at the
+# first check's shapes, the wide phase's, each contract bound alone (Kf
+# 64; S 64; S*C 2048) and every bound at once: each element within
+# F64_RTOL of its absolute-term sum (about 4,500 float64 ulps of it; both
+# sides sum in float64 in other orders)
+F64_RTOL = 1e-12
+F64_STORAGES = ("float64", "bfloat16", "int16", "int8")
+F64_CHECKS = ([(SMALL, 1, Kf) for Kf in (1, 3, 4)] + [(VEC, 1, Kf) for Kf in (2, 3, 4)]
+              + [(RICH, 3, 4)] + [(dict(WIDE_CHECK, C=C), S, Kf) for Kf, S, C in WIDE_CHECKS]
+              + [(dict(N=300, G=100, C=C), S, Kf)
+                 for Kf, S, C in ((64, 1, 10), (1, 64, 1), (1, 1, 2048), (64, 64, 32))])
+# full width, timed beside the float64 bounds: (Kf, S) at C = 10 (S*C 10
+# and 80), Y as "auto" stores it (int8) and as float64
+F64_FULL = ((1, 1), (5, 1), (1, 8), (5, 8))
+F64_FULL_STORAGES = ("int8", "float64")
+# the float64 sweep: three restarts, "vmap" and "map"
+F64_LANES = dict(initial_shrinks=(5,), n_repeats=3, max_iter=100, elbo_eval="reuse")
+# the golden fits in float64 (rel_tol 0: every fit runs GOLDEN_MAX_ITER
+# iterations, so that the card's and the CPU's make the same draws), and
+# the v1 family's (model3 counts, numpy seed 17), on the card against the
+# CPU; the CPU's run in a child process with F64_CPU_THREADS threads beside
+# the phase's kernel checks, after its timed fits
+F64_GOLDEN = (("example", 7), ("synth", 11))
+F64_GOLDEN_KW = dict(max_iter=GOLDEN_MAX_ITER, rel_tol=0.0, dtype="float64", verbose=False)
+F64_V1 = dict(N=1_000, G=200, C=4)
+F64_V1_KW = dict(max_iter=20, rel_tol=0.0, verbose=False, dtype="float64")
+F64_CPU_THREADS = 6
+# Published FP64 peaks of one H100 SXM at 700 W: FLOP/s on the CUDA cores
+# (an FMA is two) and on the tensor cores. An exp in float64 is a sequence
+# of FP64 instructions on the CUDA cores (counted by exp_fp64_instructions).
+FP64_OPS_PER_S = 33.5e12
+FP64_TC_OPS_PER_S = 67e12
+
+
+def exp_fp64_instructions():
+    """The FP64 instructions (D*, and conversions to or from F64) of one
+    double exp() as nvcc builds it for the card, counted from cuobjdump
+    -sass of a kernel that computes one; returns (count, opcodes)."""
+    import os
+
+    from clonealign_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    src = ('extern "C" __global__ void one_exp(const double* x, double* y) '
+           '{ y[threadIdx.x] = exp(x[threadIdx.x]); }\n')
+    with tempfile.TemporaryDirectory() as d:
+        cu, cubin = Path(d) / "one_exp.cu", Path(d) / "one_exp.cubin"
+        cu.write_text(src)
+        subprocess.run([nvcc, *_build.ARCH, "-O3", "-cubin", "-o", str(cubin), str(cu)],
+                       check=True, capture_output=True)
+        sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                               str(cubin)], check=True, capture_output=True, text=True).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", sass)
+    fp64 = [o for o in ops if re.match(r"D(FMA|ADD|MUL|SETP|MNMX)", o)
+            or (re.match(r"(F2F|F2I|I2F)", o) and "F64" in o)]
+    return len(fp64), fp64
+
+
+def bound_f64(y_bytes, vec_doubles, mma_flops, fp64_flops, exps, exp_ops):
+    """(ms, "bytes" or "operations", unit): the slowest of the bytes over the
+    HBM rate (Y's y_bytes and vec_doubles float64 values, each input read
+    once and each output written once), the products on the FP64 tensor
+    cores, and the other FP64 operations with the exps (exp_ops FP64
+    instructions each, two operations an instruction at the FMA rate) on
+    the CUDA cores."""
+    units = {"bytes": 1e3 * (y_bytes + 8 * vec_doubles) / HBM_BYTES_PER_S,
+             "FP64 MMA": 1e3 * mma_flops / FP64_TC_OPS_PER_S,
+             "FP64 CUDA cores (exps and FMAs)":
+                 1e3 * (fp64_flops + 2 * exp_ops * exps) / FP64_OPS_PER_S}
+    unit = max(units, key=units.get)
+    return units[unit], "bytes" if unit == "bytes" else "operations", unit
+
+
+def kernel_bounds_f64(N, G, Kf, SC, y_itemsize, exp_ops):
+    """kernel_bounds' functions in float64 (A2 off): the products with muL
+    on the FP64 tensor cores, log_rfe's, Y W's, dpsi's and dW's Kf FMAs an
+    element and the exps on the CUDA cores."""
+    NG = N * G
+    fwd = bound_f64(y_itemsize * NG, N * Kf + G * Kf + G * SC + N + N * SC + N * Kf,
+                    2 * NG * SC, NG * (4 * Kf + 2), NG, exp_ops)
+    dpsi = bound_f64(0, 3 * N * Kf + G * Kf + G * SC + N + N * SC,
+                     2 * NG * SC, NG * (4 * Kf + 1), NG, exp_ops)
+    gene = bound_f64(y_itemsize * NG, N * Kf + 2 * G * Kf + 2 * G * SC + N + N * SC,
+                     4 * NG * SC, NG * (4 * Kf + 3), NG, exp_ops)
+    return {"fwd": fwd, "dpsi": dpsi, "gene": gene}
+
+
+def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None):
+    """The float64 family against the plain float64 versions on the card at
+    one shape, Y stored as ``storage``, A2 on and off: every element within
+    F64_RTOL of its absolute-term sum, and each kernel bit-identical across
+    two launches. With ``reps``, the A2-off calls (the training step's
+    form) timed beside their plain versions (reference_likelihood_terms,
+    reference_dpsi, reference_gene) and their bounds (exp_ops FP64
+    instructions an exp). Returns the errors (each output's under
+    ``errs``) and the times."""
+    import torch
+
+    from clonealign_torch.ops import fused_likelihood as fl
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = {k: v.double() for k, v in kernel_inputs(gen, shape["N"], shape["G"], shape["C"], S, Kf,
+                                                 "cuda").items()}
+    Yf = x["Y"]
+    Y = Yf.to(getattr(torch, storage))
+    if not torch.equal(Y.double(), Yf):
+        raise AssertionError(f"the test counts do not fit {storage} exactly")
+    psi, W, muL, dA1, dZ = (x[k] for k in ("psi", "W", "muL", "dA1", "dZ"))
+    label = f"float64 {shape['N']}x{shape['G']} S*C={S * shape['C']} Kf={Kf} Y {storage}"
+    names_f, names_b = ("A1", "A2", "Z", "YW"), ("dpsi", "dW", "dlog_mu", "dmuL")
+
+    def as_dict(names, out):
+        return {n: t for n, t in zip(names, out) if t is not None}
+
+    result = {"errs": {}}
+    for with_a2 in (True, False):
+        log_mu = x["log_mu"] if with_a2 else None
+        args_f = (Y, psi, W, log_mu, muL)
+        args_b = (Y, psi, W, muL, dA1, x["dA2"] if with_a2 else None, dZ)
+        fwd = [fl.kernel_forward(*args_f) for _ in range(2)]
+        YW = fwd[0][3]
+        bwd = [(fl.kernel_dpsi(psi, W, muL, dA1, dZ, YW), *fl.kernel_gene(*args_b))
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in (fwd, bwd):
+            if not all(u is None or torch.equal(u, v) for u, v in zip(a, b)):
+                raise AssertionError(f"{label}: a float64 kernel differs between two launches")
+        fwd_scale, bwd_scale = abs_scales(dict(x, Y=Yf), with_a2)
+        fwd_scale["YW"] = Yf @ W.abs()
+        want = as_dict(names_f, fl.reference_likelihood_terms(*args_f))
+        want["YW"] = Yf @ W
+        tag = f"{label} A2={'on' if with_a2 else 'off'}"
+        errs = result["errs"] if not with_a2 else {}
+        result["fwd_err"] = compare(as_dict(names_f, fwd[0]), want, fwd_scale, f"fwd {tag}",
+                                    errs, F64_RTOL)
+        want = as_dict(names_b, fl.reference_likelihood_vjp(*args_b))
+        result["bwd_err"] = compare(as_dict(names_b, bwd[0]), want, bwd_scale, f"bwd {tag}",
+                                    errs, F64_RTOL)
+        del fwd, bwd, want, fwd_scale, bwd_scale
+        if reps and not with_a2:
+            result.update({
+                "fwd_ms": cuda_ms(lambda: fl.kernel_forward(*args_f), reps),
+                "dpsi_ms": cuda_ms(lambda: fl.kernel_dpsi(psi, W, muL, dA1, dZ, YW), reps),
+                "gene_ms": cuda_ms(lambda: fl.kernel_gene(*args_b), reps),
+                "fwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_terms(*args_f), reps, 2),
+                "dpsi_plain_ms": cuda_ms(lambda: fl.reference_dpsi(YW, psi, W, muL, dA1, dZ),
+                                         reps, 2),
+                "gene_plain_ms": cuda_ms(lambda: fl.reference_gene(*args_b), reps, 2),
+                "bounds": kernel_bounds_f64(shape["N"], shape["G"], Kf, S * shape["C"],
+                                            Y.element_size(), exp_ops)})
+    del x, Y, Yf, YW
+    torch.cuda.empty_cache()
+    return result
+
+
+def f64_resources(fl, storage, Kf, n_a2, SC, N, G):
+    """The float64 kernels' shared memory and blocks an SM under
+    ``fl.f64_plan``'s plan (``fl64_resources``); raises where one does not
+    run."""
+    import ctypes
+
+    import torch
+
+    from clonealign_torch.ops import _build
+
+    plan = fl.f64_plan(N, G, Kf, n_a2, SC)
+    out = (ctypes.c_int * 6)()
+    err = _build.load().fl64_resources(fl._plan_arg(plan, fl.F64_PLAN_KEYS), N, G, Kf, n_a2, SC,
+                                       fl.Y_DTYPES_F64[getattr(torch, storage)], out)
+    if err:
+        raise AssertionError(f"the library refuses f64_plan's plan {plan} (CUDA error {err})")
+    res = {part: {"smem_bytes": out[2 * i], "blocks_per_sm": out[2 * i + 1]}
+           for i, part in enumerate(("fwd", "dpsi", "gene"))}
+    if min(r["blocks_per_sm"] for r in res.values()) < 1:
+        raise AssertionError(f"a float64 kernel cannot run at Kf={Kf}, S={n_a2}, S*C={SC}: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def signed_pca():
+    """Fits in this block take each PCA score column with its largest entry
+    positive. The scores' sign is arbitrary, and the card's SVD and the
+    CPU's may return opposite ones, which start a fit from another psi."""
+    import torch
+
+    from clonealign_torch.models import multinomial as mm
+
+    port = mm.pca_init_scores
+
+    def signed(*args, **kwargs):
+        pcs = port(*args, **kwargs)
+        cols = torch.arange(pcs.shape[1], device=pcs.device)
+        return pcs * torch.sign(pcs[pcs.abs().argmax(0), cols])
+
+    mm.pca_init_scores = signed
+    try:
+        yield
+    finally:
+        mm.pca_init_scores = port
+
+
+def f64_stream(clonealign_torch, fl, Y, L, z, core):
+    """The full-width float64 fit ("auto" storage, "fresh") streamed through
+    ``fit_streaming`` in the feeder's "auto" chunks, held to ``core``, the
+    in-core float64 fit on the same data and seed: the same iterations and
+    labels, the final ELBO within 1e-9 of it relative, every launch a
+    float64 one, forwards chunks x (2 + 2 n + 20) and dpsi = gene = chunks
+    x n; prints the card's peak over the call (its float64 cell state and
+    chunk buffers; Y stays on the host)."""
+    import torch
+
+    from clonealign_torch import stream
+
+    n_chunks = len(stream._chunk_bounds(FULL["N"], stream._resolve_chunk_cells(
+        "auto", FULL["N"], FULL["G"])))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    fit = clonealign_torch.fit_streaming(
+        Y, L, chunk_cells="auto", device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
+        elbo_eval="fresh", likelihood_impl="xla", y_storage="auto", dtype="float64")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    launches = launches_of(fl, "float64")
+    ci, n = fit.convergence_info, fit.convergence_info.n_iters
+    rel = abs(ci.final_elbo - core["final_elbo"]) / abs(core["final_elbo"])
+    same = fit.clone == core["labels"]
+    want = {"fwd": n_chunks * (2 + 2 * n + 20), "dpsi": n_chunks * n, "gene": n_chunks * n}
+    out = {"iter_ms": 1000 * fit.timings["loop"] / max(n, 1), "n_iters": n, "launches": launches,
+           "peak_gb": peak, "n_chunks": n_chunks, "elbo_rel": rel}
+    log(f"float64 streaming fit {FULL['N']}x{FULL['G']}x{FULL['C']} auto ({n_chunks} chunks, "
+        f"fresh): {wall:.2f} s wall, {n} iterations, {out['iter_ms']:.2f} ms per iteration "
+        f"against in-core {core['iter_ms']:.2f}; final ELBO {ci.final_elbo:.12g} against "
+        f"{core['final_elbo']:.12g} ({rel:.3e} relative, bar 1e-9), labels "
+        f"{'identical' if same else 'DIFFER'}; accuracy {accuracy(fit, z):.4f}; launches "
+        f"(float64) {launches}; peak allocated over the call {peak:.3f} GB (Y takes "
+        f"{FULL['N'] * FULL['G'] / 1e9:.3f} GB at int8)")
+    check_trace(ci.elbo)
+    if not (same and rel <= 1e-9 and n == core["n_iters"]) or launches != want:
+        raise AssertionError(f"the streamed float64 fit differs from the in-core one or launched "
+                             f"{launches} (expected {want})")
+    return out
+
+
+def golden_f64_data():
+    """The golden oracle's example and synth counts, L and the seed of each
+    fit's NumpyNoise, by name (F64_GOLDEN)."""
+    from clonealign_torch.synth import simulate_multinomial
+
+    ex = np.load(REPO / "data" / "example_sce.npz")
+    sim = simulate_multinomial(N=5000, G=1000, C=4, seed=3, mean_total=2000)
+    data = {"example": (ex["counts"], ex["copy_number"]), "synth": (sim.Y, sim.L)}
+    return {name: (*data[name], seed) for name, seed in F64_GOLDEN}
+
+
+def cpu_references_f64(out):
+    """The CPU port's float64 fits that float64_phase holds the card's to,
+    written to the .npz ``out``: the golden example and synth fits
+    (F64_GOLDEN_KW, NumpyNoise draws, the PCA's sign fixed by
+    :func:`signed_pca`) and the v1 family's exact and Chebyshev fits at
+    F64_V1's width. float64_phase runs it in a child process
+    (:func:`start_cpu_references_f64`)."""
+    import torch
+
+    import clonealign_torch
+    from clonealign_torch.synth import simulate_model3
+
+    torch.set_num_threads(F64_CPU_THREADS)
+    res = {}
+    for name, (Y, L, seed) in golden_f64_data().items():
+        t0 = time.perf_counter()
+        with signed_pca():
+            fit = clonealign_torch.clonealign(Y, L, device="cpu", noise=NumpyNoise(seed),
+                                              **F64_GOLDEN_KW)
+        res.update({f"{name}_clone": np.asarray(fit.clone),
+                    f"{name}_elbo": fit.convergence_info.final_elbo,
+                    f"{name}_n": fit.convergence_info.n_iters,
+                    f"{name}_s": time.perf_counter() - t0})
+    sim = simulate_model3(**F64_V1, seed=17)
+    for impl in ("exact", "cheb"):
+        t0 = time.perf_counter()
+        fit = clonealign_torch.inference_em(sim.Y, sim.L, device="cpu", likelihood_impl=impl,
+                                            **F64_V1_KW)
+        res.update({f"v1_{impl}_labels": np.argmax(fit.clone_probs, 1),
+                    f"v1_{impl}_elbo0": fit.elbo_trace[0], f"v1_{impl}_elbo": fit.final_elbo,
+                    f"v1_{impl}_n": fit.n_iter, f"v1_{impl}_s": time.perf_counter() - t0})
+    np.savez(out, **res)
+
+
+@contextlib.contextmanager
+def start_cpu_references_f64():
+    """Run :func:`cpu_references_f64` in a child process (this script's
+    interpreter, from the repository's root) while the block runs; yields a
+    function that waits for it and returns its results. The child is
+    stopped when the block ends."""
+    with tempfile.TemporaryDirectory() as d:
+        out = str(Path(d) / "cpu_references_f64.npz")
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; chip_smoke.cpu_references_f64(sys.argv[1])", out],
+            cwd=REPO)
+
+        def results():
+            if proc.wait(timeout=900) != 0:
+                raise AssertionError(f"the CPU's float64 reference fits failed ({proc.returncode})")
+            with np.load(out) as f:
+                return {k: f[k] for k in f.files}
+
+        try:
+            yield results
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def golden_f64(clonealign_torch, fl, cpu):
+    """The golden oracle's example and synth fits in float64 on the card
+    (F64_GOLDEN_KW, NumpyNoise draws, the PCA's sign fixed by
+    :func:`signed_pca`) against the CPU port's (``cpu``, the results of
+    :func:`cpu_references_f64`, or a function that returns them): labels
+    identical, the final ELBO within 1e-8 of the CPU's relative, and the
+    float64 oracle's bar (:func:`golden`'s). Returns the card fits'
+    launches and numbers, by name."""
+    oracle = np.load(REPO / "tests" / "golden" / "tpu_parity_oracle.npz")
+    found = {}
+    for name, (Y, L, seed) in golden_f64_data().items():
+        fl.reset_launch_counts()
+        t0 = time.perf_counter()
+        with signed_pca():
+            card = clonealign_torch.clonealign(Y, L, device="cuda", noise=NumpyNoise(seed),
+                                               **F64_GOLDEN_KW)
+        launches = launches_of(fl, "float64")
+        card_s = time.perf_counter() - t0
+        ref = cpu() if callable(cpu) else cpu
+        ci, n = card.convergence_info, card.convergence_info.n_iters
+        e_cpu = float(ref[f"{name}_elbo"])
+        rel = abs(ci.final_elbo - e_cpu) / abs(e_cpu)
+        same = list(card.clone) == ref[f"{name}_clone"].tolist()
+        e64 = float(oracle[f"{name}_elbo64"])
+        tol = max(1e-4 * abs(e64), 3.0 * ci.sd_final_elbo)
+        probs = card.ml_params["clone_probs"]
+        flips = np.flatnonzero(np.asarray(card.clone) != oracle[f"{name}_clone64"])
+        off = [int(i) for i in flips if abs(probs[i].max() - 0.95) >= 0.01]
+        log(f"golden {name} float64: card {card_s:.1f} s, CPU {float(ref[f'{name}_s']):.1f} s, "
+            f"{n} iterations; final ELBO {ci.final_elbo:.12g} against the CPU's {e_cpu:.12g} "
+            f"({rel:.3e} relative, bar 1e-8), labels {'identical' if same else 'DIFFER'}; "
+            f"against the float64 oracle {e64:.8g}: |diff| {abs(ci.final_elbo - e64):.4g}, bar "
+            f"{tol:.4g}; {len(flips)} labels differ from it, {len(off)} away from the 0.95 "
+            f"threshold; launches (float64) {launches}")
+        want = {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n}
+        if not (same and rel <= 1e-8 and n == int(ref[f"{name}_n"]) == GOLDEN_MAX_ITER):
+            raise AssertionError(f"golden {name}: the float64 card fit differs from the CPU's")
+        if not abs(ci.final_elbo - e64) < tol or off or launches != want:
+            raise AssertionError(f"golden {name} float64 misses the oracle's bar or launched "
+                                 f"{launches} (expected {want})")
+        found[name] = {"launches": launches, "elbo_rel": rel, "card_s": card_s}
+    return found
+
+
+def negbin_f64(clonealign_torch, fl, cpu):
+    """The v1 family's exact EM and Chebyshev fit in float64 on the card
+    (F64_V1_KW) against the CPU port's (``cpu``, as :func:`golden_f64`'s)
+    at F64_V1's width (model3 counts made with numpy): the same iterations
+    and labels, the first E-step's ELBO within 1e-10 relative, the final
+    one within 1e-3 (the bar tests/test_torch_negbin.py holds the port to
+    the JAX package to after 30 iterations: the M-step's Adam divides each
+    gradient by its running scale, so a gradient at rounding level moves
+    its parameter by up to the learning rate, whichever way the card's or
+    the CPU's rounding sends it), the accuracy bar, and no fused-likelihood
+    launch."""
+    from clonealign_torch.synth import simulate_model3
+
+    sim = simulate_model3(**F64_V1, seed=17)
+    fl.reset_launch_counts()
+    found = {}
+    for impl in ("exact", "cheb"):
+        t0 = time.perf_counter()
+        card = clonealign_torch.inference_em(sim.Y, sim.L, device="cuda", likelihood_impl=impl,
+                                             **F64_V1_KW)
+        card_s = time.perf_counter() - t0
+        ref = cpu() if callable(cpu) else cpu
+        e0, e_cpu = float(ref[f"v1_{impl}_elbo0"]), float(ref[f"v1_{impl}_elbo"])
+        rel0 = abs(card.elbo_trace[0] - e0) / abs(e0)
+        rel = abs(card.final_elbo - e_cpu) / abs(e_cpu)
+        labels = np.argmax(card.clone_probs, 1)
+        same = bool(np.array_equal(labels, ref[f"v1_{impl}_labels"]))
+        acc = float(np.mean(labels == np.asarray(sim.clone_idx)))
+        log(f"negbin float64 inference_em {impl} {F64_V1['N']}x{F64_V1['G']}x{F64_V1['C']}: card "
+            f"{card_s:.2f} s, CPU {float(ref[f'v1_{impl}_s']):.2f} s, {card.n_iter} iterations; "
+            f"first ELBO {card.elbo_trace[0]:.12g} against {e0:.12g} ({rel0:.3e} relative, bar "
+            f"1e-10), final {card.final_elbo:.12g} against {e_cpu:.12g} ({rel:.3e} relative, bar "
+            f"1e-3), labels {'identical' if same else 'DIFFER'}, accuracy {acc:.4f}")
+        if not (same and rel0 <= 1e-10 and rel <= 1e-3
+                and card.n_iter == int(ref[f"v1_{impl}_n"])):
+            raise AssertionError(f"negbin float64 {impl}: the card differs from the CPU")
+        if acc < MIN_ACCURACY:
+            raise AssertionError(f"negbin float64 {impl}: accuracy {acc:.4f}")
+        found[impl] = {"iterations": card.n_iter, "elbo0_rel": rel0, "elbo_rel": rel,
+                       "card_s": card_s}
+    launches = launches_of(fl)
+    if any(launches.values()):
+        raise AssertionError(f"negbin float64: the fused-likelihood kernels launched {launches}")
+    return found
+
+
+def float64_phase(clonealign_torch, fl, auto_name, y_itemsize):
+    """dtype="float64" on the card through the float64 kernel family: first
+    the full-width float64 fit under "auto" and with float64 Y, the z_cheb
+    fit, the three-lane sweep as "vmap" and "map" (equal) and the streamed
+    fit (equal to the in-core one), timed by host clocks before anything
+    else runs beside them; then, while the CPU's reference fits run in a
+    child process (:func:`start_cpu_references_f64`), the kernels' ptxas
+    report and an exp's FP64 instructions, each kernel against its plain
+    float64 version at every Y storage at F64_CHECKS's shapes and
+    bit-identical across launches, timed at full width (F64_FULL x
+    F64_FULL_STORAGES, CUDA events) beside its float64 bound, and the golden
+    example and synth fits and the v1 family against the CPU's. Every
+    launch of these paths is a float64 one. ``auto_name`` and
+    ``y_itemsize`` name the storage "auto" resolves to. Returns the numbers
+    for the kernels line."""
+    t_phase = time.perf_counter()
+    out = float64_fits(clonealign_torch, fl, y_itemsize)
+    with start_cpu_references_f64() as cpu:
+        out.update(float64_kernels(fl))
+        out["golden"] = golden_f64(clonealign_torch, fl, cpu)
+        out["v1"] = negbin_f64(clonealign_torch, fl, cpu)
+    log(f"float64 phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def float64_fits(clonealign_torch, fl, y_itemsize):
+    """The float64 phase's full-width fits, z_cheb fit, sweeps and streamed
+    fit on the synthetic counts (:func:`float64_phase`)."""
+    from clonealign_torch.restarts import _sweep_bytes
+
+    Y, L, z = synth_counts(3, FULL["N"], FULL["G"], FULL["C"])
+    fits = {}
+    for name, storage, itemsize in (("auto", "auto", y_itemsize), ("float64 Y", "float32", 8)):
+        fits[name] = full_fit(clonealign_torch, fl, Y, L, z, storage, label=f"float64 {name}",
+                              dtype="float64")
+        plan = _sweep_bytes(FULL["N"], FULL["G"], FULL["C"], 1, 1, 1, 8, "cuda", itemsize) / 1e9
+        log(f"  float64 {name}: {fits[name]['iter_ms']:.2f} ms an iteration, setup "
+            f"{fits[name]['setup_s']:.2f} s, peak allocated in the inference "
+            f"{fits[name]['peak_gb']:.3f} GB against restarts._sweep_bytes' {plan:.3f} GB")
+        fits[name]["plan_gb"] = plan
+    fl.reset_launch_counts()
+    zc = clonealign_torch.clonealign(Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0,
+                                     verbose=False, likelihood_impl="z_cheb", dtype="float64")
+    zc_launches = launches_of(fl, "float64")
+    zc_acc = accuracy(zc, z)
+    zn = zc.convergence_info.n_iters
+    log(f"float64 z_cheb fit: {zn} iterations, "
+        f"{1000 * zc.timings['loop'] / max(zn, 1):.2f} ms per iteration, final ELBO "
+        f"{zc.convergence_info.final_elbo:.9g}, accuracy {zc_acc:.4f}, launches (float64) "
+        f"{zc_launches}")
+    if zc_acc < MIN_ACCURACY or zc_launches != {"fwd": 20, "dpsi": 0, "gene": 0}:
+        raise AssertionError("the float64 z_cheb fit misses its accuracy or launches")
+    sweeps = {b: run_sweep(clonealign_torch, fl, Y, L, z, f"float64 {b}", "xla", b, "auto",
+                           y_itemsize, lanes=F64_LANES, dtype="float64") for b in ("vmap", "map")}
+    if sweeps["vmap"]["ran"] != "vmap" or any(sweeps["vmap"][k] != sweeps["map"][k]
+                                              for k in ("iterations", "labels", "launches")):
+        raise AssertionError("the float64 sweep's lanes differ from its sequential restarts")
+    streamed = f64_stream(clonealign_torch, fl, Y, L, z, fits["auto"])
+    return {"fits": fits, "z_cheb": zc_launches, "sweeps": sweeps, "stream": streamed}
+
+
+def float64_kernels(fl):
+    """The float64 phase's kernel checks and full-width timings
+    (:func:`float64_phase`)."""
+    from clonealign_torch.ops import _build
+
+    exp_ops, opcodes = exp_fp64_instructions()
+    log(f"float64 phase: one double exp() is {exp_ops} FP64 instructions in the built SASS "
+        f"({', '.join(opcodes)})")
+    for kernel in ("fwd_f64_kernel", "dpsi_f64_kernel", "gene_f64_kernel",
+                   "reduce_chunks_f64_kernel"):
+        res = kernel_resources(_build.build_log, kernel)
+        log(f"{kernel} ptxas: " + "; ".join(f"{k} {r} registers, {st}/{ld} B spill stores/loads"
+                                             for k, (r, st, ld) in sorted(res.items())))
+    log(f"float64 kernels vs plain (tolerance: F64_RTOL={F64_RTOL:g} of the per-element "
+        "absolute-term sum; each kernel launched twice, bit-identical)")
+    for storage in F64_STORAGES:
+        for shape, S, Kf in F64_CHECKS:
+            check_kernels_f64(shape, S, Kf, seed=51, storage=storage)
+    full = {(st, Kf, S): check_kernels_f64(FULL, S, Kf, seed=53, storage=st, reps=3,
+                                           exp_ops=exp_ops)
+            for st in F64_FULL_STORAGES for Kf, S in F64_FULL}
+    for (st, Kf, S), r in full.items():
+        r["resources"] = f64_resources(fl, st, Kf, 0, S * FULL["C"], FULL["N"], FULL["G"])
+        line = ", ".join(
+            f"{part} {r[f'{part}_ms']:.3f} ms (plain {r[f'{part}_plain_ms']:.3f}, bound "
+            f"{r['bounds'][part][0]:.3f} by {r['bounds'][part][2]}, "
+            f"{r['bounds'][part][0] / r[f'{part}_ms']:.3f} of it; "
+            f"{r['resources'][part]['smem_bytes']} B shared memory, "
+            f"{r['resources'][part]['blocks_per_sm']} blocks an SM)"
+            for part in ("fwd", "dpsi", "gene"))
+        log(f"float64, full width, Y {st}, Kf={Kf} S*C={S * FULL['C']}: {line}")
+    bound_res = f64_resources(fl, "float64", 64, 64, 2048, FULL["N"], FULL["G"])
+    log(f"float64, full width, every bound (Kf 64, S 64, S*C 2048): {bound_res}")
+    return {"exp_ops": exp_ops, "full": full, "bound_resources": bound_res}
+
+
+def f64_kernels(f64, auto_name):
+    """The float64 family's entries of the kernels line: the numbers at the
+    main path's widths (Kf 1, S*C 10) and the storage "auto" resolves to,
+    each full-width configuration's under ``by_config``, and each float64
+    path's launches. No single PyTorch call computes any of the three
+    functions: library_ms is null."""
+    st = auto_name if auto_name in F64_FULL_STORAGES else F64_FULL_STORAGES[0]
+    main = f64["full"][(st, 1, 1)]
+    src = "clonealign_torch/ops/csrc/fused_likelihood_f64.cu"
+    fwd_at = "clonealign_tpu/ops/fused_likelihood.py:125 (jnp.dot branches :91, :102, :105)"
+    bwd_at = ("clonealign_tpu/ops/fused_likelihood.py:234 (jnp.dot branches :182, :187, "
+              ":201-202, :211, :213)")
+    fits, sweeps = f64["fits"], f64["sweeps"]
+    paths = (("float64 fit y_storage=auto", fits["auto"]["launches"]),
+             ("float64 fit y_storage=float32 (float64 Y)", fits["float64 Y"]["launches"]),
+             ("float64 z_cheb fit", f64["z_cheb"]),
+             *((f"float64 sweep, {F64_LANES['n_repeats']} restarts, {b}", sweeps[b]["launches"])
+               for b in ("vmap", "map")),
+             (f"float64 streaming fit, {f64['stream']['n_chunks']} chunks, fresh",
+              f64["stream"]["launches"]),
+             ("golden example float64", f64["golden"]["example"]["launches"]),
+             ("golden synth float64", f64["golden"]["synth"]["launches"]))
+    out = []
+    for name, part, at, err in (
+            ("fwd_f64_kernel", "fwd", fwd_at, ("A1", "Z", "YW")),
+            ("dpsi_f64_kernel", "dpsi", bwd_at, ("dpsi",)),
+            ("gene_f64_kernel+reduce_chunks_f64_kernel", "gene", bwd_at, ("dW", "dmuL"))):
+        b = main["bounds"][part]
+        out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": at,
+            "launches": fits["auto"]["launches"][part],
+            "max_abs_err": max(main["errs"][e] for e in err),
+            "ms": main[f"{part}_ms"], "plain_ms": main[f"{part}_plain_ms"],
+            "bound_ms": b[0], "bound_by": b[1], "bound_unit": b[2], "library_ms": None,
+            "bound_fraction": b[0] / main[f"{part}_ms"], "exp_fp64_instructions": f64["exp_ops"],
+            **main["resources"][part], "y_storage": st, "kf": 1, "sc": FULL["C"],
+            "by_config": [{"y_storage": s, "kf": Kf, "sc": S * FULL["C"],
+                           "ms": r[f"{part}_ms"], "plain_ms": r[f"{part}_plain_ms"],
+                           "bound_ms": r["bounds"][part][0], "bound_by": r["bounds"][part][1],
+                           "bound_unit": r["bounds"][part][2],
+                           "bound_fraction": r["bounds"][part][0] / r[f"{part}_ms"],
+                           **r["resources"][part],
+                           "max_abs_err": max(r["errs"][e] for e in err)}
+                          for (s, Kf, S), r in f64["full"].items()],
             "paths": [{"path": p, "launches": n[part]} for p, n in paths],
         })
     return out
@@ -2220,6 +2810,11 @@ def main() -> int:
     # wide fit, its sweep as lanes and the parity fit
     wide = wide_phase(clonealign_torch, fl, auto_name, y_itemsize)
 
+    # 12. dtype="float64": the float64 kernel family against its plain
+    # versions and timed, the float64 fits, sweep, streamed fit, golden fits
+    # and v1 family against the CPU
+    f64 = float64_phase(clonealign_torch, fl, auto_name, y_itemsize)
+
     # The backward's parts alone at full width, A2 off, Y stored as "auto"
     # resolves on the main path.
     main_full = full[auto_name]
@@ -2302,6 +2897,7 @@ def main() -> int:
     kernels[0]["paths"] = [{"path": p, "launches": n["fwd"]} for p, n in paths]
     kernels[1]["paths"] = [{"path": p, "launches": min(n["dpsi"], n["gene"])} for p, n in paths]
     kernels += wide_kernels(wide, auto_name)
+    kernels += f64_kernels(f64, auto_name)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

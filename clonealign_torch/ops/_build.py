@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ctypes. The source is
-compiled as several translation units at once (``PARTS``, one ``nvcc`` each,
-all started together; see the source's "Build" note), which are then linked.
+The sources under ``csrc/`` (the float32 kernels and the float64 family) are
+compiled with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+interface, loaded with ctypes. Each source is compiled as several
+translation units at once (``PARTS``, one ``nvcc`` each, all started
+together; see each source's "Build" note), which are then linked.
 The build runs at first use, into ``_build_cache/`` beside this file, under a
 name keyed by a hash of the sources and flags, so a changed source is rebuilt
 and an unchanged one is reused. Nothing here runs when the module is
@@ -21,12 +22,13 @@ import tempfile
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "csrc" / "fused_likelihood.cu",)
+SOURCES = (_HERE / "csrc" / "fused_likelihood.cu", _HERE / "csrc" / "fused_likelihood_f64.cu")
 BUILD_DIR = _HERE / "_build_cache"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# FL_PART of each translation unit: -1 the Y-free kernels and the C entry
-# points, 0-3 the Y-reading kernels of one Y storage type each.
+# FL_PART of each translation unit of each source: -1 the Y-free kernels
+# and the C entry points, 0-3 the Y-reading kernels of one Y storage type
+# each.
 PARTS = (-1, 0, 1, 2, 3)
 
 _lib = None
@@ -127,4 +129,12 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fl_backward_dpsi_wide.restype = i
     lib.fl_backward_gene_wide.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.fl_backward_gene_wide.restype = i
+    lib.fl64_forward.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.fl64_forward.restype = i
+    lib.fl64_backward_dpsi.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.fl64_backward_dpsi.restype = i
+    lib.fl64_backward_gene.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.fl64_backward_gene.restype = i
+    lib.fl64_resources.argtypes = [p] + [i] * 6 + [p]
+    lib.fl64_resources.restype = i
     return lib

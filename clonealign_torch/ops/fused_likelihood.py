@@ -31,10 +31,21 @@ attention).
 launchers take and check. The plain versions take any width and
 are the wide family's too.
 
+Float64 operands (``dtype="float64"`` fits, the oracle configuration) go
+to a family of their own, ``csrc/fused_likelihood_f64.cu``: the forward
+(``fwd_f64_kernel``), the Y-free dpsi kernel (``dpsi_f64_kernel``) and the
+gene part (``gene_f64_kernel`` with ``reduce_chunks_f64_kernel``), float64
+throughout on the CUDA cores, one family for every width up to the wide
+bound (no narrow/wide split), counted apart in ``*_f64_launches``.
+:func:`f64_plan` gives their launch geometry and workspace, which the C
+entry points take and check. Nothing on that path runs in float32.
+
 Y may be stored narrow (``Y_DTYPES``: float32, bfloat16, int16 or int8;
-``api.py``'s ``y_storage``). The kernels load it in that type and convert it
+``api.py``'s ``y_storage``; under float64 ``Y_DTYPES_F64``: float64,
+bfloat16, int16 or int8). The kernels load it in that type and convert it
 in registers; the plain versions convert it to the compute dtype (the other
-operands' dtype) first. Every other operand is in the compute dtype.
+operands' dtype) first. Every other operand is in the compute dtype, and a
+mix of float32 and float64 operands raises.
 
 ``log_mu=None`` skips A2 (the ELBO step replaces it with a precomputed
 column-sum dot, see ``models/multinomial.elbo``); A2 is then returned as None.
@@ -77,6 +88,24 @@ _TWO_BLOCK_SMEM = (228 - 2) // 2 * 1024
 _ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
 # Y storage types the kernels load, with the code the C entry points take
 Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
+# ... and those the float64 family loads. ``y_storage="float32"`` (or None)
+# means the compute dtype (api._Y_STORAGE), so a float64 fit stores Y as
+# float64 there; code 0 is that compute dtype.
+Y_DTYPES_F64 = {torch.float64: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
+# The float64 family's geometry (the .cu's kCells, kGenes, kGeneLanes,
+# kCellStage): cells (lanes) a forward or dpsi block, genes a stage of
+# theirs, genes (lanes) a gene-part block, cells a stage of it; the most
+# columns a forward group, a dpsi dZ group and a gene-part pass take (the
+# .cu's kFwdCols, kDpsiCols, kGeneCols); the most dynamic shared memory a
+# block may take on the card.
+F64_CELLS = 128
+F64_GENES = 32
+F64_GENE_LANES = 64
+F64_CELL_STAGE = 32
+F64_FWD_COLS = 32
+F64_DPSI_COLS = 64
+F64_GENE_COLS = 32
+F64_MAX_SMEM = 232_448
 
 # Kernel launches, each counted by the wrapper that launches the kernel:
 # the narrow kernels' and the wide family's apart.
@@ -86,17 +115,24 @@ gene_launches = 0  # the gene-major backward kernel with its packing and chunk r
 fwd_wide_launches = 0
 dpsi_wide_launches = 0
 gene_wide_launches = 0  # the wide gene-part kernel with its chunk reduction
+fwd_f64_launches = 0
+dpsi_f64_launches = 0
+gene_f64_launches = 0  # the float64 gene-part kernel with its chunk reduction
 
 
 def reset_launch_counts() -> None:
     global fwd_launches, dpsi_launches, gene_launches
     global fwd_wide_launches, dpsi_wide_launches, gene_wide_launches
+    global fwd_f64_launches, dpsi_f64_launches, gene_f64_launches
     fwd_launches = 0
     dpsi_launches = 0
     gene_launches = 0
     fwd_wide_launches = 0
     dpsi_wide_launches = 0
     gene_wide_launches = 0
+    fwd_f64_launches = 0
+    dpsi_f64_launches = 0
+    gene_f64_launches = 0
 
 
 def wide_route(Kf: int, n_a2: int, SC: int) -> bool:
@@ -180,7 +216,7 @@ def _plain_backward(Y, psi_ext, W_ext, muL, dA1, dA2, dZ, _YW):
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _check(name, t, shape, dtypes=(torch.float32,)):
+def _check(name, t, shape, dtypes):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
     if t.dtype not in dtypes:
@@ -300,9 +336,64 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] =
     return plan
 
 
-def _plan_arg(plan: dict):
-    """:func:`wide_plan`'s numbers as the C entry points take them."""
-    return (ctypes.c_longlong * len(WIDE_PLAN_KEYS))(*(plan[k] for k in WIDE_PLAN_KEYS))
+def _plan_arg(plan: dict, keys=WIDE_PLAN_KEYS):
+    """:func:`wide_plan`'s numbers (or with ``keys=F64_PLAN_KEYS``
+    :func:`f64_plan`'s) as the C entry points take them."""
+    return (ctypes.c_longlong * len(keys))(*(plan[k] for k in keys))
+
+
+# f64_plan's numbers, in the order the C entry points take them.
+F64_PLAN_KEYS = ("f_cols", "f_groups", "f_blocks", "f_smem", "d_cols", "d_groups", "d_blocks",
+                 "d_smem", "g_cols", "g_passes", "g_blocks", "rows", "n_chunks", "g_smem", "part")
+
+
+def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
+    """The float64 family's launch plan for N cells, G genes, Kf columns of
+    ``[psi, X]``, n_a2 A2 columns and SC Z columns: the one place it is
+    decided. The C entry points take its ``F64_PLAN_KEYS``
+    (``_plan_arg(plan, F64_PLAN_KEYS)``) and check that they fit the sizes.
+
+    Forward: the output columns ``[YW | A2 | Z]`` (Kf + n_a2 + SC) split
+    evenly into ``f_groups`` column groups (grid.y) of ``f_cols`` <=
+    ``F64_FWD_COLS``, each recomputing the exps it needs, over ``f_blocks``
+    blocks of ``F64_CELLS`` cells. dpsi: dZ's SC columns in ``d_groups``
+    groups of ``d_cols`` <= ``F64_DPSI_COLS``, one after another in a block.
+    Gene part: d(muL)'s SC columns in ``g_passes`` passes of ``g_cols`` <=
+    ``F64_GENE_COLS``, ``g_blocks`` blocks of ``F64_GENE_LANES`` genes by
+    ``n_chunks`` chunks (grid.y) of ``rows`` cells (:func:`_chunk_rows`).
+    ``f_smem``, ``d_smem`` and ``g_smem`` are each kernel's dynamic shared
+    memory in bytes: per-lane slots of the row's vectors (psi or W, the
+    sums, dZ's or muL's columns) and a stage of the walked axis' tables.
+
+    Workspace, in float64 values (the forward and dpsi kernels take none):
+    ``part``, the gene part's partial sums (n_chunks x (Kf + SC + n_a2) x
+    G); ``gene_workspace``, what :func:`kernel_gene` allocates, the partial
+    sums and its (Kf + SC + n_a2, G) output."""
+    F = Kf + n_a2 + SC
+    f_groups, d_groups = _cdiv(F, F64_FWD_COLS), _cdiv(SC, F64_DPSI_COLS)
+    g_passes = _cdiv(SC, F64_GENE_COLS)
+    f_cols, d_cols, g_cols = _cdiv(F, f_groups), _cdiv(SC, d_groups), _cdiv(SC, g_passes)
+    rows = _chunk_rows(N)
+    n_chunks = _cdiv(N, rows)
+    plan = dict(zip(F64_PLAN_KEYS, (
+        f_cols, f_groups, _cdiv(N, F64_CELLS), 8 * (Kf + f_cols) * (F64_CELLS + F64_GENES),
+        d_cols, d_groups, _cdiv(N, F64_CELLS),
+        8 * ((2 * Kf + d_cols) * F64_CELLS + (Kf + d_cols) * F64_GENES),
+        g_cols, g_passes, _cdiv(G, F64_GENE_LANES), rows, n_chunks,
+        8 * ((2 * Kf + n_a2 + 2 * g_cols) * F64_GENE_LANES
+             + (Kf + g_cols + 1 + n_a2) * F64_CELL_STAGE),
+        n_chunks * F * G)))
+    plan["gene_workspace"] = plan["part"] + F * G
+    return plan
+
+
+def _compute_dtype(psi_ext) -> torch.dtype:
+    """The call's compute dtype, psi_ext's: float32 (the float32 kernels) or
+    float64 (the float64 family). Every other float operand must match it."""
+    if psi_ext.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"psi_ext must be float32 or float64 for the CUDA kernels, got "
+                         f"{psi_ext.dtype}")
+    return psi_ext.dtype
 
 
 def gene_wide_workspace(N: int, G: int, Kf: int, n_a2: int, SC: int) -> int:
@@ -340,30 +431,38 @@ def _raise_on(err: int, what: str):
 
 def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     """Launch the forward kernel, or the wide one past a narrow limit
-    (:func:`wide_route`). Returns (A1, A2 or None, Z, YW), with
-    ``YW = Y @ W_ext`` (N, Kf) for the backward's dpsi kernel."""
-    global fwd_launches, fwd_wide_launches
+    (:func:`wide_route`), or for float64 operands ``fwd_f64_kernel``
+    (:func:`f64_plan`). Returns (A1, A2 or None, Z, YW) in the compute
+    dtype, with ``YW = Y @ W_ext`` (N, Kf) for the backward's dpsi kernel."""
+    global fwd_launches, fwd_wide_launches, fwd_f64_launches
     from . import _build
 
     n_a2 = 0 if log_mu is None else log_mu.shape[0]
-    _check("Y", Y, Y.shape, tuple(Y_DTYPES))
+    dt = _compute_dtype(psi_ext)
+    y_codes = Y_DTYPES_F64 if dt == torch.float64 else Y_DTYPES
+    _check("Y", Y, Y.shape, tuple(y_codes))
     (N, G), Kf, SC = Y.shape, psi_ext.shape[1], muL.shape[1]
     _check_sizes(N, G, Kf, SC, n_a2)
-    _check("psi_ext", psi_ext, (N, Kf))
-    _check("W_ext", W_ext, (G, Kf))
-    _check("muL", muL, (G, SC))
+    _check("psi_ext", psi_ext, (N, Kf), (dt,))
+    _check("W_ext", W_ext, (G, Kf), (dt,))
+    _check("muL", muL, (G, SC), (dt,))
     if log_mu is not None:
-        _check("log_mu", log_mu, (n_a2, G))
+        _check("log_mu", log_mu, (n_a2, G), (dt,))
     lib = _build.load()
-    A1 = torch.empty(N, device=Y.device, dtype=torch.float32)
-    A2 = None if log_mu is None else torch.empty(N, n_a2, device=Y.device, dtype=torch.float32)
-    Z = torch.empty(N, SC, device=Y.device, dtype=torch.float32)
-    YW = torch.empty(N, Kf, device=Y.device, dtype=torch.float32)
+    A1 = torch.empty(N, device=Y.device, dtype=dt)
+    A2 = None if log_mu is None else torch.empty(N, n_a2, device=Y.device, dtype=dt)
+    Z = torch.empty(N, SC, device=Y.device, dtype=dt)
+    YW = torch.empty(N, Kf, device=Y.device, dtype=dt)
     stream = ctypes.c_void_p(torch.cuda.current_stream(Y.device).cuda_stream)
-    wide = wide_route(Kf, n_a2, SC)
     args = (_ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(log_mu), _ptr(muL),
             _ptr(A1), _ptr(A2), _ptr(Z), _ptr(YW))
-    sizes = (N, G, Kf, n_a2, SC, Y_DTYPES[Y.dtype], stream)
+    sizes = (N, G, Kf, n_a2, SC, y_codes[Y.dtype], stream)
+    if dt == torch.float64:
+        plan = _plan_arg(f64_plan(N, G, Kf, n_a2, SC), F64_PLAN_KEYS)
+        _raise_on(lib.fl64_forward(*args, plan, *sizes), "fused likelihood forward (float64)")
+        fwd_f64_launches += 1
+        return A1, A2, Z, YW
+    wide = wide_route(Kf, n_a2, SC)
     if wide:
         plan = wide_plan(N, G, Kf, n_a2, SC)
         table = torch.empty(plan["fwd_workspace"], device=Y.device, dtype=torch.float32)
@@ -381,27 +480,35 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
 def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
     """Launch the Y-free dpsi kernel (the first part of
     :func:`kernel_backward`), or past a narrow limit the wide one with its
-    packing of the gene side (:func:`wide_plan`'s ``dpsi_workspace``); ``YW``
-    is :func:`kernel_forward`'s. Returns dpsi (N, Kf). With Kf = 0 there is
+    packing of the gene side (:func:`wide_plan`'s ``dpsi_workspace``), or
+    for float64 operands ``dpsi_f64_kernel``; ``YW`` is
+    :func:`kernel_forward`'s. Returns dpsi (N, Kf). With Kf = 0 there is
     nothing to compute or launch."""
-    global dpsi_launches, dpsi_wide_launches
+    global dpsi_launches, dpsi_wide_launches, dpsi_f64_launches
     from . import _build
 
     (N, Kf), G, SC = psi_ext.shape, W_ext.shape[0], muL.shape[1]
+    dt = _compute_dtype(psi_ext)
     _check_sizes(N, G, Kf, SC, 0)
-    _check("psi_ext", psi_ext, (N, Kf))
-    _check("W_ext", W_ext, (G, Kf))
-    _check("muL", muL, (G, SC))
-    _check("dA1", dA1, (N,))
-    _check("dZ", dZ, (N, SC))
-    _check("YW", YW, (N, Kf))
-    dpsi = torch.empty(N, Kf, device=psi_ext.device, dtype=torch.float32)
+    _check("psi_ext", psi_ext, (N, Kf), (dt,))
+    _check("W_ext", W_ext, (G, Kf), (dt,))
+    _check("muL", muL, (G, SC), (dt,))
+    _check("dA1", dA1, (N,), (dt,))
+    _check("dZ", dZ, (N, SC), (dt,))
+    _check("YW", YW, (N, Kf), (dt,))
+    dpsi = torch.empty(N, Kf, device=psi_ext.device, dtype=dt)
     if Kf == 0:
         return dpsi
     lib = _build.load()
     stream = ctypes.c_void_p(torch.cuda.current_stream(psi_ext.device).cuda_stream)
-    wide = wide_route(Kf, 0, SC)
     args = (_ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dZ), _ptr(YW), _ptr(dpsi))
+    if dt == torch.float64:
+        plan = _plan_arg(f64_plan(N, G, Kf, 0, SC), F64_PLAN_KEYS)
+        _raise_on(lib.fl64_backward_dpsi(*args, plan, N, G, Kf, SC, stream),
+                  "fused likelihood backward (dpsi, float64)")
+        dpsi_f64_launches += 1
+        return dpsi
+    wide = wide_route(Kf, 0, SC)
     if wide:
         plan = wide_plan(N, G, Kf, 0, SC)
         table = torch.empty(plan["dpsi_workspace"], device=psi_ext.device, dtype=torch.float32)
@@ -421,25 +528,40 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     operands and its chunk reduction (the second part of
     :func:`kernel_backward`; :func:`reference_gene` is its plain version),
     or past a narrow limit the wide gene kernel with its chunk reduction
-    (whose plain version is :func:`reference_likelihood_vjp`'s).
+    (whose plain version is :func:`reference_likelihood_vjp`'s), or for
+    float64 operands ``gene_f64_kernel`` with ``reduce_chunks_f64_kernel``
+    (the same plain version; :func:`f64_plan`'s ``gene_workspace``).
     Returns (dW, dlog_mu or None, dmuL)."""
-    global gene_launches, gene_wide_launches
+    global gene_launches, gene_wide_launches, gene_f64_launches
     from . import _build
 
     n_a2 = 0 if dA2 is None else dA2.shape[1]
-    _check("Y", Y, Y.shape, tuple(Y_DTYPES))
+    dt = _compute_dtype(psi_ext)
+    y_codes = Y_DTYPES_F64 if dt == torch.float64 else Y_DTYPES
+    _check("Y", Y, Y.shape, tuple(y_codes))
     (N, G), Kf, SC = Y.shape, psi_ext.shape[1], muL.shape[1]
     _check_sizes(N, G, Kf, SC, n_a2)
-    _check("psi_ext", psi_ext, (N, Kf))
-    _check("W_ext", W_ext, (G, Kf))
-    _check("muL", muL, (G, SC))
-    _check("dA1", dA1, (N,))
-    _check("dZ", dZ, (N, SC))
+    _check("psi_ext", psi_ext, (N, Kf), (dt,))
+    _check("W_ext", W_ext, (G, Kf), (dt,))
+    _check("muL", muL, (G, SC), (dt,))
+    _check("dA1", dA1, (N,), (dt,))
+    _check("dZ", dZ, (N, SC), (dt,))
     if dA2 is not None:
-        _check("dA2", dA2, (N, n_a2))
+        _check("dA2", dA2, (N, n_a2), (dt,))
     lib = _build.load()
-    rows = _chunk_rows(N)
     F = Kf + SC + n_a2
+    if dt == torch.float64:
+        plan = f64_plan(N, G, Kf, n_a2, SC)
+        scratch = torch.empty(plan["part"], device=Y.device, dtype=dt)
+        dgene = torch.empty(F, G, device=Y.device, dtype=dt)
+        stream = ctypes.c_void_p(torch.cuda.current_stream(Y.device).cuda_stream)
+        _raise_on(lib.fl64_backward_gene(
+            _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2), _ptr(dZ),
+            _ptr(scratch), _ptr(dgene), _plan_arg(plan, F64_PLAN_KEYS), N, G, Kf, n_a2, SC,
+            y_codes[Y.dtype], stream), "fused likelihood backward (gene, float64)")
+        gene_f64_launches += 1
+        return dgene[:Kf].T, None if dA2 is None else dgene[Kf + SC:], dgene[Kf:Kf + SC].T
+    rows = _chunk_rows(N)
     wide = wide_route(Kf, n_a2, SC)
     plan = wide_plan(N, G, Kf, n_a2, SC, rows=rows) if wide else None
     size = (plan["gene_workspace"] - F * G if wide

@@ -84,7 +84,10 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     ``fused_likelihood.wide_plan``) the wide forward's packed gene table
     (every forward, z_cheb's too), and with the exact backward the wide
     dpsi's packed gene table and the wide gene part's workspace in place of
-    the narrow one's.
+    the narrow one's. In float64 (``itemsize`` 8) the float64 family runs at
+    every width: with the exact backward its gene part's partial sums and
+    sums (``fused_likelihood.f64_plan``'s ``gene_workspace``, float64
+    values); its forward and dpsi take no workspace.
 
     The counts of the ELBO's tensors and of "map"'s held parameters are the
     code's order fitted to the card's peaks (``chip_smoke.inference_peaks``;
@@ -106,7 +109,10 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
                                                           _MAP_HELD * n_lanes * n_par)
     shared = N * P + (N * C if allele else 0) + (_OP_SCN * N * S * C if live else 0)
     workspace = 0
-    if device_type == "cuda":
+    if device_type == "cuda" and itemsize == 8:
+        if not z_cheb:
+            workspace += 8 * fl.f64_plan(N, G, Kf, 0, S * C)["gene_workspace"]
+    elif device_type == "cuda":
         if fl.wide_route(Kf, S, S * C):
             workspace += 4 * fl.wide_plan(N, G, Kf, S, S * C)["fwd_workspace"]
         if not z_cheb and fl.wide_route(Kf, 0, S * C):

@@ -14,7 +14,8 @@ restores the previous setting afterwards. The likelihood kernels themselves
 run their products with the exp on tensor cores as three TF32 products of
 split operands (3xTF32, hi*hi + hi*lo + lo*hi), summed outside the tensor
 cores, which keeps float32 accuracy; their sums over Y are float32 on CUDA
-cores.
+cores. A float64 fit runs every product in float64 (TF32 touches float32
+only), its likelihood in the float64 kernel family.
 """
 
 from __future__ import annotations
@@ -48,17 +49,14 @@ def resolve_device(device) -> torch.device:
 
 
 def resolve_dtype(dtype: str, device: torch.device) -> torch.dtype:
-    """The compute dtype. float64 runs on the CPU only: the CUDA kernels are
-    float32."""
+    """The compute dtype, on either device: on CUDA float32 runs the
+    float32 likelihood kernels and float64 their float64 family
+    (``ops/csrc/fused_likelihood_f64.cu``). ``device`` is taken for the
+    entry points' one call shape."""
+    del device
     dt = {"float32": torch.float32, "float64": torch.float64}.get(dtype)
     if dt is None:
         raise ValueError(f"dtype must be 'float32' or 'float64', got {dtype!r}")
-    if dt == torch.float64 and device.type == "cuda":
-        raise NotImplementedError(
-            "dtype='float64' on CUDA is not ported to clonealign_torch yet: the "
-            "likelihood kernels are float32 (ROADMAP.md, still to port: "
-            "float64 on CUDA)"
-        )
     return dt
 
 

@@ -129,8 +129,11 @@ def build(names):
             f.write(text)
         paths[name] = (cu, os.path.abspath(os.path.join(OUT, f"{name}.so")))
     with ThreadPoolExecutor(len(names)) as pool:
-        logs = dict(zip(names, pool.map(lambda n: _build.compile_library([paths[n][0]], paths[n][1]),
-                                        names)))
+        # each variant of the float32 source beside the float64 family's
+        # source, so that the library has every entry point the package declares
+        logs = dict(zip(names, pool.map(
+            lambda n: _build.compile_library([paths[n][0], *_build.SOURCES[1:]], paths[n][1]),
+            names)))
     libs = {}
     for name in names:
         target = VARIANTS[name][0]

@@ -254,9 +254,12 @@ def test_options_outside_the_slice_raise(option):
         ct.run_clonealign(Y, L, device="cpu", verbose=False, **option)
 
 
-def test_float64_on_cuda_is_refused():
-    with pytest.raises(NotImplementedError, match="float32"):
-        resolve_dtype("float64", torch.device("cuda"))
+def test_float64_on_cuda_resolves():
+    """float64 runs on the card through the float64 kernel family."""
+    assert resolve_dtype("float64", torch.device("cuda")) == torch.float64
+    assert resolve_dtype("float32", torch.device("cuda")) == torch.float32
+    with pytest.raises(ValueError, match="dtype"):
+        resolve_dtype("float16", torch.device("cuda"))
 
 
 def test_reference_keywords():
