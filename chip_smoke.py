@@ -495,8 +495,9 @@ def tc_kernels(fl):
     built tile counts (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``,
     ``fl.WIDE_DPSI_K_COUNTS`` x ``fl.WIDE_DPSI_Z_COUNTS``), and their
     packing kernels (no templates); and the float64 family's
-    fwd_f64_kernel<YT> and gene_f64_kernel<YT> (4 each), dpsi_f64_kernel
-    and reduce_chunks_f64_kernel."""
+    fwd_f64_kernel<YT, NT> (28: ``fl.F64_FWD_TILE_COUNTS``) and
+    gene_f64_kernel<YT, NT, NK> (40: ``fl.F64_GENE_TILE_COUNTS``), their
+    packing kernels, dpsi_f64_kernel and reduce_chunks_f64_kernel."""
     return {
         "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
                        for t in (1, 2, 4) for a in (0, 1)},
@@ -511,9 +512,12 @@ def tc_kernels(fl):
         "dpsi_wide_pack_kernel": {"<>"},
         "gene_wide_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_TILE_COUNTS},
         "gene_wide_pack_kernel": {"<>"},
-        "fwd_f64_kernel": {f"<{y}>" for y in range(4)},
+        "fwd_f64_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.F64_FWD_TILE_COUNTS},
+        "fwd_f64_pack_kernel": {"<>"},
         "dpsi_f64_kernel": {"<>"},
-        "gene_f64_kernel": {f"<{y}>" for y in range(4)},
+        "gene_f64_pack_kernel": {"<>"},
+        "gene_f64_kernel": {f"<{y},{t},{k}>" for y in range(4)
+                            for k, counts in fl.F64_GENE_TILE_COUNTS.items() for t in counts},
         "reduce_chunks_f64_kernel": {"<>"},
     }
 
@@ -2044,6 +2048,13 @@ F64_CHECKS = ([(SMALL, 1, Kf) for Kf in (1, 3, 4)] + [(VEC, 1, Kf) for Kf in (2,
 # and 80), Y as "auto" stores it (int8) and as float64
 F64_FULL = ((1, 1), (5, 1), (1, 8), (5, 8))
 F64_FULL_STORAGES = ("int8", "float64")
+# PR 17's kernels at those widths (forward, dpsi, gene part ms; chip_smoke.py
+# on an H100 80GB HBM3 at 700 W, PERF.md; None where not timed), printed
+# beside this run's
+F64_PR17_MS = {("int8", 1, 1): (2.857, 1.884, 3.541), ("int8", 5, 1): (3.594, 2.576, 4.288),
+               ("int8", 1, 8): (10.53, 8.744, 15.41), ("int8", 5, 8): (11.74, 10.28, 18.76),
+               ("float64", 1, 1): (3.287, 1.890, 3.025), ("float64", 5, 1): None,
+               ("float64", 1, 8): None, ("float64", 5, 8): (12.33, 10.30, 18.43)}
 # the float64 sweep: three restarts, "vmap" and "map"
 F64_LANES = dict(initial_shrinks=(5,), n_repeats=3, max_iter=100, elbo_eval="reuse")
 # the golden fits in float64 (rel_tol 0: every fit runs GOLDEN_MAX_ITER
@@ -2085,6 +2096,54 @@ def exp_fp64_instructions():
     fp64 = [o for o in ops if re.match(r"D(FMA|ADD|MUL|SETP|MNMX)", o)
             or (re.match(r"(F2F|F2I|I2F)", o) and "F64" in o)]
     return len(fp64), fp64
+
+
+def dmma_instantiations(kernels=("fwd_f64_kernel", "gene_f64_kernel")):
+    """The FP64 MMA instructions (DMMA) in the SASS of each instantiation of
+    the built library's ``kernels``, by kernel and template arguments (as
+    :func:`kernel_resources` keys them), counted by cuobjdump -sass."""
+    import os
+
+    from clonealign_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())], check=True,
+                          capture_output=True, text=True).stdout
+    found, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = None
+            for kernel in kernels:
+                f = re.search(r"\d" + kernel + r"(?:I((?:L[ib]\d+E)+)E|E)", m.group(1))
+                if f:
+                    key = (kernel, "<" + ",".join(re.findall(r"L[ib](\d+)E", f.group(1) or ""))
+                           + ">")
+                    found[key] = 0
+            continue
+        if key and re.search(r"\bDMMA\b", line):
+            found[key] += 1
+    return found
+
+
+def check_f64_sass(build_log, fl):
+    """Every fwd_f64_kernel and gene_f64_kernel instantiation holds FP64 MMA
+    (DMMA) instructions in its SASS and spills no register (ptxas's
+    report); raises otherwise. Returns the DMMA counts."""
+    want = tc_kernels(fl)
+    dmma = dmma_instantiations()
+    for kernel in ("fwd_f64_kernel", "gene_f64_kernel"):
+        counts = {k: n for (name, k), n in dmma.items() if name == kernel}
+        res = kernel_resources(build_log, kernel)
+        log(f"{kernel}: DMMA instructions by instantiation "
+            + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
+        if set(counts) != want[kernel] or min(counts.values()) < 1:
+            raise AssertionError(f"{kernel}: instantiations without DMMA or missing from the "
+                                 f"SASS: {sorted(k for k in want[kernel] if not counts.get(k))}")
+        spilled = [k for k, (_, st, ld) in res.items() if st or ld]
+        if set(res) != want[kernel] or spilled:
+            raise AssertionError(f"{kernel}: spills in {spilled} or missing from ptxas's report")
+    return dmma
 
 
 def bound_f64(y_bytes, vec_doubles, mma_flops, fp64_flops, exps, exp_ops):
@@ -2446,10 +2505,13 @@ def float64_phase(clonealign_torch, fl, auto_name, y_itemsize):
     fit (equal to the in-core one), timed by host clocks before anything
     else runs beside them; then, while the CPU's reference fits run in a
     child process (:func:`start_cpu_references_f64`), the kernels' ptxas
-    report and an exp's FP64 instructions, each kernel against its plain
+    report, the DMMA and spill check of the forward's and the gene part's
+    instantiations (:func:`check_f64_sass`) and an exp's FP64
+    instructions, each kernel against its plain
     float64 version at every Y storage at F64_CHECKS's shapes and
     bit-identical across launches, timed at full width (F64_FULL x
-    F64_FULL_STORAGES, CUDA events) beside its float64 bound, and the golden
+    F64_FULL_STORAGES, CUDA events) beside its float64 bound and PR 17's
+    time (``F64_PR17_MS``), and the golden
     example and synth fits and the v1 family against the CPU's. Every
     launch of these paths is a float64 one. ``auto_name`` and
     ``y_itemsize`` name the storage "auto" resolves to. Returns the numbers
@@ -2508,11 +2570,12 @@ def float64_kernels(fl):
     exp_ops, opcodes = exp_fp64_instructions()
     log(f"float64 phase: one double exp() is {exp_ops} FP64 instructions in the built SASS "
         f"({', '.join(opcodes)})")
-    for kernel in ("fwd_f64_kernel", "dpsi_f64_kernel", "gene_f64_kernel",
-                   "reduce_chunks_f64_kernel"):
+    for kernel in ("fwd_f64_pack_kernel", "fwd_f64_kernel", "dpsi_f64_kernel",
+                   "gene_f64_pack_kernel", "gene_f64_kernel", "reduce_chunks_f64_kernel"):
         res = kernel_resources(_build.build_log, kernel)
         log(f"{kernel} ptxas: " + "; ".join(f"{k} {r} registers, {st}/{ld} B spill stores/loads"
                                              for k, (r, st, ld) in sorted(res.items())))
+    check_f64_sass(_build.build_log, fl)
     log(f"float64 kernels vs plain (tolerance: F64_RTOL={F64_RTOL:g} of the per-element "
         "absolute-term sum; each kernel launched twice, bit-identical)")
     for storage in F64_STORAGES:
@@ -2523,13 +2586,15 @@ def float64_kernels(fl):
             for st in F64_FULL_STORAGES for Kf, S in F64_FULL}
     for (st, Kf, S), r in full.items():
         r["resources"] = f64_resources(fl, st, Kf, 0, S * FULL["C"], FULL["N"], FULL["G"])
+        pr17 = F64_PR17_MS[(st, Kf, S)] or (None,) * 3
         line = ", ".join(
-            f"{part} {r[f'{part}_ms']:.3f} ms (plain {r[f'{part}_plain_ms']:.3f}, bound "
+            f"{part} {r[f'{part}_ms']:.3f} ms (PR 17 {'not timed' if old is None else old}, "
+            f"plain {r[f'{part}_plain_ms']:.3f}, bound "
             f"{r['bounds'][part][0]:.3f} by {r['bounds'][part][2]}, "
             f"{r['bounds'][part][0] / r[f'{part}_ms']:.3f} of it; "
             f"{r['resources'][part]['smem_bytes']} B shared memory, "
             f"{r['resources'][part]['blocks_per_sm']} blocks an SM)"
-            for part in ("fwd", "dpsi", "gene"))
+            for part, old in zip(("fwd", "dpsi", "gene"), pr17))
         log(f"float64, full width, Y {st}, Kf={Kf} S*C={S * FULL['C']}: {line}")
     bound_res = f64_resources(fl, "float64", 64, 64, 2048, FULL["N"], FULL["G"])
     log(f"float64, full width, every bound (Kf 64, S 64, S*C 2048): {bound_res}")

@@ -129,7 +129,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fl_backward_dpsi_wide.restype = i
     lib.fl_backward_gene_wide.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.fl_backward_gene_wide.restype = i
-    lib.fl64_forward.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.fl64_forward.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.fl64_forward.restype = i
     lib.fl64_backward_dpsi.argtypes = [p] * 8 + [i] * 4 + [p]
     lib.fl64_backward_dpsi.restype = i

@@ -33,10 +33,12 @@ are the wide family's too.
 
 Float64 operands (``dtype="float64"`` fits, the oracle configuration) go
 to a family of their own, ``csrc/fused_likelihood_f64.cu``: the forward
-(``fwd_f64_kernel``), the Y-free dpsi kernel (``dpsi_f64_kernel``) and the
-gene part (``gene_f64_kernel`` with ``reduce_chunks_f64_kernel``), float64
-throughout on the CUDA cores, one family for every width up to the wide
-bound (no narrow/wide split), counted apart in ``*_f64_launches``.
+(``fwd_f64_pack_kernel`` + ``fwd_f64_kernel``), the Y-free dpsi kernel
+(``dpsi_f64_kernel``) and the gene part (``gene_f64_pack_kernel`` +
+``gene_f64_kernel`` + ``reduce_chunks_f64_kernel``), float64 throughout:
+the forward's and the gene part's products on the FP64 tensor cores, the
+exps and dpsi on the CUDA cores; one family for every width up to the
+wide bound (no narrow/wide split), counted apart in ``*_f64_launches``.
 :func:`f64_plan` gives their launch geometry and workspace, which the C
 entry points take and check. Nothing on that path runs in float32.
 
@@ -92,19 +94,27 @@ Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
 # means the compute dtype (api._Y_STORAGE), so a float64 fit stores Y as
 # float64 there; code 0 is that compute dtype.
 Y_DTYPES_F64 = {torch.float64: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
-# The float64 family's geometry (the .cu's kCells, kGenes, kGeneLanes,
-# kCellStage): cells (lanes) a forward or dpsi block, genes a stage of
-# theirs, genes (lanes) a gene-part block, cells a stage of it; the most
-# columns a forward group, a dpsi dZ group and a gene-part pass take (the
-# .cu's kFwdCols, kDpsiCols, kGeneCols); the most dynamic shared memory a
-# block may take on the card.
+# The float64 family's geometry. dpsi_f64_kernel (the .cu's kCells,
+# kGenes, kDpsiCols): cells (lanes) a block, genes a stage, the most dZ
+# columns a group. fwd_f64_kernel and gene_f64_kernel (kFwdWarps,
+# kFwdGenes, kGeneWarps, kGeneCells): warps of 16 cell (gene) rows a block,
+# genes (cells) a stage; their columns count in tiles of 8, and the tile
+# counts they are built for (kFwdTileCounts; kGeneKCounts, dW's tiles a
+# pass, and beside each the counts of kGeneTileCounts); the bytes of Y a
+# stage takes at the widest storage (float64); the most dynamic shared
+# memory a block may take on the card.
 F64_CELLS = 128
 F64_GENES = 32
-F64_GENE_LANES = 64
-F64_CELL_STAGE = 32
-F64_FWD_COLS = 32
 F64_DPSI_COLS = 64
-F64_GENE_COLS = 32
+F64_FWD_WARPS = 4
+F64_FWD_GENES = 32
+F64_GENE_WARPS = 4
+F64_GENE_CELLS = 32
+F64_FWD_TILE_COUNTS = (1, 2, 3, 4, 6, 8, 12)
+F64_GENE_K_COUNTS = (1, 2, 8)
+F64_GENE_TILE_COUNTS = {1: (1, 2, 3, 4, 5), 2: (1, 2, 4), 8: (1, 2)}
+F64_FWD_Y_STAGE_BYTES = 20_480
+F64_GENE_Y_STAGE_BYTES = 16_896
 F64_MAX_SMEM = 232_448
 
 # Kernel launches, each counted by the wrapper that launches the kernel:
@@ -343,8 +353,28 @@ def _plan_arg(plan: dict, keys=WIDE_PLAN_KEYS):
 
 
 # f64_plan's numbers, in the order the C entry points take them.
-F64_PLAN_KEYS = ("f_cols", "f_groups", "f_blocks", "f_smem", "d_cols", "d_groups", "d_blocks",
-                 "d_smem", "g_cols", "g_passes", "g_blocks", "rows", "n_chunks", "g_smem", "part")
+F64_PLAN_KEYS = ("f_yt", "f_tiles", "f_count", "f_nt", "f_groups", "f_blocks", "f_smem",
+                 "d_cols", "d_groups", "d_blocks", "d_smem",
+                 "g_st", "g_tiles", "g_nk", "g_count", "g_nt", "g_passes", "g_blocks", "rows",
+                 "n_chunks", "g_smem", "part", "f_table", "g_table")
+
+
+def f64_fwd_smem(Kf: int, nt: int) -> int:
+    """fwd_f64_kernel's dynamic shared memory in bytes: its warps' psi rows,
+    and two stages, each the B fragments of nt tiles and W for 32 genes and
+    the warps' Y rows (float64's room)."""
+    return (8 * (F64_FWD_WARPS * 16 * Kf + 2 * (F64_FWD_GENES * (8 * nt + Kf)))
+            + 2 * F64_FWD_Y_STAGE_BYTES)
+
+
+def f64_gene_smem(Kf: int, nt: int, nk: int) -> int:
+    """gene_f64_kernel's dynamic shared memory in bytes: its warps' W rows,
+    and two stages, each for 32 cells the B fragments of drfe's and the
+    pass's nt tiles (64 doubles each), of dW's nk tiles, psi for log_rfe and
+    dA1, and the block's Y (float64's room)."""
+    return (8 * (F64_GENE_WARPS * 16 * Kf
+                 + 2 * (F64_GENE_CELLS * (16 * nt + 8 * nk + Kf) + F64_GENE_CELLS))
+            + 2 * F64_GENE_Y_STAGE_BYTES)
 
 
 def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
@@ -353,37 +383,62 @@ def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     decided. The C entry points take its ``F64_PLAN_KEYS``
     (``_plan_arg(plan, F64_PLAN_KEYS)``) and check that they fit the sizes.
 
-    Forward: the output columns ``[YW | A2 | Z]`` (Kf + n_a2 + SC) split
-    evenly into ``f_groups`` column groups (grid.y) of ``f_cols`` <=
-    ``F64_FWD_COLS``, each recomputing the exps it needs, over ``f_blocks``
-    blocks of ``F64_CELLS`` cells. dpsi: dZ's SC columns in ``d_groups``
-    groups of ``d_cols`` <= ``F64_DPSI_COLS``, one after another in a block.
-    Gene part: d(muL)'s SC columns in ``g_passes`` passes of ``g_cols`` <=
-    ``F64_GENE_COLS``, ``g_blocks`` blocks of ``F64_GENE_LANES`` genes by
-    ``n_chunks`` chunks (grid.y) of ``rows`` cells (:func:`_chunk_rows`).
-    ``f_smem``, ``d_smem`` and ``g_smem`` are each kernel's dynamic shared
-    memory in bytes: per-lane slots of the row's vectors (psi or W, the
-    sums, dZ's or muL's columns) and a stage of the walked axis' tables.
+    Columns count in tiles of 8 (the FP64 MMA's n). Forward: ``f_yt`` tiles
+    of the Y products ``[Y W | Y log mu^T]`` then Z's, ``f_tiles`` in all,
+    split evenly into ``f_groups`` column groups (grid.y) of ``f_count``
+    tiles, each group's accumulators the built count ``f_nt``
+    (``F64_FWD_TILE_COUNTS``, at most 12) and each group recomputing the
+    exps it needs; ``f_blocks`` blocks of ``F64_FWD_WARPS`` x 16 cells. dpsi:
+    dZ's SC columns in ``d_groups`` groups of ``d_cols`` <= ``F64_DPSI_COLS``,
+    one after another in a block. Gene part: ``g_st`` tiles of dlog mu then
+    d(muL)'s, ``g_tiles`` in all, split evenly into ``g_passes`` passes of
+    ``g_count`` tiles (the built count ``g_nt``), beside dW's ``g_nk`` tiles
+    (``F64_GENE_K_COUNTS``; ``F64_GENE_TILE_COUNTS[g_nk]`` the pass's counts,
+    so that the registers hold them); ``g_blocks`` blocks of
+    ``F64_GENE_WARPS`` x 16 genes by ``n_chunks`` chunks (grid.y) of ``rows``
+    cells (:func:`_chunk_rows`). ``f_smem``, ``d_smem`` and ``g_smem`` are
+    each kernel's dynamic shared memory in bytes (:func:`f64_fwd_smem`,
+    :func:`f64_gene_smem`).
 
-    Workspace, in float64 values (the forward and dpsi kernels take none):
-    ``part``, the gene part's partial sums (n_chunks x (Kf + SC + n_a2) x
-    G); ``gene_workspace``, what :func:`kernel_gene` allocates, the partial
-    sums and its (Kf + SC + n_a2, G) output."""
+    Workspace, in float64 values (dpsi takes none): ``f_table``, the
+    forward's gene side packed once a call in the order its stages take it
+    (``fwd_f64_pack_kernel``: each stage's B fragments of every tile and W
+    for log_rfe), which is ``fwd_workspace``; ``part``, the gene part's
+    partial sums (n_chunks x (Kf + SC + n_a2) x G, rounded up to even so
+    that the table after them is 16-byte aligned), and ``g_table``, its
+    cell side packed likewise (``gene_f64_pack_kernel``: each 32-cell
+    stage's B fragments of drfe, of every tile and of dW, psi for log_rfe
+    and dA1); ``gene_workspace``, what :func:`kernel_gene` allocates: the
+    partial sums, the table and its (Kf + SC + n_a2, G) output."""
     F = Kf + n_a2 + SC
-    f_groups, d_groups = _cdiv(F, F64_FWD_COLS), _cdiv(SC, F64_DPSI_COLS)
-    g_passes = _cdiv(SC, F64_GENE_COLS)
-    f_cols, d_cols, g_cols = _cdiv(F, f_groups), _cdiv(SC, d_groups), _cdiv(SC, g_passes)
+    f_yt = _cdiv(Kf + n_a2, 8)
+    f_tiles = f_yt + _cdiv(SC, 8)
+    f_groups = _cdiv(f_tiles, F64_FWD_TILE_COUNTS[-1])
+    f_count = _cdiv(f_tiles, f_groups)
+    f_nt = _at_least(F64_FWD_TILE_COUNTS, f_count)
+    d_groups = _cdiv(SC, F64_DPSI_COLS)
+    d_cols = _cdiv(SC, d_groups)
+    g_st = _cdiv(n_a2, 8)
+    g_tiles = g_st + _cdiv(SC, 8)
+    g_nk = _at_least(F64_GENE_K_COUNTS, max(1, _cdiv(Kf, 8)))
+    counts = F64_GENE_TILE_COUNTS[g_nk]
+    g_passes = _cdiv(g_tiles, counts[-1])
+    g_count = _cdiv(g_tiles, g_passes)
+    g_nt = _at_least(counts, g_count)
     rows = _chunk_rows(N)
     n_chunks = _cdiv(N, rows)
     plan = dict(zip(F64_PLAN_KEYS, (
-        f_cols, f_groups, _cdiv(N, F64_CELLS), 8 * (Kf + f_cols) * (F64_CELLS + F64_GENES),
+        f_yt, f_tiles, f_count, f_nt, f_groups, _cdiv(N, 16 * F64_FWD_WARPS),
+        f64_fwd_smem(Kf, f_nt),
         d_cols, d_groups, _cdiv(N, F64_CELLS),
         8 * ((2 * Kf + d_cols) * F64_CELLS + (Kf + d_cols) * F64_GENES),
-        g_cols, g_passes, _cdiv(G, F64_GENE_LANES), rows, n_chunks,
-        8 * ((2 * Kf + n_a2 + 2 * g_cols) * F64_GENE_LANES
-             + (Kf + g_cols + 1 + n_a2) * F64_CELL_STAGE),
-        n_chunks * F * G)))
-    plan["gene_workspace"] = plan["part"] + F * G
+        g_st, g_tiles, g_nk, g_count, g_nt, g_passes, _cdiv(G, 16 * F64_GENE_WARPS), rows,
+        n_chunks, f64_gene_smem(Kf, g_nt, g_nk), 2 * _cdiv(n_chunks * F * G, 2),
+        2 * _cdiv(G, F64_FWD_GENES) * 4 * (32 * f_tiles + 4 * Kf),
+        2 * _cdiv(N, F64_GENE_CELLS) * (4 * (32 * (2 * g_tiles + g_nk) + 4 * Kf)
+                                        + F64_GENE_CELLS // 2))))
+    plan["fwd_workspace"] = plan["f_table"]
+    plan["gene_workspace"] = plan["part"] + plan["g_table"] + F * G
     return plan
 
 
@@ -431,8 +486,8 @@ def _raise_on(err: int, what: str):
 
 def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     """Launch the forward kernel, or the wide one past a narrow limit
-    (:func:`wide_route`), or for float64 operands ``fwd_f64_kernel``
-    (:func:`f64_plan`). Returns (A1, A2 or None, Z, YW) in the compute
+    (:func:`wide_route`), or for float64 operands ``fwd_f64_pack_kernel``
+    and ``fwd_f64_kernel`` (:func:`f64_plan`, its ``fwd_workspace``). Returns (A1, A2 or None, Z, YW) in the compute
     dtype, with ``YW = Y @ W_ext`` (N, Kf) for the backward's dpsi kernel."""
     global fwd_launches, fwd_wide_launches, fwd_f64_launches
     from . import _build
@@ -458,8 +513,10 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
             _ptr(A1), _ptr(A2), _ptr(Z), _ptr(YW))
     sizes = (N, G, Kf, n_a2, SC, y_codes[Y.dtype], stream)
     if dt == torch.float64:
-        plan = _plan_arg(f64_plan(N, G, Kf, n_a2, SC), F64_PLAN_KEYS)
-        _raise_on(lib.fl64_forward(*args, plan, *sizes), "fused likelihood forward (float64)")
+        plan = f64_plan(N, G, Kf, n_a2, SC)
+        table = torch.empty(plan["fwd_workspace"], device=Y.device, dtype=dt)
+        _raise_on(lib.fl64_forward(*args, _ptr(table), _plan_arg(plan, F64_PLAN_KEYS), *sizes),
+                  "fused likelihood forward (float64)")
         fwd_f64_launches += 1
         return A1, A2, Z, YW
     wide = wide_route(Kf, n_a2, SC)
@@ -529,8 +586,9 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     :func:`kernel_backward`; :func:`reference_gene` is its plain version),
     or past a narrow limit the wide gene kernel with its chunk reduction
     (whose plain version is :func:`reference_likelihood_vjp`'s), or for
-    float64 operands ``gene_f64_kernel`` with ``reduce_chunks_f64_kernel``
-    (the same plain version; :func:`f64_plan`'s ``gene_workspace``).
+    float64 operands ``gene_f64_pack_kernel``, ``gene_f64_kernel`` and
+    ``reduce_chunks_f64_kernel`` (the same plain version; :func:`f64_plan`'s
+    ``gene_workspace``).
     Returns (dW, dlog_mu or None, dmuL)."""
     global gene_launches, gene_wide_launches, gene_f64_launches
     from . import _build
@@ -552,7 +610,7 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     F = Kf + SC + n_a2
     if dt == torch.float64:
         plan = f64_plan(N, G, Kf, n_a2, SC)
-        scratch = torch.empty(plan["part"], device=Y.device, dtype=dt)
+        scratch = torch.empty(plan["part"] + plan["g_table"], device=Y.device, dtype=dt)
         dgene = torch.empty(F, G, device=Y.device, dtype=dt)
         stream = ctypes.c_void_p(torch.cuda.current_stream(Y.device).cuda_stream)
         _raise_on(lib.fl64_backward_gene(

@@ -85,9 +85,10 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     (every forward, z_cheb's too), and with the exact backward the wide
     dpsi's packed gene table and the wide gene part's workspace in place of
     the narrow one's. In float64 (``itemsize`` 8) the float64 family runs at
-    every width: with the exact backward its gene part's partial sums and
-    sums (``fused_likelihood.f64_plan``'s ``gene_workspace``, float64
-    values); its forward and dpsi take no workspace.
+    every width: its forward's packed gene table (``fwd_workspace``, every
+    forward) and with the exact backward its gene part's partial sums,
+    packed cell table and sums (``fused_likelihood.f64_plan``'s
+    ``gene_workspace``), float64 values; dpsi takes no workspace.
 
     The counts of the ELBO's tensors and of "map"'s held parameters are the
     code's order fitted to the card's peaks (``chip_smoke.inference_peaks``;
@@ -110,8 +111,10 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     shared = N * P + (N * C if allele else 0) + (_OP_SCN * N * S * C if live else 0)
     workspace = 0
     if device_type == "cuda" and itemsize == 8:
+        plan = fl.f64_plan(N, G, Kf, 0, S * C)
+        workspace += 8 * plan["fwd_workspace"]
         if not z_cheb:
-            workspace += 8 * fl.f64_plan(N, G, Kf, 0, S * C)["gene_workspace"]
+            workspace += 8 * plan["gene_workspace"]
     elif device_type == "cuda":
         if fl.wide_route(Kf, S, S * C):
             workspace += 4 * fl.wide_plan(N, G, Kf, S, S * C)["fwd_workspace"]

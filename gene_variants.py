@@ -29,6 +29,17 @@ package's wrappers with the variant's library in place of the package's.
   could gain). Timed at the full width of the fit with Y int8, A2 off,
   C = 10 and (Kf, S) each of ``WIDE_CONFIGS``, in turns, twice.
 
+* ``fwd_f64`` and ``gene_f64``, the float64 family's forward and gene
+  part (``clonealign_torch/ops/csrc/fused_likelihood_f64.cu``, the variant's
+  source in its place): ``f64_*_no_exp`` takes the double exp() out (rfe =
+  log_rfe), ``f64_*_no_mma`` the products on the FP64 tensor cores (the
+  forward's tiles; the gene part's d(muL), dlog mu and dW), ``f64_*_one_a``
+  issues each tile's MMA with one A operand where the kernels choose
+  between two by a predicate (Y's or rfe's), ``f64_gene_no_drfe`` takes
+  drfe's MMAs out. All are wrong by design and read as above. Timed at the
+  full width of the fit with float64 operands, Y int8, A2 off, C = 10 and
+  (Kf, S) each of ``F64_CONFIGS``, in turns, twice.
+
 Times are ``chip_smoke.cuda_ms``'s (packing, kernels and reduction). Needs
 an NVIDIA GPU and nvcc.
 """
@@ -68,6 +79,15 @@ DPSI_MMA = ("          mma_3xtf32(d, th, tl, b[(NK + NZ + kc) * kWarp]);\n"
 DPSI_EXP = "tv[e] = __expf(lr[e]) * dr[e];"
 DPSI_KS = "#pragma unroll 1\n      for (int ks = 0; ks < p.dsteps; ++ks) {\n"
 DPSI_BOUNDS = "__launch_bounds__(kDpsiWarps * kWarp, NK == 1 ? 3 : 2)"
+F64_EXP_FWD = "#pragma unroll\n        for (int e = 0; e < 4; ++e) rf[e] = exp(lr[e]);\n"
+F64_EXP_GENE = "          for (int e = 0; e < 4; ++e) rf[e] = exp(lr[e]);\n"
+F64_FWD_PAIR = ("        if (c < ny)\n          dmma(acc[c], y, b);\n        else if (c < nt)\n"
+                "          dmma(acc[c], rf, b);\n")
+F64_GENE_PAIR = ("          if (c < ns)\n            dmma(acc[c], ya, b);\n          else if (c < nt)\n"
+                 "            dmma(acc[c], ra, b);\n")
+F64_GENE_DW = ("#pragma unroll\n"
+               "          for (int kt = 0; kt < NK; ++kt) dmma(dw[kt], da, bk[(ct * NK + kt) * kWarp + lane]);\n")
+F64_GENE_DRFE = "          if (c >= ns && c < nt) dmma(dr, amu[c], bt[(ct * NT + c) * kWarp + lane]);\n"
 # name: (the kernel it is about, its replacements)
 VARIANTS = {
     "adopted": (None, []),
@@ -103,11 +123,22 @@ VARIANTS = {
     # variant: more registers, more overlap)
     "dpsi_pairs": ("dpsi_wide", [(DPSI_KS, "#pragma unroll 2\n      for (int ks = 0; ks < p.dsteps; ++ks) {\n"),
                                  (DPSI_BOUNDS, "__launch_bounds__(kDpsiWarps * kWarp, 2)")]),
+    "f64_fwd_no_exp": ("fwd_f64", [(F64_EXP_FWD, F64_EXP_FWD.replace("exp(lr[e])", "lr[e]"))]),
+    "f64_fwd_no_mma": ("fwd_f64", [(F64_FWD_PAIR, "")]),
+    "f64_fwd_one_a": ("fwd_f64", [(F64_FWD_PAIR, "        dmma(acc[c], rf, b);\n")]),
+    "f64_gene_no_exp": ("gene_f64", [(F64_EXP_GENE, F64_EXP_GENE.replace("exp(lr[e])", "lr[e]"))]),
+    "f64_gene_no_mma": ("gene_f64", [(F64_GENE_PAIR, ""), (F64_GENE_DW, "")]),
+    "f64_gene_one_a": ("gene_f64", [(F64_GENE_PAIR, "          dmma(acc[c], ra, b);\n")]),
+    "f64_gene_no_drfe": ("gene_f64", [(F64_GENE_DRFE, "          ;\n")]),
 }
 KERNELS = {"gene": ("gene_kernel",), "fwd_wide": ("fwd_wide_kernel",),
-           "dpsi_wide": ("dpsi_wide_kernel",), "gene_wide": ("gene_wide_kernel",)}
-# (Kf, S) of the wide variants' timing, C = 10
+           "dpsi_wide": ("dpsi_wide_kernel",), "gene_wide": ("gene_wide_kernel",),
+           "fwd_f64": ("fwd_f64_kernel",), "gene_f64": ("gene_f64_kernel",)}
+# the source each kernel's variants edit (_build.SOURCES' index)
+SOURCE_OF = {"fwd_f64": 1, "gene_f64": 1}
+# (Kf, S) of the wide and the float64 variants' timing, C = 10
 WIDE_CONFIGS = ((5, 8), (64, 8), (5, 1))
+F64_CONFIGS = ((1, 1), (1, 8))
 OUT = os.path.join("build", "gene_variants")
 
 
@@ -115,11 +146,11 @@ def build(names):
     """Each variant's library (all built at once), its entry points declared
     as the package's; prints the registers and spills of the kernels each
     variant is about (``adopted``: all of them)."""
-    src = open(_build.SOURCES[0]).read()
     os.makedirs(OUT, exist_ok=True)
     paths = {}
     for name in names:
-        text = src
+        index = SOURCE_OF.get(VARIANTS[name][0], 0)
+        text = open(_build.SOURCES[index]).read()
         for old, new in VARIANTS[name][1]:
             if old not in text:
                 raise SystemExit(f"{name}: the source no longer has {old!r}")
@@ -127,13 +158,14 @@ def build(names):
         cu = os.path.join(OUT, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        paths[name] = (cu, os.path.abspath(os.path.join(OUT, f"{name}.so")))
+        sources = [str(src) for src in _build.SOURCES]
+        sources[index] = cu
+        paths[name] = (sources, os.path.abspath(os.path.join(OUT, f"{name}.so")))
     with ThreadPoolExecutor(len(names)) as pool:
-        # each variant of the float32 source beside the float64 family's
-        # source, so that the library has every entry point the package declares
+        # the variant's source beside the package's other source, so that the
+        # library has every entry point the package declares
         logs = dict(zip(names, pool.map(
-            lambda n: _build.compile_library([paths[n][0], *_build.SOURCES[1:]], paths[n][1]),
-            names)))
+            lambda n: _build.compile_library(paths[n][0], paths[n][1]), names)))
     libs = {}
     for name in names:
         target = VARIANTS[name][0]
@@ -212,6 +244,24 @@ def wide_phase(fwd_libs, dpsi_libs, gene_libs):
         torch.cuda.empty_cache()
 
 
+def f64_phase(fwd_libs, gene_libs):
+    for Kf, S in F64_CONFIGS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(4)
+        x = {k: v.double() for k, v in kernel_inputs(gen, FULL["N"], FULL["G"], FULL["C"], S=S,
+                                                     Kf=Kf, device="cuda").items()}
+        Y = x["Y"].to(torch.int8)
+        label = f"float64, int8 Kf={Kf} S*C={S * FULL['C']}"
+        if fwd_libs:
+            in_turns(f"{label} fwd", fwd_libs, fl.kernel_forward,
+                     (Y, x["psi"], x["W"], None, x["muL"]), reps=5)
+        if gene_libs:
+            in_turns(f"{label} gene", gene_libs, fl.kernel_gene,
+                     (Y, x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"]), reps=5)
+        del x, Y
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("gene_variants: torch.cuda.is_available() is false", file=sys.stderr)
@@ -226,6 +276,8 @@ def main() -> int:
         gene_phase(about["gene"])
     wide_phase(*(about[t] if len(about[t]) > 1 or not sys.argv[1:] else {}
                  for t in ("fwd_wide", "dpsi_wide", "gene_wide")))
+    f64_phase(*(about[t] if len(about[t]) > 1 or not sys.argv[1:] else {}
+                for t in ("fwd_f64", "gene_f64")))
     return 0
 
 

@@ -113,35 +113,63 @@ def _groups(n, groups, cols):
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_f64_plan_covers_every_column_once_within_every_bound(shape):
-    """The forward's groups hold each column of [YW | A2 | Z] once, dpsi's
-    groups and the gene part's passes each of dZ's columns once, every group
-    non-empty and within its cap (one group wherever the cap allows); the
-    blocks cover the cells and genes, the chunks are whole gene-part stages
-    that cover the cells with grid.y within 65,535; each kernel's shared
-    memory is its layout's and within the card's; the workspace is the
-    partial sums of every chunk beside the output."""
+    """The forward's column groups hold each 8-column tile of [YW | A2 | Z]
+    once (the Y products' tiles first), the gene part's passes each tile of
+    [dlog mu | d(muL)] once, dpsi's groups each of dZ's columns once; every
+    group or pass non-empty, within its built tile count (the least built
+    count that holds it; the gene part's beside dW's tiles, which hold
+    every column of [psi, X]) and one group or pass wherever the largest
+    count allows; the blocks cover the cells and genes, the chunks are whole
+    gene-part stages that cover the cells with grid.y within 65,535; each
+    kernel's shared memory is its layout's and within the card's; the
+    workspace is the packed tables, and the partial sums of every chunk
+    beside the output."""
     N, G, Kf, n_a2, SC = shape
     p = tfl.f64_plan(N, G, Kf, n_a2, SC)
     F = Kf + n_a2 + SC
-    for n, groups, cols, cap in ((F, p["f_groups"], p["f_cols"], tfl.F64_FWD_COLS),
-                                 (SC, p["d_groups"], p["d_cols"], tfl.F64_DPSI_COLS),
-                                 (SC, p["g_passes"], p["g_cols"], tfl.F64_GENE_COLS)):
+    assert p["f_yt"] == -(-(Kf + n_a2) // 8) and p["f_tiles"] == p["f_yt"] + -(-SC // 8)
+    assert p["g_st"] == -(-n_a2 // 8) and p["g_tiles"] == p["g_st"] + -(-SC // 8)
+    assert 8 * p["g_nk"] >= Kf and p["g_nk"] in tfl.F64_GENE_K_COUNTS
+    assert p["g_nk"] == min(k for k in tfl.F64_GENE_K_COUNTS if 8 * k >= max(Kf, 1))
+    gene_counts = tfl.F64_GENE_TILE_COUNTS[p["g_nk"]]
+    for n, groups, cols, nt, counts in (
+            (p["f_tiles"], p["f_groups"], p["f_count"], p["f_nt"], tfl.F64_FWD_TILE_COUNTS),
+            (p["g_tiles"], p["g_passes"], p["g_count"], p["g_nt"], gene_counts),
+            (SC, p["d_groups"], p["d_cols"], None, None)):
         split = _groups(n, groups, cols)
         assert sum(split, []) == list(range(n))
-        assert all(split) and cols <= cap and (groups == 1) == (n <= cap)
-    assert p["f_blocks"] * tfl.F64_CELLS >= N > (p["f_blocks"] - 1) * tfl.F64_CELLS
-    assert p["d_blocks"] == p["f_blocks"]
-    assert p["g_blocks"] * tfl.F64_GENE_LANES >= G > (p["g_blocks"] - 1) * tfl.F64_GENE_LANES
-    assert p["rows"] % tfl.F64_CELL_STAGE == 0 and p["rows"] >= 1024
+        if counts is None:
+            assert all(split) and cols <= tfl.F64_DPSI_COLS
+            assert (groups == 1) == (n <= tfl.F64_DPSI_COLS)
+            continue
+        assert all(split) and cols <= nt and nt == min(c for c in counts if c >= cols)
+        assert (groups == 1) == (n <= counts[-1])
+    assert p["f_blocks"] * 16 * tfl.F64_FWD_WARPS >= N > (p["f_blocks"] - 1) * 16 * tfl.F64_FWD_WARPS
+    assert p["d_blocks"] * tfl.F64_CELLS >= N > (p["d_blocks"] - 1) * tfl.F64_CELLS
+    gl = 16 * tfl.F64_GENE_WARPS
+    assert p["g_blocks"] * gl >= G > (p["g_blocks"] - 1) * gl
+    assert p["rows"] % tfl.F64_GENE_CELLS == 0 and p["rows"] >= 1024
     assert p["n_chunks"] * p["rows"] >= N > (p["n_chunks"] - 1) * p["rows"]
     assert p["n_chunks"] <= 65535 and p["f_groups"] <= 65535
-    assert p["f_smem"] == 8 * (Kf + p["f_cols"]) * (tfl.F64_CELLS + tfl.F64_GENES)
+    assert p["f_smem"] == (8 * (16 * tfl.F64_FWD_WARPS * Kf
+                                + 2 * tfl.F64_FWD_GENES * (8 * p["f_nt"] + Kf))
+                           + 2 * tfl.F64_FWD_Y_STAGE_BYTES)
     assert p["d_smem"] == 8 * ((2 * Kf + p["d_cols"]) * tfl.F64_CELLS
                                + (Kf + p["d_cols"]) * tfl.F64_GENES)
-    assert p["g_smem"] == 8 * ((2 * Kf + n_a2 + 2 * p["g_cols"]) * tfl.F64_GENE_LANES
-                               + (Kf + p["g_cols"] + 1 + n_a2) * tfl.F64_CELL_STAGE)
+    assert p["g_smem"] == (8 * (16 * tfl.F64_GENE_WARPS * Kf
+                                + 2 * (tfl.F64_GENE_CELLS * (16 * p["g_nt"] + 8 * p["g_nk"] + Kf)
+                                       + tfl.F64_GENE_CELLS))
+                           + 2 * tfl.F64_GENE_Y_STAGE_BYTES)
     assert max(p["f_smem"], p["d_smem"], p["g_smem"]) <= tfl.F64_MAX_SMEM
-    assert p["part"] == p["n_chunks"] * F * G and p["gene_workspace"] == p["part"] + F * G
+    assert p["part"] == p["n_chunks"] * F * G + (p["n_chunks"] * F * G) % 2  # table aligned
+    # the packed tables: per 32-gene stage 4 k-steps of every tile's 32 B
+    # pairs and W's 4 pairs a column; per 32-cell stage 4 n-tiles of drfe's
+    # and the tiles' 32 pairs each, dW's, psi's 4 a column, and dA1
+    assert p["f_table"] == 2 * -(-G // 32) * 4 * (32 * p["f_tiles"] + 4 * Kf)
+    assert p["g_table"] == 2 * -(-N // 32) * (4 * (32 * (2 * p["g_tiles"] + p["g_nk"]) + 4 * Kf)
+                                            + 16)
+    assert p["fwd_workspace"] == p["f_table"]
+    assert p["gene_workspace"] == p["part"] + p["g_table"] + F * G
 
 
 class _FakeLib:
@@ -161,7 +189,8 @@ class _FakeLib:
 def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
     """Float64 operands go to the fl64_* entry points with f64_plan's
     numbers in F64_PLAN_KEYS' order and Y's code in Y_DTYPES_F64, the
-    outputs and kernel_gene's scratch in float64, its allocations adding up
+    outputs, kernel_forward's packed table (its fwd_workspace) and
+    kernel_gene's scratch in float64, kernel_gene's allocations adding up
     to the plan's gene_workspace, each launch counted in *_f64_launches and
     in no float32 count; float32 operands still go to the float32 entry
     points. The wrappers run on CPU tensors with the library recorded, not
@@ -196,13 +225,17 @@ def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
             assert all(t.dtype == F64 for t in allocated)
             args = lib.calls.pop("fl64_backward_gene")
             assert list(args[9]) == want and args[-2] == tfl.Y_DTYPES_F64[storage]
+            assert len(want) == len(tfl.F64_PLAN_KEYS) == 24
+            assert [p[k] for k in ("f_yt", "f_nt", "g_st", "g_nk", "g_nt")] == [
+                args[9][tfl.F64_PLAN_KEYS.index(k)] for k in ("f_yt", "f_nt", "g_st", "g_nk", "g_nt")]
             allocated.clear()
             tfl.kernel_forward(Y.to(storage), psi, W, log_mu if with_a2 else None, muL)
             assert [t.shape for t in allocated] == [(N,), *([(N, S)] if with_a2 else []),
-                                                    (N, S * C), (N, K)]
+                                                    (N, S * C), (N, K), (p["fwd_workspace"],)]
             assert all(t.dtype == F64 for t in allocated)
             args = lib.calls.pop("fl64_forward")
-            assert list(args[9]) == want and args[-2] == tfl.Y_DTYPES_F64[storage]
+            assert args[9].value == allocated[-1].data_ptr() or allocated[-1].numel() == 0
+            assert list(args[10]) == want and args[-2] == tfl.Y_DTYPES_F64[storage]
     tfl.kernel_dpsi(psi, W, muL, dA1, dZ, _t(np.zeros((N, K))))
     if K:
         args = lib.calls.pop("fl64_backward_dpsi")
@@ -228,24 +261,96 @@ def test_compute_dtype_is_float32_or_float64():
 
 # --- a numpy emulation of the kernels' order of work --------------------------
 
+# mma.sync m16n8k8 f64, as the kernels' dmma() names its fragments: lane
+# 4g + t holds A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), B (t, g),
+# (t + 4, g), and C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+def _a_map(lane):
+    g, t = divmod(lane, 4)
+    return [(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)]
+
+
+def _b_map(lane):
+    g, t = divmod(lane, 4)
+    return [(t, g), (t + 4, g)]
+
+
+def _c_map(lane):
+    g, t = divmod(lane, 4)
+    return [(g, 2 * t), (g, 2 * t + 1), (g + 8, 2 * t), (g + 8, 2 * t + 1)]
+
+
+# C fragment to A fragment (the gene part's chain): a lane's C elements
+# (c0, c1, c2, c3) as its A elements (c0, c2, c1, c3), C's column 2t as A's
+# k-column t and 2t + 1 as t + 4, so the next B's row t is the old column
+# 2t and row t + 4 the old 2t + 1.
+C_TO_A = (0, 2, 1, 3)
+K_OF_C_COLUMN = [c // 2 + 4 * (c % 2) for c in range(8)]
+
+
+def _mma(a_frags, b_frags, c_frags):
+    """One warp's m16n8k8: D = A B + C from the 32 lanes' fragments, each
+    sum over k in A's column order; returns the lanes' D fragments."""
+    A, B, C = np.zeros((16, 8)), np.zeros((8, 8)), np.zeros((16, 8))
+    for lane in range(32):
+        for (r, c), v in zip(_a_map(lane), a_frags[lane]):
+            A[r, c] = v
+        for (r, c), v in zip(_b_map(lane), b_frags[lane]):
+            B[r, c] = v
+        for (r, c), v in zip(_c_map(lane), c_frags[lane]):
+            C[r, c] = v
+    D = C.copy()
+    for k in range(8):
+        D += A[:, k:k + 1] * B[k:k + 1, :]
+    return [[D[r, c] for r, c in _c_map(lane)] for lane in range(32)]
+
+
+def _fwd_genes(ks):
+    """The 8 genes (of a 32-gene stage) of the forward's k-step ks, in A's
+    column order: column t is gene 8t + 2ks, column t + 4 gene 8t + 2ks + 1,
+    so that lane t's 8 counts of a row in a stage are consecutive."""
+    return [8 * (k % 4) + 2 * ks + k // 4 for k in range(8)]
+
+
+def _tiles(M, n_tiles):
+    """M's columns zero-padded to n_tiles tiles of 8."""
+    out = np.zeros((M.shape[0], 8 * n_tiles))
+    out[:, :M.shape[1]] = M
+    return out
+
+
 def _emulate_forward(Y, psi, W, log_mu, muL, p):
-    """fwd_f64_kernel's sums: each column group of [YW | A2 | Z] over the
-    genes in order, the first group also A1 = sum_g Y log_rfe."""
+    """fwd_f64_kernel's sums: each column group (f_count tiles of [Y W | Y
+    log mu^T], padded to tiles, then Z's) over stages of 32 genes, each of 4
+    MMA k-steps of 8 genes in A's column order (_fwd_genes), Y's products
+    with Y as A and Z's with rfe; the first group also A1, each lane's sum
+    over its 8 genes a stage (lane t: 8t .. 8t + 7, two a k-step), its four
+    lanes' sums then added as the butterfly does ((a0 + a1) + (a2 + a3))."""
     (N, G), Kf, SC = Y.shape, psi.shape[1], muL.shape[1]
     n_a2 = 0 if log_mu is None else log_mu.shape[0]
-    B = np.concatenate([W, log_mu.T if n_a2 else np.zeros((G, 0)), muL], axis=1)
-    out, A1 = np.zeros((N, Kf + n_a2 + SC)), np.zeros(N)
-    for q, cols in enumerate(_groups(B.shape[1], p["f_groups"], p["f_cols"])):
-        for g in range(G):
-            lr = np.zeros(N)
-            for k in range(Kf):
-                lr += psi[:, k] * W[g, k]
-            if q == 0:
-                A1 += Y[:, g] * lr
-            rf = np.exp(lr)
-            for c in cols:
-                out[:, c] += (Y[:, g] if c < Kf + n_a2 else rf) * B[g, c]
-    return A1, (out[:, Kf:Kf + n_a2] if n_a2 else None), out[:, Kf + n_a2:], out[:, :Kf]
+    yt, tiles = p["f_yt"], p["f_tiles"]
+    B = np.concatenate([_tiles(np.concatenate([W, log_mu.T if n_a2 else np.zeros((G, 0))], 1),
+                               yt), _tiles(muL, tiles - yt)], 1)
+    out, lane_a1 = np.zeros((N, 8 * tiles)), np.zeros((4, N))
+    for q, group in enumerate(_groups(tiles, p["f_groups"], p["f_count"])):
+        cols = [8 * tile + c for tile in group for c in range(8)]
+        ycols = [c for c in cols if c < 8 * yt]
+        for g0 in range(0, G, 32):
+            for ks in range(4):
+                for gl in _fwd_genes(ks):
+                    g = g0 + gl
+                    if g >= G:
+                        continue
+                    lr = np.zeros(N)
+                    for k in range(Kf):
+                        lr += psi[:, k] * W[g, k]
+                    if q == 0:
+                        lane_a1[gl // 8] += Y[:, g] * lr
+                    rf = np.exp(lr)
+                    for c in cols:
+                        out[:, c] += (Y[:, g] if c in ycols else rf) * B[g, c]
+    A1 = (lane_a1[0] + lane_a1[1]) + (lane_a1[2] + lane_a1[3])
+    return (A1, (out[:, Kf:Kf + n_a2] if n_a2 else None), out[:, 8 * yt:8 * yt + SC],
+            out[:, :Kf])
 
 
 def _emulate_dpsi(psi, W, muL, dA1, dZ, YW, p):
@@ -268,36 +373,83 @@ def _emulate_dpsi(psi, W, muL, dA1, dZ, YW, p):
 
 def _emulate_gene(Y, psi, W, muL, dA1, dA2, dZ, p):
     """gene_f64_kernel's sums: for each chunk of rows cells and each pass
-    over d(muL)'s columns, the cells in order; dW takes rfe drfe_pass psi in
-    every pass and Y dA1 psi in the first, where dlog mu is formed too; the
-    chunks' partial sums [dW^T; d(muL)^T; dlog mu] then added in chunk
-    order (reduce_chunks_f64_kernel)."""
+    (g_count tiles of [dlog mu | d(muL)], padded to tiles), the cells in
+    n-tiles of 8: drfe over the pass's d(muL) tiles (j in order), d = rfe
+    drfe (+ Y dA1 in the first pass), then the pass's tiles and dW's tiles
+    summed over the n-tile's cells in the chained A's column order (cells
+    0, 2, 4, 6, 1, 3, 5, 7: K_OF_C_COLUMN), dlog mu's with Y as A, d(muL)'s
+    with rfe, dW's with d; each pass's dW sums added to the chunk's after
+    it; the chunks' partial sums [dW^T; d(muL)^T; dlog mu] then added in
+    chunk order (reduce_chunks_f64_kernel)."""
     (N, G), Kf, SC = Y.shape, psi.shape[1], muL.shape[1]
     n_a2 = 0 if dA2 is None else dA2.shape[1]
+    st, tiles = p["g_st"], p["g_tiles"]
+    Bn = np.concatenate([_tiles(dA2 if n_a2 else np.zeros((N, 0)), st),
+                         _tiles(dZ, tiles - st)], 1)
+    mu = _tiles(muL, tiles - st)
+    order = sorted(range(8), key=lambda c: K_OF_C_COLUMN[c])
     parts = []
-    for c in range(p["n_chunks"]):
+    for ch in range(p["n_chunks"]):
         part = np.zeros((Kf + SC + n_a2, G))
-        for q, cols in enumerate(_groups(SC, p["g_passes"], p["g_cols"])):
-            for n in range(c * p["rows"], min(N, (c + 1) * p["rows"])):
-                lr = np.zeros(G)
-                for k in range(Kf):
-                    lr += W[:, k] * psi[n, k]
-                rf = np.exp(lr)
-                d = np.zeros(G)
-                for j in cols:
-                    d += muL[:, j] * dZ[n, j]
-                    part[Kf + j] += rf * dZ[n, j]
-                d *= rf
-                if q == 0:
-                    d += Y[n] * dA1[n]
-                    for s in range(n_a2):
-                        part[Kf + SC + s] += Y[n] * dA2[n, s]
-                part[:Kf] += d[None, :] * psi[n][:, None]
+        cells = range(ch * p["rows"], min(N, (ch + 1) * p["rows"]))
+        for q, group in enumerate(_groups(tiles, p["g_passes"], p["g_count"])):
+            cols = [8 * tile + c for tile in group for c in range(8)]
+            jcols = [c - 8 * st for c in cols if c >= 8 * st]
+            acc, dw = np.zeros((8 * tiles, G)), np.zeros((Kf, G))
+            for n0 in range(cells.start, cells.stop, 8):
+                tile_cells = [n0 + c for c in order if n0 + c < cells.stop]
+                for n in tile_cells:
+                    dr = np.zeros(G)
+                    for j in jcols:
+                        dr += mu[:, j] * (dZ[n, j] if j < SC else 0.0)
+                    lr = np.zeros(G)
+                    for k in range(Kf):
+                        lr += W[:, k] * psi[n, k]
+                    rf = np.exp(lr)
+                    d = rf * dr
+                    if q == 0:
+                        d = d + Y[n] * dA1[n]
+                    for c in cols:
+                        acc[c] += (Y[n] if c < 8 * st else rf) * Bn[n, c]
+                    dw += d[None, :] * psi[n][:, None]
+            for c in cols:
+                if c < 8 * st and c < n_a2:
+                    part[Kf + SC + c] = acc[c]
+                elif c >= 8 * st and c - 8 * st < SC:
+                    part[Kf + c - 8 * st] = acc[c]
+            part[:Kf] += dw
         parts.append(part)
     total = np.zeros_like(parts[0])
     for part in parts:
         total += part
     return total[:Kf].T, (total[Kf + SC:] if n_a2 else None), total[Kf:Kf + SC].T
+
+
+def test_mma_fragment_maps_reproduce_the_product():
+    """The m16n8k8 f64 fragment maps the kernels use (A, B, C) give A B + C
+    exactly as numpy's product does on integers, every (row, column) held by
+    one lane once; and the C-to-A chain: a product's C fragments as the next
+    product's A fragments (C_TO_A), with the next B's rows permuted to match
+    (row t the old column 2t, row t + 4 the old 2t + 1), give C B2; the
+    forward's k-steps take every gene of a stage once, each lane's 8 of a
+    row consecutive."""
+    rng = np.random.default_rng(0)
+    A, B, C = (rng.integers(-9, 10, shape).astype(np.float64)
+               for shape in ((16, 8), (8, 8), (16, 8)))
+    for fmap, shape in ((_a_map, (16, 8)), (_b_map, (8, 8)), (_c_map, (16, 8))):
+        held = sorted(rc for lane in range(32) for rc in fmap(lane))
+        assert held == sorted(np.ndindex(*shape))
+    frag = lambda M, fmap: [[M[r, c] for r, c in fmap(lane)] for lane in range(32)]
+    D = _mma(frag(A, _a_map), frag(B, _b_map), frag(C, _c_map))
+    np.testing.assert_array_equal(np.array(D), np.array(frag(A @ B + C, _c_map)))
+    B2 = rng.integers(-9, 10, (8, 8)).astype(np.float64)
+    chained_a = [[d[i] for i in C_TO_A] for d in D]
+    permuted = B2[np.argsort(K_OF_C_COLUMN)]  # row k of the chain's B: old column of A's k
+    D2 = _mma(chained_a, frag(permuted, _b_map), [[0.0] * 4] * 32)
+    np.testing.assert_array_equal(np.array(D2), np.array(frag((A @ B + C) @ B2, _c_map)))
+    genes = [[g for ks in range(4) for g in _fwd_genes(ks) if g // 8 == t] for t in range(4)]
+    assert sorted(sum(genes, [])) == list(range(32))
+    assert all(sorted(genes[t]) == list(range(8 * t, 8 * t + 8)) for t in range(4))
 
 
 @pytest.mark.parametrize("shape", [(37, 41, 2, 1, 1), (70, 60, 10, 6, 8), (40, 30, 3, 64, 64),
@@ -339,7 +491,8 @@ def test_sweep_bytes_count_float64():
     """In float64 _sweep_bytes counts 8 bytes a value and, with the exact
     backward on the card, the float64 gene part's workspace (f64_plan's
     gene_workspace, 8 bytes a value) once, at every width, where the
-    float32 family's workspace stood; the CPU counts no workspace, and
+    float32 family's workspace stood, beside the forward's packed table
+    (fwd_workspace) in either backward; the CPU counts no workspace, and
     every term but Y's bytes doubles from float32."""
     N, G, C, K = 100_000, 5_000, 10, 1
     block = tmm._CHUNK_ELEMENTS
@@ -350,8 +503,17 @@ def test_sweep_bytes_count_float64():
             return trestarts._sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type,
                                           y_itemsize, P, z_cheb=z_cheb)
 
+        fwd_ws = 8 * tfl.f64_plan(N, G, K + P, 0, S * C)["fwd_workspace"]
+        with_table = {z: sweep(3, z_cheb=z) for z in (False, True)}
         for n_lanes in (1, 3, 10):
             assert sweep(n_lanes) - sweep(n_lanes, z_cheb=True) == ws - 8 * block
+        real_plan = tfl.f64_plan
+        try:  # every forward's table counts, z_cheb's too
+            tfl.f64_plan = lambda *a: dict(real_plan(*a), fwd_workspace=0)
+            for z_cheb in (False, True):
+                assert with_table[z_cheb] == fwd_ws + sweep(3, z_cheb=z_cheb)
+        finally:
+            tfl.f64_plan = real_plan
             assert sweep(n_lanes, y_itemsize=8) - sweep(n_lanes, y_itemsize=8, z_cheb=True) == ws
             assert sweep(n_lanes, device_type="cpu") - N * G == 2 * (
                 sweep(n_lanes, 4, "cpu") - N * G)

@@ -1,7 +1,7 @@
 """Card time of the fused likelihood's training step through its public
 autograd function, for the ``clonealign_torch`` package of any checkout.
 
-    python3 time_likelihood.py [--wide] [ROOT ...]
+    python3 time_likelihood.py [--wide | --f64] [ROOT ...]
 
 For each ROOT in turn (default: this file's directory) it runs, in a process
 of its own, the package found there: it builds that package's kernels and,
@@ -23,6 +23,14 @@ Y storages (``WIDE_FULL_STORAGES``): ``fwd_ms``
 ``gene_wide_kernel`` and ``reduce_chunks_kernel``), the numbers
 ``chip_smoke.py`` reports under the same names.
 
+With ``--f64`` it times the float64 family's wrappers at each of
+``chip_smoke``'s full-width float64 configurations (``F64_FULL``: (Kf, S)
+with C = 10, A2 off) at each of its Y storages (``F64_FULL_STORAGES``):
+``fwd_ms`` (``kernel_forward``: ``fwd_f64_kernel``), ``dpsi_ms``
+(``kernel_dpsi``: ``dpsi_f64_kernel``) and ``gene_ms`` (``kernel_gene``:
+``gene_f64_kernel`` and ``reduce_chunks_f64_kernel``), float64 operands
+from ``chip_smoke.kernel_inputs``.
+
 Each time is ``chip_smoke.cuda_ms``'s: the median over rounds of a batch of
 calls queued between two CUDA events, divided by the batch, which times the
 card rather than the host. The inputs are ``chip_smoke.kernel_inputs``'s.
@@ -39,7 +47,8 @@ import subprocess
 import sys
 
 # This file's chip_smoke, imported before ROOT goes on the path.
-from chip_smoke import FULL, WIDE_FULL, WIDE_FULL_STORAGES, cuda_ms, kernel_inputs
+from chip_smoke import (F64_FULL, F64_FULL_STORAGES, FULL, WIDE_FULL, WIDE_FULL_STORAGES, cuda_ms,
+                        kernel_inputs)
 
 
 def time_wide(fl) -> dict:
@@ -65,7 +74,31 @@ def time_wide(fl) -> dict:
     return out
 
 
-def time_root(root: str, wide: bool = False) -> dict:
+def time_f64(fl) -> dict:
+    import torch
+
+    out = {}
+    for storage in F64_FULL_STORAGES:
+        for Kf, S in F64_FULL:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(3)
+            x = {k: v.double() for k, v in kernel_inputs(gen, FULL["N"], FULL["G"], FULL["C"], S=S,
+                                                         Kf=Kf, device="cuda").items()}
+            Y = x["Y"].to(getattr(torch, storage))
+            _, _, _, YW = fl.kernel_forward(Y, x["psi"], x["W"], None, x["muL"])
+            out[f"{storage} Kf={Kf} S*C={S * FULL['C']}"] = {
+                "fwd_ms": cuda_ms(lambda: fl.kernel_forward(Y, x["psi"], x["W"], None, x["muL"]),
+                                  reps=5),
+                "dpsi_ms": cuda_ms(lambda: fl.kernel_dpsi(x["psi"], x["W"], x["muL"], x["dA1"],
+                                                          x["dZ"], YW), reps=5),
+                "gene_ms": cuda_ms(lambda: fl.kernel_gene(Y, x["psi"], x["W"], x["muL"],
+                                                          x["dA1"], None, x["dZ"]), reps=5)}
+            del x, Y, YW
+            torch.cuda.empty_cache()
+    return out
+
+
+def time_root(root: str, family: str = "") -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -73,8 +106,10 @@ def time_root(root: str, wide: bool = False) -> dict:
     from clonealign_torch.ops import fused_likelihood as fl
 
     _build.load()
-    if wide:
+    if family == "--wide":
         return {"root": root, **time_wide(fl)}
+    if family == "--f64":
+        return {"root": root, **time_f64(fl)}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     x = kernel_inputs(gen, FULL["N"], FULL["G"], FULL["C"], S=1, Kf=1, device="cuda")
@@ -102,10 +137,10 @@ def time_root(root: str, wide: bool = False) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    wide = bool(args) and args[0] == "--wide"
-    args = args[wide:]
+    family = args[0] if args and args[0] in ("--wide", "--f64") else ""
+    args = args[bool(family):]
     if len(args) == 2 and args[0] == "--one":
-        print(json.dumps(time_root(args[1], wide)), flush=True)
+        print(json.dumps(time_root(args[1], family)), flush=True)
         return 0
     import torch
 
@@ -118,8 +153,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
     for root in args or [os.path.dirname(os.path.abspath(__file__))]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), *["--wide"] * wide, "--one",
-                        root], check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), *[family] * bool(family),
+                        "--one", root], check=True)
     return 0
 
 
