@@ -495,9 +495,11 @@ def tc_kernels(fl):
     built tile counts (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``,
     ``fl.WIDE_DPSI_K_COUNTS`` x ``fl.WIDE_DPSI_Z_COUNTS``), and their
     packing kernels (no templates); and the float64 family's
-    fwd_f64_kernel<YT, NT> (28: ``fl.F64_FWD_TILE_COUNTS``) and
-    gene_f64_kernel<YT, NT, NK> (40: ``fl.F64_GENE_TILE_COUNTS``), their
-    packing kernels, dpsi_f64_kernel and reduce_chunks_f64_kernel."""
+    fwd_f64_kernel<YT, NT> (28: ``fl.F64_FWD_TILE_COUNTS``),
+    dpsi_f64_kernel<NK, NZ> (24: ``fl.F64_DPSI_K_COUNTS`` x
+    ``fl.F64_DPSI_Z_COUNTS``) and gene_f64_kernel<YT, NT, NK> (40:
+    ``fl.F64_GENE_TILE_COUNTS``), their packing kernels and
+    reduce_chunks_f64_kernel."""
     return {
         "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
                        for t in (1, 2, 4) for a in (0, 1)},
@@ -514,7 +516,9 @@ def tc_kernels(fl):
         "gene_wide_pack_kernel": {"<>"},
         "fwd_f64_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.F64_FWD_TILE_COUNTS},
         "fwd_f64_pack_kernel": {"<>"},
-        "dpsi_f64_kernel": {"<>"},
+        "dpsi_f64_kernel": {f"<{k},{z}>" for k in fl.F64_DPSI_K_COUNTS
+                            for z in fl.F64_DPSI_Z_COUNTS},
+        "dpsi_f64_pack_kernel": {"<>"},
         "gene_f64_pack_kernel": {"<>"},
         "gene_f64_kernel": {f"<{y},{t},{k}>" for y in range(4)
                             for k, counts in fl.F64_GENE_TILE_COUNTS.items() for t in counts},
@@ -2050,11 +2054,17 @@ F64_FULL = ((1, 1), (5, 1), (1, 8), (5, 8))
 F64_FULL_STORAGES = ("int8", "float64")
 # PR 17's kernels at those widths (forward, dpsi, gene part ms; chip_smoke.py
 # on an H100 80GB HBM3 at 700 W, PERF.md; None where not timed), printed
-# beside this run's
+# beside this run's; and dpsi_f64_kernel's earlier form on the CUDA cores
+# (a lane a cell, FP64 FMAs), its last times at those widths
+# (time_likelihood.py --f64 on the same card and limit, PERF.md)
 F64_PR17_MS = {("int8", 1, 1): (2.857, 1.884, 3.541), ("int8", 5, 1): (3.594, 2.576, 4.288),
                ("int8", 1, 8): (10.53, 8.744, 15.41), ("int8", 5, 8): (11.74, 10.28, 18.76),
                ("float64", 1, 1): (3.287, 1.890, 3.025), ("float64", 5, 1): None,
                ("float64", 1, 8): None, ("float64", 5, 8): (12.33, 10.30, 18.43)}
+F64_CUDA_CORE_DPSI_MS = {("int8", 1, 1): 1.899, ("int8", 5, 1): 2.579, ("int8", 1, 8): 8.749,
+                         ("int8", 5, 8): 10.35, ("float64", 1, 1): 1.894,
+                         ("float64", 5, 1): 2.559, ("float64", 1, 8): 8.703,
+                         ("float64", 5, 8): 10.28}
 # the float64 sweep: three restarts, "vmap" and "map"
 F64_LANES = dict(initial_shrinks=(5,), n_repeats=3, max_iter=100, elbo_eval="reuse")
 # the golden fits in float64 (rel_tol 0: every fit runs GOLDEN_MAX_ITER
@@ -2098,7 +2108,7 @@ def exp_fp64_instructions():
     return len(fp64), fp64
 
 
-def dmma_instantiations(kernels=("fwd_f64_kernel", "gene_f64_kernel")):
+def dmma_instantiations(kernels=("fwd_f64_kernel", "dpsi_f64_kernel", "gene_f64_kernel")):
     """The FP64 MMA instructions (DMMA) in the SASS of each instantiation of
     the built library's ``kernels``, by kernel and template arguments (as
     :func:`kernel_resources` keys them), counted by cuobjdump -sass."""
@@ -2127,12 +2137,13 @@ def dmma_instantiations(kernels=("fwd_f64_kernel", "gene_f64_kernel")):
 
 
 def check_f64_sass(build_log, fl):
-    """Every fwd_f64_kernel and gene_f64_kernel instantiation holds FP64 MMA
-    (DMMA) instructions in its SASS and spills no register (ptxas's
-    report); raises otherwise. Returns the DMMA counts."""
+    """Every fwd_f64_kernel, dpsi_f64_kernel and gene_f64_kernel
+    instantiation holds FP64 MMA (DMMA) instructions in its SASS and spills
+    no register (ptxas's report); raises otherwise. Returns the DMMA
+    counts."""
     want = tc_kernels(fl)
     dmma = dmma_instantiations()
-    for kernel in ("fwd_f64_kernel", "gene_f64_kernel"):
+    for kernel in ("fwd_f64_kernel", "dpsi_f64_kernel", "gene_f64_kernel"):
         counts = {k: n for (name, k), n in dmma.items() if name == kernel}
         res = kernel_resources(build_log, kernel)
         log(f"{kernel}: DMMA instructions by instantiation "
@@ -2505,8 +2516,8 @@ def float64_phase(clonealign_torch, fl, auto_name, y_itemsize):
     fit (equal to the in-core one), timed by host clocks before anything
     else runs beside them; then, while the CPU's reference fits run in a
     child process (:func:`start_cpu_references_f64`), the kernels' ptxas
-    report, the DMMA and spill check of the forward's and the gene part's
-    instantiations (:func:`check_f64_sass`) and an exp's FP64
+    report, the DMMA and spill check of the forward's, dpsi's and the gene
+    part's instantiations (:func:`check_f64_sass`) and an exp's FP64
     instructions, each kernel against its plain
     float64 version at every Y storage at F64_CHECKS's shapes and
     bit-identical across launches, timed at full width (F64_FULL x
@@ -2514,8 +2525,10 @@ def float64_phase(clonealign_torch, fl, auto_name, y_itemsize):
     time (``F64_PR17_MS``), and the golden
     example and synth fits and the v1 family against the CPU's. Every
     launch of these paths is a float64 one. ``auto_name`` and
-    ``y_itemsize`` name the storage "auto" resolves to. Returns the numbers
-    for the kernels line."""
+    ``y_itemsize`` name the storage "auto" resolves to. dpsi's full-width
+    times are printed beside its earlier CUDA-core form's
+    (``F64_CUDA_CORE_DPSI_MS``). Returns the numbers for the kernels
+    line."""
     t_phase = time.perf_counter()
     out = float64_fits(clonealign_torch, fl, y_itemsize)
     with start_cpu_references_f64() as cpu:
@@ -2570,8 +2583,9 @@ def float64_kernels(fl):
     exp_ops, opcodes = exp_fp64_instructions()
     log(f"float64 phase: one double exp() is {exp_ops} FP64 instructions in the built SASS "
         f"({', '.join(opcodes)})")
-    for kernel in ("fwd_f64_pack_kernel", "fwd_f64_kernel", "dpsi_f64_kernel",
-                   "gene_f64_pack_kernel", "gene_f64_kernel", "reduce_chunks_f64_kernel"):
+    for kernel in ("fwd_f64_pack_kernel", "fwd_f64_kernel", "dpsi_f64_pack_kernel",
+                   "dpsi_f64_kernel", "gene_f64_pack_kernel", "gene_f64_kernel",
+                   "reduce_chunks_f64_kernel"):
         res = kernel_resources(_build.build_log, kernel)
         log(f"{kernel} ptxas: " + "; ".join(f"{k} {r} registers, {st}/{ld} B spill stores/loads"
                                              for k, (r, st, ld) in sorted(res.items())))
@@ -2595,7 +2609,8 @@ def float64_kernels(fl):
             f"{r['resources'][part]['smem_bytes']} B shared memory, "
             f"{r['resources'][part]['blocks_per_sm']} blocks an SM)"
             for part, old in zip(("fwd", "dpsi", "gene"), pr17))
-        log(f"float64, full width, Y {st}, Kf={Kf} S*C={S * FULL['C']}: {line}")
+        log(f"float64, full width, Y {st}, Kf={Kf} S*C={S * FULL['C']}: {line}; dpsi's "
+            f"CUDA-core form took {F64_CUDA_CORE_DPSI_MS[(st, Kf, S)]} ms")
     bound_res = f64_resources(fl, "float64", 64, 64, 2048, FULL["N"], FULL["G"])
     log(f"float64, full width, every bound (Kf 64, S 64, S*C 2048): {bound_res}")
     return {"exp_ops": exp_ops, "full": full, "bound_resources": bound_res}

@@ -18,27 +18,27 @@
 // and the vector-Jacobian product: with rfe = exp(log_rfe), drfe = dZ muL^T
 // and dlog_rfe = Y dA1 + rfe drfe, dpsi = dlog_rfe W, dW = dlog_rfe^T psi,
 // dlog_mu = dA2^T Y and d(muL) = rfe^T dZ. Every product and sum is float64
-// on the CUDA cores (DFMA), every exp the double exp() (no fast-math, no
-// tensor cores): the kernels serve the oracle configuration, and their
-// results differ from the plain float64 versions only by the order of
-// their sums. One family takes every width up to the contract's bound,
-// with runtime widths; there is no narrow/wide split.
+// (the FP64 tensor cores' mma.sync f64 and the CUDA cores' DFMA), every exp
+// the double exp() (no fast-math, no TF32): the kernels serve the oracle
+// configuration, and their results differ from the plain float64 versions
+// only by the order of their sums. One family takes every width up to the
+// contract's bound, with runtime widths; there is no narrow/wide split.
 //
-// Design. The forward and the gene part run their products on the FP64
-// tensor cores (mma.sync m16n8k8 f64: wgmma has no f64 type), and the exps
-// and log_rfe = psi W^T on the CUDA cores, one exp an element, each in the
-// register where the MMA takes it: the forward as unnormalised attention
-// (cells the queries, genes the keys, muL the values), the gene part as
-// FlashAttention-2's dK/dV pass. A warp owns 16 rows (cells, or genes) and
-// its sums are MMA accumulators in registers, each column group or pass a
+// Design. Every kernel runs its products on the FP64 tensor cores
+// (mma.sync m16n8k8 f64: wgmma has no f64 type), and the exps on the CUDA
+// cores, one exp an element, each in the register where an MMA takes it:
+// the forward as unnormalised attention (cells the queries, genes the
+// keys, muL the values), dpsi as FlashAttention-2's dQ pass and the gene
+// part as its dK/dV pass. A warp owns 16 rows (cells, or genes) and its
+// sums are MMA accumulators in registers, each column group or pass a
 // built count of 8-column tiles (f64_plan's counts); the block's warps
 // share a ring of two shared-memory stages of the walked axis, filled by
 // 16-byte cp.async while the other is consumed, with the operands in
 // fragment order (one 16-byte load a lane per fragment, no bank conflict):
-// fwd_f64_pack_kernel and gene_f64_pack_kernel lay each side out so once a
-// call, since copying operand by operand into that order cost more
-// instructions than the arithmetic. Each (chunk,
-// gene block) of the gene part writes its own partial sums, which
+// fwd_f64_pack_kernel, dpsi_f64_pack_kernel and gene_f64_pack_kernel lay
+// each side out so once a call, since copying operand by operand into that
+// order cost more instructions than the arithmetic. Each (chunk, gene
+// block) of the gene part writes its own partial sums, which
 // reduce_chunks_f64_kernel adds in chunk order: no atomics, every result
 // deterministic.
 //
@@ -55,14 +55,27 @@
 //    an element wherever the tiles fit one group (Kf + nA2 + S*C <= 96
 //    columns in 12 tiles; the main path's 3). A group without Z tiles forms
 //    no exp, one without Y tiles (and not the first) reads no Y.
-//  * dpsi_f64_kernel reads no Y: dpsi = sum_g rfe (dZ muL^T) W, then
-//    dA1 YW (the forward's) added last, the term order of the plain
-//    version reference_dpsi. One lane owns one cell; its psi, sums and dZ
-//    columns live in per-lane shared-memory slots, the stage's W and muL
-//    are broadcast, 8 genes in registers so a slot serves 8 FMAs
-//    (add_columns). dZ's columns go in groups of at most kDpsiCols, one
-//    after another in the block (dpsi is linear in drfe), each recomputing
-//    log_rfe and the exps; S*C <= 64 is one group.
+//  * dpsi_f64_kernel<NK, NZ> reads no Y: dpsi = (rfe drfe) W, then dA1 YW
+//    (the forward's) added last, the term order of the plain version
+//    reference_dpsi. A warp owns 16 cells and walks the genes in k-steps
+//    of 8 (a stage 4, or 2 where 4 would leave room for one block an SM).
+//    Per k-step, at drfe's C positions (cells g, g + 8; genes 2t, 2t + 1):
+//    drfe = dZ muL^T by NZ MMAs in two independent chains (dZ's A
+//    fragments of the group in registers, loaded once a group), log_rfe
+//    by Kf FMAs from psi's two rows and W's two genes (Kf <= 8, NK = 1) or
+//    by NK MMAs psi W^T (psi's A fragments in shared memory), one exp an
+//    element, t = rfe drfe, and
+//    dpsi += t W by NK MMAs with t's C fragment as the A fragment (columns
+//    2t, 2t + 1 as k-columns t, t + 4; W's B rows permuted to match).
+//    dpsi_f64_pack_kernel lays the gene side out once a call: muL^T, W in
+//    C-to-A order (whose tile also holds the FMAs' pairs) and, past Kf 8,
+//    W^T. dZ's tiles go in groups of NZ (at most 10: S*C 80 is one group),
+//    one after another in the block (dpsi is linear in drfe), each
+//    recomputing log_rfe and the exps; NK tiles of [psi, X] and NZ are
+//    built counts (f64_plan's d_nk, d_nz). What bounds it
+//    (gene_variants.py f64_dpsi_*, int8, Kf 1, full width, H100 80GB HBM3
+//    at 700 W): at S*C 10 the exps, 0.61 of 1.33 ms, at S*C 80 drfe's
+//    MMAs, 1.03 of 2.82 ms, beside 0.61-0.67 of exps.
 //  * gene_f64_kernel<YT, NT, NK> (dW, d(muL), dlog mu): a block owns 64
 //    genes (4 warps of 16) and one chunk of the cells (grid.y,
 //    ops/fused_likelihood.py's _chunk_rows); a stage is 32 cells, four
@@ -95,9 +108,10 @@
 // in its type and converted in registers, exactly.
 //
 // Build: as fused_likelihood.cu, ops/_build.py compiles this file once for
-// each FL_PART and links the objects: FL_PART = -1 holds dpsi_f64_kernel,
-// reduce_chunks_f64_kernel and the C entry points (fl64_*), FL_PART = YT
-// the two Y-reading kernels of one Y storage type.
+// each FL_PART and links the objects: FL_PART = -1 holds the Y-free kernels
+// (the packing kernels, dpsi_f64_kernel, reduce_chunks_f64_kernel) and the
+// C entry points (fl64_*), FL_PART = YT the two Y-reading kernels of one Y
+// storage type.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -124,17 +138,19 @@ constexpr int kYF64 = 0, kYBF16 = 1, kYI16 = 2, kYI8 = 3;
 // The launch plan (ops/fused_likelihood.py's f64_plan, checked by plan_of),
 // in F64_PLAN_KEYS' order: the forward's tiles (f_yt of the Y products,
 // f_tiles in all) in f_groups column groups of f_count (f_nt the built
-// count) over f_blocks blocks; dpsi's dZ column groups; the gene part's
-// tiles (g_st of dlog mu, g_tiles in all) in g_passes passes of g_count
-// (g_nt built) beside dW's g_nk, its blocks of 64 genes, its chunks of rows
-// cells and its partial sums (part doubles); each kernel's dynamic shared
-// memory in bytes; and the packed tables' doubles (f_table the forward's,
-// g_table the gene part's).
+// count) over f_blocks blocks; dpsi's built counts of [psi, X]'s tiles
+// (d_nk) and of dZ's tiles a group (d_nz), its d_groups groups, k-steps a
+// stage and blocks; the gene part's tiles (g_st of dlog mu, g_tiles in
+// all) in g_passes passes of g_count (g_nt built) beside dW's g_nk, its
+// blocks of 64 genes, its chunks of rows cells and its partial sums (part
+// doubles); each kernel's dynamic shared memory in bytes; and the packed
+// tables' doubles (f_table the forward's, g_table the gene part's, d_table
+// dpsi's).
 struct Plan {
   int f_yt, f_tiles, f_count, f_nt, f_groups, f_blocks, f_smem;
-  int d_cols, d_groups, d_blocks, d_smem;
+  int d_nk, d_nz, d_groups, d_steps, d_blocks, d_smem;
   int g_st, g_tiles, g_nk, g_count, g_nt, g_passes, g_blocks, rows, n_chunks, g_smem;
-  size_t part, f_table, g_table;
+  size_t part, f_table, g_table, d_table;
 };
 
 struct FwdArgs {
@@ -170,13 +186,32 @@ namespace {
 using namespace fl64;
 
 constexpr int kWarp = 32;
-// dpsi_f64_kernel: cells (lanes) a block, genes a stage, genes (cells) a
-// lane holds in registers at once, the most dZ columns a group
-// (ops/fused_likelihood.py's F64_CELLS, F64_GENES, F64_DPSI_COLS).
-constexpr int kCells = 128;
-constexpr int kGenes = 32;
-constexpr int kSub = 8;
-constexpr int kDpsiCols = 64;
+// dpsi_f64_kernel (ops/fused_likelihood.py's F64_DPSI_WARPS,
+// F64_DPSI_K_COUNTS, F64_DPSI_Z_COUNTS, _TWO_BLOCK_SMEM): warps of 16 cells
+// a block; the tile counts of [psi, X] and of dZ's group it is built for;
+// the shared memory a block may take for two blocks an SM (228 KB an SM,
+// 1 KB a block kept).
+constexpr int kDpsiWarps = 4;
+constexpr int kDpsiKCounts[] = {1, 2, 4, 8};
+constexpr int kDpsiZCounts[] = {1, 2, 4, 6, 8, 10};
+constexpr int kTwoBlockSmem = (228 - 2) / 2 * 1024;
+// log_rfe's W^T tiles a k-step takes beside dpsi's NK (none at NK = 1,
+// where the FMAs read W's pairs from dpsi's tile).
+__host__ __device__ constexpr int dpsi_lr_tiles(int nk) { return nk > 1 ? nk : 0; }
+// drfe's MMAs go to this many independent accumulators (tile z to z mod
+// chains), added last, so that its chain of dependent MMAs is shorter; the
+// k-steps of a stage are unrolled by two where the registers allow it, so
+// that one k-step's exps run beside the other's MMAs. (gene_variants.py on
+// an H100 80GB HBM3 at 700 W, int8, Kf 1, full width: two chains 3.98 ->
+// 3.31 ms at S*C 80, four no better; unrolling 2-3% at S*C 10.)
+__host__ __device__ constexpr int dpsi_chains(int nz) { return nz >= 2 ? 2 : 1; }
+__host__ __device__ constexpr int dpsi_step_unroll(int nk, int nz) { return nk + nz <= 6 ? 2 : 1; }
+// Blocks an SM: at least 3 for every NK = 1 instantiation (S*C 80: 2.82 ms
+// against 3.30 at 2, the same card; no spill), 4 where NK + NZ <= 3, 2
+// where the fragments held need more room.
+__host__ __device__ constexpr int dpsi_min_blocks(int nk, int nz) {
+  return nk + nz <= 3 ? 4 : nk + nz <= 6 || nk == 1 ? 3 : 2;
+}
 // fwd_f64_kernel and gene_f64_kernel (F64_FWD_WARPS, F64_FWD_GENES,
 // F64_GENE_WARPS, F64_GENE_CELLS): warps of 16 rows a block, genes (cells)
 // a stage, and its k-steps (n-tiles) of 8; the tile counts they are built
@@ -220,35 +255,6 @@ __device__ __forceinline__ double y_to_double(typename Y64<YT>::Elem e) {
   }
 }
 
-// Per-lane sums s_acc[c * lanes + t], c in [c0, c1), each plus
-// sum_u a[u] * s_b[c * stage + gl + u] (u in order, so each sum runs in the
-// walk's order), four columns at a time: their four chains of dependent
-// FMAs interleave, where one column's chain alone would wait on each FMA.
-__device__ __forceinline__ void add_columns(double* __restrict__ s_acc, int lanes, int t,
-                                            const double* __restrict__ s_b, int stage, int gl,
-                                            int c0, int c1, const double (&a)[kSub]) {
-  int c = c0;
-  for (; c + 4 <= c1; c += 4) {
-    double acc[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] = s_acc[(c + q) * lanes + t];
-#pragma unroll
-    for (int u = 0; u < kSub; ++u) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] = fma(a[u], s_b[(c + q) * stage + gl + u], acc[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) s_acc[(c + q) * lanes + t] = acc[q];
-  }
-  for (; c < c1; ++c) {
-    double acc = s_acc[c * lanes + t];
-#pragma unroll
-    for (int u = 0; u < kSub; ++u) acc = fma(a[u], s_b[c * stage + gl + u], acc);
-    s_acc[c * lanes + t] = acc;
-  }
-}
-
-#if F64_ANY_TYPED
 // d += a b on the FP64 tensor cores (mma.sync m16n8k8): lane 4g + t holds
 // A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) in a[0..3], B (t, g) and
 // (t + 4, g) in b, and C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
@@ -279,6 +285,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+#if F64_ANY_TYPED
 // Counts gene .. gene + 7 of row n into dst, zero past G and for n >= N. vec:
 // G % 8 == 0 and Y 16-byte aligned, so the 8 counts are one aligned piece
 // (8, 16 or 64 bytes), all within G or all past it, copied by cp.async; else
@@ -832,71 +839,184 @@ __global__ void gene_f64_pack_kernel(const double* __restrict__ psi, const doubl
   table[e] = make_double2(v[0], v[1]);
 }
 
-// ---------------------------------------------------------------------------
-// dpsi (reads no Y): block of kCells cells, dZ's columns in `groups`
-// groups of at most `cols`, one after another. Shared memory: per-lane
-// slots of psi, the dpsi sums and the group's dZ; then the stage's W^T and
-// the group's columns of muL^T for kGenes genes.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kCells, 4)
-dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ W,
-                const double* __restrict__ muL, const double* __restrict__ dA1,
-                const double* __restrict__ dZ, const double* __restrict__ YW,
-                double* __restrict__ dpsi, int N, int G, int Kf, int SC, int cols, int groups) {
-  extern __shared__ double smem[];
-  double* s_psi = smem;                          // [Kf][kCells]
-  double* s_acc = s_psi + (size_t)Kf * kCells;   // [Kf][kCells]
-  double* s_dz = s_acc + (size_t)Kf * kCells;    // [cols][kCells]
-  double* s_w = s_dz + (size_t)cols * kCells;    // [Kf][kGenes]
-  double* s_mu = s_w + (size_t)Kf * kGenes;      // [cols][kGenes]
-  const int t = threadIdx.x, m = blockIdx.x * kCells + t;
-  const bool live = m < N;
-  for (int k = 0; k < Kf; ++k) {
-    s_psi[k * kCells + t] = live ? psi[(size_t)m * Kf + k] : 0.0;
-    s_acc[k * kCells + t] = 0.0;
+// dpsi_f64_kernel's gene side, once a call, in the order its stages take it:
+// for each k-step of 8 genes, `tiles` B fragment tiles of 32 lane pairs:
+// muL^T for drfe (nz_all tiles, every group's in turn; lane (g, t): gene g
+// of the k-step at columns 8 tile + t and + 4), W for dpsi += t W (nk
+// tiles, the k-step's genes in C-to-A order; lane (g, t): genes 2t and 2t
+// + 1 at column 8 kc + g, so entry 4k + t of the first tile is also the
+// pair log_rfe's FMAs take at column k) and, past Kf 8, W^T for log_rfe
+// (nk tiles; lane (g, t): gene g at columns 8 kc + t and + 4). Zero past G
+// and every width.
+__global__ void dpsi_f64_pack_kernel(const double* __restrict__ W, const double* __restrict__ muL,
+                                     double2* __restrict__ table, int G, int Kf, int SC,
+                                     int nz_all, int nk, int tiles, long long n) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int l = (int)(e % kWarp), r = (int)(e / kWarp % tiles), ks = (int)(e / kWarp / tiles);
+  const int g = l >> 2, t = l & 3;
+  double v0 = 0.0, v1 = 0.0;
+  if (r < nz_all) {
+    const int gene = 8 * ks + g, j = 8 * r + t;
+    if (gene < G && j < SC) v0 = muL[(size_t)gene * SC + j];
+    if (gene < G && j + 4 < SC) v1 = muL[(size_t)gene * SC + j + 4];
+  } else if (r < nz_all + nk) {
+    const int gene = 8 * ks + 2 * t, k = 8 * (r - nz_all) + g;
+    if (gene < G && k < Kf) v0 = W[(size_t)gene * Kf + k];
+    if (gene + 1 < G && k < Kf) v1 = W[(size_t)(gene + 1) * Kf + k];
+  } else {
+    const int gene = 8 * ks + g, k = 8 * (r - nz_all - nk) + t;
+    if (gene < G && k < Kf) v0 = W[(size_t)gene * Kf + k];
+    if (gene < G && k + 4 < Kf) v1 = W[(size_t)gene * Kf + k + 4];
   }
-  for (int q = 0; q < groups; ++q) {
-    const int j0 = q * cols, nj = min(cols, SC - j0);
-    for (int j = 0; j < nj; ++j) s_dz[j * kCells + t] = live ? dZ[(size_t)m * SC + j0 + j] : 0.0;
-    for (int g0 = 0; g0 < G; g0 += kGenes) {
-      __syncthreads();  // the previous stage is read
-      for (int i = t; i < Kf * kGenes; i += kCells) {
-        const int gl = i / Kf, k = i % Kf, g = g0 + gl;
-        s_w[k * kGenes + gl] = g < G ? W[(size_t)g * Kf + k] : 0.0;
+  table[e] = make_double2(v0, v1);
+}
+
+// ---------------------------------------------------------------------------
+// dpsi (reads no Y; FlashAttention-2's dQ pass in float64, cells as M):
+// dpsi = dA1 YW + (rfe drfe) W, drfe = dZ muL^T, rfe = exp(psi W^T). Block
+// of kDpsiWarps x 16 cells; dZ's tiles in `groups` groups of NZ, one after
+// another, each walking the genes in stages of `steps` k-steps of 8 (the
+// padded table's; genes past G are zeros and add nothing). NK tiles of
+// [psi, X]'s columns. Dynamic shared memory: each warp's psi (NK == 1:
+// [k][g] pairs of rows g, g + 8 for k < 8; else A fragments
+// [kc][half][lane], half 1 the columns + 4), then two stages of `steps`
+// k-steps of [the group's NZ muL^T tiles | NK W tiles | NK W^T tiles where
+// NK > 1][lane] pairs.
+// ---------------------------------------------------------------------------
+template <int NK, int NZ>
+__global__ void __launch_bounds__(kDpsiWarps * kWarp, dpsi_min_blocks(NK, NZ))
+dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ dZ,
+                const double* __restrict__ dA1, const double* __restrict__ YW,
+                const double2* __restrict__ table, double* __restrict__ dpsi, int N, int G, int Kf,
+                int SC, int groups, int steps) {
+  constexpr int RW = NZ + NK + dpsi_lr_tiles(NK);  // tiles a k-step of a stage
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = (blockIdx.x * kDpsiWarps + warp) * 16, n0 = row0 + g, n1 = n0 + 8;
+  const int tab_tiles = groups * NZ + NK + dpsi_lr_tiles(NK);  // a k-step's in the table
+  double2* s_psi = reinterpret_cast<double2*>(s_dyn) + warp * 2 * NK * kWarp;
+  double2* s_stage = reinterpret_cast<double2*>(s_dyn) + kDpsiWarps * 2 * NK * kWarp;
+
+  // psi of the warp's rows (read after the first stage's barrier)
+  if constexpr (NK == 1) {
+    for (int i = lane; i < 64; i += kWarp) {
+      const int k = i >> 3, m0 = row0 + (i & 7), m1 = m0 + 8;
+      s_psi[i] = make_double2(m0 < N && k < Kf ? psi[(size_t)m0 * Kf + k] : 0.0,
+                              m1 < N && k < Kf ? psi[(size_t)m1 * Kf + k] : 0.0);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2 * NK; ++i) {
+      const int k = 8 * (i >> 1) + t + 4 * (i & 1);
+      s_psi[i * kWarp + lane] = make_double2(n0 < N && k < Kf ? psi[(size_t)n0 * Kf + k] : 0.0,
+                                             n1 < N && k < Kf ? psi[(size_t)n1 * Kf + k] : 0.0);
+    }
+  }
+
+  double acc[NK][4];
+#pragma unroll
+  for (int kc = 0; kc < NK; ++kc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[kc][e] = 0.0;
+  const int stage_tiles = steps * RW * kWarp;
+  const int n_stages = (G + 8 * steps - 1) / (8 * steps);
+  // No early exit: every warp takes part in the block's barriers; rows past
+  // N compute on zeros and write nothing.
+#pragma unroll 1
+  for (int grp = 0; grp < groups; ++grp) {
+    // dZ's A fragments of the group's tiles: (n0, j), (n1, j), (n0, j + 4),
+    // (n1, j + 4), j = 8 tile + t; zero past N and S*C
+    double az[NZ][4];
+#pragma unroll
+    for (int z = 0; z < NZ; ++z) {
+      const int j0 = 8 * (grp * NZ + z) + t, j1 = j0 + 4;
+      az[z][0] = n0 < N && j0 < SC ? dZ[(size_t)n0 * SC + j0] : 0.0;
+      az[z][1] = n1 < N && j0 < SC ? dZ[(size_t)n1 * SC + j0] : 0.0;
+      az[z][2] = n0 < N && j1 < SC ? dZ[(size_t)n0 * SC + j1] : 0.0;
+      az[z][3] = n1 < N && j1 < SC ? dZ[(size_t)n1 * SC + j1] : 0.0;
+    }
+    // cp.async of stage s (k-steps [steps s, steps (s + 1))) into buffer
+    // buf: each k-step's group tiles of muL^T, then its W tiles
+    auto stage = [&](int s, int buf) {
+      double2* dst = s_stage + (size_t)buf * stage_tiles;
+      for (int i = threadIdx.x; i < stage_tiles; i += blockDim.x) {
+        const int l = i % kWarp, r = i / kWarp % RW, ks = i / (kWarp * RW);
+        const int tile = r < NZ ? grp * NZ + r : groups * NZ + r - NZ;
+        cp_async<16>(dst + i, table + ((size_t)(s * steps + ks) * tab_tiles + tile) * kWarp + l,
+                     table);
       }
-      for (int i = t; i < nj * kGenes; i += kCells) {
-        const int gl = i / nj, j = i % nj, g = g0 + gl;
-        s_mu[j * kGenes + gl] = g < G ? muL[(size_t)g * SC + j0 + j] : 0.0;
-      }
-      __syncthreads();
-      const int n_sub = (min(kGenes, G - g0) + kSub - 1) / kSub;
-      for (int sub = 0; sub < n_sub; ++sub) {
-        const int gl = sub * kSub;
-        double lr[kSub], d[kSub];
+      cp_async_commit();
+    };
+    __syncthreads();  // the previous group is done with the ring
+    stage(0, 0);
+#pragma unroll 1
+    for (int s = 0; s < n_stages; ++s) {
+      const int buf = s & 1;
+      cp_async_wait_all();
+      __syncthreads();  // the stage has landed, and the other buffer is free
+      if (s + 1 < n_stages) stage(s + 1, buf ^ 1);
+      const double2* tab = s_stage + (size_t)buf * stage_tiles;
+      constexpr int kUnroll = dpsi_step_unroll(NK, NZ);
+#pragma unroll kUnroll
+      for (int ks = 0; ks < steps; ++ks) {
+        const double2* b = tab + ks * RW * kWarp;
+        // drfe and log_rfe at C positions (n0, 2t), (n0, 2t + 1), (n1, 2t),
+        // (n1, 2t + 1) of the k-step's genes
+        constexpr int NC = dpsi_chains(NZ);
+        double dc[NC][4], dr[4], lr[4] = {0.0, 0.0, 0.0, 0.0};
 #pragma unroll
-        for (int u = 0; u < kSub; ++u) lr[u] = d[u] = 0.0;
-        for (int k = 0; k < Kf; ++k) {
-          const double p = s_psi[k * kCells + t];
-          const double* w = s_w + k * kGenes + gl;
+        for (int c = 0; c < NC; ++c)
 #pragma unroll
-          for (int u = 0; u < kSub; ++u) lr[u] = fma(p, w[u], lr[u]);
+          for (int e = 0; e < 4; ++e) dc[c][e] = 0.0;
+#pragma unroll
+        for (int z = 0; z < NZ; ++z) dmma(dc[z % NC], az[z], b[z * kWarp + lane]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dr[e] = dc[0][e];
+#pragma unroll
+          for (int c = 1; c < NC; ++c) dr[e] += dc[c][e];
         }
-        for (int j = 0; j < nj; ++j) {  // drfe = dZ muL^T over the group's columns
-          const double z = s_dz[j * kCells + t];
-          const double* b = s_mu + j * kGenes + gl;
+        if constexpr (NK == 1) {  // W's pairs (genes 2t, 2t + 1) at column k: entry 4k + t
+          const double2* pw = b + NZ * kWarp + t;
+          for (int k = 0; k < Kf; ++k) {
+            const double2 p = s_psi[8 * k + g], w = pw[4 * k];
+            lr[0] = fma(p.x, w.x, lr[0]);
+            lr[1] = fma(p.x, w.y, lr[1]);
+            lr[2] = fma(p.y, w.x, lr[2]);
+            lr[3] = fma(p.y, w.y, lr[3]);
+          }
+        } else {
 #pragma unroll
-          for (int u = 0; u < kSub; ++u) d[u] = fma(z, b[u], d[u]);
+          for (int kc = 0; kc < NK; ++kc) {
+            const double2 lo = s_psi[2 * kc * kWarp + lane];
+            const double2 hi = s_psi[(2 * kc + 1) * kWarp + lane];
+            const double a[4] = {lo.x, lo.y, hi.x, hi.y};
+            dmma(lr, a, b[(NZ + NK + kc) * kWarp + lane]);
+          }
         }
+        double tv[4];
 #pragma unroll
-        for (int u = 0; u < kSub; ++u) d[u] *= exp(lr[u]);  // rfe drfe
-        add_columns(s_acc, kCells, t, s_w, kGenes, gl, 0, Kf, d);
+        for (int e = 0; e < 4; ++e) tv[e] = exp(lr[e]) * dr[e];  // rfe drfe
+        // the C fragment as the A fragment: columns 2t, 2t + 1 as k-columns
+        // t, t + 4 (the W tiles' B rows hold genes 2t, 2t + 1)
+        const double ta[4] = {tv[0], tv[2], tv[1], tv[3]};
+#pragma unroll
+        for (int kc = 0; kc < NK; ++kc) dmma(acc[kc], ta, b[(NZ + kc) * kWarp + lane]);
       }
     }
   }
-  if (!live) return;
-  const double a1 = dA1[m];
-  for (int k = 0; k < Kf; ++k)
-    dpsi[(size_t)m * Kf + k] = s_acc[k * kCells + t] + a1 * YW[(size_t)m * Kf + k];
+
+  // C (n0, 8 kc + 2t), (n0, + 1), (n1, 8 kc + 2t), (n1, + 1); dA1 YW last
+#pragma unroll
+  for (int kc = 0; kc < NK; ++kc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = e < 2 ? n0 : n1, k = 8 * kc + 2 * t + (e & 1);
+      if (n < N && k < Kf)
+        dpsi[(size_t)n * Kf + k] = fma(dA1[n], YW[(size_t)n * Kf + k], acc[kc][e]);
+    }
 }
 
 // The chunks' partial sums added in chunk order: out[i] = sum_c part[c][i].
@@ -913,32 +1033,33 @@ __global__ void reduce_chunks_f64_kernel(const double* __restrict__ part, double
 inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
 // Each kernel's dynamic shared memory, in bytes (the layouts above;
-// ops/fused_likelihood.py's f64_fwd_smem, f64_gene_smem).
+// ops/fused_likelihood.py's f64_fwd_smem, f64_dpsi_smem, f64_gene_smem).
 inline long long fwd_smem(int Kf, int nt) {
   return 8LL * (kFwdWarps * 16 * Kf + 2LL * kFwdGenes * (8 * nt + Kf)) + 2LL * kFwdYStageBytes;
 }
-inline long long dpsi_smem(int Kf, int cols) {
-  return 8LL * ((2LL * Kf + cols) * kCells + (long long)(Kf + cols) * kGenes);
+inline long long dpsi_smem(int nk, int nz, int steps) {
+  return 16LL * kWarp * (kDpsiWarps * 2 * nk + 2LL * steps * (nz + nk + dpsi_lr_tiles(nk)));
 }
 inline long long gene_smem(int Kf, int nt, int nk) {
   return 8LL * (kGeneWarps * 16 * Kf + 2LL * (kGeneCells * (16LL * nt + 8 * nk + Kf) + kGeneCells)) +
          2LL * kGeneYStageBytes;
 }
 
-// Columns split evenly into groups of at most cap: `groups` of `cols`,
-// every group holding at least one column.
-inline bool even_split(long long n, int cap, int groups, int cols) {
-  return cols >= 1 && cols <= cap && groups == cdiv(n, cap) && cols == cdiv(n, groups);
-}
-
-// The packed tables, in doubles: the forward's gene side (fwd_f64_pack_kernel)
-// and the gene part's cell side (gene_f64_pack_kernel).
+// The packed tables, in doubles: the forward's gene side (fwd_f64_pack_kernel),
+// the gene part's cell side (gene_f64_pack_kernel) and dpsi's gene side
+// (dpsi_f64_pack_kernel: for every k-step of the stages that cover G, its
+// tiles of 32 pairs).
 inline long long fwd_table(int G, int Kf, int tiles) {
   return 2LL * cdiv(G, kFwdGenes) * kFwdSteps * (tiles * kWarp + Kf * 4);
 }
 inline long long gene_table(int N, int Kf, int tiles, int nk) {
   return 2LL * cdiv(N, kGeneCells) *
          (kGeneTiles * ((2LL * tiles + nk) * kWarp + Kf * 4) + kGeneCells / 2);
+}
+
+inline int dpsi_tiles(int nk, int nz, int groups) { return groups * nz + nk + dpsi_lr_tiles(nk); }
+inline long long dpsi_table(int G, int nk, int nz, int groups, int steps) {
+  return 2LL * cdiv(G, 8 * steps) * steps * dpsi_tiles(nk, nz, groups) * kWarp;
 }
 
 // The least of the built counts c[0..n) that is >= v (else the largest).
@@ -966,24 +1087,29 @@ bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int y_type) {
 // order), or false where a number does not fit these sizes: the forward's
 // and the gene part's tiles of each width, split evenly into groups or
 // passes each the least built count that holds them (the gene part's
-// beside dW's built count), grid.y within 65535, dpsi's columns split even
-// and within their cap, the blocks covering the cells and genes, the chunks
-// whole stages covering the cells, each shared memory size the kernel's
-// layout and within the card's, and the room of the partial sums and of
-// the packed tables.
+// beside dW's built count), grid.y within 65535, dpsi's built counts the
+// least that hold [psi, X] and an even split of dZ's tiles into its groups,
+// its k-steps a stage 4 unless that leaves room for one block an SM, the
+// blocks covering the cells and genes, the chunks whole stages covering the
+// cells, each shared memory size the kernel's layout and within the card's,
+// and the room of the partial sums and of the packed tables.
 bool plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Plan& p) {
-  constexpr int kKeys = 24;  // the last three are sizes
+  constexpr int kKeys = 27;  // the last four are sizes
   for (int i = 0; i < kKeys; ++i)
-    if (v[i] < 0 || (i < kKeys - 3 && v[i] > 0x7fffffff)) return false;
+    if (v[i] < 0 || (i < kKeys - 4 && v[i] > 0x7fffffff)) return false;
   p.f_yt = (int)v[0], p.f_tiles = (int)v[1], p.f_count = (int)v[2], p.f_nt = (int)v[3];
   p.f_groups = (int)v[4], p.f_blocks = (int)v[5], p.f_smem = (int)v[6];
-  p.d_cols = (int)v[7], p.d_groups = (int)v[8], p.d_blocks = (int)v[9], p.d_smem = (int)v[10];
-  p.g_st = (int)v[11], p.g_tiles = (int)v[12], p.g_nk = (int)v[13], p.g_count = (int)v[14];
-  p.g_nt = (int)v[15], p.g_passes = (int)v[16], p.g_blocks = (int)v[17], p.rows = (int)v[18];
-  p.n_chunks = (int)v[19], p.g_smem = (int)v[20];
-  p.part = (size_t)v[21], p.f_table = (size_t)v[22], p.g_table = (size_t)v[23];
+  p.d_nk = (int)v[7], p.d_nz = (int)v[8], p.d_groups = (int)v[9], p.d_steps = (int)v[10];
+  p.d_blocks = (int)v[11], p.d_smem = (int)v[12];
+  p.g_st = (int)v[13], p.g_tiles = (int)v[14], p.g_nk = (int)v[15], p.g_count = (int)v[16];
+  p.g_nt = (int)v[17], p.g_passes = (int)v[18], p.g_blocks = (int)v[19], p.rows = (int)v[20];
+  p.n_chunks = (int)v[21], p.g_smem = (int)v[22];
+  p.part = (size_t)v[23], p.f_table = (size_t)v[24], p.g_table = (size_t)v[25];
+  p.d_table = (size_t)v[26];
   const long long F = (long long)Kf + SC + nA2, zt = cdiv(SC, 8);
   constexpr int kFwdCounts = sizeof(kFwdTileCounts) / sizeof(int);
+  constexpr int kDpsiK = sizeof(kDpsiKCounts) / sizeof(int);
+  constexpr int kDpsiZ = sizeof(kDpsiZCounts) / sizeof(int);
   const int* gc = nullptr;
   const int n_gc = gene_tile_counts(p.g_nk, &gc);
   return p.f_yt == cdiv(Kf + nA2, 8) && p.f_tiles == p.f_yt + zt &&
@@ -991,9 +1117,15 @@ bool plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Plan& p)
          p.f_count == cdiv(p.f_tiles, p.f_groups) &&
          p.f_nt == least_count(kFwdTileCounts, kFwdCounts, p.f_count) && p.f_nt >= p.f_count &&
          p.f_blocks == cdiv(N, 16 * kFwdWarps) && p.f_smem == fwd_smem(Kf, p.f_nt) &&
-         p.f_smem <= kMaxSmem && even_split(SC, kDpsiCols, p.d_groups, p.d_cols) &&
-         p.d_blocks == cdiv(N, kCells) && p.d_smem == dpsi_smem(Kf, p.d_cols) &&
-         p.d_smem <= kMaxSmem && p.g_st == cdiv(nA2, 8) && p.g_tiles == p.g_st + zt &&
+         p.f_smem <= kMaxSmem &&
+         p.d_nk == least_count(kDpsiKCounts, kDpsiK, Kf > 8 ? cdiv(Kf, 8) : 1) &&
+         8 * p.d_nk >= Kf && p.d_groups == cdiv(zt, kDpsiZCounts[kDpsiZ - 1]) &&
+         p.d_nz == least_count(kDpsiZCounts, kDpsiZ, cdiv(zt, p.d_groups)) &&
+         (long long)p.d_nz * p.d_groups >= zt &&
+         p.d_steps == (dpsi_smem(p.d_nk, p.d_nz, 4) <= kTwoBlockSmem ? 4 : 2) &&
+         p.d_blocks == cdiv(N, 16 * kDpsiWarps) &&
+         p.d_smem == dpsi_smem(p.d_nk, p.d_nz, p.d_steps) && p.d_smem <= kMaxSmem &&
+         p.g_st == cdiv(nA2, 8) && p.g_tiles == p.g_st + zt &&
          p.g_nk == least_count(kGeneKCounts, 3, Kf > 8 ? cdiv(Kf, 8) : 1) && n_gc > 0 &&
          p.g_passes == cdiv(p.g_tiles, gc[n_gc - 1]) && p.g_count == cdiv(p.g_tiles, p.g_passes) &&
          p.g_nt == least_count(gc, n_gc, p.g_count) && p.g_nt >= p.g_count &&
@@ -1002,8 +1134,35 @@ bool plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Plan& p)
          p.g_smem == gene_smem(Kf, p.g_nt, p.g_nk) && p.g_smem <= kMaxSmem &&
          p.part >= (size_t)p.n_chunks * F * G && p.part % 2 == 0 &&
          p.f_table >= (size_t)fwd_table(G, Kf, p.f_tiles) &&
-         p.g_table >= (size_t)gene_table(N, Kf, p.g_tiles, p.g_nk);
+         p.g_table >= (size_t)gene_table(N, Kf, p.g_tiles, p.g_nk) &&
+         p.d_table >= (size_t)dpsi_table(G, p.d_nk, p.d_nz, p.d_groups, p.d_steps);
 }
+
+#if F64_COMMON
+using DpsiKernel = void (*)(const double*, const double*, const double*, const double*,
+                            const double2*, double*, int, int, int, int, int, int);
+
+// The instantiation a plan names (plan_of has checked its counts).
+template <int NK>
+DpsiKernel dpsi_kernel_nz(int nz) {
+  switch (nz) {
+    case 1: return dpsi_f64_kernel<NK, 1>;
+    case 2: return dpsi_f64_kernel<NK, 2>;
+    case 4: return dpsi_f64_kernel<NK, 4>;
+    case 6: return dpsi_f64_kernel<NK, 6>;
+    case 8: return dpsi_f64_kernel<NK, 8>;
+    default: return dpsi_f64_kernel<NK, 10>;
+  }
+}
+DpsiKernel dpsi_kernel_of(const Plan& p) {
+  switch (p.d_nk) {
+    case 1: return dpsi_kernel_nz<1>(p.d_nz);
+    case 2: return dpsi_kernel_nz<2>(p.d_nz);
+    case 4: return dpsi_kernel_nz<4>(p.d_nz);
+    default: return dpsi_kernel_nz<8>(p.d_nz);
+  }
+}
+#endif  // F64_COMMON
 
 }  // namespace
 
@@ -1152,18 +1311,26 @@ int fl64_forward(const void* Y, const double* psi, const double* W, const double
 }
 
 // Backward, dpsi part: psi, W, muL as fl64_forward, dA1 (N), dZ (N,SC) and
-// YW (N,Kf) from fl64_forward; output dpsi (N,Kf). Reads no Y. plan is
-// f64_plan's with nA2 = 0. Kf == 0 launches nothing.
+// YW (N,Kf) from fl64_forward; output dpsi (N,Kf). Reads no Y. table holds
+// the plan's d_table doubles, the packed gene side (dpsi_f64_pack_kernel,
+// launched first). plan is f64_plan's with nA2 = 0. Kf == 0 launches
+// nothing.
 int fl64_backward_dpsi(const double* psi, const double* W, const double* muL, const double* dA1,
-                       const double* dZ, const double* YW, double* dpsi, const long long* plan,
-                       int N, int G, int Kf, int SC, cudaStream_t stream) {
+                       const double* dZ, const double* YW, double* dpsi, double* table,
+                       const long long* plan, int N, int G, int Kf, int SC, cudaStream_t stream) {
   Plan p;
   if (bad_sizes(N, G, Kf, 0, SC, kYF64) || !plan_of(plan, N, G, Kf, 0, SC, p))
     return (int)cudaErrorInvalidValue;
   if (Kf == 0) return (int)cudaSuccess;
-  cudaFuncSetAttribute(dpsi_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.d_smem);
-  dpsi_f64_kernel<<<p.d_blocks, kCells, p.d_smem, stream>>>(psi, W, muL, dA1, dZ, YW, dpsi, N, G,
-                                                            Kf, SC, p.d_cols, p.d_groups);
+  const long long n = dpsi_table(G, p.d_nk, p.d_nz, p.d_groups, p.d_steps) / 2;
+  dpsi_f64_pack_kernel<<<(int)cdiv(n, 256), 256, 0, stream>>>(
+      W, muL, reinterpret_cast<double2*>(table), G, Kf, SC, p.d_groups * p.d_nz, p.d_nk,
+      dpsi_tiles(p.d_nk, p.d_nz, p.d_groups), n);
+  const DpsiKernel kernel = dpsi_kernel_of(p);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.d_smem);
+  kernel<<<p.d_blocks, kDpsiWarps * kWarp, p.d_smem, stream>>>(
+      psi, dZ, dA1, YW, reinterpret_cast<const double2*>(table), dpsi, N, G, Kf, SC, p.d_groups,
+      p.d_steps);
   return (int)cudaGetLastError();
 }
 
@@ -1208,8 +1375,10 @@ int fl64_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC,
   if (bad_sizes(N, G, Kf, nA2, SC, y_type) || !plan_of(plan, N, G, Kf, nA2, SC, p))
     return (int)cudaErrorInvalidValue;
   int blocks = 0;
-  cudaFuncSetAttribute(dpsi_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.d_smem);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dpsi_f64_kernel, kCells, p.d_smem);
+  const DpsiKernel dpsi_kernel = dpsi_kernel_of(p);
+  cudaFuncSetAttribute(dpsi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.d_smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dpsi_kernel, kDpsiWarps * kWarp,
+                                                p.d_smem);
   out[2] = p.d_smem;
   out[3] = blocks;
   for (int which = 0; which < 2; ++which) {

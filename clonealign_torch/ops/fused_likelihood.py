@@ -34,11 +34,12 @@ are the wide family's too.
 Float64 operands (``dtype="float64"`` fits, the oracle configuration) go
 to a family of their own, ``csrc/fused_likelihood_f64.cu``: the forward
 (``fwd_f64_pack_kernel`` + ``fwd_f64_kernel``), the Y-free dpsi kernel
-(``dpsi_f64_kernel``) and the gene part (``gene_f64_pack_kernel`` +
-``gene_f64_kernel`` + ``reduce_chunks_f64_kernel``), float64 throughout:
-the forward's and the gene part's products on the FP64 tensor cores, the
-exps and dpsi on the CUDA cores; one family for every width up to the
-wide bound (no narrow/wide split), counted apart in ``*_f64_launches``.
+(``dpsi_f64_pack_kernel`` + ``dpsi_f64_kernel``) and the gene part
+(``gene_f64_pack_kernel`` + ``gene_f64_kernel`` +
+``reduce_chunks_f64_kernel``), float64 throughout: every product on the
+FP64 tensor cores, the exps on the CUDA cores; one family for every width
+up to the wide bound (no narrow/wide split), counted apart in
+``*_f64_launches``.
 :func:`f64_plan` gives their launch geometry and workspace, which the C
 entry points take and check. Nothing on that path runs in float32.
 
@@ -94,18 +95,19 @@ Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
 # means the compute dtype (api._Y_STORAGE), so a float64 fit stores Y as
 # float64 there; code 0 is that compute dtype.
 Y_DTYPES_F64 = {torch.float64: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
-# The float64 family's geometry. dpsi_f64_kernel (the .cu's kCells,
-# kGenes, kDpsiCols): cells (lanes) a block, genes a stage, the most dZ
-# columns a group. fwd_f64_kernel and gene_f64_kernel (kFwdWarps,
-# kFwdGenes, kGeneWarps, kGeneCells): warps of 16 cell (gene) rows a block,
-# genes (cells) a stage; their columns count in tiles of 8, and the tile
-# counts they are built for (kFwdTileCounts; kGeneKCounts, dW's tiles a
-# pass, and beside each the counts of kGeneTileCounts); the bytes of Y a
-# stage takes at the widest storage (float64); the most dynamic shared
-# memory a block may take on the card.
-F64_CELLS = 128
-F64_GENES = 32
-F64_DPSI_COLS = 64
+# The float64 family's geometry. dpsi_f64_kernel (the .cu's kDpsiWarps,
+# kDpsiKCounts, kDpsiZCounts): warps of 16 cells a block, which walk the
+# genes in k-steps of 8; the tile counts of [psi, X] (log_rfe's and dpsi's)
+# and of dZ a column group (drfe's) it is built for. fwd_f64_kernel and
+# gene_f64_kernel (kFwdWarps, kFwdGenes, kGeneWarps, kGeneCells): warps of
+# 16 cell (gene) rows a block, genes (cells) a stage; their columns count
+# in tiles of 8, and the tile counts they are built for (kFwdTileCounts;
+# kGeneKCounts, dW's tiles a pass, and beside each the counts of
+# kGeneTileCounts); the bytes of Y a stage takes at the widest storage
+# (float64); the most dynamic shared memory a block may take on the card.
+F64_DPSI_WARPS = 4
+F64_DPSI_K_COUNTS = (1, 2, 4, 8)
+F64_DPSI_Z_COUNTS = (1, 2, 4, 6, 8, 10)
 F64_FWD_WARPS = 4
 F64_FWD_GENES = 32
 F64_GENE_WARPS = 4
@@ -354,9 +356,9 @@ def _plan_arg(plan: dict, keys=WIDE_PLAN_KEYS):
 
 # f64_plan's numbers, in the order the C entry points take them.
 F64_PLAN_KEYS = ("f_yt", "f_tiles", "f_count", "f_nt", "f_groups", "f_blocks", "f_smem",
-                 "d_cols", "d_groups", "d_blocks", "d_smem",
+                 "d_nk", "d_nz", "d_groups", "d_steps", "d_blocks", "d_smem",
                  "g_st", "g_tiles", "g_nk", "g_count", "g_nt", "g_passes", "g_blocks", "rows",
-                 "n_chunks", "g_smem", "part", "f_table", "g_table")
+                 "n_chunks", "g_smem", "part", "f_table", "g_table", "d_table")
 
 
 def f64_fwd_smem(Kf: int, nt: int) -> int:
@@ -365,6 +367,14 @@ def f64_fwd_smem(Kf: int, nt: int) -> int:
     the warps' Y rows (float64's room)."""
     return (8 * (F64_FWD_WARPS * 16 * Kf + 2 * (F64_FWD_GENES * (8 * nt + Kf)))
             + 2 * F64_FWD_Y_STAGE_BYTES)
+
+
+def f64_dpsi_smem(nk: int, nz: int, steps: int) -> int:
+    """dpsi_f64_kernel's dynamic shared memory in bytes: its warps' psi (2
+    nk tiles of 32 pairs each), and two stages of ``steps`` k-steps, each
+    the B fragments (32 pairs a tile) of nz muL^T tiles, nk W tiles and,
+    past nk = 1, nk W^T tiles."""
+    return 16 * 32 * (F64_DPSI_WARPS * 2 * nk + 2 * steps * (nz + nk + (nk if nk > 1 else 0)))
 
 
 def f64_gene_smem(Kf: int, nt: int, nk: int) -> int:
@@ -383,41 +393,51 @@ def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     decided. The C entry points take its ``F64_PLAN_KEYS``
     (``_plan_arg(plan, F64_PLAN_KEYS)``) and check that they fit the sizes.
 
-    Columns count in tiles of 8 (the FP64 MMA's n). Forward: ``f_yt`` tiles
-    of the Y products ``[Y W | Y log mu^T]`` then Z's, ``f_tiles`` in all,
-    split evenly into ``f_groups`` column groups (grid.y) of ``f_count``
-    tiles, each group's accumulators the built count ``f_nt``
-    (``F64_FWD_TILE_COUNTS``, at most 12) and each group recomputing the
-    exps it needs; ``f_blocks`` blocks of ``F64_FWD_WARPS`` x 16 cells. dpsi:
-    dZ's SC columns in ``d_groups`` groups of ``d_cols`` <= ``F64_DPSI_COLS``,
-    one after another in a block. Gene part: ``g_st`` tiles of dlog mu then
-    d(muL)'s, ``g_tiles`` in all, split evenly into ``g_passes`` passes of
-    ``g_count`` tiles (the built count ``g_nt``), beside dW's ``g_nk`` tiles
+    Columns count in tiles of 8 (the FP64 MMA's n). Forward: ``f_yt`` tiles of
+    the Y products ``[Y W | Y log mu^T]`` then Z's, ``f_tiles`` in all, split
+    evenly into ``f_groups`` column groups (grid.y) of ``f_count`` tiles, each
+    group's accumulators the built count ``f_nt`` (``F64_FWD_TILE_COUNTS``, at
+    most 12) and each group recomputing the exps it needs; ``f_blocks`` blocks
+    of ``F64_FWD_WARPS`` x 16 cells. dpsi: ``[psi, X]``'s tiles in the built
+    count ``d_nk`` (``F64_DPSI_K_COUNTS``; 1 up to Kf 8, where log_rfe takes Kf
+    FMAs, else MMAs), dZ's tiles split evenly into ``d_groups`` groups (one
+    after another in a block, each recomputing the exps) of the built count
+    ``d_nz`` (``F64_DPSI_Z_COUNTS``, at most 10), ``d_steps`` k-steps of 8
+    genes a stage (4 unless that leaves room for one block an SM), ``d_blocks``
+    blocks of ``F64_DPSI_WARPS`` x 16 cells. Gene part: ``g_st`` tiles of dlog
+    mu then d(muL)'s, ``g_tiles`` in all, split evenly into ``g_passes`` passes
+    of ``g_count`` tiles (the built count ``g_nt``), beside dW's ``g_nk`` tiles
     (``F64_GENE_K_COUNTS``; ``F64_GENE_TILE_COUNTS[g_nk]`` the pass's counts,
-    so that the registers hold them); ``g_blocks`` blocks of
-    ``F64_GENE_WARPS`` x 16 genes by ``n_chunks`` chunks (grid.y) of ``rows``
-    cells (:func:`_chunk_rows`). ``f_smem``, ``d_smem`` and ``g_smem`` are
-    each kernel's dynamic shared memory in bytes (:func:`f64_fwd_smem`,
-    :func:`f64_gene_smem`).
+    so that the registers hold them); ``g_blocks`` blocks of ``F64_GENE_WARPS``
+    x 16 genes by ``n_chunks`` chunks (grid.y) of ``rows`` cells
+    (:func:`_chunk_rows`). ``f_smem``, ``d_smem`` and ``g_smem`` are each
+    kernel's dynamic shared memory in bytes (:func:`f64_fwd_smem`,
+    :func:`f64_dpsi_smem`, :func:`f64_gene_smem`).
 
-    Workspace, in float64 values (dpsi takes none): ``f_table``, the
-    forward's gene side packed once a call in the order its stages take it
-    (``fwd_f64_pack_kernel``: each stage's B fragments of every tile and W
-    for log_rfe), which is ``fwd_workspace``; ``part``, the gene part's
-    partial sums (n_chunks x (Kf + SC + n_a2) x G, rounded up to even so
-    that the table after them is 16-byte aligned), and ``g_table``, its
-    cell side packed likewise (``gene_f64_pack_kernel``: each 32-cell
-    stage's B fragments of drfe, of every tile and of dW, psi for log_rfe
-    and dA1); ``gene_workspace``, what :func:`kernel_gene` allocates: the
-    partial sums, the table and its (Kf + SC + n_a2, G) output."""
+    Workspace, in float64 values: ``f_table``, the forward's gene side packed
+    once a call in the order its stages take it (``fwd_f64_pack_kernel``: each
+    stage's B fragments of every tile and W for log_rfe), which is
+    ``fwd_workspace``; ``d_table``, dpsi's gene side likewise
+    (``dpsi_f64_pack_kernel``: for each k-step of 8 genes, G padded to whole
+    stages, the B fragments of every group's muL^T tiles, of W in C-to-A order
+    and, past ``d_nk`` 1, of W^T), which is ``dpsi_workspace``; ``part``, the
+    gene part's partial sums (n_chunks x (Kf + SC + n_a2) x G, rounded up to
+    even so that the table after them is 16-byte aligned), and ``g_table``, its
+    cell side packed likewise (``gene_f64_pack_kernel``: each 32-cell stage's B
+    fragments of drfe, of every tile and of dW, psi for log_rfe and dA1);
+    ``gene_workspace``, what :func:`kernel_gene` allocates: the partial sums,
+    the table and its (Kf + SC + n_a2, G) output."""
     F = Kf + n_a2 + SC
     f_yt = _cdiv(Kf + n_a2, 8)
     f_tiles = f_yt + _cdiv(SC, 8)
     f_groups = _cdiv(f_tiles, F64_FWD_TILE_COUNTS[-1])
     f_count = _cdiv(f_tiles, f_groups)
     f_nt = _at_least(F64_FWD_TILE_COUNTS, f_count)
-    d_groups = _cdiv(SC, F64_DPSI_COLS)
-    d_cols = _cdiv(SC, d_groups)
+    d_nk = _at_least(F64_DPSI_K_COUNTS, max(1, _cdiv(Kf, 8)))
+    d_groups = _cdiv(_cdiv(SC, 8), F64_DPSI_Z_COUNTS[-1])
+    d_nz = _at_least(F64_DPSI_Z_COUNTS, _cdiv(_cdiv(SC, 8), d_groups))
+    d_steps = 4 if f64_dpsi_smem(d_nk, d_nz, 4) <= _TWO_BLOCK_SMEM else 2
+    d_tiles = d_groups * d_nz + d_nk + (d_nk if d_nk > 1 else 0)
     g_st = _cdiv(n_a2, 8)
     g_tiles = g_st + _cdiv(SC, 8)
     g_nk = _at_least(F64_GENE_K_COUNTS, max(1, _cdiv(Kf, 8)))
@@ -430,14 +450,16 @@ def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     plan = dict(zip(F64_PLAN_KEYS, (
         f_yt, f_tiles, f_count, f_nt, f_groups, _cdiv(N, 16 * F64_FWD_WARPS),
         f64_fwd_smem(Kf, f_nt),
-        d_cols, d_groups, _cdiv(N, F64_CELLS),
-        8 * ((2 * Kf + d_cols) * F64_CELLS + (Kf + d_cols) * F64_GENES),
+        d_nk, d_nz, d_groups, d_steps, _cdiv(N, 16 * F64_DPSI_WARPS),
+        f64_dpsi_smem(d_nk, d_nz, d_steps),
         g_st, g_tiles, g_nk, g_count, g_nt, g_passes, _cdiv(G, 16 * F64_GENE_WARPS), rows,
         n_chunks, f64_gene_smem(Kf, g_nt, g_nk), 2 * _cdiv(n_chunks * F * G, 2),
         2 * _cdiv(G, F64_FWD_GENES) * 4 * (32 * f_tiles + 4 * Kf),
         2 * _cdiv(N, F64_GENE_CELLS) * (4 * (32 * (2 * g_tiles + g_nk) + 4 * Kf)
-                                        + F64_GENE_CELLS // 2))))
+                                        + F64_GENE_CELLS // 2),
+        2 * _cdiv(G, 8 * d_steps) * d_steps * 32 * d_tiles)))
     plan["fwd_workspace"] = plan["f_table"]
+    plan["dpsi_workspace"] = plan["d_table"]
     plan["gene_workspace"] = plan["part"] + plan["g_table"] + F * G
     return plan
 
@@ -538,7 +560,8 @@ def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
     """Launch the Y-free dpsi kernel (the first part of
     :func:`kernel_backward`), or past a narrow limit the wide one with its
     packing of the gene side (:func:`wide_plan`'s ``dpsi_workspace``), or
-    for float64 operands ``dpsi_f64_kernel``; ``YW`` is
+    for float64 operands ``dpsi_f64_pack_kernel`` and ``dpsi_f64_kernel``
+    (:func:`f64_plan`'s ``dpsi_workspace``); ``YW`` is
     :func:`kernel_forward`'s. Returns dpsi (N, Kf). With Kf = 0 there is
     nothing to compute or launch."""
     global dpsi_launches, dpsi_wide_launches, dpsi_f64_launches
@@ -560,8 +583,10 @@ def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
     stream = ctypes.c_void_p(torch.cuda.current_stream(psi_ext.device).cuda_stream)
     args = (_ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dZ), _ptr(YW), _ptr(dpsi))
     if dt == torch.float64:
-        plan = _plan_arg(f64_plan(N, G, Kf, 0, SC), F64_PLAN_KEYS)
-        _raise_on(lib.fl64_backward_dpsi(*args, plan, N, G, Kf, SC, stream),
+        plan = f64_plan(N, G, Kf, 0, SC)
+        table = torch.empty(plan["dpsi_workspace"], device=psi_ext.device, dtype=dt)
+        _raise_on(lib.fl64_backward_dpsi(*args, _ptr(table), _plan_arg(plan, F64_PLAN_KEYS), N, G,
+                                         Kf, SC, stream),
                   "fused likelihood backward (dpsi, float64)")
         dpsi_f64_launches += 1
         return dpsi

@@ -86,9 +86,10 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     dpsi's packed gene table and the wide gene part's workspace in place of
     the narrow one's. In float64 (``itemsize`` 8) the float64 family runs at
     every width: its forward's packed gene table (``fwd_workspace``, every
-    forward) and with the exact backward its gene part's partial sums,
-    packed cell table and sums (``fused_likelihood.f64_plan``'s
-    ``gene_workspace``), float64 values; dpsi takes no workspace.
+    forward) and with the exact backward dpsi's packed gene table
+    (``dpsi_workspace``) and its gene part's partial sums, packed cell
+    table and sums (``fused_likelihood.f64_plan``'s ``gene_workspace``),
+    float64 values.
 
     The counts of the ELBO's tensors and of "map"'s held parameters are the
     code's order fitted to the card's peaks (``chip_smoke.inference_peaks``;
@@ -114,7 +115,7 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
         plan = fl.f64_plan(N, G, Kf, 0, S * C)
         workspace += 8 * plan["fwd_workspace"]
         if not z_cheb:
-            workspace += 8 * plan["gene_workspace"]
+            workspace += 8 * (plan["gene_workspace"] + (plan["dpsi_workspace"] if Kf else 0))
     elif device_type == "cuda":
         if fl.wide_route(Kf, S, S * C):
             workspace += 4 * fl.wide_plan(N, G, Kf, S, S * C)["fwd_workspace"]

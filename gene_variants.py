@@ -29,16 +29,19 @@ package's wrappers with the variant's library in place of the package's.
   could gain). Timed at the full width of the fit with Y int8, A2 off,
   C = 10 and (Kf, S) each of ``WIDE_CONFIGS``, in turns, twice.
 
-* ``fwd_f64`` and ``gene_f64``, the float64 family's forward and gene
-  part (``clonealign_torch/ops/csrc/fused_likelihood_f64.cu``, the variant's
+* ``fwd_f64``, ``dpsi_f64`` and ``gene_f64``, the float64 family's
+  forward, dpsi and gene part
+  (``clonealign_torch/ops/csrc/fused_likelihood_f64.cu``, the variant's
   source in its place): ``f64_*_no_exp`` takes the double exp() out (rfe =
   log_rfe), ``f64_*_no_mma`` the products on the FP64 tensor cores (the
   forward's tiles; the gene part's d(muL), dlog mu and dW), ``f64_*_one_a``
   issues each tile's MMA with one A operand where the kernels choose
-  between two by a predicate (Y's or rfe's), ``f64_gene_no_drfe`` takes
-  drfe's MMAs out. All are wrong by design and read as above. Timed at the
-  full width of the fit with float64 operands, Y int8, A2 off, C = 10 and
-  (Kf, S) each of ``F64_CONFIGS``, in turns, twice.
+  between two by a predicate (Y's or rfe's), ``f64_gene_no_drfe`` and
+  ``f64_dpsi_no_drfe`` take drfe's MMAs out (drfe = 0), and
+  ``f64_dpsi_no_dmma`` dpsi's MMAs with W (t summed as it is). All are
+  wrong by design and read as above. Timed at the full width of the fit
+  with float64 operands, Y int8, A2 off, C = 10 and (Kf, S) each of
+  ``F64_CONFIGS``, in turns, twice.
 
 Times are ``chip_smoke.cuda_ms``'s (packing, kernels and reduction). Needs
 an NVIDIA GPU and nvcc.
@@ -88,6 +91,10 @@ F64_GENE_PAIR = ("          if (c < ns)\n            dmma(acc[c], ya, b);\n     
 F64_GENE_DW = ("#pragma unroll\n"
                "          for (int kt = 0; kt < NK; ++kt) dmma(dw[kt], da, bk[(ct * NK + kt) * kWarp + lane]);\n")
 F64_GENE_DRFE = "          if (c >= ns && c < nt) dmma(dr, amu[c], bt[(ct * NT + c) * kWarp + lane]);\n"
+F64_DPSI_EXP = "tv[e] = exp(lr[e]) * dr[e];"
+F64_DPSI_DRFE = "        for (int z = 0; z < NZ; ++z) dmma(dc[z % NC], az[z], b[z * kWarp + lane]);\n"
+F64_DPSI_MMA = ("        for (int kc = 0; kc < NK; ++kc) dmma(acc[kc], ta, "
+                "b[(NZ + kc) * kWarp + lane]);\n")
 # name: (the kernel it is about, its replacements)
 VARIANTS = {
     "adopted": (None, []),
@@ -130,12 +137,18 @@ VARIANTS = {
     "f64_gene_no_mma": ("gene_f64", [(F64_GENE_PAIR, ""), (F64_GENE_DW, "")]),
     "f64_gene_one_a": ("gene_f64", [(F64_GENE_PAIR, "          dmma(acc[c], ra, b);\n")]),
     "f64_gene_no_drfe": ("gene_f64", [(F64_GENE_DRFE, "          ;\n")]),
+    "f64_dpsi_no_exp": ("dpsi_f64", [(F64_DPSI_EXP, "tv[e] = lr[e] * dr[e];")]),
+    "f64_dpsi_no_drfe": ("dpsi_f64", [(F64_DPSI_DRFE, "        ;\n")]),
+    "f64_dpsi_no_dmma": ("dpsi_f64", [(F64_DPSI_MMA, "        for (int kc = 0; kc < NK; ++kc)\n"
+                                                     "          for (int e = 0; e < 4; ++e) "
+                                                     "acc[kc][e] += ta[e];\n")]),
 }
 KERNELS = {"gene": ("gene_kernel",), "fwd_wide": ("fwd_wide_kernel",),
            "dpsi_wide": ("dpsi_wide_kernel",), "gene_wide": ("gene_wide_kernel",),
-           "fwd_f64": ("fwd_f64_kernel",), "gene_f64": ("gene_f64_kernel",)}
+           "fwd_f64": ("fwd_f64_kernel",), "dpsi_f64": ("dpsi_f64_kernel",),
+           "gene_f64": ("gene_f64_kernel",)}
 # the source each kernel's variants edit (_build.SOURCES' index)
-SOURCE_OF = {"fwd_f64": 1, "gene_f64": 1}
+SOURCE_OF = {"fwd_f64": 1, "dpsi_f64": 1, "gene_f64": 1}
 # (Kf, S) of the wide and the float64 variants' timing, C = 10
 WIDE_CONFIGS = ((5, 8), (64, 8), (5, 1))
 F64_CONFIGS = ((1, 1), (1, 8))
@@ -244,7 +257,7 @@ def wide_phase(fwd_libs, dpsi_libs, gene_libs):
         torch.cuda.empty_cache()
 
 
-def f64_phase(fwd_libs, gene_libs):
+def f64_phase(fwd_libs, dpsi_libs, gene_libs):
     for Kf, S in F64_CONFIGS:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(4)
@@ -255,6 +268,11 @@ def f64_phase(fwd_libs, gene_libs):
         if fwd_libs:
             in_turns(f"{label} fwd", fwd_libs, fl.kernel_forward,
                      (Y, x["psi"], x["W"], None, x["muL"]), reps=5)
+        if dpsi_libs:
+            YW = x["Y"] @ x["W"]
+            in_turns(f"{label} dpsi", dpsi_libs, fl.kernel_dpsi,
+                     (x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"], YW), reps=5)
+            del YW
         if gene_libs:
             in_turns(f"{label} gene", gene_libs, fl.kernel_gene,
                      (Y, x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"]), reps=5)
@@ -277,7 +295,7 @@ def main() -> int:
     wide_phase(*(about[t] if len(about[t]) > 1 or not sys.argv[1:] else {}
                  for t in ("fwd_wide", "dpsi_wide", "gene_wide")))
     f64_phase(*(about[t] if len(about[t]) > 1 or not sys.argv[1:] else {}
-                for t in ("fwd_f64", "gene_f64")))
+                for t in ("fwd_f64", "dpsi_f64", "gene_f64")))
     return 0
 
 

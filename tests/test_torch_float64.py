@@ -49,11 +49,14 @@ ABS_RTOL = 1e-12
 STORAGES = [torch.float64, torch.bfloat16, torch.int16, torch.int8]
 # (N, G, C, K, S), K the columns of [psi, X]: the ragged and vectorized
 # shapes, rich, the wide checks, three 1,024-cell chunks, one gene and
-# K = 0, and every bound at once (Kf 64, S 64, S*C 2048)
+# K = 0, every bound at once (Kf 64, S 64, S*C 2048), S*C 2048 in dpsi's
+# 26 groups at Kf 1, and Kf 9 (dpsi's log_rfe by MMA), N and G off every
+# tile size
 SHAPES = [(37, 41, 2, 1, 1), (45, 260, 4, 3, 1), (200, 96, 3, 4, 3), (100, 129, 10, 5, 1),
           (100, 129, 33, 1, 1), (100, 129, 4, 1, 5), (100, 129, 12, 6, 8)]
 CUDA_SHAPES = SHAPES + [(2000, 500, 3, 4, 3), (1000, 515, 12, 6, 8), (2100, 130, 9, 1, 4),
-                        (33, 1, 40, 0, 1), (300, 100, 32, 64, 64)]
+                        (33, 1, 40, 0, 1), (300, 100, 32, 64, 64), (130, 77, 2048, 1, 1),
+                        (90, 37, 5, 9, 2)]
 
 
 def _inputs(N, G, C, K, S, seed):
@@ -119,11 +122,15 @@ def test_f64_plan_covers_every_column_once_within_every_bound(shape):
     group or pass non-empty, within its built tile count (the least built
     count that holds it; the gene part's beside dW's tiles, which hold
     every column of [psi, X]) and one group or pass wherever the largest
-    count allows; the blocks cover the cells and genes, the chunks are whole
-    gene-part stages that cover the cells with grid.y within 65,535; each
-    kernel's shared memory is its layout's and within the card's; the
-    workspace is the packed tables, and the partial sums of every chunk
-    beside the output."""
+    count allows; dpsi's dZ tiles split evenly into groups of its built
+    count (each of dZ's columns once, in one group up to S*C 80), its
+    built count of [psi, X]'s tiles holding every column once (one tile up
+    to Kf 8, where log_rfe takes FMAs); the blocks cover the cells and
+    genes, the chunks are whole gene-part stages that cover the cells with
+    grid.y within 65,535; each kernel's shared memory is its layout's and
+    within the card's (dpsi's within two blocks an SM, with 4 k-steps a
+    stage wherever they fit); the workspace is the packed tables, and the
+    partial sums of every chunk beside the output."""
     N, G, Kf, n_a2, SC = shape
     p = tfl.f64_plan(N, G, Kf, n_a2, SC)
     F = Kf + n_a2 + SC
@@ -134,18 +141,26 @@ def test_f64_plan_covers_every_column_once_within_every_bound(shape):
     gene_counts = tfl.F64_GENE_TILE_COUNTS[p["g_nk"]]
     for n, groups, cols, nt, counts in (
             (p["f_tiles"], p["f_groups"], p["f_count"], p["f_nt"], tfl.F64_FWD_TILE_COUNTS),
-            (p["g_tiles"], p["g_passes"], p["g_count"], p["g_nt"], gene_counts),
-            (SC, p["d_groups"], p["d_cols"], None, None)):
+            (p["g_tiles"], p["g_passes"], p["g_count"], p["g_nt"], gene_counts)):
         split = _groups(n, groups, cols)
         assert sum(split, []) == list(range(n))
-        if counts is None:
-            assert all(split) and cols <= tfl.F64_DPSI_COLS
-            assert (groups == 1) == (n <= tfl.F64_DPSI_COLS)
-            continue
         assert all(split) and cols <= nt and nt == min(c for c in counts if c >= cols)
         assert (groups == 1) == (n <= counts[-1])
+    # dpsi: group q takes dZ's tiles [q d_nz, (q + 1) d_nz), each tile's 8
+    # columns (those past S*C zero), every group holding a column
+    nz, zt = p["d_nz"], -(-SC // 8)
+    dz_cols = [[j for j in range(8 * q * nz, 8 * (q + 1) * nz) if j < SC]
+               for q in range(p["d_groups"])]
+    assert sum(dz_cols, []) == list(range(SC)) and all(dz_cols)
+    assert nz == min(c for c in tfl.F64_DPSI_Z_COUNTS if c >= -(-zt // p["d_groups"]))
+    assert p["d_groups"] == -(-zt // tfl.F64_DPSI_Z_COUNTS[-1])
+    assert (p["d_groups"] == 1) == (SC <= 80)
+    psi_cols = [k for kc in range(p["d_nk"]) for k in range(8 * kc, 8 * kc + 8) if k < Kf]
+    assert psi_cols == list(range(Kf))
+    assert p["d_nk"] == min(k for k in tfl.F64_DPSI_K_COUNTS if 8 * k >= max(Kf, 1))
     assert p["f_blocks"] * 16 * tfl.F64_FWD_WARPS >= N > (p["f_blocks"] - 1) * 16 * tfl.F64_FWD_WARPS
-    assert p["d_blocks"] * tfl.F64_CELLS >= N > (p["d_blocks"] - 1) * tfl.F64_CELLS
+    dl = 16 * tfl.F64_DPSI_WARPS
+    assert p["d_blocks"] * dl >= N > (p["d_blocks"] - 1) * dl
     gl = 16 * tfl.F64_GENE_WARPS
     assert p["g_blocks"] * gl >= G > (p["g_blocks"] - 1) * gl
     assert p["rows"] % tfl.F64_GENE_CELLS == 0 and p["rows"] >= 1024
@@ -154,8 +169,14 @@ def test_f64_plan_covers_every_column_once_within_every_bound(shape):
     assert p["f_smem"] == (8 * (16 * tfl.F64_FWD_WARPS * Kf
                                 + 2 * tfl.F64_FWD_GENES * (8 * p["f_nt"] + Kf))
                            + 2 * tfl.F64_FWD_Y_STAGE_BYTES)
-    assert p["d_smem"] == 8 * ((2 * Kf + p["d_cols"]) * tfl.F64_CELLS
-                               + (Kf + p["d_cols"]) * tfl.F64_GENES)
+    lr_tiles = p["d_nk"] if p["d_nk"] > 1 else 0  # log_rfe's W^T tiles (MMAs past Kf 8)
+    d_tiles = nz + p["d_nk"] + lr_tiles  # a stage's tiles a k-step
+
+    def dpsi_smem(steps):  # the warps' psi (2 d_nk tiles each), two stages
+        return 16 * 32 * (tfl.F64_DPSI_WARPS * 2 * p["d_nk"] + 2 * steps * d_tiles)
+
+    assert p["d_smem"] == dpsi_smem(p["d_steps"]) <= tfl._TWO_BLOCK_SMEM
+    assert p["d_steps"] == (4 if dpsi_smem(4) <= tfl._TWO_BLOCK_SMEM else 2)
     assert p["g_smem"] == (8 * (16 * tfl.F64_GENE_WARPS * Kf
                                 + 2 * (tfl.F64_GENE_CELLS * (16 * p["g_nt"] + 8 * p["g_nk"] + Kf)
                                        + tfl.F64_GENE_CELLS))
@@ -168,7 +189,11 @@ def test_f64_plan_covers_every_column_once_within_every_bound(shape):
     assert p["f_table"] == 2 * -(-G // 32) * 4 * (32 * p["f_tiles"] + 4 * Kf)
     assert p["g_table"] == 2 * -(-N // 32) * (4 * (32 * (2 * p["g_tiles"] + p["g_nk"]) + 4 * Kf)
                                             + 16)
-    assert p["fwd_workspace"] == p["f_table"]
+    # per k-step of 8 genes (G padded to whole stages) every group's muL^T
+    # tiles, dpsi's W tiles and log_rfe's, 32 pairs each
+    g_pad = -(-G // (8 * p["d_steps"])) * 8 * p["d_steps"]
+    assert p["d_table"] == 2 * (g_pad // 8) * 32 * (p["d_groups"] * nz + p["d_nk"] + lr_tiles)
+    assert p["fwd_workspace"] == p["f_table"] and p["dpsi_workspace"] == p["d_table"]
     assert p["gene_workspace"] == p["part"] + p["g_table"] + F * G
 
 
@@ -189,9 +214,10 @@ class _FakeLib:
 def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
     """Float64 operands go to the fl64_* entry points with f64_plan's
     numbers in F64_PLAN_KEYS' order and Y's code in Y_DTYPES_F64, the
-    outputs, kernel_forward's packed table (its fwd_workspace) and
-    kernel_gene's scratch in float64, kernel_gene's allocations adding up
-    to the plan's gene_workspace, each launch counted in *_f64_launches and
+    outputs, kernel_forward's packed table (its fwd_workspace),
+    kernel_dpsi's (its dpsi_workspace) and kernel_gene's scratch in
+    float64, kernel_gene's allocations adding up to the plan's
+    gene_workspace, each launch counted in *_f64_launches and
     in no float32 count; float32 operands still go to the float32 entry
     points. The wrappers run on CPU tensors with the library recorded, not
     called."""
@@ -225,7 +251,7 @@ def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
             assert all(t.dtype == F64 for t in allocated)
             args = lib.calls.pop("fl64_backward_gene")
             assert list(args[9]) == want and args[-2] == tfl.Y_DTYPES_F64[storage]
-            assert len(want) == len(tfl.F64_PLAN_KEYS) == 24
+            assert len(want) == len(tfl.F64_PLAN_KEYS) == 27
             assert [p[k] for k in ("f_yt", "f_nt", "g_st", "g_nk", "g_nt")] == [
                 args[9][tfl.F64_PLAN_KEYS.index(k)] for k in ("f_yt", "f_nt", "g_st", "g_nk", "g_nt")]
             allocated.clear()
@@ -236,10 +262,15 @@ def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
             args = lib.calls.pop("fl64_forward")
             assert args[9].value == allocated[-1].data_ptr() or allocated[-1].numel() == 0
             assert list(args[10]) == want and args[-2] == tfl.Y_DTYPES_F64[storage]
+    allocated.clear()
     tfl.kernel_dpsi(psi, W, muL, dA1, dZ, _t(np.zeros((N, K))))
     if K:
         args = lib.calls.pop("fl64_backward_dpsi")
-        assert list(args[7]) == [tfl.f64_plan(N, G, K, 0, S * C)[k] for k in tfl.F64_PLAN_KEYS]
+        p = tfl.f64_plan(N, G, K, 0, S * C)
+        assert list(args[8]) == [p[k] for k in tfl.F64_PLAN_KEYS]
+        assert [t.shape for t in allocated] == [(N, K), (p["dpsi_workspace"],)]
+        assert all(t.dtype == F64 for t in allocated)
+        assert args[7].value == allocated[-1].data_ptr()
     counts = (tfl.fwd_f64_launches, tfl.dpsi_f64_launches, tfl.gene_f64_launches)
     assert counts == (2 * len(STORAGES), int(K > 0), 2 * len(STORAGES))
     assert not lib.calls
@@ -354,21 +385,62 @@ def _emulate_forward(Y, psi, W, log_mu, muL, p):
 
 
 def _emulate_dpsi(psi, W, muL, dA1, dZ, YW, p):
-    """dpsi_f64_kernel's sums: dZ's groups one after another, each over the
-    genes in order (drfe over the group's columns, times rfe, times W), and
-    dA1 YW added last."""
-    (N, Kf), G = psi.shape, W.shape[0]
+    """dpsi_f64_kernel's sums: dZ's groups one after another (d_nz tiles of
+    8 columns each), each over the genes in k-steps of 8: drfe over the
+    group's tiles in two chains (tile z to chain z mod 2, each over its
+    tiles' columns in order; one chain where d_nz is 1), the second added
+    to the first, log_rfe over [psi, X]'s
+    columns in order (Kf FMAs, or MMAs tile by tile), t = exp(log_rfe) drfe,
+    and the k-step's t W added in the chained A's column order (genes 0, 2,
+    4, 6, 1, 3, 5, 7 of the k-step: K_OF_C_COLUMN); dA1 YW added last."""
+    (N, Kf), G, SC = psi.shape, W.shape[0], muL.shape[1]
+    nz = p["d_nz"]
+    order = sorted(range(8), key=lambda c: K_OF_C_COLUMN[c])
     acc = np.zeros((N, Kf))
-    for cols in _groups(muL.shape[1], p["d_groups"], p["d_cols"]):
-        for g in range(G):
-            lr = np.zeros(N)
-            for k in range(Kf):
-                lr += psi[:, k] * W[g, k]
-            d = np.zeros(N)
-            for j in cols:
-                d += dZ[:, j] * muL[g, j]
-            acc += (d * np.exp(lr))[:, None] * W[g][None, :]
+    chains = 2 if nz >= 2 else 1
+    for q in range(p["d_groups"]):
+        tiles = [range(8 * (q * nz + z), 8 * (q * nz + z + 1)) for z in range(nz)]
+        for g0 in range(0, G, 8):
+            for g in (g0 + c for c in order if g0 + c < G):
+                lr = np.zeros(N)
+                for k in range(Kf):
+                    lr += psi[:, k] * W[g, k]
+                dc = np.zeros((chains, N))
+                for z, cols in enumerate(tiles):
+                    for j in (j for j in cols if j < SC):
+                        dc[z % chains] += dZ[:, j] * muL[g, j]
+                d = dc[0]
+                for c in range(1, chains):
+                    d = d + dc[c]
+                acc += (np.exp(lr) * d)[:, None] * W[g][None, :]
     return acc + dA1[:, None] * YW
+
+
+def _pack_dpsi(W, muL, p):
+    """dpsi_f64_pack_kernel's table as (k-steps, tiles, lanes, 2): for each
+    k-step of 8 genes, every group's muL^T tiles (lane (g, t): gene g at
+    columns 8 tile + t, + 4), dpsi's W tiles in C-to-A order (lane (g, t):
+    genes 2t, 2t + 1 at column 8 kc + g) and, past d_nk 1, log_rfe's W^T
+    tiles (lane (g, t): gene g at columns 8 kc + t, + 4); zero past G and
+    every width."""
+    (G, Kf), SC = W.shape, muL.shape[1]
+    nz_all, nk = p["d_groups"] * p["d_nz"], p["d_nk"]
+    tiles = nz_all + nk + (nk if nk > 1 else 0)
+    steps = -(-G // (8 * p["d_steps"])) * p["d_steps"]
+    at = lambda M, r, c: M[r, c] if r < M.shape[0] and c < M.shape[1] else 0.0  # noqa: E731
+    table = np.zeros((steps, tiles, 32, 2))
+    for ks, r, lane in np.ndindex(steps, tiles, 32):
+        g, t = divmod(lane, 4)
+        if r < nz_all:
+            pair = (at(muL, 8 * ks + g, 8 * r + t), at(muL, 8 * ks + g, 8 * r + t + 4))
+        elif r < nz_all + nk:
+            k = 8 * (r - nz_all) + g
+            pair = (at(W, 8 * ks + 2 * t, k), at(W, 8 * ks + 2 * t + 1, k))
+        else:
+            k = 8 * (r - nz_all - nk) + t
+            pair = (at(W, 8 * ks + g, k), at(W, 8 * ks + g, k + 4))
+        table[ks, r, lane] = pair
+    return table
 
 
 def _emulate_gene(Y, psi, W, muL, dA1, dA2, dZ, p):
@@ -452,6 +524,50 @@ def test_mma_fragment_maps_reproduce_the_product():
     assert all(sorted(genes[t]) == list(range(8 * t, 8 * t + 8)) for t in range(4))
 
 
+@pytest.mark.parametrize("Kf, SC", [(1, 10), (5, 80), (8, 3), (16, 20), (64, 2048)])
+def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
+    """One warp's k-step of dpsi_f64_kernel on integers, its operands read
+    as the kernel reads them from dpsi_f64_pack_kernel's table (_pack_dpsi)
+    and from its fragments of psi and dZ: drfe = dZ muL^T by the group's
+    MMAs in two chains (every group's columns in turn), log_rfe = psi W^T by Kf FMAs from
+    dpsi's own W tile (entry 4k + t: d_nk 1) or by MMAs with W^T tiles,
+    then t = R drfe (R standing in for rfe, whose exp leaves the integers)
+    taken from the C fragment into the A fragment (C_TO_A) of dpsi += t W
+    against the W tiles: each exactly numpy's product, at 16 cells and the
+    k-step's 8 genes."""
+    rng = np.random.default_rng(Kf + SC)
+    p = tfl.f64_plan(16, 8, Kf, 0, SC)
+    ints = lambda *shape: rng.integers(-4, 5, shape).astype(np.float64)  # noqa: E731
+    psi, W, dZ, muL, R = ints(16, Kf), ints(8, Kf), ints(16, SC), ints(8, SC), ints(16, 8)
+    table = _pack_dpsi(W, muL, p)[0]
+    frag = lambda M, fmap: [[M[r, c] for r, c in fmap(lane)] for lane in range(32)]  # noqa: E731
+    pad = lambda M, cols: np.pad(M, ((0, 0), (0, cols - M.shape[1])))  # noqa: E731
+    nz_all, nk = p["d_groups"] * p["d_nz"], p["d_nk"]
+    zero = [[0.0] * 4] * 32
+    chains = [zero, zero]  # tile z to chain z mod 2, added last
+    for z in range(nz_all):  # dZ's A fragments (n0, j), (n1, j), (n0, j + 4), (n1, j + 4)
+        chains[z % 2] = _mma(frag(pad(dZ, 8 * nz_all)[:, 8 * z:8 * z + 8], _a_map), table[z],
+                             chains[z % 2])
+    dr = [[a + b for a, b in zip(*lanes)] for lanes in zip(*chains)]
+    np.testing.assert_array_equal(np.array(dr), np.array(frag(dZ @ muL.T, _c_map)))
+    if nk == 1:  # lane (g, t): psi's rows g, g + 8 and W's pair of entry 4k + t
+        lr = [[sum(psi[r, k] * table[nz_all, 4 * k + lane % 4][c % 2] for k in range(Kf))
+               for r, c in _c_map(lane)] for lane in range(32)]
+    else:
+        lr = zero
+        for kc in range(nk):
+            lr = _mma(frag(pad(psi, 8 * nk)[:, 8 * kc:8 * kc + 8], _a_map),
+                      table[nz_all + nk + kc], lr)
+    np.testing.assert_array_equal(np.array(lr), np.array(frag(psi @ W.T, _c_map)))
+    t = [[R[r, c] * d for (r, c), d in zip(_c_map(lane), dr[lane])] for lane in range(32)]
+    chained_a = [[v[i] for i in C_TO_A] for v in t]
+    want = (R * (dZ @ muL.T)) @ pad(W, 8 * nk)
+    for kc in range(nk):
+        got = _mma(chained_a, table[nz_all + kc], zero)
+        np.testing.assert_array_equal(np.array(got), np.array(frag(want[:, 8 * kc:8 * kc + 8],
+                                                                    _c_map)))
+
+
 @pytest.mark.parametrize("shape", [(37, 41, 2, 1, 1), (70, 60, 10, 6, 8), (40, 30, 3, 64, 64),
                                    (2100, 20, 9, 2, 4)])
 def test_kernel_order_emulation_meets_the_tolerance(shape):
@@ -489,15 +605,17 @@ def test_kernel_order_emulation_meets_the_tolerance(shape):
 
 def test_sweep_bytes_count_float64():
     """In float64 _sweep_bytes counts 8 bytes a value and, with the exact
-    backward on the card, the float64 gene part's workspace (f64_plan's
-    gene_workspace, 8 bytes a value) once, at every width, where the
-    float32 family's workspace stood, beside the forward's packed table
-    (fwd_workspace) in either backward; the CPU counts no workspace, and
-    every term but Y's bytes doubles from float32."""
+    backward on the card, the float64 gene part's workspace and dpsi's
+    packed table (f64_plan's gene_workspace and dpsi_workspace, 8 bytes a
+    value) once, at every width, where the float32 family's workspace
+    stood, beside the forward's packed table (fwd_workspace) in either
+    backward; the CPU counts no workspace, and every term but Y's bytes
+    doubles from float32."""
     N, G, C, K = 100_000, 5_000, 10, 1
     block = tmm._CHUNK_ELEMENTS
     for P, S in ((0, 1), (4, 8)):
-        ws = 8 * tfl.f64_plan(N, G, K + P, 0, S * C)["gene_workspace"]
+        plan = tfl.f64_plan(N, G, K + P, 0, S * C)
+        ws = 8 * (plan["gene_workspace"] + plan["dpsi_workspace"])
 
         def sweep(n_lanes, itemsize=8, device_type="cuda", y_itemsize=1, z_cheb=False):
             return trestarts._sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type,
@@ -667,7 +785,8 @@ def test_cuda_f64_kernels_match_plain(cuda, shape, storage):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (1000, 515, 12, 6, 8),
-                                   (300, 100, 32, 64, 64)])
+                                   (300, 100, 32, 64, 64), (130, 77, 2048, 1, 1),
+                                   (90, 37, 5, 9, 2)])
 def test_cuda_f64_kernels_are_deterministic(cuda, shape):
     """Each float64 kernel is bit-identical across two launches (no
     atomics; the chunks' partial sums are added in a fixed order)."""

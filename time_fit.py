@@ -1,16 +1,18 @@
 """Milliseconds per iteration of the full-width single fit, for the
 ``clonealign_torch`` package of any checkout.
 
-    python3 time_fit.py [ROOT ...]
+    python3 time_fit.py [--f64] [ROOT ...]
 
 For each ROOT in turn (default: this file's directory) it runs, in a process
 of its own, the package found there: ``clonealign`` on the card at 100,000
 cells x 5,000 genes x 10 clones (``chip_smoke.synth_counts``'s counts, seed
 3), exact likelihood, 100 iterations, ``elbo_eval="fresh"``, seed 0, three
 times after one warm-up fit. The loop is bound by the host, so two
-checkouts given in turns (A B B A ...) are what compares them. Prints the
-card's name and power limit, then one JSON line per ROOT with each fit's ms
-per iteration (``timings["loop"]`` over the iterations) and setup seconds.
+checkouts given in turns (A B B A ...) are what compares them. With
+``--f64`` the fits take ``dtype="float64"`` (the float64 kernel family; Y
+stored as "auto" gives it, int8). Prints the card's name and power limit,
+then one JSON line per ROOT with each fit's ms per iteration
+(``timings["loop"]`` over the iterations) and setup seconds.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from chip_smoke import FIT_MAX_ITER, FULL, synth_counts
 REPS = 3
 
 
-def time_root(root: str) -> dict:
+def time_root(root: str, dtype: str = "float32") -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import clonealign_torch
 
@@ -34,16 +36,19 @@ def time_root(root: str) -> dict:
     ms, setup = [], []
     for rep in range(REPS + 1):
         fit = clonealign_torch.clonealign(Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0,
-                                          verbose=False, likelihood_impl="xla")
+                                          verbose=False, likelihood_impl="xla", dtype=dtype)
         if rep:  # the first fit builds the kernels and warms the allocator
             ms.append(1000 * fit.timings["loop"] / fit.convergence_info.n_iters)
             setup.append(fit.timings["setup"])
-    return {"root": root, "ms_per_iteration": ms, "setup_s": setup}
+    return {"root": root, "dtype": dtype, "ms_per_iteration": ms, "setup_s": setup}
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps(time_root(sys.argv[2])), flush=True)
+    args = sys.argv[1:]
+    f64 = args[:1] == ["--f64"]
+    args = args[f64:]
+    if len(args) == 2 and args[0] == "--one":
+        print(json.dumps(time_root(args[1], "float64" if f64 else "float32")), flush=True)
         return 0
     import torch
 
@@ -55,8 +60,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
-    for root in sys.argv[1:] or [os.path.dirname(os.path.abspath(__file__))]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], check=True)
+    for root in args or [os.path.dirname(os.path.abspath(__file__))]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), *["--f64"] * f64, "--one",
+                        root], check=True)
     return 0
 
 

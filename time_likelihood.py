@@ -27,7 +27,8 @@ With ``--f64`` it times the float64 family's wrappers at each of
 ``chip_smoke``'s full-width float64 configurations (``F64_FULL``: (Kf, S)
 with C = 10, A2 off) at each of its Y storages (``F64_FULL_STORAGES``):
 ``fwd_ms`` (``kernel_forward``: ``fwd_f64_kernel``), ``dpsi_ms``
-(``kernel_dpsi``: ``dpsi_f64_kernel``) and ``gene_ms`` (``kernel_gene``:
+(``kernel_dpsi``: ``dpsi_f64_pack_kernel`` and ``dpsi_f64_kernel``) and
+``gene_ms`` (``kernel_gene``:
 ``gene_f64_kernel`` and ``reduce_chunks_f64_kernel``), float64 operands
 from ``chip_smoke.kernel_inputs``.
 
