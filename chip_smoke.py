@@ -82,7 +82,16 @@ sweep as "vmap" and as "map" (equal), the float64 fit streamed in 8
 chunks (equal to the in-core one), and the golden example and synth fits
 and the v1 family's exact and Chebyshev fits in float64 on the card
 against the CPU port's (run in a child process after the timed fits),
-every launch of those paths a float64 one. Any
+every launch of those paths a float64 one; and, after the v1 family, the
+distributed fit (``clonealign_torch.parallel``): the full-width
+ten-restart sweep through ``run_clonealign(mesh=make_mesh())`` in an NCCL
+process group of one rank (equal to the one-process sweep), then two ranks
+sharing the card over gloo, spawned with ``torch.multiprocessing``, each
+reading and uploading only its half of the cells: the same sweep, a
+float64 sweep, ``fit_streaming(mesh=)`` and ``sharded_negbin_fit`` on the
+v1 counts, each held to its one-process counterpart, with each rank's
+launches and its ms a step in collectives (sharing one card, this measures
+correctness and the collectives' cost, not scale-out). Any
 failed phase raises and the script exits nonzero, as it does when ptxas's
 report lacks a kernel instantiation of the tensor-core, wide or float64
 kernels or shows one spilling registers. The last line of standard output
@@ -112,6 +121,7 @@ from __future__ import annotations
 import contextlib
 import gzip
 import json
+import os
 import re
 import subprocess
 import sys
@@ -795,7 +805,8 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_
     if launches != want:
         raise AssertionError(f"sweep ({name}): launches {launches}, expected {want}")
     return {"iterations": iters, "launches": launches, "ran": ran, "plan_gb": plan,
-            "lane_iter_ms": 1000 * tm["loop"] / sum(iters), "peak_gb": peak, "labels": fit.clone}
+            "lane_iter_ms": 1000 * tm["loop"] / sum(iters), "peak_gb": peak, "labels": fit.clone,
+            "elbos": np.asarray(fit.multirun_info["elbos"])}
 
 
 def allele_sweep(clonealign_torch, fl):
@@ -1472,7 +1483,9 @@ def negbin_phase(clonealign_torch, fl):
         raise AssertionError(f"negbin: the fused-likelihood kernels launched {launches}")
     return dict(fits=out, pass_ms=pass_ms, bound_ms=bound_ms, bound_by=bound_by, gibbs_s=gibbs_s,
                 gibbs_accuracy=gibbs_acc, serve_ms=1000 * serve_s, serve_accuracy=serve_acc,
-                serve_log_rel_err=serve_rel, pin=(float(pin.elbo_trace[0]), pin.final_elbo))
+                serve_log_rel_err=serve_rel, pin=(float(pin.elbo_trace[0]), pin.final_elbo),
+                exact={"labels": np.argmax(fe.clone_probs, 1), "final_elbo": fe.final_elbo,
+                       "rho": fe.rho_probs > 0.5, "iterations": fe.n_iter})
 
 
 # ---------------------------------------------------------------------------
@@ -2665,6 +2678,356 @@ def f64_kernels(f64, auto_name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The distributed fit (clonealign_torch.parallel)
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2  # ranks sharing the one card over gloo in (b)-(e)
+DIST_F64 = dict(N=20_000, G=2_000, C=10)  # the two-rank float64 sweep's counts
+DIST_F64_LANES = dict(initial_shrinks=(5,), n_repeats=3, max_iter=100, elbo_eval="reuse")
+DIST_STREAM_CHUNK = 12_500  # cells a chunk: four of each rank's 50,000
+DIST_TIMEOUT = 900  # seconds the ranks, and each collective of their group, may take
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class CollectiveClock:
+    """Counts the ``torch.distributed.all_reduce`` calls made inside the
+    block and, with ``timed``, the host seconds they take, each timed
+    between two synchronizes of the card, so that the work queued before it
+    is not charged to it (without ``timed`` nothing is synchronized)."""
+
+    def __init__(self, timed=True):
+        self.timed = timed
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as tdist
+
+        self.calls, self.seconds, self.original = 0, 0.0, tdist.all_reduce
+
+        def timed(*args, **kwargs):
+            if not self.timed:
+                self.calls += 1
+                return self.original(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return self.original(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        tdist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+
+        tdist.all_reduce = self.original
+
+
+def label_accuracy(labels, C, z_true) -> float:
+    """:func:`accuracy` of clone labels named as the fit names C clones."""
+    from clonealign_torch.api import _default_clone_names
+
+    index = {name: i for i, name in enumerate(_default_clone_names(C))}
+    return float(np.mean(np.asarray([index.get(c, -1) for c in labels]) == z_true))
+
+
+def distributed_rank(rank, port, paths, queue):
+    """One rank of the distributed phase's two-rank runs (b)-(e), in a
+    process of its own on the card: puts ``(rank, results)`` on ``queue``,
+    or ``(rank, traceback)`` when it fails, and then exits nonzero."""
+    import traceback
+
+    try:
+        queue.put((rank, distributed_runs(rank, port, paths)))
+    except Exception:  # the parent fails the phase with this rank's traceback
+        queue.put((rank, traceback.format_exc()))
+        raise
+
+
+def distributed_runs(rank, port, paths):
+    """(b) the ten-restart full-width sweep, (c) the float64 sweep, (d) the
+    streamed fit and (e) the v1 fit, each through its public entry point
+    with ``mesh=make_mesh()`` in a gloo group of DIST_WORLD ranks on the
+    card, the counts memory-mapped, so that the rank reads and uploads only
+    its rows; each run's launches counted from zero and its collectives
+    counted and timed (:class:`CollectiveClock`)."""
+    import torch
+    import torch.distributed as tdist
+
+    import clonealign_torch
+    from clonealign_torch.ops import fused_likelihood as fl
+    from clonealign_torch.parallel import distributed as dist
+    from clonealign_torch.parallel import sharding
+
+    torch.cuda.set_device(0)
+    # the ranks share the host's cores: each takes its part of them
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DIST_WORLD))
+    dist.initialize(f"127.0.0.1:{port}", DIST_WORLD, rank, backend="gloo",
+                    timeout_seconds=DIST_TIMEOUT)
+    out = {}
+    try:
+        mesh = sharding.make_mesh()
+        out["device"] = str(mesh.device)
+        # copy-on-write maps: the rows are read from the map in place (a
+        # read-only map's rows would be copied out once more, a chunk a step)
+        Y, L = np.load(paths["Y"], mmap_mode="c"), np.load(paths["L"])
+        Y64, L64 = np.load(paths["Y64"], mmap_mode="r"), np.load(paths["L64"])
+        Ynb, Lnb = np.load(paths["Ynb"], mmap_mode="r"), np.load(paths["Lnb"])
+        runs = (
+            ("b", "narrow", lambda: clonealign_torch.run_clonealign(
+                Y, L, mesh=mesh, seed=0, verbose=False, **LANES)),
+            ("c", "float64", lambda: clonealign_torch.run_clonealign(
+                Y64, L64, mesh=mesh, seed=0, verbose=False, dtype="float64", **DIST_F64_LANES)),
+            ("d", "narrow", lambda: clonealign_torch.fit_streaming(
+                Y, L, mesh=mesh, chunk_cells=DIST_STREAM_CHUNK, max_iter=FIT_MAX_ITER, seed=0,
+                verbose=False, elbo_eval="reuse")),
+            ("e", "narrow", lambda: sharding.sharded_negbin_fit(
+                Ynb, Lnb, mesh, max_iter=NEGBIN_MAX_ITER, rel_tol=1e-6)),
+        )
+        for name, family, run in runs:
+            fl.reset_launch_counts()
+            tdist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with CollectiveClock() as clock:
+                fit = run()
+            torch.cuda.synchronize()
+            row = dict(wall=time.perf_counter() - t0, launches=launches_of(fl, family),
+                       collective_calls=clock.calls, collective_s=clock.seconds)
+            if name == "e":
+                row.update(gamma=fit.post.gamma.cpu().numpy(), final_elbo=fit.final_elbo,
+                           rho=fit.post.r.cpu().numpy() > 0.5, iterations=[fit.n_iter],
+                           loop_s=fit.loop_seconds)
+            else:
+                row.update(labels=fit.clone, loop_s=fit.timings["loop"],
+                           final_elbo=fit.convergence_info.final_elbo,
+                           sd_final=fit.convergence_info.sd_final_elbo,
+                           iterations=fit.timings.get("iterations",
+                                                      [fit.convergence_info.n_iters]))
+                if fit.multirun_info is not None:
+                    row["elbos"] = np.asarray(fit.multirun_info["elbos"])
+            out[name] = row
+    finally:
+        tdist.destroy_process_group()
+    return out
+
+
+def spawn_ranks(paths):
+    """Run :func:`distributed_rank` as DIST_WORLD spawned processes and
+    return each rank's results. A rank's exception, a rank that exits
+    nonzero or a run past DIST_TIMEOUT fails the phase; every process is
+    stopped before this returns."""
+    import queue as queue_module
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=distributed_rank, args=(r, port, paths, results))
+             for r in range(DIST_WORLD)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.perf_counter() + DIST_TIMEOUT
+    try:
+        while len(got) < DIST_WORLD:
+            try:
+                rank, value = results.get(timeout=max(1.0, deadline - time.perf_counter()))
+            except queue_module.Empty:
+                raise AssertionError(f"distributed phase: no result from ranks "
+                                     f"{sorted(set(range(DIST_WORLD)) - set(got))} within "
+                                     f"{DIST_TIMEOUT} s") from None
+            if isinstance(value, str):
+                raise AssertionError(f"distributed phase: rank {rank} failed:\n{value}")
+            got[rank] = value
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.perf_counter()))
+            if p.exitcode != 0:
+                raise AssertionError(f"distributed phase: a rank exited {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(DIST_WORLD)]
+
+
+def distributed_phase(clonealign_torch, fl, Y, L, z, sweep_ref, stream_ref, negbin_ref):
+    """The distributed fit (``clonealign_torch.parallel``) on the card.
+
+    (a) ``run_clonealign(mesh=make_mesh())`` in an NCCL group of one rank:
+    the full-width ten-restart sweep against the one-process sweep
+    ``sweep_ref`` (sweep (b)): launches equal, final ELBOs within rel 1e-6,
+    clone calls identical, and the step's all_reduce made over NCCL (at
+    least one a step). Then DIST_WORLD ranks share the card over gloo
+    (CUDA tensors; NCCL refuses two ranks on one GPU), each holding and
+    uploading only its block of the cells: (b) the same sweep, each rank's
+    launches equal to the one-process sweep's, final ELBOs within rel
+    1e-4, calls agreeing on 99.9% of the cells, accuracy 0.99; (c) a
+    float64 sweep at DIST_F64 against the one-process float64 sweep
+    (iterations and calls equal, final ELBOs within rel 1e-9); (d)
+    ``fit_streaming(mesh=)`` in chunks of DIST_STREAM_CHUNK cells (four a
+    rank) against the one-process streamed fit ``stream_ref`` (iterations,
+    calls, final ELBO within the streaming bar, each rank's launches its
+    chunks'); (e) ``sharded_negbin_fit`` on the v1 phase's model3 counts
+    and iteration cut against its exact fit ``negbin_ref`` (accuracy 1.0,
+    calls and dosage mask equal, final ELBO within rel 1e-4, the bar of
+    the JAX package's own mesh fit). Returns the numbers it prints."""
+    import torch.distributed as tdist
+
+    from clonealign_torch.parallel import distributed as dist
+    from clonealign_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    dist.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                    timeout_seconds=DIST_TIMEOUT)
+    try:
+        mesh = sharding.make_mesh()
+        fl.reset_launch_counts()
+        t0 = time.perf_counter()
+        with CollectiveClock(timed=False) as clock:  # counted only: no synchronize added
+            fit = clonealign_torch.run_clonealign(Y, L, mesh=mesh, seed=0, verbose=False,
+                                                  **LANES)
+        wall_a = time.perf_counter() - t0
+        launches_a = launches_of(fl)
+    finally:
+        tdist.destroy_process_group()
+    iters = fit.timings["iterations"]
+    out = {"a": dict(wall=wall_a, launches=launches_a, collective_calls=clock.calls,
+                     lane_iter_ms=1000 * fit.timings["loop"] / sum(iters),
+                     rel=float(np.max(np.abs(fit.multirun_info["elbos"] - sweep_ref["elbos"])
+                                      / np.abs(sweep_ref["elbos"]))),
+                     same=fit.clone == sweep_ref["labels"])}
+    a = out["a"]
+    log(f"distributed (a) NCCL, one rank on {mesh.device}: run_clonealign(mesh=make_mesh()) "
+        f"{FULL['N']}x{FULL['G']}x{FULL['C']}, 10 restarts: {wall_a:.2f} s wall, "
+        f"{a['lane_iter_ms']:.3f} ms per lane iteration; launches {launches_a} (one-process "
+        f"sweep {sweep_ref['launches']}); final ELBOs max rel diff {a['rel']:.3e} (bar 1e-6); "
+        f"clone calls {'identical' if a['same'] else 'DIFFER'}; {clock.calls} NCCL all_reduces "
+        f"for {max(iters)} steps (at least one a step)")
+    if launches_a != sweep_ref["launches"] or a["rel"] > 1e-6 or not a["same"] or \
+            clock.calls < max(iters):
+        raise AssertionError("distributed (a): the NCCL world of one differs from the sweep")
+    del fit
+
+    # the counts the ranks read: the full-width ones, the float64 sweep's
+    # (beside its one-process sweep) and the v1 phase's model3 counts
+    Y64, L64, z64 = synth_counts(6, DIST_F64["N"], DIST_F64["G"], DIST_F64["C"])
+    fl.reset_launch_counts()
+    ref64 = clonealign_torch.run_clonealign(Y64, L64, device="cuda", seed=0, verbose=False,
+                                            dtype="float64", **DIST_F64_LANES)
+    ref64_launches = launches_of(fl, "float64")
+    genes = model3_genes(41, NEGBIN["G"], NEGBIN["C"])
+    Ynb, znb = model3_cells(genes, 42, NEGBIN["N"])
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {name: str(Path(tmp) / f"{name}.npy")
+                 for name in ("Y", "L", "Y64", "L64", "Ynb", "Lnb")}
+        for name, arr in (("Y", Y), ("L", L), ("Y64", Y64), ("L64", L64),
+                          ("Ynb", Ynb.cpu().numpy()),
+                          ("Lnb", genes["L"].cpu().numpy().astype(np.float64))):
+            np.save(paths[name], arr)
+        del Ynb
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(paths)
+        out["spawn_wall"] = time.perf_counter() - t0
+
+    def collectives(r, row):
+        steps = max(row["iterations"])
+        return (f"rank {r}: {row['wall']:.2f} s wall, loop {1000 * row['loop_s'] / steps:.2f} ms "
+                f"a step, collectives {1000 * row['collective_s'] / steps:.3f} ms a step "
+                f"({row['collective_calls']} all_reduce calls in the run)")
+
+    gloo = (f"gloo, {DIST_WORLD} ranks sharing one card (correctness and the collectives' "
+            "cost, not scale-out)")
+    bad = []
+    for r, rank in enumerate(ranks):
+        b = rank["b"]
+        rel = float(np.max(np.abs(b["elbos"] - sweep_ref["elbos"]) / np.abs(sweep_ref["elbos"])))
+        agree = float(np.mean(np.asarray(b["labels"]) == np.asarray(sweep_ref["labels"])))
+        acc = label_accuracy(b["labels"], FULL["C"], z)
+        b.update(rel=rel, agree=agree, accuracy=acc,
+                 lane_iter_ms=1000 * b["loop_s"] / sum(b["iterations"]))
+        log(f"distributed (b) {gloo}, the ten-restart sweep on {rank['device']}, "
+            f"{collectives(r, b)}; {b['lane_iter_ms']:.3f} ms per lane iteration; launches "
+            f"{b['launches']}; final ELBOs max rel diff {rel:.3e} (bar 1e-4); calls agree on "
+            f"{agree:.5f} of the cells (bar 0.999); accuracy {acc:.4f}")
+        if b["launches"] != sweep_ref["launches"] or rel > 1e-4 or agree < 0.999 or \
+                acc < MIN_ACCURACY:
+            bad.append(f"(b) rank {r}")
+
+        c = rank["c"]
+        rel = float(np.max(np.abs(c["elbos"] - ref64.multirun_info["elbos"])
+                           / np.abs(ref64.multirun_info["elbos"])))
+        c.update(rel=rel, lane_iter_ms=1000 * c["loop_s"] / sum(c["iterations"]))
+        same = c["labels"] == ref64.clone and c["iterations"] == ref64.timings["iterations"]
+        ref64_ms = 1000 * ref64.timings["loop"] / sum(ref64.timings["iterations"])
+        log(f"distributed (c) {gloo}, float64 sweep {DIST_F64['N']}x{DIST_F64['G']}x"
+            f"{DIST_F64['C']}, 3 restarts, {collectives(r, c)}; {c['lane_iter_ms']:.3f} ms per "
+            f"lane iteration (one process {ref64_ms:.3f}); "
+            f"launches {c['launches']} (one process {ref64_launches}); final ELBOs max rel diff "
+            f"{rel:.3e} (bar 1e-9); iterations and calls {'equal' if same else 'DIFFER'}")
+        if rel > 1e-9 or not same or c["launches"] != ref64_launches:
+            bad.append(f"(c) rank {r}")
+
+        d = rank["d"]
+        n = d["iterations"][0]
+        chunks = -(-(FULL["N"] // DIST_WORLD) // DIST_STREAM_CHUNK)
+        want = {"fwd": chunks * (2 + n + 20), "dpsi": chunks * n, "gene": chunks * n}
+        diff = abs(d["final_elbo"] - stream_ref["final_elbo"])
+        bar = max(1e-4 * abs(stream_ref["final_elbo"]), 3.0 * stream_ref["sd_final"])
+        same = d["labels"] == stream_ref["labels"] and n == stream_ref["n_iters"]
+        d.update(diff=diff, bar=bar, iter_ms=1000 * d["loop_s"] / max(n, 1))
+        log(f"distributed (d) {gloo}, fit_streaming(mesh=) in {chunks} chunks of "
+            f"{DIST_STREAM_CHUNK} a rank, {collectives(r, d)}; {d['iter_ms']:.2f} ms an iteration "
+            f"(one process {stream_ref['iter_ms']:.2f}); launches {d['launches']} (expected "
+            f"{want}); final ELBO |diff| {diff:.6g} (bar {bar:.6g}); iterations and calls "
+            f"{'equal' if same else 'DIFFER'}")
+        if d["launches"] != want or diff > bar or not same:
+            bad.append(f"(d) rank {r}")
+
+    e0, e1 = ranks[0]["e"], ranks[1]["e"]
+    labels = np.argmax(np.concatenate([rank["e"]["gamma"] for rank in ranks]), 1)
+    acc = float(np.mean(labels == znb))
+    agree = float(np.mean(labels == negbin_ref["labels"]))
+    rel = abs(e0["final_elbo"] - negbin_ref["final_elbo"]) / abs(negbin_ref["final_elbo"])
+    rho_same = bool(np.array_equal(e0["rho"], negbin_ref["rho"]))
+    out["e"] = dict(accuracy=acc, agree=agree, rel=rel, iterations=e0["iterations"][0],
+                    s_per_iter=e0["loop_s"] / max(e0["iterations"][0], 1))
+    for r, rank in enumerate(ranks):
+        log(f"distributed (e) {gloo}, sharded_negbin_fit {NEGBIN['N']}x{NEGBIN['G']}x"
+            f"{NEGBIN['C']}, {collectives(r, rank['e'])}; {rank['e']['iterations'][0]} iterations "
+            f"(one process {negbin_ref['iterations']}), "
+            f"{rank['e']['loop_s'] / max(rank['e']['iterations'][0], 1):.4f} s an iteration, "
+            f"fused-likelihood launches {sum(rank['e']['launches'].values())} (expected 0)")
+    log(f"distributed (e): accuracy {acc:.4f} (bar 1.0), calls agree with the one-process "
+        f"exact fit on {agree:.5f} of the cells, dosage mask {'equal' if rho_same else 'DIFFERS'}, "
+        f"final ELBO rel diff {rel:.3e} (bar 1e-4); both ranks' final ELBOs "
+        f"{'equal' if e0['final_elbo'] == e1['final_elbo'] else 'DIFFER'}")
+    if acc < 1.0 or agree < 1.0 or not rho_same or rel > 1e-4 or \
+            e0["final_elbo"] != e1["final_elbo"] or \
+            any(any(rank["e"]["launches"].values()) for rank in ranks):
+        bad.append("(e)")
+    out["ranks"] = ranks
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"distributed phase: {out['seconds']:.1f} s (the two ranks' process "
+        f"{out['spawn_wall']:.1f} s)")
+    if bad:
+        raise AssertionError("distributed phase misses its bars: " + ", ".join(bad))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2852,7 +3215,7 @@ def main() -> int:
         + " / ".join(f"{t:.2f}" for t in ms["stream"]) + " against in-core "
         + " / ".join(f"{t:.2f}" for t in ms["core"]) + f": {extra:.2f} ms a step more")
     serve_full(clonealign_torch, core_fit, Y, L, z)
-    del Y, core_fit
+    del core_fit  # Y stays for the distributed phase (9b)
 
     # 7. a small restart sweep through run_clonealign
     Ys, Ls, zs = synth_counts(4, SWEEP["N"], SWEEP["G"], SWEEP["C"])
@@ -2880,7 +3243,13 @@ def main() -> int:
 
     # 9. the legacy v1 negative-binomial family: plain PyTorch on the card,
     # no fused-likelihood launch
-    negbin_phase(clonealign_torch, fl)
+    negbin = negbin_phase(clonealign_torch, fl)
+
+    # 9b. the distributed fit: a world of one over NCCL, then two ranks
+    # sharing the card over gloo, against the one-process sweep (6), the
+    # streamed fit (6b) and the v1 fit (9)
+    distributed_phase(clonealign_torch, fl, Y, L, z, sweeps["b"], turns[0], negbin["exact"])
+    del Y
 
     # 10. the command line and its file formats: the full-width sweep from
     # an .npz to an .rds, serving from the .rds, a CellRanger .mtx.gz

@@ -30,6 +30,7 @@ from .infer import run_inference
 from .models import multinomial as mm
 from .models.allele import construct_ai_likelihood, sanitize_allele_info, snv_clone_probs
 from .ops.fused_likelihood import WIDE_MAX_A2, WIDE_MAX_KF, WIDE_MAX_SC
+from .parallel.collectives import Cells, agree, all_max, all_min, all_sum, block_of, gather_rows
 from .utils.chunking import host_row_chunk as _host_row_chunk
 from .utils.device import resolve_device, resolve_dtype, synchronize
 from .utils.noise import Noise
@@ -213,6 +214,9 @@ class FitContext:
     data_init_mu: object
     extra_log_lik: Optional[torch.Tensor] = None  # (N, C) allele term on the device, or None
     clone_probs_from_snv: Optional[np.ndarray] = None  # (N, C) softmax of it, on the host
+    # on a mesh, this rank's block of the cells: Y, data's per-cell fields
+    # and extra_log_lik are its rows (clone_probs_from_snv is every cell's)
+    cells: Optional[Cells] = None
 
 
 # y_storage -> the storage dtype of the device Y (None: the compute dtype).
@@ -228,7 +232,7 @@ _Y_STORAGE = {
 }
 
 
-def _auto_y_storage(y_values):
+def _auto_y_storage(y_values, cells: Optional[Cells] = None):
     """``y_storage="auto"``: the narrowest exact storage for the counts, int8
     when every count fits, int16 up to 32767, else None (the compute dtype),
     and None for fractional counts (reference api.py:185-210). Integer
@@ -240,26 +244,46 @@ def _auto_y_storage(y_values):
     ms at int8 and 0.769 at int16 against 0.887, the backward's gene part
     0.940 and 0.955 against 0.954; the ten-lane exact sweep 2.71-2.78 ms a
     lane-iteration at int8 against 2.93-2.95, its inference peak 1.28 GB
-    against 2.79."""
-    if y_values.size == 0:
+    against 2.79.
+
+    On a mesh (``cells``) the counts are this rank's, and the largest count
+    and whether any is fractional are every rank's, so every rank stores Y
+    alike."""
+    ymax, fractional = _count_range(y_values)
+    if cells is not None:
+        ymax, fractional = all_max(np.array([ymax, fractional], np.float64), cells)
+    if fractional or ymax == -np.inf:
         return None
-    if np.issubdtype(y_values.dtype, np.integer):
-        ymax = float(y_values.max())
-    else:
-        # chunked integrality scan: no full-size temporaries
-        flat = y_values.reshape(-1)
-        ymax = 0.0
-        step = 16_777_216
-        for i in range(0, flat.size, step):
-            c = flat[i : i + step]
-            if np.any(c != np.trunc(c)):
-                return None
-            ymax = max(ymax, float(c.max()))
     if ymax <= np.iinfo(np.int8).max:
         return torch.int8
     if ymax <= np.iinfo(np.int16).max:
         return torch.int16
     return None
+
+
+def _count_range(y_values):
+    """``(largest count, whether any count is fractional)`` of a numpy array
+    or a tensor; -inf for no counts."""
+    if torch.is_tensor(y_values):
+        if not y_values.numel():
+            return -np.inf, False
+        fractional = y_values.is_floating_point() and bool(
+            torch.any(y_values != torch.trunc(y_values)))
+        return float(y_values.max()), fractional
+    if y_values.size == 0:
+        return -np.inf, False
+    if np.issubdtype(y_values.dtype, np.integer):
+        return float(y_values.max()), False
+    # chunked integrality scan: no full-size temporaries
+    flat = y_values.reshape(-1)
+    ymax = -np.inf
+    step = 16_777_216
+    for i in range(0, flat.size, step):
+        c = flat[i : i + step]
+        if np.any(c != np.trunc(c)):
+            return ymax, True
+        ymax = max(ymax, float(c.max()))
+    return ymax, False
 
 
 def _check_reference_keywords(key, loop_impl) -> None:
@@ -379,12 +403,13 @@ def _device_validated(Y) -> bool:
             and Y.dtype.itemsize <= 2)
 
 
-def _check_host_counts(Y, device_validated, allow_fractional, K) -> None:
+def _check_host_counts(Y, device_validated, allow_fractional, K, cells=None) -> None:
     """The host checks of the counts (:func:`_validate_counts`, unless the
-    device checks them) and of the cell count the PCA init needs."""
+    device checks them) and of the cell count the PCA init needs; on a mesh
+    (``cells``: Y this rank's rows) every rank raises if one does."""
     if not device_validated:
-        _validate_counts(Y, allow_fractional=allow_fractional)
-    if K > 0 and Y.shape[0] < 2:
+        agree(cells, lambda: _validate_counts(Y, allow_fractional=allow_fractional))
+    if K > 0 and (Y.shape[0] if cells is None else cells.n) < 2:
         raise ValueError(
             "At least 2 cells are required when K > 0 (the PCA initialization "
             "of the latent space needs multiple cells); pass K=0 for a "
@@ -392,24 +417,25 @@ def _check_host_counts(Y, device_validated, allow_fractional, K) -> None:
         )
 
 
-def _resolve_storage(y_storage, Y):
+def _resolve_storage(y_storage, Y, cells: Optional[Cells] = None):
     """Y's storage type on the device (``_Y_STORAGE``; "auto":
-    :func:`_auto_y_storage` of the counts, a sparse matrix's stored ones);
-    None is the compute dtype."""
+    :func:`_auto_y_storage` of the counts, a sparse matrix's stored ones;
+    on a mesh every rank's); None is the compute dtype."""
     storage = _Y_STORAGE[y_storage]
     if storage == "auto":
-        storage = _auto_y_storage(Y.data if _is_scipy_sparse(Y) else Y)
+        storage = _auto_y_storage(Y.data if _is_scipy_sparse(Y) else Y, cells)
     return storage
 
 
 def _check_statistics(data, device_validated, feasible=True) -> None:
     """The checks made on the device statistics ``data`` (``s``,
     ``YlogL``): a cell without counts, where the host did not check, and
-    with ``feasible`` a cell no clone can explain."""
-    if device_validated and float(torch.min(data.s)) == 0:
+    with ``feasible`` a cell no clone can explain; on a mesh
+    (``data.cells``) over every rank's cells."""
+    if device_validated and float(all_min(torch.min(data.s), data.cells)) == 0:
         raise ValueError("Some cells have no counts mapping")  # R/inference-tflow.R:212-214
     if feasible:
-        mm._check_cells_feasible(data.YlogL)
+        mm._check_cells_feasible(data.YlogL, data.cells)
 
 
 def _model_config(K, P, mc_samples, fix_alpha, likelihood_impl, dtype, n_elements):
@@ -442,6 +468,7 @@ def setup_fit(
     allow_fractional: bool = False,
     *,
     device="cuda",
+    mesh=None,
 ) -> FitContext:
     """Input parsing, gene filtering and validation, then the device data
     (reference R/clonealign.R:206-260, R/inference-tflow.R:111-235).
@@ -463,6 +490,15 @@ def setup_fit(
     covariates ``x`` (:func:`_parse_covariates`) go to the device beside Y,
     in the compute dtype, and so does the allele term
     (:func:`_setup_allele`).
+
+    ``mesh`` (a :class:`~clonealign_torch.parallel.sharding.Mesh` with a
+    process group; ``device`` is then its device) splits the cells: every
+    rank parses the whole input and keeps its block of rows
+    (``process_cell_slice``) of the counts, the covariates and the allele
+    counts. Every decision that reads all cells takes every rank's values:
+    the gene filter the summed column totals, the storage the largest
+    count, the likelihood the global N x G, and each check raises on every
+    rank or on none.
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
@@ -470,6 +506,10 @@ def setup_fit(
     Y, gene_names, L, clone_names, x, P = _parse_inputs(
         gene_expression_data, copy_number_data, x, K, mc_samples, fix_alpha, y_storage,
         likelihood_impl, dev, verbose)
+    cells = block_of(mesh, Y.shape[0])
+    if cells is not None:
+        Y = Y[cells.start : cells.stop]
+        x = None if x is None else x[cells.start : cells.stop]
     device_validated = _device_validated(Y)
     # float32 column sums of integers are exact below 2^24, and a total that
     # rounds is far above any threshold this admits
@@ -483,20 +523,21 @@ def setup_fit(
         return _retained_genes(gene_names, low, verbose)
 
     if not defer_filter:
-        retained_genes = drop_genes(_colsum_f64(Y) <= gene_filter_threshold)
-    _check_host_counts(Y, device_validated, allow_fractional, K)
+        retained_genes = drop_genes(all_sum(_colsum_f64(Y), cells) <= gene_filter_threshold)
+    _check_host_counts(Y, device_validated, allow_fractional, K, cells)
 
     # --- saturation (reference R/inference-tflow.R:142-144) ---
     if saturate:
         L = np.minimum(L, float(saturation_threshold))
 
     # --- allele-specific setup (reference R/inference-tflow.R:166-187) ---
-    extra_log_lik, clone_probs_from_snv = _setup_allele(clone_allele, cov, ref, Y.shape[0],
-                                                        L.shape[1], dt, dev, verbose)
+    n_cells = Y.shape[0] if cells is None else cells.n
+    extra_log_lik, clone_probs_from_snv = _setup_allele(clone_allele, cov, ref, n_cells,
+                                                        L.shape[1], dt, dev, verbose, cells)
 
-    storage = _resolve_storage(y_storage, Y)
+    storage = _resolve_storage(y_storage, Y, cells)
     data = mm.prepare_data(Y, L, x, device=dev, dtype=dt, y_storage=storage,
-                           check_feasible=not defer_filter)
+                           check_feasible=not defer_filter, cells=cells)
     if defer_filter:
         low = data.colsum_Y.cpu().numpy() <= gene_filter_threshold
         retained_genes = drop_genes(low)
@@ -507,10 +548,10 @@ def setup_fit(
                 :, torch.as_tensor(np.flatnonzero(~low), device=dev)]
             del data
             data = mm.prepare_data(stored, L, x, device=dev, dtype=dt, y_storage=storage,
-                                   check_feasible=False)
+                                   check_feasible=False, cells=cells)
     _check_statistics(data, device_validated, feasible=defer_filter)
     config = _model_config(K, P, mc_samples, fix_alpha, likelihood_impl, dt,
-                           Y.shape[0] * Y.shape[1])
+                           n_cells * Y.shape[1])
 
     return FitContext(
         Y=Y,
@@ -524,6 +565,7 @@ def setup_fit(
         data_init_mu=_mu_init_switch(data_init_mu),
         extra_log_lik=extra_log_lik,
         clone_probs_from_snv=clone_probs_from_snv,
+        cells=cells,
     )
 
 
@@ -539,14 +581,16 @@ def _mu_init_switch(data_init_mu):
     return data_init_mu
 
 
-def _setup_allele(clone_allele, cov, ref, N, C, dtype, device, verbose):
+def _setup_allele(clone_allele, cov, ref, N, C, dtype, device, verbose, cells=None):
     """The allele-specific term (reference api.py:475-495,
     R/inference-tflow.R:166-187): ``(extra_log_lik, clone_probs_from_snv)``,
     the (N, C) term on ``device`` in ``dtype`` and its softmax on the host,
     or ``(None, None)`` when any of the three inputs is missing. ``cov`` and
-    ``ref`` are cell-by-variant; ``alt = cov - ref`` is the intended
-    semantics (the reference's public API passes ``ref = cov``, zeroing
-    the alternative counts, R/clonealign.R:271)."""
+    ``ref`` are cell-by-variant, N rows; ``alt = cov - ref`` is the intended
+    semantics (the reference's public API passes ``ref = cov``, zeroing the
+    alternative counts, R/clonealign.R:271). On a mesh (``cells``) they hold
+    every cell: the term is made for this rank's rows, its softmax gathered
+    for every cell."""
     if clone_allele is None or ref is None or cov is None:
         return None, None
     if verbose:
@@ -555,11 +599,13 @@ def _setup_allele(clone_allele, cov, ref, N, C, dtype, device, verbose):
     cov = np.asarray(cov, np.float64)
     ref = np.asarray(ref, np.float64)
     sanitize_allele_info(clone_allele, cov, ref, N, C)
+    if cells is not None:
+        cov, ref = cov[cells.start : cells.stop], ref[cells.start : cells.stop]
     cov_vn = cov.T
     alt_vn = cov_vn - ref.T
     v_log_prob = construct_ai_likelihood(
         torch.as_tensor(clone_allele, dtype=dtype, device=device), alt_vn, cov_vn)
-    return v_log_prob, snv_clone_probs(v_log_prob).cpu().numpy()
+    return v_log_prob, gather_rows(snv_clone_probs(v_log_prob), cells).cpu().numpy()
 
 
 def clonealign(
@@ -710,13 +756,18 @@ def _package_fit(
     device_Y=None,
     device_s=None,
     blocks=None,
+    cells: Optional[Cells] = None,
 ) -> ClonealignFit:
     """Fetch ML params and build the fit object
     (reference R/inference-tflow.R:424-480, R/clonealign.R:283-303).
 
     ``Y`` is the host counts, or a streaming fit's row source
     (``stream._RowSource``), read in the row ``blocks`` given, with
-    ``device_Y`` its uploading counterpart (``stream._DeviceRows``)."""
+    ``device_Y`` its uploading counterpart (``stream._DeviceRows``). On a
+    mesh (``cells``) they, ``device_s`` and the result's per-cell
+    parameters are this rank's rows: the per-cell outputs are gathered and
+    the correlations summed over every rank, so every rank returns the fit
+    the one-process call gives."""
     p = result.params
     # Size factors must be float64-exact. For integer host counts (dense or
     # sparse) whose row totals stay below 2^24 the device totals are exact in
@@ -726,7 +777,7 @@ def _package_fit(
     if (
         device_s is not None
         and np.issubdtype(Y.dtype, np.integer)
-        and float(torch.max(device_s)) < 2.0**24
+        and float(all_max(torch.max(device_s), cells)) < 2.0**24
     ):
         s = device_s.cpu().numpy().astype(np.float64)
     if s is None and blocks is None:
@@ -734,17 +785,17 @@ def _package_fit(
     elif s is None:
         s = np.concatenate([Y[i:j].sum(axis=1, dtype=np.float64) for i, j in blocks])
 
-    def host(t):
-        return t.detach().cpu().numpy()
+    def host(t, per_cell=False):
+        return (gather_rows(t.detach(), cells) if per_cell else t.detach()).cpu().numpy()
 
     ml_params = {
         "mu": host(mm.softplus(p.qmu_loc)),
-        "clone_probs": host(torch.softmax(p.gamma_logits, dim=1)),
-        "s": s,
+        "clone_probs": host(torch.softmax(p.gamma_logits, dim=1), per_cell=True),
+        "s": gather_rows(s, cells),
         "alpha": host(torch.softmax(p.alpha_unconstr, dim=0)),
     }
     if config.K > 0:
-        ml_params["psi"] = host(p.psi)
+        ml_params["psi"] = host(p.psi, per_cell=True)
         ml_params["W"] = host(p.W)
         ml_params["chi"] = host(torch.exp(p.chi_unconstr))
     if config.P > 0:
@@ -765,7 +816,8 @@ def _package_fit(
         ml_params["clone_probs"], clone_names, clone_call_probability
     )
     correlations = _assign.compute_correlations(
-        Y, L, clones, clone_names, device_Y=device_Y, dtype=p.qmu_loc.dtype, blocks=blocks
+        Y, L, clones if cells is None else clones[cells.start : cells.stop], clone_names,
+        device_Y=device_Y, dtype=p.qmu_loc.dtype, blocks=blocks, cells=cells,
     )
     finite = correlations[np.isfinite(correlations)]
     if finite.size and np.quantile(finite, 0.25) < 0:

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from .models.multinomial import _row_blocks
+from .parallel.collectives import all_sum
 from .utils.chunking import host_row_chunk as _host_row_chunk
 from .utils.device import full_fp32_matmul
 from .utils.sparsity import is_scipy_sparse as _is_scipy_sparse
@@ -66,14 +67,15 @@ def compute_ca_fit_mse(fit, Y, L, model_mu: bool = False, random_clones: bool = 
     return float(np.mean((predicted - Y) ** 2))
 
 
-def _clone_sums_device(Y_dev, idx_full, C, dtype=None, blocks=None):
+def _clone_sums_device(Y_dev, idx_full, C, dtype=None, blocks=None, cells=None):
     """Sufficient statistics for :func:`compute_correlations` on the device
     that holds the counts: per-(clone, gene) sums S as (C, N) x (N, G)
     products, per-gene sum(y) from S, and sum(y^2) as masked column sums,
     over row blocks of Y converted one at a time (Y may be stored narrow;
     ``blocks``, by default ``_row_blocks``). A float64 fit (``dtype``, by
     default Y's) keeps float64 sums; otherwise they accumulate in float32
-    without TF32."""
+    without TF32. On a mesh (``cells``) Y is this rank's rows and the sums
+    are every rank's."""
     acc = torch.float64 if (dtype or Y_dev.dtype) == torch.float64 else torch.float32
     (N, G), dev = Y_dev.shape, Y_dev.device
     idx = torch.as_tensor(np.asarray(idx_full), dtype=torch.int64, device=dev)
@@ -86,11 +88,12 @@ def _clone_sums_device(Y_dev, idx_full, C, dtype=None, blocks=None):
             Yf = Y_dev[i:j].to(acc)
             S += onehot[i:j].T @ Yf          # (C, G)
             sum_y2 += keep[i:j] @ (Yf * Yf)  # (G,)
+    S, sum_y2 = all_sum(torch.cat([S, sum_y2[None]]), cells).split([C, 1])
     S = S.cpu().numpy().astype(np.float64)
-    return S, S.sum(axis=0), sum_y2.cpu().numpy().astype(np.float64)
+    return S, S.sum(axis=0), sum_y2[0].cpu().numpy().astype(np.float64)
 
 
-def multirun_calls_device(gamma_logits, threshold):
+def multirun_calls_device(gamma_logits, threshold, cells=None):
     """Threshold-argmax clone calls for every restart lane at once, on the
     device that holds the logits: softmax -> (argmax, max) -> threshold (NaN
     rows read unassigned, as in :func:`clone_assignment`), plus per-lane
@@ -98,7 +101,8 @@ def multirun_calls_device(gamma_logits, threshold):
 
     Returns ``(called, counts)`` as numpy arrays: ``called[r, n]`` in
     ``0..C`` with ``C`` meaning unassigned; ``counts[r, label]`` over the
-    ``C + 1`` labels.
+    ``C + 1`` labels. On a mesh (``cells``) the logits are this rank's
+    cells, and so are the calls; the counts are every rank's.
     """
     gl = torch.as_tensor(gamma_logits)
     probs = torch.softmax(gl, dim=-1)
@@ -107,12 +111,12 @@ def multirun_calls_device(gamma_logits, threshold):
     # compare in the logits dtype, as the host path does
     t = torch.tensor(threshold, dtype=gl.dtype, device=gl.device)
     called = torch.where(maxp >= t, best, n_clones)
-    counts = torch.nn.functional.one_hot(called, n_clones + 1).sum(dim=-2)
+    counts = all_sum(torch.nn.functional.one_hot(called, n_clones + 1).sum(dim=-2), cells)
     return called.to(torch.int32).cpu().numpy(), counts.to(torch.int32).cpu().numpy()
 
 
 def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=None, dtype=None,
-                         blocks=None):
+                         blocks=None, cells=None):
     """Per-gene Pearson correlation between expression and the copy number of
     each cell's assigned clone (reference R/clonealign.R:318-334; Pearson is
     affine-invariant, so correlating raw counts matches the reference's
@@ -132,6 +136,10 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
     be a row source that uploads ``device_Y[i:j]`` (a streaming fit's), read
     in the row ``blocks`` given, and ``Y`` then anything that gives the
     columns ``Y[:, genes]``.
+
+    On a mesh (``cells``, with ``device_Y``) ``Y``, ``device_Y`` and the
+    clones are this rank's cells, and every sum is every rank's (the host
+    sums of the guard below too), so each rank returns the same values.
     """
     sparse = _is_scipy_sparse(Y)
     L = np.asarray(L, np.float64)
@@ -147,14 +155,14 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
         idx_full = np.asarray(
             [col_idx[c] if k else -1 for c, k in zip(clones, keep)]
         )
-    M = int(keep.sum())
+    m = all_sum(np.bincount(idx_full[keep], minlength=C).astype(np.float64), cells)  # per clone
+    M = int(m.sum())
     G = Y.shape[1] if device_Y is None else device_Y.shape[1]
     if M < 2:
         return np.full(G, np.nan)
 
-    m = np.bincount(idx_full[keep], minlength=C).astype(np.float64)  # cells per clone
     if device_Y is not None:
-        S, sum_y, sum_y2 = _clone_sums_device(device_Y, idx_full, C, dtype, blocks)
+        S, sum_y, sum_y2 = _clone_sums_device(device_Y, idx_full, C, dtype, blocks, cells)
         # Cancellation guard: var_y = sum_y2 - sum_y^2/M subtracts two
         # near-equal numbers for a near-constant high-mean gene, amplifying
         # the float32 error of the device sums. Genes whose variance is a
@@ -167,11 +175,10 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
             cols = Y.tocsr()[:, suspect].toarray() if sparse else np.asarray(Y[:, suspect])
             cols = cols.astype(np.float64)[keep]
             ib = idx_full[keep]
-            sum_y[suspect] = cols.sum(axis=0)
-            sum_y2[suspect] = (cols * cols).sum(axis=0)
-            for c in range(C):
-                sel = ib == c
-                S[c, suspect] = cols[sel].sum(axis=0) if sel.any() else 0.0
+            sums = np.stack([cols.sum(axis=0), (cols * cols).sum(axis=0)]
+                            + [cols[ib == c].sum(axis=0) for c in range(C)])
+            sums = all_sum(sums, cells)
+            sum_y[suspect], sum_y2[suspect], S[:, suspect] = sums[0], sums[1], sums[2:]
     elif sparse:
         import scipy.sparse as sp
 

@@ -4,7 +4,9 @@
 
 The loop runs in Python over R lanes (restarts) at once, with one host sync
 per iteration for all of them: the stop test needs the new ELBOs on the
-host. A single fit is the one-lane case.
+host. A single fit is the one-lane case. On a mesh (``ModelData.cells``)
+each rank runs the loop on its rows, and one all_reduce a step sums the
+ranks' values and shared gradients.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from .models import multinomial as mm
+from .parallel.collectives import CELL_AXIS, all_sum
 from .utils.device import synchronize
 
 
@@ -275,6 +278,19 @@ def run_inference_lanes(
 
     ``extra_log_lik`` (N, C), the allele term or None, enters every ELBO and
     the warm start of every lane (reference infer.py:88-226).
+
+    Every ELBO is taken as its cell terms
+    (``models/multinomial.elbo_cell_terms``) plus its global terms
+    (``elbo_global_terms``). On a mesh (``data.cells``) ``data``,
+    ``extra_log_lik`` and the per-cell parameters are this rank's rows, and
+    every rank runs this loop with the same draws: each rank takes the
+    value and gradients of its cell terms (rank 0 adds the global terms),
+    and one all_reduce sums the values and the shared parameters'
+    gradients before every rank takes the same step. The per-cell
+    parameters step on their own rank. So every rank's ``Monitor`` sees the
+    same ELBOs and stops and freezes the same lanes, and the iteration
+    keeps its one host sync. In one process the all_reduce is the
+    identity.
     """
     if elbo_eval not in ("fresh", "reuse"):
         raise ValueError(f"elbo_eval must be 'fresh' or 'reuse', got {elbo_eval!r}")
@@ -284,16 +300,45 @@ def run_inference_lanes(
     shape = (config.mc_samples, params.qmu_loc.shape[-1])
     every = np.arange(R)
 
+    cells = data.cells
+    shared = [i for i, spec in enumerate(mm.param_specs().tensors()) if CELL_AXIS not in spec]
+
     def draw(what, lanes):
         return mm.stack_lanes([noises[r].normal(what, shape, dtype, device) for r in lanes])
+
+    def own_part(p, base, cfg):
+        """This rank's part of the ELBO of every lane: its cell terms, and the
+        global terms on rank 0 (in one process, the whole ELBO)."""
+        part = mm.elbo_cell_terms(p, data, base, cfg, extra_log_lik)
+        if cells is None or cells.mesh.rank == 0:
+            part = part + mm.elbo_global_terms(p, base, cfg, data.colsum_Y)
+        return part
+
+    def evaluate(p, eps_list, cfg):
+        """The ELBO of every lane at each draw of ``eps_list``, (R, draws)."""
+        return all_sum(torch.stack([own_part(p, mm.sample_mu_base(p, e), cfg)
+                                    for e in eps_list], -1), cells)
+
+    def neg_elbo_and_grads(p, eps):
+        """-ELBO of the live lanes and its gradients with respect to the
+        leaves: this rank's part's, then one all_reduce of the shared
+        parameters' gradients and the values."""
+        part = own_part(p, mm.sample_mu_base(p, eps), config)
+        grads = torch.autograd.grad(-part.sum(), leaves, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+        flat = all_sum(torch.cat([grads[i].reshape(-1) for i in shared] + [-part.detach()]),
+                       cells)
+        sizes = [grads[i].numel() for i in shared] + [part.numel()]
+        for i, piece in zip(shared, flat.split(sizes)):
+            grads[i] = piece.view_as(grads[i])
+        return flat[-part.numel():], grads
 
     with torch.no_grad():
         shrinks = torch.as_tensor(np.asarray(initial_shrinks, np.float64), dtype=dtype, device=device)
         warm = mm.gamma_warm_start_logits(params, data, draw("warm", every), shrinks, config,
                                           extra_log_lik)
         params = params.replace(gamma_logits=warm)
-        elbo_val = mm.elbo(params, data, draw("init_eval", every), config,
-                           extra_log_lik).cpu().numpy()
+        elbo_val = evaluate(params, [draw("init_eval", every)], config)[..., 0].cpu().numpy()
 
     leaves = [t.detach().clone().requires_grad_(True) for t in params.tensors()]
     opt = TF1Adam(leaves, learning_rate, n_lanes=R)
@@ -309,17 +354,13 @@ def run_inference_lanes(
         lanes = np.flatnonzero(active)
         # all lanes live: no gather, and the step needs no mask
         idx = None if active.all() else _upload(lanes, device)
-        neg_elbo = -mm.elbo(lanes_of(leaves, idx), data, draw("train", lanes), config,
-                            extra_log_lik)
-        grads = torch.autograd.grad(neg_elbo.sum(), leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        neg_elbo, grads = neg_elbo_and_grads(lanes_of(leaves, idx), draw("train", lanes))
         opt.step(leaves, grads, None if idx is None else active)
         if elbo_eval == "fresh":
             with torch.no_grad():
-                elbo_new = mm.elbo(lanes_of(leaves, idx), data, draw("eval", lanes), config,
-                                   extra_log_lik)
+                elbo_new = evaluate(lanes_of(leaves, idx), [draw("eval", lanes)], config)[..., 0]
         else:
-            elbo_new = -neg_elbo.detach()
+            elbo_new = -neg_elbo
         elbo_new = elbo_new.cpu().numpy()  # the iteration's one host sync
         mon.record(lanes, elbo_new)
         if progress:
@@ -333,10 +374,8 @@ def run_inference_lanes(
 
     with torch.no_grad():
         params = mm.CloneAlignParams(*[t.detach() for t in leaves])
-        finals = torch.stack([
-            mm.elbo(params, data, draw("final", every), final_config(config), extra_log_lik)
-            for _ in range(n_final_elbo_samples)
-        ], dim=-1)  # (R, n_final_elbo_samples)
+        finals = evaluate(params, [draw("final", every) for _ in range(n_final_elbo_samples)],
+                          final_config(config))  # (R, n_final_elbo_samples)
         final_elbo = torch.mean(finals, dim=-1).cpu().numpy().astype(np.float64)
         sd_final = torch.std(finals, dim=-1, correction=1).cpu().numpy().astype(np.float64)
 

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..ops.fused_likelihood import fused_likelihood_terms
+from ..parallel.collectives import CELL_AXIS, Cells, all_max, all_min, all_sum, gather_rows
 from ..utils.device import full_fp32_matmul
 from ..utils.sparsity import is_scipy_sparse
 
@@ -108,6 +109,27 @@ class ModelData:
     YlogL: torch.Tensor      # (N, C) sum_g xlogy(y_ng, L_gc)
     colsum_Y: torch.Tensor   # (G,) per-gene count totals (see elbo())
     X: Optional[torch.Tensor] = None  # (N, P) covariates in the compute dtype, or None
+    # on a mesh, which block of the fit's cells the per-cell fields hold
+    # (then colsum_Y is the whole fit's); None in one process
+    cells: Optional[Cells] = None
+
+
+def param_specs(batched: bool = False) -> CloneAlignParams:
+    """For each field of ``CloneAlignParams``, the axes it is split along on
+    a mesh: a tuple with ``CELL_AXIS`` at the cells' dimension and None
+    elsewhere; ``batched`` adds a leading restart (lane) axis, on every rank
+    whole."""
+    lead = (None,) if batched else ()
+    return CloneAlignParams(
+        W=lead + (None, None),
+        chi_unconstr=lead + (None,),
+        psi=lead + (CELL_AXIS, None),
+        alpha_unconstr=lead + (None,),
+        qmu_loc=lead + (None,),
+        qmu_log_scale=lead + (None,),
+        gamma_logits=lead + (CELL_AXIS, None),
+        beta=lead + (None, None),
+    )
 
 
 class ModelConfig(NamedTuple):
@@ -239,7 +261,7 @@ def _chunk_stats(yf, log_L_safe, zero_cols):
 
 
 def prepare_data(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
-                 check_feasible=True) -> ModelData:
+                 check_feasible=True, cells: Optional[Cells] = None) -> ModelData:
     """The device data of a fit from a count matrix (a numpy array, a tensor,
     or a scipy sparse matrix, which goes to :func:`prepare_data_sparse`): Y
     stored as ``y_storage`` (None: the compute ``dtype``; or torch.int8,
@@ -261,8 +283,13 @@ def prepare_data(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
     contributes -inf to that clone's log-likelihood only for cells
     expressing it. ``check_feasible=False`` leaves out
     :func:`_check_cells_feasible`, for a caller that filters genes first.
+
+    On a mesh (``cells``) Y and ``x`` are this rank's rows: the column sums
+    and the counts' range behind the storage check are every rank's, so
+    every rank keeps the same genes and raises or not alike.
     """
-    kw = dict(device=device, dtype=dtype, y_storage=y_storage, check_feasible=check_feasible)
+    kw = dict(device=device, dtype=dtype, y_storage=y_storage, check_feasible=check_feasible,
+              cells=cells)
     if is_scipy_sparse(Y):
         return prepare_data_sparse(Y, L, x, **kw)
     if torch.is_tensor(Y):
@@ -273,7 +300,7 @@ def prepare_data(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
 
 
 def prepare_data_sparse(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
-                        check_feasible=True) -> ModelData:
+                        check_feasible=True, cells: Optional[Cells] = None) -> ModelData:
     """:func:`prepare_data` of a scipy sparse count matrix without a dense
     N x G host copy (reference models/multinomial.py:800-855). CSC and COO
     are converted to CSR once; the row-chunked loop then densifies one block
@@ -287,16 +314,17 @@ def prepare_data_sparse(Y, L, x=None, *, device, dtype=torch.float32, y_storage=
     Y = Y.tocsr()
     return _prepare_rows(Y, L, x, lambda i, j: torch.from_numpy(Y[i:j].toarray()),
                          device=device, dtype=dtype, y_storage=y_storage,
-                         check_feasible=check_feasible)
+                         check_feasible=check_feasible, cells=cells)
 
 
 def _prepare_rows(Y, L, x, rows, *, device, dtype, y_storage, check_feasible, blocks=None,
-                  with_y=True) -> ModelData:
+                  with_y=True, cells: Optional[Cells] = None) -> ModelData:
     """The loop of :func:`prepare_data` over the row blocks of Y (N x G, a
     tensor or a host matrix with a numpy ``dtype``), ``rows(i, j)`` giving
     rows i:j as a tensor. ``blocks`` are the (start, stop) rows of each
     block, by default :func:`_row_blocks`; with ``with_y=False`` only the
-    statistics stay on the device (a streaming fit's: ``Y`` is None)."""
+    statistics stay on the device (a streaming fit's: ``Y`` is None).
+    ``cells``: see :func:`prepare_data`."""
     device = torch.device(device)
     store = dtype if y_storage is None else y_storage
     N, G = Y.shape
@@ -313,11 +341,18 @@ def _prepare_rows(Y, L, x, rows, *, device, dtype, y_storage, check_feasible, bl
     ymax = torch.full((), -math.inf, dtype=dtype, device=device)
     ymin = torch.full((), math.inf, dtype=dtype, device=device)
     nonint = torch.zeros((), dtype=dtype, device=device)
+    error = None  # on a mesh, a host check's error waits for the ranks' collectives
     for i, j in _row_blocks(N, G) if blocks is None else blocks:
         c = rows(i, j)
         if wire is not None and c.dtype != wire:
             if not store.is_floating_point:
-                _host_check_lossless(c, store)
+                try:
+                    _host_check_lossless(c, store)
+                except ValueError as e:
+                    if cells is None:
+                        raise
+                    error = e
+                    break
             c = c.to(wire)
         yc = c.to(device)
         yf = yc.to(dtype)
@@ -332,23 +367,38 @@ def _prepare_rows(Y, L, x, rows, *, device, dtype, y_storage, check_feasible, bl
         parts.append((s, log_binom, B))
         colsum += cs
         del yc, yf
-    if N * G:
-        _check_integer_storage(float(ymax), float(ymin), float(nonint), store)
+    colsum = all_sum(colsum, cells)
+    failed = torch.full((), float(error is not None), dtype=dtype, device=device)
+    ymax, neg_ymin, nonint, failed = all_max(torch.stack([ymax, -ymin, nonint, failed]),
+                                             cells).unbind()
+    if float(failed):
+        raise error or ValueError("the counts failed a check on another rank of the mesh")
+    if (N if cells is None else cells.n) * G:
+        _check_integer_storage(float(ymax), float(-neg_ymin), float(nonint), store)
     s, log_binom, B = (torch.cat(p) for p in zip(*parts))
     if check_feasible:
-        _check_cells_feasible(B)
-    X = None if x is None else torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-    return ModelData(Y=Yd, L=Ld, s=s, log_binom=log_binom, YlogL=B, colsum_Y=colsum, X=X)
+        _check_cells_feasible(B, cells)
+    X = None if x is None else torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                                               dtype=dtype, device=device)
+    return ModelData(Y=Yd, L=Ld, s=s, log_binom=log_binom, YlogL=B, colsum_Y=colsum, X=X,
+                     cells=cells)
 
 
-def _check_cells_feasible(B):
+def _check_cells_feasible(B, cells: Optional[Cells] = None):
     """Every cell needs >= 1 clone with finite YlogL. A cell with nonzero
     counts at a zero-copy-number gene in EVERY clone has zero likelihood
-    under the whole model; it is a typed input error instead of a NaN fit."""
+    under the whole model; it is a typed input error instead of a NaN fit.
+    On a mesh (``cells``) the count and the first such cell are every
+    rank's, so every rank raises alike."""
     bad = ~torch.any(torch.isfinite(B), dim=1)
-    n_bad = int(bad.sum())
+    n_bad = bad.sum()
+    first = torch.argmax(bad.to(torch.int8)) if B.shape[0] else n_bad
+    if cells is not None:
+        first = torch.where(n_bad > 0, first + cells.start, cells.n)
+        n_bad, first = all_sum(n_bad, cells), all_min(first, cells)
+    n_bad = int(n_bad)
     if n_bad:
-        first = int(torch.argmax(bad.to(torch.int8)))
+        first = int(first)
         raise ValueError(
             f"{n_bad} cell(s) have nonzero counts at genes whose copy "
             f"number is 0 in every clone (first: cell {first}) — no clone "
@@ -362,7 +412,13 @@ def _check_cells_feasible(B):
 # Initialization (reference R/inference-tflow.R:204-273)
 # ---------------------------------------------------------------------------
 
-def _standardize(x, dim=0, ddof=1):
+def _standardize(x, dim=0, ddof=1, cells: Optional[Cells] = None):
+    """``x`` less its mean over ``dim``, over its sd. On a mesh (``cells``,
+    ``dim`` 0, x this rank's rows of a thin matrix such as the PCA scores)
+    the rows are gathered, so that the mean and sd are the one-process
+    fit's to the bit, and this rank's rows come back."""
+    if cells is not None:
+        return _standardize(gather_rows(x, cells), dim, ddof)[cells.start : cells.stop]
     mu = torch.mean(x, dim=dim, keepdim=True)
     sd = torch.std(x, dim=dim, keepdim=True, correction=ddof)
     return (x - mu) / torch.where(sd == 0, 1.0, sd)
@@ -387,7 +443,7 @@ def randomized_pca(X, k: int, noise, oversample: int = 8, power_iters: int = 4):
 
 
 def _pca_scores_blocked(Y, k: int, noise, dtype, oversample: int = 8, power_iters: int = 4,
-                        blocks=None):
+                        blocks=None, cells: Optional[Cells] = None):
     """:func:`randomized_pca` of log2(Y+1) without the standardized N x G
     matrix (reference models/multinomial.py:891-937): every product
     recomputes each row block's ``(log2(y+1) - mean) / sd`` from the stored
@@ -396,9 +452,17 @@ def _pca_scores_blocked(Y, k: int, noise, dtype, oversample: int = 8, power_iter
     ``Y`` is the device tensor, or a row source that holds Y on the host
     (``stream._DeviceRows``: ``shape``, ``device``, and ``Y[i:j]`` uploading
     rows i:j), as the reference reads its ``_RowSource``. ``blocks`` are the
-    (start, stop) rows of each block, by default :func:`_row_blocks`."""
-    N, G = Y.shape
-    blocks = _row_blocks(N, G) if blocks is None else blocks
+    (start, stop) rows of each block, by default :func:`_row_blocks`.
+
+    On a mesh (``cells``) Y is this rank's rows. The column mean and sd and
+    ``Xc.T @ Q`` are sums over every rank's rows; ``Xc @ M`` is gathered to
+    the whole (N, k + 8) matrix, 4 MB at 100,000 cells in float32, whose QR
+    every rank takes alike, so that the scores keep the one-process fit's
+    signs (a CholeskyQR of the row blocks would fix other ones). B's SVD is
+    every rank's too; the scores are the rank's rows."""
+    n_rows, G = Y.shape
+    N = n_rows if cells is None else cells.n
+    blocks = _row_blocks(n_rows, G) if blocks is None else blocks
     k_eff = min(k + oversample, min(N, G))
 
     def xb(i, j):
@@ -410,6 +474,7 @@ def _pca_scores_blocked(Y, k: int, noise, dtype, oversample: int = 8, power_iter
         b = xb(i, j)
         total += torch.sum(b, dim=0)
         sumsq += torch.sum(b * b, dim=0)
+    total, sumsq = all_sum(torch.stack([total, sumsq]), cells).unbind()
     mean = total / N
     sd = torch.sqrt(torch.clamp_min(sumsq - N * mean * mean, 0.0) / max(N - 1, 1))
     sd = torch.where(sd == 0, 1.0, sd)
@@ -417,53 +482,56 @@ def _pca_scores_blocked(Y, k: int, noise, dtype, oversample: int = 8, power_iter
     def xcb(i, j):
         return (xb(i, j) - mean) / sd
 
-    def xc_matmul(M):  # Xc @ M
+    def xc_matmul(M):  # Xc @ M, this rank's rows
         return torch.cat([xcb(i, j) @ M for i, j in blocks], dim=0)
 
-    def xcT_matmul(Q):  # Xc.T @ Q
+    def xcT_matmul(Q):  # Xc.T @ Q, Q every rank's rows
+        Q = Q if cells is None else Q[cells.start : cells.stop]
         acc = torch.zeros(G, Q.shape[1], dtype=dtype, device=Y.device)
         for i, j in blocks:
             acc += xcb(i, j).T @ Q[i:j]
-        return acc
+        return all_sum(acc, cells)
 
     omega = noise.normal("pca_omega", (G, k_eff), dtype, Y.device)
     with full_fp32_matmul():
-        Q = xc_matmul(omega)
+        Q = gather_rows(xc_matmul(omega), cells)
         for _ in range(power_iters):
             Q, _ = torch.linalg.qr(Q)
-            Q, _ = torch.linalg.qr(xc_matmul(xcT_matmul(Q)))
+            Q, _ = torch.linalg.qr(gather_rows(xc_matmul(xcT_matmul(Q)), cells))
         B = xcT_matmul(Q).T  # (k_eff, G)
         _, _, Vt = torch.linalg.svd(B, full_matrices=False)
         return xc_matmul(Vt[:k].T)  # (N, k)
 
 
-def pca_init_scores(Y, K: int, noise, dtype=torch.float32):
+def pca_init_scores(Y, K: int, noise, dtype=torch.float32, cells: Optional[Cells] = None):
     """Standardized top-K PCA scores of log2(Y+1)
     (reference R/inference-tflow.R:204-207), before the jitter, row-blocked
-    above ``_CHUNK_ELEMENTS``. A restart sweep computes them once and shares
-    them across lanes."""
+    above ``_CHUNK_ELEMENTS`` and on a mesh (``cells``: Y this rank's rows,
+    the scores too). A restart sweep computes them once and shares them
+    across lanes."""
     N, G = Y.shape
     if K <= 0:
         return torch.zeros(N, 0, dtype=dtype, device=Y.device)
-    if N * G > _CHUNK_ELEMENTS:
-        pcs = _pca_scores_blocked(Y, K, noise, dtype)
+    if cells is not None or N * G > _CHUNK_ELEMENTS:
+        pcs = _pca_scores_blocked(Y, K, noise, dtype, cells=cells)
     else:
         pcs = randomized_pca(torch.log2(Y.to(dtype) + 1.0), K, noise)
-    return _standardize(pcs, dim=0)
+    return _standardize(pcs, dim=0, cells=cells)
 
 
-def data_mu_guess(Y, dtype=torch.float32, blocks=None):
+def data_mu_guess(Y, dtype=torch.float32, blocks=None, cells: Optional[Cells] = None):
     """colMeans(Y / rowMeans(Y)) — the data-driven mu initialization
     (reference R/inference-tflow.R:220-231), row-blocked above
     ``_CHUNK_ELEMENTS`` or over the given ``blocks``; ``Y`` and ``blocks``
-    as :func:`_pca_scores_blocked` takes them."""
+    as :func:`_pca_scores_blocked` takes them. On a mesh (``cells``) Y is
+    this rank's rows and the sum is every rank's, over every cell."""
     N, G = Y.shape
-    if blocks is not None or N * G > _CHUNK_ELEMENTS:
+    if blocks is not None or cells is not None or N * G > _CHUNK_ELEMENTS:
         acc = torch.zeros(G, dtype=dtype, device=Y.device)
         for i, j in _row_blocks(N, G) if blocks is None else blocks:
             yb = Y[i:j].to(dtype)
             acc += torch.sum(yb / torch.mean(yb, dim=1, keepdim=True), dim=0)
-        return acc / N
+        return all_sum(acc, cells) / (N if cells is None else cells.n)
     Y = Y.to(dtype)
     return torch.mean(Y / torch.mean(Y, dim=1, keepdim=True), dim=0)
 
@@ -478,6 +546,7 @@ def init_params(
     pca_scores=None,
     mu_guess=None,
     P: int = 0,
+    cells: Optional[Cells] = None,
 ) -> CloneAlignParams:
     """Initial parameter values (reference R/inference-tflow.R:204-273).
 
@@ -488,21 +557,29 @@ def init_params(
 
     ``pca_scores`` / ``mu_guess`` take precomputed outputs of
     :func:`pca_init_scores` / :func:`data_mu_guess` (shared across restarts).
+    On a mesh (``cells``) Y is this rank's rows: the jitter is drawn for
+    every cell and sliced, so each rank's rows are the one-process fit's.
     """
     N, G = Y.shape
     C = L.shape[1]
     dev = Y.device
 
     if K > 0:
-        pcs = pca_scores if pca_scores is not None else pca_init_scores(Y, K, noise, dtype)
-        pcs = pcs.to(dtype) + 0.05 * noise.normal("psi_jitter", pcs.shape, dtype, dev)
+        pcs = (pca_scores if pca_scores is not None
+               else pca_init_scores(Y, K, noise, dtype, cells=cells))
+        if cells is None:
+            jitter = noise.normal("psi_jitter", pcs.shape, dtype, dev)
+        else:
+            jitter = noise.normal("psi_jitter", (cells.n, K), dtype, dev)[cells.start : cells.stop]
+        pcs = pcs.to(dtype) + 0.05 * jitter
     else:
         pcs = torch.zeros(N, 0, dtype=dtype, device=dev)
 
     if mu_guess is not None:
         mu_guess = torch.as_tensor(mu_guess, dtype=dtype, device=dev)
     elif isinstance(data_init_mu, (bool, np.bool_)):
-        mu_guess = data_mu_guess(Y, dtype) if data_init_mu else torch.ones(G, dtype=dtype, device=dev)
+        mu_guess = (data_mu_guess(Y, dtype, cells=cells) if data_init_mu
+                    else torch.ones(G, dtype=dtype, device=dev))
     else:
         mu_guess = torch.as_tensor(data_init_mu, dtype=dtype, device=dev)
         mu_guess = mu_guess / torch.mean(mu_guess)
@@ -661,63 +738,13 @@ def elbo(params: CloneAlignParams, data: ModelData, eps, config: ModelConfig,
     ``dot(colsum_Y, sum_s log_mu) / S`` (Y is not read for it) and A1 as
     its sum; only YlogL, the normalizer Z and the allele term, which differ
     by clone, stay inside the contraction.
+
+    It is :func:`elbo_cell_terms` plus :func:`elbo_global_terms` at one mu
+    draw; on a mesh (``data.cells``) the cell terms are this rank's only.
     """
-    S = config.mc_samples
     mu_base = sample_mu_base(params, eps)
-    mu_samples = softplus(mu_base)
-    log_mu = torch.log(mu_samples)
-    cells = (-2, -1)  # the (N, C) / (G, K) axes a lane's sums run over
-
-    A1, _, logZ = _likelihood_terms(params, data, mu_samples, None, config)
-    A2_sum = torch.sum(data.colsum_Y * torch.sum(log_mu, dim=-2), dim=-1) / S
-    const_sum = torch.sum(data.log_binom) + torch.sum(A1, dim=-1) + A2_sum
-
-    clone_ll = data.YlogL.T - data.s * logZ  # (..., S, C, N)
-    if extra_log_lik is not None:
-        clone_ll = clone_ll + extra_log_lik.T
-    gamma = torch.softmax(params.gamma_logits, dim=-1)
-    log_gamma = torch.log_softmax(params.gamma_logits, dim=-1)
-
-    E_clone_ll = torch.mean(clone_ll, dim=-3)  # (..., C, N)
-    # xlogy-style guard: a clone with zero copy number at an expressed gene
-    # has log-lik -inf and responsibility exactly 0; 0 * -inf must give 0.
-    # The -inf is masked before the multiply so the backward pass never
-    # sees 0 * inf either.
-    safe_ll = torch.where(gamma == 0, 0.0, E_clone_ll.mT)
-    EE_p_y = torch.sum(gamma * safe_ll, dim=cells) + const_sum
-
-    if config.fix_alpha:
-        log_alpha = torch.log_softmax(torch.zeros_like(params.alpha_unconstr), dim=-1)
-    else:
-        log_alpha = torch.log_softmax(params.alpha_unconstr, dim=-1)
-
-    C = log_alpha.shape[-1]
-    dir_conc = 1.0 / C
-    dir_x = torch.exp(log_alpha) + 1e-3
-    dirichlet_lp = torch.sum((dir_conc - 1.0) * torch.log(dir_x), dim=-1) - C * math.lgamma(dir_conc)
-    E_log_p_p = (
-        torch.sum(log_alpha[..., None, :] * gamma, dim=cells)
-        + torch.sum(_normal_log_prob(log_mu), dim=cells) / S
-        + dirichlet_lp
-    )
-
-    if config.K > 0:
-        chi = torch.exp(params.chi_unconstr)
-        w_scale = torch.sqrt(1.0 / chi)
-        W_lp = torch.sum(_normal_log_prob(params.W, 0.0, w_scale[..., None, :]), dim=cells)
-        chi_lp = torch.sum(torch.log(chi) - chi, dim=-1)  # Gamma(2, 1)
-        psi_lp = torch.sum(_normal_log_prob(params.psi), dim=cells)
-        E_log_p_p = E_log_p_p + W_lp + chi_lp + psi_lp
-
-    # E_q[log q]: the qmu log-prob changes variables through the softplus
-    # bijector, log q(mu) = N(y; loc, scale) - log sigmoid(y).
-    scale = torch.exp(params.qmu_log_scale)
-    qmu_lp = _normal_log_prob(mu_base, params.qmu_loc[..., None, :], scale[..., None, :])
-    qmu_lp = qmu_lp - torch.nn.functional.logsigmoid(mu_base)
-    gamma_entropy_term = torch.sum(torch.where(gamma == 0, 0.0, gamma * log_gamma), dim=cells)
-    E_log_q = torch.sum(torch.mean(qmu_lp, dim=-2), dim=-1) + gamma_entropy_term
-
-    return EE_p_y + E_log_p_p - E_log_q
+    return (elbo_cell_terms(params, data, mu_base, config, extra_log_lik)
+            + elbo_global_terms(params, mu_base, config, data.colsum_Y))
 
 
 def gamma_warm_start_logits(
@@ -751,7 +778,7 @@ def gamma_warm_start_logits(
 
 
 # ---------------------------------------------------------------------------
-# Cell / global ELBO split (streaming fits)
+# Cell / global ELBO split
 # ---------------------------------------------------------------------------
 #
 # elbo() is a sum of per-cell terms and terms that do not depend on the
@@ -762,7 +789,9 @@ def gamma_warm_start_logits(
 #   elbo(params, data, eps) == sum over chunks of elbo_cell_terms(chunk)
 #                              + elbo_global_terms(params, mu_base, colsum_Y)
 #
-# up to the order of the floating-point sums. elbo() itself is untouched.
+# up to the order of the floating-point sums. A fit whose cells are split
+# over ranks sums the cell terms of every rank's rows the same way. Both
+# take parameters with a leading lane axis.
 
 def _log_alpha(params, config):
     zeros_or_alpha = (torch.zeros_like(params.alpha_unconstr) if config.fix_alpha
@@ -779,29 +808,34 @@ def elbo_cell_terms(params: CloneAlignParams, data: ModelData, mu_base, config: 
 
     ``params.psi`` and ``params.gamma_logits`` (and ``data``'s per-cell
     fields, ``extra_log_lik`` among them) carry only this chunk's rows; the
-    other fields are the whole fit's. ``mu_base`` is the step's one (S, G)
-    draw (:func:`sample_mu_base`), shared by every chunk and by
-    :func:`elbo_global_terms`. The likelihood goes through
+    other fields are the whole fit's. ``mu_base`` is the step's one (..., S,
+    G) draw (:func:`sample_mu_base`), shared by every chunk and by
+    :func:`elbo_global_terms`; one value per lane. The likelihood goes through
     :func:`_likelihood_terms`, so on CUDA tensors through the fused kernels,
     and under z_cheb the Chebyshev table is fitted to this chunk's psi.
     ``data.colsum_Y`` is not read."""
     mu_samples = softplus(mu_base)
+    cells = (-2, -1)  # the (N, C) / (N, K) axes a lane's sums run over
     A1, _, logZ = _likelihood_terms(params, data, mu_samples, None, config)
-    const_sum = torch.sum(data.log_binom) + torch.sum(A1)
+    const_sum = torch.sum(data.log_binom) + torch.sum(A1, dim=-1)
 
-    clone_ll = data.YlogL.T - data.s * logZ  # (S, C, N)
+    clone_ll = data.YlogL.T - data.s * logZ  # (..., S, C, N)
     if extra_log_lik is not None:
         clone_ll = clone_ll + extra_log_lik.T
     gamma = torch.softmax(params.gamma_logits, dim=-1)
     log_gamma = torch.log_softmax(params.gamma_logits, dim=-1)
-    E_clone_ll = torch.mean(clone_ll, dim=-3)  # (C, N)
-    safe_ll = torch.where(gamma == 0, 0.0, E_clone_ll.T)  # see elbo()
-    EE_p_y = torch.sum(gamma * safe_ll) + const_sum
+    E_clone_ll = torch.mean(clone_ll, dim=-3)  # (..., C, N)
+    # xlogy-style guard: a clone with zero copy number at an expressed gene
+    # has log-lik -inf and responsibility exactly 0; 0 * -inf must give 0.
+    # The -inf is masked before the multiply so the backward pass never
+    # sees 0 * inf either.
+    safe_ll = torch.where(gamma == 0, 0.0, E_clone_ll.mT)
+    EE_p_y = torch.sum(gamma * safe_ll, dim=cells) + const_sum
 
-    E_log_p_cells = torch.sum(_log_alpha(params, config)[None, :] * gamma)
+    E_log_p_cells = torch.sum(_log_alpha(params, config)[..., None, :] * gamma, dim=cells)
     if config.K > 0:
-        E_log_p_cells = E_log_p_cells + torch.sum(_normal_log_prob(params.psi))
-    gamma_entropy_term = torch.sum(torch.where(gamma == 0, 0.0, gamma * log_gamma))
+        E_log_p_cells = E_log_p_cells + torch.sum(_normal_log_prob(params.psi), dim=cells)
+    gamma_entropy_term = torch.sum(torch.where(gamma == 0, 0.0, gamma * log_gamma), dim=cells)
     return EE_p_y + E_log_p_cells - gamma_entropy_term
 
 
@@ -811,25 +845,28 @@ def elbo_global_terms(params: CloneAlignParams, mu_base, config: ModelConfig, co
     ``colsum_Y``, the mu, Dirichlet, W and chi priors, minus the qmu
     entropy term. ``params.psi`` and ``params.gamma_logits`` are not read."""
     S = config.mc_samples
+    genes = (-2, -1)  # the (S, G) / (G, K) axes a lane's sums run over
     log_mu = torch.log(softplus(mu_base))
-    A2_sum = torch.sum(colsum_Y * torch.sum(log_mu, dim=-2)) / S
+    A2_sum = torch.sum(colsum_Y * torch.sum(log_mu, dim=-2), dim=-1) / S
 
     log_alpha = _log_alpha(params, config)
     C = log_alpha.shape[-1]
     dir_conc = 1.0 / C
     dir_x = torch.exp(log_alpha) + 1e-3
-    dirichlet_lp = torch.sum((dir_conc - 1.0) * torch.log(dir_x)) - C * math.lgamma(dir_conc)
-    E_log_p_glob = torch.sum(_normal_log_prob(log_mu)) / S + dirichlet_lp
+    dirichlet_lp = (torch.sum((dir_conc - 1.0) * torch.log(dir_x), dim=-1)
+                    - C * math.lgamma(dir_conc))
+    E_log_p_glob = torch.sum(_normal_log_prob(log_mu), dim=genes) / S + dirichlet_lp
     if config.K > 0:
         chi = torch.exp(params.chi_unconstr)
         w_scale = torch.sqrt(1.0 / chi)
-        E_log_p_glob = E_log_p_glob + torch.sum(_normal_log_prob(params.W, 0.0, w_scale[None, :]))
-        E_log_p_glob = E_log_p_glob + torch.sum(torch.log(chi) - chi)
+        E_log_p_glob = E_log_p_glob + torch.sum(
+            _normal_log_prob(params.W, 0.0, w_scale[..., None, :]), dim=genes)
+        E_log_p_glob = E_log_p_glob + torch.sum(torch.log(chi) - chi, dim=-1)
 
     scale = torch.exp(params.qmu_log_scale)
-    qmu_lp = _normal_log_prob(mu_base, params.qmu_loc[None, :], scale[None, :])
+    qmu_lp = _normal_log_prob(mu_base, params.qmu_loc[..., None, :], scale[..., None, :])
     qmu_lp = qmu_lp - torch.nn.functional.logsigmoid(mu_base)
-    return A2_sum + E_log_p_glob - torch.sum(torch.mean(qmu_lp, dim=-2))
+    return A2_sum + E_log_p_glob - torch.sum(torch.mean(qmu_lp, dim=-2), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -922,6 +959,9 @@ def _compute_logZ_cheb(params: CloneAlignParams, data: ModelData, mu_samples, de
 
     t_min = torch.amin(psi, dim=-1).detach()
     t_max = torch.amax(psi, dim=-1).detach()
+    if data.cells is not None:  # the range of every rank's psi
+        neg_min, t_max = all_max(torch.stack([-t_min, t_max]), data.cells).unbind()
+        t_min = -neg_min
     mid = 0.5 * (t_min + t_max)
     half = torch.clamp_min(0.5 * (t_max - t_min), 1e-6)
 

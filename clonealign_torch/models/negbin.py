@@ -42,6 +42,12 @@ Every function keeps the JAX package's expressions and term order: the
 clone difference D_c and the llk0 sums are assembled element by element
 before any reduction, so that their float32 values and gradients net at
 the scale of the residuals (see :func:`_accumulate`).
+
+On a mesh (``NegbinData.cells``, ``parallel/sharding.sharded_negbin_fit``)
+the data holds one rank's rows: every sum over cells (the constants, B, the
+llk0 sums, the M-step's value and gradients, the moments, the clone prior,
+the Chebyshev statistics and the ELBO's cell terms) is all-reduced, and the
+cell count N is every rank's; A and gamma stay on their rank.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import numpy as np
 import torch
 
 from ..infer import Monitor, OptaxAdam, OptaxAdamState
+from ..parallel.collectives import Cells, all_max, all_sum
 from ..utils.device import full_fp32_matmul, resolve_device, resolve_dtype, synchronize
 from ..utils.sparsity import is_scipy_sparse
 from . import multinomial as mm
@@ -70,6 +77,7 @@ class NegbinData(NamedTuple):
     Lp: torch.Tensor      # (G, C) per-clone mean-normalized copy number
     s: torch.Tensor       # (N,) size factors
     l_hat: torch.Tensor   # (G,) rowMeans(Lp), the script's l_g_hat
+    cells: Optional[Cells] = None  # on a mesh, which block of the cells Y and s hold
 
 
 class NegbinParams(NamedTuple):
@@ -104,6 +112,11 @@ def _llk0(params: NegbinParams, data: NegbinData):
     return nb_log_prob(data.Y, data.s[:, None] * mu[None, :], phi[None, :])
 
 
+def _n_cells(data: NegbinData) -> int:
+    """The fit's cell count: every rank's on a mesh."""
+    return data.Y.shape[0] if data.cells is None else data.cells.n
+
+
 def _blocks(N: int, G: int):
     """(start, stop) of each row block of a pass over an (N, G) matrix."""
     rows = max(1, _BLOCK_ELEMENTS // max(G, 1))
@@ -120,7 +133,7 @@ def _nb_constants(data: NegbinData) -> _NBConsts:
     with torch.no_grad():
         for i, j in _blocks(*data.Y.shape):
             total += torch.lgamma(data.Y[i:j] + 1.0).sum(dtype=torch.float64)
-    return _NBConsts(lgamma_y1_sum=total.to(data.Y.dtype))
+    return _NBConsts(lgamma_y1_sum=all_sum(total, data.cells).to(data.Y.dtype))
 
 
 # --- the exact clone scan ----------------------------------------------------
@@ -157,7 +170,8 @@ def _clone_diff(Yb, sb, Yp, log_pm0, rates: _ScanRates, c: int):
 def _scan(params: NegbinParams, data: NegbinData, gene_w=None, cell_w=None, dtype=None):
     """The clone scan over row blocks: A (N, C) when ``gene_w`` is given, B
     (G,) when ``cell_w`` is given (None for the one not asked for), each
-    element's terms evaluated in ``dtype`` (by default Y's)."""
+    element's terms evaluated in ``dtype`` (by default Y's). On a mesh A is
+    this rank's rows and B every rank's sum."""
     N, G = data.Y.shape
     C = data.Lp.shape[1]
     dt = data.Y.dtype if dtype is None else dtype
@@ -178,7 +192,7 @@ def _scan(params: NegbinParams, data: NegbinData, gene_w=None, cell_w=None, dtyp
                     A[i:j, c] = D_c @ gene_w
                 if B is not None:
                     B += cell_w[i:j, c] @ D_c
-    return A, B
+    return A, (None if B is None else all_sum(B, data.cells))
 
 
 def _accumulate(params: NegbinParams, data: NegbinData, gene_w, cell_w):
@@ -236,7 +250,8 @@ def _llk0_sum(params: NegbinParams, data: NegbinData, consts: _NBConsts):
         for i, j in _blocks(N, G):
             Yp, log_pm0 = _block_base(data.Y[i:j], data.s[i:j], rates)
             total += torch.sum(_llk0_core(data.Y[i:j], log_s[i:j], Yp, log_pm0, rates.log_mu))
-        return total + _llk0_globals(params.log_phi, rates.phi, N, consts)
+        return (all_sum(total, data.cells)
+                + _llk0_globals(params.log_phi, rates.phi, _n_cells(data), consts))
 
 
 def _llk0_netted_sum(params: NegbinParams, data: NegbinData):
@@ -269,7 +284,7 @@ def _llk0_netted_sum(params: NegbinParams, data: NegbinData):
                 + Yb * log_m0
             )
             total += core.sum()
-    return total
+    return all_sum(total, data.cells)
 
 
 def _penalty(log_mu, log_beta, l_hat, lam):
@@ -306,7 +321,13 @@ def _mstep_value_and_grad(rates3, data: NegbinData, post: NegbinPosterior, lam,
             for acc, g in zip(grads, torch.autograd.grad(value, leaves)):
                 acc += g
             total += value.detach()
-        small = _llk0_globals(lphi, rates.phi, N, consts) - _penalty(lmu, lbeta, data.l_hat, lam)
+        if data.cells is not None:  # every rank's blocks, in one all_reduce
+            flat = all_sum(torch.cat([g.reshape(-1) for g in grads] + [total.reshape(1)]),
+                           data.cells)
+            *grads, total = [p.view_as(t) for p, t in zip(
+                flat.split([g.numel() for g in grads] + [1]), grads + [total])]
+        small = (_llk0_globals(lphi, rates.phi, _n_cells(data), consts)
+                 - _penalty(lmu, lbeta, data.l_hat, lam))
         d = torch.autograd.grad([*rates, small], [lmu, lbeta, lphi],
                                 grad_outputs=[*grads, torch.ones_like(small)])
     return (total + small).detach(), d
@@ -356,23 +377,27 @@ def _elbo_with_B(params: NegbinParams, data: NegbinData, post: NegbinPosterior, 
         p64 = NegbinParams(*(t.to(f64) for t in params))
         post64 = NegbinPosterior(*(t.to(f64) for t in post))
         rest = (post64.r @ B.to(f64) - _penalty(p64.log_mu, p64.log_beta, data.l_hat.to(f64), lam)
-                + _elbo_extras(p64, data, post64, rho_prior))
+                + _elbo_extras(p64, data, post64, rho_prior, data.cells))
         return (_llk0_netted_sum(params, data) + rest).to(data.Y.dtype)
 
 
-def _elbo_extras(params: NegbinParams, data: NegbinData, post: NegbinPosterior, rho_prior):
+def _elbo_extras(params: NegbinParams, data: NegbinData, post: NegbinPosterior, rho_prior,
+                 cells: Optional[Cells] = None):
     """The ELBO minus the penalized expected log-likelihood: clone and
-    dosage priors plus the mean-field entropies (no Y-sized work)."""
+    dosage priors plus the mean-field entropies (no Y-sized work); on a
+    mesh (``cells``) gamma's terms summed over every rank."""
     log_alpha = torch.log_softmax(params.alpha_logits, dim=0)
     gamma, r = post.gamma, post.r
     zero = torch.zeros((), dtype=gamma.dtype, device=gamma.device)
     h_gamma = -torch.sum(torch.where(gamma > 0, gamma * torch.log(torch.clamp(gamma, min=1e-30)),
                                      zero))
+    prior_pi = torch.sum(gamma @ log_alpha)
+    if cells is not None:
+        h_gamma, prior_pi = all_sum(torch.stack([h_gamma, prior_pi]), cells).unbind()
     h_r = -torch.sum(
         torch.where(r > 0, r * torch.log(torch.clamp(r, min=1e-30)), zero)
         + torch.where(r < 1, (1 - r) * torch.log(torch.clamp(1 - r, min=1e-30)), zero)
     )
-    prior_pi = torch.sum(gamma @ log_alpha)
     prior_rho = torch.sum(r * math.log(rho_prior) + (1 - r) * math.log1p(-rho_prior))
     return prior_pi + prior_rho + h_gamma + h_r
 
@@ -434,15 +459,18 @@ def _angles(degree: int, dtype, device):
 
 def _cheb_stats_program(data: NegbinData, ymax: float, *, degree: int, n_vals: int,
                         tail_degree: int) -> NegbinChebStats:
-    Y, dev, dt = data.Y, data.Y.device, data.Y.dtype
+    Y, dev, dt, cells = data.Y, data.Y.device, data.Y.dtype, data.cells
     N, G = Y.shape
     t = torch.log(data.s)
     t_min, t_max = torch.min(t), torch.max(t)
+    if cells is not None:  # the range of every rank's size factors
+        neg_min, t_max = all_max(torch.stack([-t_min, t_max]), cells).unbind()
+        t_min = -neg_min
     mid = 0.5 * (t_min + t_max)
     half = torch.clamp(0.5 * (t_max - t_min), min=1e-6)
     T = _cheb_basis((t - mid) / half, degree)               # (N, D+1)
     with full_fp32_matmul():
-        YT = Y.T @ T
+        YT = all_sum(Y.T @ T, cells)
 
     # the tail range in u = log y over [log V0, log ymax] (the scaled
     # coordinate is clipped, so that ymax itself maps inside [-1, 1])
@@ -473,15 +501,15 @@ def _cheb_stats_program(data: NegbinData, ymax: float, *, degree: int, n_vals: i
                 b_prev, b_cur = b_cur, 2.0 * xu * b_cur - b_prev
                 acc.append(torch.sum(b_cur, dim=0))
             tailT += torch.stack(acc[: tail_degree + 1], dim=-1)
-    hist = hist.view(n_vals + 1, G)[:n_vals].to(dt)
+    hist = all_sum(hist, cells).view(n_vals + 1, G)[:n_vals].to(dt)
 
     theta = _angles(degree, dt, dev)
     tail_theta = _angles(tail_degree, dt, dev)
     return NegbinChebStats(
-        T=T, YT=YT, sumT=torch.sum(T, dim=0), hist=hist,
+        T=T, YT=YT, sumT=all_sum(torch.sum(T, dim=0), cells), hist=hist,
         vals=torch.arange(n_vals, dtype=dt, device=dev),
         nodes_t=mid + half * torch.cos(theta), theta=theta,
-        tailT=tailT,
+        tailT=all_sum(tailT, cells),
         tail_nodes_u=u_mid + u_half * torch.cos(tail_theta),
         tail_theta=tail_theta,
     )
@@ -495,11 +523,13 @@ def negbin_cheb_stats(data: NegbinData, degree: int = 12, hist_cap: int = 1024,
     Requires integer counts (the lgamma(y + phi) value histogram and the
     log-y tail expansion are exact or valid only on integers). ``hist_cap``
     bounds the exact histogram (values below it: almost all elements);
-    larger values go through the degree-``tail_degree`` log-y expansion."""
+    larger values go through the degree-``tail_degree`` log-y expansion.
+    On a mesh the statistics are every rank's sums (T stays on its rank)."""
     Y = data.Y
     ymax = float(torch.max(Y)) if Y.numel() else 0.0
     integer = all(bool(torch.equal(Y[i:j], torch.floor(Y[i:j]))) for i, j in _blocks(*Y.shape))
-    if not integer:
+    ymax, fractional = all_max(np.array([ymax, not integer], np.float64), data.cells)
+    if fractional:
         raise ValueError(
             "likelihood_impl='cheb' requires integer counts (the "
             "gammaln(y + phi) histogram is exact only on integers); "
@@ -555,7 +585,7 @@ def _gamma_stats(data: NegbinData, stats: NegbinChebStats, gamma) -> _NBGammaSta
     with full_fp32_matmul():
         YGT = (data.Y.T @ U).reshape(-1, C, D1)
         GT = gamma.T @ stats.T
-    return _NBGammaStats(YGT=YGT, GT=GT)
+    return _NBGammaStats(YGT=all_sum(YGT, data.cells), GT=all_sum(GT, data.cells))
 
 
 def _B_from_stats(coeffs: _NBChebCoeffs, ps: _NBGammaStats):
@@ -599,8 +629,7 @@ def _mstep_objective_cheb(params: NegbinParams, data: NegbinData, stats: NegbinC
     """The penalized expected log-likelihood from sufficient statistics:
     O(G (V + C D)) an evaluation, no cell-indexed work."""
     coeffs = _netted_cheb_coeffs(params, data, stats)
-    N = data.Y.shape[0]
-    return (_llk0_sum_cheb(params, stats, coeffs, consts, N)
+    return (_llk0_sum_cheb(params, stats, coeffs, consts, _n_cells(data))
             + r @ _B_from_stats(coeffs, ps)
             - _penalty(params.log_mu, params.log_beta, data.l_hat, lam))
 
@@ -614,7 +643,8 @@ def _host_or_tensor(x, dtype, device):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
-def prepare_negbin_data(Y, L, s=None, *, device="cuda", dtype=torch.float32) -> NegbinData:
+def prepare_negbin_data(Y, L, s=None, *, device="cuda", dtype=torch.float32,
+                        cells: Optional[Cells] = None) -> NegbinData:
     """The device data of a fit. L becomes the script's Lp = L /
     colMeans(L) (reference inst/create_model3_synthetic.R:17) and the size
     factors default to the row sums over their mean (mu and beta absorb the
@@ -625,7 +655,11 @@ def prepare_negbin_data(Y, L, s=None, *, device="cuda", dtype=torch.float32) -> 
     canonical CSR, ``api._canonical_csr``, so duplicate entries are summed).
     Its rows reach the device through ``models/multinomial.prepare_data``'s
     row-block loop, each block in its narrowest exact wire type, into one
-    buffer in ``dtype``: a sparse matrix is never dense on the host."""
+    buffer in ``dtype``: a sparse matrix is never dense on the host.
+
+    On a mesh (``cells``) Y (and a given ``s``) are this rank's rows: the
+    size factors' scale is the mean of every rank's totals, and a cell
+    without counts on any rank raises on every rank."""
     from ..api import _canonical_csr
 
     device = resolve_device(device)
@@ -639,35 +673,41 @@ def prepare_negbin_data(Y, L, s=None, *, device="cuda", dtype=torch.float32) -> 
             f"Y must be (N, G) and L (G, C) with matching G; got "
             f"{tuple(Y.shape)} and {L_np.shape}"
         )
-    md = mm.prepare_data(Y, L_np, device=device, dtype=dtype, check_feasible=False)
+    md = mm.prepare_data(Y, L_np, device=device, dtype=dtype, check_feasible=False, cells=cells)
     totals = md.s
-    if bool(torch.any(totals == 0)):
+    if bool(all_max(torch.any(totals == 0).to(torch.int64), cells)):
         raise ValueError("all cells must have nonzero counts")
     Ld = torch.as_tensor(L_np, dtype=dtype, device=device)
     Lp = Ld / torch.mean(Ld, dim=0, keepdim=True)
     # mean(s) = 1: mu then carries the magnitude (identifiable)
-    s = totals / torch.mean(totals) if s is None else _host_or_tensor(s, dtype, device)
-    return NegbinData(Y=md.Y, Lp=Lp, s=s, l_hat=torch.mean(Lp, dim=1))
+    if s is not None:
+        s = _host_or_tensor(s, dtype, device)
+    else:
+        n = totals.shape[0] if cells is None else cells.n
+        s = totals / (all_sum(torch.sum(totals), cells) / n)
+    return NegbinData(Y=md.Y, Lp=Lp, s=s, l_hat=torch.mean(Lp, dim=1), cells=cells)
 
 
 def init_negbin_params(data: NegbinData, dtype=None) -> NegbinParams:
     """Moment init: mu from size-factor-normalized gene means, beta = mu /
     l_hat (so the two branches start indistinguishable, like the script's
     beta <- mu), phi from the NB method of moments (var = m + m^2/phi).
-    Two blocked passes over Y."""
+    Two blocked passes over Y (on a mesh, over every rank's rows)."""
     Y, s = data.Y, data.s
     N, G = Y.shape
     with torch.no_grad():
         acc = torch.zeros(G, dtype=Y.dtype, device=Y.device)
         for i, j in _blocks(N, G):
             acc += torch.sum(Y[i:j] / s[i:j, None], dim=0)
-        mu0 = torch.clamp(acc / N, min=1e-6)
+        mu0 = torch.clamp(all_sum(acc, data.cells) / _n_cells(data), min=1e-6)
         m2 = torch.zeros_like(acc)
         resid = torch.zeros_like(acc)
         for i, j in _blocks(N, G):
             m = s[i:j, None] * mu0[None, :]
             m2 += torch.sum(m**2, dim=0)
             resid += torch.sum((Y[i:j] - m) ** 2 - m, dim=0)
+        if data.cells is not None:
+            m2, resid = all_sum(torch.stack([m2, resid]), data.cells).unbind()
         phi0 = torch.clamp(m2 / torch.clamp(resid, min=1e-6), 0.05, 1e4)
         dtype = Y.dtype if dtype is None else dtype
         C = data.Lp.shape[1]
@@ -700,9 +740,13 @@ def _logit(p: float) -> float:
     return math.log(p) - math.log1p(-p)
 
 
-def _mstep_alpha(params: NegbinParams, post: NegbinPosterior) -> NegbinParams:
-    """The closed-form M-step of the clone prior."""
-    alpha = torch.clamp(torch.mean(post.gamma, dim=0), min=1e-12)
+def _mstep_alpha(params: NegbinParams, post: NegbinPosterior,
+                 cells: Optional[Cells] = None) -> NegbinParams:
+    """The closed-form M-step of the clone prior (on a mesh, gamma's mean
+    over every rank's cells)."""
+    n = post.gamma.shape[0] if cells is None else cells.n
+    mean = all_sum(torch.sum(post.gamma, dim=0), cells) / n
+    alpha = torch.clamp(mean, min=1e-12)
     return params._replace(alpha_logits=torch.log(alpha))
 
 
@@ -831,7 +875,7 @@ def _run_negbin_em_program(data, rho_init, stats, degree, *, resume_from, max_it
             return _elbo_with_B(params, data, post, B, lam, rho_prior)
 
         def mstep(params, opt_state, post, _ps):
-            params = _mstep_alpha(params, post)
+            params = _mstep_alpha(params, post, data.cells)
             return _adam_steps(params, opt, opt_state, m_steps,
                                lambda rates: _mstep_value_and_grad(rates, data, post, lam,
                                                                    consts)[1])
@@ -844,10 +888,10 @@ def _run_negbin_em_program(data, rho_init, stats, degree, *, resume_from, max_it
         def elbo(params, post, B, _ps):
             with torch.no_grad():
                 coeffs = _netted_cheb_coeffs(params, data, stats)
-                return (_llk0_sum_cheb(params, stats, coeffs, consts, N)
+                return (_llk0_sum_cheb(params, stats, coeffs, consts, _n_cells(data))
                         + post.r @ B
                         - _penalty(params.log_mu, params.log_beta, data.l_hat, lam)
-                        + _elbo_extras(params, data, post, rho_prior))
+                        + _elbo_extras(params, data, post, rho_prior, data.cells))
 
         def estep(params, post):
             with torch.no_grad():
@@ -862,7 +906,7 @@ def _run_negbin_em_program(data, rho_init, stats, degree, *, resume_from, max_it
                 return NegbinPosterior(gamma=gamma, r=torch.sigmoid(logit_prior + B)), B, ps
 
         def mstep(params, opt_state, post, ps):
-            params = _mstep_alpha(params, post)
+            params = _mstep_alpha(params, post, data.cells)
 
             def grad(rates):
                 rates = [t.detach().requires_grad_(True) for t in rates]

@@ -19,10 +19,11 @@ import numpy as np
 import torch
 
 from . import assign as _assign
-from .api import _check_reference_keywords, _not_ported, _package_fit, setup_fit
+from .api import _check_reference_keywords, _package_fit, setup_fit
 from .infer import lane_result, run_inference, run_inference_lanes, stack_lanes
 from .models import multinomial as mm
 from .ops import fused_likelihood as fl
+from .parallel.collectives import all_max, check_mesh
 from .utils.device import synchronize
 from .utils.noise import Noise
 
@@ -129,15 +130,18 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
 
 
 def _auto_restart_batching(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
-                           P=0, z_cheb=False, allele=False) -> str:
+                           P=0, z_cheb=False, allele=False, cells=None) -> str:
     """"vmap" when the lane-batched sweep's working set (:func:`_sweep_bytes`)
     fits :data:`SWEEP_BUDGET_BYTES`, else "map", which holds one lane at a
     time. At 100,000 x 5,000 x 10 (K = 1, S = 1, float32) a lane adds about
     81 MB to Y's 2 GB, so "vmap" takes up to 469 lanes there. (The JAX
     package's 6e9 lane-elements cutover was measured on a 16 GB TPU v5e and
-    does not carry over.)"""
+    does not carry over.) On a mesh (``cells``) N is this rank's share and
+    the largest need of any rank decides, so that every rank batches alike:
+    ranks that differ would run different collectives."""
     need = _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize, P, z_cheb,
                         allele)
+    need = all_max(float(need), cells)
     return "vmap" if need <= SWEEP_BUDGET_BYTES else "map"
 
 
@@ -179,18 +183,26 @@ def run_clonealign(
     reductions may round differently. ``loop_impl``, ``unroll`` and
     ``remat`` are the JAX package's compilation controls: accepted, with no
     effect here. ``key`` is refused: pass ``seed``.
+
+    ``mesh`` (:func:`clonealign_torch.parallel.sharding.make_mesh`) splits
+    the cells over its ranks: every rank calls this with the whole input,
+    keeps and uploads its block of rows and runs the sweep on them with the
+    fused kernels, on the mesh's device (``device`` is not read); the sums
+    over cells are all-reduced (``api.setup_fit``, ``infer``). Every rank
+    returns the fit the one-process call gives on the whole matrix, clone
+    calls, correlations and ``multirun_info`` included.
     """
     _check_reference_keywords(key, loop_impl)
     if mesh is not None:
-        raise _not_ported("mesh sharding", "distributed")
+        device = check_mesh(mesh).device
     if restart_batching not in ("auto", "map", "vmap"):
         raise ValueError(
             f"restart_batching must be 'auto', 'map' or 'vmap', got {restart_batching!r}"
         )
     verbose = kwargs.get("verbose", True)
     t0 = time.perf_counter()
-    ctx = setup_fit(gene_expression_data, copy_number_data, device=device, **kwargs)
-    config, data = ctx.config, ctx.data
+    ctx = setup_fit(gene_expression_data, copy_number_data, device=device, mesh=mesh, **kwargs)
+    config, data, cells = ctx.config, ctx.data, ctx.cells
     synchronize(ctx.device)
     t1 = time.perf_counter()
 
@@ -203,22 +215,23 @@ def run_clonealign(
         restart_batching = _auto_restart_batching(
             N, G, C, config.K, config.mc_samples, R,
             torch.finfo(ctx.dtype).bits // 8, ctx.device.type, data.Y.element_size(),
-            config.P, mm._use_z_cheb(config), ctx.extra_log_lik is not None,
+            config.P, mm._use_z_cheb(config), ctx.extra_log_lik is not None, cells,
         )
     base = 0 if seed is None else int(seed)
     noises = [Noise(base + r, ctx.device) for r in range(R)]
 
     shared_pca = None
     if config.K > 0:
-        shared_pca = mm.pca_init_scores(data.Y, config.K, noises[0], ctx.dtype)
+        shared_pca = mm.pca_init_scores(data.Y, config.K, noises[0], ctx.dtype, cells=cells)
     shared_mu = None
     if ctx.data_init_mu is True:
-        shared_mu = mm.data_mu_guess(data.Y, ctx.dtype)
+        shared_mu = mm.data_mu_guess(data.Y, ctx.dtype, cells=cells)
 
     params0 = [
         mm.init_params(
             data.Y, data.L, noise, K=config.K, data_init_mu=ctx.data_init_mu,
             dtype=ctx.dtype, pca_scores=shared_pca, mu_guess=shared_mu, P=config.P,
+            cells=cells,
         )
         for noise in noises
     ]
@@ -266,11 +279,12 @@ def run_clonealign(
         ctx.clone_probs_from_snv,
         device_Y=data.Y,
         device_s=data.s,
+        cells=cells,
     )
 
     # multirun_info (reference R/clonealign.R:67-73)
     called, counts = _assign.multirun_calls_device(
-        torch.stack([r.params.gamma_logits for r in results]), clone_call_probability
+        torch.stack([r.params.gamma_logits for r in results]), clone_call_probability, cells
     )
     labels_all = [str(c) for c in ctx.clone_names] + [_assign.UNASSIGNED]
     prevalences = []
@@ -282,7 +296,7 @@ def run_clonealign(
         if multirun_correlations:
             corr_r = _assign.compute_correlations(
                 ctx.Y, ctx.L, None, ctx.clone_names,
-                device_Y=data.Y, clones_idx=called[r], dtype=ctx.dtype,
+                device_Y=data.Y, clones_idx=called[r], dtype=ctx.dtype, cells=cells,
             )
             finite = corr_r[np.isfinite(corr_r)]
             median_correlations.append(float(np.median(finite)) if finite.size else np.nan)

@@ -1,6 +1,6 @@
 """Streaming fit: the full-batch clonealign fit for count matrices that do
 not fit on the card, with only Y streamed (counterpart of
-``clonealign_tpu/stream.py``, without its ``mesh``).
+``clonealign_tpu/stream.py``).
 
 * **Y streams** through the device one chunk of cells at a time, from the
   host array it was given (dense, ``np.memmap`` or scipy sparse; each chunk
@@ -35,6 +35,12 @@ helpers, ``infer.Monitor``). An evaluation of several draws
 Differences from the in-core path, by design (as in the reference):
 ``elbo_eval`` defaults to "reuse" (one pass over Y a step; "fresh" makes a
 second); under z_cheb the Chebyshev table is fitted to each chunk's psi.
+
+On a mesh (``mesh``) each rank streams its own block of rows in chunks: its
+chunks' value and shared gradients are summed over the ranks by one
+all_reduce a step before the global terms are added and the shared
+parameters step, and the statistics, the init passes, the evaluations and
+the packaging take every rank's sums, as the in-core fit on a mesh does.
 """
 
 from __future__ import annotations
@@ -53,7 +59,6 @@ from .api import (
     _device_validated,
     _model_config,
     _mu_init_switch,
-    _not_ported,
     _package_fit,
     _parse_inputs,
     _resolve_storage,
@@ -63,6 +68,7 @@ from .api import (
 from .fit import ClonealignFit
 from .infer import InferenceResult, Monitor, TF1Adam, _upload, final_config
 from .models import multinomial as mm
+from .parallel.collectives import CELL_AXIS, all_sum, block_of, check_mesh
 from .utils.device import resolve_device, resolve_dtype, synchronize
 from .utils.noise import Noise
 from .utils.sparsity import is_scipy_sparse as _is_scipy_sparse
@@ -73,9 +79,10 @@ from .utils.sparsity import is_scipy_sparse as _is_scipy_sparse
 # below Y's own bytes at int8 from ~10^8 elements up.
 _AUX_ELEMENTS = 1 << 24
 
-# the fit's parameters shared by every cell, and the per-cell ones
-_SHARED = ("W", "chi_unconstr", "alpha_unconstr", "qmu_loc", "qmu_log_scale", "beta")
-_CELL = ("psi", "gamma_logits")
+# the fit's parameters shared by every cell, and the per-cell ones (those
+# split along the cells on a mesh)
+_SHARED = tuple(f for f, spec in vars(mm.param_specs()).items() if CELL_AXIS not in spec)
+_CELL = tuple(f for f, spec in vars(mm.param_specs()).items() if CELL_AXIS in spec)
 
 
 class _RowSource:
@@ -263,13 +270,18 @@ def fit_streaming(
     counts). ``device`` is "cuda" (default) or "cpu"; ``noise`` (a
     :class:`~clonealign_torch.utils.noise.Noise`, by default seeded with
     ``seed`` or 0) makes every draw. ``key`` (a JAX PRNG key) is refused,
-    ``mesh`` is not ported (ROADMAP: distributed), and
-    ``likelihood_impl="fused"`` raises as in the JAX package. The fit's
+    and ``likelihood_impl="fused"`` raises as in the JAX package. The fit's
     ``timings`` hold the wall seconds of its phases, as ``clonealign``'s.
+
+    ``mesh`` (:func:`clonealign_torch.parallel.sharding.make_mesh`) splits
+    the cells over its ranks (module docstring): every rank passes the whole
+    input, streams its block of rows ``chunk_cells`` at a time on the mesh's
+    device (``device`` is not read), and returns the fit the one-process
+    call gives.
     """
     _check_reference_keywords(key, "while")
     if mesh is not None:
-        raise _not_ported("fit_streaming(mesh=...)", "distributed")
+        device = check_mesh(mesh).device
     if elbo_eval not in ("fresh", "reuse"):
         raise ValueError(f"elbo_eval must be 'fresh' or 'reuse', got {elbo_eval!r}")
     if likelihood_impl == "fused":
@@ -284,13 +296,17 @@ def fit_streaming(
     Y, gene_names, L, clone_names, x, P = _parse_inputs(
         gene_expression_data, copy_number_data, x, K, mc_samples, fix_alpha, y_storage,
         likelihood_impl, dev, verbose)
+    cells = block_of(mesh, Y.shape[0])
+    if cells is not None:
+        Y = Y[cells.start : cells.stop]
+        x = None if x is None else x[cells.start : cells.stop]
     N = Y.shape[0]
     sparse = _is_scipy_sparse(Y)
 
     # --- the gene filter (the in-core fit's, on the host): a dense matrix
     # is filtered row block by row block as it is read, a CSR's columns are
     # sliced once ---
-    low = _colsum_f64(Y) <= gene_filter_threshold
+    low = all_sum(_colsum_f64(Y), cells) <= gene_filter_threshold
     retained_genes = _retained_genes(gene_names, low, verbose)
     L = L[~low]
     if sparse and low.any():
@@ -299,14 +315,15 @@ def fit_streaming(
     src = _RowSource(Y, ~low)
     G = src.shape[1]
     device_validated = _device_validated(Y)
-    _check_host_counts(Y if sparse else src, device_validated, allow_fractional, K)
+    _check_host_counts(Y if sparse else src, device_validated, allow_fractional, K, cells)
     if saturate:
         L = np.minimum(L, float(saturation_threshold))
-    extra, clone_probs_from_snv = _setup_allele(clone_allele, cov, ref, N, L.shape[1], dt, dev,
-                                                verbose)
-    storage = _resolve_storage(y_storage, Y)
+    n_cells = N if cells is None else cells.n
+    extra, clone_probs_from_snv = _setup_allele(clone_allele, cov, ref, n_cells, L.shape[1], dt,
+                                                dev, verbose, cells)
+    storage = _resolve_storage(y_storage, Y, cells)
     store = dt if storage is None else storage
-    config = _model_config(K, P, mc_samples, fix_alpha, likelihood_impl, dt, N * G)
+    config = _model_config(K, P, mc_samples, fix_alpha, likelihood_impl, dt, n_cells * G)
     chunk = _resolve_chunk_cells(chunk_cells, N, G)
     bounds = _chunk_bounds(N, chunk)
     if verbose:
@@ -317,7 +334,7 @@ def fit_streaming(
     # blocks of _AUX_ELEMENTS ---
     aux = _chunk_bounds(N, max(1, _AUX_ELEMENTS // max(G, 1)))
     stats = mm._prepare_rows(src, L, x, src.tensor, device=dev, dtype=dt, y_storage=storage,
-                             check_feasible=False, blocks=aux, with_y=False)
+                             check_feasible=False, blocks=aux, with_y=False, cells=cells)
     _check_statistics(stats, device_validated)
 
     # --- init (mm.init_params, the in-core draws in the in-core order):
@@ -329,12 +346,14 @@ def fit_streaming(
     rows = _DeviceRows(src, store, dev)
     synchronize(dev)
     t1 = time.perf_counter()
-    if N * G > mm._CHUNK_ELEMENTS:
-        pcs = (mm._standardize(mm._pca_scores_blocked(rows, K, noise, dt, blocks=aux), dim=0)
+    if cells is not None or N * G > mm._CHUNK_ELEMENTS:
+        pcs = (mm._standardize(mm._pca_scores_blocked(rows, K, noise, dt, blocks=aux,
+                                                      cells=cells), dim=0, cells=cells)
                if K > 0 else None)
-        mu_guess = mm.data_mu_guess(rows, dt, blocks=aux) if data_init_mu is True else None
+        mu_guess = (mm.data_mu_guess(rows, dt, blocks=aux, cells=cells)
+                    if data_init_mu is True else None)
         params0 = mm.init_params(rows, stats.L, noise, K=K, data_init_mu=data_init_mu,
-                                 dtype=dt, pca_scores=pcs, mu_guess=mu_guess, P=P)
+                                 dtype=dt, pca_scores=pcs, mu_guess=mu_guess, P=P, cells=cells)
     else:
         params0 = mm.init_params(rows[0:N], stats.L, noise, K=K, data_init_mu=data_init_mu,
                                  dtype=dt, P=P)
@@ -354,29 +373,36 @@ def fit_streaming(
         return None if extra is None else extra[i:j]
 
     shared = {f: getattr(params0, f).detach().clone().requires_grad_(True) for f in _SHARED}
-    cells = [{f: getattr(params0, f)[i:j].detach().clone().requires_grad_(True) for f in _CELL}
-             for i, j in bounds]
+    chunk_params = [{f: getattr(params0, f)[i:j].detach().clone().requires_grad_(True)
+                     for f in _CELL} for i, j in bounds]
     del params0
 
     def params_of(c):
-        return mm.CloneAlignParams(**shared, **cells[c])
+        return mm.CloneAlignParams(**shared, **chunk_params[c])
 
     def draw(what):
         return noise.normal(what, (config.mc_samples, G), dt, dev)
 
+    # rank 0 adds the global terms to its chunks' sums (in one process, the
+    # ELBO), and the all_reduce after the chunks sums every rank's
+    owns_global = cells is None or cells.mesh.rank == 0
+
     def evaluate(eps_list, eval_config):
         """The ELBO at each draw of ``eps_list``: the global terms plus every
-        chunk's cell terms, each chunk uploaded once."""
+        chunk's cell terms (on a mesh every rank's), each chunk uploaded
+        once."""
         with torch.no_grad():
             bases = [mm.sample_mu_base(params_of(0), e) for e in eps_list]
-            tot = torch.stack([mm.elbo_global_terms(params_of(0), b, eval_config, stats.colsum_Y)
-                               for b in bases])
+            tot = torch.stack([mm.elbo_global_terms(params_of(0), b, eval_config,
+                                                    stats.colsum_Y) for b in bases])
+            if not owns_global:
+                tot = torch.zeros_like(tot)
             for c, y in feeder.sweep():
                 data = chunk_data(c, y)
                 tot = tot + torch.stack([
                     mm.elbo_cell_terms(params_of(c), data, b, eval_config, chunk_extra(c))
                     for b in bases])
-        return tot
+        return all_sum(tot, cells)
 
     # --- warm start and the initial ELBO (infer.run_inference_lanes) ---
     if verbose:
@@ -386,17 +412,18 @@ def fit_streaming(
         for c, y in feeder.sweep():
             warm = mm.gamma_warm_start_logits(params_of(c), chunk_data(c, y), eps,
                                               float(initial_shrink), config, chunk_extra(c))
-            cells[c]["gamma_logits"].copy_(warm)
+            chunk_params[c]["gamma_logits"].copy_(warm)
     np_dtype = np.float64 if dt == torch.float64 else np.float32
     mon = Monitor(evaluate([draw("init_eval")], config)[:1].cpu().numpy(), int(max_iter),
                   float(rel_tol), int(window_size), np_dtype)
 
     # --- the Adam loop: per chunk, the cell terms' value and gradients and
     # the chunk's own Adam step; then the global terms and one step of the
-    # shared parameters from the summed gradients ---
+    # shared parameters from the summed gradients (on a mesh, the chunks'
+    # sums every rank's, by one all_reduce) ---
     lr = float(learning_rate)
     shared_opt = TF1Adam(list(shared.values()), lr)
-    cell_opts = [TF1Adam(list(cell.values()), lr) for cell in cells]
+    cell_opts = [TF1Adam(list(cell.values()), lr) for cell in chunk_params]
     synchronize(dev)
     t_loop = time.perf_counter()
     while mon.live()[0]:
@@ -406,16 +433,22 @@ def fit_streaming(
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
             shared.values(), torch.autograd.grad(-value, list(shared.values()), allow_unused=True))]
         value = value.detach()
+        if not owns_global:
+            value, grads = torch.zeros_like(value), [torch.zeros_like(g) for g in grads]
         for c, y in feeder.sweep():
-            leaves = list(shared.values()) + list(cells[c].values())
+            leaves = list(shared.values()) + list(chunk_params[c].values())
             val = mm.elbo_cell_terms(params_of(c), chunk_data(c, y),
                                      mm.sample_mu_base(params_of(c), eps), config, chunk_extra(c))
             g = torch.autograd.grad(-val, leaves, allow_unused=True)
             g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
             for acc, gi in zip(grads, g[: len(shared)]):
                 acc += gi
-            cell_opts[c].step(list(cells[c].values()), g[len(shared):])
+            cell_opts[c].step(list(chunk_params[c].values()), g[len(shared):])
             value = value + val.detach()
+        flat = all_sum(torch.cat([g.reshape(-1) for g in grads] + [value.reshape(1)]), cells)
+        pieces = flat.split([g.numel() for g in grads] + [1])
+        grads = [p.view_as(g) for g, p in zip(grads, pieces)]
+        value = pieces[-1][0]
         shared_opt.step(list(shared.values()), grads)
         if elbo_eval == "fresh":
             value = evaluate([draw("eval")], config)[0]
@@ -436,14 +469,14 @@ def fit_streaming(
 
     params = mm.CloneAlignParams(
         **{f: t.detach() for f, t in shared.items()},
-        **{f: torch.cat([cell[f].detach() for cell in cells]) for f in _CELL})
+        **{f: torch.cat([cell[f].detach() for cell in chunk_params]) for f in _CELL})
     result = InferenceResult(params=params, elbo_trace=mon.trace[0], n_iters=int(mon.i[0]),
                              final_elbo=float(torch.mean(finals)),
                              sd_final_elbo=float(torch.std(finals, correction=1)),
                              loop_seconds=loop_seconds)
     fit = _package_fit(result, src, L, clone_names, retained_genes, config,
                        clone_call_probability, clone_probs_from_snv, device_Y=rows,
-                       device_s=stats.s, blocks=aux)
+                       device_s=stats.s, blocks=aux, cells=cells)
     fit.timings = {"setup": t1 - t0, "init": t2 - t1, "inference": t3 - t2,
                    "loop": loop_seconds, "package": time.perf_counter() - t3}
     return fit

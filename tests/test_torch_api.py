@@ -249,9 +249,17 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     dict(mesh=object()),
 ])
 def test_options_outside_the_slice_raise(option):
+    """``mesh`` is ported: one that make_mesh did not make is refused."""
     Y, L = _toy()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="make_mesh"):
         ct.run_clonealign(Y, L, device="cpu", verbose=False, **option)
+
+
+def test_a_genes_mesh_axis_is_not_ported():
+    from clonealign_torch.parallel.sharding import make_mesh
+
+    with pytest.raises(NotImplementedError, match="distributed"):
+        make_mesh(devices="cpu", gene_parallelism=2)
 
 
 def test_float64_on_cuda_resolves():

@@ -355,7 +355,7 @@ def test_matches_the_jax_stream(elbo_eval, monkeypatch):
 # --- refusals ---------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    (dict(mesh=object()), NotImplementedError, "distributed"),
+    (dict(mesh=object()), TypeError, "make_mesh"),
     (dict(likelihood_impl="fused"), ValueError, "fused"),
     (dict(likelihood_impl="bogus"), ValueError, "likelihood_impl"),
     (dict(key=object()), ValueError, "key"),
