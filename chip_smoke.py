@@ -1928,20 +1928,16 @@ def wide_stream(clonealign_torch, fl, Y, L, z, X, core):
     return out
 
 
-def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
-    """The wide kernel family on the card: each kernel against its plain
-    version at every Y storage at WIDE_CHECKS's shapes and at a streaming
-    chunk shape (Y the leading rows of the feeder's buffer), timed at full
-    width for WIDE_FULL beside its bound; the full-width fit with K = 1,
-    P = 4 and mc_samples = 8 through clonealign (y_storage "auto"), the
-    same fit streamed (:func:`wide_stream`), the sweep of three restarts as
-    lanes at the same configuration and the parity fit, each of whose
-    launches must all be wide. ``auto_name`` and ``y_itemsize`` name the Y
-    storage "auto" resolves to for the full-width counts. Returns the
-    numbers for the kernels line."""
+def wide_kernel_checks(fl, auto_name):
+    """The wide kernel family's checks, timed by CUDA events only: each
+    kernel against its plain version at every Y storage at WIDE_CHECKS's
+    shapes and at a streaming chunk shape (Y the leading rows of the
+    feeder's buffer), timed at full width for WIDE_FULL beside its bound,
+    with each plan's resources. ``auto_name`` names the Y storage "auto"
+    resolves to for the full-width counts. Returns the numbers for
+    :func:`wide_phase`."""
     from clonealign_torch import stream
 
-    t_phase = time.perf_counter()
     log("wide phase: kernels vs plain past the narrow limits (tolerance: KERNEL_RTOL="
         f"{KERNEL_RTOL:g} of the per-element absolute-term sum)")
     for storage in STORAGES:
@@ -1979,7 +1975,19 @@ def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
                     f"{q['instantiation']}: {q['registers']} registers, {q['spill_bytes']} B "
                     f"spilled, {q['smem_bytes']} B shared memory, {q['blocks_per_sm']} blocks "
                     f"an SM")
+    return {"full": full, "chunk": chunk, "chunk_rows": (sizes[0], sizes[-1])}
 
+
+def wide_phase(clonealign_torch, fl, y_itemsize, checks):
+    """The wide kernel family's fits on the card, after its kernel checks
+    ``checks`` (:func:`wide_kernel_checks`): the full-width fit with K = 1,
+    P = 4 and mc_samples = 8 through clonealign (y_storage "auto"), the
+    same fit streamed (:func:`wide_stream`), the sweep of three restarts as
+    lanes at the same configuration and the parity fit, each of whose
+    launches must all be wide. ``y_itemsize`` is the Y storage's "auto"
+    resolves to for the full-width counts. Returns the numbers for the
+    kernels line."""
+    t_phase = time.perf_counter()
     Y, L, z = synth_counts(3, FULL["N"], FULL["G"], FULL["C"])
     X = wide_covariates(FULL["N"], seed=5)
     fit = full_fit(clonealign_torch, fl, Y, L, z, "auto", x=X, mc_samples=WIDE_S, wide=True,
@@ -1991,9 +1999,8 @@ def wide_phase(clonealign_torch, fl, auto_name, y_itemsize):
         raise AssertionError("the wide sweep did not run as lanes")
     del Y
     parity = parity_fit(clonealign_torch, fl)
-    log(f"wide phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"full": full, "chunk": chunk, "chunk_rows": (sizes[0], sizes[-1]),
-            "fit": fit, "stream": streamed, "sweep": sweep, "parity": parity}
+    log(f"wide phase: {time.perf_counter() - t_phase:.1f} s after its kernel checks")
+    return dict(checks, fit=fit, stream=streamed, sweep=sweep, parity=parity)
 
 
 def wide_kernels(wide, auto_name):
@@ -2084,7 +2091,8 @@ F64_LANES = dict(initial_shrinks=(5,), n_repeats=3, max_iter=100, elbo_eval="reu
 # iterations, so that the card's and the CPU's make the same draws), and
 # the v1 family's (model3 counts, numpy seed 17), on the card against the
 # CPU; the CPU's run in a child process with F64_CPU_THREADS threads beside
-# the phase's kernel checks, after its timed fits
+# the script's first kernel checks (CUDA events only), which the first
+# host-timed fit waits for
 F64_GOLDEN = (("example", 7), ("synth", 11))
 F64_GOLDEN_KW = dict(max_iter=GOLDEN_MAX_ITER, rel_tol=0.0, dtype="float64", verbose=False)
 F64_V1 = dict(N=1_000, G=200, C=4)
@@ -2376,8 +2384,8 @@ def cpu_references_f64(out):
     written to the .npz ``out``: the golden example and synth fits
     (F64_GOLDEN_KW, NumpyNoise draws, the PCA's sign fixed by
     :func:`signed_pca`) and the v1 family's exact and Chebyshev fits at
-    F64_V1's width. float64_phase runs it in a child process
-    (:func:`start_cpu_references_f64`)."""
+    F64_V1's width. The script runs it in a child process
+    (:func:`start_cpu_references_f64`) beside its first kernel checks."""
     import torch
 
     import clonealign_torch
@@ -2522,32 +2530,21 @@ def negbin_f64(clonealign_torch, fl, cpu):
     return found
 
 
-def float64_phase(clonealign_torch, fl, auto_name, y_itemsize):
-    """dtype="float64" on the card through the float64 kernel family: first
-    the full-width float64 fit under "auto" and with float64 Y, the z_cheb
+def float64_phase(clonealign_torch, fl, y_itemsize, cpu, kernels):
+    """dtype="float64" on the card through the float64 kernel family: the
+    full-width float64 fit under "auto" and with float64 Y, the z_cheb
     fit, the three-lane sweep as "vmap" and "map" (equal) and the streamed
-    fit (equal to the in-core one), timed by host clocks before anything
-    else runs beside them; then, while the CPU's reference fits run in a
-    child process (:func:`start_cpu_references_f64`), the kernels' ptxas
-    report, the DMMA and spill check of the forward's, dpsi's and the gene
-    part's instantiations (:func:`check_f64_sass`) and an exp's FP64
-    instructions, each kernel against its plain
-    float64 version at every Y storage at F64_CHECKS's shapes and
-    bit-identical across launches, timed at full width (F64_FULL x
-    F64_FULL_STORAGES, CUDA events) beside its float64 bound and PR 17's
-    time (``F64_PR17_MS``), and the golden
-    example and synth fits and the v1 family against the CPU's. Every
-    launch of these paths is a float64 one. ``auto_name`` and
-    ``y_itemsize`` name the storage "auto" resolves to. dpsi's full-width
-    times are printed beside its earlier CUDA-core form's
-    (``F64_CUDA_CORE_DPSI_MS``). Returns the numbers for the kernels
-    line."""
+    fit (equal to the in-core one), timed by host clocks, and the golden
+    example and synth fits and the v1 family against the CPU's ``cpu``
+    (:func:`cpu_references_f64`'s results); ``kernels`` are
+    :func:`float64_kernels`' checks, which ran beside the CPU's fits. Every
+    launch of these paths is a float64 one. ``y_itemsize`` is the storage's
+    "auto" resolves to. Returns the numbers for the kernels line."""
     t_phase = time.perf_counter()
     out = float64_fits(clonealign_torch, fl, y_itemsize)
-    with start_cpu_references_f64() as cpu:
-        out.update(float64_kernels(fl))
-        out["golden"] = golden_f64(clonealign_torch, fl, cpu)
-        out["v1"] = negbin_f64(clonealign_torch, fl, cpu)
+    out.update(kernels)
+    out["golden"] = golden_f64(clonealign_torch, fl, cpu)
+    out["v1"] = negbin_f64(clonealign_torch, fl, cpu)
     log(f"float64 phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -2589,8 +2586,15 @@ def float64_fits(clonealign_torch, fl, y_itemsize):
 
 
 def float64_kernels(fl):
-    """The float64 phase's kernel checks and full-width timings
-    (:func:`float64_phase`)."""
+    """The float64 phase's kernel checks and full-width timings, by CUDA
+    events only: the kernels' ptxas report, the DMMA and spill check of the
+    forward's, dpsi's and the gene part's instantiations
+    (:func:`check_f64_sass`) and an exp's FP64 instructions, each kernel
+    against its plain float64 version at every Y storage at F64_CHECKS's
+    shapes and bit-identical across launches, timed at full width
+    (F64_FULL x F64_FULL_STORAGES) beside its float64 bound and PR 17's
+    time (``F64_PR17_MS``; dpsi's beside its earlier CUDA-core form's,
+    ``F64_CUDA_CORE_DPSI_MS``). For :func:`float64_phase`."""
     from clonealign_torch.ops import _build
 
     exp_ops, opcodes = exp_fp64_instructions()
@@ -2683,6 +2687,8 @@ def f64_kernels(f64, auto_name):
 # ---------------------------------------------------------------------------
 
 DIST_WORLD = 2  # ranks sharing the one card over gloo in (b)-(e)
+# the genes axis's meshes: (f) 1 x 2, (g) 2 x 2, ranks sharing the card over gloo
+DIST_GENE_MESHES = {"f": (1, 2), "g": (2, 2)}
 DIST_F64 = dict(N=20_000, G=2_000, C=10)  # the two-rank float64 sweep's counts
 DIST_F64_LANES = dict(initial_shrinks=(5,), n_repeats=3, max_iter=100, elbo_eval="reuse")
 DIST_STREAM_CHUNK = 12_500  # cells a chunk: four of each rank's 50,000
@@ -2701,20 +2707,31 @@ class CollectiveClock:
     """Counts the ``torch.distributed.all_reduce`` calls made inside the
     block and, with ``timed``, the host seconds they take, each timed
     between two synchronizes of the card, so that the work queued before it
-    is not charged to it (without ``timed`` nothing is synchronized)."""
+    is not charged to it (without ``timed`` nothing is synchronized).
+    ``groups`` names process groups (a mesh's cells and genes groups):
+    ``by_group[name]`` holds the calls and seconds of the all_reduces made
+    over each, "other" those over any other group."""
 
-    def __init__(self, timed=True):
+    def __init__(self, timed=True, groups=None):
         self.timed = timed
+        self.groups = dict(groups or {})
+
+    def _name(self, kwargs):
+        group = kwargs.get("group")
+        return next((n for n, g in self.groups.items() if g is not None and g is group), "other")
 
     def __enter__(self):
         import torch
         import torch.distributed as tdist
 
         self.calls, self.seconds, self.original = 0, 0.0, tdist.all_reduce
+        self.by_group = {name: [0, 0.0] for name in list(self.groups) + ["other"]}
 
         def timed(*args, **kwargs):
+            tally = self.by_group[self._name(kwargs)]
             if not self.timed:
                 self.calls += 1
+                tally[0] += 1
                 return self.original(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2722,8 +2739,11 @@ class CollectiveClock:
                 return self.original(*args, **kwargs)
             finally:
                 torch.cuda.synchronize()
-                self.seconds += time.perf_counter() - t0
+                seconds = time.perf_counter() - t0
+                self.seconds += seconds
                 self.calls += 1
+                tally[0] += 1
+                tally[1] += seconds
 
         tdist.all_reduce = timed
         return self
@@ -2742,26 +2762,30 @@ def label_accuracy(labels, C, z_true) -> float:
     return float(np.mean(np.asarray([index.get(c, -1) for c in labels]) == z_true))
 
 
-def distributed_rank(rank, port, paths, queue):
-    """One rank of the distributed phase's two-rank runs (b)-(e), in a
-    process of its own on the card: puts ``(rank, results)`` on ``queue``,
-    or ``(rank, traceback)`` when it fails, and then exits nonzero."""
+def distributed_rank(rank, world, genes, port, paths, queue):
+    """One rank of the distributed phase's runs (b)-(e) (a 2 x 1 mesh), (f)
+    (1 x 2) or (g) (2 x 2), in a process of its own on the card: puts
+    ``(rank, results)`` on ``queue``, or ``(rank, traceback)`` when it
+    fails, and then exits nonzero."""
     import traceback
 
     try:
-        queue.put((rank, distributed_runs(rank, port, paths)))
+        queue.put((rank, distributed_runs(rank, world, genes, port, paths)))
     except Exception:  # the parent fails the phase with this rank's traceback
         queue.put((rank, traceback.format_exc()))
         raise
 
 
-def distributed_runs(rank, port, paths):
-    """(b) the ten-restart full-width sweep, (c) the float64 sweep, (d) the
-    streamed fit and (e) the v1 fit, each through its public entry point
-    with ``mesh=make_mesh()`` in a gloo group of DIST_WORLD ranks on the
-    card, the counts memory-mapped, so that the rank reads and uploads only
-    its rows; each run's launches counted from zero and its collectives
-    counted and timed (:class:`CollectiveClock`)."""
+def distributed_runs(rank, world, genes, port, paths):
+    """Each run through its public entry point with ``mesh=make_mesh(
+    gene_parallelism=genes)`` in a gloo group of ``world`` ranks on the
+    card, the counts memory-mapped, so that the rank reads its cell block's
+    rows and uploads only its tile: on the 2 x 1 mesh (b) the ten-restart
+    full-width sweep, (c) the float64 sweep, (d) the streamed fit and (e)
+    the v1 fit; on the 1 x 2 mesh (f) the sweep; on the 2 x 2 mesh (g1)
+    the sweep, (g2) the float64 sweep, (g3) the streamed fit and (g4) the
+    v1 fit. Each run's launches are counted from zero and its collectives
+    counted and timed by group (:class:`CollectiveClock`)."""
     import torch
     import torch.distributed as tdist
 
@@ -2772,43 +2796,48 @@ def distributed_runs(rank, port, paths):
 
     torch.cuda.set_device(0)
     # the ranks share the host's cores: each takes its part of them
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DIST_WORLD))
-    dist.initialize(f"127.0.0.1:{port}", DIST_WORLD, rank, backend="gloo",
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
                     timeout_seconds=DIST_TIMEOUT)
     out = {}
     try:
-        mesh = sharding.make_mesh()
+        mesh = sharding.make_mesh(gene_parallelism=genes)
         out["device"] = str(mesh.device)
+        out["coords"] = (mesh.cell_coord, mesh.gene_coord)
         # copy-on-write maps: the rows are read from the map in place (a
         # read-only map's rows would be copied out once more, a chunk a step)
         Y, L = np.load(paths["Y"], mmap_mode="c"), np.load(paths["L"])
         Y64, L64 = np.load(paths["Y64"], mmap_mode="r"), np.load(paths["L64"])
         Ynb, Lnb = np.load(paths["Ynb"], mmap_mode="r"), np.load(paths["Lnb"])
-        runs = (
-            ("b", "narrow", lambda: clonealign_torch.run_clonealign(
-                Y, L, mesh=mesh, seed=0, verbose=False, **LANES)),
-            ("c", "float64", lambda: clonealign_torch.run_clonealign(
-                Y64, L64, mesh=mesh, seed=0, verbose=False, dtype="float64", **DIST_F64_LANES)),
-            ("d", "narrow", lambda: clonealign_torch.fit_streaming(
-                Y, L, mesh=mesh, chunk_cells=DIST_STREAM_CHUNK, max_iter=FIT_MAX_ITER, seed=0,
-                verbose=False, elbo_eval="reuse")),
-            ("e", "narrow", lambda: sharding.sharded_negbin_fit(
-                Ynb, Lnb, mesh, max_iter=NEGBIN_MAX_ITER, rel_tol=1e-6)),
-        )
-        for name, family, run in runs:
+        sweep = ("narrow", lambda: clonealign_torch.run_clonealign(
+            Y, L, mesh=mesh, seed=0, verbose=False, **LANES))
+        sweep64 = ("float64", lambda: clonealign_torch.run_clonealign(
+            Y64, L64, mesh=mesh, seed=0, verbose=False, dtype="float64", **DIST_F64_LANES))
+        streamed = ("narrow", lambda: clonealign_torch.fit_streaming(
+            Y, L, mesh=mesh, chunk_cells=DIST_STREAM_CHUNK, max_iter=FIT_MAX_ITER, seed=0,
+            verbose=False, elbo_eval="reuse"))
+        v1 = ("narrow", lambda: sharding.sharded_negbin_fit(
+            Ynb, Lnb, mesh, max_iter=NEGBIN_MAX_ITER, rel_tol=1e-6))
+        runs = {(DIST_WORLD, 1): dict(b=sweep, c=sweep64, d=streamed, e=v1),
+                (2, 2): dict(f=sweep),
+                (4, 2): dict(g1=sweep, g2=sweep64, g3=streamed, g4=v1)}[(world, genes)]
+        for name, (family, run) in runs.items():
             fl.reset_launch_counts()
             tdist.barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with CollectiveClock() as clock:
+            with CollectiveClock(groups={"cells": mesh.cell_group,
+                                         "genes": mesh.gene_group}) as clock:
                 fit = run()
             torch.cuda.synchronize()
             row = dict(wall=time.perf_counter() - t0, launches=launches_of(fl, family),
-                       collective_calls=clock.calls, collective_s=clock.seconds)
-            if name == "e":
+                       collective_calls=clock.calls, collective_s=clock.seconds,
+                       by_group=clock.by_group)
+            if name in ("e", "g4"):
+                rows = dist.process_cell_slice(Ynb.shape[0], mesh=mesh)
                 row.update(gamma=fit.post.gamma.cpu().numpy(), final_elbo=fit.final_elbo,
                            rho=fit.post.r.cpu().numpy() > 0.5, iterations=[fit.n_iter],
-                           loop_s=fit.loop_seconds)
+                           loop_s=fit.loop_seconds, rows=(rows.start, rows.stop))
             else:
                 row.update(labels=fit.clone, loop_s=fit.timings["loop"],
                            final_elbo=fit.convergence_info.final_elbo,
@@ -2823,11 +2852,11 @@ def distributed_runs(rank, port, paths):
     return out
 
 
-def spawn_ranks(paths):
-    """Run :func:`distributed_rank` as DIST_WORLD spawned processes and
-    return each rank's results. A rank's exception, a rank that exits
-    nonzero or a run past DIST_TIMEOUT fails the phase; every process is
-    stopped before this returns."""
+def spawn_ranks(paths, world=DIST_WORLD, genes=1):
+    """Run :func:`distributed_rank` as ``world`` spawned processes on a
+    ``(world // genes) x genes`` mesh and return each rank's results. A
+    rank's exception, a rank that exits nonzero or a run past DIST_TIMEOUT
+    fails the phase; every process is stopped before this returns."""
     import queue as queue_module
 
     import torch.multiprocessing as mp
@@ -2835,19 +2864,19 @@ def spawn_ranks(paths):
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=distributed_rank, args=(r, port, paths, results))
-             for r in range(DIST_WORLD)]
+    procs = [ctx.Process(target=distributed_rank, args=(r, world, genes, port, paths, results))
+             for r in range(world)]
     for p in procs:
         p.start()
     got = {}
     deadline = time.perf_counter() + DIST_TIMEOUT
     try:
-        while len(got) < DIST_WORLD:
+        while len(got) < world:
             try:
                 rank, value = results.get(timeout=max(1.0, deadline - time.perf_counter()))
             except queue_module.Empty:
                 raise AssertionError(f"distributed phase: no result from ranks "
-                                     f"{sorted(set(range(DIST_WORLD)) - set(got))} within "
+                                     f"{sorted(set(range(world)) - set(got))} within "
                                      f"{DIST_TIMEOUT} s") from None
             if isinstance(value, str):
                 raise AssertionError(f"distributed phase: rank {rank} failed:\n{value}")
@@ -2861,21 +2890,117 @@ def spawn_ranks(paths):
             if p.is_alive():
                 p.kill()
                 p.join()
-    return [got[r] for r in range(DIST_WORLD)]
+    return [got[r] for r in range(world)]
 
 
-def distributed_phase(clonealign_torch, fl, Y, L, z, sweep_ref, stream_ref, negbin_ref):
+def _collectives(r, row):
+    steps = max(row["iterations"])
+    text = (f"rank {r}: {row['wall']:.2f} s wall, loop {1000 * row['loop_s'] / steps:.2f} ms a "
+            f"step, collectives {1000 * row['collective_s'] / steps:.3f} ms a step "
+            f"({row['collective_calls']} all_reduce calls in the run")
+    calls, seconds = row["by_group"]["genes"]
+    if calls:
+        text += (f"; the genes group's {calls} calls, {1000 * seconds / steps:.3f} ms a step, "
+                 f"{calls / steps:.1f} calls a step")
+    return text + ")"
+
+
+def _check_sweep(label, where, r, row, ref, z):
+    """(b), (f), (g1): a rank's ten-restart sweep against the one-process
+    sweep ``ref``: launches equal, final ELBOs within rel 1e-4, calls on
+    99.9% of the cells, accuracy 0.99. True when it passes."""
+    rel = float(np.max(np.abs(row["elbos"] - ref["elbos"]) / np.abs(ref["elbos"])))
+    agree = float(np.mean(np.asarray(row["labels"]) == np.asarray(ref["labels"])))
+    acc = label_accuracy(row["labels"], FULL["C"], z)
+    row.update(rel=rel, agree=agree, accuracy=acc,
+               lane_iter_ms=1000 * row["loop_s"] / sum(row["iterations"]))
+    log(f"distributed {label} {where}, the ten-restart sweep on {row['device']}, "
+        f"{_collectives(r, row)}; {row['lane_iter_ms']:.3f} ms per lane iteration (one process "
+        f"{ref['lane_iter_ms']:.3f}); launches {row['launches']}; final ELBOs max rel diff "
+        f"{rel:.3e} (bar 1e-4); calls agree on {agree:.5f} of the cells (bar 0.999); accuracy "
+        f"{acc:.4f}")
+    return (row["launches"] == ref["launches"] and rel <= 1e-4 and agree >= 0.999
+            and acc >= MIN_ACCURACY)
+
+
+def _check_sweep64(label, where, r, row, ref64, ref64_launches):
+    """(c), (g2): the float64 sweep against the one-process float64 sweep:
+    iterations, calls and launches equal, final ELBOs within rel 1e-9."""
+    rel = float(np.max(np.abs(row["elbos"] - ref64.multirun_info["elbos"])
+                       / np.abs(ref64.multirun_info["elbos"])))
+    row.update(rel=rel, lane_iter_ms=1000 * row["loop_s"] / sum(row["iterations"]))
+    same = row["labels"] == ref64.clone and row["iterations"] == ref64.timings["iterations"]
+    ref64_ms = 1000 * ref64.timings["loop"] / sum(ref64.timings["iterations"])
+    log(f"distributed {label} {where}, float64 sweep {DIST_F64['N']}x{DIST_F64['G']}x"
+        f"{DIST_F64['C']}, 3 restarts, {_collectives(r, row)}; {row['lane_iter_ms']:.3f} ms per "
+        f"lane iteration (one process {ref64_ms:.3f}); launches {row['launches']} (one process "
+        f"{ref64_launches}); final ELBOs max rel diff {rel:.3e} (bar 1e-9); iterations and calls "
+        f"{'equal' if same else 'DIFFER'}")
+    return rel <= 1e-9 and same and row["launches"] == ref64_launches
+
+
+def _check_stream(label, where, r, row, stream_ref, cells_per_rank):
+    """(d), (g3): fit_streaming(mesh=) against the one-process streamed fit:
+    iterations and calls equal, the final ELBO within the streaming bar,
+    each rank's launches its chunks'."""
+    n = row["iterations"][0]
+    chunks = -(-cells_per_rank // DIST_STREAM_CHUNK)
+    want = {"fwd": chunks * (2 + n + 20), "dpsi": chunks * n, "gene": chunks * n}
+    diff = abs(row["final_elbo"] - stream_ref["final_elbo"])
+    bar = max(1e-4 * abs(stream_ref["final_elbo"]), 3.0 * stream_ref["sd_final"])
+    same = row["labels"] == stream_ref["labels"] and n == stream_ref["n_iters"]
+    row.update(diff=diff, bar=bar, iter_ms=1000 * row["loop_s"] / max(n, 1))
+    log(f"distributed {label} {where}, fit_streaming(mesh=) in {chunks} chunks of "
+        f"{DIST_STREAM_CHUNK} a rank, {_collectives(r, row)}; {row['iter_ms']:.2f} ms an "
+        f"iteration (one process {stream_ref['iter_ms']:.2f}); launches {row['launches']} "
+        f"(expected {want}); final ELBO |diff| {diff:.6g} (bar {bar:.6g}); iterations and calls "
+        f"{'equal' if same else 'DIFFER'}")
+    return row["launches"] == want and diff <= bar and same
+
+
+def _check_v1(label, where, ranks, name, negbin_ref, znb):
+    """(e), (g4): sharded_negbin_fit against the one-process exact fit:
+    accuracy 1.0, calls and the dosage mask equal, final ELBO within rel
+    1e-4 (the JAX package's own mesh bars), every rank's final ELBO the
+    same and no fused-likelihood launch."""
+    rows = {tuple(rank[name]["rows"]): rank[name]["gamma"] for rank in ranks}
+    labels = np.argmax(np.concatenate([rows[k] for k in sorted(rows)]), 1)
+    first = ranks[0][name]
+    acc = float(np.mean(labels == znb))
+    agree = float(np.mean(labels == negbin_ref["labels"]))
+    rel = abs(first["final_elbo"] - negbin_ref["final_elbo"]) / abs(negbin_ref["final_elbo"])
+    rho_same = all(bool(np.array_equal(rank[name]["rho"], negbin_ref["rho"])) for rank in ranks)
+    same = all(rank[name]["final_elbo"] == first["final_elbo"] for rank in ranks)
+    for r, rank in enumerate(ranks):
+        row = rank[name]
+        log(f"distributed {label} {where}, sharded_negbin_fit {NEGBIN['N']}x{NEGBIN['G']}x"
+            f"{NEGBIN['C']}, {_collectives(r, row)}; {row['iterations'][0]} iterations "
+            f"(one process {negbin_ref['iterations']}), "
+            f"{row['loop_s'] / max(row['iterations'][0], 1):.4f} s an iteration, "
+            f"fused-likelihood launches {sum(row['launches'].values())} (expected 0)")
+    log(f"distributed {label}: accuracy {acc:.4f} (bar 1.0), calls agree with the one-process "
+        f"exact fit on {agree:.5f} of the cells, dosage mask {'equal' if rho_same else 'DIFFERS'}, "
+        f"final ELBO rel diff {rel:.3e} (bar 1e-4); every rank's final ELBO "
+        f"{'equal' if same else 'DIFFERS'}")
+    return dict(accuracy=acc, agree=agree, rel=rel, iterations=first["iterations"][0],
+                s_per_iter=first["loop_s"] / max(first["iterations"][0], 1),
+                ok=(acc >= 1.0 and agree >= 1.0 and rho_same and rel <= 1e-4 and same
+                    and not any(any(rank[name]["launches"].values()) for rank in ranks)))
+
+
+def distributed_phase(clonealign_torch, fl, Y, L, z, sweep_ref, stream_ref, negbin_ref, card):
     """The distributed fit (``clonealign_torch.parallel``) on the card.
 
-    (a) ``run_clonealign(mesh=make_mesh())`` in an NCCL group of one rank:
-    the full-width ten-restart sweep against the one-process sweep
-    ``sweep_ref`` (sweep (b)): launches equal, final ELBOs within rel 1e-6,
-    clone calls identical, and the step's all_reduce made over NCCL (at
-    least one a step). Then DIST_WORLD ranks share the card over gloo
-    (CUDA tensors; NCCL refuses two ranks on one GPU), each holding and
-    uploading only its block of the cells: (b) the same sweep, each rank's
-    launches equal to the one-process sweep's, final ELBOs within rel
-    1e-4, calls agreeing on 99.9% of the cells, accuracy 0.99; (c) a
+    (a) ``run_clonealign(mesh=make_mesh())`` in an NCCL group of one rank,
+    whose mesh builds its cells and genes subgroups: the full-width
+    ten-restart sweep against the one-process sweep ``sweep_ref`` (sweep
+    (b)): launches equal, final ELBOs equal to the bit, clone calls
+    identical, and the step's all_reduce made over the cells subgroup's
+    NCCL (at least one a step). Then ranks share the card over gloo (CUDA
+    tensors; NCCL refuses two ranks on one GPU), each holding and
+    uploading only its tile. On a 2 x 1 mesh: (b) the same sweep, each
+    rank's launches equal to the one-process sweep's, final ELBOs within
+    rel 1e-4, calls agreeing on 99.9% of the cells, accuracy 0.99; (c) a
     float64 sweep at DIST_F64 against the one-process float64 sweep
     (iterations and calls equal, final ELBOs within rel 1e-9); (d)
     ``fit_streaming(mesh=)`` in chunks of DIST_STREAM_CHUNK cells (four a
@@ -2884,7 +3009,12 @@ def distributed_phase(clonealign_torch, fl, Y, L, z, sweep_ref, stream_ref, negb
     chunks'); (e) ``sharded_negbin_fit`` on the v1 phase's model3 counts
     and iteration cut against its exact fit ``negbin_ref`` (accuracy 1.0,
     calls and dosage mask equal, final ELBO within rel 1e-4, the bar of
-    the JAX package's own mesh fit). Returns the numbers it prints."""
+    the JAX package's own mesh fit). On the genes axis's meshes
+    (``make_mesh(gene_parallelism=2)``): (f) 1 x 2, (b)'s sweep with (b)'s
+    bars, each rank 100,000 x 2,500; (g) 2 x 2, (g1) the same sweep (50,000
+    x 2,500 a rank), (g2)-(g4) the runs and bars of (c)-(e). Each line
+    prints the genes group's all_reduce calls and ms a step beside the
+    card's name and power limit ``card``. Returns the numbers it prints."""
     import torch.distributed as tdist
 
     from clonealign_torch.parallel import distributed as dist
@@ -2895,9 +3025,10 @@ def distributed_phase(clonealign_torch, fl, Y, L, z, sweep_ref, stream_ref, negb
                     timeout_seconds=DIST_TIMEOUT)
     try:
         mesh = sharding.make_mesh()
+        subgroups = mesh.cell_group is not None and mesh.gene_group is not None
         fl.reset_launch_counts()
         t0 = time.perf_counter()
-        with CollectiveClock(timed=False) as clock:  # counted only: no synchronize added
+        with CollectiveClock(timed=False, groups={"cells": mesh.cell_group}) as clock:
             fit = clonealign_torch.run_clonealign(Y, L, mesh=mesh, seed=0, verbose=False,
                                                   **LANES)
         wall_a = time.perf_counter() - t0
@@ -2905,20 +3036,22 @@ def distributed_phase(clonealign_torch, fl, Y, L, z, sweep_ref, stream_ref, negb
     finally:
         tdist.destroy_process_group()
     iters = fit.timings["iterations"]
+    cell_calls = clock.by_group["cells"][0]
     out = {"a": dict(wall=wall_a, launches=launches_a, collective_calls=clock.calls,
                      lane_iter_ms=1000 * fit.timings["loop"] / sum(iters),
                      rel=float(np.max(np.abs(fit.multirun_info["elbos"] - sweep_ref["elbos"])
                                       / np.abs(sweep_ref["elbos"]))),
                      same=fit.clone == sweep_ref["labels"])}
     a = out["a"]
-    log(f"distributed (a) NCCL, one rank on {mesh.device}: run_clonealign(mesh=make_mesh()) "
-        f"{FULL['N']}x{FULL['G']}x{FULL['C']}, 10 restarts: {wall_a:.2f} s wall, "
+    log(f"distributed (a) NCCL, one rank on {mesh.device} [{card}]: run_clonealign(mesh="
+        f"make_mesh()) {FULL['N']}x{FULL['G']}x{FULL['C']}, 10 restarts: {wall_a:.2f} s wall, "
         f"{a['lane_iter_ms']:.3f} ms per lane iteration; launches {launches_a} (one-process "
-        f"sweep {sweep_ref['launches']}); final ELBOs max rel diff {a['rel']:.3e} (bar 1e-6); "
-        f"clone calls {'identical' if a['same'] else 'DIFFER'}; {clock.calls} NCCL all_reduces "
-        f"for {max(iters)} steps (at least one a step)")
-    if launches_a != sweep_ref["launches"] or a["rel"] > 1e-6 or not a["same"] or \
-            clock.calls < max(iters):
+        f"sweep {sweep_ref['launches']}); final ELBOs max rel diff {a['rel']:.3e} (bar: equal); "
+        f"clone calls {'identical' if a['same'] else 'DIFFER'}; cells and genes subgroups "
+        f"{'built' if subgroups else 'MISSING'}; {clock.calls} NCCL all_reduces, {cell_calls} "
+        f"over the cells subgroup, for {max(iters)} steps (at least one a step)")
+    if launches_a != sweep_ref["launches"] or a["rel"] != 0.0 or not a["same"] or \
+            not subgroups or cell_calls < max(iters):
         raise AssertionError("distributed (a): the NCCL world of one differs from the sweep")
     del fit
 
@@ -2931,6 +3064,8 @@ def distributed_phase(clonealign_torch, fl, Y, L, z, sweep_ref, stream_ref, negb
     ref64_launches = launches_of(fl, "float64")
     genes = model3_genes(41, NEGBIN["G"], NEGBIN["C"])
     Ynb, znb = model3_cells(genes, 42, NEGBIN["N"])
+    meshes = {"b": (DIST_WORLD, 1)}
+    meshes.update(DIST_GENE_MESHES)
     with tempfile.TemporaryDirectory() as tmp:
         paths = {name: str(Path(tmp) / f"{name}.npy")
                  for name in ("Y", "L", "Y64", "L64", "Ynb", "Lnb")}
@@ -2939,93 +3074,60 @@ def distributed_phase(clonealign_torch, fl, Y, L, z, sweep_ref, stream_ref, negb
                           ("Lnb", genes["L"].cpu().numpy().astype(np.float64))):
             np.save(paths[name], arr)
         del Ynb
-        t0 = time.perf_counter()
-        ranks = spawn_ranks(paths)
-        out["spawn_wall"] = time.perf_counter() - t0
+        runs = {}
+        for key, (cells, gene_blocks) in meshes.items():
+            t0 = time.perf_counter()
+            runs[key] = spawn_ranks(paths, cells * gene_blocks, gene_blocks)
+            out[f"spawn_wall_{key}"] = time.perf_counter() - t0
+    out["spawn_wall"] = out["spawn_wall_b"]
 
-    def collectives(r, row):
-        steps = max(row["iterations"])
-        return (f"rank {r}: {row['wall']:.2f} s wall, loop {1000 * row['loop_s'] / steps:.2f} ms "
-                f"a step, collectives {1000 * row['collective_s'] / steps:.3f} ms a step "
-                f"({row['collective_calls']} all_reduce calls in the run)")
+    def where(key):
+        cells, gene_blocks = meshes[key]
+        return (f"[gloo, {cells * gene_blocks} ranks as a {cells}x{gene_blocks} (cells, genes) "
+                f"mesh sharing one card, {card}: correctness and the collectives' cost, not "
+                f"scale-out]")
 
-    gloo = (f"gloo, {DIST_WORLD} ranks sharing one card (correctness and the collectives' "
-            "cost, not scale-out)")
     bad = []
-    for r, rank in enumerate(ranks):
-        b = rank["b"]
-        rel = float(np.max(np.abs(b["elbos"] - sweep_ref["elbos"]) / np.abs(sweep_ref["elbos"])))
-        agree = float(np.mean(np.asarray(b["labels"]) == np.asarray(sweep_ref["labels"])))
-        acc = label_accuracy(b["labels"], FULL["C"], z)
-        b.update(rel=rel, agree=agree, accuracy=acc,
-                 lane_iter_ms=1000 * b["loop_s"] / sum(b["iterations"]))
-        log(f"distributed (b) {gloo}, the ten-restart sweep on {rank['device']}, "
-            f"{collectives(r, b)}; {b['lane_iter_ms']:.3f} ms per lane iteration; launches "
-            f"{b['launches']}; final ELBOs max rel diff {rel:.3e} (bar 1e-4); calls agree on "
-            f"{agree:.5f} of the cells (bar 0.999); accuracy {acc:.4f}")
-        if b["launches"] != sweep_ref["launches"] or rel > 1e-4 or agree < 0.999 or \
-                acc < MIN_ACCURACY:
-            bad.append(f"(b) rank {r}")
-
-        c = rank["c"]
-        rel = float(np.max(np.abs(c["elbos"] - ref64.multirun_info["elbos"])
-                           / np.abs(ref64.multirun_info["elbos"])))
-        c.update(rel=rel, lane_iter_ms=1000 * c["loop_s"] / sum(c["iterations"]))
-        same = c["labels"] == ref64.clone and c["iterations"] == ref64.timings["iterations"]
-        ref64_ms = 1000 * ref64.timings["loop"] / sum(ref64.timings["iterations"])
-        log(f"distributed (c) {gloo}, float64 sweep {DIST_F64['N']}x{DIST_F64['G']}x"
-            f"{DIST_F64['C']}, 3 restarts, {collectives(r, c)}; {c['lane_iter_ms']:.3f} ms per "
-            f"lane iteration (one process {ref64_ms:.3f}); "
-            f"launches {c['launches']} (one process {ref64_launches}); final ELBOs max rel diff "
-            f"{rel:.3e} (bar 1e-9); iterations and calls {'equal' if same else 'DIFFER'}")
-        if rel > 1e-9 or not same or c["launches"] != ref64_launches:
-            bad.append(f"(c) rank {r}")
-
-        d = rank["d"]
-        n = d["iterations"][0]
-        chunks = -(-(FULL["N"] // DIST_WORLD) // DIST_STREAM_CHUNK)
-        want = {"fwd": chunks * (2 + n + 20), "dpsi": chunks * n, "gene": chunks * n}
-        diff = abs(d["final_elbo"] - stream_ref["final_elbo"])
-        bar = max(1e-4 * abs(stream_ref["final_elbo"]), 3.0 * stream_ref["sd_final"])
-        same = d["labels"] == stream_ref["labels"] and n == stream_ref["n_iters"]
-        d.update(diff=diff, bar=bar, iter_ms=1000 * d["loop_s"] / max(n, 1))
-        log(f"distributed (d) {gloo}, fit_streaming(mesh=) in {chunks} chunks of "
-            f"{DIST_STREAM_CHUNK} a rank, {collectives(r, d)}; {d['iter_ms']:.2f} ms an iteration "
-            f"(one process {stream_ref['iter_ms']:.2f}); launches {d['launches']} (expected "
-            f"{want}); final ELBO |diff| {diff:.6g} (bar {bar:.6g}); iterations and calls "
-            f"{'equal' if same else 'DIFFER'}")
-        if d["launches"] != want or diff > bar or not same:
-            bad.append(f"(d) rank {r}")
-
-    e0, e1 = ranks[0]["e"], ranks[1]["e"]
-    labels = np.argmax(np.concatenate([rank["e"]["gamma"] for rank in ranks]), 1)
-    acc = float(np.mean(labels == znb))
-    agree = float(np.mean(labels == negbin_ref["labels"]))
-    rel = abs(e0["final_elbo"] - negbin_ref["final_elbo"]) / abs(negbin_ref["final_elbo"])
-    rho_same = bool(np.array_equal(e0["rho"], negbin_ref["rho"]))
-    out["e"] = dict(accuracy=acc, agree=agree, rel=rel, iterations=e0["iterations"][0],
-                    s_per_iter=e0["loop_s"] / max(e0["iterations"][0], 1))
-    for r, rank in enumerate(ranks):
-        log(f"distributed (e) {gloo}, sharded_negbin_fit {NEGBIN['N']}x{NEGBIN['G']}x"
-            f"{NEGBIN['C']}, {collectives(r, rank['e'])}; {rank['e']['iterations'][0]} iterations "
-            f"(one process {negbin_ref['iterations']}), "
-            f"{rank['e']['loop_s'] / max(rank['e']['iterations'][0], 1):.4f} s an iteration, "
-            f"fused-likelihood launches {sum(rank['e']['launches'].values())} (expected 0)")
-    log(f"distributed (e): accuracy {acc:.4f} (bar 1.0), calls agree with the one-process "
-        f"exact fit on {agree:.5f} of the cells, dosage mask {'equal' if rho_same else 'DIFFERS'}, "
-        f"final ELBO rel diff {rel:.3e} (bar 1e-4); both ranks' final ELBOs "
-        f"{'equal' if e0['final_elbo'] == e1['final_elbo'] else 'DIFFER'}")
-    if acc < 1.0 or agree < 1.0 or not rho_same or rel > 1e-4 or \
-            e0["final_elbo"] != e1["final_elbo"] or \
-            any(any(rank["e"]["launches"].values()) for rank in ranks):
-        bad.append("(e)")
-    out["ranks"] = ranks
+    for key, sweep, sweep64, streamed, v1 in (("b", "b", "c", "d", "e"),
+                                              ("f", "f", None, None, None),
+                                              ("g", "g1", "g2", "g3", "g4")):
+        ranks = runs[key]
+        cells_per_rank = FULL["N"] // meshes[key][0]
+        for r, rank in enumerate(ranks):
+            rank[sweep]["device"] = rank["device"]
+            if not _check_sweep(f"({sweep})", where(key), r, rank[sweep], sweep_ref, z):
+                bad.append(f"({sweep}) rank {r}")
+            if sweep64 and not _check_sweep64(f"({sweep64})", where(key), r, rank[sweep64],
+                                              ref64, ref64_launches):
+                bad.append(f"({sweep64}) rank {r}")
+            if streamed and not _check_stream(f"({streamed})", where(key), r, rank[streamed],
+                                              stream_ref, cells_per_rank):
+                bad.append(f"({streamed}) rank {r}")
+        if v1:
+            out[v1] = _check_v1(f"({v1})", where(key), ranks, v1, negbin_ref, znb)
+            if not out[v1]["ok"]:
+                bad.append(f"({v1})")
+        out[key] = ranks
+    out["ranks"] = runs["b"]
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"distributed phase: {out['seconds']:.1f} s (the two ranks' process "
-        f"{out['spawn_wall']:.1f} s)")
+    log(f"distributed phase: {out['seconds']:.1f} s (the ranks' processes: " + ", ".join(
+        f"{k} {out[f'spawn_wall_{k}']:.1f} s" for k in meshes) + ")")
     if bad:
         raise AssertionError("distributed phase misses its bars: " + ", ".join(bad))
     return out
+
+
+class Steps:
+    """The seconds of each step of the script, logged as each ends."""
+
+    def __init__(self):
+        self.t, self.seconds = time.perf_counter(), {}
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        self.t = now
+        log(f"step {name}: {self.seconds[name]:.1f} s")
 
 
 def main() -> int:
@@ -3051,30 +3153,57 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
 
-    # 2. build, always from the sources, so that ptxas reports on this run's kernels
-    _build.library_path().unlink(missing_ok=True)
-    t0 = time.perf_counter()
-    _build.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
-    if _build.build_log:
-        log(_build.build_log.strip())
-    log_tc_resources(_build.build_log, fl)
+    # 2. build, always from the sources, so that ptxas reports on this run's
+    # kernels. Until the first host-timed fit (step 4) only CUDA events time
+    # anything, so the CPU's float64 reference fits (float64_phase's) run in
+    # a child process beside the build and the kernel checks, and step 4
+    # waits for their end
+    steps = Steps()
+    with start_cpu_references_f64() as cpu_references:
+        _build.library_path().unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        _build.build()
+        log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+        if _build.build_log:
+            log(_build.build_log.strip())
+        log_tc_resources(_build.build_log, fl)
+        steps.done("2 build")
 
-    # 3. kernels vs plain: for every Y storage a ragged shape (scalar Y
-    # loads) and one with G % 4 == 0 (vectorized loads), a wide shape, then
-    # full width for the storages a fit uses
-    log("kernels vs plain (tolerance: KERNEL_RTOL="
-        f"{KERNEL_RTOL:g} of the per-element absolute-term sum)")
-    for storage in STORAGES:
-        for Kf in (1, 3, 4):
-            check_kernels(SMALL, S=1, Kf=Kf, seed=1, reps=5, storage=storage)
-        for Kf in (2, 3, 4):
-            check_kernels(VEC, S=1, Kf=Kf, seed=3, reps=5, storage=storage)
-        check_kernels(RICH, S=3, Kf=4, seed=7, reps=5, storage=storage)
-    check_kernels(WIDE, S=2, Kf=3, seed=5, reps=5)
-    full = {st: check_kernels(FULL, S=1, Kf=1, seed=2, reps=10, storage=st) for st in FULL_STORAGES}
-    full_kf = {(st, Kf): check_kernels(FULL, S=1, Kf=Kf, seed=6, reps=10, storage=st)
-               for st in FULL_KF_STORAGES for Kf in FULL_KF}
+        # 3. kernels vs plain: for every Y storage a ragged shape (scalar Y
+        # loads) and one with G % 4 == 0 (vectorized loads), a wide shape,
+        # then full width for the storages a fit uses
+        log("kernels vs plain (tolerance: KERNEL_RTOL="
+            f"{KERNEL_RTOL:g} of the per-element absolute-term sum)")
+        for storage in STORAGES:
+            for Kf in (1, 3, 4):
+                check_kernels(SMALL, S=1, Kf=Kf, seed=1, reps=5, storage=storage)
+            for Kf in (2, 3, 4):
+                check_kernels(VEC, S=1, Kf=Kf, seed=3, reps=5, storage=storage)
+            check_kernels(RICH, S=3, Kf=4, seed=7, reps=5, storage=storage)
+        check_kernels(WIDE, S=2, Kf=3, seed=5, reps=5)
+        full = {st: check_kernels(FULL, S=1, Kf=1, seed=2, reps=10, storage=st)
+                for st in FULL_STORAGES}
+        full_kf = {(st, Kf): check_kernels(FULL, S=1, Kf=Kf, seed=6, reps=10, storage=st)
+                   for st in FULL_KF_STORAGES for Kf in FULL_KF}
+        steps.done("3 kernels vs plain")
+
+        # 3b. the full-width counts, and the wide and float64 families'
+        # kernel checks (steps 11 and 12 run their fits)
+        t0 = time.perf_counter()
+        Y, L, z = synth_counts(3, FULL["N"], FULL["G"], FULL["C"])
+        log(f"synthetic counts {Y.shape} int16 on the card -> host: "
+            f"{time.perf_counter() - t0:.1f} s")
+        auto = api._auto_y_storage(Y)
+        auto_name = "float32" if auto is None else str(auto).removeprefix("torch.")
+        y_itemsize = 4 if auto is None else auto.itemsize
+        log(f'y_storage="auto" resolves to {auto_name} on the card for these counts (largest '
+            f"{int(Y.max())}): Y takes {Y.size * y_itemsize / 1e9:.2f} GB there "
+            f"({Y.size * 4 / 1e9:.2f} GB as float32)")
+        wide_checks = wide_kernel_checks(fl, auto_name)
+        f64_checks = float64_kernels(fl)
+        steps.done("3b the wide and float64 kernels vs plain")
+        cpu_f64 = cpu_references()
+    steps.done("3c waiting for the CPU's float64 references")
     for (st, Kf), r in [((st, 1), r) for st, r in full.items()] + list(full_kf.items()):
         b = r["bounds"]
         log(f"full width, Y {st}, Kf={Kf}: fwd {r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}, bound "
@@ -3084,18 +3213,8 @@ def main() -> int:
             f"{b['gene'][2]})")
 
     # 4. the fit at full width, through the public entry point, with Y
-    # stored as float32 and as "auto" resolves, in turns
-    t0 = time.perf_counter()
-    Y, L, z = synth_counts(3, FULL["N"], FULL["G"], FULL["C"])
-    log(f"synthetic counts {Y.shape} int16 on the card -> host: "
-        f"{time.perf_counter() - t0:.1f} s")
-    auto = api._auto_y_storage(Y)
-    auto_name = "float32" if auto is None else str(auto).removeprefix("torch.")
-    y_itemsize = 4 if auto is None else auto.itemsize
-    log(f'y_storage="auto" resolves to {auto_name} on the card for these counts (largest '
-        f"{int(Y.max())}): Y takes {Y.size * y_itemsize / 1e9:.2f} GB there "
-        f"({Y.size * 4 / 1e9:.2f} GB as float32)")
-    # the covariates: a 0/1 batch over halves of the cells and a standard normal
+    # stored as float32 and as "auto" resolves, in turns; the covariates: a
+    # 0/1 batch over halves of the cells and a standard normal
     rng = np.random.default_rng(5)
     X = np.stack([(np.arange(FULL["N"]) >= FULL["N"] // 2).astype(np.float64),
                   rng.standard_normal(FULL["N"])], axis=1)
@@ -3139,6 +3258,7 @@ def main() -> int:
         for one in f:
             del one["labels"]
     iter_ms = {"xla": [f["iter_ms"] for f in fits["auto"]]}
+    steps.done("4 full-width fits")
 
     # 5. ms per iteration of the full-width single fit under each likelihood,
     # in turns (the numbers api._resolve_auto_impl rests on); the z_cheb fit
@@ -3162,6 +3282,7 @@ def main() -> int:
             raise AssertionError(f"fit {impl}: accuracy {acc_i:.4f}, launches {got} (expected {want})")
     log("ms per iteration, full-width single fit: " + ", ".join(
         f"{impl} {' / '.join(f'{t:.2f}' for t in ts)}" for impl, ts in iter_ms.items()))
+    steps.done("5 likelihoods")
 
     # 6. the full-width sweep of ten restarts: exact in sequence, exact as
     # lanes, z_cheb as lanes, all with Y stored as "auto" resolves; and (b)
@@ -3196,6 +3317,7 @@ def main() -> int:
     log("sweep peak allocated in the inference against restarts._sweep_bytes, GB: " + ", ".join(
         f"({n}) {sw['peak_gb']:.3f} / {sw['plan_gb']:.3f}" for n, sw in sweeps.items()))
     del Y_csr, allele
+    steps.done("6 sweeps")
 
     # 6b. the streaming fit in turns with the in-core fit, what its chunk
     # uploads cost, and serving against the in-core fit
@@ -3216,6 +3338,7 @@ def main() -> int:
         + " / ".join(f"{t:.2f}" for t in ms["core"]) + f": {extra:.2f} ms a step more")
     serve_full(clonealign_torch, core_fit, Y, L, z)
     del core_fit  # Y stays for the distributed phase (9b)
+    steps.done("6b streaming and serving")
 
     # 7. a small restart sweep through run_clonealign
     Ys, Ls, zs = synth_counts(4, SWEEP["N"], SWEEP["G"], SWEEP["C"])
@@ -3235,34 +3358,42 @@ def main() -> int:
 
     # 7b. a small sweep with the golden allele data, "map" and "vmap" in turns
     allele_sweeps = allele_sweep(clonealign_torch, fl)
+    steps.done("7 small sweeps")
 
     # 8. golden parity: the oracle's four converged fits on the card, and
     # the synthetic one streamed
     golden_launches = golden(clonealign_torch, fl)
     golden_stream_launches, golden_stream_shapes = golden_stream(clonealign_torch, fl)
+    steps.done("8 golden")
 
     # 9. the legacy v1 negative-binomial family: plain PyTorch on the card,
     # no fused-likelihood launch
     negbin = negbin_phase(clonealign_torch, fl)
+    steps.done("9 v1")
 
-    # 9b. the distributed fit: a world of one over NCCL, then two ranks
-    # sharing the card over gloo, against the one-process sweep (6), the
-    # streamed fit (6b) and the v1 fit (9)
-    distributed_phase(clonealign_torch, fl, Y, L, z, sweeps["b"], turns[0], negbin["exact"])
+    # 9b. the distributed fit: a world of one over NCCL, then ranks
+    # sharing the card over gloo on a 2 x 1, a 1 x 2 and a 2 x 2 (cells,
+    # genes) mesh, against the one-process sweep (6), the streamed fit (6b)
+    # and the v1 fit (9)
+    distributed_phase(clonealign_torch, fl, Y, L, z, sweeps["b"], turns[0], negbin["exact"],
+                      smi)
     del Y
+    steps.done("9b distributed")
 
     # 10. the command line and its file formats: the full-width sweep from
     # an .npz to an .rds, serving from the .rds, a CellRanger .mtx.gz
     cli_launches, cli_mtx_launches = cli_phase(clonealign_torch, fl)
+    steps.done("10 command line")
 
-    # 11. the wide kernel family: kernels vs plain, full-width timing, the
-    # wide fit, its sweep as lanes and the parity fit
-    wide = wide_phase(clonealign_torch, fl, auto_name, y_itemsize)
+    # 11. the wide kernel family (its kernels checked in step 3b): the wide
+    # fit, streamed, its sweep as lanes and the parity fit
+    wide = wide_phase(clonealign_torch, fl, y_itemsize, wide_checks)
+    steps.done("11 wide")
 
-    # 12. dtype="float64": the float64 kernel family against its plain
-    # versions and timed, the float64 fits, sweep, streamed fit, golden fits
-    # and v1 family against the CPU
-    f64 = float64_phase(clonealign_torch, fl, auto_name, y_itemsize)
+    # 12. dtype="float64" (its kernels checked in step 3b): the float64
+    # fits, sweep, streamed fit, golden fits and v1 family against the CPU
+    f64 = float64_phase(clonealign_torch, fl, y_itemsize, cpu_f64, f64_checks)
+    steps.done("12 float64")
 
     # The backward's parts alone at full width, A2 off, Y stored as "auto"
     # resolves on the main path.
@@ -3347,7 +3478,8 @@ def main() -> int:
     kernels[1]["paths"] = [{"path": p, "launches": min(n["dpsi"], n["gene"])} for p, n in paths]
     kernels += wide_kernels(wide, auto_name)
     kernels += f64_kernels(f64, auto_name)
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    log("steps, s: " + ", ".join(f"{k} {v:.1f}" for k, v in steps.seconds.items()))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all [{smi}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -30,7 +30,8 @@ from .infer import run_inference
 from .models import multinomial as mm
 from .models.allele import construct_ai_likelihood, sanitize_allele_info, snv_clone_probs
 from .ops.fused_likelihood import WIDE_MAX_A2, WIDE_MAX_KF, WIDE_MAX_SC
-from .parallel.collectives import Cells, agree, all_max, all_min, all_sum, block_of, gather_rows
+from .parallel.collectives import (Cells, Genes, agree, all_max, all_min, all_sum, block_of,
+                                   gather_cols, gather_rows, gene_block, world_max)
 from .utils.chunking import host_row_chunk as _host_row_chunk
 from .utils.device import resolve_device, resolve_dtype, synchronize
 from .utils.noise import Noise
@@ -217,6 +218,10 @@ class FitContext:
     # on a mesh, this rank's block of the cells: Y, data's per-cell fields
     # and extra_log_lik are its rows (clone_probs_from_snv is every cell's)
     cells: Optional[Cells] = None
+    # on a mesh with a genes axis, this rank's block of the kept genes: Y, L
+    # and data's per-gene fields are its columns (retained_genes is every
+    # kept gene)
+    genes: Optional[Genes] = None
 
 
 # y_storage -> the storage dtype of the device Y (None: the compute dtype).
@@ -232,7 +237,7 @@ _Y_STORAGE = {
 }
 
 
-def _auto_y_storage(y_values, cells: Optional[Cells] = None):
+def _auto_y_storage(y_values, cells: Optional[Cells] = None, genes: Optional[Genes] = None):
     """``y_storage="auto"``: the narrowest exact storage for the counts, int8
     when every count fits, int16 up to 32767, else None (the compute dtype),
     and None for fractional counts (reference api.py:185-210). Integer
@@ -246,12 +251,12 @@ def _auto_y_storage(y_values, cells: Optional[Cells] = None):
     lane-iteration at int8 against 2.93-2.95, its inference peak 1.28 GB
     against 2.79.
 
-    On a mesh (``cells``) the counts are this rank's, and the largest count
-    and whether any is fractional are every rank's, so every rank stores Y
-    alike."""
+    On a mesh (``cells``, ``genes``) the counts are this rank's tile, and
+    the largest count and whether any is fractional are every rank's, so
+    every rank stores Y alike."""
     ymax, fractional = _count_range(y_values)
     if cells is not None:
-        ymax, fractional = all_max(np.array([ymax, fractional], np.float64), cells)
+        ymax, fractional = world_max(np.array([ymax, fractional], np.float64), cells, genes)
     if fractional or ymax == -np.inf:
         return None
     if ymax <= np.iinfo(np.int8).max:
@@ -417,13 +422,14 @@ def _check_host_counts(Y, device_validated, allow_fractional, K, cells=None) -> 
         )
 
 
-def _resolve_storage(y_storage, Y, cells: Optional[Cells] = None):
+def _resolve_storage(y_storage, Y, cells: Optional[Cells] = None,
+                     genes: Optional[Genes] = None):
     """Y's storage type on the device (``_Y_STORAGE``; "auto":
     :func:`_auto_y_storage` of the counts, a sparse matrix's stored ones;
     on a mesh every rank's); None is the compute dtype."""
     storage = _Y_STORAGE[y_storage]
     if storage == "auto":
-        storage = _auto_y_storage(Y.data if _is_scipy_sparse(Y) else Y, cells)
+        storage = _auto_y_storage(Y.data if _is_scipy_sparse(Y) else Y, cells, genes)
     return storage
 
 
@@ -498,7 +504,11 @@ def setup_fit(
     counts. Every decision that reads all cells takes every rank's values:
     the gene filter the summed column totals, the storage the largest
     count, the likelihood the global N x G, and each check raises on every
-    rank or on none.
+    rank or on none. With a genes axis the filter is decided on the host
+    from those totals first; then the kept genes are split into contiguous
+    blocks (``process_gene_slice``) and each rank keeps, checks the rows
+    of and uploads only its block's columns of its rows (and its rows of
+    L), so that no rank's card holds more than its tile.
     """
     dev = resolve_device(device)
     dt = resolve_dtype(dtype, dev)
@@ -512,8 +522,11 @@ def setup_fit(
         x = None if x is None else x[cells.start : cells.stop]
     device_validated = _device_validated(Y)
     # float32 column sums of integers are exact below 2^24, and a total that
-    # rounds is far above any threshold this admits
-    defer_filter = device_validated and float(gene_filter_threshold) < 2.0**24
+    # rounds is far above any threshold this admits; a genes axis splits
+    # the kept genes, so they are known before the upload
+    split_genes = mesh is not None and mesh.group is not None and mesh.genes > 1
+    defer_filter = (device_validated and float(gene_filter_threshold) < 2.0**24
+                    and not split_genes)
 
     def drop_genes(low):  # reference R/inference-tflow.R:117-131
         nonlocal Y, L
@@ -525,6 +538,10 @@ def setup_fit(
     if not defer_filter:
         retained_genes = drop_genes(all_sum(_colsum_f64(Y), cells) <= gene_filter_threshold)
     _check_host_counts(Y, device_validated, allow_fractional, K, cells)
+    n_genes = Y.shape[1]
+    genes = gene_block(mesh, n_genes)
+    if genes is not None:
+        Y, L = Y[:, genes.start : genes.stop], L[genes.start : genes.stop]
 
     # --- saturation (reference R/inference-tflow.R:142-144) ---
     if saturate:
@@ -535,9 +552,9 @@ def setup_fit(
     extra_log_lik, clone_probs_from_snv = _setup_allele(clone_allele, cov, ref, n_cells,
                                                         L.shape[1], dt, dev, verbose, cells)
 
-    storage = _resolve_storage(y_storage, Y, cells)
+    storage = _resolve_storage(y_storage, Y, cells, genes)
     data = mm.prepare_data(Y, L, x, device=dev, dtype=dt, y_storage=storage,
-                           check_feasible=not defer_filter, cells=cells)
+                           check_feasible=not defer_filter, cells=cells, genes=genes)
     if defer_filter:
         low = data.colsum_Y.cpu().numpy() <= gene_filter_threshold
         retained_genes = drop_genes(low)
@@ -551,7 +568,7 @@ def setup_fit(
                                    check_feasible=False, cells=cells)
     _check_statistics(data, device_validated, feasible=defer_filter)
     config = _model_config(K, P, mc_samples, fix_alpha, likelihood_impl, dt,
-                           n_cells * Y.shape[1])
+                           n_cells * (Y.shape[1] if genes is None else n_genes))
 
     return FitContext(
         Y=Y,
@@ -566,6 +583,7 @@ def setup_fit(
         extra_log_lik=extra_log_lik,
         clone_probs_from_snv=clone_probs_from_snv,
         cells=cells,
+        genes=genes,
     )
 
 
@@ -757,6 +775,7 @@ def _package_fit(
     device_s=None,
     blocks=None,
     cells: Optional[Cells] = None,
+    genes: Optional[Genes] = None,
 ) -> ClonealignFit:
     """Fetch ML params and build the fit object
     (reference R/inference-tflow.R:424-480, R/clonealign.R:283-303).
@@ -767,7 +786,10 @@ def _package_fit(
     mesh (``cells``) they, ``device_s`` and the result's per-cell
     parameters are this rank's rows: the per-cell outputs are gathered and
     the correlations summed over every rank, so every rank returns the fit
-    the one-process call gives."""
+    the one-process call gives. With ``genes`` ``Y``, ``L`` and the
+    per-gene parameters are this rank's gene block: the per-gene outputs
+    (mu, W, beta, the correlations) are gathered over the genes group, in
+    the order of the kept genes."""
     p = result.params
     # Size factors must be float64-exact. For integer host counts (dense or
     # sparse) whose row totals stay below 2^24 the device totals are exact in
@@ -781,25 +803,28 @@ def _package_fit(
     ):
         s = device_s.cpu().numpy().astype(np.float64)
     if s is None and blocks is None:
-        s = np.asarray(Y.sum(axis=1, dtype=np.float64)).ravel()
+        s = all_sum(np.asarray(Y.sum(axis=1, dtype=np.float64)).ravel(), genes)
     elif s is None:
-        s = np.concatenate([Y[i:j].sum(axis=1, dtype=np.float64) for i, j in blocks])
+        s = all_sum(np.concatenate([Y[i:j].sum(axis=1, dtype=np.float64) for i, j in blocks]),
+                    genes)
 
-    def host(t, per_cell=False):
-        return (gather_rows(t.detach(), cells) if per_cell else t.detach()).cpu().numpy()
+    def host(t, per_cell=False, per_gene=False):
+        t = t.detach()
+        t = gather_rows(t, cells) if per_cell else gather_cols(t, genes) if per_gene else t
+        return t.cpu().numpy()
 
     ml_params = {
-        "mu": host(mm.softplus(p.qmu_loc)),
+        "mu": host(mm.softplus(p.qmu_loc), per_gene=True),
         "clone_probs": host(torch.softmax(p.gamma_logits, dim=1), per_cell=True),
         "s": gather_rows(s, cells),
         "alpha": host(torch.softmax(p.alpha_unconstr, dim=0)),
     }
     if config.K > 0:
         ml_params["psi"] = host(p.psi, per_cell=True)
-        ml_params["W"] = host(p.W)
+        ml_params["W"] = host(p.W, per_gene=True)
         ml_params["chi"] = host(torch.exp(p.chi_unconstr))
     if config.P > 0:
-        ml_params["beta"] = host(p.beta)
+        ml_params["beta"] = host(p.beta, per_gene=True)
 
     n_iters = int(result.n_iters)
     trace = np.asarray(result.elbo_trace)[: n_iters + 1]
@@ -817,7 +842,7 @@ def _package_fit(
     )
     correlations = _assign.compute_correlations(
         Y, L, clones if cells is None else clones[cells.start : cells.stop], clone_names,
-        device_Y=device_Y, dtype=p.qmu_loc.dtype, blocks=blocks, cells=cells,
+        device_Y=device_Y, dtype=p.qmu_loc.dtype, blocks=blocks, cells=cells, genes=genes,
     )
     finite = correlations[np.isfinite(correlations)]
     if finite.size and np.quantile(finite, 0.25) < 0:

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 from .models.multinomial import _row_blocks
-from .parallel.collectives import all_sum
+from .parallel.collectives import all_sum, gather_cols
 from .utils.chunking import host_row_chunk as _host_row_chunk
 from .utils.device import full_fp32_matmul
 from .utils.sparsity import is_scipy_sparse as _is_scipy_sparse
@@ -116,7 +116,7 @@ def multirun_calls_device(gamma_logits, threshold, cells=None):
 
 
 def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=None, dtype=None,
-                         blocks=None, cells=None):
+                         blocks=None, cells=None, genes=None):
     """Per-gene Pearson correlation between expression and the copy number of
     each cell's assigned clone (reference R/clonealign.R:318-334; Pearson is
     affine-invariant, so correlating raw counts matches the reference's
@@ -140,6 +140,10 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
     On a mesh (``cells``, with ``device_Y``) ``Y``, ``device_Y`` and the
     clones are this rank's cells, and every sum is every rank's (the host
     sums of the guard below too), so each rank returns the same values.
+    With ``genes`` ``Y``, ``L`` and ``device_Y`` are this rank's gene block
+    (of its cells): each rank correlates its block, whose ranks share the
+    same sums, and the values are gathered over the genes group, so every
+    rank returns every gene's.
     """
     sparse = _is_scipy_sparse(Y)
     L = np.asarray(L, np.float64)
@@ -159,7 +163,7 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
     M = int(m.sum())
     G = Y.shape[1] if device_Y is None else device_Y.shape[1]
     if M < 2:
-        return np.full(G, np.nan)
+        return np.full(G if genes is None else genes.g, np.nan)
 
     if device_Y is not None:
         S, sum_y, sum_y2 = _clone_sums_device(device_Y, idx_full, C, dtype, blocks, cells)
@@ -218,4 +222,4 @@ def compute_correlations(Y, L, clones, clone_names, device_Y=None, clones_idx=No
     with np.errstate(divide="ignore", invalid="ignore"):
         out = num / den
     out[den == 0] = np.nan
-    return out
+    return gather_cols(out, genes)

@@ -5,8 +5,8 @@
 The loop runs in Python over R lanes (restarts) at once, with one host sync
 per iteration for all of them: the stop test needs the new ELBOs on the
 host. A single fit is the one-lane case. On a mesh (``ModelData.cells``)
-each rank runs the loop on its rows, and one all_reduce a step sums the
-ranks' values and shared gradients.
+each rank runs the loop on its tile, and one all_reduce a step over the
+cells group sums the cell blocks' values and shared gradients.
 """
 
 from __future__ import annotations
@@ -220,6 +220,24 @@ class Monitor:
         self.i[lanes] += 1
 
 
+def gene_draws(noises, S: int, G_local: int, dtype, device, genes=None):
+    """``draw(what, lanes)``: the (len(lanes), S, G) standard normals of
+    ``what`` from each lane's noise source. With ``genes`` (a
+    :class:`~clonealign_torch.parallel.collectives.Genes`) each is drawn
+    for every gene and sliced to this rank's block, so that every rank's
+    draws are the one-process fit's."""
+    G = G_local if genes is None else genes.g
+
+    def one(noise, what):
+        eps = noise.normal(what, (S, G), dtype, device)
+        return eps if genes is None else eps[:, genes.start : genes.stop]
+
+    def draw(what, lanes):
+        return mm.stack_lanes([one(noises[r], what) for r in lanes])
+
+    return draw
+
+
 def run_inference(
     params: mm.CloneAlignParams,
     data: mm.ModelData,
@@ -284,34 +302,36 @@ def run_inference_lanes(
     (``elbo_global_terms``). On a mesh (``data.cells``) ``data``,
     ``extra_log_lik`` and the per-cell parameters are this rank's rows, and
     every rank runs this loop with the same draws: each rank takes the
-    value and gradients of its cell terms (rank 0 adds the global terms),
-    and one all_reduce sums the values and the shared parameters'
-    gradients before every rank takes the same step. The per-cell
-    parameters step on their own rank. So every rank's ``Monitor`` sees the
-    same ELBOs and stops and freezes the same lanes, and the iteration
-    keeps its one host sync. In one process the all_reduce is the
-    identity.
+    value and gradients of its cell terms (the ranks of cell block 0 add
+    the global terms), and one all_reduce over the cells group sums the
+    values and the shared parameters' gradients before every rank takes
+    the same step. The per-cell parameters step on their own rank. So every
+    rank's ``Monitor`` sees the same ELBOs and stops and freezes the same
+    lanes, and the iteration keeps its one host sync. In one process the
+    all_reduce is the identity. With a genes axis (``data.genes``) the
+    per-gene parameters are the rank's gene block, every (S, G) draw is
+    made for every gene and sliced, and the sums over genes inside the
+    ELBO reduce over the genes group (``models/multinomial``), so that
+    every gene rank of a cell block holds the whole value, and the same
+    per-cell gradients, before the step.
     """
     if elbo_eval not in ("fresh", "reuse"):
         raise ValueError(f"elbo_eval must be 'fresh' or 'reuse', got {elbo_eval!r}")
     R = len(noises)
     dtype, device = params.qmu_loc.dtype, params.qmu_loc.device
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    shape = (config.mc_samples, params.qmu_loc.shape[-1])
+    cells, genes = data.cells, data.genes
+    draw = gene_draws(noises, config.mc_samples, params.qmu_loc.shape[-1], dtype, device, genes)
     every = np.arange(R)
-
-    cells = data.cells
     shared = [i for i, spec in enumerate(mm.param_specs().tensors()) if CELL_AXIS not in spec]
-
-    def draw(what, lanes):
-        return mm.stack_lanes([noises[r].normal(what, shape, dtype, device) for r in lanes])
+    owns_global = cells is None or cells.mesh.cell_coord == 0
 
     def own_part(p, base, cfg):
         """This rank's part of the ELBO of every lane: its cell terms, and the
-        global terms on rank 0 (in one process, the whole ELBO)."""
+        global terms on cell block 0 (in one process, the whole ELBO)."""
         part = mm.elbo_cell_terms(p, data, base, cfg, extra_log_lik)
-        if cells is None or cells.mesh.rank == 0:
-            part = part + mm.elbo_global_terms(p, base, cfg, data.colsum_Y)
+        if owns_global:
+            part = part + mm.elbo_global_terms(p, base, cfg, data.colsum_Y, genes)
         return part
 
     def evaluate(p, eps_list, cfg):

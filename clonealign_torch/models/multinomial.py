@@ -32,6 +32,13 @@ its A1 carries ``sum_g y_ng (X beta^T)[n,g]``.
 
 A scipy sparse count matrix is densified on the device, one block of rows
 at a time (:func:`prepare_data_sparse`): the kernels read Y dense.
+
+On a mesh (``ModelData.cells`` and ``ModelData.genes``) the data holds one
+rank's tile: its cell block's rows, and of them its gene block's columns.
+Every sum over cells reduces over the cells group and every sum over genes
+over the genes group (``parallel/collectives.py``): the statistics' row
+sums once at setup, the fused op's A1, A2 and Z once an evaluation, z_cheb's
+products with Y and its node table, the global ELBO terms' per-gene sums.
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ import numpy as np
 import torch
 
 from ..ops.fused_likelihood import fused_likelihood_terms
-from ..parallel.collectives import CELL_AXIS, Cells, all_max, all_min, all_sum, gather_rows
+from ..parallel.collectives import (CELL_AXIS, GENE_AXIS, Cells, Genes, all_max, all_min,
+                                    all_sum, gather_cols, gather_rows, grad_sum_over_genes,
+                                    sum_over_genes, world_max)
 from ..utils.device import full_fp32_matmul
 from ..utils.sparsity import is_scipy_sparse
 
@@ -112,23 +121,27 @@ class ModelData:
     # on a mesh, which block of the fit's cells the per-cell fields hold
     # (then colsum_Y is the whole fit's); None in one process
     cells: Optional[Cells] = None
+    # on a mesh with a genes axis, which block of the genes Y, L and
+    # colsum_Y hold (the per-cell statistics are every gene's); else None
+    genes: Optional[Genes] = None
 
 
 def param_specs(batched: bool = False) -> CloneAlignParams:
     """For each field of ``CloneAlignParams``, the axes it is split along on
-    a mesh: a tuple with ``CELL_AXIS`` at the cells' dimension and None
-    elsewhere; ``batched`` adds a leading restart (lane) axis, on every rank
-    whole."""
+    a mesh: a tuple with ``CELL_AXIS`` at the cells' dimension,
+    ``GENE_AXIS`` at the genes' and None elsewhere
+    (clonealign_tpu/parallel/sharding.py:81-96); ``batched`` adds a leading
+    restart (lane) axis, on every rank whole."""
     lead = (None,) if batched else ()
     return CloneAlignParams(
-        W=lead + (None, None),
+        W=lead + (GENE_AXIS, None),
         chi_unconstr=lead + (None,),
         psi=lead + (CELL_AXIS, None),
         alpha_unconstr=lead + (None,),
-        qmu_loc=lead + (None,),
-        qmu_log_scale=lead + (None,),
+        qmu_loc=lead + (GENE_AXIS,),
+        qmu_log_scale=lead + (GENE_AXIS,),
         gamma_logits=lead + (CELL_AXIS, None),
-        beta=lead + (None, None),
+        beta=lead + (GENE_AXIS, None),
     )
 
 
@@ -247,8 +260,10 @@ def _check_integer_storage(ymax, ymin, nonint, store):
 
 def _chunk_stats(yf, log_L_safe, zero_cols):
     """A row chunk's statistics in the compute dtype, products in full
-    float32 (the YlogL constant feeds every ELBO evaluation): totals, log
-    binomials, YlogL with xlogy semantics, and the column sums."""
+    float32 (the YlogL constant feeds every ELBO evaluation): totals, the
+    sums of lgamma(y + 1) (the log binomials' second term), YlogL with
+    xlogy semantics, and the column sums. Each row's is a sum over the
+    chunk's genes."""
     s = torch.sum(yf, dim=1)
     with full_fp32_matmul():
         B = yf @ log_L_safe
@@ -256,12 +271,12 @@ def _chunk_stats(yf, log_L_safe, zero_cols):
     B = torch.where(hits_zero, -math.inf, B)
     lgam = yf + 1.0
     lgam.lgamma_()
-    log_binom = torch.lgamma(s + 1.0) - torch.sum(lgam, dim=1)
-    return s, log_binom, B, torch.sum(yf, dim=0)
+    return s, torch.sum(lgam, dim=1), B, torch.sum(yf, dim=0)
 
 
 def prepare_data(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
-                 check_feasible=True, cells: Optional[Cells] = None) -> ModelData:
+                 check_feasible=True, cells: Optional[Cells] = None,
+                 genes: Optional[Genes] = None) -> ModelData:
     """The device data of a fit from a count matrix (a numpy array, a tensor,
     or a scipy sparse matrix, which goes to :func:`prepare_data_sparse`): Y
     stored as ``y_storage`` (None: the compute ``dtype``; or torch.int8,
@@ -286,10 +301,12 @@ def prepare_data(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
 
     On a mesh (``cells``) Y and ``x`` are this rank's rows: the column sums
     and the counts' range behind the storage check are every rank's, so
-    every rank keeps the same genes and raises or not alike.
+    every rank keeps the same genes and raises or not alike. With ``genes``
+    Y and L are this rank's gene block: the row statistics (totals, log
+    binomials, YlogL) are sums over every gene block.
     """
     kw = dict(device=device, dtype=dtype, y_storage=y_storage, check_feasible=check_feasible,
-              cells=cells)
+              cells=cells, genes=genes)
     if is_scipy_sparse(Y):
         return prepare_data_sparse(Y, L, x, **kw)
     if torch.is_tensor(Y):
@@ -300,7 +317,8 @@ def prepare_data(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
 
 
 def prepare_data_sparse(Y, L, x=None, *, device, dtype=torch.float32, y_storage=None,
-                        check_feasible=True, cells: Optional[Cells] = None) -> ModelData:
+                        check_feasible=True, cells: Optional[Cells] = None,
+                        genes: Optional[Genes] = None) -> ModelData:
     """:func:`prepare_data` of a scipy sparse count matrix without a dense
     N x G host copy (reference models/multinomial.py:800-855). CSC and COO
     are converted to CSR once; the row-chunked loop then densifies one block
@@ -314,17 +332,18 @@ def prepare_data_sparse(Y, L, x=None, *, device, dtype=torch.float32, y_storage=
     Y = Y.tocsr()
     return _prepare_rows(Y, L, x, lambda i, j: torch.from_numpy(Y[i:j].toarray()),
                          device=device, dtype=dtype, y_storage=y_storage,
-                         check_feasible=check_feasible, cells=cells)
+                         check_feasible=check_feasible, cells=cells, genes=genes)
 
 
 def _prepare_rows(Y, L, x, rows, *, device, dtype, y_storage, check_feasible, blocks=None,
-                  with_y=True, cells: Optional[Cells] = None) -> ModelData:
+                  with_y=True, cells: Optional[Cells] = None,
+                  genes: Optional[Genes] = None) -> ModelData:
     """The loop of :func:`prepare_data` over the row blocks of Y (N x G, a
     tensor or a host matrix with a numpy ``dtype``), ``rows(i, j)`` giving
     rows i:j as a tensor. ``blocks`` are the (start, stop) rows of each
     block, by default :func:`_row_blocks`; with ``with_y=False`` only the
     statistics stay on the device (a streaming fit's: ``Y`` is None).
-    ``cells``: see :func:`prepare_data`."""
+    ``cells`` and ``genes``: see :func:`prepare_data`."""
     device = torch.device(device)
     store = dtype if y_storage is None else y_storage
     N, G = Y.shape
@@ -369,19 +388,24 @@ def _prepare_rows(Y, L, x, rows, *, device, dtype, y_storage, check_feasible, bl
         del yc, yf
     colsum = all_sum(colsum, cells)
     failed = torch.full((), float(error is not None), dtype=dtype, device=device)
-    ymax, neg_ymin, nonint, failed = all_max(torch.stack([ymax, -ymin, nonint, failed]),
-                                             cells).unbind()
+    ymax, neg_ymin, nonint, failed = world_max(torch.stack([ymax, -ymin, nonint, failed]),
+                                               cells, genes).unbind()
     if float(failed):
         raise error or ValueError("the counts failed a check on another rank of the mesh")
     if (N if cells is None else cells.n) * G:
         _check_integer_storage(float(ymax), float(-neg_ymin), float(nonint), store)
-    s, log_binom, B = (torch.cat(p) for p in zip(*parts))
+    s, lgam_sum, B = (torch.cat(p) for p in zip(*parts))
+    if genes is not None:  # the row sums over every gene block, in one all_reduce
+        s, lgam_sum, B = all_sum(torch.cat([s[:, None], lgam_sum[:, None], B], dim=1),
+                                 genes).split([1, 1, B.shape[1]], dim=1)
+        s, lgam_sum = s[:, 0], lgam_sum[:, 0]
+    log_binom = torch.lgamma(s + 1.0) - lgam_sum
     if check_feasible:
         _check_cells_feasible(B, cells)
     X = None if x is None else torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
                                                dtype=dtype, device=device)
     return ModelData(Y=Yd, L=Ld, s=s, log_binom=log_binom, YlogL=B, colsum_Y=colsum, X=X,
-                     cells=cells)
+                     cells=cells, genes=genes)
 
 
 def _check_cells_feasible(B, cells: Optional[Cells] = None):
@@ -443,7 +467,8 @@ def randomized_pca(X, k: int, noise, oversample: int = 8, power_iters: int = 4):
 
 
 def _pca_scores_blocked(Y, k: int, noise, dtype, oversample: int = 8, power_iters: int = 4,
-                        blocks=None, cells: Optional[Cells] = None):
+                        blocks=None, cells: Optional[Cells] = None,
+                        genes: Optional[Genes] = None):
     """:func:`randomized_pca` of log2(Y+1) without the standardized N x G
     matrix (reference models/multinomial.py:891-937): every product
     recomputes each row block's ``(log2(y+1) - mean) / sd`` from the stored
@@ -459,17 +484,24 @@ def _pca_scores_blocked(Y, k: int, noise, dtype, oversample: int = 8, power_iter
     the whole (N, k + 8) matrix, 4 MB at 100,000 cells in float32, whose QR
     every rank takes alike, so that the scores keep the one-process fit's
     signs (a CholeskyQR of the row blocks would fix other ones). B's SVD is
-    every rank's too; the scores are the rank's rows."""
-    n_rows, G = Y.shape
+    every rank's too; the scores are the rank's rows.
+
+    With ``genes`` Y is this rank's gene block of its rows: ``Xc @ M`` is
+    a sum over every gene block (M this block's rows), the Gaussian test
+    matrix is drawn for every gene and sliced, and B = Q.T Xc is gathered
+    over the genes, so that every rank takes the one-process SVD and
+    signs."""
+    n_rows, G_local = Y.shape
     N = n_rows if cells is None else cells.n
-    blocks = _row_blocks(n_rows, G) if blocks is None else blocks
+    G = G_local if genes is None else genes.g
+    blocks = _row_blocks(n_rows, G_local) if blocks is None else blocks
     k_eff = min(k + oversample, min(N, G))
 
     def xb(i, j):
         return torch.log2(Y[i:j].to(dtype) + 1.0)
 
-    total = torch.zeros(G, dtype=dtype, device=Y.device)
-    sumsq = torch.zeros(G, dtype=dtype, device=Y.device)
+    total = torch.zeros(G_local, dtype=dtype, device=Y.device)
+    sumsq = torch.zeros(G_local, dtype=dtype, device=Y.device)
     for i, j in blocks:
         b = xb(i, j)
         total += torch.sum(b, dim=0)
@@ -482,55 +514,66 @@ def _pca_scores_blocked(Y, k: int, noise, dtype, oversample: int = 8, power_iter
     def xcb(i, j):
         return (xb(i, j) - mean) / sd
 
-    def xc_matmul(M):  # Xc @ M, this rank's rows
-        return torch.cat([xcb(i, j) @ M for i, j in blocks], dim=0)
+    def xc_matmul(M):  # Xc @ M, this rank's rows, every gene block's sum
+        return all_sum(torch.cat([xcb(i, j) @ M for i, j in blocks], dim=0), genes)
 
-    def xcT_matmul(Q):  # Xc.T @ Q, Q every rank's rows
+    def xcT_matmul(Q):  # Xc.T @ Q, Q every rank's rows; this gene block's rows
         Q = Q if cells is None else Q[cells.start : cells.stop]
-        acc = torch.zeros(G, Q.shape[1], dtype=dtype, device=Y.device)
+        acc = torch.zeros(G_local, Q.shape[1], dtype=dtype, device=Y.device)
         for i, j in blocks:
             acc += xcb(i, j).T @ Q[i:j]
         return all_sum(acc, cells)
 
-    omega = noise.normal("pca_omega", (G, k_eff), dtype, Y.device)
+    def own(M):  # this gene block's rows of a (G, ...) matrix
+        return M if genes is None else M[genes.start : genes.stop]
+
+    omega = own(noise.normal("pca_omega", (G, k_eff), dtype, Y.device))
     with full_fp32_matmul():
         Q = gather_rows(xc_matmul(omega), cells)
         for _ in range(power_iters):
             Q, _ = torch.linalg.qr(Q)
             Q, _ = torch.linalg.qr(gather_rows(xc_matmul(xcT_matmul(Q)), cells))
-        B = xcT_matmul(Q).T  # (k_eff, G)
+        B = gather_cols(xcT_matmul(Q).T, genes, dim=1)  # (k_eff, G)
         _, _, Vt = torch.linalg.svd(B, full_matrices=False)
-        return xc_matmul(Vt[:k].T)  # (N, k)
+        return xc_matmul(own(Vt[:k].T))  # (N, k)
 
 
-def pca_init_scores(Y, K: int, noise, dtype=torch.float32, cells: Optional[Cells] = None):
+def pca_init_scores(Y, K: int, noise, dtype=torch.float32, cells: Optional[Cells] = None,
+                    genes: Optional[Genes] = None):
     """Standardized top-K PCA scores of log2(Y+1)
     (reference R/inference-tflow.R:204-207), before the jitter, row-blocked
     above ``_CHUNK_ELEMENTS`` and on a mesh (``cells``: Y this rank's rows,
-    the scores too). A restart sweep computes them once and shares them
-    across lanes."""
+    the scores too; ``genes``: Y its gene block of them). A restart sweep
+    computes them once and shares them across lanes."""
     N, G = Y.shape
     if K <= 0:
         return torch.zeros(N, 0, dtype=dtype, device=Y.device)
-    if cells is not None or N * G > _CHUNK_ELEMENTS:
-        pcs = _pca_scores_blocked(Y, K, noise, dtype, cells=cells)
+    if cells is not None or N * G > _CHUNK_ELEMENTS:  # a mesh with genes has cells too
+        pcs = _pca_scores_blocked(Y, K, noise, dtype, cells=cells, genes=genes)
     else:
         pcs = randomized_pca(torch.log2(Y.to(dtype) + 1.0), K, noise)
     return _standardize(pcs, dim=0, cells=cells)
 
 
-def data_mu_guess(Y, dtype=torch.float32, blocks=None, cells: Optional[Cells] = None):
+def data_mu_guess(Y, dtype=torch.float32, blocks=None, cells: Optional[Cells] = None,
+                  genes: Optional[Genes] = None):
     """colMeans(Y / rowMeans(Y)) — the data-driven mu initialization
     (reference R/inference-tflow.R:220-231), row-blocked above
     ``_CHUNK_ELEMENTS`` or over the given ``blocks``; ``Y`` and ``blocks``
     as :func:`_pca_scores_blocked` takes them. On a mesh (``cells``) Y is
-    this rank's rows and the sum is every rank's, over every cell."""
+    this rank's rows and the sum is every rank's, over every cell; with
+    ``genes`` Y is its gene block of them, and the row means are every
+    gene block's."""
     N, G = Y.shape
     if blocks is not None or cells is not None or N * G > _CHUNK_ELEMENTS:
         acc = torch.zeros(G, dtype=dtype, device=Y.device)
         for i, j in _row_blocks(N, G) if blocks is None else blocks:
             yb = Y[i:j].to(dtype)
-            acc += torch.sum(yb / torch.mean(yb, dim=1, keepdim=True), dim=0)
+            if genes is None:
+                row_mean = torch.mean(yb, dim=1, keepdim=True)
+            else:
+                row_mean = all_sum(torch.sum(yb, dim=1, keepdim=True), genes) / genes.g
+            acc += torch.sum(yb / row_mean, dim=0)
         return all_sum(acc, cells) / (N if cells is None else cells.n)
     Y = Y.to(dtype)
     return torch.mean(Y / torch.mean(Y, dim=1, keepdim=True), dim=0)
@@ -547,6 +590,7 @@ def init_params(
     mu_guess=None,
     P: int = 0,
     cells: Optional[Cells] = None,
+    genes: Optional[Genes] = None,
 ) -> CloneAlignParams:
     """Initial parameter values (reference R/inference-tflow.R:204-273).
 
@@ -559,6 +603,9 @@ def init_params(
     :func:`pca_init_scores` / :func:`data_mu_guess` (shared across restarts).
     On a mesh (``cells``) Y is this rank's rows: the jitter is drawn for
     every cell and sliced, so each rank's rows are the one-process fit's.
+    With ``genes`` Y and L are its gene block: the per-gene parameters are
+    the block's, an array ``data_init_mu`` (every kept gene's) is divided
+    by its mean over every gene and sliced.
     """
     N, G = Y.shape
     C = L.shape[1]
@@ -566,7 +613,7 @@ def init_params(
 
     if K > 0:
         pcs = (pca_scores if pca_scores is not None
-               else pca_init_scores(Y, K, noise, dtype, cells=cells))
+               else pca_init_scores(Y, K, noise, dtype, cells=cells, genes=genes))
         if cells is None:
             jitter = noise.normal("psi_jitter", pcs.shape, dtype, dev)
         else:
@@ -578,11 +625,13 @@ def init_params(
     if mu_guess is not None:
         mu_guess = torch.as_tensor(mu_guess, dtype=dtype, device=dev)
     elif isinstance(data_init_mu, (bool, np.bool_)):
-        mu_guess = (data_mu_guess(Y, dtype, cells=cells) if data_init_mu
+        mu_guess = (data_mu_guess(Y, dtype, cells=cells, genes=genes) if data_init_mu
                     else torch.ones(G, dtype=dtype, device=dev))
     else:
         mu_guess = torch.as_tensor(data_init_mu, dtype=dtype, device=dev)
         mu_guess = mu_guess / torch.mean(mu_guess)
+        if genes is not None:
+            mu_guess = mu_guess[genes.start : genes.stop]
 
     def zeros(*shape):
         return torch.zeros(*shape, dtype=dtype, device=dev)
@@ -651,10 +700,12 @@ def _y_times(Y, B):
 def _a_terms(params, data, log_mu):
     """A1 (..., N) and A2 (..., N, S) or None as products with Y in full
     float32 (reference models/multinomial.py:1271-1279): the z_cheb path's,
-    where the fused op is not called."""
+    where the fused op is not called. With ``data.genes`` the products are
+    summed over every gene block."""
+    genes = data.genes
     with full_fp32_matmul():
-        A1 = torch.sum(params.psi * _y_times(data.Y, params.W), dim=-1)
-        A2 = None if log_mu is None else _y_times(data.Y, log_mu.mT)
+        A1 = torch.sum(params.psi * sum_over_genes(_y_times(data.Y, params.W), genes), dim=-1)
+        A2 = None if log_mu is None else sum_over_genes(_y_times(data.Y, log_mu.mT), genes)
     return A1, A2
 
 
@@ -677,6 +728,12 @@ def _likelihood_terms(params, data, mu_samples, log_mu, config=None):
     (:func:`_extended`), once per lane when the parameters carry a lane axis
     (the op's kernels take one lane; X is shared). z_cheb:
     :func:`_compute_logZ_cheb` and :func:`_a_terms`.
+
+    With ``data.genes`` the op runs on this rank's gene block and its A1,
+    A2 and Z, partial sums over genes, are summed over every gene block in
+    one all_reduce an evaluation (every lane's at once, before the log);
+    psi enters the op through :func:`grad_sum_over_genes`, since its
+    gradient from the op is a partial sum too.
     """
     if _use_z_cheb(config):
         A1, A2 = _a_terms(params, data, log_mu)
@@ -684,20 +741,28 @@ def _likelihood_terms(params, data, mu_samples, log_mu, config=None):
     S, G = mu_samples.shape[-2:]
     N, C = data.Y.shape[0], data.L.shape[1]
     lead = mu_samples.shape[:-2]
+    genes = data.genes
     muL = (mu_samples[..., :, :, None] * data.L).transpose(-3, -2).reshape(*lead, G, S * C)
+    psi = grad_sum_over_genes(params.psi, genes)
     if not lead:
-        psi_ext, W_ext = _extended(params.psi, params.W, params.beta, data.X)
+        psi_ext, W_ext = _extended(psi, params.W, params.beta, data.X)
         A1, A2, Z = fused_likelihood_terms(data.Y, psi_ext, W_ext, log_mu, muL)
     else:
         log_mus = [None] * lead[0] if log_mu is None else log_mu.unbind(0)
         lanes = [
-            fused_likelihood_terms(data.Y, *_extended(psi, W, beta, data.X), lm, m)
-            for psi, W, beta, lm, m in zip(params.psi.unbind(0), params.W.unbind(0),
-                                           params.beta.unbind(0), log_mus, muL.unbind(0))
+            fused_likelihood_terms(data.Y, *_extended(p, W, beta, data.X), lm, m)
+            for p, W, beta, lm, m in zip(psi.unbind(0), params.W.unbind(0),
+                                         params.beta.unbind(0), log_mus, muL.unbind(0))
         ]
         A1 = stack_lanes([a1 for a1, _, _ in lanes])
         A2 = None if log_mu is None else stack_lanes([a2 for _, a2, _ in lanes])
         Z = stack_lanes([z for _, _, z in lanes])
+    if genes is not None:
+        terms = [t for t in (A1, A2, Z) if t is not None]
+        flat = sum_over_genes(torch.cat([t.reshape(-1) for t in terms]), genes)
+        A1, *rest = [piece.view_as(t) for piece, t in zip(flat.split([t.numel() for t in terms]),
+                                                           terms)]
+        A2, Z = (None, rest[0]) if A2 is None else rest
     logZ = torch.log(Z).reshape(*lead, N, S, C).movedim(-3, -1)
     return A1, A2, logZ
 
@@ -744,7 +809,7 @@ def elbo(params: CloneAlignParams, data: ModelData, eps, config: ModelConfig,
     """
     mu_base = sample_mu_base(params, eps)
     return (elbo_cell_terms(params, data, mu_base, config, extra_log_lik)
-            + elbo_global_terms(params, mu_base, config, data.colsum_Y))
+            + elbo_global_terms(params, mu_base, config, data.colsum_Y, data.genes))
 
 
 def gamma_warm_start_logits(
@@ -839,13 +904,21 @@ def elbo_cell_terms(params: CloneAlignParams, data: ModelData, mu_base, config: 
     return EE_p_y + E_log_p_cells - gamma_entropy_term
 
 
-def elbo_global_terms(params: CloneAlignParams, mu_base, config: ModelConfig, colsum_Y):
+def elbo_global_terms(params: CloneAlignParams, mu_base, config: ModelConfig, colsum_Y,
+                      genes: Optional[Genes] = None):
     """The part of :func:`elbo` that does not depend on the cells, added once
     an evaluation: the A2 = Y log mu constant from the per-gene totals
     ``colsum_Y``, the mu, Dirichlet, W and chi priors, minus the qmu
-    entropy term. ``params.psi`` and ``params.gamma_logits`` are not read."""
+    entropy term. ``params.psi`` and ``params.gamma_logits`` are not read.
+
+    With ``genes`` the per-gene fields, ``mu_base`` and ``colsum_Y`` are
+    this rank's gene block: the four sums over genes (the A2 constant, the
+    mu and W priors, the qmu entropy) are summed over every gene block in
+    one all_reduce, and chi enters the W prior through
+    :func:`grad_sum_over_genes` (the chi prior reads it as it is, so that
+    its gradient is counted once)."""
     S = config.mc_samples
-    genes = (-2, -1)  # the (S, G) / (G, K) axes a lane's sums run over
+    axes = (-2, -1)  # the (S, G) / (G, K) axes a lane's sums run over
     log_mu = torch.log(softplus(mu_base))
     A2_sum = torch.sum(colsum_Y * torch.sum(log_mu, dim=-2), dim=-1) / S
 
@@ -855,18 +928,27 @@ def elbo_global_terms(params: CloneAlignParams, mu_base, config: ModelConfig, co
     dir_x = torch.exp(log_alpha) + 1e-3
     dirichlet_lp = (torch.sum((dir_conc - 1.0) * torch.log(dir_x), dim=-1)
                     - C * math.lgamma(dir_conc))
-    E_log_p_glob = torch.sum(_normal_log_prob(log_mu), dim=genes) / S + dirichlet_lp
+    mu_prior = torch.sum(_normal_log_prob(log_mu), dim=axes) / S
+    w_prior = chi_prior = None
     if config.K > 0:
         chi = torch.exp(params.chi_unconstr)
-        w_scale = torch.sqrt(1.0 / chi)
-        E_log_p_glob = E_log_p_glob + torch.sum(
-            _normal_log_prob(params.W, 0.0, w_scale[..., None, :]), dim=genes)
-        E_log_p_glob = E_log_p_glob + torch.sum(torch.log(chi) - chi, dim=-1)
+        w_scale = torch.sqrt(1.0 / grad_sum_over_genes(chi, genes))
+        w_prior = torch.sum(_normal_log_prob(params.W, 0.0, w_scale[..., None, :]), dim=axes)
+        chi_prior = torch.sum(torch.log(chi) - chi, dim=-1)
 
     scale = torch.exp(params.qmu_log_scale)
     qmu_lp = _normal_log_prob(mu_base, params.qmu_loc[..., None, :], scale[..., None, :])
     qmu_lp = qmu_lp - torch.nn.functional.logsigmoid(mu_base)
-    return A2_sum + E_log_p_glob - torch.sum(torch.mean(qmu_lp, dim=-2), dim=-1)
+    entropy = torch.sum(torch.mean(qmu_lp, dim=-2), dim=-1)
+    if genes is not None:
+        sums = [A2_sum, mu_prior, entropy] + ([] if w_prior is None else [w_prior])
+        A2_sum, mu_prior, entropy, *w = sum_over_genes(torch.stack(sums), genes).unbind()
+        w_prior = w[0] if w else None
+    E_log_p_glob = mu_prior + dirichlet_lp
+    if config.K > 0:
+        E_log_p_glob = E_log_p_glob + w_prior
+        E_log_p_glob = E_log_p_glob + chi_prior
+    return A2_sum + E_log_p_glob - entropy
 
 
 # ---------------------------------------------------------------------------
@@ -950,12 +1032,13 @@ def _compute_logZ_cheb(params: CloneAlignParams, data: ModelData, mu_samples, de
     (O(G x D) exps and two small products) and evaluated per cell by the
     Clenshaw recurrence, instead of the O(N x G) exps of the exact path.
     Gradients flow through the node table (mu, W, L) and the recurrence
-    (psi); the expansion range is detached, like a constant grid.
+    (psi); the expansion range is detached, like a constant grid. With
+    ``data.genes`` the node table's sum over genes is every gene block's.
     """
     dt = params.psi.dtype
     w = params.W[..., 0]      # (..., G)
     psi = params.psi[..., 0]  # (..., N)
-    mL = mu_samples[..., :, None, :] * data.L.T  # (..., S, C, G)
+    mL = mu_samples[..., :, None, :] * data.L.T  # (..., S, C, G): this rank's gene block
 
     t_min = torch.amin(psi, dim=-1).detach()
     t_max = torch.amax(psi, dim=-1).detach()
@@ -973,7 +1056,7 @@ def _compute_logZ_cheb(params: CloneAlignParams, data: ModelData, mu_samples, de
     # float32: rounded node values (|log Z| ~ 10) would annihilate the small
     # high-order coefficients the transform's cancellation produces.
     with full_fp32_matmul():
-        Zk = mL @ expw[..., None, :, :]  # (..., S, C, D+1)
+        Zk = sum_over_genes(mL @ expw[..., None, :, :], data.genes)  # (..., S, C, D+1)
         fk = torch.log(Zk)
         # center: the transform then cancels O(spread)~1 values, not O(10)
         f0 = torch.mean(fk, dim=-1, keepdim=True)

@@ -47,7 +47,12 @@ On a mesh (``NegbinData.cells``, ``parallel/sharding.sharded_negbin_fit``)
 the data holds one rank's rows: every sum over cells (the constants, B, the
 llk0 sums, the M-step's value and gradients, the moments, the clone prior,
 the Chebyshev statistics and the ELBO's cell terms) is all-reduced, and the
-cell count N is every rank's; A and gamma stay on their rank.
+cell count N is every rank's; A and gamma stay on their cell block. With a
+genes axis (``NegbinData.genes``) the data holds its gene block's columns
+of those rows, and the per-gene rates, r and B are the block's: the sums
+over genes (the E-step's A, the constants, the llk0 sums, the M-step's
+value, the ELBO's per-gene terms, Lp's column means) are all-reduced over
+the genes group (clonealign_tpu/parallel/sharding.py:132-145).
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ import numpy as np
 import torch
 
 from ..infer import Monitor, OptaxAdam, OptaxAdamState
-from ..parallel.collectives import Cells, all_max, all_sum
+from ..parallel.collectives import Cells, Genes, all_max, all_sum, sum_over_genes, world_max
 from ..utils.device import full_fp32_matmul, resolve_device, resolve_dtype, synchronize
 from ..utils.sparsity import is_scipy_sparse
 from . import multinomial as mm
@@ -78,6 +83,7 @@ class NegbinData(NamedTuple):
     s: torch.Tensor       # (N,) size factors
     l_hat: torch.Tensor   # (G,) rowMeans(Lp), the script's l_g_hat
     cells: Optional[Cells] = None  # on a mesh, which block of the cells Y and s hold
+    genes: Optional[Genes] = None  # with a genes axis, which block of the genes Y, Lp hold
 
 
 class NegbinParams(NamedTuple):
@@ -117,6 +123,17 @@ def _n_cells(data: NegbinData) -> int:
     return data.Y.shape[0] if data.cells is None else data.cells.n
 
 
+def _all_cells_genes(x, data: NegbinData):
+    """``x``, this rank's sum over its tile, summed over every tile."""
+    return all_sum(all_sum(x, data.cells), data.genes)
+
+
+def _gene_sum(x, data: NegbinData):
+    """``x``, a sum over this rank's genes (in a graph: the identity
+    backward), summed over every gene block."""
+    return sum_over_genes(x, data.genes)
+
+
 def _blocks(N: int, G: int):
     """(start, stop) of each row block of a pass over an (N, G) matrix."""
     rows = max(1, _BLOCK_ELEMENTS // max(G, 1))
@@ -133,7 +150,7 @@ def _nb_constants(data: NegbinData) -> _NBConsts:
     with torch.no_grad():
         for i, j in _blocks(*data.Y.shape):
             total += torch.lgamma(data.Y[i:j] + 1.0).sum(dtype=torch.float64)
-    return _NBConsts(lgamma_y1_sum=all_sum(total, data.cells).to(data.Y.dtype))
+    return _NBConsts(lgamma_y1_sum=_all_cells_genes(total, data).to(data.Y.dtype))
 
 
 # --- the exact clone scan ----------------------------------------------------
@@ -171,7 +188,8 @@ def _scan(params: NegbinParams, data: NegbinData, gene_w=None, cell_w=None, dtyp
     """The clone scan over row blocks: A (N, C) when ``gene_w`` is given, B
     (G,) when ``cell_w`` is given (None for the one not asked for), each
     element's terms evaluated in ``dtype`` (by default Y's). On a mesh A is
-    this rank's rows and B every rank's sum."""
+    this rank's rows, every gene block's sum, and B (its gene block's)
+    every cell block's sum."""
     N, G = data.Y.shape
     C = data.Lp.shape[1]
     dt = data.Y.dtype if dtype is None else dtype
@@ -192,7 +210,8 @@ def _scan(params: NegbinParams, data: NegbinData, gene_w=None, cell_w=None, dtyp
                     A[i:j, c] = D_c @ gene_w
                 if B is not None:
                     B += cell_w[i:j, c] @ D_c
-    return A, (None if B is None else all_sum(B, data.cells))
+    return (None if A is None else all_sum(A, data.genes),
+            None if B is None else all_sum(B, data.cells))
 
 
 def _accumulate(params: NegbinParams, data: NegbinData, gene_w, cell_w):
@@ -229,9 +248,10 @@ def _llk0_core(Yb, log_sb, Yp, log_pm0, log_mu):
             + Yb * (log_sb[:, None] + log_mu[None, :]))
 
 
-def _llk0_globals(log_phi, phi, N, consts: _NBConsts):
-    return (-N * torch.sum(torch.lgamma(phi)) - consts.lgamma_y1_sum
-            + N * torch.sum(phi * log_phi))
+def _llk0_globals(log_phi, phi, N, consts: _NBConsts, data: NegbinData):
+    neg, pos = _gene_sum(torch.stack([torch.sum(torch.lgamma(phi)), torch.sum(phi * log_phi)]),
+                         data).unbind()
+    return -N * neg - consts.lgamma_y1_sum + N * pos
 
 
 def _llk0_sum(params: NegbinParams, data: NegbinData, consts: _NBConsts):
@@ -250,8 +270,8 @@ def _llk0_sum(params: NegbinParams, data: NegbinData, consts: _NBConsts):
         for i, j in _blocks(N, G):
             Yp, log_pm0 = _block_base(data.Y[i:j], data.s[i:j], rates)
             total += torch.sum(_llk0_core(data.Y[i:j], log_s[i:j], Yp, log_pm0, rates.log_mu))
-        return (all_sum(total, data.cells)
-                + _llk0_globals(params.log_phi, rates.phi, _n_cells(data), consts))
+        return (_all_cells_genes(total, data)
+                + _llk0_globals(params.log_phi, rates.phi, _n_cells(data), consts, data))
 
 
 def _llk0_netted_sum(params: NegbinParams, data: NegbinData):
@@ -284,11 +304,17 @@ def _llk0_netted_sum(params: NegbinParams, data: NegbinData):
                 + Yb * log_m0
             )
             total += core.sum()
-    return all_sum(total, data.cells)
+    return _all_cells_genes(total, data)
 
 
-def _penalty(log_mu, log_beta, l_hat, lam):
-    return lam * torch.sum((torch.exp(log_mu) - torch.exp(log_beta) * l_hat) ** 2)
+def _penalty(log_mu, log_beta, l_hat, lam, data: NegbinData):
+    return _gene_sum(lam * torch.sum((torch.exp(log_mu) - torch.exp(log_beta) * l_hat) ** 2),
+                     data)
+
+
+def _r_dot(r, B, data: NegbinData):
+    """sum_g r_g B_g over every gene block."""
+    return _gene_sum(r @ B, data)
 
 
 def _mstep_value_and_grad(rates3, data: NegbinData, post: NegbinPosterior, lam,
@@ -326,8 +352,9 @@ def _mstep_value_and_grad(rates3, data: NegbinData, post: NegbinPosterior, lam,
                            data.cells)
             *grads, total = [p.view_as(t) for p, t in zip(
                 flat.split([g.numel() for g in grads] + [1]), grads + [total])]
-        small = (_llk0_globals(lphi, rates.phi, _n_cells(data), consts)
-                 - _penalty(lmu, lbeta, data.l_hat, lam))
+        total = all_sum(total, data.genes)
+        small = (_llk0_globals(lphi, rates.phi, _n_cells(data), consts, data)
+                 - _penalty(lmu, lbeta, data.l_hat, lam, data))
         d = torch.autograd.grad([*rates, small], [lmu, lbeta, lphi],
                                 grad_outputs=[*grads, torch.ones_like(small)])
     return (total + small).detach(), d
@@ -340,7 +367,7 @@ def _expected_llk(params: NegbinParams, data: NegbinData, post: NegbinPosterior,
     if consts is None:
         consts = _nb_constants(data)
     _, B = _scan(params, data, cell_w=post.gamma)
-    return _llk0_sum(params, data, consts) + post.r @ B
+    return _llk0_sum(params, data, consts) + _r_dot(post.r, B, data)
 
 
 def _mstep_objective(params: NegbinParams, data: NegbinData, post: NegbinPosterior, lam,
@@ -376,7 +403,8 @@ def _elbo_with_B(params: NegbinParams, data: NegbinData, post: NegbinPosterior, 
     with torch.no_grad():
         p64 = NegbinParams(*(t.to(f64) for t in params))
         post64 = NegbinPosterior(*(t.to(f64) for t in post))
-        rest = (post64.r @ B.to(f64) - _penalty(p64.log_mu, p64.log_beta, data.l_hat.to(f64), lam)
+        rest = (_r_dot(post64.r, B.to(f64), data)
+                - _penalty(p64.log_mu, p64.log_beta, data.l_hat.to(f64), lam, data)
                 + _elbo_extras(p64, data, post64, rho_prior, data.cells))
         return (_llk0_netted_sum(params, data) + rest).to(data.Y.dtype)
 
@@ -385,7 +413,8 @@ def _elbo_extras(params: NegbinParams, data: NegbinData, post: NegbinPosterior, 
                  cells: Optional[Cells] = None):
     """The ELBO minus the penalized expected log-likelihood: clone and
     dosage priors plus the mean-field entropies (no Y-sized work); on a
-    mesh (``cells``) gamma's terms summed over every rank."""
+    mesh (``cells``) gamma's terms summed over every rank, r's over every
+    gene block."""
     log_alpha = torch.log_softmax(params.alpha_logits, dim=0)
     gamma, r = post.gamma, post.r
     zero = torch.zeros((), dtype=gamma.dtype, device=gamma.device)
@@ -399,6 +428,7 @@ def _elbo_extras(params: NegbinParams, data: NegbinData, post: NegbinPosterior, 
         + torch.where(r < 1, (1 - r) * torch.log(torch.clamp(1 - r, min=1e-30)), zero)
     )
     prior_rho = torch.sum(r * math.log(rho_prior) + (1 - r) * math.log1p(-rho_prior))
+    h_r, prior_rho = _gene_sum(torch.stack([h_r, prior_rho]), data).unbind()
     return prior_pi + prior_rho + h_gamma + h_r
 
 
@@ -528,7 +558,8 @@ def negbin_cheb_stats(data: NegbinData, degree: int = 12, hist_cap: int = 1024,
     Y = data.Y
     ymax = float(torch.max(Y)) if Y.numel() else 0.0
     integer = all(bool(torch.equal(Y[i:j], torch.floor(Y[i:j]))) for i, j in _blocks(*Y.shape))
-    ymax, fractional = all_max(np.array([ymax, not integer], np.float64), data.cells)
+    ymax, fractional = world_max(np.array([ymax, not integer], np.float64), data.cells,
+                                 data.genes)
     if fractional:
         raise ValueError(
             "likelihood_impl='cheb' requires integer counts (the "
@@ -595,7 +626,9 @@ def _B_from_stats(coeffs: _NBChebCoeffs, ps: _NBGammaStats):
 
 
 def _llk0_sum_cheb(params: NegbinParams, stats: NegbinChebStats, coeffs: _NBChebCoeffs,
-                   consts: _NBConsts, N):
+                   consts: _NBConsts, N, data: Optional[NegbinData] = None):
+    """The llk0 sum from the statistics; with ``data`` on a genes axis its
+    per-gene sums are every gene block's."""
     phi = torch.exp(params.log_phi)
     hist_term = torch.sum(stats.hist * torch.lgamma(stats.vals[:, None] + phi[None, :]))
     # the tail of lgamma(y + phi): a per-gene Chebyshev series in log y
@@ -603,13 +636,19 @@ def _llk0_sum_cheb(params: NegbinParams, stats: NegbinChebStats, coeffs: _NBCheb
     # the histogram's cap)
     tail_nodes = torch.lgamma(torch.exp(stats.tail_nodes_u)[None, :] + phi[:, None])
     tail_term = torch.sum(_cheb_transform(tail_nodes, stats.tail_theta) * stats.tailT)
+    terms = [hist_term, tail_term, torch.sum(torch.lgamma(phi)),
+             torch.sum(phi * params.log_phi), torch.sum(coeffs.g0 * stats.YT),
+             torch.sum(coeffs.h0, dim=0) @ stats.sumT]
+    if data is not None:  # every term a sum over genes
+        terms = _gene_sum(torch.stack(terms), data).unbind()
+    hist_term, tail_term, lgamma_phi, phi_log_phi, g0_term, h0_term = terms
     return (
         hist_term + tail_term
-        - N * torch.sum(torch.lgamma(phi))
+        - N * lgamma_phi
         - consts.lgamma_y1_sum
-        + N * torch.sum(phi * params.log_phi)
-        + torch.sum(coeffs.g0 * stats.YT)
-        + torch.sum(coeffs.h0, dim=0) @ stats.sumT
+        + N * phi_log_phi
+        + g0_term
+        + h0_term
     )
 
 
@@ -621,7 +660,7 @@ def _estep_A_cheb(data: NegbinData, stats: NegbinChebStats, coeffs: _NBChebCoeff
     k = torch.einsum("g,gcd->cd", gene_w, coeffs.oc)             # (C, D+1)
     with full_fp32_matmul():
         YM = (data.Y @ M).reshape(-1, C, D1)                     # (N, C, D+1)
-        return torch.einsum("nd,ncd->nc", stats.T, YM) + stats.T @ k.T
+        return all_sum(torch.einsum("nd,ncd->nc", stats.T, YM) + stats.T @ k.T, data.genes)
 
 
 def _mstep_objective_cheb(params: NegbinParams, data: NegbinData, stats: NegbinChebStats,
@@ -629,9 +668,9 @@ def _mstep_objective_cheb(params: NegbinParams, data: NegbinData, stats: NegbinC
     """The penalized expected log-likelihood from sufficient statistics:
     O(G (V + C D)) an evaluation, no cell-indexed work."""
     coeffs = _netted_cheb_coeffs(params, data, stats)
-    return (_llk0_sum_cheb(params, stats, coeffs, consts, _n_cells(data))
-            + r @ _B_from_stats(coeffs, ps)
-            - _penalty(params.log_mu, params.log_beta, data.l_hat, lam))
+    return (_llk0_sum_cheb(params, stats, coeffs, consts, _n_cells(data), data)
+            + _r_dot(r, _B_from_stats(coeffs, ps), data)
+            - _penalty(params.log_mu, params.log_beta, data.l_hat, lam, data))
 
 
 # --- data and initialization ----------------------------------------------
@@ -644,7 +683,8 @@ def _host_or_tensor(x, dtype, device):
 
 
 def prepare_negbin_data(Y, L, s=None, *, device="cuda", dtype=torch.float32,
-                        cells: Optional[Cells] = None) -> NegbinData:
+                        cells: Optional[Cells] = None,
+                        genes: Optional[Genes] = None) -> NegbinData:
     """The device data of a fit. L becomes the script's Lp = L /
     colMeans(L) (reference inst/create_model3_synthetic.R:17) and the size
     factors default to the row sums over their mean (mu and beta absorb the
@@ -659,7 +699,9 @@ def prepare_negbin_data(Y, L, s=None, *, device="cuda", dtype=torch.float32,
 
     On a mesh (``cells``) Y (and a given ``s``) are this rank's rows: the
     size factors' scale is the mean of every rank's totals, and a cell
-    without counts on any rank raises on every rank."""
+    without counts on any rank raises on every rank. With ``genes`` Y and L
+    are this rank's gene block: the totals are every gene block's, and so
+    are Lp's column means."""
     from ..api import _canonical_csr
 
     device = resolve_device(device)
@@ -673,19 +715,23 @@ def prepare_negbin_data(Y, L, s=None, *, device="cuda", dtype=torch.float32,
             f"Y must be (N, G) and L (G, C) with matching G; got "
             f"{tuple(Y.shape)} and {L_np.shape}"
         )
-    md = mm.prepare_data(Y, L_np, device=device, dtype=dtype, check_feasible=False, cells=cells)
+    md = mm.prepare_data(Y, L_np, device=device, dtype=dtype, check_feasible=False, cells=cells,
+                         genes=genes)
     totals = md.s
-    if bool(all_max(torch.any(totals == 0).to(torch.int64), cells)):
+    if bool(world_max(torch.any(totals == 0).to(torch.int64), cells, genes)):
         raise ValueError("all cells must have nonzero counts")
     Ld = torch.as_tensor(L_np, dtype=dtype, device=device)
-    Lp = Ld / torch.mean(Ld, dim=0, keepdim=True)
+    if genes is None:
+        Lp = Ld / torch.mean(Ld, dim=0, keepdim=True)
+    else:
+        Lp = Ld / (all_sum(torch.sum(Ld, dim=0, keepdim=True), genes) / genes.g)
     # mean(s) = 1: mu then carries the magnitude (identifiable)
     if s is not None:
         s = _host_or_tensor(s, dtype, device)
     else:
         n = totals.shape[0] if cells is None else cells.n
         s = totals / (all_sum(torch.sum(totals), cells) / n)
-    return NegbinData(Y=md.Y, Lp=Lp, s=s, l_hat=torch.mean(Lp, dim=1), cells=cells)
+    return NegbinData(Y=md.Y, Lp=Lp, s=s, l_hat=torch.mean(Lp, dim=1), cells=cells, genes=genes)
 
 
 def init_negbin_params(data: NegbinData, dtype=None) -> NegbinParams:
@@ -888,9 +934,9 @@ def _run_negbin_em_program(data, rho_init, stats, degree, *, resume_from, max_it
         def elbo(params, post, B, _ps):
             with torch.no_grad():
                 coeffs = _netted_cheb_coeffs(params, data, stats)
-                return (_llk0_sum_cheb(params, stats, coeffs, consts, _n_cells(data))
-                        + post.r @ B
-                        - _penalty(params.log_mu, params.log_beta, data.l_hat, lam)
+                return (_llk0_sum_cheb(params, stats, coeffs, consts, _n_cells(data), data)
+                        + _r_dot(post.r, B, data)
+                        - _penalty(params.log_mu, params.log_beta, data.l_hat, lam, data)
                         + _elbo_extras(params, data, post, rho_prior, data.cells))
 
         def estep(params, post):

@@ -1,16 +1,22 @@
 """Multi-process execution helpers (counterpart of
 ``clonealign_tpu/parallel/distributed.py``).
 
-Every rank runs the same program, holds a block of the cells and takes
-part in the collectives of the fit (``sharding.py``). The helpers wrap the
-steps; in one process without a group they degenerate to the plain fit,
-so the same script runs anywhere::
+Every rank runs the same program, holds a tile of the counts (a block of
+the cells, and on a mesh with a genes axis a block of their genes) and
+takes part in the collectives of the fit (``sharding.py``). The helpers
+wrap the steps; in one process without a group they degenerate to the
+plain fit, so the same script runs anywhere::
 
     from clonealign_torch.parallel import distributed as dist
     dist.initialize()                  # reads torchrun's environment; False alone
-    mesh = make_mesh()                 # this rank's card, the process group
-    Y_local = Y_all[dist.process_cell_slice(n_cells)]
+    mesh = make_mesh(gene_parallelism=2)   # this rank's card, the groups
+    Y_local = Y_all[dist.process_cell_slice(n_cells, mesh=mesh)]
     result = dist.distributed_fit(Y_local, L, mesh, n_restarts=10)
+
+Unlike the JAX package's, whose genes axis stays inside a process, the
+port's ranks are processes, so the genes axis crosses process boundaries:
+every rank of a cell block passes that block's rows and keeps its gene
+block's columns.
 
 The backend is the caller's: "nccl" by default on CUDA (one rank a card),
 "gloo" on the CPU, or "gloo" asked for where ranks share a card (NCCL
@@ -29,7 +35,8 @@ import torch
 import torch.distributed as dist
 
 from . import collectives
-from .collectives import CELL_AXIS, Shard, cells_of, check_mesh
+from . import sharding
+from .collectives import CELL_AXIS, GENE_AXIS, Shard, cells_of, check_mesh, gene_block
 from .sharding import make_mesh, sharded_fit
 
 __all__ = ["initialize", "host_local_to_global", "process_cell_slice", "distributed_fit",
@@ -77,18 +84,23 @@ def initialize(
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     seconds = DEFAULT_TIMEOUT_SECONDS if timeout_seconds is None else timeout_seconds
+    timeout = datetime.timedelta(seconds=seconds)
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                            world_size=int(num_processes), rank=int(process_id),
-                            timeout=datetime.timedelta(seconds=seconds))
+                            world_size=int(num_processes), rank=int(process_id), timeout=timeout)
+    sharding.GROUP_TIMEOUT = timeout  # make_mesh's subgroups time out alike
     return dist.get_world_size() > 1
 
 
 def process_cell_slice(n_cells_global: int, rank: Optional[int] = None,
-                       world: Optional[int] = None) -> slice:
+                       world: Optional[int] = None, *, mesh=None) -> slice:
     """The half-open row range of the global cell axis owned by ``rank`` of
     ``world`` (by default this process's, from the process group; 0 of 1
     without one): equal contiguous blocks, the last rank taking the
-    remainder."""
+    remainder. With ``mesh`` it is this rank's cell block's, of the mesh's
+    cell blocks."""
+    if mesh is not None:
+        mesh = check_mesh(mesh)
+        return collectives.process_cell_slice(int(n_cells_global), mesh.cell_coord, mesh.cells)
     if rank is None:
         rank = dist.get_rank() if dist.is_initialized() else 0
     if world is None:
@@ -97,30 +109,43 @@ def process_cell_slice(n_cells_global: int, rank: Optional[int] = None,
 
 
 def host_local_to_global(local_array, mesh, spec=None) -> Shard:
-    """This rank's rows of a per-cell array (each rank passes its own, in
-    rank order) as a :class:`~clonealign_torch.parallel.collectives.Shard`:
-    the rows on the rank's device, their offset and the global cell count
-    (one all_reduce of every rank's row count). :func:`sharded_fit` takes
-    it in place of the whole matrix. ``spec`` is the JAX package's: the
-    rows are split along the cells (``CELL_AXIS``) only."""
-    if spec is not None and tuple(spec)[:1] != (CELL_AXIS,):
-        raise ValueError(f"host_local_to_global splits along {CELL_AXIS!r} only, got {spec}")
+    """This rank's rows of a per-cell array (each rank passes its cell
+    block's, in block order) as a
+    :class:`~clonealign_torch.parallel.collectives.Shard`: the rows on the
+    rank's device, their offset and the global cell count (one all_reduce
+    of every block's row count). :func:`sharded_fit` takes it in place of
+    the whole matrix. ``spec`` is the JAX package's: the rows are split
+    along the cells (``CELL_AXIS``), and with ``(CELL_AXIS, GENE_AXIS)``
+    the columns along the genes too, so that only this rank's gene block
+    goes to its device."""
+    spec = (CELL_AXIS,) if spec is None else tuple(spec)
+    if spec[:1] != (CELL_AXIS,) or any(a not in (None, GENE_AXIS) for a in spec[1:2]) or \
+            any(a is not None for a in spec[2:]):
+        raise ValueError(f"host_local_to_global splits the rows along {CELL_AXIS!r} and the "
+                         f"columns along {GENE_AXIS!r} only, got {spec}")
     mesh = check_mesh(mesh)
     data = local_array if torch.is_tensor(local_array) else torch.as_tensor(np.asarray(local_array))
-    return Shard(data.to(mesh.device), cells_of(mesh, data.shape[0]))
+    genes = gene_block(mesh, data.shape[1]) if spec[1:2] == (GENE_AXIS,) else None
+    if genes is not None:
+        data = data[:, genes.start : genes.stop]
+    return Shard(data.to(mesh.device), cells_of(mesh, data.shape[0]), genes)
 
 
 def distributed_fit(Y_local, L, mesh=None, *, x_local=None, **fit_kwargs):
     """The multi-restart fit from each rank's own rows of the count matrix
-    (``process_cell_slice`` of the global cell axis, in rank order): the
-    rows are placed by :func:`host_local_to_global` and the fit is
+    (its cell block's ``process_cell_slice`` of the global cell axis, in
+    block order; every gene rank of a block passes the same rows): the
+    rows are placed by :func:`host_local_to_global`, which keeps this
+    rank's gene block of their columns, and the fit is
     :func:`~clonealign_torch.parallel.sharding.sharded_fit`'s, the same
-    numbers as with the whole matrix on every rank. ``mesh`` defaults to
+    numbers as with the whole matrix on every rank
+    (clonealign_tpu/parallel/distributed.py:115-124). ``mesh`` defaults to
     :func:`make_mesh`. Returns the stacked
     :class:`~clonealign_torch.infer.InferenceResult`; ``psi`` and
-    ``gamma_logits`` hold this rank's rows."""
+    ``gamma_logits`` hold this rank's rows, the per-gene fields every
+    gene."""
     mesh = make_mesh() if mesh is None else mesh
-    Y = host_local_to_global(Y_local, mesh)
+    Y = host_local_to_global(Y_local, mesh, (CELL_AXIS, GENE_AXIS))
     x = None
     if x_local is not None:
         x_local = np.asarray(x_local, np.float64)

@@ -23,7 +23,7 @@ from .api import _check_reference_keywords, _package_fit, setup_fit
 from .infer import lane_result, run_inference, run_inference_lanes, stack_lanes
 from .models import multinomial as mm
 from .ops import fused_likelihood as fl
-from .parallel.collectives import all_max, check_mesh
+from .parallel.collectives import check_mesh, world_max
 from .utils.device import synchronize
 from .utils.noise import Noise
 
@@ -130,18 +130,19 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
 
 
 def _auto_restart_batching(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
-                           P=0, z_cheb=False, allele=False, cells=None) -> str:
+                           P=0, z_cheb=False, allele=False, cells=None, genes=None) -> str:
     """"vmap" when the lane-batched sweep's working set (:func:`_sweep_bytes`)
     fits :data:`SWEEP_BUDGET_BYTES`, else "map", which holds one lane at a
     time. At 100,000 x 5,000 x 10 (K = 1, S = 1, float32) a lane adds about
     81 MB to Y's 2 GB, so "vmap" takes up to 469 lanes there. (The JAX
     package's 6e9 lane-elements cutover was measured on a 16 GB TPU v5e and
-    does not carry over.) On a mesh (``cells``) N is this rank's share and
-    the largest need of any rank decides, so that every rank batches alike:
-    ranks that differ would run different collectives."""
+    does not carry over.) On a mesh (``cells``, ``genes``) N and G are this
+    rank's tile, N_c x G_g, and the largest need of any rank decides, so
+    that every rank batches alike: ranks that differ would run different
+    collectives."""
     need = _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize, P, z_cheb,
                         allele)
-    need = all_max(float(need), cells)
+    need = world_max(float(need), cells, genes)
     return "vmap" if need <= SWEEP_BUDGET_BYTES else "map"
 
 
@@ -185,10 +186,12 @@ def run_clonealign(
     effect here. ``key`` is refused: pass ``seed``.
 
     ``mesh`` (:func:`clonealign_torch.parallel.sharding.make_mesh`) splits
-    the cells over its ranks: every rank calls this with the whole input,
-    keeps and uploads its block of rows and runs the sweep on them with the
-    fused kernels, on the mesh's device (``device`` is not read); the sums
-    over cells are all-reduced (``api.setup_fit``, ``infer``). Every rank
+    the cells, and with ``gene_parallelism`` the kept genes, over its
+    ranks: every rank calls this with the whole input, keeps and uploads
+    its tile (its block of rows, its block of their columns) and runs the
+    sweep on it with the fused kernels, on the mesh's device (``device``
+    is not read); the sums over cells and over genes are all-reduced
+    (``api.setup_fit``, ``infer``, ``models/multinomial``). Every rank
     returns the fit the one-process call gives on the whole matrix, clone
     calls, correlations and ``multirun_info`` included.
     """
@@ -202,7 +205,7 @@ def run_clonealign(
     verbose = kwargs.get("verbose", True)
     t0 = time.perf_counter()
     ctx = setup_fit(gene_expression_data, copy_number_data, device=device, mesh=mesh, **kwargs)
-    config, data, cells = ctx.config, ctx.data, ctx.cells
+    config, data, cells, genes = ctx.config, ctx.data, ctx.cells, ctx.genes
     synchronize(ctx.device)
     t1 = time.perf_counter()
 
@@ -215,23 +218,24 @@ def run_clonealign(
         restart_batching = _auto_restart_batching(
             N, G, C, config.K, config.mc_samples, R,
             torch.finfo(ctx.dtype).bits // 8, ctx.device.type, data.Y.element_size(),
-            config.P, mm._use_z_cheb(config), ctx.extra_log_lik is not None, cells,
+            config.P, mm._use_z_cheb(config), ctx.extra_log_lik is not None, cells, genes,
         )
     base = 0 if seed is None else int(seed)
     noises = [Noise(base + r, ctx.device) for r in range(R)]
 
     shared_pca = None
     if config.K > 0:
-        shared_pca = mm.pca_init_scores(data.Y, config.K, noises[0], ctx.dtype, cells=cells)
+        shared_pca = mm.pca_init_scores(data.Y, config.K, noises[0], ctx.dtype, cells=cells,
+                                        genes=genes)
     shared_mu = None
     if ctx.data_init_mu is True:
-        shared_mu = mm.data_mu_guess(data.Y, ctx.dtype, cells=cells)
+        shared_mu = mm.data_mu_guess(data.Y, ctx.dtype, cells=cells, genes=genes)
 
     params0 = [
         mm.init_params(
             data.Y, data.L, noise, K=config.K, data_init_mu=ctx.data_init_mu,
             dtype=ctx.dtype, pca_scores=shared_pca, mu_guess=shared_mu, P=config.P,
-            cells=cells,
+            cells=cells, genes=genes,
         )
         for noise in noises
     ]
@@ -280,6 +284,7 @@ def run_clonealign(
         device_Y=data.Y,
         device_s=data.s,
         cells=cells,
+        genes=genes,
     )
 
     # multirun_info (reference R/clonealign.R:67-73)
@@ -297,6 +302,7 @@ def run_clonealign(
             corr_r = _assign.compute_correlations(
                 ctx.Y, ctx.L, None, ctx.clone_names,
                 device_Y=data.Y, clones_idx=called[r], dtype=ctx.dtype, cells=cells,
+                genes=genes,
             )
             finite = corr_r[np.isfinite(corr_r)]
             median_correlations.append(float(np.median(finite)) if finite.size else np.nan)

@@ -36,8 +36,9 @@ Differences from the in-core path, by design (as in the reference):
 ``elbo_eval`` defaults to "reuse" (one pass over Y a step; "fresh" makes a
 second); under z_cheb the Chebyshev table is fitted to each chunk's psi.
 
-On a mesh (``mesh``) each rank streams its own block of rows in chunks: its
-chunks' value and shared gradients are summed over the ranks by one
+On a mesh (``mesh``) each rank streams its own block of rows in chunks,
+with a genes axis only its gene block's columns of them: its chunks'
+value and shared gradients are summed over the cell blocks by one
 all_reduce a step before the global terms are added and the shared
 parameters step, and the statistics, the init passes, the evaluations and
 the packaging take every rank's sums, as the in-core fit on a mesh does.
@@ -46,6 +47,7 @@ the packaging take every rank's sums, as the in-core fit on a mesh does.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -66,9 +68,9 @@ from .api import (
     _setup_allele,
 )
 from .fit import ClonealignFit
-from .infer import InferenceResult, Monitor, TF1Adam, _upload, final_config
+from .infer import InferenceResult, Monitor, TF1Adam, _upload, final_config, gene_draws
 from .models import multinomial as mm
-from .parallel.collectives import CELL_AXIS, all_sum, block_of, check_mesh
+from .parallel.collectives import CELL_AXIS, all_sum, block_of, check_mesh, gene_block
 from .utils.device import resolve_device, resolve_dtype, synchronize
 from .utils.noise import Noise
 from .utils.sparsity import is_scipy_sparse as _is_scipy_sparse
@@ -87,36 +89,46 @@ _CELL = tuple(f for f, spec in vars(mm.param_specs()).items() if CELL_AXIS in sp
 
 class _RowSource:
     """Row-sliceable view of the gene-filtered count matrix (reference
-    stream.py:201-228): ``src[i:j]`` materializes ``Y[i:j][:, keep]`` as a
-    numpy array on demand, so a memmap or a CSR is never copied whole;
-    ``src[:, genes]`` gives columns of the filtered matrix."""
+    stream.py:201-228): ``src[i:j]`` gives ``Y[i:j][:, kept]`` as a numpy
+    array on demand, so a memmap or a CSR is never copied whole;
+    ``src[:, genes]`` gives columns of the filtered matrix. ``cols``, a
+    slice of the kept columns, restricts it to a rank's gene block. Kept
+    columns that lie side by side are read as a slice, so a dense block is
+    a view of the input's rows (of a memmap, of the map itself)."""
 
-    def __init__(self, Y, keep_cols):
+    def __init__(self, Y, keep_cols, cols: Optional[slice] = None):
         self._Y = Y
         self._sparse = _is_scipy_sparse(Y)
-        self._keep = None if keep_cols is None or keep_cols.all() else keep_cols
-        G = Y.shape[1] if self._keep is None else int(self._keep.sum())
-        self.shape = (Y.shape[0], G)
+        kept = np.arange(Y.shape[1]) if keep_cols is None else np.flatnonzero(keep_cols)
+        if cols is not None:
+            kept = kept[cols]
+        self._kept = kept
+        side_by_side = kept.size and kept[-1] - kept[0] + 1 == kept.size
+        self._cols = slice(int(kept[0]), int(kept[-1]) + 1) if side_by_side else kept
+        if kept.size == Y.shape[1]:  # every column: the rows as they are
+            self._cols = None
+        self.shape = (Y.shape[0], kept.size)
         self.dtype = Y.dtype
 
     def __getitem__(self, sl) -> np.ndarray:
         if isinstance(sl, tuple):  # (rows, columns of the filtered matrix)
             rows, cols = sl
-            if self._keep is not None:
-                cols = np.flatnonzero(self._keep)[cols]
-            blk = self._Y[rows][:, cols]
+            blk = self._Y[rows][:, self._kept[cols]]
             return blk.toarray() if self._sparse else np.asarray(blk)
-        blk = self._Y[sl]
-        blk = blk.toarray() if self._sparse else np.asarray(blk)
-        if self._keep is not None:
-            blk = blk[:, self._keep]
-        return blk
+        blk = self._Y[sl] if self._cols is None else self._Y[sl][:, self._cols]
+        return blk.toarray() if self._sparse else np.asarray(blk)
 
     def tensor(self, i, j) -> torch.Tensor:
-        """Rows i:j as a CPU tensor in the input dtype (a read-only memmap's
-        rows are copied: PyTorch takes writable arrays)."""
+        """Rows i:j as a CPU tensor in the input dtype, over the rows' view
+        where there is one: a read-only memmap's rows are not copied, since
+        every reader (``_ChunkFeeder``'s copy into its pinned buffer, the
+        statistics' conversion) only reads them."""
         blk = self[i:j]
-        return torch.from_numpy(blk if blk.flags.writeable else np.array(blk))
+        if blk.flags.writeable:
+            return torch.from_numpy(blk)
+        with warnings.catch_warnings():  # PyTorch warns of a tensor it may not write
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.from_numpy(blk)
 
 
 def _chunk_bounds(N: int, chunk: int):
@@ -274,10 +286,11 @@ def fit_streaming(
     ``timings`` hold the wall seconds of its phases, as ``clonealign``'s.
 
     ``mesh`` (:func:`clonealign_torch.parallel.sharding.make_mesh`) splits
-    the cells over its ranks (module docstring): every rank passes the whole
-    input, streams its block of rows ``chunk_cells`` at a time on the mesh's
-    device (``device`` is not read), and returns the fit the one-process
-    call gives.
+    the cells, and with ``gene_parallelism`` the kept genes, over its ranks
+    (module docstring): every rank passes the whole input, streams its
+    block of rows, of them its gene block's columns, ``chunk_cells`` at a
+    time on the mesh's device (``device`` is not read), and returns the fit
+    the one-process call gives (clonealign_tpu/stream.py:419-444).
     """
     _check_reference_keywords(key, "while")
     if mesh is not None:
@@ -312,18 +325,24 @@ def fit_streaming(
     if sparse and low.any():
         Y = Y[:, ~low]
         low = np.zeros(Y.shape[1], bool)
-    src = _RowSource(Y, ~low)
-    G = src.shape[1]
     device_validated = _device_validated(Y)
-    _check_host_counts(Y if sparse else src, device_validated, allow_fractional, K, cells)
+    _check_host_counts(Y if sparse else _RowSource(Y, ~low), device_validated, allow_fractional,
+                       K, cells)
+    n_genes = L.shape[0]
+    genes = gene_block(mesh, n_genes)
+    cols = None if genes is None else slice(genes.start, genes.stop)
+    src = _RowSource(Y, ~low, cols)
+    G = src.shape[1]
+    if cols is not None:
+        L = L[cols]
     if saturate:
         L = np.minimum(L, float(saturation_threshold))
     n_cells = N if cells is None else cells.n
     extra, clone_probs_from_snv = _setup_allele(clone_allele, cov, ref, n_cells, L.shape[1], dt,
                                                 dev, verbose, cells)
-    storage = _resolve_storage(y_storage, Y, cells)
+    storage = _resolve_storage(y_storage, Y, cells, genes)
     store = dt if storage is None else storage
-    config = _model_config(K, P, mc_samples, fix_alpha, likelihood_impl, dt, n_cells * G)
+    config = _model_config(K, P, mc_samples, fix_alpha, likelihood_impl, dt, n_cells * n_genes)
     chunk = _resolve_chunk_cells(chunk_cells, N, G)
     bounds = _chunk_bounds(N, chunk)
     if verbose:
@@ -334,7 +353,8 @@ def fit_streaming(
     # blocks of _AUX_ELEMENTS ---
     aux = _chunk_bounds(N, max(1, _AUX_ELEMENTS // max(G, 1)))
     stats = mm._prepare_rows(src, L, x, src.tensor, device=dev, dtype=dt, y_storage=storage,
-                             check_feasible=False, blocks=aux, with_y=False, cells=cells)
+                             check_feasible=False, blocks=aux, with_y=False, cells=cells,
+                             genes=genes)
     _check_statistics(stats, device_validated)
 
     # --- init (mm.init_params, the in-core draws in the in-core order):
@@ -348,12 +368,14 @@ def fit_streaming(
     t1 = time.perf_counter()
     if cells is not None or N * G > mm._CHUNK_ELEMENTS:
         pcs = (mm._standardize(mm._pca_scores_blocked(rows, K, noise, dt, blocks=aux,
-                                                      cells=cells), dim=0, cells=cells)
+                                                      cells=cells, genes=genes),
+                               dim=0, cells=cells)
                if K > 0 else None)
-        mu_guess = (mm.data_mu_guess(rows, dt, blocks=aux, cells=cells)
+        mu_guess = (mm.data_mu_guess(rows, dt, blocks=aux, cells=cells, genes=genes)
                     if data_init_mu is True else None)
         params0 = mm.init_params(rows, stats.L, noise, K=K, data_init_mu=data_init_mu,
-                                 dtype=dt, pca_scores=pcs, mu_guess=mu_guess, P=P, cells=cells)
+                                 dtype=dt, pca_scores=pcs, mu_guess=mu_guess, P=P, cells=cells,
+                                 genes=genes)
     else:
         params0 = mm.init_params(rows[0:N], stats.L, noise, K=K, data_init_mu=data_init_mu,
                                  dtype=dt, P=P)
@@ -366,7 +388,7 @@ def fit_streaming(
         i, j = bounds[c]
         return mm.ModelData(Y=y, L=stats.L, s=stats.s[i:j], log_binom=stats.log_binom[i:j],
                             YlogL=stats.YlogL[i:j], colsum_Y=None,
-                            X=None if stats.X is None else stats.X[i:j])
+                            X=None if stats.X is None else stats.X[i:j], genes=genes)
 
     def chunk_extra(c):
         i, j = bounds[c]
@@ -381,11 +403,12 @@ def fit_streaming(
         return mm.CloneAlignParams(**shared, **chunk_params[c])
 
     def draw(what):
-        return noise.normal(what, (config.mc_samples, G), dt, dev)
+        return gene_draws([noise], config.mc_samples, G, dt, dev, genes)(what, [0])[0]
 
-    # rank 0 adds the global terms to its chunks' sums (in one process, the
-    # ELBO), and the all_reduce after the chunks sums every rank's
-    owns_global = cells is None or cells.mesh.rank == 0
+    # the ranks of cell block 0 add the global terms to their chunks' sums
+    # (in one process, the ELBO), and the all_reduce after the chunks sums
+    # every cell block's
+    owns_global = cells is None or cells.mesh.cell_coord == 0
 
     def evaluate(eps_list, eval_config):
         """The ELBO at each draw of ``eps_list``: the global terms plus every
@@ -394,7 +417,7 @@ def fit_streaming(
         with torch.no_grad():
             bases = [mm.sample_mu_base(params_of(0), e) for e in eps_list]
             tot = torch.stack([mm.elbo_global_terms(params_of(0), b, eval_config,
-                                                    stats.colsum_Y) for b in bases])
+                                                    stats.colsum_Y, genes) for b in bases])
             if not owns_global:
                 tot = torch.zeros_like(tot)
             for c, y in feeder.sweep():
@@ -429,7 +452,7 @@ def fit_streaming(
     while mon.live()[0]:
         eps = draw("train")
         base = mm.sample_mu_base(params_of(0), eps)
-        value = mm.elbo_global_terms(params_of(0), base, config, stats.colsum_Y)
+        value = mm.elbo_global_terms(params_of(0), base, config, stats.colsum_Y, genes)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
             shared.values(), torch.autograd.grad(-value, list(shared.values()), allow_unused=True))]
         value = value.detach()
@@ -476,7 +499,7 @@ def fit_streaming(
                              loop_seconds=loop_seconds)
     fit = _package_fit(result, src, L, clone_names, retained_genes, config,
                        clone_call_probability, clone_probs_from_snv, device_Y=rows,
-                       device_s=stats.s, blocks=aux, cells=cells)
+                       device_s=stats.s, blocks=aux, cells=cells, genes=genes)
     fit.timings = {"setup": t1 - t0, "init": t2 - t1, "inference": t3 - t2,
                    "loop": loop_seconds, "package": time.perf_counter() - t3}
     return fit

@@ -1,11 +1,13 @@
-"""One rank of the two-rank CPU runs of tests/test_torch_distributed.py.
+"""One rank of the CPU runs of tests/test_torch_distributed.py.
 
 Run as ``python tests/_torch_dist_worker.py RANK WORLD PORT INPUTS.npz
-OUT.npz``: it joins a gloo process group on 127.0.0.1:PORT (a 60 s
+OUT.npz [GENES]``: it joins a gloo process group on 127.0.0.1:PORT (a 60 s
 timeout, so that a collective one rank never reaches fails), runs every
 mode of the distributed fit on the inputs the test wrote, and saves this
-rank's results. It imports clonealign_torch and never jax: the test holds
-the results against the port's one-process fits and the JAX package.
+rank's results. With GENES (2 for the four-rank run) the mesh is
+``(WORLD // GENES) x GENES`` and the modes are the genes axis's. It imports
+clonealign_torch and never jax: the test holds the results against the
+port's one-process fits and the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from clonealign_torch import api, restarts
 from clonealign_torch.models import multinomial as mm
 from clonealign_torch.parallel import distributed as dist
 from clonealign_torch.parallel import sharding
-from clonealign_torch.parallel.collectives import agree, all_sum, block_of, cells_of
+from clonealign_torch.parallel.collectives import (agree, all_sum, block_of, cells_of,
+                                                   gene_block)
 from clonealign_torch.utils.noise import Noise
 
 # the keywords both sides of each comparison share (the test imports them)
@@ -30,21 +33,24 @@ RUN = dict(initial_shrinks=(0, 5), n_repeats=1, max_iter=20, seed=1, dtype="floa
            verbose=False, print_elbos=False)
 STREAM = dict(chunk_cells=8, max_iter=15, rel_tol=1e-8, dtype="float64", seed=2, verbose=False)
 NEGBIN = dict(max_iter=150, rel_tol=1e-9, dtype="float64")
+NEGBIN_RESUME = dict(max_iter=5, rel_tol=1e-9)  # two chained runs of the 2 x 2 v1 fit
 GENE_FILTER_THRESHOLD = 2
+GENES = 2  # the gene blocks of the four-rank run's 2 x 2 mesh
+OP_LANES, OP_S = 2, 2  # the fused op's check on gene blocks: lanes and mu samples
 
 
 class NpzNoise(Noise):
     """The draws of lane ``r`` of the JAX package's sweep, in the order the
-    port asks for them, from the arrays the test wrote: ``jax{r}_{what}``
+    port asks for them, from the arrays the test wrote: ``{prefix}{r}_{what}``
     holds every draw of that kind, one after another."""
 
-    def __init__(self, z, r):
-        self.z, self.r, self.used = z, r, {}
+    def __init__(self, z, r, prefix="jax"):
+        self.z, self.r, self.prefix, self.used = z, r, prefix, {}
 
     def normal(self, what, shape, dtype, device):
         k = self.used.get(what, 0)
         self.used[what] = k + 1
-        name = f"jax{self.r}_{what}"
+        name = f"{self.prefix}{self.r}_{what}"
         draw = self.z[name] if what in ("pca_omega", "psi_jitter") else self.z[name][k]
         return torch.tensor(draw, dtype=dtype, device=device).reshape(tuple(shape))
 
@@ -84,34 +90,39 @@ def _fit_out(out, prefix, fit):
             "best_run": int(info["best_run"])})
 
 
-def sweeps(z, mesh, out):
+def sweeps(z, mesh, out, Y="Y", L="L", jax_prefix="jax", prefix="", jax_counts=None):
     """sharded_fit from the whole matrix, distributed_fit from the rank's
-    rows, and sharded_fit on the JAX package's draws."""
-    Y, L = z["Y"], z["L"]
+    rows, and sharded_fit on the JAX package's draws (``{jax_prefix}{r}_*``
+    of the inputs, made on the counts ``jax_counts`` names, by default the
+    same), each saved under ``{prefix}{mode}_*``."""
+    Y, L = z[Y], z[L]
     cells = block_of(mesh, Y.shape[0])
-    _sweep_out(out, "sharded", sharding.sharded_fit(Y, L, mesh, seed=3, **SWEEP), cells)
-    local = Y[dist.process_cell_slice(Y.shape[0])]
-    _sweep_out(out, "distributed", dist.distributed_fit(local, L, mesh, seed=3, **SWEEP), cells)
+    _sweep_out(out, prefix + "sharded", sharding.sharded_fit(Y, L, mesh, seed=3, **SWEEP), cells)
+    local = Y[dist.process_cell_slice(Y.shape[0], mesh=mesh)]
+    _sweep_out(out, prefix + "distributed", dist.distributed_fit(local, L, mesh, seed=3, **SWEEP),
+               cells)
 
     # the JAX package's PCA scores and this rank's: equal up to the sign,
     # which the SVDs choose; the port's take the JAX package's sign
     port_pca = mm.pca_init_scores
 
-    def aligned(Yd, K, noise, dtype=torch.float32, cells=None):
-        got = port_pca(Yd, K, noise, dtype, cells=cells)
-        want = torch.tensor(z["jax_pca"][cells.start : cells.stop], dtype=dtype)
+    def aligned(Yd, K, noise, dtype=torch.float32, cells=None, genes=None):
+        got = port_pca(Yd, K, noise, dtype, cells=cells, genes=genes)
+        want = torch.tensor(z[f"{jax_prefix}_pca"][cells.start : cells.stop], dtype=dtype)
         sign = torch.sign(all_sum(torch.sum(got * want, dim=0), cells))
-        out["jax_pca_err"] = float(torch.max(torch.abs(got * sign - want)))
+        out[prefix + "jax_pca_err"] = float(torch.max(torch.abs(got * sign - want)))
         return got * sign
 
+    if jax_counts is not None:
+        Y, L = z[jax_counts[0]], z[jax_counts[1]]
     mm.pca_init_scores = aligned
     try:
-        noises = [NpzNoise(z, r) for r in range(JAX_SWEEP["n_restarts"])]
+        noises = [NpzNoise(z, r, jax_prefix) for r in range(JAX_SWEEP["n_restarts"])]
         kw = {k: v for k, v in JAX_SWEEP.items() if k != "n_restarts"}
         result = sharding.sharded_fit(Y, L, mesh, noises=noises, dtype="float64", **kw)
     finally:
         mm.pca_init_scores = port_pca
-    _sweep_out(out, "jax", result, cells)
+    _sweep_out(out, prefix + "jax", result, cells)
 
 
 def decisions(z, mesh, out):
@@ -170,6 +181,8 @@ def negbin(z, mesh, out):
     for impl in ("exact", "cheb"):
         r = sharding.sharded_negbin_fit(z["Y_nb"], z["L_nb"], mesh,
                                         stats="cheb" if impl == "cheb" else None, **NEGBIN)
+        out[f"nb_{impl}_rows"] = np.array([block_of(mesh, z["Y_nb"].shape[0]).start,
+                                           block_of(mesh, z["Y_nb"].shape[0]).stop])
         out[f"nb_{impl}_trace"] = r.elbo_trace
         out[f"nb_{impl}_final_elbo"] = r.final_elbo
         out[f"nb_{impl}_n_iter"] = r.n_iter
@@ -205,17 +218,138 @@ def refusals(z, mesh, out):
     out["agree_value"] = outcome(lambda: agree(cells, lambda: "value"))
 
 
+# --- the four-rank run on a 2 x 2 mesh (GENES gene blocks) -------------------
+
+def genes_sweeps(z, mesh, out):
+    """sharded_fit and distributed_fit on the ragged gene split (47 genes:
+    23 and 24 a block), and on the JAX package's draws at 48 genes (its
+    mesh splits only evenly)."""
+    sweeps(z, mesh, out, Y="Yg", L="Lg", jax_prefix="jg", prefix="g_", jax_counts=("Yg48", "Lg48"))
+    out["g_local_genes"] = gene_block(mesh, z["Yg"].shape[1]).stop - \
+        gene_block(mesh, z["Yg"].shape[1]).start
+
+
+def genes_fits(z, mesh, out):
+    """run_clonealign on a CSR stored int8 with covariates and the allele
+    term, as lanes and one restart after another, and under z_cheb; the
+    counts' last gene is filtered out before the kept 47 are split."""
+    import scipy.sparse as sp
+
+    rich = dict(x=z["xg"], clone_allele=z["clone_allele"], cov=z["covg"], ref=z["refg"])
+    for batching in ("vmap", "map"):
+        fit = restarts.run_clonealign(sp.csr_matrix(z["Yg_f"]), z["Lg_f"], mesh=mesh,
+                                      restart_batching=batching, **rich, **RUN)
+        _fit_out(out, f"g_rich_{batching}", fit)
+    ctx = api.setup_fit(sp.csr_matrix(z["Yg_f"]), z["Lg_f"], mesh=mesh, device=mesh.device,
+                        verbose=False, **rich)
+    out["g_rich_storage"] = str(ctx.data.Y.dtype)
+    out["g_rich_tile"] = np.array(ctx.data.Y.shape)
+    _fit_out(out, "g_cheb", restarts.run_clonealign(z["Yg_f"], z["Lg_f"], mesh=mesh,
+                                                    likelihood_impl="z_cheb", **RUN))
+    from clonealign_torch.stream import fit_streaming
+
+    _fit_out(out, "g_stream", fit_streaming(z["Yg_f"], z["Lg_f"], mesh=mesh, **STREAM))
+
+
+def genes_negbin(z, mesh, out):
+    """Both v1 loops, and the exact loop resumed from a first run's result
+    (its per-gene fields whole, cut to the gene block for the second),
+    beside the same iterations in one run."""
+    negbin(z, mesh, out)
+    for name in list(out):
+        if name.startswith("nb_"):
+            out["g_" + name] = out.pop(name)
+    first = sharding.sharded_negbin_fit(z["Y_nb"], z["L_nb"], mesh, dtype="float64",
+                                        **NEGBIN_RESUME)
+    chained = sharding.sharded_negbin_fit(z["Y_nb"], z["L_nb"], mesh, dtype="float64",
+                                          resume_from=first, **NEGBIN_RESUME)
+    both = dict(NEGBIN_RESUME, max_iter=2 * NEGBIN_RESUME["max_iter"])
+    one_run = sharding.sharded_negbin_fit(z["Y_nb"], z["L_nb"], mesh, dtype="float64", **both)
+    out["g_nb_resume_trace"] = chained.elbo_trace
+    out["g_nb_one_run_trace"] = one_run.elbo_trace
+    out["g_nb_one_run_gamma"] = one_run.post.gamma.numpy()
+    out["g_nb_resume_gamma"] = chained.post.gamma.numpy()
+    out["g_nb_resume_r"] = chained.post.r.numpy()
+    out["g_nb_resume_log_mu"] = chained.params.log_mu.numpy()
+    out["g_nb_resume_nu"] = chained.opt_state.nu[0].numpy()
+
+
+def op_params(z, rows=slice(None), cols=slice(None)):
+    """The fused op's check's parameters, lanes first: psi's rows, W's and
+    the mu samples' gene block, each a leaf."""
+    def leaf(a):
+        return torch.tensor(a, dtype=torch.float64, requires_grad=True)
+
+    psi, W, mu = leaf(z["op_psi"][:, rows]), leaf(z["op_W"][:, cols]), leaf(z["op_mu"][..., cols])
+    fields = {f: None for f in vars(sharding.param_specs())}
+    params = mm.CloneAlignParams(**dict(fields, psi=psi, W=W,
+                                        beta=torch.zeros(W.shape[:-1] + (0,), dtype=W.dtype)))
+    return params, mu
+
+
+def op_terms(z, data, impl, rows=slice(None), cols=slice(None)):
+    """A1, A2, log Z of the fused op (or z_cheb's), a loss with fixed
+    cotangents and its gradients with respect to psi, W and the mu
+    samples."""
+    params, mu = op_params(z, rows, cols)
+    config = mm.ModelConfig(K=1, mc_samples=OP_S, likelihood_impl=impl)
+    A1, A2, logZ = mm._likelihood_terms(params, data, mu, torch.log(mu), config)
+    c = {k: torch.tensor(z[f"op_c{k}"]) for k in (1, 2, 3)}
+    loss = (torch.sum(A1 * c[1][:, rows]) + torch.sum(A2 * c[2][:, rows])
+            + torch.sum(logZ * c[3][..., rows]))
+    grads = torch.autograd.grad(loss, [params.psi, params.W, mu])
+    return [t.detach() for t in (A1, A2, logZ)] + list(grads)
+
+
+def genes_op(z, mesh, out):
+    """The exact op (its plain version on the CPU) and z_cheb's normalizer
+    on this rank's tile, with the lane axis: values and gradients, the
+    gene block's gradients summed over the cell blocks, beside the whole
+    op's on one rank's view of every cell and gene."""
+    whole = mm.prepare_data(z["Yg"], z["Lg"], device="cpu", dtype=torch.float64)
+    tile = sharding.shard_data(whole, mesh)
+    rows = slice(tile.cells.start, tile.cells.stop)
+    cols = slice(tile.genes.start, tile.genes.stop)
+    for impl in ("xla", "z_cheb"):
+        got = op_terms(z, tile, impl, rows, cols)
+        got[4], got[5] = all_sum(got[4], tile.cells), all_sum(got[5], tile.cells)
+        want = op_terms(z, whole, impl)
+        want = [want[0][:, rows], want[1][:, rows], want[2][..., rows], want[3][:, rows],
+                want[4][:, cols], want[5][..., cols]]
+        for name, g, w in zip(("A1", "A2", "logZ", "dpsi", "dW", "dmu"), got, want):
+            out[f"g_op_{impl}_{name}"] = g.numpy()
+            out[f"g_op_{impl}_{name}_want"] = w.numpy()
+
+
+def genes_refusals(z, mesh, out):
+    """Fewer kept genes than gene blocks: a ValueError on every rank."""
+    def outcome(fn):
+        try:
+            fn()
+        except Exception as e:  # the test reads which exception each rank raised
+            return f"{type(e).__name__}: {e}"
+        return "returned"
+
+    Y = np.zeros((z["Yg"].shape[0], 3), np.int64)
+    Y[:, 0] = 5  # two of the three genes have no counts: one is kept
+    out["g_refuse_genes"] = outcome(lambda: restarts.run_clonealign(Y, z["Lg"][:3], mesh=mesh,
+                                                                    **RUN))
+
+
 def main():
     rank, world, port, inputs, path = sys.argv[1:6]
+    genes = int(sys.argv[6]) if len(sys.argv) > 6 else 1
     torch.set_num_threads(1)
     dist.initialize(f"127.0.0.1:{port}", int(world), int(rank), backend="gloo",
                     timeout_seconds=60)
     try:
-        mesh = sharding.make_mesh(devices="cpu")
+        mesh = sharding.make_mesh(devices="cpu", gene_parallelism=genes)
         out = {}
         with np.load(inputs) as z:
             z = dict(z)
-        for mode in (sweeps, decisions, streaming, negbin, refusals):
+        modes = ((sweeps, decisions, streaming, negbin, refusals) if genes == 1 else
+                 (genes_sweeps, genes_fits, genes_negbin, genes_op, genes_refusals))
+        for mode in modes:
             mode(z, mesh, out)
         np.savez(path, **out)
     finally:

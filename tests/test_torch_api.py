@@ -256,10 +256,22 @@ def test_options_outside_the_slice_raise(option):
 
 
 def test_a_genes_mesh_axis_is_not_ported():
-    from clonealign_torch.parallel.sharding import make_mesh
+    """make_mesh takes a genes axis with the JAX package's shape check (one
+    rank cannot hold a 0 x 2 mesh), and the layouts split the per-gene
+    fields along it (clonealign_tpu/parallel/sharding.py:59-96)."""
+    from clonealign_torch.parallel.collectives import GENE_AXIS
+    from clonealign_torch.parallel.sharding import data_shardings, make_mesh, param_specs
 
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(ValueError, match="mesh 0x2 != 1 ranks"):
         make_mesh(devices="cpu", gene_parallelism=2)
+    assert make_mesh(devices="cpu", gene_parallelism=1).shape == {"cells": 1, "genes": 1}
+    specs = param_specs()
+    assert {f for f, spec in vars(specs).items() if GENE_AXIS in spec} == {
+        "W", "beta", "qmu_loc", "qmu_log_scale"}
+    assert specs.W == (GENE_AXIS, None) and specs.qmu_loc == (GENE_AXIS,)
+    data = data_shardings(has_x=True)
+    assert data.Y == ("cells", GENE_AXIS) and data.L == (GENE_AXIS, None)
+    assert data.colsum_Y == (GENE_AXIS,)
 
 
 def test_float64_on_cuda_resolves():

@@ -33,7 +33,7 @@ def test_make_mesh_in_one_process_is_a_world_of_one():
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    (dict(gene_parallelism=2), NotImplementedError, "distributed"),
+    (dict(gene_parallelism=2), ValueError, "mesh 0x2 != 1 ranks"),
     (dict(cell_parallelism=3), ValueError, "mesh 3x1"),
     (dict(devices=["cpu", "cpu"]), ValueError, "2 devices for 1 ranks"),
 ])

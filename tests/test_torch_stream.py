@@ -249,6 +249,33 @@ def test_feeder_hands_out_each_chunk_intact():
         assert seen == list(range(len(bounds)))
 
 
+def test_row_source_reads_a_read_only_map_in_place(tmp_path):
+    """A read-only map's rows, and a gene block of its kept columns, reach
+    the feeder's buffer from the map itself: the tensor is a view of the
+    map, with no copy before the buffer's (a filtered gene inside the
+    block makes the one gather copy)."""
+    Y = (np.arange(23 * 9) % 101).astype(np.int16).reshape(23, 9)
+    m = np.memmap(tmp_path / "counts.dat", dtype=np.int16, mode="w+", shape=Y.shape)
+    m[:] = Y
+    m.flush()
+    ro = np.memmap(tmp_path / "counts.dat", dtype=np.int16, mode="r", shape=Y.shape)
+    keep = np.ones(9, bool)
+    keep[0] = False
+    src = tstream._RowSource(ro, keep, slice(2, 6))  # kept columns 3-6
+    t = src.tensor(4, 11)
+    assert np.shares_memory(t.numpy(), ro)
+    np.testing.assert_array_equal(t.numpy(), Y[4:11, 3:7])
+    np.testing.assert_array_equal(src[2:5, [0, 3]], Y[2:5][:, [3, 6]])
+    keep[4] = False  # a dropped gene inside the block: its kept columns gathered
+    t = tstream._RowSource(ro, keep, slice(2, 6)).tensor(4, 11)
+    np.testing.assert_array_equal(t.numpy(), Y[4:11][:, [3, 5, 6, 7]])
+    feeder = tstream._ChunkFeeder(src, tstream._chunk_bounds(23, 5), torch.int8,
+                                  torch.device("cpu"))
+    for c, y in feeder.sweep():
+        i, j = feeder.bounds[c]
+        np.testing.assert_array_equal(y.numpy(), Y[i:j, 3:7].astype(np.int8))
+
+
 def test_memmap_input(tmp_path):
     """A read-only np.memmap streams without being loaded whole."""
     sim = _sim(seed=9)
