@@ -46,7 +46,7 @@ four converged fits of the golden oracle (tests/golden/tpu_parity_oracle.npz:
 example, synth, rich, allele), each held to that oracle's bar, and its synth
 fit streamed in chunks of 1,024 cells, held to the same bar after the
 kernels are checked at its chunk shapes; then the legacy v1
-negative-binomial family (``inference_em``, exact and Chebyshev in turns,
+negative-binomial family (``inference_em``, one exact and one Chebyshev fit,
 ``gibbs_pi_rho`` and ``models.negbin.classify_cells``) at
 ``benchmarks/negbin_scale.py``'s width, 100,000 cells x 2,000 genes x 4
 clones of model3 counts made on the card, each held to its accuracy bar,
@@ -69,7 +69,14 @@ S*C = 80), the same fit streamed in chunks (which must match it), its
 sweep of three restarts as lanes, and a 2,000 x 500 x 12
 fit (K = 2, P = 4, mc_samples = 6) on the card against the CPU port in
 float64 from the same numpy draws, every launch of those paths a wide
-one and every launch of every other path a narrow one; and last
+one and every launch of every other path a narrow one; past the wide
+family's old bound of 64 columns of [psi, X], 64 samples and 2,048 sample
+x clone columns, each wide and float64 kernel against its plain version
+at every Y storage at shapes crossing each of those alone (Kf 72; S 66;
+S*C 2,178), the wide kernels timed at full width at Kf 72, S*C 660 beside
+their bounds, the full-width fit with K = 2, a one-hot of 70 batches
+(P = 70) and mc_samples = 66 (every launch a wide one), and a float64 fit
+past all three bounds on the card against the CPU port; and last
 ``dtype="float64"`` through the float64 kernel family
 (``ops/csrc/fused_likelihood_f64.cu``): each float64 kernel against its
 plain float64 version at every Y storage it loads, at the shapes above
@@ -82,7 +89,9 @@ sweep as "vmap" and as "map" (equal), the float64 fit streamed in 8
 chunks (equal to the in-core one), and the golden example and synth fits
 and the v1 family's exact and Chebyshev fits in float64 on the card
 against the CPU port's (run in a child process after the timed fits),
-every launch of those paths a float64 one; and, after the v1 family, the
+every launch of those paths a float64 one; then both torch examples
+(``examples/quickstart_torch.py``, ``examples/full_workflow_torch.py``) on
+the card in a temporary directory; and, after the v1 family, the
 distributed fit (``clonealign_torch.parallel``): the full-width
 ten-restart sweep through ``run_clonealign(mesh=make_mesh())`` in an NCCL
 process group of one rank (equal to the one-process sweep), then two ranks
@@ -109,7 +118,9 @@ listing its two parts (the Y-free dpsi kernel, and the gene-major kernel
 with its packing and reduction kernels), each with its own launches, time,
 plain version's time and bound; then one entry for each wide kernel, at
 the wide fit's widths with each full-width configuration under
-``by_config`` and the wide paths' launches under ``paths``; then one entry
+``by_config`` and the wide paths' launches under ``paths``, and one more
+for each at the past-bound fit's widths (its launches, its checks past
+the bound under ``checks``); then one entry
 for each float64 kernel, at the main path's widths (Kf 1, S*C 10) and the
 storage "auto" resolves to, with each full-width configuration under
 ``by_config`` and the float64 paths' launches under ``paths``; the line
@@ -373,7 +384,7 @@ def kernel_bounds(N, G, Kf, SC, y_itemsize):
 
 
 def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
-                  a2_timed=True):
+                  a2_timed=True, vjp_parts=False, batch=10):
     """Compare forward (A2 on and off) and backward with the plain versions
     at one shape, with Y stored as ``storage``, the backward taking Y W from
     the forward kernel as the fit does; return the errors (the largest, and
@@ -382,7 +393,12 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
     timed alone; the A2-on calls are timed too unless ``a2_timed`` is
     false. With ``buffer_rows``, Y is handed to the kernels as the streaming
     fit's chunk feeder hands a chunk out: the leading rows of a device
-    buffer of ``buffer_rows`` rows, whose other rows hold other counts."""
+    buffer of ``buffer_rows`` rows, whose other rows hold other counts. With
+    ``vjp_parts`` the backward's parts are timed beside the plain VJP's terms
+    (dpsi = dlog_rfe W; dW and d(muL) by reference_likelihood_vjp) instead
+    of the re-associated reference_dpsi and reference_gene, whose (N, Kf,
+    G) and (N, S*C*Kf) products do not fit the card at full width past Kf
+    64. ``batch``: calls between a timing's two CUDA events (cuda_ms)."""
     import torch
 
     from clonealign_torch.ops import fused_likelihood as fl
@@ -429,13 +445,13 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
         if with_a2 and not a2_timed:
             continue
         t = {
-            "fwd_ms": cuda_ms(lambda: fl.kernel_forward(*args_f), reps),
-            "fwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_terms(*args_f), reps),
-            "bwd_ms": cuda_ms(lambda: fl.kernel_backward(*args_b, YW), reps),
-            "bwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_vjp(*args_b), reps),
+            "fwd_ms": cuda_ms(lambda: fl.kernel_forward(*args_f), reps, batch),
+            "fwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_terms(*args_f), reps, batch),
+            "bwd_ms": cuda_ms(lambda: fl.kernel_backward(*args_b, YW), reps, batch),
+            "bwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_vjp(*args_b), reps, batch),
             "dpsi_ms": cuda_ms(lambda: fl.kernel_dpsi(
-                x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"], YW), reps),
-            "gene_ms": cuda_ms(lambda: fl.kernel_gene(*args_b), reps),
+                x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"], YW), reps, batch),
+            "gene_ms": cuda_ms(lambda: fl.kernel_gene(*args_b), reps, batch),
         }
         log(f"  {tag}: fwd {t['fwd_ms']:.3f} ms (plain {t['fwd_plain_ms']:.3f} ms), "
             f"bwd {t['bwd_ms']:.3f} ms "
@@ -445,10 +461,19 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
             result = dict(t, fwd_err=err_f, bwd_err=err_b, errs=errs)
     result["bounds"] = kernel_bounds(shape["N"], shape["G"], Kf, S * shape["C"],
                                      x["Y"].element_size())
-    result["dpsi_plain_ms"] = cuda_ms(lambda: fl.reference_dpsi(
-        YW, x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"]), reps)
-    result["gene_plain_ms"] = cuda_ms(lambda: fl.reference_gene(
-        x["Y"], x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"]), reps)
+    if vjp_parts:
+        def plain_dpsi():
+            rfe = torch.exp(x["psi"] @ x["W"].T)
+            return (x["Y"].float() * x["dA1"][:, None] + rfe * (x["dZ"] @ x["muL"].T)) @ x["W"]
+
+        result["dpsi_plain_ms"] = cuda_ms(plain_dpsi, reps, batch)
+        result["gene_plain_ms"] = cuda_ms(lambda: fl.reference_likelihood_vjp(
+            x["Y"], x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"]), reps, batch)
+    else:
+        result["dpsi_plain_ms"] = cuda_ms(lambda: fl.reference_dpsi(
+            YW, x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"]), reps, batch)
+        result["gene_plain_ms"] = cuda_ms(lambda: fl.reference_gene(
+            x["Y"], x["psi"], x["W"], x["muL"], x["dA1"], None, x["dZ"]), reps, batch)
     del x, Yf, YW
     torch.cuda.empty_cache()
     return result
@@ -501,14 +526,17 @@ def tc_kernels(fl):
     (12) and gene_kernel<YT, KF, NT, A2> (88), YT the Y storage code (0-3),
     and the wide family's: fwd_wide_kernel<NZ, STEPS> (16, STEPS the
     k-steps a stage, 2 or 4), fwd_wide_y_kernel<YT, NY> (20),
-    gene_wide_kernel<YT, NJ> (32) and dpsi_wide_kernel<NK, NZ> (24) at the
-    built tile counts (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``,
+    gene_wide_kernel<YT, NJ, GEN> (64, GEN its form for dW's column groups
+    or dlog mu's passes) and dpsi_wide_kernel<NK, NZ, LRW> (30: LRW its form
+    for dpsi's column groups, at NK 8) at the built tile counts
+    (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``,
     ``fl.WIDE_DPSI_K_COUNTS`` x ``fl.WIDE_DPSI_Z_COUNTS``), and their
     packing kernels (no templates); and the float64 family's
     fwd_f64_kernel<YT, NT> (28: ``fl.F64_FWD_TILE_COUNTS``),
-    dpsi_f64_kernel<NK, NZ> (24: ``fl.F64_DPSI_K_COUNTS`` x
-    ``fl.F64_DPSI_Z_COUNTS``) and gene_f64_kernel<YT, NT, NK> (40:
-    ``fl.F64_GENE_TILE_COUNTS``), their packing kernels and
+    dpsi_f64_kernel<NK, NZ, LRW> (30: ``fl.F64_DPSI_K_COUNTS`` x
+    ``fl.F64_DPSI_Z_COUNTS``, and NK 8's grouped form) and
+    gene_f64_kernel<YT, NT, NK, GEN> (48: ``fl.F64_GENE_TILE_COUNTS``, and
+    NK 8's grouped form), their packing kernels and
     reduce_chunks_f64_kernel."""
     return {
         "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
@@ -519,19 +547,24 @@ def tc_kernels(fl):
         "fwd_wide_kernel": {f"<{t},{s}>" for t in fl.WIDE_TILE_COUNTS for s in (2, 4)},
         "fwd_wide_y_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_Y_TILE_COUNTS},
         "fwd_wide_pack_kernel": {"<>"},
-        "dpsi_wide_kernel": {f"<{k},{z}>" for k in fl.WIDE_DPSI_K_COUNTS
-                             for z in fl.WIDE_DPSI_Z_COUNTS},
+        "dpsi_wide_kernel": ({f"<{k},{z},0>" for k in fl.WIDE_DPSI_K_COUNTS
+                              for z in fl.WIDE_DPSI_Z_COUNTS}
+                             | {f"<8,{z},1>" for z in fl.WIDE_DPSI_Z_COUNTS}),
         "dpsi_wide_pack_kernel": {"<>"},
-        "gene_wide_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_TILE_COUNTS},
+        "gene_wide_kernel": {f"<{y},{t},{g}>" for y in range(4) for t in fl.WIDE_TILE_COUNTS
+                             for g in (0, 1)},
         "gene_wide_pack_kernel": {"<>"},
         "fwd_f64_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.F64_FWD_TILE_COUNTS},
         "fwd_f64_pack_kernel": {"<>"},
-        "dpsi_f64_kernel": {f"<{k},{z}>" for k in fl.F64_DPSI_K_COUNTS
-                            for z in fl.F64_DPSI_Z_COUNTS},
+        "dpsi_f64_kernel": ({f"<{k},{z},0>" for k in fl.F64_DPSI_K_COUNTS
+                             for z in fl.F64_DPSI_Z_COUNTS}
+                            | {f"<8,{z},1>" for z in fl.F64_DPSI_Z_COUNTS}),
         "dpsi_f64_pack_kernel": {"<>"},
         "gene_f64_pack_kernel": {"<>"},
-        "gene_f64_kernel": {f"<{y},{t},{k}>" for y in range(4)
-                            for k, counts in fl.F64_GENE_TILE_COUNTS.items() for t in counts},
+        "gene_f64_kernel": ({f"<{y},{t},{k},0>" for y in range(4)
+                             for k, counts in fl.F64_GENE_TILE_COUNTS.items() for t in counts}
+                            | {f"<{y},{t},8,1>" for y in range(4)
+                               for t in fl.F64_GENE_TILE_COUNTS[8]}),
         "reduce_chunks_f64_kernel": {"<>"},
     }
 
@@ -691,11 +724,11 @@ def snv_accuracy(fit, z_true) -> float:
 
 
 def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, label=None,
-             mc_samples=1, wide=False, dtype="float32"):
+             mc_samples=1, wide=False, dtype="float32", K=1):
     """One full-width exact fit through clonealign in ``dtype`` with Y
     stored as ``y_storage``, the covariates ``x`` (or none), the allele
     data ``allele`` (a dict of clone_allele, cov and ref, or none) and
-    ``mc_samples``, its kernel launches counted from zero (the wide
+    ``mc_samples`` (K latent factors), its kernel launches counted from zero (the wide
     family's with ``wide``, the float64 family's in float64, and none of
     another family); checks its ELBO trace, accuracy and launches (and
     beta's shape, or the SNV probabilities) and returns its numbers."""
@@ -705,7 +738,7 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
         fit = clonealign_torch.clonealign(
             Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
             likelihood_impl="xla", y_storage=y_storage, x=x, mc_samples=mc_samples,
-            dtype=dtype, **(allele or {}),
+            dtype=dtype, K=K, **(allele or {}),
         )
     wall = time.perf_counter() - t0
     launches = launches_of(fl, "float64" if dtype == "float64" else "wide" if wide else "narrow")
@@ -733,7 +766,7 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
     elif fit.clone_probs_from_snv is not None:
         raise AssertionError("a fit without allele data carries clone_probs_from_snv")
     log(f"fit {FULL['N']}x{FULL['G']}x{FULL['C']} {label or y_storage} y_storage={y_storage} "
-        f"dtype={dtype} K=1 P={P} mc_samples={mc_samples}: {wall:.2f} s wall, "
+        f"dtype={dtype} K={K} P={P} mc_samples={mc_samples}: {wall:.2f} s wall, "
         f"setup {tm['setup']:.2f} s (peak allocated {out['setup_peak_gb']:.3f} GB), "
         f"init {tm['init']:.2f} s, "
         f"inference {tm['inference']:.2f} s ({n_iters} iterations, "
@@ -1372,7 +1405,8 @@ def negbin_serve_reference(fit, Y, L):
 def negbin_phase(clonealign_torch, fl):
     """The v1 family on the card at benchmarks/negbin_scale.py's width
     (100,000 cells x 2,000 genes x 4 clones, Y float32, made on the card):
-    ``inference_em`` exact (m_steps 5) and Chebyshev (m_steps 30) in turns,
+    ``inference_em`` exact (m_steps 5) and Chebyshev (m_steps 30), one each
+    (a second turn of both would add ~60 s to the script's 1,000),
     NEGBIN_MAX_ITER iterations at rel_tol 1e-6; ``gibbs_pi_rho`` under the
     exact fit's rates; ``classify_cells`` of 100,000 fresh cells of the same
     genes, its log-posteriors on NEGBIN_SERVE_SLICE of them held to the CPU
@@ -1394,7 +1428,7 @@ def negbin_phase(clonealign_torch, fl):
         f"largest {float(Y.max()):.0f}): {time.perf_counter() - t0:.1f} s")
     bound_ms, bound_by = negbin_iteration_bound(N, G, C, 5)
     fits, out = {}, {"exact": [], "cheb": []}
-    for impl in ("exact", "cheb", "exact", "cheb"):
+    for impl in ("exact", "cheb"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -1835,13 +1869,14 @@ def parity_fit(clonealign_torch, fl):
 WIDE_RESOURCE_WIDTHS = ((64, 0, 80), (64, 64, 2048))
 
 
-def wide_resources(fl, storage, Kf, SC, n_a2=0):
+def wide_resources(fl, storage, Kf, SC, n_a2=0, min_blocks=2):
     """The wide forward's, dpsi's and gene part's instantiations at full
     width for these widths (Y in ``storage``) under ``fl.wide_plan``'s plan, as the
     library lays them out (``fl_wide_resources``): each kernel's registers
     and spill bytes (ptxas), dynamic shared memory and blocks an SM (the
-    occupancy query); raises unless each runs at least two blocks an SM,
-    spill-free."""
+    occupancy query); raises unless each runs at least ``min_blocks``
+    blocks an SM (two up to the old bound of Kf, S 64 and S*C 2,048; one
+    past it), spill-free."""
     import ctypes
 
     import torch
@@ -1860,15 +1895,17 @@ def wide_resources(fl, storage, Kf, SC, n_a2=0):
     for i, (part, kernel, args) in enumerate((
             ("fwd", "fwd_wide_kernel", f"<{plan['zt_group']},{out[8]}>"),
             ("fwd_y", "fwd_wide_y_kernel", f"<{code},{plan['ny_pad']}>"),
-            ("gene", "gene_wide_kernel", f"<{code},{plan['nj']}>"),
-            ("dpsi", "dpsi_wide_kernel", f"<{plan['dk_pad']},{plan['dz_group']}>"))):
+            ("gene", "gene_wide_kernel",
+             f"<{code},{plan['nj']},{int(plan['n_wgroups'] > 1 or plan['y_pass'] > 1)}>"),
+            ("dpsi", "dpsi_wide_kernel",
+             f"<{plan['dk_pad']},{plan['dz_group']},{int(plan['n_kgroups'] > 1)}>"))):
         regs, spill_st, spill_ld = kernel_resources(_build.build_log, kernel)[args]
         res[part] = {"instantiation": kernel + args, "registers": regs,
                      "spill_bytes": spill_st + spill_ld, "smem_bytes": out[2 * i],
                      "blocks_per_sm": out[2 * i + 1]}
         if part == "dpsi":
             res[part]["k_steps_a_stage"] = out[9]
-        if out[2 * i + 1] < 2 or spill_st or spill_ld:
+        if out[2 * i + 1] < min_blocks or spill_st or spill_ld:
             raise AssertionError(f"{kernel} at Y {storage}, Kf={Kf}, S={n_a2}, S*C={SC}: "
                                  f"{res[part]}")
     return res
@@ -1928,12 +1965,190 @@ def wide_stream(clonealign_torch, fl, Y, L, z, X, core):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Past the old bound: K + P > 64, mc_samples > 64, S*C > 2,048
+# ---------------------------------------------------------------------------
+
+# Kernel checks at shapes that cross each old bound alone, (shape, S, Kf):
+# Kf 72 (dpsi's and dW's column groups), S 66 (the Y products' column
+# groups, dlog mu's pass of its own) and S*C 2,178 (S 33 x C 66)
+PAST_CHECKS = ((dict(N=1_000, G=515, C=3), 2, 72), (dict(N=1_000, G=515, C=1), 66, 1),
+               (dict(N=2_100, G=200, C=66), 33, 1))
+# The full-width fit past the bound: K 2 and a one-hot of 70 batches over
+# the cells (Kf 72), mc_samples 66 (S*C 660 at FULL's 10 clones)
+PAST_K, PAST_BATCHES, PAST_S = 2, 70, 66
+# The float64 fit past every bound at once (Kf 72, S 66, S*C 2,178: C 33),
+# numpy counts, on the card against the CPU port from the same draws
+PAST_F64 = dict(N=600, G=200, C=33)
+PAST_F64_SEEDS = (19, 20, 21)  # counts, covariates, draws
+PAST_F64_KW = dict(K=PAST_K, mc_samples=PAST_S, max_iter=30, rel_tol=0.0, dtype="float64",
+                   verbose=False)
+
+
+def batch_covariates(N, n_batches, seed):
+    """A 0/1 one-hot of n_batches batches (a multi-sample atlas's samples)
+    over N cells, each cell's batch drawn with numpy."""
+    return np.eye(n_batches)[np.random.default_rng(seed).integers(0, n_batches, N)]
+
+
+def past_f64_data():
+    """PAST_F64's counts, copy numbers and covariates, made with numpy."""
+    from clonealign_torch.synth import simulate_multinomial
+
+    sim = simulate_multinomial(**PAST_F64, seed=PAST_F64_SEEDS[0], mean_total=2000)
+    return sim.Y, sim.L, batch_covariates(PAST_F64["N"], PAST_BATCHES, PAST_F64_SEEDS[1])
+
+
+def past_bound_checks(fl, auto_name):
+    """The wide family past the old bound, by CUDA events only: each kernel
+    against its plain version at every Y storage at PAST_CHECKS's shapes,
+    and at full width at the past-bound fit's widths (Kf 72, S*C 660, Y as
+    "auto" stores it; the backward's parts beside the plain VJP's terms),
+    timed beside its bound, with the plans' resources (at least one block
+    an SM; none spilled); and at full width at Kf 64, S*C 80, timed beside
+    its plain version in the same form. Returns the numbers for the kernels
+    line."""
+    log("past the old bound (Kf 64, S 64, S*C 2,048): wide kernels vs plain")
+    checks = []
+    for storage in STORAGES:
+        for shape, S, Kf in PAST_CHECKS:
+            r = check_kernels(shape, S=S, Kf=Kf, seed=35, reps=1, storage=storage,
+                              a2_timed=False)
+            checks.append({"shape": f"{shape['N']}x{shape['G']}", "y_storage": storage, "kf": Kf,
+                           "s": S, "sc": S * shape["C"], "errs": r["errs"]})
+    Kf, SC = PAST_K + PAST_BATCHES, PAST_S * FULL["C"]
+    full = check_kernels(FULL, S=PAST_S, Kf=Kf, seed=36, reps=2, storage=auto_name,
+                         a2_timed=False, vjp_parts=True, batch=3)
+    full["resources"] = wide_resources(fl, auto_name, Kf, SC, min_blocks=1)
+    b = full["bounds"]
+    log(f"past the old bound, full width, Y {auto_name}, Kf={Kf} S={PAST_S} S*C={SC}: "
+        + ", ".join(f"{part} {full[f'{part}_ms']:.3f} ms (plain {full[f'{part}_plain_ms']:.3f}, "
+                    f"bound {b[part][0]:.3f} by {b[part][2]}, "
+                    f"{b[part][0] / full[f'{part}_ms']:.3f} of it)"
+                    for part in ("fwd", "dpsi", "gene")))
+    for n_a2 in (0, PAST_S):
+        for part, q in wide_resources(fl, auto_name, Kf, SC, n_a2, min_blocks=1).items():
+            log(f"  A2 columns {n_a2}: {q['instantiation']}: {q['registers']} registers, "
+                f"{q['spill_bytes']} B spilled, {q['smem_bytes']} B shared memory, "
+                f"{q['blocks_per_sm']} blocks an SM")
+    # the widest [psi, X] up to the old bound (Kf 64, S*C 80), its plain
+    # parts timed in the VJP's form as above
+    kf64 = check_kernels(FULL, S=WIDE_S, Kf=64, seed=37, reps=1, storage=auto_name,
+                         a2_timed=False, vjp_parts=True)
+    log(f"wide, full width, Y {auto_name}, Kf=64 S*C={WIDE_S * FULL['C']}: "
+        + ", ".join(f"{part} {kf64[f'{part}_ms']:.3f} ms (plain {kf64[f'{part}_plain_ms']:.3f}, "
+                    f"bound {kf64['bounds'][part][0]:.3f} by {kf64['bounds'][part][2]})"
+                    for part in ("fwd", "dpsi", "gene")))
+    return {"checks": checks, "full": full, "kf64": kf64}
+
+
+def past_bound_fit(clonealign_torch, fl, Y, L, z):
+    """The full-width fit past the old bound through clonealign: K = 2,
+    P = 70 (a one-hot of 70 batches, numpy seed 7), mc_samples = 66,
+    y_storage "auto", FIT_MAX_ITER iterations; full_fit's checks (rising
+    trace, accuracy, every launch a wide one)."""
+    X = batch_covariates(FULL["N"], PAST_BATCHES, seed=7)
+    return full_fit(clonealign_torch, fl, Y, L, z, "auto", x=X, mc_samples=PAST_S, wide=True,
+                    K=PAST_K, label=f"past the old bound: auto K={PAST_K} P={PAST_BATCHES} "
+                                    f"(one-hot batches) mc_samples={PAST_S}")
+
+
+def past_bound_f64(clonealign_torch, fl, cpu):
+    """The float64 fit past every old bound (PAST_F64, PAST_F64_KW:
+    Kf 72, S 66, S*C 2,178) on the card against the CPU port's
+    (:func:`cpu_references_f64`), from the same numpy draws with the PCA's
+    sign fixed: the same iterations and labels, the final ELBO within 1e-8
+    of the CPU's relative, every launch a float64 one. Returns its
+    launches and numbers."""
+    Y, L, X = past_f64_data()
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    with signed_pca():
+        card = clonealign_torch.clonealign(Y, L, x=X, device="cuda",
+                                           noise=NumpyNoise(PAST_F64_SEEDS[2]), **PAST_F64_KW)
+    card_s = time.perf_counter() - t0
+    launches = launches_of(fl, "float64")
+    ref = cpu() if callable(cpu) else cpu
+    ci, n = card.convergence_info, card.convergence_info.n_iters
+    e_cpu = float(ref["past_elbo"])
+    rel = abs(ci.final_elbo - e_cpu) / abs(e_cpu)
+    same = list(card.clone) == ref["past_clone"].tolist()
+    log(f"float64 fit past the old bound {PAST_F64['N']}x{PAST_F64['G']}x{PAST_F64['C']} "
+        f"K={PAST_K} P={PAST_BATCHES} mc_samples={PAST_S} (Kf {PAST_K + PAST_BATCHES}, S*C "
+        f"{PAST_S * PAST_F64['C']}): card {card_s:.1f} s, CPU {float(ref['past_s']):.1f} s, {n} "
+        f"iterations; final ELBO {ci.final_elbo:.12g} against the CPU's {e_cpu:.12g} "
+        f"({rel:.3e} relative, bar 1e-8), labels {'identical' if same else 'DIFFER'}; launches "
+        f"(float64) {launches}")
+    check_trace(ci.elbo)
+    want = {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n}
+    if not (same and rel <= 1e-8 and n == int(ref["past_n"])) or launches != want:
+        raise AssertionError(f"the float64 fit past the old bound differs from the CPU's or "
+                             f"launched {launches} (expected {want})")
+    return {"launches": launches, "elbo_rel": rel, "card_s": card_s}
+
+
+# The torch examples on the card and the files each writes (the plots only
+# where matplotlib is installed)
+EXAMPLES = {"quickstart_torch.py": ("quickstart_torch_fit.npz", "quickstart_torch_elbo.png",
+                                    "quickstart_torch_tracks.png"),
+            "full_workflow_torch.py": ("full_workflow_torch_fit.npz",)}
+
+
+def examples_on_card():
+    """Run examples/quickstart_torch.py and examples/full_workflow_torch.py
+    at their default sizes on the card (``--device`` "cuda", the default),
+    both at once, each in its own process in a temporary directory: each
+    exits 0, writes its files there (its plots where matplotlib is
+    installed), reports its accuracies at MIN_ACCURACY or more (and 200
+    cells served), and has imported neither jax nor clonealign_tpu.
+    Returns each one's seconds."""
+    import importlib.util
+
+    plots = importlib.util.find_spec("matplotlib") is not None
+    code = ("import runpy, sys; path, out = sys.argv[1:]; sys.argv = [path, '--out', out]; "
+            "runpy.run_path(path, run_name='__main__'); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'clonealign_tpu')); "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               MPLBACKEND="Agg")
+    seconds = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-c", code, str(REPO / "examples" / name), str(Path(d) / name)],
+            cwd=d, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for name in EXAMPLES}
+        try:
+            outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for name, (stdout, stderr) in outs.items():
+            seconds[name] = time.perf_counter() - t0
+            accs = [float(a) for a in re.findall(r"accuracy(?: vs ground truth:)? (\d\.\d+)",
+                                                   stdout)]
+            files = [f for f in EXAMPLES[name] if not (Path(d) / name / f).exists()
+                     and (plots or not f.endswith(".png"))]
+            log(f"example {name} on the card: rc {procs[name].returncode}, accuracies {accs}, "
+                f"missing files {files}; last lines: "
+                + " | ".join(stdout.strip().splitlines()[-3:]))
+            served = name != "full_workflow_torch.py" or "served 200 new cells" in stdout
+            if procs[name].returncode or not accs or min(accs) < MIN_ACCURACY or files \
+                    or not served:
+                raise AssertionError(f"example {name} failed on the card:\n{stdout[-2000:]}\n"
+                                     f"{stderr[-3000:]}")
+    return seconds
+
+
 def wide_kernel_checks(fl, auto_name):
     """The wide kernel family's checks, timed by CUDA events only: each
     kernel against its plain version at every Y storage at WIDE_CHECKS's
     shapes and at a streaming chunk shape (Y the leading rows of the
     feeder's buffer), timed at full width for WIDE_FULL beside its bound,
-    with each plan's resources. ``auto_name`` names the Y storage "auto"
+    with each plan's resources, and past the old bound
+    (:func:`past_bound_checks`). ``auto_name`` names the Y storage "auto"
     resolves to for the full-width counts. Returns the numbers for
     :func:`wide_phase`."""
     from clonealign_torch import stream
@@ -1975,7 +2190,8 @@ def wide_kernel_checks(fl, auto_name):
                     f"{q['instantiation']}: {q['registers']} registers, {q['spill_bytes']} B "
                     f"spilled, {q['smem_bytes']} B shared memory, {q['blocks_per_sm']} blocks "
                     f"an SM")
-    return {"full": full, "chunk": chunk, "chunk_rows": (sizes[0], sizes[-1])}
+    return {"full": full, "chunk": chunk, "chunk_rows": (sizes[0], sizes[-1]),
+            "past": past_bound_checks(fl, auto_name)}
 
 
 def wide_phase(clonealign_torch, fl, y_itemsize, checks):
@@ -1983,8 +2199,9 @@ def wide_phase(clonealign_torch, fl, y_itemsize, checks):
     ``checks`` (:func:`wide_kernel_checks`): the full-width fit with K = 1,
     P = 4 and mc_samples = 8 through clonealign (y_storage "auto"), the
     same fit streamed (:func:`wide_stream`), the sweep of three restarts as
-    lanes at the same configuration and the parity fit, each of whose
-    launches must all be wide. ``y_itemsize`` is the Y storage's "auto"
+    lanes at the same configuration, the parity fit and the fit past the
+    old bound (:func:`past_bound_fit`), each of whose launches must all be
+    wide. ``y_itemsize`` is the Y storage's "auto"
     resolves to for the full-width counts. Returns the numbers for the
     kernels line."""
     t_phase = time.perf_counter()
@@ -1997,10 +2214,11 @@ def wide_phase(clonealign_torch, fl, y_itemsize, checks):
                       x=X, lanes=WIDE_LANES, mc_samples=WIDE_S, wide=True)
     if sweep["ran"] != "vmap":
         raise AssertionError("the wide sweep did not run as lanes")
+    past_fit = past_bound_fit(clonealign_torch, fl, Y, L, z)
     del Y
     parity = parity_fit(clonealign_torch, fl)
     log(f"wide phase: {time.perf_counter() - t_phase:.1f} s after its kernel checks")
-    return dict(checks, fit=fit, stream=streamed, sweep=sweep, parity=parity)
+    return dict(checks, fit=fit, stream=streamed, sweep=sweep, parity=parity, past_fit=past_fit)
 
 
 def wide_kernels(wide, auto_name):
@@ -2048,6 +2266,27 @@ def wide_kernels(wide, auto_name):
                              "buffer_rows": wide["chunk_rows"][1],
                              "max_abs_err": max(wide["chunk"]["errs"][e] for e in err)},
             "paths": [{"path": p, "launches": n[part]} for p, n in paths],
+        })
+    past, Kf, SC = wide["past"]["full"], PAST_K + PAST_BATCHES, PAST_S * FULL["C"]
+    for name, part, at, err in (
+            ("fwd_wide_kernel", "fwd", fwd_at, ("A1", "Z", "YW")),
+            ("dpsi_wide_pack_kernel+dpsi_wide_kernel", "dpsi", bwd_at, ("dpsi",)),
+            ("gene_wide_kernel+reduce_chunks_kernel", "gene", bwd_at, ("dW", "dmuL"))):
+        b = past["bounds"][part]
+        out.append({
+            "name": f"{name} past the old bound (Kf {Kf}, S {PAST_S}, S*C {SC})", "route": "cuda",
+            "source": src, "replaces": at, "launches": wide["past_fit"]["launches"][part],
+            "max_abs_err": max(past["errs"][e] for e in err),
+            "ms": past[f"{part}_ms"], "plain_ms": past[f"{part}_plain_ms"],
+            "bound_ms": b[0], "bound_by": b[1], "bound_unit": b[2], "library_ms": None,
+            "bound_fraction": b[0] / past[f"{part}_ms"], **past["resources"].get(part, {}),
+            "y_storage": auto_name, "kf": Kf, "s": PAST_S, "sc": SC,
+            "checks": [{k: v for k, v in c.items() if k != "errs"}
+                       | {"max_abs_err": max(c["errs"][e] for e in err)}
+                       for c in wide["past"]["checks"]],
+            "paths": [{"path": f"fit past the old bound K={PAST_K} P={PAST_BATCHES} "
+                               f"mc_samples={PAST_S} y_storage=auto",
+                       "launches": wide["past_fit"]["launches"][part]}],
         })
     return out
 
@@ -2207,15 +2446,18 @@ def kernel_bounds_f64(N, G, Kf, SC, y_itemsize, exp_ops):
     return {"fwd": fwd, "dpsi": dpsi, "gene": gene}
 
 
-def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None):
+def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None, vjp_parts=False,
+                      batch=10):
     """The float64 family against the plain float64 versions on the card at
     one shape, Y stored as ``storage``, A2 on and off: every element within
     F64_RTOL of its absolute-term sum, and each kernel bit-identical across
     two launches. With ``reps``, the A2-off calls (the training step's
     form) timed beside their plain versions (reference_likelihood_terms,
     reference_dpsi, reference_gene) and their bounds (exp_ops FP64
-    instructions an exp). Returns the errors (each output's under
-    ``errs``) and the times."""
+    instructions an exp); with ``vjp_parts``, dpsi's and the gene part's
+    beside the plain VJP's terms (as :func:`check_kernels`'); ``batch``
+    kernel calls between a timing's two CUDA events. Returns the errors
+    (each output's under ``errs``) and the times."""
     import torch
 
     from clonealign_torch.ops import fused_likelihood as fl
@@ -2262,13 +2504,17 @@ def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None):
         del fwd, bwd, want, fwd_scale, bwd_scale
         if reps and not with_a2:
             result.update({
-                "fwd_ms": cuda_ms(lambda: fl.kernel_forward(*args_f), reps),
-                "dpsi_ms": cuda_ms(lambda: fl.kernel_dpsi(psi, W, muL, dA1, dZ, YW), reps),
-                "gene_ms": cuda_ms(lambda: fl.kernel_gene(*args_b), reps),
+                "fwd_ms": cuda_ms(lambda: fl.kernel_forward(*args_f), reps, batch),
+                "dpsi_ms": cuda_ms(lambda: fl.kernel_dpsi(psi, W, muL, dA1, dZ, YW), reps,
+                                   batch),
+                "gene_ms": cuda_ms(lambda: fl.kernel_gene(*args_b), reps, batch),
                 "fwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_terms(*args_f), reps, 2),
-                "dpsi_plain_ms": cuda_ms(lambda: fl.reference_dpsi(YW, psi, W, muL, dA1, dZ),
-                                         reps, 2),
-                "gene_plain_ms": cuda_ms(lambda: fl.reference_gene(*args_b), reps, 2),
+                "dpsi_plain_ms": cuda_ms(
+                    (lambda: (Y.double() * dA1[:, None] + torch.exp(psi @ W.T) * (dZ @ muL.T)) @ W)
+                    if vjp_parts else (lambda: fl.reference_dpsi(YW, psi, W, muL, dA1, dZ)),
+                    reps, 2),
+                "gene_plain_ms": cuda_ms(lambda: (fl.reference_likelihood_vjp if vjp_parts
+                                                  else fl.reference_gene)(*args_b), reps, 2),
                 "bounds": kernel_bounds_f64(shape["N"], shape["G"], Kf, S * shape["C"],
                                             Y.element_size(), exp_ops)})
     del x, Y, Yf, YW
@@ -2383,8 +2629,8 @@ def cpu_references_f64(out):
     """The CPU port's float64 fits that float64_phase holds the card's to,
     written to the .npz ``out``: the golden example and synth fits
     (F64_GOLDEN_KW, NumpyNoise draws, the PCA's sign fixed by
-    :func:`signed_pca`) and the v1 family's exact and Chebyshev fits at
-    F64_V1's width. The script runs it in a child process
+    :func:`signed_pca`), the fit past the old bound (PAST_F64) and the v1
+    family's exact and Chebyshev fits at F64_V1's width. The script runs it in a child process
     (:func:`start_cpu_references_f64`) beside its first kernel checks."""
     import torch
 
@@ -2402,6 +2648,13 @@ def cpu_references_f64(out):
                     f"{name}_elbo": fit.convergence_info.final_elbo,
                     f"{name}_n": fit.convergence_info.n_iters,
                     f"{name}_s": time.perf_counter() - t0})
+    Y, L, X = past_f64_data()
+    t0 = time.perf_counter()
+    with signed_pca():
+        fit = clonealign_torch.clonealign(Y, L, x=X, device="cpu",
+                                          noise=NumpyNoise(PAST_F64_SEEDS[2]), **PAST_F64_KW)
+    res.update({"past_clone": np.asarray(fit.clone), "past_elbo": fit.convergence_info.final_elbo,
+                "past_n": fit.convergence_info.n_iters, "past_s": time.perf_counter() - t0})
     sim = simulate_model3(**F64_V1, seed=17)
     for impl in ("exact", "cheb"):
         t0 = time.perf_counter()
@@ -2535,7 +2788,8 @@ def float64_phase(clonealign_torch, fl, y_itemsize, cpu, kernels):
     full-width float64 fit under "auto" and with float64 Y, the z_cheb
     fit, the three-lane sweep as "vmap" and "map" (equal) and the streamed
     fit (equal to the in-core one), timed by host clocks, and the golden
-    example and synth fits and the v1 family against the CPU's ``cpu``
+    example and synth fits, the v1 family and the fit past the old bound
+    (:func:`past_bound_f64`) against the CPU's ``cpu``
     (:func:`cpu_references_f64`'s results); ``kernels`` are
     :func:`float64_kernels`' checks, which ran beside the CPU's fits. Every
     launch of these paths is a float64 one. ``y_itemsize`` is the storage's
@@ -2545,6 +2799,7 @@ def float64_phase(clonealign_torch, fl, y_itemsize, cpu, kernels):
     out.update(kernels)
     out["golden"] = golden_f64(clonealign_torch, fl, cpu)
     out["v1"] = negbin_f64(clonealign_torch, fl, cpu)
+    out["past_fit"] = past_bound_f64(clonealign_torch, fl, cpu)
     log(f"float64 phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -2630,7 +2885,23 @@ def float64_kernels(fl):
             f"CUDA-core form took {F64_CUDA_CORE_DPSI_MS[(st, Kf, S)]} ms")
     bound_res = f64_resources(fl, "float64", 64, 64, 2048, FULL["N"], FULL["G"])
     log(f"float64, full width, every bound (Kf 64, S 64, S*C 2048): {bound_res}")
-    return {"exp_ops": exp_ops, "full": full, "bound_resources": bound_res}
+    log("float64 kernels past the old bound (Kf 64, S 64, S*C 2,048) vs plain")
+    past = [{"shape": f"{shape['N']}x{shape['G']}", "y_storage": st, "kf": Kf, "s": S,
+             "sc": S * shape["C"],
+             "errs": check_kernels_f64(shape, S, Kf, seed=57, storage=st)["errs"]}
+            for st in F64_STORAGES for shape, S, Kf in PAST_CHECKS]
+    Kf, SC = PAST_K + PAST_BATCHES, PAST_S * FULL["C"]
+    past_full = check_kernels_f64(FULL, PAST_S, Kf, seed=58, storage="int8", reps=1,
+                                  exp_ops=exp_ops, vjp_parts=True, batch=2)
+    past_full["resources"] = f64_resources(fl, "int8", Kf, 0, SC, FULL["N"], FULL["G"])
+    log(f"float64, full width, past the old bound, Y int8, Kf={Kf} S={PAST_S} S*C={SC}: "
+        + ", ".join(f"{part} {past_full[f'{part}_ms']:.3f} ms (plain "
+                    f"{past_full[f'{part}_plain_ms']:.3f}, bound {past_full['bounds'][part][0]:.3f} "
+                    f"by {past_full['bounds'][part][2]}; {past_full['resources'][part]})"
+                    for part in ("fwd", "dpsi", "gene"))
+        + f"; with A2: {f64_resources(fl, 'int8', Kf, PAST_S, SC, FULL['N'], FULL['G'])}")
+    return {"exp_ops": exp_ops, "full": full, "bound_resources": bound_res, "past": past,
+            "past_full": past_full}
 
 
 def f64_kernels(f64, auto_name):
@@ -2654,7 +2925,9 @@ def f64_kernels(f64, auto_name):
              (f"float64 streaming fit, {f64['stream']['n_chunks']} chunks, fresh",
               f64["stream"]["launches"]),
              ("golden example float64", f64["golden"]["example"]["launches"]),
-             ("golden synth float64", f64["golden"]["synth"]["launches"]))
+             ("golden synth float64", f64["golden"]["synth"]["launches"]),
+             (f"float64 fit past the old bound {PAST_F64['N']}x{PAST_F64['G']}x{PAST_F64['C']} "
+              f"K={PAST_K} P={PAST_BATCHES} mc_samples={PAST_S}", f64["past_fit"]["launches"]))
     out = []
     for name, part, at, err in (
             ("fwd_f64_kernel", "fwd", fwd_at, ("A1", "Z", "YW")),
@@ -2677,7 +2950,29 @@ def f64_kernels(f64, auto_name):
                            **r["resources"][part],
                            "max_abs_err": max(r["errs"][e] for e in err)}
                           for (s, Kf, S), r in f64["full"].items()],
+            "past_bound_checks": [{k: v for k, v in c.items() if k != "errs"}
+                                  | {"max_abs_err": max(c["errs"][e] for e in err)}
+                                  for c in f64["past"]],
             "paths": [{"path": p, "launches": n[part]} for p, n in paths],
+        })
+    past, Kf, SC = f64["past_full"], PAST_K + PAST_BATCHES, PAST_S * FULL["C"]
+    for name, part, at, err in (
+            ("fwd_f64_kernel", "fwd", fwd_at, ("A1", "Z", "YW")),
+            ("dpsi_f64_kernel", "dpsi", bwd_at, ("dpsi",)),
+            ("gene_f64_kernel+reduce_chunks_f64_kernel", "gene", bwd_at, ("dW", "dmuL"))):
+        b = past["bounds"][part]
+        out.append({
+            "name": f"{name} past the old bound (Kf {Kf}, S {PAST_S}, S*C {SC})", "route": "cuda",
+            "source": src, "replaces": at, "launches": f64["past_fit"]["launches"][part],
+            "max_abs_err": max(past["errs"][e] for e in err),
+            "ms": past[f"{part}_ms"], "plain_ms": past[f"{part}_plain_ms"],
+            "bound_ms": b[0], "bound_by": b[1], "bound_unit": b[2], "library_ms": None,
+            "bound_fraction": b[0] / past[f"{part}_ms"], **past["resources"][part],
+            "y_storage": "int8", "kf": Kf, "s": PAST_S, "sc": SC,
+            "paths": [{"path": f"float64 fit past the old bound "
+                               f"{PAST_F64['N']}x{PAST_F64['G']}x{PAST_F64['C']} K={PAST_K} "
+                               f"P={PAST_BATCHES} mc_samples={PAST_S}",
+                       "launches": f64["past_fit"]["launches"][part]}],
         })
     return out
 
@@ -3394,6 +3689,10 @@ def main() -> int:
     # fits, sweep, streamed fit, golden fits and v1 family against the CPU
     f64 = float64_phase(clonealign_torch, fl, y_itemsize, cpu_f64, f64_checks)
     steps.done("12 float64")
+
+    # 13. the torch examples on the card, both at once
+    examples_on_card()
+    steps.done("13 examples")
 
     # The backward's parts alone at full width, A2 off, Y stored as "auto"
     # resolves on the main path.

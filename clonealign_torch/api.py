@@ -4,14 +4,15 @@ counterpart of ``clonealign_tpu/api.py``.
 Parameter names and defaults match the JAX package, plus ``device``
 ("cuda" by default, or "cpu"; there is no fallback from one to the other)
 and an injectable ``noise`` source. This port covers a dense or scipy
-sparse count matrix, with or without covariates ``x`` (on CUDA K + P <= 4)
-and allele data (``clone_allele``, ``cov``, ``ref``: the beta-binomial SNV
-term, with the intended ``alt = cov - ref``), the exact likelihood (on CUDA
-through the hand-written kernels) or the Chebyshev normalizer
+sparse count matrix, with or without covariates ``x`` and allele data
+(``clone_allele``, ``cov``, ``ref``: the beta-binomial SNV term, with the
+intended ``alt = cov - ref``), the exact likelihood (on CUDA through the
+hand-written kernels, at any K + P, mc_samples and clone count whose
+kernels' shared memory fits the card: ``ops/fused_likelihood.wide_plan``
+and ``f64_plan`` raise past it) or the Chebyshev normalizer
 (``likelihood_impl="z_cheb"``, K = 1 without covariates), Y stored as
 ``y_storage`` says (the compute dtype, int16, int8 or bfloat16; "auto"
-picks the narrowest exact integer type). Every other option raises
-NotImplementedError naming its ROADMAP item; none falls back silently.
+picks the narrowest exact integer type). Nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -29,20 +30,12 @@ from .fit import ClonealignFit, ConvergenceInfo
 from .infer import run_inference
 from .models import multinomial as mm
 from .models.allele import construct_ai_likelihood, sanitize_allele_info, snv_clone_probs
-from .ops.fused_likelihood import WIDE_MAX_A2, WIDE_MAX_KF, WIDE_MAX_SC
 from .parallel.collectives import (Cells, Genes, agree, all_max, all_min, all_sum, block_of,
                                    gather_cols, gather_rows, gene_block, world_max)
 from .utils.chunking import host_row_chunk as _host_row_chunk
 from .utils.device import resolve_device, resolve_dtype, synchronize
 from .utils.noise import Noise
 from .utils.sparsity import is_scipy_sparse as _is_scipy_sparse
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to clonealign_torch yet (ROADMAP.md, "
-        f"still to port: {item})"
-    )
 
 
 def saturate(x, threshold=4):
@@ -305,25 +298,6 @@ def _check_reference_keywords(key, loop_impl) -> None:
         raise ValueError(f"loop_impl must be 'while' or 'scan', got {loop_impl!r}")
 
 
-def _check_kernel_contract(device: torch.device, K: int, mc_samples: int, C: int,
-                           P: int = 0) -> None:
-    """On CUDA the likelihood kernels (past the narrow ones' limits, the wide
-    family) take at most WIDE_MAX_KF columns of ``[psi, X]`` (K latent
-    factors and P covariates), WIDE_MAX_A2 Monte Carlo samples and
-    WIDE_MAX_SC sample x clone columns; refuse wider fits before any data
-    reaches the card. z_cheb fits are held to the same limits: their final
-    ELBO runs the exact kernels."""
-    if device.type != "cuda":
-        return
-    if K + P > WIDE_MAX_KF or mc_samples > WIDE_MAX_A2 or mc_samples * C > WIDE_MAX_SC:
-        raise _not_ported(
-            f"a fit on CUDA with K={K}, P={P} covariates, mc_samples={mc_samples} and "
-            f"{C} clones (the kernels take K + P <= {WIDE_MAX_KF}, mc_samples <= "
-            f"{WIDE_MAX_A2} and mc_samples x clones <= {WIDE_MAX_SC})",
-            "wide kernel contract",
-        )
-
-
 def _parse_covariates(x, N: int):
     """``x`` as the reference reads it (reference api.py:334-342): float64 on
     the host, a 1-D array as one column, N rows or a ValueError; None stays
@@ -374,11 +348,10 @@ def _check_options(P, y_storage, likelihood_impl, K, mc_samples, fix_alpha):
 
 
 def _parse_inputs(gene_expression_data, copy_number_data, x, K, mc_samples, fix_alpha,
-                  y_storage, likelihood_impl, device, verbose):
+                  y_storage, likelihood_impl, verbose):
     """The host side of setup that every fit shares (``setup_fit`` and
     ``stream.fit_streaming``): the counts (:func:`_parse_expression`), the
-    covariates, the option checks, the copy numbers and, on CUDA, the
-    kernels' contract. Returns ``(Y, gene_names, L, clone_names, x, P)``."""
+    covariates, the option checks and the copy numbers. Returns ``(Y, gene_names, L, clone_names, x, P)``."""
     Y, gene_names, _cell_names = _parse_expression(gene_expression_data)
     x = _parse_covariates(x, Y.shape[0])
     P = 0 if x is None else x.shape[1]
@@ -386,7 +359,6 @@ def _parse_inputs(gene_expression_data, copy_number_data, x, K, mc_samples, fix_
     if verbose:
         print("Constructing model")  # reference R/inference-tflow.R:102-104
     L, clone_names = _parse_copy_number(copy_number_data, Y.shape[1])
-    _check_kernel_contract(device, K, int(mc_samples), L.shape[1], P)
     return Y, gene_names, L, clone_names, x, P
 
 
@@ -515,7 +487,7 @@ def setup_fit(
     K = 1 if K is None else int(K)  # reference R/clonealign.R:226-232
     Y, gene_names, L, clone_names, x, P = _parse_inputs(
         gene_expression_data, copy_number_data, x, K, mc_samples, fix_alpha, y_storage,
-        likelihood_impl, dev, verbose)
+        likelihood_impl, verbose)
     cells = block_of(mesh, Y.shape[0])
     if cells is not None:
         Y = Y[cells.start : cells.stop]

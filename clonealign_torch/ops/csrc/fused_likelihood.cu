@@ -126,8 +126,17 @@
 // _bwd_kernel, clonealign_tpu/ops/fused_likelihood.py:91, :102, :105, :182,
 // :187, :201-202, :211, :213): the kernels above are built for Kf <= 4,
 // nA2 <= 4 and SC <= 32; fwd_wide_kernel, dpsi_wide_kernel and
-// gene_wide_kernel take any Kf <= 64, nA2 <= 64 and SC <= 2048 with the
-// same contract, and the wrapper launches them only past a narrow limit.
+// gene_wide_kernel take any Kf, nA2 and SC with the same contract (as far
+// as the plan's shared memory fits a block: wide_plan raises past it), and
+// the wrapper launches them only past a narrow limit. Widths past a warp's
+// accumulator tiles go in column groups or passes, each recomputing what
+// it needs (the exps, a read of Y): Z's column groups (grid.y of
+// fwd_wide_kernel), the Y products' (grid.y of fwd_wide_y_kernel; A1's
+// partial sums then added by reduce_chunks_kernel), dpsi's output columns
+// past 64 (grid.y of dpsi_wide_kernel, each group forming log_rfe from
+// every column of [psi, X]), dW's columns past 64 (a launch of
+// gene_wide_kernel each, the first alone writing d(muL) and dlog mu) and
+// dlog mu's passes of its own past the tiles left beside dW's.
 // The contract is unnormalized attention: Q = psi (head width Kf), K = W,
 // V = muL (value width SC), P = exp(Q K^T) with no running max. Each
 // launch follows one plan (WidePlan), which ops/fused_likelihood.py's
@@ -168,9 +177,9 @@
 //    most 0.34 ms at Kf 5, and at Kf 64 would itself take at least 1 ms
 //    (3.2e10 FMAs at the float32 rate): one path, by MMA, at every Kf.
 //  * fwd_wide_y_kernel, launched beside it: Y W, A2 (one MMA with B =
-//    [W | log mu^T]) and A1 = sum_k psi_k (Y W)_k from the one read of Y,
-//    each warp staging its 16 rows in the storage type through the same
-//    kind of ring. Y is an exact float split into hi and lo, so a narrow Y
+//    [W | log mu^T]) and A1 = sum_k psi_k (Y W)_k from one read of Y (a
+//    read a column group past 16 tiles), each warp staging its 16 rows in
+//    the storage type through the same kind of ring. Y is an exact float split into hi and lo, so a narrow Y
 //    gives the float32 Y's results bit for bit.
 //  * dpsi_wide_kernel (Y-free; FlashAttention-2's dQ pass, cells as M):
 //    dpsi = dA1 YW + (rfe drfe) W with drfe = dZ muL^T. Each warp owns 16
@@ -286,6 +295,14 @@ struct GeneArgs {
 // gene part's partial sums and packed cell side; dpsi_wide_kernel's tiles
 // of [psi, X] (dk_pad) and of a dZ column group (n_dgroups of dz_group),
 // its k-steps a stage (dsteps) and its gene table (dtable floats).
+//
+// Past the widths one block's tiles hold: the Y products' column groups
+// (n_ygroups of ny_pad tiles) and A1's partial sums (a1_parts rows of N
+// floats, a1part floats after the table; none where one warp holds every
+// column of Y W); dpsi's groups of output columns (n_kgroups of dk_pad
+// tiles, each forming log_rfe over dk_lr tiles); dW's column groups
+// (n_wgroups of n_kw tiles); y_pass counts the passes dlog mu takes of its
+// own (0: it rides the first pass).
 struct WidePlan {
   int n_kc, n_zt, n_yt, n_st;
   int g_pad, zt_group, n_zgroups, ny_pad;
@@ -293,6 +310,9 @@ struct WidePlan {
   size_t table, part, dz, ps, a2, a1;
   int dk_pad, dz_group, n_dgroups, dsteps;
   size_t dtable;
+  int n_ygroups, a1_parts;
+  size_t a1part;
+  int n_kgroups, dk_lr, n_kw, n_wgroups;
 };
 
 struct FwdWideArgs {
@@ -300,6 +320,7 @@ struct FwdWideArgs {
   const float* psi;
   const float4* table;  // written by fwd_wide_pack_kernel
   float *A1, *A2, *Z, *YW;
+  float* a1part;  // A1's partial sums (plan.a1_parts rows of N floats)
   int N, G, Kf, nA2, SC;
   WidePlan plan;
   cudaStream_t stream;
@@ -327,7 +348,7 @@ template <int YT> void forward_typed(const FwdArgs& a);
 template <int YT> void gene_typed(const GeneArgs& a);
 template <int YT> void forward_wide_typed(const FwdWideArgs& a);
 template <int YT> void gene_wide_typed(const GeneWideArgs& a);
-template <int YT> int wide_blocks_per_sm(int which, int nt, int smem);
+template <int YT> int wide_blocks_per_sm(int which, int nt, int smem, bool general);
 
 }  // namespace fl
 
@@ -352,8 +373,7 @@ constexpr int kCellsPerWarp = kCellTile / kGeneWarps;  // Y rows a warp streams 
 // where ptxas spilled at 128 registers, the bound that keeps two blocks on
 // an SM (KF = 2 at NT = 4, KF = 3 and 4 at NT = 3).
 constexpr int max_live_nt(int KF) { return KF == 1 ? 4 : KF == 2 ? 3 : 2; }
-// The wide family: its bounds (ops/fused_likelihood.py's WIDE_MAX_*) and tiles.
-constexpr int kWideMaxKf = 64, kWideMaxA2 = 64, kWideMaxSC = 2048;
+// The wide family's tiles.
 constexpr int kWideTiles = 16;  // accumulator tiles of 8 columns a warp holds at most
 // Tile counts the wide kernels are built for (a group's or pass's tiles
 // are padded up to one): Z tiles a forward group and d(muL) tiles a gene
@@ -372,6 +392,7 @@ constexpr int kGeneWideCells = 16;                  // cells a gene-part stage (
 constexpr int kDpsiKCounts[] = {1, 2, 4, 8};
 constexpr int kDpsiZCounts[] = {1, 2, 4, 6, 8, 10};
 constexpr int kDpsiWarps = 4;  // dpsi_wide_kernel blocks: 4 warps x 16 cells
+constexpr int kDpsiGroupedK = 8;  // output tiles a group, past 8 tiles of [psi, X]
 
 // ---------------------------------------------------------------------------
 // Tensor-core pieces shared by the forward and dpsi kernels. One warp per 16
@@ -1287,7 +1308,7 @@ __device__ __forceinline__ void stage_y_piece(typename YStore<YT>::Elem* dst,
 
 #if FL_COMMON
 // The forward's gene-side table, once a call: for each k-step of 8 genes
-// (g_pad / 8 of them), n_kc + n_zgroups zt_group + ny_pad B fragments (hi0,
+// (g_pad / 8 of them), n_kc + n_zgroups zt_group + n_ygroups ny_pad B fragments (hi0,
 // hi1, lo0, lo1) of 32 lanes: W^T for log_rfe (k = columns of [psi, X],
 // genes in order as B's columns), then muL's Z tiles and [W | log mu^T]'s
 // tiles with the genes of the k-step in C-to-A order (B's row c is gene
@@ -1295,7 +1316,7 @@ __device__ __forceinline__ void stage_y_piece(typename YStore<YT>::Elem* dst,
 __global__ void fwd_wide_pack_kernel(const float* __restrict__ W, const float* __restrict__ logmu,
                                      const float* __restrict__ muL, float4* __restrict__ table,
                                      int G, int Kf, int nA2, int SC, WidePlan p) {
-  const int n_z = p.n_zgroups * p.zt_group, n_tab = p.n_kc + n_z + p.ny_pad;
+  const int n_z = p.n_zgroups * p.zt_group, n_tab = p.n_kc + n_z + p.n_ygroups * p.ny_pad;
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= (long long)(p.g_pad / 8) * n_tab * kWarp) return;
   const int l = (int)(i % kWarp), r = (int)((i / kWarp) % n_tab), ks = (int)(i / kWarp / n_tab);
@@ -1352,7 +1373,7 @@ fwd_wide_kernel(const float* __restrict__ psi, const float4* __restrict__ table,
   const int n0 = row0 + fr, n1 = n0 + 8;
   const int z0 = blockIdx.y * NZ;
   const int RW = p.n_kc + NZ;  // table tiles a k-step of a stage
-  const int n_tab = p.n_kc + p.n_zgroups * NZ + p.ny_pad;
+  const int n_tab = p.n_kc + p.n_zgroups * NZ + p.n_ygroups * p.ny_pad;
   float4* s_psi = s_dyn + rg * p.n_kc * 2 * kWarp;
   float4* s_stage = s_dyn + kGroups * p.n_kc * 2 * kWarp;
   float4* s_a = s_stage + 2 * stage_f4 + rg * STEPS * 2 * kWarp;
@@ -1461,11 +1482,14 @@ fwd_wide_kernel(const float* __restrict__ psi, const float4* __restrict__ table,
 #endif  // FL_COMMON
 
 #if FL_ANY_TYPED
-// Forward, wide, the Y products [Y W | Y log mu^T] (NY = p.ny_pad tiles)
-// and A1 = sum_k psi_k (Y W)_k: grid (blocks of cells), the one read of Y.
-// As in fwd_wide_kernel, past 10 tiles two warps share 16 rows and each
-// takes half the tiles (both form the A fragments from the staged Y; the
-// first takes Y W's columns, Kf <= 64, and A1). Dynamic shared memory: two
+// Forward, wide, the Y products [Y W | Y log mu^T] (NY = p.ny_pad tiles a
+// column group) and A1 = sum_k psi_k (Y W)_k: grid (blocks of cells,
+// p.n_ygroups column groups), one read of Y a group. As in
+// fwd_wide_kernel, past 10 tiles two warps share 16 rows and each takes
+// half the tiles (both form the A fragments from the staged Y). Where one
+// warp holds every column of Y W (p.a1_parts == 0) it writes A1; else each
+// warp writes its columns' share to row (group, half) of a1part, which the
+// entry point adds up (reduce_chunks_kernel). Dynamic shared memory: two
 // stage buffers of stage_f4 float4s, each 4 k-steps of the Y tiles
 // ([k-step][tile][lane]), then each row group's 16 Y rows of 32 genes in
 // the storage type.
@@ -1473,8 +1497,8 @@ template <int YT, int NY>
 __global__ void __launch_bounds__(kFwdWarps * kWarp, 2)
 fwd_wide_y_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ psi,
                   const float4* __restrict__ table, float* __restrict__ A1,
-                  float* __restrict__ A2, float* __restrict__ YW, int N, int G, int Kf,
-                  int nA2, WidePlan p, int stage_f4, bool vec) {
+                  float* __restrict__ A2, float* __restrict__ YW, float* __restrict__ a1part,
+                  int N, int G, int Kf, int nA2, WidePlan p, int stage_f4, bool vec) {
   using Elem = typename YStore<YT>::Elem;
   constexpr int kRow = kFwdWideGenes + 16 / (int)sizeof(Elem);  // a staged Y row, padded 16 bytes
   constexpr bool kPair = NY > 10;
@@ -1486,7 +1510,8 @@ fwd_wide_y_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* 
   const int fr = lane >> 2, fc = lane & 3;
   const int row0 = (blockIdx.x * kGroups + rg) * kFwdRows;
   const int n0 = row0 + fr, n1 = n0 + 8;
-  const int y0 = p.n_kc + p.n_zgroups * p.zt_group, n_tab = y0 + NY;
+  const int n_tab = p.n_kc + p.n_zgroups * p.zt_group + p.n_ygroups * NY;
+  const int y0 = p.n_kc + p.n_zgroups * p.zt_group + blockIdx.y * NY;  // the group's first tile
 
   // cp.async of stage s (genes [32 s, 32 s + 32)) into buffer buf: the
   // table's Y tiles, and the row group's 16 rows (by the first warp of the
@@ -1554,7 +1579,7 @@ fwd_wide_y_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* 
   for (int t = 0; t < NT; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int n = e < 2 ? n0 : n1, c = 8 * (half * NT + t) + 2 * fc + (e & 1);
+      const int n = e < 2 ? n0 : n1, c = 8 * (blockIdx.y * NY + half * NT + t) + 2 * fc + (e & 1);
       if (n < N && c < Kf) {
         YW[(size_t)n * Kf + c] = acc[t][e];
         a1[e >> 1] = fmaf(psi[(size_t)n * Kf + c], acc[t][e], a1[e >> 1]);
@@ -1568,38 +1593,44 @@ fwd_wide_y_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* 
     a1[h] += __shfl_xor_sync(0xffffffffu, a1[h], 1);
     a1[h] += __shfl_xor_sync(0xffffffffu, a1[h], 2);
   }
-  if (half == 0 && fc == 0 && n0 < N) A1[n0] = a1[0];
-  if (half == 0 && fc == 0 && n1 < N) A1[n1] = a1[1];
+  if (p.a1_parts == 0) {
+    if (half == 0 && fc == 0 && n0 < N) A1[n0] = a1[0];
+    if (half == 0 && fc == 0 && n1 < N) A1[n1] = a1[1];
+  } else {
+    float* row = a1part + (size_t)(blockIdx.y * (kPair ? 2 : 1) + half) * N;
+    if (fc == 0 && n0 < N) row[n0] = a1[0];
+    if (fc == 0 && n1 < N) row[n1] = a1[1];
+  }
 }
 #endif  // FL_ANY_TYPED
 
 #if FL_COMMON
 // dpsi_wide_kernel's gene-side table, once a call: for each k-step of 8
-// genes (g_pad / 8 of them), 2 dk_pad + n_dgroups dz_group B fragments
-// (hi0, hi1, lo0, lo1) of 32 lanes: W^T for log_rfe (K = columns of [psi,
-// X], N = the k-step's genes in order), muL^T for drfe = dZ muL^T (K = dZ's
-// columns, every group's tiles in turn; N = the genes in order), then W for
-// dpsi += t W (K = the k-step's genes in C-to-A order: B's row c is gene
-// 2c, row c + 4 gene 2c + 1; N = columns of [psi, X]). Zero past G and
-// every width.
+// genes (g_pad / 8 of them), dk_lr + n_dgroups dz_group + n_kgroups dk_pad
+// B fragments (hi0, hi1, lo0, lo1) of 32 lanes: W^T for log_rfe (K =
+// columns of [psi, X], N = the k-step's genes in order), muL^T for drfe =
+// dZ muL^T (K = dZ's columns, every group's tiles in turn; N = the genes in
+// order), then W for dpsi += t W (K = the k-step's genes in C-to-A order:
+// B's row c is gene 2c, row c + 4 gene 2c + 1; N = columns of [psi, X],
+// every output group's tiles in turn). Zero past G and every width.
 __global__ void dpsi_wide_pack_kernel(const float* __restrict__ W, const float* __restrict__ muL,
                                       float4* __restrict__ table, int G, int Kf, int SC,
                                       WidePlan p) {
-  const int n_z = p.n_dgroups * p.dz_group, n_tab = 2 * p.dk_pad + n_z;
+  const int n_z = p.n_dgroups * p.dz_group, n_tab = p.dk_lr + n_z + p.n_kgroups * p.dk_pad;
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= (long long)(p.g_pad / 8) * n_tab * kWarp) return;
   const int l = (int)(i % kWarp), r = (int)((i / kWarp) % n_tab), ks = (int)(i / kWarp / n_tab);
   float b0 = 0.f, b1 = 0.f;
-  if (r < p.dk_pad) {
+  if (r < p.dk_lr) {
     const int g = 8 * ks + (l >> 2), k = 8 * r + (l & 3);
     if (g < G && k < Kf) b0 = W[(size_t)g * Kf + k];
     if (g < G && k + 4 < Kf) b1 = W[(size_t)g * Kf + k + 4];
-  } else if (r < p.dk_pad + n_z) {
-    const int g = 8 * ks + (l >> 2), j = 8 * (r - p.dk_pad) + (l & 3);
+  } else if (r < p.dk_lr + n_z) {
+    const int g = 8 * ks + (l >> 2), j = 8 * (r - p.dk_lr) + (l & 3);
     if (g < G && j < SC) b0 = muL[(size_t)g * SC + j];
     if (g < G && j + 4 < SC) b1 = muL[(size_t)g * SC + j + 4];
   } else {
-    const int g = 8 * ks + 2 * (l & 3), k = 8 * (r - p.dk_pad - n_z) + (l >> 2);
+    const int g = 8 * ks + 2 * (l & 3), k = 8 * (r - p.dk_lr - n_z) + (l >> 2);
     if (g < G && k < Kf) b0 = W[(size_t)g * Kf + k];
     if (g + 1 < G && k < Kf) b1 = W[(size_t)(g + 1) * Kf + k];
   }
@@ -1616,23 +1647,27 @@ __global__ void dpsi_wide_pack_kernel(const float* __restrict__ W, const float* 
 // dependent MMAs interleave; the p.n_dgroups groups run one after another.
 // Per k-step: log_rfe by MMA, drfe by NZ MMAs (each tile's products in
 // fresh accumulators added on CUDA cores), one exp an element, t split into
-// the A fragment of dpsi's MMA against W. Registers hold dZ's fragments,
+// the A fragment of dpsi's MMA against W. Past 8 tiles of [psi, X] (LRW),
+// blockIdx.y picks a group of NK = 8 output tiles, and log_rfe runs over
+// all p.dk_lr tiles, a runtime count. Registers hold dZ's fragments,
 // the stage's float32 sums and one k-step's work: with two k-steps
 // unrolled, or the float64 sums or psi's split fragments in registers,
 // ptxas spilled at 168 registers (the bound of three blocks an SM) from NZ
 // = 8; three blocks an SM at NK = 1, two past it, where log_rfe's tiles
 // are unrolled by two from NK = 4 (fully unrolled, NK = 8 spilled at 255).
 // Dynamic shared memory: each warp's psi A fragments as floats
-// ([warp][kc][lane]), each warp's float64 sums of dpsi ([warp][kc][element]
-// [lane]), then two stage buffers of stage_f4 float4s ([k-step][W^T tiles
-// | the group's muL^T tiles | W tiles][lane]).
-template <int NK, int NZ>
+// ([warp][kc][lane], LR tiles), each warp's float64 sums of dpsi
+// ([warp][kc][element][lane]), then two stage buffers of stage_f4 float4s
+// ([k-step][W^T tiles | the group's muL^T tiles | the output group's W
+// tiles][lane]).
+template <int NK, int NZ, bool LRW>
 __global__ void __launch_bounds__(kDpsiWarps * kWarp, NK == 1 ? 3 : 2)
 dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
                  const float* __restrict__ dA1, const float* __restrict__ YW,
                  const float4* __restrict__ table, float* __restrict__ dpsi, int N, int Kf,
                  int SC, WidePlan p, int stage_f4) {
-  constexpr int RW = 2 * NK + NZ;  // table tiles a k-step of a stage
+  const int LR = LRW ? p.dk_lr : NK;  // log_rfe's tiles of [psi, X]
+  const int RW = LR + NZ + NK;        // table tiles a k-step of a stage
   constexpr int kLrUnroll = NK >= 4 ? 2 : NK;  // log_rfe's tiles unrolled
   extern __shared__ float4 s_dyn[];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
@@ -1640,24 +1675,27 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
   // columns 2c and 2c + 1.
   const int fr = lane >> 2, fc = lane & 3;
   const int n0 = (blockIdx.x * kDpsiWarps + warp) * kFwdRows + fr, n1 = n0 + 8;
-  const int n_tab = 2 * NK + p.n_dgroups * NZ;
-  float4* s_psi = s_dyn + warp * NK * kWarp;
-  double* s_acc = reinterpret_cast<double*>(s_dyn + kDpsiWarps * NK * kWarp) + warp * NK * 4 * kWarp;
-  float4* s_stage = s_dyn + kDpsiWarps * NK * 3 * kWarp;
+  const int kg = LRW ? (int)blockIdx.y : 0;  // the output group: columns 8 NK kg ..
+  const int n_tab = LR + p.n_dgroups * NZ + p.n_kgroups * NK;
+  float4* s_psi = s_dyn + warp * LR * kWarp;
+  double* s_acc = reinterpret_cast<double*>(s_dyn + kDpsiWarps * LR * kWarp) + warp * NK * 4 * kWarp;
+  float4* s_stage = s_dyn + kDpsiWarps * (LR + 2 * NK) * kWarp;
 
   // psi's A fragments (rows n0, n1; columns 8 kc + c, + 4), as floats,
   // split where they are used; and dpsi's float64 sums ([kc][element][lane]).
   // Each lane reads back only its own.
 #pragma unroll
-  for (int kc = 0; kc < NK; ++kc) {
+  for (int kc = 0; kc < LR; ++kc) {
     const int k0 = 8 * kc + fc, k1 = k0 + 4;
     s_psi[kc * kWarp + lane] = make_float4(n0 < N && k0 < Kf ? psi[(size_t)n0 * Kf + k0] : 0.f,
                                            n1 < N && k0 < Kf ? psi[(size_t)n1 * Kf + k0] : 0.f,
                                            n0 < N && k1 < Kf ? psi[(size_t)n0 * Kf + k1] : 0.f,
                                            n1 < N && k1 < Kf ? psi[(size_t)n1 * Kf + k1] : 0.f);
+  }
+#pragma unroll
+  for (int kc = 0; kc < NK; ++kc)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s_acc[(4 * kc + e) * kWarp + lane] = 0.0;
-  }
 
   const int n_stages = p.g_pad / (8 * p.dsteps);
   // No early exit: every warp takes part in the block's barriers; rows past
@@ -1684,7 +1722,9 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
       const int ks0 = s * p.dsteps;
       for (int i = threadIdx.x; i < p.dsteps * RW * kWarp; i += blockDim.x) {
         const int l = i % kWarp, r = (i / kWarp) % RW, ks = i / (kWarp * RW);
-        const int src = r < NK ? r : r < NK + NZ ? r + grp * NZ : r + (p.n_dgroups - 1) * NZ;
+        const int src = r < LR         ? r
+                        : r < LR + NZ  ? r + grp * NZ
+                                       : r + (p.n_dgroups - 1) * NZ + kg * NK;
         cp_async_zfill<16>(dst + i, table + ((size_t)(ks0 + ks) * n_tab + src) * kWarp + l, 16);
       }
       cp_async_commit();
@@ -1710,7 +1750,7 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
         // (n1, 2c + 1) of the k-step's genes
         float lr[4] = {0.f, 0.f, 0.f, 0.f}, dr[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll kLrUnroll
-        for (int kc = 0; kc < NK; ++kc) {
+        for (int kc = 0; kc < LR; ++kc) {
           const float4 q = s_psi[kc * kWarp + lane];
           const float pv[4] = {q.x, q.y, q.z, q.w};
           uint32_t ph[4], pl[4];
@@ -1723,7 +1763,7 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
 #pragma unroll
         for (int t = 0; t < NZ; ++t) {
           float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_3xtf32(d, zh[t], zl[t], b[(NK + t) * kWarp]);
+          mma_3xtf32(d, zh[t], zl[t], b[(LR + t) * kWarp]);
           add4(dr, d);
         }
         float tv[4];
@@ -1734,7 +1774,7 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
 #pragma unroll
         for (int kc = 0; kc < NK; ++kc) {
           float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_3xtf32(d, th, tl, b[(NK + NZ + kc) * kWarp]);
+          mma_3xtf32(d, th, tl, b[(LR + NZ + kc) * kWarp]);
           add4(sacc[kc], d);
         }
       }
@@ -1751,7 +1791,7 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
   for (int kc = 0; kc < NK; ++kc)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int n = e < 2 ? n0 : n1, k = 8 * kc + 2 * fc + (e & 1);
+      const int n = e < 2 ? n0 : n1, k = 8 * (kg * NK + kc) + 2 * fc + (e & 1);
       if (n < N && k < Kf)
         dpsi[(size_t)n * Kf + k] = (float)fma((double)dA1[n], (double)YW[(size_t)n * Kf + k],
                                               s_acc[(4 * kc + e) * kWarp + lane]);
@@ -1795,31 +1835,50 @@ __global__ void gene_wide_pack_kernel(const float* __restrict__ psi, const float
 // a B fragment (cell l / 4, column l % 4) hit distinct banks.
 __host__ __device__ inline int gene_dz_stride(const WidePlan& p) { return 8 * p.nj + 4; }
 __host__ __device__ inline int gene_ps_stride(const WidePlan& p) { return 8 * p.n_kc + 4; }
-__host__ __device__ inline int gene_a2_stride(const WidePlan& p) { return p.n_st ? 8 * p.n_st + 4 : 0; }
+// Whether the gene part needs gene_wide_kernel's general form (GEN): dW's
+// columns in groups, or dlog mu in more than one pass of its own.
+__host__ __device__ inline bool gene_wide_general(const WidePlan& p) {
+  return p.n_wgroups > 1 || p.y_pass > 1;
+}
+// dA2's tiles a stage holds: every one where dlog mu rides the first pass,
+// else those of one of its own passes (at most nj).
+__host__ __device__ inline int gene_a2_tiles(const WidePlan& p) {
+  return p.y_pass && p.nj < p.n_st ? p.nj : p.n_st;
+}
+__host__ __device__ inline int gene_a2_stride(const WidePlan& p) {
+  return p.n_st ? 8 * gene_a2_tiles(p) + 4 : 0;
+}
 
 
 #if FL_ANY_TYPED
 // Backward, wide, gene part: part[chunk, f, g] for f in [dW^T (Kf rows) |
 // d(muL)^T (SC rows) | dlog_mu (nA2 rows)] over one chunk of cells. Grid
-// (blocks of kGeneWideGenes genes, p.n_chunks chunks). Accumulator tiles:
-// [0, NJ) d(muL) of a pass's NJ = p.nj columns tiles (every loop over them
-// runs NJ times, so their MMA chains interleave), then dW's n_kc tiles
-// (summed over every pass) and, in the first pass, dlog mu's n_st.
-// (In a first pass of its own, dlog mu takes d(muL)'s first n_st tiles:
-// the plan holds nj >= n_st there, so they stay apart from dW's.) Dynamic
+// (blocks of kGeneWideGenes genes, p.n_chunks chunks); one launch for each
+// of p.n_wgroups groups of dW's columns, tiles kw0 .. kw0 + nkw (kernel
+// parameters, which take no registers). Accumulator tiles: [0, NJ) d(muL)
+// of a pass's NJ = p.nj columns tiles (every loop over them runs NJ times,
+// so their MMA chains interleave), then the group's tiles of dW (summed over
+// every pass) and, in the first pass, dlog mu's n_st. (In p.y_pass passes
+// of its own, first, dlog mu takes d(muL)'s tiles, at most NJ a pass, so
+// they stay apart from dW's.) Every group forms log_rfe from all n_kc
+// tiles of [psi, X] and drfe from every d(muL) column; only the first (kw0
+// 0) accumulates and writes d(muL) and dlog mu. GEN: the plan has dW's
+// groups or more than one pass for dlog mu (past 64 columns of [psi, X] or
+// of dA2); without it the kernel is the one group's, dlog mu in one pass,
+// and holds three blocks an SM up to NJ = 10 (with it, two). Dynamic
 // shared memory: W's A fragments of each warp as floats ([warp][kc][lane])
 // and the pass's muL A fragments split ([warp][tile][hi, lo][lane]), then
 // two stage buffers of stage_f4
 // float4s: 16 cells' dZ pairs of the pass's columns, psi pairs, dA2 pairs
 // (the first pass), dA1, and Y's rows of the block's 64 genes in the
 // storage type.
-template <int YT, int NJ>
-__global__ void __launch_bounds__(kGeneWideWarps * kWarp, NJ > 10 ? 2 : 3)
+template <int YT, int NJ, bool GEN>
+__global__ void __launch_bounds__(kGeneWideWarps * kWarp, NJ > 10 || GEN ? 2 : 3)
 gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ W,
                  const float* __restrict__ muL, const float2* __restrict__ dzp,
                  const float2* __restrict__ psp, const float2* __restrict__ a2p,
                  const float* __restrict__ a1p, float* __restrict__ part, int N, int G, int Kf,
-                 int nA2, int SC, WidePlan p, int stage_f4, bool vec) {
+                 int nA2, int SC, WidePlan p, int stage_f4, bool vec, int kw0_, int nkw_) {
   using Elem = typename YStore<YT>::Elem;
   constexpr int kRow = kGeneWideGenes + 16 / (int)sizeof(Elem);  // a staged Y row, padded 16 bytes
   constexpr int kSteps2 = kGeneWideCells / 8;
@@ -1836,7 +1895,10 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
   const int n_stages = (min(N, n_begin + p.rows) - n_begin + kGeneWideCells - 1) / kGeneWideCells;
   const int F = Kf + SC + nA2;
   const int dz_cols = 8 * p.mu_passes * NJ;  // packed dZ columns (pairs) a cell
-  const int sdz = gene_dz_stride(p), sps = gene_ps_stride(p), sa2 = gene_a2_stride(p);
+  const int sdz = gene_dz_stride(p), sps = gene_ps_stride(p);
+  const int sa2 = GEN ? gene_a2_stride(p) : p.n_st ? 8 * p.n_st + 4 : 0;  // equal without GEN
+  const bool own = !GEN || kw0_ == 0;  // the group that writes d(muL) and dlog mu
+  const int kw0 = GEN ? kw0_ : 0, nkw = GEN ? nkw_ : p.n_kc;  // the group's tiles of dW
   float4* s_w = s_dyn + warp * p.n_kc * kWarp;
   float4* s_mu = s_dyn + kGeneWideWarps * p.n_kc * kWarp + warp * NJ * 2 * kWarp;
   float4* s_stage = s_dyn + kGeneWideWarps * (p.n_kc * kWarp + NJ * 2 * kWarp);
@@ -1862,12 +1924,17 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
 #pragma unroll 1
   for (int pass = 0; pass < p.n_passes; ++pass) {
     const bool first = pass == 0;
-    const bool with_mu = !(first && p.y_pass);
+    const bool with_mu = GEN ? pass >= p.y_pass : !(first && p.y_pass);
     const int jt_begin = (pass - p.y_pass) * NJ;
-    const int ny = first ? p.n_st : 0;
-    // dlog mu's first tile: after dW's, or in a pass of its own in place of
-    // d(muL)'s
-    const int t_mu = p.y_pass ? 0 : NJ + p.n_kc;
+    // dlog mu's tiles in this pass: from tile st0, ny of them (every one in
+    // the first pass, or at most NJ in each of its own)
+    const int st0 = GEN && p.y_pass ? pass * NJ : 0;
+    const int ny = !GEN ? (first ? p.n_st : 0)
+                   : !own ? 0 : p.y_pass ? (with_mu ? 0 : min(NJ, p.n_st - st0)) : first ? p.n_st : 0;
+    const bool with_y = GEN ? first || ny > 0 : first;  // Y staged: Y dA1's term, or dlog mu
+    // dlog mu's first accumulator tile: after dW's, or in passes of its own
+    // in place of d(muL)'s
+    const int t_mu = p.y_pass ? 0 : NJ + (GEN ? p.n_kw : p.n_kc);
     // muL's A fragments of the pass's columns (genes g0, g1; columns 8 jt +
     // c, + 4; zero past SC), split once a pass; each lane reads back only
     // its own. A pass without d(muL) has zero fragments: drfe = 0.
@@ -1906,12 +1973,13 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
         const int c = i / wps, w = i % wps;
         cp_async_zfill<16>(b_ps + 2 * c * sps + 4 * w, psp + (size_t)(c0 + c) * 8 * p.n_kc + 2 * w, 16);
       }
-      if (first) {
+      if (with_y) {
         float* b_a2 = b_ps + 2 * kGeneWideCells * sps;
-        const int wa2 = 4 * p.n_st;
+        const int wa2 = 4 * (GEN ? ny : p.n_st);
         for (int i = threadIdx.x; i < kGeneWideCells * wa2; i += blockDim.x) {
           const int c = i / wa2, w = i % wa2;
-          cp_async_zfill<16>(b_a2 + 2 * c * sa2 + 4 * w, a2p + (size_t)(c0 + c) * 8 * p.n_st + 2 * w, 16);
+          cp_async_zfill<16>(b_a2 + 2 * c * sa2 + 4 * w,
+                             a2p + (size_t)(c0 + c) * 8 * p.n_st + 8 * st0 + 2 * w, 16);
         }
         float* b_a1 = b_a2 + 2 * kGeneWideCells * sa2;
         if (threadIdx.x < kGeneWideCells / 4)
@@ -1984,21 +2052,23 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
           uint32_t ah[4], al[4];
           c_to_a(rfe, ah, al);
           const float2* q_dz = s_dz + (cb + 2 * fc) * sdz + fr;
+          if (own) {
 #pragma unroll
-          for (int t = 0; t < NJ; ++t) {
-            float d[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_3xtf32(d, ah, al, pair_b(q_dz[8 * t], q_dz[sdz + 8 * t]));
-            add4(acc[t], d);
+            for (int t = 0; t < NJ; ++t) {
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_3xtf32(d, ah, al, pair_b(q_dz[8 * t], q_dz[sdz + 8 * t]));
+              add4(acc[t], d);
+            }
           }
         }
         // dlog_rfe = rfe drfe (+ Y dA1 in the first pass), at C positions
         // (g0, cb + 2c), (g0, cb + 2c + 1), (g1, ...), (g1, ...).
-        if (first) {
+        if (with_y) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int c = cb + 2 * fc + (e & 1);
             y[e] = y_one<YT>(sy[c * kRow + gl0 + 8 * (e >> 1)]);
-            dl[e] = fmaf(y[e], s_a1[c], dl[e]);
+            if (first) dl[e] = fmaf(y[e], s_a1[c], dl[e]);
           }
         }
         {  // dW += dlog_rfe^T psi
@@ -2007,8 +2077,8 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
           const float2* q_ps = s_ps + (cb + 2 * fc) * sps + fr;
 #pragma unroll
           for (int t = NJ; t < NT; ++t) {
-            if (t - NJ < p.n_kc) {
-              const int k8 = 8 * (t - NJ);
+            if (t - NJ < nkw) {
+              const int k8 = 8 * (kw0 + t - NJ);
               float d[4] = {0.f, 0.f, 0.f, 0.f};
               mma_3xtf32(d, ah, al, pair_b(q_ps[k8], q_ps[sps + k8]));
               add4(acc[t], d);
@@ -2041,9 +2111,9 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
         const int g = e < 2 ? g0 : g1, c = 2 * fc + (e & 1);
         if (g >= G) continue;
         const int s8 = 8 * (t - t_mu) + c;
-        if (first && s8 >= 0 && s8 < 8 * p.n_st) {
-          if (s8 < nA2) part[((size_t)chunk * F + Kf + SC + s8) * G + g] = acc[t][e];
-        } else if (t < NJ && with_mu) {
+        if (GEN ? s8 >= 0 && s8 < 8 * ny : first && s8 >= 0 && s8 < 8 * p.n_st) {
+          if (8 * st0 + s8 < nA2) part[((size_t)chunk * F + Kf + SC + 8 * st0 + s8) * G + g] = acc[t][e];
+        } else if (t < NJ && with_mu && own) {
           const int j = 8 * (jt_begin + t) + c;
           if (j < SC) part[((size_t)chunk * F + Kf + j) * G + g] = acc[t][e];
         }
@@ -2055,8 +2125,8 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
   for (int t = NJ; t < NT; ++t) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int g = e < 2 ? g0 : g1, k = 8 * (t - NJ) + 2 * fc + (e & 1);
-      if (g < G && k < Kf && t - NJ < p.n_kc) part[((size_t)chunk * F + k) * G + g] = acc[t][e];
+      const int g = e < 2 ? g0 : g1, k = 8 * (kw0 + t - NJ) + 2 * fc + (e & 1);
+      if (g < G && k < Kf && t - NJ < nkw) part[((size_t)chunk * F + k) * G + g] = acc[t][e];
     }
   }
 }
@@ -2140,11 +2210,12 @@ bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk, int y_
          SC < 1 || SC > 32 || rows_per_chunk < 1 || y_type < kYF32 || y_type > kYI8;
 }
 
-// The wide family's sizes; rows_per_chunk (the gene part's) a whole number
-// of 16-cell stages.
+// The wide family's sizes (any width whose products' indices fit an int);
+// rows_per_chunk (the gene part's) a whole number of 16-cell stages.
 bool bad_wide_sizes(int N, int G, int Kf, int nA2, int SC, int rows_per_chunk, int y_type) {
-  return N < 1 || G < 1 || Kf < 0 || Kf > kWideMaxKf || nA2 < 0 || nA2 > kWideMaxA2 ||
-         SC < 1 || SC > kWideMaxSC || rows_per_chunk < 1 || rows_per_chunk % kGeneWideCells ||
+  constexpr int kMaxWidth = 1 << 20;
+  return N < 1 || G < 1 || Kf < 0 || Kf > kMaxWidth || nA2 < 0 || nA2 > kMaxWidth || SC < 1 ||
+         SC > kMaxWidth || rows_per_chunk < 1 || rows_per_chunk % kGeneWideCells ||
          y_type < kYF32 || y_type > kYI8;
 }
 
@@ -2176,10 +2247,12 @@ inline bool is_dpsi_z_count(long long t) {
 // tiles, each group or pass a built count and within kWideTiles beside the
 // tiles it shares a warp with, dlog mu's tiles in a Y pass within d(muL)'s
 // (it takes them), every cell in a chunk of whole stages and within the
-// packed rows, grid.y within 65535, dpsi's tiles of [psi, X] and dZ
-// groups built counts that hold every tile, its stages whole k-steps of the
-// padded genes, and every workspace region at least what the kernels
-// address in it.
+// packed rows, grid.y and the group counts within 65535, dpsi's tiles of [psi, X]
+// and dZ groups built counts that hold every tile (output groups past 8
+// tiles of 8 each, log_rfe over every tile), its stages whole k-steps of
+// the padded genes, dW's groups and dlog mu's passes holding every tile,
+// and every workspace region at least what the kernels address in it.
+constexpr int kWidePlanKeys = 33;
 bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, WidePlan& p) {
   p.n_kc = (int)v[0], p.n_zt = (int)v[1], p.n_yt = (int)v[2], p.n_st = (int)v[3];
   p.g_pad = (int)v[4], p.zt_group = (int)v[5], p.n_zgroups = (int)v[6], p.ny_pad = (int)v[7];
@@ -2189,30 +2262,45 @@ bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Wid
   p.ps = (size_t)v[18], p.a2 = (size_t)v[19], p.a1 = (size_t)v[20];
   p.dk_pad = (int)v[21], p.dz_group = (int)v[22], p.n_dgroups = (int)v[23], p.dsteps = (int)v[24];
   p.dtable = (size_t)v[25];
-  for (int i = 0; i < 26; ++i)
-    if (v[i] < 0 || ((i < 15 || (i > 20 && i < 25)) && v[i] > 0x7fffffff)) return false;
+  p.n_ygroups = (int)v[26], p.a1_parts = (int)v[27], p.a1part = (size_t)v[28];
+  p.n_kgroups = (int)v[29], p.dk_lr = (int)v[30], p.n_kw = (int)v[31], p.n_wgroups = (int)v[32];
+  for (int i = 0; i < kWidePlanKeys; ++i) {
+    const bool size = (i >= 15 && i <= 20) || i == 25 || i == 28;
+    if (v[i] < 0 || (!size && v[i] > 0x7fffffff)) return false;
+  }
   const long long F = (long long)Kf + SC + nA2;
+  const int ny_halves = p.ny_pad > 10 ? 2 : 1;
   return p.n_kc == cdiv(Kf, 8) && p.n_zt == cdiv(SC, 8) && p.n_yt == cdiv(Kf + nA2, 8) &&
          p.n_st == cdiv(nA2, 8) && p.g_pad % kFwdWideGenes == 0 && p.g_pad >= G &&
          is_tile_count(p.zt_group) && p.n_zgroups >= 1 && p.n_zgroups <= 65535 &&
          (long long)p.n_zgroups * p.zt_group >= p.n_zt && is_y_tile_count(p.ny_pad) &&
-         p.ny_pad >= p.n_yt && p.rows >= kGeneWideCells && p.rows % kGeneWideCells == 0 &&
+         p.n_ygroups >= 1 && p.n_ygroups <= 65535 &&
+         (long long)p.n_ygroups * p.ny_pad >= p.n_yt &&
+         (p.a1_parts == 0 ? p.n_ygroups == 1 && Kf <= 8 * (p.ny_pad / ny_halves)
+                          : p.a1_parts == p.n_ygroups * ny_halves &&
+                                p.a1part >= (size_t)p.a1_parts * N) &&
+         p.rows >= kGeneWideCells && p.rows % kGeneWideCells == 0 &&
          p.n_chunks >= 1 && p.n_chunks <= 65535 && (long long)p.n_chunks * p.rows >= N &&
          p.n_pad % kGeneWideCells == 0 && p.n_pad >= N && is_tile_count(p.nj) &&
-         (long long)p.mu_passes * p.nj >= p.n_zt && (p.y_pass == 0 || p.y_pass == 1) &&
-         p.n_passes == p.mu_passes + p.y_pass &&
-         p.nj + p.n_kc + (p.y_pass ? 0 : p.n_st) <= kWideTiles &&
-         (!p.y_pass || p.nj >= p.n_st) &&
-         p.table >= (size_t)(p.g_pad / 8) * (p.n_kc + p.n_zgroups * p.zt_group + p.ny_pad) * kWarp * 4 &&
+         (long long)p.mu_passes * p.nj >= p.n_zt && p.y_pass >= 0 &&
+         p.n_passes == p.mu_passes + p.y_pass && p.n_wgroups >= 1 && p.n_wgroups <= 65535 &&
+         p.n_kw >= 0 && (long long)p.n_wgroups * p.n_kw >= p.n_kc &&
+         p.nj + p.n_kw + (p.y_pass ? 0 : p.n_st) <= kWideTiles &&
+         (!p.y_pass || (long long)p.y_pass * p.nj >= p.n_st) &&
+         p.table >= (size_t)(p.g_pad / 8) *
+                        (p.n_kc + p.n_zgroups * p.zt_group + p.n_ygroups * p.ny_pad) * kWarp * 4 &&
          p.part >= (size_t)p.n_chunks * F * G && p.part % 4 == 0 &&
          p.dz >= (size_t)p.n_pad * 16 * p.mu_passes * p.nj &&
          p.ps >= (size_t)p.n_pad * 16 * p.n_kc && p.ps % 4 == 0 &&
          p.a2 >= (size_t)p.n_pad * 16 * p.n_st && p.a2 % 4 == 0 && p.dz % 4 == 0 &&
-         p.a1 >= (size_t)p.n_pad && is_dpsi_k_count(p.dk_pad) && p.dk_pad >= p.n_kc &&
+         p.a1 >= (size_t)p.n_pad && is_dpsi_k_count(p.dk_pad) && p.n_kgroups >= 1 &&
+         p.n_kgroups <= 65535 && (long long)p.n_kgroups * p.dk_pad >= p.n_kc &&
+         (p.n_kgroups == 1 ? p.dk_lr == p.dk_pad : p.dk_pad == kDpsiGroupedK && p.dk_lr == p.n_kc) &&
          is_dpsi_z_count(p.dz_group) && p.n_dgroups >= 1 &&
          (long long)p.n_dgroups * p.dz_group >= p.n_zt && (p.dsteps == 2 || p.dsteps == 4) &&
          p.g_pad % (8 * p.dsteps) == 0 &&
-         p.dtable >= (size_t)(p.g_pad / 8) * (2 * p.dk_pad + p.n_dgroups * p.dz_group) * kWarp * 4;
+         p.dtable >= (size_t)(p.g_pad / 8) *
+                         (p.dk_lr + p.n_dgroups * p.dz_group + p.n_kgroups * p.dk_pad) * kWarp * 4;
 }
 #endif  // FL_COMMON
 
@@ -2255,15 +2343,15 @@ inline int gene_wide_stage_f4(const WidePlan& p, int y_bytes) {
 inline int gene_wide_smem(const WidePlan& p, int y_bytes) {
   return 16 * (kGeneWideWarps * (p.n_kc + 2 * p.nj) * kWarp + 2 * gene_wide_stage_f4(p, y_bytes));
 }
-// dpsi_wide_kernel's: p.dsteps k-steps of W^T, muL^T and W tiles a stage
-// buffer, after the warps' psi fragments and float64 sums (3 float4s a
-// lane and tile of [psi, X]; wide_plan takes 4 k-steps unless that would
-// leave room for one block an SM).
+// dpsi_wide_kernel's: p.dsteps k-steps of W^T (dk_lr), muL^T and W tiles a
+// stage buffer, after the warps' psi fragments (a float4 a lane and tile of
+// log_rfe's) and float64 sums (2 a lane and output tile; wide_plan takes 4
+// k-steps unless that would leave room for one block an SM).
 inline int dpsi_wide_stage_f4(const WidePlan& p) {
-  return p.dsteps * (2 * p.dk_pad + p.dz_group) * kWarp;
+  return p.dsteps * (p.dk_lr + p.dk_pad + p.dz_group) * kWarp;
 }
 inline int dpsi_wide_smem(const WidePlan& p) {
-  return 16 * (kDpsiWarps * p.dk_pad * 3 * kWarp + 2 * dpsi_wide_stage_f4(p));
+  return 16 * (kDpsiWarps * (p.dk_lr + 2 * p.dk_pad) * kWarp + 2 * dpsi_wide_stage_f4(p));
 }
 
 // f(std::integral_constant<int, T>) for T the built tile count t
@@ -2306,26 +2394,32 @@ inline void fwd_wide_dispatch(int t, int steps, F&& f) {
   });
 }
 
-// f(dpsi_wide_kernel<NK, NZ>) for the built counts nk (kDpsiKCounts) and
-// nz (kDpsiZCounts).
+// f(dpsi_wide_kernel<NK, NZ, LRW>) for the built counts nk (kDpsiKCounts)
+// and nz (kDpsiZCounts), LRW where the output columns go in groups
+// (grouped: nk is kDpsiGroupedK).
 template <class F>
-inline void dpsi_wide_dispatch(int nk, int nz, F&& f) {
-  auto at_nk = [&](auto k) {
+inline void dpsi_wide_dispatch(int nk, int nz, bool grouped, F&& f) {
+  auto at_nk = [&](auto k, auto lrw) {
     constexpr int NK = decltype(k)::value;
+    constexpr bool LRW = decltype(lrw)::value;
     switch (nz) {
-      case 1: f(dpsi_wide_kernel<NK, 1>); break;
-      case 2: f(dpsi_wide_kernel<NK, 2>); break;
-      case 4: f(dpsi_wide_kernel<NK, 4>); break;
-      case 6: f(dpsi_wide_kernel<NK, 6>); break;
-      case 8: f(dpsi_wide_kernel<NK, 8>); break;
-      default: f(dpsi_wide_kernel<NK, 10>);
+      case 1: f(dpsi_wide_kernel<NK, 1, LRW>); break;
+      case 2: f(dpsi_wide_kernel<NK, 2, LRW>); break;
+      case 4: f(dpsi_wide_kernel<NK, 4, LRW>); break;
+      case 6: f(dpsi_wide_kernel<NK, 6, LRW>); break;
+      case 8: f(dpsi_wide_kernel<NK, 8, LRW>); break;
+      default: f(dpsi_wide_kernel<NK, 10, LRW>);
     }
   };
+  if (grouped) {
+    at_nk(std::integral_constant<int, kDpsiGroupedK>{}, std::true_type{});
+    return;
+  }
   switch (nk) {
-    case 1: at_nk(std::integral_constant<int, 1>{}); break;
-    case 2: at_nk(std::integral_constant<int, 2>{}); break;
-    case 4: at_nk(std::integral_constant<int, 4>{}); break;
-    default: at_nk(std::integral_constant<int, 8>{});
+    case 1: at_nk(std::integral_constant<int, 1>{}, std::false_type{}); break;
+    case 2: at_nk(std::integral_constant<int, 2>{}, std::false_type{}); break;
+    case 4: at_nk(std::integral_constant<int, 4>{}, std::false_type{}); break;
+    default: at_nk(std::integral_constant<int, 8>{}, std::false_type{});
   }
 }
 #endif  // FL_COMMON
@@ -2415,9 +2509,9 @@ void forward_wide_typed(const FwdWideArgs& a) {
     constexpr int NY = decltype(ny)::value;
     cudaFuncSetAttribute(fwd_wide_y_kernel<YT, NY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem);
-    fwd_wide_y_kernel<YT, NY><<<blocks_for(a.N, fwd_wide_groups(NY) * kFwdRows), kFwdWarps * kWarp,
-                                smem, a.stream>>>(Y, a.psi, a.table, a.A1, a.A2, a.YW, a.N, a.G, a.Kf,
-                                            a.nA2, p, stage_f4, vec);
+    const dim3 grid(blocks_for(a.N, fwd_wide_groups(NY) * kFwdRows), p.n_ygroups);
+    fwd_wide_y_kernel<YT, NY><<<grid, kFwdWarps * kWarp, smem, a.stream>>>(
+        Y, a.psi, a.table, a.A1, a.A2, a.YW, a.a1part, a.N, a.G, a.Kf, a.nA2, p, stage_f4, vec);
   });
 }
 
@@ -2432,9 +2526,19 @@ void gene_wide_typed(const GeneWideArgs& a) {
   const int smem = gene_wide_smem(p, sizeof(Elem)), stage_f4 = gene_wide_stage_f4(p, sizeof(Elem));
   tile_dispatch(p.nj, [&](auto nj) {
     constexpr int NJ = decltype(nj)::value;
-    cudaFuncSetAttribute(gene_wide_kernel<YT, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    gene_wide_kernel<YT, NJ><<<grid, kGeneWideWarps * kWarp, smem, a.stream>>>(
-        Y, a.W, a.muL, a.dz, a.ps, a.a2, a.a1, a.part, a.N, a.G, a.Kf, a.nA2, a.SC, p, stage_f4, vec);
+    auto launch = [&](auto kernel) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      for (int z = 0; z < p.n_wgroups; ++z) {  // dW's column groups, the first writing the rest
+        const int kw0 = z * p.n_kw, nkw = p.n_kw < p.n_kc - kw0 ? p.n_kw : p.n_kc - kw0;
+        kernel<<<grid, kGeneWideWarps * kWarp, smem, a.stream>>>(
+            Y, a.W, a.muL, a.dz, a.ps, a.a2, a.a1, a.part, a.N, a.G, a.Kf, a.nA2, a.SC, p,
+            stage_f4, vec, kw0, nkw);
+      }
+    };
+    if (gene_wide_general(p))
+      launch(gene_wide_kernel<YT, NJ, true>);
+    else
+      launch(gene_wide_kernel<YT, NJ, false>);
   });
 }
 
@@ -2442,7 +2546,7 @@ void gene_wide_typed(const GeneWideArgs& a) {
 // (which 2) at the built tile count t and smem bytes of dynamic shared
 // memory (0 if it cannot run).
 template <int YT>
-int wide_blocks_per_sm(int which, int t, int smem) {
+int wide_blocks_per_sm(int which, int t, int smem, bool general) {
   int blocks = 0;
   if (which == 1) {
     y_tile_dispatch(t, [&](auto ny) {
@@ -2455,10 +2559,15 @@ int wide_blocks_per_sm(int which, int t, int smem) {
   } else {
     tile_dispatch(t, [&](auto nj) {
       constexpr int NJ = decltype(nj)::value;
-      cudaFuncSetAttribute(gene_wide_kernel<YT, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gene_wide_kernel<YT, NJ>,
-                                                    kGeneWideWarps * kWarp, smem);
+      auto query = [&](auto kernel) {
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kGeneWideWarps * kWarp,
+                                                      smem);
+      };
+      if (general)
+        query(gene_wide_kernel<YT, NJ, true>);
+      else
+        query(gene_wide_kernel<YT, NJ, false>);
     });
   }
   return blocks;
@@ -2470,28 +2579,28 @@ template void forward_typed<kYF32>(const FwdArgs&);
 template void gene_typed<kYF32>(const GeneArgs&);
 template void forward_wide_typed<kYF32>(const FwdWideArgs&);
 template void gene_wide_typed<kYF32>(const GeneWideArgs&);
-template int wide_blocks_per_sm<kYF32>(int, int, int);
+template int wide_blocks_per_sm<kYF32>(int, int, int, bool);
 #endif
 #if FL_TYPED(1)
 template void forward_typed<kYBF16>(const FwdArgs&);
 template void gene_typed<kYBF16>(const GeneArgs&);
 template void forward_wide_typed<kYBF16>(const FwdWideArgs&);
 template void gene_wide_typed<kYBF16>(const GeneWideArgs&);
-template int wide_blocks_per_sm<kYBF16>(int, int, int);
+template int wide_blocks_per_sm<kYBF16>(int, int, int, bool);
 #endif
 #if FL_TYPED(2)
 template void forward_typed<kYI16>(const FwdArgs&);
 template void gene_typed<kYI16>(const GeneArgs&);
 template void forward_wide_typed<kYI16>(const FwdWideArgs&);
 template void gene_wide_typed<kYI16>(const GeneWideArgs&);
-template int wide_blocks_per_sm<kYI16>(int, int, int);
+template int wide_blocks_per_sm<kYI16>(int, int, int, bool);
 #endif
 #if FL_TYPED(3)
 template void forward_typed<kYI8>(const FwdArgs&);
 template void gene_typed<kYI8>(const GeneArgs&);
 template void forward_wide_typed<kYI8>(const FwdWideArgs&);
 template void gene_wide_typed<kYI8>(const GeneWideArgs&);
-template int wide_blocks_per_sm<kYI8>(int, int, int);
+template int wide_blocks_per_sm<kYI8>(int, int, int, bool);
 #endif
 
 }  // namespace fl
@@ -2580,12 +2689,13 @@ int fl_backward_gene(const void* Y, const float* psi, const float* W,
 }
 
 // The wide family: the same arguments and outputs as fl_forward,
-// fl_backward_dpsi and fl_backward_gene, for Kf <= 64, nA2 <= 64 and SC <=
-// 2048, with the plan that ops/fused_likelihood.py's wide_plan made for
-// these sizes (its WIDE_PLAN_KEYS, in order; cudaErrorInvalidValue where it
-// does not fit them, wide_plan_of; fl_backward_dpsi_wide takes the plan of
-// nA2 = 0). fl_forward_wide's scratch (16-byte aligned) holds the plan's
-// table floats, fl_backward_dpsi_wide's its dtable floats (the packed gene
+// fl_backward_dpsi and fl_backward_gene, at any width, with the plan that
+// ops/fused_likelihood.py's wide_plan made for these sizes (its
+// WIDE_PLAN_KEYS, in order; cudaErrorInvalidValue where it does not fit
+// them, wide_plan_of; fl_backward_dpsi_wide takes the plan of nA2 = 0).
+// fl_forward_wide's scratch (16-byte aligned) holds the plan's table floats
+// and then its a1part floats (A1's partial sums), fl_backward_dpsi_wide's
+// its dtable floats (the packed gene
 // side); fl_backward_gene_wide's its part + dz + ps + a2 + a1 floats: the
 // (Kf+SC+nA2, G) partial sums of each chunk, then the packed cell side.
 int fl_forward_wide(const void* Y, const float* psi, const float* W,
@@ -2606,13 +2716,16 @@ int fl_forward_wide(const void* Y, const float* psi, const float* W,
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     kernel<<<grid, kFwdWarps * kWarp, smem, stream>>>(psi, table, Z, N, Kf, SC, p, stage_f4);
   });
-  const FwdWideArgs a{Y, psi, table, A1, A2, Z, YW, N, G, Kf, nA2, SC, p, stream};
+  float* a1part = p.a1_parts ? scratch + p.table : nullptr;
+  const FwdWideArgs a{Y, psi, table, A1, A2, Z, YW, a1part, N, G, Kf, nA2, SC, p, stream};
   switch (y_type) {
     case kYF32: forward_wide_typed<kYF32>(a); break;
     case kYBF16: forward_wide_typed<kYBF16>(a); break;
     case kYI16: forward_wide_typed<kYI16>(a); break;
     default: forward_wide_typed<kYI8>(a);
   }
+  if (p.a1_parts)
+    reduce_chunks_kernel<<<blocks_for(N, 256), 256, 0, stream>>>(a1part, A1, p.a1_parts, N);
   return (int)cudaGetLastError();
 }
 
@@ -2629,10 +2742,11 @@ int fl_backward_dpsi_wide(const float* psi, const float* W, const float* muL,
   dpsi_wide_pack_kernel<<<blocks_for((long long)(p.dtable / 4), 256), 256, 0, stream>>>(
       W, muL, table, G, Kf, SC, p);
   const int smem = dpsi_wide_smem(p), stage_f4 = dpsi_wide_stage_f4(p);
-  dpsi_wide_dispatch(p.dk_pad, p.dz_group, [&](auto kernel) {
+  const dim3 grid(blocks_for(N, kDpsiWarps * kFwdRows), p.n_kgroups);
+  dpsi_wide_dispatch(p.dk_pad, p.dz_group, p.n_kgroups > 1, [&](auto kernel) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    kernel<<<blocks_for(N, kDpsiWarps * kFwdRows), kDpsiWarps * kWarp, smem, stream>>>(
-        psi, dZ, dA1, YW, table, dpsi, N, Kf, SC, p, stage_f4);
+    kernel<<<grid, kDpsiWarps * kWarp, smem, stream>>>(psi, dZ, dA1, YW, table, dpsi, N, Kf, SC,
+                                                        p, stage_f4);
   });
   return (int)cudaGetLastError();
 }
@@ -2686,19 +2800,20 @@ int fl_wide_resources(const long long* plan, int N, int G, int Kf, int nA2, int 
   });
   out[0] = smem[0];
   out[1] = blocks;
+  const bool gen = gene_wide_general(p);
   for (int which = 1; which <= 2; ++which) {
     const int t = which == 1 ? p.ny_pad : p.nj;
     switch (y_type) {
-      case kYF32: blocks = wide_blocks_per_sm<kYF32>(which, t, smem[which]); break;
-      case kYBF16: blocks = wide_blocks_per_sm<kYBF16>(which, t, smem[which]); break;
-      case kYI16: blocks = wide_blocks_per_sm<kYI16>(which, t, smem[which]); break;
-      default: blocks = wide_blocks_per_sm<kYI8>(which, t, smem[which]);
+      case kYF32: blocks = wide_blocks_per_sm<kYF32>(which, t, smem[which], gen); break;
+      case kYBF16: blocks = wide_blocks_per_sm<kYBF16>(which, t, smem[which], gen); break;
+      case kYI16: blocks = wide_blocks_per_sm<kYI16>(which, t, smem[which], gen); break;
+      default: blocks = wide_blocks_per_sm<kYI8>(which, t, smem[which], gen);
     }
     out[2 * which] = smem[which];
     out[2 * which + 1] = blocks;
   }
   const int dsmem = dpsi_wide_smem(p);
-  dpsi_wide_dispatch(p.dk_pad, p.dz_group, [&](auto kernel) {
+  dpsi_wide_dispatch(p.dk_pad, p.dz_group, p.n_kgroups > 1, [&](auto kernel) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dsmem);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kDpsiWarps * kWarp, dsmem);
   });

@@ -9,10 +9,10 @@
 // :234, jnp.dot branches :182, :187, :201-202, :211, :213), whose contract
 // in float64 is
 //
-//   log_rfe[n,g] = sum_k psi[n,k] W[g,k]            (Kf <= 64)
+//   log_rfe[n,g] = sum_k psi[n,k] W[g,k]
 //   A1[n]        = sum_g Y[n,g] log_rfe[n,g]
-//   A2[n,s]      = sum_g Y[n,g] log_mu[s,g]         (optional, nA2 <= 64)
-//   Z[n,j]       = sum_g exp(log_rfe[n,g]) muL[g,j] (j = s*C + c, SC <= 2048)
+//   A2[n,s]      = sum_g Y[n,g] log_mu[s,g]         (optional)
+//   Z[n,j]       = sum_g exp(log_rfe[n,g]) muL[g,j] (j = s*C + c)
 //   YW[n,k]      = sum_g Y[n,g] W[g,k]              (kept for dpsi)
 //
 // and the vector-Jacobian product: with rfe = exp(log_rfe), drfe = dZ muL^T
@@ -21,8 +21,9 @@
 // (the FP64 tensor cores' mma.sync f64 and the CUDA cores' DFMA), every exp
 // the double exp() (no fast-math, no TF32): the kernels serve the oracle
 // configuration, and their results differ from the plain float64 versions
-// only by the order of their sums. One family takes every width up to the
-// contract's bound, with runtime widths; there is no narrow/wide split.
+// only by the order of their sums. One family takes every width, with
+// runtime widths (as far as f64_plan's shared memory fits a block); there
+// is no narrow/wide split.
 //
 // Design. Every kernel runs its products on the FP64 tensor cores
 // (mma.sync m16n8k8 f64: wgmma has no f64 type), and the exps on the CUDA
@@ -66,7 +67,9 @@
 //    by NK MMAs psi W^T (psi's A fragments in shared memory), one exp an
 //    element, t = rfe drfe, and
 //    dpsi += t W by NK MMAs with t's C fragment as the A fragment (columns
-//    2t, 2t + 1 as k-columns t, t + 4; W's B rows permuted to match).
+//    2t, 2t + 1 as k-columns t, t + 4; W's B rows permuted to match). Past
+//    Kf 64 dpsi's columns go in groups of NK = 8 tiles (grid.y), each
+//    forming log_rfe by MMAs over every tile of [psi, X].
 //    dpsi_f64_pack_kernel lays the gene side out once a call: muL^T, W in
 //    C-to-A order (whose tile also holds the FMAs' pairs) and, past Kf 8,
 //    W^T. dZ's tiles go in groups of NZ (at most 10: S*C 80 is one group),
@@ -90,7 +93,10 @@
 //    that the registers hold them; each pass recomputes rfe and adds its
 //    part of drfe's term to dW (dW is linear in drfe), which goes to the
 //    chunk's partial sums after each pass (the first pass stores, later
-//    ones add), and the first pass adds Y dA1 psi.
+//    ones add), and the first pass adds Y dA1 psi. Past Kf 64 dW's columns
+//    go in groups of NK = 8 tiles (a launch each, the group a kernel
+//    parameter), each forming rfe and drfe whole, and only the first
+//    accumulating and writing the passes' tiles.
 //
 // What bounds them on the card: a float64 exp is a software sequence on
 // the FP64 units (an integer part, a polynomial of DFMAs, a scaling), about
@@ -177,7 +183,7 @@ struct GeneArgs {
 // the plan (which: 0 the forward, 1 the gene part).
 template <int YT> void forward_typed(const FwdArgs& a);
 template <int YT> void gene_typed(const GeneArgs& a);
-template <int YT> int blocks_per_sm(int which, const Plan& p);
+template <int YT> int blocks_per_sm(int which, const Plan& p, int Kf);
 
 }  // namespace fl64
 
@@ -227,7 +233,7 @@ constexpr int kGeneTileCounts2[] = {1, 2, 4};
 constexpr int kGeneTileCounts8[] = {1, 2};
 constexpr int kFwdYStageBytes = kFwdWarps * 16 * 320;  // float64's padded rows
 constexpr int kGeneYStageBytes = kGeneCells * (64 * 8 + 16);
-constexpr int kMaxKf = 64, kMaxA2 = 64, kMaxSC = 2048;
+constexpr int kMaxWidth = 1 << 20;  // any width whose indices fit an int
 constexpr int kMaxSmem = 232448;  // the most dynamic shared memory a block may take
 
 template <int YT> struct Y64;
@@ -535,21 +541,22 @@ fwd_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __res
 // ---------------------------------------------------------------------------
 // Gene part: block (blockIdx.x) of kGeneWarps x 16 genes, chunk blockIdx.y of
 // `rows` cells; tiles [dlog mu (st) | d(muL)] in `passes` passes of `count`
-// (NT accumulator tiles), dW's NK tiles beside them. Dynamic shared memory:
+// (NT accumulator tiles), dW's NK tiles beside them (GEN: a group of them,
+// the launch's kt0 .. kt0 + NK of nk_all). Dynamic shared memory:
 // the warps' W ([warp][k][g] pairs of genes g, g + 8), then two stages, each
 // for 32 cells (4 n-tiles) drfe's B fragments ([n-tile][tile][lane] pairs
 // of dZ^T), the pass's ([n-tile][tile][lane] pairs of dA2 or dZ at cells 2t,
 // 2t + 1), dW's ([n-tile][kt][lane] pairs of psi), psi for log_rfe
 // ([n-tile][k][t] pairs of cells 2t, 2t + 1), dA1, and the block's Y rows.
 // ---------------------------------------------------------------------------
-template <int YT, int NT, int NK>
+template <int YT, int NT, int NK, bool GEN>
 __global__ void __launch_bounds__(kGeneWarps * kWarp, 2 * NT + NK >= 6 ? 2 : 3)
 gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __restrict__ psi,
                 const double* __restrict__ W, const double* __restrict__ muL,
                 const double* __restrict__ dA1, const double* __restrict__ dA2,
                 const double* __restrict__ dZ, const double2* __restrict__ table,
                 double* __restrict__ part, int N, int G, int Kf, int nA2, int SC, int rows, int st,
-                int count, int passes, bool vec) {
+                int count, int passes, bool vec, int kt0_, int nk_all_) {
   using Elem = typename Y64<YT>::Elem;
   constexpr int kYRow = 64 * (int)sizeof(Elem) + 16;  // bytes a cell's Y row takes
   extern __shared__ __align__(16) unsigned char s_dyn[];
@@ -560,7 +567,11 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
   const int chunk = blockIdx.y, n_begin = chunk * rows, n_end = min(N, n_begin + rows);
   const int F = Kf + SC + nA2, tiles = st + (SC + 7) / 8;
   double* out = part + (size_t)chunk * F * G;
-  const int per_ct = (2 * tiles + NK) * kWarp + Kf * 4, per_stage = kGeneTiles * per_ct + kGeneCells / 2;
+  // dW's group (GEN: past 8 tiles of [psi, X]): NK tiles from kt0, of
+  // nk_all; the first alone takes the passes' tiles
+  const int kt0 = GEN ? kt0_ : 0, nk_all = GEN ? nk_all_ : NK;
+  const bool own = kt0 == 0;
+  const int per_ct = (2 * tiles + nk_all) * kWarp + Kf * 4, per_stage = kGeneTiles * per_ct + kGeneCells / 2;
   double2* s_w = reinterpret_cast<double2*>(s_dyn);
   unsigned char* s_stage = s_dyn + (size_t)kGeneWarps * 16 * Kf * 8;
   const int bt_bytes = kGeneTiles * NT * kWarp * 16, bk_bytes = kGeneTiles * NK * kWarp * 16;
@@ -611,14 +622,15 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
         if (with_exp)  // drfe's B for the pass's d(muL) tiles
           for (int i = threadIdx.x; i < (nt - ns) * kWarp; i += blockDim.x)
             cp_async<16>(bt + (ct * NT + ns) * kWarp + i, sc + (tile0 + ns) * kWarp + i, src);
-        for (int i = threadIdx.x; i < nt * kWarp; i += blockDim.x)
-          cp_async<16>(bn + ct * NT * kWarp + i, sc + (tiles + tile0) * kWarp + i, src);
+        if (own)
+          for (int i = threadIdx.x; i < nt * kWarp; i += blockDim.x)
+            cp_async<16>(bn + ct * NT * kWarp + i, sc + (tiles + tile0) * kWarp + i, src);
         if (with_dw)
           for (int i = threadIdx.x; i < NK * kWarp; i += blockDim.x)
-            cp_async<16>(bk + ct * NK * kWarp + i, sc + 2 * tiles * kWarp + i, src);
+            cp_async<16>(bk + ct * NK * kWarp + i, sc + (2 * tiles + kt0) * kWarp + i, src);
         if (with_exp)
           for (int i = threadIdx.x; i < Kf * 4; i += blockDim.x)
-            cp_async<16>(pl + ct * Kf * 4 + i, sc + (2 * tiles + NK) * kWarp + i, src);
+            cp_async<16>(pl + ct * Kf * 4 + i, sc + (2 * tiles + nk_all) * kWarp + i, src);
       }
       if (q == 0)
         for (int i = threadIdx.x; i < kGeneCells / 2; i += blockDim.x)
@@ -704,13 +716,15 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
         const double ra[4] = {rf[0], rf[2], rf[1], rf[3]};
         const double ya[4] = {y[0], y[2], y[1], y[3]};
         const double da[4] = {d[0], d[2], d[1], d[3]};
+        if (own) {
 #pragma unroll
-        for (int c = 0; c < NT; ++c) {
-          const double2 b = bn[(ct * NT + c) * kWarp + lane];
-          if (c < ns)
-            dmma(acc[c], ya, b);
-          else if (c < nt)
-            dmma(acc[c], ra, b);
+          for (int c = 0; c < NT; ++c) {
+            const double2 b = bn[(ct * NT + c) * kWarp + lane];
+            if (c < ns)
+              dmma(acc[c], ya, b);
+            else if (c < nt)
+              dmma(acc[c], ra, b);
+          }
         }
         if (with_dw) {
 #pragma unroll
@@ -722,7 +736,7 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
     // the pass's tiles: C (gene0 / gene1, columns 2t, 2t + 1)
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
-      if (c >= nt) continue;
+      if (c >= nt || !own) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int gene = e < 2 ? gene0 : gene1, col = 8 * (tile0 + c) + 2 * t + (e & 1);
@@ -739,7 +753,7 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
       for (int kt = 0; kt < NK; ++kt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int gene = e < 2 ? gene0 : gene1, k = 8 * kt + 2 * t + (e & 1);
+          const int gene = e < 2 ? gene0 : gene1, k = 8 * (kt0 + kt) + 2 * t + (e & 1);
           if (gene >= G || k >= Kf) continue;
           double* o = out + (size_t)k * G + gene;
           *o = q == 0 ? dw[kt][e] : *o + dw[kt][e];
@@ -792,7 +806,8 @@ __global__ void fwd_f64_pack_kernel(const double* __restrict__ W, const double* 
 // of every tile ([tile][lane]: dZ^T at j = 8 jt + t, + 4 and cell 8ct + g,
 // jt the d(muL) tile, zero for dlog mu's), the tiles' own ([tile][lane]:
 // cells 8ct + 2t, + 1 at column 8 tile + g of [dA2 (st tiles) | dZ]), dW's
-// ([kt][lane]: psi at those cells, column 8 kt + g) and psi's for log_rfe
+// (nk tiles, every group's; [kt][lane]: psi at those cells, column 8 kt +
+// g) and psi's for log_rfe
 // ([k][t]); then dA1 of the 32 cells. Zero past N and every width.
 __global__ void gene_f64_pack_kernel(const double* __restrict__ psi, const double* __restrict__ dA1,
                                      const double* __restrict__ dA2, const double* __restrict__ dZ,
@@ -845,9 +860,9 @@ __global__ void gene_f64_pack_kernel(const double* __restrict__ psi, const doubl
 // of the k-step at columns 8 tile + t and + 4), W for dpsi += t W (nk
 // tiles, the k-step's genes in C-to-A order; lane (g, t): genes 2t and 2t
 // + 1 at column 8 kc + g, so entry 4k + t of the first tile is also the
-// pair log_rfe's FMAs take at column k) and, past Kf 8, W^T for log_rfe
-// (nk tiles; lane (g, t): gene g at columns 8 kc + t and + 4). Zero past G
-// and every width.
+// pair log_rfe's FMAs take at column k; every output group's in turn) and,
+// past Kf 8, W^T for log_rfe (the rest of the k-step's tiles; lane (g, t):
+// gene g at columns 8 kc + t and + 4). Zero past G and every width.
 __global__ void dpsi_f64_pack_kernel(const double* __restrict__ W, const double* __restrict__ muL,
                                      double2* __restrict__ table, int G, int Kf, int SC,
                                      int nz_all, int nk, int tiles, long long n) {
@@ -881,23 +896,28 @@ __global__ void dpsi_f64_pack_kernel(const double* __restrict__ W, const double*
 // [psi, X]'s columns. Dynamic shared memory: each warp's psi (NK == 1:
 // [k][g] pairs of rows g, g + 8 for k < 8; else A fragments
 // [kc][half][lane], half 1 the columns + 4), then two stages of `steps`
-// k-steps of [the group's NZ muL^T tiles | NK W tiles | NK W^T tiles where
-// NK > 1][lane] pairs.
+// k-steps of [the group's NZ muL^T tiles | NK W tiles | LR W^T tiles where
+// NK > 1][lane] pairs. Past 8 tiles of [psi, X] (LRW), blockIdx.y picks a
+// group of NK output tiles (of gridDim.y), and log_rfe takes LR = every
+// tile, with psi's A fragments of all of them.
 // ---------------------------------------------------------------------------
-template <int NK, int NZ>
+template <int NK, int NZ, bool LRW>
 __global__ void __launch_bounds__(kDpsiWarps * kWarp, dpsi_min_blocks(NK, NZ))
 dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ dZ,
                 const double* __restrict__ dA1, const double* __restrict__ YW,
                 const double2* __restrict__ table, double* __restrict__ dpsi, int N, int G, int Kf,
                 int SC, int groups, int steps) {
-  constexpr int RW = NZ + NK + dpsi_lr_tiles(NK);  // tiles a k-step of a stage
+  const int LR = LRW ? (Kf + 7) / 8 : dpsi_lr_tiles(NK);  // log_rfe's W^T tiles
+  const int PL = LRW ? LR : NK;                          // psi's tiles in shared memory
+  const int RW = NZ + NK + LR;                           // tiles a k-step of a stage
+  const int kg = LRW ? (int)blockIdx.y : 0, nk_all = LRW ? (int)gridDim.y * NK : NK;
   extern __shared__ __align__(16) unsigned char s_dyn[];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = (blockIdx.x * kDpsiWarps + warp) * 16, n0 = row0 + g, n1 = n0 + 8;
-  const int tab_tiles = groups * NZ + NK + dpsi_lr_tiles(NK);  // a k-step's in the table
-  double2* s_psi = reinterpret_cast<double2*>(s_dyn) + warp * 2 * NK * kWarp;
-  double2* s_stage = reinterpret_cast<double2*>(s_dyn) + kDpsiWarps * 2 * NK * kWarp;
+  const int tab_tiles = groups * NZ + nk_all + LR;  // a k-step's in the table
+  double2* s_psi = reinterpret_cast<double2*>(s_dyn) + warp * 2 * PL * kWarp;
+  double2* s_stage = reinterpret_cast<double2*>(s_dyn) + kDpsiWarps * 2 * PL * kWarp;
 
   // psi of the warp's rows (read after the first stage's barrier)
   if constexpr (NK == 1) {
@@ -908,7 +928,7 @@ dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ dZ,
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 2 * NK; ++i) {
+    for (int i = 0; i < 2 * PL; ++i) {
       const int k = 8 * (i >> 1) + t + 4 * (i & 1);
       s_psi[i * kWarp + lane] = make_double2(n0 < N && k < Kf ? psi[(size_t)n0 * Kf + k] : 0.0,
                                              n1 < N && k < Kf ? psi[(size_t)n1 * Kf + k] : 0.0);
@@ -943,7 +963,9 @@ dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ dZ,
       double2* dst = s_stage + (size_t)buf * stage_tiles;
       for (int i = threadIdx.x; i < stage_tiles; i += blockDim.x) {
         const int l = i % kWarp, r = i / kWarp % RW, ks = i / (kWarp * RW);
-        const int tile = r < NZ ? grp * NZ + r : groups * NZ + r - NZ;
+        const int tile = r < NZ        ? grp * NZ + r
+                         : r < NZ + NK ? groups * NZ + kg * NK + r - NZ
+                                       : groups * NZ + nk_all + r - NZ - NK;
         cp_async<16>(dst + i, table + ((size_t)(s * steps + ks) * tab_tiles + tile) * kWarp + l,
                      table);
       }
@@ -989,7 +1011,7 @@ dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ dZ,
           }
         } else {
 #pragma unroll
-          for (int kc = 0; kc < NK; ++kc) {
+          for (int kc = 0; kc < LR; ++kc) {
             const double2 lo = s_psi[2 * kc * kWarp + lane];
             const double2 hi = s_psi[(2 * kc + 1) * kWarp + lane];
             const double a[4] = {lo.x, lo.y, hi.x, hi.y};
@@ -1013,7 +1035,7 @@ dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ dZ,
   for (int kc = 0; kc < NK; ++kc)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int n = e < 2 ? n0 : n1, k = 8 * kc + 2 * t + (e & 1);
+      const int n = e < 2 ? n0 : n1, k = 8 * (kg * NK + kc) + 2 * t + (e & 1);
       if (n < N && k < Kf)
         dpsi[(size_t)n * Kf + k] = fma(dA1[n], YW[(size_t)n * Kf + k], acc[kc][e]);
     }
@@ -1037,8 +1059,18 @@ inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 inline long long fwd_smem(int Kf, int nt) {
   return 8LL * (kFwdWarps * 16 * Kf + 2LL * kFwdGenes * (8 * nt + Kf)) + 2LL * kFwdYStageBytes;
 }
-inline long long dpsi_smem(int nk, int nz, int steps) {
-  return 16LL * kWarp * (kDpsiWarps * 2 * nk + 2LL * steps * (nz + nk + dpsi_lr_tiles(nk)));
+// dpsi's output groups past 8 tiles of [psi, X], and log_rfe's W^T tiles
+// (every tile where there are groups)
+inline int dpsi_kgroups(int Kf, int nk) {
+  const int tiles = (Kf + 7) / 8;
+  return tiles > nk ? (tiles + nk - 1) / nk : 1;
+}
+inline int dpsi_lr(int Kf, int nk) {
+  return dpsi_kgroups(Kf, nk) > 1 ? (Kf + 7) / 8 : dpsi_lr_tiles(nk);
+}
+inline long long dpsi_smem(int Kf, int nk, int nz, int steps) {
+  const int lr = dpsi_lr(Kf, nk), pl = dpsi_kgroups(Kf, nk) > 1 ? lr : nk;
+  return 16LL * kWarp * (kDpsiWarps * 2 * pl + 2LL * steps * (nz + nk + lr));
 }
 inline long long gene_smem(int Kf, int nt, int nk) {
   return 8LL * (kGeneWarps * 16 * Kf + 2LL * (kGeneCells * (16LL * nt + 8 * nk + Kf) + kGeneCells)) +
@@ -1057,9 +1089,16 @@ inline long long gene_table(int N, int Kf, int tiles, int nk) {
          (kGeneTiles * ((2LL * tiles + nk) * kWarp + Kf * 4) + kGeneCells / 2);
 }
 
-inline int dpsi_tiles(int nk, int nz, int groups) { return groups * nz + nk + dpsi_lr_tiles(nk); }
-inline long long dpsi_table(int G, int nk, int nz, int groups, int steps) {
-  return 2LL * cdiv(G, 8 * steps) * steps * dpsi_tiles(nk, nz, groups) * kWarp;
+inline int dpsi_tiles(int Kf, int nk, int nz, int groups) {
+  return groups * nz + dpsi_kgroups(Kf, nk) * nk + dpsi_lr(Kf, nk);
+}
+inline long long dpsi_table(int G, int Kf, int nk, int nz, int groups, int steps) {
+  return 2LL * cdiv(G, 8 * steps) * steps * dpsi_tiles(Kf, nk, nz, groups) * kWarp;
+}
+// dW's column groups of the gene part (a launch each): past nk tiles of [psi, X]
+inline int gene_wgroups(int Kf, int nk) {
+  const int tiles = (Kf + 7) / 8;
+  return tiles > nk ? (tiles + nk - 1) / nk : 1;
 }
 
 // The least of the built counts c[0..n) that is >= v (else the largest).
@@ -1079,8 +1118,8 @@ inline int gene_tile_counts(int nk, const int** c) {
 }
 
 bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int y_type) {
-  return N < 1 || G < 1 || Kf < 0 || Kf > kMaxKf || nA2 < 0 || nA2 > kMaxA2 || SC < 1 ||
-         SC > kMaxSC || y_type < kYF64 || y_type > kYI8;
+  return N < 1 || G < 1 || Kf < 0 || Kf > kMaxWidth || nA2 < 0 || nA2 > kMaxWidth || SC < 1 ||
+         SC > kMaxWidth || y_type < kYF64 || y_type > kYI8;
 }
 
 // The plan ops/fused_likelihood.py's f64_plan made (its F64_PLAN_KEYS, in
@@ -1119,14 +1158,15 @@ bool plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Plan& p)
          p.f_blocks == cdiv(N, 16 * kFwdWarps) && p.f_smem == fwd_smem(Kf, p.f_nt) &&
          p.f_smem <= kMaxSmem &&
          p.d_nk == least_count(kDpsiKCounts, kDpsiK, Kf > 8 ? cdiv(Kf, 8) : 1) &&
-         8 * p.d_nk >= Kf && p.d_groups == cdiv(zt, kDpsiZCounts[kDpsiZ - 1]) &&
+         dpsi_kgroups(Kf, p.d_nk) <= 65535 && p.d_groups == cdiv(zt, kDpsiZCounts[kDpsiZ - 1]) &&
          p.d_nz == least_count(kDpsiZCounts, kDpsiZ, cdiv(zt, p.d_groups)) &&
          (long long)p.d_nz * p.d_groups >= zt &&
-         p.d_steps == (dpsi_smem(p.d_nk, p.d_nz, 4) <= kTwoBlockSmem ? 4 : 2) &&
+         p.d_steps == (dpsi_smem(Kf, p.d_nk, p.d_nz, 4) <= kTwoBlockSmem ? 4 : 2) &&
          p.d_blocks == cdiv(N, 16 * kDpsiWarps) &&
-         p.d_smem == dpsi_smem(p.d_nk, p.d_nz, p.d_steps) && p.d_smem <= kMaxSmem &&
+         p.d_smem == dpsi_smem(Kf, p.d_nk, p.d_nz, p.d_steps) && p.d_smem <= kMaxSmem &&
          p.g_st == cdiv(nA2, 8) && p.g_tiles == p.g_st + zt &&
          p.g_nk == least_count(kGeneKCounts, 3, Kf > 8 ? cdiv(Kf, 8) : 1) && n_gc > 0 &&
+         gene_wgroups(Kf, p.g_nk) <= 65535 &&
          p.g_passes == cdiv(p.g_tiles, gc[n_gc - 1]) && p.g_count == cdiv(p.g_tiles, p.g_passes) &&
          p.g_nt == least_count(gc, n_gc, p.g_count) && p.g_nt >= p.g_count &&
          p.g_blocks == cdiv(G, 16 * kGeneWarps) && p.rows >= kGeneCells &&
@@ -1134,32 +1174,34 @@ bool plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Plan& p)
          p.g_smem == gene_smem(Kf, p.g_nt, p.g_nk) && p.g_smem <= kMaxSmem &&
          p.part >= (size_t)p.n_chunks * F * G && p.part % 2 == 0 &&
          p.f_table >= (size_t)fwd_table(G, Kf, p.f_tiles) &&
-         p.g_table >= (size_t)gene_table(N, Kf, p.g_tiles, p.g_nk) &&
-         p.d_table >= (size_t)dpsi_table(G, p.d_nk, p.d_nz, p.d_groups, p.d_steps);
+         p.g_table >= (size_t)gene_table(N, Kf, p.g_tiles, gene_wgroups(Kf, p.g_nk) * p.g_nk) &&
+         p.d_table >= (size_t)dpsi_table(G, Kf, p.d_nk, p.d_nz, p.d_groups, p.d_steps);
 }
 
 #if F64_COMMON
 using DpsiKernel = void (*)(const double*, const double*, const double*, const double*,
                             const double2*, double*, int, int, int, int, int, int);
 
-// The instantiation a plan names (plan_of has checked its counts).
-template <int NK>
+// The instantiation a plan names (plan_of has checked its counts): LRW
+// where dpsi's columns go in groups (d_nk is then 8).
+template <int NK, bool LRW>
 DpsiKernel dpsi_kernel_nz(int nz) {
   switch (nz) {
-    case 1: return dpsi_f64_kernel<NK, 1>;
-    case 2: return dpsi_f64_kernel<NK, 2>;
-    case 4: return dpsi_f64_kernel<NK, 4>;
-    case 6: return dpsi_f64_kernel<NK, 6>;
-    case 8: return dpsi_f64_kernel<NK, 8>;
-    default: return dpsi_f64_kernel<NK, 10>;
+    case 1: return dpsi_f64_kernel<NK, 1, LRW>;
+    case 2: return dpsi_f64_kernel<NK, 2, LRW>;
+    case 4: return dpsi_f64_kernel<NK, 4, LRW>;
+    case 6: return dpsi_f64_kernel<NK, 6, LRW>;
+    case 8: return dpsi_f64_kernel<NK, 8, LRW>;
+    default: return dpsi_f64_kernel<NK, 10, LRW>;
   }
 }
-DpsiKernel dpsi_kernel_of(const Plan& p) {
+DpsiKernel dpsi_kernel_of(const Plan& p, int Kf) {
+  if (dpsi_kgroups(Kf, p.d_nk) > 1) return dpsi_kernel_nz<8, true>(p.d_nz);
   switch (p.d_nk) {
-    case 1: return dpsi_kernel_nz<1>(p.d_nz);
-    case 2: return dpsi_kernel_nz<2>(p.d_nz);
-    case 4: return dpsi_kernel_nz<4>(p.d_nz);
-    default: return dpsi_kernel_nz<8>(p.d_nz);
+    case 1: return dpsi_kernel_nz<1, false>(p.d_nz);
+    case 2: return dpsi_kernel_nz<2, false>(p.d_nz);
+    case 4: return dpsi_kernel_nz<4, false>(p.d_nz);
+    default: return dpsi_kernel_nz<8, false>(p.d_nz);
   }
 }
 #endif  // F64_COMMON
@@ -1177,7 +1219,7 @@ template <int YT>
 using GeneKernel = void (*)(const typename Y64<YT>::Elem*, const double*, const double*,
                             const double*, const double*, const double*, const double*,
                             const double2*, double*, int, int, int, int, int, int, int, int, int,
-                            bool);
+                            bool, int, int);
 
 // The instantiation a plan names (plan_of has checked its counts).
 template <int YT>
@@ -1193,24 +1235,26 @@ FwdKernel<YT> fwd_kernel_of(const Plan& p) {
   }
 }
 template <int YT>
-GeneKernel<YT> gene_kernel_of(const Plan& p) {
+GeneKernel<YT> gene_kernel_of(const Plan& p, int Kf) {
   if (p.g_nk == 1) {
     switch (p.g_nt) {
-      case 1: return gene_f64_kernel<YT, 1, 1>;
-      case 2: return gene_f64_kernel<YT, 2, 1>;
-      case 3: return gene_f64_kernel<YT, 3, 1>;
-      case 4: return gene_f64_kernel<YT, 4, 1>;
-      default: return gene_f64_kernel<YT, 5, 1>;
+      case 1: return gene_f64_kernel<YT, 1, 1, false>;
+      case 2: return gene_f64_kernel<YT, 2, 1, false>;
+      case 3: return gene_f64_kernel<YT, 3, 1, false>;
+      case 4: return gene_f64_kernel<YT, 4, 1, false>;
+      default: return gene_f64_kernel<YT, 5, 1, false>;
     }
   }
   if (p.g_nk == 2) {
     switch (p.g_nt) {
-      case 1: return gene_f64_kernel<YT, 1, 2>;
-      case 2: return gene_f64_kernel<YT, 2, 2>;
-      default: return gene_f64_kernel<YT, 4, 2>;
+      case 1: return gene_f64_kernel<YT, 1, 2, false>;
+      case 2: return gene_f64_kernel<YT, 2, 2, false>;
+      default: return gene_f64_kernel<YT, 4, 2, false>;
     }
   }
-  return p.g_nt == 1 ? gene_f64_kernel<YT, 1, 8> : gene_f64_kernel<YT, 2, 8>;
+  if (gene_wgroups(Kf, p.g_nk) > 1)  // dW's columns in groups
+    return p.g_nt == 1 ? gene_f64_kernel<YT, 1, 8, true> : gene_f64_kernel<YT, 2, 8, true>;
+  return p.g_nt == 1 ? gene_f64_kernel<YT, 1, 8, false> : gene_f64_kernel<YT, 2, 8, false>;
 }
 
 template <int YT>
@@ -1230,23 +1274,25 @@ void gene_typed(const GeneArgs& a) {
   using Elem = typename Y64<YT>::Elem;
   const Elem* Y = static_cast<const Elem*>(a.Y);
   const bool vec = a.G % 8 == 0 && reinterpret_cast<uintptr_t>(Y) % 16 == 0;
-  const GeneKernel<YT> kernel = gene_kernel_of<YT>(a.plan);
+  const GeneKernel<YT> kernel = gene_kernel_of<YT>(a.plan, a.Kf);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.plan.g_smem);
-  kernel<<<dim3(a.plan.g_blocks, a.plan.n_chunks), kGeneWarps * kWarp, a.plan.g_smem,
-           a.stream>>>(Y, a.psi, a.W, a.muL, a.dA1, a.dA2, a.dZ, a.table, a.part, a.N, a.G,
-                       a.Kf, a.nA2, a.SC, a.plan.rows, a.plan.g_st, a.plan.g_count,
-                       a.plan.g_passes, vec);
+  const int groups = gene_wgroups(a.Kf, a.plan.g_nk), nk_all = groups * a.plan.g_nk;
+  for (int z = 0; z < groups; ++z)  // dW's column groups, the first writing the rest
+    kernel<<<dim3(a.plan.g_blocks, a.plan.n_chunks), kGeneWarps * kWarp, a.plan.g_smem,
+             a.stream>>>(Y, a.psi, a.W, a.muL, a.dA1, a.dA2, a.dZ, a.table, a.part, a.N, a.G,
+                         a.Kf, a.nA2, a.SC, a.plan.rows, a.plan.g_st, a.plan.g_count,
+                         a.plan.g_passes, vec, z * a.plan.g_nk, nk_all);
 }
 
 template <int YT>
-int blocks_per_sm(int which, const Plan& p) {
+int blocks_per_sm(int which, const Plan& p, int Kf) {
   int blocks = 0;
   if (which == 0) {
     const FwdKernel<YT> kernel = fwd_kernel_of<YT>(p);
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.f_smem);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFwdWarps * kWarp, p.f_smem);
   } else {
-    const GeneKernel<YT> kernel = gene_kernel_of<YT>(p);
+    const GeneKernel<YT> kernel = gene_kernel_of<YT>(p, Kf);
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.g_smem);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kGeneWarps * kWarp, p.g_smem);
   }
@@ -1257,22 +1303,22 @@ int blocks_per_sm(int which, const Plan& p) {
 #if F64_TYPED(0)
 template void forward_typed<kYF64>(const FwdArgs&);
 template void gene_typed<kYF64>(const GeneArgs&);
-template int blocks_per_sm<kYF64>(int, const Plan&);
+template int blocks_per_sm<kYF64>(int, const Plan&, int);
 #endif
 #if F64_TYPED(1)
 template void forward_typed<kYBF16>(const FwdArgs&);
 template void gene_typed<kYBF16>(const GeneArgs&);
-template int blocks_per_sm<kYBF16>(int, const Plan&);
+template int blocks_per_sm<kYBF16>(int, const Plan&, int);
 #endif
 #if F64_TYPED(2)
 template void forward_typed<kYI16>(const FwdArgs&);
 template void gene_typed<kYI16>(const GeneArgs&);
-template int blocks_per_sm<kYI16>(int, const Plan&);
+template int blocks_per_sm<kYI16>(int, const Plan&, int);
 #endif
 #if F64_TYPED(3)
 template void forward_typed<kYI8>(const FwdArgs&);
 template void gene_typed<kYI8>(const GeneArgs&);
-template int blocks_per_sm<kYI8>(int, const Plan&);
+template int blocks_per_sm<kYI8>(int, const Plan&, int);
 #endif
 
 }  // namespace fl64
@@ -1322,13 +1368,14 @@ int fl64_backward_dpsi(const double* psi, const double* W, const double* muL, co
   if (bad_sizes(N, G, Kf, 0, SC, kYF64) || !plan_of(plan, N, G, Kf, 0, SC, p))
     return (int)cudaErrorInvalidValue;
   if (Kf == 0) return (int)cudaSuccess;
-  const long long n = dpsi_table(G, p.d_nk, p.d_nz, p.d_groups, p.d_steps) / 2;
+  const long long n = dpsi_table(G, Kf, p.d_nk, p.d_nz, p.d_groups, p.d_steps) / 2;
+  const int kgroups = dpsi_kgroups(Kf, p.d_nk);
   dpsi_f64_pack_kernel<<<(int)cdiv(n, 256), 256, 0, stream>>>(
-      W, muL, reinterpret_cast<double2*>(table), G, Kf, SC, p.d_groups * p.d_nz, p.d_nk,
-      dpsi_tiles(p.d_nk, p.d_nz, p.d_groups), n);
-  const DpsiKernel kernel = dpsi_kernel_of(p);
+      W, muL, reinterpret_cast<double2*>(table), G, Kf, SC, p.d_groups * p.d_nz,
+      kgroups * p.d_nk, dpsi_tiles(Kf, p.d_nk, p.d_nz, p.d_groups), n);
+  const DpsiKernel kernel = dpsi_kernel_of(p, Kf);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.d_smem);
-  kernel<<<p.d_blocks, kDpsiWarps * kWarp, p.d_smem, stream>>>(
+  kernel<<<dim3(p.d_blocks, kgroups), kDpsiWarps * kWarp, p.d_smem, stream>>>(
       psi, dZ, dA1, YW, reinterpret_cast<const double2*>(table), dpsi, N, G, Kf, SC, p.d_groups,
       p.d_steps);
   return (int)cudaGetLastError();
@@ -1347,10 +1394,11 @@ int fl64_backward_gene(const void* Y, const double* psi, const double* W, const 
   if (bad_sizes(N, G, Kf, nA2, SC, y_type) || !plan_of(plan, N, G, Kf, nA2, SC, p))
     return (int)cudaErrorInvalidValue;
   double* table = scratch + p.part;
-  const long long n = gene_table(N, Kf, p.g_tiles, p.g_nk) / 2;
+  const int nk_all = gene_wgroups(Kf, p.g_nk) * p.g_nk;
+  const long long n = gene_table(N, Kf, p.g_tiles, nk_all) / 2;
   gene_f64_pack_kernel<<<(int)cdiv(n, 256), 256, 0, stream>>>(
       psi, dA1, dA2, dZ, reinterpret_cast<double2*>(table), N, Kf, nA2, SC, p.g_st, p.g_tiles,
-      p.g_nk, n);
+      nk_all, n);
   const GeneArgs a{Y,  psi, W,  muL, dA1, dA2, dZ, scratch, reinterpret_cast<const double2*>(table),
                    N,  G,   Kf, nA2, SC,  p,   stream};
   switch (y_type) {
@@ -1375,7 +1423,7 @@ int fl64_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC,
   if (bad_sizes(N, G, Kf, nA2, SC, y_type) || !plan_of(plan, N, G, Kf, nA2, SC, p))
     return (int)cudaErrorInvalidValue;
   int blocks = 0;
-  const DpsiKernel dpsi_kernel = dpsi_kernel_of(p);
+  const DpsiKernel dpsi_kernel = dpsi_kernel_of(p, Kf);
   cudaFuncSetAttribute(dpsi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.d_smem);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dpsi_kernel, kDpsiWarps * kWarp,
                                                 p.d_smem);
@@ -1384,10 +1432,10 @@ int fl64_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC,
   for (int which = 0; which < 2; ++which) {
     const int smem = which == 0 ? p.f_smem : p.g_smem;
     switch (y_type) {
-      case kYF64: blocks = blocks_per_sm<kYF64>(which, p); break;
-      case kYBF16: blocks = blocks_per_sm<kYBF16>(which, p); break;
-      case kYI16: blocks = blocks_per_sm<kYI16>(which, p); break;
-      default: blocks = blocks_per_sm<kYI8>(which, p);
+      case kYF64: blocks = blocks_per_sm<kYF64>(which, p, Kf); break;
+      case kYBF16: blocks = blocks_per_sm<kYBF16>(which, p, Kf); break;
+      case kYI16: blocks = blocks_per_sm<kYI16>(which, p, Kf); break;
+      default: blocks = blocks_per_sm<kYI8>(which, p, Kf);
     }
     out[4 * which] = smem;
     out[4 * which + 1] = blocks;

@@ -22,14 +22,16 @@ between the two: a CUDA tensor the kernels do not take raises.
 The kernels above are built for at most ``MAX_KF`` columns of ``[psi, X]``,
 ``MAX_A2`` A2 columns and ``MAX_SC`` Z columns. Past any of those limits
 (:func:`wide_route`) each wrapper launches the wide family instead, with
-runtime widths up to ``WIDE_MAX_KF``, ``WIDE_MAX_A2`` and ``WIDE_MAX_SC`` (the
-counterparts of the Pallas kernels' ``jnp.dot`` branches), counted apart in
-``*_wide_launches``: the forward (Z, and Y's products), the Y-free dpsi
-kernel and the gene part, all on tensor cores (the contract as unnormalized
-attention).
-:func:`wide_plan` gives their launch geometry and workspace, which the C
-launchers take and check. The plain versions take any width and
-are the wide family's too.
+runtime widths (the counterparts of the Pallas kernels' ``jnp.dot``
+branches, which take any width), counted apart in ``*_wide_launches``: the
+forward (Z, and Y's products), the Y-free dpsi kernel and the gene part,
+all on tensor cores (the contract as unnormalized attention). Widths past
+what a block's accumulators hold go in column groups or passes, each
+recomputing the exps it needs. :func:`wide_plan` gives their launch
+geometry and workspace, which the C launchers take and check; it raises a
+ValueError where a width's shared memory would pass the card's
+(``MAX_SMEM`` a block): it takes Kf = K + P up to 160 at every S and S*C.
+The plain versions take any width and are the wide family's too.
 
 Float64 operands (``dtype="float64"`` fits, the oracle configuration) go
 to a family of their own, ``csrc/fused_likelihood_f64.cu``: the forward
@@ -38,10 +40,11 @@ to a family of their own, ``csrc/fused_likelihood_f64.cu``: the forward
 (``gene_f64_pack_kernel`` + ``gene_f64_kernel`` +
 ``reduce_chunks_f64_kernel``), float64 throughout: every product on the
 FP64 tensor cores, the exps on the CUDA cores; one family for every width
-up to the wide bound (no narrow/wide split), counted apart in
+(no narrow/wide split), counted apart in
 ``*_f64_launches``.
 :func:`f64_plan` gives their launch geometry and workspace, which the C
-entry points take and check. Nothing on that path runs in float32.
+entry points take and check (and raises where the shared memory would pass
+the card's: it takes Kf up to 139). Nothing on that path runs in float32.
 
 Y may be stored narrow (``Y_DTYPES``: float32, bfloat16, int16 or int8;
 ``api.py``'s ``y_storage``; under float64 ``Y_DTYPES_F64``: float64,
@@ -64,11 +67,6 @@ import torch
 MAX_KF = 4   # psi_ext columns the narrow kernels take
 MAX_A2 = 4   # A2 columns (Monte Carlo samples) the narrow kernels take
 MAX_SC = 32  # Z columns (samples x clones) the narrow kernels take
-# ... and the wide family (fwd_wide_kernel, dpsi_wide_kernel,
-# gene_wide_kernel), which takes the widths past any narrow limit
-WIDE_MAX_KF = 64
-WIDE_MAX_A2 = 64
-WIDE_MAX_SC = 2048
 # The wide forward's and gene part's tiles (the .cu's kWideTiles,
 # kWideTileCounts, kWideYTileCounts, kFwdWideGenes and kGeneWideCells):
 # accumulator tiles of 8 columns a warp holds at most, the tile counts the
@@ -240,15 +238,9 @@ def _check(name, t, shape, dtypes):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _check_sizes(N, G, Kf, SC, n_a2):
-    if N < 1 or G < 1:
-        raise ValueError(f"the CUDA kernels need N, G >= 1, got N={N}, G={G}")
-    if Kf > WIDE_MAX_KF or n_a2 > WIDE_MAX_A2 or not 1 <= SC <= WIDE_MAX_SC:
-        raise ValueError(
-            f"the CUDA kernels (the wide family past {MAX_KF}, {MAX_A2} and {MAX_SC}) "
-            f"take at most {WIDE_MAX_KF} latent columns, {WIDE_MAX_A2} samples and "
-            f"{WIDE_MAX_SC} sample x clone columns; got Kf={Kf}, S={n_a2}, S*C={SC}"
-        )
+def _check_sizes(N, G, SC):
+    if N < 1 or G < 1 or SC < 1:
+        raise ValueError(f"the CUDA kernels need N, G, S*C >= 1, got N={N}, G={G}, S*C={SC}")
 
 
 def _chunk_rows(N: int) -> int:
@@ -271,7 +263,35 @@ def _at_least(counts, t: int) -> int:
 WIDE_PLAN_KEYS = ("n_kc", "n_zt", "n_yt", "n_st", "g_pad", "zt_group", "n_zgroups", "ny_pad",
                   "rows", "n_chunks", "n_pad", "nj", "mu_passes", "y_pass", "n_passes",
                   "table", "part", "dz", "ps", "a2", "a1",
-                  "dk_pad", "dz_group", "n_dgroups", "dsteps", "dtable")
+                  "dk_pad", "dz_group", "n_dgroups", "dsteps", "dtable",
+                  "n_ygroups", "a1_parts", "a1part", "n_kgroups", "dk_lr", "n_kw", "n_wgroups")
+# The most dynamic shared memory a block may take on the card (227 KB).
+MAX_SMEM = 232_448
+
+
+def _wide_smem(p: dict) -> dict:
+    """Each wide kernel's dynamic shared memory in bytes under plan p (the
+    .cu's fwd_wide_smem, fwd_wide_y_smem and gene_wide_smem at float32 Y,
+    the widest storage, and dpsi_wide_smem), and the forward's k-steps a
+    stage."""
+    n_kc, nz, ny, nj = p["n_kc"], p["zt_group"], p["ny_pad"], p["nj"]
+
+    def groups(tiles):  # past 10 tiles two warps share a row group
+        return 4 if tiles > 10 else 8
+
+    def fwd(steps):
+        a = groups(nz) * steps * 2 * 32 if nz > 10 else 0
+        return 16 * (groups(nz) * n_kc * 2 * 32 + 2 * steps * (n_kc + nz) * 32 + a)
+
+    steps = 4 if fwd(4) <= _TWO_BLOCK_SMEM else 2
+    y_stage = 4 * ny * 32 + groups(ny) * 16 * (32 * 4 + 16) // 16
+    a2_tiles = min(p["n_st"], nj) if p["y_pass"] else p["n_st"]
+    strides = (8 * nj + 4) + (8 * n_kc + 4) + (8 * a2_tiles + 4 if p["n_st"] else 0)
+    g_stage = (2 * _GENE_WIDE_CELLS * strides + _GENE_WIDE_CELLS) // 4 + _GENE_WIDE_CELLS * (64 * 4 + 16) // 16
+    dpsi = 16 * (_DPSI_WIDE_WARPS * (p["dk_lr"] + 2 * p["dk_pad"]) * 32
+                 + 2 * p["dsteps"] * (p["dk_lr"] + p["dk_pad"] + p["dz_group"]) * 32)
+    return dict(fwd=fwd(steps), fwd_steps=steps, fwd_y=16 * 2 * y_stage,
+                gene=16 * (4 * (n_kc + 2 * nj) * 32 + 2 * g_stage), dpsi=dpsi)
 
 
 def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] = None) -> dict:
@@ -288,61 +308,103 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] =
 
     Forward: Z's tiles split evenly into ``n_zgroups`` column groups of at
     most ``WIDE_TILES`` (grid.y of ``fwd_wide_kernel``; each recomputes the
-    exps), each padded to ``zt_group``; the Y products' tiles, padded to
-    ``ny_pad``, in ``fwd_wide_y_kernel``'s one read of Y. Gene part: chunks
-    of ``rows`` cells (:func:`_chunk_rows`), each a block row of partial
-    sums; ``mu_passes`` passes over dZ's tiles, ``nj`` tiles each beside
-    dW's ``n_kc`` (and dlog mu's ``n_st`` in the first pass, unless they
-    leave no room: then Y's products take a first pass of their own,
-    ``y_pass``, where dlog mu takes d(muL)'s first ``n_st`` tiles, so ``nj``
-    is at least ``n_st``), ``n_passes`` in all. dpsi: ``[psi, X]``'s tiles
-    padded to ``dk_pad`` (``WIDE_DPSI_K_COUNTS``), dZ's tiles split evenly
-    into ``n_dgroups`` column groups of at most 10 (one after another in a
-    block, each recomputing the exps), each padded to ``dz_group``
-    (``WIDE_DPSI_Z_COUNTS``); ``dsteps`` k-steps of 8 genes a stage, 4
-    unless that leaves room for one block an SM (``dpsi_smem`` bytes of
-    shared memory a block).
+    exps), each padded to ``zt_group``; the Y products' tiles split evenly
+    into ``n_ygroups`` groups of at most 16 (grid.y of ``fwd_wide_y_kernel``,
+    each a read of Y), each padded to ``ny_pad``. Where one warp holds
+    every column of Y W, it writes A1; else (``a1_parts`` > 0) each warp
+    writes its columns' share to a row of ``a1part`` and the entry point
+    adds the rows. Gene part: chunks of ``rows`` cells (:func:`_chunk_rows`),
+    each a block row of partial sums; dW's tiles in ``n_wgroups`` groups of
+    ``n_kw`` (at most 8; a launch each: past 64 columns each group
+    recomputes what the first computes, and only the first writes d(muL)
+    and dlog mu);
+    ``mu_passes`` passes over dZ's tiles, ``nj`` tiles each beside dW's
+    ``n_kw`` (and dlog mu's ``n_st`` in the first pass, unless they leave no
+    room: then dlog mu takes ``y_pass`` passes of its own first, at most
+    ``nj`` of d(muL)'s tiles each), ``n_passes`` in all. dpsi: ``[psi,
+    X]``'s tiles padded to ``dk_pad`` (``WIDE_DPSI_K_COUNTS``), past 8 tiles
+    in ``n_kgroups`` output groups of 8 (grid.y), each forming log_rfe over
+    all ``dk_lr`` tiles; dZ's tiles split evenly into ``n_dgroups`` column
+    groups of at most 10 (one after another in a block, each recomputing
+    the exps), each padded to ``dz_group`` (``WIDE_DPSI_Z_COUNTS``);
+    ``dsteps`` k-steps of 8 genes a stage, 4 unless that leaves room for one
+    block an SM (``dpsi_smem`` bytes of shared memory a block).
 
     Workspace, in float32 values: ``table``, the forward's packed gene-side
-    B fragments; ``part`` (the partial sums), ``dz``, ``ps``, ``a2`` and
-    ``a1`` (the packed cell side), the gene part's scratch; ``dtable``,
-    dpsi's packed gene side. ``fwd_workspace``, ``dpsi_workspace`` and
-    ``gene_workspace`` are what :func:`kernel_forward`, :func:`kernel_dpsi`
-    and :func:`kernel_gene` allocate for the kernels, the last with its (Kf
-    + SC + n_a2, G) output."""
+    B fragments, and ``a1part``; ``part`` (the partial sums), ``dz``,
+    ``ps``, ``a2`` and ``a1`` (the packed cell side), the gene part's
+    scratch; ``dtable``, dpsi's packed gene side. ``fwd_workspace``,
+    ``dpsi_workspace`` and ``gene_workspace`` are what :func:`kernel_forward`,
+    :func:`kernel_dpsi` and :func:`kernel_gene` allocate for the kernels,
+    the last with its (Kf + SC + n_a2, G) output.
+
+    A width whose kernels' shared memory (``smem``) passes the card's
+    ``MAX_SMEM`` a block raises a ValueError; Kf up to 160 fits at every S
+    and S*C (the forward's psi fragments of 128 cells and the stage's W^T
+    tiles fill it first)."""
     n_kc, n_zt, n_yt, n_st = _cdiv(Kf, 8), _cdiv(SC, 8), _cdiv(Kf + n_a2, 8), _cdiv(n_a2, 8)
     g_pad = _cdiv(G, _FWD_WIDE_GENES) * _FWD_WIDE_GENES
     n_zgroups = _cdiv(n_zt, WIDE_TILES)
     zt_group = _at_least(WIDE_TILE_COUNTS, _cdiv(n_zt, n_zgroups))
-    ny_pad = _at_least(WIDE_Y_TILE_COUNTS, max(n_yt, 1))
+    n_ygroups = _cdiv(max(n_yt, 1), WIDE_Y_TILE_COUNTS[-1])
+    ny_pad = _at_least(WIDE_Y_TILE_COUNTS, _cdiv(max(n_yt, 1), n_ygroups))
+    halves = 2 if ny_pad > 10 else 1
+    a1_parts = 0 if n_ygroups == 1 and Kf <= 8 * (ny_pad // halves) else n_ygroups * halves
+    a1part = _cdiv(a1_parts * N, 4) * 4
     rows = _chunk_rows(N) if rows is None else rows
     n_chunks = _cdiv(N, rows)
     n_pad = _cdiv(N, _GENE_WIDE_CELLS) * _GENE_WIDE_CELLS
-    y_pass = int(n_kc + n_st >= WIDE_TILES)
-    room = WIDE_TILES - n_kc - (0 if y_pass else n_st)
-    nj = _at_least(WIDE_TILE_COUNTS, max(_cdiv(n_zt, _cdiv(n_zt, room)), n_st if y_pass else 1))
-    if nj > room:
-        nj = max(c for c in WIDE_TILE_COUNTS if c <= room)
+    n_wgroups = _cdiv(max(n_kc, 1), 8)
+    n_kw = _cdiv(n_kc, n_wgroups)
+
+    def passes(y_mode):  # (nj, y_pass), or None where no d(muL) tile fits
+        room = WIDE_TILES - n_kw - (0 if y_mode else n_st)
+        if room < 1:
+            return None
+        nj = _at_least(WIDE_TILE_COUNTS, max(_cdiv(n_zt, _cdiv(n_zt, room)),
+                                             min(n_st, room) if y_mode else 1))
+        if nj > room:
+            nj = max(c for c in WIDE_TILE_COUNTS if c <= room)
+        return nj, _cdiv(n_st, nj) if y_mode else 0
+
+    # dlog mu takes passes of its own where it leaves d(muL) no room beside
+    # dW's tiles; past 8 tiles of dW or of dA2, also where that takes fewer
+    # passes in all
+    y_mode = n_kw + n_st >= WIDE_TILES
+    if not y_mode and (n_kc > 8 or n_st > 8):
+        (nj0, _), (nj1, yp1) = passes(False), passes(True)
+        y_mode = yp1 + _cdiv(n_zt, nj1) < _cdiv(n_zt, nj0)
+    nj, y_pass = passes(y_mode)
     mu_passes = _cdiv(n_zt, nj)
-    table = g_pad // 8 * (n_kc + n_zgroups * zt_group + ny_pad) * 32 * 4
+    table = g_pad // 8 * (n_kc + n_zgroups * zt_group + n_ygroups * ny_pad) * 32 * 4
     F = Kf + SC + n_a2
     part = _cdiv(n_chunks * F * G, 4) * 4
     dz, ps, a2, a1 = n_pad * 16 * mu_passes * nj, n_pad * 16 * n_kc, n_pad * 16 * n_st, n_pad
+    n_kgroups = 1 if n_kc <= WIDE_DPSI_K_COUNTS[-1] else _cdiv(n_kc, WIDE_DPSI_K_COUNTS[-1])
     dk_pad = _at_least(WIDE_DPSI_K_COUNTS, max(n_kc, 1))
+    dk_lr = dk_pad if n_kgroups == 1 else n_kc
     n_dgroups = _cdiv(n_zt, WIDE_DPSI_Z_COUNTS[-1])
     dz_group = _at_least(WIDE_DPSI_Z_COUNTS, _cdiv(n_zt, n_dgroups))
 
     def dpsi_smem(steps):  # the warps' psi fragments and float64 sums, two stage buffers
-        return 16 * 32 * (_DPSI_WIDE_WARPS * dk_pad * 3 + 2 * steps * (2 * dk_pad + dz_group))
+        return 16 * 32 * (_DPSI_WIDE_WARPS * (dk_lr + 2 * dk_pad)
+                          + 2 * steps * (dk_lr + dk_pad + dz_group))
 
     dsteps = 4 if dpsi_smem(4) <= _TWO_BLOCK_SMEM else 2
-    dtable = g_pad // 8 * (2 * dk_pad + n_dgroups * dz_group) * 32 * 4
+    dtable = g_pad // 8 * (dk_lr + n_dgroups * dz_group + n_kgroups * dk_pad) * 32 * 4
     plan = dict(zip(WIDE_PLAN_KEYS, (
         n_kc, n_zt, n_yt, n_st, g_pad, zt_group, n_zgroups, ny_pad, rows, n_chunks, n_pad, nj,
         mu_passes, y_pass, mu_passes + y_pass, table, part, dz, ps, a2, a1,
-        dk_pad, dz_group, n_dgroups, dsteps, dtable)))
+        dk_pad, dz_group, n_dgroups, dsteps, dtable,
+        n_ygroups, a1_parts, a1part, n_kgroups, dk_lr, n_kw, n_wgroups)))
     plan["dpsi_smem"] = dpsi_smem(dsteps)
-    plan["fwd_workspace"] = table
+    plan["smem"] = _wide_smem(plan)
+    worst = max(v for k, v in plan["smem"].items() if k != "fwd_steps")
+    if worst > MAX_SMEM:
+        raise ValueError(
+            f"the wide CUDA kernels at Kf={Kf}, S={n_a2}, S*C={SC} need {worst} bytes of shared "
+            f"memory a block, past the card's {MAX_SMEM} (227 KB): Kf = K + P is too wide")
+    plan["fwd_workspace"] = table + a1part
     plan["dpsi_workspace"] = dtable
     plan["gene_workspace"] = part + dz + ps + a2 + a1 + F * G
     return plan
@@ -369,12 +431,15 @@ def f64_fwd_smem(Kf: int, nt: int) -> int:
             + 2 * F64_FWD_Y_STAGE_BYTES)
 
 
-def f64_dpsi_smem(nk: int, nz: int, steps: int) -> int:
+def f64_dpsi_smem(nk: int, nz: int, steps: int, lr: Optional[int] = None) -> int:
     """dpsi_f64_kernel's dynamic shared memory in bytes: its warps' psi (2
-    nk tiles of 32 pairs each), and two stages of ``steps`` k-steps, each
-    the B fragments (32 pairs a tile) of nz muL^T tiles, nk W tiles and,
-    past nk = 1, nk W^T tiles."""
-    return 16 * 32 * (F64_DPSI_WARPS * 2 * nk + 2 * steps * (nz + nk + (nk if nk > 1 else 0)))
+    nk tiles of 32 pairs each, or 2 lr past 8 tiles of [psi, X]), and two
+    stages of ``steps`` k-steps, each the B fragments (32 pairs a tile) of
+    nz muL^T tiles, nk W tiles and, past nk = 1, nk W^T tiles (lr where
+    dpsi's columns go in groups: every tile, for log_rfe)."""
+    psi = nk if lr is None else lr
+    lr = (nk if nk > 1 else 0) if lr is None else lr
+    return 16 * 32 * (F64_DPSI_WARPS * 2 * psi + 2 * steps * (nz + nk + lr))
 
 
 def f64_gene_smem(Kf: int, nt: int, nk: int) -> int:
@@ -426,21 +491,35 @@ def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     cell side packed likewise (``gene_f64_pack_kernel``: each 32-cell stage's B
     fragments of drfe, of every tile and of dW, psi for log_rfe and dA1);
     ``gene_workspace``, what :func:`kernel_gene` allocates: the partial sums,
-    the table and its (Kf + SC + n_a2, G) output."""
+    the table and its (Kf + SC + n_a2, G) output.
+
+    Past Kf = 64 (the C side derives these from Kf and the built counts,
+    which are then 8): dpsi's output columns go in ``d_kgroups`` groups of
+    ``d_nk`` tiles (grid.y), each forming log_rfe over ``d_lr`` tiles, all
+    of [psi, X]; the gene part's dW in ``g_wgroups`` groups of ``g_nk``
+    tiles (a launch each), only the first taking the passes' tiles. A width whose
+    shared memory passes the card's ``F64_MAX_SMEM`` a block raises a
+    ValueError; Kf up to 139 fits at every S and S*C (the forward's psi and
+    W fill it first)."""
     F = Kf + n_a2 + SC
     f_yt = _cdiv(Kf + n_a2, 8)
     f_tiles = f_yt + _cdiv(SC, 8)
     f_groups = _cdiv(f_tiles, F64_FWD_TILE_COUNTS[-1])
     f_count = _cdiv(f_tiles, f_groups)
     f_nt = _at_least(F64_FWD_TILE_COUNTS, f_count)
-    d_nk = _at_least(F64_DPSI_K_COUNTS, max(1, _cdiv(Kf, 8)))
+    kc = max(1, _cdiv(Kf, 8))
+    d_nk = _at_least(F64_DPSI_K_COUNTS, kc)
+    d_kgroups = _cdiv(kc, d_nk)
+    d_lr = kc if d_kgroups > 1 else (d_nk if d_nk > 1 else 0)
+    lr = d_lr if d_kgroups > 1 else None
     d_groups = _cdiv(_cdiv(SC, 8), F64_DPSI_Z_COUNTS[-1])
     d_nz = _at_least(F64_DPSI_Z_COUNTS, _cdiv(_cdiv(SC, 8), d_groups))
-    d_steps = 4 if f64_dpsi_smem(d_nk, d_nz, 4) <= _TWO_BLOCK_SMEM else 2
-    d_tiles = d_groups * d_nz + d_nk + (d_nk if d_nk > 1 else 0)
+    d_steps = 4 if f64_dpsi_smem(d_nk, d_nz, 4, lr) <= _TWO_BLOCK_SMEM else 2
+    d_tiles = d_groups * d_nz + d_kgroups * d_nk + d_lr
     g_st = _cdiv(n_a2, 8)
     g_tiles = g_st + _cdiv(SC, 8)
-    g_nk = _at_least(F64_GENE_K_COUNTS, max(1, _cdiv(Kf, 8)))
+    g_nk = _at_least(F64_GENE_K_COUNTS, kc)
+    g_wgroups = _cdiv(kc, g_nk)
     counts = F64_GENE_TILE_COUNTS[g_nk]
     g_passes = _cdiv(g_tiles, counts[-1])
     g_count = _cdiv(g_tiles, g_passes)
@@ -451,13 +530,20 @@ def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
         f_yt, f_tiles, f_count, f_nt, f_groups, _cdiv(N, 16 * F64_FWD_WARPS),
         f64_fwd_smem(Kf, f_nt),
         d_nk, d_nz, d_groups, d_steps, _cdiv(N, 16 * F64_DPSI_WARPS),
-        f64_dpsi_smem(d_nk, d_nz, d_steps),
+        f64_dpsi_smem(d_nk, d_nz, d_steps, lr),
         g_st, g_tiles, g_nk, g_count, g_nt, g_passes, _cdiv(G, 16 * F64_GENE_WARPS), rows,
         n_chunks, f64_gene_smem(Kf, g_nt, g_nk), 2 * _cdiv(n_chunks * F * G, 2),
         2 * _cdiv(G, F64_FWD_GENES) * 4 * (32 * f_tiles + 4 * Kf),
-        2 * _cdiv(N, F64_GENE_CELLS) * (4 * (32 * (2 * g_tiles + g_nk) + 4 * Kf)
+        2 * _cdiv(N, F64_GENE_CELLS) * (4 * (32 * (2 * g_tiles + g_wgroups * g_nk) + 4 * Kf)
                                         + F64_GENE_CELLS // 2),
         2 * _cdiv(G, 8 * d_steps) * d_steps * 32 * d_tiles)))
+    plan.update(d_kgroups=d_kgroups, d_lr=d_lr, g_wgroups=g_wgroups)
+    worst = max(plan["f_smem"], plan["d_smem"], plan["g_smem"])
+    if worst > F64_MAX_SMEM:
+        raise ValueError(
+            f"the float64 CUDA kernels at Kf={Kf}, S={n_a2}, S*C={SC} need {worst} bytes of "
+            f"shared memory a block, past the card's {F64_MAX_SMEM} (227 KB): Kf = K + P is "
+            "too wide")
     plan["fwd_workspace"] = plan["f_table"]
     plan["dpsi_workspace"] = plan["d_table"]
     plan["gene_workspace"] = plan["part"] + plan["g_table"] + F * G
@@ -519,7 +605,7 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     y_codes = Y_DTYPES_F64 if dt == torch.float64 else Y_DTYPES
     _check("Y", Y, Y.shape, tuple(y_codes))
     (N, G), Kf, SC = Y.shape, psi_ext.shape[1], muL.shape[1]
-    _check_sizes(N, G, Kf, SC, n_a2)
+    _check_sizes(N, G, SC)
     _check("psi_ext", psi_ext, (N, Kf), (dt,))
     _check("W_ext", W_ext, (G, Kf), (dt,))
     _check("muL", muL, (G, SC), (dt,))
@@ -569,7 +655,7 @@ def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
 
     (N, Kf), G, SC = psi_ext.shape, W_ext.shape[0], muL.shape[1]
     dt = _compute_dtype(psi_ext)
-    _check_sizes(N, G, Kf, SC, 0)
+    _check_sizes(N, G, SC)
     _check("psi_ext", psi_ext, (N, Kf), (dt,))
     _check("W_ext", W_ext, (G, Kf), (dt,))
     _check("muL", muL, (G, SC), (dt,))
@@ -623,7 +709,7 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     y_codes = Y_DTYPES_F64 if dt == torch.float64 else Y_DTYPES
     _check("Y", Y, Y.shape, tuple(y_codes))
     (N, G), Kf, SC = Y.shape, psi_ext.shape[1], muL.shape[1]
-    _check_sizes(N, G, Kf, SC, n_a2)
+    _check_sizes(N, G, SC)
     _check("psi_ext", psi_ext, (N, Kf), (dt,))
     _check("W_ext", W_ext, (G, Kf), (dt,))
     _check("muL", muL, (G, SC), (dt,))

@@ -308,7 +308,7 @@ def fit_streaming(
     K = 1 if K is None else int(K)  # reference R/clonealign.R:226-232
     Y, gene_names, L, clone_names, x, P = _parse_inputs(
         gene_expression_data, copy_number_data, x, K, mc_samples, fix_alpha, y_storage,
-        likelihood_impl, dev, verbose)
+        likelihood_impl, verbose)
     cells = block_of(mesh, Y.shape[0])
     if cells is not None:
         Y = Y[cells.start : cells.stop]

@@ -301,9 +301,9 @@ def test_reference_keywords():
 
 def _setup_passes_the_contract_on_cuda(monkeypatch, Y, L, **kwargs):
     """setup_fit on a CUDA device (torch.cuda.is_available patched true)
-    gets past the host checks, the kernels' contract among them: it
-    returns where there is a card, and without one fails only at its first
-    allocation on the card, not with a refusal."""
+    gets past the host checks at every width: it returns where there is a
+    card, and without one fails only at its first allocation on the card,
+    not with a refusal."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     parsed = []
     parse = tapi._parse_inputs
@@ -324,11 +324,8 @@ def _setup_passes_the_contract_on_cuda(monkeypatch, Y, L, **kwargs):
 ])
 def test_wide_kernel_contract_is_refused_at_setup_on_cuda(monkeypatch, K, S, C, wide):
     """Widths past the narrow kernels' limits (K > 4, mc_samples > 4,
-    mc_samples x clones > 32) go to the wide family: on CUDA the contract
-    takes them (it refuses only past the wide family's bound,
-    tests/test_torch_wide.py), and setup_fit with them."""
-    tapi._check_kernel_contract(torch.device("cpu"), K, S, C)  # the CPU takes any width
-    tapi._check_kernel_contract(torch.device("cuda"), K, S, C)
+    mc_samples x clones > 32) go to the wide family: setup_fit on CUDA takes
+    them (and every wider one, tests/test_torch_wide.py)."""
     assert tfl.wide_route(K, S, S * C) is wide
     Y, L = _toy(C=C)
     _setup_passes_the_contract_on_cuda(monkeypatch, Y, L, K=K, mc_samples=S)

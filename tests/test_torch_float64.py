@@ -57,6 +57,12 @@ SHAPES = [(37, 41, 2, 1, 1), (45, 260, 4, 3, 1), (200, 96, 3, 4, 3), (100, 129, 
 CUDA_SHAPES = SHAPES + [(2000, 500, 3, 4, 3), (1000, 515, 12, 6, 8), (2100, 130, 9, 1, 4),
                         (33, 1, 40, 0, 1), (300, 100, 32, 64, 64), (130, 77, 2048, 1, 1),
                         (90, 37, 5, 9, 2)]
+# past the old bound of 64, 64 and 2,048, each alone and all at once (as
+# tests/test_torch_wide.py's PAST_BOUND_SHAPES), and Kf 136 (three groups
+# of dpsi's and dW's columns)
+PAST_BOUND_SHAPES = [(300, 100, 3, 72, 2), (300, 100, 2, 1, 66), (2100, 200, 66, 1, 33),
+                     (200, 70, 10, 72, 66), (100, 60, 3, 136, 1)]
+CUDA_SHAPES += PAST_BOUND_SHAPES
 
 
 def _inputs(N, G, C, K, S, seed):
@@ -420,12 +426,12 @@ def _pack_dpsi(W, muL, p):
     """dpsi_f64_pack_kernel's table as (k-steps, tiles, lanes, 2): for each
     k-step of 8 genes, every group's muL^T tiles (lane (g, t): gene g at
     columns 8 tile + t, + 4), dpsi's W tiles in C-to-A order (lane (g, t):
-    genes 2t, 2t + 1 at column 8 kc + g) and, past d_nk 1, log_rfe's W^T
-    tiles (lane (g, t): gene g at columns 8 kc + t, + 4); zero past G and
-    every width."""
+    genes 2t, 2t + 1 at column 8 kc + g; every output group's) and, past
+    d_nk 1, log_rfe's W^T tiles (lane (g, t): gene g at columns 8 kc + t, +
+    4; d_lr of them); zero past G and every width."""
     (G, Kf), SC = W.shape, muL.shape[1]
-    nz_all, nk = p["d_groups"] * p["d_nz"], p["d_nk"]
-    tiles = nz_all + nk + (nk if nk > 1 else 0)
+    nz_all, nk = p["d_groups"] * p["d_nz"], p["d_kgroups"] * p["d_nk"]
+    tiles = nz_all + nk + p["d_lr"]
     steps = -(-G // (8 * p["d_steps"])) * p["d_steps"]
     at = lambda M, r, c: M[r, c] if r < M.shape[0] and c < M.shape[1] else 0.0  # noqa: E731
     table = np.zeros((steps, tiles, 32, 2))
@@ -524,7 +530,8 @@ def test_mma_fragment_maps_reproduce_the_product():
     assert all(sorted(genes[t]) == list(range(8 * t, 8 * t + 8)) for t in range(4))
 
 
-@pytest.mark.parametrize("Kf, SC", [(1, 10), (5, 80), (8, 3), (16, 20), (64, 2048)])
+@pytest.mark.parametrize("Kf, SC", [(1, 10), (5, 80), (8, 3), (16, 20), (64, 2048), (72, 20),
+                                    (136, 90)])
 def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
     """One warp's k-step of dpsi_f64_kernel on integers, its operands read
     as the kernel reads them from dpsi_f64_pack_kernel's table (_pack_dpsi)
@@ -534,7 +541,9 @@ def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
     then t = R drfe (R standing in for rfe, whose exp leaves the integers)
     taken from the C fragment into the A fragment (C_TO_A) of dpsi += t W
     against the W tiles: each exactly numpy's product, at 16 cells and the
-    k-step's 8 genes."""
+    k-step's 8 genes. Past Kf 64 log_rfe's MMAs take every tile of [psi, X]
+    and dpsi's columns go in groups of d_nk tiles, each against its own W
+    tiles."""
     rng = np.random.default_rng(Kf + SC)
     p = tfl.f64_plan(16, 8, Kf, 0, SC)
     ints = lambda *shape: rng.integers(-4, 5, shape).astype(np.float64)  # noqa: E731
@@ -542,7 +551,9 @@ def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
     table = _pack_dpsi(W, muL, p)[0]
     frag = lambda M, fmap: [[M[r, c] for r, c in fmap(lane)] for lane in range(32)]  # noqa: E731
     pad = lambda M, cols: np.pad(M, ((0, 0), (0, cols - M.shape[1])))  # noqa: E731
-    nz_all, nk = p["d_groups"] * p["d_nz"], p["d_nk"]
+    nz_all, nk, lr = p["d_groups"] * p["d_nz"], p["d_nk"], p["d_lr"]
+    nk_all = p["d_kgroups"] * nk
+    assert p["d_kgroups"] == (1 if Kf <= 64 else -(-Kf // 64)) and (nk == 1 or lr >= -(-Kf // 8))
     zero = [[0.0] * 4] * 32
     chains = [zero, zero]  # tile z to chain z mod 2, added last
     for z in range(nz_all):  # dZ's A fragments (n0, j), (n1, j), (n0, j + 4), (n1, j + 4)
@@ -554,22 +565,23 @@ def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
         lr = [[sum(psi[r, k] * table[nz_all, 4 * k + lane % 4][c % 2] for k in range(Kf))
                for r, c in _c_map(lane)] for lane in range(32)]
     else:
-        lr = zero
-        for kc in range(nk):
-            lr = _mma(frag(pad(psi, 8 * nk)[:, 8 * kc:8 * kc + 8], _a_map),
-                      table[nz_all + nk + kc], lr)
+        lrf = zero
+        for kc in range(lr):
+            lrf = _mma(frag(pad(psi, 8 * lr)[:, 8 * kc:8 * kc + 8], _a_map),
+                       table[nz_all + nk_all + kc], lrf)
+        lr = lrf
     np.testing.assert_array_equal(np.array(lr), np.array(frag(psi @ W.T, _c_map)))
     t = [[R[r, c] * d for (r, c), d in zip(_c_map(lane), dr[lane])] for lane in range(32)]
     chained_a = [[v[i] for i in C_TO_A] for v in t]
-    want = (R * (dZ @ muL.T)) @ pad(W, 8 * nk)
-    for kc in range(nk):
+    want = (R * (dZ @ muL.T)) @ pad(W, 8 * nk_all)
+    for kc in range(nk_all):  # output group kc // nk, its tile kc % nk
         got = _mma(chained_a, table[nz_all + kc], zero)
         np.testing.assert_array_equal(np.array(got), np.array(frag(want[:, 8 * kc:8 * kc + 8],
                                                                     _c_map)))
 
 
 @pytest.mark.parametrize("shape", [(37, 41, 2, 1, 1), (70, 60, 10, 6, 8), (40, 30, 3, 64, 64),
-                                   (2100, 20, 9, 2, 4)])
+                                   (2100, 20, 9, 2, 4), (40, 30, 10, 72, 66)])
 def test_kernel_order_emulation_meets_the_tolerance(shape):
     """The emulated kernels (column groups, dpsi's term order, the gene
     part's passes and chunk partials) against reference_likelihood_terms

@@ -354,5 +354,65 @@ def test_dataset_override_and_conversion(tmp_path, monkeypatch):
         np.testing.assert_array_equal(a[k], b[k])
     with pytest.raises(FileNotFoundError):
         tds.load_example_sce()
-    with pytest.raises(NotImplementedError, match="waits for the reference's .rda data files"):
-        tds.convert_reference_data(str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="example_sce.rda"):  # no .rda files there
+        tds.convert_reference_data(str(tmp_path), str(tmp_path / "out"))
+
+
+# --- convert_reference_data on .rda files rebuilt from data/*.npz ------------
+
+DATA_DIR = os.path.join(os.path.dirname(__file__), "..", "data")
+DATASETS = ("example_sce", "df_cnv", "example_clonealign_fit")
+
+
+@pytest.fixture(scope="module")
+def rda_dir(tmp_path_factory):
+    """The reference's three .rda files, encoded from the committed .npz
+    (tests/_rda_fixture.py: S4 objects, an environment, data.frame and list
+    attributes, gzip over RDX2 + XDR)."""
+    from _rda_fixture import write_reference_data
+
+    out = tmp_path_factory.mktemp("rda")
+    write_reference_data(DATA_DIR, str(out))
+    return out
+
+
+def test_convert_reference_data_reproduces_the_committed_npz(rda_dir, tmp_path):
+    """The port's conversion of the .rda files gives data/*.npz key for key
+    and bit for bit (dtype, shape, bytes), and the same arrays as the JAX
+    package's conversion of the same files."""
+    port, jax = tmp_path / "port", tmp_path / "jax"
+    tds.convert_reference_data(str(rda_dir), str(port))
+    jds.convert_reference_data(str(rda_dir), str(jax))
+    for name in DATASETS:
+        with np.load(os.path.join(DATA_DIR, f"{name}.npz")) as want, \
+                np.load(port / f"{name}.npz") as got, np.load(jax / f"{name}.npz") as ref:
+            assert got.files == want.files == ref.files, name
+            for k in want.files:
+                for other in (want, ref):
+                    assert got[k].dtype == other[k].dtype and got[k].shape == other[k].shape, k
+                    assert got[k].tobytes() == other[k].tobytes(), (name, k)
+
+
+def test_loaders_read_the_converted_data(rda_dir, tmp_path, monkeypatch):
+    """The command line (``python -m clonealign_torch.io.datasets DIR OUT``)
+    converts the files, and every loader reads what it wrote as it reads
+    data/; without a directory it stops with a usage error."""
+    out = tmp_path / "out"
+    assert tds.main([str(rda_dir), str(out)]) == 0
+    want_sce, want_cnv = tds.load_example_sce(), tds.load_df_cnv()
+    want_fit = tds.load_example_clonealign_fit()
+    monkeypatch.setenv("CLONEALIGN_TPU_DATA", str(out))
+    sce, cnv, fit = tds.load_example_sce(), tds.load_df_cnv(), tds.load_example_clonealign_fit()
+    np.testing.assert_array_equal(sce.counts, want_sce.counts)
+    np.testing.assert_array_equal(sce.copy_number, want_sce.copy_number)
+    assert (sce.gene_names, sce.cell_names, sce.clone_names) == (
+        want_sce.gene_names, want_sce.cell_names, want_sce.clone_names)
+    assert list(cnv) == list(want_cnv)
+    for k in cnv:
+        np.testing.assert_array_equal(cnv[k], want_cnv[k])
+    assert fit.clone == want_fit.clone and fit.retained_genes == want_fit.retained_genes
+    np.testing.assert_array_equal(fit.ml_params["clone_probs"], want_fit.ml_params["clone_probs"])
+    np.testing.assert_array_equal(fit.convergence_info.elbo, want_fit.convergence_info.elbo)
+    with pytest.raises(SystemExit) as err:
+        tds.main([])
+    assert err.value.code == 2

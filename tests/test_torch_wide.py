@@ -39,7 +39,6 @@ import pytest
 import torch
 
 import clonealign_torch as ct
-from clonealign_torch import api as tapi
 from clonealign_torch import restarts as trestarts
 from clonealign_torch.models import multinomial as tmm
 from clonealign_torch.ops import fused_likelihood as tfl
@@ -56,6 +55,12 @@ SHAPES = [(70, 300, 10, 6, 8), (37, 41, 33, 1, 1), (50, 129, 5, 5, 5), (17, 260,
 # groups and two gene-part passes (S*C = 160) at Kf = 18 over three chunks
 CUDA_SHAPES = SHAPES + [(2100, 130, 9, 1, 4), (33, 1, 40, 0, 1), (60, 100, 2, 1, 5),
                         (40, 70, 3, 64, 64), (20, 50, 64, 3, 32), (2100, 200, 20, 18, 8)]
+# past the old bound of 64, 64 and 2,048, each alone and all at once: Kf 72
+# (dpsi's and dW's column groups), S 66 (the Y products' groups, dlog mu's
+# passes), S*C 2,178 (S 33 x C 66) and Kf 72, S 66, S*C 660
+PAST_BOUND_SHAPES = [(300, 100, 3, 72, 2), (300, 100, 2, 1, 66), (2100, 200, 66, 1, 33),
+                     (500, 130, 10, 72, 66)]
+CUDA_SHAPES += PAST_BOUND_SHAPES
 STORAGES = [torch.float32, torch.bfloat16, torch.int16, torch.int8]
 VALUE_TOL = dict(rtol=2e-5, atol=1e-4)
 VJP_TOL = dict(rtol=3e-5, atol=1e-4)
@@ -139,6 +144,34 @@ def test_plain_versions_match_the_pallas_wide_branches(shape, storage, jax_ops):
         np.testing.assert_allclose(a.numpy(), w, err_msg=name, **VJP_TOL)
 
 
+@pytest.mark.parametrize("storage", [torch.float32, torch.int8])
+def test_plain_versions_match_the_pallas_op_past_the_old_bound(storage, jax_ops):
+    """At Kf 72, S 66 and S*C 2,178 (past every old bound at once) the
+    plain versions, with Y in ``storage``, against the Pallas op in
+    interpret mode (float32, as on its TPU): the values within VALUE_TOL;
+    the VJP, whose elements here sum thousands of cancelling float32 terms
+    in both, within BWD_ABS_RTOL of each element's absolute-term sum (the
+    wide kernels' tolerance against float64)."""
+    jax, jnp, jfl = jax_ops
+    N, G, C, K, S = 24, 40, 33, 72, 66
+    x = _inputs(N, G, C, K, S, seed=7)
+    cot = _cotangents(N, S, S * C, seed=7)
+    Yf, psi, W, log_mu, muL = _torch(x)
+    Y = Yf.to(storage)
+    jY = jnp.asarray(x[0]).astype(jnp.dtype(str(storage).removeprefix("torch.")))
+    pallas, vjp = jax.vjp(jfl.fused_likelihood_terms, jY, *map(jnp.asarray, x[1:]))
+    want = [np.asarray(g) for g in vjp(tuple(map(jnp.asarray, cot)))[1:]]
+    for name, o, p in zip(("A1", "A2", "Z"), tfl.reference_likelihood_terms(Y, psi, W, log_mu, muL),
+                          pallas):
+        np.testing.assert_allclose(o.numpy(), np.asarray(p), err_msg=name, **VALUE_TOL)
+    dA1, dA2, dZ = _torch(cot)
+    got = tfl.reference_likelihood_vjp(Y, psi, W, muL, dA1, dA2, dZ)
+    scale = _abs_term_sums(*(t.double() for t in (Yf, psi, W, muL, dA1, dA2, dZ)))
+    for name, g, w, sc in zip(("psi", "W", "log_mu", "muL"), got, want, scale):
+        err = np.abs(g.double().numpy() - w)
+        assert (err <= BWD_ABS_RTOL * sc.numpy()).all(), (name, float(err.max()))
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_reassociated_plain_versions_take_wide_shapes(shape):
     """The narrow kernels' re-associated plain versions (the Y-free dpsi and
@@ -172,18 +205,19 @@ def test_route_picks_the_wide_family_exactly_past_each_limit(Kf, n_a2, SC, wide)
 
 @pytest.mark.parametrize("K,P,S,C", [(65, 0, 1, 3), (60, 5, 1, 3), (1, 0, 65, 1),
                                      (1, 0, 32, 65)])
-def test_widths_past_the_wide_bound_are_refused_on_cuda(monkeypatch, K, P, S, C):
-    """Past WIDE_MAX_KF, WIDE_MAX_A2 or WIDE_MAX_SC the setup refuses, naming
-    the wide kernel contract, before any data reaches the card; the CPU
-    takes any width."""
-    tapi._check_kernel_contract(torch.device("cpu"), K, S, C, P)
-    with pytest.raises(NotImplementedError, match="wide kernel contract"):
-        tapi._check_kernel_contract(torch.device("cuda"), K, S, C, P)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+def test_widths_past_the_old_bound_are_taken_on_cuda(monkeypatch, K, P, S, C):
+    """Past 64 columns of [psi, X], 64 samples or 2,048 sample x clone
+    columns, where the wide and float64 kernels take their columns in
+    groups or passes, setup_fit on CUDA takes the fit, as the CPU does; the
+    kernels' plans hold those widths."""
+    from test_torch_api import _setup_passes_the_contract_on_cuda
+
     sim = simulate_multinomial(N=30, G=20, C=C, seed=1, mean_total=400)
     x = np.random.default_rng(1).normal(size=(30, P)) if P else None
-    with pytest.raises(NotImplementedError, match="wide kernel contract"):
-        tapi.setup_fit(sim.Y, sim.L, x=x, K=K, mc_samples=S, device="cuda", verbose=False)
+    _setup_passes_the_contract_on_cuda(monkeypatch, sim.Y, sim.L, x=x, K=K, mc_samples=S)
+    for n_a2 in (S, 0):
+        assert tfl.wide_plan(30, 20, K + P, n_a2, S * C)["n_zt"] == -(-S * C // 8)
+        assert tfl.f64_plan(30, 20, K + P, n_a2, S * C)["f_tiles"] >= -(-S * C // 8)
 
 
 # --- fits at a wide shape on the CPU ------------------------------------------
@@ -198,12 +232,13 @@ def _sim(N=80, G=50, C=5, seed=8, P=4):
     return sim.Y, sim.L, np.stack(cols[:P], axis=1)
 
 
-def test_clonealign_k1_p4_s8_matches_jax(monkeypatch):
-    """K = 1, P = 4 (Kf = 5) and mc_samples = 8 (S*C = 40): the port's fit
-    replays the JAX package's draws (the PCA test matrix and psi jitter from
-    the init keys, then the loop's schedule), with the PCA scores' arbitrary
-    sign aligned to the JAX package's, so both fits start from the same
-    parameters: the same iterations, ELBO trace, final ELBO and labels."""
+def _matches_jax(monkeypatch, Y, L, X, K, S, max_iter=40):
+    """clonealign on the CPU in float64 against the JAX package's from the
+    same draws: the port's fit replays the JAX package's (the PCA test
+    matrix and psi jitter from the init keys, then the loop's schedule),
+    with the PCA scores' arbitrary sign aligned to the JAX package's, so
+    both fits start from the same parameters: the same iterations, ELBO
+    trace, final ELBO and labels."""
     jax = pytest.importorskip("jax")
     jnp = jax.numpy
     ca = pytest.importorskip("clonealign_tpu")
@@ -221,17 +256,36 @@ def test_clonealign_k1_p4_s8_matches_jax(monkeypatch):
         return got * sign
 
     monkeypatch.setattr(tmm, "randomized_pca", aligned_pca)
-    Y, L, X = _sim()
-    kw = dict(K=1, x=X, mc_samples=8, max_iter=40, dtype="float64", verbose=False)
+    kw = dict(K=K, x=X, mc_samples=S, max_iter=max_iter, dtype="float64", verbose=False)
     want = ca.clonealign(Y, L, seed=3, **kw)
     got = ct.clonealign(Y, L, noise=JaxStreamKeys(3), device="cpu", **kw)
-    assert got.ml_params["beta"].shape == want.ml_params["beta"].shape == (50, 4)
     assert got.convergence_info.n_iters == want.convergence_info.n_iters
     np.testing.assert_allclose(got.convergence_info.elbo, want.convergence_info.elbo, rtol=1e-6)
     np.testing.assert_allclose(got.convergence_info.final_elbo,
                                want.convergence_info.final_elbo, rtol=1e-6)
     assert got.clone == want.clone
+    return got, want
+
+
+def test_clonealign_k1_p4_s8_matches_jax(monkeypatch):
+    """K = 1, P = 4 (Kf = 5) and mc_samples = 8 (S*C = 40) against the JAX
+    package (:func:`_matches_jax`), beta too."""
+    Y, L, X = _sim()
+    got, want = _matches_jax(monkeypatch, Y, L, X, K=1, S=8)
+    assert got.ml_params["beta"].shape == want.ml_params["beta"].shape == (50, 4)
     np.testing.assert_allclose(got.ml_params["beta"], want.ml_params["beta"], atol=1e-5)
+
+
+@pytest.mark.parametrize("N,G,C,K,P,S", [(80, 50, 5, 1, 65, 1), (80, 50, 5, 1, 0, 66),
+                                         (40, 30, 33, 1, 0, 66)])
+def test_clonealign_past_the_old_bound_matches_jax(monkeypatch, N, G, C, K, P, S):
+    """Past the old bound: K + P = 66, mc_samples = 66 (S*C 330) and S*C =
+    2,178 (66 x 33 clones) against the JAX package, float64, from the same
+    draws (:func:`_matches_jax`; the tolerances of the K = 1, P = 4 case)."""
+    Y, L, X = _sim(N=N, G=G, C=C, P=max(P, 1))
+    got, want = _matches_jax(monkeypatch, Y, L, X if P else None, K=K, S=S, max_iter=25)
+    if P:
+        np.testing.assert_allclose(got.ml_params["beta"], want.ml_params["beta"], atol=1e-5)
 
 
 WIDE_FIT = dict(K=1, mc_samples=8, max_iter=12, rel_tol=1e-8, dtype="float64", seed=11,
@@ -294,47 +348,125 @@ def test_sweep_bytes_hold_the_wide_gene_workspace_once():
     assert trestarts._auto_restart_batching(N, G, C, K, S, 3, 4, "cuda", 1, P) == "vmap"
 
 
+def test_sweep_bytes_hold_the_grouped_workspace_past_the_old_bound():
+    """Past the old bound (K 2, P 70: Kf 72; mc_samples 66: S*C 660) an
+    exact sweep on the card holds one call's grouped workspace beside the
+    lanes: the wide gene part's (the (Kf + S C, G) partial sums of each
+    1,024-cell chunk, dZ's (hi, lo) pairs at every pass's tiles, psi's at
+    Kf's nine tiles, dA1, and the sums), dpsi's packed gene table (log_rfe's
+    nine W^T tiles, every dZ group's muL^T tiles, both output groups' W
+    tiles a k-step) and the forward's table with A1's partial sums; in
+    float64 the float64 family's, its dW groups' packed psi included. "auto"
+    still runs these lanes together at three restarts."""
+    N, G, C, K, P, S = 100_000, 5_000, 10, 2, 70, 66
+    Kf, SC = K + P, S * C
+    p = tfl.wide_plan(N, G, Kf, 0, SC)
+    F = Kf + SC
+    n_pad = -(-N // 16) * 16
+    gene = (-(-N // 1024) * F * G + n_pad * 2 * 8 * (p["mu_passes"] * p["nj"] + 9) + n_pad
+            + F * G)
+    assert (p["n_kc"], p["n_wgroups"], p["n_kgroups"], p["dk_lr"]) == (9, 2, 2, 9)
+    assert tfl.gene_wide_workspace(N, G, Kf, 0, SC) == gene
+    g_pad = -(-G // 32) * 32
+    dtable = g_pad // 8 * (9 + p["n_dgroups"] * p["dz_group"] + 2 * 8) * 32 * 4
+    assert p["dpsi_workspace"] == dtable
+    pf = tfl.wide_plan(N, G, Kf, S, SC)
+    assert pf["a1_parts"] > 0 and pf["fwd_workspace"] == pf["table"] + pf["a1part"] >= (
+        pf["table"] + pf["a1_parts"] * N)
+    block = 4 * tmm._CHUNK_ELEMENTS
+
+    def sweep(n_lanes, z_cheb=False, itemsize=4):
+        return trestarts._sweep_bytes(N, G, C, K, S, n_lanes, itemsize, "cuda", 1, P,
+                                      z_cheb=z_cheb)
+
+    for n_lanes in (1, 3):
+        assert sweep(n_lanes) - sweep(n_lanes, z_cheb=True) == 4 * (gene + dtable) - block
+        p64 = tfl.f64_plan(N, G, Kf, 0, SC)
+        assert p64["g_wgroups"] == p64["d_kgroups"] == 2
+        assert (sweep(n_lanes, itemsize=8) - sweep(n_lanes, True, itemsize=8)
+                == 8 * (p64["gene_workspace"] + p64["dpsi_workspace"] - tmm._CHUNK_ELEMENTS))
+    assert trestarts._auto_restart_batching(N, G, C, K, S, 3, 4, "cuda", 1, P) == "vmap"
+
+
 # --- the wide kernels' launch plan ------------------------------------------
 
 # (N, Kf, n_a2, SC) at widths no fit gives (S*C below S): dW and dlog mu
 # filling the first pass beside one, two or 25 dZ tiles, and A2 alone wide
 INDEPENDENT_WIDTHS = [(300, 64, 64, 8), (300, 57, 60, 16), (300, 64, 64, 200), (300, 5, 64, 8)]
+# ... and past the old bound: dW's and dpsi's groups beside dlog mu's own
+# pass, dlog mu in three passes of its own, and three column groups of
+# [psi, X] (Kf 140)
+PAST_BOUND_WIDTHS = [(300, 72, 66, 8), (300, 1, 130, 16), (300, 140, 2, 8)]
 # (N, G, Kf, n_a2, SC): the shapes above, the wide fit's, Y tiles that do not
 # fit beside Z's, the independent widths, every bound
-PLAN_SHAPES = ([(N, G, K, S, S * C) for N, G, C, K, S in CUDA_SHAPES]
-               + [(N, G, K, 0, S * C) for N, G, C, K, S in CUDA_SHAPES]
+PLAN_SHAPES = ([(N, G, K, S, S * C) for N, G, C, K, S in CUDA_SHAPES
+                if (N, G, C, K, S) not in PAST_BOUND_SHAPES]
+               + [(N, G, K, 0, S * C) for N, G, C, K, S in CUDA_SHAPES
+                  if (N, G, C, K, S) not in PAST_BOUND_SHAPES]
                + [(N, 100, Kf, n_a2, SC) for N, Kf, n_a2, SC in INDEPENDENT_WIDTHS]
                + [(100_000, 5_000, 5, 8, 80), (100_000, 5_000, 5, 0, 10), (500, 300, 5, 1, 128),
                   (500, 300, 64, 64, 8), (500, 300, 64, 64, 2048), (1000, 100, 0, 0, 33),
                   (100_000, 5_000, 64, 0, 80), (100_000, 5_000, 64, 64, 2048)])
+# (N, G, Kf, n_a2, SC) past the old bound: the shapes above, the widths set
+# apart, the full-width fit's (Kf 72, S 66, S*C 660) and the widest Kf each
+# family takes
+PAST_PLAN_SHAPES = ([(N, G, K, S, S * C) for N, G, C, K, S in PAST_BOUND_SHAPES]
+                    + [(N, G, K, 0, S * C) for N, G, C, K, S in PAST_BOUND_SHAPES]
+                    + [(N, 100, Kf, n_a2, SC) for N, Kf, n_a2, SC in PAST_BOUND_WIDTHS]
+                    + [(100_000, 5_000, 72, 66, 660), (100_000, 5_000, 72, 0, 660),
+                       (100_000, 5_000, 1, 66, 2178), (1000, 500, 176, 1, 10),
+                       (1000, 500, 248, 66, 660)])
 
 
 def _pass_tiles(p, q):
     """gene_wide_kernel's accumulator tiles in pass q of plan p, by product:
-    d(muL) the first nj (none in a Y pass), dW the n_kc after them, dlog mu
-    (the first pass) n_st after dW's or, in a Y pass, d(muL)'s first."""
-    with_mu = not (p["y_pass"] and q == 0)
+    d(muL) the first nj (none in dlog mu's passes of its own), dW the group's
+    n_kw after them, dlog mu (the first pass) n_st after dW's or, in each of
+    its own passes, d(muL)'s first, at most nj."""
+    with_mu = q >= p["y_pass"]
     tiles = {"dmuL": range(p["nj"]) if with_mu else range(0),
-             "dW": range(p["nj"], p["nj"] + p["n_kc"])}
-    if q == 0:
-        t_mu = 0 if p["y_pass"] else p["nj"] + p["n_kc"]
+             "dW": range(p["nj"], p["nj"] + p["n_kw"])}
+    if p["y_pass"] and q < p["y_pass"]:
+        tiles["dlog_mu"] = range(min(p["nj"], p["n_st"] - q * p["nj"]))
+    elif not p["y_pass"] and q == 0:
+        t_mu = p["nj"] + p["n_kw"]
         tiles["dlog_mu"] = range(t_mu, t_mu + p["n_st"])
     return tiles
 
 
-@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("shape", PLAN_SHAPES + PAST_PLAN_SHAPES)
 def test_wide_plan_covers_every_column_once(shape):
     """The forward's column groups hold each of Z's tiles once, and the Y
-    products' launch every Y tile; the gene part's passes hold each of dZ's
-    tiles once; each group or pass is padded to a built tile count, and
-    holds no more accumulator tiles than WIDE_TILES, where no two products
-    share a tile; S*C <= 128 is one column group."""
+    products' groups each Y tile once (A1 written by one warp where it holds
+    every column of Y W, else from partial sums); the gene part's passes
+    hold each of dZ's tiles once, and dlog mu's tiles once in the first pass
+    or its own; dW's groups each of [psi, X]'s tiles once; each group or
+    pass is padded to a built tile count, and holds no more accumulator
+    tiles than WIDE_TILES, where no two products share a tile; S*C <= 128
+    is one column group; dpsi's output groups hold each tile of [psi, X]
+    once, each forming log_rfe over every tile."""
     N, G, Kf, n_a2, SC = shape
     p = tfl.wide_plan(N, G, Kf, n_a2, SC)
     n_zt, n_yt, n_kc, n_st = -(-SC // 8), -(-(Kf + n_a2) // 8), -(-Kf // 8), -(-n_a2 // 8)
     assert (p["n_zt"], p["n_yt"], p["n_kc"], p["n_st"]) == (n_zt, n_yt, n_kc, n_st)
     assert p["zt_group"] in tfl.WIDE_TILE_COUNTS and p["nj"] in tfl.WIDE_TILE_COUNTS
-    assert p["ny_pad"] in tfl.WIDE_Y_TILE_COUNTS and p["ny_pad"] >= n_yt
+    assert p["ny_pad"] in tfl.WIDE_Y_TILE_COUNTS
+    y_tiles = []
+    for g in range(p["n_ygroups"]):
+        y = list(range(g * p["ny_pad"], min(n_yt, (g + 1) * p["ny_pad"])))
+        assert y or n_yt == 0
+        y_tiles += y
+    assert y_tiles == list(range(n_yt))
+    per_warp = p["ny_pad"] // (2 if p["ny_pad"] > 10 else 1)
+    one_warp = p["n_ygroups"] == 1 and Kf <= 8 * per_warp
+    assert p["a1_parts"] == (0 if one_warp else p["n_ygroups"] * p["ny_pad"] // per_warp)
+    assert p["a1part"] >= p["a1_parts"] * N and p["fwd_workspace"] == p["table"] + p["a1part"]
+    w_tiles = []
+    for g in range(p["n_wgroups"]):
+        w = list(range(g * p["n_kw"], min(n_kc, (g + 1) * p["n_kw"])))
+        assert w or n_kc == 0
+        w_tiles += w
+    assert w_tiles == list(range(n_kc)) and p["n_kw"] <= 8
     z_tiles = []
     for g in range(p["n_zgroups"]):
         z = list(range(g * p["zt_group"], min(n_zt, (g + 1) * p["zt_group"])))
@@ -342,20 +474,28 @@ def test_wide_plan_covers_every_column_once(shape):
         z_tiles += z
     assert z_tiles == list(range(n_zt))
     assert (p["n_zgroups"] == 1) == (SC <= 8 * tfl.WIDE_TILES)
-    j_tiles = []
+    j_tiles, s_tiles = [], []
     assert p["n_passes"] == p["mu_passes"] + p["y_pass"]
     for q in range(p["n_passes"]):
-        with_mu = not (p["y_pass"] and q == 0)
+        with_mu = q >= p["y_pass"]
         begin = (q - p["y_pass"]) * p["nj"]
         j_tiles += list(range(begin, min(n_zt, begin + p["nj"]))) if with_mu else []
-        held = [t for r in _pass_tiles(p, q).values() for t in r]
+        tiles = _pass_tiles(p, q)
+        s0 = q * p["nj"] if p["y_pass"] else 0
+        s_tiles += [s0 + t - tiles["dlog_mu"][0] for t in tiles.get("dlog_mu", ())]
+        held = [t for r in tiles.values() for t in r]
         assert len(set(held)) == len(held) and all(0 <= t < tfl.WIDE_TILES for t in held)
-    assert j_tiles == list(range(n_zt))
-    assert not p["y_pass"] or p["nj"] >= n_st
-    # dpsi: [psi, X]'s tiles padded to a built count; dZ's column groups, run
-    # one after another, hold each tile once; S*C <= 80 is one group, and
-    # so one exp per (cell, gene)
-    assert p["dk_pad"] in tfl.WIDE_DPSI_K_COUNTS and p["dk_pad"] >= n_kc
+    assert j_tiles == list(range(n_zt)) and s_tiles == list(range(n_st))
+    # dpsi: [psi, X]'s tiles padded to a built count, or past 8 tiles in
+    # groups of 8 each forming log_rfe over them all; dZ's column groups,
+    # run one after another, hold each tile once; S*C <= 80 is one group,
+    # and so one exp per (cell, gene)
+    assert p["dk_pad"] in tfl.WIDE_DPSI_K_COUNTS
+    if n_kc <= 8:
+        assert p["n_kgroups"] == 1 and p["dk_lr"] == p["dk_pad"] >= n_kc
+    else:
+        assert p["dk_pad"] == 8 and p["dk_lr"] == n_kc
+        assert p["n_kgroups"] == -(-n_kc // 8) and 8 * (p["n_kgroups"] - 1) < n_kc
     assert p["dz_group"] in tfl.WIDE_DPSI_Z_COUNTS
     d_tiles = []
     for g in range(p["n_dgroups"]):
@@ -380,7 +520,8 @@ class _FakeLib:
         return call
 
 
-@pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8), (40, 70, 3, 64, 64)])
+@pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8), (40, 70, 3, 64, 64),
+                                   (40, 70, 10, 72, 66)])
 def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
     """kernel_gene's allocations (the scratch and the (Kf + SC + n_a2, G)
     output) add up to wide_plan's gene_workspace, kernel_forward's scratch is
@@ -415,7 +556,7 @@ def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
         assert list(lib.calls["fl_backward_gene_wide"][9]) == want
         sizes.clear()
         tfl.kernel_forward(Y, psi, W, log_mu if with_a2 else None, muL)
-        assert sizes[-1] == p["fwd_workspace"] == p["table"]
+        assert sizes[-1] == p["fwd_workspace"] == p["table"] + p["a1part"]
         assert list(lib.calls["fl_forward_wide"][10]) == want
     p = tfl.wide_plan(N, G, K, 0, S * C)
     sizes.clear()
@@ -510,7 +651,7 @@ def _dpsi_scheme(psi, W, muL, dA1, dZ, YW, plan):
 
 
 @pytest.mark.parametrize("shape", SHAPES + [(2100, 130, 9, 1, 4), (60, 90, 12, 6, 8),
-                                            (50, 80, 10, 64, 2)])
+                                            (50, 80, 10, 64, 2), (40, 60, 10, 72, 66)])
 def test_3xtf32_scheme_meets_the_tolerances(shape):
     """The wide kernels' arithmetic, emulated on the CPU: log_rfe = psi W^T
     and Z = rfe muL (fresh accumulators every 16 genes, float32 running sum)
@@ -686,7 +827,7 @@ def test_cuda_wide_forward_is_deterministic(shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", STORAGES)
-@pytest.mark.parametrize("widths", INDEPENDENT_WIDTHS)
+@pytest.mark.parametrize("widths", INDEPENDENT_WIDTHS + PAST_BOUND_WIDTHS)
 def test_cuda_wide_kernels_at_independent_widths(widths, storage):
     """The wide forward, dpsi and gene part at widths no fit gives (S*C
     below S, where the gene part's dlog mu takes a pass of its own beside
@@ -740,6 +881,29 @@ def test_cuda_wide_plans_run_two_blocks_an_sm(shape):
         assert min(out[1], out[3], out[5], out[7]) >= 2, list(out)
         p = tfl.wide_plan(N, G, Kf, n_a2, SC)
         assert (out[6], out[9]) == (p["dpsi_smem"], p["dsteps"]), list(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PAST_PLAN_SHAPES)
+def test_cuda_past_bound_plans_launch_with_the_plans_shared_memory(shape):
+    """Past the old bound the library takes each plan wide_plan makes, lays
+    out each kernel's shared memory as wide_plan reckons it (``smem``, at
+    float32 Y; the forward's k-steps a stage too), and every kernel holds
+    at least one block an SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    import ctypes
+
+    from clonealign_torch.ops import _build
+    lib = _build.load()
+    N, G, Kf, n_a2, SC = shape
+    p = tfl.wide_plan(N, G, Kf, n_a2, SC)
+    out = (ctypes.c_int * 10)()
+    assert lib.fl_wide_resources(tfl._plan_arg(p), N, G, Kf, n_a2, SC, 0, out) == 0
+    sm = p["smem"]
+    assert [out[0], out[2], out[4], out[6], out[8], out[9]] == [
+        sm["fwd"], sm["fwd_y"], sm["gene"], sm["dpsi"], sm["fwd_steps"], p["dsteps"]], list(out)
+    assert min(out[1], out[3], out[5], out[7]) >= 1, list(out)
 
 
 @pytest.mark.cuda
