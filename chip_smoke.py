@@ -73,10 +73,17 @@ one and every launch of every other path a narrow one; past the wide
 family's old bound of 64 columns of [psi, X], 64 samples and 2,048 sample
 x clone columns, each wide and float64 kernel against its plain version
 at every Y storage at shapes crossing each of those alone (Kf 72; S 66;
-S*C 2,178), the wide kernels timed at full width at Kf 72, S*C 660 beside
-their bounds, the full-width fit with K = 2, a one-hot of 70 batches
-(P = 70) and mc_samples = 66 (every launch a wide one), and a float64 fit
-past all three bounds on the card against the CPU port; and last
+S*C 2,178; the backward the split one, dlog_rfe_kernel and the tiled
+products, in the one call the fit makes and in its two parts alone), the
+wide kernels timed at full width at Kf 72, S*C 660 beside their bounds
+(the backward bit-identical across two launches), the split backward and
+gene part at 2,100 x 200, S*C 2,178 beside the plain backward, the
+full-width fit with K = 2, a one-hot of 70 batches (P = 70) and
+mc_samples = 66 (every launch a wide one, the backward's the split one
+call; its ms an iteration beside the grouped kernels' and its inference
+peak beside restarts._sweep_bytes', which must not be below it), and
+a float64 fit past all three bounds on the card against the CPU port; and
+last
 ``dtype="float64"`` through the float64 kernel family
 (``ops/csrc/fused_likelihood_f64.cu``): each float64 kernel against its
 plain float64 version at every Y storage it loads, at the shapes above
@@ -118,9 +125,12 @@ listing its two parts (the Y-free dpsi kernel, and the gene-major kernel
 with its packing and reduction kernels), each with its own launches, time,
 plain version's time and bound; then one entry for each wide kernel, at
 the wide fit's widths with each full-width configuration under
-``by_config`` and the wide paths' launches under ``paths``, and one more
-for each at the past-bound fit's widths (its launches, its checks past
-the bound under ``checks``); then one entry
+``by_config`` and the wide paths' launches under ``paths``, and at the
+past-bound fit's widths one for the forward and one for the split
+backward's one call (its launches, its checks past the bound under
+``checks``, the small shape's times under ``small_shape``; the
+backward's two parts alone, which no path calls, under ``parts``, each
+held to the plain VJP and timed beside its terms); then one entry
 for each float64 kernel, at the main path's widths (Kf 1, S*C 10) and the
 storage "auto" resolves to, with each full-width configuration under
 ``by_config`` and the float64 paths' launches under ``paths``; the line
@@ -227,14 +237,15 @@ def log(msg: str) -> None:
 
 def launches_of(fl, family="narrow"):
     """One family's kernel launches since the last reset, keyed fwd, dpsi
-    and gene: the narrow kernels', the "wide" family's or the "float64"
-    family's. Raises if another family launched: every path is one
+    and gene (and for the wide family split: kernel_backward's one call for
+    both parts past the old bound): the narrow kernels', the "wide"
+    family's or the "float64" family's. Raises if another family launched: every path is one
     family's (the wide phase's paths the wide family's, the float64
     phase's the float64 family's, every other path the narrow kernels')."""
     counts = {
         "narrow": {"fwd": fl.fwd_launches, "dpsi": fl.dpsi_launches, "gene": fl.gene_launches},
         "wide": {"fwd": fl.fwd_wide_launches, "dpsi": fl.dpsi_wide_launches,
-                 "gene": fl.gene_wide_launches},
+                 "gene": fl.gene_wide_launches, "split": fl.split_launches},
         "float64": {"fwd": fl.fwd_f64_launches, "dpsi": fl.dpsi_f64_launches,
                     "gene": fl.gene_f64_launches}}
     other = {name: n for name, n in counts.items() if name != family and any(n.values())}
@@ -384,14 +395,17 @@ def kernel_bounds(N, G, Kf, SC, y_itemsize):
 
 
 def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
-                  a2_timed=True, vjp_parts=False, batch=10):
+                  a2_timed=True, vjp_parts=False, batch=10, identical=False):
     """Compare forward (A2 on and off) and backward with the plain versions
     at one shape, with Y stored as ``storage``, the backward taking Y W from
-    the forward kernel as the fit does; return the errors (the largest, and
-    each output's under ``errs``) and the times of the A2-off calls (the
-    training step's form), with the backward's dpsi and gene parts also
-    timed alone; the A2-on calls are timed too unless ``a2_timed`` is
-    false. With ``buffer_rows``, Y is handed to the kernels as the streaming
+    the forward kernel as the fit does, and the backward's dpsi and gene
+    parts called alone (kernel_dpsi, kernel_gene) with the same plain VJP;
+    return the errors (the largest, and each output's under ``errs``; the
+    parts' under ``part_errs``) and the times of the A2-off calls (the
+    training step's form), with the parts also timed alone; the A2-on calls
+    are timed too unless ``a2_timed`` is false. With ``identical``, the
+    backward is launched twice more and must give the same bits (raises
+    otherwise). With ``buffer_rows``, Y is handed to the kernels as the streaming
     fit's chunk feeder hands a chunk out: the leading rows of a device
     buffer of ``buffer_rows`` rows, whose other rows hold other counts. With
     ``vjp_parts`` the backward's parts are timed beside the plain VJP's terms
@@ -442,6 +456,20 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
         want = as_dict(names_b, fl.reference_likelihood_vjp(*args_b))
         torch.cuda.synchronize()
         err_b = compare(got, want, bwd_scale, f"bwd {tag}", errs)
+        parts = as_dict(names_b, (fl.kernel_dpsi(x["psi"], x["W"], x["muL"], x["dA1"], x["dZ"],
+                                                 YW), *fl.kernel_gene(*args_b)))
+        torch.cuda.synchronize()
+        part_errs = {}
+        compare(parts, want, bwd_scale, f"bwd parts alone {tag}", part_errs)
+        del parts
+        if identical:
+            runs = [as_dict(names_b, fl.kernel_backward(*args_b, YW)) for _ in range(2)]
+            differ = [n for n in names_b if n in got and not torch.equal(runs[0][n], runs[1][n])]
+            log(f"  bwd {tag}: two launches "
+                + (f"DIFFER in {', '.join(differ)}" if differ else "bit-identical"))
+            if differ:
+                raise AssertionError(f"bwd {tag}: two launches differ in {differ}")
+            del runs
         if with_a2 and not a2_timed:
             continue
         t = {
@@ -458,7 +486,8 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
             f"(dpsi {t['dpsi_ms']:.3f} ms + gene {t['gene_ms']:.3f} ms; "
             f"plain {t['bwd_plain_ms']:.3f} ms)")
         if not with_a2:
-            result = dict(t, fwd_err=err_f, bwd_err=err_b, errs=errs)
+            result = dict(t, fwd_err=err_f, bwd_err=err_b, errs=errs, part_errs=part_errs,
+                          identical=identical)
     result["bounds"] = kernel_bounds(shape["N"], shape["G"], Kf, S * shape["C"],
                                      x["Y"].element_size())
     if vjp_parts:
@@ -526,12 +555,13 @@ def tc_kernels(fl):
     (12) and gene_kernel<YT, KF, NT, A2> (88), YT the Y storage code (0-3),
     and the wide family's: fwd_wide_kernel<NZ, STEPS> (16, STEPS the
     k-steps a stage, 2 or 4), fwd_wide_y_kernel<YT, NY> (20),
-    gene_wide_kernel<YT, NJ, GEN> (64, GEN its form for dW's column groups
-    or dlog mu's passes) and dpsi_wide_kernel<NK, NZ, LRW> (30: LRW its form
-    for dpsi's column groups, at NK 8) at the built tile counts
-    (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``,
+    gene_wide_kernel<YT, NJ> (32) and dpsi_wide_kernel<NK, NZ> (24) at the
+    built tile counts (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``,
     ``fl.WIDE_DPSI_K_COUNTS`` x ``fl.WIDE_DPSI_Z_COUNTS``), and their
-    packing kernels (no templates); and the float64 family's
+    packing kernels (no templates); the split backward past the old bound,
+    dlog_rfe_kernel<YT, WITH_Y> and gene_product_kernel<YT, YV> (5 each: Y
+    read at each storage, and the Y-free form) and dpsi_product_kernel and
+    dpsi_sum_kernel (no templates); and the float64 family's
     fwd_f64_kernel<YT, NT> (28: ``fl.F64_FWD_TILE_COUNTS``),
     dpsi_f64_kernel<NK, NZ, LRW> (30: ``fl.F64_DPSI_K_COUNTS`` x
     ``fl.F64_DPSI_Z_COUNTS``, and NK 8's grouped form) and
@@ -547,13 +577,15 @@ def tc_kernels(fl):
         "fwd_wide_kernel": {f"<{t},{s}>" for t in fl.WIDE_TILE_COUNTS for s in (2, 4)},
         "fwd_wide_y_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_Y_TILE_COUNTS},
         "fwd_wide_pack_kernel": {"<>"},
-        "dpsi_wide_kernel": ({f"<{k},{z},0>" for k in fl.WIDE_DPSI_K_COUNTS
-                              for z in fl.WIDE_DPSI_Z_COUNTS}
-                             | {f"<8,{z},1>" for z in fl.WIDE_DPSI_Z_COUNTS}),
+        "dpsi_wide_kernel": {f"<{k},{z}>" for k in fl.WIDE_DPSI_K_COUNTS
+                             for z in fl.WIDE_DPSI_Z_COUNTS},
         "dpsi_wide_pack_kernel": {"<>"},
-        "gene_wide_kernel": {f"<{y},{t},{g}>" for y in range(4) for t in fl.WIDE_TILE_COUNTS
-                             for g in (0, 1)},
+        "gene_wide_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_TILE_COUNTS},
         "gene_wide_pack_kernel": {"<>"},
+        "dlog_rfe_kernel": {"<0,0>"} | {f"<{y},1>" for y in range(4)},
+        "gene_product_kernel": {"<0,0>"} | {f"<{y},1>" for y in range(4)},
+        "dpsi_product_kernel": {"<>"},
+        "dpsi_sum_kernel": {"<>"},
         "fwd_f64_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.F64_FWD_TILE_COUNTS},
         "fwd_f64_pack_kernel": {"<>"},
         "dpsi_f64_kernel": ({f"<{k},{z},0>" for k in fl.F64_DPSI_K_COUNTS
@@ -741,7 +773,8 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
             dtype=dtype, K=K, **(allele or {}),
         )
     wall = time.perf_counter() - t0
-    launches = launches_of(fl, "float64" if dtype == "float64" else "wide" if wide else "narrow")
+    family = "float64" if dtype == "float64" else "wide" if wide else "narrow"
+    launches = launches_of(fl, family)
     ci, tm = fit.convergence_info, fit.timings
     n_iters = ci.n_iters
     (_, setup_peak), = setups["setup"]
@@ -776,12 +809,17 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
     log(f"  ELBO {ci.elbo[0]:.6g} -> {ci.elbo[-1]:.6g} (rising steps {rising:.2f}), final "
         f"{ci.final_elbo:.9g} +- {ci.sd_final_elbo:.3g}; accuracy {out['accuracy']:.4f}; "
         f"launches{' (wide)' if wide else ''} fwd {launches['fwd']} dpsi {launches['dpsi']} "
-        f"gene {launches['gene']}")
+        f"gene {launches['gene']}" + (f" split {launches['split']}" if "split" in launches else ""))
     if out["accuracy"] < MIN_ACCURACY:
         raise AssertionError(f"{label or y_storage}: accuracy {out['accuracy']:.4f} < {MIN_ACCURACY}")
     # warm start + initial ELBO + (train + fresh eval) per iteration + 20
-    # final, and one backward (a dpsi and a gene-major launch) per iteration
+    # final, and one backward (a dpsi and a gene-major launch; past the old
+    # bound one split launch for both) per iteration
     want = {"fwd": 2 + 2 * n_iters + 20, "dpsi": n_iters, "gene": n_iters}
+    if family == "wide":
+        past = fl.split_route(K + P, 0, mc_samples * FULL["C"])
+        want.update(dpsi=0 if past else n_iters, gene=0 if past else n_iters,
+                    split=n_iters if past else 0)
     if launches != want:
         raise AssertionError(f"{label or y_storage}: kernel launches {launches} do not match "
                              f"{n_iters} iterations (expected {want})")
@@ -835,6 +873,8 @@ def run_sweep(clonealign_torch, fl, Y, L, z, name, impl, batching, y_storage, y_
     want = {"fwd": sum(2 + n + 20 for n in iters) if impl == "xla" else 20 * R,
             "dpsi": sum(iters) if impl == "xla" else 0}
     want["gene"] = want["dpsi"]
+    if "split" in launches:
+        want["split"] = 0
     if launches != want:
         raise AssertionError(f"sweep ({name}): launches {launches}, expected {want}")
     return {"iterations": iters, "launches": launches, "ran": ran, "plan_gb": plan,
@@ -1855,7 +1895,7 @@ def parity_fit(clonealign_torch, fl):
         f"{abs(e32 - e64):.4g}, bar {tol:.4g}; {differ} labels differ where the float64 fit's "
         f"largest probability exceeds 0.99 ({int(sure.sum())} cells); accuracy "
         f"{accuracy(fit, z):.4f} (float64 {accuracy(ref, z):.4f}); launches (wide) {launches}")
-    want = {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n}
+    want = {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n, "split": 0}
     if not abs(e32 - e64) < tol or differ or launches != want:
         raise AssertionError(f"parity fit: |diff| {abs(e32 - e64)} (bar {tol}), {differ} "
                              f"labels differ, launches {launches} (expected {want})")
@@ -1874,9 +1914,12 @@ def wide_resources(fl, storage, Kf, SC, n_a2=0, min_blocks=2):
     width for these widths (Y in ``storage``) under ``fl.wide_plan``'s plan, as the
     library lays them out (``fl_wide_resources``): each kernel's registers
     and spill bytes (ptxas), dynamic shared memory and blocks an SM (the
-    occupancy query); raises unless each runs at least ``min_blocks``
-    blocks an SM (two up to the old bound of Kf, S 64 and S*C 2,048; one
-    past it), spill-free."""
+    occupancy query); past the old bound the split backward's kernels
+    (``gene``: dlog_rfe_kernel with Y, ``dpsi``: dpsi_product_kernel, and
+    the gene part's products, dlog mu's product and dpsi's dlog_rfe_kernel
+    without Y); raises unless each runs at least ``min_blocks`` blocks an
+    SM (two up to the old bound of Kf, S 64 and S*C 2,048; one past it),
+    spill-free."""
     import ctypes
 
     import torch
@@ -1886,26 +1929,31 @@ def wide_resources(fl, storage, Kf, SC, n_a2=0, min_blocks=2):
     lib = _build.load()
     code = fl.Y_DTYPES[getattr(torch, storage)]
     plan = fl.wide_plan(FULL["N"], FULL["G"], Kf, n_a2, SC)
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 16)()
     err = lib.fl_wide_resources(fl._plan_arg(plan), FULL["N"], FULL["G"], Kf, n_a2, SC, code,
                                 out)
     if err:
         raise AssertionError(f"the library refuses wide_plan's plan {plan} (CUDA error {err})")
+    parts = [("fwd", 0, "fwd_wide_kernel", f"<{plan['zt_group']},{out[8]}>"),
+             ("fwd_y", 2, "fwd_wide_y_kernel", f"<{code},{plan['ny_pad']}>")]
+    if plan["split"]:
+        parts += [("gene", 4, "dlog_rfe_kernel", f"<{code},1>"),
+                  ("dpsi", 6, "dpsi_product_kernel", "<>"),
+                  ("gene_products", 10, "gene_product_kernel", "<0,0>"),
+                  ("dlog_mu_product", 12, "gene_product_kernel", f"<{code},1>"),
+                  ("dpsi_dlog_rfe", 14, "dlog_rfe_kernel", "<0,0>")]
+    else:
+        parts += [("gene", 4, "gene_wide_kernel", f"<{code},{plan['nj']}>"),
+                  ("dpsi", 6, "dpsi_wide_kernel", f"<{plan['dk_pad']},{plan['dz_group']}>")]
     res = {}
-    for i, (part, kernel, args) in enumerate((
-            ("fwd", "fwd_wide_kernel", f"<{plan['zt_group']},{out[8]}>"),
-            ("fwd_y", "fwd_wide_y_kernel", f"<{code},{plan['ny_pad']}>"),
-            ("gene", "gene_wide_kernel",
-             f"<{code},{plan['nj']},{int(plan['n_wgroups'] > 1 or plan['y_pass'] > 1)}>"),
-            ("dpsi", "dpsi_wide_kernel",
-             f"<{plan['dk_pad']},{plan['dz_group']},{int(plan['n_kgroups'] > 1)}>"))):
+    for part, i, kernel, args in parts:
         regs, spill_st, spill_ld = kernel_resources(_build.build_log, kernel)[args]
         res[part] = {"instantiation": kernel + args, "registers": regs,
-                     "spill_bytes": spill_st + spill_ld, "smem_bytes": out[2 * i],
-                     "blocks_per_sm": out[2 * i + 1]}
-        if part == "dpsi":
+                     "spill_bytes": spill_st + spill_ld, "smem_bytes": out[i],
+                     "blocks_per_sm": out[i + 1]}
+        if part == "dpsi" and not plan["split"]:
             res[part]["k_steps_a_stage"] = out[9]
-        if out[2 * i + 1] < min_blocks or spill_st or spill_ld:
+        if out[i + 1] < min_blocks or spill_st or spill_ld:
             raise AssertionError(f"{kernel} at Y {storage}, Kf={Kf}, S={n_a2}, S*C={SC}: "
                                  f"{res[part]}")
     return res
@@ -1940,7 +1988,8 @@ def wide_stream(clonealign_torch, fl, Y, L, z, X, core):
     launches = launches_of(fl, "wide")
     ci, tm, n = fit.convergence_info, fit.timings, fit.convergence_info.n_iters
     acc = accuracy(fit, z)
-    want = {"fwd": n_chunks * (2 + 2 * n + 20), "dpsi": n_chunks * n, "gene": n_chunks * n}
+    want = {"fwd": n_chunks * (2 + 2 * n + 20), "dpsi": n_chunks * n, "gene": n_chunks * n,
+            "split": 0}
     diff = abs(ci.final_elbo - core["final_elbo"])
     bar = max(1e-4 * abs(core["final_elbo"]), 3.0 * ci.sd_final_elbo)
     same = fit.clone == core["labels"]
@@ -1977,6 +2026,12 @@ PAST_CHECKS = ((dict(N=1_000, G=515, C=3), 2, 72), (dict(N=1_000, G=515, C=1), 6
 # The full-width fit past the bound: K 2 and a one-hot of 70 batches over
 # the cells (Kf 72), mc_samples 66 (S*C 660 at FULL's 10 clones)
 PAST_K, PAST_BATCHES, PAST_S = 2, 70, 66
+# ... its ms an iteration with the grouped kernels the split backward
+# replaced (PERF.md, H100 80GB HBM3 at 700 W), printed beside this run's;
+# and the gene part's small past-bound shape, timed beside the plain
+# backward: (shape, S, Kf)
+PAST_GROUPED_ITER_MS = "424.5-426.4"
+PAST_SMALL = (dict(N=2_100, G=200, C=66), 33, 1)
 # The float64 fit past every bound at once (Kf 72, S 66, S*C 2,178: C 33),
 # numpy counts, on the card against the CPU port from the same draws
 PAST_F64 = dict(N=600, G=200, C=33)
@@ -2001,13 +2056,17 @@ def past_f64_data():
 
 def past_bound_checks(fl, auto_name):
     """The wide family past the old bound, by CUDA events only: each kernel
-    against its plain version at every Y storage at PAST_CHECKS's shapes,
+    against its plain version at every Y storage at PAST_CHECKS's shapes
+    (the backward the split one: dlog_rfe_kernel and the tiled products,
+    in kernel_backward's one call and in kernel_dpsi's and kernel_gene's),
     and at full width at the past-bound fit's widths (Kf 72, S*C 660, Y as
-    "auto" stores it; the backward's parts beside the plain VJP's terms),
-    timed beside its bound, with the plans' resources (at least one block
-    an SM; none spilled); and at full width at Kf 64, S*C 80, timed beside
-    its plain version in the same form. Returns the numbers for the kernels
-    line."""
+    "auto" stores it; the backward bit-identical across two launches, its
+    parts alone beside the plain VJP's terms), timed beside its bound, with
+    the plans' resources (at least one block an SM; none spilled); the
+    backward and the gene part at PAST_SMALL (2,100 x 200, S*C 2,178) timed
+    beside the plain backward; and at full width at Kf 64, S*C 80, timed
+    beside its plain version in the same form. Returns the numbers for the
+    kernels line."""
     log("past the old bound (Kf 64, S 64, S*C 2,048): wide kernels vs plain")
     checks = []
     for storage in STORAGES:
@@ -2018,19 +2077,30 @@ def past_bound_checks(fl, auto_name):
                            "s": S, "sc": S * shape["C"], "errs": r["errs"]})
     Kf, SC = PAST_K + PAST_BATCHES, PAST_S * FULL["C"]
     full = check_kernels(FULL, S=PAST_S, Kf=Kf, seed=36, reps=2, storage=auto_name,
-                         a2_timed=False, vjp_parts=True, batch=3)
+                         a2_timed=False, vjp_parts=True, batch=3, identical=True)
     full["resources"] = wide_resources(fl, auto_name, Kf, SC, min_blocks=1)
     b = full["bounds"]
     log(f"past the old bound, full width, Y {auto_name}, Kf={Kf} S={PAST_S} S*C={SC}: "
         + ", ".join(f"{part} {full[f'{part}_ms']:.3f} ms (plain {full[f'{part}_plain_ms']:.3f}, "
                     f"bound {b[part][0]:.3f} by {b[part][2]}, "
                     f"{b[part][0] / full[f'{part}_ms']:.3f} of it)"
-                    for part in ("fwd", "dpsi", "gene")))
+                    for part in ("fwd", "bwd", "dpsi", "gene"))
+        + " (bwd: kernel_backward's one split call, the fit's; dpsi and gene: the parts alone)")
     for n_a2 in (0, PAST_S):
         for part, q in wide_resources(fl, auto_name, Kf, SC, n_a2, min_blocks=1).items():
             log(f"  A2 columns {n_a2}: {q['instantiation']}: {q['registers']} registers, "
                 f"{q['spill_bytes']} B spilled, {q['smem_bytes']} B shared memory, "
                 f"{q['blocks_per_sm']} blocks an SM")
+    shape, S, Kf_small = PAST_SMALL
+    small = check_kernels(shape, S=S, Kf=Kf_small, seed=38, reps=5, storage=auto_name,
+                          a2_timed=False, vjp_parts=True)
+    slower = small["gene_ms"] > small["gene_plain_ms"]
+    log(f"past the old bound, {shape['N']}x{shape['G']} S*C={S * shape['C']} Kf={Kf_small}, Y "
+        f"{auto_name}: gene part {small['gene_ms']:.4f} ms against the plain backward's "
+        f"{small['gene_plain_ms']:.4f} ({'SLOWER' if slower else 'no slower'}; bound "
+        f"{small['bounds']['gene'][0]:.4f}), dpsi {small['dpsi_ms']:.4f} (plain "
+        f"{small['dpsi_plain_ms']:.4f}); the backward's one call {small['bwd_ms']:.4f} (plain "
+        f"{small['bwd_plain_ms']:.4f}, bound {small['bounds']['bwd'][0]:.4f})")
     # the widest [psi, X] up to the old bound (Kf 64, S*C 80), its plain
     # parts timed in the VJP's form as above
     kf64 = check_kernels(FULL, S=WIDE_S, Kf=64, seed=37, reps=1, storage=auto_name,
@@ -2039,18 +2109,35 @@ def past_bound_checks(fl, auto_name):
         + ", ".join(f"{part} {kf64[f'{part}_ms']:.3f} ms (plain {kf64[f'{part}_plain_ms']:.3f}, "
                     f"bound {kf64['bounds'][part][0]:.3f} by {kf64['bounds'][part][2]})"
                     for part in ("fwd", "dpsi", "gene")))
-    return {"checks": checks, "full": full, "kf64": kf64}
+    return {"checks": checks, "full": full, "kf64": kf64, "small": small}
 
 
-def past_bound_fit(clonealign_torch, fl, Y, L, z):
+def past_bound_fit(clonealign_torch, fl, Y, L, z, y_itemsize):
     """The full-width fit past the old bound through clonealign: K = 2,
     P = 70 (a one-hot of 70 batches, numpy seed 7), mc_samples = 66,
     y_storage "auto", FIT_MAX_ITER iterations; full_fit's checks (rising
-    trace, accuracy, every launch a wide one)."""
+    trace, accuracy, every launch a wide one); its ms an iteration beside
+    the grouped kernels', its inference peak beside restarts._sweep_bytes' reckoning of
+    one lane, which must not be below the peak ("auto" decides lane
+    batching from it), and what "auto" picks for three such restarts."""
+    from clonealign_torch import restarts
+
     X = batch_covariates(FULL["N"], PAST_BATCHES, seed=7)
-    return full_fit(clonealign_torch, fl, Y, L, z, "auto", x=X, mc_samples=PAST_S, wide=True,
-                    K=PAST_K, label=f"past the old bound: auto K={PAST_K} P={PAST_BATCHES} "
-                                    f"(one-hot batches) mc_samples={PAST_S}")
+    out = full_fit(clonealign_torch, fl, Y, L, z, "auto", x=X, mc_samples=PAST_S, wide=True,
+                   K=PAST_K, label=f"past the old bound: auto K={PAST_K} P={PAST_BATCHES} "
+                                   f"(one-hot batches) mc_samples={PAST_S}")
+    sizes = (FULL["N"], FULL["G"], FULL["C"], PAST_K, PAST_S)
+    out["reckoned_gb"] = restarts._sweep_bytes(*sizes, 1, 4, "cuda", y_itemsize, PAST_BATCHES) / 1e9
+    out["auto_3"] = restarts._auto_restart_batching(*sizes, 3, 4, "cuda", y_itemsize, PAST_BATCHES)
+    log(f"past the old bound: {out['iter_ms']:.2f} ms an iteration (the grouped kernels it "
+        f"replaced: {PAST_GROUPED_ITER_MS}); peak allocated in the inference {out['peak_gb']:.4f} GB "
+        f"against _sweep_bytes' {out['reckoned_gb']:.4f} GB for one lane "
+        f"({out['reckoned_gb'] / out['peak_gb']:.3f} of it); \"auto\" at three restarts: "
+        f"{out['auto_3']}")
+    if out["reckoned_gb"] < out["peak_gb"]:
+        raise AssertionError(f"past the old bound: _sweep_bytes reckons {out['reckoned_gb']:.4f} GB, "
+                             f"under the fit's peak {out['peak_gb']:.4f} GB")
+    return out
 
 
 def past_bound_f64(clonealign_torch, fl, cpu):
@@ -2214,7 +2301,7 @@ def wide_phase(clonealign_torch, fl, y_itemsize, checks):
                       x=X, lanes=WIDE_LANES, mc_samples=WIDE_S, wide=True)
     if sweep["ran"] != "vmap":
         raise AssertionError("the wide sweep did not run as lanes")
-    past_fit = past_bound_fit(clonealign_torch, fl, Y, L, z)
+    past_fit = past_bound_fit(clonealign_torch, fl, Y, L, z, y_itemsize)
     del Y
     parity = parity_fit(clonealign_torch, fl)
     log(f"wide phase: {time.perf_counter() - t_phase:.1f} s after its kernel checks")
@@ -2268,25 +2355,51 @@ def wide_kernels(wide, auto_name):
             "paths": [{"path": p, "launches": n[part]} for p, n in paths],
         })
     past, Kf, SC = wide["past"]["full"], PAST_K + PAST_BATCHES, PAST_S * FULL["C"]
-    for name, part, at, err in (
-            ("fwd_wide_kernel", "fwd", fwd_at, ("A1", "Z", "YW")),
-            ("dpsi_wide_pack_kernel+dpsi_wide_kernel", "dpsi", bwd_at, ("dpsi",)),
-            ("gene_wide_kernel+reduce_chunks_kernel", "gene", bwd_at, ("dW", "dmuL"))):
+    small, (shape, S, Kf_small) = wide["past"]["small"], PAST_SMALL
+    fit_path = (f"fit past the old bound K={PAST_K} P={PAST_BATCHES} mc_samples={PAST_S} "
+                "y_storage=auto")
+    # past the bound the fit's backward is kernel_backward's one call
+    # (counted in split); kernel_dpsi's and kernel_gene's split forms,
+    # which no path of the port calls, stand under "parts", each held
+    # against the plain VJP and timed beside its terms
+    for name, part, launches, err, parts in (
+            ("fwd_wide_kernel", "fwd", "fwd", ("A1", "Z", "YW"), ()),
+            ("dlog_rfe_kernel+gene_product_kernel+dpsi_product_kernel+dpsi_sum_kernel", "bwd",
+             "split", ("dpsi", "dW", "dmuL"),
+             (("kernel_dpsi: dlog_rfe_kernel without Y+dpsi_product_kernel+dpsi_sum_kernel",
+               "dpsi", ("dpsi",)),
+              ("kernel_gene: dlog_rfe_kernel+gene_product_kernel", "gene", ("dW", "dmuL"))))):
         b = past["bounds"][part]
+        at = fwd_at if part == "fwd" else bwd_at
         out.append({
             "name": f"{name} past the old bound (Kf {Kf}, S {PAST_S}, S*C {SC})", "route": "cuda",
-            "source": src, "replaces": at, "launches": wide["past_fit"]["launches"][part],
+            "source": src, "replaces": at, "launches": wide["past_fit"]["launches"][launches],
             "max_abs_err": max(past["errs"][e] for e in err),
             "ms": past[f"{part}_ms"], "plain_ms": past[f"{part}_plain_ms"],
             "bound_ms": b[0], "bound_by": b[1], "bound_unit": b[2], "library_ms": None,
-            "bound_fraction": b[0] / past[f"{part}_ms"], **past["resources"].get(part, {}),
+            "bound_fraction": b[0] / past[f"{part}_ms"],
+            **(past["resources"]["fwd"] if part == "fwd" else
+               {"resources": [past["resources"][k] for k in ("gene", "gene_products", "dpsi")]}),
             "y_storage": auto_name, "kf": Kf, "s": PAST_S, "sc": SC,
+            **({"bit_identical_launches": past["identical"]} if part == "bwd" else {}),
             "checks": [{k: v for k, v in c.items() if k != "errs"}
                        | {"max_abs_err": max(c["errs"][e] for e in err)}
                        for c in wide["past"]["checks"]],
-            "paths": [{"path": f"fit past the old bound K={PAST_K} P={PAST_BATCHES} "
-                               f"mc_samples={PAST_S} y_storage=auto",
-                       "launches": wide["past_fit"]["launches"][part]}],
+            "paths": [{"path": fit_path, "launches": wide["past_fit"]["launches"][launches]}],
+            "small_shape": {"shape": f"{shape['N']}x{shape['G']}", "kf": Kf_small, "s": S,
+                            "sc": S * shape["C"], "ms": small[f"{part}_ms"],
+                            "plain_ms": small[f"{part}_plain_ms"],
+                            "bound_ms": small["bounds"][part][0],
+                            "max_abs_err": max(small["errs"][e] for e in err)},
+            **({"parts": [{"name": p_name, "launches": 0, "ms": past[f"{p}_ms"],
+                           "plain_ms": past[f"{p}_plain_ms"],
+                           "bound_ms": past["bounds"][p][0], "bound_by": past["bounds"][p][1],
+                           "max_abs_err": max(past["part_errs"][e] for e in p_err),
+                           "small_shape": {"ms": small[f"{p}_ms"],
+                                           "plain_ms": small[f"{p}_plain_ms"],
+                                           "max_abs_err": max(small["part_errs"][e]
+                                                              for e in p_err)}}
+                          for p_name, p, p_err in parts]} if parts else {}),
         })
     return out
 

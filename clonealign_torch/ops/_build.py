@@ -127,7 +127,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fl_wide_resources.restype = i
     lib.fl_backward_dpsi_wide.argtypes = [p] * 9 + [i] * 4 + [p]
     lib.fl_backward_dpsi_wide.restype = i
-    lib.fl_backward_gene_wide.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.fl_backward_gene_wide.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.fl_backward_gene_wide.restype = i
     lib.fl64_forward.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.fl64_forward.restype = i

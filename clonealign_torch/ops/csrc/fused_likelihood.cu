@@ -132,11 +132,10 @@
 // accumulator tiles go in column groups or passes, each recomputing what
 // it needs (the exps, a read of Y): Z's column groups (grid.y of
 // fwd_wide_kernel), the Y products' (grid.y of fwd_wide_y_kernel; A1's
-// partial sums then added by reduce_chunks_kernel), dpsi's output columns
-// past 64 (grid.y of dpsi_wide_kernel, each group forming log_rfe from
-// every column of [psi, X]), dW's columns past 64 (a launch of
-// gene_wide_kernel each, the first alone writing d(muL) and dlog mu) and
-// dlog mu's passes of its own past the tiles left beside dW's.
+// partial sums then added by reduce_chunks_kernel), dpsi's dZ groups and
+// the gene part's passes over d(muL)'s columns. Past the old bound (Kf 64,
+// nA2 64 or SC 2,048: wide_plan's split) the backward is the split one
+// (the last item below) in place of dpsi_wide_kernel and gene_wide_kernel.
 // The contract is unnormalized attention: Q = psi (head width Kf), K = W,
 // V = muL (value width SC), P = exp(Q K^T) with no running max. Each
 // launch follows one plan (WidePlan), which ops/fused_likelihood.py's
@@ -230,6 +229,40 @@
 //    Kf 5, S*C 80, without d(muL)'s 1.5, without dW's 2.4, the last more
 //    than their share because dW waits on drfe and the exps
 //    (gene_variants.py).
+//  * The split backward (dlog_rfe_kernel, gene_product_kernel,
+//    dpsi_product_kernel + dpsi_sum_kernel), past the old bound: the
+//    counterpart of _bwd_kernel's tile of rfe, drfe and dlog_rfe in VMEM,
+//    from which it takes every product. It replaces the grouped forms
+//    of dpsi_wide_kernel and gene_wide_kernel, which held their sums in
+//    registers and so formed log_rfe over every tile of [psi, X], the exps
+//    and drfe again in each of their groups and passes (at Kf 72, S*C 660:
+//    2 x 9 and 2 x 10 of them, 145.5 and 188.8 ms against the plain VJP's
+//    26.8 and 45.0; H100 80GB HBM3, 700 W). Here the split is at
+//    dlog_rfe: over row blocks of plan.rows cells (a workspace of at most
+//    2^23 floats a buffer, whatever N), dlog_rfe_kernel forms log_rfe =
+//    psi W^T, one exp an element, and drfe = dZ muL^T over all of S*C into
+//    one accumulator, and writes rfe and dlog_rfe = rfe drfe + Y dA1 (or t
+//    = rfe drfe, for dpsi alone) to the workspace; gene_product_kernel takes
+//    dW^T = psi^T dlog_rfe and d(muL)^T = dZ^T rfe (and dlog mu = dA2^T Y)
+//    from it, K the block's cells, summed over the row blocks in order in
+//    the output (a single block's cells in slices whose partial sums
+//    reduce_chunks_kernel adds, where its grid would not fill the card);
+//    dpsi_product_kernel takes t W (or dlog_rfe W) over ranges of genes,
+//    which dpsi_sum_kernel adds in float64 beside dA1 YW. Nothing is formed
+//    twice, and fl_backward_gene_wide with dpsi (the autograd function's
+//    backward) forms dlog_rfe once for both parts. Each is a tiled product: blocks of 64 x
+//    64 outputs, warps of 32 x 32 in two groups of four, each group taking
+//    its half of each stage's 32 values of K (twice the warps a tile, for
+//    small grids), stages filled by cp.async into a ring of three (16 bytes
+//    a copy: at an odd S*C, dZ's row block and muL are first copied to a
+//    pitch of whole float4s, pad_rows_kernel) and each pair of k-steps'
+//    3xTF32 products in fresh accumulators added on CUDA cores;
+//    deterministic, no atomics. What bounds them: the MMAs (at Kf 72, S*C
+//    660, 2.3e12 TF32 flops in drfe and log_rfe, as many in d(muL) and dW,
+//    0.4e12 in dpsi), run by mma.sync at ~110 TFLOP/s in each kernel with
+//    two blocks an SM (chip_smoke.py; the same with stages of 64 or four
+//    of them in the ring, so neither the barriers nor the copies set it),
+//    a fifth of the 495 of the bound; wgmma is the way to more.
 //
 // Build: one translation unit holds everything, or ops/_build.py compiles
 // this file as five in parallel and links them: FL_PART = -1 holds the
@@ -299,10 +332,17 @@ struct GeneArgs {
 // Past the widths one block's tiles hold: the Y products' column groups
 // (n_ygroups of ny_pad tiles) and A1's partial sums (a1_parts rows of N
 // floats, a1part floats after the table; none where one warp holds every
-// column of Y W); dpsi's groups of output columns (n_kgroups of dk_pad
-// tiles, each forming log_rfe over dk_lr tiles); dW's column groups
-// (n_wgroups of n_kw tiles); y_pass counts the passes dlog mu takes of its
-// own (0: it rides the first pass).
+// column of Y W); y_pass counts the passes dlog mu takes of its own (0: it
+// rides the first pass).
+//
+// split: the backward is the split one (past Kf 64, nA2 64 or SC 2,048, the
+// old bound): rows cells a row block of the workspace, n_chunks row blocks,
+// ldw the workspace's row pitch (floats), dsplit gene ranges of dgenes genes
+// for dpsi's product, gslices slices of gcells cells a row block for the
+// gene part's products (more than one only in a single row block: then
+// partial sums that reduce_chunks_kernel adds), and ldz the row pitch dZ
+// and muL are copied to where SC is no whole number of float4s (else 0);
+// the gene part's and dpsi's other numbers are then 0.
 struct WidePlan {
   int n_kc, n_zt, n_yt, n_st;
   int g_pad, zt_group, n_zgroups, ny_pad;
@@ -312,7 +352,7 @@ struct WidePlan {
   size_t dtable;
   int n_ygroups, a1_parts;
   size_t a1part;
-  int n_kgroups, dk_lr, n_kw, n_wgroups;
+  int split, ldw, dsplit, dgenes, gslices, gcells, ldz;
 };
 
 struct FwdWideArgs {
@@ -339,16 +379,34 @@ struct GeneWideArgs {
   cudaStream_t stream;
 };
 
+// The split backward's arguments: the workspace of one row block (rfe and
+// dlog_rfe, plan.rows x plan.ldw floats each), the (Kf + SC + nA2, G)
+// output, where the plan slices the cells (gslices > 1) the slices'
+// partial sums of it, and where SC is no whole number of float4s
+// (plan.ldz > 0) the row block's dZ and muL at a row pitch of ldz.
+struct SplitArgs {
+  const void* Y;  // (N, G) in the storage type
+  const float *psi, *W, *muL, *dA1, *dA2, *dZ;
+  float *rfe, *dl, *dgene, *gpart, *zpad, *mupad;
+  int N, G, Kf, nA2, SC;
+  WidePlan plan;
+  cudaStream_t stream;
+};
+
 // The Y-reading kernels of one storage type: fwd_kernel, and gene_kernel
 // (between gene_pack_kernel and reduce_chunks_kernel, which fl_backward_gene
 // launches); and the wide family's fwd_wide_y_kernel and gene_wide_kernel,
 // with their blocks an SM at a tile count and shared memory (which: 1 the
-// Y products, 2 the gene part).
+// Y products, 2 the gene part); and the split backward's, for row block b:
+// dlog_rfe_kernel<YT, true> (which 0) or dlog mu's gene_product_kernel<YT,
+// true> (which 1), with their shared memory and blocks an SM.
 template <int YT> void forward_typed(const FwdArgs& a);
 template <int YT> void gene_typed(const GeneArgs& a);
 template <int YT> void forward_wide_typed(const FwdWideArgs& a);
 template <int YT> void gene_wide_typed(const GeneWideArgs& a);
-template <int YT> int wide_blocks_per_sm(int which, int nt, int smem, bool general);
+template <int YT> int wide_blocks_per_sm(int which, int nt, int smem);
+template <int YT> void split_typed(const SplitArgs& a, int b, int which);
+template <int YT> void split_resources_typed(int* out);
 
 }  // namespace fl
 
@@ -392,7 +450,6 @@ constexpr int kGeneWideCells = 16;                  // cells a gene-part stage (
 constexpr int kDpsiKCounts[] = {1, 2, 4, 8};
 constexpr int kDpsiZCounts[] = {1, 2, 4, 6, 8, 10};
 constexpr int kDpsiWarps = 4;  // dpsi_wide_kernel blocks: 4 warps x 16 cells
-constexpr int kDpsiGroupedK = 8;  // output tiles a group, past 8 tiles of [psi, X]
 
 // ---------------------------------------------------------------------------
 // Tensor-core pieces shared by the forward and dpsi kernels. One warp per 16
@@ -1606,31 +1663,31 @@ fwd_wide_y_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* 
 
 #if FL_COMMON
 // dpsi_wide_kernel's gene-side table, once a call: for each k-step of 8
-// genes (g_pad / 8 of them), dk_lr + n_dgroups dz_group + n_kgroups dk_pad
-// B fragments (hi0, hi1, lo0, lo1) of 32 lanes: W^T for log_rfe (K =
-// columns of [psi, X], N = the k-step's genes in order), muL^T for drfe =
-// dZ muL^T (K = dZ's columns, every group's tiles in turn; N = the genes in
-// order), then W for dpsi += t W (K = the k-step's genes in C-to-A order:
-// B's row c is gene 2c, row c + 4 gene 2c + 1; N = columns of [psi, X],
-// every output group's tiles in turn). Zero past G and every width.
+// genes (g_pad / 8 of them), dk_pad + n_dgroups dz_group + dk_pad B
+// fragments (hi0, hi1, lo0, lo1) of 32 lanes: W^T for log_rfe (K = columns
+// of [psi, X], N = the k-step's genes in order), muL^T for drfe = dZ muL^T
+// (K = dZ's columns, every group's tiles in turn; N = the genes in order),
+// then W for dpsi += t W (K = the k-step's genes in C-to-A order: B's row c
+// is gene 2c, row c + 4 gene 2c + 1; N = columns of [psi, X]). Zero past G
+// and every width.
 __global__ void dpsi_wide_pack_kernel(const float* __restrict__ W, const float* __restrict__ muL,
                                       float4* __restrict__ table, int G, int Kf, int SC,
                                       WidePlan p) {
-  const int n_z = p.n_dgroups * p.dz_group, n_tab = p.dk_lr + n_z + p.n_kgroups * p.dk_pad;
+  const int n_z = p.n_dgroups * p.dz_group, n_tab = p.dk_pad + n_z + p.dk_pad;
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= (long long)(p.g_pad / 8) * n_tab * kWarp) return;
   const int l = (int)(i % kWarp), r = (int)((i / kWarp) % n_tab), ks = (int)(i / kWarp / n_tab);
   float b0 = 0.f, b1 = 0.f;
-  if (r < p.dk_lr) {
+  if (r < p.dk_pad) {
     const int g = 8 * ks + (l >> 2), k = 8 * r + (l & 3);
     if (g < G && k < Kf) b0 = W[(size_t)g * Kf + k];
     if (g < G && k + 4 < Kf) b1 = W[(size_t)g * Kf + k + 4];
-  } else if (r < p.dk_lr + n_z) {
-    const int g = 8 * ks + (l >> 2), j = 8 * (r - p.dk_lr) + (l & 3);
+  } else if (r < p.dk_pad + n_z) {
+    const int g = 8 * ks + (l >> 2), j = 8 * (r - p.dk_pad) + (l & 3);
     if (g < G && j < SC) b0 = muL[(size_t)g * SC + j];
     if (g < G && j + 4 < SC) b1 = muL[(size_t)g * SC + j + 4];
   } else {
-    const int g = 8 * ks + 2 * (l & 3), k = 8 * (r - p.dk_lr - n_z) + (l >> 2);
+    const int g = 8 * ks + 2 * (l & 3), k = 8 * (r - p.dk_pad - n_z) + (l >> 2);
     if (g < G && k < Kf) b0 = W[(size_t)g * Kf + k];
     if (g + 1 < G && k < Kf) b1 = W[(size_t)(g + 1) * Kf + k];
   }
@@ -1647,27 +1704,24 @@ __global__ void dpsi_wide_pack_kernel(const float* __restrict__ W, const float* 
 // dependent MMAs interleave; the p.n_dgroups groups run one after another.
 // Per k-step: log_rfe by MMA, drfe by NZ MMAs (each tile's products in
 // fresh accumulators added on CUDA cores), one exp an element, t split into
-// the A fragment of dpsi's MMA against W. Past 8 tiles of [psi, X] (LRW),
-// blockIdx.y picks a group of NK = 8 output tiles, and log_rfe runs over
-// all p.dk_lr tiles, a runtime count. Registers hold dZ's fragments,
+// the A fragment of dpsi's MMA against W. Registers hold dZ's fragments,
 // the stage's float32 sums and one k-step's work: with two k-steps
 // unrolled, or the float64 sums or psi's split fragments in registers,
 // ptxas spilled at 168 registers (the bound of three blocks an SM) from NZ
 // = 8; three blocks an SM at NK = 1, two past it, where log_rfe's tiles
 // are unrolled by two from NK = 4 (fully unrolled, NK = 8 spilled at 255).
 // Dynamic shared memory: each warp's psi A fragments as floats
-// ([warp][kc][lane], LR tiles), each warp's float64 sums of dpsi
+// ([warp][kc][lane]), each warp's float64 sums of dpsi
 // ([warp][kc][element][lane]), then two stage buffers of stage_f4 float4s
 // ([k-step][W^T tiles | the group's muL^T tiles | the output group's W
 // tiles][lane]).
-template <int NK, int NZ, bool LRW>
+template <int NK, int NZ>
 __global__ void __launch_bounds__(kDpsiWarps * kWarp, NK == 1 ? 3 : 2)
 dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
                  const float* __restrict__ dA1, const float* __restrict__ YW,
                  const float4* __restrict__ table, float* __restrict__ dpsi, int N, int Kf,
                  int SC, WidePlan p, int stage_f4) {
-  const int LR = LRW ? p.dk_lr : NK;  // log_rfe's tiles of [psi, X]
-  const int RW = LR + NZ + NK;        // table tiles a k-step of a stage
+  const int RW = 2 * NK + NZ;  // table tiles a k-step of a stage
   constexpr int kLrUnroll = NK >= 4 ? 2 : NK;  // log_rfe's tiles unrolled
   extern __shared__ float4 s_dyn[];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
@@ -1675,17 +1729,16 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
   // columns 2c and 2c + 1.
   const int fr = lane >> 2, fc = lane & 3;
   const int n0 = (blockIdx.x * kDpsiWarps + warp) * kFwdRows + fr, n1 = n0 + 8;
-  const int kg = LRW ? (int)blockIdx.y : 0;  // the output group: columns 8 NK kg ..
-  const int n_tab = LR + p.n_dgroups * NZ + p.n_kgroups * NK;
-  float4* s_psi = s_dyn + warp * LR * kWarp;
-  double* s_acc = reinterpret_cast<double*>(s_dyn + kDpsiWarps * LR * kWarp) + warp * NK * 4 * kWarp;
-  float4* s_stage = s_dyn + kDpsiWarps * (LR + 2 * NK) * kWarp;
+  const int n_tab = NK + p.n_dgroups * NZ + NK;
+  float4* s_psi = s_dyn + warp * NK * kWarp;
+  double* s_acc = reinterpret_cast<double*>(s_dyn + kDpsiWarps * NK * kWarp) + warp * NK * 4 * kWarp;
+  float4* s_stage = s_dyn + kDpsiWarps * (NK + 2 * NK) * kWarp;
 
   // psi's A fragments (rows n0, n1; columns 8 kc + c, + 4), as floats,
   // split where they are used; and dpsi's float64 sums ([kc][element][lane]).
   // Each lane reads back only its own.
 #pragma unroll
-  for (int kc = 0; kc < LR; ++kc) {
+  for (int kc = 0; kc < NK; ++kc) {
     const int k0 = 8 * kc + fc, k1 = k0 + 4;
     s_psi[kc * kWarp + lane] = make_float4(n0 < N && k0 < Kf ? psi[(size_t)n0 * Kf + k0] : 0.f,
                                            n1 < N && k0 < Kf ? psi[(size_t)n1 * Kf + k0] : 0.f,
@@ -1722,9 +1775,9 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
       const int ks0 = s * p.dsteps;
       for (int i = threadIdx.x; i < p.dsteps * RW * kWarp; i += blockDim.x) {
         const int l = i % kWarp, r = (i / kWarp) % RW, ks = i / (kWarp * RW);
-        const int src = r < LR         ? r
-                        : r < LR + NZ  ? r + grp * NZ
-                                       : r + (p.n_dgroups - 1) * NZ + kg * NK;
+        const int src = r < NK         ? r
+                        : r < NK + NZ  ? r + grp * NZ
+                                       : r + (p.n_dgroups - 1) * NZ;
         cp_async_zfill<16>(dst + i, table + ((size_t)(ks0 + ks) * n_tab + src) * kWarp + l, 16);
       }
       cp_async_commit();
@@ -1750,7 +1803,7 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
         // (n1, 2c + 1) of the k-step's genes
         float lr[4] = {0.f, 0.f, 0.f, 0.f}, dr[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll kLrUnroll
-        for (int kc = 0; kc < LR; ++kc) {
+        for (int kc = 0; kc < NK; ++kc) {
           const float4 q = s_psi[kc * kWarp + lane];
           const float pv[4] = {q.x, q.y, q.z, q.w};
           uint32_t ph[4], pl[4];
@@ -1763,7 +1816,7 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
 #pragma unroll
         for (int t = 0; t < NZ; ++t) {
           float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_3xtf32(d, zh[t], zl[t], b[(LR + t) * kWarp]);
+          mma_3xtf32(d, zh[t], zl[t], b[(NK + t) * kWarp]);
           add4(dr, d);
         }
         float tv[4];
@@ -1774,7 +1827,7 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
 #pragma unroll
         for (int kc = 0; kc < NK; ++kc) {
           float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_3xtf32(d, th, tl, b[(LR + NZ + kc) * kWarp]);
+          mma_3xtf32(d, th, tl, b[(NK + NZ + kc) * kWarp]);
           add4(sacc[kc], d);
         }
       }
@@ -1791,7 +1844,7 @@ dpsi_wide_kernel(const float* __restrict__ psi, const float* __restrict__ dZ,
   for (int kc = 0; kc < NK; ++kc)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int n = e < 2 ? n0 : n1, k = 8 * (kg * NK + kc) + 2 * fc + (e & 1);
+      const int n = e < 2 ? n0 : n1, k = 8 * kc + 2 * fc + (e & 1);
       if (n < N && k < Kf)
         dpsi[(size_t)n * Kf + k] = (float)fma((double)dA1[n], (double)YW[(size_t)n * Kf + k],
                                               s_acc[(4 * kc + e) * kWarp + lane]);
@@ -1835,50 +1888,33 @@ __global__ void gene_wide_pack_kernel(const float* __restrict__ psi, const float
 // a B fragment (cell l / 4, column l % 4) hit distinct banks.
 __host__ __device__ inline int gene_dz_stride(const WidePlan& p) { return 8 * p.nj + 4; }
 __host__ __device__ inline int gene_ps_stride(const WidePlan& p) { return 8 * p.n_kc + 4; }
-// Whether the gene part needs gene_wide_kernel's general form (GEN): dW's
-// columns in groups, or dlog mu in more than one pass of its own.
-__host__ __device__ inline bool gene_wide_general(const WidePlan& p) {
-  return p.n_wgroups > 1 || p.y_pass > 1;
-}
-// dA2's tiles a stage holds: every one where dlog mu rides the first pass,
-// else those of one of its own passes (at most nj).
-__host__ __device__ inline int gene_a2_tiles(const WidePlan& p) {
-  return p.y_pass && p.nj < p.n_st ? p.nj : p.n_st;
-}
 __host__ __device__ inline int gene_a2_stride(const WidePlan& p) {
-  return p.n_st ? 8 * gene_a2_tiles(p) + 4 : 0;
+  return p.n_st ? 8 * p.n_st + 4 : 0;
 }
 
 
 #if FL_ANY_TYPED
 // Backward, wide, gene part: part[chunk, f, g] for f in [dW^T (Kf rows) |
 // d(muL)^T (SC rows) | dlog_mu (nA2 rows)] over one chunk of cells. Grid
-// (blocks of kGeneWideGenes genes, p.n_chunks chunks); one launch for each
-// of p.n_wgroups groups of dW's columns, tiles kw0 .. kw0 + nkw (kernel
-// parameters, which take no registers). Accumulator tiles: [0, NJ) d(muL)
-// of a pass's NJ = p.nj columns tiles (every loop over them runs NJ times,
-// so their MMA chains interleave), then the group's tiles of dW (summed over
-// every pass) and, in the first pass, dlog mu's n_st. (In p.y_pass passes
-// of its own, first, dlog mu takes d(muL)'s tiles, at most NJ a pass, so
-// they stay apart from dW's.) Every group forms log_rfe from all n_kc
-// tiles of [psi, X] and drfe from every d(muL) column; only the first (kw0
-// 0) accumulates and writes d(muL) and dlog mu. GEN: the plan has dW's
-// groups or more than one pass for dlog mu (past 64 columns of [psi, X] or
-// of dA2); without it the kernel is the one group's, dlog mu in one pass,
-// and holds three blocks an SM up to NJ = 10 (with it, two). Dynamic
-// shared memory: W's A fragments of each warp as floats ([warp][kc][lane])
+// (blocks of kGeneWideGenes genes, p.n_chunks chunks). Accumulator tiles:
+// [0, NJ) d(muL) of a pass's NJ = p.nj columns tiles (every loop over them
+// runs NJ times, so their MMA chains interleave), then dW's n_kc tiles
+// (summed over every pass) and, in the first pass, dlog mu's n_st. (In a
+// pass of its own, first, where p.y_pass, dlog mu takes d(muL)'s tiles, so
+// they stay apart from dW's.) Three blocks an SM up to NJ = 10, two past
+// it. Dynamic shared memory: W's A fragments of each warp as floats ([warp][kc][lane])
 // and the pass's muL A fragments split ([warp][tile][hi, lo][lane]), then
 // two stage buffers of stage_f4
 // float4s: 16 cells' dZ pairs of the pass's columns, psi pairs, dA2 pairs
 // (the first pass), dA1, and Y's rows of the block's 64 genes in the
 // storage type.
-template <int YT, int NJ, bool GEN>
-__global__ void __launch_bounds__(kGeneWideWarps * kWarp, NJ > 10 || GEN ? 2 : 3)
+template <int YT, int NJ>
+__global__ void __launch_bounds__(kGeneWideWarps * kWarp, NJ > 10 ? 2 : 3)
 gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ W,
                  const float* __restrict__ muL, const float2* __restrict__ dzp,
                  const float2* __restrict__ psp, const float2* __restrict__ a2p,
                  const float* __restrict__ a1p, float* __restrict__ part, int N, int G, int Kf,
-                 int nA2, int SC, WidePlan p, int stage_f4, bool vec, int kw0_, int nkw_) {
+                 int nA2, int SC, WidePlan p, int stage_f4, bool vec) {
   using Elem = typename YStore<YT>::Elem;
   constexpr int kRow = kGeneWideGenes + 16 / (int)sizeof(Elem);  // a staged Y row, padded 16 bytes
   constexpr int kSteps2 = kGeneWideCells / 8;
@@ -1896,9 +1932,7 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
   const int F = Kf + SC + nA2;
   const int dz_cols = 8 * p.mu_passes * NJ;  // packed dZ columns (pairs) a cell
   const int sdz = gene_dz_stride(p), sps = gene_ps_stride(p);
-  const int sa2 = GEN ? gene_a2_stride(p) : p.n_st ? 8 * p.n_st + 4 : 0;  // equal without GEN
-  const bool own = !GEN || kw0_ == 0;  // the group that writes d(muL) and dlog mu
-  const int kw0 = GEN ? kw0_ : 0, nkw = GEN ? nkw_ : p.n_kc;  // the group's tiles of dW
+  const int sa2 = gene_a2_stride(p);
   float4* s_w = s_dyn + warp * p.n_kc * kWarp;
   float4* s_mu = s_dyn + kGeneWideWarps * p.n_kc * kWarp + warp * NJ * 2 * kWarp;
   float4* s_stage = s_dyn + kGeneWideWarps * (p.n_kc * kWarp + NJ * 2 * kWarp);
@@ -1924,17 +1958,13 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
 #pragma unroll 1
   for (int pass = 0; pass < p.n_passes; ++pass) {
     const bool first = pass == 0;
-    const bool with_mu = GEN ? pass >= p.y_pass : !(first && p.y_pass);
+    const bool with_mu = !(first && p.y_pass);
     const int jt_begin = (pass - p.y_pass) * NJ;
-    // dlog mu's tiles in this pass: from tile st0, ny of them (every one in
-    // the first pass, or at most NJ in each of its own)
-    const int st0 = GEN && p.y_pass ? pass * NJ : 0;
-    const int ny = !GEN ? (first ? p.n_st : 0)
-                   : !own ? 0 : p.y_pass ? (with_mu ? 0 : min(NJ, p.n_st - st0)) : first ? p.n_st : 0;
-    const bool with_y = GEN ? first || ny > 0 : first;  // Y staged: Y dA1's term, or dlog mu
-    // dlog mu's first accumulator tile: after dW's, or in passes of its own
+    const int ny = first ? p.n_st : 0;  // dlog mu's tiles in this pass
+    const bool with_y = first;  // Y staged: Y dA1's term, and dlog mu
+    // dlog mu's first accumulator tile: after dW's, or in a pass of its own
     // in place of d(muL)'s
-    const int t_mu = p.y_pass ? 0 : NJ + (GEN ? p.n_kw : p.n_kc);
+    const int t_mu = p.y_pass ? 0 : NJ + p.n_kc;
     // muL's A fragments of the pass's columns (genes g0, g1; columns 8 jt +
     // c, + 4; zero past SC), split once a pass; each lane reads back only
     // its own. A pass without d(muL) has zero fragments: drfe = 0.
@@ -1975,11 +2005,11 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
       }
       if (with_y) {
         float* b_a2 = b_ps + 2 * kGeneWideCells * sps;
-        const int wa2 = 4 * (GEN ? ny : p.n_st);
+        const int wa2 = 4 * p.n_st;
         for (int i = threadIdx.x; i < kGeneWideCells * wa2; i += blockDim.x) {
           const int c = i / wa2, w = i % wa2;
           cp_async_zfill<16>(b_a2 + 2 * c * sa2 + 4 * w,
-                             a2p + (size_t)(c0 + c) * 8 * p.n_st + 8 * st0 + 2 * w, 16);
+                             a2p + (size_t)(c0 + c) * 8 * p.n_st + 2 * w, 16);
         }
         float* b_a1 = b_a2 + 2 * kGeneWideCells * sa2;
         if (threadIdx.x < kGeneWideCells / 4)
@@ -2052,13 +2082,11 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
           uint32_t ah[4], al[4];
           c_to_a(rfe, ah, al);
           const float2* q_dz = s_dz + (cb + 2 * fc) * sdz + fr;
-          if (own) {
 #pragma unroll
-            for (int t = 0; t < NJ; ++t) {
-              float d[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_3xtf32(d, ah, al, pair_b(q_dz[8 * t], q_dz[sdz + 8 * t]));
-              add4(acc[t], d);
-            }
+          for (int t = 0; t < NJ; ++t) {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_3xtf32(d, ah, al, pair_b(q_dz[8 * t], q_dz[sdz + 8 * t]));
+            add4(acc[t], d);
           }
         }
         // dlog_rfe = rfe drfe (+ Y dA1 in the first pass), at C positions
@@ -2077,8 +2105,8 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
           const float2* q_ps = s_ps + (cb + 2 * fc) * sps + fr;
 #pragma unroll
           for (int t = NJ; t < NT; ++t) {
-            if (t - NJ < nkw) {
-              const int k8 = 8 * (kw0 + t - NJ);
+            if (t - NJ < p.n_kc) {
+              const int k8 = 8 * (t - NJ);
               float d[4] = {0.f, 0.f, 0.f, 0.f};
               mma_3xtf32(d, ah, al, pair_b(q_ps[k8], q_ps[sps + k8]));
               add4(acc[t], d);
@@ -2111,9 +2139,9 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
         const int g = e < 2 ? g0 : g1, c = 2 * fc + (e & 1);
         if (g >= G) continue;
         const int s8 = 8 * (t - t_mu) + c;
-        if (GEN ? s8 >= 0 && s8 < 8 * ny : first && s8 >= 0 && s8 < 8 * p.n_st) {
-          if (8 * st0 + s8 < nA2) part[((size_t)chunk * F + Kf + SC + 8 * st0 + s8) * G + g] = acc[t][e];
-        } else if (t < NJ && with_mu && own) {
+        if (first && s8 >= 0 && s8 < 8 * p.n_st) {
+          if (s8 < nA2) part[((size_t)chunk * F + Kf + SC + s8) * G + g] = acc[t][e];
+        } else if (t < NJ && with_mu) {
           const int j = 8 * (jt_begin + t) + c;
           if (j < SC) part[((size_t)chunk * F + Kf + j) * G + g] = acc[t][e];
         }
@@ -2125,12 +2153,472 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
   for (int t = NJ; t < NT; ++t) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int g = e < 2 ? g0 : g1, k = 8 * (kw0 + t - NJ) + 2 * fc + (e & 1);
-      if (g < G && k < Kf && t - NJ < nkw) part[((size_t)chunk * F + k) * G + g] = acc[t][e];
+      const int g = e < 2 ? g0 : g1, k = 8 * (t - NJ) + 2 * fc + (e & 1);
+      if (g < G && k < Kf && t - NJ < p.n_kc) part[((size_t)chunk * F + k) * G + g] = acc[t][e];
     }
   }
 }
 #endif  // FL_ANY_TYPED
+
+// ---------------------------------------------------------------------------
+// The split backward, past the old bound (see the note at the top): tiled
+// 3xTF32 products over row blocks of plan.rows cells. dlog_rfe_kernel
+// writes a row block's rfe and dlog_rfe (or t = rfe drfe, without Y) to the
+// workspace; gene_product_kernel takes dW^T = psi^T dlog_rfe, d(muL)^T =
+// dZ^T rfe and dlog mu = dA2^T Y from them, summed over the row blocks in
+// order into the output; dpsi_product_kernel takes t W over ranges of
+// genes, which dpsi_sum_kernel adds beside dA1 YW.
+// ---------------------------------------------------------------------------
+constexpr int kSbM = 64, kSbN = 64, kSbK = 32;  // a block's tile of outputs, and K a stage
+constexpr int kSbThreads = 8 * kWarp;  // two K groups of 2 x 2 warps of 32 x 32, two blocks an SM
+constexpr int kSbGroup = 4 * kWarp;    // a group's threads
+constexpr int kSbStages = 3;           // the cp.async ring
+// Row pitches (floats) of a stage's tiles, whose rows hold K, M or N
+// values, padded so that a fragment's 32 reads hit 32 banks.
+constexpr int kSbPitchK = kSbK + 4, kSbPitchM = kSbM + 8, kSbPitchN = kSbN + 8;
+// A stage's floats: dlog_rfe_kernel's cell and gene tiles (rows of K
+// values), dpsi_product_kernel's cell tile and W's (rows of K, of N
+// values), gene_product_kernel's cell side and workspace tile (rows of M, of
+// N values) or Y's tile, rows of sb_y_pitch bytes.
+constexpr int kSbStageDlog = (kSbM + kSbN) * kSbPitchK;
+constexpr int kSbStageDpsi = kSbM * kSbPitchK + kSbK * kSbPitchN;
+constexpr int kSbStageGene = kSbK * (kSbPitchM + kSbPitchN);
+__host__ __device__ constexpr int sb_y_pitch(int y_bytes) {
+  return y_bytes == 4 ? 4 * kSbPitchN : kSbN * y_bytes + 16;
+}
+__host__ __device__ constexpr int sb_stage_gene_y(int y_bytes) {
+  return kSbK * (kSbPitchM + sb_y_pitch(y_bytes) / 4);
+}
+constexpr int sb_smem(int stage_floats) { return 4 * kSbStages * stage_floats; }
+
+// A row-major float matrix: (r, c) at p[r ld + c], zero past rows x cols;
+// vec where 16-byte copies may read it (ld a multiple of 4, p aligned).
+struct SbMat {
+  const float* p;
+  long long ld;
+  int rows, cols;
+  bool vec;
+};
+inline SbMat sb_mat(const float* p, long long ld, int rows, int cols) {
+  return SbMat{p, ld, rows, cols, ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0};
+}
+
+// One product of gene_product_kernel: out[f, g] (+)= sum_n x[n, f] v[n, g]
+// over a row block's cells n, out's rows G apart; m_tiles of kSbM rows f.
+struct SbJob {
+  SbMat x, v;
+  float* out;
+  int m_tiles;
+};
+struct SbJobs {
+  SbJob job[2];
+};
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async of rows [r0, r0 + R) x columns [c0, c0 + C) of m into s (rows P
+// floats apart) by the block's threads, zero past m's rows and columns.
+template <int R, int C, int P>
+__device__ __forceinline__ void sb_load(float* s, const SbMat& m, int r0, int c0) {
+  constexpr int T = kSbThreads;
+  if (m.vec) {
+#pragma unroll
+    for (int u = 0; u < R * C / 4 / T; ++u) {
+      const int i = threadIdx.x + u * T, r = i / (C / 4), c = 4 * (i % (C / 4));
+      const int gr = r0 + r, gc = c0 + c;
+      const int n = gr < m.rows && gc < m.cols ? min(4, m.cols - gc) : 0;
+      cp_async_zfill<16>(s + r * P + c, n ? m.p + gr * m.ld + gc : m.p, 4 * n);
+    }
+  } else {
+#pragma unroll 4
+    for (int u = 0; u < R * C / T; ++u) {
+      const int i = threadIdx.x + u * T, r = i / C, c = i % C;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool in = gr < m.rows && gc < m.cols;
+      cp_async_zfill<4>(s + r * P + c, in ? m.p + gr * m.ld + gc : m.p, in ? 4 : 0);
+    }
+  }
+}
+
+// Rows [r0, r0 + kSbK) x genes [c0, c0 + kSbN) of Y (rows
+// ldy apart; rows x cols) into s in the storage type, rows sb_y_pitch bytes
+// apart, by the threads' own loads (zero past rows and cols; vec as
+// load_y4's).
+template <int YT>
+__device__ __forceinline__ void sb_load_y(char* s, const typename YStore<YT>::Elem* __restrict__ Y,
+                                          long long ldy, int rows, int cols, int r0, int c0,
+                                          bool vec) {
+  using Elem = typename YStore<YT>::Elem;
+  using Piece = typename YStore<YT>::Piece;
+  constexpr int kPitch = sb_y_pitch(sizeof(Elem)), kT = kSbThreads;
+#pragma unroll
+  for (int u = 0; u < kSbK * kSbN / 4 / kT; ++u) {
+    const int i = threadIdx.x + u * kT, r = i / (kSbN / 4), c = 4 * (i % (kSbN / 4));
+    const int gr = r0 + r;
+    const Piece v = gr < rows ? load_y4<YT>(Y + gr * ldy, c0 + c, cols, vec) : Piece{};
+    *reinterpret_cast<Piece*>(s + r * kPitch + c * (int)sizeof(Elem)) = v;
+  }
+}
+
+// acc += A B over the thread's group's half of one stage's kSbK values of
+// K (a pair of k-steps; group g takes [16 g, 16 g + 16)) for the warp's 32
+// x 32 part of the block's tile: A's (m, k) in sa (rows of PA values of K,
+// or where A_KROWS of M), B's (k, n) from bval. The pair's three TF32
+// products (lo.hi, hi.lo, hi.hi, split as cvt.rna does) go to fresh
+// accumulators added on CUDA cores: a chain of 6 MMAs, and one float32 add
+// an element for 16 of K. The groups' sums are added at the end
+// (sb_reduce): twice the warps a tile of outputs, for grids of few tiles.
+template <bool A_KROWS, int PA, class BVal>
+__device__ __forceinline__ void sb_stage(const float* sa, BVal&& bval, float (&acc)[2][4][4]) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x % kSbGroup / kWarp;
+  const int fr = lane >> 2, fc = lane & 3;
+  const int wm = 32 * (warp / 2), wn = 32 * (warp % 2);
+  const int k2 = 16 * (threadIdx.x / kSbGroup);
+  auto a = [&](int m, int k) { return A_KROWS ? sa[k * PA + m] : sa[m * PA + k]; };
+  float d[2][4][4] = {};
+#pragma unroll
+  for (int kk = k2; kk < k2 + 16; kk += 8) {
+    uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = wm + 16 * i + fr, k = kk + fc;
+      split_tf32_int(a(m, k), ah[i][0], al[i][0]);
+      split_tf32_int(a(m + 8, k), ah[i][1], al[i][1]);
+      split_tf32_int(a(m, k + 4), ah[i][2], al[i][2]);
+      split_tf32_int(a(m + 8, k + 4), ah[i][3], al[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = wn + 8 * j + fr, k = kk + fc;
+      split_tf32_int(bval(k, n), bh[j][0], bl[j][0]);
+      split_tf32_int(bval(k + 4, n), bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma_tf32(d[i][j], al[i], bh[j][0], bh[j][1]);
+        mma_tf32(d[i][j], ah[i], bl[j][0], bl[j][1]);
+        mma_tf32(d[i][j], ah[i], bh[j][0], bh[j][1]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) add4(acc[i][j], d[i][j]);
+}
+
+// The ring over n_tiles stages: load(tile, buffer) starts a stage's copies,
+// compute(buffer) runs on a landed one.
+template <class Load, class Compute>
+__device__ __forceinline__ void sb_mainloop(int n_tiles, Load&& load, Compute&& compute) {
+  __syncthreads();  // the block is done with the ring
+#pragma unroll
+  for (int s = 0; s < kSbStages - 1; ++s) {
+    if (s < n_tiles) load(s, s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<kSbStages - 2>();
+    __syncthreads();  // tile kt has landed, and the buffer of tile kt - 1 is free
+    const int next = kt + kSbStages - 1;
+    if (next < n_tiles) load(next, next % kSbStages);
+    cp_async_commit();
+    compute(kt % kSbStages);
+  }
+}
+
+// acc of the first group's threads += the second group's (at the same
+// fragment positions), through the ring's shared memory once the block is
+// done with it; the first group then holds the sums over all of K.
+__device__ __forceinline__ void sb_reduce(float (&acc)[2][4][4], float* smem) {
+  const int t = threadIdx.x % kSbGroup;
+  __syncthreads();  // the block is done with the ring
+  if (threadIdx.x >= kSbGroup) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) smem[e * kSbGroup + t] = (&acc[0][0][0])[e];
+  }
+  __syncthreads();
+  if (threadIdx.x < kSbGroup) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) (&acc[0][0][0])[e] += smem[e * kSbGroup + t];
+  }
+}
+
+// f(row, col, i, j, h) for each pair acc[i][j][2h], acc[i][j][2h + 1] of
+// the warp's accumulators, at (row, col) and (row, col + 1) of the block's
+// tile (C fragment order): the first group's threads, after sb_reduce.
+template <class F>
+__device__ __forceinline__ void sb_each_pair(F&& f) {
+  if (threadIdx.x >= kSbGroup) return;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int wm = 32 * (warp / 2), wn = 32 * (warp % 2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(wm + 16 * i + (lane >> 2) + 8 * h, wn + 8 * j + 2 * (lane & 3), i, j, h);
+}
+
+// A row block's rfe = exp(psi W^T) and, with Y, dlog_rfe = rfe drfe + Y dA1
+// (without, t = rfe drfe), drfe = dZ muL^T: grid (tiles of kSbN genes,
+// tiles of kSbM cells). log_rfe is formed first,
+// its exps stored to rfe at once (rfe may be dl: each thread reads back
+// only what it wrote), then drfe in the same accumulators. Rows of psi, dZ
+// and Y are the block's.
+template <int YT, bool WITH_Y>
+__global__ void __launch_bounds__(kSbThreads, 2)
+dlog_rfe_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ dA1,
+                SbMat psi, SbMat W, SbMat dZ, SbMat muL, float* rfe, float* dl, long long ldw) {
+  constexpr int BK = kSbK, P = kSbPitchK, BM = kSbM, kStage = kSbStageDlog;
+  extern __shared__ float4 s_sb[];
+  float* smem = reinterpret_cast<float*>(s_sb);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kSbN;  // the tile's first cell and gene
+  const int rows = dZ.rows, G = muL.rows;
+  float acc[2][4][4];
+  auto product = [&](const SbMat& a, const SbMat& b) {  // acc = a b^T over a's columns
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    sb_mainloop(
+        (a.cols + BK - 1) / BK,
+        [&](int kt, int buf) {
+          float* s = smem + buf * kStage;
+          sb_load<BM, BK, P>(s, a, m0, kt * BK);
+          sb_load<kSbN, BK, P>(s + BM * P, b, n0, kt * BK);
+        },
+        [&](int buf) {
+          const float* s = smem + buf * kStage;
+          const float* sb = s + BM * P;
+          sb_stage<false, P>(s, [&](int k, int n) { return sb[n * P + k]; }, acc);
+        });
+    sb_reduce(acc, smem);
+  };
+  product(psi, W);
+  sb_each_pair([&](int r, int c, int i, int j, int h) {
+    const int n = m0 + r, g = n0 + c;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (n < rows && g + u < G) rfe[n * ldw + g + u] = __expf(acc[i][j][2 * h + u]);
+  });
+  product(dZ, muL);
+  sb_each_pair([&](int r, int c, int i, int j, int h) {
+    const int n = m0 + r, g = n0 + c;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (n >= rows || g + u >= G) continue;
+      float t = rfe[n * ldw + g + u] * acc[i][j][2 * h + u];
+      if constexpr (WITH_Y) t = fmaf(y_one<YT>(Y[(long long)n * G + g + u]), dA1[n], t);
+      dl[n * ldw + g + u] = t;
+    }
+  });
+}
+
+// The gene-side products of a row block: grid (tiles of kSbN genes, the
+// first job's m_tiles then the second's tiles of kSbM rows f, slices of
+// zcells cells), K the slice's cells. YV: v is
+// Y (the block's rows, in its storage type; y_vec as load_y4's), else the
+// jobs' own v. Slice z writes out + z zstride, the first row block's
+// (first) or adds to it, in order.
+template <int YT, bool YV>
+__global__ void __launch_bounds__(kSbThreads, 2)
+gene_product_kernel(SbJobs jobs, const typename YStore<YT>::Elem* __restrict__ Y, bool y_vec,
+                    int G, bool first, int zcells, long long zstride) {
+  using Elem = typename YStore<YT>::Elem;
+  constexpr int BK = kSbK;
+  extern __shared__ float4 s_sb[];
+  float* smem = reinterpret_cast<float*>(s_sb);
+  constexpr int kA = BK * kSbPitchM;
+  constexpr int kStage = YV ? sb_stage_gene_y(sizeof(Elem)) : kSbStageGene;
+  const int second = (int)blockIdx.y >= jobs.job[0].m_tiles;
+  const SbJob& job = jobs.job[second];
+  const int m0 = ((int)blockIdx.y - (second ? jobs.job[0].m_tiles : 0)) * kSbM;
+  const int n0 = blockIdx.x * kSbN;
+  const int c0 = blockIdx.z * zcells;  // the slice's cells
+  const int rows = min(zcells, job.x.rows - c0);
+  SbMat x = job.x, v = job.v;
+  x.p += c0 * x.ld;
+  x.rows = rows;
+  v.p += c0 * v.ld;
+  v.rows = rows;
+  float acc[2][4][4] = {};
+  sb_mainloop(
+      (rows + BK - 1) / BK,
+      [&](int kt, int buf) {
+        float* s = smem + buf * kStage;
+        sb_load<BK, kSbM, kSbPitchM>(s, x, kt * BK, m0);
+        if constexpr (YV)
+          sb_load_y<YT>(reinterpret_cast<char*>(s + kA), Y + (long long)c0 * G, G, rows, G,
+                        kt * BK, n0, y_vec);
+        else
+          sb_load<BK, kSbN, kSbPitchN>(s + kA, v, kt * BK, n0);
+      },
+      [&](int buf) {
+        const float* s = smem + buf * kStage;
+        if constexpr (YV) {
+          constexpr int kP = sb_y_pitch(sizeof(Elem)) / (int)sizeof(Elem);
+          const Elem* sy = reinterpret_cast<const Elem*>(s + kA);
+          sb_stage<true, kSbPitchM>(
+              s, [&](int k, int n) { return y_one<YT>(sy[k * kP + n]); }, acc);
+        } else {
+          const float* sv = s + kA;
+          sb_stage<true, kSbPitchM>(s, [&](int k, int n) { return sv[k * kSbPitchN + n]; },
+                                        acc);
+        }
+      });
+  sb_reduce(acc, smem);
+  float* out = job.out + blockIdx.z * zstride;
+  sb_each_pair([&](int r, int c, int i, int j, int h) {
+    const int f = m0 + r, g = n0 + c;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (f >= x.cols || g + u >= G) continue;
+      float* o = out + (long long)f * G + g + u;
+      *o = first ? acc[i][j][2 * h + u] : *o + acc[i][j][2 * h + u];
+    }
+  });
+}
+
+#if FL_COMMON
+// part[z][n][k] = sum over genes [z dgenes, (z + 1) dgenes) of t[n, g] w[g, k]
+// for a row block's cells n: grid (tiles of kSbM cells, tiles of kSbN
+// columns of [psi, X], dsplit ranges of genes).
+__global__ void __launch_bounds__(kSbThreads, 2)
+dpsi_product_kernel(SbMat t, SbMat w, float* __restrict__ part, long long zstride, int dgenes) {
+  constexpr int BK = kSbK, P = kSbPitchK;
+  extern __shared__ float4 s_sb[];
+  float* smem = reinterpret_cast<float*>(s_sb);
+  constexpr int kA = kSbM * P;
+  const int z = blockIdx.z, g0 = z * dgenes;
+  SbMat a = t, b = w;  // the range's genes (g0 a whole number of 4: the copies stay aligned)
+  a.p += g0;
+  a.cols = min(dgenes, t.cols - g0);
+  b.p += g0 * w.ld;
+  b.rows = min(dgenes, w.rows - g0);
+  const int m0 = blockIdx.x * kSbM, n0 = blockIdx.y * kSbN;
+  float acc[2][4][4] = {};
+  sb_mainloop(
+      (a.cols + BK - 1) / BK,
+      [&](int kt, int buf) {
+        float* s = smem + buf * kSbStageDpsi;
+        sb_load<kSbM, BK, P>(s, a, m0, kt * BK);
+        sb_load<BK, kSbN, kSbPitchN>(s + kA, b, kt * BK, n0);
+      },
+      [&](int buf) {
+        const float* s = smem + buf * kSbStageDpsi;
+        const float* sw = s + kA;
+        sb_stage<false, P>(s, [&](int k, int n) { return sw[k * kSbPitchN + n]; }, acc);
+      });
+  sb_reduce(acc, smem);
+  const int Kf = w.cols;
+  sb_each_pair([&](int r, int c, int i, int j, int h) {
+    const int n = m0 + r, k = n0 + c;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (n < t.rows && k + u < Kf)
+        part[z * zstride + (long long)n * Kf + k + u] = acc[i][j][2 * h + u];
+  });
+}
+
+// dpsi = dA1 YW (none where YW is null: dlog_rfe had Y dA1) + the ranges'
+// sums of part (a row block's rows x Kf values), summed in float64 in
+// order.
+__global__ void dpsi_sum_kernel(const float* __restrict__ part, const float* __restrict__ dA1,
+                                const float* __restrict__ YW, float* __restrict__ dpsi, int rows,
+                                int Kf, int dsplit, long long zstride) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= (long long)rows * Kf) return;
+  double s = 0.0;
+  for (int z = 0; z < dsplit; ++z) s += part[z * zstride + i];
+  dpsi[i] = YW ? (float)fma((double)dA1[i / Kf], (double)YW[i], s) : (float)s;
+}
+
+// dst (rows x ldd) = src (rows x cols, rows lds apart), zero past cols: dZ
+// and muL at an odd S*C copied to a row pitch of whole float4s, so that
+// the split kernels copy them 16 bytes at a time (float by float the
+// copy instructions set the time: at 2,100 x 200 the gene part took 0.21 ms at
+// S*C 2,178 against 0.153 at 2,176; H100 80GB HBM3, 700 W).
+// Grid (ldd / 4 columns over 128-thread blocks, rows, up to 65535); four
+// columns a thread, one float4 store.
+__global__ void pad_rows_kernel(const float* __restrict__ src, long long lds,
+                                float* __restrict__ dst, long long ldd, int rows, int cols) {
+  const int c = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (c >= ldd) return;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    const float* row = src + r * lds;
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = c + u < cols ? row[c + u] : 0.f;
+    *reinterpret_cast<float4*>(dst + r * ldd + c) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// pad_rows_kernel on the stream.
+void pad_rows(const float* src, long long lds, float* dst, long long ldd, int rows, int cols,
+              cudaStream_t stream) {
+  const dim3 grid((unsigned)((ldd / 4 + 127) / 128), rows < 65535 ? rows : 65535);
+  pad_rows_kernel<<<grid, 128, 0, stream>>>(src, lds, dst, ldd, rows, cols);
+}
+#endif  // FL_COMMON
+
+// Floats of the gene products' slices' partial sums (none for one slice),
+// a whole number of float4s.
+inline size_t sb_gpart(const WidePlan& p, long long FG) {
+  return p.gslices > 1 ? (size_t)((p.gslices * FG + 3) / 4 * 4) : 0;
+}
+
+// Cells of row block b.
+inline int sb_block_rows(const WidePlan& p, int N, int b) {
+  return N - b * p.rows < p.rows ? N - b * p.rows : p.rows;
+}
+
+// Row block b's dZ and muL as the split kernels read them: copied to a row
+// pitch of plan.ldz where SC is no whole number of float4s.
+inline SbMat sb_dz(const SplitArgs& a, int b) {
+  const int rows = sb_block_rows(a.plan, a.N, b);
+  return a.plan.ldz ? sb_mat(a.zpad, a.plan.ldz, rows, a.SC)
+                    : sb_mat(a.dZ + (long long)b * a.plan.rows * a.SC, a.SC, rows, a.SC);
+}
+inline SbMat sb_mul(const SplitArgs& a) {
+  return a.plan.ldz ? sb_mat(a.mupad, a.plan.ldz, a.G, a.SC) : sb_mat(a.muL, a.SC, a.G, a.SC);
+}
+
+// dlog_rfe_kernel<YT, WITH_Y> on row block b: a.rfe and a.dl the block's
+// workspace (rows ldw floats apart; one buffer without Y).
+template <int YT, bool WITH_Y>
+void launch_dlog_rfe(const SplitArgs& a, int b) {
+  using Elem = typename YStore<YT>::Elem;
+  const WidePlan& p = a.plan;
+  const int G = a.G, Kf = a.Kf;
+  const long long n0 = (long long)b * p.rows;
+  const int rows = sb_block_rows(p, a.N, b);
+  constexpr int smem = sb_smem(kSbStageDlog);
+  cudaFuncSetAttribute(dlog_rfe_kernel<YT, WITH_Y>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  const dim3 grid((G + kSbN - 1) / kSbN, (rows + kSbM - 1) / kSbM);
+  dlog_rfe_kernel<YT, WITH_Y><<<grid, kSbThreads, smem, a.stream>>>(
+      WITH_Y ? static_cast<const Elem*>(a.Y) + n0 * G : nullptr, a.dA1 + n0,
+      sb_mat(a.psi + n0 * Kf, Kf, rows, Kf), sb_mat(a.W, Kf, G, Kf), sb_dz(a, b), sb_mul(a),
+      a.rfe, a.dl, p.ldw);
+}
+
+// o[0], o[1] = a kernel's dynamic shared memory (smem bytes) and blocks an
+// SM at that and `threads` threads (the occupancy query).
+template <class K>
+void sb_query(K kernel, int threads, int smem, int* o) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  o[0] = smem;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[1], kernel, threads, smem);
+}
 
 inline int blocks_for(long long threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
@@ -2243,16 +2731,24 @@ inline bool is_dpsi_z_count(long long t) {
 }
 
 // The plan ops/fused_likelihood.py's wide_plan made (its WIDE_PLAN_KEYS, in
-// order), or false where a number does not fit these sizes: every width's
-// tiles, each group or pass a built count and within kWideTiles beside the
-// tiles it shares a warp with, dlog mu's tiles in a Y pass within d(muL)'s
-// (it takes them), every cell in a chunk of whole stages and within the
-// packed rows, grid.y and the group counts within 65535, dpsi's tiles of [psi, X]
-// and dZ groups built counts that hold every tile (output groups past 8
-// tiles of 8 each, log_rfe over every tile), its stages whole k-steps of
-// the padded genes, dW's groups and dlog mu's passes holding every tile,
-// and every workspace region at least what the kernels address in it.
-constexpr int kWidePlanKeys = 33;
+// order), or false where a number does not fit these sizes. The forward's:
+// every width's tiles, each group a built count that holds every tile,
+// grid.y and the group counts within 65535, the table and A1's partial sums
+// at least what the kernels address. Where the backward is the split one:
+// row blocks that hold every cell once, each within grid.y's 65535 tiles,
+// the workspace's row pitch a whole number of float4s of at least G,
+// dpsi's ranges of genes (of 32) that hold every gene once, and the gene
+// products' slices of cells (of 32) that hold every cell of the one row
+// block once, or one slice a row block. Else (only
+// within the old bound: the gene part's and dpsi's accumulators hold at
+// most 8 tiles of [psi, X] and of dA2): each pass a built count and within
+// kWideTiles beside the tiles it shares a warp with, dlog mu's tiles in one
+// pass of its own within d(muL)'s (it takes them), every cell in a chunk of
+// whole stages and within the packed rows, the chunks within 65535, dpsi's
+// tiles of [psi, X] and dZ groups built counts that hold every tile, its
+// stages whole k-steps of the padded genes, and every workspace region at
+// least what the kernels address in it.
+constexpr int kWidePlanKeys = 36;
 bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, WidePlan& p) {
   p.n_kc = (int)v[0], p.n_zt = (int)v[1], p.n_yt = (int)v[2], p.n_st = (int)v[3];
   p.g_pad = (int)v[4], p.zt_group = (int)v[5], p.n_zgroups = (int)v[6], p.ny_pad = (int)v[7];
@@ -2263,44 +2759,56 @@ bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Wid
   p.dk_pad = (int)v[21], p.dz_group = (int)v[22], p.n_dgroups = (int)v[23], p.dsteps = (int)v[24];
   p.dtable = (size_t)v[25];
   p.n_ygroups = (int)v[26], p.a1_parts = (int)v[27], p.a1part = (size_t)v[28];
-  p.n_kgroups = (int)v[29], p.dk_lr = (int)v[30], p.n_kw = (int)v[31], p.n_wgroups = (int)v[32];
+  p.split = (int)v[29], p.ldw = (int)v[30], p.dsplit = (int)v[31], p.dgenes = (int)v[32];
+  p.gslices = (int)v[33], p.gcells = (int)v[34], p.ldz = (int)v[35];
   for (int i = 0; i < kWidePlanKeys; ++i) {
     const bool size = (i >= 15 && i <= 20) || i == 25 || i == 28;
     if (v[i] < 0 || (!size && v[i] > 0x7fffffff)) return false;
   }
   const long long F = (long long)Kf + SC + nA2;
   const int ny_halves = p.ny_pad > 10 ? 2 : 1;
-  return p.n_kc == cdiv(Kf, 8) && p.n_zt == cdiv(SC, 8) && p.n_yt == cdiv(Kf + nA2, 8) &&
-         p.n_st == cdiv(nA2, 8) && p.g_pad % kFwdWideGenes == 0 && p.g_pad >= G &&
-         is_tile_count(p.zt_group) && p.n_zgroups >= 1 && p.n_zgroups <= 65535 &&
-         (long long)p.n_zgroups * p.zt_group >= p.n_zt && is_y_tile_count(p.ny_pad) &&
-         p.n_ygroups >= 1 && p.n_ygroups <= 65535 &&
-         (long long)p.n_ygroups * p.ny_pad >= p.n_yt &&
-         (p.a1_parts == 0 ? p.n_ygroups == 1 && Kf <= 8 * (p.ny_pad / ny_halves)
-                          : p.a1_parts == p.n_ygroups * ny_halves &&
-                                p.a1part >= (size_t)p.a1_parts * N) &&
+  const bool fwd = p.n_kc == cdiv(Kf, 8) && p.n_zt == cdiv(SC, 8) && p.n_yt == cdiv(Kf + nA2, 8) &&
+                   p.n_st == cdiv(nA2, 8) && p.g_pad % kFwdWideGenes == 0 && p.g_pad >= G &&
+                   is_tile_count(p.zt_group) && p.n_zgroups >= 1 && p.n_zgroups <= 65535 &&
+                   (long long)p.n_zgroups * p.zt_group >= p.n_zt && is_y_tile_count(p.ny_pad) &&
+                   p.n_ygroups >= 1 && p.n_ygroups <= 65535 &&
+                   (long long)p.n_ygroups * p.ny_pad >= p.n_yt &&
+                   (p.a1_parts == 0 ? p.n_ygroups == 1 && Kf <= 8 * (p.ny_pad / ny_halves)
+                                    : p.a1_parts == p.n_ygroups * ny_halves &&
+                                          p.a1part >= (size_t)p.a1_parts * N) &&
+                   p.table >= (size_t)(p.g_pad / 8) *
+                                  (p.n_kc + p.n_zgroups * p.zt_group + p.n_ygroups * p.ny_pad) *
+                                  kWarp * 4;
+  if (!fwd) return false;
+  if (p.split == 1)
+    return p.rows >= 1 && p.n_chunks >= 1 && (long long)p.n_chunks * p.rows >= N &&
+           (long long)(p.n_chunks - 1) * p.rows < N && cdiv(p.rows, kSbM) <= 65535 &&
+           p.ldw >= G && p.ldw % 4 == 0 && p.dsplit >= 1 && p.dsplit <= 65535 &&
+           p.dgenes >= 32 && p.dgenes % 32 == 0 && (long long)p.dsplit * p.dgenes >= G &&
+           (long long)(p.dsplit - 1) * p.dgenes < G &&
+           cdiv(Kf, kSbM) + cdiv(SC, kSbM) <= 65535 && cdiv(nA2, kSbM) <= 65535 &&
+           cdiv(Kf, kSbN) <= 65535 && p.gslices >= 1 && p.gslices <= 65535 &&
+           (p.gslices == 1 ? p.gcells == p.rows : p.n_chunks == 1) && p.gcells >= 32 &&
+           p.gcells % 32 == 0 && (long long)p.gslices * p.gcells >= (N < p.rows ? N : p.rows) &&
+           (long long)(p.gslices - 1) * p.gcells < N &&
+           (p.ldz == 0 || (p.ldz >= SC && p.ldz % 4 == 0));
+  return p.split == 0 && p.n_kc <= 8 && p.n_st <= 8 &&
          p.rows >= kGeneWideCells && p.rows % kGeneWideCells == 0 &&
          p.n_chunks >= 1 && p.n_chunks <= 65535 && (long long)p.n_chunks * p.rows >= N &&
          p.n_pad % kGeneWideCells == 0 && p.n_pad >= N && is_tile_count(p.nj) &&
-         (long long)p.mu_passes * p.nj >= p.n_zt && p.y_pass >= 0 &&
-         p.n_passes == p.mu_passes + p.y_pass && p.n_wgroups >= 1 && p.n_wgroups <= 65535 &&
-         p.n_kw >= 0 && (long long)p.n_wgroups * p.n_kw >= p.n_kc &&
-         p.nj + p.n_kw + (p.y_pass ? 0 : p.n_st) <= kWideTiles &&
-         (!p.y_pass || (long long)p.y_pass * p.nj >= p.n_st) &&
-         p.table >= (size_t)(p.g_pad / 8) *
-                        (p.n_kc + p.n_zgroups * p.zt_group + p.n_ygroups * p.ny_pad) * kWarp * 4 &&
+         (long long)p.mu_passes * p.nj >= p.n_zt && p.y_pass >= 0 && p.y_pass <= 1 &&
+         p.n_passes == p.mu_passes + p.y_pass &&
+         p.nj + p.n_kc + (p.y_pass ? 0 : p.n_st) <= kWideTiles &&
+         (!p.y_pass || p.nj >= p.n_st) &&
          p.part >= (size_t)p.n_chunks * F * G && p.part % 4 == 0 &&
          p.dz >= (size_t)p.n_pad * 16 * p.mu_passes * p.nj &&
          p.ps >= (size_t)p.n_pad * 16 * p.n_kc && p.ps % 4 == 0 &&
          p.a2 >= (size_t)p.n_pad * 16 * p.n_st && p.a2 % 4 == 0 && p.dz % 4 == 0 &&
-         p.a1 >= (size_t)p.n_pad && is_dpsi_k_count(p.dk_pad) && p.n_kgroups >= 1 &&
-         p.n_kgroups <= 65535 && (long long)p.n_kgroups * p.dk_pad >= p.n_kc &&
-         (p.n_kgroups == 1 ? p.dk_lr == p.dk_pad : p.dk_pad == kDpsiGroupedK && p.dk_lr == p.n_kc) &&
+         p.a1 >= (size_t)p.n_pad && is_dpsi_k_count(p.dk_pad) && p.dk_pad >= p.n_kc &&
          is_dpsi_z_count(p.dz_group) && p.n_dgroups >= 1 &&
          (long long)p.n_dgroups * p.dz_group >= p.n_zt && (p.dsteps == 2 || p.dsteps == 4) &&
          p.g_pad % (8 * p.dsteps) == 0 &&
-         p.dtable >= (size_t)(p.g_pad / 8) *
-                         (p.dk_lr + p.n_dgroups * p.dz_group + p.n_kgroups * p.dk_pad) * kWarp * 4;
+         p.dtable >= (size_t)(p.g_pad / 8) * (2 * p.dk_pad + p.n_dgroups * p.dz_group) * kWarp * 4;
 }
 #endif  // FL_COMMON
 
@@ -2343,15 +2851,15 @@ inline int gene_wide_stage_f4(const WidePlan& p, int y_bytes) {
 inline int gene_wide_smem(const WidePlan& p, int y_bytes) {
   return 16 * (kGeneWideWarps * (p.n_kc + 2 * p.nj) * kWarp + 2 * gene_wide_stage_f4(p, y_bytes));
 }
-// dpsi_wide_kernel's: p.dsteps k-steps of W^T (dk_lr), muL^T and W tiles a
-// stage buffer, after the warps' psi fragments (a float4 a lane and tile of
-// log_rfe's) and float64 sums (2 a lane and output tile; wide_plan takes 4
-// k-steps unless that would leave room for one block an SM).
+// dpsi_wide_kernel's: p.dsteps k-steps of W^T, muL^T and W tiles a stage
+// buffer, after the warps' psi fragments (a float4 a lane and tile) and
+// float64 sums (2 a lane and tile; wide_plan takes 4 k-steps unless that
+// would leave room for one block an SM).
 inline int dpsi_wide_stage_f4(const WidePlan& p) {
-  return p.dsteps * (p.dk_lr + p.dk_pad + p.dz_group) * kWarp;
+  return p.dsteps * (2 * p.dk_pad + p.dz_group) * kWarp;
 }
 inline int dpsi_wide_smem(const WidePlan& p) {
-  return 16 * (kDpsiWarps * (p.dk_lr + 2 * p.dk_pad) * kWarp + 2 * dpsi_wide_stage_f4(p));
+  return 16 * (kDpsiWarps * 3 * p.dk_pad * kWarp + 2 * dpsi_wide_stage_f4(p));
 }
 
 // f(std::integral_constant<int, T>) for T the built tile count t
@@ -2394,32 +2902,26 @@ inline void fwd_wide_dispatch(int t, int steps, F&& f) {
   });
 }
 
-// f(dpsi_wide_kernel<NK, NZ, LRW>) for the built counts nk (kDpsiKCounts)
-// and nz (kDpsiZCounts), LRW where the output columns go in groups
-// (grouped: nk is kDpsiGroupedK).
+// f(dpsi_wide_kernel<NK, NZ>) for the built counts nk (kDpsiKCounts) and
+// nz (kDpsiZCounts).
 template <class F>
-inline void dpsi_wide_dispatch(int nk, int nz, bool grouped, F&& f) {
-  auto at_nk = [&](auto k, auto lrw) {
+inline void dpsi_wide_dispatch(int nk, int nz, F&& f) {
+  auto at_nk = [&](auto k) {
     constexpr int NK = decltype(k)::value;
-    constexpr bool LRW = decltype(lrw)::value;
     switch (nz) {
-      case 1: f(dpsi_wide_kernel<NK, 1, LRW>); break;
-      case 2: f(dpsi_wide_kernel<NK, 2, LRW>); break;
-      case 4: f(dpsi_wide_kernel<NK, 4, LRW>); break;
-      case 6: f(dpsi_wide_kernel<NK, 6, LRW>); break;
-      case 8: f(dpsi_wide_kernel<NK, 8, LRW>); break;
-      default: f(dpsi_wide_kernel<NK, 10, LRW>);
+      case 1: f(dpsi_wide_kernel<NK, 1>); break;
+      case 2: f(dpsi_wide_kernel<NK, 2>); break;
+      case 4: f(dpsi_wide_kernel<NK, 4>); break;
+      case 6: f(dpsi_wide_kernel<NK, 6>); break;
+      case 8: f(dpsi_wide_kernel<NK, 8>); break;
+      default: f(dpsi_wide_kernel<NK, 10>);
     }
   };
-  if (grouped) {
-    at_nk(std::integral_constant<int, kDpsiGroupedK>{}, std::true_type{});
-    return;
-  }
   switch (nk) {
-    case 1: at_nk(std::integral_constant<int, 1>{}, std::false_type{}); break;
-    case 2: at_nk(std::integral_constant<int, 2>{}, std::false_type{}); break;
-    case 4: at_nk(std::integral_constant<int, 4>{}, std::false_type{}); break;
-    default: at_nk(std::integral_constant<int, 8>{}, std::false_type{});
+    case 1: at_nk(std::integral_constant<int, 1>{}); break;
+    case 2: at_nk(std::integral_constant<int, 2>{}); break;
+    case 4: at_nk(std::integral_constant<int, 4>{}); break;
+    default: at_nk(std::integral_constant<int, 8>{});
   }
 }
 #endif  // FL_COMMON
@@ -2526,27 +3028,59 @@ void gene_wide_typed(const GeneWideArgs& a) {
   const int smem = gene_wide_smem(p, sizeof(Elem)), stage_f4 = gene_wide_stage_f4(p, sizeof(Elem));
   tile_dispatch(p.nj, [&](auto nj) {
     constexpr int NJ = decltype(nj)::value;
-    auto launch = [&](auto kernel) {
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      for (int z = 0; z < p.n_wgroups; ++z) {  // dW's column groups, the first writing the rest
-        const int kw0 = z * p.n_kw, nkw = p.n_kw < p.n_kc - kw0 ? p.n_kw : p.n_kc - kw0;
-        kernel<<<grid, kGeneWideWarps * kWarp, smem, a.stream>>>(
-            Y, a.W, a.muL, a.dz, a.ps, a.a2, a.a1, a.part, a.N, a.G, a.Kf, a.nA2, a.SC, p,
-            stage_f4, vec, kw0, nkw);
-      }
-    };
-    if (gene_wide_general(p))
-      launch(gene_wide_kernel<YT, NJ, true>);
-    else
-      launch(gene_wide_kernel<YT, NJ, false>);
+    cudaFuncSetAttribute(gene_wide_kernel<YT, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    gene_wide_kernel<YT, NJ><<<grid, kGeneWideWarps * kWarp, smem, a.stream>>>(
+        Y, a.W, a.muL, a.dz, a.ps, a.a2, a.a1, a.part, a.N, a.G, a.Kf, a.nA2, a.SC, p, stage_f4,
+        vec);
   });
+}
+
+// The split backward's Y-reading launches on row block b: which 0,
+// dlog_rfe_kernel<YT, true> (rfe and dlog_rfe to the workspace); which 1,
+// dlog mu = dA2^T Y by gene_product_kernel<YT, true> into the output's
+// last nA2 rows.
+template <int YT>
+void split_typed(const SplitArgs& a, int b, int which) {
+  using Elem = typename YStore<YT>::Elem;
+  using Piece = typename YStore<YT>::Piece;
+  const WidePlan& p = a.plan;
+  if (which == 0) {
+    launch_dlog_rfe<YT, true>(a, b);
+    return;
+  }
+  const long long n0 = (long long)b * p.rows;
+  const int rows = sb_block_rows(p, a.N, b);
+  const Elem* Y = static_cast<const Elem*>(a.Y) + n0 * a.G;
+  const bool vec = a.G % 4 == 0 && reinterpret_cast<uintptr_t>(Y) % sizeof(Piece) == 0;
+  const bool sliced = p.gslices > 1;
+  const SbJob job{sb_mat(a.dA2 + n0 * a.nA2, a.nA2, rows, a.nA2), SbMat{},
+                  (sliced ? a.gpart : a.dgene) + (long long)(a.Kf + a.SC) * a.G,
+                  (a.nA2 + kSbM - 1) / kSbM};
+  constexpr int smem = sb_smem(sb_stage_gene_y(sizeof(Elem)));
+  cudaFuncSetAttribute(gene_product_kernel<YT, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  gene_product_kernel<YT, true>
+      <<<dim3((a.G + kSbN - 1) / kSbN, job.m_tiles, p.gslices), kSbThreads, smem,
+         a.stream>>>(SbJobs{{job, job}}, Y, vec, a.G, sliced || b == 0, p.gcells,
+                     sliced ? (long long)(a.Kf + a.SC + a.nA2) * a.G : 0);
+}
+
+// out[0..4) = dlog_rfe_kernel<YT, true>'s and gene_product_kernel<YT,
+// true>'s dynamic shared memory and blocks an SM.
+template <int YT>
+void split_resources_typed(int* out) {
+  using Elem = typename YStore<YT>::Elem;
+  sb_query(dlog_rfe_kernel<YT, true>, kSbThreads, sb_smem(kSbStageDlog), out);
+  sb_query(gene_product_kernel<YT, true>, kSbThreads, sb_smem(sb_stage_gene_y(sizeof(Elem))),
+           out + 2);
 }
 
 // Blocks an SM holds of fwd_wide_y_kernel (which 1) or gene_wide_kernel
 // (which 2) at the built tile count t and smem bytes of dynamic shared
 // memory (0 if it cannot run).
 template <int YT>
-int wide_blocks_per_sm(int which, int t, int smem, bool general) {
+int wide_blocks_per_sm(int which, int t, int smem) {
   int blocks = 0;
   if (which == 1) {
     y_tile_dispatch(t, [&](auto ny) {
@@ -2559,15 +3093,10 @@ int wide_blocks_per_sm(int which, int t, int smem, bool general) {
   } else {
     tile_dispatch(t, [&](auto nj) {
       constexpr int NJ = decltype(nj)::value;
-      auto query = [&](auto kernel) {
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kGeneWideWarps * kWarp,
-                                                      smem);
-      };
-      if (general)
-        query(gene_wide_kernel<YT, NJ, true>);
-      else
-        query(gene_wide_kernel<YT, NJ, false>);
+      cudaFuncSetAttribute(gene_wide_kernel<YT, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gene_wide_kernel<YT, NJ>,
+                                                    kGeneWideWarps * kWarp, smem);
     });
   }
   return blocks;
@@ -2579,33 +3108,104 @@ template void forward_typed<kYF32>(const FwdArgs&);
 template void gene_typed<kYF32>(const GeneArgs&);
 template void forward_wide_typed<kYF32>(const FwdWideArgs&);
 template void gene_wide_typed<kYF32>(const GeneWideArgs&);
-template int wide_blocks_per_sm<kYF32>(int, int, int, bool);
+template int wide_blocks_per_sm<kYF32>(int, int, int);
+template void split_typed<kYF32>(const SplitArgs&, int, int);
+template void split_resources_typed<kYF32>(int*);
 #endif
 #if FL_TYPED(1)
 template void forward_typed<kYBF16>(const FwdArgs&);
 template void gene_typed<kYBF16>(const GeneArgs&);
 template void forward_wide_typed<kYBF16>(const FwdWideArgs&);
 template void gene_wide_typed<kYBF16>(const GeneWideArgs&);
-template int wide_blocks_per_sm<kYBF16>(int, int, int, bool);
+template int wide_blocks_per_sm<kYBF16>(int, int, int);
+template void split_typed<kYBF16>(const SplitArgs&, int, int);
+template void split_resources_typed<kYBF16>(int*);
 #endif
 #if FL_TYPED(2)
 template void forward_typed<kYI16>(const FwdArgs&);
 template void gene_typed<kYI16>(const GeneArgs&);
 template void forward_wide_typed<kYI16>(const FwdWideArgs&);
 template void gene_wide_typed<kYI16>(const GeneWideArgs&);
-template int wide_blocks_per_sm<kYI16>(int, int, int, bool);
+template int wide_blocks_per_sm<kYI16>(int, int, int);
+template void split_typed<kYI16>(const SplitArgs&, int, int);
+template void split_resources_typed<kYI16>(int*);
 #endif
 #if FL_TYPED(3)
 template void forward_typed<kYI8>(const FwdArgs&);
 template void gene_typed<kYI8>(const GeneArgs&);
 template void forward_wide_typed<kYI8>(const FwdWideArgs&);
 template void gene_wide_typed<kYI8>(const GeneWideArgs&);
-template int wide_blocks_per_sm<kYI8>(int, int, int, bool);
+template int wide_blocks_per_sm<kYI8>(int, int, int);
+template void split_typed<kYI8>(const SplitArgs&, int, int);
+template void split_resources_typed<kYI8>(int*);
 #endif
 
 }  // namespace fl
 
 #if FL_COMMON
+// The split backward over the plan's row blocks (see the note at the top).
+// With a.dgene, the gene part: dlog_rfe_kernel with Y (a.rfe and a.dl the
+// row block's rfe and dlog_rfe), dW^T = psi^T dlog_rfe and d(muL)^T = dZ^T
+// rfe, and dlog mu = dA2^T Y where nA2 > 0, summed over the row blocks in
+// order into a.dgene (or a single row block's slices' partial sums into
+// a.gpart, which reduce_chunks_kernel adds in order). Without,
+// dlog_rfe_kernel without Y (a.dl the row
+// block's t = rfe drfe). With dpsi (and Kf > 0), dpsi = a.dl W by gene
+// ranges into part, added with dA1 YW (where YW is given: t's rows) by
+// dpsi_sum_kernel.
+static void split_backward(const SplitArgs& a, int y_type, float* dpsi, const float* YW,
+                           float* part) {
+  const WidePlan& p = a.plan;
+  const int N = a.N, G = a.G, Kf = a.Kf, SC = a.SC, FG = (Kf + SC + a.nA2) * G;
+  const bool sliced = p.gslices > 1;
+  float* out = sliced ? a.gpart : a.dgene;
+  auto typed = [&](int b, int which) {
+    switch (y_type) {
+      case kYF32: split_typed<kYF32>(a, b, which); break;
+      case kYBF16: split_typed<kYBF16>(a, b, which); break;
+      case kYI16: split_typed<kYI16>(a, b, which); break;
+      default: split_typed<kYI8>(a, b, which);
+    }
+  };
+  constexpr int gsmem = sb_smem(kSbStageGene), dsmem = sb_smem(kSbStageDpsi);
+  cudaFuncSetAttribute(gene_product_kernel<kYF32, false>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, gsmem);
+  cudaFuncSetAttribute(dpsi_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dsmem);
+  const long long zstride = (long long)p.rows * Kf;
+  if (p.ldz) pad_rows(a.muL, SC, a.mupad, p.ldz, G, SC, a.stream);
+  for (int b = 0; b < p.n_chunks; ++b) {
+    const long long n0 = (long long)b * p.rows;
+    const int rows = sb_block_rows(p, N, b);
+    if (p.ldz) pad_rows(a.dZ + n0 * SC, SC, a.zpad, p.ldz, rows, SC, a.stream);
+    if (a.dgene) {
+      typed(b, 0);  // rfe and dlog_rfe of the row block
+      // dW^T = psi^T dlog_rfe and d(muL)^T = dZ^T rfe
+      const SbJob dw{sb_mat(a.psi + n0 * Kf, Kf, rows, Kf), sb_mat(a.dl, p.ldw, rows, G), out,
+                     (Kf + kSbM - 1) / kSbM};
+      const SbJob dmu{sb_dz(a, b), sb_mat(a.rfe, p.ldw, rows, G), out + (long long)Kf * G,
+                      (SC + kSbM - 1) / kSbM};
+      gene_product_kernel<kYF32, false>
+          <<<dim3((G + kSbN - 1) / kSbN, dw.m_tiles + dmu.m_tiles, p.gslices), kSbThreads,
+             gsmem, a.stream>>>(SbJobs{{dw, dmu}}, nullptr, false, G, sliced || b == 0, p.gcells,
+                                sliced ? FG : 0);
+      if (a.nA2) typed(b, 1);  // dlog mu = dA2^T Y
+      if (sliced)  // one row block: its slices' partial sums, added in order
+        reduce_chunks_kernel<<<blocks_for(FG, 256), 256, 0, a.stream>>>(a.gpart, a.dgene,
+                                                                       p.gslices, FG);
+    } else {
+      launch_dlog_rfe<kYF32, false>(a, b);
+    }
+    if (dpsi && Kf) {
+      dpsi_product_kernel<<<dim3((rows + kSbM - 1) / kSbM, (Kf + kSbN - 1) / kSbN, p.dsplit),
+                            kSbThreads, dsmem, a.stream>>>(
+          sb_mat(a.dl, p.ldw, rows, G), sb_mat(a.W, Kf, G, Kf), part, zstride, p.dgenes);
+      dpsi_sum_kernel<<<blocks_for((long long)rows * Kf, 256), 256, 0, a.stream>>>(
+          part, a.dA1 + n0, YW ? YW + n0 * Kf : nullptr, dpsi + n0 * Kf, rows, Kf, p.dsplit,
+          zstride);
+    }
+  }
+}
+
 extern "C" {
 
 // Y (N,G) is a device pointer to a contiguous array of the storage type
@@ -2695,9 +3295,15 @@ int fl_backward_gene(const void* Y, const float* psi, const float* W,
 // them, wide_plan_of; fl_backward_dpsi_wide takes the plan of nA2 = 0).
 // fl_forward_wide's scratch (16-byte aligned) holds the plan's table floats
 // and then its a1part floats (A1's partial sums), fl_backward_dpsi_wide's
-// its dtable floats (the packed gene
-// side); fl_backward_gene_wide's its part + dz + ps + a2 + a1 floats: the
-// (Kf+SC+nA2, G) partial sums of each chunk, then the packed cell side.
+// its dtable floats (the packed gene side); fl_backward_gene_wide's its
+// part + dz + ps + a2 + a1 floats: the (Kf+SC+nA2, G) partial sums of each
+// chunk, then the packed cell side. Where the plan's backward is the split
+// one, fl_backward_dpsi_wide's scratch holds rows x ldw floats (the row
+// block's t = rfe drfe) and then dsplit x rows x Kf (the gene ranges'
+// sums), and fl_backward_gene_wide's 2 x rows x ldw (the row block's rfe
+// and dlog_rfe) and then, where gslices > 1, gslices x (Kf+SC+nA2) x G
+// rounded up to whole float4s (the slices' partial sums); both then, where
+// ldz > 0, (rows + G) x ldz (dZ's row block and muL at that pitch).
 int fl_forward_wide(const void* Y, const float* psi, const float* W,
                     const float* logmu, const float* muL, float* A1, float* A2,
                     float* Z, float* YW, float* scratch, const long long* plan, int N, int G,
@@ -2738,12 +3344,21 @@ int fl_backward_dpsi_wide(const float* psi, const float* W, const float* muL,
       !wide_plan_of(plan, N, G, Kf, 0, SC, p))
     return (int)cudaErrorInvalidValue;
   if (Kf == 0) return (int)cudaSuccess;
+  if (p.split) {
+    float* t = scratch;
+    float* part = t + (size_t)p.rows * p.ldw;
+    float* zpad = part + (size_t)p.dsplit * p.rows * Kf;
+    const SplitArgs a{nullptr, psi,     W,    muL, dA1, nullptr, dZ, t, t, nullptr, nullptr, zpad,
+                      zpad + (size_t)p.rows * p.ldz, N, G, Kf, 0, SC, p, stream};
+    split_backward(a, kYF32, dpsi, YW, part);
+    return (int)cudaGetLastError();
+  }
   float4* table = reinterpret_cast<float4*>(scratch);
   dpsi_wide_pack_kernel<<<blocks_for((long long)(p.dtable / 4), 256), 256, 0, stream>>>(
       W, muL, table, G, Kf, SC, p);
   const int smem = dpsi_wide_smem(p), stage_f4 = dpsi_wide_stage_f4(p);
-  const dim3 grid(blocks_for(N, kDpsiWarps * kFwdRows), p.n_kgroups);
-  dpsi_wide_dispatch(p.dk_pad, p.dz_group, p.n_kgroups > 1, [&](auto kernel) {
+  const dim3 grid(blocks_for(N, kDpsiWarps * kFwdRows));
+  dpsi_wide_dispatch(p.dk_pad, p.dz_group, [&](auto kernel) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     kernel<<<grid, kDpsiWarps * kWarp, smem, stream>>>(psi, dZ, dA1, YW, table, dpsi, N, Kf, SC,
                                                         p, stage_f4);
@@ -2751,15 +3366,33 @@ int fl_backward_dpsi_wide(const float* psi, const float* W, const float* muL,
   return (int)cudaGetLastError();
 }
 
+// The wide gene part (dW, dlog mu, d(muL)); with dpsi (N,Kf) where the
+// plan's backward is the split one, dpsi too, from the same dlog_rfe a row
+// block (the autograd function's backward; dpsi must be null otherwise).
+// Past the old bound scratch (16-byte aligned) holds 2 x rows x ldw floats
+// (the row block's rfe and dlog_rfe), dsplit x rows x Kf (dpsi's gene
+// ranges' sums), where gslices > 1 gslices x (Kf+SC+nA2) x G rounded up to
+// whole float4s (the gene products' slices' partial sums), and where ldz
+// > 0 (rows + G) x ldz; at the old widths the packed cell side and the
+// chunks' partial sums.
 int fl_backward_gene_wide(const void* Y, const float* psi, const float* W,
                           const float* muL, const float* dA1, const float* dA2,
-                          const float* dZ, float* scratch, float* dgene, const long long* plan,
-                          int N, int G, int Kf, int nA2, int SC, int y_type,
-                          cudaStream_t stream) {
+                          const float* dZ, float* dpsi, float* scratch, float* dgene,
+                          const long long* plan, int N, int G, int Kf, int nA2, int SC,
+                          int y_type, cudaStream_t stream) {
   WidePlan p;
   if (bad_wide_sizes(N, G, Kf, nA2, SC, kGeneWideCells, y_type) ||
-      !wide_plan_of(plan, N, G, Kf, nA2, SC, p))
+      !wide_plan_of(plan, N, G, Kf, nA2, SC, p) || (dpsi && !p.split))
     return (int)cudaErrorInvalidValue;
+  if (p.split) {
+    const size_t block = (size_t)p.rows * p.ldw, dpart = (size_t)p.dsplit * p.rows * Kf;
+    float* gpart = scratch + 2 * block + dpart;
+    float* zpad = gpart + sb_gpart(p, (Kf + SC + nA2) * G);
+    const SplitArgs a{Y,    psi,  W,    muL, dA1, dA2, dZ, scratch, scratch + block, dgene, gpart,
+                      zpad, zpad + (size_t)p.rows * p.ldz, N, G, Kf, nA2, SC, p, stream};
+    split_backward(a, y_type, dpsi, nullptr, scratch + 2 * block);
+    return (int)cudaGetLastError();
+  }
   float2* dz = reinterpret_cast<float2*>(scratch + p.part);
   float2* ps = reinterpret_cast<float2*>(scratch + p.part + p.dz);
   float2* a2 = reinterpret_cast<float2*>(scratch + p.part + p.dz + p.ps);
@@ -2779,48 +3412,59 @@ int fl_backward_gene_wide(const void* Y, const float* psi, const float* W,
 }
 
 // What the wide kernels that the plan launches take on the card, for
-// holding them to two blocks an SM: out[0..10) = fwd_wide_kernel's dynamic
-// shared memory bytes and blocks an SM (the occupancy query), the same for
-// fwd_wide_y_kernel and gene_wide_kernel at Y storage y_type and for
-// dpsi_wide_kernel, then fwd_wide_kernel's and dpsi_wide_kernel's k-steps
-// a stage. Returns cudaErrorInvalidValue where the plan does not fit the
-// sizes.
+// holding them to their blocks an SM: out[0..16) = fwd_wide_kernel's
+// dynamic shared memory bytes and blocks an SM (the occupancy query), the
+// same for fwd_wide_y_kernel at Y storage y_type, for the gene part's and
+// dpsi's kernels, then fwd_wide_kernel's and dpsi_wide_kernel's k-steps a
+// stage. The gene part's and dpsi's kernels: gene_wide_kernel (at y_type)
+// and dpsi_wide_kernel; or where the plan's backward is the split one
+// dlog_rfe_kernel<y_type, 1> and dpsi_product_kernel (dpsi's k-steps 0),
+// and in out[10..16) gene_product_kernel<0, 0>, gene_product_kernel<y_type,
+// 1> and dlog_rfe_kernel<0, 0> (zeros for the other plans). Returns
+// cudaErrorInvalidValue where the plan does not fit the sizes.
 int fl_wide_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC, int y_type,
                       int* out) {
   WidePlan p;
   if (bad_wide_sizes(N, G, Kf, nA2, SC, kGeneWideCells, y_type) ||
       !wide_plan_of(plan, N, G, Kf, nA2, SC, p))
     return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 16; ++i) out[i] = 0;
   const int steps = fwd_wide_steps(p), yb = y_type == kYF32 ? 4 : y_type == kYI8 ? 1 : 2;
-  const int smem[3] = {fwd_wide_smem(p, steps), fwd_wide_y_smem(p, yb), gene_wide_smem(p, yb)};
-  int blocks = 0;
   fwd_wide_dispatch(p.zt_group, steps, [&](auto kernel) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem[0]);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFwdWarps * kWarp, smem[0]);
+    sb_query(kernel, kFwdWarps * kWarp, fwd_wide_smem(p, steps), out);
   });
-  out[0] = smem[0];
-  out[1] = blocks;
-  const bool gen = gene_wide_general(p);
-  for (int which = 1; which <= 2; ++which) {
+  const int smem[3] = {0, fwd_wide_y_smem(p, yb), gene_wide_smem(p, yb)};
+  for (int which = 1; which <= (p.split ? 1 : 2); ++which) {
     const int t = which == 1 ? p.ny_pad : p.nj;
+    int blocks = 0;
     switch (y_type) {
-      case kYF32: blocks = wide_blocks_per_sm<kYF32>(which, t, smem[which], gen); break;
-      case kYBF16: blocks = wide_blocks_per_sm<kYBF16>(which, t, smem[which], gen); break;
-      case kYI16: blocks = wide_blocks_per_sm<kYI16>(which, t, smem[which], gen); break;
-      default: blocks = wide_blocks_per_sm<kYI8>(which, t, smem[which], gen);
+      case kYF32: blocks = wide_blocks_per_sm<kYF32>(which, t, smem[which]); break;
+      case kYBF16: blocks = wide_blocks_per_sm<kYBF16>(which, t, smem[which]); break;
+      case kYI16: blocks = wide_blocks_per_sm<kYI16>(which, t, smem[which]); break;
+      default: blocks = wide_blocks_per_sm<kYI8>(which, t, smem[which]);
     }
     out[2 * which] = smem[which];
     out[2 * which + 1] = blocks;
   }
-  const int dsmem = dpsi_wide_smem(p);
-  dpsi_wide_dispatch(p.dk_pad, p.dz_group, p.n_kgroups > 1, [&](auto kernel) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dsmem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kDpsiWarps * kWarp, dsmem);
-  });
-  out[6] = dsmem;
-  out[7] = blocks;
   out[8] = steps;
-  out[9] = p.dsteps;
+  if (p.split) {
+    int typed[4];
+    switch (y_type) {
+      case kYF32: split_resources_typed<kYF32>(typed); break;
+      case kYBF16: split_resources_typed<kYBF16>(typed); break;
+      case kYI16: split_resources_typed<kYI16>(typed); break;
+      default: split_resources_typed<kYI8>(typed);
+    }
+    out[4] = typed[0], out[5] = typed[1], out[12] = typed[2], out[13] = typed[3];
+    sb_query(dpsi_product_kernel, kSbThreads, sb_smem(kSbStageDpsi), out + 6);
+    sb_query(gene_product_kernel<kYF32, false>, kSbThreads, sb_smem(kSbStageGene), out + 10);
+    sb_query(dlog_rfe_kernel<kYF32, false>, kSbThreads, sb_smem(kSbStageDlog), out + 14);
+  } else {
+    dpsi_wide_dispatch(p.dk_pad, p.dz_group, [&](auto kernel) {
+      sb_query(kernel, kDpsiWarps * kWarp, dpsi_wide_smem(p), out + 6);
+    });
+    out[9] = p.dsteps;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -27,11 +27,19 @@ branches, which take any width), counted apart in ``*_wide_launches``: the
 forward (Z, and Y's products), the Y-free dpsi kernel and the gene part,
 all on tensor cores (the contract as unnormalized attention). Widths past
 what a block's accumulators hold go in column groups or passes, each
-recomputing the exps it needs. :func:`wide_plan` gives their launch
-geometry and workspace, which the C launchers take and check; it raises a
-ValueError where a width's shared memory would pass the card's
-(``MAX_SMEM`` a block): it takes Kf = K + P up to 160 at every S and S*C.
-The plain versions take any width and are the wide family's too.
+recomputing the exps it needs, up to the old bound of Kf 64, 64 A2 columns
+and S*C 2,048. Past it (:func:`split_route`) the backward is the split one,
+which forms rfe and dlog_rfe once a row block of cells into a workspace
+(``dlog_rfe_kernel``) and takes dpsi, dW, d(muL) and dlog mu from it as
+tiled products (``dpsi_product_kernel``, ``gene_product_kernel``);
+:func:`kernel_backward` forms dlog_rfe once for both parts there, in one
+call of the gene part's entry point with dpsi, counted in
+``split_launches``.
+:func:`wide_plan` gives the launch geometry and workspace, which the C
+launchers take and check; it raises a ValueError where a width's shared
+memory would pass the card's (``MAX_SMEM`` a block): it takes Kf = K + P up
+to 160 at every S and S*C (the forward's shared memory is the bound). The
+plain versions take any width and are the wide family's too.
 
 Float64 operands (``dtype="float64"`` fits, the oracle configuration) go
 to a family of their own, ``csrc/fused_likelihood_f64.cu``: the forward
@@ -86,6 +94,14 @@ WIDE_DPSI_K_COUNTS = (1, 2, 4, 8)
 WIDE_DPSI_Z_COUNTS = (1, 2, 4, 6, 8, 10)
 _DPSI_WIDE_WARPS = 4
 _TWO_BLOCK_SMEM = (228 - 2) // 2 * 1024
+# The old bound: past Kf = K + P 64, 64 A2 columns or S*C 2,048 the
+# backward is the split one (:func:`split_route`), whose kernels (the .cu's
+# kSb*) take blocks of 64 x 64 outputs, two an SM, and stages of 32 values
+# of K in a ring of 3, over row blocks of cells whose workspace buffer
+# holds at most _SPLIT_ELEMENTS floats (past one tile of cells).
+SPLIT_KF, SPLIT_A2, SPLIT_SC = 64, 64, 2048
+_SPLIT_M, _SPLIT_N, _SPLIT_K, _SPLIT_STAGES, _SPLIT_BLOCKS = 64, 64, 32, 3, 2
+_SPLIT_ELEMENTS = 1 << 23
 _ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
 # Y storage types the kernels load, with the code the C entry points take
 Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
@@ -125,6 +141,7 @@ gene_launches = 0  # the gene-major backward kernel with its packing and chunk r
 fwd_wide_launches = 0
 dpsi_wide_launches = 0
 gene_wide_launches = 0  # the wide gene-part kernel with its chunk reduction
+split_launches = 0  # kernel_backward past the old bound: dpsi and the gene part in one call
 fwd_f64_launches = 0
 dpsi_f64_launches = 0
 gene_f64_launches = 0  # the float64 gene-part kernel with its chunk reduction
@@ -132,7 +149,7 @@ gene_f64_launches = 0  # the float64 gene-part kernel with its chunk reduction
 
 def reset_launch_counts() -> None:
     global fwd_launches, dpsi_launches, gene_launches
-    global fwd_wide_launches, dpsi_wide_launches, gene_wide_launches
+    global fwd_wide_launches, dpsi_wide_launches, gene_wide_launches, split_launches
     global fwd_f64_launches, dpsi_f64_launches, gene_f64_launches
     fwd_launches = 0
     dpsi_launches = 0
@@ -140,6 +157,7 @@ def reset_launch_counts() -> None:
     fwd_wide_launches = 0
     dpsi_wide_launches = 0
     gene_wide_launches = 0
+    split_launches = 0
     fwd_f64_launches = 0
     dpsi_f64_launches = 0
     gene_f64_launches = 0
@@ -150,6 +168,15 @@ def wide_route(Kf: int, n_a2: int, SC: int) -> bool:
     without A2; the dpsi kernel has none) and SC sample x clone columns goes
     to the wide family: exactly when a width is past a narrow limit."""
     return Kf > MAX_KF or n_a2 > MAX_A2 or SC > MAX_SC
+
+
+def split_route(Kf: int, n_a2: int, SC: int) -> bool:
+    """Whether the wide family's backward at these widths is the split one
+    (``dlog_rfe_kernel`` and the tiled products, :func:`wide_plan`'s
+    ``split``): exactly past the old bound, Kf 64, n_a2 64 or SC 2,048. The
+    old widths keep the ungrouped ``dpsi_wide_kernel`` and
+    ``gene_wide_kernel``."""
+    return Kf > SPLIT_KF or n_a2 > SPLIT_A2 or SC > SPLIT_SC
 
 
 # ---------------------------------------------------------------------------
@@ -264,15 +291,30 @@ WIDE_PLAN_KEYS = ("n_kc", "n_zt", "n_yt", "n_st", "g_pad", "zt_group", "n_zgroup
                   "rows", "n_chunks", "n_pad", "nj", "mu_passes", "y_pass", "n_passes",
                   "table", "part", "dz", "ps", "a2", "a1",
                   "dk_pad", "dz_group", "n_dgroups", "dsteps", "dtable",
-                  "n_ygroups", "a1_parts", "a1part", "n_kgroups", "dk_lr", "n_kw", "n_wgroups")
+                  "n_ygroups", "a1_parts", "a1part", "split", "ldw", "dsplit", "dgenes",
+                  "gslices", "gcells", "ldz")
 # The most dynamic shared memory a block may take on the card (227 KB).
 MAX_SMEM = 232_448
+
+
+def split_smem(y_itemsize: int = 4) -> dict:
+    """The split backward's kernels' dynamic shared memory in bytes (the
+    .cu's sb_smem): three stages of their tiles, rows padded so that the
+    fragments' reads hit 32 banks; ``gene_y`` is dlog mu's product at Y's
+    itemsize."""
+    m, n, k = _SPLIT_M, _SPLIT_N, _SPLIT_K
+    y_pitch = 4 * (n + 8) if y_itemsize == 4 else n * y_itemsize + 16
+    stages = {"dlog": (m + n) * (k + 4), "dpsi": m * (k + 4) + k * (n + 8),
+              "gene": k * (m + 8) + k * (n + 8), "gene_y": k * (m + 8) + k * y_pitch // 4}
+    return {name: 4 * _SPLIT_STAGES * floats for name, floats in stages.items()}
 
 
 def _wide_smem(p: dict) -> dict:
     """Each wide kernel's dynamic shared memory in bytes under plan p (the
     .cu's fwd_wide_smem, fwd_wide_y_smem and gene_wide_smem at float32 Y,
-    the widest storage, and dpsi_wide_smem), and the forward's k-steps a
+    the widest storage, and dpsi_wide_smem; where the backward is the split
+    one, the gene part's dlog_rfe_kernel, dpsi_product_kernel, and
+    gene_product_kernel's, :func:`split_smem`), and the forward's k-steps a
     stage."""
     n_kc, nz, ny, nj = p["n_kc"], p["zt_group"], p["ny_pad"], p["nj"]
 
@@ -285,16 +327,31 @@ def _wide_smem(p: dict) -> dict:
 
     steps = 4 if fwd(4) <= _TWO_BLOCK_SMEM else 2
     y_stage = 4 * ny * 32 + groups(ny) * 16 * (32 * 4 + 16) // 16
-    a2_tiles = min(p["n_st"], nj) if p["y_pass"] else p["n_st"]
-    strides = (8 * nj + 4) + (8 * n_kc + 4) + (8 * a2_tiles + 4 if p["n_st"] else 0)
+    out = dict(fwd=fwd(steps), fwd_steps=steps, fwd_y=16 * 2 * y_stage)
+    if p["split"]:
+        sb = split_smem()
+        return dict(out, gene=sb["dlog"], dpsi=sb["dpsi"], gene_products=sb["gene"],
+                    gene_y=sb["gene_y"])
+    strides = (8 * nj + 4) + (8 * n_kc + 4) + (8 * p["n_st"] + 4 if p["n_st"] else 0)
     g_stage = (2 * _GENE_WIDE_CELLS * strides + _GENE_WIDE_CELLS) // 4 + _GENE_WIDE_CELLS * (64 * 4 + 16) // 16
-    dpsi = 16 * (_DPSI_WIDE_WARPS * (p["dk_lr"] + 2 * p["dk_pad"]) * 32
-                 + 2 * p["dsteps"] * (p["dk_lr"] + p["dk_pad"] + p["dz_group"]) * 32)
-    return dict(fwd=fwd(steps), fwd_steps=steps, fwd_y=16 * 2 * y_stage,
-                gene=16 * (4 * (n_kc + 2 * nj) * 32 + 2 * g_stage), dpsi=dpsi)
+    dpsi = 16 * (_DPSI_WIDE_WARPS * 3 * p["dk_pad"] * 32
+                 + 2 * p["dsteps"] * (2 * p["dk_pad"] + p["dz_group"]) * 32)
+    return dict(out, gene=16 * (4 * (n_kc + 2 * nj) * 32 + 2 * g_stage), dpsi=dpsi)
 
 
-def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] = None) -> dict:
+def _split_rows(N: int, G: int) -> tuple:
+    """The split backward's row blocks: (cells a block, blocks, the
+    workspace's row pitch). A block holds at most _SPLIT_ELEMENTS floats of
+    rfe (or dlog_rfe) past one tile of 64 cells, and the blocks are as even
+    as whole tiles make them."""
+    ldw = _cdiv(G, 4) * 4
+    most = max(_SPLIT_M, _SPLIT_ELEMENTS // ldw // _SPLIT_M * _SPLIT_M)
+    n_blocks = _cdiv(N, most)
+    rows = _cdiv(_cdiv(N, n_blocks), _SPLIT_M) * _SPLIT_M
+    return rows, _cdiv(N, rows), ldw
+
+
+def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     """The wide family's launch plan for N cells, G genes,
     Kf columns of ``[psi, X]``, n_a2 A2 columns and SC Z columns: the one
     place it is decided. The C entry points take its ``WIDE_PLAN_KEYS``
@@ -313,22 +370,33 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] =
     each a read of Y), each padded to ``ny_pad``. Where one warp holds
     every column of Y W, it writes A1; else (``a1_parts`` > 0) each warp
     writes its columns' share to a row of ``a1part`` and the entry point
-    adds the rows. Gene part: chunks of ``rows`` cells (:func:`_chunk_rows`),
-    each a block row of partial sums; dW's tiles in ``n_wgroups`` groups of
-    ``n_kw`` (at most 8; a launch each: past 64 columns each group
-    recomputes what the first computes, and only the first writes d(muL)
-    and dlog mu);
-    ``mu_passes`` passes over dZ's tiles, ``nj`` tiles each beside dW's
-    ``n_kw`` (and dlog mu's ``n_st`` in the first pass, unless they leave no
-    room: then dlog mu takes ``y_pass`` passes of its own first, at most
-    ``nj`` of d(muL)'s tiles each), ``n_passes`` in all. dpsi: ``[psi,
-    X]``'s tiles padded to ``dk_pad`` (``WIDE_DPSI_K_COUNTS``), past 8 tiles
-    in ``n_kgroups`` output groups of 8 (grid.y), each forming log_rfe over
-    all ``dk_lr`` tiles; dZ's tiles split evenly into ``n_dgroups`` column
-    groups of at most 10 (one after another in a block, each recomputing
-    the exps), each padded to ``dz_group`` (``WIDE_DPSI_Z_COUNTS``);
-    ``dsteps`` k-steps of 8 genes a stage, 4 unless that leaves room for one
-    block an SM (``dpsi_smem`` bytes of shared memory a block).
+    adds the rows.
+
+    Backward, where ``split`` (:func:`split_route`: past the old bound):
+    ``n_chunks`` row blocks of ``rows`` cells (:func:`_split_rows`), whose
+    rfe and dlog_rfe ``dlog_rfe_kernel`` writes to a workspace of ``rows``
+    rows ``ldw`` floats apart, and the tiled products take from it;
+    dpsi's product over ``dsplit`` ranges of ``dgenes`` genes (whole stages
+    of 32), enough blocks for two an SM on 132 SMs where the genes allow
+    (ranges of 256 genes at least); the gene part's products in ``gslices``
+    slices of ``gcells`` cells where a single row block's would not fill
+    the card twice over (slices of 256 cells at least; one slice of
+    ``rows`` otherwise); where SC is no multiple of 4, dZ's row block and
+    muL copied to a row pitch of ``ldz`` floats, a multiple of 4 (else 0).
+    The keys of the gene part's and dpsi's other kernels are then 0.
+
+    Else, gene part: chunks of ``rows`` cells (:func:`_chunk_rows`), each a
+    block row of partial sums; dW's ``n_kc`` tiles, at most 8, beside
+    ``mu_passes`` passes over dZ's tiles, ``nj`` tiles each (and dlog mu's
+    ``n_st``, at most 8, in the first pass, unless they leave no room: then
+    dlog mu takes ``y_pass`` = 1 pass of its own first, in d(muL)'s tiles),
+    ``n_passes`` in all. dpsi: ``[psi, X]``'s tiles padded to ``dk_pad``
+    (``WIDE_DPSI_K_COUNTS``); dZ's tiles split evenly into ``n_dgroups``
+    column groups of at most 10 (one after another in a block, each
+    recomputing the exps), each padded to ``dz_group``
+    (``WIDE_DPSI_Z_COUNTS``); ``dsteps`` k-steps of 8 genes a stage, 4
+    unless that leaves room for one block an SM (``dpsi_smem`` bytes of
+    shared memory a block).
 
     Workspace, in float32 values: ``table``, the forward's packed gene-side
     B fragments, and ``a1part``; ``part`` (the partial sums), ``dz``,
@@ -336,7 +404,15 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] =
     scratch; ``dtable``, dpsi's packed gene side. ``fwd_workspace``,
     ``dpsi_workspace`` and ``gene_workspace`` are what :func:`kernel_forward`,
     :func:`kernel_dpsi` and :func:`kernel_gene` allocate for the kernels,
-    the last with its (Kf + SC + n_a2, G) output.
+    the last with its (Kf + SC + n_a2, G) output; where ``split``, dpsi's is
+    the row block's t = rfe drfe and the ranges' sums (``dsplit`` x ``rows``
+    x Kf), the gene part's the row block's rfe and dlog_rfe, the ranges'
+    sums (which only :func:`kernel_backward`'s call, with dpsi, fills) and
+    the slices' partial sums (``gslices`` x (Kf + SC + n_a2) x G, where
+    more than one), each with (``rows`` + G) x ``ldz`` for the padded
+    copies. ``bwd_workspace`` is what :func:`kernel_backward` allocates
+    beside dpsi: where ``split``, the gene part's (one call forms both
+    parts); else the two parts' workspaces.
 
     A width whose kernels' shared memory (``smem``) passes the card's
     ``MAX_SMEM`` a block raises a ValueError; Kf up to 160 fits at every S
@@ -351,53 +427,67 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] =
     halves = 2 if ny_pad > 10 else 1
     a1_parts = 0 if n_ygroups == 1 and Kf <= 8 * (ny_pad // halves) else n_ygroups * halves
     a1part = _cdiv(a1_parts * N, 4) * 4
-    rows = _chunk_rows(N) if rows is None else rows
-    n_chunks = _cdiv(N, rows)
-    n_pad = _cdiv(N, _GENE_WIDE_CELLS) * _GENE_WIDE_CELLS
-    n_wgroups = _cdiv(max(n_kc, 1), 8)
-    n_kw = _cdiv(n_kc, n_wgroups)
-
-    def passes(y_mode):  # (nj, y_pass), or None where no d(muL) tile fits
-        room = WIDE_TILES - n_kw - (0 if y_mode else n_st)
-        if room < 1:
-            return None
-        nj = _at_least(WIDE_TILE_COUNTS, max(_cdiv(n_zt, _cdiv(n_zt, room)),
-                                             min(n_st, room) if y_mode else 1))
-        if nj > room:
-            nj = max(c for c in WIDE_TILE_COUNTS if c <= room)
-        return nj, _cdiv(n_st, nj) if y_mode else 0
-
-    # dlog mu takes passes of its own where it leaves d(muL) no room beside
-    # dW's tiles; past 8 tiles of dW or of dA2, also where that takes fewer
-    # passes in all
-    y_mode = n_kw + n_st >= WIDE_TILES
-    if not y_mode and (n_kc > 8 or n_st > 8):
-        (nj0, _), (nj1, yp1) = passes(False), passes(True)
-        y_mode = yp1 + _cdiv(n_zt, nj1) < _cdiv(n_zt, nj0)
-    nj, y_pass = passes(y_mode)
-    mu_passes = _cdiv(n_zt, nj)
     table = g_pad // 8 * (n_kc + n_zgroups * zt_group + n_ygroups * ny_pad) * 32 * 4
     F = Kf + SC + n_a2
-    part = _cdiv(n_chunks * F * G, 4) * 4
-    dz, ps, a2, a1 = n_pad * 16 * mu_passes * nj, n_pad * 16 * n_kc, n_pad * 16 * n_st, n_pad
-    n_kgroups = 1 if n_kc <= WIDE_DPSI_K_COUNTS[-1] else _cdiv(n_kc, WIDE_DPSI_K_COUNTS[-1])
-    dk_pad = _at_least(WIDE_DPSI_K_COUNTS, max(n_kc, 1))
-    dk_lr = dk_pad if n_kgroups == 1 else n_kc
-    n_dgroups = _cdiv(n_zt, WIDE_DPSI_Z_COUNTS[-1])
-    dz_group = _at_least(WIDE_DPSI_Z_COUNTS, _cdiv(n_zt, n_dgroups))
+    split = split_route(Kf, n_a2, SC)
+    if split:
+        rows, n_chunks, ldw = _split_rows(N, G)
+        base = _cdiv(rows, _SPLIT_M) * _cdiv(max(Kf, 1), _SPLIT_N)
+        dsplit = max(1, min(_cdiv(_SPLIT_BLOCKS * 132, base), _cdiv(G, 256)))
+        dgenes = _cdiv(_cdiv(G, dsplit), 32) * 32
+        dsplit = _cdiv(G, dgenes)
+        # one row block's gene products in slices of cells where their
+        # blocks would not fill the card twice over
+        gslices, gcells = 1, rows
+        products = _cdiv(G, _SPLIT_N) * (_cdiv(Kf, _SPLIT_M) + _cdiv(SC, _SPLIT_M))
+        if n_chunks == 1 and products < 4 * 132:
+            gslices = max(1, min(_cdiv(4 * 132, products), _cdiv(N, 256)))
+            gcells = _cdiv(_cdiv(N, gslices), 32) * 32
+            gslices = _cdiv(N, gcells)
+            if gslices == 1:
+                gcells = rows
+        gene = dict.fromkeys(("n_pad", "nj", "mu_passes", "y_pass", "n_passes", "part", "dz",
+                              "ps", "a2", "a1", "dk_pad", "dz_group", "n_dgroups", "dsteps",
+                              "dtable"), 0)
+        # dZ and muL copied to a row pitch of whole float4s where S*C is
+        # none (the kernels' copies of them are then 16 bytes)
+        ldz = _cdiv(SC, 4) * 4 if SC % 4 else 0
+        gene.update(rows=rows, n_chunks=n_chunks, split=1, ldw=ldw, dsplit=dsplit, dgenes=dgenes,
+                    gslices=gslices, gcells=gcells, ldz=ldz)
+    else:
+        rows = _chunk_rows(N)
+        n_chunks = _cdiv(N, rows)
+        n_pad = _cdiv(N, _GENE_WIDE_CELLS) * _GENE_WIDE_CELLS
+        # dlog mu takes a pass of its own where it leaves d(muL) no room
+        # beside dW's tiles
+        y_pass = 1 if n_kc + n_st >= WIDE_TILES else 0
+        room = WIDE_TILES - n_kc - (0 if y_pass else n_st)
+        nj = _at_least(WIDE_TILE_COUNTS, max(_cdiv(n_zt, _cdiv(n_zt, room)),
+                                             min(n_st, room) if y_pass else 1))
+        if nj > room:
+            nj = max(c for c in WIDE_TILE_COUNTS if c <= room)
+        mu_passes = _cdiv(n_zt, nj)
+        dk_pad = _at_least(WIDE_DPSI_K_COUNTS, max(n_kc, 1))
+        n_dgroups = _cdiv(n_zt, WIDE_DPSI_Z_COUNTS[-1])
+        dz_group = _at_least(WIDE_DPSI_Z_COUNTS, _cdiv(n_zt, n_dgroups))
 
-    def dpsi_smem(steps):  # the warps' psi fragments and float64 sums, two stage buffers
-        return 16 * 32 * (_DPSI_WIDE_WARPS * (dk_lr + 2 * dk_pad)
-                          + 2 * steps * (dk_lr + dk_pad + dz_group))
+        def dpsi_smem(steps):  # the warps' psi fragments and float64 sums, two stage buffers
+            return 16 * 32 * (_DPSI_WIDE_WARPS * 3 * dk_pad
+                              + 2 * steps * (2 * dk_pad + dz_group))
 
-    dsteps = 4 if dpsi_smem(4) <= _TWO_BLOCK_SMEM else 2
-    dtable = g_pad // 8 * (dk_lr + n_dgroups * dz_group + n_kgroups * dk_pad) * 32 * 4
-    plan = dict(zip(WIDE_PLAN_KEYS, (
-        n_kc, n_zt, n_yt, n_st, g_pad, zt_group, n_zgroups, ny_pad, rows, n_chunks, n_pad, nj,
-        mu_passes, y_pass, mu_passes + y_pass, table, part, dz, ps, a2, a1,
-        dk_pad, dz_group, n_dgroups, dsteps, dtable,
-        n_ygroups, a1_parts, a1part, n_kgroups, dk_lr, n_kw, n_wgroups)))
-    plan["dpsi_smem"] = dpsi_smem(dsteps)
+        dsteps = 4 if dpsi_smem(4) <= _TWO_BLOCK_SMEM else 2
+        gene = dict(rows=rows, n_chunks=n_chunks, n_pad=n_pad, nj=nj, mu_passes=mu_passes,
+                    y_pass=y_pass, n_passes=mu_passes + y_pass,
+                    part=_cdiv(n_chunks * F * G, 4) * 4, dz=n_pad * 16 * mu_passes * nj,
+                    ps=n_pad * 16 * n_kc, a2=n_pad * 16 * n_st, a1=n_pad, dk_pad=dk_pad,
+                    dz_group=dz_group, n_dgroups=n_dgroups, dsteps=dsteps,
+                    dtable=g_pad // 8 * (2 * dk_pad + n_dgroups * dz_group) * 32 * 4,
+                    split=0, ldw=0, dsplit=0, dgenes=0, gslices=0, gcells=0, ldz=0)
+    plan = dict(n_kc=n_kc, n_zt=n_zt, n_yt=n_yt, n_st=n_st, g_pad=g_pad, zt_group=zt_group,
+                n_zgroups=n_zgroups, ny_pad=ny_pad, table=table, n_ygroups=n_ygroups,
+                a1_parts=a1_parts, a1part=a1part, **gene)
+    plan = {k: plan[k] for k in WIDE_PLAN_KEYS}
+    plan["dpsi_smem"] = None if split else dpsi_smem(plan["dsteps"])
     plan["smem"] = _wide_smem(plan)
     worst = max(v for k, v in plan["smem"].items() if k != "fwd_steps")
     if worst > MAX_SMEM:
@@ -405,8 +495,18 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int, rows: Optional[int] =
             f"the wide CUDA kernels at Kf={Kf}, S={n_a2}, S*C={SC} need {worst} bytes of shared "
             f"memory a block, past the card's {MAX_SMEM} (227 KB): Kf = K + P is too wide")
     plan["fwd_workspace"] = table + a1part
-    plan["dpsi_workspace"] = dtable
-    plan["gene_workspace"] = part + dz + ps + a2 + a1 + F * G
+    if split:
+        block, dpart = plan["rows"] * plan["ldw"], plan["dsplit"] * plan["rows"] * Kf
+        gpart = _cdiv(plan["gslices"] * F * G, 4) * 4 if plan["gslices"] > 1 else 0
+        pad = (plan["rows"] + G) * plan["ldz"]
+        plan["dpsi_workspace"] = block + dpart + pad
+        plan["gene_workspace"] = 2 * block + dpart + gpart + pad + F * G
+        plan["bwd_workspace"] = plan["gene_workspace"]
+    else:
+        plan["dpsi_workspace"] = plan["dtable"]
+        plan["gene_workspace"] = (plan["part"] + plan["dz"] + plan["ps"] + plan["a2"]
+                                  + plan["a1"] + F * G)
+        plan["bwd_workspace"] = plan["gene_workspace"] + (plan["dpsi_workspace"] if Kf else 0)
     return plan
 
 
@@ -559,13 +659,6 @@ def _compute_dtype(psi_ext) -> torch.dtype:
     return psi_ext.dtype
 
 
-def gene_wide_workspace(N: int, G: int, Kf: int, n_a2: int, SC: int) -> int:
-    """Floats the wide gene part allocates in a call (:func:`wide_plan`'s
-    ``gene_workspace``): the (Kf + SC + n_a2, G) partial sums of each chunk
-    of :func:`_chunk_rows` cells, the packed cell side, and their sum."""
-    return wide_plan(N, G, Kf, n_a2, SC)["gene_workspace"]
-
-
 def gene_scratch(N: int, G: int, Kf: int, n_a2: int, SC: int) -> int:
     """Floats of scratch the narrow gene-major backward takes in a call (the
     .cu's gene_plan, which ``fl_backward_gene_scratch`` reports): the (Kf +
@@ -645,7 +738,9 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
 def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
     """Launch the Y-free dpsi kernel (the first part of
     :func:`kernel_backward`), or past a narrow limit the wide one with its
-    packing of the gene side (:func:`wide_plan`'s ``dpsi_workspace``), or
+    packing of the gene side (past the old bound the split one's
+    dlog_rfe_kernel without Y, dpsi_product_kernel and dpsi_sum_kernel by row
+    blocks; :func:`wide_plan`'s ``dpsi_workspace``), or
     for float64 operands ``dpsi_f64_pack_kernel`` and ``dpsi_f64_kernel``
     (:func:`f64_plan`'s ``dpsi_workspace``); ``YW`` is
     :func:`kernel_forward`'s. Returns dpsi (N, Kf). With Kf = 0 there is
@@ -696,7 +791,10 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     operands and its chunk reduction (the second part of
     :func:`kernel_backward`; :func:`reference_gene` is its plain version),
     or past a narrow limit the wide gene kernel with its chunk reduction
-    (whose plain version is :func:`reference_likelihood_vjp`'s), or for
+    (past the old bound the split one's dlog_rfe_kernel and
+    gene_product_kernel by row blocks, :func:`kernel_backward`'s call
+    without dpsi; the plain version of both is
+    :func:`reference_likelihood_vjp`'s), or for
     float64 operands ``gene_f64_pack_kernel``, ``gene_f64_kernel`` and
     ``reduce_chunks_f64_kernel`` (the same plain version; :func:`f64_plan`'s
     ``gene_workspace``).
@@ -730,21 +828,20 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
             y_codes[Y.dtype], stream), "fused likelihood backward (gene, float64)")
         gene_f64_launches += 1
         return dgene[:Kf].T, None if dA2 is None else dgene[Kf + SC:], dgene[Kf:Kf + SC].T
-    rows = _chunk_rows(N)
     wide = wide_route(Kf, n_a2, SC)
-    plan = wide_plan(N, G, Kf, n_a2, SC, rows=rows) if wide else None
+    plan = wide_plan(N, G, Kf, n_a2, SC) if wide else None
     size = (plan["gene_workspace"] - F * G if wide
-            else lib.fl_backward_gene_scratch(N, G, Kf, n_a2, SC, rows))
+            else lib.fl_backward_gene_scratch(N, G, Kf, n_a2, SC, _chunk_rows(N)))
     scratch = torch.empty(size, device=Y.device, dtype=torch.float32)
     dgene = torch.empty(F, G, device=Y.device, dtype=torch.float32)
     stream = ctypes.c_void_p(torch.cuda.current_stream(Y.device).cuda_stream)
-    args = (_ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2),
-            _ptr(dZ), _ptr(scratch), _ptr(dgene))
+    args = (_ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2), _ptr(dZ))
     if wide:
-        err = lib.fl_backward_gene_wide(*args, _plan_arg(plan), N, G, Kf, n_a2, SC,
-                                        Y_DTYPES[Y.dtype], stream)
+        err = lib.fl_backward_gene_wide(*args, None, _ptr(scratch), _ptr(dgene), _plan_arg(plan),
+                                        N, G, Kf, n_a2, SC, Y_DTYPES[Y.dtype], stream)
     else:
-        err = lib.fl_backward_gene(*args, N, G, Kf, n_a2, SC, rows, Y_DTYPES[Y.dtype], stream)
+        err = lib.fl_backward_gene(*args, _ptr(scratch), _ptr(dgene), N, G, Kf, n_a2, SC,
+                                   _chunk_rows(N), Y_DTYPES[Y.dtype], stream)
     _raise_on(err, f"fused likelihood backward (gene{', wide' if wide else ''})")
     if wide:
         gene_wide_launches += 1
@@ -758,9 +855,39 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
 
 def kernel_backward(Y, psi_ext, W_ext, muL, dA1, dA2, dZ, YW):
     """Launch the backward kernels, dpsi from the forward's ``YW = Y @ W_ext``
-    and then the gene-major part. Returns (dpsi, dW, dlog_mu or None, dmuL)."""
-    dpsi = kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW)
-    return (dpsi, *kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ))
+    and then the gene-major part; or, where the float32 plan's backward is
+    the split one (:func:`split_route`), both from one dlog_rfe a row block
+    (``fl_backward_gene_wide`` with dpsi: dpsi = dlog_rfe W_ext, YW unused;
+    its ``bwd_workspace``), counted in ``split_launches``. Returns (dpsi,
+    dW, dlog_mu or None, dmuL)."""
+    global split_launches
+    from . import _build
+
+    n_a2 = 0 if dA2 is None else dA2.shape[1]
+    (N, G), Kf, SC = Y.shape, psi_ext.shape[1], muL.shape[1]
+    if psi_ext.dtype != torch.float32 or not split_route(Kf, n_a2, SC):
+        dpsi = kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW)
+        return (dpsi, *kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ))
+    _check("Y", Y, Y.shape, tuple(Y_DTYPES))
+    _check_sizes(N, G, SC)
+    for name, t, shape in (("psi_ext", psi_ext, (N, Kf)), ("W_ext", W_ext, (G, Kf)),
+                           ("muL", muL, (G, SC)), ("dA1", dA1, (N,)), ("dZ", dZ, (N, SC)),
+                           ("YW", YW, (N, Kf)), ("dA2", dA2, (N, n_a2))):
+        if t is not None:
+            _check(name, t, shape, (torch.float32,))
+    lib = _build.load()
+    plan = wide_plan(N, G, Kf, n_a2, SC)
+    F = Kf + SC + n_a2
+    dpsi = torch.empty(N, Kf, device=Y.device, dtype=torch.float32)
+    scratch = torch.empty(plan["bwd_workspace"] - F * G, device=Y.device, dtype=torch.float32)
+    dgene = torch.empty(F, G, device=Y.device, dtype=torch.float32)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(Y.device).cuda_stream)
+    _raise_on(lib.fl_backward_gene_wide(
+        _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2), _ptr(dZ),
+        _ptr(dpsi), _ptr(scratch), _ptr(dgene), _plan_arg(plan), N, G, Kf, n_a2, SC,
+        Y_DTYPES[Y.dtype], stream), "fused likelihood backward (split)")
+    split_launches += 1
+    return dpsi, dgene[:Kf].T, None if dA2 is None else dgene[Kf + SC:], dgene[Kf:Kf + SC].T
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ SWEEP_BUDGET_BYTES = 40 * 10**9
 # parameter sets "map" holds for each restart (the card measured 2.8).
 _ELBO_SCN = 1
 _ELBO_CN = 9
-_OP_SCN = 2
+_OP_SCN = 3
 _MAP_HELD = 3
 
 
@@ -74,8 +74,10 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     gradients of gamma's logits); the fused op's YW and A1 (N (K + P) + N);
     and with covariates the concatenations [psi, X] and [W, beta] it saves
     ((N + G)(K + P)). Held once, since the op runs one lane at a time: that
-    lane's _OP_SCN (S, C, N) transients (log Z, the clone log-likelihoods,
-    the gradient of Z). "map" runs one live lane beside every restart's
+    lane's _OP_SCN (S, C, N) transients, live together at the ELBO
+    forward's peak (``elbo_cell_terms``: log Z, s log Z and the clone
+    log-likelihoods formed from it; in the backward the gradients of log Z
+    and of Z). "map" runs one live lane beside every restart's
     initial parameters and, once run, its result, _MAP_HELD n_par each.
 
     Held once on CUDA: with the exact backward, the gene part's scratch
@@ -84,8 +86,11 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     wide family runs (K + P, S or S C past the narrow kernels' limits;
     ``fused_likelihood.wide_plan``) the wide forward's packed gene table
     (every forward, z_cheb's too), and with the exact backward the wide
-    dpsi's packed gene table and the wide gene part's workspace in place of
-    the narrow one's. In float64 (``itemsize`` 8) the float64 family runs at
+    backward's workspace (``bwd_workspace``) in place of the narrow one's:
+    dpsi's packed gene table and the gene part's, or past the old bound the
+    split backward's row block of rfe and dlog_rfe, dpsi's gene ranges'
+    sums and the output (a fixed row block whatever N, and one call's, as
+    the op runs one lane at a time). In float64 (``itemsize`` 8) the float64 family runs at
     every width: its forward's packed gene table (``fwd_workspace``, every
     forward) and with the exact backward dpsi's packed gene table
     (``dpsi_workspace``) and its gene part's partial sums, packed cell
@@ -121,8 +126,7 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
         if fl.wide_route(Kf, S, S * C):
             workspace += 4 * fl.wide_plan(N, G, Kf, S, S * C)["fwd_workspace"]
         if not z_cheb and fl.wide_route(Kf, 0, S * C):
-            workspace += 4 * (fl.gene_wide_workspace(N, G, Kf, 0, S * C)
-                              + (fl.wide_plan(N, G, Kf, 0, S * C)["dpsi_workspace"] if Kf else 0))
+            workspace += 4 * fl.wide_plan(N, G, Kf, 0, S * C)["bwd_workspace"]
         elif not z_cheb:
             workspace += 4 * (fl.gene_scratch(N, G, Kf, 0, S * C) + (Kf + S * C) * G)
     return (y_itemsize * N * G + itemsize * (shared + temporaries + held + live * per_lane)

@@ -180,8 +180,10 @@ def test_run_clonealign_vmap_equals_map(batching):
 # iterations, "reuse", Y int8 ("auto") unless named: ten restarts (a) one
 # after another, (b) as lanes, also with float32 Y, (c) z_cheb as lanes, (d)
 # with two covariates as lanes; and the wide sweep, three lanes of K = 1,
-# P = 4, mc_samples = 8. One NVIDIA H100 80GB HBM3 at 700.00 W, chip_smoke.py
-# (PERF.md §5). Each entry: _sweep_bytes' keywords, the peak in bytes.
+# P = 4, mc_samples = 8; and the fit past the old bound (one fit, one lane:
+# K = 2, P = 70, mc_samples = 66), whose (S, C, N) tensors weigh most. One
+# NVIDIA H100 80GB HBM3 at 700.00 W, chip_smoke.py (PERF.md §5). Each entry:
+# _sweep_bytes' keywords (K = 1 unless named), the peak in bytes.
 SWEEP_PEAKS = {
     "(a) map": (dict(S=1, n_lanes=10, y_itemsize=1, batching="map"), 0.7310e9),
     "(b) vmap": (dict(S=1, n_lanes=10, y_itemsize=1), 1.2814e9),
@@ -189,6 +191,7 @@ SWEEP_PEAKS = {
     "(c) z_cheb vmap": (dict(S=1, n_lanes=10, y_itemsize=1, z_cheb=True), 2.0043e9),
     "(d) covariates vmap": (dict(S=1, n_lanes=10, y_itemsize=1, P=2), 1.3068e9),
     "wide vmap": (dict(S=8, n_lanes=3, y_itemsize=1, P=4), 1.0752e9),
+    "past the old bound, one fit": (dict(K=2, S=66, n_lanes=1, y_itemsize=1, P=70), 1.770e9),
 }
 
 
@@ -198,7 +201,8 @@ def test_sweep_bytes_hold_the_measured_peaks(name):
     and at most 1.3 times it, so that "auto" takes "vmap" wherever the
     lanes fit with that margin."""
     kw, peak = SWEEP_PEAKS[name]
-    got = trestarts._sweep_bytes(100_000, 5_000, 10, 1, itemsize=4, device_type="cuda", **kw)
+    got = trestarts._sweep_bytes(100_000, 5_000, 10, itemsize=4, device_type="cuda",
+                                 **{"K": 1, **kw})
     assert peak <= got <= 1.3 * peak, (got, peak)
 
 

@@ -12,14 +12,17 @@ mc_samples = 8 against the JAX package's from the same draws; the
 streaming fit against the in-core fit and "vmap" against "map" at a wide
 shape; the wide kernels' launch plan (``wide_plan``: every column in one
 group or pass, each pass's accumulator tiles apart, the plan and workspace
-the wrappers hand the library, every bound); an
-emulation of the kernels' 3xTF32 number scheme against float64; the sweep's
-reckoning of the wide workspace; and the refusal past the wide family's
-bound. On the card (``cuda`` marker, skipped without a GPU): the wide
-kernels against their plain versions at every Y storage (also at widths
-Kf, S and S*C set apart, as no fit sets them), their launches counted
-apart from the narrow kernels', the forward, dpsi and the gene part
-deterministic, and every plan's kernels at two blocks an SM:
+the wrappers hand the library, every bound; past the old bound of Kf 64,
+S 64 and S*C 2,048 the split backward's row blocks, gene ranges and cell
+slices, the route that takes exactly those widths, and the joint
+backward's one library call); an emulation of the kernels' 3xTF32 number
+scheme (the split backward's too) against float64; the sweep's reckoning
+of the wide workspace; and the refusal past the wide family's bound. On
+the card (``cuda`` marker, skipped without a GPU): the wide kernels
+against their plain versions at every Y storage (also at widths Kf, S and
+S*C set apart, as no fit sets them), their launches counted apart from
+the narrow kernels', the forward, dpsi and the gene part deterministic
+(the split backward too), and every plan's kernels at their blocks an SM:
 ``python -m pytest --noconftest -m cuda tests/test_torch_wide.py``.
 
 Tolerances: the fused op's values rtol 2e-5 / atol 1e-4 and VJP rtol 3e-5
@@ -331,7 +334,7 @@ def test_sweep_bytes_hold_the_wide_gene_workspace_once():
     N, G, C, K, P, S = 100_000, 5_000, 10, 1, 4, 8
     F = K + P + S * C
     want = 4 * (-(-N // 1024) * F * G + N * 2 * (8 * 10 + 8 * 1) + N + F * G)
-    assert 4 * tfl.gene_wide_workspace(N, G, K + P, 0, S * C) == want
+    assert 4 * tfl.wide_plan(N, G, K + P, 0, S * C)["gene_workspace"] == want
     table = 4 * -(-G // 32) * 32 // 8 * (2 * 1 + 10) * 32 * 4  # W^T, muL^T, W a k-step
     assert 4 * tfl.wide_plan(N, G, K + P, 0, S * C)["dpsi_workspace"] == table
     narrow = 4 * (tfl.gene_scratch(N, G, K + 2, 0, C) + (K + 2 + C) * G)
@@ -350,26 +353,24 @@ def test_sweep_bytes_hold_the_wide_gene_workspace_once():
 
 def test_sweep_bytes_hold_the_grouped_workspace_past_the_old_bound():
     """Past the old bound (K 2, P 70: Kf 72; mc_samples 66: S*C 660) an
-    exact sweep on the card holds one call's grouped workspace beside the
-    lanes: the wide gene part's (the (Kf + S C, G) partial sums of each
-    1,024-cell chunk, dZ's (hi, lo) pairs at every pass's tiles, psi's at
-    Kf's nine tiles, dA1, and the sums), dpsi's packed gene table (log_rfe's
-    nine W^T tiles, every dZ group's muL^T tiles, both output groups' W
-    tiles a k-step) and the forward's table with A1's partial sums; in
-    float64 the float64 family's, its dW groups' packed psi included. "auto"
-    still runs these lanes together at three restarts."""
+    exact sweep on the card holds one call's split workspace beside the
+    lanes, once whatever their number: the backward's row block of rfe and
+    dlog_rfe (1,664 cells x 5,000 genes each, 61 blocks), dpsi's 6 gene
+    ranges' sums (1,664 x Kf each) and the (Kf + S C, G) sums (kernel_gene
+    alone the same workspace, one layout for both calls; kernel_dpsi alone
+    one row block and the ranges' sums), and the forward's table with A1's
+    partial sums;
+    in float64 the float64 family's, its dW groups' packed psi included.
+    "auto" still runs these lanes together at three restarts."""
     N, G, C, K, P, S = 100_000, 5_000, 10, 2, 70, 66
     Kf, SC = K + P, S * C
     p = tfl.wide_plan(N, G, Kf, 0, SC)
     F = Kf + SC
-    n_pad = -(-N // 16) * 16
-    gene = (-(-N // 1024) * F * G + n_pad * 2 * 8 * (p["mu_passes"] * p["nj"] + 9) + n_pad
-            + F * G)
-    assert (p["n_kc"], p["n_wgroups"], p["n_kgroups"], p["dk_lr"]) == (9, 2, 2, 9)
-    assert tfl.gene_wide_workspace(N, G, Kf, 0, SC) == gene
-    g_pad = -(-G // 32) * 32
-    dtable = g_pad // 8 * (9 + p["n_dgroups"] * p["dz_group"] + 2 * 8) * 32 * 4
+    assert (p["split"], p["rows"], p["n_chunks"], p["ldw"], p["dsplit"]) == (1, 1664, 61, G, 6)
+    dtable = 1664 * G + 6 * 1664 * Kf
     assert p["dpsi_workspace"] == dtable
+    bwd = 2 * 1664 * G + 6 * 1664 * Kf + F * G
+    assert p["bwd_workspace"] == p["gene_workspace"] == bwd
     pf = tfl.wide_plan(N, G, Kf, S, SC)
     assert pf["a1_parts"] > 0 and pf["fwd_workspace"] == pf["table"] + pf["a1part"] >= (
         pf["table"] + pf["a1_parts"] * N)
@@ -380,7 +381,7 @@ def test_sweep_bytes_hold_the_grouped_workspace_past_the_old_bound():
                                       z_cheb=z_cheb)
 
     for n_lanes in (1, 3):
-        assert sweep(n_lanes) - sweep(n_lanes, z_cheb=True) == 4 * (gene + dtable) - block
+        assert sweep(n_lanes) - sweep(n_lanes, z_cheb=True) == 4 * bwd - block
         p64 = tfl.f64_plan(N, G, Kf, 0, SC)
         assert p64["g_wgroups"] == p64["d_kgroups"] == 2
         assert (sweep(n_lanes, itemsize=8) - sweep(n_lanes, True, itemsize=8)
@@ -420,16 +421,16 @@ PAST_PLAN_SHAPES = ([(N, G, K, S, S * C) for N, G, C, K, S in PAST_BOUND_SHAPES]
 
 def _pass_tiles(p, q):
     """gene_wide_kernel's accumulator tiles in pass q of plan p, by product:
-    d(muL) the first nj (none in dlog mu's passes of its own), dW the group's
-    n_kw after them, dlog mu (the first pass) n_st after dW's or, in each of
-    its own passes, d(muL)'s first, at most nj."""
+    d(muL) the first nj (none in dlog mu's pass of its own), dW's n_kc after
+    them, dlog mu (the first pass) n_st after dW's or, in its own pass,
+    d(muL)'s first."""
     with_mu = q >= p["y_pass"]
     tiles = {"dmuL": range(p["nj"]) if with_mu else range(0),
-             "dW": range(p["nj"], p["nj"] + p["n_kw"])}
-    if p["y_pass"] and q < p["y_pass"]:
-        tiles["dlog_mu"] = range(min(p["nj"], p["n_st"] - q * p["nj"]))
+             "dW": range(p["nj"], p["nj"] + p["n_kc"])}
+    if p["y_pass"] and q == 0:
+        tiles["dlog_mu"] = range(p["n_st"])
     elif not p["y_pass"] and q == 0:
-        t_mu = p["nj"] + p["n_kw"]
+        t_mu = p["nj"] + p["n_kc"]
         tiles["dlog_mu"] = range(t_mu, t_mu + p["n_st"])
     return tiles
 
@@ -438,18 +439,20 @@ def _pass_tiles(p, q):
 def test_wide_plan_covers_every_column_once(shape):
     """The forward's column groups hold each of Z's tiles once, and the Y
     products' groups each Y tile once (A1 written by one warp where it holds
-    every column of Y W, else from partial sums); the gene part's passes
-    hold each of dZ's tiles once, and dlog mu's tiles once in the first pass
-    or its own; dW's groups each of [psi, X]'s tiles once; each group or
-    pass is padded to a built tile count, and holds no more accumulator
-    tiles than WIDE_TILES, where no two products share a tile; S*C <= 128
-    is one column group; dpsi's output groups hold each tile of [psi, X]
-    once, each forming log_rfe over every tile."""
+    every column of Y W, else from partial sums); S*C <= 128 is one column
+    group. Up to the old bound the gene part's passes hold each of dZ's
+    tiles once, dlog mu's tiles once in the first pass or its own, and dW's
+    every tile of [psi, X]; each pass is padded to a built tile count and
+    holds no more accumulator tiles than WIDE_TILES, where no two products
+    share a tile; dpsi holds every tile of [psi, X] and its dZ groups each
+    dZ tile once. Past it the split backward's row blocks hold each cell
+    once, in whole tiles of 64 as even as they go, and dpsi's ranges each
+    gene once, in whole stages of 32."""
     N, G, Kf, n_a2, SC = shape
     p = tfl.wide_plan(N, G, Kf, n_a2, SC)
     n_zt, n_yt, n_kc, n_st = -(-SC // 8), -(-(Kf + n_a2) // 8), -(-Kf // 8), -(-n_a2 // 8)
     assert (p["n_zt"], p["n_yt"], p["n_kc"], p["n_st"]) == (n_zt, n_yt, n_kc, n_st)
-    assert p["zt_group"] in tfl.WIDE_TILE_COUNTS and p["nj"] in tfl.WIDE_TILE_COUNTS
+    assert p["zt_group"] in tfl.WIDE_TILE_COUNTS
     assert p["ny_pad"] in tfl.WIDE_Y_TILE_COUNTS
     y_tiles = []
     for g in range(p["n_ygroups"]):
@@ -461,12 +464,6 @@ def test_wide_plan_covers_every_column_once(shape):
     one_warp = p["n_ygroups"] == 1 and Kf <= 8 * per_warp
     assert p["a1_parts"] == (0 if one_warp else p["n_ygroups"] * p["ny_pad"] // per_warp)
     assert p["a1part"] >= p["a1_parts"] * N and p["fwd_workspace"] == p["table"] + p["a1part"]
-    w_tiles = []
-    for g in range(p["n_wgroups"]):
-        w = list(range(g * p["n_kw"], min(n_kc, (g + 1) * p["n_kw"])))
-        assert w or n_kc == 0
-        w_tiles += w
-    assert w_tiles == list(range(n_kc)) and p["n_kw"] <= 8
     z_tiles = []
     for g in range(p["n_zgroups"]):
         z = list(range(g * p["zt_group"], min(n_zt, (g + 1) * p["zt_group"])))
@@ -474,6 +471,23 @@ def test_wide_plan_covers_every_column_once(shape):
         z_tiles += z
     assert z_tiles == list(range(n_zt))
     assert (p["n_zgroups"] == 1) == (SC <= 8 * tfl.WIDE_TILES)
+    if p["split"]:
+        rows, blocks = p["rows"], p["n_chunks"]
+        cells = [n for b in range(blocks) for n in range(b * rows, min(N, (b + 1) * rows))]
+        assert cells == list(range(N)) and rows % 64 == 0 and rows - -(-N // blocks) < 64
+        assert p["ldw"] >= G and p["ldw"] % 4 == 0 and p["dgenes"] % 32 == 0
+        genes = [g for z in range(p["dsplit"])
+                 for g in range(z * p["dgenes"], min(G, (z + 1) * p["dgenes"]))]
+        assert genes == list(range(G))
+        if p["gslices"] > 1:  # one row block's cells in slices of whole stages
+            assert blocks == 1 and p["gcells"] % 32 == 0
+            assert [n for z in range(p["gslices"])
+                    for n in range(z * p["gcells"], min(N, (z + 1) * p["gcells"]))] == cells
+        else:
+            assert p["gcells"] == rows
+        assert not any(p[k] for k in ("nj", "mu_passes", "n_passes", "dk_pad", "dtable", "part"))
+        return
+    assert n_kc <= 8 and n_st <= 8 and p["nj"] in tfl.WIDE_TILE_COUNTS
     j_tiles, s_tiles = [], []
     assert p["n_passes"] == p["mu_passes"] + p["y_pass"]
     for q in range(p["n_passes"]):
@@ -481,21 +495,14 @@ def test_wide_plan_covers_every_column_once(shape):
         begin = (q - p["y_pass"]) * p["nj"]
         j_tiles += list(range(begin, min(n_zt, begin + p["nj"]))) if with_mu else []
         tiles = _pass_tiles(p, q)
-        s0 = q * p["nj"] if p["y_pass"] else 0
-        s_tiles += [s0 + t - tiles["dlog_mu"][0] for t in tiles.get("dlog_mu", ())]
+        s_tiles += [t - tiles["dlog_mu"][0] for t in tiles.get("dlog_mu", ())]
         held = [t for r in tiles.values() for t in r]
         assert len(set(held)) == len(held) and all(0 <= t < tfl.WIDE_TILES for t in held)
     assert j_tiles == list(range(n_zt)) and s_tiles == list(range(n_st))
-    # dpsi: [psi, X]'s tiles padded to a built count, or past 8 tiles in
-    # groups of 8 each forming log_rfe over them all; dZ's column groups,
+    # dpsi: [psi, X]'s tiles padded to a built count; dZ's column groups,
     # run one after another, hold each tile once; S*C <= 80 is one group,
     # and so one exp per (cell, gene)
-    assert p["dk_pad"] in tfl.WIDE_DPSI_K_COUNTS
-    if n_kc <= 8:
-        assert p["n_kgroups"] == 1 and p["dk_lr"] == p["dk_pad"] >= n_kc
-    else:
-        assert p["dk_pad"] == 8 and p["dk_lr"] == n_kc
-        assert p["n_kgroups"] == -(-n_kc // 8) and 8 * (p["n_kgroups"] - 1) < n_kc
+    assert p["dk_pad"] in tfl.WIDE_DPSI_K_COUNTS and p["dk_pad"] >= n_kc
     assert p["dz_group"] in tfl.WIDE_DPSI_Z_COUNTS
     d_tiles = []
     for g in range(p["n_dgroups"]):
@@ -520,18 +527,10 @@ class _FakeLib:
         return call
 
 
-@pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8), (40, 70, 3, 64, 64),
-                                   (40, 70, 10, 72, 66)])
-def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
-    """kernel_gene's allocations (the scratch and the (Kf + SC + n_a2, G)
-    output) add up to wide_plan's gene_workspace, kernel_forward's scratch is
-    its fwd_workspace (the packed table), kernel_dpsi's its dpsi_workspace
-    (the plan of n_a2 = 0), and each entry point gets the plan's numbers in
-    WIDE_PLAN_KEYS' order. The wrappers run on CPU tensors with the CUDA
-    library's entry points recorded, not called."""
-    N, G, C, K, S = shape
-    Y, psi, W, log_mu, muL = _torch(_inputs(N, G, C, K, S, seed=1))
-    dA1, dA2, dZ = _torch(_cotangents(N, S, S * C, seed=1))
+def _recorded_wrappers(monkeypatch):
+    """The CUDA library's entry points recorded, not called (a _FakeLib),
+    and the numel of each torch.empty the wrappers make, for running the
+    wrappers on CPU tensors."""
     lib = _FakeLib()
     from clonealign_torch.ops import _build
     monkeypatch.setattr(_build, "load", lambda: lib)
@@ -546,14 +545,32 @@ def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
         return out
 
     monkeypatch.setattr(torch, "empty", recording_empty)
+    return lib, sizes
+
+
+@pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8), (40, 70, 3, 64, 64),
+                                   (40, 70, 10, 72, 66)])
+def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
+    """kernel_gene's allocations (the scratch and the (Kf + SC + n_a2, G)
+    output) add up to wide_plan's gene_workspace, kernel_forward's scratch is
+    its fwd_workspace (the packed table), kernel_dpsi's its dpsi_workspace
+    (the plan of n_a2 = 0: the packed table, or past the old bound the split
+    one's row block and gene ranges' sums), and each entry point gets the
+    plan's numbers in WIDE_PLAN_KEYS' order. The wrappers run on CPU
+    tensors with the CUDA library's entry points recorded, not called."""
+    N, G, C, K, S = shape
+    Y, psi, W, log_mu, muL = _torch(_inputs(N, G, C, K, S, seed=1))
+    dA1, dA2, dZ = _torch(_cotangents(N, S, S * C, seed=1))
+    lib, sizes = _recorded_wrappers(monkeypatch)
     for with_a2 in (True, False):
         n_a2 = S if with_a2 else 0
         p = tfl.wide_plan(N, G, K, n_a2, S * C)
         sizes.clear()
         tfl.kernel_gene(Y, psi, W, muL, dA1, dA2 if with_a2 else None, dZ)
-        assert sum(sizes) == p["gene_workspace"] == tfl.gene_wide_workspace(N, G, K, n_a2, S * C)
+        assert sum(sizes) == p["gene_workspace"]
         want = [p[k] for k in tfl.WIDE_PLAN_KEYS]
-        assert list(lib.calls["fl_backward_gene_wide"][9]) == want
+        assert list(lib.calls["fl_backward_gene_wide"][10]) == want
+        assert lib.calls["fl_backward_gene_wide"][7] is None  # no dpsi
         sizes.clear()
         tfl.kernel_forward(Y, psi, W, log_mu if with_a2 else None, muL)
         assert sizes[-1] == p["fwd_workspace"] == p["table"] + p["a1part"]
@@ -561,8 +578,111 @@ def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
     p = tfl.wide_plan(N, G, K, 0, S * C)
     sizes.clear()
     tfl.kernel_dpsi(psi, W, muL, dA1, dZ, Y @ W)
-    assert sizes == [N * K, p["dpsi_workspace"]] and p["dpsi_workspace"] == p["dtable"]
+    assert sizes == [N * K, p["dpsi_workspace"]] and p["dpsi_workspace"] == (
+        p["rows"] * p["ldw"] + p["dsplit"] * p["rows"] * K if p["split"] else p["dtable"])
     assert list(lib.calls["fl_backward_dpsi_wide"][8]) == [p[k] for k in tfl.WIDE_PLAN_KEYS]
+
+
+@pytest.mark.parametrize("shape", PAST_BOUND_SHAPES + [(2000, 333, 7, 3, 300), (37, 41, 3, 70, 2)])
+def test_split_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
+    """Past the old bound kernel_gene allocates the split backward's
+    workspace, one row block of rfe and one of dlog_rfe (rows x ldw floats
+    each), dpsi's dsplit x rows x Kf gene ranges' sums (the layout
+    kernel_backward's call with dpsi fills; one layout for both calls; and
+    where one row block's cells go in slices, the slices' partial
+    sums; and where S*C is no multiple of 4, dZ's row block and muL at a
+    row pitch of whole float4s), and its (Kf + SC + n_a2, G) output, which the products write in
+    place of chunk partial sums: wide_plan's gene_workspace, with A2 and
+    without; kernel_dpsi one row block of t = rfe drfe and dsplit x rows x
+    Kf gene ranges' sums, its dpsi_workspace. Each entry point gets the
+    plan's numbers, its split key 1 (a call within the bound, as S 66's
+    without A2, gets today's workspace). The wrappers run on CPU tensors
+    with the CUDA library's entry points recorded, not called."""
+    N, G, C, K, S = shape
+    Y, psi, W, _log_mu, muL = _torch(_inputs(N, G, C, K, S, seed=2))
+    dA1, dA2, dZ = _torch(_cotangents(N, S, S * C, seed=2))
+    lib, sizes = _recorded_wrappers(monkeypatch)
+    for da2, n_a2 in ((dA2, S), (None, 0)):
+        p = tfl.wide_plan(N, G, K, n_a2, S * C)
+        assert p["split"] == tfl.split_route(K, n_a2, S * C)
+        sizes.clear()
+        tfl.kernel_gene(Y, psi, W, muL, dA1, da2, dZ)
+        F = K + S * C + n_a2
+        if p["split"]:
+            gpart = -(-p["gslices"] * F * G // 4) * 4 if p["gslices"] > 1 else 0
+            pad = (p["rows"] + G) * p["ldz"]
+            assert p["ldz"] == (-(-S * C // 4) * 4 if S * C % 4 else 0)
+            assert sizes == [2 * p["rows"] * p["ldw"] + p["dsplit"] * p["rows"] * K + gpart + pad,
+                             F * G]
+        assert sum(sizes) == p["gene_workspace"]
+        assert list(lib.calls["fl_backward_gene_wide"][10]) == [p[k] for k in tfl.WIDE_PLAN_KEYS]
+    p = tfl.wide_plan(N, G, K, 0, S * C)
+    sizes.clear()
+    tfl.kernel_dpsi(psi, W, muL, dA1, dZ, Y @ W)
+    assert sizes == [N * K, p["dpsi_workspace"]] and p["dpsi_workspace"] == (
+        p["rows"] * p["ldw"] + p["dsplit"] * p["rows"] * K + (p["rows"] + G) * p["ldz"]
+        if p["split"] else p["dtable"])
+    assert list(lib.calls["fl_backward_dpsi_wide"][8]) == [p[k] for k in tfl.WIDE_PLAN_KEYS]
+
+
+@pytest.mark.parametrize("shape", PAST_BOUND_SHAPES + [(37, 41, 3, 70, 2)])
+def test_split_backward_takes_both_parts_in_one_call(monkeypatch, shape):
+    """kernel_backward (the autograd function's backward) past the old bound
+    makes one library call for dpsi and the gene part, the gene part's
+    entry point fl_backward_gene_wide with dpsi, with the gene part's plan:
+    dpsi (N, Kf), its bwd_workspace (the gene part's: one row block of rfe
+    and dlog_rfe, dpsi's gene ranges' sums) less the output, and the (Kf +
+    SC + n_a2, G) output; counted in split_launches alone. Within the bound
+    (S 66 without A2) it calls kernel_dpsi and kernel_gene, as before, each
+    counted in its own counter."""
+    N, G, C, K, S = shape
+    Y, psi, W, _log_mu, muL = _torch(_inputs(N, G, C, K, S, seed=3))
+    dA1, dA2, dZ = _torch(_cotangents(N, S, S * C, seed=3))
+    lib, sizes = _recorded_wrappers(monkeypatch)
+    for da2, n_a2 in ((dA2, S), (None, 0)):
+        p = tfl.wide_plan(N, G, K, n_a2, S * C)
+        lib.calls.clear()
+        sizes.clear()
+        before = _launches()
+        tfl.kernel_backward(Y, psi, W, muL, dA1, da2, dZ, Y @ W)
+        after = _launches()
+        moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if not p["split"]:
+            assert moved == {"dpsi_wide": 1, "gene_wide": 1}
+            assert set(lib.calls) == {"fl_backward_dpsi_wide", "fl_backward_gene_wide"}
+            continue
+        assert moved == {"split": 1}
+        F = K + S * C + n_a2
+        assert list(lib.calls) == ["fl_backward_gene_wide"]
+        assert sizes == [N * K, p["bwd_workspace"] - F * G, F * G]
+        gpart = -(-p["gslices"] * F * G // 4) * 4 if p["gslices"] > 1 else 0
+        assert p["bwd_workspace"] == p["gene_workspace"] == (
+            2 * p["rows"] * p["ldw"] + p["dsplit"] * p["rows"] * K + gpart
+            + (p["rows"] + G) * p["ldz"] + F * G)
+        call = lib.calls["fl_backward_gene_wide"]
+        assert call[7] is not None  # dpsi
+        assert list(call[10]) == [p[k] for k in tfl.WIDE_PLAN_KEYS]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES + PAST_PLAN_SHAPES)
+def test_split_route_takes_exactly_the_widths_past_the_old_bound(shape):
+    """wide_plan's one rule: a call past Kf 64, n_a2 64 or S*C 2,048 (the
+    old bound) gets the split backward (its rows, ldw and gene ranges, the
+    ungrouped kernels' keys 0), and every call within it today's
+    ungrouped dpsi_wide_kernel and gene_wide_kernel (their passes and
+    tiles, the split keys 0); dpsi's plan (n_a2 0) by its own widths."""
+    N, G, Kf, n_a2, SC = shape
+    past = Kf > 64 or n_a2 > 64 or SC > 2048
+    for a2 in (n_a2, 0):
+        p = tfl.wide_plan(N, G, Kf, a2, SC)
+        assert tfl.split_route(Kf, a2, SC) == bool(p["split"]) == (Kf > 64 or a2 > 64 or SC > 2048)
+        if p["split"]:
+            assert min(p["rows"], p["ldw"], p["dsplit"], p["dgenes"]) > 0
+            assert p["nj"] == p["dk_pad"] == p["dtable"] == 0
+        else:
+            assert p["ldw"] == p["dsplit"] == p["dgenes"] == 0
+            assert p["nj"] in tfl.WIDE_TILE_COUNTS and p["dk_pad"] in tfl.WIDE_DPSI_K_COUNTS
+    assert not past or shape in PAST_PLAN_SHAPES
 
 
 def test_wide_plan_holds_at_every_bound():
@@ -570,10 +690,20 @@ def test_wide_plan_holds_at_every_bound():
     cells: grid.y within 65,535 (chunks and column groups), chunks whole
     16-cell stages, accumulator tiles within WIDE_TILES, dpsi's tiles built
     counts that cover every column with its shared memory within two blocks
-    an SM, and every workspace region 16-byte aligned. (The kernels' shared
+    an SM, and every workspace region 16-byte aligned. Past it, at the same
+    N: the split backward's row blocks hold every cell, each within grid.y's
+    65,535 tiles and its workspace within 2^23 floats past one tile of
+    cells, and the forward's groups within 65,535. (The kernels' shared
     memory, laid out on the card from the plan, is held to two blocks an SM
     there: test_cuda_wide_plans_run_two_blocks_an_sm.)"""
     for N in (1, 1024, 65_535 * 1024 + 1, 2**31 - 1):
+        for Kf, n_a2, SC in ((72, 66, 2178), (72, 0, 660), (1, 0, 2049), (0, 65, 1)):
+            p = tfl.wide_plan(N, 5_000, Kf, n_a2, SC)  # past it: the split backward
+            assert p["split"] and p["n_zgroups"] <= 65_535 and p["n_ygroups"] <= 65_535
+            assert p["n_chunks"] * p["rows"] >= N > (p["n_chunks"] - 1) * p["rows"]
+            assert -(-p["rows"] // 64) <= 65_535 and p["dsplit"] <= 65_535
+            assert p["rows"] * p["ldw"] <= max(64 * p["ldw"], 1 << 23)
+            assert all(p[k] % 4 == 0 for k in ("table", "a1part", "ldw"))
         for Kf, n_a2, SC in ((64, 64, 2048), (64, 0, 2048), (0, 0, 2048), (64, 64, 1), (1, 0, 33)):
             p = tfl.wide_plan(N, 5_000, Kf, n_a2, SC)
             assert p["n_chunks"] <= 65_535 and p["n_zgroups"] <= 65_535
@@ -650,8 +780,43 @@ def _dpsi_scheme(psi, W, muL, dA1, dZ, YW, plan):
     return (dA1[:, None].astype(np.float64) * YW.astype(np.float64) + acc).astype(f32)
 
 
+def _sliced(blocks):
+    """The split backward's sum of fresh blocks of 16 along K: two warp
+    groups take alternate blocks (the halves of each 32-wide stage), each a
+    float32 running sum, the second group's added to the first's."""
+    return (_running(blocks[0::2]) + _running(blocks[1::2])).astype(np.float32)
+
+
+def _split_scheme(Y, psi, W, muL, dA1, dZ, YW, plan):
+    """The split backward's arithmetic (dlog_rfe_kernel and the tiled
+    products): every product fresh every 16 of its K (a pair of k-steps),
+    summed as :func:`_sliced`; log_rfe = psi W^T, one exp an element, drfe = dZ
+    muL^T, t = rfe drfe and dlog_rfe = Y dA1 + t in float32 (one rounding,
+    fmaf); over each row block of ``rows`` cells (or slice of ``gcells``)
+    dW = dlog_rfe^T psi and d(muL) = rfe^T dZ, the blocks added in float32
+    in order; dpsi = t W over
+    each range of ``dgenes`` genes, the ranges summed in float64 and dA1 YW
+    added last in float64. Returns (dpsi, dW, d(muL))."""
+    f32, f64 = np.float32, np.float64
+    rfe = np.exp(_sliced(_mma3(psi, W.T, 16))).astype(f32)
+    t = (rfe * _sliced(_mma3(dZ, muL.T, 16))).astype(f32)
+    dlog = (Y.astype(f64) * dA1[:, None] + t).astype(f32)
+    rows = plan["gcells"]  # a row block's cells, or its slices' where one block is sliced
+    blocks = range(0, len(Y), rows)
+    dW = _running(np.stack([_sliced(_mma3(dlog[i:i + rows].T, psi[i:i + rows], 16))
+                            for i in blocks]))
+    dmuL = _running(np.stack([_sliced(_mma3(rfe[i:i + rows].T, dZ[i:i + rows], 16))
+                              for i in blocks]))
+    ranges = range(0, W.shape[0], plan["dgenes"])
+    g = plan["dgenes"]
+    acc = sum(_sliced(_mma3(t[:, i:i + g], W[i:i + g], 16)).astype(f64) for i in ranges)
+    dpsi = (dA1[:, None].astype(f64) * YW.astype(f64) + acc).astype(f32)
+    return dpsi, dW, dmuL
+
+
 @pytest.mark.parametrize("shape", SHAPES + [(2100, 130, 9, 1, 4), (60, 90, 12, 6, 8),
-                                            (50, 80, 10, 64, 2), (40, 60, 10, 72, 66)])
+                                            (50, 80, 10, 64, 2), (40, 60, 10, 72, 66),
+                                            (300, 300, 66, 1, 33)])
 def test_3xtf32_scheme_meets_the_tolerances(shape):
     """The wide kernels' arithmetic, emulated on the CPU: log_rfe = psi W^T
     and Z = rfe muL (fresh accumulators every 16 genes, float32 running sum)
@@ -663,7 +828,9 @@ def test_3xtf32_scheme_meets_the_tolerances(shape):
     fresh every 8 genes, float32 running sum), each within BWD_ABS_RTOL of
     each element's absolute-term sum. Every product is 3xTF32 with
     cvt.rna's rounding. The shapes past SHAPES take several 1,024-cell
-    chunks, two dZ column groups (S*C = 96) and Kf = 64."""
+    chunks, two dZ column groups (S*C = 96) and Kf = 64. Past the old bound
+    (Kf 72; S*C 2,178) the split backward's scheme instead
+    (:func:`_split_scheme`)."""
     N, G, C, K, S = shape
     Y, psi, W, _log_mu, muL = _inputs(N, G, C, K, S, seed=N)
     dA1, _dA2, dZ = _cotangents(N, S, S * C, seed=N)
@@ -676,16 +843,20 @@ def test_3xtf32_scheme_meets_the_tolerances(shape):
     want_Z = (torch.exp(psi64 @ W64.T) @ muL64).numpy()
     np.testing.assert_allclose(Z, want_Z, **VALUE_TOL)
 
-    drfe = _running(_mma3(dZ, muL.T, 8))
-    dlog = (rfe * drfe + Y * dA1[:, None]).astype(f32)
-    rows = tfl._chunk_rows(N)
-    chunks = range(0, N, rows)
-    dmuL = _running(np.stack([_running(_mma3(rfe[i:i + rows].T, dZ[i:i + rows], 8))
-                              for i in chunks]))
-    dW = _running(np.stack([_running(_mma3(dlog[i:i + rows].T, psi[i:i + rows], 8))
-                            for i in chunks]))
     YW = _running(_mma3(Y, W, 8))
-    dpsi = _dpsi_scheme(psi, W, muL, dA1, dZ, YW, tfl.wide_plan(N, G, K, 0, S * C))
+    plan = tfl.wide_plan(N, G, K, 0, S * C)
+    if plan["split"]:
+        dpsi, dW, dmuL = _split_scheme(Y, psi, W, muL, dA1, dZ, YW, plan)
+    else:
+        drfe = _running(_mma3(dZ, muL.T, 8))
+        dlog = (rfe * drfe + Y * dA1[:, None]).astype(f32)
+        rows = tfl._chunk_rows(N)
+        chunks = range(0, N, rows)
+        dmuL = _running(np.stack([_running(_mma3(rfe[i:i + rows].T, dZ[i:i + rows], 8))
+                                  for i in chunks]))
+        dW = _running(np.stack([_running(_mma3(dlog[i:i + rows].T, psi[i:i + rows], 8))
+                                for i in chunks]))
+        dpsi = _dpsi_scheme(psi, W, muL, dA1, dZ, YW, plan)
     want_dpsi, want_dW, _dlog_mu, want_dmuL = tfl.reference_likelihood_vjp(
         Y64, psi64, W64, muL64, dA164, None, dZ64)
     scale_dpsi, scale_dW, _s, scale_dmuL = _abs_term_sums(Y64, psi64, W64, muL64, dA164, None,
@@ -712,7 +883,7 @@ def _abs_term_sums(Y, psi, W, muL, dA1, dA2, dZ):
 def _launches():
     return {"fwd": tfl.fwd_launches, "dpsi": tfl.dpsi_launches, "gene": tfl.gene_launches,
             "fwd_wide": tfl.fwd_wide_launches, "dpsi_wide": tfl.dpsi_wide_launches,
-            "gene_wide": tfl.gene_wide_launches}
+            "gene_wide": tfl.gene_wide_launches, "split": tfl.split_launches}
 
 
 @pytest.mark.cuda
@@ -725,7 +896,8 @@ def test_cuda_wide_kernels_match_plain(shape, storage):
     plain version (VALUE_TOL), the backward against the float64 plain
     version of the same inputs (BWD_ABS_RTOL of each element's absolute-term
     sum). A narrow Y gives the float32 Y's results bit for bit. Each call is
-    counted by the family :func:`wide_route` picks."""
+    counted by the family :func:`wide_route` picks; kernel_backward past
+    the old bound (:func:`split_route`) in split_launches alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     N, G, C, K, S = shape
@@ -741,8 +913,12 @@ def test_cuda_wide_kernels_match_plain(shape, storage):
         gene = "gene_wide" if tfl.wide_route(K, n_a2, S * C) else "gene"
         dpsi = "dpsi_wide" if tfl.wide_route(K, 0, S * C) else "dpsi"
         want_launches[fwd] += 2
-        want_launches[gene] += 3
-        want_launches[dpsi] += 1 if K else 0
+        if tfl.split_route(K, n_a2, S * C):  # kernel_backward's one call
+            want_launches[gene] += 2
+            want_launches["split"] += 1
+        else:
+            want_launches[gene] += 3
+            want_launches[dpsi] += 1 if K else 0
         *got, YW = tfl.kernel_forward(Y, psi, W, lm, muL)
         for g, f in zip((*got, YW), tfl.kernel_forward(Yf, psi, W, lm, muL)):
             assert (g is None and f is None) or torch.equal(g, f)
@@ -876,7 +1052,7 @@ def test_cuda_wide_plans_run_two_blocks_an_sm(shape):
     N, G, Kf, n_a2, SC = shape
     plan = tfl._plan_arg(tfl.wide_plan(N, G, Kf, n_a2, SC))
     for code in range(4):
-        out = (ctypes.c_int * 10)()
+        out = (ctypes.c_int * 16)()
         assert lib.fl_wide_resources(plan, N, G, Kf, n_a2, SC, code, out) == 0
         assert min(out[1], out[3], out[5], out[7]) >= 2, list(out)
         p = tfl.wide_plan(N, G, Kf, n_a2, SC)
@@ -888,8 +1064,11 @@ def test_cuda_wide_plans_run_two_blocks_an_sm(shape):
 def test_cuda_past_bound_plans_launch_with_the_plans_shared_memory(shape):
     """Past the old bound the library takes each plan wide_plan makes, lays
     out each kernel's shared memory as wide_plan reckons it (``smem``, at
-    float32 Y; the forward's k-steps a stage too), and every kernel holds
-    at least one block an SM."""
+    float32 Y; the forward's k-steps a stage too): the forward's, and where
+    the backward is the split one dlog_rfe_kernel's (with Y and without),
+    dpsi_product_kernel's and gene_product_kernel's (the workspace's, and Y's
+    for dlog mu); the forward holds at least one block an SM, and each of
+    the split backward's kernels two of 8 warps."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     import ctypes
@@ -898,12 +1077,73 @@ def test_cuda_past_bound_plans_launch_with_the_plans_shared_memory(shape):
     lib = _build.load()
     N, G, Kf, n_a2, SC = shape
     p = tfl.wide_plan(N, G, Kf, n_a2, SC)
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 16)()
     assert lib.fl_wide_resources(tfl._plan_arg(p), N, G, Kf, n_a2, SC, 0, out) == 0
     sm = p["smem"]
-    assert [out[0], out[2], out[4], out[6], out[8], out[9]] == [
-        sm["fwd"], sm["fwd_y"], sm["gene"], sm["dpsi"], sm["fwd_steps"], p["dsteps"]], list(out)
-    assert min(out[1], out[3], out[5], out[7]) >= 1, list(out)
+    assert [out[0], out[2], out[8]] == [sm["fwd"], sm["fwd_y"], sm["fwd_steps"]], list(out)
+    assert min(out[1], out[3]) >= 1, list(out)
+    if p["split"]:
+        assert [out[4], out[6], out[10], out[12], out[14], out[9]] == [
+            sm["gene"], sm["dpsi"], sm["gene_products"], sm["gene_y"], sm["gene"], 0], list(out)
+        assert min(out[5], out[7], out[11], out[13], out[15]) >= 2, list(out)
+    else:
+        assert [out[4], out[6], out[9]] == [sm["gene"], sm["dpsi"], p["dsteps"]], list(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", PAST_BOUND_WIDTHS)
+def test_cuda_split_backward_is_deterministic(widths):
+    """Past the old bound the split backward (its row blocks added in order
+    into the output, dpsi's gene ranges summed in order, no atomics) gives
+    bitwise-equal outputs across two launches, A2 on (every width past the
+    bound) and off: kernel_dpsi and kernel_gene at N 300 (one row block),
+    each counted in the family :func:`wide_route` picks, and
+    kernel_backward, the call the fit makes, at N 300 and at N 100,000,
+    where N x G passes 2^23 and its row blocks are two, counted in
+    split_launches where the plan is the split one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    N, Kf, n_a2, SC = widths
+    G = 100
+    rng = np.random.default_rng(N + Kf + n_a2 + SC + 1)
+    f32 = np.float32
+
+    def inputs(n):
+        return [torch.from_numpy(a).cuda() for a in (
+            rng.poisson(3.0, (n, G)).astype(np.int8), rng.normal(0, 1, (n, Kf)).astype(f32),
+            rng.normal(0, 0.3 / np.sqrt(Kf), (G, Kf)).astype(f32),
+            rng.lognormal(0, 0.5, (G, SC)).astype(f32), rng.normal(0, 1, n).astype(f32),
+            rng.normal(0, 1, (n, n_a2)).astype(f32), rng.normal(0, 1, (n, SC)).astype(f32),
+            rng.normal(0, 1, (n, Kf)).astype(f32))]
+
+    before = _launches()
+    want = dict.fromkeys(before, 0)
+    Y, psi, W, muL, dA1, dA2, dZ, YW = inputs(N)
+    for da2 in (dA2, None):
+        a2 = 0 if da2 is None else n_a2
+        assert tfl.wide_plan(N, G, Kf, a2, SC)["split"] or da2 is None
+        want["dpsi_wide" if tfl.wide_route(Kf, 0, SC) else "dpsi"] += 2
+        want["gene_wide" if tfl.wide_route(Kf, a2, SC) else "gene"] += 2
+        runs = [(tfl.kernel_dpsi(psi, W, muL, dA1, dZ, YW),
+                 *tfl.kernel_gene(Y, psi, W, muL, dA1, da2, dZ)) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert (a is None and b is None) or torch.equal(a, b)
+    for n in (N, 100_000):
+        Y, psi, W, muL, dA1, dA2, dZ, YW = inputs(n)
+        for da2 in (dA2, None):
+            a2 = 0 if da2 is None else n_a2
+            p = tfl.wide_plan(n, G, Kf, a2, SC)
+            assert p["n_chunks"] == (1 if n == N else 2) or not p["split"]
+            if p["split"]:
+                want["split"] += 2
+            else:
+                want["dpsi_wide" if tfl.wide_route(Kf, 0, SC) else "dpsi"] += 2
+                want["gene_wide" if tfl.wide_route(Kf, a2, SC) else "gene"] += 2
+            runs = [tfl.kernel_backward(Y, psi, W, muL, dA1, da2, dZ, YW) for _ in range(2)]
+            for a, b in zip(*runs):
+                assert (a is None and b is None) or torch.equal(a, b)
+    after = _launches()
+    assert {k: after[k] - before[k] for k in after} == want
 
 
 @pytest.mark.cuda
