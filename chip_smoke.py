@@ -73,14 +73,17 @@ one and every launch of every other path a narrow one; past the wide
 family's old bound of 64 columns of [psi, X], 64 samples and 2,048 sample
 x clone columns, each wide and float64 kernel against its plain version
 at every Y storage at shapes crossing each of those alone (Kf 72; S 66;
-S*C 2,178; the backward the split one, dlog_rfe_kernel and the tiled
-products, in the one call the fit makes and in its two parts alone), the
-wide kernels timed at full width at Kf 72, S*C 660 beside their bounds
-(the backward bit-identical across two launches), the split backward and
-gene part at 2,100 x 200, S*C 2,178 beside the plain backward, the
-full-width fit with K = 2, a one-hot of 70 batches (P = 70) and
-mc_samples = 66 (every launch a wide one, the backward's the split one
-call; its ms an iteration beside the grouped kernels' and its inference
+S*C 2,178; the forward the split one, rfe by dlog_rfe_kernel and Z as a
+tiled product; the backward the split one, dlog_rfe_kernel and the tiled
+products, in the one call the fit makes and in its two parts alone; the
+float64 gene part the split one, dlog_rfe_f64_kernel and
+gene_product_f64_kernel), the wide kernels timed at full width at Kf 72,
+S*C 660 beside their bounds and the times of the forms they replaced
+(the forward and backward bit-identical across two launches), the split
+backward and gene part at 2,100 x 200, S*C 2,178 beside the plain
+backward, the full-width fit with K = 2, a one-hot of 70 batches (P = 70)
+and mc_samples = 66 (every launch a wide one, the backward's the split one
+call; its ms an iteration beside the earlier forms' and its inference
 peak beside restarts._sweep_bytes', which must not be below it), and
 a float64 fit past all three bounds on the card against the CPU port; and
 last
@@ -405,7 +408,8 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
     training step's form), with the parts also timed alone; the A2-on calls
     are timed too unless ``a2_timed`` is false. With ``identical``, the
     backward is launched twice more and must give the same bits (raises
-    otherwise). With ``buffer_rows``, Y is handed to the kernels as the streaming
+    otherwise), and so is the forward: ``identical`` says they did (None
+    where not checked). With ``buffer_rows``, Y is handed to the kernels as the streaming
     fit's chunk feeder hands a chunk out: the leading rows of a device
     buffer of ``buffer_rows`` rows, whose other rows hold other counts. With
     ``vjp_parts`` the backward's parts are timed beside the plain VJP's terms
@@ -462,14 +466,20 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
         part_errs = {}
         compare(parts, want, bwd_scale, f"bwd parts alone {tag}", part_errs)
         del parts
+        same = None  # whether the forward and backward gave the same bits twice, where checked
         if identical:
-            runs = [as_dict(names_b, fl.kernel_backward(*args_b, YW)) for _ in range(2)]
-            differ = [n for n in names_b if n in got and not torch.equal(runs[0][n], runs[1][n])]
-            log(f"  bwd {tag}: two launches "
-                + (f"DIFFER in {', '.join(differ)}" if differ else "bit-identical"))
-            if differ:
-                raise AssertionError(f"bwd {tag}: two launches differ in {differ}")
-            del runs
+            same = True
+            for part, names, call in (("fwd", names_f, lambda: fl.kernel_forward(*args_f)),
+                                      ("bwd", names_b,
+                                       lambda: fl.kernel_backward(*args_b, YW))):
+                runs = [as_dict(names, call()) for _ in range(2)]
+                differ = [n for n in runs[0] if not torch.equal(runs[0][n], runs[1][n])]
+                log(f"  {part} {tag}: two launches "
+                    + (f"DIFFER in {', '.join(differ)}" if differ else "bit-identical"))
+                same = same and not differ
+                if differ:
+                    raise AssertionError(f"{part} {tag}: two launches differ in {differ}")
+                del runs
         if with_a2 and not a2_timed:
             continue
         t = {
@@ -487,7 +497,7 @@ def check_kernels(shape, S, Kf, seed, reps, storage="float32", buffer_rows=None,
             f"plain {t['bwd_plain_ms']:.3f} ms)")
         if not with_a2:
             result = dict(t, fwd_err=err_f, bwd_err=err_b, errs=errs, part_errs=part_errs,
-                          identical=identical)
+                          identical=same)
     result["bounds"] = kernel_bounds(shape["N"], shape["G"], Kf, S * shape["C"],
                                      x["Y"].element_size())
     if vjp_parts:
@@ -559,15 +569,18 @@ def tc_kernels(fl):
     built tile counts (``fl.WIDE_TILE_COUNTS``, ``fl.WIDE_Y_TILE_COUNTS``,
     ``fl.WIDE_DPSI_K_COUNTS`` x ``fl.WIDE_DPSI_Z_COUNTS``), and their
     packing kernels (no templates); the split backward past the old bound,
-    dlog_rfe_kernel<YT, WITH_Y> and gene_product_kernel<YT, YV> (5 each: Y
-    read at each storage, and the Y-free form) and dpsi_product_kernel and
+    dlog_rfe_kernel<YT, OUT> (6: dlog_rfe with Y read at each storage, t =
+    rfe drfe, and the split forward's rfe alone), gene_product_kernel<YT,
+    YV> (5: Y read at each storage, and the Y-free form) and dpsi_product_kernel and
     dpsi_sum_kernel (no templates); and the float64 family's
     fwd_f64_kernel<YT, NT> (28: ``fl.F64_FWD_TILE_COUNTS``),
     dpsi_f64_kernel<NK, NZ, LRW> (30: ``fl.F64_DPSI_K_COUNTS`` x
     ``fl.F64_DPSI_Z_COUNTS``, and NK 8's grouped form) and
-    gene_f64_kernel<YT, NT, NK, GEN> (48: ``fl.F64_GENE_TILE_COUNTS``, and
-    NK 8's grouped form), their packing kernels and
-    reduce_chunks_f64_kernel."""
+    gene_f64_kernel<YT, NT, NK> (40: ``fl.F64_GENE_TILE_COUNTS``), their
+    packing kernels and reduce_chunks_f64_kernel, and past the old bound
+    its split gene part, dlog_rfe_f64_kernel<YT> (4) and
+    gene_product_f64_kernel<YT, YV> (5: dlog mu's at each storage, and the
+    Y-free form)."""
     return {
         "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
                        for t in (1, 2, 4) for a in (0, 1)},
@@ -582,7 +595,7 @@ def tc_kernels(fl):
         "dpsi_wide_pack_kernel": {"<>"},
         "gene_wide_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.WIDE_TILE_COUNTS},
         "gene_wide_pack_kernel": {"<>"},
-        "dlog_rfe_kernel": {"<0,0>"} | {f"<{y},1>" for y in range(4)},
+        "dlog_rfe_kernel": {"<0,0>", "<0,2>"} | {f"<{y},1>" for y in range(4)},
         "gene_product_kernel": {"<0,0>"} | {f"<{y},1>" for y in range(4)},
         "dpsi_product_kernel": {"<>"},
         "dpsi_sum_kernel": {"<>"},
@@ -593,10 +606,10 @@ def tc_kernels(fl):
                             | {f"<8,{z},1>" for z in fl.F64_DPSI_Z_COUNTS}),
         "dpsi_f64_pack_kernel": {"<>"},
         "gene_f64_pack_kernel": {"<>"},
-        "gene_f64_kernel": ({f"<{y},{t},{k},0>" for y in range(4)
-                             for k, counts in fl.F64_GENE_TILE_COUNTS.items() for t in counts}
-                            | {f"<{y},{t},8,1>" for y in range(4)
-                               for t in fl.F64_GENE_TILE_COUNTS[8]}),
+        "gene_f64_kernel": {f"<{y},{t},{k}>" for y in range(4)
+                            for k, counts in fl.F64_GENE_TILE_COUNTS.items() for t in counts},
+        "dlog_rfe_f64_kernel": {f"<{y}>" for y in range(4)},
+        "gene_product_f64_kernel": {"<0,0>"} | {f"<{y},1>" for y in range(4)},
         "reduce_chunks_f64_kernel": {"<>"},
     }
 
@@ -1914,7 +1927,9 @@ def wide_resources(fl, storage, Kf, SC, n_a2=0, min_blocks=2):
     width for these widths (Y in ``storage``) under ``fl.wide_plan``'s plan, as the
     library lays them out (``fl_wide_resources``): each kernel's registers
     and spill bytes (ptxas), dynamic shared memory and blocks an SM (the
-    occupancy query); past the old bound the split backward's kernels
+    occupancy query); past the old bound the split forward's rfe kernel
+    (``fwd``: dlog_rfe_kernel<0, 2>, whose Z product is ``dpsi``'s kernel)
+    and the split backward's kernels
     (``gene``: dlog_rfe_kernel with Y, ``dpsi``: dpsi_product_kernel, and
     the gene part's products, dlog mu's product and dpsi's dlog_rfe_kernel
     without Y); raises unless each runs at least ``min_blocks`` blocks an
@@ -1934,7 +1949,8 @@ def wide_resources(fl, storage, Kf, SC, n_a2=0, min_blocks=2):
                                 out)
     if err:
         raise AssertionError(f"the library refuses wide_plan's plan {plan} (CUDA error {err})")
-    parts = [("fwd", 0, "fwd_wide_kernel", f"<{plan['zt_group']},{out[8]}>"),
+    parts = [("fwd", 0, "dlog_rfe_kernel", "<0,2>") if plan["split"] else
+             ("fwd", 0, "fwd_wide_kernel", f"<{plan['zt_group']},{out[8]}>"),
              ("fwd_y", 2, "fwd_wide_y_kernel", f"<{code},{plan['ny_pad']}>")]
     if plan["split"]:
         parts += [("gene", 4, "dlog_rfe_kernel", f"<{code},1>"),
@@ -2027,10 +2043,15 @@ PAST_CHECKS = ((dict(N=1_000, G=515, C=3), 2, 72), (dict(N=1_000, G=515, C=1), 6
 # the cells (Kf 72), mc_samples 66 (S*C 660 at FULL's 10 clones)
 PAST_K, PAST_BATCHES, PAST_S = 2, 70, 66
 # ... its ms an iteration with the grouped kernels the split backward
-# replaced (PERF.md, H100 80GB HBM3 at 700 W), printed beside this run's;
-# and the gene part's small past-bound shape, timed beside the plain
-# backward: (shape, S, Kf)
+# replaced and with the grouped forward the split forward replaced, and
+# that forward's and the float64 grouped gene part's times at full width,
+# int8, Kf 72, S*C 660 (PERF.md, H100 80GB HBM3 at 700 W), printed beside
+# this run's; and the gene part's small past-bound shape, timed beside the
+# plain backward: (shape, S, Kf)
 PAST_GROUPED_ITER_MS = "424.5-426.4"
+PAST_GROUPED_FWD_ITER_MS = "136.6-137.7"
+PAST_GROUPED_FWD_MS = "42.67-43.5"
+PAST_F64_GROUPED_GENE_MS = "1066.8-1074.8"
 PAST_SMALL = (dict(N=2_100, G=200, C=66), 33, 1)
 # The float64 fit past every bound at once (Kf 72, S 66, S*C 2,178: C 33),
 # numpy counts, on the card against the CPU port from the same draws
@@ -2085,7 +2106,8 @@ def past_bound_checks(fl, auto_name):
                     f"bound {b[part][0]:.3f} by {b[part][2]}, "
                     f"{b[part][0] / full[f'{part}_ms']:.3f} of it)"
                     for part in ("fwd", "bwd", "dpsi", "gene"))
-        + " (bwd: kernel_backward's one split call, the fit's; dpsi and gene: the parts alone)")
+        + f" (fwd: the split forward, the grouped one took {PAST_GROUPED_FWD_MS} ms; bwd: "
+        "kernel_backward's one split call, the fit's; dpsi and gene: the parts alone)")
     for n_a2 in (0, PAST_S):
         for part, q in wide_resources(fl, auto_name, Kf, SC, n_a2, min_blocks=1).items():
             log(f"  A2 columns {n_a2}: {q['instantiation']}: {q['registers']} registers, "
@@ -2117,7 +2139,7 @@ def past_bound_fit(clonealign_torch, fl, Y, L, z, y_itemsize):
     P = 70 (a one-hot of 70 batches, numpy seed 7), mc_samples = 66,
     y_storage "auto", FIT_MAX_ITER iterations; full_fit's checks (rising
     trace, accuracy, every launch a wide one); its ms an iteration beside
-    the grouped kernels', its inference peak beside restarts._sweep_bytes' reckoning of
+    the earlier grouped forms', its inference peak beside restarts._sweep_bytes' reckoning of
     one lane, which must not be below the peak ("auto" decides lane
     batching from it), and what "auto" picks for three such restarts."""
     from clonealign_torch import restarts
@@ -2129,8 +2151,9 @@ def past_bound_fit(clonealign_torch, fl, Y, L, z, y_itemsize):
     sizes = (FULL["N"], FULL["G"], FULL["C"], PAST_K, PAST_S)
     out["reckoned_gb"] = restarts._sweep_bytes(*sizes, 1, 4, "cuda", y_itemsize, PAST_BATCHES) / 1e9
     out["auto_3"] = restarts._auto_restart_batching(*sizes, 3, 4, "cuda", y_itemsize, PAST_BATCHES)
-    log(f"past the old bound: {out['iter_ms']:.2f} ms an iteration (the grouped kernels it "
-        f"replaced: {PAST_GROUPED_ITER_MS}); peak allocated in the inference {out['peak_gb']:.4f} GB "
+    log(f"past the old bound: {out['iter_ms']:.2f} ms an iteration (with the grouped forward: "
+        f"{PAST_GROUPED_FWD_ITER_MS}; with the grouped forward and backward: "
+        f"{PAST_GROUPED_ITER_MS}); peak allocated in the inference {out['peak_gb']:.4f} GB "
         f"against _sweep_bytes' {out['reckoned_gb']:.4f} GB for one lane "
         f"({out['reckoned_gb'] / out['peak_gb']:.3f} of it); \"auto\" at three restarts: "
         f"{out['auto_3']}")
@@ -2363,7 +2386,8 @@ def wide_kernels(wide, auto_name):
     # which no path of the port calls, stand under "parts", each held
     # against the plain VJP and timed beside its terms
     for name, part, launches, err, parts in (
-            ("fwd_wide_kernel", "fwd", "fwd", ("A1", "Z", "YW"), ()),
+            ("dlog_rfe_kernel (rfe)+dpsi_product_kernel+dpsi_sum_kernel (Z)+fwd_wide_y_kernel",
+             "fwd", "fwd", ("A1", "Z", "YW"), ()),
             ("dlog_rfe_kernel+gene_product_kernel+dpsi_product_kernel+dpsi_sum_kernel", "bwd",
              "split", ("dpsi", "dW", "dmuL"),
              (("kernel_dpsi: dlog_rfe_kernel without Y+dpsi_product_kernel+dpsi_sum_kernel",
@@ -2378,10 +2402,12 @@ def wide_kernels(wide, auto_name):
             "ms": past[f"{part}_ms"], "plain_ms": past[f"{part}_plain_ms"],
             "bound_ms": b[0], "bound_by": b[1], "bound_unit": b[2], "library_ms": None,
             "bound_fraction": b[0] / past[f"{part}_ms"],
-            **(past["resources"]["fwd"] if part == "fwd" else
+            **(dict(past["resources"]["fwd"], z_product=past["resources"]["dpsi"],
+                    y_products=past["resources"]["fwd_y"])
+               if part == "fwd" else
                {"resources": [past["resources"][k] for k in ("gene", "gene_products", "dpsi")]}),
             "y_storage": auto_name, "kf": Kf, "s": PAST_S, "sc": SC,
-            **({"bit_identical_launches": past["identical"]} if part == "bwd" else {}),
+            "bit_identical_launches": past["identical"],
             "checks": [{k: v for k, v in c.items() if k != "errs"}
                        | {"max_abs_err": max(c["errs"][e] for e in err)}
                        for c in wide["past"]["checks"]],
@@ -2481,7 +2507,11 @@ def exp_fp64_instructions():
     return len(fp64), fp64
 
 
-def dmma_instantiations(kernels=("fwd_f64_kernel", "dpsi_f64_kernel", "gene_f64_kernel")):
+F64_DMMA_KERNELS = ("fwd_f64_kernel", "dpsi_f64_kernel", "gene_f64_kernel", "dlog_rfe_f64_kernel",
+                    "gene_product_f64_kernel")
+
+
+def dmma_instantiations(kernels=F64_DMMA_KERNELS):
     """The FP64 MMA instructions (DMMA) in the SASS of each instantiation of
     the built library's ``kernels``, by kernel and template arguments (as
     :func:`kernel_resources` keys them), counted by cuobjdump -sass."""
@@ -2511,12 +2541,13 @@ def dmma_instantiations(kernels=("fwd_f64_kernel", "dpsi_f64_kernel", "gene_f64_
 
 def check_f64_sass(build_log, fl):
     """Every fwd_f64_kernel, dpsi_f64_kernel and gene_f64_kernel
-    instantiation holds FP64 MMA (DMMA) instructions in its SASS and spills
-    no register (ptxas's report); raises otherwise. Returns the DMMA
-    counts."""
+    instantiation, and the split gene part's dlog_rfe_f64_kernel and
+    gene_product_f64_kernel, holds FP64 MMA (DMMA) instructions in its SASS
+    and spills no register (ptxas's report); raises otherwise. Returns the
+    DMMA counts."""
     want = tc_kernels(fl)
     dmma = dmma_instantiations()
-    for kernel in ("fwd_f64_kernel", "dpsi_f64_kernel", "gene_f64_kernel"):
+    for kernel in F64_DMMA_KERNELS:
         counts = {k: n for (name, k), n in dmma.items() if name == kernel}
         res = kernel_resources(build_log, kernel)
         log(f"{kernel}: DMMA instructions by instantiation "
@@ -2570,7 +2601,9 @@ def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None, vjp_par
     instructions an exp); with ``vjp_parts``, dpsi's and the gene part's
     beside the plain VJP's terms (as :func:`check_kernels`'); ``batch``
     kernel calls between a timing's two CUDA events. Returns the errors
-    (each output's under ``errs``) and the times."""
+    (each output's under ``errs``), the times, and under ``identical``
+    whether every kernel gave the same bits twice (raises where one did
+    not)."""
     import torch
 
     from clonealign_torch.ops import fused_likelihood as fl
@@ -2600,9 +2633,10 @@ def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None, vjp_par
         bwd = [(fl.kernel_dpsi(psi, W, muL, dA1, dZ, YW), *fl.kernel_gene(*args_b))
                for _ in range(2)]
         torch.cuda.synchronize()
-        for a, b in (fwd, bwd):
-            if not all(u is None or torch.equal(u, v) for u, v in zip(a, b)):
-                raise AssertionError(f"{label}: a float64 kernel differs between two launches")
+        same = [all(u is None or torch.equal(u, v) for u, v in zip(a, b)) for a, b in (fwd, bwd)]
+        result["identical"] = all(same) and result.get("identical", True)
+        if not result["identical"]:
+            raise AssertionError(f"{label}: a float64 kernel differs between two launches")
         fwd_scale, bwd_scale = abs_scales(dict(x, Y=Yf), with_a2)
         fwd_scale["YW"] = Yf @ W.abs()
         want = as_dict(names_f, fl.reference_likelihood_terms(*args_f))
@@ -2637,8 +2671,11 @@ def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None, vjp_par
 
 def f64_resources(fl, storage, Kf, n_a2, SC, N, G):
     """The float64 kernels' shared memory and blocks an SM under
-    ``fl.f64_plan``'s plan (``fl64_resources``); raises where one does not
-    run."""
+    ``fl.f64_plan``'s plan (``fl64_resources``; past the old bound ``gene``
+    is the split gene part's dlog_rfe_f64_kernel, beside its
+    ``gene_products``, gene_product_f64_kernel<0, 0>, with their registers
+    and spills from ptxas's report); raises where one does not run or
+    spills."""
     import ctypes
 
     import torch
@@ -2646,13 +2683,23 @@ def f64_resources(fl, storage, Kf, n_a2, SC, N, G):
     from clonealign_torch.ops import _build
 
     plan = fl.f64_plan(N, G, Kf, n_a2, SC)
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
+    code = fl.Y_DTYPES_F64[getattr(torch, storage)]
     err = _build.load().fl64_resources(fl._plan_arg(plan, fl.F64_PLAN_KEYS), N, G, Kf, n_a2, SC,
-                                       fl.Y_DTYPES_F64[getattr(torch, storage)], out)
+                                       code, out)
     if err:
         raise AssertionError(f"the library refuses f64_plan's plan {plan} (CUDA error {err})")
+    parts = ("fwd", "dpsi", "gene", "gene_products") if plan["split"] else ("fwd", "dpsi", "gene")
     res = {part: {"smem_bytes": out[2 * i], "blocks_per_sm": out[2 * i + 1]}
-           for i, part in enumerate(("fwd", "dpsi", "gene"))}
+           for i, part in enumerate(parts)}
+    if plan["split"]:
+        for part, kernel, args in (("gene", "dlog_rfe_f64_kernel", f"<{code}>"),
+                                   ("gene_products", "gene_product_f64_kernel", "<0,0>")):
+            regs, spill_st, spill_ld = kernel_resources(_build.build_log, kernel)[args]
+            res[part].update(instantiation=kernel + args, registers=regs,
+                             spill_bytes=spill_st + spill_ld)
+            if spill_st or spill_ld:
+                raise AssertionError(f"{kernel}{args} spills: {res[part]}")
     if min(r["blocks_per_sm"] for r in res.values()) < 1:
         raise AssertionError(f"a float64 kernel cannot run at Kf={Kf}, S={n_a2}, S*C={SC}: {res}")
     return res
@@ -2970,7 +3017,7 @@ def float64_kernels(fl):
         f"({', '.join(opcodes)})")
     for kernel in ("fwd_f64_pack_kernel", "fwd_f64_kernel", "dpsi_f64_pack_kernel",
                    "dpsi_f64_kernel", "gene_f64_pack_kernel", "gene_f64_kernel",
-                   "reduce_chunks_f64_kernel"):
+                   "reduce_chunks_f64_kernel", "dlog_rfe_f64_kernel", "gene_product_f64_kernel"):
         res = kernel_resources(_build.build_log, kernel)
         log(f"{kernel} ptxas: " + "; ".join(f"{k} {r} registers, {st}/{ld} B spill stores/loads"
                                              for k, (r, st, ld) in sorted(res.items())))
@@ -3012,7 +3059,9 @@ def float64_kernels(fl):
                     f"{past_full[f'{part}_plain_ms']:.3f}, bound {past_full['bounds'][part][0]:.3f} "
                     f"by {past_full['bounds'][part][2]}; {past_full['resources'][part]})"
                     for part in ("fwd", "dpsi", "gene"))
-        + f"; with A2: {f64_resources(fl, 'int8', Kf, PAST_S, SC, FULL['N'], FULL['G'])}")
+        + f" (gene: the split gene part, the grouped one took {PAST_F64_GROUPED_GENE_MS} ms;"
+        f" {past_full['resources']['gene_products']}); with A2: "
+        f"{f64_resources(fl, 'int8', Kf, PAST_S, SC, FULL['N'], FULL['G'])}")
     return {"exp_ops": exp_ops, "full": full, "bound_resources": bound_res, "past": past,
             "past_full": past_full}
 
@@ -3072,15 +3121,17 @@ def f64_kernels(f64, auto_name):
     for name, part, at, err in (
             ("fwd_f64_kernel", "fwd", fwd_at, ("A1", "Z", "YW")),
             ("dpsi_f64_kernel", "dpsi", bwd_at, ("dpsi",)),
-            ("gene_f64_kernel+reduce_chunks_f64_kernel", "gene", bwd_at, ("dW", "dmuL"))):
+            ("dlog_rfe_f64_kernel+gene_product_f64_kernel", "gene", bwd_at, ("dW", "dmuL"))):
         b = past["bounds"][part]
+        extra = ({"gene_products": past["resources"]["gene_products"],
+                  "bit_identical_launches": past["identical"]} if part == "gene" else {})
         out.append({
             "name": f"{name} past the old bound (Kf {Kf}, S {PAST_S}, S*C {SC})", "route": "cuda",
             "source": src, "replaces": at, "launches": f64["past_fit"]["launches"][part],
             "max_abs_err": max(past["errs"][e] for e in err),
             "ms": past[f"{part}_ms"], "plain_ms": past[f"{part}_plain_ms"],
             "bound_ms": b[0], "bound_by": b[1], "bound_unit": b[2], "library_ms": None,
-            "bound_fraction": b[0] / past[f"{part}_ms"], **past["resources"][part],
+            "bound_fraction": b[0] / past[f"{part}_ms"], **past["resources"][part], **extra,
             "y_storage": "int8", "kf": Kf, "s": PAST_S, "sc": SC,
             "paths": [{"path": f"float64 fit past the old bound "
                                f"{PAST_F64['N']}x{PAST_F64['G']}x{PAST_F64['C']} K={PAST_K} "

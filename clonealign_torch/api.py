@@ -7,9 +7,9 @@ and an injectable ``noise`` source. This port covers a dense or scipy
 sparse count matrix, with or without covariates ``x`` and allele data
 (``clone_allele``, ``cov``, ``ref``: the beta-binomial SNV term, with the
 intended ``alt = cov - ref``), the exact likelihood (on CUDA through the
-hand-written kernels, at any K + P, mc_samples and clone count whose
-kernels' shared memory fits the card: ``ops/fused_likelihood.wide_plan``
-and ``f64_plan`` raise past it) or the Chebyshev normalizer
+hand-written kernels, at any K + P, mc_samples and clone count in
+float32, and in float64 wherever the kernels' shared memory fits the card:
+``ops/fused_likelihood.f64_plan`` raises past it) or the Chebyshev normalizer
 (``likelihood_impl="z_cheb"``, K = 1 without covariates), Y stored as
 ``y_storage`` says (the compute dtype, int16, int8 or bfloat16; "auto"
 picks the narrowest exact integer type). Nothing falls back silently.

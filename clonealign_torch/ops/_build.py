@@ -1,14 +1,14 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources under ``csrc/`` (the float32 kernels and the float64 family) are
-compiled with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
-interface, loaded with ctypes. Each source is compiled as several
-translation units at once (``PARTS``, one ``nvcc`` each, all started
-together; see each source's "Build" note), which are then linked.
-The build runs at first use, into ``_build_cache/`` beside this file, under a
-name keyed by a hash of the sources and flags, so a changed source is rebuilt
-and an unchanged one is reused. Nothing here runs when the module is
-imported.
+The sources under ``csrc/`` (the float32 kernels and the float64 family,
+which share ``split_tiles.cuh``) are compiled with ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, loaded with ctypes. Each
+source is compiled as several translation units at once (``PARTS``, one
+``nvcc`` each, all started together; see each source's "Build" note),
+which are then linked. The build runs at first use, into ``_build_cache/``
+beside this file, under a name keyed by a hash of the sources, the header
+and the flags, so a changed source is rebuilt and an unchanged one is
+reused. Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "csrc" / "fused_likelihood.cu", _HERE / "csrc" / "fused_likelihood_f64.cu")
+# ... and the header both include (the split kernels' tiles and copies)
+HEADERS = (_HERE / "csrc" / "split_tiles.cuh",)
 BUILD_DIR = _HERE / "_build_cache"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,7 +53,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS + tuple(map(str, PARTS))).encode())
     return BUILD_DIR / f"libclonealign_kernels_{digest.hexdigest()[:16]}.so"

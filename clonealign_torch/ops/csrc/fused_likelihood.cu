@@ -263,6 +263,17 @@
 //    two blocks an SM (chip_smoke.py; the same with stages of 64 or four
 //    of them in the ring, so neither the barriers nor the copies set it),
 //    a fifth of the 495 of the bound; wgmma is the way to more.
+//  * The split forward, past the old bound: the counterpart of _fwd_kernel's
+//    jnp.dot branches, in place of fwd_wide_kernel's Z groups, each of which
+//    formed log_rfe over every tile of [psi, X] and the exps again (at Kf 72,
+//    S*C 660: six groups, 42.67-43.5 ms against the plain forward's 22.0-22.4;
+//    H100 80GB HBM3, 700 W). Over the same row blocks, dlog_rfe_kernel's
+//    rfe-only form (kOutRfe) writes rfe = exp(psi W^T) to the workspace once,
+//    and Z = rfe muL is dpsi_product_kernel's tiled product with muL in W's
+//    place, over zsplit gene ranges (enough blocks to fill the card's last
+//    wave, wide_plan's rule) that dpsi_sum_kernel adds in order (one range
+//    writes Z's rows itself). Y's products stay fwd_wide_y_kernel's, one read
+//    of Y a column group; the packed table then holds only their tiles.
 //
 // Build: one translation unit holds everything, or ops/_build.py compiles
 // this file as five in parallel and links them: FL_PART = -1 holds the
@@ -274,6 +285,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "split_tiles.cuh"
 
 #ifndef FL_PART
 #define FL_COMMON 1
@@ -342,7 +355,10 @@ struct GeneArgs {
 // gene part's products (more than one only in a single row block: then
 // partial sums that reduce_chunks_kernel adds), and ldz the row pitch dZ
 // and muL are copied to where SC is no whole number of float4s (else 0);
-// the gene part's and dpsi's other numbers are then 0.
+// the gene part's and dpsi's other numbers are then 0. The forward is then
+// the split one too: no Z groups (n_zgroups and zt_group 0), Z = rfe muL
+// over the same row blocks in zsplit gene ranges of zgenes genes (0 within
+// the old bound).
 struct WidePlan {
   int n_kc, n_zt, n_yt, n_st;
   int g_pad, zt_group, n_zgroups, ny_pad;
@@ -352,8 +368,15 @@ struct WidePlan {
   size_t dtable;
   int n_ygroups, a1_parts;
   size_t a1part;
-  int split, ldw, dsplit, dgenes, gslices, gcells, ldz;
+  int split, ldw, dsplit, dgenes, gslices, gcells, ldz, zsplit, zgenes;
 };
+
+// The forward table's first Y-product tile of a k-step: after W^T's n_kc
+// tiles and the Z groups' tiles fwd_wide_kernel takes; none past the old
+// bound, where the split forward forms Z and the table holds only Y's.
+__host__ __device__ inline int fwd_y_tile0(const WidePlan& p) {
+  return p.split ? 0 : p.n_kc + p.n_zgroups * p.zt_group;
+}
 
 struct FwdWideArgs {
   const void* Y;  // (N, G) in the storage type
@@ -398,7 +421,7 @@ struct SplitArgs {
 // launches); and the wide family's fwd_wide_y_kernel and gene_wide_kernel,
 // with their blocks an SM at a tile count and shared memory (which: 1 the
 // Y products, 2 the gene part); and the split backward's, for row block b:
-// dlog_rfe_kernel<YT, true> (which 0) or dlog mu's gene_product_kernel<YT,
+// dlog_rfe_kernel<YT, kOutDlog> (which 0) or dlog mu's gene_product_kernel<YT,
 // true> (which 1), with their shared memory and blocks an SM.
 template <int YT> void forward_typed(const FwdArgs& a);
 template <int YT> void gene_typed(const GeneArgs& a);
@@ -924,23 +947,6 @@ __device__ __forceinline__ void split_tf32_int(float x, uint32_t& hi, uint32_t& 
   lo = round_tf32(x - __uint_as_float(hi));
 }
 
-// cp.async of kBytes (16, 8 or 4) that reads the first `bytes` of them from
-// gmem and zero-fills the rest.
-template <int kBytes>
-__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-  else if constexpr (kBytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // bp[pass][ks][t][lane] = (hi(b0), hi(b1), lo(b0), lo(b1)) with b0 = B[8 ks +
 // (lane & 3), q], b1 = B[8 ks + (lane & 3) + 4, q], q = 8 (pass NT + t) +
 // (lane >> 2): a lane's operands for n-tile t of k-step ks, zero past N and NC.
@@ -1369,25 +1375,27 @@ __device__ __forceinline__ void stage_y_piece(typename YStore<YT>::Elem* dst,
 // hi1, lo0, lo1) of 32 lanes: W^T for log_rfe (k = columns of [psi, X],
 // genes in order as B's columns), then muL's Z tiles and [W | log mu^T]'s
 // tiles with the genes of the k-step in C-to-A order (B's row c is gene
-// 2c, row c + 4 gene 2c + 1). Zero past G and every width.
+// 2c, row c + 4 gene 2c + 1); past the old bound only the last
+// (fwd_y_tile0). Zero past G and every width.
 __global__ void fwd_wide_pack_kernel(const float* __restrict__ W, const float* __restrict__ logmu,
                                      const float* __restrict__ muL, float4* __restrict__ table,
                                      int G, int Kf, int nA2, int SC, WidePlan p) {
-  const int n_z = p.n_zgroups * p.zt_group, n_tab = p.n_kc + n_z + p.n_ygroups * p.ny_pad;
+  const int y0 = fwd_y_tile0(p), n_w = y0 - p.n_zgroups * p.zt_group;
+  const int n_tab = y0 + p.n_ygroups * p.ny_pad;
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (i >= (long long)(p.g_pad / 8) * n_tab * kWarp) return;
   const int l = (int)(i % kWarp), r = (int)((i / kWarp) % n_tab), ks = (int)(i / kWarp / n_tab);
   float b0 = 0.f, b1 = 0.f;
-  if (r < p.n_kc) {
+  if (r < n_w) {
     const int g = 8 * ks + (l >> 2), k = 8 * r + (l & 3);
     if (g < G && k < Kf) b0 = W[(size_t)g * Kf + k];
     if (g < G && k + 4 < Kf) b1 = W[(size_t)g * Kf + k + 4];
-  } else if (r < p.n_kc + n_z) {
-    const int g = 8 * ks + 2 * (l & 3), j = 8 * (r - p.n_kc) + (l >> 2);
+  } else if (r < y0) {
+    const int g = 8 * ks + 2 * (l & 3), j = 8 * (r - n_w) + (l >> 2);
     if (j < SC && g < G) b0 = muL[(size_t)g * SC + j];
     if (j < SC && g + 1 < G) b1 = muL[(size_t)(g + 1) * SC + j];
   } else {
-    const int g = 8 * ks + 2 * (l & 3), c = 8 * (r - p.n_kc - n_z) + (l >> 2);
+    const int g = 8 * ks + 2 * (l & 3), c = 8 * (r - y0) + (l >> 2);
     auto x = [&](int gg) {
       return gg >= G ? 0.f
              : c < Kf ? W[(size_t)gg * Kf + c]
@@ -1430,7 +1438,7 @@ fwd_wide_kernel(const float* __restrict__ psi, const float4* __restrict__ table,
   const int n0 = row0 + fr, n1 = n0 + 8;
   const int z0 = blockIdx.y * NZ;
   const int RW = p.n_kc + NZ;  // table tiles a k-step of a stage
-  const int n_tab = p.n_kc + p.n_zgroups * NZ + p.n_ygroups * p.ny_pad;
+  const int n_tab = fwd_y_tile0(p) + p.n_ygroups * p.ny_pad;
   float4* s_psi = s_dyn + rg * p.n_kc * 2 * kWarp;
   float4* s_stage = s_dyn + kGroups * p.n_kc * 2 * kWarp;
   float4* s_a = s_stage + 2 * stage_f4 + rg * STEPS * 2 * kWarp;
@@ -1567,8 +1575,8 @@ fwd_wide_y_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* 
   const int fr = lane >> 2, fc = lane & 3;
   const int row0 = (blockIdx.x * kGroups + rg) * kFwdRows;
   const int n0 = row0 + fr, n1 = n0 + 8;
-  const int n_tab = p.n_kc + p.n_zgroups * p.zt_group + p.n_ygroups * NY;
-  const int y0 = p.n_kc + p.n_zgroups * p.zt_group + blockIdx.y * NY;  // the group's first tile
+  const int n_tab = fwd_y_tile0(p) + p.n_ygroups * NY;
+  const int y0 = fwd_y_tile0(p) + blockIdx.y * NY;  // the group's first tile
 
   // cp.async of stage s (genes [32 s, 32 s + 32)) into buffer buf: the
   // table's Y tiles, and the row group's 16 rows (by the first warp of the
@@ -2167,7 +2175,8 @@ gene_wide_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* _
 // workspace; gene_product_kernel takes dW^T = psi^T dlog_rfe, d(muL)^T =
 // dZ^T rfe and dlog mu = dA2^T Y from them, summed over the row blocks in
 // order into the output; dpsi_product_kernel takes t W over ranges of
-// genes, which dpsi_sum_kernel adds beside dA1 YW.
+// genes, which dpsi_sum_kernel adds beside dA1 YW. The copies, the ring and
+// the epilogue's walk are split_tiles.cuh's.
 // ---------------------------------------------------------------------------
 constexpr int kSbM = 64, kSbN = 64, kSbK = 32;  // a block's tile of outputs, and K a stage
 constexpr int kSbThreads = 8 * kWarp;  // two K groups of 2 x 2 warps of 32 x 32, two blocks an SM
@@ -2190,58 +2199,10 @@ __host__ __device__ constexpr int sb_stage_gene_y(int y_bytes) {
   return kSbK * (kSbPitchM + sb_y_pitch(y_bytes) / 4);
 }
 constexpr int sb_smem(int stage_floats) { return 4 * kSbStages * stage_floats; }
-
-// A row-major float matrix: (r, c) at p[r ld + c], zero past rows x cols;
-// vec where 16-byte copies may read it (ld a multiple of 4, p aligned).
-struct SbMat {
-  const float* p;
-  long long ld;
-  int rows, cols;
-  bool vec;
-};
-inline SbMat sb_mat(const float* p, long long ld, int rows, int cols) {
-  return SbMat{p, ld, rows, cols, ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0};
-}
-
-// One product of gene_product_kernel: out[f, g] (+)= sum_n x[n, f] v[n, g]
-// over a row block's cells n, out's rows G apart; m_tiles of kSbM rows f.
-struct SbJob {
-  SbMat x, v;
-  float* out;
-  int m_tiles;
-};
-struct SbJobs {
-  SbJob job[2];
-};
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// cp.async of rows [r0, r0 + R) x columns [c0, c0 + C) of m into s (rows P
-// floats apart) by the block's threads, zero past m's rows and columns.
-template <int R, int C, int P>
-__device__ __forceinline__ void sb_load(float* s, const SbMat& m, int r0, int c0) {
-  constexpr int T = kSbThreads;
-  if (m.vec) {
-#pragma unroll
-    for (int u = 0; u < R * C / 4 / T; ++u) {
-      const int i = threadIdx.x + u * T, r = i / (C / 4), c = 4 * (i % (C / 4));
-      const int gr = r0 + r, gc = c0 + c;
-      const int n = gr < m.rows && gc < m.cols ? min(4, m.cols - gc) : 0;
-      cp_async_zfill<16>(s + r * P + c, n ? m.p + gr * m.ld + gc : m.p, 4 * n);
-    }
-  } else {
-#pragma unroll 4
-    for (int u = 0; u < R * C / T; ++u) {
-      const int i = threadIdx.x + u * T, r = i / C, c = i % C;
-      const int gr = r0 + r, gc = c0 + c;
-      const bool in = gr < m.rows && gc < m.cols;
-      cp_async_zfill<4>(s + r * P + c, in ? m.p + gr * m.ld + gc : m.p, in ? 4 : 0);
-    }
-  }
-}
+// The operands and jobs of split_tiles.cuh, in floats.
+using SbMat = TileMat<float>;
+using SbJob = TileJob<float>;
+using SbJobs = TileJobs<float>;
 
 // Rows [r0, r0 + kSbK) x genes [c0, c0 + kSbN) of Y (rows
 // ldy apart; rows x cols) into s in the storage type, rows sb_y_pitch bytes
@@ -2311,27 +2272,6 @@ __device__ __forceinline__ void sb_stage(const float* sa, BVal&& bval, float (&a
     for (int j = 0; j < 4; ++j) add4(acc[i][j], d[i][j]);
 }
 
-// The ring over n_tiles stages: load(tile, buffer) starts a stage's copies,
-// compute(buffer) runs on a landed one.
-template <class Load, class Compute>
-__device__ __forceinline__ void sb_mainloop(int n_tiles, Load&& load, Compute&& compute) {
-  __syncthreads();  // the block is done with the ring
-#pragma unroll
-  for (int s = 0; s < kSbStages - 1; ++s) {
-    if (s < n_tiles) load(s, s);
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    cp_async_wait<kSbStages - 2>();
-    __syncthreads();  // tile kt has landed, and the buffer of tile kt - 1 is free
-    const int next = kt + kSbStages - 1;
-    if (next < n_tiles) load(next, next % kSbStages);
-    cp_async_commit();
-    compute(kt % kSbStages);
-  }
-}
-
 // acc of the first group's threads += the second group's (at the same
 // fragment positions), through the ring's shared memory once the block is
 // done with it; the first group then holds the sums over all of K.
@@ -2349,30 +2289,18 @@ __device__ __forceinline__ void sb_reduce(float (&acc)[2][4][4], float* smem) {
   }
 }
 
-// f(row, col, i, j, h) for each pair acc[i][j][2h], acc[i][j][2h + 1] of
-// the warp's accumulators, at (row, col) and (row, col + 1) of the block's
-// tile (C fragment order): the first group's threads, after sb_reduce.
-template <class F>
-__device__ __forceinline__ void sb_each_pair(F&& f) {
-  if (threadIdx.x >= kSbGroup) return;
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int wm = 32 * (warp / 2), wn = 32 * (warp % 2);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(wm + 16 * i + (lane >> 2) + 8 * h, wn + 8 * j + 2 * (lane & 3), i, j, h);
-}
+// What dlog_rfe_kernel writes beside rfe: t = rfe drfe (kOutT, for dpsi
+// alone), dlog_rfe = rfe drfe + Y dA1 (kOutDlog, with Y), or nothing
+// (kOutRfe, the split forward's rfe alone).
+constexpr int kOutT = 0, kOutDlog = 1, kOutRfe = 2;
 
-// A row block's rfe = exp(psi W^T) and, with Y, dlog_rfe = rfe drfe + Y dA1
-// (without, t = rfe drfe), drfe = dZ muL^T: grid (tiles of kSbN genes,
+// A row block's rfe = exp(psi W^T) and, as OUT says, dlog_rfe = rfe drfe +
+// Y dA1 or t = rfe drfe, drfe = dZ muL^T: grid (tiles of kSbN genes,
 // tiles of kSbM cells). log_rfe is formed first,
 // its exps stored to rfe at once (rfe may be dl: each thread reads back
 // only what it wrote), then drfe in the same accumulators. Rows of psi, dZ
 // and Y are the block's.
-template <int YT, bool WITH_Y>
+template <int YT, int OUT>
 __global__ void __launch_bounds__(kSbThreads, 2)
 dlog_rfe_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __restrict__ dA1,
                 SbMat psi, SbMat W, SbMat dZ, SbMat muL, float* rfe, float* dl, long long ldw) {
@@ -2380,7 +2308,7 @@ dlog_rfe_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __
   extern __shared__ float4 s_sb[];
   float* smem = reinterpret_cast<float*>(s_sb);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kSbN;  // the tile's first cell and gene
-  const int rows = dZ.rows, G = muL.rows;
+  const int rows = psi.rows, G = W.rows;
   float acc[2][4][4];
   auto product = [&](const SbMat& a, const SbMat& b) {  // acc = a b^T over a's columns
 #pragma unroll
@@ -2389,12 +2317,12 @@ dlog_rfe_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    sb_mainloop(
+    tile_mainloop<kSbStages>(
         (a.cols + BK - 1) / BK,
         [&](int kt, int buf) {
           float* s = smem + buf * kStage;
-          sb_load<BM, BK, P>(s, a, m0, kt * BK);
-          sb_load<kSbN, BK, P>(s + BM * P, b, n0, kt * BK);
+          tile_load<kSbThreads, BM, BK, P>(s, a, m0, kt * BK);
+          tile_load<kSbThreads, kSbN, BK, P>(s + BM * P, b, n0, kt * BK);
         },
         [&](int buf) {
           const float* s = smem + buf * kStage;
@@ -2404,23 +2332,26 @@ dlog_rfe_kernel(const typename YStore<YT>::Elem* __restrict__ Y, const float* __
     sb_reduce(acc, smem);
   };
   product(psi, W);
-  sb_each_pair([&](int r, int c, int i, int j, int h) {
+  tile_each_pair<kSbGroup>([&](int r, int c, int i, int j, int h) {
     const int n = m0 + r, g = n0 + c;
 #pragma unroll
     for (int u = 0; u < 2; ++u)
       if (n < rows && g + u < G) rfe[n * ldw + g + u] = __expf(acc[i][j][2 * h + u]);
   });
-  product(dZ, muL);
-  sb_each_pair([&](int r, int c, int i, int j, int h) {
-    const int n = m0 + r, g = n0 + c;
+  if constexpr (OUT != kOutRfe) {
+    product(dZ, muL);
+    tile_each_pair<kSbGroup>([&](int r, int c, int i, int j, int h) {
+      const int n = m0 + r, g = n0 + c;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      if (n >= rows || g + u >= G) continue;
-      float t = rfe[n * ldw + g + u] * acc[i][j][2 * h + u];
-      if constexpr (WITH_Y) t = fmaf(y_one<YT>(Y[(long long)n * G + g + u]), dA1[n], t);
-      dl[n * ldw + g + u] = t;
-    }
-  });
+      for (int u = 0; u < 2; ++u) {
+        if (n >= rows || g + u >= G) continue;
+        float t = rfe[n * ldw + g + u] * acc[i][j][2 * h + u];
+        if constexpr (OUT == kOutDlog)
+          t = fmaf(y_one<YT>(Y[(long long)n * G + g + u]), dA1[n], t);
+        dl[n * ldw + g + u] = t;
+      }
+    });
+  }
 }
 
 // The gene-side products of a row block: grid (tiles of kSbN genes, the
@@ -2451,16 +2382,16 @@ gene_product_kernel(SbJobs jobs, const typename YStore<YT>::Elem* __restrict__ Y
   v.p += c0 * v.ld;
   v.rows = rows;
   float acc[2][4][4] = {};
-  sb_mainloop(
+  tile_mainloop<kSbStages>(
       (rows + BK - 1) / BK,
       [&](int kt, int buf) {
         float* s = smem + buf * kStage;
-        sb_load<BK, kSbM, kSbPitchM>(s, x, kt * BK, m0);
+        tile_load<kSbThreads, BK, kSbM, kSbPitchM>(s, x, kt * BK, m0);
         if constexpr (YV)
           sb_load_y<YT>(reinterpret_cast<char*>(s + kA), Y + (long long)c0 * G, G, rows, G,
                         kt * BK, n0, y_vec);
         else
-          sb_load<BK, kSbN, kSbPitchN>(s + kA, v, kt * BK, n0);
+          tile_load<kSbThreads, BK, kSbN, kSbPitchN>(s + kA, v, kt * BK, n0);
       },
       [&](int buf) {
         const float* s = smem + buf * kStage;
@@ -2477,7 +2408,7 @@ gene_product_kernel(SbJobs jobs, const typename YStore<YT>::Elem* __restrict__ Y
       });
   sb_reduce(acc, smem);
   float* out = job.out + blockIdx.z * zstride;
-  sb_each_pair([&](int r, int c, int i, int j, int h) {
+  tile_each_pair<kSbGroup>([&](int r, int c, int i, int j, int h) {
     const int f = m0 + r, g = n0 + c;
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
@@ -2491,7 +2422,9 @@ gene_product_kernel(SbJobs jobs, const typename YStore<YT>::Elem* __restrict__ Y
 #if FL_COMMON
 // part[z][n][k] = sum over genes [z dgenes, (z + 1) dgenes) of t[n, g] w[g, k]
 // for a row block's cells n: grid (tiles of kSbM cells, tiles of kSbN
-// columns of [psi, X], dsplit ranges of genes).
+// columns of w, ranges of genes): dpsi's t W (w = W, dsplit ranges) and
+// the split forward's Z = rfe muL (w = muL, zsplit ranges; with one range
+// part is Z's rows of the block).
 __global__ void __launch_bounds__(kSbThreads, 2)
 dpsi_product_kernel(SbMat t, SbMat w, float* __restrict__ part, long long zstride, int dgenes) {
   constexpr int BK = kSbK, P = kSbPitchK;
@@ -2506,12 +2439,12 @@ dpsi_product_kernel(SbMat t, SbMat w, float* __restrict__ part, long long zstrid
   b.rows = min(dgenes, w.rows - g0);
   const int m0 = blockIdx.x * kSbM, n0 = blockIdx.y * kSbN;
   float acc[2][4][4] = {};
-  sb_mainloop(
+  tile_mainloop<kSbStages>(
       (a.cols + BK - 1) / BK,
       [&](int kt, int buf) {
         float* s = smem + buf * kSbStageDpsi;
-        sb_load<kSbM, BK, P>(s, a, m0, kt * BK);
-        sb_load<BK, kSbN, kSbPitchN>(s + kA, b, kt * BK, n0);
+        tile_load<kSbThreads, kSbM, BK, P>(s, a, m0, kt * BK);
+        tile_load<kSbThreads, BK, kSbN, kSbPitchN>(s + kA, b, kt * BK, n0);
       },
       [&](int buf) {
         const float* s = smem + buf * kSbStageDpsi;
@@ -2520,7 +2453,7 @@ dpsi_product_kernel(SbMat t, SbMat w, float* __restrict__ part, long long zstrid
       });
   sb_reduce(acc, smem);
   const int Kf = w.cols;
-  sb_each_pair([&](int r, int c, int i, int j, int h) {
+  tile_each_pair<kSbGroup>([&](int r, int c, int i, int j, int h) {
     const int n = m0 + r, k = n0 + c;
 #pragma unroll
     for (int u = 0; u < 2; ++u)
@@ -2529,9 +2462,10 @@ dpsi_product_kernel(SbMat t, SbMat w, float* __restrict__ part, long long zstrid
   });
 }
 
-// dpsi = dA1 YW (none where YW is null: dlog_rfe had Y dA1) + the ranges'
-// sums of part (a row block's rows x Kf values), summed in float64 in
-// order.
+// dpsi = dA1 YW (none where YW is null: dlog_rfe had Y dA1; nor for the
+// split forward's Z, whose rows x S*C values Kf then counts) + the
+// ranges' sums of part (a row block's rows x Kf values), summed in float64
+// in order.
 __global__ void dpsi_sum_kernel(const float* __restrict__ part, const float* __restrict__ dA1,
                                 const float* __restrict__ YW, float* __restrict__ dpsi, int rows,
                                 int Kf, int dsplit, long long zstride) {
@@ -2576,6 +2510,12 @@ inline size_t sb_gpart(const WidePlan& p, long long FG) {
   return p.gslices > 1 ? (size_t)((p.gslices * FG + 3) / 4 * 4) : 0;
 }
 
+// Floats of the split forward's gene ranges' sums (none for one range), a
+// whole number of float4s.
+inline size_t sb_zpart(const WidePlan& p, int SC) {
+  return p.zsplit > 1 ? (size_t)(((long long)p.zsplit * p.rows * SC + 3) / 4 * 4) : 0;
+}
+
 // Cells of row block b.
 inline int sb_block_rows(const WidePlan& p, int N, int b) {
   return N - b * p.rows < p.rows ? N - b * p.rows : p.rows;
@@ -2585,16 +2525,17 @@ inline int sb_block_rows(const WidePlan& p, int N, int b) {
 // pitch of plan.ldz where SC is no whole number of float4s.
 inline SbMat sb_dz(const SplitArgs& a, int b) {
   const int rows = sb_block_rows(a.plan, a.N, b);
-  return a.plan.ldz ? sb_mat(a.zpad, a.plan.ldz, rows, a.SC)
-                    : sb_mat(a.dZ + (long long)b * a.plan.rows * a.SC, a.SC, rows, a.SC);
+  return a.plan.ldz ? tile_mat(a.zpad, a.plan.ldz, rows, a.SC)
+                    : tile_mat(a.dZ + (long long)b * a.plan.rows * a.SC, a.SC, rows, a.SC);
 }
 inline SbMat sb_mul(const SplitArgs& a) {
-  return a.plan.ldz ? sb_mat(a.mupad, a.plan.ldz, a.G, a.SC) : sb_mat(a.muL, a.SC, a.G, a.SC);
+  return a.plan.ldz ? tile_mat(a.mupad, a.plan.ldz, a.G, a.SC) : tile_mat(a.muL, a.SC, a.G, a.SC);
 }
 
-// dlog_rfe_kernel<YT, WITH_Y> on row block b: a.rfe and a.dl the block's
-// workspace (rows ldw floats apart; one buffer without Y).
-template <int YT, bool WITH_Y>
+// dlog_rfe_kernel<YT, OUT> on row block b: a.rfe and a.dl the block's
+// workspace (rows ldw floats apart; one buffer without Y; a.dl unused, and
+// dZ and muL unread, for kOutRfe).
+template <int YT, int OUT>
 void launch_dlog_rfe(const SplitArgs& a, int b) {
   using Elem = typename YStore<YT>::Elem;
   const WidePlan& p = a.plan;
@@ -2602,13 +2543,14 @@ void launch_dlog_rfe(const SplitArgs& a, int b) {
   const long long n0 = (long long)b * p.rows;
   const int rows = sb_block_rows(p, a.N, b);
   constexpr int smem = sb_smem(kSbStageDlog);
-  cudaFuncSetAttribute(dlog_rfe_kernel<YT, WITH_Y>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
+  cudaFuncSetAttribute(dlog_rfe_kernel<YT, OUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((G + kSbN - 1) / kSbN, (rows + kSbM - 1) / kSbM);
-  dlog_rfe_kernel<YT, WITH_Y><<<grid, kSbThreads, smem, a.stream>>>(
-      WITH_Y ? static_cast<const Elem*>(a.Y) + n0 * G : nullptr, a.dA1 + n0,
-      sb_mat(a.psi + n0 * Kf, Kf, rows, Kf), sb_mat(a.W, Kf, G, Kf), sb_dz(a, b), sb_mul(a),
-      a.rfe, a.dl, p.ldw);
+  const bool drfe = OUT != kOutRfe;
+  dlog_rfe_kernel<YT, OUT><<<grid, kSbThreads, smem, a.stream>>>(
+      OUT == kOutDlog ? static_cast<const Elem*>(a.Y) + n0 * G : nullptr,
+      OUT == kOutDlog ? a.dA1 + n0 : nullptr, tile_mat(a.psi + n0 * Kf, Kf, rows, Kf),
+      tile_mat(a.W, Kf, G, Kf), drfe ? sb_dz(a, b) : SbMat{}, drfe ? sb_mul(a) : SbMat{}, a.rfe,
+      a.dl, p.ldw);
 }
 
 // o[0], o[1] = a kernel's dynamic shared memory (smem bytes) and blocks an
@@ -2739,7 +2681,8 @@ inline bool is_dpsi_z_count(long long t) {
 // the workspace's row pitch a whole number of float4s of at least G,
 // dpsi's ranges of genes (of 32) that hold every gene once, and the gene
 // products' slices of cells (of 32) that hold every cell of the one row
-// block once, or one slice a row block. Else (only
+// block once, or one slice a row block; the split forward's gene ranges
+// (of 32) that hold every gene once, and no Z groups. Else (only
 // within the old bound: the gene part's and dpsi's accumulators hold at
 // most 8 tiles of [psi, X] and of dA2): each pass a built count and within
 // kWideTiles beside the tiles it shares a warp with, dlog mu's tiles in one
@@ -2748,7 +2691,7 @@ inline bool is_dpsi_z_count(long long t) {
 // tiles of [psi, X] and dZ groups built counts that hold every tile, its
 // stages whole k-steps of the padded genes, and every workspace region at
 // least what the kernels address in it.
-constexpr int kWidePlanKeys = 36;
+constexpr int kWidePlanKeys = 38;
 bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, WidePlan& p) {
   p.n_kc = (int)v[0], p.n_zt = (int)v[1], p.n_yt = (int)v[2], p.n_st = (int)v[3];
   p.g_pad = (int)v[4], p.zt_group = (int)v[5], p.n_zgroups = (int)v[6], p.ny_pad = (int)v[7];
@@ -2761,23 +2704,26 @@ bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Wid
   p.n_ygroups = (int)v[26], p.a1_parts = (int)v[27], p.a1part = (size_t)v[28];
   p.split = (int)v[29], p.ldw = (int)v[30], p.dsplit = (int)v[31], p.dgenes = (int)v[32];
   p.gslices = (int)v[33], p.gcells = (int)v[34], p.ldz = (int)v[35];
+  p.zsplit = (int)v[36], p.zgenes = (int)v[37];
   for (int i = 0; i < kWidePlanKeys; ++i) {
     const bool size = (i >= 15 && i <= 20) || i == 25 || i == 28;
     if (v[i] < 0 || (!size && v[i] > 0x7fffffff)) return false;
   }
   const long long F = (long long)Kf + SC + nA2;
   const int ny_halves = p.ny_pad > 10 ? 2 : 1;
+  const bool z_groups = p.split ? p.zt_group == 0 && p.n_zgroups == 0
+                                 : is_tile_count(p.zt_group) && p.n_zgroups >= 1 &&
+                                       p.n_zgroups <= 65535 &&
+                                       (long long)p.n_zgroups * p.zt_group >= p.n_zt;
   const bool fwd = p.n_kc == cdiv(Kf, 8) && p.n_zt == cdiv(SC, 8) && p.n_yt == cdiv(Kf + nA2, 8) &&
                    p.n_st == cdiv(nA2, 8) && p.g_pad % kFwdWideGenes == 0 && p.g_pad >= G &&
-                   is_tile_count(p.zt_group) && p.n_zgroups >= 1 && p.n_zgroups <= 65535 &&
-                   (long long)p.n_zgroups * p.zt_group >= p.n_zt && is_y_tile_count(p.ny_pad) &&
+                   z_groups && is_y_tile_count(p.ny_pad) &&
                    p.n_ygroups >= 1 && p.n_ygroups <= 65535 &&
                    (long long)p.n_ygroups * p.ny_pad >= p.n_yt &&
                    (p.a1_parts == 0 ? p.n_ygroups == 1 && Kf <= 8 * (p.ny_pad / ny_halves)
                                     : p.a1_parts == p.n_ygroups * ny_halves &&
                                           p.a1part >= (size_t)p.a1_parts * N) &&
-                   p.table >= (size_t)(p.g_pad / 8) *
-                                  (p.n_kc + p.n_zgroups * p.zt_group + p.n_ygroups * p.ny_pad) *
+                   p.table >= (size_t)(p.g_pad / 8) * (fwd_y_tile0(p) + p.n_ygroups * p.ny_pad) *
                                   kWarp * 4;
   if (!fwd) return false;
   if (p.split == 1)
@@ -2791,8 +2737,10 @@ bool wide_plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Wid
            (p.gslices == 1 ? p.gcells == p.rows : p.n_chunks == 1) && p.gcells >= 32 &&
            p.gcells % 32 == 0 && (long long)p.gslices * p.gcells >= (N < p.rows ? N : p.rows) &&
            (long long)(p.gslices - 1) * p.gcells < N &&
-           (p.ldz == 0 || (p.ldz >= SC && p.ldz % 4 == 0));
-  return p.split == 0 && p.n_kc <= 8 && p.n_st <= 8 &&
+           (p.ldz == 0 || (p.ldz >= SC && p.ldz % 4 == 0)) && cdiv(SC, kSbN) <= 65535 &&
+           p.zsplit >= 1 && p.zsplit <= 65535 && p.zgenes >= 32 && p.zgenes % 32 == 0 &&
+           (long long)p.zsplit * p.zgenes >= G && (long long)(p.zsplit - 1) * p.zgenes < G;
+  return p.split == 0 && p.zsplit == 0 && p.zgenes == 0 && p.n_kc <= 8 && p.n_st <= 8 &&
          p.rows >= kGeneWideCells && p.rows % kGeneWideCells == 0 &&
          p.n_chunks >= 1 && p.n_chunks <= 65535 && (long long)p.n_chunks * p.rows >= N &&
          p.n_pad % kGeneWideCells == 0 && p.n_pad >= N && is_tile_count(p.nj) &&
@@ -3037,7 +2985,7 @@ void gene_wide_typed(const GeneWideArgs& a) {
 }
 
 // The split backward's Y-reading launches on row block b: which 0,
-// dlog_rfe_kernel<YT, true> (rfe and dlog_rfe to the workspace); which 1,
+// dlog_rfe_kernel<YT, kOutDlog> (rfe and dlog_rfe to the workspace); which 1,
 // dlog mu = dA2^T Y by gene_product_kernel<YT, true> into the output's
 // last nA2 rows.
 template <int YT>
@@ -3046,7 +2994,7 @@ void split_typed(const SplitArgs& a, int b, int which) {
   using Piece = typename YStore<YT>::Piece;
   const WidePlan& p = a.plan;
   if (which == 0) {
-    launch_dlog_rfe<YT, true>(a, b);
+    launch_dlog_rfe<YT, kOutDlog>(a, b);
     return;
   }
   const long long n0 = (long long)b * p.rows;
@@ -3054,7 +3002,7 @@ void split_typed(const SplitArgs& a, int b, int which) {
   const Elem* Y = static_cast<const Elem*>(a.Y) + n0 * a.G;
   const bool vec = a.G % 4 == 0 && reinterpret_cast<uintptr_t>(Y) % sizeof(Piece) == 0;
   const bool sliced = p.gslices > 1;
-  const SbJob job{sb_mat(a.dA2 + n0 * a.nA2, a.nA2, rows, a.nA2), SbMat{},
+  const SbJob job{tile_mat(a.dA2 + n0 * a.nA2, a.nA2, rows, a.nA2), SbMat{},
                   (sliced ? a.gpart : a.dgene) + (long long)(a.Kf + a.SC) * a.G,
                   (a.nA2 + kSbM - 1) / kSbM};
   constexpr int smem = sb_smem(sb_stage_gene_y(sizeof(Elem)));
@@ -3066,12 +3014,12 @@ void split_typed(const SplitArgs& a, int b, int which) {
                      sliced ? (long long)(a.Kf + a.SC + a.nA2) * a.G : 0);
 }
 
-// out[0..4) = dlog_rfe_kernel<YT, true>'s and gene_product_kernel<YT,
+// out[0..4) = dlog_rfe_kernel<YT, kOutDlog>'s and gene_product_kernel<YT,
 // true>'s dynamic shared memory and blocks an SM.
 template <int YT>
 void split_resources_typed(int* out) {
   using Elem = typename YStore<YT>::Elem;
-  sb_query(dlog_rfe_kernel<YT, true>, kSbThreads, sb_smem(kSbStageDlog), out);
+  sb_query(dlog_rfe_kernel<YT, kOutDlog>, kSbThreads, sb_smem(kSbStageDlog), out);
   sb_query(gene_product_kernel<YT, true>, kSbThreads, sb_smem(sb_stage_gene_y(sizeof(Elem))),
            out + 2);
 }
@@ -3180,9 +3128,9 @@ static void split_backward(const SplitArgs& a, int y_type, float* dpsi, const fl
     if (a.dgene) {
       typed(b, 0);  // rfe and dlog_rfe of the row block
       // dW^T = psi^T dlog_rfe and d(muL)^T = dZ^T rfe
-      const SbJob dw{sb_mat(a.psi + n0 * Kf, Kf, rows, Kf), sb_mat(a.dl, p.ldw, rows, G), out,
+      const SbJob dw{tile_mat(a.psi + n0 * Kf, Kf, rows, Kf), tile_mat(a.dl, p.ldw, rows, G), out,
                      (Kf + kSbM - 1) / kSbM};
-      const SbJob dmu{sb_dz(a, b), sb_mat(a.rfe, p.ldw, rows, G), out + (long long)Kf * G,
+      const SbJob dmu{sb_dz(a, b), tile_mat(a.rfe, p.ldw, rows, G), out + (long long)Kf * G,
                       (SC + kSbM - 1) / kSbM};
       gene_product_kernel<kYF32, false>
           <<<dim3((G + kSbN - 1) / kSbN, dw.m_tiles + dmu.m_tiles, p.gslices), kSbThreads,
@@ -3193,16 +3141,45 @@ static void split_backward(const SplitArgs& a, int y_type, float* dpsi, const fl
         reduce_chunks_kernel<<<blocks_for(FG, 256), 256, 0, a.stream>>>(a.gpart, a.dgene,
                                                                        p.gslices, FG);
     } else {
-      launch_dlog_rfe<kYF32, false>(a, b);
+      launch_dlog_rfe<kYF32, kOutT>(a, b);
     }
     if (dpsi && Kf) {
       dpsi_product_kernel<<<dim3((rows + kSbM - 1) / kSbM, (Kf + kSbN - 1) / kSbN, p.dsplit),
                             kSbThreads, dsmem, a.stream>>>(
-          sb_mat(a.dl, p.ldw, rows, G), sb_mat(a.W, Kf, G, Kf), part, zstride, p.dgenes);
+          tile_mat(a.dl, p.ldw, rows, G), tile_mat(a.W, Kf, G, Kf), part, zstride, p.dgenes);
       dpsi_sum_kernel<<<blocks_for((long long)rows * Kf, 256), 256, 0, a.stream>>>(
           part, a.dA1 + n0, YW ? YW + n0 * Kf : nullptr, dpsi + n0 * Kf, rows, Kf, p.dsplit,
           zstride);
     }
+  }
+}
+
+// The split forward over the plan's row blocks (see the note at the top):
+// for each, rfe = exp(psi W^T) of the block by dlog_rfe_kernel<0, kOutRfe>
+// into a.rfe (rows ldw floats apart), then Z = rfe muL by
+// dpsi_product_kernel over zsplit gene ranges, into Z's rows of the block
+// where one, else into zpart (zsplit x rows x SC), which dpsi_sum_kernel
+// adds in order. muL is first copied to a row pitch of ldz where SC is no
+// whole number of float4s (a.mupad).
+static void split_forward(const SplitArgs& a, float* Z, float* zpart) {
+  const WidePlan& p = a.plan;
+  const int SC = a.SC;
+  constexpr int dsmem = sb_smem(kSbStageDpsi);
+  cudaFuncSetAttribute(dpsi_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dsmem);
+  if (p.ldz) pad_rows(a.muL, SC, a.mupad, p.ldz, a.G, SC, a.stream);
+  const SbMat mul = sb_mul(a);
+  const long long zstride = (long long)p.rows * SC;
+  for (int b = 0; b < p.n_chunks; ++b) {
+    const long long n0 = (long long)b * p.rows;
+    const int rows = sb_block_rows(p, a.N, b);
+    launch_dlog_rfe<kYF32, kOutRfe>(a, b);
+    float* out = p.zsplit > 1 ? zpart : Z + n0 * SC;
+    dpsi_product_kernel<<<dim3((rows + kSbM - 1) / kSbM, (SC + kSbN - 1) / kSbN, p.zsplit),
+                          kSbThreads, dsmem, a.stream>>>(tile_mat(a.rfe, p.ldw, rows, a.G), mul,
+                                                         out, zstride, p.zgenes);
+    if (p.zsplit > 1)
+      dpsi_sum_kernel<<<blocks_for((long long)rows * SC, 256), 256, 0, a.stream>>>(
+          zpart, nullptr, nullptr, Z + n0 * SC, rows, SC, p.zsplit, zstride);
   }
 }
 
@@ -3294,7 +3271,10 @@ int fl_backward_gene(const void* Y, const float* psi, const float* W,
 // WIDE_PLAN_KEYS, in order; cudaErrorInvalidValue where it does not fit
 // them, wide_plan_of; fl_backward_dpsi_wide takes the plan of nA2 = 0).
 // fl_forward_wide's scratch (16-byte aligned) holds the plan's table floats
-// and then its a1part floats (A1's partial sums), fl_backward_dpsi_wide's
+// and then its a1part floats (A1's partial sums), and where the plan is the
+// split one rows x ldw floats (the row block's rfe), where zsplit > 1
+// zsplit x rows x SC rounded up to whole float4s (the gene ranges' sums of
+// Z) and where ldz > 0 G x ldz (muL at that pitch); fl_backward_dpsi_wide's
 // its dtable floats (the packed gene side); fl_backward_gene_wide's its
 // part + dz + ps + a2 + a1 floats: the (Kf+SC+nA2, G) partial sums of each
 // chunk, then the packed cell side. Where the plan's backward is the split
@@ -3315,13 +3295,22 @@ int fl_forward_wide(const void* Y, const float* psi, const float* W,
   float4* table = reinterpret_cast<float4*>(scratch);
   fwd_wide_pack_kernel<<<blocks_for((long long)(p.table / 4), 256), 256, 0, stream>>>(
       W, logmu, muL, table, G, Kf, nA2, SC, p);
-  const int steps = fwd_wide_steps(p);
-  const int smem = fwd_wide_smem(p, steps), stage_f4 = fwd_wide_stage_f4(p, steps);
-  const dim3 grid(blocks_for(N, fwd_wide_groups(p.zt_group) * kFwdRows), p.n_zgroups);
-  fwd_wide_dispatch(p.zt_group, steps, [&](auto kernel) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    kernel<<<grid, kFwdWarps * kWarp, smem, stream>>>(psi, table, Z, N, Kf, SC, p, stage_f4);
-  });
+  if (p.split) {
+    float* rfe = scratch + p.table + p.a1part;
+    float* zpart = rfe + (size_t)p.rows * p.ldw;
+    float* mupad = zpart + sb_zpart(p, SC);
+    const SplitArgs a{nullptr, psi,     W,  muL, nullptr, nullptr, nullptr, rfe, rfe, nullptr,
+                      nullptr, nullptr, mupad, N, G,       Kf,      0,       SC,  p,   stream};
+    split_forward(a, Z, zpart);
+  } else {
+    const int steps = fwd_wide_steps(p);
+    const int smem = fwd_wide_smem(p, steps), stage_f4 = fwd_wide_stage_f4(p, steps);
+    const dim3 grid(blocks_for(N, fwd_wide_groups(p.zt_group) * kFwdRows), p.n_zgroups);
+    fwd_wide_dispatch(p.zt_group, steps, [&](auto kernel) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel<<<grid, kFwdWarps * kWarp, smem, stream>>>(psi, table, Z, N, Kf, SC, p, stage_f4);
+    });
+  }
   float* a1part = p.a1_parts ? scratch + p.table : nullptr;
   const FwdWideArgs a{Y, psi, table, A1, A2, Z, YW, a1part, N, G, Kf, nA2, SC, p, stream};
   switch (y_type) {
@@ -3420,7 +3409,9 @@ int fl_backward_gene_wide(const void* Y, const float* psi, const float* W,
 // and dpsi_wide_kernel; or where the plan's backward is the split one
 // dlog_rfe_kernel<y_type, 1> and dpsi_product_kernel (dpsi's k-steps 0),
 // and in out[10..16) gene_product_kernel<0, 0>, gene_product_kernel<y_type,
-// 1> and dlog_rfe_kernel<0, 0> (zeros for the other plans). Returns
+// 1> and dlog_rfe_kernel<0, 0> (zeros for the other plans); the forward is
+// then the split one, whose rfe kernel dlog_rfe_kernel<0, 2> stands in
+// out[0..2) (its k-steps 0; its Z product is dpsi_product_kernel). Returns
 // cudaErrorInvalidValue where the plan does not fit the sizes.
 int fl_wide_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC, int y_type,
                       int* out) {
@@ -3429,10 +3420,15 @@ int fl_wide_resources(const long long* plan, int N, int G, int Kf, int nA2, int 
       !wide_plan_of(plan, N, G, Kf, nA2, SC, p))
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 16; ++i) out[i] = 0;
-  const int steps = fwd_wide_steps(p), yb = y_type == kYF32 ? 4 : y_type == kYI8 ? 1 : 2;
-  fwd_wide_dispatch(p.zt_group, steps, [&](auto kernel) {
-    sb_query(kernel, kFwdWarps * kWarp, fwd_wide_smem(p, steps), out);
-  });
+  const int steps = p.split ? 0 : fwd_wide_steps(p);
+  const int yb = y_type == kYF32 ? 4 : y_type == kYI8 ? 1 : 2;
+  if (p.split) {
+    sb_query(dlog_rfe_kernel<kYF32, kOutRfe>, kSbThreads, sb_smem(kSbStageDlog), out);
+  } else {
+    fwd_wide_dispatch(p.zt_group, steps, [&](auto kernel) {
+      sb_query(kernel, kFwdWarps * kWarp, fwd_wide_smem(p, steps), out);
+    });
+  }
   const int smem[3] = {0, fwd_wide_y_smem(p, yb), gene_wide_smem(p, yb)};
   for (int which = 1; which <= (p.split ? 1 : 2); ++which) {
     const int t = which == 1 ? p.ny_pad : p.nj;
@@ -3458,7 +3454,7 @@ int fl_wide_resources(const long long* plan, int N, int G, int Kf, int nA2, int 
     out[4] = typed[0], out[5] = typed[1], out[12] = typed[2], out[13] = typed[3];
     sb_query(dpsi_product_kernel, kSbThreads, sb_smem(kSbStageDpsi), out + 6);
     sb_query(gene_product_kernel<kYF32, false>, kSbThreads, sb_smem(kSbStageGene), out + 10);
-    sb_query(dlog_rfe_kernel<kYF32, false>, kSbThreads, sb_smem(kSbStageDlog), out + 14);
+    sb_query(dlog_rfe_kernel<kYF32, kOutT>, kSbThreads, sb_smem(kSbStageDlog), out + 14);
   } else {
     dpsi_wide_dispatch(p.dk_pad, p.dz_group, [&](auto kernel) {
       sb_query(kernel, kDpsiWarps * kWarp, dpsi_wide_smem(p), out + 6);

@@ -93,10 +93,33 @@
 //    that the registers hold them; each pass recomputes rfe and adds its
 //    part of drfe's term to dW (dW is linear in drfe), which goes to the
 //    chunk's partial sums after each pass (the first pass stores, later
-//    ones add), and the first pass adds Y dA1 psi. Past Kf 64 dW's columns
-//    go in groups of NK = 8 tiles (a launch each, the group a kernel
-//    parameter), each forming rfe and drfe whole, and only the first
-//    accumulating and writing the passes' tiles.
+//    ones add), and the first pass adds Y dA1 psi. Up to the old bound
+//    (Kf 64, nA2 64, SC 2,048) only: past it the gene part is the split one.
+//  * The split gene part, past the old bound: dlog_rfe_f64_kernel<YT> and
+//    gene_product_f64_kernel<YT, YV>, in place of gene_f64_kernel's grouped
+//    form, which formed rfe and drfe again in each of dW's column groups
+//    (a launch each) and each pass of d(muL)'s tiles (at Kf 72, S*C 660:
+//    1,066.8-1,074.8 ms against the plain VJP's 46.5-46.8; H100 80GB HBM3,
+//    700 W). The float32 split backward's design in float64: over row
+//    blocks of plan.rows cells (a workspace of at most 2^22 doubles a
+//    buffer, half the float32 one's cells), dlog_rfe_f64_kernel forms
+//    log_rfe = psi W^T, rfe = exp(log_rfe) (written to the workspace at
+//    once), then drfe = dZ muL^T over all of S*C in the same accumulators
+//    and dlog_rfe = rfe drfe + Y dA1; gene_product_f64_kernel takes dW^T =
+//    psi^T dlog_rfe and d(muL)^T = dZ^T rfe (and dlog mu = dA2^T Y) from
+//    the workspace, K the block's cells, summed over the row blocks in order
+//    in the output (a single block's cells in slices whose partial sums
+//    reduce_chunks_f64_kernel adds, where its grid would not fill the card
+//    twice over). Tiled products: blocks of 64 x 64 outputs, 4 warps of 32
+//    x 32 (2 x 4 accumulator tiles of m16n8k8 f64, 64 registers of sums),
+//    stages of 16 values of K filled by cp.async into a ring of three (16
+//    bytes a copy where rows allow, else 8), rows padded to 4 mod 16
+//    doubles so that a fragment's reads hit every bank pair once; three
+//    blocks an SM. Deterministic, no atomics. The exps (one an element,
+//    ~1% of the DMMAs' work at S*C 660) run between the two products of a
+//    block, beside the other blocks' DMMAs. The operands, copies, ring and
+//    epilogue walk are split_tiles.cuh's, shared with the float32 split
+//    kernels; the stage's DMMAs (db_stage) are this file's.
 //
 // What bounds them on the card: a float64 exp is a software sequence on
 // the FP64 units (an integer part, a polynomial of DFMAs, a scaling), about
@@ -122,6 +145,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "split_tiles.cuh"
 
 #ifndef FL_PART
 #define F64_COMMON 1
@@ -152,11 +177,18 @@ constexpr int kYF64 = 0, kYBF16 = 1, kYI16 = 2, kYI8 = 3;
 // doubles); each kernel's dynamic shared memory in bytes; and the packed
 // tables' doubles (f_table the forward's, g_table the gene part's, d_table
 // dpsi's).
+//
+// split: the gene part is the split one (past Kf 64, nA2 64 or SC 2,048):
+// rows and n_chunks are then its row blocks, ldw the workspace's row pitch
+// (doubles, even), gslices slices of gcells cells a row block (more than one
+// only in a single row block: part then holds their partial sums), and the
+// other g_* numbers and g_table are 0.
 struct Plan {
   int f_yt, f_tiles, f_count, f_nt, f_groups, f_blocks, f_smem;
   int d_nk, d_nz, d_groups, d_steps, d_blocks, d_smem;
   int g_st, g_tiles, g_nk, g_count, g_nt, g_passes, g_blocks, rows, n_chunks, g_smem;
   size_t part, f_table, g_table, d_table;
+  int split, ldw, gslices, gcells;
 };
 
 struct FwdArgs {
@@ -179,11 +211,28 @@ struct GeneArgs {
   cudaStream_t stream;
 };
 
+// The split gene part's arguments: the workspace of one row block (rfe and
+// dlog_rfe, plan.rows x plan.ldw doubles each), the (Kf + SC + nA2, G)
+// output and, where the plan slices the cells (gslices > 1), the slices'
+// partial sums of it.
+struct SplitArgs {
+  const void* Y;  // (N, G) in the storage type
+  const double *psi, *W, *muL, *dA1, *dA2, *dZ;
+  double *rfe, *dl, *dgene, *gpart;
+  int N, G, Kf, nA2, SC;
+  Plan plan;
+  cudaStream_t stream;
+};
+
 // The Y-reading kernels of one storage type, and their blocks an SM under
-// the plan (which: 0 the forward, 1 the gene part).
+// the plan (which: 0 the forward, 1 the gene part: gene_f64_kernel, or
+// where the plan is the split one dlog_rfe_f64_kernel); the split gene
+// part's, for row block b: dlog_rfe_f64_kernel<YT> (which 0) or dlog mu's
+// gene_product_f64_kernel<YT, true> (which 1).
 template <int YT> void forward_typed(const FwdArgs& a);
 template <int YT> void gene_typed(const GeneArgs& a);
 template <int YT> int blocks_per_sm(int which, const Plan& p, int Kf);
+template <int YT> void split_typed(const SplitArgs& a, int b, int which);
 
 }  // namespace fl64
 
@@ -272,23 +321,11 @@ __device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4], doubl
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b.x), "d"(b.y));
 }
 
-// cp.async of kBytes (8 or 16) from src into shared memory, or kBytes of
-// zeros where src is null (then `dummy`, a valid address, is named and not
-// read).
+// cp_async_zfill of kBytes (8 or 16) from src, or of kBytes of zeros where
+// src is null (then `dummy`, a valid address, is named and not read).
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* dst, const void* src, const void* dummy) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = src ? kBytes : 0;
-  if constexpr (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src ? src : dummy), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-                 "l"(src ? src : dummy), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  cp_async_zfill<kBytes>(dst, src ? src : dummy, src ? kBytes : 0);
 }
 
 #if F64_ANY_TYPED
@@ -541,22 +578,21 @@ fwd_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __res
 // ---------------------------------------------------------------------------
 // Gene part: block (blockIdx.x) of kGeneWarps x 16 genes, chunk blockIdx.y of
 // `rows` cells; tiles [dlog mu (st) | d(muL)] in `passes` passes of `count`
-// (NT accumulator tiles), dW's NK tiles beside them (GEN: a group of them,
-// the launch's kt0 .. kt0 + NK of nk_all). Dynamic shared memory:
+// (NT accumulator tiles), dW's NK tiles beside them. Dynamic shared memory:
 // the warps' W ([warp][k][g] pairs of genes g, g + 8), then two stages, each
 // for 32 cells (4 n-tiles) drfe's B fragments ([n-tile][tile][lane] pairs
 // of dZ^T), the pass's ([n-tile][tile][lane] pairs of dA2 or dZ at cells 2t,
 // 2t + 1), dW's ([n-tile][kt][lane] pairs of psi), psi for log_rfe
 // ([n-tile][k][t] pairs of cells 2t, 2t + 1), dA1, and the block's Y rows.
 // ---------------------------------------------------------------------------
-template <int YT, int NT, int NK, bool GEN>
+template <int YT, int NT, int NK>
 __global__ void __launch_bounds__(kGeneWarps * kWarp, 2 * NT + NK >= 6 ? 2 : 3)
 gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __restrict__ psi,
                 const double* __restrict__ W, const double* __restrict__ muL,
                 const double* __restrict__ dA1, const double* __restrict__ dA2,
                 const double* __restrict__ dZ, const double2* __restrict__ table,
                 double* __restrict__ part, int N, int G, int Kf, int nA2, int SC, int rows, int st,
-                int count, int passes, bool vec, int kt0_, int nk_all_) {
+                int count, int passes, bool vec) {
   using Elem = typename Y64<YT>::Elem;
   constexpr int kYRow = 64 * (int)sizeof(Elem) + 16;  // bytes a cell's Y row takes
   extern __shared__ __align__(16) unsigned char s_dyn[];
@@ -567,11 +603,7 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
   const int chunk = blockIdx.y, n_begin = chunk * rows, n_end = min(N, n_begin + rows);
   const int F = Kf + SC + nA2, tiles = st + (SC + 7) / 8;
   double* out = part + (size_t)chunk * F * G;
-  // dW's group (GEN: past 8 tiles of [psi, X]): NK tiles from kt0, of
-  // nk_all; the first alone takes the passes' tiles
-  const int kt0 = GEN ? kt0_ : 0, nk_all = GEN ? nk_all_ : NK;
-  const bool own = kt0 == 0;
-  const int per_ct = (2 * tiles + nk_all) * kWarp + Kf * 4, per_stage = kGeneTiles * per_ct + kGeneCells / 2;
+  const int per_ct = (2 * tiles + NK) * kWarp + Kf * 4, per_stage = kGeneTiles * per_ct + kGeneCells / 2;
   double2* s_w = reinterpret_cast<double2*>(s_dyn);
   unsigned char* s_stage = s_dyn + (size_t)kGeneWarps * 16 * Kf * 8;
   const int bt_bytes = kGeneTiles * NT * kWarp * 16, bk_bytes = kGeneTiles * NK * kWarp * 16;
@@ -622,15 +654,14 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
         if (with_exp)  // drfe's B for the pass's d(muL) tiles
           for (int i = threadIdx.x; i < (nt - ns) * kWarp; i += blockDim.x)
             cp_async<16>(bt + (ct * NT + ns) * kWarp + i, sc + (tile0 + ns) * kWarp + i, src);
-        if (own)
-          for (int i = threadIdx.x; i < nt * kWarp; i += blockDim.x)
-            cp_async<16>(bn + ct * NT * kWarp + i, sc + (tiles + tile0) * kWarp + i, src);
+        for (int i = threadIdx.x; i < nt * kWarp; i += blockDim.x)
+          cp_async<16>(bn + ct * NT * kWarp + i, sc + (tiles + tile0) * kWarp + i, src);
         if (with_dw)
           for (int i = threadIdx.x; i < NK * kWarp; i += blockDim.x)
-            cp_async<16>(bk + ct * NK * kWarp + i, sc + (2 * tiles + kt0) * kWarp + i, src);
+            cp_async<16>(bk + ct * NK * kWarp + i, sc + 2 * tiles * kWarp + i, src);
         if (with_exp)
           for (int i = threadIdx.x; i < Kf * 4; i += blockDim.x)
-            cp_async<16>(pl + ct * Kf * 4 + i, sc + (2 * tiles + nk_all) * kWarp + i, src);
+            cp_async<16>(pl + ct * Kf * 4 + i, sc + (2 * tiles + NK) * kWarp + i, src);
       }
       if (q == 0)
         for (int i = threadIdx.x; i < kGeneCells / 2; i += blockDim.x)
@@ -716,15 +747,13 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
         const double ra[4] = {rf[0], rf[2], rf[1], rf[3]};
         const double ya[4] = {y[0], y[2], y[1], y[3]};
         const double da[4] = {d[0], d[2], d[1], d[3]};
-        if (own) {
 #pragma unroll
-          for (int c = 0; c < NT; ++c) {
-            const double2 b = bn[(ct * NT + c) * kWarp + lane];
-            if (c < ns)
-              dmma(acc[c], ya, b);
-            else if (c < nt)
-              dmma(acc[c], ra, b);
-          }
+        for (int c = 0; c < NT; ++c) {
+          const double2 b = bn[(ct * NT + c) * kWarp + lane];
+          if (c < ns)
+            dmma(acc[c], ya, b);
+          else if (c < nt)
+            dmma(acc[c], ra, b);
         }
         if (with_dw) {
 #pragma unroll
@@ -736,7 +765,7 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
     // the pass's tiles: C (gene0 / gene1, columns 2t, 2t + 1)
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
-      if (c >= nt || !own) continue;
+      if (c >= nt) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int gene = e < 2 ? gene0 : gene1, col = 8 * (tile0 + c) + 2 * t + (e & 1);
@@ -753,7 +782,7 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
       for (int kt = 0; kt < NK; ++kt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int gene = e < 2 ? gene0 : gene1, k = 8 * (kt0 + kt) + 2 * t + (e & 1);
+          const int gene = e < 2 ? gene0 : gene1, k = 8 * kt + 2 * t + (e & 1);
           if (gene >= G || k >= Kf) continue;
           double* o = out + (size_t)k * G + gene;
           *o = q == 0 ? dw[kt][e] : *o + dw[kt][e];
@@ -762,6 +791,171 @@ gene_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __re
   }
 }
 #endif  // F64_ANY_TYPED
+
+// ---------------------------------------------------------------------------
+// The split gene part, past the old bound (see the note at the top): tiled
+// products on the FP64 tensor cores over row blocks of plan.rows cells.
+// ---------------------------------------------------------------------------
+constexpr int kDbM = 64, kDbN = 64, kDbK = 16;  // a block's tile of outputs, and K a stage
+constexpr int kDbThreads = 4 * kWarp;            // 2 x 2 warps of 32 x 32 outputs
+constexpr int kDbStages = 3;                     // the cp.async ring
+// Row pitches (doubles) of a stage's tiles, whose rows hold K, M or N
+// values: 4 mod 16, so that the 16 lanes of each half of a fragment's read
+// hit 16 different pairs of banks.
+constexpr int kDbPitchK = kDbK + 4, kDbPitchM = kDbM + 4, kDbPitchN = kDbN + 4;
+// A stage's doubles: dlog_rfe_f64_kernel's cell and gene tiles (rows of K
+// values); gene_product_f64_kernel's cell side and workspace (or Y) tile
+// (rows of M, of N values).
+constexpr int kDbStageDlog = (kDbM + kDbN) * kDbPitchK;
+constexpr int kDbStageGene = kDbK * (kDbPitchM + kDbPitchN);
+constexpr int db_smem(int stage_doubles) { return 8 * kDbStages * stage_doubles; }
+// The operands and jobs of split_tiles.cuh, in doubles.
+using DbMat = TileMat<double>;
+using DbJob = TileJob<double>;
+using DbJobs = TileJobs<double>;
+
+// acc += A B over one stage's kDbK values of K for the warp's 32 x 32 part
+// of the block's tile (2 x 4 tiles of m16n8k8): A's (m, k) in sa (rows of
+// PA values of K, or where A_KROWS of M), B's (k, n) from bval.
+template <bool A_KROWS, int PA, class BVal>
+__device__ __forceinline__ void db_stage(const double* sa, BVal&& bval, double (&acc)[2][4][4]) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = 32 * (warp / 2), wn = 32 * (warp % 2);
+  auto a = [&](int m, int k) { return A_KROWS ? sa[k * PA + m] : sa[m * PA + k]; };
+#pragma unroll
+  for (int kk = 0; kk < kDbK; kk += 8) {
+    double af[2][4];
+    double2 bf[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = wm + 16 * i + g, k = kk + t;
+      af[i][0] = a(m, k);
+      af[i][1] = a(m + 8, k);
+      af[i][2] = a(m, k + 4);
+      af[i][3] = a(m + 8, k + 4);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = wn + 8 * j + g;
+      bf[j] = make_double2(bval(kk + t, n), bval(kk + t + 4, n));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dmma(acc[i][j], af[i], bf[j]);
+  }
+}
+
+// A row block's rfe = exp(psi W^T) and dlog_rfe = rfe drfe + Y dA1, drfe =
+// dZ muL^T: grid (tiles of kDbN genes, tiles of kDbM cells). log_rfe is
+// formed first, its exps stored to rfe at once, then drfe in the same
+// accumulators (each thread reads back only the rfe it wrote). Rows of
+// psi, dZ, Y and dA1 are the block's.
+template <int YT>
+__global__ void __launch_bounds__(kDbThreads, 3)
+dlog_rfe_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __restrict__ dA1,
+                    DbMat psi, DbMat W, DbMat dZ, DbMat muL, double* rfe, double* dl,
+                    long long ldw) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  double* smem = reinterpret_cast<double*>(s_dyn);
+  const int m0 = blockIdx.y * kDbM, n0 = blockIdx.x * kDbN;  // the tile's first cell and gene
+  const int rows = psi.rows, G = W.rows;
+  double acc[2][4][4];
+  auto product = [&](const DbMat& a, const DbMat& b) {  // acc = a b^T over a's columns
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+    tile_mainloop<kDbStages>(
+        (a.cols + kDbK - 1) / kDbK,
+        [&](int kt, int buf) {
+          double* st = smem + buf * kDbStageDlog;
+          tile_load<kDbThreads, kDbM, kDbK, kDbPitchK>(st, a, m0, kt * kDbK);
+          tile_load<kDbThreads, kDbN, kDbK, kDbPitchK>(st + kDbM * kDbPitchK, b, n0, kt * kDbK);
+        },
+        [&](int buf) {
+          const double* st = smem + buf * kDbStageDlog;
+          const double* sb = st + kDbM * kDbPitchK;
+          db_stage<false, kDbPitchK>(st, [&](int k, int n) { return sb[n * kDbPitchK + k]; }, acc);
+        });
+  };
+  product(psi, W);
+  tile_each_pair<kDbThreads>([&](int r, int c, int i, int j, int h) {
+    const int n = m0 + r, g = n0 + c;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (n < rows && g + u < G) rfe[n * ldw + g + u] = exp(acc[i][j][2 * h + u]);
+  });
+  product(dZ, muL);
+  tile_each_pair<kDbThreads>([&](int r, int c, int i, int j, int h) {
+    const int n = m0 + r, g = n0 + c;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (n < rows && g + u < G)
+        dl[n * ldw + g + u] = fma(y_to_double<YT>(Y[(long long)n * G + g + u]), dA1[n],
+                                  rfe[n * ldw + g + u] * acc[i][j][2 * h + u]);
+  });
+}
+
+// The gene-side products of a row block: grid (tiles of kDbN genes, the
+// first job's m_tiles then the second's tiles of kDbM rows f, slices of
+// zcells cells), K the slice's cells. YV: v is Y (the block's rows, in its
+// storage type, converted into the stage), else the jobs' own v. Slice z
+// writes out + z zstride, the first row block's (first) or adds to it, in
+// order.
+template <int YT, bool YV>
+__global__ void __launch_bounds__(kDbThreads, 3)
+gene_product_f64_kernel(DbJobs jobs, const typename Y64<YT>::Elem* __restrict__ Y, int G,
+                        bool first, int zcells, long long zstride) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  double* smem = reinterpret_cast<double*>(s_dyn);
+  constexpr int kA = kDbK * kDbPitchM;
+  const int second = (int)blockIdx.y >= jobs.job[0].m_tiles;
+  const DbJob& job = jobs.job[second];
+  const int m0 = ((int)blockIdx.y - (second ? jobs.job[0].m_tiles : 0)) * kDbM;
+  const int n0 = blockIdx.x * kDbN;
+  const int c0 = blockIdx.z * zcells;  // the slice's cells
+  const int rows = min(zcells, job.x.rows - c0);
+  DbMat x = job.x, v = job.v;
+  x.p += c0 * x.ld;
+  x.rows = rows;
+  v.p += c0 * v.ld;
+  v.rows = rows;
+  double acc[2][4][4] = {};
+  tile_mainloop<kDbStages>(
+      (rows + kDbK - 1) / kDbK,
+      [&](int kt, int buf) {
+        double* st = smem + buf * kDbStageGene;
+        tile_load<kDbThreads, kDbK, kDbM, kDbPitchM>(st, x, kt * kDbK, m0);
+        if constexpr (YV) {  // the threads' own loads, visible after the ring's barrier
+          for (int i = threadIdx.x; i < kDbK * kDbN; i += kDbThreads) {
+            const int r = i / kDbN, c = i % kDbN, n = kt * kDbK + r, g = n0 + c;
+            st[kA + r * kDbPitchN + c] =
+                n < rows && g < G ? y_to_double<YT>(Y[(long long)(c0 + n) * G + g]) : 0.0;
+          }
+        } else {
+          tile_load<kDbThreads, kDbK, kDbN, kDbPitchN>(st + kA, v, kt * kDbK, n0);
+        }
+      },
+      [&](int buf) {
+        const double* st = smem + buf * kDbStageGene;
+        const double* sv = st + kA;
+        db_stage<true, kDbPitchM>(st, [&](int k, int n) { return sv[k * kDbPitchN + n]; }, acc);
+      });
+  double* out = job.out + blockIdx.z * zstride;
+  tile_each_pair<kDbThreads>([&](int r, int c, int i, int j, int h) {
+    const int f = m0 + r, g = n0 + c;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (f >= x.cols || g + u >= G) continue;
+      double* o = out + (long long)f * G + g + u;
+      *o = first ? acc[i][j][2 * h + u] : *o + acc[i][j][2 * h + u];
+    }
+  });
+}
 
 #if F64_COMMON
 // The forward's gene side, once a call, in the order its stages take it:
@@ -806,8 +1000,8 @@ __global__ void fwd_f64_pack_kernel(const double* __restrict__ W, const double* 
 // of every tile ([tile][lane]: dZ^T at j = 8 jt + t, + 4 and cell 8ct + g,
 // jt the d(muL) tile, zero for dlog mu's), the tiles' own ([tile][lane]:
 // cells 8ct + 2t, + 1 at column 8 tile + g of [dA2 (st tiles) | dZ]), dW's
-// (nk tiles, every group's; [kt][lane]: psi at those cells, column 8 kt +
-// g) and psi's for log_rfe
+// (nk tiles; [kt][lane]: psi at those cells, column 8 kt + g) and psi's
+// for log_rfe
 // ([k][t]); then dA1 of the 32 cells. Zero past N and every width.
 __global__ void gene_f64_pack_kernel(const double* __restrict__ psi, const double* __restrict__ dA1,
                                      const double* __restrict__ dA2, const double* __restrict__ dZ,
@@ -1095,12 +1289,6 @@ inline int dpsi_tiles(int Kf, int nk, int nz, int groups) {
 inline long long dpsi_table(int G, int Kf, int nk, int nz, int groups, int steps) {
   return 2LL * cdiv(G, 8 * steps) * steps * dpsi_tiles(Kf, nk, nz, groups) * kWarp;
 }
-// dW's column groups of the gene part (a launch each): past nk tiles of [psi, X]
-inline int gene_wgroups(int Kf, int nk) {
-  const int tiles = (Kf + 7) / 8;
-  return tiles > nk ? (tiles + nk - 1) / nk : 1;
-}
-
 // The least of the built counts c[0..n) that is >= v (else the largest).
 inline long long least_count(const int* c, int n, long long v) {
   for (int i = 0; i < n; ++i)
@@ -1124,18 +1312,25 @@ bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int y_type) {
 
 // The plan ops/fused_likelihood.py's f64_plan made (its F64_PLAN_KEYS, in
 // order), or false where a number does not fit these sizes: the forward's
-// and the gene part's tiles of each width, split evenly into groups or
-// passes each the least built count that holds them (the gene part's
-// beside dW's built count), grid.y within 65535, dpsi's built counts the
-// least that hold [psi, X] and an even split of dZ's tiles into its groups,
-// its k-steps a stage 4 unless that leaves room for one block an SM, the
-// blocks covering the cells and genes, the chunks whole stages covering the
-// cells, each shared memory size the kernel's layout and within the card's,
-// and the room of the partial sums and of the packed tables.
+// tiles of each width, split evenly into groups each the least built count
+// that holds them, grid.y within 65535, dpsi's built counts the least that
+// hold [psi, X] and an even split of dZ's tiles into its groups, its
+// k-steps a stage 4 unless that leaves room for one block an SM, the blocks
+// covering the cells, each shared memory size the kernel's layout and
+// within the card's, and the room of the packed tables. The gene part's:
+// within the old bound its tiles split evenly into passes each the least
+// built count that holds them beside dW's built count, the blocks covering
+// the genes, the chunks whole stages covering the cells with grid.y within
+// 65535, its shared memory and the room of the partial sums and of its
+// packed table; past it (split) row blocks that hold every cell once, each
+// within grid.y's 65535 tiles, the workspace's row pitch a whole number of
+// 16 bytes of at least G, and slices of cells (of 32) that hold every cell
+// of the one row block once, or one slice a row block, with room for their
+// partial sums.
+constexpr int kPlanKeys = 31;
 bool plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Plan& p) {
-  constexpr int kKeys = 27;  // the last four are sizes
-  for (int i = 0; i < kKeys; ++i)
-    if (v[i] < 0 || (i < kKeys - 4 && v[i] > 0x7fffffff)) return false;
+  for (int i = 0; i < kPlanKeys; ++i)
+    if (v[i] < 0 || ((i < 23 || i > 26) && v[i] > 0x7fffffff)) return false;
   p.f_yt = (int)v[0], p.f_tiles = (int)v[1], p.f_count = (int)v[2], p.f_nt = (int)v[3];
   p.f_groups = (int)v[4], p.f_blocks = (int)v[5], p.f_smem = (int)v[6];
   p.d_nk = (int)v[7], p.d_nz = (int)v[8], p.d_groups = (int)v[9], p.d_steps = (int)v[10];
@@ -1145,37 +1340,58 @@ bool plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Plan& p)
   p.n_chunks = (int)v[21], p.g_smem = (int)v[22];
   p.part = (size_t)v[23], p.f_table = (size_t)v[24], p.g_table = (size_t)v[25];
   p.d_table = (size_t)v[26];
+  p.split = (int)v[27], p.ldw = (int)v[28], p.gslices = (int)v[29], p.gcells = (int)v[30];
   const long long F = (long long)Kf + SC + nA2, zt = cdiv(SC, 8);
   constexpr int kFwdCounts = sizeof(kFwdTileCounts) / sizeof(int);
   constexpr int kDpsiK = sizeof(kDpsiKCounts) / sizeof(int);
   constexpr int kDpsiZ = sizeof(kDpsiZCounts) / sizeof(int);
+  const bool fwd_dpsi =
+      p.f_yt == cdiv(Kf + nA2, 8) && p.f_tiles == p.f_yt + zt &&
+      p.f_groups == cdiv(p.f_tiles, kFwdTileCounts[kFwdCounts - 1]) && p.f_groups <= 65535 &&
+      p.f_count == cdiv(p.f_tiles, p.f_groups) &&
+      p.f_nt == least_count(kFwdTileCounts, kFwdCounts, p.f_count) && p.f_nt >= p.f_count &&
+      p.f_blocks == cdiv(N, 16 * kFwdWarps) && p.f_smem == fwd_smem(Kf, p.f_nt) &&
+      p.f_smem <= kMaxSmem &&
+      p.d_nk == least_count(kDpsiKCounts, kDpsiK, Kf > 8 ? cdiv(Kf, 8) : 1) &&
+      dpsi_kgroups(Kf, p.d_nk) <= 65535 && p.d_groups == cdiv(zt, kDpsiZCounts[kDpsiZ - 1]) &&
+      p.d_nz == least_count(kDpsiZCounts, kDpsiZ, cdiv(zt, p.d_groups)) &&
+      (long long)p.d_nz * p.d_groups >= zt &&
+      p.d_steps == (dpsi_smem(Kf, p.d_nk, p.d_nz, 4) <= kTwoBlockSmem ? 4 : 2) &&
+      p.d_blocks == cdiv(N, 16 * kDpsiWarps) &&
+      p.d_smem == dpsi_smem(Kf, p.d_nk, p.d_nz, p.d_steps) && p.d_smem <= kMaxSmem &&
+      p.f_table >= (size_t)fwd_table(G, Kf, p.f_tiles) &&
+      p.d_table >= (size_t)dpsi_table(G, Kf, p.d_nk, p.d_nz, p.d_groups, p.d_steps);
+  if (!fwd_dpsi) return false;
+  if (p.split == 1) {
+    const long long keys = (long long)p.g_st + p.g_tiles + p.g_nk + p.g_count + p.g_nt +
+                           p.g_passes + p.g_blocks + p.g_smem + (long long)p.g_table;
+    return keys == 0 && p.rows >= 1 && p.n_chunks >= 1 && (long long)p.n_chunks * p.rows >= N &&
+           (long long)(p.n_chunks - 1) * p.rows < N && cdiv(p.rows, kDbM) <= 65535 &&
+           p.ldw >= G && p.ldw % 2 == 0 && cdiv(Kf, kDbM) + cdiv(SC, kDbM) <= 65535 &&
+           cdiv(nA2, kDbM) <= 65535 && p.gslices >= 1 && p.gslices <= 65535 &&
+           (p.gslices == 1 ? p.gcells == p.rows : p.n_chunks == 1) && p.gcells >= 32 &&
+           p.gcells % 32 == 0 && (long long)p.gslices * p.gcells >= (N < p.rows ? N : p.rows) &&
+           (long long)(p.gslices - 1) * p.gcells < N && p.part % 2 == 0 &&
+           p.part >= (p.gslices > 1 ? (size_t)p.gslices * F * G : 0);
+  }
   const int* gc = nullptr;
   const int n_gc = gene_tile_counts(p.g_nk, &gc);
-  return p.f_yt == cdiv(Kf + nA2, 8) && p.f_tiles == p.f_yt + zt &&
-         p.f_groups == cdiv(p.f_tiles, kFwdTileCounts[kFwdCounts - 1]) && p.f_groups <= 65535 &&
-         p.f_count == cdiv(p.f_tiles, p.f_groups) &&
-         p.f_nt == least_count(kFwdTileCounts, kFwdCounts, p.f_count) && p.f_nt >= p.f_count &&
-         p.f_blocks == cdiv(N, 16 * kFwdWarps) && p.f_smem == fwd_smem(Kf, p.f_nt) &&
-         p.f_smem <= kMaxSmem &&
-         p.d_nk == least_count(kDpsiKCounts, kDpsiK, Kf > 8 ? cdiv(Kf, 8) : 1) &&
-         dpsi_kgroups(Kf, p.d_nk) <= 65535 && p.d_groups == cdiv(zt, kDpsiZCounts[kDpsiZ - 1]) &&
-         p.d_nz == least_count(kDpsiZCounts, kDpsiZ, cdiv(zt, p.d_groups)) &&
-         (long long)p.d_nz * p.d_groups >= zt &&
-         p.d_steps == (dpsi_smem(Kf, p.d_nk, p.d_nz, 4) <= kTwoBlockSmem ? 4 : 2) &&
-         p.d_blocks == cdiv(N, 16 * kDpsiWarps) &&
-         p.d_smem == dpsi_smem(Kf, p.d_nk, p.d_nz, p.d_steps) && p.d_smem <= kMaxSmem &&
+  return p.split == 0 && p.ldw == 0 && p.gslices == 0 && p.gcells == 0 &&
          p.g_st == cdiv(nA2, 8) && p.g_tiles == p.g_st + zt &&
          p.g_nk == least_count(kGeneKCounts, 3, Kf > 8 ? cdiv(Kf, 8) : 1) && n_gc > 0 &&
-         gene_wgroups(Kf, p.g_nk) <= 65535 &&
-         p.g_passes == cdiv(p.g_tiles, gc[n_gc - 1]) && p.g_count == cdiv(p.g_tiles, p.g_passes) &&
+         cdiv(Kf, 8) <= p.g_nk && p.g_passes == cdiv(p.g_tiles, gc[n_gc - 1]) &&
+         p.g_count == cdiv(p.g_tiles, p.g_passes) &&
          p.g_nt == least_count(gc, n_gc, p.g_count) && p.g_nt >= p.g_count &&
          p.g_blocks == cdiv(G, 16 * kGeneWarps) && p.rows >= kGeneCells &&
          p.rows % kGeneCells == 0 && p.n_chunks == cdiv(N, p.rows) && p.n_chunks <= 65535 &&
          p.g_smem == gene_smem(Kf, p.g_nt, p.g_nk) && p.g_smem <= kMaxSmem &&
          p.part >= (size_t)p.n_chunks * F * G && p.part % 2 == 0 &&
-         p.f_table >= (size_t)fwd_table(G, Kf, p.f_tiles) &&
-         p.g_table >= (size_t)gene_table(N, Kf, p.g_tiles, gene_wgroups(Kf, p.g_nk) * p.g_nk) &&
-         p.d_table >= (size_t)dpsi_table(G, Kf, p.d_nk, p.d_nz, p.d_groups, p.d_steps);
+         p.g_table >= (size_t)gene_table(N, Kf, p.g_tiles, p.g_nk);
+}
+
+// Cells of row block b of the split gene part.
+inline int db_block_rows(const Plan& p, int N, int b) {
+  return N - b * p.rows < p.rows ? N - b * p.rows : p.rows;
 }
 
 #if F64_COMMON
@@ -1219,7 +1435,7 @@ template <int YT>
 using GeneKernel = void (*)(const typename Y64<YT>::Elem*, const double*, const double*,
                             const double*, const double*, const double*, const double*,
                             const double2*, double*, int, int, int, int, int, int, int, int, int,
-                            bool, int, int);
+                            bool);
 
 // The instantiation a plan names (plan_of has checked its counts).
 template <int YT>
@@ -1235,26 +1451,24 @@ FwdKernel<YT> fwd_kernel_of(const Plan& p) {
   }
 }
 template <int YT>
-GeneKernel<YT> gene_kernel_of(const Plan& p, int Kf) {
+GeneKernel<YT> gene_kernel_of(const Plan& p) {
   if (p.g_nk == 1) {
     switch (p.g_nt) {
-      case 1: return gene_f64_kernel<YT, 1, 1, false>;
-      case 2: return gene_f64_kernel<YT, 2, 1, false>;
-      case 3: return gene_f64_kernel<YT, 3, 1, false>;
-      case 4: return gene_f64_kernel<YT, 4, 1, false>;
-      default: return gene_f64_kernel<YT, 5, 1, false>;
+      case 1: return gene_f64_kernel<YT, 1, 1>;
+      case 2: return gene_f64_kernel<YT, 2, 1>;
+      case 3: return gene_f64_kernel<YT, 3, 1>;
+      case 4: return gene_f64_kernel<YT, 4, 1>;
+      default: return gene_f64_kernel<YT, 5, 1>;
     }
   }
   if (p.g_nk == 2) {
     switch (p.g_nt) {
-      case 1: return gene_f64_kernel<YT, 1, 2, false>;
-      case 2: return gene_f64_kernel<YT, 2, 2, false>;
-      default: return gene_f64_kernel<YT, 4, 2, false>;
+      case 1: return gene_f64_kernel<YT, 1, 2>;
+      case 2: return gene_f64_kernel<YT, 2, 2>;
+      default: return gene_f64_kernel<YT, 4, 2>;
     }
   }
-  if (gene_wgroups(Kf, p.g_nk) > 1)  // dW's columns in groups
-    return p.g_nt == 1 ? gene_f64_kernel<YT, 1, 8, true> : gene_f64_kernel<YT, 2, 8, true>;
-  return p.g_nt == 1 ? gene_f64_kernel<YT, 1, 8, false> : gene_f64_kernel<YT, 2, 8, false>;
+  return p.g_nt == 1 ? gene_f64_kernel<YT, 1, 8> : gene_f64_kernel<YT, 2, 8>;
 }
 
 template <int YT>
@@ -1274,14 +1488,12 @@ void gene_typed(const GeneArgs& a) {
   using Elem = typename Y64<YT>::Elem;
   const Elem* Y = static_cast<const Elem*>(a.Y);
   const bool vec = a.G % 8 == 0 && reinterpret_cast<uintptr_t>(Y) % 16 == 0;
-  const GeneKernel<YT> kernel = gene_kernel_of<YT>(a.plan, a.Kf);
+  const GeneKernel<YT> kernel = gene_kernel_of<YT>(a.plan);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.plan.g_smem);
-  const int groups = gene_wgroups(a.Kf, a.plan.g_nk), nk_all = groups * a.plan.g_nk;
-  for (int z = 0; z < groups; ++z)  // dW's column groups, the first writing the rest
-    kernel<<<dim3(a.plan.g_blocks, a.plan.n_chunks), kGeneWarps * kWarp, a.plan.g_smem,
-             a.stream>>>(Y, a.psi, a.W, a.muL, a.dA1, a.dA2, a.dZ, a.table, a.part, a.N, a.G,
-                         a.Kf, a.nA2, a.SC, a.plan.rows, a.plan.g_st, a.plan.g_count,
-                         a.plan.g_passes, vec, z * a.plan.g_nk, nk_all);
+  kernel<<<dim3(a.plan.g_blocks, a.plan.n_chunks), kGeneWarps * kWarp, a.plan.g_smem,
+           a.stream>>>(Y, a.psi, a.W, a.muL, a.dA1, a.dA2, a.dZ, a.table, a.part, a.N, a.G, a.Kf,
+                       a.nA2, a.SC, a.plan.rows, a.plan.g_st, a.plan.g_count, a.plan.g_passes,
+                       vec);
 }
 
 template <int YT>
@@ -1291,12 +1503,52 @@ int blocks_per_sm(int which, const Plan& p, int Kf) {
     const FwdKernel<YT> kernel = fwd_kernel_of<YT>(p);
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.f_smem);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFwdWarps * kWarp, p.f_smem);
+  } else if (p.split) {
+    constexpr int smem = db_smem(kDbStageDlog);
+    cudaFuncSetAttribute(dlog_rfe_f64_kernel<YT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dlog_rfe_f64_kernel<YT>, kDbThreads,
+                                                  smem);
   } else {
-    const GeneKernel<YT> kernel = gene_kernel_of<YT>(p, Kf);
+    const GeneKernel<YT> kernel = gene_kernel_of<YT>(p);
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.g_smem);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kGeneWarps * kWarp, p.g_smem);
   }
   return blocks;
+}
+
+// The split gene part's Y-reading launches on row block b: which 0,
+// dlog_rfe_f64_kernel<YT> (rfe and dlog_rfe to the workspace); which 1,
+// dlog mu = dA2^T Y by gene_product_f64_kernel<YT, true> into the output's
+// last nA2 rows (or the slices' partial sums).
+template <int YT>
+void split_typed(const SplitArgs& a, int b, int which) {
+  using Elem = typename Y64<YT>::Elem;
+  const Plan& p = a.plan;
+  const long long n0 = (long long)b * p.rows;
+  const int rows = db_block_rows(p, a.N, b), G = a.G, Kf = a.Kf, SC = a.SC;
+  const Elem* Y = static_cast<const Elem*>(a.Y) + n0 * G;
+  if (which == 0) {
+    constexpr int smem = db_smem(kDbStageDlog);
+    cudaFuncSetAttribute(dlog_rfe_f64_kernel<YT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    dlog_rfe_f64_kernel<YT><<<dim3((unsigned)cdiv(G, kDbN), (unsigned)cdiv(rows, kDbM)), kDbThreads,
+                              smem, a.stream>>>(
+        Y, a.dA1 + n0, tile_mat(a.psi + n0 * Kf, Kf, rows, Kf), tile_mat(a.W, Kf, G, Kf),
+        tile_mat(a.dZ + n0 * SC, SC, rows, SC), tile_mat(a.muL, SC, G, SC), a.rfe, a.dl, p.ldw);
+    return;
+  }
+  const bool sliced = p.gslices > 1;
+  const DbJob job{tile_mat(a.dA2 + n0 * a.nA2, a.nA2, rows, a.nA2), DbMat{},
+                  (sliced ? a.gpart : a.dgene) + (long long)(Kf + SC) * G,
+                  (int)cdiv(a.nA2, kDbM)};
+  constexpr int smem = db_smem(kDbStageGene);
+  cudaFuncSetAttribute(gene_product_f64_kernel<YT, true>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  gene_product_f64_kernel<YT, true>
+      <<<dim3((unsigned)cdiv(G, kDbN), job.m_tiles, p.gslices), kDbThreads, smem, a.stream>>>(
+          DbJobs{{job, job}}, Y, G, sliced || b == 0, p.gcells,
+          sliced ? (long long)(Kf + SC + a.nA2) * G : 0);
 }
 #endif  // F64_ANY_TYPED
 
@@ -1304,26 +1556,72 @@ int blocks_per_sm(int which, const Plan& p, int Kf) {
 template void forward_typed<kYF64>(const FwdArgs&);
 template void gene_typed<kYF64>(const GeneArgs&);
 template int blocks_per_sm<kYF64>(int, const Plan&, int);
+template void split_typed<kYF64>(const SplitArgs&, int, int);
 #endif
 #if F64_TYPED(1)
 template void forward_typed<kYBF16>(const FwdArgs&);
 template void gene_typed<kYBF16>(const GeneArgs&);
 template int blocks_per_sm<kYBF16>(int, const Plan&, int);
+template void split_typed<kYBF16>(const SplitArgs&, int, int);
 #endif
 #if F64_TYPED(2)
 template void forward_typed<kYI16>(const FwdArgs&);
 template void gene_typed<kYI16>(const GeneArgs&);
 template int blocks_per_sm<kYI16>(int, const Plan&, int);
+template void split_typed<kYI16>(const SplitArgs&, int, int);
 #endif
 #if F64_TYPED(3)
 template void forward_typed<kYI8>(const FwdArgs&);
 template void gene_typed<kYI8>(const GeneArgs&);
 template int blocks_per_sm<kYI8>(int, const Plan&, int);
+template void split_typed<kYI8>(const SplitArgs&, int, int);
 #endif
 
 }  // namespace fl64
 
 #if F64_COMMON
+// The split gene part over the plan's row blocks (see the note at the top):
+// for each, dlog_rfe_f64_kernel (a.rfe and a.dl the block's rfe and
+// dlog_rfe), dW^T = psi^T dlog_rfe and d(muL)^T = dZ^T rfe by
+// gene_product_f64_kernel, and dlog mu = dA2^T Y where nA2 > 0, summed over
+// the row blocks in order into a.dgene (or a single row block's slices'
+// partial sums into a.gpart, which reduce_chunks_f64_kernel adds in order).
+static void split_gene(const SplitArgs& a, int y_type) {
+  const Plan& p = a.plan;
+  const int G = a.G, Kf = a.Kf, SC = a.SC;
+  const long long FG = ((long long)Kf + SC + a.nA2) * G;
+  const bool sliced = p.gslices > 1;
+  double* out = sliced ? a.gpart : a.dgene;
+  auto typed = [&](int b, int which) {
+    switch (y_type) {
+      case kYF64: split_typed<kYF64>(a, b, which); break;
+      case kYBF16: split_typed<kYBF16>(a, b, which); break;
+      case kYI16: split_typed<kYI16>(a, b, which); break;
+      default: split_typed<kYI8>(a, b, which);
+    }
+  };
+  constexpr int gsmem = db_smem(kDbStageGene);
+  cudaFuncSetAttribute(gene_product_f64_kernel<kYF64, false>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, gsmem);
+  for (int b = 0; b < p.n_chunks; ++b) {
+    const long long n0 = (long long)b * p.rows;
+    const int rows = db_block_rows(p, a.N, b);
+    typed(b, 0);  // rfe and dlog_rfe of the row block
+    const DbJob dw{tile_mat(a.psi + n0 * Kf, Kf, rows, Kf), tile_mat(a.dl, p.ldw, rows, G), out,
+                   (int)cdiv(Kf, kDbM)};
+    const DbJob dmu{tile_mat(a.dZ + n0 * SC, SC, rows, SC), tile_mat(a.rfe, p.ldw, rows, G),
+                    out + (long long)Kf * G, (int)cdiv(SC, kDbM)};
+    gene_product_f64_kernel<kYF64, false>
+        <<<dim3((unsigned)cdiv(G, kDbN), dw.m_tiles + dmu.m_tiles, p.gslices), kDbThreads, gsmem,
+           a.stream>>>(DbJobs{{dw, dmu}}, nullptr, G, sliced || b == 0, p.gcells,
+                       sliced ? FG : 0);
+    if (a.nA2) typed(b, 1);  // dlog mu = dA2^T Y
+    if (sliced)  // one row block: its slices' partial sums, added in order
+      reduce_chunks_f64_kernel<<<(int)cdiv(FG, 256), 256, 0, a.stream>>>(a.gpart, a.dgene,
+                                                                         p.gslices, FG);
+  }
+}
+
 extern "C" {
 
 // Y (N,G) is a device pointer to a contiguous array of the storage type
@@ -1385,7 +1683,9 @@ int fl64_backward_dpsi(const double* psi, const double* W, const double* muL, co
 // (N), dA2 (N,nA2), dZ (N,SC). Output dgene (Kf+SC+nA2, G) = [dW^T;
 // d(muL)^T; dlog_mu]; scratch holds the plan's part doubles, the partial
 // sums of each chunk (an even count), then its g_table doubles, the packed cell side
-// (gene_f64_pack_kernel, launched first). Kf == 0 runs with rfe = 1.
+// (gene_f64_pack_kernel, launched first); where the plan is the split one,
+// part (the slices' partial sums, where gslices > 1) and then 2 x rows x
+// ldw doubles, the row block's rfe and dlog_rfe. Kf == 0 runs with rfe = 1.
 int fl64_backward_gene(const void* Y, const double* psi, const double* W, const double* muL,
                        const double* dA1, const double* dA2, const double* dZ, double* scratch,
                        double* dgene, const long long* plan, int N, int G, int Kf, int nA2,
@@ -1393,12 +1693,18 @@ int fl64_backward_gene(const void* Y, const double* psi, const double* W, const 
   Plan p;
   if (bad_sizes(N, G, Kf, nA2, SC, y_type) || !plan_of(plan, N, G, Kf, nA2, SC, p))
     return (int)cudaErrorInvalidValue;
+  if (p.split) {
+    double* rfe = scratch + p.part;
+    const SplitArgs a{Y,   psi, W,  muL, dA1, dA2, dZ, rfe, rfe + (size_t)p.rows * p.ldw, dgene,
+                      scratch, N, G, Kf, nA2, SC, p,  stream};
+    split_gene(a, y_type);
+    return (int)cudaGetLastError();
+  }
   double* table = scratch + p.part;
-  const int nk_all = gene_wgroups(Kf, p.g_nk) * p.g_nk;
-  const long long n = gene_table(N, Kf, p.g_tiles, nk_all) / 2;
+  const long long n = gene_table(N, Kf, p.g_tiles, p.g_nk) / 2;
   gene_f64_pack_kernel<<<(int)cdiv(n, 256), 256, 0, stream>>>(
       psi, dA1, dA2, dZ, reinterpret_cast<double2*>(table), N, Kf, nA2, SC, p.g_st, p.g_tiles,
-      nk_all, n);
+      p.g_nk, n);
   const GeneArgs a{Y,  psi, W,  muL, dA1, dA2, dZ, scratch, reinterpret_cast<const double2*>(table),
                    N,  G,   Kf, nA2, SC,  p,   stream};
   switch (y_type) {
@@ -1413,10 +1719,12 @@ int fl64_backward_gene(const void* Y, const double* psi, const double* W, const 
   return (int)cudaGetLastError();
 }
 
-// What the plan's kernels take on the card: out[0..6) = fwd_f64_kernel's
+// What the plan's kernels take on the card: out[0..8) = fwd_f64_kernel's
 // dynamic shared memory bytes and blocks an SM (the occupancy query) at Y
-// storage y_type, the same for dpsi_f64_kernel and for gene_f64_kernel.
-// Returns cudaErrorInvalidValue where the plan does not fit the sizes.
+// storage y_type, the same for dpsi_f64_kernel, for gene_f64_kernel (where
+// the plan is the split one dlog_rfe_f64_kernel) and, for the split one,
+// gene_product_f64_kernel<0, 0> (else zeros). Returns cudaErrorInvalidValue
+// where the plan does not fit the sizes.
 int fl64_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC, int y_type,
                    int* out) {
   Plan p;
@@ -1430,7 +1738,7 @@ int fl64_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC,
   out[2] = p.d_smem;
   out[3] = blocks;
   for (int which = 0; which < 2; ++which) {
-    const int smem = which == 0 ? p.f_smem : p.g_smem;
+    const int smem = which == 0 ? p.f_smem : p.split ? db_smem(kDbStageDlog) : p.g_smem;
     switch (y_type) {
       case kYF64: blocks = blocks_per_sm<kYF64>(which, p, Kf); break;
       case kYBF16: blocks = blocks_per_sm<kYBF16>(which, p, Kf); break;
@@ -1439,6 +1747,16 @@ int fl64_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC,
     }
     out[4 * which] = smem;
     out[4 * which + 1] = blocks;
+  }
+  out[6] = out[7] = 0;
+  if (p.split) {
+    constexpr int smem = db_smem(kDbStageGene);
+    cudaFuncSetAttribute(gene_product_f64_kernel<kYF64, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gene_product_f64_kernel<kYF64, false>,
+                                                  kDbThreads, smem);
+    out[6] = smem;
+    out[7] = blocks;
   }
   return (int)cudaGetLastError();
 }

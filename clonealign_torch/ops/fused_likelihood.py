@@ -34,12 +34,16 @@ which forms rfe and dlog_rfe once a row block of cells into a workspace
 tiled products (``dpsi_product_kernel``, ``gene_product_kernel``);
 :func:`kernel_backward` forms dlog_rfe once for both parts there, in one
 call of the gene part's entry point with dpsi, counted in
-``split_launches``.
+``split_launches``. The forward is the split one there too: rfe once a row
+block (``dlog_rfe_kernel``'s rfe-only form), Z = rfe muL as a tiled
+product over gene ranges (``dpsi_product_kernel``, ``dpsi_sum_kernel``)
+and Y's products by ``fwd_wide_y_kernel``, counted in ``fwd_wide_launches``.
 :func:`wide_plan` gives the launch geometry and workspace, which the C
 launchers take and check; it raises a ValueError where a width's shared
-memory would pass the card's (``MAX_SMEM`` a block): it takes Kf = K + P up
-to 160 at every S and S*C (the forward's shared memory is the bound). The
-plain versions take any width and are the wide family's too.
+memory would pass the card's (``MAX_SMEM`` a block), which no width
+reaches: within the old bound Kf is at most 64, and past it every kernel's
+tiles are fixed. The plain versions take any width and are the wide
+family's too.
 
 Float64 operands (``dtype="float64"`` fits, the oracle configuration) go
 to a family of their own, ``csrc/fused_likelihood_f64.cu``: the forward
@@ -49,7 +53,10 @@ to a family of their own, ``csrc/fused_likelihood_f64.cu``: the forward
 ``reduce_chunks_f64_kernel``), float64 throughout: every product on the
 FP64 tensor cores, the exps on the CUDA cores; one family for every width
 (no narrow/wide split), counted apart in
-``*_f64_launches``.
+``*_f64_launches``. Past the old bound its gene part is the split one
+(``dlog_rfe_f64_kernel`` and ``gene_product_f64_kernel``: rfe and
+dlog_rfe once a row block into a float64 workspace, dW, d(muL) and dlog
+mu as tiled products).
 :func:`f64_plan` gives their launch geometry and workspace, which the C
 entry points take and check (and raises where the shared memory would pass
 the card's: it takes Kf up to 139). Nothing on that path runs in float32.
@@ -102,6 +109,9 @@ _TWO_BLOCK_SMEM = (228 - 2) // 2 * 1024
 SPLIT_KF, SPLIT_A2, SPLIT_SC = 64, 64, 2048
 _SPLIT_M, _SPLIT_N, _SPLIT_K, _SPLIT_STAGES, _SPLIT_BLOCKS = 64, 64, 32, 3, 2
 _SPLIT_ELEMENTS = 1 << 23
+# The share of its last wave the split forward's Z product fills at least
+# (:func:`_gene_ranges`).
+_WAVE_FILL = 0.9
 _ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
 # Y storage types the kernels load, with the code the C entry points take
 Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2, torch.int8: 3}
@@ -132,6 +142,9 @@ F64_GENE_TILE_COUNTS = {1: (1, 2, 3, 4, 5), 2: (1, 2, 4), 8: (1, 2)}
 F64_FWD_Y_STAGE_BYTES = 20_480
 F64_GENE_Y_STAGE_BYTES = 16_896
 F64_MAX_SMEM = 232_448
+# The float64 split gene part's blocks an SM (the f64 .cu's
+# __launch_bounds__ of dlog_rfe_f64_kernel and gene_product_f64_kernel).
+_F64_SPLIT_BLOCKS = 3
 
 # Kernel launches, each counted by the wrapper that launches the kernel:
 # the narrow kernels' and the wide family's apart.
@@ -171,11 +184,12 @@ def wide_route(Kf: int, n_a2: int, SC: int) -> bool:
 
 
 def split_route(Kf: int, n_a2: int, SC: int) -> bool:
-    """Whether the wide family's backward at these widths is the split one
-    (``dlog_rfe_kernel`` and the tiled products, :func:`wide_plan`'s
-    ``split``): exactly past the old bound, Kf 64, n_a2 64 or SC 2,048. The
-    old widths keep the ungrouped ``dpsi_wide_kernel`` and
-    ``gene_wide_kernel``."""
+    """Whether the wide family's forward and backward at these widths are the
+    split ones (``dlog_rfe_kernel`` and the tiled products, :func:`wide_plan`'s
+    ``split``; in float64 the split gene part, :func:`f64_plan`'s):
+    exactly past the old bound, Kf 64, n_a2 64 or SC 2,048. The old widths
+    keep ``fwd_wide_kernel``'s Z groups and the ungrouped
+    ``dpsi_wide_kernel`` and ``gene_wide_kernel`` (``gene_f64_kernel``)."""
     return Kf > SPLIT_KF or n_a2 > SPLIT_A2 or SC > SPLIT_SC
 
 
@@ -292,7 +306,7 @@ WIDE_PLAN_KEYS = ("n_kc", "n_zt", "n_yt", "n_st", "g_pad", "zt_group", "n_zgroup
                   "table", "part", "dz", "ps", "a2", "a1",
                   "dk_pad", "dz_group", "n_dgroups", "dsteps", "dtable",
                   "n_ygroups", "a1_parts", "a1part", "split", "ldw", "dsplit", "dgenes",
-                  "gslices", "gcells", "ldz")
+                  "gslices", "gcells", "ldz", "zsplit", "zgenes")
 # The most dynamic shared memory a block may take on the card (227 KB).
 MAX_SMEM = 232_448
 
@@ -312,10 +326,10 @@ def split_smem(y_itemsize: int = 4) -> dict:
 def _wide_smem(p: dict) -> dict:
     """Each wide kernel's dynamic shared memory in bytes under plan p (the
     .cu's fwd_wide_smem, fwd_wide_y_smem and gene_wide_smem at float32 Y,
-    the widest storage, and dpsi_wide_smem; where the backward is the split
-    one, the gene part's dlog_rfe_kernel, dpsi_product_kernel, and
-    gene_product_kernel's, :func:`split_smem`), and the forward's k-steps a
-    stage."""
+    the widest storage, and dpsi_wide_smem; where the plan is the split one,
+    the forward's and the gene part's dlog_rfe_kernel, dpsi_product_kernel,
+    and gene_product_kernel's, :func:`split_smem`), and the forward's k-steps
+    a stage (0 for the split forward)."""
     n_kc, nz, ny, nj = p["n_kc"], p["zt_group"], p["ny_pad"], p["nj"]
 
     def groups(tiles):  # past 10 tiles two warps share a row group
@@ -325,13 +339,13 @@ def _wide_smem(p: dict) -> dict:
         a = groups(nz) * steps * 2 * 32 if nz > 10 else 0
         return 16 * (groups(nz) * n_kc * 2 * 32 + 2 * steps * (n_kc + nz) * 32 + a)
 
-    steps = 4 if fwd(4) <= _TWO_BLOCK_SMEM else 2
     y_stage = 4 * ny * 32 + groups(ny) * 16 * (32 * 4 + 16) // 16
-    out = dict(fwd=fwd(steps), fwd_steps=steps, fwd_y=16 * 2 * y_stage)
-    if p["split"]:
+    if p["split"]:  # the split forward's rfe kernel, and its Z product dpsi's
         sb = split_smem()
-        return dict(out, gene=sb["dlog"], dpsi=sb["dpsi"], gene_products=sb["gene"],
-                    gene_y=sb["gene_y"])
+        return dict(fwd=sb["dlog"], fwd_steps=0, fwd_y=16 * 2 * y_stage, gene=sb["dlog"],
+                    dpsi=sb["dpsi"], gene_products=sb["gene"], gene_y=sb["gene_y"])
+    steps = 4 if fwd(4) <= _TWO_BLOCK_SMEM else 2
+    out = dict(fwd=fwd(steps), fwd_steps=steps, fwd_y=16 * 2 * y_stage)
     strides = (8 * nj + 4) + (8 * n_kc + 4) + (8 * p["n_st"] + 4 if p["n_st"] else 0)
     g_stage = (2 * _GENE_WIDE_CELLS * strides + _GENE_WIDE_CELLS) // 4 + _GENE_WIDE_CELLS * (64 * 4 + 16) // 16
     dpsi = 16 * (_DPSI_WIDE_WARPS * 3 * p["dk_pad"] * 32
@@ -339,16 +353,62 @@ def _wide_smem(p: dict) -> dict:
     return dict(out, gene=16 * (4 * (n_kc + 2 * nj) * 32 + 2 * g_stage), dpsi=dpsi)
 
 
-def _split_rows(N: int, G: int) -> tuple:
-    """The split backward's row blocks: (cells a block, blocks, the
-    workspace's row pitch). A block holds at most _SPLIT_ELEMENTS floats of
-    rfe (or dlog_rfe) past one tile of 64 cells, and the blocks are as even
-    as whole tiles make them."""
-    ldw = _cdiv(G, 4) * 4
-    most = max(_SPLIT_M, _SPLIT_ELEMENTS // ldw // _SPLIT_M * _SPLIT_M)
+def _split_rows(N: int, G: int, elements: int = _SPLIT_ELEMENTS, align: int = 4) -> tuple:
+    """The split kernels' row blocks: (cells a block, blocks, the
+    workspace's row pitch, a whole number of ``align`` values). A block
+    holds at most ``elements`` values of rfe (or dlog_rfe) past one tile of
+    64 cells, and the blocks are as even as whole tiles make them."""
+    ldw = _cdiv(G, align) * align
+    most = max(_SPLIT_M, elements // ldw // _SPLIT_M * _SPLIT_M)
     n_blocks = _cdiv(N, most)
     rows = _cdiv(_cdiv(N, n_blocks), _SPLIT_M) * _SPLIT_M
     return rows, _cdiv(N, rows), ldw
+
+
+def _cell_slices(N: int, rows: int, n_chunks: int, products: int, slots: int) -> tuple:
+    """(gslices, gcells): one row block's gene products (``products``
+    blocks) in slices of cells where their blocks would not fill the
+    card's ``slots`` (blocks an SM x 132) twice over, slices of 256 cells at
+    least and whole stages of 32; one slice of ``rows`` otherwise."""
+    if n_chunks > 1 or products >= 2 * slots:
+        return 1, rows
+    gslices = max(1, min(_cdiv(2 * slots, products), _cdiv(N, 256)))
+    gcells = _cdiv(_cdiv(N, gslices), 32) * 32
+    gslices = _cdiv(N, gcells)
+    return (gslices, gcells) if gslices > 1 else (1, rows)
+
+
+def _gene_ranges(tiles: int, G: int) -> tuple:
+    """(zsplit, zgenes): the split forward's Z product, ``tiles`` blocks of
+    64 x 64 outputs a row block, in gene ranges of whole stages of 32 (256
+    genes at least), the fewest whose blocks fill their last wave of two an
+    SM on 132 SMs to _WAVE_FILL (else the best fill): the blocks of one
+    range run in whole waves only where the tiles happen to."""
+    slots = _SPLIT_BLOCKS * 132
+
+    def fill(z):
+        return tiles * z / (_cdiv(tiles * z, slots) * slots)
+
+    most = max(1, _cdiv(G, 256))
+    return _even_ranges(G, next((z for z in range(1, most + 1) if fill(z) >= _WAVE_FILL),
+                                max(range(1, most + 1), key=fill)))
+
+
+def _even_ranges(G: int, n: int) -> tuple:
+    """(ranges, genes a range): G genes in about ``n`` even ranges of whole
+    stages of 32 genes."""
+    genes = _cdiv(_cdiv(G, n), 32) * 32
+    return _cdiv(G, genes), genes
+
+
+def _split_fwd_workspace(plan: dict, G: int, SC: int) -> int:
+    """The split forward's workspace in floats, as ``fl_forward_wide`` lays
+    it out: the packed table, ``a1part``, the row block's rfe (``rows`` x
+    ``ldw``), the gene ranges' sums of Z (``zsplit`` x ``rows`` x SC in
+    whole float4s, where more than one) and muL at a pitch of ``ldz`` (G x
+    ``ldz``)."""
+    zpart = _cdiv(plan["zsplit"] * plan["rows"] * SC, 4) * 4 if plan["zsplit"] > 1 else 0
+    return plan["table"] + plan["a1part"] + plan["rows"] * plan["ldw"] + zpart + G * plan["ldz"]
 
 
 def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
@@ -365,7 +425,9 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
 
     Forward: Z's tiles split evenly into ``n_zgroups`` column groups of at
     most ``WIDE_TILES`` (grid.y of ``fwd_wide_kernel``; each recomputes the
-    exps), each padded to ``zt_group``; the Y products' tiles split evenly
+    exps), each padded to ``zt_group`` (past the old bound none: the split
+    forward forms rfe a row block, below, and Z = rfe muL in ``zsplit``
+    ranges of ``zgenes`` genes, :func:`_gene_ranges`); the Y products' tiles split evenly
     into ``n_ygroups`` groups of at most 16 (grid.y of ``fwd_wide_y_kernel``,
     each a read of Y), each padded to ``ny_pad``. Where one warp holds
     every column of Y W, it writes A1; else (``a1_parts`` > 0) each warp
@@ -383,7 +445,8 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     the card twice over (slices of 256 cells at least; one slice of
     ``rows`` otherwise); where SC is no multiple of 4, dZ's row block and
     muL copied to a row pitch of ``ldz`` floats, a multiple of 4 (else 0).
-    The keys of the gene part's and dpsi's other kernels are then 0.
+    The keys of the gene part's and dpsi's other kernels are then 0, and
+    the forward's Z groups' (``n_zgroups``, ``zt_group``).
 
     Else, gene part: chunks of ``rows`` cells (:func:`_chunk_rows`), each a
     block row of partial sums; dW's ``n_kc`` tiles, at most 8, beside
@@ -399,12 +462,16 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     shared memory a block).
 
     Workspace, in float32 values: ``table``, the forward's packed gene-side
-    B fragments, and ``a1part``; ``part`` (the partial sums), ``dz``,
+    B fragments (past the old bound only the Y products'), and ``a1part``;
+    ``part`` (the partial sums), ``dz``,
     ``ps``, ``a2`` and ``a1`` (the packed cell side), the gene part's
     scratch; ``dtable``, dpsi's packed gene side. ``fwd_workspace``,
     ``dpsi_workspace`` and ``gene_workspace`` are what :func:`kernel_forward`,
     :func:`kernel_dpsi` and :func:`kernel_gene` allocate for the kernels,
-    the last with its (Kf + SC + n_a2, G) output; where ``split``, dpsi's is
+    the last with its (Kf + SC + n_a2, G) output; where ``split``, the
+    forward's is the table and ``a1part``, the row block's rfe (``rows`` x
+    ``ldw``), the ranges' sums of Z (``zsplit`` x ``rows`` x SC, where more
+    than one) and muL at a pitch of ``ldz`` (G x ``ldz``); dpsi's is
     the row block's t = rfe drfe and the ranges' sums (``dsplit`` x ``rows``
     x Kf), the gene part's the row block's rfe and dlog_rfe, the ranges'
     sums (which only :func:`kernel_backward`'s call, with dpsi, fills) and
@@ -415,37 +482,32 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     parts); else the two parts' workspaces.
 
     A width whose kernels' shared memory (``smem``) passes the card's
-    ``MAX_SMEM`` a block raises a ValueError; Kf up to 160 fits at every S
-    and S*C (the forward's psi fragments of 128 cells and the stage's W^T
-    tiles fill it first)."""
+    ``MAX_SMEM`` a block raises a ValueError, and none does: within the old
+    bound (Kf up to 64) every kernel fits two blocks an SM, and past it
+    every kernel's tiles are fixed, so Kf takes any width."""
     n_kc, n_zt, n_yt, n_st = _cdiv(Kf, 8), _cdiv(SC, 8), _cdiv(Kf + n_a2, 8), _cdiv(n_a2, 8)
     g_pad = _cdiv(G, _FWD_WIDE_GENES) * _FWD_WIDE_GENES
-    n_zgroups = _cdiv(n_zt, WIDE_TILES)
-    zt_group = _at_least(WIDE_TILE_COUNTS, _cdiv(n_zt, n_zgroups))
+    split = split_route(Kf, n_a2, SC)
+    n_zgroups = 0 if split else _cdiv(n_zt, WIDE_TILES)
+    zt_group = 0 if split else _at_least(WIDE_TILE_COUNTS, _cdiv(n_zt, n_zgroups))
     n_ygroups = _cdiv(max(n_yt, 1), WIDE_Y_TILE_COUNTS[-1])
     ny_pad = _at_least(WIDE_Y_TILE_COUNTS, _cdiv(max(n_yt, 1), n_ygroups))
     halves = 2 if ny_pad > 10 else 1
     a1_parts = 0 if n_ygroups == 1 and Kf <= 8 * (ny_pad // halves) else n_ygroups * halves
     a1part = _cdiv(a1_parts * N, 4) * 4
-    table = g_pad // 8 * (n_kc + n_zgroups * zt_group + n_ygroups * ny_pad) * 32 * 4
+    # the table's tiles a k-step: W^T's and the Z groups' (none for the
+    # split forward), then the Y products'
+    table = g_pad // 8 * ((0 if split else n_kc) + n_zgroups * zt_group
+                          + n_ygroups * ny_pad) * 32 * 4
     F = Kf + SC + n_a2
-    split = split_route(Kf, n_a2, SC)
     if split:
         rows, n_chunks, ldw = _split_rows(N, G)
         base = _cdiv(rows, _SPLIT_M) * _cdiv(max(Kf, 1), _SPLIT_N)
-        dsplit = max(1, min(_cdiv(_SPLIT_BLOCKS * 132, base), _cdiv(G, 256)))
-        dgenes = _cdiv(_cdiv(G, dsplit), 32) * 32
-        dsplit = _cdiv(G, dgenes)
-        # one row block's gene products in slices of cells where their
-        # blocks would not fill the card twice over
-        gslices, gcells = 1, rows
+        dsplit, dgenes = _even_ranges(G, max(1, min(_cdiv(_SPLIT_BLOCKS * 132, base),
+                                                      _cdiv(G, 256))))
         products = _cdiv(G, _SPLIT_N) * (_cdiv(Kf, _SPLIT_M) + _cdiv(SC, _SPLIT_M))
-        if n_chunks == 1 and products < 4 * 132:
-            gslices = max(1, min(_cdiv(4 * 132, products), _cdiv(N, 256)))
-            gcells = _cdiv(_cdiv(N, gslices), 32) * 32
-            gslices = _cdiv(N, gcells)
-            if gslices == 1:
-                gcells = rows
+        gslices, gcells = _cell_slices(N, rows, n_chunks, products, _SPLIT_BLOCKS * 132)
+        zsplit, zgenes = _gene_ranges(_cdiv(rows, _SPLIT_M) * _cdiv(SC, _SPLIT_N), G)
         gene = dict.fromkeys(("n_pad", "nj", "mu_passes", "y_pass", "n_passes", "part", "dz",
                               "ps", "a2", "a1", "dk_pad", "dz_group", "n_dgroups", "dsteps",
                               "dtable"), 0)
@@ -453,7 +515,7 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
         # none (the kernels' copies of them are then 16 bytes)
         ldz = _cdiv(SC, 4) * 4 if SC % 4 else 0
         gene.update(rows=rows, n_chunks=n_chunks, split=1, ldw=ldw, dsplit=dsplit, dgenes=dgenes,
-                    gslices=gslices, gcells=gcells, ldz=ldz)
+                    gslices=gslices, gcells=gcells, ldz=ldz, zsplit=zsplit, zgenes=zgenes)
     else:
         rows = _chunk_rows(N)
         n_chunks = _cdiv(N, rows)
@@ -482,7 +544,8 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
                     ps=n_pad * 16 * n_kc, a2=n_pad * 16 * n_st, a1=n_pad, dk_pad=dk_pad,
                     dz_group=dz_group, n_dgroups=n_dgroups, dsteps=dsteps,
                     dtable=g_pad // 8 * (2 * dk_pad + n_dgroups * dz_group) * 32 * 4,
-                    split=0, ldw=0, dsplit=0, dgenes=0, gslices=0, gcells=0, ldz=0)
+                    split=0, ldw=0, dsplit=0, dgenes=0, gslices=0, gcells=0, ldz=0, zsplit=0,
+                    zgenes=0)
     plan = dict(n_kc=n_kc, n_zt=n_zt, n_yt=n_yt, n_st=n_st, g_pad=g_pad, zt_group=zt_group,
                 n_zgroups=n_zgroups, ny_pad=ny_pad, table=table, n_ygroups=n_ygroups,
                 a1_parts=a1_parts, a1part=a1part, **gene)
@@ -493,12 +556,13 @@ def wide_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     if worst > MAX_SMEM:
         raise ValueError(
             f"the wide CUDA kernels at Kf={Kf}, S={n_a2}, S*C={SC} need {worst} bytes of shared "
-            f"memory a block, past the card's {MAX_SMEM} (227 KB): Kf = K + P is too wide")
+            f"memory a block, past the card's {MAX_SMEM} (227 KB)")
     plan["fwd_workspace"] = table + a1part
     if split:
         block, dpart = plan["rows"] * plan["ldw"], plan["dsplit"] * plan["rows"] * Kf
         gpart = _cdiv(plan["gslices"] * F * G, 4) * 4 if plan["gslices"] > 1 else 0
         pad = (plan["rows"] + G) * plan["ldz"]
+        plan["fwd_workspace"] = _split_fwd_workspace(plan, G, SC)
         plan["dpsi_workspace"] = block + dpart + pad
         plan["gene_workspace"] = 2 * block + dpart + gpart + pad + F * G
         plan["bwd_workspace"] = plan["gene_workspace"]
@@ -520,7 +584,8 @@ def _plan_arg(plan: dict, keys=WIDE_PLAN_KEYS):
 F64_PLAN_KEYS = ("f_yt", "f_tiles", "f_count", "f_nt", "f_groups", "f_blocks", "f_smem",
                  "d_nk", "d_nz", "d_groups", "d_steps", "d_blocks", "d_smem",
                  "g_st", "g_tiles", "g_nk", "g_count", "g_nt", "g_passes", "g_blocks", "rows",
-                 "n_chunks", "g_smem", "part", "f_table", "g_table", "d_table")
+                 "n_chunks", "g_smem", "part", "f_table", "g_table", "d_table", "split", "ldw",
+                 "gslices", "gcells")
 
 
 def f64_fwd_smem(Kf: int, nt: int) -> int:
@@ -593,14 +658,22 @@ def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     ``gene_workspace``, what :func:`kernel_gene` allocates: the partial sums,
     the table and its (Kf + SC + n_a2, G) output.
 
-    Past Kf = 64 (the C side derives these from Kf and the built counts,
-    which are then 8): dpsi's output columns go in ``d_kgroups`` groups of
-    ``d_nk`` tiles (grid.y), each forming log_rfe over ``d_lr`` tiles, all
-    of [psi, X]; the gene part's dW in ``g_wgroups`` groups of ``g_nk``
-    tiles (a launch each), only the first taking the passes' tiles. A width whose
-    shared memory passes the card's ``F64_MAX_SMEM`` a block raises a
-    ValueError; Kf up to 139 fits at every S and S*C (the forward's psi and
-    W fill it first)."""
+    Past the old bound (:func:`split_route`: ``split``) the gene part is the
+    split one: ``n_chunks`` row blocks of ``rows`` cells (:func:`_split_rows`
+    at 2^22 doubles a buffer, half the float32 one's cells), whose rfe and
+    dlog_rfe ``dlog_rfe_f64_kernel`` writes to a workspace of ``rows`` rows
+    ``ldw`` doubles apart (an even count), and ``gene_product_f64_kernel``
+    takes dW, d(muL) and dlog mu from it, a single row block's cells in
+    ``gslices`` slices of ``gcells`` where its blocks would not fill three
+    an SM twice over (:func:`_cell_slices`; ``part`` their partial sums);
+    the gene part's other keys are then 0, and ``gene_workspace`` is
+    ``part``, the two row-block buffers and the output. Past Kf = 64 (the C
+    side derives these from Kf and the built counts, which are then 8):
+    dpsi's output columns go in ``d_kgroups`` groups of ``d_nk`` tiles
+    (grid.y), each forming log_rfe over ``d_lr`` tiles, all of [psi, X]. A
+    width whose shared memory passes the card's ``F64_MAX_SMEM`` a block
+    raises a ValueError; Kf up to 139 fits at every S and S*C (the forward's
+    psi and W fill it first; the split gene part's tiles are fixed)."""
     F = Kf + n_a2 + SC
     f_yt = _cdiv(Kf + n_a2, 8)
     f_tiles = f_yt + _cdiv(SC, 8)
@@ -616,28 +689,40 @@ def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     d_nz = _at_least(F64_DPSI_Z_COUNTS, _cdiv(_cdiv(SC, 8), d_groups))
     d_steps = 4 if f64_dpsi_smem(d_nk, d_nz, 4, lr) <= _TWO_BLOCK_SMEM else 2
     d_tiles = d_groups * d_nz + d_kgroups * d_nk + d_lr
-    g_st = _cdiv(n_a2, 8)
-    g_tiles = g_st + _cdiv(SC, 8)
-    g_nk = _at_least(F64_GENE_K_COUNTS, kc)
-    g_wgroups = _cdiv(kc, g_nk)
-    counts = F64_GENE_TILE_COUNTS[g_nk]
-    g_passes = _cdiv(g_tiles, counts[-1])
-    g_count = _cdiv(g_tiles, g_passes)
-    g_nt = _at_least(counts, g_count)
-    rows = _chunk_rows(N)
-    n_chunks = _cdiv(N, rows)
     plan = dict(zip(F64_PLAN_KEYS, (
         f_yt, f_tiles, f_count, f_nt, f_groups, _cdiv(N, 16 * F64_FWD_WARPS),
         f64_fwd_smem(Kf, f_nt),
         d_nk, d_nz, d_groups, d_steps, _cdiv(N, 16 * F64_DPSI_WARPS),
-        f64_dpsi_smem(d_nk, d_nz, d_steps, lr),
-        g_st, g_tiles, g_nk, g_count, g_nt, g_passes, _cdiv(G, 16 * F64_GENE_WARPS), rows,
-        n_chunks, f64_gene_smem(Kf, g_nt, g_nk), 2 * _cdiv(n_chunks * F * G, 2),
-        2 * _cdiv(G, F64_FWD_GENES) * 4 * (32 * f_tiles + 4 * Kf),
-        2 * _cdiv(N, F64_GENE_CELLS) * (4 * (32 * (2 * g_tiles + g_wgroups * g_nk) + 4 * Kf)
-                                        + F64_GENE_CELLS // 2),
-        2 * _cdiv(G, 8 * d_steps) * d_steps * 32 * d_tiles)))
-    plan.update(d_kgroups=d_kgroups, d_lr=d_lr, g_wgroups=g_wgroups)
+        f64_dpsi_smem(d_nk, d_nz, d_steps, lr))))
+    plan.update(f_table=2 * _cdiv(G, F64_FWD_GENES) * 4 * (32 * f_tiles + 4 * Kf),
+                d_table=2 * _cdiv(G, 8 * d_steps) * d_steps * 32 * d_tiles)
+    if split_route(Kf, n_a2, SC):
+        rows, n_chunks, ldw = _split_rows(N, G, _SPLIT_ELEMENTS // 2, 2)
+        products = _cdiv(G, _SPLIT_N) * (_cdiv(Kf, _SPLIT_M) + _cdiv(SC, _SPLIT_M))
+        gslices, gcells = _cell_slices(N, rows, n_chunks, products, _F64_SPLIT_BLOCKS * 132)
+        plan.update(dict.fromkeys(("g_st", "g_tiles", "g_nk", "g_count", "g_nt", "g_passes",
+                                   "g_blocks", "g_smem", "g_table"), 0),
+                    rows=rows, n_chunks=n_chunks, split=1, ldw=ldw, gslices=gslices,
+                    gcells=gcells, part=2 * _cdiv(gslices * F * G, 2) if gslices > 1 else 0)
+    else:
+        g_st = _cdiv(n_a2, 8)
+        g_tiles = g_st + _cdiv(SC, 8)
+        g_nk = _at_least(F64_GENE_K_COUNTS, kc)
+        counts = F64_GENE_TILE_COUNTS[g_nk]
+        g_passes = _cdiv(g_tiles, counts[-1])
+        g_count = _cdiv(g_tiles, g_passes)
+        g_nt = _at_least(counts, g_count)
+        rows = _chunk_rows(N)
+        n_chunks = _cdiv(N, rows)
+        plan.update(g_st=g_st, g_tiles=g_tiles, g_nk=g_nk, g_count=g_count, g_nt=g_nt,
+                    g_passes=g_passes, g_blocks=_cdiv(G, 16 * F64_GENE_WARPS), rows=rows,
+                    n_chunks=n_chunks, g_smem=f64_gene_smem(Kf, g_nt, g_nk),
+                    part=2 * _cdiv(n_chunks * F * G, 2),
+                    g_table=2 * _cdiv(N, F64_GENE_CELLS) * (4 * (32 * (2 * g_tiles + g_nk) + 4 * Kf)
+                                                            + F64_GENE_CELLS // 2),
+                    split=0, ldw=0, gslices=0, gcells=0)
+    plan = {k: plan[k] for k in F64_PLAN_KEYS}
+    plan.update(d_kgroups=d_kgroups, d_lr=d_lr)
     worst = max(plan["f_smem"], plan["d_smem"], plan["g_smem"])
     if worst > F64_MAX_SMEM:
         raise ValueError(
@@ -646,7 +731,8 @@ def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
             "too wide")
     plan["fwd_workspace"] = plan["f_table"]
     plan["dpsi_workspace"] = plan["d_table"]
-    plan["gene_workspace"] = plan["part"] + plan["g_table"] + F * G
+    plan["gene_workspace"] = (plan["part"] + plan["g_table"] + 2 * plan["rows"] * plan["ldw"]
+                              + F * G)
     return plan
 
 
@@ -687,7 +773,8 @@ def _raise_on(err: int, what: str):
 
 def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     """Launch the forward kernel, or the wide one past a narrow limit
-    (:func:`wide_route`), or for float64 operands ``fwd_f64_pack_kernel``
+    (:func:`wide_route`; past the old bound the split forward, by row blocks:
+    :func:`wide_plan`'s ``fwd_workspace``), or for float64 operands ``fwd_f64_pack_kernel``
     and ``fwd_f64_kernel`` (:func:`f64_plan`, its ``fwd_workspace``). Returns (A1, A2 or None, Z, YW) in the compute
     dtype, with ``YW = Y @ W_ext`` (N, Kf) for the backward's dpsi kernel."""
     global fwd_launches, fwd_wide_launches, fwd_f64_launches
@@ -796,8 +883,9 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     without dpsi; the plain version of both is
     :func:`reference_likelihood_vjp`'s), or for
     float64 operands ``gene_f64_pack_kernel``, ``gene_f64_kernel`` and
-    ``reduce_chunks_f64_kernel`` (the same plain version; :func:`f64_plan`'s
-    ``gene_workspace``).
+    ``reduce_chunks_f64_kernel``, past the old bound ``dlog_rfe_f64_kernel``
+    and ``gene_product_f64_kernel`` by row blocks (the same plain version;
+    :func:`f64_plan`'s ``gene_workspace``).
     Returns (dW, dlog_mu or None, dmuL)."""
     global gene_launches, gene_wide_launches, gene_f64_launches
     from . import _build
@@ -819,7 +907,7 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
     F = Kf + SC + n_a2
     if dt == torch.float64:
         plan = f64_plan(N, G, Kf, n_a2, SC)
-        scratch = torch.empty(plan["part"] + plan["g_table"], device=Y.device, dtype=dt)
+        scratch = torch.empty(plan["gene_workspace"] - F * G, device=Y.device, dtype=dt)
         dgene = torch.empty(F, G, device=Y.device, dtype=dt)
         stream = ctypes.c_void_p(torch.cuda.current_stream(Y.device).cuda_stream)
         _raise_on(lib.fl64_backward_gene(

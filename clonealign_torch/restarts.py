@@ -84,8 +84,10 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     (``fused_likelihood.gene_scratch``: partial sums of each chunk of
     cells, the packed cell side) and its (K + P + S C, G) sums; where the
     wide family runs (K + P, S or S C past the narrow kernels' limits;
-    ``fused_likelihood.wide_plan``) the wide forward's packed gene table
-    (every forward, z_cheb's too), and with the exact backward the wide
+    ``fused_likelihood.wide_plan``) the wide forward's workspace
+    (``fwd_workspace``, every forward, z_cheb's too: its packed gene table,
+    or past the old bound the split forward's Y-product table, row block of
+    rfe and gene ranges' sums of Z), and with the exact backward the wide
     backward's workspace (``bwd_workspace``) in place of the narrow one's:
     dpsi's packed gene table and the gene part's, or past the old bound the
     split backward's row block of rfe and dlog_rfe, dpsi's gene ranges'
@@ -94,8 +96,9 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     every width: its forward's packed gene table (``fwd_workspace``, every
     forward) and with the exact backward dpsi's packed gene table
     (``dpsi_workspace``) and its gene part's partial sums, packed cell
-    table and sums (``fused_likelihood.f64_plan``'s ``gene_workspace``),
-    float64 values.
+    table and sums, or past the old bound the split gene part's row block
+    of rfe and dlog_rfe and its slices' sums (``fused_likelihood.f64_plan``'s
+    ``gene_workspace``), float64 values.
 
     The counts of the ELBO's tensors and of "map"'s held parameters are the
     code's order fitted to the card's peaks (``chip_smoke.inference_peaks``;

@@ -120,7 +120,16 @@ def _groups(n, groups, cols):
     return [list(range(q * cols, min(n, (q + 1) * cols))) for q in range(groups)]
 
 
-@pytest.mark.parametrize("shape", PLAN_SHAPES)
+# ... and past the old bound (the split gene part): one row block with its
+# cells in slices, Kf 72 / S 66 / S*C 660 at full width (121 row blocks of
+# 832 cells), every bound at once, two row blocks at 45,000 x 100, and Kf
+# 139, the widest the forward takes
+PAST_PLAN_SHAPES = [(300, 100, 72, 2, 6), (300, 100, 1, 66, 132), (2100, 200, 1, 33, 2178),
+                    (100_000, 5_000, 72, 0, 660), (100_000, 5_000, 72, 66, 660),
+                    (600, 200, 72, 66, 2178), (45_000, 100, 72, 66, 660), (1000, 500, 139, 0, 10)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES + PAST_PLAN_SHAPES)
 def test_f64_plan_covers_every_column_once_within_every_bound(shape):
     """The forward's column groups hold each 8-column tile of [YW | A2 | Z]
     once (the Y products' tiles first), the gene part's passes each tile of
@@ -136,22 +145,32 @@ def test_f64_plan_covers_every_column_once_within_every_bound(shape):
     grid.y within 65,535; each kernel's shared memory is its layout's and
     within the card's (dpsi's within two blocks an SM, with 4 k-steps a
     stage wherever they fit); the workspace is the packed tables, and the
-    partial sums of every chunk beside the output."""
+    partial sums of every chunk beside the output. Past the old bound the
+    gene part is the split one: its row blocks hold each cell once, in
+    whole tiles of 64 as even as they go, each at most 2^22 doubles of
+    rfe past one tile (half the float32 plan's cells), its workspace's row
+    pitch an even count of at least G, a single row block's slices each
+    cell once in whole stages of 32 where its blocks would not fill three
+    an SM twice over, the grouped gene part's keys 0, and its workspace the
+    slices' partial sums, the row block's rfe and dlog_rfe and the output."""
     N, G, Kf, n_a2, SC = shape
     p = tfl.f64_plan(N, G, Kf, n_a2, SC)
     F = Kf + n_a2 + SC
+    split = Kf > 64 or n_a2 > 64 or SC > 2048
+    assert p["split"] == int(split)
     assert p["f_yt"] == -(-(Kf + n_a2) // 8) and p["f_tiles"] == p["f_yt"] + -(-SC // 8)
-    assert p["g_st"] == -(-n_a2 // 8) and p["g_tiles"] == p["g_st"] + -(-SC // 8)
-    assert 8 * p["g_nk"] >= Kf and p["g_nk"] in tfl.F64_GENE_K_COUNTS
-    assert p["g_nk"] == min(k for k in tfl.F64_GENE_K_COUNTS if 8 * k >= max(Kf, 1))
-    gene_counts = tfl.F64_GENE_TILE_COUNTS[p["g_nk"]]
-    for n, groups, cols, nt, counts in (
-            (p["f_tiles"], p["f_groups"], p["f_count"], p["f_nt"], tfl.F64_FWD_TILE_COUNTS),
-            (p["g_tiles"], p["g_passes"], p["g_count"], p["g_nt"], gene_counts)):
-        split = _groups(n, groups, cols)
-        assert sum(split, []) == list(range(n))
-        assert all(split) and cols <= nt and nt == min(c for c in counts if c >= cols)
-        assert (groups == 1) == (n <= counts[-1])
+    groups = [(p["f_tiles"], p["f_groups"], p["f_count"], p["f_nt"], tfl.F64_FWD_TILE_COUNTS)]
+    if not split:
+        assert p["g_st"] == -(-n_a2 // 8) and p["g_tiles"] == p["g_st"] + -(-SC // 8)
+        assert 8 * p["g_nk"] >= Kf and p["g_nk"] in tfl.F64_GENE_K_COUNTS
+        assert p["g_nk"] == min(k for k in tfl.F64_GENE_K_COUNTS if 8 * k >= max(Kf, 1))
+        groups.append((p["g_tiles"], p["g_passes"], p["g_count"], p["g_nt"],
+                       tfl.F64_GENE_TILE_COUNTS[p["g_nk"]]))
+    for n, n_groups, cols, nt, counts in groups:
+        split_cols = _groups(n, n_groups, cols)
+        assert sum(split_cols, []) == list(range(n))
+        assert all(split_cols) and cols <= nt and nt == min(c for c in counts if c >= cols)
+        assert (n_groups == 1) == (n <= counts[-1])
     # dpsi: group q takes dZ's tiles [q d_nz, (q + 1) d_nz), each tile's 8
     # columns (those past S*C zero), every group holding a column
     nz, zt = p["d_nz"], -(-SC // 8)
@@ -161,46 +180,72 @@ def test_f64_plan_covers_every_column_once_within_every_bound(shape):
     assert nz == min(c for c in tfl.F64_DPSI_Z_COUNTS if c >= -(-zt // p["d_groups"]))
     assert p["d_groups"] == -(-zt // tfl.F64_DPSI_Z_COUNTS[-1])
     assert (p["d_groups"] == 1) == (SC <= 80)
-    psi_cols = [k for kc in range(p["d_nk"]) for k in range(8 * kc, 8 * kc + 8) if k < Kf]
+    kc = -(-Kf // 8)
+    psi_cols = [k for kc_ in range(p["d_kgroups"] * p["d_nk"]) for k in range(8 * kc_, 8 * kc_ + 8)
+                if k < Kf]
     assert psi_cols == list(range(Kf))
-    assert p["d_nk"] == min(k for k in tfl.F64_DPSI_K_COUNTS if 8 * k >= max(Kf, 1))
+    assert p["d_nk"] == min(k for k in tfl.F64_DPSI_K_COUNTS if 8 * k >= min(max(Kf, 1), 64))
+    assert p["d_kgroups"] == (-(-kc // p["d_nk"]) if kc > p["d_nk"] else 1)
     assert p["f_blocks"] * 16 * tfl.F64_FWD_WARPS >= N > (p["f_blocks"] - 1) * 16 * tfl.F64_FWD_WARPS
     dl = 16 * tfl.F64_DPSI_WARPS
     assert p["d_blocks"] * dl >= N > (p["d_blocks"] - 1) * dl
-    gl = 16 * tfl.F64_GENE_WARPS
-    assert p["g_blocks"] * gl >= G > (p["g_blocks"] - 1) * gl
-    assert p["rows"] % tfl.F64_GENE_CELLS == 0 and p["rows"] >= 1024
     assert p["n_chunks"] * p["rows"] >= N > (p["n_chunks"] - 1) * p["rows"]
     assert p["n_chunks"] <= 65535 and p["f_groups"] <= 65535
     assert p["f_smem"] == (8 * (16 * tfl.F64_FWD_WARPS * Kf
                                 + 2 * tfl.F64_FWD_GENES * (8 * p["f_nt"] + Kf))
                            + 2 * tfl.F64_FWD_Y_STAGE_BYTES)
-    lr_tiles = p["d_nk"] if p["d_nk"] > 1 else 0  # log_rfe's W^T tiles (MMAs past Kf 8)
-    d_tiles = nz + p["d_nk"] + lr_tiles  # a stage's tiles a k-step
+    # the packed tables: per 32-gene stage 4 k-steps of every tile's 32 B
+    # pairs and W's 4 pairs a column
+    assert p["f_table"] == 2 * -(-G // 32) * 4 * (32 * p["f_tiles"] + 4 * Kf)
+    assert p["fwd_workspace"] == p["f_table"] and p["dpsi_workspace"] == p["d_table"]
+    if p["d_kgroups"] == 1:
+        lr_tiles = p["d_nk"] if p["d_nk"] > 1 else 0  # log_rfe's W^T tiles (MMAs past Kf 8)
+        d_tiles = nz + p["d_nk"] + lr_tiles  # a stage's tiles a k-step
 
-    def dpsi_smem(steps):  # the warps' psi (2 d_nk tiles each), two stages
-        return 16 * 32 * (tfl.F64_DPSI_WARPS * 2 * p["d_nk"] + 2 * steps * d_tiles)
+        def dpsi_smem(steps):  # the warps' psi (2 d_nk tiles each), two stages
+            return 16 * 32 * (tfl.F64_DPSI_WARPS * 2 * p["d_nk"] + 2 * steps * d_tiles)
 
-    assert p["d_smem"] == dpsi_smem(p["d_steps"]) <= tfl._TWO_BLOCK_SMEM
-    assert p["d_steps"] == (4 if dpsi_smem(4) <= tfl._TWO_BLOCK_SMEM else 2)
+        assert p["d_smem"] == dpsi_smem(p["d_steps"]) <= tfl._TWO_BLOCK_SMEM
+        assert p["d_steps"] == (4 if dpsi_smem(4) <= tfl._TWO_BLOCK_SMEM else 2)
+        # per k-step of 8 genes (G padded to whole stages) every group's
+        # muL^T tiles, dpsi's W tiles and log_rfe's, 32 pairs each
+        g_pad = -(-G // (8 * p["d_steps"])) * 8 * p["d_steps"]
+        assert p["d_table"] == 2 * (g_pad // 8) * 32 * (p["d_groups"] * nz + p["d_nk"] + lr_tiles)
+    assert max(p["f_smem"], p["d_smem"], p["g_smem"]) <= tfl.F64_MAX_SMEM
+    if split:
+        rows, blocks = p["rows"], p["n_chunks"]
+        cells = [n for b in range(blocks) for n in range(b * rows, min(N, (b + 1) * rows))]
+        assert cells == list(range(N)) and rows % 64 == 0 and rows - -(-N // blocks) < 64
+        assert p["ldw"] >= G and p["ldw"] % 2 == 0 and p["ldw"] - G < 2
+        assert rows * p["ldw"] <= max(64 * p["ldw"], 1 << 22)
+        assert not any(p[k] for k in ("g_st", "g_tiles", "g_nk", "g_count", "g_nt", "g_passes",
+                                      "g_blocks", "g_smem", "g_table"))
+        products = -(-G // 64) * (-(-Kf // 64) + -(-SC // 64))
+        if p["gslices"] > 1:  # one row block's cells in slices of whole stages
+            assert blocks == 1 and p["gcells"] % 32 == 0 and products < 2 * 3 * 132
+            assert [n for z in range(p["gslices"])
+                    for n in range(z * p["gcells"], min(N, (z + 1) * p["gcells"]))] == cells
+        else:
+            assert p["gcells"] == rows and (blocks > 1 or products >= 2 * 3 * 132
+                                            or N <= 256)
+        part = p["gslices"] * F * G + (p["gslices"] * F * G) % 2 if p["gslices"] > 1 else 0
+        assert p["part"] == part
+        assert p["gene_workspace"] == part + 2 * rows * p["ldw"] + F * G
+        return
+    gl = 16 * tfl.F64_GENE_WARPS
+    assert p["g_blocks"] * gl >= G > (p["g_blocks"] - 1) * gl
+    assert p["rows"] % tfl.F64_GENE_CELLS == 0 and p["rows"] >= 1024
     assert p["g_smem"] == (8 * (16 * tfl.F64_GENE_WARPS * Kf
                                 + 2 * (tfl.F64_GENE_CELLS * (16 * p["g_nt"] + 8 * p["g_nk"] + Kf)
                                        + tfl.F64_GENE_CELLS))
                            + 2 * tfl.F64_GENE_Y_STAGE_BYTES)
-    assert max(p["f_smem"], p["d_smem"], p["g_smem"]) <= tfl.F64_MAX_SMEM
     assert p["part"] == p["n_chunks"] * F * G + (p["n_chunks"] * F * G) % 2  # table aligned
-    # the packed tables: per 32-gene stage 4 k-steps of every tile's 32 B
-    # pairs and W's 4 pairs a column; per 32-cell stage 4 n-tiles of drfe's
-    # and the tiles' 32 pairs each, dW's, psi's 4 a column, and dA1
-    assert p["f_table"] == 2 * -(-G // 32) * 4 * (32 * p["f_tiles"] + 4 * Kf)
+    # per 32-cell stage 4 n-tiles of drfe's and the tiles' 32 pairs each,
+    # dW's, psi's 4 a column, and dA1
     assert p["g_table"] == 2 * -(-N // 32) * (4 * (32 * (2 * p["g_tiles"] + p["g_nk"]) + 4 * Kf)
                                             + 16)
-    # per k-step of 8 genes (G padded to whole stages) every group's muL^T
-    # tiles, dpsi's W tiles and log_rfe's, 32 pairs each
-    g_pad = -(-G // (8 * p["d_steps"])) * 8 * p["d_steps"]
-    assert p["d_table"] == 2 * (g_pad // 8) * 32 * (p["d_groups"] * nz + p["d_nk"] + lr_tiles)
-    assert p["fwd_workspace"] == p["f_table"] and p["dpsi_workspace"] == p["d_table"]
     assert p["gene_workspace"] == p["part"] + p["g_table"] + F * G
+    assert (p["split"], p["ldw"], p["gslices"], p["gcells"]) == (0, 0, 0, 0)
 
 
 class _FakeLib:
@@ -216,14 +261,17 @@ class _FakeLib:
         return call
 
 
-@pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8), (40, 70, 3, 64, 64)])
+@pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8), (40, 70, 3, 64, 64),
+                                   (40, 70, 10, 72, 66), (2100, 200, 66, 1, 33)])
 def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
     """Float64 operands go to the fl64_* entry points with f64_plan's
     numbers in F64_PLAN_KEYS' order and Y's code in Y_DTYPES_F64, the
     outputs, kernel_forward's packed table (its fwd_workspace),
     kernel_dpsi's (its dpsi_workspace) and kernel_gene's scratch in
     float64, kernel_gene's allocations adding up to the plan's
-    gene_workspace, each launch counted in *_f64_launches and
+    gene_workspace (past the old bound the split gene part's: the slices'
+    partial sums where a single row block's cells go in slices, then the
+    row block's rfe and dlog_rfe, rows x ldw each), each launch counted in *_f64_launches and
     in no float32 count; float32 operands still go to the float32 entry
     points. The wrappers run on CPU tensors with the library recorded, not
     called."""
@@ -255,9 +303,14 @@ def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
             tfl.kernel_gene(Y.to(storage), psi, W, muL, dA1, dA2 if with_a2 else None, dZ)
             assert sum(t.numel() for t in allocated) == p["gene_workspace"]
             assert all(t.dtype == F64 for t in allocated)
+            F = K + S * C + n_a2
+            assert [t.numel() for t in allocated] == [p["gene_workspace"] - F * G, F * G]
+            if p["split"]:
+                assert p["gene_workspace"] - F * G == p["part"] + 2 * p["rows"] * p["ldw"]
+                assert p["part"] == (0 if p["gslices"] == 1 else 2 * -(-p["gslices"] * F * G // 2))
             args = lib.calls.pop("fl64_backward_gene")
             assert list(args[9]) == want and args[-2] == tfl.Y_DTYPES_F64[storage]
-            assert len(want) == len(tfl.F64_PLAN_KEYS) == 27
+            assert len(want) == len(tfl.F64_PLAN_KEYS) == 31
             assert [p[k] for k in ("f_yt", "f_nt", "g_st", "g_nk", "g_nt")] == [
                 args[9][tfl.F64_PLAN_KEYS.index(k)] for k in ("f_yt", "f_nt", "g_st", "g_nk", "g_nt")]
             allocated.clear()
@@ -503,6 +556,40 @@ def _emulate_gene(Y, psi, W, muL, dA1, dA2, dZ, p):
     return total[:Kf].T, (total[Kf + SC:] if n_a2 else None), total[Kf:Kf + SC].T
 
 
+def _emulate_gene_split(Y, psi, W, muL, dA1, dA2, dZ, p):
+    """The split gene part's sums (dlog_rfe_f64_kernel, gene_product_f64_kernel):
+    for each row block of ``rows`` cells, log_rfe = psi W^T and drfe = dZ
+    muL^T over stages of 16 of their K in order, rfe = exp(log_rfe) and
+    dlog_rfe = Y dA1 + rfe drfe (one fma); then over each slice of
+    ``gcells`` cells (the row block where one slice) dW^T = psi^T dlog_rfe,
+    d(muL)^T = dZ^T rfe and dlog mu = dA2^T Y over stages of 16 cells in
+    order, the slices' partial sums added in order, the row blocks' sums
+    into the output in order (the first stores)."""
+    (N, G), Kf, SC = Y.shape, psi.shape[1], muL.shape[1]
+
+    def staged(a, b):  # a (M, K) b (K, N), summed over stages of 16 of K in order
+        out = np.zeros((a.shape[0], b.shape[1]))
+        for k in range(0, a.shape[1], 16):
+            out = out + a[:, k:k + 16] @ b[k:k + 16]
+        return out
+
+    out = None
+    for b0 in range(0, N, p["rows"]):
+        cells = slice(b0, min(N, b0 + p["rows"]))
+        rfe = np.exp(staged(psi[cells], W.T))
+        dlog = Y[cells] * dA1[cells, None] + rfe * staged(dZ[cells], muL.T)
+        n = cells.stop - cells.start
+        block = None
+        for c0 in range(0, n, p["gcells"]):
+            sl = slice(c0, min(n, c0 + p["gcells"]))
+            part = [staged(psi[cells][sl].T, dlog[sl]), staged(dZ[cells][sl].T, rfe[sl])]
+            if dA2 is not None:
+                part.append(staged(dA2[cells][sl].T, Y[cells][sl]))
+            block = part if block is None else [u + v for u, v in zip(block, part)]
+        out = block if out is None else [u + v for u, v in zip(out, block)]
+    return out[0].T, (out[2] if dA2 is not None else None), out[1].T
+
+
 def test_mma_fragment_maps_reproduce_the_product():
     """The m16n8k8 f64 fragment maps the kernels use (A, B, C) give A B + C
     exactly as numpy's product does on integers, every (row, column) held by
@@ -581,10 +668,13 @@ def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
 
 
 @pytest.mark.parametrize("shape", [(37, 41, 2, 1, 1), (70, 60, 10, 6, 8), (40, 30, 3, 64, 64),
-                                   (2100, 20, 9, 2, 4), (40, 30, 10, 72, 66)])
+                                   (2100, 20, 9, 2, 4), (40, 30, 10, 72, 66),
+                                   (2100, 20, 33, 1, 66)])
 def test_kernel_order_emulation_meets_the_tolerance(shape):
     """The emulated kernels (column groups, dpsi's term order, the gene
-    part's passes and chunk partials) against reference_likelihood_terms
+    part's passes and chunk partials; past the old bound the split gene
+    part's row blocks and cell slices, :func:`_emulate_gene_split`, at the
+    last shape in 9 slices) against reference_likelihood_terms
     and reference_likelihood_vjp in float64, within ABS_RTOL of each
     element's absolute-term sum, with A2 on and off: the decomposition the
     kernels run is the contract's."""
@@ -605,7 +695,8 @@ def test_kernel_order_emulation_meets_the_tolerance(shape):
         _assert_within(got[3], Y @ W, scale["YW"], "YW")
         dpsi = _emulate_dpsi(psi, W, muL, cot[0], cot[2], got[3],
                              tfl.f64_plan(N, G, K, 0, S * C))
-        gene = _emulate_gene(Y, psi, W, muL, cot[0], dA2, cot[2], p)
+        gene = (_emulate_gene_split if p["split"] else _emulate_gene)(
+            Y, psi, W, muL, cot[0], dA2, cot[2], p)
         want = tfl.reference_likelihood_vjp(*(None if a is None else _t(a) for a in
                                               (Y, psi, W, muL, cot[0], dA2, cot[2])))
         for name, g, w in zip(("dpsi", "dW", "dlog_mu", "dmuL"), (dpsi, *gene), want):
@@ -798,10 +889,19 @@ def test_cuda_f64_kernels_match_plain(cuda, shape, storage):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (1000, 515, 12, 6, 8),
                                    (300, 100, 32, 64, 64), (130, 77, 2048, 1, 1),
-                                   (90, 37, 5, 9, 2)])
+                                   (90, 37, 5, 9, 2), (2100, 200, 66, 1, 33),
+                                   (45_000, 100, 10, 72, 66)])
 def test_cuda_f64_kernels_are_deterministic(cuda, shape):
     """Each float64 kernel is bit-identical across two launches (no
-    atomics; the chunks' partial sums are added in a fixed order)."""
+    atomics; the chunks' partial sums are added in a fixed order); past
+    the old bound the split gene part too, its slices' partial sums and
+    its row blocks added in order (one row block in slices at 2,100 x 200,
+    two row blocks at 45,000 x 100, A2 on: every width past the bound)."""
+    N, G, C, K, S = shape
+    if K > 64 or S > 64 or S * C > 2048:
+        p = tfl.f64_plan(N, G, K, S, S * C)
+        assert p["split"] and (p["n_chunks"], p["gslices"] > 1) == (
+            (2, False) if N == 45_000 else (1, True))
     _, _, Y, (psi, W, log_mu, muL), (dA1, dA2, dZ) = _on_card(shape, torch.int8, seed=3)
     fwd = [tfl.kernel_forward(Y, psi, W, log_mu, muL) for _ in range(2)]
     for a, b in zip(*fwd):

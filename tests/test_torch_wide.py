@@ -14,15 +14,18 @@ shape; the wide kernels' launch plan (``wide_plan``: every column in one
 group or pass, each pass's accumulator tiles apart, the plan and workspace
 the wrappers hand the library, every bound; past the old bound of Kf 64,
 S 64 and S*C 2,048 the split backward's row blocks, gene ranges and cell
-slices, the route that takes exactly those widths, and the joint
-backward's one library call); an emulation of the kernels' 3xTF32 number
-scheme (the split backward's too) against float64; the sweep's reckoning
-of the wide workspace; and the refusal past the wide family's bound. On
+slices, the split forward's row blocks and gene ranges, the route that
+takes exactly those widths, and the joint backward's one library call);
+an emulation of the kernels' 3xTF32 number scheme (the split forward's
+and backward's too) against float64; the sweep's reckoning of the wide
+workspace; the refusal past the wide family's bound; and the library's
+name following the split kernels' shared header. On
 the card (``cuda`` marker, skipped without a GPU): the wide kernels
 against their plain versions at every Y storage (also at widths Kf, S and
 S*C set apart, as no fit sets them), their launches counted apart from
 the narrow kernels', the forward, dpsi and the gene part deterministic
-(the split backward too), and every plan's kernels at their blocks an SM:
+(the split forward and backward too, at two row blocks), and every
+plan's kernels at their blocks an SM:
 ``python -m pytest --noconftest -m cuda tests/test_torch_wide.py``.
 
 Tolerances: the fused op's values rtol 2e-5 / atol 1e-4 and VJP rtol 3e-5
@@ -358,9 +361,11 @@ def test_sweep_bytes_hold_the_grouped_workspace_past_the_old_bound():
     dlog_rfe (1,664 cells x 5,000 genes each, 61 blocks), dpsi's 6 gene
     ranges' sums (1,664 x Kf each) and the (Kf + S C, G) sums (kernel_gene
     alone the same workspace, one layout for both calls; kernel_dpsi alone
-    one row block and the ranges' sums), and the forward's table with A1's
-    partial sums;
-    in float64 the float64 family's, its dW groups' packed psi included.
+    one row block and the ranges' sums), and the forward's (the split
+    forward's: the Y products' table, A1's partial sums, its row block of
+    rfe and its 5 gene ranges' sums of Z, 1,664 x S C each; every forward,
+    z_cheb's too); in float64 the float64 family's, the split gene part's
+    two row blocks of 832 cells (half the float32 one's) and its output.
     "auto" still runs these lanes together at three restarts."""
     N, G, C, K, P, S = 100_000, 5_000, 10, 2, 70, 66
     Kf, SC = K + P, S * C
@@ -372,8 +377,10 @@ def test_sweep_bytes_hold_the_grouped_workspace_past_the_old_bound():
     bwd = 2 * 1664 * G + 6 * 1664 * Kf + F * G
     assert p["bwd_workspace"] == p["gene_workspace"] == bwd
     pf = tfl.wide_plan(N, G, Kf, S, SC)
-    assert pf["a1_parts"] > 0 and pf["fwd_workspace"] == pf["table"] + pf["a1part"] >= (
-        pf["table"] + pf["a1_parts"] * N)
+    assert (pf["zsplit"], pf["zgenes"], pf["ldz"]) == (5, 1024, 0)
+    assert pf["a1_parts"] > 0 and pf["fwd_workspace"] == (
+        pf["table"] + pf["a1part"] + 1664 * G + 5 * 1664 * SC) and pf["a1part"] >= (
+        pf["a1_parts"] * N)
     block = 4 * tmm._CHUNK_ELEMENTS
 
     def sweep(n_lanes, z_cheb=False, itemsize=4):
@@ -382,8 +389,10 @@ def test_sweep_bytes_hold_the_grouped_workspace_past_the_old_bound():
 
     for n_lanes in (1, 3):
         assert sweep(n_lanes) - sweep(n_lanes, z_cheb=True) == 4 * bwd - block
+        assert sweep(n_lanes) - sweep(0) == sweep(n_lanes, z_cheb=True) - sweep(0, z_cheb=True)
         p64 = tfl.f64_plan(N, G, Kf, 0, SC)
-        assert p64["g_wgroups"] == p64["d_kgroups"] == 2
+        assert (p64["split"], p64["rows"], p64["n_chunks"], p64["d_kgroups"]) == (1, 832, 121, 2)
+        assert p64["gene_workspace"] == 2 * 832 * G + F * G
         assert (sweep(n_lanes, itemsize=8) - sweep(n_lanes, True, itemsize=8)
                 == 8 * (p64["gene_workspace"] + p64["dpsi_workspace"] - tmm._CHUNK_ELEMENTS))
     assert trestarts._auto_restart_batching(N, G, C, K, S, 3, 4, "cuda", 1, P) == "vmap"
@@ -447,12 +456,17 @@ def test_wide_plan_covers_every_column_once(shape):
     share a tile; dpsi holds every tile of [psi, X] and its dZ groups each
     dZ tile once. Past it the split backward's row blocks hold each cell
     once, in whole tiles of 64 as even as they go, and dpsi's ranges each
-    gene once, in whole stages of 32."""
+    gene once, in whole stages of 32; the forward is the split one, with no
+    Z groups, its table the Y products' tiles alone, and its gene ranges
+    hold each gene once, in whole stages of 32, the fewest whose blocks
+    fill their last wave to _WAVE_FILL (or the best fill); its workspace is
+    the table, A1's partial sums, a row block of rfe, the ranges' sums of Z
+    where more than one, and muL's copy at an odd S*C."""
     N, G, Kf, n_a2, SC = shape
     p = tfl.wide_plan(N, G, Kf, n_a2, SC)
     n_zt, n_yt, n_kc, n_st = -(-SC // 8), -(-(Kf + n_a2) // 8), -(-Kf // 8), -(-n_a2 // 8)
     assert (p["n_zt"], p["n_yt"], p["n_kc"], p["n_st"]) == (n_zt, n_yt, n_kc, n_st)
-    assert p["zt_group"] in tfl.WIDE_TILE_COUNTS
+    assert p["zt_group"] in tfl.WIDE_TILE_COUNTS or (p["split"] and p["zt_group"] == 0)
     assert p["ny_pad"] in tfl.WIDE_Y_TILE_COUNTS
     y_tiles = []
     for g in range(p["n_ygroups"]):
@@ -463,14 +477,33 @@ def test_wide_plan_covers_every_column_once(shape):
     per_warp = p["ny_pad"] // (2 if p["ny_pad"] > 10 else 1)
     one_warp = p["n_ygroups"] == 1 and Kf <= 8 * per_warp
     assert p["a1_parts"] == (0 if one_warp else p["n_ygroups"] * p["ny_pad"] // per_warp)
-    assert p["a1part"] >= p["a1_parts"] * N and p["fwd_workspace"] == p["table"] + p["a1part"]
-    z_tiles = []
-    for g in range(p["n_zgroups"]):
-        z = list(range(g * p["zt_group"], min(n_zt, (g + 1) * p["zt_group"])))
-        assert z and p["zt_group"] <= tfl.WIDE_TILES
-        z_tiles += z
-    assert z_tiles == list(range(n_zt))
-    assert (p["n_zgroups"] == 1) == (SC <= 8 * tfl.WIDE_TILES)
+    assert p["a1part"] >= p["a1_parts"] * N
+    if p["split"]:
+        assert p["n_zgroups"] == p["zt_group"] == 0
+        assert p["table"] == -(-G // 32) * 4 * p["n_ygroups"] * p["ny_pad"] * 32 * 4
+        zgenes = [g for z in range(p["zsplit"])
+                  for g in range(z * p["zgenes"], min(G, (z + 1) * p["zgenes"]))]
+        assert zgenes == list(range(G)) and p["zgenes"] % 32 == 0
+        tiles = -(-p["rows"] // 64) * -(-SC // 64)
+
+        def fill(z):
+            return tiles * z / (-(-tiles * z // 264) * 264)
+
+        ranges = range(1, -(-G // 256) + 1)
+        least = next((z for z in ranges if fill(z) >= tfl._WAVE_FILL), max(ranges, key=fill))
+        assert p["zgenes"] == -(-(-(-G // least)) // 32) * 32
+        zpart = -(-p["zsplit"] * p["rows"] * SC // 4) * 4 if p["zsplit"] > 1 else 0
+        assert p["fwd_workspace"] == (p["table"] + p["a1part"] + p["rows"] * p["ldw"] + zpart
+                                      + G * p["ldz"])
+    else:
+        assert p["fwd_workspace"] == p["table"] + p["a1part"] and p["zsplit"] == p["zgenes"] == 0
+        z_tiles = []
+        for g in range(p["n_zgroups"]):
+            z = list(range(g * p["zt_group"], min(n_zt, (g + 1) * p["zt_group"])))
+            assert z and p["zt_group"] <= tfl.WIDE_TILES
+            z_tiles += z
+        assert z_tiles == list(range(n_zt))
+        assert (p["n_zgroups"] == 1) == (SC <= 8 * tfl.WIDE_TILES)
     if p["split"]:
         rows, blocks = p["rows"], p["n_chunks"]
         cells = [n for b in range(blocks) for n in range(b * rows, min(N, (b + 1) * rows))]
@@ -553,7 +586,9 @@ def _recorded_wrappers(monkeypatch):
 def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
     """kernel_gene's allocations (the scratch and the (Kf + SC + n_a2, G)
     output) add up to wide_plan's gene_workspace, kernel_forward's scratch is
-    its fwd_workspace (the packed table), kernel_dpsi's its dpsi_workspace
+    its fwd_workspace (the packed table and A1's partial sums, or past the
+    old bound the split forward's, test_split_workspace_is_what_the_wrappers_allocate),
+    kernel_dpsi's its dpsi_workspace
     (the plan of n_a2 = 0: the packed table, or past the old bound the split
     one's row block and gene ranges' sums), and each entry point gets the
     plan's numbers in WIDE_PLAN_KEYS' order. The wrappers run on CPU
@@ -573,7 +608,8 @@ def test_wide_plan_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
         assert lib.calls["fl_backward_gene_wide"][7] is None  # no dpsi
         sizes.clear()
         tfl.kernel_forward(Y, psi, W, log_mu if with_a2 else None, muL)
-        assert sizes[-1] == p["fwd_workspace"] == p["table"] + p["a1part"]
+        assert sizes[-1] == p["fwd_workspace"]
+        assert p["split"] or p["fwd_workspace"] == p["table"] + p["a1part"]
         assert list(lib.calls["fl_forward_wide"][10]) == want
     p = tfl.wide_plan(N, G, K, 0, S * C)
     sizes.clear()
@@ -594,17 +630,29 @@ def test_split_workspace_is_what_the_wrappers_allocate(monkeypatch, shape):
     row pitch of whole float4s), and its (Kf + SC + n_a2, G) output, which the products write in
     place of chunk partial sums: wide_plan's gene_workspace, with A2 and
     without; kernel_dpsi one row block of t = rfe drfe and dsplit x rows x
-    Kf gene ranges' sums, its dpsi_workspace. Each entry point gets the
+    Kf gene ranges' sums, its dpsi_workspace; kernel_forward the split
+    forward's, the Y products' table and A1's partial sums, one row block of
+    rfe, the zsplit x rows x SC gene ranges' sums of Z where more than one
+    and muL at a row pitch of whole float4s where S*C is no multiple of 4,
+    its fwd_workspace. Each entry point gets the
     plan's numbers, its split key 1 (a call within the bound, as S 66's
     without A2, gets today's workspace). The wrappers run on CPU tensors
     with the CUDA library's entry points recorded, not called."""
     N, G, C, K, S = shape
-    Y, psi, W, _log_mu, muL = _torch(_inputs(N, G, C, K, S, seed=2))
+    Y, psi, W, log_mu, muL = _torch(_inputs(N, G, C, K, S, seed=2))
     dA1, dA2, dZ = _torch(_cotangents(N, S, S * C, seed=2))
     lib, sizes = _recorded_wrappers(monkeypatch)
     for da2, n_a2 in ((dA2, S), (None, 0)):
         p = tfl.wide_plan(N, G, K, n_a2, S * C)
         assert p["split"] == tfl.split_route(K, n_a2, S * C)
+        sizes.clear()
+        tfl.kernel_forward(Y, psi, W, None if da2 is None else log_mu, muL)
+        assert list(lib.calls["fl_forward_wide"][10]) == [p[k] for k in tfl.WIDE_PLAN_KEYS]
+        assert sizes[-1] == p["fwd_workspace"]
+        if p["split"]:
+            zpart = -(-p["zsplit"] * p["rows"] * S * C // 4) * 4 if p["zsplit"] > 1 else 0
+            assert p["fwd_workspace"] == (p["table"] + p["a1part"] + p["rows"] * p["ldw"] + zpart
+                                          + G * p["ldz"])
         sizes.clear()
         tfl.kernel_gene(Y, psi, W, muL, dA1, da2, dZ)
         F = K + S * C + n_a2
@@ -814,9 +862,23 @@ def _split_scheme(Y, psi, W, muL, dA1, dZ, YW, plan):
     return dpsi, dW, dmuL
 
 
+def _split_forward_scheme(psi, W, muL, plan):
+    """The split forward's arithmetic (dlog_rfe_kernel's rfe-only form and
+    dpsi_product_kernel with muL): log_rfe = psi W^T fresh every 16 of Kf,
+    summed as :func:`_sliced`, one exp an element in float32; Z = rfe muL
+    over each range of ``zgenes`` genes, fresh every 16 genes, summed as
+    :func:`_sliced`; the ranges summed in float64 in order and rounded once
+    (one range: its float32 sum as it stands). Row blocks change nothing: Z's
+    row n reads only cell n."""
+    rfe = np.exp(_sliced(_mma3(psi, W.T, 16))).astype(np.float32)
+    g = plan["zgenes"]
+    ranges = [_sliced(_mma3(rfe[:, i:i + g], muL[i:i + g], 16)) for i in range(0, len(W), g)]
+    return sum(r.astype(np.float64) for r in ranges).astype(np.float32)
+
+
 @pytest.mark.parametrize("shape", SHAPES + [(2100, 130, 9, 1, 4), (60, 90, 12, 6, 8),
                                             (50, 80, 10, 64, 2), (40, 60, 10, 72, 66),
-                                            (300, 300, 66, 1, 33)])
+                                            (300, 300, 66, 1, 33), (64, 600, 3, 72, 2)])
 def test_3xtf32_scheme_meets_the_tolerances(shape):
     """The wide kernels' arithmetic, emulated on the CPU: log_rfe = psi W^T
     and Z = rfe muL (fresh accumulators every 16 genes, float32 running sum)
@@ -829,22 +891,25 @@ def test_3xtf32_scheme_meets_the_tolerances(shape):
     each element's absolute-term sum. Every product is 3xTF32 with
     cvt.rna's rounding. The shapes past SHAPES take several 1,024-cell
     chunks, two dZ column groups (S*C = 96) and Kf = 64. Past the old bound
-    (Kf 72; S*C 2,178) the split backward's scheme instead
-    (:func:`_split_scheme`)."""
+    (Kf 72; S*C 2,178) the split forward's and backward's schemes instead
+    (:func:`_split_forward_scheme`, at the last shape in three gene ranges,
+    and :func:`_split_scheme`)."""
     N, G, C, K, S = shape
     Y, psi, W, _log_mu, muL = _inputs(N, G, C, K, S, seed=N)
     dA1, _dA2, dZ = _cotangents(N, S, S * C, seed=N)
     f32 = np.float32
+    plan = tfl.wide_plan(N, G, K, 0, S * C)
     log_rfe = _running(_mma3(psi, W.T, 8))
     rfe = np.exp(log_rfe).astype(f32)
-    Z = _running(_mma3(rfe, muL, 16))
+    Z = (_split_forward_scheme(psi, W, muL, plan) if plan["split"]
+         else _running(_mma3(rfe, muL, 16)))
+    assert plan["zsplit"] == (3 if shape == (64, 600, 3, 72, 2) else int(plan["split"]))
     f64 = [torch.from_numpy(a.astype(np.float64)) for a in (Y, psi, W, muL, dA1, dZ)]
     Y64, psi64, W64, muL64, dA164, dZ64 = f64
     want_Z = (torch.exp(psi64 @ W64.T) @ muL64).numpy()
     np.testing.assert_allclose(Z, want_Z, **VALUE_TOL)
 
     YW = _running(_mma3(Y, W, 8))
-    plan = tfl.wide_plan(N, G, K, 0, S * C)
     if plan["split"]:
         dpsi, dW, dmuL = _split_scheme(Y, psi, W, muL, dA1, dZ, YW, plan)
     else:
@@ -1100,7 +1165,9 @@ def test_cuda_split_backward_is_deterministic(widths):
     each counted in the family :func:`wide_route` picks, and
     kernel_backward, the call the fit makes, at N 300 and at N 100,000,
     where N x G passes 2^23 and its row blocks are two, counted in
-    split_launches where the plan is the split one."""
+    split_launches where the plan is the split one; and so does the split
+    forward (its Z ranges summed in order), kernel_forward at N 300 and
+    100,000, counted in fwd_wide_launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
     N, Kf, n_a2, SC = widths
@@ -1114,11 +1181,11 @@ def test_cuda_split_backward_is_deterministic(widths):
             rng.normal(0, 0.3 / np.sqrt(Kf), (G, Kf)).astype(f32),
             rng.lognormal(0, 0.5, (G, SC)).astype(f32), rng.normal(0, 1, n).astype(f32),
             rng.normal(0, 1, (n, n_a2)).astype(f32), rng.normal(0, 1, (n, SC)).astype(f32),
-            rng.normal(0, 1, (n, Kf)).astype(f32))]
+            rng.normal(0, 1, (n, Kf)).astype(f32), rng.normal(0, 0.5, (n_a2, G)).astype(f32))]
 
     before = _launches()
     want = dict.fromkeys(before, 0)
-    Y, psi, W, muL, dA1, dA2, dZ, YW = inputs(N)
+    Y, psi, W, muL, dA1, dA2, dZ, YW, _log_mu = inputs(N)
     for da2 in (dA2, None):
         a2 = 0 if da2 is None else n_a2
         assert tfl.wide_plan(N, G, Kf, a2, SC)["split"] or da2 is None
@@ -1129,8 +1196,8 @@ def test_cuda_split_backward_is_deterministic(widths):
         for a, b in zip(*runs):
             assert (a is None and b is None) or torch.equal(a, b)
     for n in (N, 100_000):
-        Y, psi, W, muL, dA1, dA2, dZ, YW = inputs(n)
-        for da2 in (dA2, None):
+        Y, psi, W, muL, dA1, dA2, dZ, YW, log_mu = inputs(n)
+        for da2, lm in ((dA2, log_mu), (None, None)):
             a2 = 0 if da2 is None else n_a2
             p = tfl.wide_plan(n, G, Kf, a2, SC)
             assert p["n_chunks"] == (1 if n == N else 2) or not p["split"]
@@ -1140,6 +1207,10 @@ def test_cuda_split_backward_is_deterministic(widths):
                 want["dpsi_wide" if tfl.wide_route(Kf, 0, SC) else "dpsi"] += 2
                 want["gene_wide" if tfl.wide_route(Kf, a2, SC) else "gene"] += 2
             runs = [tfl.kernel_backward(Y, psi, W, muL, dA1, da2, dZ, YW) for _ in range(2)]
+            for a, b in zip(*runs):
+                assert (a is None and b is None) or torch.equal(a, b)
+            want["fwd_wide" if tfl.wide_route(Kf, a2, SC) else "fwd"] += 2
+            runs = [tfl.kernel_forward(Y, psi, W, lm, muL) for _ in range(2)]
             for a, b in zip(*runs):
                 assert (a is None and b is None) or torch.equal(a, b)
     after = _launches()
@@ -1172,3 +1243,23 @@ def test_assign_cells_against_a_wide_fit():
     clones, probs = ct.assign_cells(fit, Y, L, device="cpu")
     assert probs.shape == (120, 5) and np.isfinite(probs).all()
     assert np.mean(np.asarray(clones) == np.asarray(fit.clone)) > 0.95
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """Both kernel sources include the split kernels' shared header, and
+    the built library's name (a hash of what it is built from) changes
+    with the header as with a source, so an edited header is rebuilt."""
+    from clonealign_torch.ops import _build
+
+    (header,) = _build.HEADERS
+    for src in _build.SOURCES:
+        assert f'#include "{header.name}"' in src.read_text()
+    copies = []
+    for path in _build.SOURCES + _build.HEADERS:
+        copies.append(tmp_path / path.name)
+        copies[-1].write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "SOURCES", tuple(copies[:-1]))
+    monkeypatch.setattr(_build, "HEADERS", (copies[-1],))
+    name = _build.library_path().name
+    copies[-1].write_text(copies[-1].read_text() + "\n")
+    assert _build.library_path().name != name

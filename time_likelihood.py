@@ -1,7 +1,7 @@
 """Card time of the fused likelihood's training step through its public
 autograd function, for the ``clonealign_torch`` package of any checkout.
 
-    python3 time_likelihood.py [--wide | --f64] [ROOT ...]
+    python3 time_likelihood.py [--wide | --f64 | --past | --zgroups] [ROOT ...]
 
 For each ROOT in turn (default: this file's directory) it runs, in a process
 of its own, the package found there: it builds that package's kernels and,
@@ -31,6 +31,18 @@ with C = 10, A2 off) at each of its Y storages (``F64_FULL_STORAGES``):
 ``gene_ms`` (``kernel_gene``:
 ``gene_f64_kernel`` and ``reduce_chunks_f64_kernel``), float64 operands
 from ``chip_smoke.kernel_inputs``.
+
+With ``--past`` it times the kernels past the old bound at ``chip_smoke``'s
+full-width fit past it (int8 Y, Kf 72, S*C 660, A2 off): ``fwd_ms``
+(``kernel_forward``), ``bwd_ms`` (``kernel_backward``, the fit's one call)
+and the float64 gene part (``kernel_gene``) as ``gene_f64_ms``; where the
+package's forward is the split one (``fl._split_fwd_workspace``), the forward
+also with its Z product in each count of gene ranges of ``PAST_ZSPLITS``,
+set in its plan (``fwd_ms`` takes the count ``wide_plan`` picks).
+
+With ``--zgroups`` it times, within the old bound (``ZGROUP_WIDTHS``, int8
+Y, A2 off), ``fwd_wide_kernel``'s Z groups beside the split forward at the
+same widths, in turns (:func:`time_zgroups`).
 
 Each time is ``chip_smoke.cuda_ms``'s: the median over rounds of a batch of
 calls queued between two CUDA events, divided by the batch, which times the
@@ -99,6 +111,104 @@ def time_f64(fl) -> dict:
     return out
 
 
+# The split forward's counts of gene ranges --past times.
+PAST_ZSPLITS = (1, 2, 3, 4, 5, 6, 8, 12)
+
+
+def time_past(fl) -> dict:
+    import torch
+
+    from chip_smoke import PAST_BATCHES, PAST_K, PAST_S
+
+    N, G, Kf, SC = FULL["N"], FULL["G"], PAST_K + PAST_BATCHES, PAST_S * FULL["C"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    x = kernel_inputs(gen, N, G, FULL["C"], S=PAST_S, Kf=Kf, device="cuda")
+    Y = x["Y"].to(torch.int8)
+    planned = fl.wide_plan
+
+    def with_ranges(zsplit):
+        def plan(*args):
+            p = planned(*args)
+            if p["split"]:
+                z, zgenes = fl._even_ranges(G, zsplit)
+                p = dict(p, zsplit=z, zgenes=zgenes)
+                p["fwd_workspace"] = fl._split_fwd_workspace(p, G, SC)
+            return p
+        return plan
+
+    def forward():
+        return fl.kernel_forward(Y, x["psi"], x["W"], None, x["muL"])
+
+    out = {"fwd_ms": cuda_ms(forward, reps=3, batch=3)}
+    YW = forward()[3]
+    out["bwd_ms"] = cuda_ms(lambda: fl.kernel_backward(Y, x["psi"], x["W"], x["muL"], x["dA1"],
+                                                       None, x["dZ"], YW), reps=3, batch=3)
+    del YW
+    try:
+        for zsplit in PAST_ZSPLITS if hasattr(fl, "_split_fwd_workspace") else ():
+            fl.wide_plan = with_ranges(zsplit)
+            z = fl.wide_plan(N, G, Kf, 0, SC)["zsplit"]
+            out[f"fwd_ms zsplit={z}"] = cuda_ms(forward, reps=3, batch=3)
+    finally:
+        fl.wide_plan = planned
+    x64 = {k: v.double() for k, v in x.items() if k != "Y"}
+    del x
+    torch.cuda.empty_cache()
+    out["gene_f64_ms"] = cuda_ms(lambda: fl.kernel_gene(Y, x64["psi"], x64["W"], x64["muL"],
+                                                        x64["dA1"], None, x64["dZ"]),
+                                 reps=3, batch=3)
+    return out
+
+
+# (Kf, S) with C = 10 at which --zgroups times the grouped forward beside
+# the split one: S*C 80 (one Z group), 160 (two), 330 (three), 660 (six)
+# and 2,040 (sixteen, the most within the old bound).
+ZGROUP_WIDTHS = tuple((Kf, S) for S in (8, 16, 33, 66, 204) for Kf in (5, 64))
+
+
+def time_zgroups(fl) -> dict:
+    """The forward within the old bound as ``wide_plan`` routes it
+    (``fwd_wide_kernel``'s Z groups) and as the split forward (its plan
+    made with ``split_route`` answering yes), in turns, at full width, int8
+    Y, A2 off: ``grouped_ms``, ``split_ms``, the plan's ``n_zgroups`` and
+    the split forward's largest |Z| difference from the grouped one,
+    relative to the largest |Z|."""
+    import torch
+
+    routed = fl.split_route
+    out = {}
+    for Kf, S in ZGROUP_WIDTHS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        x = kernel_inputs(gen, FULL["N"], FULL["G"], FULL["C"], S=S, Kf=Kf, device="cuda")
+        Y = x["Y"].to(torch.int8)
+
+        def forward():
+            return fl.kernel_forward(Y, x["psi"], x["W"], None, x["muL"])
+
+        def split_forward():
+            fl.split_route = lambda *_: True
+            try:
+                return forward()
+            finally:
+                fl.split_route = routed
+
+        Z = forward()[2]
+        dz = (split_forward()[2] - Z).abs().max().item() / Z.abs().max().item()
+        del Z
+        t = {k: [] for k in ("grouped_ms", "split_ms")}
+        for _ in range(2):
+            t["grouped_ms"].append(cuda_ms(forward, reps=3, batch=3))
+            t["split_ms"].append(cuda_ms(split_forward, reps=3, batch=3))
+        out[f"int8 Kf={Kf} S*C={S * FULL['C']}"] = {
+            **t, "n_zgroups": fl.wide_plan(FULL["N"], FULL["G"], Kf, 0, S * FULL["C"])["n_zgroups"],
+            "split_z_rel_diff": dz}
+        del x, Y
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_root(root: str, family: str = "") -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -111,6 +221,10 @@ def time_root(root: str, family: str = "") -> dict:
         return {"root": root, **time_wide(fl)}
     if family == "--f64":
         return {"root": root, **time_f64(fl)}
+    if family == "--past":
+        return {"root": root, **time_past(fl)}
+    if family == "--zgroups":
+        return {"root": root, **time_zgroups(fl)}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     x = kernel_inputs(gen, FULL["N"], FULL["G"], FULL["C"], S=1, Kf=1, device="cuda")
@@ -138,7 +252,7 @@ def time_root(root: str, family: str = "") -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    family = args[0] if args and args[0] in ("--wide", "--f64") else ""
+    family = args[0] if args and args[0] in ("--wide", "--f64", "--past", "--zgroups") else ""
     args = args[bool(family):]
     if len(args) == 2 and args[0] == "--one":
         print(json.dumps(time_root(args[1], family)), flush=True)
