@@ -250,7 +250,7 @@ def launches_of(fl, family="narrow"):
         "wide": {"fwd": fl.fwd_wide_launches, "dpsi": fl.dpsi_wide_launches,
                  "gene": fl.gene_wide_launches, "split": fl.split_launches},
         "float64": {"fwd": fl.fwd_f64_launches, "dpsi": fl.dpsi_f64_launches,
-                    "gene": fl.gene_f64_launches}}
+                    "gene": fl.gene_f64_launches, "split": fl.split_f64_launches}}
     other = {name: n for name, n in counts.items() if name != family and any(n.values())}
     if other:
         raise AssertionError(f"the {', '.join(other)} kernels launched on a {family} path: "
@@ -574,13 +574,15 @@ def tc_kernels(fl):
     YV> (5: Y read at each storage, and the Y-free form) and dpsi_product_kernel and
     dpsi_sum_kernel (no templates); and the float64 family's
     fwd_f64_kernel<YT, NT> (28: ``fl.F64_FWD_TILE_COUNTS``),
-    dpsi_f64_kernel<NK, NZ, LRW> (30: ``fl.F64_DPSI_K_COUNTS`` x
-    ``fl.F64_DPSI_Z_COUNTS``, and NK 8's grouped form) and
+    dpsi_f64_kernel<NK, NZ> (24: ``fl.F64_DPSI_K_COUNTS`` x
+    ``fl.F64_DPSI_Z_COUNTS``) and
     gene_f64_kernel<YT, NT, NK> (40: ``fl.F64_GENE_TILE_COUNTS``), their
     packing kernels and reduce_chunks_f64_kernel, and past the old bound
-    its split gene part, dlog_rfe_f64_kernel<YT> (4) and
+    its split kernels, dlog_rfe_f64_kernel<YT, OUT> (9: dlog_rfe and the
+    forward's rfe with A1, Y read at each storage, and dpsi's t),
     gene_product_f64_kernel<YT, YV> (5: dlog mu's at each storage, and the
-    Y-free form)."""
+    Y-free form), dpsi_product_f64_kernel and dpsi_sum_f64_kernel (no
+    templates: Z's and dpsi's products over gene ranges, their sums)."""
     return {
         "fwd_kernel": {f"<{y},{k},{t},{a}>" for y in range(4) for k in (1, 2, 3, 4)
                        for t in (1, 2, 4) for a in (0, 1)},
@@ -601,15 +603,16 @@ def tc_kernels(fl):
         "dpsi_sum_kernel": {"<>"},
         "fwd_f64_kernel": {f"<{y},{t}>" for y in range(4) for t in fl.F64_FWD_TILE_COUNTS},
         "fwd_f64_pack_kernel": {"<>"},
-        "dpsi_f64_kernel": ({f"<{k},{z},0>" for k in fl.F64_DPSI_K_COUNTS
-                             for z in fl.F64_DPSI_Z_COUNTS}
-                            | {f"<8,{z},1>" for z in fl.F64_DPSI_Z_COUNTS}),
+        "dpsi_f64_kernel": {f"<{k},{z}>" for k in fl.F64_DPSI_K_COUNTS
+                            for z in fl.F64_DPSI_Z_COUNTS},
         "dpsi_f64_pack_kernel": {"<>"},
         "gene_f64_pack_kernel": {"<>"},
         "gene_f64_kernel": {f"<{y},{t},{k}>" for y in range(4)
                             for k, counts in fl.F64_GENE_TILE_COUNTS.items() for t in counts},
-        "dlog_rfe_f64_kernel": {f"<{y}>" for y in range(4)},
+        "dlog_rfe_f64_kernel": {"<0,0>"} | {f"<{y},{o}>" for y in range(4) for o in (1, 2)},
         "gene_product_f64_kernel": {"<0,0>"} | {f"<{y},1>" for y in range(4)},
+        "dpsi_product_f64_kernel": {"<>"},
+        "dpsi_sum_f64_kernel": {"<>"},
         "reduce_chunks_f64_kernel": {"<>"},
     }
 
@@ -769,11 +772,12 @@ def snv_accuracy(fit, z_true) -> float:
 
 
 def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, label=None,
-             mc_samples=1, wide=False, dtype="float32", K=1):
+             mc_samples=1, wide=False, dtype="float32", K=1, max_iter=FIT_MAX_ITER):
     """One full-width exact fit through clonealign in ``dtype`` with Y
     stored as ``y_storage``, the covariates ``x`` (or none), the allele
     data ``allele`` (a dict of clone_allele, cov and ref, or none) and
-    ``mc_samples`` (K latent factors), its kernel launches counted from zero (the wide
+    ``mc_samples`` (K latent factors), at most ``max_iter`` iterations, its
+    kernel launches counted from zero (the wide
     family's with ``wide``, the float64 family's in float64, and none of
     another family); checks its ELBO trace, accuracy and launches (and
     beta's shape, or the SNV probabilities) and returns its numbers."""
@@ -781,7 +785,7 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
     t0 = time.perf_counter()
     with inference_peaks() as peaks, setup_measures() as setups:
         fit = clonealign_torch.clonealign(
-            Y, L, device="cuda", max_iter=FIT_MAX_ITER, seed=0, verbose=False,
+            Y, L, device="cuda", max_iter=max_iter, seed=0, verbose=False,
             likelihood_impl="xla", y_storage=y_storage, x=x, mc_samples=mc_samples,
             dtype=dtype, K=K, **(allele or {}),
         )
@@ -829,7 +833,7 @@ def full_fit(clonealign_torch, fl, Y, L, z, y_storage, x=None, allele=None, labe
     # final, and one backward (a dpsi and a gene-major launch; past the old
     # bound one split launch for both) per iteration
     want = {"fwd": 2 + 2 * n_iters + 20, "dpsi": n_iters, "gene": n_iters}
-    if family == "wide":
+    if family != "narrow":
         past = fl.split_route(K + P, 0, mc_samples * FULL["C"])
         want.update(dpsi=0 if past else n_iters, gene=0 if past else n_iters,
                     split=n_iters if past else 0)
@@ -2052,10 +2056,17 @@ PAST_GROUPED_ITER_MS = "424.5-426.4"
 PAST_GROUPED_FWD_ITER_MS = "136.6-137.7"
 PAST_GROUPED_FWD_MS = "42.67-43.5"
 PAST_F64_GROUPED_GENE_MS = "1066.8-1074.8"
+# ... and the float64 forward's and dpsi's grouped forms (PR 22), which the
+# split ones replaced, at the same widths (PERF.md, H100 80GB HBM3 at 700 W)
+PAST_F64_GROUPED_FWD_MS = "114.2-116.1"
+PAST_F64_GROUPED_DPSI_MS = "162.6-164.0"
 PAST_SMALL = (dict(N=2_100, G=200, C=66), 33, 1)
 # The float64 fit past every bound at once (Kf 72, S 66, S*C 2,178: C 33),
-# numpy counts, on the card against the CPU port from the same draws
+# numpy counts, on the card against the CPU port from the same draws; and
+# the full-width float64 fit past the bound (the float32 one's widths),
+# PAST_F64_FULL_ITER iterations
 PAST_F64 = dict(N=600, G=200, C=33)
+PAST_F64_FULL_ITER = 30
 PAST_F64_SEEDS = (19, 20, 21)  # counts, covariates, draws
 PAST_F64_KW = dict(K=PAST_K, mc_samples=PAST_S, max_iter=30, rel_tol=0.0, dtype="float64",
                    verbose=False)
@@ -2168,8 +2179,9 @@ def past_bound_f64(clonealign_torch, fl, cpu):
     Kf 72, S 66, S*C 2,178) on the card against the CPU port's
     (:func:`cpu_references_f64`), from the same numpy draws with the PCA's
     sign fixed: the same iterations and labels, the final ELBO within 1e-8
-    of the CPU's relative, every launch a float64 one. Returns its
-    launches and numbers."""
+    of the CPU's relative, every launch a float64 one (the split forward
+    2 + 2 n + 20 times, the backward kernel_backward's one call n times,
+    no dpsi or gene part alone). Returns its launches and numbers."""
     Y, L, X = past_f64_data()
     fl.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2190,11 +2202,40 @@ def past_bound_f64(clonealign_torch, fl, cpu):
         f"({rel:.3e} relative, bar 1e-8), labels {'identical' if same else 'DIFFER'}; launches "
         f"(float64) {launches}")
     check_trace(ci.elbo)
-    want = {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n}
+    want = {"fwd": 2 + 2 * n + 20, "dpsi": 0, "gene": 0, "split": n}
     if not (same and rel <= 1e-8 and n == int(ref["past_n"])) or launches != want:
         raise AssertionError(f"the float64 fit past the old bound differs from the CPU's or "
                              f"launched {launches} (expected {want})")
     return {"launches": launches, "elbo_rel": rel, "card_s": card_s}
+
+
+def past_bound_f64_fit(clonealign_torch, fl, Y, L, z, y_itemsize):
+    """The full-width float64 fit past the old bound through clonealign:
+    past_bound_fit's widths (K = 2, P = 70 one-hot batches, numpy seed 7,
+    mc_samples = 66: Kf 72, S*C 660), y_storage "auto", dtype "float64",
+    PAST_F64_FULL_ITER iterations; full_fit's checks (rising trace,
+    accuracy, every launch a float64 one: the split forward and
+    kernel_backward's one call), its inference peak beside
+    restarts._sweep_bytes' reckoning of one lane, which must not be below
+    it."""
+    from clonealign_torch import restarts
+
+    X = batch_covariates(FULL["N"], PAST_BATCHES, seed=7)
+    out = full_fit(clonealign_torch, fl, Y, L, z, "auto", x=X, mc_samples=PAST_S, K=PAST_K,
+                   dtype="float64", max_iter=PAST_F64_FULL_ITER,
+                   label=f"float64 past the old bound: auto K={PAST_K} P={PAST_BATCHES} "
+                         f"(one-hot batches) mc_samples={PAST_S}")
+    sizes = (FULL["N"], FULL["G"], FULL["C"], PAST_K, PAST_S)
+    out["reckoned_gb"] = restarts._sweep_bytes(*sizes, 1, 8, "cuda", y_itemsize, PAST_BATCHES) / 1e9
+    log(f"float64 past the old bound: {out['iter_ms']:.2f} ms an iteration; peak allocated in "
+        f"the inference {out['peak_gb']:.4f} GB against _sweep_bytes' {out['reckoned_gb']:.4f} GB "
+        f"for one lane ({out['reckoned_gb'] / out['peak_gb']:.3f} of it)")
+    if out["reckoned_gb"] < out["peak_gb"]:
+        raise AssertionError(f"float64 past the old bound: _sweep_bytes reckons "
+                             f"{out['reckoned_gb']:.4f} GB, under the fit's peak "
+                             f"{out['peak_gb']:.4f} GB")
+    del out["labels"]
+    return out
 
 
 # The torch examples on the card and the files each writes (the plots only
@@ -2508,7 +2549,7 @@ def exp_fp64_instructions():
 
 
 F64_DMMA_KERNELS = ("fwd_f64_kernel", "dpsi_f64_kernel", "gene_f64_kernel", "dlog_rfe_f64_kernel",
-                    "gene_product_f64_kernel")
+                    "gene_product_f64_kernel", "dpsi_product_f64_kernel")
 
 
 def dmma_instantiations(kernels=F64_DMMA_KERNELS):
@@ -2541,10 +2582,10 @@ def dmma_instantiations(kernels=F64_DMMA_KERNELS):
 
 def check_f64_sass(build_log, fl):
     """Every fwd_f64_kernel, dpsi_f64_kernel and gene_f64_kernel
-    instantiation, and the split gene part's dlog_rfe_f64_kernel and
-    gene_product_f64_kernel, holds FP64 MMA (DMMA) instructions in its SASS
-    and spills no register (ptxas's report); raises otherwise. Returns the
-    DMMA counts."""
+    instantiation, and the split kernels' dlog_rfe_f64_kernel,
+    gene_product_f64_kernel and dpsi_product_f64_kernel, holds FP64 MMA
+    (DMMA) instructions in its SASS and spills no register (ptxas's report);
+    raises otherwise. Returns the DMMA counts."""
     want = tc_kernels(fl)
     dmma = dmma_instantiations()
     for kernel in F64_DMMA_KERNELS:
@@ -2579,7 +2620,9 @@ def bound_f64(y_bytes, vec_doubles, mma_flops, fp64_flops, exps, exp_ops):
 def kernel_bounds_f64(N, G, Kf, SC, y_itemsize, exp_ops):
     """kernel_bounds' functions in float64 (A2 off): the products with muL
     on the FP64 tensor cores, log_rfe's, Y W's, dpsi's and dW's Kf FMAs an
-    element and the exps on the CUDA cores."""
+    element and the exps on the CUDA cores; ``bwd`` the whole backward
+    (dpsi and the gene part from one dlog_rfe, as kernel_backward's one
+    call past the old bound computes them)."""
     NG = N * G
     fwd = bound_f64(y_itemsize * NG, N * Kf + G * Kf + G * SC + N + N * SC + N * Kf,
                     2 * NG * SC, NG * (4 * Kf + 2), NG, exp_ops)
@@ -2587,21 +2630,26 @@ def kernel_bounds_f64(N, G, Kf, SC, y_itemsize, exp_ops):
                      2 * NG * SC, NG * (4 * Kf + 1), NG, exp_ops)
     gene = bound_f64(y_itemsize * NG, N * Kf + 2 * G * Kf + 2 * G * SC + N + N * SC,
                      4 * NG * SC, NG * (4 * Kf + 3), NG, exp_ops)
-    return {"fwd": fwd, "dpsi": dpsi, "gene": gene}
+    bwd = bound_f64(y_itemsize * NG, 2 * N * Kf + 2 * G * Kf + 2 * G * SC + N + N * SC,
+                    4 * NG * SC, NG * (6 * Kf + 3), NG, exp_ops)
+    return {"fwd": fwd, "dpsi": dpsi, "gene": gene, "bwd": bwd}
 
 
 def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None, vjp_parts=False,
                       batch=10):
     """The float64 family against the plain float64 versions on the card at
-    one shape, Y stored as ``storage``, A2 on and off: every element within
-    F64_RTOL of its absolute-term sum, and each kernel bit-identical across
-    two launches. With ``reps``, the A2-off calls (the training step's
-    form) timed beside their plain versions (reference_likelihood_terms,
-    reference_dpsi, reference_gene) and their bounds (exp_ops FP64
-    instructions an exp); with ``vjp_parts``, dpsi's and the gene part's
-    beside the plain VJP's terms (as :func:`check_kernels`'); ``batch``
-    kernel calls between a timing's two CUDA events. Returns the errors
-    (each output's under ``errs``), the times, and under ``identical``
+    one shape, Y stored as ``storage``, A2 on and off: the forward, dpsi
+    and the gene part called alone, and kernel_backward (past the old bound
+    its one call for both parts), every element within F64_RTOL of its
+    absolute-term sum, and each bit-identical across two launches. With
+    ``reps``, the A2-off calls (the training step's form) timed beside
+    their plain versions (reference_likelihood_terms, reference_dpsi,
+    reference_gene, reference_likelihood_vjp for the backward) and their
+    bounds (exp_ops FP64 instructions an exp); with ``vjp_parts``, dpsi's
+    and the gene part's beside the plain VJP's terms (as
+    :func:`check_kernels`'); ``batch`` kernel calls between a timing's two
+    CUDA events. Returns the errors (each output's under ``errs``; the
+    backward's under ``bwd_errs``), the times, and under ``identical``
     whether every kernel gave the same bits twice (raises where one did
     not)."""
     import torch
@@ -2632,8 +2680,10 @@ def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None, vjp_par
         YW = fwd[0][3]
         bwd = [(fl.kernel_dpsi(psi, W, muL, dA1, dZ, YW), *fl.kernel_gene(*args_b))
                for _ in range(2)]
+        joint = [fl.kernel_backward(*args_b, YW) for _ in range(2)]
         torch.cuda.synchronize()
-        same = [all(u is None or torch.equal(u, v) for u, v in zip(a, b)) for a, b in (fwd, bwd)]
+        same = [all(u is None or torch.equal(u, v) for u, v in zip(a, b))
+                for a, b in (fwd, bwd, joint)]
         result["identical"] = all(same) and result.get("identical", True)
         if not result["identical"]:
             raise AssertionError(f"{label}: a float64 kernel differs between two launches")
@@ -2648,13 +2698,18 @@ def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None, vjp_par
         want = as_dict(names_b, fl.reference_likelihood_vjp(*args_b))
         result["bwd_err"] = compare(as_dict(names_b, bwd[0]), want, bwd_scale, f"bwd {tag}",
                                     errs, F64_RTOL)
-        del fwd, bwd, want, fwd_scale, bwd_scale
+        bwd_errs = result.setdefault("bwd_errs", {}) if not with_a2 else {}
+        result["joint_err"] = compare(as_dict(names_b, joint[0]), want, bwd_scale,
+                                      f"kernel_backward {tag}", bwd_errs, F64_RTOL)
+        del fwd, bwd, joint, want, fwd_scale, bwd_scale
         if reps and not with_a2:
             result.update({
                 "fwd_ms": cuda_ms(lambda: fl.kernel_forward(*args_f), reps, batch),
                 "dpsi_ms": cuda_ms(lambda: fl.kernel_dpsi(psi, W, muL, dA1, dZ, YW), reps,
                                    batch),
                 "gene_ms": cuda_ms(lambda: fl.kernel_gene(*args_b), reps, batch),
+                "bwd_ms": cuda_ms(lambda: fl.kernel_backward(*args_b, YW), reps, batch),
+                "bwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_vjp(*args_b), reps, 2),
                 "fwd_plain_ms": cuda_ms(lambda: fl.reference_likelihood_terms(*args_f), reps, 2),
                 "dpsi_plain_ms": cuda_ms(
                     (lambda: (Y.double() * dA1[:, None] + torch.exp(psi @ W.T) * (dZ @ muL.T)) @ W)
@@ -2671,11 +2726,14 @@ def check_kernels_f64(shape, S, Kf, seed, storage, reps=0, exp_ops=None, vjp_par
 
 def f64_resources(fl, storage, Kf, n_a2, SC, N, G):
     """The float64 kernels' shared memory and blocks an SM under
-    ``fl.f64_plan``'s plan (``fl64_resources``; past the old bound ``gene``
-    is the split gene part's dlog_rfe_f64_kernel, beside its
-    ``gene_products``, gene_product_f64_kernel<0, 0>, with their registers
-    and spills from ptxas's report); raises where one does not run or
-    spills."""
+    ``fl.f64_plan``'s plan (``fl64_resources``): ``fwd``, ``dpsi`` and
+    ``gene``; past the old bound ``fwd`` is the forward's Y products'
+    fwd_f64_kernel beside ``rfe`` (dlog_rfe_f64_kernel<YT, 2>) and
+    ``product`` (dpsi_product_f64_kernel, Z's and dpsi's products),
+    ``dpsi`` dlog_rfe_f64_kernel<0, 0> (t), ``gene`` dlog_rfe_f64_kernel<YT,
+    1> beside ``gene_products`` (gene_product_f64_kernel<0, 0>), each split
+    kernel with its registers and spills from ptxas's report; raises where
+    one does not run or spills."""
     import ctypes
 
     import torch
@@ -2683,18 +2741,25 @@ def f64_resources(fl, storage, Kf, n_a2, SC, N, G):
     from clonealign_torch.ops import _build
 
     plan = fl.f64_plan(N, G, Kf, n_a2, SC)
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 12)()
     code = fl.Y_DTYPES_F64[getattr(torch, storage)]
     err = _build.load().fl64_resources(fl._plan_arg(plan, fl.F64_PLAN_KEYS), N, G, Kf, n_a2, SC,
                                        code, out)
     if err:
         raise AssertionError(f"the library refuses f64_plan's plan {plan} (CUDA error {err})")
-    parts = ("fwd", "dpsi", "gene", "gene_products") if plan["split"] else ("fwd", "dpsi", "gene")
-    res = {part: {"smem_bytes": out[2 * i], "blocks_per_sm": out[2 * i + 1]}
-           for i, part in enumerate(parts)}
     if plan["split"]:
-        for part, kernel, args in (("gene", "dlog_rfe_f64_kernel", f"<{code}>"),
-                                   ("gene_products", "gene_product_f64_kernel", "<0,0>")):
+        slots = {"fwd": (0, None), "product": (2, ("dpsi_product_f64_kernel", "<>")),
+                 "gene": (4, ("dlog_rfe_f64_kernel", f"<{code},1>")),
+                 "gene_products": (6, ("gene_product_f64_kernel", "<0,0>")),
+                 "rfe": (8, ("dlog_rfe_f64_kernel", f"<{code},2>")),
+                 "dpsi": (10, ("dlog_rfe_f64_kernel", "<0,0>"))}
+    else:
+        slots = {"fwd": (0, None), "dpsi": (2, None), "gene": (4, None)}
+    res = {}
+    for part, (i, named) in slots.items():
+        res[part] = {"smem_bytes": out[i], "blocks_per_sm": out[i + 1]}
+        if named:
+            kernel, args = named
             regs, spill_st, spill_ld = kernel_resources(_build.build_log, kernel)[args]
             res[part].update(instantiation=kernel + args, registers=regs,
                              spill_bytes=spill_st + spill_ld)
@@ -2757,7 +2822,8 @@ def f64_stream(clonealign_torch, fl, Y, L, z, core):
     ci, n = fit.convergence_info, fit.convergence_info.n_iters
     rel = abs(ci.final_elbo - core["final_elbo"]) / abs(core["final_elbo"])
     same = fit.clone == core["labels"]
-    want = {"fwd": n_chunks * (2 + 2 * n + 20), "dpsi": n_chunks * n, "gene": n_chunks * n}
+    want = {"fwd": n_chunks * (2 + 2 * n + 20), "dpsi": n_chunks * n, "gene": n_chunks * n,
+            "split": 0}
     out = {"iter_ms": 1000 * fit.timings["loop"] / max(n, 1), "n_iters": n, "launches": launches,
            "peak_gb": peak, "n_chunks": n_chunks, "elbo_rel": rel}
     log(f"float64 streaming fit {FULL['N']}x{FULL['G']}x{FULL['C']} auto ({n_chunks} chunks, "
@@ -2887,7 +2953,7 @@ def golden_f64(clonealign_torch, fl, cpu):
             f"against the float64 oracle {e64:.8g}: |diff| {abs(ci.final_elbo - e64):.4g}, bar "
             f"{tol:.4g}; {len(flips)} labels differ from it, {len(off)} away from the 0.95 "
             f"threshold; launches (float64) {launches}")
-        want = {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n}
+        want = {"fwd": 2 + 2 * n + 20, "dpsi": n, "gene": n, "split": 0}
         if not (same and rel <= 1e-8 and n == int(ref[f"{name}_n"]) == GOLDEN_MAX_ITER):
             raise AssertionError(f"golden {name}: the float64 card fit differs from the CPU's")
         if not abs(ci.final_elbo - e64) < tol or off or launches != want:
@@ -2946,8 +3012,9 @@ def negbin_f64(clonealign_torch, fl, cpu):
 def float64_phase(clonealign_torch, fl, y_itemsize, cpu, kernels):
     """dtype="float64" on the card through the float64 kernel family: the
     full-width float64 fit under "auto" and with float64 Y, the z_cheb
-    fit, the three-lane sweep as "vmap" and "map" (equal) and the streamed
-    fit (equal to the in-core one), timed by host clocks, and the golden
+    fit, the three-lane sweep as "vmap" and "map" (equal), the streamed
+    fit (equal to the in-core one) and the full-width fit past the old
+    bound (:func:`past_bound_f64_fit`), timed by host clocks, and the golden
     example and synth fits, the v1 family and the fit past the old bound
     (:func:`past_bound_f64`) against the CPU's ``cpu``
     (:func:`cpu_references_f64`'s results); ``kernels`` are
@@ -2965,8 +3032,9 @@ def float64_phase(clonealign_torch, fl, y_itemsize, cpu, kernels):
 
 
 def float64_fits(clonealign_torch, fl, y_itemsize):
-    """The float64 phase's full-width fits, z_cheb fit, sweeps and streamed
-    fit on the synthetic counts (:func:`float64_phase`)."""
+    """The float64 phase's full-width fits, z_cheb fit, sweeps, streamed
+    fit and fit past the old bound on the synthetic counts
+    (:func:`float64_phase`)."""
     from clonealign_torch.restarts import _sweep_bytes
 
     Y, L, z = synth_counts(3, FULL["N"], FULL["G"], FULL["C"])
@@ -2989,7 +3057,7 @@ def float64_fits(clonealign_torch, fl, y_itemsize):
         f"{1000 * zc.timings['loop'] / max(zn, 1):.2f} ms per iteration, final ELBO "
         f"{zc.convergence_info.final_elbo:.9g}, accuracy {zc_acc:.4f}, launches (float64) "
         f"{zc_launches}")
-    if zc_acc < MIN_ACCURACY or zc_launches != {"fwd": 20, "dpsi": 0, "gene": 0}:
+    if zc_acc < MIN_ACCURACY or zc_launches != {"fwd": 20, "dpsi": 0, "gene": 0, "split": 0}:
         raise AssertionError("the float64 z_cheb fit misses its accuracy or launches")
     sweeps = {b: run_sweep(clonealign_torch, fl, Y, L, z, f"float64 {b}", "xla", b, "auto",
                            y_itemsize, lanes=F64_LANES, dtype="float64") for b in ("vmap", "map")}
@@ -2997,7 +3065,9 @@ def float64_fits(clonealign_torch, fl, y_itemsize):
                                               for k in ("iterations", "labels", "launches")):
         raise AssertionError("the float64 sweep's lanes differ from its sequential restarts")
     streamed = f64_stream(clonealign_torch, fl, Y, L, z, fits["auto"])
-    return {"fits": fits, "z_cheb": zc_launches, "sweeps": sweeps, "stream": streamed}
+    past = past_bound_f64_fit(clonealign_torch, fl, Y, L, z, y_itemsize)
+    return {"fits": fits, "z_cheb": zc_launches, "sweeps": sweeps, "stream": streamed,
+            "past_full_fit": past}
 
 
 def float64_kernels(fl):
@@ -3006,10 +3076,13 @@ def float64_kernels(fl):
     forward's, dpsi's and the gene part's instantiations
     (:func:`check_f64_sass`) and an exp's FP64 instructions, each kernel
     against its plain float64 version at every Y storage at F64_CHECKS's
-    shapes and bit-identical across launches, timed at full width
-    (F64_FULL x F64_FULL_STORAGES) beside its float64 bound and PR 17's
-    time (``F64_PR17_MS``; dpsi's beside its earlier CUDA-core form's,
-    ``F64_CUDA_CORE_DPSI_MS``). For :func:`float64_phase`."""
+    and PAST_CHECKS's shapes and bit-identical across launches, timed at
+    full width (F64_FULL x F64_FULL_STORAGES) beside its float64 bound and
+    PR 17's time (``F64_PR17_MS``; dpsi's beside its earlier CUDA-core
+    form's, ``F64_CUDA_CORE_DPSI_MS``), and past the old bound the split
+    forward, dpsi alone, the split gene part alone and kernel_backward's
+    one call beside their plain versions, bounds and the grouped forms'
+    times (``PAST_F64_GROUPED_*``). For :func:`float64_phase`."""
     from clonealign_torch.ops import _build
 
     exp_ops, opcodes = exp_fp64_instructions()
@@ -3017,7 +3090,8 @@ def float64_kernels(fl):
         f"({', '.join(opcodes)})")
     for kernel in ("fwd_f64_pack_kernel", "fwd_f64_kernel", "dpsi_f64_pack_kernel",
                    "dpsi_f64_kernel", "gene_f64_pack_kernel", "gene_f64_kernel",
-                   "reduce_chunks_f64_kernel", "dlog_rfe_f64_kernel", "gene_product_f64_kernel"):
+                   "reduce_chunks_f64_kernel", "dlog_rfe_f64_kernel", "gene_product_f64_kernel",
+                   "dpsi_product_f64_kernel", "dpsi_sum_f64_kernel"):
         res = kernel_resources(_build.build_log, kernel)
         log(f"{kernel} ptxas: " + "; ".join(f"{k} {r} registers, {st}/{ld} B spill stores/loads"
                                              for k, (r, st, ld) in sorted(res.items())))
@@ -3046,22 +3120,30 @@ def float64_kernels(fl):
     bound_res = f64_resources(fl, "float64", 64, 64, 2048, FULL["N"], FULL["G"])
     log(f"float64, full width, every bound (Kf 64, S 64, S*C 2048): {bound_res}")
     log("float64 kernels past the old bound (Kf 64, S 64, S*C 2,048) vs plain")
-    past = [{"shape": f"{shape['N']}x{shape['G']}", "y_storage": st, "kf": Kf, "s": S,
-             "sc": S * shape["C"],
-             "errs": check_kernels_f64(shape, S, Kf, seed=57, storage=st)["errs"]}
-            for st in F64_STORAGES for shape, S, Kf in PAST_CHECKS]
+    past = []
+    for st in F64_STORAGES:
+        for shape, S, Kf in PAST_CHECKS:
+            r = check_kernels_f64(shape, S, Kf, seed=57, storage=st)
+            past.append({"shape": f"{shape['N']}x{shape['G']}", "y_storage": st, "kf": Kf,
+                         "s": S, "sc": S * shape["C"], "errs": r["errs"],
+                         "bwd_errs": r["bwd_errs"]})
     Kf, SC = PAST_K + PAST_BATCHES, PAST_S * FULL["C"]
-    past_full = check_kernels_f64(FULL, PAST_S, Kf, seed=58, storage="int8", reps=1,
+    past_full = check_kernels_f64(FULL, PAST_S, Kf, seed=58, storage="int8", reps=2,
                                   exp_ops=exp_ops, vjp_parts=True, batch=2)
     past_full["resources"] = f64_resources(fl, "int8", Kf, 0, SC, FULL["N"], FULL["G"])
-    log(f"float64, full width, past the old bound, Y int8, Kf={Kf} S={PAST_S} S*C={SC}: "
-        + ", ".join(f"{part} {past_full[f'{part}_ms']:.3f} ms (plain "
+    grouped = {"fwd": PAST_F64_GROUPED_FWD_MS, "dpsi": PAST_F64_GROUPED_DPSI_MS,
+               "gene": PAST_F64_GROUPED_GENE_MS,
+               "bwd": "the grouped dpsi and the split gene part, two calls"}
+    log(f"float64, full width, past the old bound, Y int8, Kf={Kf} S={PAST_S} S*C={SC} (the "
+        "split forward, dpsi alone, the split gene part alone and kernel_backward's one call; "
+        "before: the grouped forms, PR 22): "
+        + ", ".join(f"{part} {past_full[f'{part}_ms']:.3f} ms (before {grouped[part]}; plain "
                     f"{past_full[f'{part}_plain_ms']:.3f}, bound {past_full['bounds'][part][0]:.3f} "
-                    f"by {past_full['bounds'][part][2]}; {past_full['resources'][part]})"
-                    for part in ("fwd", "dpsi", "gene"))
-        + f" (gene: the split gene part, the grouped one took {PAST_F64_GROUPED_GENE_MS} ms;"
-        f" {past_full['resources']['gene_products']}); with A2: "
-        f"{f64_resources(fl, 'int8', Kf, PAST_S, SC, FULL['N'], FULL['G'])}")
+                    f"by {past_full['bounds'][part][2]})"
+                    for part in ("fwd", "dpsi", "gene", "bwd")))
+    for n_a2 in (0, PAST_S):
+        for part, q in f64_resources(fl, "int8", Kf, n_a2, SC, FULL["N"], FULL["G"]).items():
+            log(f"  A2 columns {n_a2}: {part}: {q}")
     return {"exp_ops": exp_ops, "full": full, "bound_resources": bound_res, "past": past,
             "past_full": past_full}
 
@@ -3112,31 +3194,57 @@ def f64_kernels(f64, auto_name):
                            **r["resources"][part],
                            "max_abs_err": max(r["errs"][e] for e in err)}
                           for (s, Kf, S), r in f64["full"].items()],
-            "past_bound_checks": [{k: v for k, v in c.items() if k != "errs"}
+            "past_bound_checks": [{k: v for k, v in c.items() if k not in ("errs", "bwd_errs")}
                                   | {"max_abs_err": max(c["errs"][e] for e in err)}
                                   for c in f64["past"]],
             "paths": [{"path": p, "launches": n[part]} for p, n in paths],
         })
     past, Kf, SC = f64["past_full"], PAST_K + PAST_BATCHES, PAST_S * FULL["C"]
-    for name, part, at, err in (
-            ("fwd_f64_kernel", "fwd", fwd_at, ("A1", "Z", "YW")),
-            ("dpsi_f64_kernel", "dpsi", bwd_at, ("dpsi",)),
-            ("dlog_rfe_f64_kernel+gene_product_f64_kernel", "gene", bwd_at, ("dW", "dmuL"))):
+    full_fit_ = f64["past_full_fit"]
+    paths = ((f"float64 fit past the old bound {FULL['N']}x{FULL['G']}x{FULL['C']} K={PAST_K} "
+              f"P={PAST_BATCHES} mc_samples={PAST_S} y_storage=auto, {full_fit_['n_iters']} "
+              "iterations", full_fit_["launches"]),
+             (f"float64 fit past the old bound {PAST_F64['N']}x{PAST_F64['G']}x{PAST_F64['C']} "
+              f"K={PAST_K} P={PAST_BATCHES} mc_samples={PAST_S}", f64["past_fit"]["launches"]))
+    # past the bound the fit's backward is kernel_backward's one call
+    # (counted in split); kernel_dpsi's and kernel_gene's split forms,
+    # which no path of the port calls, stand under "parts", each held
+    # against the plain VJP and timed beside its terms
+    res = past["resources"]
+    for name, part, launches, err, resources, parts in (
+            ("dlog_rfe_f64_kernel (rfe, A1)+dpsi_product_f64_kernel+dpsi_sum_f64_kernel (Z)"
+             "+fwd_f64_kernel (Y products)", "fwd", "fwd", ("A1", "Z", "YW"),
+             dict(res["fwd"], rfe=res["rfe"], product=res["product"]), ()),
+            ("dlog_rfe_f64_kernel+gene_product_f64_kernel+dpsi_product_f64_kernel"
+             "+dpsi_sum_f64_kernel", "bwd", "split", ("dpsi", "dW", "dmuL"),
+             {"resources": [res[k] for k in ("gene", "gene_products", "product")]},
+             (("kernel_dpsi: dlog_rfe_f64_kernel without Y (t)+dpsi_product_f64_kernel"
+               "+dpsi_sum_f64_kernel", "dpsi", ("dpsi",)),
+              ("kernel_gene: dlog_rfe_f64_kernel+gene_product_f64_kernel", "gene",
+               ("dW", "dmuL"))))):
         b = past["bounds"][part]
-        extra = ({"gene_products": past["resources"]["gene_products"],
-                  "bit_identical_launches": past["identical"]} if part == "gene" else {})
+        errs = past["bwd_errs"] if part == "bwd" else past["errs"]
         out.append({
             "name": f"{name} past the old bound (Kf {Kf}, S {PAST_S}, S*C {SC})", "route": "cuda",
-            "source": src, "replaces": at, "launches": f64["past_fit"]["launches"][part],
-            "max_abs_err": max(past["errs"][e] for e in err),
+            "source": src, "replaces": fwd_at if part == "fwd" else bwd_at,
+            "launches": full_fit_["launches"][launches],
+            "max_abs_err": max(errs[e] for e in err),
             "ms": past[f"{part}_ms"], "plain_ms": past[f"{part}_plain_ms"],
             "bound_ms": b[0], "bound_by": b[1], "bound_unit": b[2], "library_ms": None,
-            "bound_fraction": b[0] / past[f"{part}_ms"], **past["resources"][part], **extra,
+            "bound_fraction": b[0] / past[f"{part}_ms"], **resources,
+            "bit_identical_launches": past["identical"],
             "y_storage": "int8", "kf": Kf, "s": PAST_S, "sc": SC,
-            "paths": [{"path": f"float64 fit past the old bound "
-                               f"{PAST_F64['N']}x{PAST_F64['G']}x{PAST_F64['C']} K={PAST_K} "
-                               f"P={PAST_BATCHES} mc_samples={PAST_S}",
-                       "launches": f64["past_fit"]["launches"][part]}],
+            "past_bound_checks": [
+                {k: v for k, v in c.items() if k not in ("errs", "bwd_errs")}
+                | {"max_abs_err": max(c["bwd_errs" if part == "bwd" else "errs"][e] for e in err)}
+                for c in f64["past"]],
+            "paths": [{"path": p, "launches": n[launches]} for p, n in paths],
+            **({"parts": [{"name": p_name, "launches": 0, "ms": past[f"{p}_ms"],
+                           "plain_ms": past[f"{p}_plain_ms"],
+                           "bound_ms": past["bounds"][p][0], "bound_by": past["bounds"][p][1],
+                           "max_abs_err": max(past["errs"][e] for e in p_err),
+                           "resources": res[p]}
+                          for p_name, p, p_err in parts]} if parts else {}),
         })
     return out
 

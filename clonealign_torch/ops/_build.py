@@ -135,7 +135,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fl64_forward.restype = i
     lib.fl64_backward_dpsi.argtypes = [p] * 9 + [i] * 4 + [p]
     lib.fl64_backward_dpsi.restype = i
-    lib.fl64_backward_gene.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.fl64_backward_gene.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.fl64_backward_gene.restype = i
     lib.fl64_resources.argtypes = [p] + [i] * 6 + [p]
     lib.fl64_resources.restype = i

@@ -55,7 +55,9 @@
 //    doubles as the A fragment of the same MMA: one read of Y and one exp
 //    an element wherever the tiles fit one group (Kf + nA2 + S*C <= 96
 //    columns in 12 tiles; the main path's 3). A group without Z tiles forms
-//    no exp, one without Y tiles (and not the first) reads no Y.
+//    no exp, one without Y tiles (and not the first) reads no Y. Past the
+//    old bound its table holds only the Y products' tiles (tiles == yt)
+//    and it forms no log_rfe: Z and A1 are the split forward's (below).
 //  * dpsi_f64_kernel<NK, NZ> reads no Y: dpsi = (rfe drfe) W, then dA1 YW
 //    (the forward's) added last, the term order of the plain version
 //    reference_dpsi. A warp owns 16 cells and walks the genes in k-steps
@@ -67,9 +69,8 @@
 //    by NK MMAs psi W^T (psi's A fragments in shared memory), one exp an
 //    element, t = rfe drfe, and
 //    dpsi += t W by NK MMAs with t's C fragment as the A fragment (columns
-//    2t, 2t + 1 as k-columns t, t + 4; W's B rows permuted to match). Past
-//    Kf 64 dpsi's columns go in groups of NK = 8 tiles (grid.y), each
-//    forming log_rfe by MMAs over every tile of [psi, X].
+//    2t, 2t + 1 as k-columns t, t + 4; W's B rows permuted to match). Up to
+//    Kf 64 only: past the old bound dpsi is the split one (below).
 //    dpsi_f64_pack_kernel lays the gene side out once a call: muL^T, W in
 //    C-to-A order (whose tile also holds the FMAs' pairs) and, past Kf 8,
 //    W^T. dZ's tiles go in groups of NZ (at most 10: S*C 80 is one group),
@@ -95,7 +96,7 @@
 //    chunk's partial sums after each pass (the first pass stores, later
 //    ones add), and the first pass adds Y dA1 psi. Up to the old bound
 //    (Kf 64, nA2 64, SC 2,048) only: past it the gene part is the split one.
-//  * The split gene part, past the old bound: dlog_rfe_f64_kernel<YT> and
+//  * The split gene part, past the old bound: dlog_rfe_f64_kernel<YT, 1> and
 //    gene_product_f64_kernel<YT, YV>, in place of gene_f64_kernel's grouped
 //    form, which formed rfe and drfe again in each of dW's column groups
 //    (a launch each) and each pass of d(muL)'s tiles (at Kf 72, S*C 660:
@@ -120,6 +121,26 @@
 //    block, beside the other blocks' DMMAs. The operands, copies, ring and
 //    epilogue walk are split_tiles.cuh's, shared with the float32 split
 //    kernels; the stage's DMMAs (db_stage) are this file's.
+//  * The split forward and dpsi, past the old bound, in place of
+//    fwd_f64_kernel's Z groups and dpsi_f64_kernel's output groups, which
+//    formed log_rfe over every column of [psi, X] and the exps again in
+//    each group (at Kf 72, S*C 660: 114.2-116.1 and 162.6-163.9 ms against
+//    the plain versions' 22.9-23.2 and 30.5-30.7; H100 80GB HBM3, 700 W).
+//    The same row blocks and workspace: dlog_rfe_f64_kernel<YT, OUT> writes
+//    rfe alone (kOutRfe, the forward's) or t = rfe drfe without Y (kOutT,
+//    for dpsi alone), and dpsi_product_f64_kernel takes part[z] = t[:, range
+//    z] w[range z, :] over gene ranges (enough blocks to fill the last wave
+//    of three an SM, f64_plan's zsplit and dsplit), which
+//    dpsi_sum_f64_kernel adds in order: Z = rfe muL (w = muL; one range
+//    writes Z's rows itself) and dpsi = t W + dA1 YW (w = W; dA1 YW added
+//    last, reference_dpsi's order). The autograd function's backward takes
+//    dpsi = dlog_rfe W from the gene part's own dlog_rfe a row block, in the
+//    one call of fl64_backward_gene with dpsi. The forward's rfe kernel
+//    also takes A1 = Y log_rfe from its log_rfe accumulators (a row's sums
+//    over each warp's 32 genes, which reduce_chunks_f64_kernel adds in
+//    order), so Y's other products (YW, A2) stay fwd_f64_kernel's, in
+//    groups of Y tiles only, which form no log_rfe or exp and hold no psi
+//    or W (two blocks an SM where psi's and W's 72 columns left one).
 //
 // What bounds them on the card: a float64 exp is a software sequence on
 // the FP64 units (an integer part, a polynomial of DFMAs, a scaling), about
@@ -138,9 +159,9 @@
 //
 // Build: as fused_likelihood.cu, ops/_build.py compiles this file once for
 // each FL_PART and links the objects: FL_PART = -1 holds the Y-free kernels
-// (the packing kernels, dpsi_f64_kernel, reduce_chunks_f64_kernel) and the
-// C entry points (fl64_*), FL_PART = YT the two Y-reading kernels of one Y
-// storage type.
+// (the packing kernels, dpsi_f64_kernel, reduce_chunks_f64_kernel, the
+// split forward's and dpsi's) and the C entry points (fl64_*), FL_PART = YT
+// the Y-reading kernels of one Y storage type.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -178,17 +199,20 @@ constexpr int kYF64 = 0, kYBF16 = 1, kYI16 = 2, kYI8 = 3;
 // tables' doubles (f_table the forward's, g_table the gene part's, d_table
 // dpsi's).
 //
-// split: the gene part is the split one (past Kf 64, nA2 64 or SC 2,048):
-// rows and n_chunks are then its row blocks, ldw the workspace's row pitch
-// (doubles, even), gslices slices of gcells cells a row block (more than one
-// only in a single row block: part then holds their partial sums), and the
-// other g_* numbers and g_table are 0.
+// split: past Kf 64, nA2 64 or SC 2,048 the forward, dpsi and the gene part
+// are the split ones: rows and n_chunks are then their row blocks, ldw the
+// workspace's row pitch (doubles, even), gslices slices of gcells cells a
+// row block (more than one only in a single row block: part then holds
+// their partial sums), dsplit gene ranges of dgenes genes of dpsi's product
+// and zsplit of zgenes of Z's; the forward's tiles are the Y products'
+// alone (f_tiles == f_yt), and the d_* and other g_* numbers, d_table and
+// g_table are 0.
 struct Plan {
   int f_yt, f_tiles, f_count, f_nt, f_groups, f_blocks, f_smem;
   int d_nk, d_nz, d_groups, d_steps, d_blocks, d_smem;
   int g_st, g_tiles, g_nk, g_count, g_nt, g_passes, g_blocks, rows, n_chunks, g_smem;
   size_t part, f_table, g_table, d_table;
-  int split, ldw, gslices, gcells;
+  int split, ldw, gslices, gcells, dsplit, dgenes, zsplit, zgenes;
 };
 
 struct FwdArgs {
@@ -211,10 +235,10 @@ struct GeneArgs {
   cudaStream_t stream;
 };
 
-// The split gene part's arguments: the workspace of one row block (rfe and
-// dlog_rfe, plan.rows x plan.ldw doubles each), the (Kf + SC + nA2, G)
-// output and, where the plan slices the cells (gslices > 1), the slices'
-// partial sums of it.
+// The split kernels' arguments: the workspace of one row block (rfe and
+// dlog_rfe, plan.rows x plan.ldw doubles each; for the split forward rfe
+// and A1's partial sums), the (Kf + SC + nA2, G) output and, where the plan
+// slices the cells (gslices > 1), the slices' partial sums of it.
 struct SplitArgs {
   const void* Y;  // (N, G) in the storage type
   const double *psi, *W, *muL, *dA1, *dA2, *dZ;
@@ -226,9 +250,11 @@ struct SplitArgs {
 
 // The Y-reading kernels of one storage type, and their blocks an SM under
 // the plan (which: 0 the forward, 1 the gene part: gene_f64_kernel, or
-// where the plan is the split one dlog_rfe_f64_kernel); the split gene
-// part's, for row block b: dlog_rfe_f64_kernel<YT> (which 0) or dlog mu's
-// gene_product_f64_kernel<YT, true> (which 1).
+// where the plan is the split one dlog_rfe_f64_kernel<YT, 1>, 2 the split
+// forward's dlog_rfe_f64_kernel<YT, 2>); the split kernels', for row block
+// b: dlog_rfe_f64_kernel<YT, 1> (which 0), dlog mu's
+// gene_product_f64_kernel<YT, true> (which 1) or the split forward's rfe and
+// A1's partial sums, dlog_rfe_f64_kernel<YT, 2> (which 2).
 template <int YT> void forward_typed(const FwdArgs& a);
 template <int YT> void gene_typed(const GeneArgs& a);
 template <int YT> int blocks_per_sm(int which, const Plan& p, int Kf);
@@ -420,10 +446,14 @@ template <> struct FwdRow<kYF64> {
 // ---------------------------------------------------------------------------
 // Forward: block (blockIdx.x) of kFwdWarps x 16 cells, column group
 // blockIdx.y of `count` tiles (NT accumulator tiles, the last nt - count
-// idle) of [Y W | Y log mu^T] (yt tiles) then Z. Dynamic shared memory: the
-// warps' psi ([warp][k][g] pairs of rows g, g + 8), then two stages, each
-// the group's B fragments ([k-step][tile][lane] pairs), W ([k-step][k][t]
-// pairs of genes 8t + 2ks, + 1) and the warps' Y rows.
+// idle) of [Y W | Y log mu^T] (yt tiles) then Z (tiles in all). Past the old
+// bound (a1 false) there are no Z tiles (tiles == yt) and no A1, which the
+// split forward's rfe kernel takes from its log_rfe: the kernel forms no
+// log_rfe and holds no psi or W (klr = 0). Dynamic shared memory: the
+// warps' psi ([warp][k][g] pairs of rows g, g + 8; klr columns), then two
+// stages, each the group's B fragments ([k-step][tile][lane] pairs), W
+// ([k-step][k][t] pairs of genes 8t + 2ks, + 1; klr columns) and the warps'
+// Y rows.
 // ---------------------------------------------------------------------------
 template <int YT, int NT>
 __global__ void __launch_bounds__(kFwdWarps * kWarp, NT >= 8 ? 2 : NT >= 4 ? 3 : 4)
@@ -432,33 +462,33 @@ fwd_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __res
                const double* __restrict__ muL, double* __restrict__ A1, double* __restrict__ A2,
                double* __restrict__ Z, double* __restrict__ YW,
                const double2* __restrict__ table, int N, int G, int Kf, int nA2, int SC, int yt,
-               int count, bool vec) {
+               int tiles, int count, bool a1, bool vec) {
   using Row = FwdRow<YT>;
   extern __shared__ __align__(16) unsigned char s_dyn[];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = (blockIdx.x * kFwdWarps + warp) * 16;
   const int n0 = row0 + g, n1 = n0 + 8;
-  const int tiles = yt + (SC + 7) / 8;
+  const int klr = a1 ? Kf : 0;  // log_rfe's columns
   const int tile0 = blockIdx.y * count, nt = min(count, tiles - tile0);
   const int ny = max(0, min(nt, yt - tile0));  // the group's Y-product tiles (its first)
-  const bool first = blockIdx.y == 0;
+  const bool first = blockIdx.y == 0 && a1;
   const bool with_exp = nt > ny, with_lr = with_exp || first, with_y = ny > 0 || first;
   double2* s_psi = reinterpret_cast<double2*>(s_dyn);
-  unsigned char* s_stage = s_dyn + (size_t)kFwdWarps * 16 * Kf * 8;
-  const int tab_bytes = kFwdSteps * NT * kWarp * 16, w_bytes = kFwdSteps * Kf * 4 * 16;
+  unsigned char* s_stage = s_dyn + (size_t)kFwdWarps * 16 * klr * 8;
+  const int tab_bytes = kFwdSteps * NT * kWarp * 16, w_bytes = kFwdSteps * klr * 4 * 16;
   const int stage_bytes = tab_bytes + w_bytes + kFwdYStageBytes;
 
   // psi of the warp's rows, in pairs (row g, row g + 8); read after the
   // first stage's barrier
-  for (int i = lane; i < 16 * Kf; i += kWarp) {
+  for (int i = lane; i < 16 * klr; i += kWarp) {
     const int k = i / 16, r = i % 16, n = row0 + (r >> 1) + 8 * (r & 1);
-    reinterpret_cast<double*>(s_psi)[warp * Kf * 16 + i] = n < N ? psi[(size_t)n * Kf + k] : 0.0;
+    reinterpret_cast<double*>(s_psi)[warp * klr * 16 + i] = n < N ? psi[(size_t)n * Kf + k] : 0.0;
   }
 
   // cp.async of stage s (genes [32 s, 32 s + 32)) into buffer buf: for each
   // k-step the group's tiles and W's pairs, contiguous in the packed table
-  const int per_ks = tiles * kWarp + Kf * 4;
+  const int per_ks = tiles * kWarp + klr * 4;
   auto stage = [&](int s, int buf) {
     unsigned char* base = s_stage + (size_t)buf * stage_bytes;
     double2* tab = reinterpret_cast<double2*>(base);
@@ -469,8 +499,8 @@ fwd_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __res
       for (int i = threadIdx.x; i < nt * kWarp; i += blockDim.x)
         cp_async<16>(tab + ks * NT * kWarp + i, src + ks * per_ks + tile0 * kWarp + i, src);
       if (with_lr)
-        for (int i = threadIdx.x; i < Kf * 4; i += blockDim.x)
-          cp_async<16>(sw + ks * Kf * 4 + i, src + ks * per_ks + tiles * kWarp + i, src);
+        for (int i = threadIdx.x; i < klr * 4; i += blockDim.x)
+          cp_async<16>(sw + ks * klr * 4 + i, src + ks * per_ks + tiles * kWarp + i, src);
     }
     if (with_y) {
       unsigned char* sy = base + tab_bytes + w_bytes + warp * 16 * Row::kRow;
@@ -518,9 +548,9 @@ fwd_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __res
         r1.pair(ks, y[1], y[3]);
       }
       if (with_lr) {
-        const double2* pp = s_psi + warp * Kf * 8 + g;
-        const double2* pw = sw + ks * Kf * 4 + t;
-        for (int k = 0; k < Kf; ++k) {
+        const double2* pp = s_psi + warp * klr * 8 + g;
+        const double2* pw = sw + ks * klr * 4 + t;
+        for (int k = 0; k < klr; ++k) {
           const double2 p = pp[k * 8], w = pw[k * 4];
           lr[0] = fma(p.x, w.x, lr[0]);
           lr[1] = fma(p.y, w.x, lr[1]);
@@ -805,9 +835,11 @@ constexpr int kDbStages = 3;                     // the cp.async ring
 constexpr int kDbPitchK = kDbK + 4, kDbPitchM = kDbM + 4, kDbPitchN = kDbN + 4;
 // A stage's doubles: dlog_rfe_f64_kernel's cell and gene tiles (rows of K
 // values); gene_product_f64_kernel's cell side and workspace (or Y) tile
-// (rows of M, of N values).
+// (rows of M, of N values); dpsi_product_f64_kernel's workspace tile and
+// w's (rows of K, of N values).
 constexpr int kDbStageDlog = (kDbM + kDbN) * kDbPitchK;
 constexpr int kDbStageGene = kDbK * (kDbPitchM + kDbPitchN);
+constexpr int kDbStageDpsi = kDbM * kDbPitchK + kDbK * kDbPitchN;
 constexpr int db_smem(int stage_doubles) { return 8 * kDbStages * stage_doubles; }
 // The operands and jobs of split_tiles.cuh, in doubles.
 using DbMat = TileMat<double>;
@@ -847,12 +879,21 @@ __device__ __forceinline__ void db_stage(const double* sa, BVal&& bval, double (
   }
 }
 
-// A row block's rfe = exp(psi W^T) and dlog_rfe = rfe drfe + Y dA1, drfe =
-// dZ muL^T: grid (tiles of kDbN genes, tiles of kDbM cells). log_rfe is
-// formed first, its exps stored to rfe at once, then drfe in the same
-// accumulators (each thread reads back only the rfe it wrote). Rows of
-// psi, dZ, Y and dA1 are the block's.
-template <int YT>
+// What dlog_rfe_f64_kernel writes beside rfe: t = rfe drfe (kOutT, for
+// dpsi alone), dlog_rfe = rfe drfe + Y dA1 (kOutDlog, with Y), or A1's
+// partial sums (kOutRfe, the split forward's, with Y).
+constexpr int kOutT = 0, kOutDlog = 1, kOutRfe = 2;
+
+// A row block's rfe = exp(psi W^T) and, as OUT says, dlog_rfe = rfe drfe +
+// Y dA1 or t = rfe drfe, drfe = dZ muL^T: grid (tiles of kDbN genes, tiles
+// of kDbM cells). log_rfe is formed first, its exps stored to rfe at once,
+// then drfe in the same accumulators (rfe may be dl: each thread reads back
+// only the rfe it wrote). kOutRfe forms no drfe: its dl holds A1's partial
+// sums of Y log_rfe, each row's over each warp's 32 genes (partial 2
+// blockIdx.x + its column half, the partials rows apart), which
+// reduce_chunks_f64_kernel adds in order. Rows of psi, dZ, Y and dA1 are
+// the block's.
+template <int YT, int OUT>
 __global__ void __launch_bounds__(kDbThreads, 3)
 dlog_rfe_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* __restrict__ dA1,
                     DbMat psi, DbMat W, DbMat dZ, DbMat muL, double* rfe, double* dl,
@@ -883,21 +924,45 @@ dlog_rfe_f64_kernel(const typename Y64<YT>::Elem* __restrict__ Y, const double* 
         });
   };
   product(psi, W);
+  double a1[2][2] = {};  // kOutRfe: the thread's rows' sums of Y log_rfe over its columns
   tile_each_pair<kDbThreads>([&](int r, int c, int i, int j, int h) {
     const int n = m0 + r, g = n0 + c;
 #pragma unroll
-    for (int u = 0; u < 2; ++u)
-      if (n < rows && g + u < G) rfe[n * ldw + g + u] = exp(acc[i][j][2 * h + u]);
+    for (int u = 0; u < 2; ++u) {
+      if (n >= rows || g + u >= G) continue;
+      const double lr = acc[i][j][2 * h + u];
+      rfe[n * ldw + g + u] = exp(lr);
+      if constexpr (OUT == kOutRfe)
+        a1[i][h] = fma(y_to_double<YT>(Y[(long long)n * G + g + u]), lr, a1[i][h]);
+    }
   });
-  product(dZ, muL);
-  tile_each_pair<kDbThreads>([&](int r, int c, int i, int j, int h) {
-    const int n = m0 + r, g = n0 + c;
+  if constexpr (OUT == kOutRfe) {  // the quad's sums of a row, in a fixed order
+    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+    const long long q = 2 * blockIdx.x + warp % 2;
 #pragma unroll
-    for (int u = 0; u < 2; ++u)
-      if (n < rows && g + u < G)
-        dl[n * ldw + g + u] = fma(y_to_double<YT>(Y[(long long)n * G + g + u]), dA1[n],
-                                  rfe[n * ldw + g + u] * acc[i][j][2 * h + u]);
-  });
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        double v = a1[i][h];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const int n = m0 + 32 * (warp / 2) + 16 * i + (lane >> 2) + 8 * h;
+        if ((lane & 3) == 0 && n < rows) dl[q * rows + n] = v;
+      }
+  } else {
+    product(dZ, muL);
+    tile_each_pair<kDbThreads>([&](int r, int c, int i, int j, int h) {
+      const int n = m0 + r, g = n0 + c;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (n >= rows || g + u >= G) continue;
+        double v = rfe[n * ldw + g + u] * acc[i][j][2 * h + u];
+        if constexpr (OUT == kOutDlog)
+          v = fma(y_to_double<YT>(Y[(long long)n * G + g + u]), dA1[n], v);
+        dl[n * ldw + g + u] = v;
+      }
+    });
+  }
 }
 
 // The gene-side products of a row block: grid (tiles of kDbN genes, the
@@ -958,18 +1023,76 @@ gene_product_f64_kernel(DbJobs jobs, const typename Y64<YT>::Elem* __restrict__ 
 }
 
 #if F64_COMMON
+// part[z][n][k] = sum over genes [z genes, (z + 1) genes) of t[n, g] w[g, k]
+// for a row block's cells n: grid (tiles of kDbM cells, tiles of kDbN
+// columns of w, ranges of genes), K the range's genes. The split dpsi's t W
+// (or the joint backward's dlog_rfe W; w = W, dsplit ranges) and the split
+// forward's Z = rfe muL (w = muL, zsplit ranges; with one range part is Z's
+// rows of the block). Range z starts at a whole number of 32 genes, so t's
+// copies stay 16-byte aligned; w's are where its width is even.
+__global__ void __launch_bounds__(kDbThreads, 3)
+dpsi_product_f64_kernel(DbMat t, DbMat w, double* __restrict__ part, long long zstride,
+                        int genes) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  double* smem = reinterpret_cast<double*>(s_dyn);
+  constexpr int kA = kDbM * kDbPitchK;
+  const int z = blockIdx.z, g0 = z * genes;
+  DbMat a = t, b = w;  // the range's genes
+  a.p += g0;
+  a.cols = min(genes, t.cols - g0);
+  b.p += (long long)g0 * w.ld;
+  b.rows = min(genes, w.rows - g0);
+  const int m0 = blockIdx.x * kDbM, n0 = blockIdx.y * kDbN;
+  double acc[2][4][4] = {};
+  tile_mainloop<kDbStages>(
+      (a.cols + kDbK - 1) / kDbK,
+      [&](int kt, int buf) {
+        double* st = smem + buf * kDbStageDpsi;
+        tile_load<kDbThreads, kDbM, kDbK, kDbPitchK>(st, a, m0, kt * kDbK);
+        tile_load<kDbThreads, kDbK, kDbN, kDbPitchN>(st + kA, b, kt * kDbK, n0);
+      },
+      [&](int buf) {
+        const double* st = smem + buf * kDbStageDpsi;
+        const double* sw = st + kA;
+        db_stage<false, kDbPitchK>(st, [&](int k, int n) { return sw[k * kDbPitchN + n]; }, acc);
+      });
+  const int cols = w.cols;
+  tile_each_pair<kDbThreads>([&](int r, int c, int i, int j, int h) {
+    const int n = m0 + r, k = n0 + c;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (n < t.rows && k + u < cols)
+        part[z * zstride + (long long)n * cols + k + u] = acc[i][j][2 * h + u];
+  });
+}
+
+// out = the ranges' sums of part (a row block's rows x cols values, range
+// z at z zstride) added in order, then dA1 YW (dpsi alone: YW given, t's
+// rows; not for the joint backward, whose dlog_rfe had Y dA1, nor for Z).
+__global__ void dpsi_sum_f64_kernel(const double* __restrict__ part,
+                                    const double* __restrict__ dA1,
+                                    const double* __restrict__ YW, double* __restrict__ out,
+                                    int rows, int cols, int nsplit, long long zstride) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= (long long)rows * cols) return;
+  double s = 0.0;
+  for (int z = 0; z < nsplit; ++z) s += part[z * zstride + i];
+  out[i] = YW ? fma(dA1[i / cols], YW[i], s) : s;
+}
+
 // The forward's gene side, once a call, in the order its stages take it:
 // for each stage of 32 genes and each of its 4 k-steps, the B fragment
 // pairs of every tile ([tile][lane]: genes 8t + 2ks and 8t + 2ks + 1 at
 // column 8 tile + g of [W | log mu^T] (yt tiles), then of muL), then W's
-// pairs for log_rfe ([k][t], the same genes). Zero past G and every width.
+// pairs for log_rfe ([k][t], the same genes; klr columns: Kf, or none past
+// the old bound). Zero past G and every width.
 __global__ void fwd_f64_pack_kernel(const double* __restrict__ W, const double* __restrict__ logmu,
                                     const double* __restrict__ muL, double2* __restrict__ table,
-                                    int G, int Kf, int nA2, int SC, int yt, int tiles,
+                                    int G, int Kf, int nA2, int SC, int yt, int tiles, int klr,
                                     long long n) {
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (e >= n) return;
-  const int per_ks = tiles * kWarp + Kf * 4, r = (int)(e % per_ks);
+  const int per_ks = tiles * kWarp + klr * 4, r = (int)(e % per_ks);
   const int ks = (int)(e / per_ks % kFwdSteps), g0 = (int)(e / per_ks / kFwdSteps) * kFwdGenes;
   double v[2];
 #pragma unroll
@@ -1087,31 +1210,27 @@ __global__ void dpsi_f64_pack_kernel(const double* __restrict__ W, const double*
 // of kDpsiWarps x 16 cells; dZ's tiles in `groups` groups of NZ, one after
 // another, each walking the genes in stages of `steps` k-steps of 8 (the
 // padded table's; genes past G are zeros and add nothing). NK tiles of
-// [psi, X]'s columns. Dynamic shared memory: each warp's psi (NK == 1:
-// [k][g] pairs of rows g, g + 8 for k < 8; else A fragments
-// [kc][half][lane], half 1 the columns + 4), then two stages of `steps`
-// k-steps of [the group's NZ muL^T tiles | NK W tiles | LR W^T tiles where
-// NK > 1][lane] pairs. Past 8 tiles of [psi, X] (LRW), blockIdx.y picks a
-// group of NK output tiles (of gridDim.y), and log_rfe takes LR = every
-// tile, with psi's A fragments of all of them.
+// [psi, X]'s columns (at most 8: up to Kf 64). Dynamic shared memory: each
+// warp's psi (NK == 1: [k][g] pairs of rows g, g + 8 for k < 8; else A
+// fragments [kc][half][lane], half 1 the columns + 4), then two stages of
+// `steps` k-steps of [the group's NZ muL^T tiles | NK W tiles | LR W^T tiles
+// where NK > 1][lane] pairs.
 // ---------------------------------------------------------------------------
-template <int NK, int NZ, bool LRW>
+template <int NK, int NZ>
 __global__ void __launch_bounds__(kDpsiWarps * kWarp, dpsi_min_blocks(NK, NZ))
 dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ dZ,
                 const double* __restrict__ dA1, const double* __restrict__ YW,
                 const double2* __restrict__ table, double* __restrict__ dpsi, int N, int G, int Kf,
                 int SC, int groups, int steps) {
-  const int LR = LRW ? (Kf + 7) / 8 : dpsi_lr_tiles(NK);  // log_rfe's W^T tiles
-  const int PL = LRW ? LR : NK;                          // psi's tiles in shared memory
-  const int RW = NZ + NK + LR;                           // tiles a k-step of a stage
-  const int kg = LRW ? (int)blockIdx.y : 0, nk_all = LRW ? (int)gridDim.y * NK : NK;
+  constexpr int LR = dpsi_lr_tiles(NK);  // log_rfe's W^T tiles
+  constexpr int RW = NZ + NK + LR;       // tiles a k-step of a stage
   extern __shared__ __align__(16) unsigned char s_dyn[];
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = (blockIdx.x * kDpsiWarps + warp) * 16, n0 = row0 + g, n1 = n0 + 8;
-  const int tab_tiles = groups * NZ + nk_all + LR;  // a k-step's in the table
-  double2* s_psi = reinterpret_cast<double2*>(s_dyn) + warp * 2 * PL * kWarp;
-  double2* s_stage = reinterpret_cast<double2*>(s_dyn) + kDpsiWarps * 2 * PL * kWarp;
+  const int tab_tiles = groups * NZ + NK + LR;  // a k-step's in the table
+  double2* s_psi = reinterpret_cast<double2*>(s_dyn) + warp * 2 * NK * kWarp;
+  double2* s_stage = reinterpret_cast<double2*>(s_dyn) + kDpsiWarps * 2 * NK * kWarp;
 
   // psi of the warp's rows (read after the first stage's barrier)
   if constexpr (NK == 1) {
@@ -1122,7 +1241,7 @@ dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ dZ,
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 2 * PL; ++i) {
+    for (int i = 0; i < 2 * NK; ++i) {
       const int k = 8 * (i >> 1) + t + 4 * (i & 1);
       s_psi[i * kWarp + lane] = make_double2(n0 < N && k < Kf ? psi[(size_t)n0 * Kf + k] : 0.0,
                                              n1 < N && k < Kf ? psi[(size_t)n1 * Kf + k] : 0.0);
@@ -1157,9 +1276,7 @@ dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ dZ,
       double2* dst = s_stage + (size_t)buf * stage_tiles;
       for (int i = threadIdx.x; i < stage_tiles; i += blockDim.x) {
         const int l = i % kWarp, r = i / kWarp % RW, ks = i / (kWarp * RW);
-        const int tile = r < NZ        ? grp * NZ + r
-                         : r < NZ + NK ? groups * NZ + kg * NK + r - NZ
-                                       : groups * NZ + nk_all + r - NZ - NK;
+        const int tile = r < NZ ? grp * NZ + r : groups * NZ + r - NZ;
         cp_async<16>(dst + i, table + ((size_t)(s * steps + ks) * tab_tiles + tile) * kWarp + l,
                      table);
       }
@@ -1229,7 +1346,7 @@ dpsi_f64_kernel(const double* __restrict__ psi, const double* __restrict__ dZ,
   for (int kc = 0; kc < NK; ++kc)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int n = e < 2 ? n0 : n1, k = 8 * (kg * NK + kc) + 2 * t + (e & 1);
+      const int n = e < 2 ? n0 : n1, k = 8 * kc + 2 * t + (e & 1);
       if (n < N && k < Kf)
         dpsi[(size_t)n * Kf + k] = fma(dA1[n], YW[(size_t)n * Kf + k], acc[kc][e]);
     }
@@ -1250,21 +1367,11 @@ inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
 // Each kernel's dynamic shared memory, in bytes (the layouts above;
 // ops/fused_likelihood.py's f64_fwd_smem, f64_dpsi_smem, f64_gene_smem).
-inline long long fwd_smem(int Kf, int nt) {
-  return 8LL * (kFwdWarps * 16 * Kf + 2LL * kFwdGenes * (8 * nt + Kf)) + 2LL * kFwdYStageBytes;
+inline long long fwd_smem(int klr, int nt) {  // klr: log_rfe's columns (none past the old bound)
+  return 8LL * (kFwdWarps * 16 * klr + 2LL * kFwdGenes * (8 * nt + klr)) + 2LL * kFwdYStageBytes;
 }
-// dpsi's output groups past 8 tiles of [psi, X], and log_rfe's W^T tiles
-// (every tile where there are groups)
-inline int dpsi_kgroups(int Kf, int nk) {
-  const int tiles = (Kf + 7) / 8;
-  return tiles > nk ? (tiles + nk - 1) / nk : 1;
-}
-inline int dpsi_lr(int Kf, int nk) {
-  return dpsi_kgroups(Kf, nk) > 1 ? (Kf + 7) / 8 : dpsi_lr_tiles(nk);
-}
-inline long long dpsi_smem(int Kf, int nk, int nz, int steps) {
-  const int lr = dpsi_lr(Kf, nk), pl = dpsi_kgroups(Kf, nk) > 1 ? lr : nk;
-  return 16LL * kWarp * (kDpsiWarps * 2 * pl + 2LL * steps * (nz + nk + lr));
+inline long long dpsi_smem(int nk, int nz, int steps) {
+  return 16LL * kWarp * (kDpsiWarps * 2 * nk + 2LL * steps * (nz + nk + dpsi_lr_tiles(nk)));
 }
 inline long long gene_smem(int Kf, int nt, int nk) {
   return 8LL * (kGeneWarps * 16 * Kf + 2LL * (kGeneCells * (16LL * nt + 8 * nk + Kf) + kGeneCells)) +
@@ -1275,19 +1382,19 @@ inline long long gene_smem(int Kf, int nt, int nk) {
 // the gene part's cell side (gene_f64_pack_kernel) and dpsi's gene side
 // (dpsi_f64_pack_kernel: for every k-step of the stages that cover G, its
 // tiles of 32 pairs).
-inline long long fwd_table(int G, int Kf, int tiles) {
-  return 2LL * cdiv(G, kFwdGenes) * kFwdSteps * (tiles * kWarp + Kf * 4);
+inline long long fwd_table(int G, int klr, int tiles) {
+  return 2LL * cdiv(G, kFwdGenes) * kFwdSteps * (tiles * kWarp + klr * 4);
 }
 inline long long gene_table(int N, int Kf, int tiles, int nk) {
   return 2LL * cdiv(N, kGeneCells) *
          (kGeneTiles * ((2LL * tiles + nk) * kWarp + Kf * 4) + kGeneCells / 2);
 }
 
-inline int dpsi_tiles(int Kf, int nk, int nz, int groups) {
-  return groups * nz + dpsi_kgroups(Kf, nk) * nk + dpsi_lr(Kf, nk);
+inline int dpsi_tiles(int nk, int nz, int groups) {
+  return groups * nz + nk + dpsi_lr_tiles(nk);
 }
-inline long long dpsi_table(int G, int Kf, int nk, int nz, int groups, int steps) {
-  return 2LL * cdiv(G, 8 * steps) * steps * dpsi_tiles(Kf, nk, nz, groups) * kWarp;
+inline long long dpsi_table(int G, int nk, int nz, int groups, int steps) {
+  return 2LL * cdiv(G, 8 * steps) * steps * dpsi_tiles(nk, nz, groups) * kWarp;
 }
 // The least of the built counts c[0..n) that is >= v (else the largest).
 inline long long least_count(const int* c, int n, long long v) {
@@ -1312,22 +1419,25 @@ bool bad_sizes(int N, int G, int Kf, int nA2, int SC, int y_type) {
 
 // The plan ops/fused_likelihood.py's f64_plan made (its F64_PLAN_KEYS, in
 // order), or false where a number does not fit these sizes: the forward's
-// tiles of each width, split evenly into groups each the least built count
-// that holds them, grid.y within 65535, dpsi's built counts the least that
-// hold [psi, X] and an even split of dZ's tiles into its groups, its
-// k-steps a stage 4 unless that leaves room for one block an SM, the blocks
-// covering the cells, each shared memory size the kernel's layout and
-// within the card's, and the room of the packed tables. The gene part's:
-// within the old bound its tiles split evenly into passes each the least
-// built count that holds them beside dW's built count, the blocks covering
-// the genes, the chunks whole stages covering the cells with grid.y within
-// 65535, its shared memory and the room of the partial sums and of its
-// packed table; past it (split) row blocks that hold every cell once, each
+// tiles of each width (past the old bound the Y products' alone, at least
+// one), split evenly into groups each the least built count that holds
+// them, grid.y within 65535, the blocks covering the cells, its shared
+// memory its layout's and within the card's, and the room of its packed
+// table. Within the old bound, dpsi's built counts the least that hold
+// [psi, X] and an even split of dZ's tiles into its groups, its k-steps a
+// stage 4 unless that leaves room for one block an SM, its blocks, shared
+// memory and table likewise; the gene part's tiles split evenly into
+// passes each the least built count that holds them beside dW's built
+// count, the blocks covering the genes, the chunks whole stages covering
+// the cells with grid.y within 65535, its shared memory and the room of the
+// partial sums and of its packed table. Past it (split) dpsi's and the
+// gene part's grouped keys 0, row blocks that hold every cell once, each
 // within grid.y's 65535 tiles, the workspace's row pitch a whole number of
-// 16 bytes of at least G, and slices of cells (of 32) that hold every cell
-// of the one row block once, or one slice a row block, with room for their
-// partial sums.
-constexpr int kPlanKeys = 31;
+// 16 bytes of at least G, slices of cells (of 32) that hold every cell of
+// the one row block once, or one slice a row block, with room for their
+// partial sums, and each product's gene ranges (of 32) holding every gene
+// once.
+constexpr int kPlanKeys = 35;
 bool plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Plan& p) {
   for (int i = 0; i < kPlanKeys; ++i)
     if (v[i] < 0 || ((i < 23 || i > 26) && v[i] > 0x7fffffff)) return false;
@@ -1341,30 +1451,29 @@ bool plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Plan& p)
   p.part = (size_t)v[23], p.f_table = (size_t)v[24], p.g_table = (size_t)v[25];
   p.d_table = (size_t)v[26];
   p.split = (int)v[27], p.ldw = (int)v[28], p.gslices = (int)v[29], p.gcells = (int)v[30];
+  p.dsplit = (int)v[31], p.dgenes = (int)v[32], p.zsplit = (int)v[33], p.zgenes = (int)v[34];
   const long long F = (long long)Kf + SC + nA2, zt = cdiv(SC, 8);
+  const bool split = p.split == 1;
   constexpr int kFwdCounts = sizeof(kFwdTileCounts) / sizeof(int);
-  constexpr int kDpsiK = sizeof(kDpsiKCounts) / sizeof(int);
-  constexpr int kDpsiZ = sizeof(kDpsiZCounts) / sizeof(int);
-  const bool fwd_dpsi =
-      p.f_yt == cdiv(Kf + nA2, 8) && p.f_tiles == p.f_yt + zt &&
+  const bool fwd =
+      (split ? p.f_yt == (Kf + nA2 ? cdiv(Kf + nA2, 8) : 1) && p.f_tiles == p.f_yt
+             : p.split == 0 && p.f_yt == cdiv(Kf + nA2, 8) && p.f_tiles == p.f_yt + zt) &&
       p.f_groups == cdiv(p.f_tiles, kFwdTileCounts[kFwdCounts - 1]) && p.f_groups <= 65535 &&
       p.f_count == cdiv(p.f_tiles, p.f_groups) &&
       p.f_nt == least_count(kFwdTileCounts, kFwdCounts, p.f_count) && p.f_nt >= p.f_count &&
-      p.f_blocks == cdiv(N, 16 * kFwdWarps) && p.f_smem == fwd_smem(Kf, p.f_nt) &&
-      p.f_smem <= kMaxSmem &&
-      p.d_nk == least_count(kDpsiKCounts, kDpsiK, Kf > 8 ? cdiv(Kf, 8) : 1) &&
-      dpsi_kgroups(Kf, p.d_nk) <= 65535 && p.d_groups == cdiv(zt, kDpsiZCounts[kDpsiZ - 1]) &&
-      p.d_nz == least_count(kDpsiZCounts, kDpsiZ, cdiv(zt, p.d_groups)) &&
-      (long long)p.d_nz * p.d_groups >= zt &&
-      p.d_steps == (dpsi_smem(Kf, p.d_nk, p.d_nz, 4) <= kTwoBlockSmem ? 4 : 2) &&
-      p.d_blocks == cdiv(N, 16 * kDpsiWarps) &&
-      p.d_smem == dpsi_smem(Kf, p.d_nk, p.d_nz, p.d_steps) && p.d_smem <= kMaxSmem &&
-      p.f_table >= (size_t)fwd_table(G, Kf, p.f_tiles) &&
-      p.d_table >= (size_t)dpsi_table(G, Kf, p.d_nk, p.d_nz, p.d_groups, p.d_steps);
-  if (!fwd_dpsi) return false;
-  if (p.split == 1) {
-    const long long keys = (long long)p.g_st + p.g_tiles + p.g_nk + p.g_count + p.g_nt +
-                           p.g_passes + p.g_blocks + p.g_smem + (long long)p.g_table;
+      p.f_blocks == cdiv(N, 16 * kFwdWarps) && p.f_smem == fwd_smem(split ? 0 : Kf, p.f_nt) &&
+      p.f_smem <= kMaxSmem && p.f_table >= (size_t)fwd_table(G, split ? 0 : Kf, p.f_tiles);
+  if (!fwd) return false;
+  // a product's gene ranges: whole stages of 32 that hold every gene once
+  auto ranges = [&](int n, int genes) {
+    return n >= 1 && n <= 65535 && genes >= 32 && genes % 32 == 0 &&
+           (long long)n * genes >= G && (long long)(n - 1) * genes < G;
+  };
+  if (split) {
+    const long long keys = (long long)p.d_nk + p.d_nz + p.d_groups + p.d_steps + p.d_blocks +
+                           p.d_smem + (long long)p.d_table + p.g_st + p.g_tiles + p.g_nk +
+                           p.g_count + p.g_nt + p.g_passes + p.g_blocks + p.g_smem +
+                           (long long)p.g_table;
     return keys == 0 && p.rows >= 1 && p.n_chunks >= 1 && (long long)p.n_chunks * p.rows >= N &&
            (long long)(p.n_chunks - 1) * p.rows < N && cdiv(p.rows, kDbM) <= 65535 &&
            p.ldw >= G && p.ldw % 2 == 0 && cdiv(Kf, kDbM) + cdiv(SC, kDbM) <= 65535 &&
@@ -1372,11 +1481,23 @@ bool plan_of(const long long* v, int N, int G, int Kf, int nA2, int SC, Plan& p)
            (p.gslices == 1 ? p.gcells == p.rows : p.n_chunks == 1) && p.gcells >= 32 &&
            p.gcells % 32 == 0 && (long long)p.gslices * p.gcells >= (N < p.rows ? N : p.rows) &&
            (long long)(p.gslices - 1) * p.gcells < N && p.part % 2 == 0 &&
-           p.part >= (p.gslices > 1 ? (size_t)p.gslices * F * G : 0);
+           p.part >= (p.gslices > 1 ? (size_t)p.gslices * F * G : 0) &&
+           ranges(p.dsplit, p.dgenes) && ranges(p.zsplit, p.zgenes);
   }
+  constexpr int kDpsiK = sizeof(kDpsiKCounts) / sizeof(int);
+  constexpr int kDpsiZ = sizeof(kDpsiZCounts) / sizeof(int);
   const int* gc = nullptr;
   const int n_gc = gene_tile_counts(p.g_nk, &gc);
-  return p.split == 0 && p.ldw == 0 && p.gslices == 0 && p.gcells == 0 &&
+  return p.ldw == 0 && p.gslices == 0 && p.gcells == 0 && p.dsplit == 0 && p.dgenes == 0 &&
+         p.zsplit == 0 && p.zgenes == 0 &&
+         p.d_nk == least_count(kDpsiKCounts, kDpsiK, Kf > 8 ? cdiv(Kf, 8) : 1) &&
+         cdiv(Kf, 8) <= p.d_nk && p.d_groups == cdiv(zt, kDpsiZCounts[kDpsiZ - 1]) &&
+         p.d_nz == least_count(kDpsiZCounts, kDpsiZ, cdiv(zt, p.d_groups)) &&
+         (long long)p.d_nz * p.d_groups >= zt &&
+         p.d_steps == (dpsi_smem(p.d_nk, p.d_nz, 4) <= kTwoBlockSmem ? 4 : 2) &&
+         p.d_blocks == cdiv(N, 16 * kDpsiWarps) &&
+         p.d_smem == dpsi_smem(p.d_nk, p.d_nz, p.d_steps) && p.d_smem <= kMaxSmem &&
+         p.d_table >= (size_t)dpsi_table(G, p.d_nk, p.d_nz, p.d_groups, p.d_steps) &&
          p.g_st == cdiv(nA2, 8) && p.g_tiles == p.g_st + zt &&
          p.g_nk == least_count(kGeneKCounts, 3, Kf > 8 ? cdiv(Kf, 8) : 1) && n_gc > 0 &&
          cdiv(Kf, 8) <= p.g_nk && p.g_passes == cdiv(p.g_tiles, gc[n_gc - 1]) &&
@@ -1398,26 +1519,25 @@ inline int db_block_rows(const Plan& p, int N, int b) {
 using DpsiKernel = void (*)(const double*, const double*, const double*, const double*,
                             const double2*, double*, int, int, int, int, int, int);
 
-// The instantiation a plan names (plan_of has checked its counts): LRW
-// where dpsi's columns go in groups (d_nk is then 8).
-template <int NK, bool LRW>
+// The instantiation a plan names (plan_of has checked its counts; within
+// the old bound).
+template <int NK>
 DpsiKernel dpsi_kernel_nz(int nz) {
   switch (nz) {
-    case 1: return dpsi_f64_kernel<NK, 1, LRW>;
-    case 2: return dpsi_f64_kernel<NK, 2, LRW>;
-    case 4: return dpsi_f64_kernel<NK, 4, LRW>;
-    case 6: return dpsi_f64_kernel<NK, 6, LRW>;
-    case 8: return dpsi_f64_kernel<NK, 8, LRW>;
-    default: return dpsi_f64_kernel<NK, 10, LRW>;
+    case 1: return dpsi_f64_kernel<NK, 1>;
+    case 2: return dpsi_f64_kernel<NK, 2>;
+    case 4: return dpsi_f64_kernel<NK, 4>;
+    case 6: return dpsi_f64_kernel<NK, 6>;
+    case 8: return dpsi_f64_kernel<NK, 8>;
+    default: return dpsi_f64_kernel<NK, 10>;
   }
 }
-DpsiKernel dpsi_kernel_of(const Plan& p, int Kf) {
-  if (dpsi_kgroups(Kf, p.d_nk) > 1) return dpsi_kernel_nz<8, true>(p.d_nz);
+DpsiKernel dpsi_kernel_of(const Plan& p) {
   switch (p.d_nk) {
-    case 1: return dpsi_kernel_nz<1, false>(p.d_nz);
-    case 2: return dpsi_kernel_nz<2, false>(p.d_nz);
-    case 4: return dpsi_kernel_nz<4, false>(p.d_nz);
-    default: return dpsi_kernel_nz<8, false>(p.d_nz);
+    case 1: return dpsi_kernel_nz<1>(p.d_nz);
+    case 2: return dpsi_kernel_nz<2>(p.d_nz);
+    case 4: return dpsi_kernel_nz<4>(p.d_nz);
+    default: return dpsi_kernel_nz<8>(p.d_nz);
   }
 }
 #endif  // F64_COMMON
@@ -1430,7 +1550,7 @@ namespace fl64 {
 template <int YT>
 using FwdKernel = void (*)(const typename Y64<YT>::Elem*, const double*, const double*,
                            const double*, const double*, double*, double*, double*, double*,
-                           const double2*, int, int, int, int, int, int, int, bool);
+                           const double2*, int, int, int, int, int, int, int, int, bool, bool);
 template <int YT>
 using GeneKernel = void (*)(const typename Y64<YT>::Elem*, const double*, const double*,
                             const double*, const double*, const double*, const double*,
@@ -1480,7 +1600,7 @@ void forward_typed(const FwdArgs& a) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.plan.f_smem);
   kernel<<<dim3(a.plan.f_blocks, a.plan.f_groups), kFwdWarps * kWarp, a.plan.f_smem, a.stream>>>(
       Y, a.psi, a.W, a.logmu, a.muL, a.A1, a.A2, a.Z, a.YW, a.table, a.N, a.G, a.Kf, a.nA2, a.SC,
-      a.plan.f_yt, a.plan.f_count, vec);
+      a.plan.f_yt, a.plan.f_tiles, a.plan.f_count, !a.plan.split, vec);
 }
 
 template <int YT>
@@ -1505,10 +1625,10 @@ int blocks_per_sm(int which, const Plan& p, int Kf) {
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFwdWarps * kWarp, p.f_smem);
   } else if (p.split) {
     constexpr int smem = db_smem(kDbStageDlog);
-    cudaFuncSetAttribute(dlog_rfe_f64_kernel<YT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dlog_rfe_f64_kernel<YT>, kDbThreads,
-                                                  smem);
+    const auto kernel = which == 1 ? dlog_rfe_f64_kernel<YT, kOutDlog>
+                                   : dlog_rfe_f64_kernel<YT, kOutRfe>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kDbThreads, smem);
   } else {
     const GeneKernel<YT> kernel = gene_kernel_of<YT>(p);
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.g_smem);
@@ -1517,10 +1637,12 @@ int blocks_per_sm(int which, const Plan& p, int Kf) {
   return blocks;
 }
 
-// The split gene part's Y-reading launches on row block b: which 0,
-// dlog_rfe_f64_kernel<YT> (rfe and dlog_rfe to the workspace); which 1,
-// dlog mu = dA2^T Y by gene_product_f64_kernel<YT, true> into the output's
-// last nA2 rows (or the slices' partial sums).
+// The split kernels' Y-reading launches on row block b: which 0,
+// dlog_rfe_f64_kernel<YT, kOutDlog> (rfe and dlog_rfe to the workspace);
+// which 1, dlog mu = dA2^T Y by gene_product_f64_kernel<YT, true> into the
+// output's last nA2 rows (or the slices' partial sums); which 2, the split
+// forward's dlog_rfe_f64_kernel<YT, kOutRfe> (rfe, and A1's partial sums
+// to a.dl).
 template <int YT>
 void split_typed(const SplitArgs& a, int b, int which) {
   using Elem = typename Y64<YT>::Elem;
@@ -1528,12 +1650,22 @@ void split_typed(const SplitArgs& a, int b, int which) {
   const long long n0 = (long long)b * p.rows;
   const int rows = db_block_rows(p, a.N, b), G = a.G, Kf = a.Kf, SC = a.SC;
   const Elem* Y = static_cast<const Elem*>(a.Y) + n0 * G;
+  if (which == 2) {
+    constexpr int smem = db_smem(kDbStageDlog);
+    cudaFuncSetAttribute(dlog_rfe_f64_kernel<YT, kOutRfe>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    dlog_rfe_f64_kernel<YT, kOutRfe><<<dim3((unsigned)cdiv(G, kDbN), (unsigned)cdiv(rows, kDbM)),
+                                       kDbThreads, smem, a.stream>>>(
+        Y, nullptr, tile_mat(a.psi + n0 * Kf, Kf, rows, Kf), tile_mat(a.W, Kf, G, Kf), DbMat{},
+        DbMat{}, a.rfe, a.dl, p.ldw);
+    return;
+  }
   if (which == 0) {
     constexpr int smem = db_smem(kDbStageDlog);
-    cudaFuncSetAttribute(dlog_rfe_f64_kernel<YT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-    dlog_rfe_f64_kernel<YT><<<dim3((unsigned)cdiv(G, kDbN), (unsigned)cdiv(rows, kDbM)), kDbThreads,
-                              smem, a.stream>>>(
+    cudaFuncSetAttribute(dlog_rfe_f64_kernel<YT, kOutDlog>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    dlog_rfe_f64_kernel<YT, kOutDlog><<<dim3((unsigned)cdiv(G, kDbN), (unsigned)cdiv(rows, kDbM)),
+                                        kDbThreads, smem, a.stream>>>(
         Y, a.dA1 + n0, tile_mat(a.psi + n0 * Kf, Kf, rows, Kf), tile_mat(a.W, Kf, G, Kf),
         tile_mat(a.dZ + n0 * SC, SC, rows, SC), tile_mat(a.muL, SC, G, SC), a.rfe, a.dl, p.ldw);
     return;
@@ -1580,26 +1712,96 @@ template void split_typed<kYI8>(const SplitArgs&, int, int);
 }  // namespace fl64
 
 #if F64_COMMON
+// out (a row block's rows x cols) = t w over nsplit gene ranges of `genes`
+// (t's rows ldt doubles apart, w G x cols) by dpsi_product_f64_kernel into
+// part (nsplit x rows x cols), added in order with dA1 YW (where YW is
+// given) by dpsi_sum_f64_kernel; one range without YW writes out itself.
+static void range_product(const double* t, long long ldt, const double* w, double* out,
+                          double* part, const double* dA1, const double* YW, int rows, int G,
+                          int cols, int nsplit, int genes, cudaStream_t stream) {
+  constexpr int smem = db_smem(kDbStageDpsi);
+  cudaFuncSetAttribute(dpsi_product_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const bool direct = nsplit == 1 && !YW;
+  const long long zstride = (long long)rows * cols;
+  dpsi_product_f64_kernel<<<dim3((unsigned)cdiv(rows, kDbM), (unsigned)cdiv(cols, kDbN), nsplit),
+                            kDbThreads, smem, stream>>>(
+      tile_mat(t, ldt, rows, G), tile_mat(w, cols, G, cols), direct ? out : part, zstride, genes);
+  if (!direct)
+    dpsi_sum_f64_kernel<<<(int)cdiv(zstride, 256), 256, 0, stream>>>(part, dA1, YW, out, rows,
+                                                                     cols, nsplit, zstride);
+}
+
+// split_typed<YT> at y_type.
+static void split_launch(const SplitArgs& a, int y_type, int b, int which) {
+  switch (y_type) {
+    case kYF64: split_typed<kYF64>(a, b, which); break;
+    case kYBF16: split_typed<kYBF16>(a, b, which); break;
+    case kYI16: split_typed<kYI16>(a, b, which); break;
+    default: split_typed<kYI8>(a, b, which);
+  }
+}
+
+// Doubles of the split forward's gene ranges' sums of Z (none for one
+// range), an even count.
+inline size_t db_zpart(const Plan& p, int SC) {
+  return p.zsplit > 1 ? (size_t)(2 * cdiv((long long)p.zsplit * p.rows * SC, 2)) : 0;
+}
+
+// The split forward's A1 and Z over the plan's row blocks (see the note at
+// the top): for each, rfe = exp(psi W^T) into a.rfe and A1's partial sums
+// into a.dl (dlog_rfe_f64_kernel<YT, kOutRfe>), added in order into A1's
+// rows, then Z's rows = rfe muL over zsplit gene ranges (their sums in
+// zpart).
+static void split_forward(const SplitArgs& a, int y_type, double* A1, double* Z, double* zpart) {
+  const Plan& p = a.plan;
+  const int parts = 2 * (int)cdiv(a.G, kDbN);
+  for (int b = 0; b < p.n_chunks; ++b) {
+    const long long n0 = (long long)b * p.rows;
+    const int rows = db_block_rows(p, a.N, b);
+    split_launch(a, y_type, b, 2);
+    reduce_chunks_f64_kernel<<<(int)cdiv(rows, 256), 256, 0, a.stream>>>(a.dl, A1 + n0, parts,
+                                                                         rows);
+    range_product(a.rfe, p.ldw, a.muL, Z + n0 * a.SC, zpart, nullptr, nullptr, rows, a.G, a.SC,
+                  p.zsplit, p.zgenes, a.stream);
+  }
+}
+
+// The split dpsi alone over the plan's row blocks: for each, t = rfe drfe
+// into t (dlog_rfe_f64_kernel<0, kOutT>, no Y), then dpsi's rows = t W over
+// dsplit gene ranges (their sums in dpart) + dA1 YW.
+static void split_dpsi(const double* psi, const double* W, const double* muL, const double* dA1,
+                       const double* dZ, const double* YW, double* dpsi, double* t, double* dpart,
+                       int N, int G, int Kf, int SC, const Plan& p, cudaStream_t stream) {
+  constexpr int smem = db_smem(kDbStageDlog);
+  cudaFuncSetAttribute(dlog_rfe_f64_kernel<kYF64, kOutT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  for (int b = 0; b < p.n_chunks; ++b) {
+    const long long n0 = (long long)b * p.rows;
+    const int rows = db_block_rows(p, N, b);
+    dlog_rfe_f64_kernel<kYF64, kOutT><<<dim3((unsigned)cdiv(G, kDbN), (unsigned)cdiv(rows, kDbM)),
+                                        kDbThreads, smem, stream>>>(
+        nullptr, nullptr, tile_mat(psi + n0 * Kf, Kf, rows, Kf), tile_mat(W, Kf, G, Kf),
+        tile_mat(dZ + n0 * SC, SC, rows, SC), tile_mat(muL, SC, G, SC), t, t, p.ldw);
+    range_product(t, p.ldw, W, dpsi + n0 * Kf, dpart, dA1 + n0, YW + n0 * Kf, rows, G, Kf,
+                  p.dsplit, p.dgenes, stream);
+  }
+}
+
 // The split gene part over the plan's row blocks (see the note at the top):
 // for each, dlog_rfe_f64_kernel (a.rfe and a.dl the block's rfe and
 // dlog_rfe), dW^T = psi^T dlog_rfe and d(muL)^T = dZ^T rfe by
 // gene_product_f64_kernel, and dlog mu = dA2^T Y where nA2 > 0, summed over
 // the row blocks in order into a.dgene (or a single row block's slices'
-// partial sums into a.gpart, which reduce_chunks_f64_kernel adds in order).
-static void split_gene(const SplitArgs& a, int y_type) {
+// partial sums into a.gpart, which reduce_chunks_f64_kernel adds in order);
+// with dpsi (and Kf > 0), dpsi's rows = dlog_rfe W over dsplit gene ranges
+// (their sums in dpart) from the same dlog_rfe.
+static void split_gene(const SplitArgs& a, int y_type, double* dpsi, double* dpart) {
   const Plan& p = a.plan;
   const int G = a.G, Kf = a.Kf, SC = a.SC;
   const long long FG = ((long long)Kf + SC + a.nA2) * G;
   const bool sliced = p.gslices > 1;
   double* out = sliced ? a.gpart : a.dgene;
-  auto typed = [&](int b, int which) {
-    switch (y_type) {
-      case kYF64: split_typed<kYF64>(a, b, which); break;
-      case kYBF16: split_typed<kYBF16>(a, b, which); break;
-      case kYI16: split_typed<kYI16>(a, b, which); break;
-      default: split_typed<kYI8>(a, b, which);
-    }
-  };
+  auto typed = [&](int b, int which) { split_launch(a, y_type, b, which); };
   constexpr int gsmem = db_smem(kDbStageGene);
   cudaFuncSetAttribute(gene_product_f64_kernel<kYF64, false>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, gsmem);
@@ -1619,6 +1821,9 @@ static void split_gene(const SplitArgs& a, int y_type) {
     if (sliced)  // one row block: its slices' partial sums, added in order
       reduce_chunks_f64_kernel<<<(int)cdiv(FG, 256), 256, 0, a.stream>>>(a.gpart, a.dgene,
                                                                          p.gslices, FG);
+    if (dpsi && Kf)  // dpsi = dlog_rfe W
+      range_product(a.dl, p.ldw, a.W, dpsi + n0 * Kf, dpart, nullptr, nullptr, rows, G, Kf,
+                    p.dsplit, p.dgenes, a.stream);
   }
 }
 
@@ -1629,10 +1834,14 @@ extern "C" {
 // device pointer to a contiguous float64 array: psi (N,Kf), W (G,Kf), logmu
 // (nA2,G), muL (G,SC); outputs A1 (N), A2 (N,nA2), Z (N,SC) and YW (N,Kf) =
 // Y W. nA2 == 0 skips A2 (logmu and A2 are then not read or written). table
-// holds the plan's f_table doubles, the packed gene side
-// (fwd_f64_pack_kernel, launched first). plan is f64_plan's for these sizes
-// (F64_PLAN_KEYS, in order). Returns cudaErrorInvalidValue where the sizes
-// or the plan do not fit, else cudaGetLastError() after launch.
+// (16-byte aligned) holds the plan's f_table doubles, the packed gene side
+// (fwd_f64_pack_kernel, launched first), and where the plan is the split
+// one rows x ldw doubles (the row block's rfe), where zsplit > 1 zsplit x
+// rows x SC rounded up to even (the gene ranges' sums of Z), and rows x 2
+// ceil(G / 64) (A1's partial sums). plan
+// is f64_plan's for these sizes (F64_PLAN_KEYS, in order). Returns
+// cudaErrorInvalidValue where the sizes or the plan do not fit, else
+// cudaGetLastError() after launch.
 int fl64_forward(const void* Y, const double* psi, const double* W, const double* logmu,
                  const double* muL, double* A1, double* A2, double* Z, double* YW, double* table,
                  const long long* plan, int N, int G, int Kf, int nA2, int SC, int y_type,
@@ -1640,9 +1849,11 @@ int fl64_forward(const void* Y, const double* psi, const double* W, const double
   Plan p;
   if (bad_sizes(N, G, Kf, nA2, SC, y_type) || !plan_of(plan, N, G, Kf, nA2, SC, p))
     return (int)cudaErrorInvalidValue;
-  const long long n = fwd_table(G, Kf, p.f_tiles) / 2;
+  const int klr = p.split ? 0 : Kf;
+  const long long n = fwd_table(G, klr, p.f_tiles) / 2;
   fwd_f64_pack_kernel<<<(int)cdiv(n, 256), 256, 0, stream>>>(
-      W, logmu, muL, reinterpret_cast<double2*>(table), G, Kf, nA2, SC, p.f_yt, p.f_tiles, n);
+      W, logmu, muL, reinterpret_cast<double2*>(table), G, Kf, nA2, SC, p.f_yt, p.f_tiles, klr,
+      n);
   const FwdArgs a{Y,  psi, W, logmu, muL, A1, A2, Z, YW, reinterpret_cast<const double2*>(table),
                   N,  G,   Kf, nA2, SC, p,  stream};
   switch (y_type) {
@@ -1651,14 +1862,22 @@ int fl64_forward(const void* Y, const double* psi, const double* W, const double
     case kYI16: forward_typed<kYI16>(a); break;
     default: forward_typed<kYI8>(a);
   }
+  if (p.split) {
+    double* rfe = table + p.f_table;
+    double* zpart = rfe + (size_t)p.rows * p.ldw;
+    const SplitArgs s{Y,       psi,     W,       muL, nullptr, nullptr, nullptr, rfe,
+                      zpart + db_zpart(p, SC), nullptr, nullptr, N, G, Kf, nA2, SC, p, stream};
+    split_forward(s, y_type, A1, Z, zpart);
+  }
   return (int)cudaGetLastError();
 }
 
 // Backward, dpsi part: psi, W, muL as fl64_forward, dA1 (N), dZ (N,SC) and
 // YW (N,Kf) from fl64_forward; output dpsi (N,Kf). Reads no Y. table holds
 // the plan's d_table doubles, the packed gene side (dpsi_f64_pack_kernel,
-// launched first). plan is f64_plan's with nA2 = 0. Kf == 0 launches
-// nothing.
+// launched first), or where the plan is the split one rows x ldw doubles
+// (the row block's t = rfe drfe) and then dsplit x rows x Kf (the gene
+// ranges' sums). plan is f64_plan's with nA2 = 0. Kf == 0 launches nothing.
 int fl64_backward_dpsi(const double* psi, const double* W, const double* muL, const double* dA1,
                        const double* dZ, const double* YW, double* dpsi, double* table,
                        const long long* plan, int N, int G, int Kf, int SC, cudaStream_t stream) {
@@ -1666,14 +1885,18 @@ int fl64_backward_dpsi(const double* psi, const double* W, const double* muL, co
   if (bad_sizes(N, G, Kf, 0, SC, kYF64) || !plan_of(plan, N, G, Kf, 0, SC, p))
     return (int)cudaErrorInvalidValue;
   if (Kf == 0) return (int)cudaSuccess;
-  const long long n = dpsi_table(G, Kf, p.d_nk, p.d_nz, p.d_groups, p.d_steps) / 2;
-  const int kgroups = dpsi_kgroups(Kf, p.d_nk);
+  if (p.split) {
+    split_dpsi(psi, W, muL, dA1, dZ, YW, dpsi, table, table + (size_t)p.rows * p.ldw, N, G, Kf,
+               SC, p, stream);
+    return (int)cudaGetLastError();
+  }
+  const long long n = dpsi_table(G, p.d_nk, p.d_nz, p.d_groups, p.d_steps) / 2;
   dpsi_f64_pack_kernel<<<(int)cdiv(n, 256), 256, 0, stream>>>(
-      W, muL, reinterpret_cast<double2*>(table), G, Kf, SC, p.d_groups * p.d_nz,
-      kgroups * p.d_nk, dpsi_tiles(Kf, p.d_nk, p.d_nz, p.d_groups), n);
-  const DpsiKernel kernel = dpsi_kernel_of(p, Kf);
+      W, muL, reinterpret_cast<double2*>(table), G, Kf, SC, p.d_groups * p.d_nz, p.d_nk,
+      dpsi_tiles(p.d_nk, p.d_nz, p.d_groups), n);
+  const DpsiKernel kernel = dpsi_kernel_of(p);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.d_smem);
-  kernel<<<dim3(p.d_blocks, kgroups), kDpsiWarps * kWarp, p.d_smem, stream>>>(
+  kernel<<<p.d_blocks, kDpsiWarps * kWarp, p.d_smem, stream>>>(
       psi, dZ, dA1, YW, reinterpret_cast<const double2*>(table), dpsi, N, G, Kf, SC, p.d_groups,
       p.d_steps);
   return (int)cudaGetLastError();
@@ -1682,22 +1905,27 @@ int fl64_backward_dpsi(const double* psi, const double* W, const double* muL, co
 // Backward, gene part: Y (in y_type), psi, W and muL as fl64_forward, dA1
 // (N), dA2 (N,nA2), dZ (N,SC). Output dgene (Kf+SC+nA2, G) = [dW^T;
 // d(muL)^T; dlog_mu]; scratch holds the plan's part doubles, the partial
-// sums of each chunk (an even count), then its g_table doubles, the packed cell side
-// (gene_f64_pack_kernel, launched first); where the plan is the split one,
-// part (the slices' partial sums, where gslices > 1) and then 2 x rows x
-// ldw doubles, the row block's rfe and dlog_rfe. Kf == 0 runs with rfe = 1.
+// sums of each chunk (an even count), then its g_table doubles, the packed
+// cell side (gene_f64_pack_kernel, launched first); where the plan is the
+// split one, part (the slices' partial sums, where gslices > 1), 2 x rows x
+// ldw doubles (the row block's rfe and dlog_rfe) and then dsplit x rows x
+// Kf (dpsi's gene ranges' sums). With dpsi (N,Kf), which only the split
+// plan takes (the autograd function's backward; else null), dpsi too, =
+// dlog_rfe W from the same dlog_rfe a row block. Kf == 0 runs with rfe = 1.
 int fl64_backward_gene(const void* Y, const double* psi, const double* W, const double* muL,
-                       const double* dA1, const double* dA2, const double* dZ, double* scratch,
-                       double* dgene, const long long* plan, int N, int G, int Kf, int nA2,
-                       int SC, int y_type, cudaStream_t stream) {
+                       const double* dA1, const double* dA2, const double* dZ, double* dpsi,
+                       double* scratch, double* dgene, const long long* plan, int N, int G,
+                       int Kf, int nA2, int SC, int y_type, cudaStream_t stream) {
   Plan p;
-  if (bad_sizes(N, G, Kf, nA2, SC, y_type) || !plan_of(plan, N, G, Kf, nA2, SC, p))
+  if (bad_sizes(N, G, Kf, nA2, SC, y_type) || !plan_of(plan, N, G, Kf, nA2, SC, p) ||
+      (dpsi && !p.split))
     return (int)cudaErrorInvalidValue;
   if (p.split) {
     double* rfe = scratch + p.part;
-    const SplitArgs a{Y,   psi, W,  muL, dA1, dA2, dZ, rfe, rfe + (size_t)p.rows * p.ldw, dgene,
+    double* dl = rfe + (size_t)p.rows * p.ldw;
+    const SplitArgs a{Y,     psi,     W, muL, dA1, dA2, dZ, rfe, dl, dgene,
                       scratch, N, G, Kf, nA2, SC, p,  stream};
-    split_gene(a, y_type);
+    split_gene(a, y_type, dpsi, dl + (size_t)p.rows * p.ldw);
     return (int)cudaGetLastError();
   }
   double* table = scratch + p.part;
@@ -1719,44 +1947,47 @@ int fl64_backward_gene(const void* Y, const double* psi, const double* W, const 
   return (int)cudaGetLastError();
 }
 
-// What the plan's kernels take on the card: out[0..8) = fwd_f64_kernel's
+// What the plan's kernels take on the card: out[0..12) = fwd_f64_kernel's
 // dynamic shared memory bytes and blocks an SM (the occupancy query) at Y
-// storage y_type, the same for dpsi_f64_kernel, for gene_f64_kernel (where
-// the plan is the split one dlog_rfe_f64_kernel) and, for the split one,
-// gene_product_f64_kernel<0, 0> (else zeros). Returns cudaErrorInvalidValue
-// where the plan does not fit the sizes.
+// storage y_type (past the old bound its Y products' groups), the same for
+// dpsi_f64_kernel and gene_f64_kernel; where the plan is the split one,
+// in their places dpsi_product_f64_kernel (Z's and dpsi's products) and
+// dlog_rfe_f64_kernel<y_type, 1>, then gene_product_f64_kernel<0, 0>,
+// dlog_rfe_f64_kernel<y_type, 2> (the forward's rfe and A1) and
+// dlog_rfe_f64_kernel<0, 0> (dpsi's t), else zeros. Returns
+// cudaErrorInvalidValue where the plan does not fit the sizes.
 int fl64_resources(const long long* plan, int N, int G, int Kf, int nA2, int SC, int y_type,
                    int* out) {
   Plan p;
   if (bad_sizes(N, G, Kf, nA2, SC, y_type) || !plan_of(plan, N, G, Kf, nA2, SC, p))
     return (int)cudaErrorInvalidValue;
-  int blocks = 0;
-  const DpsiKernel dpsi_kernel = dpsi_kernel_of(p, Kf);
-  cudaFuncSetAttribute(dpsi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.d_smem);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dpsi_kernel, kDpsiWarps * kWarp,
-                                                p.d_smem);
-  out[2] = p.d_smem;
-  out[3] = blocks;
-  for (int which = 0; which < 2; ++which) {
-    const int smem = which == 0 ? p.f_smem : p.split ? db_smem(kDbStageDlog) : p.g_smem;
+  auto query = [](auto kernel, int smem, int* o) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    o[0] = smem;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[1], kernel, kDbThreads, smem);
+  };
+  for (int i = 0; i < 12; ++i) out[i] = 0;
+  if (p.split) {
+    query(dpsi_product_f64_kernel, db_smem(kDbStageDpsi), out + 2);
+    query(gene_product_f64_kernel<kYF64, false>, db_smem(kDbStageGene), out + 6);
+    query(dlog_rfe_f64_kernel<kYF64, kOutT>, db_smem(kDbStageDlog), out + 10);
+  } else {
+    const DpsiKernel dpsi_kernel = dpsi_kernel_of(p);
+    cudaFuncSetAttribute(dpsi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.d_smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], dpsi_kernel, kDpsiWarps * kWarp,
+                                                  p.d_smem);
+    out[2] = p.d_smem;
+  }
+  for (int which = 0; which < (p.split ? 3 : 2); ++which) {
+    int blocks = 0;
     switch (y_type) {
       case kYF64: blocks = blocks_per_sm<kYF64>(which, p, Kf); break;
       case kYBF16: blocks = blocks_per_sm<kYBF16>(which, p, Kf); break;
       case kYI16: blocks = blocks_per_sm<kYI16>(which, p, Kf); break;
       default: blocks = blocks_per_sm<kYI8>(which, p, Kf);
     }
-    out[4 * which] = smem;
+    out[4 * which] = which == 0 ? p.f_smem : p.split ? db_smem(kDbStageDlog) : p.g_smem;
     out[4 * which + 1] = blocks;
-  }
-  out[6] = out[7] = 0;
-  if (p.split) {
-    constexpr int smem = db_smem(kDbStageGene);
-    cudaFuncSetAttribute(gene_product_f64_kernel<kYF64, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gene_product_f64_kernel<kYF64, false>,
-                                                  kDbThreads, smem);
-    out[6] = smem;
-    out[7] = blocks;
   }
   return (int)cudaGetLastError();
 }

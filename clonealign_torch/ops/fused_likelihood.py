@@ -53,13 +53,18 @@ to a family of their own, ``csrc/fused_likelihood_f64.cu``: the forward
 ``reduce_chunks_f64_kernel``), float64 throughout: every product on the
 FP64 tensor cores, the exps on the CUDA cores; one family for every width
 (no narrow/wide split), counted apart in
-``*_f64_launches``. Past the old bound its gene part is the split one
-(``dlog_rfe_f64_kernel`` and ``gene_product_f64_kernel``: rfe and
-dlog_rfe once a row block into a float64 workspace, dW, d(muL) and dlog
-mu as tiled products).
+``*_f64_launches``. Past the old bound its forward, dpsi and gene part are
+the split ones (``dlog_rfe_f64_kernel``: rfe, t = rfe drfe or dlog_rfe once
+a row block into a float64 workspace; Z = rfe muL and dpsi = t W by
+``dpsi_product_f64_kernel`` over gene ranges, added by
+``dpsi_sum_f64_kernel``; dW, d(muL) and dlog mu by
+``gene_product_f64_kernel``; Y's products by ``fwd_f64_kernel`` in groups
+of Y tiles only), and :func:`kernel_backward` takes dpsi from the gene
+part's dlog_rfe in one call, counted in ``split_f64_launches``.
 :func:`f64_plan` gives their launch geometry and workspace, which the C
-entry points take and check (and raises where the shared memory would pass
-the card's: it takes Kf up to 139). Nothing on that path runs in float32.
+entry points take and check (it takes every width: past the old bound no
+kernel's shared memory grows with one). Nothing on that path runs in
+float32.
 
 Y may be stored narrow (``Y_DTYPES``: float32, bfloat16, int16 or int8;
 ``api.py``'s ``y_storage``; under float64 ``Y_DTYPES_F64``: float64,
@@ -109,8 +114,8 @@ _TWO_BLOCK_SMEM = (228 - 2) // 2 * 1024
 SPLIT_KF, SPLIT_A2, SPLIT_SC = 64, 64, 2048
 _SPLIT_M, _SPLIT_N, _SPLIT_K, _SPLIT_STAGES, _SPLIT_BLOCKS = 64, 64, 32, 3, 2
 _SPLIT_ELEMENTS = 1 << 23
-# The share of its last wave the split forward's Z product fills at least
-# (:func:`_gene_ranges`).
+# The share of its last wave a split product over gene ranges fills at
+# least (:func:`_gene_ranges`).
 _WAVE_FILL = 0.9
 _ROWS_PER_CHUNK = 1024  # cells per partial sum of the gene-major backward
 # Y storage types the kernels load, with the code the C entry points take
@@ -142,8 +147,9 @@ F64_GENE_TILE_COUNTS = {1: (1, 2, 3, 4, 5), 2: (1, 2, 4), 8: (1, 2)}
 F64_FWD_Y_STAGE_BYTES = 20_480
 F64_GENE_Y_STAGE_BYTES = 16_896
 F64_MAX_SMEM = 232_448
-# The float64 split gene part's blocks an SM (the f64 .cu's
-# __launch_bounds__ of dlog_rfe_f64_kernel and gene_product_f64_kernel).
+# The float64 split kernels' blocks an SM (the f64 .cu's __launch_bounds__
+# of dlog_rfe_f64_kernel, gene_product_f64_kernel and
+# dpsi_product_f64_kernel).
 _F64_SPLIT_BLOCKS = 3
 
 # Kernel launches, each counted by the wrapper that launches the kernel:
@@ -158,12 +164,13 @@ split_launches = 0  # kernel_backward past the old bound: dpsi and the gene part
 fwd_f64_launches = 0
 dpsi_f64_launches = 0
 gene_f64_launches = 0  # the float64 gene-part kernel with its chunk reduction
+split_f64_launches = 0  # the same one call in float64
 
 
 def reset_launch_counts() -> None:
     global fwd_launches, dpsi_launches, gene_launches
     global fwd_wide_launches, dpsi_wide_launches, gene_wide_launches, split_launches
-    global fwd_f64_launches, dpsi_f64_launches, gene_f64_launches
+    global fwd_f64_launches, dpsi_f64_launches, gene_f64_launches, split_f64_launches
     fwd_launches = 0
     dpsi_launches = 0
     gene_launches = 0
@@ -174,6 +181,7 @@ def reset_launch_counts() -> None:
     fwd_f64_launches = 0
     dpsi_f64_launches = 0
     gene_f64_launches = 0
+    split_f64_launches = 0
 
 
 def wide_route(Kf: int, n_a2: int, SC: int) -> bool:
@@ -378,13 +386,14 @@ def _cell_slices(N: int, rows: int, n_chunks: int, products: int, slots: int) ->
     return (gslices, gcells) if gslices > 1 else (1, rows)
 
 
-def _gene_ranges(tiles: int, G: int) -> tuple:
-    """(zsplit, zgenes): the split forward's Z product, ``tiles`` blocks of
-    64 x 64 outputs a row block, in gene ranges of whole stages of 32 (256
-    genes at least), the fewest whose blocks fill their last wave of two an
-    SM on 132 SMs to _WAVE_FILL (else the best fill): the blocks of one
-    range run in whole waves only where the tiles happen to."""
-    slots = _SPLIT_BLOCKS * 132
+def _gene_ranges(tiles: int, G: int, slots: int = _SPLIT_BLOCKS * 132) -> tuple:
+    """(ranges, genes a range): a tiled product over genes, ``tiles`` blocks
+    of 64 x 64 outputs a row block (the split forward's Z = rfe muL; in
+    float64 also dpsi = t W), in gene ranges of whole stages of 32 (256
+    genes at least), the fewest whose blocks fill their last wave of
+    ``slots`` (blocks an SM x 132 SMs; float32's two an SM by default) to
+    _WAVE_FILL (else the best fill): the blocks of one range run in whole
+    waves only where the tiles happen to."""
 
     def fill(z):
         return tiles * z / (_cdiv(tiles * z, slots) * slots)
@@ -585,26 +594,24 @@ F64_PLAN_KEYS = ("f_yt", "f_tiles", "f_count", "f_nt", "f_groups", "f_blocks", "
                  "d_nk", "d_nz", "d_groups", "d_steps", "d_blocks", "d_smem",
                  "g_st", "g_tiles", "g_nk", "g_count", "g_nt", "g_passes", "g_blocks", "rows",
                  "n_chunks", "g_smem", "part", "f_table", "g_table", "d_table", "split", "ldw",
-                 "gslices", "gcells")
+                 "gslices", "gcells", "dsplit", "dgenes", "zsplit", "zgenes")
 
 
-def f64_fwd_smem(Kf: int, nt: int) -> int:
+def f64_fwd_smem(klr: int, nt: int) -> int:
     """fwd_f64_kernel's dynamic shared memory in bytes: its warps' psi rows,
     and two stages, each the B fragments of nt tiles and W for 32 genes and
-    the warps' Y rows (float64's room)."""
-    return (8 * (F64_FWD_WARPS * 16 * Kf + 2 * (F64_FWD_GENES * (8 * nt + Kf)))
+    the warps' Y rows (float64's room); klr columns of psi and W, those of
+    log_rfe (Kf, or none past the old bound, where it forms none)."""
+    return (8 * (F64_FWD_WARPS * 16 * klr + 2 * (F64_FWD_GENES * (8 * nt + klr)))
             + 2 * F64_FWD_Y_STAGE_BYTES)
 
 
-def f64_dpsi_smem(nk: int, nz: int, steps: int, lr: Optional[int] = None) -> int:
+def f64_dpsi_smem(nk: int, nz: int, steps: int) -> int:
     """dpsi_f64_kernel's dynamic shared memory in bytes: its warps' psi (2
-    nk tiles of 32 pairs each, or 2 lr past 8 tiles of [psi, X]), and two
-    stages of ``steps`` k-steps, each the B fragments (32 pairs a tile) of
-    nz muL^T tiles, nk W tiles and, past nk = 1, nk W^T tiles (lr where
-    dpsi's columns go in groups: every tile, for log_rfe)."""
-    psi = nk if lr is None else lr
-    lr = (nk if nk > 1 else 0) if lr is None else lr
-    return 16 * 32 * (F64_DPSI_WARPS * 2 * psi + 2 * steps * (nz + nk + lr))
+    nk tiles of 32 pairs each), and two stages of ``steps`` k-steps, each
+    the B fragments (32 pairs a tile) of nz muL^T tiles, nk W tiles and,
+    past nk = 1, nk W^T tiles (log_rfe's)."""
+    return 16 * 32 * (F64_DPSI_WARPS * 2 * nk + 2 * steps * (nz + nk + (nk if nk > 1 else 0)))
 
 
 def f64_gene_smem(Kf: int, nt: int, nk: int) -> int:
@@ -656,55 +663,68 @@ def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
     cell side packed likewise (``gene_f64_pack_kernel``: each 32-cell stage's B
     fragments of drfe, of every tile and of dW, psi for log_rfe and dA1);
     ``gene_workspace``, what :func:`kernel_gene` allocates: the partial sums,
-    the table and its (Kf + SC + n_a2, G) output.
+    the table and its (Kf + SC + n_a2, G) output; ``bwd_workspace``, what
+    :func:`kernel_backward` allocates beside dpsi: the gene part's and dpsi's.
 
-    Past the old bound (:func:`split_route`: ``split``) the gene part is the
-    split one: ``n_chunks`` row blocks of ``rows`` cells (:func:`_split_rows`
-    at 2^22 doubles a buffer, half the float32 one's cells), whose rfe and
-    dlog_rfe ``dlog_rfe_f64_kernel`` writes to a workspace of ``rows`` rows
-    ``ldw`` doubles apart (an even count), and ``gene_product_f64_kernel``
-    takes dW, d(muL) and dlog mu from it, a single row block's cells in
-    ``gslices`` slices of ``gcells`` where its blocks would not fill three
-    an SM twice over (:func:`_cell_slices`; ``part`` their partial sums);
-    the gene part's other keys are then 0, and ``gene_workspace`` is
-    ``part``, the two row-block buffers and the output. Past Kf = 64 (the C
-    side derives these from Kf and the built counts, which are then 8):
-    dpsi's output columns go in ``d_kgroups`` groups of ``d_nk`` tiles
-    (grid.y), each forming log_rfe over ``d_lr`` tiles, all of [psi, X]. A
-    width whose shared memory passes the card's ``F64_MAX_SMEM`` a block
-    raises a ValueError; Kf up to 139 fits at every S and S*C (the forward's
-    psi and W fill it first; the split gene part's tiles are fixed)."""
+    Past the old bound (:func:`split_route`: ``split``) the forward, dpsi and
+    the gene part are the split ones, over ``n_chunks`` row blocks of ``rows``
+    cells (:func:`_split_rows` at 2^22 doubles a buffer, half the float32
+    one's cells) whose rfe (and t or dlog_rfe) ``dlog_rfe_f64_kernel`` writes
+    to a workspace of ``rows`` rows ``ldw`` doubles apart (an even count):
+    the forward's Z = rfe muL by ``dpsi_product_f64_kernel`` over ``zsplit``
+    gene ranges of ``zgenes`` genes and A1 from the rfe kernel's log_rfe,
+    its Y products' ``f_yt`` tiles (at least one) alone in
+    ``fwd_f64_kernel``'s groups (``f_tiles`` = ``f_yt``), which form no
+    log_rfe and no exp and hold no psi or W (``f_smem`` and ``f_table``
+    without them); dpsi = t W (or in :func:`kernel_backward`'s one call dlog_rfe
+    W) over ``dsplit`` ranges of ``dgenes`` (each product's ranges
+    :func:`_gene_ranges`' at three blocks an SM, ``_F64_SPLIT_BLOCKS``); the
+    gene part's dW, d(muL) and dlog mu by ``gene_product_f64_kernel``, a
+    single row block's cells in ``gslices`` slices of ``gcells`` where its
+    blocks would not fill three an SM twice over (:func:`_cell_slices`;
+    ``part`` their partial sums). The grouped dpsi's and gene part's keys
+    are then 0. ``fwd_workspace`` is the table, the row block's rfe, the
+    ranges' sums of Z (``zsplit`` x ``rows`` x SC where more than one) and
+    A1's partial sums (``rows`` x 2 ceil(G / 64): a row's over each 32 genes);
+    ``dpsi_workspace`` the row block's t and the ranges' sums of dpsi
+    (``dsplit`` x ``rows`` x Kf); ``gene_workspace`` ``part``, the row block's
+    rfe and dlog_rfe, dpsi's ranges' sums (which only the one call with dpsi
+    fills) and the output, and ``bwd_workspace`` the same. A width whose
+    shared memory passes the card's ``F64_MAX_SMEM`` a block raises a
+    ValueError, and none does: within the old bound (Kf up to 64) every
+    kernel fits, and past it no kernel's shared memory grows with a width."""
     F = Kf + n_a2 + SC
-    f_yt = _cdiv(Kf + n_a2, 8)
-    f_tiles = f_yt + _cdiv(SC, 8)
+    split = split_route(Kf, n_a2, SC)
+    f_yt = max(_cdiv(Kf + n_a2, 8), int(split))
+    f_tiles = f_yt if split else f_yt + _cdiv(SC, 8)
     f_groups = _cdiv(f_tiles, F64_FWD_TILE_COUNTS[-1])
     f_count = _cdiv(f_tiles, f_groups)
     f_nt = _at_least(F64_FWD_TILE_COUNTS, f_count)
     kc = max(1, _cdiv(Kf, 8))
-    d_nk = _at_least(F64_DPSI_K_COUNTS, kc)
-    d_kgroups = _cdiv(kc, d_nk)
-    d_lr = kc if d_kgroups > 1 else (d_nk if d_nk > 1 else 0)
-    lr = d_lr if d_kgroups > 1 else None
-    d_groups = _cdiv(_cdiv(SC, 8), F64_DPSI_Z_COUNTS[-1])
-    d_nz = _at_least(F64_DPSI_Z_COUNTS, _cdiv(_cdiv(SC, 8), d_groups))
-    d_steps = 4 if f64_dpsi_smem(d_nk, d_nz, 4, lr) <= _TWO_BLOCK_SMEM else 2
-    d_tiles = d_groups * d_nz + d_kgroups * d_nk + d_lr
-    plan = dict(zip(F64_PLAN_KEYS, (
-        f_yt, f_tiles, f_count, f_nt, f_groups, _cdiv(N, 16 * F64_FWD_WARPS),
-        f64_fwd_smem(Kf, f_nt),
-        d_nk, d_nz, d_groups, d_steps, _cdiv(N, 16 * F64_DPSI_WARPS),
-        f64_dpsi_smem(d_nk, d_nz, d_steps, lr))))
-    plan.update(f_table=2 * _cdiv(G, F64_FWD_GENES) * 4 * (32 * f_tiles + 4 * Kf),
-                d_table=2 * _cdiv(G, 8 * d_steps) * d_steps * 32 * d_tiles)
-    if split_route(Kf, n_a2, SC):
+    klr = 0 if split else Kf  # log_rfe's columns in fwd_f64_kernel
+    plan = dict(f_yt=f_yt, f_tiles=f_tiles, f_count=f_count, f_nt=f_nt, f_groups=f_groups,
+                f_blocks=_cdiv(N, 16 * F64_FWD_WARPS), f_smem=f64_fwd_smem(klr, f_nt),
+                f_table=2 * _cdiv(G, F64_FWD_GENES) * 4 * (32 * f_tiles + 4 * klr))
+    if split:
         rows, n_chunks, ldw = _split_rows(N, G, _SPLIT_ELEMENTS // 2, 2)
+        slots = _F64_SPLIT_BLOCKS * 132
         products = _cdiv(G, _SPLIT_N) * (_cdiv(Kf, _SPLIT_M) + _cdiv(SC, _SPLIT_M))
-        gslices, gcells = _cell_slices(N, rows, n_chunks, products, _F64_SPLIT_BLOCKS * 132)
-        plan.update(dict.fromkeys(("g_st", "g_tiles", "g_nk", "g_count", "g_nt", "g_passes",
-                                   "g_blocks", "g_smem", "g_table"), 0),
+        gslices, gcells = _cell_slices(N, rows, n_chunks, products, slots)
+        m_tiles = _cdiv(rows, _SPLIT_M)
+        dsplit, dgenes = _gene_ranges(m_tiles * _cdiv(max(Kf, 1), _SPLIT_N), G, slots)
+        zsplit, zgenes = _gene_ranges(m_tiles * _cdiv(SC, _SPLIT_N), G, slots)
+        plan.update(dict.fromkeys(("d_nk", "d_nz", "d_groups", "d_steps", "d_blocks", "d_smem",
+                                   "d_table", "g_st", "g_tiles", "g_nk", "g_count", "g_nt",
+                                   "g_passes", "g_blocks", "g_smem", "g_table"), 0),
                     rows=rows, n_chunks=n_chunks, split=1, ldw=ldw, gslices=gslices,
-                    gcells=gcells, part=2 * _cdiv(gslices * F * G, 2) if gslices > 1 else 0)
+                    gcells=gcells, part=2 * _cdiv(gslices * F * G, 2) if gslices > 1 else 0,
+                    dsplit=dsplit, dgenes=dgenes, zsplit=zsplit, zgenes=zgenes)
     else:
+        d_nk = _at_least(F64_DPSI_K_COUNTS, kc)
+        d_groups = _cdiv(_cdiv(SC, 8), F64_DPSI_Z_COUNTS[-1])
+        d_nz = _at_least(F64_DPSI_Z_COUNTS, _cdiv(_cdiv(SC, 8), d_groups))
+        d_steps = 4 if f64_dpsi_smem(d_nk, d_nz, 4) <= _TWO_BLOCK_SMEM else 2
+        d_tiles = d_groups * d_nz + d_nk + (d_nk if d_nk > 1 else 0)
         g_st = _cdiv(n_a2, 8)
         g_tiles = g_st + _cdiv(SC, 8)
         g_nk = _at_least(F64_GENE_K_COUNTS, kc)
@@ -714,25 +734,38 @@ def f64_plan(N: int, G: int, Kf: int, n_a2: int, SC: int) -> dict:
         g_nt = _at_least(counts, g_count)
         rows = _chunk_rows(N)
         n_chunks = _cdiv(N, rows)
-        plan.update(g_st=g_st, g_tiles=g_tiles, g_nk=g_nk, g_count=g_count, g_nt=g_nt,
+        plan.update(d_nk=d_nk, d_nz=d_nz, d_groups=d_groups, d_steps=d_steps,
+                    d_blocks=_cdiv(N, 16 * F64_DPSI_WARPS),
+                    d_smem=f64_dpsi_smem(d_nk, d_nz, d_steps),
+                    d_table=2 * _cdiv(G, 8 * d_steps) * d_steps * 32 * d_tiles,
+                    g_st=g_st, g_tiles=g_tiles, g_nk=g_nk, g_count=g_count, g_nt=g_nt,
                     g_passes=g_passes, g_blocks=_cdiv(G, 16 * F64_GENE_WARPS), rows=rows,
                     n_chunks=n_chunks, g_smem=f64_gene_smem(Kf, g_nt, g_nk),
                     part=2 * _cdiv(n_chunks * F * G, 2),
                     g_table=2 * _cdiv(N, F64_GENE_CELLS) * (4 * (32 * (2 * g_tiles + g_nk) + 4 * Kf)
                                                             + F64_GENE_CELLS // 2),
-                    split=0, ldw=0, gslices=0, gcells=0)
+                    split=0, ldw=0, gslices=0, gcells=0, dsplit=0, dgenes=0, zsplit=0, zgenes=0)
     plan = {k: plan[k] for k in F64_PLAN_KEYS}
-    plan.update(d_kgroups=d_kgroups, d_lr=d_lr)
     worst = max(plan["f_smem"], plan["d_smem"], plan["g_smem"])
     if worst > F64_MAX_SMEM:
         raise ValueError(
             f"the float64 CUDA kernels at Kf={Kf}, S={n_a2}, S*C={SC} need {worst} bytes of "
             f"shared memory a block, past the card's {F64_MAX_SMEM} (227 KB): Kf = K + P is "
             "too wide")
-    plan["fwd_workspace"] = plan["f_table"]
-    plan["dpsi_workspace"] = plan["d_table"]
-    plan["gene_workspace"] = (plan["part"] + plan["g_table"] + 2 * plan["rows"] * plan["ldw"]
-                              + F * G)
+    if split:
+        block = plan["rows"] * plan["ldw"]
+        zpart = 2 * _cdiv(plan["zsplit"] * plan["rows"] * SC, 2) if plan["zsplit"] > 1 else 0
+        dpart = plan["dsplit"] * plan["rows"] * Kf
+        a1part = plan["rows"] * 2 * _cdiv(G, _SPLIT_N)
+        plan["fwd_workspace"] = plan["f_table"] + block + zpart + a1part
+        plan["dpsi_workspace"] = block + dpart
+        plan["gene_workspace"] = plan["part"] + 2 * block + dpart + F * G
+        plan["bwd_workspace"] = plan["gene_workspace"]
+    else:
+        plan["fwd_workspace"] = plan["f_table"]
+        plan["dpsi_workspace"] = plan["d_table"]
+        plan["gene_workspace"] = plan["part"] + plan["g_table"] + F * G
+        plan["bwd_workspace"] = plan["gene_workspace"] + (plan["dpsi_workspace"] if Kf else 0)
     return plan
 
 
@@ -775,8 +808,10 @@ def kernel_forward(Y, psi_ext, W_ext, log_mu, muL):
     """Launch the forward kernel, or the wide one past a narrow limit
     (:func:`wide_route`; past the old bound the split forward, by row blocks:
     :func:`wide_plan`'s ``fwd_workspace``), or for float64 operands ``fwd_f64_pack_kernel``
-    and ``fwd_f64_kernel`` (:func:`f64_plan`, its ``fwd_workspace``). Returns (A1, A2 or None, Z, YW) in the compute
-    dtype, with ``YW = Y @ W_ext`` (N, Kf) for the backward's dpsi kernel."""
+    and ``fwd_f64_kernel`` (past the old bound with the split forward's Z by
+    row blocks; :func:`f64_plan`, its ``fwd_workspace``). Returns (A1, A2 or
+    None, Z, YW) in the compute dtype, with ``YW = Y @ W_ext`` (N, Kf) for
+    the backward's dpsi kernel."""
     global fwd_launches, fwd_wide_launches, fwd_f64_launches
     from . import _build
 
@@ -829,7 +864,9 @@ def kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW):
     dlog_rfe_kernel without Y, dpsi_product_kernel and dpsi_sum_kernel by row
     blocks; :func:`wide_plan`'s ``dpsi_workspace``), or
     for float64 operands ``dpsi_f64_pack_kernel`` and ``dpsi_f64_kernel``
-    (:func:`f64_plan`'s ``dpsi_workspace``); ``YW`` is
+    (past the old bound ``dlog_rfe_f64_kernel`` without Y,
+    ``dpsi_product_f64_kernel`` and ``dpsi_sum_f64_kernel`` by row blocks;
+    :func:`f64_plan`'s ``dpsi_workspace``); ``YW`` is
     :func:`kernel_forward`'s. Returns dpsi (N, Kf). With Kf = 0 there is
     nothing to compute or launch."""
     global dpsi_launches, dpsi_wide_launches, dpsi_f64_launches
@@ -911,7 +948,7 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
         dgene = torch.empty(F, G, device=Y.device, dtype=dt)
         stream = ctypes.c_void_p(torch.cuda.current_stream(Y.device).cuda_stream)
         _raise_on(lib.fl64_backward_gene(
-            _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2), _ptr(dZ),
+            _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2), _ptr(dZ), None,
             _ptr(scratch), _ptr(dgene), _plan_arg(plan, F64_PLAN_KEYS), N, G, Kf, n_a2, SC,
             y_codes[Y.dtype], stream), "fused likelihood backward (gene, float64)")
         gene_f64_launches += 1
@@ -943,38 +980,48 @@ def kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ):
 
 def kernel_backward(Y, psi_ext, W_ext, muL, dA1, dA2, dZ, YW):
     """Launch the backward kernels, dpsi from the forward's ``YW = Y @ W_ext``
-    and then the gene-major part; or, where the float32 plan's backward is
-    the split one (:func:`split_route`), both from one dlog_rfe a row block
-    (``fl_backward_gene_wide`` with dpsi: dpsi = dlog_rfe W_ext, YW unused;
-    its ``bwd_workspace``), counted in ``split_launches``. Returns (dpsi,
-    dW, dlog_mu or None, dmuL)."""
-    global split_launches
+    and then the gene-major part; or, where the plan's backward is the split
+    one (:func:`split_route`), both from one dlog_rfe a row block
+    (``fl_backward_gene_wide`` with dpsi, or for float64 operands
+    ``fl64_backward_gene`` with dpsi: dpsi = dlog_rfe W_ext, YW unused; the
+    plan's ``bwd_workspace``), counted in ``split_launches`` (float64:
+    ``split_f64_launches``). Returns (dpsi, dW, dlog_mu or None, dmuL)."""
+    global split_launches, split_f64_launches
     from . import _build
 
     n_a2 = 0 if dA2 is None else dA2.shape[1]
     (N, G), Kf, SC = Y.shape, psi_ext.shape[1], muL.shape[1]
-    if psi_ext.dtype != torch.float32 or not split_route(Kf, n_a2, SC):
+    dt = _compute_dtype(psi_ext)
+    if not split_route(Kf, n_a2, SC):
         dpsi = kernel_dpsi(psi_ext, W_ext, muL, dA1, dZ, YW)
         return (dpsi, *kernel_gene(Y, psi_ext, W_ext, muL, dA1, dA2, dZ))
-    _check("Y", Y, Y.shape, tuple(Y_DTYPES))
+    f64 = dt == torch.float64
+    _check("Y", Y, Y.shape, tuple(Y_DTYPES_F64 if f64 else Y_DTYPES))
     _check_sizes(N, G, SC)
     for name, t, shape in (("psi_ext", psi_ext, (N, Kf)), ("W_ext", W_ext, (G, Kf)),
                            ("muL", muL, (G, SC)), ("dA1", dA1, (N,)), ("dZ", dZ, (N, SC)),
                            ("YW", YW, (N, Kf)), ("dA2", dA2, (N, n_a2))):
         if t is not None:
-            _check(name, t, shape, (torch.float32,))
+            _check(name, t, shape, (dt,))
     lib = _build.load()
-    plan = wide_plan(N, G, Kf, n_a2, SC)
+    plan = f64_plan(N, G, Kf, n_a2, SC) if f64 else wide_plan(N, G, Kf, n_a2, SC)
     F = Kf + SC + n_a2
-    dpsi = torch.empty(N, Kf, device=Y.device, dtype=torch.float32)
-    scratch = torch.empty(plan["bwd_workspace"] - F * G, device=Y.device, dtype=torch.float32)
-    dgene = torch.empty(F, G, device=Y.device, dtype=torch.float32)
+    dpsi = torch.empty(N, Kf, device=Y.device, dtype=dt)
+    scratch = torch.empty(plan["bwd_workspace"] - F * G, device=Y.device, dtype=dt)
+    dgene = torch.empty(F, G, device=Y.device, dtype=dt)
     stream = ctypes.c_void_p(torch.cuda.current_stream(Y.device).cuda_stream)
-    _raise_on(lib.fl_backward_gene_wide(
-        _ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2), _ptr(dZ),
-        _ptr(dpsi), _ptr(scratch), _ptr(dgene), _plan_arg(plan), N, G, Kf, n_a2, SC,
-        Y_DTYPES[Y.dtype], stream), "fused likelihood backward (split)")
-    split_launches += 1
+    args = (_ptr(Y), _ptr(psi_ext), _ptr(W_ext), _ptr(muL), _ptr(dA1), _ptr(dA2), _ptr(dZ),
+            _ptr(dpsi), _ptr(scratch), _ptr(dgene))
+    if f64:
+        _raise_on(lib.fl64_backward_gene(*args, _plan_arg(plan, F64_PLAN_KEYS), N, G, Kf, n_a2, SC,
+                                         Y_DTYPES_F64[Y.dtype], stream),
+                  "fused likelihood backward (split, float64)")
+        split_f64_launches += 1
+    else:
+        _raise_on(lib.fl_backward_gene_wide(*args, _plan_arg(plan), N, G, Kf, n_a2, SC,
+                                            Y_DTYPES[Y.dtype], stream),
+                  "fused likelihood backward (split)")
+        split_launches += 1
     return dpsi, dgene[:Kf].T, None if dA2 is None else dgene[Kf + SC:], dgene[Kf:Kf + SC].T
 
 

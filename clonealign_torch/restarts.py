@@ -93,12 +93,14 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
     split backward's row block of rfe and dlog_rfe, dpsi's gene ranges'
     sums and the output (a fixed row block whatever N, and one call's, as
     the op runs one lane at a time). In float64 (``itemsize`` 8) the float64 family runs at
-    every width: its forward's packed gene table (``fwd_workspace``, every
-    forward) and with the exact backward dpsi's packed gene table
-    (``dpsi_workspace``) and its gene part's partial sums, packed cell
-    table and sums, or past the old bound the split gene part's row block
-    of rfe and dlog_rfe and its slices' sums (``fused_likelihood.f64_plan``'s
-    ``gene_workspace``), float64 values.
+    every width: its forward's workspace (``fwd_workspace``, every forward:
+    the packed gene table, past the old bound with the split forward's row
+    block of rfe and gene ranges' sums of Z) and with the exact backward
+    its workspace (``fused_likelihood.f64_plan``'s ``bwd_workspace``):
+    dpsi's packed gene table and the gene part's partial sums, packed cell
+    table and sums, or past the old bound the one call's row block of rfe
+    and dlog_rfe, dpsi's gene ranges' sums, the slices' sums and the
+    output, float64 values.
 
     The counts of the ELBO's tensors and of "map"'s held parameters are the
     code's order fitted to the card's peaks (``chip_smoke.inference_peaks``;
@@ -124,7 +126,7 @@ def _sweep_bytes(N, G, C, K, S, n_lanes, itemsize, device_type, y_itemsize=None,
         plan = fl.f64_plan(N, G, Kf, 0, S * C)
         workspace += 8 * plan["fwd_workspace"]
         if not z_cheb:
-            workspace += 8 * (plan["gene_workspace"] + (plan["dpsi_workspace"] if Kf else 0))
+            workspace += 8 * plan["bwd_workspace"]
     elif device_type == "cuda":
         if fl.wide_route(Kf, S, S * C):
             workspace += 4 * fl.wide_plan(N, G, Kf, S, S * C)["fwd_workspace"]

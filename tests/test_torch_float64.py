@@ -8,7 +8,10 @@ wrappers hand the library, with the library's entry points recorded, not
 called, and each call routed by its compute dtype), a numpy emulation of
 the kernels' order of work (the forward's column groups over [YW | A2 | Z],
 dpsi's dZ groups with dA1 YW added last, the gene part's passes and its
-chunks' partial sums folded in chunk order) against the plain float64 VJP,
+chunks' partial sums folded in chunk order; past the old bound the split
+forward's, dpsi's and gene part's row blocks, gene ranges and slices)
+against the plain float64 VJP and (past the bound) against the JAX
+package's plain float64 terms and their VJP,
 ``restarts._sweep_bytes`` at itemsize 8, the float64 plain versions against
 the JAX package's exact float64 likelihood and its VJP (``jax.vjp``, x64)
 for each Y type, and ``run_clonealign(restart_batching="vmap")`` in float64
@@ -58,10 +61,11 @@ CUDA_SHAPES = SHAPES + [(2000, 500, 3, 4, 3), (1000, 515, 12, 6, 8), (2100, 130,
                         (33, 1, 40, 0, 1), (300, 100, 32, 64, 64), (130, 77, 2048, 1, 1),
                         (90, 37, 5, 9, 2)]
 # past the old bound of 64, 64 and 2,048, each alone and all at once (as
-# tests/test_torch_wide.py's PAST_BOUND_SHAPES), and Kf 136 (three groups
-# of dpsi's and dW's columns)
+# tests/test_torch_wide.py's PAST_BOUND_SHAPES), Kf 136 and 300 (past the
+# grouped forward's 139), and K 0 at S*C 2,178 (the forward's empty Y tile)
 PAST_BOUND_SHAPES = [(300, 100, 3, 72, 2), (300, 100, 2, 1, 66), (2100, 200, 66, 1, 33),
-                     (200, 70, 10, 72, 66), (100, 60, 3, 136, 1)]
+                     (200, 70, 10, 72, 66), (100, 60, 3, 136, 1), (100, 60, 3, 300, 1),
+                     (300, 100, 33, 0, 66)]
 CUDA_SHAPES += PAST_BOUND_SHAPES
 
 
@@ -120,13 +124,23 @@ def _groups(n, groups, cols):
     return [list(range(q * cols, min(n, (q + 1) * cols))) for q in range(groups)]
 
 
-# ... and past the old bound (the split gene part): one row block with its
-# cells in slices, Kf 72 / S 66 / S*C 660 at full width (121 row blocks of
-# 832 cells), every bound at once, two row blocks at 45,000 x 100, and Kf
-# 139, the widest the forward takes
+# ... and past the old bound (the split forward, dpsi and gene part): one
+# row block with its cells in slices, Kf 72 / S 66 / S*C 660 at full width
+# (121 row blocks of 832 cells, Z's product in 5 gene ranges, dpsi's in
+# 14), every bound at once, two row blocks at 45,000 x 100, Kf 139 (the
+# widest the grouped forward took) and 300, Kf 0 (the forward's one empty
+# Y tile), three gene ranges of 192 at 1,000 x 515, and an odd S*C and Kf
 PAST_PLAN_SHAPES = [(300, 100, 72, 2, 6), (300, 100, 1, 66, 132), (2100, 200, 1, 33, 2178),
                     (100_000, 5_000, 72, 0, 660), (100_000, 5_000, 72, 66, 660),
-                    (600, 200, 72, 66, 2178), (45_000, 100, 72, 66, 660), (1000, 500, 139, 0, 10)]
+                    (600, 200, 72, 66, 2178), (45_000, 100, 72, 66, 660), (1000, 500, 139, 0, 10),
+                    (300, 100, 0, 0, 2178), (1000, 515, 72, 0, 6), (700, 300, 73, 0, 2049),
+                    (200, 100, 300, 0, 10)]
+
+
+def _wave_fill(tiles, z, slots=3 * 132):
+    """The share of its last wave of ``slots`` blocks that ``tiles`` blocks
+    in each of z gene ranges fill."""
+    return tiles * z / (-(-tiles * z // slots) * slots)
 
 
 @pytest.mark.parametrize("shape", PLAN_SHAPES + PAST_PLAN_SHAPES)
@@ -146,19 +160,31 @@ def test_f64_plan_covers_every_column_once_within_every_bound(shape):
     within the card's (dpsi's within two blocks an SM, with 4 k-steps a
     stage wherever they fit); the workspace is the packed tables, and the
     partial sums of every chunk beside the output. Past the old bound the
-    gene part is the split one: its row blocks hold each cell once, in
-    whole tiles of 64 as even as they go, each at most 2^22 doubles of
-    rfe past one tile (half the float32 plan's cells), its workspace's row
-    pitch an even count of at least G, a single row block's slices each
-    cell once in whole stages of 32 where its blocks would not fill three
-    an SM twice over, the grouped gene part's keys 0, and its workspace the
-    slices' partial sums, the row block's rfe and dlog_rfe and the output."""
+    forward, dpsi and the gene part are the split ones: the forward's
+    groups hold only the Y products' tiles (at least one, so that a launch
+    has a group at Kf 0 without A2) and no psi or W, the row blocks hold
+    each cell once, in whole tiles of
+    64 as even as they go, each at most 2^22 doubles of rfe past one tile
+    (half the float32 plan's cells), the workspace's row pitch an even
+    count of at least G, a single row block's slices each cell once in
+    whole stages of 32 where its blocks would not fill three an SM twice
+    over, Z's and dpsi's products' gene ranges each gene once in whole
+    stages of 32, the fewest that fill their last wave of three blocks an
+    SM on 132 SMs to 0.9 where any count (of 256 genes or more) can, the
+    grouped dpsi's and gene part's keys 0, and the workspaces: the
+    forward's table, row block of rfe and Z's ranges' sums, dpsi's row
+    block of t and its ranges' sums, the gene part's (and the one call's)
+    slices' partial sums, row block of rfe and dlog_rfe, dpsi's ranges'
+    sums and the output."""
     N, G, Kf, n_a2, SC = shape
     p = tfl.f64_plan(N, G, Kf, n_a2, SC)
     F = Kf + n_a2 + SC
     split = Kf > 64 or n_a2 > 64 or SC > 2048
     assert p["split"] == int(split)
-    assert p["f_yt"] == -(-(Kf + n_a2) // 8) and p["f_tiles"] == p["f_yt"] + -(-SC // 8)
+    if split:
+        assert p["f_yt"] == max(1, -(-(Kf + n_a2) // 8)) and p["f_tiles"] == p["f_yt"]
+    else:
+        assert p["f_yt"] == -(-(Kf + n_a2) // 8) and p["f_tiles"] == p["f_yt"] + -(-SC // 8)
     groups = [(p["f_tiles"], p["f_groups"], p["f_count"], p["f_nt"], tfl.F64_FWD_TILE_COUNTS)]
     if not split:
         assert p["g_st"] == -(-n_a2 // 8) and p["g_tiles"] == p["g_st"] + -(-SC // 8)
@@ -171,6 +197,56 @@ def test_f64_plan_covers_every_column_once_within_every_bound(shape):
         assert sum(split_cols, []) == list(range(n))
         assert all(split_cols) and cols <= nt and nt == min(c for c in counts if c >= cols)
         assert (n_groups == 1) == (n <= counts[-1])
+    assert p["f_blocks"] * 16 * tfl.F64_FWD_WARPS >= N > (p["f_blocks"] - 1) * 16 * tfl.F64_FWD_WARPS
+    assert p["n_chunks"] * p["rows"] >= N > (p["n_chunks"] - 1) * p["rows"]
+    assert p["n_chunks"] <= 65535 and p["f_groups"] <= 65535
+    klr = 0 if split else Kf  # psi's and W's columns the forward holds for log_rfe
+    assert p["f_smem"] == (8 * (16 * tfl.F64_FWD_WARPS * klr
+                                + 2 * tfl.F64_FWD_GENES * (8 * p["f_nt"] + klr))
+                           + 2 * tfl.F64_FWD_Y_STAGE_BYTES)
+    # the packed tables: per 32-gene stage 4 k-steps of every tile's 32 B
+    # pairs and W's 4 pairs a column
+    assert p["f_table"] == 2 * -(-G // 32) * 4 * (32 * p["f_tiles"] + 4 * klr)
+    assert max(p["f_smem"], p["d_smem"], p["g_smem"]) <= tfl.F64_MAX_SMEM
+    if split:
+        rows, blocks = p["rows"], p["n_chunks"]
+        cells = [n for b in range(blocks) for n in range(b * rows, min(N, (b + 1) * rows))]
+        assert cells == list(range(N)) and rows % 64 == 0 and rows - -(-N // blocks) < 64
+        assert p["ldw"] >= G and p["ldw"] % 2 == 0 and p["ldw"] - G < 2
+        assert rows * p["ldw"] <= max(64 * p["ldw"], 1 << 22)
+        assert not any(p[k] for k in ("d_nk", "d_nz", "d_groups", "d_steps", "d_blocks", "d_smem",
+                                      "d_table", "g_st", "g_tiles", "g_nk", "g_count", "g_nt",
+                                      "g_passes", "g_blocks", "g_smem", "g_table"))
+        products = -(-G // 64) * (-(-Kf // 64) + -(-SC // 64))
+        if p["gslices"] > 1:  # one row block's cells in slices of whole stages
+            assert blocks == 1 and p["gcells"] % 32 == 0 and products < 2 * 3 * 132
+            assert [n for z in range(p["gslices"])
+                    for n in range(z * p["gcells"], min(N, (z + 1) * p["gcells"]))] == cells
+        else:
+            assert p["gcells"] == rows and (blocks > 1 or products >= 2 * 3 * 132
+                                            or N <= 256)
+        # Z's and dpsi's gene ranges: each gene once, whole stages of 32,
+        # the wave filled to 0.9 where a count of ranges of 256 genes or
+        # more can
+        for n, genes, tiles in ((p["zsplit"], p["zgenes"], -(-rows // 64) * -(-SC // 64)),
+                                (p["dsplit"], p["dgenes"], -(-rows // 64) * -(-max(Kf, 1) // 64))):
+            assert genes % 32 == 0 and [g for z in range(n)
+                                        for g in range(z * genes, min(G, (z + 1) * genes))] == \
+                list(range(G))
+            counts = range(1, max(1, -(-G // 256)) + 1)
+            best = max(_wave_fill(tiles, z) for z in counts)
+            fewest = min((z for z in counts if _wave_fill(tiles, z) >= 0.9), default=None)
+            assert _wave_fill(tiles, n) >= min(0.9, best) - 1e-12
+            assert fewest is None or n <= fewest + 1
+        part = p["gslices"] * F * G + (p["gslices"] * F * G) % 2 if p["gslices"] > 1 else 0
+        assert p["part"] == part
+        block, dpart = rows * p["ldw"], p["dsplit"] * rows * Kf
+        zpart = p["zsplit"] * rows * SC + (p["zsplit"] * rows * SC) % 2 if p["zsplit"] > 1 else 0
+        # A1's partial sums: a row's over each 32 genes
+        assert p["fwd_workspace"] == p["f_table"] + block + zpart + rows * 2 * -(-G // 64)
+        assert p["dpsi_workspace"] == block + dpart
+        assert p["gene_workspace"] == p["bwd_workspace"] == part + 2 * block + dpart + F * G
+        return
     # dpsi: group q takes dZ's tiles [q d_nz, (q + 1) d_nz), each tile's 8
     # columns (those past S*C zero), every group holding a column
     nz, zt = p["d_nz"], -(-SC // 8)
@@ -180,58 +256,24 @@ def test_f64_plan_covers_every_column_once_within_every_bound(shape):
     assert nz == min(c for c in tfl.F64_DPSI_Z_COUNTS if c >= -(-zt // p["d_groups"]))
     assert p["d_groups"] == -(-zt // tfl.F64_DPSI_Z_COUNTS[-1])
     assert (p["d_groups"] == 1) == (SC <= 80)
-    kc = -(-Kf // 8)
-    psi_cols = [k for kc_ in range(p["d_kgroups"] * p["d_nk"]) for k in range(8 * kc_, 8 * kc_ + 8)
-                if k < Kf]
+    psi_cols = [k for kc_ in range(p["d_nk"]) for k in range(8 * kc_, 8 * kc_ + 8) if k < Kf]
     assert psi_cols == list(range(Kf))
-    assert p["d_nk"] == min(k for k in tfl.F64_DPSI_K_COUNTS if 8 * k >= min(max(Kf, 1), 64))
-    assert p["d_kgroups"] == (-(-kc // p["d_nk"]) if kc > p["d_nk"] else 1)
-    assert p["f_blocks"] * 16 * tfl.F64_FWD_WARPS >= N > (p["f_blocks"] - 1) * 16 * tfl.F64_FWD_WARPS
+    assert p["d_nk"] == min(k for k in tfl.F64_DPSI_K_COUNTS if 8 * k >= max(Kf, 1))
     dl = 16 * tfl.F64_DPSI_WARPS
     assert p["d_blocks"] * dl >= N > (p["d_blocks"] - 1) * dl
-    assert p["n_chunks"] * p["rows"] >= N > (p["n_chunks"] - 1) * p["rows"]
-    assert p["n_chunks"] <= 65535 and p["f_groups"] <= 65535
-    assert p["f_smem"] == (8 * (16 * tfl.F64_FWD_WARPS * Kf
-                                + 2 * tfl.F64_FWD_GENES * (8 * p["f_nt"] + Kf))
-                           + 2 * tfl.F64_FWD_Y_STAGE_BYTES)
-    # the packed tables: per 32-gene stage 4 k-steps of every tile's 32 B
-    # pairs and W's 4 pairs a column
-    assert p["f_table"] == 2 * -(-G // 32) * 4 * (32 * p["f_tiles"] + 4 * Kf)
     assert p["fwd_workspace"] == p["f_table"] and p["dpsi_workspace"] == p["d_table"]
-    if p["d_kgroups"] == 1:
-        lr_tiles = p["d_nk"] if p["d_nk"] > 1 else 0  # log_rfe's W^T tiles (MMAs past Kf 8)
-        d_tiles = nz + p["d_nk"] + lr_tiles  # a stage's tiles a k-step
+    lr_tiles = p["d_nk"] if p["d_nk"] > 1 else 0  # log_rfe's W^T tiles (MMAs past Kf 8)
+    d_tiles = nz + p["d_nk"] + lr_tiles  # a stage's tiles a k-step
 
-        def dpsi_smem(steps):  # the warps' psi (2 d_nk tiles each), two stages
-            return 16 * 32 * (tfl.F64_DPSI_WARPS * 2 * p["d_nk"] + 2 * steps * d_tiles)
+    def dpsi_smem(steps):  # the warps' psi (2 d_nk tiles each), two stages
+        return 16 * 32 * (tfl.F64_DPSI_WARPS * 2 * p["d_nk"] + 2 * steps * d_tiles)
 
-        assert p["d_smem"] == dpsi_smem(p["d_steps"]) <= tfl._TWO_BLOCK_SMEM
-        assert p["d_steps"] == (4 if dpsi_smem(4) <= tfl._TWO_BLOCK_SMEM else 2)
-        # per k-step of 8 genes (G padded to whole stages) every group's
-        # muL^T tiles, dpsi's W tiles and log_rfe's, 32 pairs each
-        g_pad = -(-G // (8 * p["d_steps"])) * 8 * p["d_steps"]
-        assert p["d_table"] == 2 * (g_pad // 8) * 32 * (p["d_groups"] * nz + p["d_nk"] + lr_tiles)
-    assert max(p["f_smem"], p["d_smem"], p["g_smem"]) <= tfl.F64_MAX_SMEM
-    if split:
-        rows, blocks = p["rows"], p["n_chunks"]
-        cells = [n for b in range(blocks) for n in range(b * rows, min(N, (b + 1) * rows))]
-        assert cells == list(range(N)) and rows % 64 == 0 and rows - -(-N // blocks) < 64
-        assert p["ldw"] >= G and p["ldw"] % 2 == 0 and p["ldw"] - G < 2
-        assert rows * p["ldw"] <= max(64 * p["ldw"], 1 << 22)
-        assert not any(p[k] for k in ("g_st", "g_tiles", "g_nk", "g_count", "g_nt", "g_passes",
-                                      "g_blocks", "g_smem", "g_table"))
-        products = -(-G // 64) * (-(-Kf // 64) + -(-SC // 64))
-        if p["gslices"] > 1:  # one row block's cells in slices of whole stages
-            assert blocks == 1 and p["gcells"] % 32 == 0 and products < 2 * 3 * 132
-            assert [n for z in range(p["gslices"])
-                    for n in range(z * p["gcells"], min(N, (z + 1) * p["gcells"]))] == cells
-        else:
-            assert p["gcells"] == rows and (blocks > 1 or products >= 2 * 3 * 132
-                                            or N <= 256)
-        part = p["gslices"] * F * G + (p["gslices"] * F * G) % 2 if p["gslices"] > 1 else 0
-        assert p["part"] == part
-        assert p["gene_workspace"] == part + 2 * rows * p["ldw"] + F * G
-        return
+    assert p["d_smem"] == dpsi_smem(p["d_steps"]) <= tfl._TWO_BLOCK_SMEM
+    assert p["d_steps"] == (4 if dpsi_smem(4) <= tfl._TWO_BLOCK_SMEM else 2)
+    # per k-step of 8 genes (G padded to whole stages) every group's muL^T
+    # tiles, dpsi's W tiles and log_rfe's, 32 pairs each
+    g_pad = -(-G // (8 * p["d_steps"])) * 8 * p["d_steps"]
+    assert p["d_table"] == 2 * (g_pad // 8) * 32 * (p["d_groups"] * nz + p["d_nk"] + lr_tiles)
     gl = 16 * tfl.F64_GENE_WARPS
     assert p["g_blocks"] * gl >= G > (p["g_blocks"] - 1) * gl
     assert p["rows"] % tfl.F64_GENE_CELLS == 0 and p["rows"] >= 1024
@@ -245,7 +287,9 @@ def test_f64_plan_covers_every_column_once_within_every_bound(shape):
     assert p["g_table"] == 2 * -(-N // 32) * (4 * (32 * (2 * p["g_tiles"] + p["g_nk"]) + 4 * Kf)
                                             + 16)
     assert p["gene_workspace"] == p["part"] + p["g_table"] + F * G
-    assert (p["split"], p["ldw"], p["gslices"], p["gcells"]) == (0, 0, 0, 0)
+    assert p["bwd_workspace"] == p["gene_workspace"] + (p["dpsi_workspace"] if Kf else 0)
+    assert not any(p[k] for k in ("split", "ldw", "gslices", "gcells", "dsplit", "dgenes",
+                                  "zsplit", "zgenes"))
 
 
 class _FakeLib:
@@ -262,19 +306,24 @@ class _FakeLib:
 
 
 @pytest.mark.parametrize("shape", [(2100, 130, 9, 1, 4), (70, 300, 10, 6, 8), (40, 70, 3, 64, 64),
-                                   (40, 70, 10, 72, 66), (2100, 200, 66, 1, 33)])
+                                   (40, 70, 10, 72, 66), (2100, 200, 66, 1, 33),
+                                   (60, 50, 33, 0, 66), (300, 100, 2, 1, 66)])
 def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
     """Float64 operands go to the fl64_* entry points with f64_plan's
     numbers in F64_PLAN_KEYS' order and Y's code in Y_DTYPES_F64, the
-    outputs, kernel_forward's packed table (its fwd_workspace),
-    kernel_dpsi's (its dpsi_workspace) and kernel_gene's scratch in
+    outputs, kernel_forward's workspace (its fwd_workspace: past the old
+    bound with the row block's rfe, Z's ranges' sums and A1's partial
+    sums), kernel_dpsi's (its dpsi_workspace) and kernel_gene's scratch in
     float64, kernel_gene's allocations adding up to the plan's
     gene_workspace (past the old bound the split gene part's: the slices'
     partial sums where a single row block's cells go in slices, then the
-    row block's rfe and dlog_rfe, rows x ldw each), each launch counted in *_f64_launches and
-    in no float32 count; float32 operands still go to the float32 entry
-    points. The wrappers run on CPU tensors with the library recorded, not
-    called."""
+    row block's rfe and dlog_rfe, rows x ldw each, and dpsi's ranges'
+    sums), each launch counted in *_f64_launches and in no float32 count;
+    kernel_backward past the old bound one fl64_backward_gene call with
+    dpsi (its bwd_workspace), counted once in split_f64_launches and in no
+    other count, and within it kernel_dpsi's and kernel_gene's calls (dpsi
+    null); float32 operands still go to the float32 entry points. The
+    wrappers run on CPU tensors with the library recorded, not called."""
     N, G, C, K, S = shape
     Y, psi, W, log_mu, muL = map(_t, _inputs(N, G, C, K, S, seed=1))
     dA1, dA2, dZ = map(_t, _cotangents(N, S, S * C, seed=1))
@@ -294,6 +343,7 @@ def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
 
     monkeypatch.setattr(torch, "empty", recording_empty)
     tfl.reset_launch_counts()
+    F = K + S * C
     for with_a2 in (True, False):
         n_a2 = S if with_a2 else 0
         p = tfl.f64_plan(N, G, K, n_a2, S * C)
@@ -303,16 +353,17 @@ def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
             tfl.kernel_gene(Y.to(storage), psi, W, muL, dA1, dA2 if with_a2 else None, dZ)
             assert sum(t.numel() for t in allocated) == p["gene_workspace"]
             assert all(t.dtype == F64 for t in allocated)
-            F = K + S * C + n_a2
-            assert [t.numel() for t in allocated] == [p["gene_workspace"] - F * G, F * G]
+            assert [t.numel() for t in allocated] == [p["gene_workspace"] - (F + n_a2) * G,
+                                                      (F + n_a2) * G]
             if p["split"]:
-                assert p["gene_workspace"] - F * G == p["part"] + 2 * p["rows"] * p["ldw"]
-                assert p["part"] == (0 if p["gslices"] == 1 else 2 * -(-p["gslices"] * F * G // 2))
+                assert p["gene_workspace"] - (F + n_a2) * G == (
+                    p["part"] + 2 * p["rows"] * p["ldw"] + p["dsplit"] * p["rows"] * K)
+                assert p["part"] == (0 if p["gslices"] == 1
+                                     else 2 * -(-p["gslices"] * (F + n_a2) * G // 2))
             args = lib.calls.pop("fl64_backward_gene")
-            assert list(args[9]) == want and args[-2] == tfl.Y_DTYPES_F64[storage]
-            assert len(want) == len(tfl.F64_PLAN_KEYS) == 31
-            assert [p[k] for k in ("f_yt", "f_nt", "g_st", "g_nk", "g_nt")] == [
-                args[9][tfl.F64_PLAN_KEYS.index(k)] for k in ("f_yt", "f_nt", "g_st", "g_nk", "g_nt")]
+            assert args[7] is None  # no dpsi
+            assert list(args[10]) == want and args[-2] == tfl.Y_DTYPES_F64[storage]
+            assert len(want) == len(tfl.F64_PLAN_KEYS) == 35
             allocated.clear()
             tfl.kernel_forward(Y.to(storage), psi, W, log_mu if with_a2 else None, muL)
             assert [t.shape for t in allocated] == [(N,), *([(N, S)] if with_a2 else []),
@@ -330,11 +381,37 @@ def test_f64_plan_is_what_the_wrappers_hand_the_library(monkeypatch, shape):
         assert [t.shape for t in allocated] == [(N, K), (p["dpsi_workspace"],)]
         assert all(t.dtype == F64 for t in allocated)
         assert args[7].value == allocated[-1].data_ptr()
-    counts = (tfl.fwd_f64_launches, tfl.dpsi_f64_launches, tfl.gene_f64_launches)
-    assert counts == (2 * len(STORAGES), int(K > 0), 2 * len(STORAGES))
+    counts = (tfl.fwd_f64_launches, tfl.dpsi_f64_launches, tfl.gene_f64_launches,
+              tfl.split_f64_launches)
+    assert counts == (2 * len(STORAGES), int(K > 0), 2 * len(STORAGES), 0)
     assert not lib.calls
-    assert (tfl.fwd_launches, tfl.dpsi_launches, tfl.gene_launches, tfl.fwd_wide_launches,
-            tfl.dpsi_wide_launches, tfl.gene_wide_launches) == (0,) * 6
+    # the autograd function's backward: past the old bound one call for
+    # dpsi and the gene part, else kernel_dpsi's and kernel_gene's
+    for with_a2 in (True, False):
+        n_a2 = S if with_a2 else 0
+        p = tfl.f64_plan(N, G, K, n_a2, S * C)
+        tfl.reset_launch_counts()
+        allocated.clear()
+        YW = _t(np.zeros((N, K)))
+        tfl.kernel_backward(Y.to(torch.int8), psi, W, muL, dA1, dA2 if with_a2 else None, dZ, YW)
+        if p["split"]:
+            args = lib.calls.pop("fl64_backward_gene")
+            assert [t.shape for t in allocated] == [(N, K), (p["bwd_workspace"] - (F + n_a2) * G,),
+                                                    (F + n_a2, G)]
+            assert args[7].value == allocated[0].data_ptr() or K == 0
+            assert args[8].value == allocated[1].data_ptr() or allocated[1].numel() == 0
+            assert list(args[10]) == [p[k] for k in tfl.F64_PLAN_KEYS]
+            assert args[-2] == tfl.Y_DTYPES_F64[torch.int8]
+            counts = (0, 0, 0, 1)
+        else:
+            assert lib.calls.pop("fl64_backward_gene")[7] is None
+            assert (lib.calls.pop("fl64_backward_dpsi", None) is None) == (K == 0)
+            counts = (0, int(K > 0), 1, 0)
+        assert not lib.calls
+        assert (tfl.fwd_f64_launches, tfl.dpsi_f64_launches, tfl.gene_f64_launches,
+                tfl.split_f64_launches) == counts
+        assert (tfl.fwd_launches, tfl.dpsi_launches, tfl.gene_launches, tfl.fwd_wide_launches,
+                tfl.dpsi_wide_launches, tfl.gene_wide_launches, tfl.split_launches) == (0,) * 7
     # float32 operands: the float32 family's entry points, as before
     f32 = [t.float() for t in (Y, psi, W, muL)]
     tfl.kernel_forward(f32[0], f32[1], f32[2], None, f32[3])
@@ -479,12 +556,12 @@ def _pack_dpsi(W, muL, p):
     """dpsi_f64_pack_kernel's table as (k-steps, tiles, lanes, 2): for each
     k-step of 8 genes, every group's muL^T tiles (lane (g, t): gene g at
     columns 8 tile + t, + 4), dpsi's W tiles in C-to-A order (lane (g, t):
-    genes 2t, 2t + 1 at column 8 kc + g; every output group's) and, past
-    d_nk 1, log_rfe's W^T tiles (lane (g, t): gene g at columns 8 kc + t, +
-    4; d_lr of them); zero past G and every width."""
+    genes 2t, 2t + 1 at column 8 kc + g) and, past d_nk 1, log_rfe's W^T
+    tiles (lane (g, t): gene g at columns 8 kc + t, + 4; d_nk of them);
+    zero past G and every width."""
     (G, Kf), SC = W.shape, muL.shape[1]
-    nz_all, nk = p["d_groups"] * p["d_nz"], p["d_kgroups"] * p["d_nk"]
-    tiles = nz_all + nk + p["d_lr"]
+    nz_all, nk = p["d_groups"] * p["d_nz"], p["d_nk"]
+    tiles = nz_all + nk + (nk if nk > 1 else 0)
     steps = -(-G // (8 * p["d_steps"])) * p["d_steps"]
     at = lambda M, r, c: M[r, c] if r < M.shape[0] and c < M.shape[1] else 0.0  # noqa: E731
     table = np.zeros((steps, tiles, 32, 2))
@@ -556,6 +633,66 @@ def _emulate_gene(Y, psi, W, muL, dA1, dA2, dZ, p):
     return total[:Kf].T, (total[Kf + SC:] if n_a2 else None), total[Kf:Kf + SC].T
 
 
+def _staged(a, b):
+    """a (M, K) b (K, N) summed over stages of 16 of K in order (the split
+    kernels' tiled products)."""
+    out = np.zeros((a.shape[0], b.shape[1]))
+    for k in range(0, a.shape[1], 16):
+        out = out + a[:, k:k + 16] @ b[k:k + 16]
+    return out
+
+
+def _ranged(t, w, n, genes):
+    """dpsi_product_f64_kernel and dpsi_sum_f64_kernel: t w over n ranges of
+    ``genes`` genes (each a staged product), the ranges' sums added in
+    order."""
+    out = 0.0
+    for z in range(n):
+        g = slice(z * genes, min(w.shape[0], (z + 1) * genes))
+        out = out + _staged(t[:, g], w[g])
+    return out
+
+
+def _row_blocks(N, p):
+    return [slice(b0, min(N, b0 + p["rows"])) for b0 in range(0, N, p["rows"])]
+
+
+def _emulate_forward_split(Y, psi, W, log_mu, muL, p):
+    """The split forward's sums: for each row block of ``rows`` cells,
+    log_rfe = psi W^T over stages of 16 of [psi, X]'s columns, A1 the row's
+    sums of Y log_rfe over each 32 genes added in order
+    (dlog_rfe_f64_kernel<YT, 2> and reduce_chunks_f64_kernel), Z = rfe muL
+    over the plan's zsplit gene ranges (:func:`_ranged`); Y W and A2 by
+    fwd_f64_kernel's groups of Y tiles (:func:`_emulate_forward`)."""
+    N, G = Y.shape
+    A1, Z = np.zeros(N), np.zeros((N, muL.shape[1]))
+    for rows in _row_blocks(N, p):
+        lr = _staged(psi[rows], W.T)
+        yl = Y[rows] * lr
+        for g0 in range(0, G, 32):
+            A1[rows] = A1[rows] + yl[:, g0:g0 + 32].sum(1)
+        Z[rows] = _ranged(np.exp(lr), muL, p["zsplit"], p["zgenes"])
+    _, A2, _, YW = _emulate_forward(Y, psi, W, log_mu, muL[:, :0], p)  # no Z tiles
+    return A1, A2, Z, YW
+
+
+def _emulate_dpsi_split(psi, W, muL, dA1, dZ, YW, p, Y=None):
+    """The split dpsi's sums: for each row block, t = rfe drfe (log_rfe and
+    drfe = dZ muL^T over stages of 16), dpsi = t W over the plan's dsplit
+    gene ranges (:func:`_ranged`), then dA1 YW added last; with Y (the
+    joint backward's one call) dlog_rfe = Y dA1 + rfe drfe in t's place and
+    no dA1 YW."""
+    dpsi = np.zeros(psi.shape)
+    for rows in _row_blocks(psi.shape[0], p):
+        t = np.exp(_staged(psi[rows], W.T)) * _staged(dZ[rows], muL.T)
+        if Y is not None:
+            t = Y[rows] * dA1[rows, None] + t
+        dpsi[rows] = _ranged(t, W, p["dsplit"], p["dgenes"])
+        if Y is None:
+            dpsi[rows] = dpsi[rows] + dA1[rows, None] * YW[rows]
+    return dpsi
+
+
 def _emulate_gene_split(Y, psi, W, muL, dA1, dA2, dZ, p):
     """The split gene part's sums (dlog_rfe_f64_kernel, gene_product_f64_kernel):
     for each row block of ``rows`` cells, log_rfe = psi W^T and drfe = dZ
@@ -566,13 +703,7 @@ def _emulate_gene_split(Y, psi, W, muL, dA1, dA2, dZ, p):
     order, the slices' partial sums added in order, the row blocks' sums
     into the output in order (the first stores)."""
     (N, G), Kf, SC = Y.shape, psi.shape[1], muL.shape[1]
-
-    def staged(a, b):  # a (M, K) b (K, N), summed over stages of 16 of K in order
-        out = np.zeros((a.shape[0], b.shape[1]))
-        for k in range(0, a.shape[1], 16):
-            out = out + a[:, k:k + 16] @ b[k:k + 16]
-        return out
-
+    staged = _staged
     out = None
     for b0 in range(0, N, p["rows"]):
         cells = slice(b0, min(N, b0 + p["rows"]))
@@ -617,8 +748,7 @@ def test_mma_fragment_maps_reproduce_the_product():
     assert all(sorted(genes[t]) == list(range(8 * t, 8 * t + 8)) for t in range(4))
 
 
-@pytest.mark.parametrize("Kf, SC", [(1, 10), (5, 80), (8, 3), (16, 20), (64, 2048), (72, 20),
-                                    (136, 90)])
+@pytest.mark.parametrize("Kf, SC", [(1, 10), (5, 80), (8, 3), (16, 20), (64, 2048)])
 def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
     """One warp's k-step of dpsi_f64_kernel on integers, its operands read
     as the kernel reads them from dpsi_f64_pack_kernel's table (_pack_dpsi)
@@ -628,9 +758,7 @@ def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
     then t = R drfe (R standing in for rfe, whose exp leaves the integers)
     taken from the C fragment into the A fragment (C_TO_A) of dpsi += t W
     against the W tiles: each exactly numpy's product, at 16 cells and the
-    k-step's 8 genes. Past Kf 64 log_rfe's MMAs take every tile of [psi, X]
-    and dpsi's columns go in groups of d_nk tiles, each against its own W
-    tiles."""
+    k-step's 8 genes (up to Kf 64: past it dpsi is the split one)."""
     rng = np.random.default_rng(Kf + SC)
     p = tfl.f64_plan(16, 8, Kf, 0, SC)
     ints = lambda *shape: rng.integers(-4, 5, shape).astype(np.float64)  # noqa: E731
@@ -638,9 +766,9 @@ def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
     table = _pack_dpsi(W, muL, p)[0]
     frag = lambda M, fmap: [[M[r, c] for r, c in fmap(lane)] for lane in range(32)]  # noqa: E731
     pad = lambda M, cols: np.pad(M, ((0, 0), (0, cols - M.shape[1])))  # noqa: E731
-    nz_all, nk, lr = p["d_groups"] * p["d_nz"], p["d_nk"], p["d_lr"]
-    nk_all = p["d_kgroups"] * nk
-    assert p["d_kgroups"] == (1 if Kf <= 64 else -(-Kf // 64)) and (nk == 1 or lr >= -(-Kf // 8))
+    nz_all, nk = p["d_groups"] * p["d_nz"], p["d_nk"]
+    lr = nk if nk > 1 else 0
+    assert nk == 1 or lr >= -(-Kf // 8)
     zero = [[0.0] * 4] * 32
     chains = [zero, zero]  # tile z to chain z mod 2, added last
     for z in range(nz_all):  # dZ's A fragments (n0, j), (n1, j), (n0, j + 4), (n1, j + 4)
@@ -655,13 +783,13 @@ def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
         lrf = zero
         for kc in range(lr):
             lrf = _mma(frag(pad(psi, 8 * lr)[:, 8 * kc:8 * kc + 8], _a_map),
-                       table[nz_all + nk_all + kc], lrf)
+                       table[nz_all + nk + kc], lrf)
         lr = lrf
     np.testing.assert_array_equal(np.array(lr), np.array(frag(psi @ W.T, _c_map)))
     t = [[R[r, c] * d for (r, c), d in zip(_c_map(lane), dr[lane])] for lane in range(32)]
     chained_a = [[v[i] for i in C_TO_A] for v in t]
-    want = (R * (dZ @ muL.T)) @ pad(W, 8 * nk_all)
-    for kc in range(nk_all):  # output group kc // nk, its tile kc % nk
+    want = (R * (dZ @ muL.T)) @ pad(W, 8 * nk)
+    for kc in range(nk):
         got = _mma(chained_a, table[nz_all + kc], zero)
         np.testing.assert_array_equal(np.array(got), np.array(frag(want[:, 8 * kc:8 * kc + 8],
                                                                     _c_map)))
@@ -672,12 +800,14 @@ def test_dpsi_k_step_chain_reproduces_the_product(Kf, SC):
                                    (2100, 20, 33, 1, 66)])
 def test_kernel_order_emulation_meets_the_tolerance(shape):
     """The emulated kernels (column groups, dpsi's term order, the gene
-    part's passes and chunk partials; past the old bound the split gene
-    part's row blocks and cell slices, :func:`_emulate_gene_split`, at the
-    last shape in 9 slices) against reference_likelihood_terms
-    and reference_likelihood_vjp in float64, within ABS_RTOL of each
-    element's absolute-term sum, with A2 on and off: the decomposition the
-    kernels run is the contract's."""
+    part's passes and chunk partials; past the old bound the split
+    forward's, dpsi's and gene part's row blocks, gene ranges and cell
+    slices, :func:`_emulate_forward_split`, :func:`_emulate_dpsi_split`
+    alone and in the one call, :func:`_emulate_gene_split`, at the last
+    shape in 9 slices) against reference_likelihood_terms and
+    reference_likelihood_vjp in float64, within ABS_RTOL of each element's
+    absolute-term sum, with A2 on and off: the decomposition the kernels
+    run is the contract's."""
     N, G, C, K, S = shape
     x = _inputs(N, G, C, K, S, seed=N + G)
     Y, psi, W, log_mu, muL = x
@@ -686,15 +816,16 @@ def test_kernel_order_emulation_meets_the_tolerance(shape):
     for with_a2 in (True, False):
         lm, dA2 = (log_mu, cot[1]) if with_a2 else (None, None)
         p = tfl.f64_plan(N, G, K, S if with_a2 else 0, S * C)
-        got = _emulate_forward(Y, psi, W, lm, muL, p)
+        got = (_emulate_forward_split if p["split"] else _emulate_forward)(Y, psi, W, lm, muL, p)
         want = tfl.reference_likelihood_terms(*(None if a is None else _t(a)
                                                 for a in (Y, psi, W, lm, muL)))
         for name, g, w in zip(("A1", "A2", "Z"), got, want):
             if w is not None:
                 _assert_within(g, w.numpy(), scale[name], name)
         _assert_within(got[3], Y @ W, scale["YW"], "YW")
-        dpsi = _emulate_dpsi(psi, W, muL, cot[0], cot[2], got[3],
-                             tfl.f64_plan(N, G, K, 0, S * C))
+        p0 = tfl.f64_plan(N, G, K, 0, S * C)
+        dpsi = (_emulate_dpsi_split if p0["split"] else _emulate_dpsi)(
+            psi, W, muL, cot[0], cot[2], got[3], p0)
         gene = (_emulate_gene_split if p["split"] else _emulate_gene)(
             Y, psi, W, muL, cot[0], dA2, cot[2], p)
         want = tfl.reference_likelihood_vjp(*(None if a is None else _t(a) for a in
@@ -702,6 +833,73 @@ def test_kernel_order_emulation_meets_the_tolerance(shape):
         for name, g, w in zip(("dpsi", "dW", "dlog_mu", "dmuL"), (dpsi, *gene), want):
             if w is not None:
                 _assert_within(g, w.numpy(), scale[name], name)
+        if p["split"]:  # kernel_backward's one call: dpsi from the gene part's dlog_rfe
+            joint = _emulate_dpsi_split(psi, W, muL, cot[0], cot[2], None, p, Y=Y)
+            _assert_within(joint, want[0].numpy(), scale["dpsi"], "dpsi (one call)")
+
+
+def _past_inputs(N, G, Kf, n_a2, SC, seed):
+    """Y, psi, W, log_mu (n_a2 x G, possibly empty), muL (G x SC) and the
+    cotangents dA1, dA2, dZ at a plan's widths (:func:`_inputs`' recipe)."""
+    rng = np.random.default_rng(seed)
+    Y = rng.poisson(3.0, (N, G)).astype(np.float64)
+    psi = rng.normal(0, 1, (N, Kf))
+    W = rng.normal(0, 0.3 / np.sqrt(max(Kf, 1)), (G, Kf))
+    log_mu = rng.normal(0, 0.5, (n_a2, G))
+    muL = rng.lognormal(0, 0.5, (G, SC)) * rng.integers(1, 5, (G, SC))
+    return (Y, psi, W, log_mu, muL), (rng.normal(size=N), rng.normal(size=(N, n_a2)),
+                                      rng.normal(size=(N, SC)))
+
+
+# PAST_PLAN_SHAPES small enough for the CPU (at most 1e6 cells x genes)
+SMALL_PAST_PLAN_SHAPES = [s for s in PAST_PLAN_SHAPES if s[0] * s[1] <= 1_000_000]
+
+
+@pytest.mark.parametrize("blocks", ["plan", "small"])
+@pytest.mark.parametrize("shape", SMALL_PAST_PLAN_SHAPES)
+def test_split_sum_order_meets_the_tolerance_against_jax(shape, blocks, jax_ops):
+    """The split forward's, dpsi's (alone and from the gene part's dlog_rfe
+    in the one call) and gene part's sums in the kernels' order (row
+    blocks, the gene ranges' sums added in order, dA1 YW last, the slices'
+    and row blocks' partial sums in order; :func:`_emulate_forward_split`,
+    :func:`_emulate_dpsi_split`, :func:`_emulate_gene_split`) against the
+    JAX package's plain float64 likelihood terms and jax.vjp of them (CPU,
+    x64), within ABS_RTOL of each element's absolute-term sum, at
+    f64_plan's row blocks and gene ranges and (``small``) at row blocks of
+    64 cells, gene ranges of 32 genes and cell slices of 32, so that every
+    order has several terms at a small shape."""
+    jax, jnp, jfl = jax_ops
+    N, G, Kf, n_a2, SC = shape
+    x, cot = _past_inputs(N, G, Kf, n_a2, SC, seed=N + Kf + SC)
+    Y, psi, W, log_mu, muL = x
+    values, vjp = jax.vjp(lambda *a: jfl.reference_likelihood_terms(jnp.asarray(Y), *a),
+                          *(jnp.asarray(a) for a in x[1:]))
+    want_f = [np.asarray(v) for v in values]
+    want_b = [np.asarray(v) for v in vjp(tuple(jnp.asarray(c) for c in cot))]
+    scale = _scales(*x, *cot)
+    p = tfl.f64_plan(N, G, Kf, n_a2, SC)
+    p0 = tfl.f64_plan(N, G, Kf, 0, SC)
+    if blocks == "small":
+        small = dict(rows=64, dsplit=-(-G // 32), dgenes=32, zsplit=-(-G // 32), zgenes=32,
+                     gslices=1, gcells=64)
+        p, p0 = dict(p, **small), dict(p0, **small)
+    assert p["split"]
+    A1, A2, Z, YW = _emulate_forward_split(Y, psi, W, log_mu if n_a2 else None, muL, p)
+    for name, got, want in (("A1", A1, want_f[0]), ("Z", Z, want_f[2]), ("YW", YW, Y @ W)):
+        _assert_within(got, want, scale[name] if name != "YW" else Y @ np.abs(W), name)
+    if n_a2:
+        _assert_within(A2, want_f[1], scale["A2"], "A2")
+    dA1, dA2, dZ = cot
+    joint = _emulate_dpsi_split(psi, W, muL, dA1, dZ, None, p, Y=Y)
+    _assert_within(joint, want_b[0], scale["dpsi"], "dpsi (one call)")
+    if p0["split"]:
+        alone = _emulate_dpsi_split(psi, W, muL, dA1, dZ, YW, p0)
+        _assert_within(alone, want_b[0], scale["dpsi"], "dpsi alone")
+    dW, dlog_mu, dmuL = _emulate_gene_split(Y, psi, W, muL, dA1, dA2 if n_a2 else None, dZ, p)
+    _assert_within(dW, want_b[1], scale["dW"], "dW")
+    _assert_within(dmuL, want_b[3], scale["dmuL"], "dmuL")
+    if n_a2:
+        _assert_within(dlog_mu, want_b[2], scale["dlog_mu"], "dlog_mu")
 
 
 # --- the sweep's reckoning --------------------------------------------------
@@ -861,12 +1059,15 @@ def _on_card(shape, storage, seed):
 def test_cuda_f64_kernels_match_plain(cuda, shape, storage):
     """The float64 forward, dpsi and gene part against the plain float64
     versions on the card, Y in ``storage``, A2 on and off: within ABS_RTOL
-    of each element's absolute-term sum, every launch a float64 one."""
+    of each element's absolute-term sum, every launch a float64 one (past
+    the old bound the backward kernel_backward's one call, and dpsi alone,
+    the split one's t-only form, held to the plain VJP's too)."""
     x, cot, Y, (psi, W, log_mu, muL), (dA1, dA2, dZ) = _on_card(shape, storage, seed=sum(shape))
     scale = _scales(*x, *cot)
-    K = shape[3]
+    N, G, C, K, S = shape
     for with_a2 in (True, False):
         lm, d2 = (log_mu, dA2) if with_a2 else (None, None)
+        past = tfl.split_route(K, S if with_a2 else 0, S * C)
         tfl.reset_launch_counts()
         got = tfl.kernel_forward(Y, psi, W, lm, muL)
         want = tfl.reference_likelihood_terms(Y, psi, W, lm, muL)
@@ -880,10 +1081,12 @@ def test_cuda_f64_kernels_match_plain(cuda, shape, storage):
         for name, g, w in zip(("dpsi", "dW", "dlog_mu", "dmuL"), back, want):
             if w is not None:
                 _assert_within(g.cpu(), w.cpu(), scale[name], name)
-        assert (tfl.fwd_f64_launches, tfl.dpsi_f64_launches, tfl.gene_f64_launches) == (
-            1, int(K > 0), 1)
+        assert (tfl.fwd_f64_launches, tfl.dpsi_f64_launches, tfl.gene_f64_launches,
+                tfl.split_f64_launches) == ((1, 0, 0, 1) if past else (1, int(K > 0), 1, 0))
         assert (tfl.fwd_launches, tfl.dpsi_launches, tfl.gene_launches, tfl.fwd_wide_launches,
-                tfl.dpsi_wide_launches, tfl.gene_wide_launches) == (0,) * 6
+                tfl.dpsi_wide_launches, tfl.gene_wide_launches, tfl.split_launches) == (0,) * 7
+        alone = tfl.kernel_dpsi(psi, W, muL, dA1, dZ, got[3])
+        _assert_within(alone.cpu(), want[0].cpu(), scale["dpsi"], "dpsi alone")
 
 
 @pytest.mark.cuda
@@ -894,9 +1097,11 @@ def test_cuda_f64_kernels_match_plain(cuda, shape, storage):
 def test_cuda_f64_kernels_are_deterministic(cuda, shape):
     """Each float64 kernel is bit-identical across two launches (no
     atomics; the chunks' partial sums are added in a fixed order); past
-    the old bound the split gene part too, its slices' partial sums and
-    its row blocks added in order (one row block in slices at 2,100 x 200,
-    two row blocks at 45,000 x 100, A2 on: every width past the bound)."""
+    the old bound the split forward, dpsi alone, the gene part and
+    kernel_backward's one call too, their slices' partial sums, gene
+    ranges' sums and row blocks added in order (one row block in slices at
+    2,100 x 200, two row blocks at 45,000 x 100, A2 on: every width past
+    the bound)."""
     N, G, C, K, S = shape
     if K > 64 or S > 64 or S * C > 2048:
         p = tfl.f64_plan(N, G, K, S, S * C)
@@ -912,6 +1117,9 @@ def test_cuda_f64_kernels_are_deterministic(cuda, shape):
     gene = [tfl.kernel_gene(Y, psi, W, muL, dA1, dA2, dZ) for _ in range(2)]
     for a, b in zip(*gene):
         assert torch.equal(a, b)
+    back = [tfl.kernel_backward(Y, psi, W, muL, dA1, dA2, dZ, YW) for _ in range(2)]
+    for a, b in zip(*back):
+        assert a is None or torch.equal(a, b)
 
 
 class _NumpyNoise:

@@ -223,7 +223,11 @@ def test_widths_past_the_old_bound_are_taken_on_cuda(monkeypatch, K, P, S, C):
     _setup_passes_the_contract_on_cuda(monkeypatch, sim.Y, sim.L, x=x, K=K, mc_samples=S)
     for n_a2 in (S, 0):
         assert tfl.wide_plan(30, 20, K + P, n_a2, S * C)["n_zt"] == -(-S * C // 8)
-        assert tfl.f64_plan(30, 20, K + P, n_a2, S * C)["f_tiles"] >= -(-S * C // 8)
+        p = tfl.f64_plan(30, 20, K + P, n_a2, S * C)
+        # Z's tiles in the forward's groups, or past the bound its gene
+        # ranges (every gene of each row block's product)
+        assert (p["zsplit"] * p["zgenes"] >= 20 if p["split"]
+                else p["f_tiles"] >= -(-S * C // 8))
 
 
 # --- fits at a wide shape on the CPU ------------------------------------------
@@ -364,9 +368,10 @@ def test_sweep_bytes_hold_the_grouped_workspace_past_the_old_bound():
     one row block and the ranges' sums), and the forward's (the split
     forward's: the Y products' table, A1's partial sums, its row block of
     rfe and its 5 gene ranges' sums of Z, 1,664 x S C each; every forward,
-    z_cheb's too); in float64 the float64 family's, the split gene part's
-    two row blocks of 832 cells (half the float32 one's) and its output.
-    "auto" still runs these lanes together at three restarts."""
+    z_cheb's too); in float64 the float64 family's one call for both parts:
+    the row block of rfe and dlog_rfe of 832 cells (half the float32
+    one's), dpsi's 14 gene ranges' sums and its output. "auto" still runs
+    these lanes together at three restarts."""
     N, G, C, K, P, S = 100_000, 5_000, 10, 2, 70, 66
     Kf, SC = K + P, S * C
     p = tfl.wide_plan(N, G, Kf, 0, SC)
@@ -391,10 +396,12 @@ def test_sweep_bytes_hold_the_grouped_workspace_past_the_old_bound():
         assert sweep(n_lanes) - sweep(n_lanes, z_cheb=True) == 4 * bwd - block
         assert sweep(n_lanes) - sweep(0) == sweep(n_lanes, z_cheb=True) - sweep(0, z_cheb=True)
         p64 = tfl.f64_plan(N, G, Kf, 0, SC)
-        assert (p64["split"], p64["rows"], p64["n_chunks"], p64["d_kgroups"]) == (1, 832, 121, 2)
-        assert p64["gene_workspace"] == 2 * 832 * G + F * G
+        assert (p64["split"], p64["rows"], p64["n_chunks"], p64["dsplit"], p64["zsplit"]) == (
+            1, 832, 121, 14, 5)
+        assert p64["bwd_workspace"] == p64["gene_workspace"] == (
+            2 * 832 * G + 14 * 832 * Kf + F * G)
         assert (sweep(n_lanes, itemsize=8) - sweep(n_lanes, True, itemsize=8)
-                == 8 * (p64["gene_workspace"] + p64["dpsi_workspace"] - tmm._CHUNK_ELEMENTS))
+                == 8 * (p64["bwd_workspace"] - tmm._CHUNK_ELEMENTS))
     assert trestarts._auto_restart_batching(N, G, C, K, S, 3, 4, "cuda", 1, P) == "vmap"
 
 

@@ -35,10 +35,13 @@ from ``chip_smoke.kernel_inputs``.
 With ``--past`` it times the kernels past the old bound at ``chip_smoke``'s
 full-width fit past it (int8 Y, Kf 72, S*C 660, A2 off): ``fwd_ms``
 (``kernel_forward``), ``bwd_ms`` (``kernel_backward``, the fit's one call)
-and the float64 gene part (``kernel_gene``) as ``gene_f64_ms``; where the
-package's forward is the split one (``fl._split_fwd_workspace``), the forward
-also with its Z product in each count of gene ranges of ``PAST_ZSPLITS``,
-set in its plan (``fwd_ms`` takes the count ``wide_plan`` picks).
+and in float64 ``fwd_f64_ms``, ``dpsi_f64_ms`` (``kernel_dpsi``),
+``gene_f64_ms`` (``kernel_gene``) and ``bwd_f64_ms`` (``kernel_backward``:
+the fit's one call where the package has it, else dpsi and the gene part);
+where the package's forward is the split one (``fl._split_fwd_workspace``),
+the float32 forward also with its Z product in each count of gene ranges
+of ``PAST_ZSPLITS``, set in its plan (``fwd_ms`` takes the count
+``wide_plan`` picks).
 
 With ``--zgroups`` it times, within the old bound (``ZGROUP_WIDTHS``, int8
 Y, A2 off), ``fwd_wide_kernel``'s Z groups beside the split forward at the
@@ -155,9 +158,19 @@ def time_past(fl) -> dict:
     x64 = {k: v.double() for k, v in x.items() if k != "Y"}
     del x
     torch.cuda.empty_cache()
-    out["gene_f64_ms"] = cuda_ms(lambda: fl.kernel_gene(Y, x64["psi"], x64["W"], x64["muL"],
-                                                        x64["dA1"], None, x64["dZ"]),
+    psi, W, muL, dA1, dZ = (x64[k] for k in ("psi", "W", "muL", "dA1", "dZ"))
+
+    def forward64():
+        return fl.kernel_forward(Y, psi, W, None, muL)
+
+    out["fwd_f64_ms"] = cuda_ms(forward64, reps=3, batch=3)
+    YW = forward64()[3]
+    out["dpsi_f64_ms"] = cuda_ms(lambda: fl.kernel_dpsi(psi, W, muL, dA1, dZ, YW), reps=3,
+                                 batch=3)
+    out["gene_f64_ms"] = cuda_ms(lambda: fl.kernel_gene(Y, psi, W, muL, dA1, None, dZ),
                                  reps=3, batch=3)
+    out["bwd_f64_ms"] = cuda_ms(lambda: fl.kernel_backward(Y, psi, W, muL, dA1, None, dZ, YW),
+                                reps=3, batch=3)
     return out
 
 
